@@ -1,0 +1,329 @@
+"""Config-file CLI of the port: ``task=serve`` only.
+
+The port of ``lightgbm_tpu/__main__.py``'s serving front end.  It loads a
+packed ``.npz`` model (written by either package), builds the
+ModelBank-backed PredictorRuntime + micro-batching queue and serves
+newline-delimited requests from stdin to stdout — one CSV row (or JSON
+array) of features in, one prediction out, no network dependency:
+
+    python -m lightgbm_tpu_torch task=serve input_model=model.npz \
+        max_batch=256 max_delay_ms=2 < requests.csv > preds.txt
+
+Keys are the reference's (``output_format``, ``raw_score``,
+``num_iteration``, ``request_timeout_ms``, ``show_stats``, ``max_bucket``,
+``max_cache_entries``, ``warm_buckets``, ``max_queue_depth``,
+``shed_policy``, ``canary_rows``, ``compile_cache_dir`` (a no-op here),
+``mesh_devices`` (must be 1), ``shard_policy``, ``forest_precision``) plus
+``device=cuda|cpu`` (default cuda; with no card, cuda fails at startup).
+``!swap <model.npz>`` / ``!rollback`` / ``!stats`` request lines are
+control commands (acks on stderr); SIGTERM drains gracefully; a kernel
+that fails to build or launch stops the server with a non-zero exit.  Config
+format: one ``key = value`` per line, ``#`` comments; command-line
+``key=value`` pairs override a ``config=`` file.  Every other task exits
+with a "not ported yet" message.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def parse_config_text(text: str) -> Dict[str, str]:
+    out: Dict[str, str] = {}
+    for line in text.splitlines():
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        if "=" not in line:
+            raise ValueError(f"config line without '=': {line!r}")
+        k, v = line.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out
+
+
+def parse_argv(argv: List[str]) -> Dict[str, str]:
+    """``key=value`` pairs; a ``config=`` file loads first, CLI overrides."""
+    pairs: Dict[str, str] = {}
+    for a in argv:
+        if "=" not in a:
+            raise ValueError(f"expected key=value, got {a!r}")
+        k, v = a.split("=", 1)
+        pairs[k.strip()] = v.strip()
+    cfg: Dict[str, str] = {}
+    if "config" in pairs:
+        with open(pairs.pop("config")) as f:
+            cfg = parse_config_text(f.read())
+    cfg.update(pairs)
+    return cfg
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    raw = list(sys.argv[1:] if argv is None else argv)
+    try:
+        cfg = parse_argv(raw)
+    except (ValueError, OSError) as e:
+        raise SystemExit(
+            f"lightgbm_tpu_torch: {e}\nusage: python -m lightgbm_tpu_torch "
+            "task=serve input_model=<model.npz> key=value ... "
+            "(or config=<file>; see module docs)") from None
+    task = cfg.pop("task", "train")
+    input_model = cfg.pop("input_model", None)
+    if task in ("serve", "predict-server"):
+        if input_model is None:
+            raise SystemExit("task=serve requires input_model=<model.npz>")
+        return _serve(input_model, cfg)
+    raise SystemExit(
+        f"task={task} is not ported yet: lightgbm_tpu_torch serves only "
+        "(task=serve); use python -m lightgbm_tpu for the other tasks")
+
+
+def _parse_request_line(line: str) -> Optional[np.ndarray]:
+    """One request: CSV floats or a JSON array; blank/comment -> None."""
+    line = line.strip()
+    if not line or line.startswith("#"):
+        return None
+    if line.startswith("["):
+        import json
+
+        return np.asarray(json.loads(line), dtype=np.float64)
+    return np.asarray(
+        [np.nan if c.strip() in ("", "NA", "na", "NaN") else float(c)
+         for c in line.split(",")], dtype=np.float64)
+
+
+_SERVE_MODEL = "default"        # single-tenant CLI name in the ModelBank
+
+
+def _serve(input_model: str, cfg: Dict[str, str],
+           stdin=None, stdout=None, stderr=None) -> int:
+    """Micro-batched stdin/stdout serving loop (no network dependency).
+
+    Reads one request per line, coalesces through MicroBatcher, answers
+    in submission order.  Separated from main() with injectable streams
+    so the loop is Tier-1-testable in-process.
+
+    The model lives in a ModelBank, so lines starting with ``!`` are
+    control commands (acks on stderr, so the prediction stream stays
+    clean): ``!swap <model.npz>`` hot-swaps to a new artifact
+    (validate -> warm -> canary -> atomic flip; a rejected swap leaves
+    the current version serving), ``!rollback`` flips back to the
+    previous resident version, ``!stats`` prints a stats snapshot.
+
+    SIGTERM drains gracefully: stop admitting, flush in-flight requests,
+    emit a final stats snapshot on stderr.
+    """
+    import json
+    import signal
+
+    from .device import NoDeviceError
+    from .kernels import KernelError
+    from .serving import (FOREST_PRECISIONS, SHARD_POLICIES, SHED_POLICIES,
+                          ModelBank, SwapRejected)
+
+    stdin = sys.stdin if stdin is None else stdin
+    stdout = sys.stdout if stdout is None else stdout
+    stderr = sys.stderr if stderr is None else stderr
+
+    def flag(key: str, default: bool = False) -> bool:
+        return cfg.pop(key, str(default)).lower() in ("true", "1", "yes")
+
+    def die(msg: str) -> "SystemExit":
+        return SystemExit(f"task=serve: {msg}")
+
+    max_batch = int(cfg.pop("max_batch", "128"))
+    max_delay_ms = float(cfg.pop("max_delay_ms", "2"))
+    max_bucket = int(cfg.pop("max_bucket", "16384"))
+    max_cache = int(cfg.pop("max_cache_entries", "12"))
+    out_format = cfg.pop("output_format", "csv")
+    raw_score = flag("raw_score")
+    show_stats = flag("show_stats")
+    warm_buckets = flag("warm_buckets")
+    tmo = cfg.pop("request_timeout_ms", None)
+    timeout_ms = None if tmo is None else float(tmo)
+    num_it = cfg.pop("num_iteration", None)
+    num_iteration = None if num_it is None else int(num_it)
+    # -- resilience knobs, validated up front: a typo'd operating
+    # -- point fails the process at startup, not under load
+    depth_s = cfg.pop("max_queue_depth", "none").lower()
+    try:
+        max_queue_depth = None if depth_s in ("none", "") else int(depth_s)
+    except ValueError:
+        raise die(f"max_queue_depth must be an integer or 'none', "
+                  f"got {depth_s!r}") from None
+    if max_queue_depth is not None and max_queue_depth < 1:
+        raise die(f"max_queue_depth must be >= 1, got {max_queue_depth}")
+    shed_policy = cfg.pop("shed_policy", "deadline")
+    if shed_policy not in SHED_POLICIES:
+        raise die(f"shed_policy must be one of {'|'.join(SHED_POLICIES)},"
+                  f" got {shed_policy!r}")
+    try:
+        canary_rows = int(cfg.pop("canary_rows", "8"))
+    except ValueError:
+        raise die("canary_rows must be an integer") from None
+    if canary_rows < 0:
+        raise die(f"canary_rows must be >= 0, got {canary_rows}")
+    cache_dir = cfg.pop("compile_cache_dir", None)
+    device = cfg.pop("device", "cuda")
+    if device not in ("cuda", "cpu"):
+        raise die(f"device must be cuda|cpu, got {device!r}")
+    try:
+        mesh_devices = int(cfg.pop("mesh_devices", "1"))
+    except ValueError:
+        raise die("mesh_devices must be an integer") from None
+    if mesh_devices < 1 or (mesh_devices & (mesh_devices - 1)):
+        raise die(f"mesh_devices must be a power of two >= 1, "
+                  f"got {mesh_devices}")
+    shard_policy = cfg.pop("shard_policy", "auto")
+    if shard_policy not in SHARD_POLICIES:
+        raise die(f"shard_policy must be one of "
+                  f"{'|'.join(SHARD_POLICIES)}, got {shard_policy!r}")
+    forest_precision = cfg.pop("forest_precision", "f32")
+    if forest_precision not in FOREST_PRECISIONS:
+        raise die(f"forest_precision must be one of "
+                  f"{'|'.join(FOREST_PRECISIONS)}, got "
+                  f"{forest_precision!r}")
+    if cfg:
+        raise die(f"unknown key(s): {', '.join(sorted(cfg))}")
+
+    if mesh_devices != 1:
+        raise die(f"mesh_devices={mesh_devices}: multi-device serving is "
+                  "not ported yet (a later slice)")
+    try:
+        bank = ModelBank(max_bucket=max_bucket, max_cache_entries=max_cache,
+                         warm_on_deploy=warm_buckets,
+                         canary_rows=canary_rows, cache_dir=cache_dir,
+                         shard_policy=shard_policy,
+                         forest_precision=forest_precision, device=device)
+    except NoDeviceError as e:
+        raise die(str(e)) from None
+
+    def deploy(path: str) -> dict:
+        if not path.endswith(".npz"):
+            raise SwapRejected(
+                "ingest", f"{path}: only packed .npz artifacts are served; "
+                "JSON text models need the training slice, not ported yet")
+        return bank.deploy(_SERVE_MODEL, path, raw_score=raw_score)
+
+    try:
+        rep = deploy(input_model)
+    except SwapRejected as e:
+        raise die(f"input_model rejected: {e}") from None
+    except KernelError as e:
+        raise die(f"kernel failure, serving not started: {e}") from e
+    if warm_buckets:
+        # the ladder ran inside deploy(), before the first request
+        stderr.write(f"[lightgbm_tpu] warmed {rep['warmed']} bucket "
+                     f"programs\n")
+        stderr.flush()
+    batcher = bank.batcher(_SERVE_MODEL, max_batch=max_batch,
+                           max_delay_ms=max_delay_ms,
+                           timeout_ms=timeout_ms, raw_score=raw_score,
+                           max_queue_depth=max_queue_depth,
+                           shed_policy=shed_policy)
+    stats = batcher.stats
+
+    def emit(pending) -> None:
+        try:
+            v = pending.result()
+        except Exception as e:                    # noqa: BLE001
+            stdout.write(f"ERROR: {type(e).__name__}: {e}\n")
+            return
+        v = np.atleast_1d(np.asarray(v, np.float64))
+        if out_format == "json":
+            stdout.write(json.dumps(
+                v.tolist() if v.size > 1 else float(v[0])) + "\n")
+        else:
+            stdout.write(",".join(f"{x:.10g}" for x in v) + "\n")
+
+    def control(line: str) -> None:
+        parts = line[1:].split()
+        cmd = parts[0] if parts else ""
+        try:
+            if cmd == "swap" and len(parts) == 2:
+                r = deploy(parts[1])
+                stderr.write(f"[lightgbm_tpu] swapped {_SERVE_MODEL} -> "
+                             f"{r['version']}\n")
+            elif cmd == "rollback":
+                r = bank.rollback(_SERVE_MODEL)
+                stderr.write(f"[lightgbm_tpu] rolled back {_SERVE_MODEL} "
+                             f"-> {r['version']}\n")
+            elif cmd == "stats":
+                stderr.write(json.dumps(stats.snapshot()) + "\n")
+            else:
+                stderr.write(f"[lightgbm_tpu] unknown control "
+                             f"{line.strip()!r} (!swap <path> | "
+                             f"!rollback | !stats)\n")
+        except SwapRejected as e:
+            # the old version never stopped serving
+            stderr.write(f"[lightgbm_tpu] {e}\n")
+        stderr.flush()
+
+    draining = False
+
+    def _on_term(signum, frame):                   # noqa: ARG001
+        nonlocal draining
+        draining = True
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:                             # not the main thread
+        prev_handler = None
+
+    pendings = []
+    try:
+        for line in stdin:
+            if draining:
+                break                              # stop admitting
+            if line.lstrip().startswith("!"):
+                control(line)
+                continue
+            try:
+                row = _parse_request_line(line)
+            except (ValueError, json.JSONDecodeError) as e:
+                pendings.append(_failed_pending(e))
+                continue
+            if row is None:
+                continue
+            pendings.append(batcher.submit(row,
+                                           num_iteration=num_iteration))
+            batcher.pump()
+            # stream out everything already resolved, in order
+            while pendings and pendings[0].done:
+                emit(pendings.pop(0))
+        # graceful drain (SIGTERM or EOF): flush in-flight, answer all
+        batcher.flush()
+        for p in pendings:
+            emit(p)
+        stdout.flush()
+    except KernelError as e:
+        # a kernel that fails to build or launch stops the server instead
+        # of having its answers computed on the host
+        while pendings and pendings[0].done:
+            emit(pendings.pop(0))
+        stdout.flush()
+        raise die(f"kernel failure, serving stopped: {e}") from e
+    finally:
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+    if draining:
+        stderr.write(f"[lightgbm_tpu] drained on SIGTERM "
+                     f"({len(pendings)} in-flight flushed)\n")
+    if show_stats or draining:
+        stderr.write(json.dumps(stats.snapshot()) + "\n")
+        stderr.flush()
+    return 0
+
+
+def _failed_pending(e: Exception):
+    from .serving import PendingPrediction
+
+    p = PendingPrediction()
+    p._set(error=e)
+    return p
+
+
+if __name__ == "__main__":
+    sys.exit(main())

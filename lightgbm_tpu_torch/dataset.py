@@ -1,0 +1,366 @@
+"""Edge binning — the port's copy of the binning half of ``lightgbm_tpu/dataset.py``.
+
+The serving path bins raw rows on the host with the same bin bounds the
+trainer used, so this module keeps the reference's :class:`BinMapper`
+(``fit``, ``transform``, ``to_dict``/``from_dict``), its Exclusive Feature
+Bundling :class:`FeatureBundler` (``merge``, ``fit``) and the quantile
+helpers byte for byte: bin codes must be identical in both packages, since
+every prediction is routed on them.  Binning is O(n log n) scalar work per
+feature and stays in numpy; the codes go to the device as ``uint8``.
+``Dataset`` is training-side and waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+
+
+class FeatureBundler:
+    """Exclusive Feature Bundling (EFB) — LightGBM's sparse-feature trick.
+
+    Mutually-exclusive sparse features (rarely non-default on the same row)
+    are merged into one histogram column whose bin axis concatenates the
+    members' non-default bin ranges; histogram passes then scale with the
+    number of BUNDLES, not features (upstream ``FindGroups``/``EFB`` in
+    dataset construction; SURVEY.md §2C EFB row, BASELINE.md Criteo config).
+
+    Bundling is a pure host-side recoding at bin time (uint8 in, uint8
+    out), so the device path is unchanged — the
+    binned matrix just has fewer columns.  Splits are found on the merged
+    bin axis directly; a threshold inside member f's range separates f's
+    values (plus all earlier members on the left / later on the right),
+    a strict superset of the per-member thresholds upstream scans.
+
+    ``groups`` covers every original feature exactly once; singleton groups
+    pass through unchanged.  Merged code layout per multi-feature group:
+    bin 0 = every member at its default bin; member j's non-default bins
+    occupy ``[offset_j, offset_j + n_bins_j - 2]`` (its default bin is
+    squeezed out).  Conflicting rows (two members non-default — allowed up
+    to ``max_conflict_rate``) keep the LAST member's value.
+    """
+
+    def __init__(self, groups: List[List[int]], member_bins: np.ndarray,
+                 default_bins: np.ndarray):
+        self.groups = [list(map(int, g)) for g in groups]
+        self.member_bins = np.asarray(member_bins, np.int64)
+        self.default_bins = np.asarray(default_bins, np.int64)
+        self.offsets: List[Optional[np.ndarray]] = []
+        self.col_bins: List[int] = []
+        for g in self.groups:
+            if len(g) == 1:
+                self.offsets.append(None)
+                self.col_bins.append(int(self.member_bins[g[0]]))
+            else:
+                offs, o = [], 1
+                for f in g:
+                    offs.append(o)
+                    o += int(self.member_bins[f]) - 1
+                self.offsets.append(np.asarray(offs, np.int64))
+                self.col_bins.append(o)
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.groups)
+
+    @property
+    def max_col_bins(self) -> int:
+        return max(self.col_bins)
+
+    def merge(self, codes: np.ndarray) -> np.ndarray:
+        """Original per-feature codes [n, F] -> bundled codes [n, B]."""
+        out = np.zeros((codes.shape[0], len(self.groups)), np.uint8)
+        for c, g in enumerate(self.groups):
+            if len(g) == 1:
+                out[:, c] = codes[:, g[0]]
+                continue
+            col = np.zeros(codes.shape[0], np.int64)
+            for f, o in zip(g, self.offsets[c]):
+                cf = codes[:, f].astype(np.int64)
+                dflt = self.default_bins[f]
+                nz = cf != dflt
+                adj = cf - (cf > dflt)
+                col = np.where(nz, o + adj, col)
+            out[:, c] = col.astype(np.uint8)
+        return out
+
+    @staticmethod
+    def fit(codes: np.ndarray, n_bins: np.ndarray,
+            max_conflict_rate: float = 0.0, max_merged_bins: int = 256,
+            sparse_threshold: float = 0.8, sample: int = 50_000,
+            exclude: Optional[np.ndarray] = None
+            ) -> Optional["FeatureBundler"]:
+        """Greedy conflict-bounded bundling (upstream FindGroups).
+
+        Only sufficiently sparse features (default-bin frequency >=
+        ``sparse_threshold``, LightGBM's kSparseThreshold) are candidates;
+        returns None when no multi-feature bundle forms (bundling dense
+        data would only distort histograms for zero gain).
+        """
+        n, num_features = codes.shape
+        if num_features < 3:
+            return None
+        samp = codes[: min(n, sample)]
+        ns = len(samp)
+        default_bins = np.array(
+            [np.bincount(samp[:, f], minlength=int(n_bins[f])).argmax()
+             for f in range(num_features)], np.int64)
+        nondef = samp != default_bins[None, :]
+        nd_count = nondef.sum(axis=0)
+        eligible = nd_count <= (1.0 - sparse_threshold) * ns
+        if exclude is not None:
+            eligible &= ~np.asarray(exclude, bool)
+        budget = max_conflict_rate * ns
+
+        order = np.argsort(-nd_count)
+        bundles: List[dict] = []
+        for f in order:
+            f = int(f)
+            if not eligible[f]:
+                continue
+            placed = False
+            for b in bundles:
+                extra = int(np.count_nonzero(b["occ"] & nondef[:, f]))
+                if (b["conflicts"] + extra <= budget
+                        and b["bins"] + int(n_bins[f]) - 1 <= max_merged_bins):
+                    b["members"].append(f)
+                    b["occ"] |= nondef[:, f]
+                    b["conflicts"] += extra
+                    b["bins"] += int(n_bins[f]) - 1
+                    placed = True
+                    break
+            if not placed:
+                bundles.append({"members": [f], "occ": nondef[:, f].copy(),
+                                "conflicts": 0, "bins": 1 + int(n_bins[f]) - 1})
+        multi = [b for b in bundles if len(b["members"]) > 1]
+        if not multi:
+            return None
+        bundled_feats = {f for b in multi for f in b["members"]}
+        groups = [[f] for f in range(num_features) if f not in bundled_feats]
+        groups += [sorted(b["members"]) for b in multi]
+        return FeatureBundler(groups, n_bins, default_bins)
+
+
+def _weighted_quantile(distinct: np.ndarray, counts: np.ndarray,
+                       qs: np.ndarray) -> np.ndarray:
+    """``np.quantile(expanded, qs, method="linear")`` on weighted distinct
+    values WITHOUT expanding them.
+
+    Replicates numpy's linear interpolation bit-for-bit (virtual index
+    ``h = q*(n-1)``, and numpy's ``_lerp`` computes ``b - (b-a)*(1-t)``
+    when ``t >= 0.5`` instead of ``a + (b-a)*t`` — the branch matters for
+    bitwise parity), so the streaming sketch's bounded-distinct path
+    yields the SAME bounds the in-memory fit would have produced from the
+    expanded sample (tests/test_sketch.py pins this against np.quantile).
+    """
+    n = int(counts.sum())
+    cum = np.cumsum(counts)                 # value i ends at position cum[i]-1
+    h = np.asarray(qs, np.float64) * (n - 1)
+    lo = np.floor(h).astype(np.int64)
+    gamma = h - lo
+    hi = np.minimum(lo + 1, n - 1)
+    v_lo = distinct[np.searchsorted(cum, lo, side="right")]
+    v_hi = distinct[np.searchsorted(cum, hi, side="right")]
+    d = v_hi - v_lo
+    return np.where(gamma >= 0.5, v_hi - d * (1.0 - gamma),
+                    v_lo + d * gamma)
+
+
+def numeric_bin_bounds(budget: int, min_data_in_bin: int,
+                       vals: Optional[np.ndarray] = None,
+                       distinct: Optional[np.ndarray] = None,
+                       counts: Optional[np.ndarray] = None) -> np.ndarray:
+    """Numeric-feature bound finder shared by :meth:`BinMapper.fit` and the
+    streaming sketch builder (``data.sketch``).
+
+    Given either the raw finite sample ``vals`` or its ``(distinct,
+    counts)`` summary, honors ``min_data_in_bin`` (budget cap + greedy
+    sparse-bin merge) exactly as the historical in-memory fit did; the
+    quantile path uses ``np.quantile`` when ``vals`` is available and the
+    bit-equivalent :func:`_weighted_quantile` otherwise, so the streaming
+    builder is bit-compatible with the in-memory fit whenever both see the
+    same sample.
+    """
+    if distinct is None:
+        distinct, counts = np.unique(vals, return_counts=True)
+    n_vals = int(counts.sum())
+    if n_vals == 0:
+        return np.zeros(0)
+    budget_eff = budget
+    if min_data_in_bin > 1:
+        budget_eff = max(1, min(budget, n_vals // min_data_in_bin))
+    if len(distinct) <= budget_eff:
+        mids = (distinct[:-1] + distinct[1:]) / 2.0
+        if min_data_in_bin > 1 and len(distinct) > 1:
+            # greedily merge adjacent sparse distinct values until each
+            # bin reaches the floor
+            keep, acc = [], 0
+            for i in range(len(distinct) - 1):
+                acc += counts[i]
+                if acc >= min_data_in_bin and \
+                        counts[i + 1:].sum() >= min_data_in_bin:
+                    keep.append(mids[i])
+                    acc = 0
+            ub = np.asarray(keep)
+        else:
+            ub = mids
+    else:
+        qs = np.linspace(0.0, 1.0, budget_eff + 1)[1:-1]
+        if vals is not None:
+            ub = np.unique(np.quantile(vals, qs, method="linear"))
+        else:
+            ub = np.unique(_weighted_quantile(distinct, counts, qs))
+        # drop near-duplicate bounds
+        if len(ub) > 1:
+            ub = ub[np.concatenate(([True], np.diff(ub) > 0))]
+    return np.asarray(ub, dtype=np.float64)
+
+
+class BinMapper:
+    """Per-feature quantile binning table (LightGBM BinMapper equivalent).
+
+    For each feature stores ascending ``upper_bounds`` such that raw value v
+    maps to bin ``searchsorted(upper_bounds, v, side='left')``; the last bound
+    is +inf.  NaN maps to the dedicated last bin (index ``n_bins-1``) when the
+    feature has missing values, else NaN never occurs.
+    """
+
+    def __init__(self, upper_bounds: List[np.ndarray], nan_bin: np.ndarray,
+                 n_bins: np.ndarray, is_categorical: Optional[np.ndarray] = None):
+        self.upper_bounds = upper_bounds          # list of f64[n_bins_f - 1] finite bounds
+        self.nan_bin = nan_bin                    # i32[F]: bin index for NaN (or -1)
+        self.n_bins = n_bins                      # i32[F]: bins actually used per feature
+        self.num_features = len(upper_bounds)
+        self.is_categorical = (
+            is_categorical if is_categorical is not None
+            else np.zeros(self.num_features, dtype=bool)
+        )
+        self.bundler: Optional[FeatureBundler] = None  # EFB (attach post-fit)
+
+    @property
+    def max_num_bins(self) -> int:
+        if self.bundler is not None:
+            return self.bundler.max_col_bins
+        return int(self.n_bins.max()) if len(self.n_bins) else 1
+
+    @staticmethod
+    def fit(
+        X: np.ndarray,
+        max_bin: int = 255,
+        min_data_in_bin: int = 3,
+        categorical: Sequence[int] = (),
+        sample_cnt: int = 200_000,
+        seed: int = 1,
+    ) -> "BinMapper":
+        """Build bin bounds per feature via (sampled) quantiles.
+
+        Mirrors LightGBM's GreedyFindBin behavior loosely: distinct values get
+        their own bins when few; otherwise equal-frequency quantile bins;
+        a dedicated NaN bin is appended when the feature has missing values.
+        """
+        n, num_features = X.shape
+        rng = np.random.default_rng(seed)
+        if n > sample_cnt:
+            idx = rng.choice(n, size=sample_cnt, replace=False)
+        else:
+            idx = slice(None)
+        cat = set(int(c) for c in categorical)
+        bounds: List[np.ndarray] = []
+        nan_bin = np.full(num_features, -1, dtype=np.int32)
+        n_bins = np.ones(num_features, dtype=np.int32)
+        is_cat = np.zeros(num_features, dtype=bool)
+        for f in range(num_features):
+            col = np.asarray(X[idx, f], dtype=np.float64)
+            has_nan = bool(np.isnan(col).any())
+            vals = col[~np.isnan(col)]
+            budget = max_bin - (1 if has_nan else 0)
+            if f in cat:
+                # categorical: one bin per kept category value (exact match
+                # at transform time; unseen/rare values share the overflow
+                # bin).  The grower finds gradient-ordered k-vs-rest SUBSET
+                # splits over these bins (ops.split CatInfo path).
+                is_cat[f] = True
+                cats = np.unique(vals)
+                if len(cats) > budget - 1:
+                    uniq, cnts = np.unique(vals, return_counts=True)
+                    cats = np.sort(uniq[np.argsort(-cnts)[: budget - 1]])
+                ub = cats  # stores category VALUES for categorical features
+            elif len(vals) == 0:
+                ub = np.zeros(0)
+            else:
+                # honor min_data_in_bin (LightGBM GreedyFindBin) — shared
+                # with the streaming sketch builder (data.sketch), which
+                # must stay bit-compatible with this in-memory path
+                ub = numeric_bin_bounds(budget, min_data_in_bin, vals=vals)
+            ub = np.asarray(ub, dtype=np.float64)
+            nb = len(ub) + 1
+            if has_nan:
+                nan_bin[f] = nb
+                nb += 1
+            bounds.append(ub)
+            n_bins[f] = nb
+        return BinMapper(bounds, nan_bin, n_bins, is_cat)
+
+    def transform(self, X: np.ndarray) -> np.ndarray:
+        """Map raw features to bin codes uint8[n, F] (bundled columns when
+        EFB is active — the training and predict paths must agree)."""
+        codes = self._transform_unbundled(X)
+        if self.bundler is not None:
+            return self.bundler.merge(codes)
+        return codes
+
+    def _transform_unbundled(self, X: np.ndarray) -> np.ndarray:
+        n, num_features = X.shape
+        assert num_features == self.num_features, (
+            f"feature count mismatch: {num_features} vs {self.num_features}")
+        out = np.empty((n, num_features), dtype=np.uint8)
+        for f in range(num_features):
+            col = np.asarray(X[:, f], dtype=np.float64)
+            if self.is_categorical[f]:
+                cats = self.upper_bounds[f]
+                idx = np.searchsorted(cats, col).clip(0, max(len(cats) - 1, 0))
+                if len(cats) > 0:
+                    hit = cats[idx] == col
+                    codes = np.where(hit, idx, len(cats))  # overflow bin
+                else:
+                    codes = np.zeros(n, dtype=np.int64)
+            else:
+                codes = np.searchsorted(self.upper_bounds[f], col, side="left")
+            if self.nan_bin[f] >= 0:
+                codes = np.where(np.isnan(col), self.nan_bin[f], codes)
+            elif not self.is_categorical[f]:
+                # no NaN seen at fit time: LightGBM converts missing to zero
+                # (BinMapper::ValueToBin with missing_type=None),
+                # i.e. NaN lands in the bin containing 0.0
+                zero_bin = int(np.searchsorted(self.upper_bounds[f], 0.0,
+                                               side="left"))
+                codes = np.where(np.isnan(col), zero_bin, codes)
+            # (categorical NaN already routed to the overflow bin above)
+            out[:, f] = codes.astype(np.uint8)
+        return out
+
+    # -- persistence glue (single JSON schema shared by the model file and
+    # the packed serving artifact — utils.serialize owns the layout) -------
+    def to_dict(self) -> dict:
+        from .utils.serialize import mapper_to_dict
+        return mapper_to_dict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "BinMapper":
+        from .utils.serialize import mapper_from_dict
+        return mapper_from_dict(d)
+
+
+def _to_2d_float_array(data: Any) -> np.ndarray:
+    """Accept numpy / pandas / list-of-lists; return f64 ndarray [n, F]."""
+    if hasattr(data, "to_numpy"):  # pandas DataFrame/Series
+        data = data.to_numpy()
+    arr = np.asarray(data)
+    if arr.dtype == object:
+        arr = arr.astype(np.float64)
+    if arr.ndim == 1:
+        arr = arr[:, None]
+    if arr.ndim != 2:
+        raise ValueError(f"data must be 2-D, got shape {arr.shape}")
+    return np.ascontiguousarray(arr, dtype=np.float64)

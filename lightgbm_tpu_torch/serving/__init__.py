@@ -1,0 +1,59 @@
+"""lightgbm_tpu_torch.serving — batch inference on one CUDA device.
+
+The port of ``lightgbm_tpu.serving`` on its single-device route:
+
+    from lightgbm_tpu_torch.serving import PackedForest, PredictorRuntime
+
+    packed = PackedForest.load("model.npz")   # written by either package
+    rt = PredictorRuntime(packed)             # device="cuda" by default
+    preds = rt.predict(X)                     # bucketed, one kernel/class
+
+    bank = ModelBank(warm_on_deploy=True)
+    bank.deploy("fraud", "model_v1.npz")      # validate -> warm -> canary -> flip
+    mb = bank.batcher("fraud", max_queue_depth=512)   # sheds with Overloaded
+    bank.rollback("fraud")
+
+See packed.py (format + ingest validation), runtime.py (bucket ladder and
+the kernel path), queue.py (micro-batching + admission control), bank.py
+(tenancy/hot swap/rollback), faults.py (deterministic fault injection),
+stats.py (counters).  The CLI front end is ``python -m lightgbm_tpu_torch
+task=serve input_model=...``.  Multi-device routes (``serving/mesh.py``)
+and ``pack_booster`` wait for later slices.
+"""
+
+from ..ops.quantize import FOREST_PRECISIONS, ThresholdBoundError
+from .bank import ModelBank, SwapRejected
+from .faults import SITES as FAULT_SITES
+from .faults import FaultError, FaultInjector, FaultSpec
+from .packed import (PACKED_FORMAT_VERSION, PackedForest, PackedForestError,
+                     packed_from_arrays)
+from .queue import (SHED_POLICIES, MicroBatcher, Overloaded,
+                    PendingPrediction, RequestTimeout)
+from .runtime import (SHARD_POLICIES, PredictorRuntime, bucket_for,
+                      enable_persistent_cache)
+from .stats import ServingStats
+
+__all__ = [
+    "FAULT_SITES",
+    "FOREST_PRECISIONS",
+    "FaultError",
+    "FaultInjector",
+    "FaultSpec",
+    "MicroBatcher",
+    "ModelBank",
+    "Overloaded",
+    "PACKED_FORMAT_VERSION",
+    "PackedForest",
+    "PackedForestError",
+    "PendingPrediction",
+    "PredictorRuntime",
+    "RequestTimeout",
+    "SHARD_POLICIES",
+    "SHED_POLICIES",
+    "ServingStats",
+    "SwapRejected",
+    "ThresholdBoundError",
+    "bucket_for",
+    "enable_persistent_cache",
+    "packed_from_arrays",
+]

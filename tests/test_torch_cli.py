@@ -1,0 +1,140 @@
+"""Port parity: the ported ``task=serve`` CLI against the reference's.
+
+The same request lines (CSV rows, JSON arrays, blank and bad lines,
+``!swap``/``!rollback``/``!stats`` control lines) go through the reference's
+``lightgbm_tpu.__main__._serve`` and the port's
+``lightgbm_tpu_torch.__main__._serve`` (``device=cpu``) on in-memory streams.
+Predictions agree at rtol 1e-5 / atol 1e-6; errors and acks agree in kind.
+"""
+
+import dataclasses
+import io
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu as lgb
+from lightgbm_tpu.__main__ import _serve as ref_serve
+from lightgbm_tpu.serving.packed import pack_booster
+from lightgbm_tpu_torch.__main__ import _serve as port_serve
+from lightgbm_tpu_torch.__main__ import main as port_main
+from lightgbm_tpu_torch.kernels import KernelLaunchError
+from lightgbm_tpu_torch.ops import predict as port_predict
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(400, 4))
+    y = 2.0 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.normal(size=400)
+    b = lgb.train({"objective": "regression", "num_leaves": 7,
+                   "verbosity": -1}, lgb.Dataset(X, label=y),
+                  num_boost_round=5)
+    pf = pack_booster(b)
+    d = tmp_path_factory.mktemp("cli")
+    v1, v2 = str(d / "v1.npz"), str(d / "v2.npz")
+    pf.save(v1)
+    dataclasses.replace(pf, leaf_value=pf.leaf_value * 2.0).save(v2)
+    return X, v1, v2
+
+
+def _run(serve, path, cfg, lines):
+    out, err = io.StringIO(), io.StringIO()
+    rc = serve(path, dict(cfg), stdin=iter(lines), stdout=out, stderr=err)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def _rows(X, n):
+    return [",".join(f"{v:.8g}" for v in X[i]) + "\n" for i in range(n)]
+
+
+def _numbers(lines):
+    return np.array([[float(v) for v in ln.split(",")] for ln in lines
+                     if not ln.startswith("ERROR")], np.float64)
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_serve_predictions_match_reference(models, precision):
+    X, v1, v2 = models
+    lines = (_rows(X, 5) + ["\n", "# comment\n",
+                            json.dumps(X[5].tolist()) + "\n",
+                            "1.0,oops,2,3\n"] + _rows(X[6:], 20))
+    cfg = {"max_batch": "8", "forest_precision": precision,
+           "num_iteration": "4"}
+    rc_r, out_r, _ = _run(ref_serve, v1, cfg, lines)
+    rc_p, out_p, _ = _run(port_serve, v1, dict(cfg, device="cpu"), lines)
+    assert rc_r == rc_p == 0
+    assert len(out_p) == len(out_r) == 27
+    assert [ln.startswith("ERROR") for ln in out_p] == \
+        [ln.startswith("ERROR") for ln in out_r]
+    np.testing.assert_allclose(_numbers(out_p), _numbers(out_r), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_serve_control_lines_match_reference(models):
+    X, v1, v2 = models
+    row = _rows(X, 1)[0]
+    lines = [row, "!stats\n", f"!swap {v2}\n", row, "!rollback\n", row,
+             "!frobnicate\n"]
+    cfg = {"max_batch": "1", "canary_rows": "4", "output_format": "json"}
+    rc_r, out_r, err_r = _run(ref_serve, v1, cfg, lines)
+    rc_p, out_p, err_p = _run(port_serve, v1, dict(cfg, device="cpu"),
+                              lines)
+    assert rc_r == rc_p == 0
+    got = np.array([json.loads(x) for x in out_p])
+    want = np.array([json.loads(x) for x in out_r])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert got[0] != got[1] and got[0] == got[2]
+    for ack in ("swapped default -> v2", "rolled back default -> v1",
+                "unknown control"):
+        assert ack in err_r and ack in err_p
+    stats = json.loads([ln for ln in err_p.splitlines()
+                        if ln.startswith("{")][0])
+    assert stats["fused_path"]["dispatches"] >= 1
+
+
+def test_serve_rejects_bad_keys_and_missing_card(models):
+    _, v1, _ = models
+    for cfg, msg in (({"bogus": "1"}, "unknown key"),
+                     ({"device": "tpu"}, "device"),
+                     ({"mesh_devices": "2"}, "not ported yet"),
+                     ({"shed_policy": "yolo"}, "shed_policy"),
+                     ({"forest_precision": "fp8"}, "forest_precision")):
+        with pytest.raises(SystemExit, match=msg):
+            port_serve(v1, dict(cfg, device=cfg.get("device", "cpu")),
+                       stdin=iter(()), stdout=io.StringIO(),
+                       stderr=io.StringIO())
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            port_serve(v1, {}, stdin=iter(()), stdout=io.StringIO(),
+                       stderr=io.StringIO())
+    with pytest.raises(SystemExit, match="not ported yet"):
+        port_main(["task=train", "data=x.csv"])
+    with pytest.raises(SystemExit, match="requires input_model"):
+        port_main(["task=serve"])
+
+
+@pytest.mark.parametrize("canary_rows", ["0", "4"])
+def test_serve_stops_on_kernel_failure(models, monkeypatch, canary_rows):
+    # a kernel that cannot launch stops the server (at the deploy's canary,
+    # or at the first batch when the canary is off) instead of having the
+    # batcher answer on the host
+    X, v1, _ = models
+
+    def broken(*args, **kwargs):
+        raise KernelLaunchError("predict_forest_f32 launch failed: refused")
+
+    monkeypatch.setattr(port_predict, "predict_forest", broken)
+    out = io.StringIO()
+    with pytest.raises(SystemExit, match="kernel failure") as e:
+        port_serve(v1, {"device": "cpu", "max_batch": "1",
+                        "canary_rows": canary_rows},
+                   stdin=iter(_rows(X, 3)), stdout=out,
+                   stderr=io.StringIO())
+    assert isinstance(e.value.__cause__, KernelLaunchError)
+    assert all(ln.startswith("ERROR: KernelLaunchError")
+               for ln in out.getvalue().splitlines())
