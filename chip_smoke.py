@@ -32,7 +32,29 @@ Phases:
    on the card (CUDA events, median of 25 runs of 10 back-to-back launches
    queued behind a spin kernel) of each kernel and its plain version at
    every bucket of the ladder, with the kernel's bound; the whole table
-   goes to ``build/chip_smoke/chip_smoke_report.json``.
+   goes to ``build/chip_smoke/chip_smoke_report.json``;
+5. the histogram kernels (``hist_fused``, B1; ``hist_partition``, B2) at f32
+   and bf16 against a float64 sum on the card (``|kernel - f64| <= 1e-6 *
+   sum |x|`` per cell, counts and row routing exact) and against their plain
+   versions: the north-star root (1,000,000 rows x 28 features x 256 bins,
+   one segment), a north-star wave (42 splits, recorded from a real tree
+   grown by the plain grower) and awkward shapes (ragged row counts, 1 and
+   300 features, up to 64 segments with out-of-range ids, every row in one
+   bin, empty segments); on dyadic statistics kernel == plain == f64
+   exactly; two launches bit-equal;
+6. the training main path at full width: ``Dataset(make_higgs_like(
+   1,000,000))`` -> ``train`` of the north-star model (binary, 127 leaves,
+   255 bins) for 10 rounds at the default histogram precision (bf16) and
+   again at f32, counters at 0 just before each and read just after (every
+   histogram on the path through the kernels, no plain-version call); AUC
+   on ``make_higgs_like(200,000, seed=9)`` within 1e-4 of the same rounds
+   through the plain versions; on dyadic labels the round-1 tree of the
+   kernel path equals the plain path's; then ``pack_booster`` -> ``.npz`` ->
+   ``ModelBank.deploy`` -> a 1,000,000-row ``PredictorRuntime.predict``
+   within 1e-5 of ``Booster.predict``; a ``torch.profiler`` breakdown of
+   three rounds (device time by kernel family, the device's busy share, host
+   syncs); then each histogram kernel's time, its plain version's, its bound
+   and (B1) one ``index_add_`` call's.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +91,19 @@ PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 SPIN_CYCLES = 20_000_000
 KERNEL_SOURCE = "lightgbm_tpu_torch/csrc/predict_forest.cu"
 REPLACES = "lightgbm_tpu/ops/predict.py:257"
+KERNELS = ("predict_forest", "hist_fused", "hist_partition")
+HIST_SOURCES = {
+    "hist_fused": ("lightgbm_tpu_torch/csrc/hist_fused.cu",
+                   "lightgbm_tpu/ops/histogram_pallas.py:304"),
+    "hist_partition": ("lightgbm_tpu_torch/csrc/hist_partition.cu",
+                       "lightgbm_tpu/ops/histogram_pallas.py:830"),
+}
+HIST_MODES = ("f32", "bf16")
+HIST_REL_TOL = 1e-6           # |kernel - f64| <= HIST_REL_TOL * sum |x|
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": NUM_LEAVES,
+                "learning_rate": LEARNING_RATE, "min_data_in_leaf": 20,
+                "max_bin": MAX_BIN, "verbosity": -1}
+TRAIN_ROUNDS, VALID_ROWS, AUC_TOL = 10, 200_000, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -174,7 +209,7 @@ def phase_device():
     from lightgbm_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    secs = build.build(["predict_forest"])
+    secs = build.build(KERNELS)
     log(f"kernel build: {json.dumps(secs)} "
         f"(wall {time.perf_counter() - t0:.2f} s)")
     for name, text in build.BUILD_LOG.items():
@@ -282,7 +317,7 @@ def build_model(workdir):
         f"{CAPACITY}), {NUM_FEATURES} features, {MAX_BIN} bins, depth cap "
         f"{packed.depth_cap}; data {BIG_ROWS} rows "
         f"({time.perf_counter() - t0:.1f} s to make and bin)")
-    return X, path, path2
+    return X, y, mapper, path, path2
 
 
 def serve_cli(path, path2, precision, rows):
@@ -525,6 +560,512 @@ def phase_times(runtimes, X):
     return table, breakdown, head, path_errs
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the histogram kernels against float64 and their plain versions
+# ---------------------------------------------------------------------------
+def hist_counters():
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_PARTITION_LAUNCHES)
+
+    return {"hist_fused": HIST_FUSED_LAUNCHES,
+            "hist_partition": HIST_PARTITION_LAUNCHES}
+
+
+def reset_counters():
+    from lightgbm_tpu_torch.kernels.predict import PREDICT_FOREST_LAUNCHES
+
+    PREDICT_FOREST_LAUNCHES.reset()
+    for per_mode in hist_counters().values():
+        for c in per_mode.values():
+            c.reset()
+
+
+def read_counters():
+    from lightgbm_tpu_torch.kernels.predict import PREDICT_FOREST_LAUNCHES
+
+    out = {"predict_forest": PREDICT_FOREST_LAUNCHES.count}
+    for name, per_mode in hist_counters().items():
+        for mode, c in per_mode.items():
+            out[f"{name}_{mode}"] = c.count
+    return out
+
+
+def f64_hists(bins, stats, seg, k, num_bins, mode):
+    """Float64 sums on the card of the mode-rounded stats and of their
+    absolute values: ``[K, F, B, S]`` each."""
+    st = stats.to(torch.bfloat16).to(torch.float32) if mode == "bf16" \
+        else stats
+    st = st.to(torch.float64)
+    n, f = bins.shape
+    s = st.shape[1]
+    seg = seg.to(torch.int64)
+    rows = torch.nonzero((seg >= 0) & (seg < k)).squeeze(1)
+    ref = torch.zeros((k * f * num_bins, s), dtype=torch.float64,
+                      device=bins.device)
+    mag = torch.zeros_like(ref)
+    base = seg[rows] * (f * num_bins)
+    codes = bins[rows].to(torch.int64)
+    for j in range(f):
+        idx = base + j * num_bins + codes[:, j]
+        ref.index_add_(0, idx, st[rows])
+        mag.index_add_(0, idx, st[rows].abs())
+    shape = (k, f, num_bins, s)
+    return ref.view(shape), mag.view(shape)
+
+
+def check_cells(out, ref, mag, what, exact=False):
+    """Per-cell bound ``|out - ref| <= HIST_REL_TOL * sum |x|``; the count
+    channel (the third statistic) exact; everything exact when asked."""
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite cells")
+    err = (out.to(torch.float64) - ref).abs()
+    if exact:
+        check(bool((err == 0).all()), f"{what}: not exact (max err "
+              f"{float(err.max()):.3e})")
+    else:
+        check(bool((err <= HIST_REL_TOL * mag).all()),
+              f"{what}: a cell is off by more than {HIST_REL_TOL} x sum|x| "
+              f"(max ratio {float((err / mag.clamp(min=1e-300)).max()):.3e})")
+    if out.shape[-1] == 3:
+        check(torch.equal(out[..., 2].to(torch.float64), ref[..., 2]),
+              f"{what}: counts not exact")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def stats_for(rng, n, dev, dyadic=False, s=3):
+    """(grad, hess, in-bag count) rows: N(0,1), U(0, 0.25), {0, 1}; or the
+    dyadic tier's +-0.5, 0.25, 1, whose every partial sum is exact."""
+    if dyadic:
+        g = np.where(rng.random(n) < 0.5, -0.5, 0.5)
+        cols = [g, np.full(n, 0.25), np.ones(n)]
+    else:
+        cols = [rng.normal(size=n), rng.uniform(0, 0.25, n),
+                (rng.random(n) < 0.8).astype(np.float64)]
+    st = np.stack(cols[:s], axis=1).astype(np.float32)
+    return torch.from_numpy(st).to(dev)
+
+
+def fused_case(name, bins, stats, seg, k, num_bins, exact=False):
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    errs = {}
+    for mode in HIST_MODES:
+        what = f"hist_fused {mode} {name}"
+        got = H.hist_fused(bins, stats, seg, k, num_bins, mode)
+        again = H.hist_fused(bins, stats, seg, k, num_bins, mode)
+        plain = H.hist_fused_plain(bins, stats, seg, k, num_bins, mode)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{what}: two launches differ")
+        ref, mag = f64_hists(bins, stats, seg, k, num_bins, mode)
+        check_cells(got, ref, mag, what, exact)
+        check_cells(plain, ref, mag, f"{what} (plain version)", exact)
+        errs[mode] = check_cells(got, plain.to(torch.float64), mag,
+                                 f"{what} vs plain", exact)
+    return errs
+
+
+def partition_case(name, args, exact=False):
+    """``args`` = (bins, stats, row_leaf, slot_of_node, feat, thr,
+    direct_left, n_nodes, num_bins) of one wave."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    bins, stats, row_leaf, slot, feat, thr, dl, n_nodes, num_bins = args
+    seg, want_leaf = H.route_wave(bins, row_leaf, slot, feat, thr, dl,
+                                  n_nodes)
+    errs = {}
+    for mode in HIST_MODES:
+        what = f"hist_partition {mode} {name}"
+        got, leaf = H.hist_partition_fused(*args, mode)
+        again, leaf2 = H.hist_partition_fused(*args, mode)
+        plain, plain_leaf = H.hist_partition_plain(*args, mode)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again) and torch.equal(leaf, leaf2),
+              f"{what}: two launches differ")
+        check(torch.equal(leaf, want_leaf) and torch.equal(leaf, plain_leaf),
+              f"{what}: row routing differs from the plain version")
+        ref, mag = f64_hists(bins, stats, seg, feat.shape[0], num_bins, mode)
+        check_cells(got, ref, mag, what, exact)
+        check_cells(plain, ref, mag, f"{what} (plain version)", exact)
+        errs[mode] = check_cells(got, plain.to(torch.float64), mag,
+                                 f"{what} vs plain", exact)
+    return errs
+
+
+def random_wave(rng, dev, n, f, num_bins, w, capacity):
+    """A synthetic wave: rows spread over ``capacity`` nodes, ``w`` of them
+    splitting on random features and thresholds."""
+    bins = torch.from_numpy(rng.integers(0, num_bins, (n, f)).astype(
+        np.uint8)).to(dev)
+    row_leaf = torch.from_numpy(rng.integers(-1, capacity + 1, n).astype(
+        np.int32)).to(dev)
+    slot = np.full(capacity, -1, np.int32)
+    slot[rng.permutation(capacity)[:w]] = np.arange(w)
+    return (bins, stats_for(rng, n, dev), row_leaf,
+            torch.from_numpy(slot).to(dev),
+            torch.from_numpy(rng.integers(0, f, w).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, num_bins, w).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, 2, w).astype(np.uint8)).to(dev),
+            2 * capacity, num_bins)
+
+
+def binary_root_stats(y, dev):
+    """The north-star round-1 statistics: binary logloss gradients at the
+    boost-from-average score, hessians, all rows in the bag."""
+    pbar = float(np.mean(y))
+    p = np.full(len(y), pbar)
+    st = np.stack([p - y, p * (1 - p), np.ones(len(y))], axis=1)
+    return torch.from_numpy(st.astype(np.float32)).to(dev)
+
+
+def record_wave(bins, stats):
+    """Grow one north-star tree with the plain grower and keep the inputs of
+    its first widest wave (a real B2 call)."""
+    import lightgbm_tpu_torch.models.tree as T
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.models.gbdt import (HyperScalars,
+                                                resolve_wave_width)
+
+    p = parse_params(TRAIN_PARAMS)
+    orig = T.hist_partition_plain
+    rec = {}
+
+    def spy(*args):
+        if args[4].shape[0] > rec.get("w", 0):
+            rec["w"] = int(args[4].shape[0])
+            rec["args"] = args[:9]
+        return orig(*args)
+
+    T.hist_partition_plain = spy
+    try:
+        T.grow_tree(bins, stats, torch.ones(bins.shape[1],
+                                            device=bins.device),
+                    HyperScalars.from_params(p).ctx(), p.num_leaves, 256,
+                    -1, hist_impl="plain", hist_dtype="f32",
+                    wave_width=resolve_wave_width(p, bins.shape[0]))
+    finally:
+        T.hist_partition_plain = orig
+    return rec["args"]
+
+
+def phase_hist_kernels(dev, X, y, mapper):
+    rng = np.random.default_rng(SEED + 50)
+    t0 = time.perf_counter()
+    bins = torch.from_numpy(mapper.transform(X)).to(dev)
+    root_stats = binary_root_stats(y, dev)
+    n = bins.shape[0]
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    errs = {"hist_fused": {m: 0.0 for m in HIST_MODES},
+            "hist_partition": {m: 0.0 for m in HIST_MODES}}
+
+    def keep(name, e):
+        for m, v in e.items():
+            errs[name][m] = max(errs[name][m], v)
+
+    keep("hist_fused", fused_case("north-star root", bins, root_stats,
+                                  zeros, 1, 256))
+    fused_case("north-star root, dyadic", bins,
+               stats_for(rng, n, dev, dyadic=True), zeros, 1, 256,
+               exact=True)
+
+    def rb(rows, f, b):
+        return torch.from_numpy(rng.integers(0, b, (rows, f)).astype(
+            np.uint8)).to(dev)
+
+    def rseg(rows, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, rows).astype(
+            np.int32)).to(dev)
+
+    awkward = [
+        ("ragged 300,001 rows, 3 segments + out of range", rb(300_001, 28,
+         256), stats_for(rng, 300_001, dev), rseg(300_001, -1, 4), 3, 256),
+        ("1 feature", rb(200_003, 1, 256), stats_for(rng, 200_003, dev),
+         rseg(200_003, 0, 2), 2, 256),
+        ("300 features", rb(20_011, 300, 256), stats_for(rng, 20_011, dev),
+         rseg(20_011, 0, 2), 2, 256),
+        ("64 segments, ids in [-3, 70)", rb(100_003, 5, 64),
+         stats_for(rng, 100_003, dev), rseg(100_003, -3, 70), 64, 64),
+        ("every row in one bin, empty segments",
+         torch.full((50_000, 4), 7, dtype=torch.uint8, device=dev),
+         stats_for(rng, 50_000, dev), rseg(50_000, 0, 2) * 3, 8, 256),
+        ("2 statistics, 2 bins", rb(4_099, 3, 2),
+         stats_for(rng, 4_099, dev, s=2), rseg(4_099, 0, 5), 5, 2),
+    ]
+    for name, b, st, sg, k, nb in awkward:
+        keep("hist_fused", fused_case(name, b, st, sg, k, nb))
+    fused_case("64 segments, dyadic", awkward[3][1],
+               stats_for(rng, 100_003, dev, dyadic=True), awkward[3][3], 64,
+               64, exact=True)
+
+    wave = record_wave(bins, root_stats)
+    keep("hist_partition", partition_case(
+        f"north-star wave (W={wave[4].shape[0]})", wave))
+    dy = list(wave)
+    dy[1] = stats_for(rng, n, dev, dyadic=True)
+    partition_case("north-star wave, dyadic", tuple(dy), exact=True)
+    for name, shape in [("ragged, 7 splits", (300_001, 28, 256, 7, 40)),
+                        ("1 feature, 1 split", (100_003, 1, 256, 1, 3)),
+                        ("300 features", (20_011, 300, 256, 5, 21)),
+                        ("64 splits", (100_003, 6, 64, 64, 200))]:
+        keep("hist_partition", partition_case(
+            name, random_wave(rng, dev, *shape)))
+    log(f"phase 5: B1 and B2 within {HIST_REL_TOL} x sum|x| of float64 and "
+        f"of their plain versions at f32 and bf16, exact on dyadic stats, "
+        f"bit-equal across launches (max abs err vs plain {json.dumps(errs)};"
+        f" {time.perf_counter() - t0:.1f} s)")
+    return errs, bins, root_stats, wave
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training at full width
+# ---------------------------------------------------------------------------
+def train_run(lgb, ds, params, rounds):
+    """Train with every counter at 0 before and read after; the plain
+    versions counted too (they must not run on the kernel path)."""
+    import lightgbm_tpu_torch.models.tree as T
+    import lightgbm_tpu_torch.ops.histogram as H
+
+    calls = {"plain": 0}
+    origs = (H.hist_fused_plain, T.hist_partition_plain)
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls["plain"] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    H.hist_fused_plain = counted(origs[0])
+    T.hist_partition_plain = counted(origs[1])
+    try:
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        booster = lgb.train(params, ds, rounds)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counters()
+    finally:
+        H.hist_fused_plain, T.hist_partition_plain = origs
+    return booster, secs, counts, calls["plain"]
+
+
+def auc(booster, Xv, yv, dev):
+    from lightgbm_tpu_torch.metrics import get_metric
+
+    p = torch.from_numpy(booster.predict(Xv)).to(dev)
+    y = torch.from_numpy(yv).to(dev)
+    return float(get_metric("auc").fn(p, y, torch.ones_like(y)))
+
+
+def tree_arrays(booster, i):
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    return tree_to_arrays(booster.trees[i])
+
+
+def phase_train(dev, X, y, workdir):
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import ModelBank, pack_booster
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    t_bin = time.perf_counter() - t0
+    check(ds.device.type == "cuda", f"Dataset on {ds.device}")
+    runs = {}
+    for tag, extra in (("bf16", {}), ("f32", {"hist_dtype": "f32"}),
+                       ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain_calls = train_run(
+            lgb, ds, dict(TRAIN_PARAMS, **extra), TRAIN_ROUNDS)
+        check(b.num_trees() == TRAIN_ROUNDS, f"{tag}: {b.num_trees()} trees")
+        runs[tag] = {"booster": b, "s": secs, "counts": counts,
+                     "plain_calls": plain_calls, "auc": auc(b, Xv, yv, dev)}
+        log(f"phase 6 {tag}: {TRAIN_ROUNDS} rounds in {secs:.2f} s "
+            f"({secs / TRAIN_ROUNDS:.3f} s/round), AUC "
+            f"{runs[tag]['auc']:.6f}, launches {json.dumps(counts)}, plain "
+            f"calls {plain_calls}")
+    for mode in HIST_MODES:
+        c, r = runs[mode]["counts"], runs[mode]
+        check(c[f"hist_fused_{mode}"] >= TRAIN_ROUNDS,
+              f"{mode}: B1 launched {c[f'hist_fused_{mode}']} times")
+        check(c[f"hist_partition_{mode}"] > TRAIN_ROUNDS,
+              f"{mode}: B2 launched {c[f'hist_partition_{mode}']} times")
+        check(r["plain_calls"] == 0,
+              f"{mode}: {r['plain_calls']} plain-version calls on the kernel "
+              "path")
+        check(0.5 < r["auc"] < 1.0, f"{mode}: AUC {r['auc']}")
+    plain = runs["plain"]
+    check(sum(v for k, v in plain["counts"].items()
+              if k.startswith("hist_")) == 0,
+          "hist_impl='plain' launched a histogram kernel")
+    d_auc = abs(runs["bf16"]["auc"] - plain["auc"])
+    check(d_auc <= AUC_TOL, f"AUC kernel {runs['bf16']['auc']} vs plain "
+          f"{plain['auc']}: {d_auc:.2e} > {AUC_TOL}")
+
+    # dyadic labels: the round-1 trees of both paths are the same arrays
+    w = np.random.default_rng(SEED + 60).normal(0, 1, NUM_FEATURES)
+    order = np.argsort(X @ w + 0.6 * np.sin(X[:, 0] * 2))
+    yd = np.zeros(len(X), np.float32)
+    yd[order[len(X) // 2:]] = 1.0
+    dsd = lgb.Dataset(X, label=yd, params={"max_bin": MAX_BIN})
+    dyadic = {}
+    for mode in HIST_MODES:
+        p = dict(TRAIN_PARAMS, objective="regression", hist_dtype=mode)
+        bk = train_run(lgb, dsd, p, 1)[0]
+        bp = train_run(lgb, dsd, dict(p, hist_impl="plain"), 1)[0]
+        a, b = tree_arrays(bk, 0), tree_arrays(bp, 0)
+        same = all(np.array_equal(a[k], b[k]) for k in a)
+        check(same, f"dyadic {mode}: the kernel path's round-1 tree differs "
+              "from the plain path's")
+        dyadic[mode] = int(a["num_leaves"])
+    log(f"phase 6 dyadic: round-1 trees of kernel and plain paths equal "
+        f"(leaves {json.dumps(dyadic)})")
+
+    # the trained model through slice 1's serving path
+    booster = runs["bf16"]["booster"]
+    path = os.path.join(workdir, "trained_higgs.npz")
+    pack_booster(booster).save(path)
+    reset_counters()
+    bank = ModelBank(max_bucket=MAX_BUCKET, warm_on_deploy=True,
+                     canary_rows=64, forest_precision="f32")
+    rep = bank.deploy("trained", path)
+    check(rep["ok"], f"deploy of the trained model failed: {rep}")
+    served = bank.runtime("trained").predict(X)
+    launches = read_counters()["predict_forest"]
+    direct = booster.predict(X)
+    err_serve = float(np.abs(served - direct).max())
+    check(launches > 0, "serving the trained model launched no kernel")
+    check(err_serve <= 1e-5, f"served vs Booster.predict: {err_serve:.3e}")
+    log(f"phase 6 serve: {BIG_ROWS} rows through ModelBank, max abs diff "
+        f"{err_serve:.3e} vs Booster.predict, {launches} predict launches")
+
+    breakdown = profile_rounds(lgb, ds, TRAIN_PARAMS)
+    bf = runs["bf16"]
+    result = {
+        "rows": len(X), "features": NUM_FEATURES, "rounds": TRAIN_ROUNDS,
+        "params": TRAIN_PARAMS, "binning_s": t_bin,
+        "s_per_round": {k: r["s"] / TRAIN_ROUNDS for k, r in runs.items()},
+        "rows_rounds_per_s": {k: len(X) * TRAIN_ROUNDS / r["s"]
+                              for k, r in runs.items()},
+        "waves_per_tree": {m: runs[m]["counts"][f"hist_partition_{m}"]
+                           / TRAIN_ROUNDS for m in HIST_MODES},
+        "auc": {k: r["auc"] for k, r in runs.items()},
+        "auc_kernel_minus_plain": bf["auc"] - plain["auc"],
+        "launches": {m: runs[m]["counts"] for m in HIST_MODES},
+        "serve_max_abs_diff": err_serve, "serve_predict_launches": launches,
+        "dyadic_round1_leaves": dyadic,
+        "round_breakdown": breakdown,
+    }
+    log(f"phase 6: {json.dumps(result)}")
+    return result
+
+
+def profile_rounds(lgb, ds, params, rounds=3):
+    """Where a north-star round's time goes: ``torch.profiler`` over
+    ``rounds`` rounds after one warm round; device time by kernel family,
+    the device's busy share of the wall time, and the host syncs (one per
+    wave, one per exact-tail prune)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    booster = lgb.Booster(params, ds)
+    booster.update()
+    torch.cuda.synchronize()
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            booster.update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counters()
+    families = {"hist_partial_kernel": 0.0, "hist_reduce_kernel": 0.0,
+                "route_kernel": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us <= 0:
+            continue
+        top.append((dev_us, e.key, e.count))
+        fam = next((f for f in families if f != "other" and f in e.key),
+                   "other")
+        families[fam] += dev_us / 1e3
+    device_ms = sum(families.values())
+    top.sort(reverse=True)
+    waves = counts["hist_partition_bf16"] / rounds
+    out = {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
+           "device_ms_per_round": device_ms / rounds,
+           "device_busy_share": device_ms / wall_ms if wall_ms else None,
+           "device_ms_per_round_by_family": {
+               k: v / rounds for k, v in families.items()},
+           "waves_per_tree": waves,
+           "host_syncs_per_round": waves + 1,
+           "top_device_ops": [
+               {"name": k[:80], "ms_per_round": us / 1e3 / rounds,
+                "calls_per_round": c / rounds} for us, k, c in top[:10]]}
+    if device_ms == 0:
+        out["device_busy_share"] = "not measured (no device time traced)"
+    log(f"phase 6 breakdown (profiled): {json.dumps(out)}")
+    return out
+
+
+def hist_bound_ms(nbytes, ops):
+    b_ms, o_ms = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def phase_hist_times(bins, root_stats, wave):
+    """Device ms per launch of each histogram kernel at the main path's
+    shapes (the north-star root and wave), its plain version's, its bound,
+    and for B1 one ``index_add_`` call over precomputed cell indices."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    n, f = bins.shape
+    dev = bins.device
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    rows = {}
+    # B1 at the root: bins, stats, seg read once, [1, F, B, 3] written;
+    # n*F*S adds
+    b1_bound = hist_bound_ms(n * f + 12 * n + 4 * n + f * 256 * 12,
+                             n * f * 3)
+    flat = (torch.arange(f, device=dev) * 256
+            + bins.to(torch.int64)).reshape(-1)
+    vals = root_stats.repeat_interleave(f, dim=0)
+    out = torch.zeros(f * 256, 3, dtype=torch.float32, device=dev)
+    lib_ms = time_ms(lambda: out.index_add_(0, flat, vals), runs=11, inner=3)
+    del flat, vals
+    for mode in HIST_MODES:
+        rows[f"hist_fused_{mode}"] = {
+            "shape": f"n={n} F={f} B=256 K=1 S=3",
+            "ms": time_ms(lambda: H.hist_fused(bins, root_stats, zeros, 1,
+                                               256, mode), runs=11, inner=5),
+            "plain_ms": time_ms(lambda: H.hist_fused_plain(
+                bins, root_stats, zeros, 1, 256, mode), runs=5, inner=1),
+            "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
+            "library_ms": lib_ms}
+    # B2 at the recorded wave: bins, stats, row_leaf read once, new_row_leaf
+    # and [W, F, B, 3] written; adds only for rows routed to a direct child
+    w = int(wave[4].shape[0])
+    seg, _ = H.route_wave(wave[0], *wave[2:8])
+    direct_rows = int((seg >= 0).sum())
+    b2_bound = hist_bound_ms(n * f + 12 * n + 8 * n + w * f * 256 * 12,
+                             direct_rows * f * 3)
+    for mode in HIST_MODES:
+        rows[f"hist_partition_{mode}"] = {
+            "shape": f"n={n} F={f} B=256 W={w} direct rows {direct_rows}",
+            "ms": time_ms(lambda: H.hist_partition_fused(*wave, mode),
+                          runs=11, inner=5),
+            "plain_ms": time_ms(lambda: H.hist_partition_plain(*wave, mode),
+                                runs=5, inner=1),
+            "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
+            "library_ms": None}
+    for name, r in rows.items():
+        log(f"phase 6 times {name}: {json.dumps(r)}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -545,12 +1086,16 @@ def main() -> int:
 
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
-    X, path, path2 = build_model(workdir)
+    X, y, mapper, path, path2 = build_model(workdir)
     main_path, runtimes = {}, {}
     for prec in PRECISIONS:
         main_path[prec], runtimes[prec] = phase_main_path(prec, X, path,
                                                           path2)
     table, breakdown, head, path_errs = phase_times(runtimes, X)
+    runtimes.clear()
+    hist_errs, bins, root_stats, wave = phase_hist_kernels(dev, X, y, mapper)
+    train = phase_train(dev, X, y, workdir)
+    hist_times = phase_hist_times(bins, root_stats, wave)
 
     kernels = []
     for prec in PRECISIONS:
@@ -565,14 +1110,33 @@ def main() -> int:
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": None, "bucket": MAX_BUCKET,
         })
+    for name, (source, replaces) in HIST_SOURCES.items():
+        for mode in HIST_MODES:
+            t = hist_times[f"{name}_{mode}"]
+            kernels.append({
+                "name": f"{name}_{mode}", "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": train["launches"][mode][f"{name}_{mode}"],
+                "max_abs_err": hist_errs[name][mode],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "shape": t["shape"],
+            })
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "kernel_vs_plain_max_abs_err": errs,
               "main_path_tables_max_abs_err": path_errs,
               "main_path": main_path,
               "times": table, "breakdown": breakdown, "kernels": kernels,
-              "library_call": "none: no single PyTorch call computes forest "
-                              "traversal",
+              "hist_max_abs_err_vs_plain": hist_errs, "train": train,
+              "hist_times": hist_times,
+              "library_call": {
+                  "predict_forest": "none: no single PyTorch call computes "
+                                    "forest traversal",
+                  "hist_fused": "Tensor.index_add_ over precomputed flat "
+                                "(feature, bin) cell indices",
+                  "hist_partition": "none: no single PyTorch call routes "
+                                    "rows and builds their histograms"},
               "total_s": time.perf_counter() - t_start}
     with open(os.path.join(workdir, "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1)

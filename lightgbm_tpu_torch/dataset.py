@@ -1,20 +1,32 @@
-"""Edge binning — the port's copy of the binning half of ``lightgbm_tpu/dataset.py``.
+"""Binned datasets — the port of ``lightgbm_tpu/dataset.py``.
 
-The serving path bins raw rows on the host with the same bin bounds the
-trainer used, so this module keeps the reference's :class:`BinMapper`
-(``fit``, ``transform``, ``to_dict``/``from_dict``), its Exclusive Feature
-Bundling :class:`FeatureBundler` (``merge``, ``fit``) and the quantile
-helpers byte for byte: bin codes must be identical in both packages, since
-every prediction is routed on them.  Binning is O(n log n) scalar work per
-feature and stays in numpy; the codes go to the device as ``uint8``.
-``Dataset`` is training-side and waits for the training slice.
+The reference's :class:`BinMapper` (``fit``, ``transform``,
+``to_dict``/``from_dict``), its Exclusive Feature Bundling
+:class:`FeatureBundler` and the quantile helpers are kept byte for byte: bin
+codes must be identical in both packages, since every split and every
+prediction is routed on them.  Binning is O(n log n) scalar work per feature
+and stays in numpy.
+
+:class:`Dataset` (``lgb.Dataset``) holds the binned matrix as a uint8
+``[n_pad, F]`` tensor on its device, rows padded to ``ROW_PAD_MULTIPLE``
+with ``row_mask`` marking the real ones, exactly as the reference pads: the
+bagging draw is ``uniform(key, (n_pad,))``, so the padding decides which rows
+a seed bags.  Labels and weights ride alongside as f32 (weight 0 on padding).
+In-memory numeric data only: categorical features, query groups, streamed
+(``from_blocks``) and binary-file datasets raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
+
+from .config import parse_params
+from .device import resolve_device
+
+ROW_PAD_MULTIPLE = 256
 
 
 class FeatureBundler:
@@ -83,6 +95,27 @@ class FeatureBundler:
                 adj = cf - (cf > dflt)
                 col = np.where(nz, o + adj, col)
             out[:, c] = col.astype(np.uint8)
+        return out
+
+    def split_to_original(self, cols: np.ndarray,
+                          bins: np.ndarray) -> np.ndarray:
+        """Map (bundled column, threshold bin) of tree splits back to the
+        original feature index (for feature_importance).  A threshold
+        inside member j's range is attributed to member j; bin 0 (the
+        all-default slot) attributes to the first member."""
+        cols = np.asarray(cols, np.int64)
+        bins = np.asarray(bins, np.int64)
+        out = np.empty_like(cols)
+        for c, g in enumerate(self.groups):
+            m = cols == c
+            if not m.any():
+                continue
+            if len(g) == 1:
+                out[m] = g[0]
+            else:
+                j = np.searchsorted(self.offsets[c], bins[m],
+                                    side="right") - 1
+                out[m] = np.asarray(g)[np.clip(j, 0, len(g) - 1)]
         return out
 
     @staticmethod
@@ -364,3 +397,186 @@ def _to_2d_float_array(data: Any) -> np.ndarray:
     if arr.ndim != 2:
         raise ValueError(f"data must be 2-D, got shape {arr.shape}")
     return np.ascontiguousarray(arr, dtype=np.float64)
+
+
+def _to_1d_float_array(x: Any) -> np.ndarray:
+    if hasattr(x, "to_numpy"):
+        x = x.to_numpy()
+    return np.asarray(x, dtype=np.float64).reshape(-1)
+
+
+class Dataset:
+    """``lgb.Dataset``: a lazily binned training set on one device.
+
+    >>> dtrain = Dataset(X, label=y, device="cuda")
+    >>> booster = train(params, dtrain, num_boost_round=200)
+
+    ``device=None`` means the dataset's ``reference`` device when there is
+    one, else ``"cuda"`` (raising :class:`~lightgbm_tpu_torch.device.
+    NoDeviceError` without a card); the CPU only on ``device="cpu"``.
+    Validation sets share the training set's bin mapper through
+    ``reference=dtrain``, exactly as in LightGBM.
+    """
+
+    def __init__(self, data: Any, label: Any = None, weight: Any = None,
+                 reference: Optional["Dataset"] = None,
+                 params: Optional[Dict[str, Any]] = None,
+                 device: Union[str, torch.device, None] = None, *,
+                 init_score: Any = None, group: Any = None,
+                 feature_name: Union[str, Sequence[str]] = "auto",
+                 categorical_feature: Union[str, Sequence] = "auto"):
+        if group is not None:
+            raise NotImplementedError(
+                "query groups (ranking objectives) are not ported yet: "
+                "ROADMAP slice 3 (breadth of training)")
+        if categorical_feature not in ("auto", None, [], ()):
+            raise NotImplementedError(
+                "categorical features are not ported yet: ROADMAP slice 3 "
+                "(breadth of training)")
+        if isinstance(data, str):
+            raise NotImplementedError(
+                "binary dataset files (save_binary) are not ported yet: "
+                "ROADMAP slice 5")
+        if device is None and reference is not None:
+            self.device = reference.device
+        else:
+            self.device = resolve_device(device)
+        self.raw_data = data
+        self._label = None if label is None else _to_1d_float_array(label)
+        self._weight = None if weight is None else _to_1d_float_array(weight)
+        self._init_score = (None if init_score is None
+                            else _to_1d_float_array(init_score))
+        self.reference = reference
+        self.params: Dict[str, Any] = dict(params or {})
+        self._feature_name_arg = feature_name
+        self.bin_mapper: Optional[BinMapper] = None
+        self._constructed = False
+        self.num_data_: Optional[int] = None
+        self.num_feature_: Optional[int] = None
+        self.raw_num_feature_: Optional[int] = None
+        self.feature_names: Optional[List[str]] = None
+        self.X_binned: Optional[torch.Tensor] = None  # u8 [n_pad, F]
+        self.y: Optional[torch.Tensor] = None         # f32 [n_pad]
+        self.w: Optional[torch.Tensor] = None         # f32 [n_pad], 0 pad
+        self.row_mask: Optional[torch.Tensor] = None  # f32 [n_pad] 1/0
+
+    @classmethod
+    def from_blocks(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "streamed (out-of-core) datasets are not ported yet: ROADMAP "
+            "slice 5 (out-of-core training)")
+
+    # -- lightgbm-compatible introspection ---------------------------------
+    def num_data(self) -> int:
+        self.construct()
+        return int(self.num_data_)
+
+    def num_feature(self) -> int:
+        """Original (pre-EFB) feature count."""
+        self.construct()
+        return int(self.raw_num_feature_ or self.num_feature_)
+
+    def get_label(self) -> Optional[np.ndarray]:
+        return self._label
+
+    def get_weight(self) -> Optional[np.ndarray]:
+        return self._weight
+
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return self._init_score
+
+    # -- construction -------------------------------------------------------
+    def _resolve_feature_names(self, num_features: int) -> List[str]:
+        fn = self._feature_name_arg
+        if fn == "auto" or fn is None:
+            if hasattr(self.raw_data, "columns"):
+                return [str(c) for c in self.raw_data.columns]
+            return [f"Column_{i}" for i in range(num_features)]
+        names = list(fn)
+        if len(names) != num_features:
+            raise ValueError("feature_name length mismatch")
+        return [str(c) for c in names]
+
+    def construct(self) -> "Dataset":
+        if self._constructed:
+            return self
+        p = parse_params(self.params, warn_unknown=False)
+        X = _to_2d_float_array(self.raw_data)
+        n, num_features = X.shape
+        self.num_data_ = n
+        self.num_feature_ = num_features
+        self.raw_num_feature_ = num_features
+        self.feature_names = self._resolve_feature_names(num_features)
+        codes = None
+        if self.reference is not None:
+            self.reference.construct()
+            self.bin_mapper = self.reference.bin_mapper
+        if self.bin_mapper is None:
+            self.bin_mapper = BinMapper.fit(
+                X, max_bin=p.max_bin, min_data_in_bin=p.min_data_in_bin,
+                seed=p.data_random_seed)
+            raw_codes = self.bin_mapper._transform_unbundled(X)
+            if p.enable_bundle:
+                self.bin_mapper.bundler = FeatureBundler.fit(
+                    raw_codes, self.bin_mapper.n_bins,
+                    max_conflict_rate=p.max_conflict_rate,
+                    exclude=self.bin_mapper.is_categorical)
+            b = self.bin_mapper.bundler
+            codes = raw_codes if b is None else b.merge(raw_codes)
+        if codes is None:
+            codes = self.bin_mapper.transform(X)
+        self._from_codes(codes)
+        return self
+
+    def _from_codes(self, codes: np.ndarray) -> None:
+        n, num_features = codes.shape
+        self.num_data_ = n
+        self.num_feature_ = num_features
+        n_pad = -(-n // ROW_PAD_MULTIPLE) * ROW_PAD_MULTIPLE
+        padded = np.zeros((n_pad, num_features), np.uint8)
+        padded[:n] = codes
+        self.X_binned = torch.from_numpy(padded).to(self.device)
+        mask = np.zeros(n_pad, np.float32)
+        mask[:n] = 1.0
+        self.row_mask = torch.from_numpy(mask).to(self.device)
+        self._put_targets()
+        self._constructed = True
+
+    def _put_targets(self) -> None:
+        n, n_pad = self.num_data_, int(self.row_mask.shape[0])
+
+        def padded(a: np.ndarray, what: str) -> torch.Tensor:
+            a = np.asarray(a, np.float32)
+            if len(a) != n:
+                raise ValueError(f"{what} length {len(a)} != num_data {n}")
+            out = np.zeros(n_pad, np.float32)
+            out[:n] = a
+            return torch.from_numpy(out).to(self.device)
+
+        if self._label is not None:
+            self.y = padded(self._label, "label")
+        self.w = padded(np.ones(n) if self._weight is None else self._weight,
+                        "weight")
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """Row subset sharing this dataset's bin mapper (the cv folds)."""
+        self.construct()
+        used = np.asarray(used_indices, dtype=np.int64)
+        codes = self.X_binned[: self.num_data_].cpu().numpy()[used]
+        sub = Dataset.__new__(Dataset)
+        sub.__dict__.update(self.__dict__)
+        sub.raw_data = None
+        sub.reference = None
+        sub.params = dict(params or self.params)
+        sub._label = None if self._label is None else self._label[used]
+        sub._weight = None if self._weight is None else self._weight[used]
+        sub._init_score = (None if self._init_score is None
+                           else self._init_score[used])
+        sub._from_codes(codes)
+        return sub
+
+    @property
+    def num_bins(self) -> int:
+        """Bin-axis size of the histograms."""
+        self.construct()
+        return max(2, self.bin_mapper.max_num_bins)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout, where
-``<digest>`` hashes the source and the flags, so an edited source rebuilds
+``<digest>`` hashes the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source rebuilds
 and an unchanged one is reused.  The sources have a plain C interface and
 include no PyTorch header, so a build takes seconds.  :func:`build` starts
 one nvcc per missing library, all at once, and waits for them together.
@@ -65,6 +66,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers are hashed too, so editing one rebuilds its users
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

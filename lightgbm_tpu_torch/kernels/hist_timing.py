@@ -1,0 +1,126 @@
+"""Time the histogram kernels of the checkout this file lives in, on the card.
+
+    python3 <checkout>/lightgbm_tpu_torch/kernels/hist_timing.py
+
+Builds ``hist_fused`` (B1) and ``hist_partition`` (B2) from that checkout,
+then on ``make_higgs_like(1,000,000)`` binned to 255 bins: each kernel
+against its plain version (max abs err, routing equal) and its device ms per
+launch (CUDA events, median of 11 runs of 5 launches queued behind a spin
+kernel) at the north-star root (binary round-1 statistics, one segment) and
+at the widest wave of a real north-star tree (grown once with the plain
+versions); then 10 rounds of north-star training (seconds per round) and its
+AUC on ``make_higgs_like(200,000, seed=9)``.  Prints one ``RESULT`` JSON
+line.  To compare two versions of the kernels in one call, unpack the other
+version into an ignored directory and run both files in turns (old, new,
+new, old).  Needs a CUDA card.
+"""
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+SPIN_CYCLES = 20_000_000
+
+
+def device_ms(fn, runs=11, inner=5):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        for _ in range(inner):
+            fn()
+        e.record()
+        e.synchronize()
+        per.append(s.elapsed_time(e) / inner)
+    return float(np.median(per))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("hist_timing: no CUDA device", file=sys.stderr)
+        return 2
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.tree as T
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.kernels import build
+    from lightgbm_tpu_torch.metrics import get_metric
+    from lightgbm_tpu_torch.models.gbdt import (HyperScalars,
+                                                resolve_wave_width)
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    print(ROOT, build.build(["hist_fused", "hist_partition"]))
+    dev = torch.device("cuda")
+    X, y = make_higgs_like(1_000_000, 28, seed=0)
+    bins = torch.from_numpy(BinMapper.fit(X, max_bin=255).transform(X)).to(
+        dev)
+    p = np.full(len(y), float(y.mean()))
+    stats = torch.from_numpy(np.stack([p - y, p * (1 - p), np.ones(len(y))],
+                                      1).astype(np.float32)).to(dev)
+    zeros = torch.zeros(len(y), dtype=torch.int32, device=dev)
+    params = {"objective": "binary", "num_leaves": 127,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
+    pp = parse_params(params)
+    rec = {}
+    orig = T.hist_partition_plain
+
+    def spy(*a):
+        if a[4].shape[0] > rec.get("w", 0):
+            rec["w"], rec["args"] = int(a[4].shape[0]), a[:9]
+        return orig(*a)
+
+    T.hist_partition_plain = spy
+    try:
+        T.grow_tree(bins, stats, torch.ones(28, device=dev),
+                    HyperScalars.from_params(pp).ctx(), 127, 256, -1,
+                    hist_impl="plain", hist_dtype="f32",
+                    wave_width=resolve_wave_width(pp, len(y)))
+    finally:
+        T.hist_partition_plain = orig
+    wave = rec["args"]
+    out = {"wave_w": rec["w"]}
+    for mode in ("f32", "bf16"):
+        got = H.hist_fused(bins, stats, zeros, 1, 256, mode)
+        want = H.hist_fused_plain(bins, stats, zeros, 1, 256, mode)
+        g2, l2 = H.hist_partition_fused(*wave, mode)
+        w2, wl2 = H.hist_partition_plain(*wave, mode)
+        torch.cuda.synchronize()
+        out[mode] = {
+            "b1_err": float((got - want).abs().max()),
+            "b2_err": float((g2 - w2).abs().max()),
+            "route_eq": bool(torch.equal(l2, wl2)),
+            "b1_ms": device_ms(lambda: H.hist_fused(bins, stats, zeros, 1,
+                                                    256, mode)),
+            "b2_ms": device_ms(lambda: H.hist_partition_fused(*wave, mode))}
+    ds = lgb.Dataset(X, label=y, params={"max_bin": 255})
+    ds.construct()
+    lgb.train(params, ds, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = lgb.train(params, ds, 10)
+    torch.cuda.synchronize()
+    out["s_per_round"] = (time.perf_counter() - t0) / 10
+    Xv, yv = make_higgs_like(200_000, 28, seed=9)
+    pv = torch.from_numpy(booster.predict(Xv)).to(dev)
+    yt = torch.from_numpy(yv).to(dev)
+    out["auc"] = float(get_metric("auc").fn(pv, yt, torch.ones_like(yt)))
+    print("RESULT", ROOT, json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,231 @@
+"""ctypes bindings of the histogram kernels (``csrc/hist_fused.cu``, B1, and
+``csrc/hist_partition.cu``, B2).
+
+:func:`hist_fused` and :func:`hist_partition` check their tensors, size the
+row chunks and segment groups, allocate the outputs and the scratch of
+per-chunk partials, and launch on the current CUDA stream without
+synchronising.  A launch the card refuses raises
+:class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES`` and
+``HIST_PARTITION_LAUNCHES`` count the calls that launched, per mode (``"f32"``
+and ``"bf16"``), and nothing else counts them.  They take CUDA tensors only: the plain PyTorch versions and the
+dispatch on the tensor's device live in ``ops/histogram.py``.
+
+Sizing: every block owns one (row chunk, feature, segment group).  A
+segment group is as many segments as the block's shared-memory partial
+``[group * S, B]`` f32 and its Kahan compensation hold, beside the staged
+row tile and the sort's tables, while two blocks still share an SM (14
+segments of S = 3 at B = 256, so a 42-split wave runs in three groups);
+chunks are cut so that the grid holds about eight blocks per SM.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import build
+from .predict import LaunchCounter
+
+FUSED, PARTITION = "hist_fused", "hist_partition"
+TILE_ROWS = 1024                    # kTileRows in csrc/hist_common.cuh
+WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
+SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
+SMEM_PER_SM = 233_472               # shared memory of one SM (228 KB)
+BLOCKS_PER_SM = 8                   # blocks a launch aims to give each SM
+
+MODES = ("f32", "bf16")
+HIST_FUSED_LAUNCHES = {m: LaunchCounter() for m in MODES}
+HIST_PARTITION_LAUNCHES = {m: LaunchCounter() for m in MODES}
+
+_bind_lock = threading.Lock()
+_funcs = {}
+
+
+def _bound():
+    with _bind_lock:
+        if not _funcs:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib = build.load(FUSED)
+            fn = lib.hist_fused_launch
+            fn.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
+                           vp, vp, vp]
+            fn.restype = ci
+            _funcs[FUSED] = fn
+            lib_p = build.load(PARTITION)
+            fn = lib_p.hist_partition_launch
+            fn.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp, vp, vp, ci, ci,
+                           ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+            fn.restype = ci
+            _funcs[PARTITION] = fn
+            for name, lib_ in ((FUSED, lib), (PARTITION, lib_p)):
+                err = getattr(lib_, f"{name}_error_string")
+                err.argtypes = [ci]
+                err.restype = ctypes.c_char_p
+                _funcs[name + "_error"] = err
+                tile = getattr(lib_, f"{name}_tile_rows")
+                tile.restype = ci
+                if tile() != TILE_ROWS:
+                    raise build.KernelLaunchError(
+                        f"{name}: the kernel's tile rows disagree with the "
+                        "binding")
+            smem = lib.hist_fused_smem_bytes
+            smem.argtypes = [ci, ci, ci]
+            smem.restype = ctypes.c_longlong
+            if smem(3, 256, 7) != smem_bytes(3, 256, 7):
+                raise build.KernelLaunchError(
+                    "hist_fused: the kernel's shared-memory layout disagrees "
+                    "with the binding")
+        return _funcs
+
+
+def smem_bytes(s: int, num_bins: int, seg_group: int) -> int:
+    """Dynamic shared memory of one block (``hist::smem_bytes``): staged
+    keys and statistics, the counting sort's counts, starts, totals and row
+    order, the partial and its Kahan compensation."""
+    return (4 * (TILE_ROWS + WARPS * MAX_BINS + 2 * MAX_BINS)
+            + 4 * (TILE_ROWS * s + 2 * seg_group * s * num_bins)
+            + 2 * TILE_ROWS)
+
+
+def plan(n: int, num_features: int, s: int, num_segments: int,
+         num_bins: int, sm_count: int):
+    """(rows_per_chunk, n_chunks, seg_group) of a launch.
+
+    A segment group is as many segments as let two blocks share an SM (one
+    when even a single segment needs more); chunks are cut so that the grid
+    holds about ``BLOCKS_PER_SM`` blocks per SM, each at least one tile.
+    """
+    per_seg = 8 * s * num_bins
+    base = smem_bytes(s, num_bins, 0)
+    two_per_sm = SMEM_PER_SM // 2 - 1024 - base
+    room = two_per_sm if two_per_sm >= per_seg else SMEM_LIMIT - base
+    seg_group = min(num_segments, room // per_seg)
+    if seg_group < 1:
+        raise ValueError(f"{s} statistics x {num_bins} bins do not fit a "
+                         "block's shared memory")
+    groups = -(-num_segments // seg_group)
+    max_chunks = max(1, -(-n // TILE_ROWS))
+    want = -(-BLOCKS_PER_SM * sm_count // (num_features * groups))
+    n_chunks = max(1, min(max_chunks, want))
+    rows = -(-n // n_chunks)
+    rows = -(-rows // TILE_ROWS) * TILE_ROWS
+    n_chunks = max(1, -(-n // rows))
+    return rows, n_chunks, seg_group
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise TypeError(f"{name} must be {dtype} {tuple(shape)}, got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _raise(name, err):
+    msg = _funcs[name + "_error"](err).decode()
+    raise build.KernelLaunchError(f"{name} launch failed: {msg} "
+                                  f"(cudaError {err})")
+
+
+def _mode_flag(mode: str) -> int:
+    if mode not in MODES:
+        raise ValueError(f"histogram mode must be 'f32' or 'bf16', got "
+                         f"{mode!r}")
+    return int(mode == "bf16")
+
+
+def hist_fused(bins: torch.Tensor, stats: torch.Tensor, seg: torch.Tensor,
+               num_segments: int, num_bins: int, mode: str) -> torch.Tensor:
+    """Launch B1: f32 ``[K, F, B, S]`` histogram of ``stats`` by
+    (segment, feature, bin) for CUDA tensors."""
+    if bins.device.type != "cuda":
+        raise ValueError(f"the hist_fused kernel takes CUDA tensors, got "
+                         f"{bins.device}")
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2:
+        raise TypeError("bins must be a uint8 [n, F] tensor")
+    n, f = bins.shape
+    s = stats.shape[1] if stats.dim() == 2 else -1
+    _check("stats", stats, torch.float32, (n, s), dev)
+    _check("seg", seg, torch.int32, (n,), dev)
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
+    flag = _mode_flag(mode)
+    k = int(num_segments)
+    out = torch.empty((k, f, num_bins, s), dtype=torch.float32, device=dev)
+    if n == 0 or f == 0 or k == 0 or s == 0:
+        return out.zero_()
+    rows, n_chunks, group = plan(n, f, s, k, num_bins, _sm_count(dev))
+    partial = torch.empty(n_chunks * f * k * s * num_bins,
+                          dtype=torch.float32, device=dev)
+    bins, stats, seg = bins.contiguous(), stats.contiguous(), seg.contiguous()
+    funcs = _bound()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = funcs[FUSED](bins.data_ptr(), n, f, stats.data_ptr(), s,
+                           seg.data_ptr(), k, num_bins, flag, rows, n_chunks,
+                           group, partial.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        _raise(FUSED, err)
+    HIST_FUSED_LAUNCHES[mode].add()
+    return out
+
+
+def hist_partition(bins: torch.Tensor, stats: torch.Tensor,
+                   row_leaf: torch.Tensor, slot_of_node: torch.Tensor,
+                   feat: torch.Tensor, thr: torch.Tensor,
+                   direct_left: torch.Tensor, n_nodes: int, num_bins: int,
+                   mode: str):
+    """Launch B2 on CUDA tensors: ``(direct_hist f32 [W, F, B, 3],
+    new_row_leaf i32 [n])``."""
+    if bins.device.type != "cuda":
+        raise ValueError(f"the hist_partition kernel takes CUDA tensors, got "
+                         f"{bins.device}")
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2:
+        raise TypeError("bins must be a uint8 [n, F] tensor")
+    n, f = bins.shape
+    w = feat.shape[0]
+    _check("stats", stats, torch.float32, (n, 3), dev)
+    _check("row_leaf", row_leaf, torch.int32, (n,), dev)
+    _check("slot_of_node", slot_of_node, torch.int32,
+           (slot_of_node.shape[0],), dev)
+    _check("feat", feat, torch.int32, (w,), dev)
+    _check("thr", thr, torch.int32, (w,), dev)
+    _check("direct_left", direct_left, torch.uint8, (w,), dev)
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
+    flag = _mode_flag(mode)
+    hist = torch.empty((w, f, num_bins, 3), dtype=torch.float32, device=dev)
+    new_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return hist.zero_(), new_leaf
+    if w == 0 or f == 0:
+        # nothing splits: every row keeps its leaf
+        return hist.zero_(), row_leaf.clone()
+    rows, n_chunks, group = plan(n, f, 3, w, num_bins, _sm_count(dev))
+    seg = torch.empty(n, dtype=torch.int32, device=dev)
+    partial = torch.empty(n_chunks * f * w * 3 * num_bins,
+                          dtype=torch.float32, device=dev)
+    tensors = [t.contiguous() for t in (bins, stats, row_leaf, slot_of_node,
+                                        feat, thr, direct_left)]
+    funcs = _bound()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = funcs[PARTITION](
+            tensors[0].data_ptr(), n, f, tensors[1].data_ptr(),
+            tensors[2].data_ptr(), tensors[3].data_ptr(),
+            tensors[3].shape[0], tensors[4].data_ptr(),
+            tensors[5].data_ptr(), tensors[6].data_ptr(), w, int(n_nodes),
+            num_bins, flag, rows, n_chunks, group, seg.data_ptr(),
+            partial.data_ptr(), hist.data_ptr(), new_leaf.data_ptr(), stream)
+    if err != 0:
+        _raise(PARTITION, err)
+    HIST_PARTITION_LAUNCHES[mode].add()
+    return hist, new_leaf

@@ -1,0 +1,501 @@
+"""GBDT boosting and the ``Booster`` — the port of ``lightgbm_tpu/models/gbdt.py``
+on its plain single-device branch.
+
+One boosting round: grad/hess of the objective -> bagging-masked stats ->
+one tree from the wave grower -> the train-score update, all on the
+training Dataset's device.  The host drives the rounds and reads only what
+decides control flow (one number per wave, the pruned table of an exact-tail
+tree, the metrics a callback asks for).  Bagging and ``feature_fraction``
+draw from the reference's counter-based streams (``utils/random.py``), keyed
+by round index, so the same params and seed give the same trees as the
+reference.
+
+What is outside this slice raises a ``NotImplementedError`` naming the
+ROADMAP slice that will port it: other objectives and boosting modes,
+constraints, categorical/linear/extra trees, per-node sampling, feature
+screening, streaming, the distributed learners, ``init_model``, int8
+histograms and the strict grower.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import Params, default_metric_for_objective, parse_params
+from ..dataset import Dataset
+from ..device import resolve_device
+from ..metrics import get_metric
+from ..objectives import create_objective
+from ..ops.predict import (forest_depth_cap, predict_forest_binned,
+                           predict_tree_binned)
+from ..ops.sampling import sample_bag
+from ..ops.split import SplitContext, fma
+from ..utils.random import fold_in, prng_key
+from .feature_mask import compose_tree_mask
+from .tree import Tree, grow_tree
+
+_F32 = torch.float32
+_SLICE3 = "ROADMAP slice 3 (breadth of training)"
+
+
+class HyperScalars(NamedTuple):
+    """Per-config scalars of the round step (Python floats)."""
+
+    learning_rate: float
+    lambda_l1: float
+    lambda_l2: float
+    min_data_in_leaf: float
+    min_sum_hessian: float
+    min_gain_to_split: float
+    max_depth: int
+    max_delta_step: float = 0.0
+    path_smooth: float = 0.0
+
+    @staticmethod
+    def from_params(p: Params) -> "HyperScalars":
+        return HyperScalars(
+            learning_rate=float(p.learning_rate),
+            lambda_l1=float(p.lambda_l1), lambda_l2=float(p.lambda_l2),
+            min_data_in_leaf=float(p.min_data_in_leaf),
+            min_sum_hessian=float(p.min_sum_hessian_in_leaf),
+            min_gain_to_split=float(p.min_gain_to_split),
+            max_depth=int(p.max_depth),
+            max_delta_step=float(p.max_delta_step),
+            path_smooth=float(p.path_smooth))
+
+    def ctx(self) -> SplitContext:
+        return SplitContext(
+            lambda_l1=self.lambda_l1, lambda_l2=self.lambda_l2,
+            min_data_in_leaf=self.min_data_in_leaf,
+            min_sum_hessian=self.min_sum_hessian,
+            min_gain_to_split=self.min_gain_to_split,
+            max_delta_step=self.max_delta_step,
+            path_smooth=self.path_smooth)
+
+
+def resolve_hist_dtype(p: Params, n_rows: int) -> str:
+    """Histogram precision: "auto" is bf16 from 2^19 rows, f32 below; an
+    explicit ``hist_dtype="f32"`` resolves to "f32x", the exactness
+    contract (both are true f32 in the port)."""
+    if p.use_quantized_grad:
+        return "bf16"
+    d = p.extra.get("hist_dtype", "auto")
+    if d != "auto":
+        return "f32x" if d == "f32" else d
+    return "bf16" if n_rows >= (1 << 19) else "f32"
+
+
+def _exact_overgrow_target(num_leaves: int, width: int, over: float) -> int:
+    """Wave-aligned overgrowth target for the exact tail: the greedy wave
+    boundary closest to ``num_leaves * over`` in log space, bounded to
+    ``(num_leaves, 2.5 * num_leaves]``."""
+    target = max(num_leaves * over, num_leaves + 1)
+    leaves, cand = 1, 1
+    best = None
+    while leaves < 2.5 * num_leaves:
+        s = min(cand, width)
+        leaves += s
+        cand = min(cand * 2, leaves)
+        if leaves > num_leaves:
+            if best is None or (abs(math.log(leaves / target))
+                                < abs(math.log(best / target))):
+                best = leaves
+    return best or int(math.ceil(target))
+
+
+def resolve_wave_width(p: Params, n_rows: int) -> int:
+    """The grower's splits per histogram pass, with the wave tail in its
+    encoding (negative = greedy; >= 1024 = exact, ``overgrow_leaves * 1024
+    + width``; else half).  Waves are the default at >= 4096 rows and >= 16
+    leaves; ``grow_policy="leafwise"`` forces the strict grower (1)."""
+    if p.grow_policy == "leafwise":
+        return 1
+    width = int(p.extra.get("wave_width", 0)) or min(42, p.num_leaves - 1)
+    width = max(1, min(width, 512))
+    rows_per_leaf = n_rows // max(p.num_leaves, 1)
+    pointwise = p.objective not in ("lambdarank", "rank_xendcg", "none")
+    default_tail = ("greedy" if pointwise and rows_per_leaf >= 1024
+                    and n_rows < (1 << 19) else "exact")
+    tail = str(p.extra.get("wave_tail", default_tail))
+    if tail == "greedy":
+        width = -width
+    elif tail == "exact":
+        over = float(p.extra.get("wave_overgrow", 2.0))
+        width = _exact_overgrow_target(p.num_leaves, width, over) * 1024 \
+            + width
+    if p.grow_policy == "frontier":
+        return width
+    return width if (n_rows >= 4096 and p.num_leaves >= 16) else 1
+
+
+def check_slice_scope(p: Params) -> None:
+    """Refuse, by name, every training option this slice does not port."""
+    def later(what: str, where: str = _SLICE3):
+        raise NotImplementedError(f"{what} is not ported yet: {where}")
+
+    if p.boosting != "gbdt":
+        later(f"boosting='{p.boosting}'")
+    if p.objective not in ("regression", "binary"):
+        later(f"objective='{p.objective}'")
+    if p.extra.get("fobj") is not None:
+        later("a custom objective (fobj)")
+    if p.linear_tree:
+        later("linear_tree")
+    if p.monotone_constraints and any(int(c) != 0
+                                      for c in p.monotone_constraints):
+        later("monotone_constraints")
+    if p.interaction_constraints:
+        later("interaction_constraints")
+    if p.extra_trees:
+        later("extra_trees")
+    if p.feature_fraction_bynode < 1.0:
+        later("feature_fraction_bynode < 1")
+    if p.feature_screen != "off":
+        later(f"feature_screen='{p.feature_screen}'",
+              "ROADMAP slice 5 (out-of-core training and recovery)")
+    if p.tree_learner != "serial":
+        later(f"tree_learner='{p.tree_learner}' (dp/fp meshes)",
+              "ROADMAP slice 6 (multi-device)")
+    if p.extra.get("hist_dtype") == "int8":
+        later("hist_dtype='int8'", "ROADMAP slice 2 follow-up (B1's int8 "
+              "mode)")
+
+
+class Booster:
+    """LightGBM-compatible Booster trained on its Dataset's device.
+
+    ``Booster(params, train_set)`` trains on ``train_set.device``;
+    ``Booster(model_file=...)`` / ``Booster(model_str=...)`` load a saved
+    model (JSON text or packed ``.npz``) onto ``device`` (None = ``cuda``,
+    the CPU only on ``device="cpu"``).
+    """
+
+    def __init__(self, params: Optional[Union[Dict[str, Any], Params]] = None,
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
+                 model_str: Optional[str] = None,
+                 device: Union[str, torch.device, None] = None):
+        if model_file is not None or model_str is not None:
+            from ..utils.serialize import load_booster_into
+
+            self.device = resolve_device(device)
+            load_booster_into(self, model_file=model_file,
+                              model_str=model_str)
+            return
+        self.params = (params if isinstance(params, Params)
+                       else parse_params(params))
+        self.train_set = train_set
+        self.device = (train_set.device if train_set is not None
+                       and device is None else resolve_device(device))
+        self.obj = create_objective(self.params)
+        self.trees: List[Tree] = []
+        self.best_iteration: int = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._valid: List[Tuple[str, Dataset, torch.Tensor]] = []
+        self._iter = 0
+        self.init_score_ = 0.0
+        self._pred_train = None
+        self._bag = None
+        self._forest_cache = None
+        self._base_lr = float(self.params.learning_rate)
+        if train_set is not None:
+            self._setup_training()
+
+    # ------------------------------------------------------------------
+    def _setup_training(self) -> None:
+        ds = self.train_set
+        p = self.params
+        check_slice_scope(p)
+        if ds.device != self.device:
+            raise ValueError(f"the training Dataset lives on {ds.device}, "
+                             f"the Booster on {self.device}")
+        ds.construct()
+        if ds.y is None:
+            raise ValueError("training Dataset requires a label")
+        y_host = ds.get_label()
+        w_host = (ds.get_weight() if ds.get_weight() is not None
+                  else np.ones(ds.num_data_))
+        if hasattr(self.obj, "prepare"):
+            self.obj.prepare(y_host, w_host)
+        n_pad = int(ds.row_mask.shape[0])
+        if ds.get_init_score() is not None:
+            base = np.zeros(n_pad, np.float32)
+            base[:ds.num_data_] = np.asarray(ds.get_init_score(), np.float32)
+            self._pred_train = torch.from_numpy(base).to(self.device)
+            self.init_score_ = 0.0
+        else:
+            self.init_score_ = float(self.obj.init_score(y_host, w_host))
+            self._pred_train = torch.full((n_pad,), self.init_score_,
+                                          dtype=_F32, device=self.device)
+        self._bag = ds.row_mask
+        self._hyper = HyperScalars.from_params(p)
+        self._base_lr = float(p.learning_rate)
+        self._num_bins = ds.num_bins
+        self._w_eff = ds.w
+
+    @property
+    def _depth_cap(self) -> int:
+        caps = {int(t.split_feature.shape[-1]) for t in self.trees}
+        cap = max([2 * self.params.num_leaves - 1, *caps])
+        return (cap + 1) // 2
+
+    def _sample_bag_and_fmask(self, i: int) -> torch.Tensor:
+        """This round's bag (resampled on schedule into ``self._bag``) and
+        feature mask, from streams keyed by the round index."""
+        ds = self.train_set
+        p = self.params
+        if p.bagging_freq > 0 and p.bagging_fraction < 1.0 and \
+                i % p.bagging_freq == 0:
+            bkey = fold_in(prng_key(p.bagging_seed + p.seed), i)
+            self._bag = sample_bag(bkey, ds.row_mask, p.bagging_fraction,
+                                   float(ds.num_data_))
+        n_cols = int(ds.num_feature_)
+        if p.feature_fraction < 1.0:
+            fkey = fold_in(prng_key(p.feature_fraction_seed + p.seed), i)
+            return compose_tree_mask(fkey, p.feature_fraction, n_cols,
+                                     device=self.device)
+        return torch.ones(n_cols, dtype=_F32, device=self.device)
+
+    # -- round step ------------------------------------------------------
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """Run one boosting round (LightGBM ``Booster.update``)."""
+        if fobj is not None:
+            raise NotImplementedError(
+                f"a custom objective (fobj) is not ported yet: {_SLICE3}")
+        if train_set is not None and train_set is not self.train_set:
+            if self.trees:
+                raise NotImplementedError(
+                    f"continuing a loaded model (init_model) is not ported "
+                    f"yet: {_SLICE3}")
+            self.train_set = train_set
+            if self.device != train_set.device:
+                self.device = train_set.device
+            self._setup_training()
+        if self.train_set is None:
+            raise ValueError("update() needs a training Dataset")
+        ds = self.train_set
+        p = self.params
+        i = self._iter
+        fmask = self._sample_bag_and_fmask(i)
+        n_pad = int(ds.row_mask.shape[0])
+        hyper = self._hyper
+        g, h = self.obj.grad_hess(self._pred_train, ds.y, self._w_eff)
+        bag = self._bag
+        stats = torch.stack([g * bag, h * bag, (bag > 0).to(_F32)], dim=-1)
+        tree, row_leaf = grow_tree(
+            ds.X_binned, stats, fmask, hyper.ctx(), p.num_leaves,
+            self._num_bins, hyper.max_depth,
+            hist_impl=p.extra.get("hist_impl", "auto"),
+            hist_dtype=resolve_hist_dtype(p, n_pad),
+            wave_width=resolve_wave_width(p, n_pad))
+        lr = torch.tensor(hyper.learning_rate, dtype=_F32, device=self.device)
+        self._pred_train = fma(lr, tree.leaf_value[row_leaf.to(torch.int64)],
+                               self._pred_train)
+        self.trees.append(tree)
+        self._forest_cache = None
+        shrink = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
+        for idx, (name, vds, vpred) in enumerate(self._valid):
+            self._valid[idx] = (name, vds, vpred + shrink * predict_tree_binned(
+                tree, vds.X_binned, p.num_leaves))
+        self._iter += 1
+        return False
+
+    def update_many(self, k: int) -> None:
+        """Run ``k`` rounds (the reference scans them into one device
+        program; its docstring states the models are identical)."""
+        for _ in range(max(int(k), 0)):
+            self.update()
+
+    # -- evaluation ------------------------------------------------------
+    def _metric_names(self) -> List[str]:
+        names = [m for m in self.params.metric if m != "none"]
+        if not names:
+            default = default_metric_for_objective(self.params.objective)
+            if default != "none":
+                names = [default]
+        return names
+
+    def _eval_on(self, pred_raw, ds: Dataset, name: str):
+        out = []
+        t = self.obj.transform(pred_raw)
+        for mname in self._metric_names():
+            m = get_metric(mname, self.params)
+            out.append((name, mname, float(m.fn(t, ds.y, ds.w)),
+                        m.higher_better))
+        return out
+
+    def _feval_results(self, feval, pred_raw, ds, name):
+        if feval is None:
+            return []
+        fevals = feval if isinstance(feval, (list, tuple)) else [feval]
+        pred_host = self.obj.transform(pred_raw).cpu().numpy()[:ds.num_data_]
+        out = []
+        for f in fevals:
+            mname, val, hib = f(pred_host, ds)
+            out.append((name, mname, float(val), bool(hib)))
+        return out
+
+    def eval_train(self, feval=None):
+        res = self._eval_on(self._pred_train, self.train_set, "training")
+        return res + self._feval_results(feval, self._pred_train,
+                                         self.train_set, "training")
+
+    def eval_valid(self, feval=None):
+        out = []
+        for name, vds, vpred in self._valid:
+            out.extend(self._eval_on(vpred, vds, name))
+            out.extend(self._feval_results(feval, vpred, vds, name))
+        return out
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        data.construct()
+        if data.y is None:
+            raise ValueError(f"valid set '{name}' requires a label")
+        if data.device != self.device:
+            raise ValueError(f"valid set '{name}' lives on {data.device}, "
+                             f"the Booster on {self.device}")
+        vpred = torch.full(data.row_mask.shape, self.init_score_, dtype=_F32,
+                           device=self.device)
+        shrink = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
+        for tree in self.trees:
+            vpred = vpred + shrink * predict_tree_binned(
+                tree, data.X_binned, self._depth_cap)
+        self._valid.append((name, data, vpred))
+        return self
+
+    # -- prediction ------------------------------------------------------
+    def _stacked_forest(self) -> Tree:
+        if self._forest_cache is None:
+            if not self.trees:
+                raise ValueError("no trees trained yet")
+            fields = {}
+            for name in Tree._fields:
+                vals = [getattr(t, name) for t in self.trees]
+                fields[name] = (None if vals[0] is None
+                                else torch.stack(vals))
+            forest = Tree(**fields)
+            self._forest_depth = forest_depth_cap(forest)
+            self._forest_cache = forest
+        return self._forest_cache
+
+    def predict(self, data, num_iteration: Optional[int] = None,
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, start_iteration: int = 0,
+                **kwargs) -> np.ndarray:
+        """Predict on raw (unbinned) features; ``num_iteration`` truncates
+        to the first k trees (None: the best iteration when early stopping
+        found one; <= 0: all trees)."""
+        if pred_leaf or pred_contrib:
+            raise NotImplementedError(
+                f"pred_leaf / pred_contrib are not ported yet: {_SLICE3}")
+        if isinstance(data, Dataset):
+            raise TypeError("predict() expects a raw feature matrix, not a "
+                            "Dataset (matching lightgbm)")
+        if num_iteration is None:
+            num_iteration = (self.best_iteration
+                             if self.best_iteration > 0 else len(self.trees))
+        elif num_iteration <= 0:
+            num_iteration = len(self.trees)
+        start_iteration = max(int(start_iteration), 0)
+        num_iteration = min(num_iteration, len(self.trees) - start_iteration)
+        from ..dataset import _to_2d_float_array
+
+        codes = self._bin_mapper_for_predict().transform(
+            _to_2d_float_array(data))
+        bins = torch.from_numpy(codes).to(self.device)
+        if not self.trees:
+            raw = torch.full((bins.shape[0],), float(self.init_score_),
+                             dtype=_F32, device=self.device)
+        else:
+            forest = self._stacked_forest()
+            raw = predict_forest_binned(
+                forest, bins, torch.tensor(self._base_lr, dtype=_F32,
+                                           device=self.device),
+                self.init_score_, num_iteration,
+                min(self._depth_cap, self._forest_depth),
+                start_iteration=start_iteration)
+        if raw_score:
+            return raw.cpu().numpy()
+        return self.obj.transform(raw).cpu().numpy()
+
+    def _bin_mapper_for_predict(self):
+        if self.train_set is not None:
+            return self.train_set.bin_mapper
+        return self._bin_mapper
+
+    # -- introspection ---------------------------------------------------
+    def current_iteration(self) -> int:
+        return self._iter
+
+    def num_trees(self) -> int:
+        return len(self.trees)
+
+    def num_feature(self) -> int:
+        if self.train_set is not None:
+            return self.train_set.num_feature()
+        return self._bin_mapper.num_features
+
+    def feature_name(self) -> List[str]:
+        if self.train_set is not None:
+            return list(self.train_set.feature_names)
+        return list(self._feature_names or [])
+
+    def num_model_per_iteration(self) -> int:
+        return 1
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Per-feature split counts or total gains over the first
+        ``iteration`` rounds (all when None or <= 0)."""
+        k = len(self.trees) if (iteration is None or iteration <= 0) \
+            else min(int(iteration), len(self.trees))
+        out = np.zeros(self.num_feature(), dtype=np.float64)
+        if k == 0:
+            return (out.astype(np.int64) if importance_type == "split"
+                    else out)
+        forest = self._stacked_forest()
+
+        def host(a):
+            return a[:k].cpu().numpy().ravel()
+
+        feats = host(forest.split_feature)
+        gains = host(forest.split_gain)
+        used = ~host(forest.is_leaf) & (host(forest.left) >= 0)
+        bundler = getattr(self._bin_mapper_for_predict(), "bundler", None)
+        if bundler is not None:
+            feats = bundler.split_to_original(feats, host(forest.split_bin))
+        vals = np.ones_like(gains) if importance_type == "split" else gains
+        np.add.at(out, feats[used], vals[used])
+        if importance_type == "split":
+            return out.astype(np.int64)
+        return out
+
+    # -- persistence -----------------------------------------------------
+    def save_model(self, filename: str, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
+        from ..utils.serialize import save_booster
+
+        save_booster(self, filename, num_iteration=num_iteration,
+                     start_iteration=start_iteration)
+        return self
+
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> str:
+        from ..utils.serialize import booster_to_string
+
+        return booster_to_string(self, num_iteration=num_iteration,
+                                 start_iteration=start_iteration)
+
+    def params_dict(self) -> dict:
+        """The params as a plain dict (``extra`` dropped) for model files;
+        ``learning_rate`` is the base rate the stored leaves are scaled
+        to."""
+        d = dataclasses.asdict(self.params)
+        d.pop("extra", None)
+        d["learning_rate"] = float(self._base_lr)
+        return d

@@ -1,21 +1,39 @@
-"""The tensorized tree container — the port's copy of ``Tree`` from
-``lightgbm_tpu/models/tree.py``.
+"""Tensorized trees and the wave grower — the port of ``lightgbm_tpu/models/tree.py``.
 
-A tree is a struct of arrays with a static node capacity.  Traversal rule
-at internal node i: go left iff ``bin_code[row, split_feature[i]] <=
+A tree is a struct of arrays with a static node capacity.  Traversal rule at
+internal node i: go left iff ``bin_code[row, split_feature[i]] <=
 split_bin[i]`` for numeric splits; for categorical k-vs-rest splits
 (``is_cat_split[i]``) go left iff ``cat_mask[i, bin_code[row,
 split_feature[i]]]``.  Unused slots have ``is_leaf=False`` and are
 unreachable.  Here the fields are torch tensors on one device; a forest
-stacks trees on a leading ``[T]`` axis.  The growers wait for the training
-slice.
+stacks trees on a leading ``[T]`` axis.
+
+Growth: :func:`grow_tree` dispatches on the encoded wave width
+(:func:`decode_wave_width`).  This slice ports :func:`grow_tree_frontier`,
+the default grower at n >= 4096 rows and num_leaves >= 16, on the plain
+numeric path (no categorical, monotone, extra-trees, interaction or per-node
+sampling), with all three wave tails: ``greedy``, ``half`` and ``exact``
+(overgrow, then :func:`_exact_prune`).  Each wave runs kernel B2
+(``ops.histogram.hist_partition_fused``), which routes the rows and builds the
+smaller children's histograms in one pass; the siblings come from the
+per-leaf histogram cache by subtraction.  The strict best-first grower
+(wave width 1) is the next slice's work and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..ops.histogram import (compute_histograms, hist_partition_fused,
+                             hist_partition_plain, resolve_mode)
+from ..ops.split import (SplitContext, constrained_leaf_output,
+                         find_best_split)
+from .feature_mask import node_mask_fn
+
+_F32 = torch.float32
 
 
 class Tree(NamedTuple):
@@ -35,3 +53,392 @@ class Tree(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.split_feature.shape[-1]
+
+
+class _PK:
+    """Column layout of the packed per-node table ``[capacity, NC]`` f32
+    (the reference's layout; integer fields are exact in f32)."""
+
+    SPLIT_FEAT = 0    # init -1
+    SPLIT_BIN = 1
+    LEFT = 2          # init -1
+    RIGHT = 3         # init -1
+    LEAF_VALUE = 4
+    IS_LEAF = 5       # 0/1
+    COUNT = 6
+    SPLIT_GAIN = 7
+    DEPTH = 8
+    CAND_GAIN = 9     # init -inf
+    CAND_FEAT = 10
+    CAND_BIN = 11
+    CAND_LG = 12
+    CAND_LH = 13
+    CAND_LC = 14
+    CAND_RG = 15
+    CAND_RH = 16
+    CAND_RC = 17
+    CAND_WL = 18
+    CAND_WR = 19
+    BOUND_LO = 20     # init -inf
+    BOUND_HI = 21     # init +inf
+    CAND_CAT = 22     # 0/1 (categorical splits are out of this slice)
+    PM = 23           # pathmin: min candidate gain over ancestors-or-self
+    NC = 24
+
+
+def decode_wave_width(wave_width: int):
+    """Decode the wave-width int into (width, tail, overgrow_leaves):
+    negative = greedy tail; >= 1024 = exact tail, ``overgrow_leaves * 1024
+    + width``; else half (``gbdt.resolve_wave_width``'s encoding)."""
+    if wave_width < 0:
+        return -wave_width, "greedy", None
+    if wave_width >= 1024:
+        return wave_width % 1024, "exact", wave_width // 1024
+    return wave_width, "half", None
+
+
+def _empty_packed_table(capacity: int, device) -> torch.Tensor:
+    """All-sentinel packed table (no children, no candidate, unbounded)."""
+    K = _PK
+    nodes = torch.zeros((capacity, K.NC), dtype=_F32, device=device)
+    nodes[:, K.SPLIT_FEAT] = -1.0
+    nodes[:, K.LEFT] = -1.0
+    nodes[:, K.RIGHT] = -1.0
+    nodes[:, K.CAND_GAIN] = float("-inf")
+    nodes[:, K.BOUND_LO] = float("-inf")
+    nodes[:, K.BOUND_HI] = float("inf")
+    nodes[:, K.PM] = float("-inf")
+    return nodes
+
+
+def _packed_root_table(capacity, root_out, root_tot, root_best
+                       ) -> torch.Tensor:
+    """Initial packed table with the root's row set."""
+    K = _PK
+    dev = root_out.device
+    nodes = _empty_packed_table(capacity, dev)
+    row = torch.zeros(K.NC, dtype=_F32, device=dev)
+    cols = [K.SPLIT_FEAT, K.LEFT, K.RIGHT, K.LEAF_VALUE, K.IS_LEAF, K.COUNT,
+            K.CAND_GAIN, K.CAND_FEAT, K.CAND_BIN, K.CAND_LG, K.CAND_LH,
+            K.CAND_LC, K.CAND_RG, K.CAND_RH, K.CAND_RC, K.CAND_WL, K.CAND_WR,
+            K.BOUND_LO, K.BOUND_HI, K.CAND_CAT, K.PM]
+
+    def f(v):
+        return torch.as_tensor(v, device=dev).to(_F32).reshape(())
+
+    vals = [f(-1.0), f(-1.0), f(-1.0), root_out, f(1.0), root_tot[2],
+            root_best.gain, f(root_best.feature), f(root_best.bin),
+            root_best.left_g, root_best.left_h, root_best.left_c,
+            root_best.right_g, root_best.right_h, root_best.right_c,
+            root_best.left_out, root_best.right_out, f(float("-inf")),
+            f(float("inf")), f(0.0), root_best.gain]
+    row[torch.tensor(cols, device=dev)] = torch.stack([f(v) for v in vals])
+    nodes[0] = row
+    return nodes
+
+
+def _tree_from_packed(P: torch.Tensor, n_leaves: int) -> Tree:
+    """Unpack the packed node table into the public Tree struct."""
+    K = _PK
+    return Tree(
+        split_feature=P[:, K.SPLIT_FEAT].to(torch.int32),
+        split_bin=P[:, K.SPLIT_BIN].to(torch.int32),
+        left=P[:, K.LEFT].to(torch.int32),
+        right=P[:, K.RIGHT].to(torch.int32),
+        leaf_value=P[:, K.LEAF_VALUE].clone(),
+        is_leaf=P[:, K.IS_LEAF] > 0.5,
+        count=P[:, K.COUNT].clone(),
+        split_gain=P[:, K.SPLIT_GAIN].clone(),
+        num_leaves=torch.tensor(int(n_leaves), dtype=torch.int32,
+                                device=P.device),
+    )
+
+
+def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
+              feature_mask: torch.Tensor, ctx: SplitContext,
+              num_leaves: int, num_bins: int, max_depth: int,
+              hist_impl: str = "auto", hist_dtype: str = "f32",
+              wave_width: int = 1) -> Tuple[Tree, torch.Tensor]:
+    """Grow one best-first tree; returns ``(tree, row_leaf)``.
+
+    ``bins`` uint8 ``[n, F]``; ``stats`` f32 ``[n, 3]`` of (grad, hess,
+    in-bag indicator), already bagging-masked; ``feature_mask`` f32 ``[F]``;
+    ``max_depth`` <= 0 means unlimited.  ``wave_width`` carries the wave
+    tail in its encoding (see :func:`decode_wave_width`).  Widths above 1
+    grow in waves (:func:`grow_tree_frontier`); width 1, the strict
+    best-first grower, is not ported yet.
+    """
+    raw = wave_width
+    width, tail, overgrow = decode_wave_width(int(wave_width))
+    if tail == "exact" and (width > 512 or overgrow <= num_leaves):
+        raise ValueError(
+            f"wave_width={raw} decodes to exact-tail (width={width}, "
+            f"overgrow_leaves={overgrow}) but is not a valid "
+            f"resolve_wave_width encoding for num_leaves={num_leaves}; raw "
+            "widths must be < 1024 — use gbdt.resolve_wave_width to encode "
+            "the exact tail")
+    if width <= 1:
+        raise NotImplementedError(
+            "the strict best-first grower (wave_width == 1: "
+            "grow_policy='leafwise', fewer than 4096 rows or num_leaves < 16) "
+            "and its split-iteration kernel B3 are not ported yet: the next "
+            "ROADMAP item of slice 2")
+    return grow_tree_frontier(bins, stats, feature_mask, ctx, num_leaves,
+                              num_bins, max_depth, width,
+                              hist_impl=hist_impl, hist_dtype=hist_dtype,
+                              wave_tail=tail, overgrow_leaves=overgrow)
+
+
+def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
+                       feature_mask: torch.Tensor, ctx: SplitContext,
+                       num_leaves: int, num_bins: int, max_depth: int,
+                       wave_width: int, hist_impl: str = "auto",
+                       hist_dtype: str = "f32", wave_tail: str = "half",
+                       overgrow_leaves: Optional[int] = None
+                       ) -> Tuple[Tree, torch.Tensor]:
+    """Best-first growth in waves: up to ``wave_width`` splits per data
+    pass (the reference's ``grow_tree_frontier`` on the plain numeric path).
+
+    Per wave: the top leaves by cached candidate gain (by pathmin in the
+    exact tail) split together; one pass of kernel B2 routes their rows and
+    histograms each split's smaller child; the sibling is parent minus child
+    from the per-leaf histogram cache; the fresh children are scored from
+    the cached histograms.  The loop reads one number per wave on the host
+    (how many leaves still have a finite candidate gain), which decides
+    whether another wave runs and how many splits it takes: the reference's
+    ``while_loop`` condition.
+    """
+    n, num_features = bins.shape
+    dev = bins.device
+    K = _PK
+    mode = resolve_mode(hist_dtype)
+    plain = hist_impl in ("plain", "jnp")
+    exact = wave_tail == "exact"
+    grow_leaves = (max(num_leaves + 1, int(overgrow_leaves or 0))
+                   if exact else num_leaves)
+    capacity = 2 * grow_leaves - 1
+    w_width = min(int(wave_width), grow_leaves - 1)
+    neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
+    # per-node column masks: with bynode sampling off (the only mode this
+    # slice ports) every node uses the tree's mask
+    node_mask = node_mask_fn(None, None, num_features,
+                             feature_mask.to(_F32), bynode_off=True)
+
+    # ---- root: kernel B1 with one segment --------------------------------
+    root_hist = compute_histograms(
+        bins, stats, torch.zeros(n, dtype=torch.int32, device=dev), 1,
+        num_bins, impl=hist_impl, hist_dtype=hist_dtype)[0]   # [F, B, 3]
+    root_tot = root_hist[0].sum(dim=0)                        # (g, h, c)
+    root_out = constrained_leaf_output(
+        root_tot[0], root_tot[1], root_tot[2], ctx._replace(path_smooth=0.0),
+        float("-inf"), float("inf"), torch.zeros((), dtype=_F32, device=dev))
+    root_best = find_best_split(root_hist, ctx, node_mask(0),
+                                torch.ones((), dtype=torch.bool, device=dev),
+                                root_out)
+    P = _packed_root_table(capacity, root_out, root_tot, root_best)
+    hist_cache = torch.zeros((grow_leaves, num_features, num_bins, 3),
+                             dtype=_F32, device=dev)
+    hist_cache[0] = root_hist
+    node_slot = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    row_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
+    n_nodes, n_leaves = 1, 1
+
+    while n_leaves < grow_leaves:
+        is_leaf = P[:, K.IS_LEAF] > 0.5
+        gains = torch.where(is_leaf, P[:, K.CAND_GAIN], neg_inf)
+        n_cand = int(torch.isfinite(gains).sum())         # the wave's sync
+        if n_cand == 0:
+            break
+        sel_key = torch.where(is_leaf, P[:, K.PM], neg_inf) if exact \
+            else gains
+        order = torch.argsort(-sel_key, stable=True)
+        budget = grow_leaves - n_leaves
+        alloc = max(1, budget // 2) if wave_tail == "half" else budget
+        s = min(n_cand, alloc, w_width)                   # splits this wave
+        iota_s = torch.arange(s, device=dev)
+        parent_r = order[:s]
+        prow = P[parent_r]                                # [s, NC]
+        direct_left = prow[:, K.CAND_LC] <= prow[:, K.CAND_RC]
+        nl_r = n_nodes + 2 * iota_s
+        nr_r = nl_r + 1
+
+        # route the rows and histogram the smaller children: kernel B2
+        slot_of_node = torch.full((capacity,), -1, dtype=torch.int32,
+                                  device=dev)
+        slot_of_node[parent_r] = iota_s.to(torch.int32)
+        args = (bins, stats, row_leaf, slot_of_node,
+                prow[:, K.CAND_FEAT].to(torch.int32),
+                prow[:, K.CAND_BIN].to(torch.int32),
+                direct_left.to(torch.uint8), n_nodes, num_bins, mode)
+        direct_hist, row_leaf = (hist_partition_plain(*args) if plain
+                                 else hist_partition_fused(*args))
+
+        # siblings by subtraction from the per-leaf histogram cache (plain
+        # gathers and writes: exact, as the reference's one-hot matmuls)
+        parent_slot = node_slot[parent_r]
+        other_hist = hist_cache[parent_slot] - direct_hist
+        dl = direct_left[:, None, None, None]
+        left_hist = torch.where(dl, direct_hist, other_hist)
+        right_hist = torch.where(dl, other_hist, direct_hist)
+        right_slot = n_leaves + iota_s
+        hist_cache[parent_slot] = left_hist
+        hist_cache[right_slot] = right_hist
+        node_slot[nl_r] = parent_slot
+        node_slot[nr_r] = right_slot
+
+        # score the 2s fresh children from their histograms
+        child_nodes = torch.cat([nl_r, nr_r])
+        child_hists = torch.cat([left_hist, right_hist])
+        child_depth1 = prow[:, K.DEPTH] + 1.0
+        child_depth = torch.cat([child_depth1, child_depth1])
+        if max_depth <= 0:
+            depth_ok = torch.ones_like(child_depth, dtype=torch.bool)
+        else:
+            depth_ok = child_depth < float(max_depth)
+        child_vals = torch.cat([prow[:, K.CAND_WL], prow[:, K.CAND_WR]])
+        child_masks = node_mask(child_nodes).expand(2 * s, num_features)
+        bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
+                             child_vals)
+
+        # commit: the parents become internal, the children arrive with
+        # their candidate splits
+        parent_rows = prow.clone()
+        parent_rows[:, K.SPLIT_FEAT] = prow[:, K.CAND_FEAT]
+        parent_rows[:, K.SPLIT_BIN] = prow[:, K.CAND_BIN]
+        parent_rows[:, K.LEFT] = nl_r.to(_F32)
+        parent_rows[:, K.RIGHT] = nr_r.to(_F32)
+        parent_rows[:, K.IS_LEAF] = 0.0
+        parent_rows[:, K.SPLIT_GAIN] = gains[parent_r]
+        c2 = 2 * s
+        child_rows = torch.stack([
+            torch.full((c2,), -1.0, device=dev),          # SPLIT_FEAT
+            torch.zeros(c2, device=dev),                  # SPLIT_BIN
+            torch.full((c2,), -1.0, device=dev),          # LEFT
+            torch.full((c2,), -1.0, device=dev),          # RIGHT
+            child_vals,                                   # LEAF_VALUE
+            torch.ones(c2, device=dev),                   # IS_LEAF
+            torch.cat([prow[:, K.CAND_LC], prow[:, K.CAND_RC]]),  # COUNT
+            torch.zeros(c2, device=dev),                  # SPLIT_GAIN
+            child_depth,                                  # DEPTH
+            bs.gain,                                      # CAND_GAIN
+            bs.feature.to(_F32), bs.bin.to(_F32),         # CAND_FEAT, BIN
+            bs.left_g, bs.left_h, bs.left_c,
+            bs.right_g, bs.right_h, bs.right_c,
+            bs.left_out, bs.right_out,                    # CAND_WL, WR
+            torch.full((c2,), float("-inf"), device=dev),  # BOUND_LO
+            torch.full((c2,), float("inf"), device=dev),  # BOUND_HI
+            torch.zeros(c2, device=dev),                  # CAND_CAT
+            torch.minimum(torch.cat([prow[:, K.PM], prow[:, K.PM]]),
+                          bs.gain),                       # PM
+        ], dim=-1).to(_F32)
+        P[parent_r] = parent_rows
+        P[child_nodes] = child_rows
+        n_nodes += 2 * s
+        n_leaves += s
+
+    if exact:
+        return _exact_prune(P, row_leaf, num_leaves)
+    return _tree_from_packed(P, n_leaves), row_leaf
+
+
+def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int
+                 ) -> Tuple[Tree, torch.Tensor]:
+    """Replay strict best-first selection over an overgrown wave tree and
+    prune it back to ``num_leaves`` (the reference's ``_exact_prune``).
+
+    Every node's candidate split depends only on its own rows, so the
+    overgrown tree's realized gains are the gains strict growth would have
+    scored; strict growth is priority-first extraction over that gain tree
+    (``num_leaves - 1`` trips of argmax over the available candidates, the
+    first occurrence on ties).  The table is a few KB, so the replay runs on
+    the host in numpy; one device gather then remaps ``row_leaf`` onto the
+    pruned tree's node ids.
+    """
+    K = _PK
+    dev = P.device
+    Pn = P.cpu().numpy()
+    m_over = Pn.shape[0]
+    capacity = 2 * num_leaves - 1
+    ids = np.arange(m_over)
+    left = Pn[:, K.LEFT].astype(np.int64)
+    right = Pn[:, K.RIGHT].astype(np.int64)
+    parent = np.zeros(m_over, np.int64)
+    parent[left[left >= 0]] = ids[left >= 0]
+    parent[right[right >= 0]] = ids[right >= 0]
+    expandable = left >= 0
+
+    gain_c = Pn[:, K.CAND_GAIN]
+    avail = np.zeros(m_over, bool)
+    avail[0] = True
+    kept = np.zeros(m_over, bool)
+    for _ in range(num_leaves - 1):
+        g_av = np.where(avail & expandable, gain_c, np.float32(-np.inf))
+        i = int(np.argmax(g_av))
+        if not np.isfinite(g_av[i]):
+            break                     # nothing left to extract
+        kept[i] = True
+        avail[i] = False
+        avail[left[i]] = True
+        avail[right[i]] = True
+    n_kept = int(kept.sum())
+
+    # final leaves = children of kept splits that are not kept themselves
+    # (the root when nothing was kept), among the real nodes only
+    real = (Pn[:, K.IS_LEAF] > 0.5) | expandable
+    final_leaf = real & ~kept & ((kept[parent] & (ids != 0))
+                                 | ((ids == 0) & (n_kept == 0)))
+    surv = kept | final_leaf
+    newid = np.cumsum(surv) - 1
+    P_mod = Pn.copy()
+    P_mod[:, K.LEFT] = np.where(kept, newid[np.maximum(left, 0)], -1)
+    P_mod[:, K.RIGHT] = np.where(kept, newid[np.maximum(right, 0)], -1)
+    P_mod[:, K.IS_LEAF] = np.where(kept, 0.0, 1.0)
+    P_mod[:, K.SPLIT_FEAT] = np.where(kept, Pn[:, K.SPLIT_FEAT], -1.0)
+    P_mod[:, K.SPLIT_BIN] = np.where(kept, Pn[:, K.SPLIT_BIN], 0.0)
+    P_mod[:, K.SPLIT_GAIN] = np.where(kept, Pn[:, K.SPLIT_GAIN], 0.0)
+    newP = _empty_packed_table(capacity, "cpu").numpy()
+    newP[newid[surv]] = P_mod[surv]
+
+    # each overgrown node maps to its unique final-leaf ancestor-or-self
+    # (pointer doubling), then to that leaf's new id
+    f = np.where(final_leaf, ids, parent)
+    for _ in range(max(4, int(m_over).bit_length())):
+        f = f[f]
+    node_to_new = np.where(final_leaf[f], newid[f], 0).astype(np.int32)
+    remap = torch.from_numpy(node_to_new).to(dev)
+    row_leaf_new = remap[row_leaf.to(torch.int64)]
+    tree = _tree_from_packed(torch.from_numpy(newP).to(dev), n_kept + 1)
+    return tree, row_leaf_new
+
+
+# ---------------------------------------------------------------------------
+# Tree <-> host arrays (the checkpoint codec: bit-exact, no decimal)
+# ---------------------------------------------------------------------------
+
+_TREE_OPTIONAL_FIELDS = ("is_cat_split", "cat_mask", "linear_feat",
+                         "linear_coef")
+
+
+def tree_to_arrays(tree: Tree) -> dict:
+    """Tree -> ``{field: np.ndarray}`` (optional None fields omitted)."""
+    return {name: val.detach().cpu().numpy()
+            for name, val in zip(Tree._fields, tree) if val is not None}
+
+
+def tree_from_arrays(arrays: dict, device="cpu") -> Tree:
+    """Inverse of :func:`tree_to_arrays`; takes the reference's arrays too.
+    Linear-leaf fields are out of this slice and refused."""
+    for name in ("linear_feat", "linear_coef"):
+        if arrays.get(name) is not None:
+            raise NotImplementedError(
+                "linear_tree models are not ported yet: ROADMAP slice 3 "
+                "(breadth of training)")
+    kw = {}
+    for name in Tree._fields:
+        if name in arrays and arrays[name] is not None:
+            kw[name] = torch.from_numpy(np.array(arrays[name])).to(device)
+        elif name in _TREE_OPTIONAL_FIELDS:
+            kw[name] = None
+        else:
+            raise KeyError(f"tree arrays missing field {name!r}")
+    return Tree(**kw)

@@ -1,18 +1,21 @@
-"""Objective output transforms — the port's copy of the serving half of
-``lightgbm_tpu/objectives.py``.
+"""Objectives — the port of ``lightgbm_tpu/objectives.py``.
 
-Serving needs only each objective's raw-score -> prediction ``transform``.
-It runs on f32 tensors on the caller's device, with the reference's own
-formulas (``1 / (1 + exp(-x))`` rather than ``torch.sigmoid``), so the two
-packages agree to f32 rounding.  :func:`create_objective` accepts every
-objective name the reference registry accepts.  ``grad_hess`` and
-``init_score`` are training-side and wait for the training slice.
+Every objective has its raw-score -> prediction ``transform`` (serving).  The
+two objectives of the training slice, :class:`RegressionL2` and
+:class:`Binary`, also have ``init_score`` (boost-from-average, host numpy,
+once per training) and ``grad_hess`` (per round, f32 tensors on the
+training device; gradients and hessians already multiplied by the row
+weight).  All of it uses the reference's own formulas op by op (``1 / (1 +
+exp(-x))`` rather than ``torch.sigmoid``), so the two packages agree to f32
+rounding.  :func:`create_objective` accepts every objective name the
+reference registry accepts; the Booster refuses to train the others.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from .config import Params
@@ -34,6 +37,14 @@ class Objective:
     def __init__(self, params: Params):
         self.params = params
 
+    def init_score(self, y: np.ndarray, w: np.ndarray) -> float:
+        return 0.0
+
+    def grad_hess(self, pred, y, w):
+        raise NotImplementedError(
+            f"training with objective '{self.name}' is not ported yet: "
+            "ROADMAP slice 3 (breadth of training)")
+
     def transform(self, raw: torch.Tensor) -> torch.Tensor:
         """Raw score -> user-facing prediction (e.g. sigmoid for binary)."""
         return raw
@@ -41,6 +52,14 @@ class Objective:
 
 class RegressionL2(Objective):
     name = "regression"
+
+    def init_score(self, y, w):
+        if not self.params.boost_from_average:
+            return 0.0
+        return float(np.average(y, weights=np.maximum(w, 0)))
+
+    def grad_hess(self, pred, y, w):
+        return (pred - y) * w, w
 
 
 class RegressionL1(Objective):
@@ -90,7 +109,39 @@ class CrossEntropy(Objective):
 
 
 class Binary(Objective):
+    """Binary logloss on labels {0,1}; raw score is a logit, with
+    ``sigmoid`` scaling, ``scale_pos_weight`` and ``is_unbalance``."""
+
     name = "binary"
+
+    def __init__(self, params: Params):
+        super().__init__(params)
+        self.pos_weight = float(params.scale_pos_weight)
+
+    def prepare(self, y: np.ndarray, w: np.ndarray) -> None:
+        if self.params.is_unbalance:
+            pos = float(np.sum(w * (y > 0.5)))
+            neg = float(np.sum(w * (y <= 0.5)))
+            self.pos_weight = neg / max(pos, 1.0) if pos > 0 else 1.0
+
+    def init_score(self, y, w):
+        self.prepare(y, np.asarray(w))
+        if not self.params.boost_from_average:
+            return 0.0
+        pw = self.pos_weight
+        sw = w * np.where(y > 0.5, pw, 1.0)
+        pbar = np.average(y, weights=np.maximum(sw, 1e-12))
+        pbar = min(max(pbar, 1e-12), 1 - 1e-12)
+        return float(np.log(pbar / (1 - pbar)) / self.params.sigmoid)
+
+    def grad_hess(self, pred, y, w):
+        sig = _f32(self.params.sigmoid, pred)
+        p = sigmoid(sig * pred)
+        wy = w * torch.where(y > 0.5, _f32(self.pos_weight, pred),
+                             _f32(1.0, pred))
+        g = sig * (p - y)
+        h = torch.maximum(sig * sig * p * (1.0 - p), _f32(1e-16, pred))
+        return g * wy, h * wy
 
     def transform(self, raw):
         return sigmoid(_f32(self.params.sigmoid, raw) * raw)

@@ -1,0 +1,156 @@
+"""Gradient/hessian histograms — the port of ``lightgbm_tpu/ops/histogram.py``
+and of the two histogram kernels the default grower runs.
+
+* :func:`hist_fused` — bins u8 ``[n, F]`` x stats f32 ``[n, S]`` x segment
+  i32 ``[n]`` -> f32 ``[K, F, B, S]``; segments outside ``[0, K)`` add
+  nothing.  The port of kernel B1 (``hist_fused_pallas``), as CUDA in
+  ``csrc/hist_fused.cu``.
+* :func:`hist_partition_fused` — one wave of the wave grower: route the rows
+  of the splitting leaves to their children and histogram the rows that went
+  to their split's smaller ("direct") child by wave rank.  The port of kernel
+  B2 (``hist_partition_fused_pallas``), as CUDA in ``csrc/hist_partition.cu``.
+
+Each dispatches on the device of ``bins``: a CPU tensor takes the plain
+PyTorch version beside it (:func:`hist_fused_plain`,
+:func:`hist_partition_plain`); a CUDA tensor launches the kernel or raises.
+There is no fallback from one to the other.  ``impl="plain"`` (the
+reference's ``hist_impl="jnp"``) asks for the plain version explicitly, on
+either device.
+
+Modes: ``"bf16"`` rounds each statistic to bf16 (round to nearest even) and
+sums in f32, as the TPU kernel's bf16 fold and the reference's XLA path do;
+``"f32"`` (and the reference's explicit ``"f32x"``) sums the f32 statistics
+in f32 — true f32, not the TPU kernel's hi/lo bf16 approximation.
+``"int8"`` is not ported yet.
+
+The kernels sum in f32 with Kahan compensation, in a fixed order; the plain
+versions accumulate in f64 and round once.  Both land within a few f32 ulps
+of the exact sum, so they agree to ``1e-6 * sum |x|`` per cell, and exactly
+wherever every partial sum is exact (dyadic statistics).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_F32 = torch.float32
+
+
+def resolve_mode(hist_dtype: str) -> str:
+    """The kernels' mode for a resolved ``hist_dtype``."""
+    if hist_dtype in ("f32", "f32x"):
+        return "f32"
+    if hist_dtype == "bf16":
+        return "bf16"
+    if hist_dtype == "int8":
+        raise NotImplementedError(
+            "hist_dtype='int8' (quantized histograms) is not ported yet: "
+            "ROADMAP slice 2 follow-up (B1's int8 mode)")
+    raise NotImplementedError(
+        f"hist_dtype={hist_dtype!r} is not ported: the port has 'f32' and "
+        "'bf16' histograms")
+
+
+def _stats_in_mode(stats: torch.Tensor, mode: str) -> torch.Tensor:
+    if mode == "bf16":
+        return stats.to(torch.bfloat16).to(_F32)
+    return stats
+
+
+def hist_fused_plain(bins: torch.Tensor, stats: torch.Tensor,
+                     seg: torch.Tensor, num_segments: int, num_bins: int,
+                     mode: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_fused` (same contract):
+    ``index_add_`` per feature into an f64 accumulator, rounded to f32."""
+    n, f = bins.shape
+    s = stats.shape[1]
+    k = int(num_segments)
+    st = _stats_in_mode(stats.to(_F32), mode)
+    seg = seg.to(torch.int64)
+    valid = (seg >= 0) & (seg < k)
+    rows = torch.nonzero(valid).squeeze(1)
+    acc = torch.zeros((k * f * num_bins, s), dtype=torch.float64,
+                      device=bins.device)
+    if rows.numel() > 0:
+        st_v = st[rows].to(torch.float64)
+        base = seg[rows] * (f * num_bins)
+        codes = bins[rows].to(torch.int64)
+        for j in range(f):
+            acc.index_add_(0, base + j * num_bins + codes[:, j], st_v)
+    return acc.to(_F32).view(k, f, num_bins, s)
+
+
+def route_wave(bins, row_leaf, slot_of_node, feat, thr, direct_left,
+               n_nodes: int):
+    """The wave's row partition (plain PyTorch): ``(segment i64 [n],
+    new_row_leaf i32 [n])`` — segment is the wave rank for rows that go to
+    their split's direct child and -1 otherwise."""
+    capacity = slot_of_node.shape[0]
+    leaf = row_leaf.to(torch.int64)
+    in_range = (leaf >= 0) & (leaf < capacity)
+    slot = torch.where(in_range,
+                       slot_of_node.to(torch.int64)[leaf.clamp(0, capacity - 1)],
+                       torch.full_like(leaf, -1))
+    sel = slot >= 0
+    s_safe = slot.clamp(min=0)
+    code = bins.gather(1, feat.to(torch.int64)[s_safe].unsqueeze(1))[:, 0]
+    go_left = code.to(torch.int64) <= thr.to(torch.int64)[s_safe]
+    child = n_nodes + 2 * s_safe + (~go_left).to(torch.int64)
+    new_leaf = torch.where(sel, child, leaf).to(torch.int32)
+    direct = go_left == (direct_left[s_safe] != 0)
+    seg = torch.where(sel & direct, s_safe, torch.full_like(slot, -1))
+    return seg, new_leaf
+
+
+def hist_partition_plain(bins, stats, row_leaf, slot_of_node, feat, thr,
+                         direct_left, n_nodes: int, num_bins: int,
+                         mode: str = "f32"):
+    """Plain PyTorch version of :func:`hist_partition_fused`."""
+    seg, new_leaf = route_wave(bins, row_leaf, slot_of_node, feat, thr,
+                               direct_left, n_nodes)
+    hist = hist_fused_plain(bins, stats, seg, feat.shape[0], num_bins, mode)
+    return hist, new_leaf
+
+
+def hist_fused(bins, stats, seg, num_segments: int, num_bins: int,
+               mode: str = "f32") -> torch.Tensor:
+    """Kernel B1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if bins.device.type == "cpu":
+        return hist_fused_plain(bins, stats, seg, num_segments, num_bins,
+                                mode)
+    from ..kernels.histogram import hist_fused as launch
+
+    return launch(bins, stats, seg, num_segments, num_bins, mode)
+
+
+def hist_partition_fused(bins, stats, row_leaf, slot_of_node, feat, thr,
+                         direct_left, n_nodes: int, num_bins: int,
+                         mode: str = "f32"):
+    """Kernel B2 on CUDA tensors, its plain version on CPU tensors:
+    ``(direct_hist f32 [W, F, B, 3], new_row_leaf i32 [n])``."""
+    if bins.device.type == "cpu":
+        return hist_partition_plain(bins, stats, row_leaf, slot_of_node, feat,
+                                    thr, direct_left, n_nodes, num_bins, mode)
+    from ..kernels.histogram import hist_partition as launch
+
+    return launch(bins, stats, row_leaf, slot_of_node, feat, thr,
+                  direct_left, n_nodes, num_bins, mode)
+
+
+def compute_histograms(bins: torch.Tensor, stats: torch.Tensor,
+                       seg_id: torch.Tensor, num_segments: int,
+                       num_bins: int, impl: str = "auto",
+                       hist_dtype: str = "f32") -> torch.Tensor:
+    """Histogram of per-row statistics over (segment, feature, bin):
+    f32 ``[num_segments, F, num_bins, S]`` (the reference's contract).
+    ``impl="auto"`` is kernel B1 on a CUDA tensor (its plain version on a
+    CPU tensor); ``impl="plain"`` (or ``"jnp"``) is the plain version."""
+    mode = resolve_mode(hist_dtype)
+    seg = seg_id.to(torch.int32)
+    if impl in ("plain", "jnp"):
+        return hist_fused_plain(bins, stats, seg, num_segments, num_bins,
+                                mode)
+    if impl != "auto":
+        raise ValueError(f"unknown hist_impl {impl!r}: expected 'auto' or "
+                         "'plain'")
+    return hist_fused(bins, stats, seg, num_segments, num_bins, mode)

@@ -17,8 +17,9 @@ See packed.py (format + ingest validation), runtime.py (bucket ladder and
 the kernel path), queue.py (micro-batching + admission control), bank.py
 (tenancy/hot swap/rollback), faults.py (deterministic fault injection),
 stats.py (counters).  The CLI front end is ``python -m lightgbm_tpu_torch
-task=serve input_model=...``.  Multi-device routes (``serving/mesh.py``)
-and ``pack_booster`` wait for later slices.
+task=serve input_model=...``; ``pack_booster`` freezes a trained Booster
+into a PackedForest.  Multi-device routes (``serving/mesh.py``) wait for a
+later slice.
 """
 
 from ..ops.quantize import FOREST_PRECISIONS, ThresholdBoundError
@@ -26,7 +27,7 @@ from .bank import ModelBank, SwapRejected
 from .faults import SITES as FAULT_SITES
 from .faults import FaultError, FaultInjector, FaultSpec
 from .packed import (PACKED_FORMAT_VERSION, PackedForest, PackedForestError,
-                     packed_from_arrays)
+                     pack_booster, packed_from_arrays)
 from .queue import (SHED_POLICIES, MicroBatcher, Overloaded,
                     PendingPrediction, RequestTimeout)
 from .runtime import (SHARD_POLICIES, PredictorRuntime, bucket_for,
@@ -55,5 +56,6 @@ __all__ = [
     "ThresholdBoundError",
     "bucket_for",
     "enable_persistent_cache",
+    "pack_booster",
     "packed_from_arrays",
 ]

@@ -15,7 +15,7 @@ forest from exactly the numpy arrays and metadata a reference forest holds.
 reachable path ends at a closed leaf), so a corrupt or untrusted file fails
 with :class:`PackedForestError` instead of hanging or mis-predicting; the
 traversal depth cap is recomputed from the validated structure.
-``pack_booster`` needs a trained Booster and waits for the training slice.
+:func:`pack_booster` freezes a trained (or loaded) Booster into one.
 """
 
 from __future__ import annotations
@@ -382,3 +382,54 @@ def packed_from_arrays(arrays: dict, meta: dict,
     )
     _check_shapes(pf, "arrays")
     return pf.validate() if validate else pf
+
+
+def pack_booster(booster, num_iteration: Optional[int] = None,
+                 start_iteration: int = 0) -> PackedForest:
+    """Freeze a trained or loaded Booster into a serving PackedForest.
+
+    ``num_iteration``/``start_iteration`` follow save_model semantics: the
+    artifact holds exactly the selected tree range, and its best_iteration
+    is reset when the range is truncated.
+    """
+    if not booster.trees:
+        raise ValueError("cannot pack a booster with no trees")
+    forest = booster._stacked_forest()
+    t_real = len(booster.trees)
+    start = max(int(start_iteration), 0)
+    k = (t_real - start if num_iteration is None or num_iteration <= 0
+         else min(int(num_iteration), t_real - start))
+    if k <= 0:
+        raise ValueError(
+            f"empty tree selection: start_iteration={start_iteration}, "
+            f"num_iteration={num_iteration}, num_trees={t_real}")
+    sel = slice(start, start + k)
+    best = booster.best_iteration
+    if start > 0 or k < t_real:
+        best = -1  # truncated forest: stored best no longer indexes it
+
+    def np_sel(a, dtype):
+        return a[sel].detach().cpu().numpy().astype(dtype)
+
+    pf = PackedForest(
+        split_feature=np_sel(forest.split_feature, np.int32),
+        split_bin=np_sel(forest.split_bin, np.int32),
+        left=np_sel(forest.left, np.int32),
+        right=np_sel(forest.right, np.int32),
+        leaf_value=np_sel(forest.leaf_value, np.float32),
+        is_leaf=np_sel(forest.is_leaf, bool),
+        is_cat_split=(None if forest.is_cat_split is None
+                      else np_sel(forest.is_cat_split, bool)),
+        cat_mask=(None if forest.cat_mask is None
+                  else np_sel(forest.cat_mask, bool)),
+        shrink=float(booster._base_lr),
+        init_score=np.atleast_1d(np.asarray(booster.init_score_,
+                                            np.float32)),
+        num_class=booster.num_model_per_iteration(),
+        best_iteration=int(best),
+        depth_cap=0,  # set by validate()
+        params=booster.params_dict(),
+        bin_mapper_dict=booster._bin_mapper_for_predict().to_dict(),
+        feature_names=booster.feature_name() or None,
+    )
+    return pf.validate()

@@ -1,10 +1,9 @@
-"""Bin-mapper persistence — the port's copy of the mapper half of
-``lightgbm_tpu/utils/serialize.py``.
+"""Model persistence — the port of ``lightgbm_tpu/utils/serialize.py``.
 
-One JSON schema is shared by the packed serving artifact of both packages,
-so a mapper written by either loads in the other.  The JSON text-model
-loader (``booster_to_string`` and friends) is training-side and waits for
-the training slice.
+Bin mappers and the JSON text model use the reference's schema, so a model
+file written by either package loads in the other: ``booster_to_string``,
+``save_booster`` (JSON text, or the packed ``.npz`` serving artifact) and
+``load_booster_into`` (both formats).
 """
 
 from __future__ import annotations
@@ -40,3 +39,171 @@ def mapper_from_dict(bm: dict):
             bm["bundler"]["groups"], mapper.n_bins,
             np.asarray(bm["bundler"]["default_bins"], np.int64))
     return mapper
+
+
+# ---------------------------------------------------------------------------
+# The JSON text model (``Booster.save_model`` / ``Booster(model_file=...)``):
+# one document with the params, the init score, the bin mapper and every
+# tree's node arrays — the reference's schema, so files interchange both
+# ways.
+# ---------------------------------------------------------------------------
+
+_FORMAT_VERSION = 1
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if hasattr(t, "detach") else \
+        np.asarray(t)
+
+
+def _tree_to_dict(tree) -> dict:
+    if tree.is_cat_split is not None:
+        raise NotImplementedError(
+            "categorical trees are not ported yet: ROADMAP slice 3 (breadth "
+            "of training)")
+    return {
+        "split_feature": _host(tree.split_feature).tolist(),
+        "split_bin": _host(tree.split_bin).tolist(),
+        "left": _host(tree.left).tolist(),
+        "right": _host(tree.right).tolist(),
+        "leaf_value": _host(tree.leaf_value).astype(np.float64).tolist(),
+        "is_leaf": _host(tree.is_leaf).astype(int).tolist(),
+        "count": _host(tree.count).astype(np.float64).tolist(),
+        "split_gain": _host(tree.split_gain).astype(np.float64).tolist(),
+        "num_leaves": _host(tree.num_leaves).tolist(),
+    }
+
+
+def _tree_from_dict(d: dict, device):
+    from ..models.tree import tree_from_arrays
+
+    if "cat_splits" in d or "linear_feat" in d:
+        raise NotImplementedError(
+            "categorical and linear-leaf trees are not ported yet: ROADMAP "
+            "slice 3 (breadth of training)")
+    return tree_from_arrays({
+        "split_feature": np.asarray(d["split_feature"], np.int32),
+        "split_bin": np.asarray(d["split_bin"], np.int32),
+        "left": np.asarray(d["left"], np.int32),
+        "right": np.asarray(d["right"], np.int32),
+        "leaf_value": np.asarray(d["leaf_value"], np.float32),
+        "is_leaf": np.asarray(d["is_leaf"], bool),
+        "count": np.asarray(d["count"], np.float32),
+        "split_gain": np.asarray(d["split_gain"], np.float32),
+        "num_leaves": np.asarray(d["num_leaves"], np.int32),
+    }, device)
+
+
+def booster_to_string(booster, num_iteration=None,
+                      start_iteration: int = 0) -> str:
+    import json
+
+    k = (len(booster.trees) if num_iteration is None or num_iteration <= 0
+         else num_iteration)
+    start = max(int(start_iteration), 0)
+    trees = booster.trees[start:start + k]
+    doc = {
+        "format_version": _FORMAT_VERSION,
+        "framework": "lightgbm_tpu",
+        "params": booster.params_dict(),
+        "init_score": np.asarray(booster.init_score_,
+                                 dtype=np.float64).tolist(),
+        "num_trees": len(trees),
+        "best_iteration": int(booster.best_iteration),
+        "feature_names": booster.feature_name() or None,
+        "bin_mapper": mapper_to_dict(booster._bin_mapper_for_predict()),
+        "trees": [_tree_to_dict(t) for t in trees],
+    }
+    return json.dumps(doc)
+
+
+def save_booster(booster, filename: str, num_iteration=None,
+                 start_iteration: int = 0) -> None:
+    if filename.endswith(".npz"):
+        # the packed serving artifact, validated on ingest
+        from ..serving.packed import pack_booster
+
+        pack_booster(booster, num_iteration=num_iteration,
+                     start_iteration=start_iteration).save(filename)
+        return
+    with open(filename, "w") as f:
+        f.write(booster_to_string(booster, num_iteration=num_iteration,
+                                  start_iteration=start_iteration))
+
+
+def _load_params(booster, params: dict) -> None:
+    from ..config import parse_params
+    from ..objectives import create_objective
+
+    params_dict = {k: v for k, v in params.items() if v is not None}
+    params_dict.pop("metric", None)
+    booster.params = parse_params(params_dict, warn_unknown=False)
+    booster.params.metric = params.get("metric") or []
+    booster.obj = create_objective(booster.params)
+    booster._base_lr = float(booster.params.learning_rate)
+
+
+def _reset_loaded(booster, trees, best_iteration, feature_names, mapper):
+    booster.train_set = None
+    booster.trees = trees
+    booster.best_iteration = int(best_iteration)
+    booster.best_score = {}
+    booster._valid = []
+    booster._forest_cache = None
+    booster._iter = len(trees)
+    booster._pred_train = None
+    booster._bag = None
+    booster._feature_names = feature_names
+    booster._bin_mapper = mapper
+
+
+def load_booster_into(booster, model_file=None, model_str=None) -> None:
+    """Populate a bare Booster (with ``booster.device`` set) from a saved
+    model: the JSON text model or a packed ``.npz`` serving artifact."""
+    import json
+
+    if model_file is not None and model_file.endswith(".npz"):
+        _load_packed_into(booster, model_file)
+        return
+    if model_str is None:
+        with open(model_file) as f:
+            model_str = f.read()
+    doc = json.loads(model_str)
+    if doc.get("framework") != "lightgbm_tpu":
+        raise ValueError("not a lightgbm_tpu model file")
+    _load_params(booster, doc["params"])
+    init = doc["init_score"]
+    if isinstance(init, list):
+        raise NotImplementedError(
+            "multiclass models are not ported yet: ROADMAP slice 3 "
+            "(breadth of training)")
+    booster.init_score_ = float(init)
+    trees = [_tree_from_dict(t, booster.device) for t in doc["trees"]]
+    _reset_loaded(booster, trees, doc.get("best_iteration", -1),
+                  doc.get("feature_names"), mapper_from_dict(doc["bin_mapper"]))
+
+
+def _load_packed_into(booster, path: str) -> None:
+    """Populate a bare Booster from a packed ``.npz`` artifact (validated
+    on ingest; counts and gains are not stored, so they load as zeros)."""
+    from ..models.tree import tree_from_arrays
+    from ..serving.packed import PackedForest
+
+    pf = PackedForest.load(path)
+    if pf.num_class > 1 or pf.is_cat_split is not None:
+        raise NotImplementedError(
+            "multiclass and categorical models are not ported yet: ROADMAP "
+            "slice 3 (breadth of training)")
+    _load_params(booster, pf.params)
+    booster.init_score_ = float(pf.init_score[0])
+    num_leaves = np.sum(pf.is_leaf, axis=-1).astype(np.int32)
+    zeros = np.zeros(pf.split_feature.shape[1:], np.float32)
+    trees = [tree_from_arrays({
+        "split_feature": pf.split_feature[t], "split_bin": pf.split_bin[t],
+        "left": pf.left[t], "right": pf.right[t],
+        "leaf_value": pf.leaf_value[t], "is_leaf": pf.is_leaf[t],
+        "count": zeros, "split_gain": zeros,
+        "num_leaves": num_leaves[t]}, booster.device)
+        for t in range(pf.num_trees)]
+    _reset_loaded(booster, trees, pf.best_iteration, pf.feature_names,
+                  pf.bin_mapper)

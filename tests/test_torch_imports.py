@@ -44,7 +44,12 @@ def test_no_forbidden_import(path):
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.serving, "
-            "lightgbm_tpu_torch.__main__, lightgbm_tpu_torch.kernels.predict;"
+            "lightgbm_tpu_torch.__main__, lightgbm_tpu_torch.kernels.predict, "
+            "lightgbm_tpu_torch.kernels.histogram, "
+            "lightgbm_tpu_torch.ops.histogram, lightgbm_tpu_torch.ops.split, "
+            "lightgbm_tpu_torch.ops.sampling, lightgbm_tpu_torch.engine, "
+            "lightgbm_tpu_torch.models.gbdt, lightgbm_tpu_torch.metrics, "
+            "lightgbm_tpu_torch.utils.random, lightgbm_tpu_torch.callback;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,3 +83,52 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_builds_lazily():
     assert not build._loaded
     assert build.library_path("predict_forest").name.startswith(
         "libpredict_forest-")
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    import numpy as np
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.device import NoDeviceError
+
+    X = np.random.default_rng(0).normal(size=(300, 3))
+    y = (X[:, 0] > 0).astype(float)
+    ds = lgb.Dataset(X, label=y, device="cpu")
+    assert ds.device.type == "cpu"
+    assert lgb.Dataset(X, label=y, reference=ds).device.type == "cpu"
+    booster = lgb.train({"objective": "binary", "grow_policy": "frontier",
+                         "num_leaves": 4, "verbose": -1}, ds, 1)
+    path = str(tmp_path / "m.txt")
+    booster.save_model(path)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(NoDeviceError):
+        lgb.Dataset(X, label=y)
+    with pytest.raises(NoDeviceError):
+        lgb.train({"objective": "binary"}, lgb.Dataset(X, label=y), 1)
+    with pytest.raises(NoDeviceError):
+        lgb.Booster(model_file=path)
+    with pytest.raises(NoDeviceError):
+        lgb.Booster({"objective": "binary"})
+    assert lgb.Booster(model_file=path, device="cpu").num_trees() == 1
+
+
+def test_histogram_wrappers_refuse_cpu_tensors_and_build_lazily():
+    import lightgbm_tpu_torch.kernels.build as build
+    from lightgbm_tpu_torch.kernels import histogram as kh
+
+    bins = torch.zeros((4, 2), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kh.hist_fused(bins, torch.zeros((4, 3)), torch.zeros(4, dtype=torch.int32),
+                      1, 4, "f32")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kh.hist_partition(bins, torch.zeros((4, 3)), None, None, None, None,
+                          None, 1, 4, "f32")
+    assert not build._loaded
+    for name in ("hist_fused", "hist_partition"):
+        assert build.library_path(name).name.startswith(f"lib{name}-")
+    # the plan keeps every block inside the opt-in shared memory
+    for k in (1, 42, 64, 200):
+        rows, chunks, group = kh.plan(1_000_000, 28, 3, k, 256, 132)
+        assert kh.smem_bytes(3, 256, group) <= kh.SMEM_LIMIT
+        assert rows % kh.TILE_ROWS == 0 and rows * chunks >= 1_000_000

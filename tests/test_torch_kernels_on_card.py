@@ -1,0 +1,167 @@
+"""The hand-written kernels against their plain PyTorch versions on the card:
+the forest-predict kernel (B4) and the histogram kernels (B1 ``hist_fused``,
+B2 ``hist_partition``).
+
+The tests need a CUDA card and nvcc and skip without them.  This file
+imports no JAX, so it runs on the machine with the card (whose Python has
+no JAX; ``--noconftest`` skips ``tests/conftest.py``, which imports it):
+
+    python3 -m pytest tests/test_torch_kernels_on_card.py -q --noconftest
+
+Tolerances: forest predictions rtol 1e-5 / atol 1e-6; histograms per cell
+``|kernel - plain| <= 1e-6 * sum|x|`` (the kernel sums in compensated f32,
+the plain version in f64); counts, routing and two launches of a histogram
+kernel exactly equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lightgbm_tpu_torch.ops import histogram as th
+from lightgbm_tpu_torch.ops import predict as tp
+
+MODES = ["f32", "bf16"]
+PRECISIONS = ["f32", "bf16", "int8"]
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _abs_hist(bins, stats, seg, k, num_bins, mode):
+    """Per-cell sum |x| (float64) of the mode-rounded statistics."""
+    st = stats
+    if mode == "bf16":
+        st = torch.from_numpy(stats).to(torch.bfloat16).float().numpy()
+    st = np.abs(st).astype(np.float64)
+    out = np.zeros((k, bins.shape[1], num_bins, stats.shape[1]))
+    ok = (seg >= 0) & (seg < k)
+    for j in range(bins.shape[1]):
+        np.add.at(out, (seg[ok], j, bins[ok, j].astype(np.int64)), st[ok])
+    return out
+
+
+def _close(got, want, mag):
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert (err <= 1e-6 * mag).all(), float((err - 1e-6 * mag).max())
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])   # counts
+
+
+def _stats(rng, n):
+    return np.stack([rng.normal(size=n), rng.uniform(0, 0.25, n),
+                     (rng.random(n) < 0.8).astype(np.float64)],
+                    axis=1).astype(np.float32)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_b1_kernel_matches_plain_on_card(mode):
+    dev = _card()
+    rng = np.random.default_rng(21)
+    bins = rng.integers(0, 256, (100_003, 28)).astype(np.uint8)
+    stats = _stats(rng, 100_003)
+    seg = rng.integers(-1, 4, 100_003).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+    got = th.hist_fused(*t, 3, 256, mode)
+    again = th.hist_fused(*t, 3, 256, mode)
+    want = th.hist_fused_plain(*t, 3, 256, mode)
+    assert torch.equal(got, again)
+    _close(got.cpu().numpy(), want.cpu().numpy(),
+           _abs_hist(bins, stats, seg, 3, 256, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_b2_kernel_matches_plain_on_card(mode):
+    dev = _card()
+    rng = np.random.default_rng(22)
+    n, cap, w = 100_003, 120, 42
+    bins = rng.integers(0, 256, (n, 28)).astype(np.uint8)
+    stats = _stats(rng, n)
+    row_leaf = rng.integers(0, cap, n).astype(np.int32)
+    slot = np.full(cap, -1, np.int32)
+    slot[rng.permutation(cap)[:w]] = np.arange(w)
+    feat = rng.integers(0, 28, w).astype(np.int32)
+    thr = rng.integers(0, 256, w).astype(np.int32)
+    dl = rng.integers(0, 2, w).astype(np.uint8)
+    t = [torch.from_numpy(a).to(dev)
+         for a in (bins, stats, row_leaf, slot, feat, thr, dl)]
+    got, leaf = th.hist_partition_fused(*t, cap, 256, mode)
+    again, leaf2 = th.hist_partition_fused(*t, cap, 256, mode)
+    want, want_leaf = th.hist_partition_plain(*t, cap, 256, mode)
+    assert torch.equal(leaf, want_leaf) and torch.equal(leaf, leaf2)
+    assert torch.equal(got, again)
+    seg, _ = th.route_wave(t[0], *t[2:], cap)
+    _close(got.cpu().numpy(), want.cpu().numpy(),
+           _abs_hist(bins, stats, seg.cpu().numpy(), w, 256, mode))
+
+
+def _rand_tree(rng, m, f, num_bins):
+    """One ragged tree with grower-style sentinels and garbage in dead
+    slots."""
+    feat = np.zeros(m, np.int32)
+    thr = np.zeros(m, np.int32)
+    left = -np.ones(m, np.int32)
+    right = -np.ones(m, np.int32)
+    leafv = rng.normal(size=m).astype(np.float32)     # internal garbage
+    isl = np.zeros(m, bool)
+    n_nodes, frontier = 1, [0]
+    while frontier and n_nodes + 2 <= m:
+        i = frontier.pop(rng.integers(len(frontier)))
+        if rng.random() < 0.3 and i != 0:
+            isl[i] = True
+            leafv[i] = np.float32(rng.normal())
+            continue
+        feat[i] = rng.integers(f)
+        thr[i] = rng.integers(0, num_bins)
+        left[i], right[i] = n_nodes, n_nodes + 1
+        frontier += [n_nodes, n_nodes + 1]
+        n_nodes += 2
+    for i in frontier:
+        isl[i] = True
+        leafv[i] = np.float32(rng.normal())
+    leafv[n_nodes:] = 777.0
+    return feat, thr, left, right, leafv, isl
+
+
+def _stored(arrays, precision):
+    """(per-node arrays in the precision's storage form, leaf_scale)."""
+    feat, thr, left, right, leafv, isl = arrays
+    if precision == "f32":
+        return arrays, None
+    if precision == "bf16":
+        stored = torch.from_numpy(leafv).to(torch.bfloat16).float().numpy()
+        return (feat, thr, left, right, stored, isl), None
+    scale = np.full(feat.shape[0], 1.0 / 128.0, np.float32)
+    codes = np.clip(np.round(leafv / scale[:, None]), -127,
+                    127).astype(np.int8)
+    return (feat.astype(np.int16), thr.astype(np.uint8),
+            left.astype(np.int16), right.astype(np.int16), codes,
+            isl), scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_kernel_matches_plain_version_on_card(precision):
+    _card()
+    from lightgbm_tpu_torch.kernels.predict import PREDICT_FOREST_LAUNCHES
+
+    rng = np.random.default_rng(31)
+    trees = [_rand_tree(rng, 63, 9, 40) for _ in range(13)]
+    arrays = tuple(np.stack(x) for x in zip(*trees))
+    bins = rng.integers(0, 40, (45, 9)).astype(np.uint8)
+    stored, scale = _stored(arrays, precision)
+    t = tp.pack_forest_soa(*stored, precision=precision, leaf_scale=scale,
+                           device="cuda")
+    tb = torch.from_numpy(bins).cuda()
+    before = PREDICT_FOREST_LAUNCHES.count
+    for k, s in [(13, 0), (4, 3), (1, 12)]:
+        got = tp.predict_forest(t, tb, 0.1, 0.5, k, 20, start_iteration=s)
+        want = tp.predict_forest_plain(t, tb, 0.1, 0.5, k, 20,
+                                       start_iteration=s)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert PREDICT_FOREST_LAUNCHES.count == before + 3

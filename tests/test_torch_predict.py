@@ -245,24 +245,3 @@ def test_kernel_shared_memory_plan_has_no_column_limit(precision):
     # what must fit is one tree's tables
     with pytest.raises(ValueError, match="shared memory"):
         kp.tree_chunk(precision, 28, 128 * 256, 1)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("precision", PRECISIONS)
-def test_kernel_matches_plain_version_on_card(precision):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from lightgbm_tpu_torch.kernels.predict import PREDICT_FOREST_LAUNCHES
-
-    arrays, bins = _forest(seed=31, t=13, m=63, f=9, num_bins=40)
-    stored, scale = _stored(arrays, precision)
-    t = tp.pack_forest_soa(*stored, precision=precision, leaf_scale=scale,
-                           device="cuda")
-    tb = torch.from_numpy(bins).cuda()
-    before = PREDICT_FOREST_LAUNCHES.count
-    for k, s in [(13, 0), (4, 3), (1, 12)]:
-        got = tp.predict_forest(t, tb, 0.1, 0.5, k, 20, start_iteration=s)
-        want = tp.predict_forest_plain(t, tb, 0.1, 0.5, k, 20,
-                                       start_iteration=s)
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    assert PREDICT_FOREST_LAUNCHES.count == before + 3
