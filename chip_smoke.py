@@ -54,7 +54,28 @@ Phases:
    within 1e-5 of ``Booster.predict``; a ``torch.profiler`` breakdown of
    three rounds (device time by kernel family, the device's busy share, host
    syncs); then each histogram kernel's time, its plain version's, its bound
-   and (B1) one ``index_add_`` call's.
+   and (B1) one ``index_add_`` call's;
+7. the split-iteration kernel (B3, ``split_iter``) against its plain version
+   bit for bit (table and pick) at E in {1, 5, 40} elements, F in {6, 28},
+   B in {16, 63, 256}, capacity 253, on random, dyadic and tied histograms
+   with per-element regularizers, inactive elements and depth caps, chained
+   over iterations; the segstats histogram (B6, ``hist_segstats``) at Kc in
+   {15, 30, 120, 240, 1080} channels on the diamonds split (about 45,800 x
+   6) and on 1,000,000 x 28, at f32 and bf16, against float64 and its plain
+   version (``1e-6 * sum|x|`` per cell, exact on dyadic channels), two
+   launches bit-equal;
+8. this slice's path at full width, counters at 0 just before each run and
+   read just after (no plain-version call on the kernel path): (a) the
+   strict grower in a Booster at the north star (``grow_policy=
+   "leafwise"``, 3 rounds) through the kernels and the plain versions, AUC
+   apart by at most 1e-4, the dyadic round-1 trees equal; (b) ``cv()`` as
+   examples/gridsearch_cv.py calls it (diamonds, 1,000 rounds, 5 folds,
+   rmse, early stopping 5) through the kernels and the plain versions,
+   ``best_iter`` equal, ``best_score`` within 1e-5 relative; (c)
+   ``run_grid_search`` over the 36 learning_rate=0.1 rows of the 108-config
+   grid (six buckets), with per-bucket seconds and rounds, configs per hour
+   and the top 3; a profiled fused round at num_leaves 127, E = 40; B3's and
+   B6's times, plain times, bounds and (B6) one ``index_add_`` call's.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -91,13 +112,24 @@ PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 SPIN_CYCLES = 20_000_000
 KERNEL_SOURCE = "lightgbm_tpu_torch/csrc/predict_forest.cu"
 REPLACES = "lightgbm_tpu/ops/predict.py:257"
-KERNELS = ("predict_forest", "hist_fused", "hist_partition")
+KERNELS = ("predict_forest", "hist_fused", "hist_partition", "split_iter",
+           "hist_segstats")
 HIST_SOURCES = {
     "hist_fused": ("lightgbm_tpu_torch/csrc/hist_fused.cu",
                    "lightgbm_tpu/ops/histogram_pallas.py:304"),
     "hist_partition": ("lightgbm_tpu_torch/csrc/hist_partition.cu",
                        "lightgbm_tpu/ops/histogram_pallas.py:830"),
 }
+SPLIT_ITER_SOURCE = ("lightgbm_tpu_torch/csrc/split_iter.cu",
+                     "lightgbm_tpu/ops/histogram_pallas.py:605")
+SEGSTATS_SOURCE = ("lightgbm_tpu_torch/csrc/hist_segstats.cu",
+                   "lightgbm_tpu/ops/histogram_pallas.py:76")
+# the grid-search workflow (examples/gridsearch_cv.py, r/gridsearchCV.R)
+SWEEP_SEED = 3928272
+CV_PARAMS = {"learning_rate": 0.1, "objective": "regression"}
+CV_ROUNDS, CV_FOLDS, CV_ES = 1000, 5, 5
+SEGSTATS_KC = (15, 30, 120, 240, 1080)
+STRICT_ROUNDS = 3
 HIST_MODES = ("f32", "bf16")
 HIST_REL_TOL = 1e-6           # |kernel - f64| <= HIST_REL_TOL * sum |x|
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": NUM_LEAVES,
@@ -1066,6 +1098,510 @@ def phase_hist_times(bins, root_stats, wave):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the split-iteration kernel (B3) and the segstats histogram (B6)
+# against their plain versions on the card
+# ---------------------------------------------------------------------------
+def bits_equal(a, b) -> bool:
+    """Bit for bit: signed zeros and NaN payloads count."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def rand_child_hists(rng, dev, lead, f, b, kind):
+    """Children's (grad, hess, count) histograms ``lead + [F, B, 3]``:
+    random, dyadic (every partial sum exact) or tied (every feature a copy
+    of feature 0, so equal gains tie across features)."""
+    shape = tuple(lead) + (f, b)
+    if kind == "dyadic":
+        g = rng.integers(-8, 9, shape) * 0.5
+        h = rng.integers(0, 9, shape) * 0.25
+    else:
+        g = rng.normal(size=shape)
+        h = rng.uniform(0, 0.25, shape)
+    c = rng.integers(0, 6, shape).astype(np.float64)
+    hist = np.stack([g, h * (c > 0), c], axis=-1).astype(np.float32)
+    if kind == "ties":
+        hist[..., :, :, :] = hist[..., :1, :, :]
+    return torch.from_numpy(hist).to(dev)
+
+
+def b3_case(rng, dev, e, f, b, cap, kind, iters):
+    """Chain ``iters`` strict split iterations of ``e`` elements with
+    per-element regularizers, some elements inactive from the start and
+    some with a depth cap; at every iteration the kernel's table and aux
+    must equal the plain version's bit for bit.  Returns the launches."""
+    from lightgbm_tpu_torch.kernels.split_iter import split_iter
+    from lightgbm_tpu_torch.models.tree import (_packed_root_table,
+                                                split_iter_plain)
+    from lightgbm_tpu_torch.ops.split import (SplitContext,
+                                              constrained_leaf_output,
+                                              find_best_split)
+
+    def pick(vals):
+        return torch.tensor(np.asarray(vals, np.float32)[
+            rng.integers(0, len(vals), e)], device=dev)
+
+    ctx = SplitContext(pick([0.0, 0.5]), pick([0.0, 1.0]),
+                       pick([1.0, 3.0, 20.0]), pick([1e-3, 0.5]),
+                       pick([0.0, 0.1]), pick([0.0, 0.3]), pick([0.0, 2.0]))
+    max_depth = pick([-1.0, 3.0, 5.0])
+    fmask = torch.from_numpy((rng.random((e, f)) < 0.8).astype(
+        np.float32)).to(dev)
+    fmask[:, 0] = 1.0
+    root = rand_child_hists(rng, dev, (e,), f, b, kind) * 4.0
+    tot = root[:, 0].sum(dim=1)
+    zero = torch.zeros(e, dtype=torch.float32, device=dev)
+    root_out = constrained_leaf_output(tot[:, 0], tot[:, 1], tot[:, 2],
+                                       ctx._replace(path_smooth=zero),
+                                       float("-inf"), float("inf"), zero)
+    best = find_best_split(root, ctx, fmask, None, root_out, arith="scan")
+    table = _packed_root_table(cap, root_out, tot, best)
+    active = torch.isfinite(best.gain) & torch.from_numpy(
+        rng.random(e) < 0.85).to(dev)
+    aux = torch.stack([zero, best.feature.float(), best.bin.float(),
+                       active.float(), zero, zero, zero, zero], dim=1)
+    scal = torch.zeros((e, 16), dtype=torch.float32, device=dev)
+    for i, v in enumerate(ctx):
+        scal[:, i] = v
+    scal[:, 7] = max_depth
+    scal[:, 8] = 1.0
+    for it in range(iters):
+        hist = rand_child_hists(rng, dev, (e, 2), f, b, kind)
+        tk, ak = split_iter(hist, table, fmask, aux, scal)
+        tp, ap = split_iter_plain(hist, table, fmask, aux, scal)
+        torch.cuda.synchronize()
+        if not (bits_equal(tk, tp) and bits_equal(ak, ap)):
+            diff = torch.nonzero(tk.view(torch.int32)
+                                 != tp.view(torch.int32))[:5].tolist()
+            fail(f"B3 E={e} F={f} B={b} {kind} iteration {it}: kernel != "
+                 f"plain at [e, node, col] {diff}; aux kernel "
+                 f"{ak[:3].tolist()} plain {ap[:3].tolist()}")
+        scal[:, 8] += 2.0 * (aux[:, 3] > 0).float()
+        table, aux = tp, ap
+    return iters
+
+
+def segstats_f64(bins, segstats, num_bins, mode):
+    """Float64 sums on the card of the mode-rounded channels and of their
+    absolute values: ``[F, B, Kc]`` each."""
+    st = segstats.to(torch.bfloat16).to(torch.float32) if mode == "bf16" \
+        else segstats
+    st = st.to(torch.float64)
+    n, f = bins.shape
+    ref = torch.zeros((f * num_bins, st.shape[1]), dtype=torch.float64,
+                      device=bins.device)
+    mag = torch.zeros_like(ref)
+    codes = bins.to(torch.int64)
+    for j in range(f):
+        idx = j * num_bins + codes[:, j]
+        ref.index_add_(0, idx, st)
+        mag.index_add_(0, idx, st.abs())
+    shape = (f, num_bins, st.shape[1])
+    return ref.view(shape), mag.view(shape)
+
+
+def b6_case(name, bins, segstats, num_bins, exact=False):
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    errs = {}
+    for mode in HIST_MODES:
+        what = f"hist_segstats {mode} {name}"
+        got = H.hist_segstats(bins, segstats, num_bins, mode)
+        again = H.hist_segstats(bins, segstats, num_bins, mode)
+        plain = H.hist_segstats_plain(bins, segstats, num_bins, mode)
+        torch.cuda.synchronize()
+        check(bits_equal(got, again), f"{what}: two launches differ")
+        ref, mag = segstats_f64(bins, segstats, num_bins, mode)
+        check_cells(got, ref, mag, what, exact)
+        check_cells(plain, ref, mag, f"{what} (plain version)", exact)
+        errs[mode] = check_cells(got, plain.to(torch.float64), mag,
+                                 f"{what} vs plain", exact)
+        del ref, mag
+    return errs
+
+
+def diamonds_split():
+    """The grid-search workflow's training split: ``make_synthetic_diamonds``
+    cut by ``train_test_split_bernoulli`` (about 45,800 x 6)."""
+    from lightgbm_tpu_torch.utils.datasets import (
+        make_synthetic_diamonds, train_test_split_bernoulli)
+
+    X, y, _ = make_synthetic_diamonds()
+    tr, _ = train_test_split_bernoulli(len(y), p_train=0.85, seed=SWEEP_SEED)
+    return X[tr], y[tr]
+
+
+def phase_b3_b6(dev, higgs_bins):
+    from lightgbm_tpu_torch.dataset import BinMapper
+
+    rng = np.random.default_rng(SEED + 70)
+    t0 = time.perf_counter()
+    cases = 0
+    for e in (1, 5, 40):
+        for f in (6, 28):
+            for b in (16, 63, 256):
+                for kind in ("random", "dyadic", "ties"):
+                    iters = 12 if (b == 256 and kind == "random") else 4
+                    b3_case(rng, dev, e, f, b, CAPACITY, kind, iters)
+                    cases += 1
+    # one element grown through a whole 127-leaf tree
+    b3_case(rng, dev, 5, 6, 256, CAPACITY, "random", NUM_LEAVES - 1)
+    log(f"phase 7: B3 == plain version bit for bit in {cases + 1} cases "
+        f"(E in 1/5/40, F in 6/28, B in 16/63/256, capacity {CAPACITY}; "
+        f"random, dyadic and tied histograms, per-element regularizers, "
+        f"inactive elements, depth caps; {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    Xd, _ = diamonds_split()
+    dbins = torch.from_numpy(BinMapper.fit(Xd, max_bin=MAX_BIN).transform(
+        Xd)).to(dev)
+    errs = {m: 0.0 for m in HIST_MODES}
+
+    def keep(e):
+        for m, v in e.items():
+            errs[m] = max(errs[m], v)
+
+    shapes = [("diamonds", dbins, 256), ("north-star rows", higgs_bins, 256)]
+    for name, bins, nb in shapes:
+        n = bins.shape[0]
+        for kc in SEGSTATS_KC:
+            st = torch.from_numpy(rng.normal(size=(n, kc)).astype(
+                np.float32)).to(dev)
+            keep(b6_case(f"{name} {n}x{bins.shape[1]} Kc={kc}", bins, st,
+                         nb))
+            del st
+        dy = torch.from_numpy((rng.integers(-4, 5, (n, 240)) * 0.25).astype(
+            np.float32)).to(dev)
+        b6_case(f"{name} Kc=240 dyadic", bins, dy, nb, exact=True)
+        del dy
+    log(f"phase 7: B6 within {HIST_REL_TOL} x sum|x| of float64 and of its "
+        f"plain version at f32 and bf16 for Kc in {list(SEGSTATS_KC)} on "
+        f"the diamonds split ({dbins.shape[0]} x {dbins.shape[1]}) and "
+        f"{higgs_bins.shape[0]} x {higgs_bins.shape[1]}, exact on dyadic "
+        f"channels, bit-equal across launches (max abs err vs plain "
+        f"{json.dumps(errs)}; {time.perf_counter() - t0:.1f} s)")
+    return errs, dbins
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the strict grower, cv() and the sweep at full width
+# ---------------------------------------------------------------------------
+def b3_b6_counters():
+    from lightgbm_tpu_torch.kernels.histogram import HIST_SEGSTATS_LAUNCHES
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+
+    return SPLIT_ITER_LAUNCHES, HIST_SEGSTATS_LAUNCHES
+
+
+def plain_spies():
+    """Wrap every plain version the training paths can reach so a run can
+    count the calls (they must not run on the kernel path)."""
+    import lightgbm_tpu_torch.models.tree as T
+    import lightgbm_tpu_torch.ops.histogram as H
+
+    calls = {"plain": 0}
+    targets = [(H, "hist_fused_plain"), (H, "hist_segstats_plain"),
+               (T, "hist_partition_plain"), (T, "split_iter_plain")]
+    origs = [(m, name, getattr(m, name)) for m, name in targets]
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls["plain"] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for m, name, fn in origs:
+        setattr(m, name, counted(fn))
+
+    def restore():
+        for m, name, fn in origs:
+            setattr(m, name, fn)
+    return calls, restore
+
+
+def counted_run(fn):
+    """``fn()`` with every counter at 0 just before and read just after;
+    returns (result, seconds, counts, plain-version calls)."""
+    si, ss = b3_b6_counters()
+    calls, restore = plain_spies()
+    try:
+        torch.cuda.synchronize()
+        reset_counters()
+        si.reset()
+        for c in ss.values():
+            c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counters()
+        counts["split_iter"] = si.count
+        for m, c in ss.items():
+            counts[f"hist_segstats_{m}"] = c.count
+    finally:
+        restore()
+    return out, secs, counts, calls["plain"]
+
+
+def phase_strict(dev, X, y):
+    """(a) The single-booster strict grower at the north star."""
+    import lightgbm_tpu_torch as lgb
+
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    params = dict(TRAIN_PARAMS, grow_policy="leafwise")
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain_calls = counted_run(
+            lambda: lgb.train(dict(params, **extra), ds, STRICT_ROUNDS))
+        runs[tag] = {"s": secs, "counts": counts, "plain_calls": plain_calls,
+                     "auc": auc(b, Xv, yv, dev), "booster": b}
+        log(f"phase 8a {tag}: {STRICT_ROUNDS} strict rounds in {secs:.2f} s, "
+            f"AUC {runs[tag]['auc']:.6f}, launches {json.dumps(counts)}, "
+            f"plain calls {plain_calls}")
+    k = runs["kernels"]
+    check(k["counts"]["hist_fused_bf16"] + k["counts"]["hist_fused_f32"] > 0
+          and k["counts"]["split_iter"] > 0,
+          f"strict kernel path launches {k['counts']}")
+    check(k["plain_calls"] == 0, f"{k['plain_calls']} plain-version calls on "
+          "the strict kernel path")
+    check(runs["plain"]["counts"]["split_iter"] == 0,
+          "the plain strict path launched B3")
+    d_auc = k["auc"] - runs["plain"]["auc"]
+    check(abs(d_auc) <= AUC_TOL, f"strict AUC kernel - plain {d_auc:.2e}")
+    w = np.random.default_rng(SEED + 80).normal(0, 1, NUM_FEATURES)
+    order = np.argsort(X @ w + 0.6 * np.sin(X[:, 0] * 2))
+    yd = np.zeros(len(X), np.float32)
+    yd[order[len(X) // 2:]] = 1.0
+    dsd = lgb.Dataset(X, label=yd, params={"max_bin": MAX_BIN})
+    p = dict(params, objective="regression", hist_dtype="f32")
+    bk = lgb.train(p, dsd, 1)
+    bp = lgb.train(dict(p, hist_impl="plain"), dsd, 1)
+    a, b = tree_arrays(bk, 0), tree_arrays(bp, 0)
+    check(all(np.array_equal(a[key], b[key]) for key in a),
+          "dyadic strict round-1 trees of kernel and plain paths differ")
+    out = {"rounds": STRICT_ROUNDS,
+           "s_per_round": {t: r["s"] / STRICT_ROUNDS for t, r in runs.items()},
+           "auc": {t: r["auc"] for t, r in runs.items()},
+           "auc_kernel_minus_plain": d_auc,
+           "launches": k["counts"], "dyadic_round1_leaves":
+           int(a["num_leaves"])}
+    log(f"phase 8a: {json.dumps(out)}")
+    return out
+
+
+def phase_cv(dev):
+    """(b) ``cv()`` exactly as examples/gridsearch_cv.py calls it, through the
+    kernels and through the plain versions."""
+    import lightgbm_tpu_torch as lgb
+
+    Xd, yd = diamonds_split()
+    ds = lgb.Dataset(Xd, label=yd)
+    ds.construct()
+    res = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        fit, secs, counts, plain_calls = counted_run(
+            lambda: lgb.cv(dict(CV_PARAMS, **extra), ds,
+                           num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                           metrics="rmse", early_stopping_rounds=CV_ES,
+                           stratified=False, seed=SWEEP_SEED))
+        rounds = len(fit["valid rmse-mean"])
+        res[tag] = {"best_iter": fit.best_iter, "best_score": fit.best_score,
+                    "s": secs, "counts": counts, "plain_calls": plain_calls,
+                    "history_len": rounds}
+        log(f"phase 8b cv {tag}: best_iter {fit.best_iter}, best_score "
+            f"{fit.best_score!r}, {secs:.2f} s, launches {json.dumps(counts)},"
+            f" plain calls {plain_calls}")
+    k, p = res["kernels"], res["plain"]
+    check(k["counts"]["split_iter"] > 0
+          and k["counts"]["hist_segstats_f32"] > 0,
+          f"cv kernel path launches {k['counts']}")
+    check(k["plain_calls"] == 0, f"{k['plain_calls']} plain-version calls on "
+          "the cv kernel path")
+    check(np.isfinite(k["best_score"]) and k["best_score"] < 0,
+          f"cv best_score {k['best_score']}")
+    check(k["best_iter"] == p["best_iter"],
+          f"cv best_iter kernel {k['best_iter']} vs plain {p['best_iter']}")
+    rel = abs(k["best_score"] - p["best_score"]) / abs(p["best_score"])
+    check(rel <= 1e-5, f"cv best_score kernel vs plain: rel {rel:.2e}")
+    res["best_score_rel_diff"] = rel
+    res["rounds_run"] = min(k["best_iter"] + CV_ES, CV_ROUNDS)
+    return res, ds
+
+
+def sweep_grid():
+    """The 36 learning_rate=0.1 rows of examples/gridsearch_cv.py's 108."""
+    from lightgbm_tpu_torch.utils.sweep import expand_grid
+
+    grid = expand_grid(learning_rate=[0.1, 0.05, 0.01],
+                       num_leaves=[31, 63, 127], min_data_in_leaf=[20, 40],
+                       feature_fraction=[0.8, 1.0],
+                       bagging_fraction=[0.6, 0.8, 1.0], bagging_freq=[4],
+                       nthread=[4])
+    return [g for g in grid if g["learning_rate"] == 0.1]
+
+
+def phase_sweep(ds, workdir):
+    """(c) ``run_grid_search`` over the 36 learning_rate=0.1 rows."""
+    from lightgbm_tpu_torch.utils.sweep import run_grid_search
+
+    grid = sweep_grid()
+    path = os.path.join(workdir, "paramGrid_lr0.1.json")
+    if os.path.exists(path):
+        os.unlink(path)
+    ledger, secs, counts, plain_calls = counted_run(
+        lambda: run_grid_search(
+            grid, ds, base_params={"objective": "regression",
+                                   "verbosity": -1, "hist_dtype": "bf16"},
+            num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+            early_stopping_rounds=CV_ES, ledger_path=path, seed=SWEEP_SEED,
+            verbose=False))
+    check(not ledger.pending(), f"sweep left rows {ledger.pending()}")
+    check(counts["split_iter"] > 0 and counts["hist_segstats_bf16"] > 0,
+          f"sweep launches {counts}")
+    check(plain_calls == 0, f"{plain_calls} plain-version calls in the sweep")
+    stats = ledger.sweep_stats
+    buckets = [{k: b[k] for k in ("num_leaves", "configs", "rounds", "s")}
+               for b in stats["buckets"]]
+    check(len(buckets) == 6, f"{len(buckets)} buckets, expected 6")
+    board = ledger.leaderboard()
+    for r in ledger.rows:
+        check(r["iteration"] >= 1 and np.isfinite(r["score"])
+              and r["score"] < 0, f"sweep row {r}")
+    out = {"configs": len(grid), "s": secs,
+           "configs_per_hour": len(grid) / secs * 3600.0,
+           "buckets": buckets, "launches": counts,
+           "top3": [{k: r[k] for k in ("num_leaves", "min_data_in_leaf",
+                                       "feature_fraction",
+                                       "bagging_fraction", "iteration",
+                                       "score")} for r in board[:3]]}
+    log(f"phase 8c sweep: {json.dumps(out)}")
+    return out
+
+
+def profile_fused_round(ds):
+    """Where one fused round's time goes at num_leaves 127, E = 40 (8
+    configs x 5 folds of the sweep's bagged bucket): ``torch.profiler``
+    over one round after a warm one; device time of B6, B3 and the plain
+    ops, and the host's share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.models.fused import FusedCVProgram
+
+    grid = [g for g in sweep_grid() if g["num_leaves"] == 127
+            and g["bagging_fraction"] < 1.0]
+    params = [parse_params(dict(g, objective="regression", verbosity=-1,
+                                hist_dtype="bf16"), warn_unknown=False)
+              for g in grid]
+    n = ds.num_data()
+    assign = np.random.default_rng(SWEEP_SEED).permutation(n) % CV_FOLDS
+    masks = np.stack([assign != k for k in range(CV_FOLDS)])
+    prog = FusedCVProgram(ds, params, masks, CV_ROUNDS, CV_ES, SWEEP_SEED)
+    carry = prog.step(prog.init(), 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry = prog.step(carry, 2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {"hist_partial_kernel (B6)": 0.0, "hist_reduce_kernel (B6)": 0.0,
+           "split_iter_kernel (B3)": 0.0, "plain PyTorch ops": 0.0}
+    top = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
+        top.append((us, e.key, e.count))
+        key = next((k for k in fam if k.split()[0] in e.key),
+                   "plain PyTorch ops")
+        fam[key] += us / 1e3
+    dev_ms = sum(fam.values())
+    top.sort(reverse=True)
+    out = {"elements": prog.batch, "num_leaves": 127,
+           "wall_ms": wall_ms, "device_ms": dev_ms,
+           "device_busy_share": dev_ms / wall_ms if dev_ms else
+           "not measured (no device time traced)",
+           "host_share": 1.0 - dev_ms / wall_ms if dev_ms else
+           "not measured",
+           "device_ms_by_family": fam,
+           "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                              for us, k, c in top[:10]]}
+    log(f"phase 8 breakdown (profiled fused round): {json.dumps(out)}")
+    return out
+
+
+def phase_b3_b6_times(dbins):
+    """Device ms per launch of B3 and B6 at the sweep's shapes (the
+    num_leaves 127, E = 40 bucket on the diamonds split), the plain
+    versions', the bounds and B6's ``index_add_`` call."""
+    from lightgbm_tpu_torch.kernels.split_iter import split_iter
+    from lightgbm_tpu_torch.models.tree import split_iter_plain
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    rng = np.random.default_rng(SEED + 90)
+    dev = dbins.device
+    n, f = dbins.shape
+    rows = {}
+    e, kc = 40, 240
+    st = torch.from_numpy(rng.normal(size=(n, kc)).astype(np.float32)).to(
+        dev)
+    # B6: bins and the n x Kc statistics read once, [F, B, Kc] written;
+    # n * F * Kc adds
+    b6_bound = hist_bound_ms(n * f + 4 * n * kc + 4 * f * 256 * kc,
+                             n * f * kc)
+    flat = (torch.arange(f, device=dev) * 256
+            + dbins.to(torch.int64)).reshape(-1)
+    vals = st.repeat_interleave(f, dim=0)
+    out = torch.zeros(f * 256, kc, dtype=torch.float32, device=dev)
+    lib_ms = time_ms(lambda: out.index_add_(0, flat, vals), runs=11, inner=3)
+    del flat, vals
+    for mode in HIST_MODES:
+        rows[f"hist_segstats_{mode}"] = {
+            "shape": f"n={n} F={f} B=256 Kc={kc}",
+            "ms": time_ms(lambda: H.hist_segstats(dbins, st, 256, mode),
+                          runs=11, inner=5),
+            "plain_ms": time_ms(lambda: H.hist_segstats_plain(
+                dbins, st, 256, mode), runs=5, inner=1),
+            "bound_ms": b6_bound[0], "bound_by": b6_bound[1],
+            "library_ms": lib_ms}
+    # B3: one iteration of 40 elements at F = 6, B = 256, capacity 253
+    hist = rand_child_hists(rng, dev, (e, 2), f, 256, "random")
+    from lightgbm_tpu_torch.models.tree import _empty_packed_table
+    table = _empty_packed_table(CAPACITY, dev).expand(e, CAPACITY, 24) \
+        .contiguous()
+    table[:, 0, 5] = 1.0                       # the root is a leaf
+    table[:, 0, 9] = 1.0                       # with a finite gain
+    fmask = torch.ones((e, f), device=dev)
+    aux = torch.zeros((e, 8), device=dev)
+    aux[:, 3] = 1.0
+    scal = torch.zeros((e, 16), device=dev)
+    scal[:, 1], scal[:, 2], scal[:, 3] = 1.0, 20.0, 1e-3
+    scal[:, 7], scal[:, 8] = -1.0, 1.0
+    # bytes: histograms, table, masks and scalars read once; table and aux
+    # written; operations: about 40 f32 ops per (child, feature, bin)
+    b3_bytes = 4 * (hist.numel() + 2 * table.numel() + fmask.numel()
+                    + 2 * aux.numel() + scal.numel())
+    b3_bound = hist_bound_ms(b3_bytes, 40 * e * 2 * f * 256)
+    rows["split_iter"] = {
+        "shape": f"E={e} F={f} B=256 capacity={CAPACITY}",
+        "ms": time_ms(lambda: split_iter(hist, table, fmask, aux, scal),
+                      runs=11, inner=5),
+        "plain_ms": time_ms(lambda: split_iter_plain(hist, table, fmask, aux,
+                                                     scal), runs=5, inner=1),
+        "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
+        "library_ms": None}
+    for name, r in rows.items():
+        log(f"phase 8 times {name}: {json.dumps(r)}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1096,6 +1632,13 @@ def main() -> int:
     hist_errs, bins, root_stats, wave = phase_hist_kernels(dev, X, y, mapper)
     train = phase_train(dev, X, y, workdir)
     hist_times = phase_hist_times(bins, root_stats, wave)
+    b6_errs, dbins = phase_b3_b6(dev, bins)
+    del bins, root_stats, wave
+    strict = phase_strict(dev, X, y)
+    cv_res, dds = phase_cv(dev)
+    sweep = phase_sweep(dds, workdir)
+    fused_round = profile_fused_round(dds)
+    b3_b6_times = phase_b3_b6_times(dbins)
 
     kernels = []
     for prec in PRECISIONS:
@@ -1122,6 +1665,26 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "shape": t["shape"],
             })
+    t = b3_b6_times["split_iter"]
+    kernels.append({
+        "name": "split_iter", "route": "cuda", "source": SPLIT_ITER_SOURCE[0],
+        "replaces": SPLIT_ITER_SOURCE[1],
+        "launches": (cv_res["kernels"]["counts"]["split_iter"]
+                     + sweep["launches"]["split_iter"]),
+        "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "shape": t["shape"]})
+    launches_b6 = {"f32": cv_res["kernels"]["counts"]["hist_segstats_f32"],
+                   "bf16": sweep["launches"]["hist_segstats_bf16"]}
+    for mode in HIST_MODES:
+        t = b3_b6_times[f"hist_segstats_{mode}"]
+        kernels.append({
+            "name": f"hist_segstats_{mode}", "route": "cuda",
+            "source": SEGSTATS_SOURCE[0], "replaces": SEGSTATS_SOURCE[1],
+            "launches": launches_b6[mode], "max_abs_err": b6_errs[mode],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"]})
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "kernel_vs_plain_max_abs_err": errs,
@@ -1129,14 +1692,21 @@ def main() -> int:
               "main_path": main_path,
               "times": table, "breakdown": breakdown, "kernels": kernels,
               "hist_max_abs_err_vs_plain": hist_errs, "train": train,
-              "hist_times": hist_times,
+              "hist_times": hist_times, "b6_max_abs_err_vs_plain": b6_errs,
+              "strict": strict, "cv": cv_res, "sweep": sweep,
+              "fused_round_breakdown": fused_round,
+              "b3_b6_times": b3_b6_times,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",
                   "hist_fused": "Tensor.index_add_ over precomputed flat "
                                 "(feature, bin) cell indices",
                   "hist_partition": "none: no single PyTorch call routes "
-                                    "rows and builds their histograms"},
+                                    "rows and builds their histograms",
+                  "split_iter": "none: no single PyTorch call scans gains "
+                                "and updates a node table",
+                  "hist_segstats": "Tensor.index_add_ over precomputed flat "
+                                   "(feature, bin) cell indices"},
               "total_s": time.perf_counter() - t_start}
     with open(os.path.join(workdir, "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1)

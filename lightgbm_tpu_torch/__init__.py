@@ -11,7 +11,12 @@ nothing of ``lightgbm_tpu``.  Ported so far:
 * single-device training — ``Dataset``, ``train``, ``cv`` and ``Booster``
   (objectives ``regression`` and ``binary``) on the default wave grower,
   with the hand-written Hopper histogram kernels ``csrc/hist_fused.cu`` and
-  ``csrc/hist_partition.cu``.
+  ``csrc/hist_partition.cu``, and on the strict best-first grower with the
+  split-iteration kernel ``csrc/split_iter.cu``;
+* ``cv`` on the reference's fused route (every fold of a call in one device
+  loop, ``models/fused.py``) and the grid sweep (``sweep``,
+  ``utils.sweep.run_grid_search``), with the batched histogram kernel
+  ``csrc/hist_segstats.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
 
@@ -26,11 +31,13 @@ from .dataset import Dataset
 from .device import NoDeviceError
 from .engine import CVBooster, CVResult, cv, train
 from .models.gbdt import Booster
+from .sweep import SweepLedger, SweepService, expand_grid, run_grid_search
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "Booster", "CVBooster", "CVResult", "CallbackEnv", "Dataset",
-    "EarlyStopException", "NoDeviceError", "cv", "early_stopping",
-    "log_evaluation", "record_evaluation", "train",
+    "EarlyStopException", "NoDeviceError", "SweepLedger", "SweepService",
+    "cv", "early_stopping", "expand_grid", "log_evaluation",
+    "record_evaluation", "run_grid_search", "train",
 ]

@@ -1,18 +1,22 @@
-// Shared device code of the two histogram kernels (hist_fused.cu, B1, and
-// hist_partition.cu, B2).
+// Shared device code of the three histogram kernels (hist_fused.cu, B1,
+// hist_partition.cu, B2, and hist_segstats.cu, B6).
 //
-// Both build f32 histograms [K, F, B, S] of per-row statistics over
+// All build f32 histograms [K, F, B, S] of per-row statistics over
 // (segment, feature, bin) with a FIXED summation order, so two launches on
 // the same input give bit-equal output (no float atomics):
 //
 //   pass 1, hist_partial_kernel: one block of 256 threads per (row chunk,
-//     feature, segment group).  The block stages a tile of its chunk's rows
-//     in shared memory (the row's code for this feature and its segment
-//     packed in one int "key", and its statistics), sorts the tile's rows
-//     by bin with a stable counting sort, and then thread b, which owns bin
-//     b, walks only its bin's rows, in row order, adding their statistics
-//     into its column of a shared [KS, B] partial (KS = segments of the
-//     group x S).  The partial goes to scratch [chunks, F, KS, B].
+//     feature, segment group x channel group).  The block stages a tile of
+//     its chunk's rows in shared memory (the row's code for this feature
+//     and its segment packed in one int "key", and the statistics of its
+//     channel group), sorts the tile's rows by bin with a stable counting
+//     sort, and then one thread per bin (B1, B2) or per (bin, channel)
+//     (B6) walks only that bin's rows, in row order, adding into its cells
+//     of a shared [KC, B] partial (KC = segments of the group x channels of
+//     the group).
+//     The partial goes to scratch [chunks, F, K*S, B].  B1 and B2 take all
+//     S statistics in one channel group; B6 (one segment, up to ~1,000
+//     pre-folded channels) splits them into groups that fit shared memory.
 //   pass 2, hist_reduce_kernel: each output cell sums its chunks' partials in
 //     chunk order.
 //
@@ -28,7 +32,14 @@
 // thread look at every row (n*F*B compares, 7.2e9 at the north-star root);
 // the counting sort makes the work per row constant: each warp ranks its 32
 // rows by bin with one __match_any_sync, and each thread then touches only
-// the rows of its own bin.  Rows that add nothing (other segments, codes
+// the rows of its own bin.  A B6 block gives each (bin, channel) pair its
+// own thread: with one thread per bin, a feature with a few distinct codes
+// (the diamonds' cut, color, clarity) had a few threads walk all 1,024 rows
+// of a tile for all 16 channels while the rest idled (B6 1.40 -> 0.95 ms at
+// the sweep's shape on an H100; the same loop made B1 and B2, at 3
+// channels, 14-24 % slower, so they keep a thread per bin, and the channel
+// groups' index arithmetic is compiled into B6's kernel only).  Rows that
+// add nothing (other segments, codes
 // >= B) are never placed, which compacts a wave's tile to its direct rows.
 // The sort's order is warp-major over contiguous row ranges, so a bin's
 // rows keep their row order and the sums stay deterministic.
@@ -44,11 +55,11 @@
 namespace hist {
 
 constexpr int kTileRows = 1024;        // rows staged per shared-memory tile
-constexpr int kThreads = 256;          // one thread per bin (B <= 256)
+constexpr int kThreads = 256;          // the sort's count pass: a bin each
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kTileRows / kWarps;
 constexpr int kMaxBins = 256;
-static_assert(kThreads == kMaxBins, "thread b owns bin b");
+static_assert(kThreads == kMaxBins, "the count pass gives thread b bin b");
 static_assert(kRowsPerWarp % 32 == 0, "a warp ranks whole groups of 32");
 constexpr int kNoRow = 0x100;          // key of a row that adds nothing
 constexpr int kCodeMask = 0x1ff;       // key & kCodeMask == bin code
@@ -72,17 +83,23 @@ struct Shape {
   int K;             // segments
   int B;             // bins
   int rows_per_chunk;
-  int seg_group;     // segments per block (gridDim.z groups)
+  int seg_group;     // segments per block
   int bf16;          // 1: round each statistic to bf16 first
+  int ch_group;      // statistics (channels) per block; S for B1 and B2
 };
+
+// blocks along gridDim.z: segment groups x channel groups
+__host__ __device__ inline int ch_groups(const Shape& s) {
+  return (s.S + s.ch_group - 1) / s.ch_group;
+}
 
 // staged keys and statistics, the sort's per-warp counts, bin starts and
 // totals and its row order, the partial and its compensation
 __host__ __device__ inline size_t smem_bytes(const Shape& s) {
   return sizeof(int) * ((size_t)kTileRows + (size_t)kWarps * kMaxBins +
                         2 * (size_t)kMaxBins) +
-         sizeof(float) * ((size_t)kTileRows * s.S +
-                          2 * (size_t)s.seg_group * s.S * s.B) +
+         sizeof(float) * ((size_t)kTileRows * s.ch_group +
+                          2 * (size_t)s.seg_group * s.ch_group * s.B) +
          sizeof(unsigned short) * kTileRows;
 }
 
@@ -95,6 +112,10 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
   sum = t;
 }
 
+// kWide: channel groups and a thread per (bin, channel) (B6); otherwise
+// every channel in one block and a thread per bin (B1, B2), compiled
+// without the channel-group index arithmetic
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 hist_partial_kernel(const uint8_t* __restrict__ bins,
                     const float* __restrict__ stats,
@@ -102,19 +123,23 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
                     float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = sh.S, B = sh.B;
-  const int chunk = blockIdx.x, f = blockIdx.y, group = blockIdx.z;
+  const int chunk = blockIdx.x, f = blockIdx.y;
+  const int n_cg = kWide ? ch_groups(sh) : 1;
+  const int group = blockIdx.z / n_cg, cgroup = blockIdx.z % n_cg;
   const int g0 = group * sh.seg_group;
   const int g_count = min(sh.seg_group, sh.K - g0);
-  const int ks = g_count * S;                 // partial rows of this block
+  const int c0 = kWide ? cgroup * sh.ch_group : 0;  // first channel
+  const int CS = kWide ? min(sh.ch_group, S - c0) : S;  // channels
+  const int ks = g_count * CS;                // partial rows of this block
   int* s_key = reinterpret_cast<int*>(smem_raw);          // [kTileRows]
   int* s_wcnt = s_key + kTileRows;            // [kWarps, kMaxBins]
   int* s_start = s_wcnt + kWarps * kMaxBins;  // [kMaxBins] first sorted slot
   int* s_total = s_start + kMaxBins;          // [kMaxBins] rows of the bin
   float* s_stat = reinterpret_cast<float*>(s_total + kMaxBins);
-  float* acc = s_stat + kTileRows * S;
-  float* comp = acc + (size_t)sh.seg_group * S * B;
-  unsigned short* s_order =
-      reinterpret_cast<unsigned short*>(comp + (size_t)sh.seg_group * S * B);
+  float* acc = s_stat + kTileRows * sh.ch_group;
+  float* comp = acc + (size_t)sh.seg_group * sh.ch_group * B;
+  unsigned short* s_order = reinterpret_cast<unsigned short*>(
+      comp + (size_t)sh.seg_group * sh.ch_group * B);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -134,7 +159,8 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
       int key = kNoRow;
       if (i < rows) {
         const long long r = t0 + i;
-        const int sg = seg[r] - g0;           // out of range: no row
+        // out of range: no row; no segment ids: every row in segment 0
+        const int sg = (seg ? seg[r] : 0) - g0;
         const int code = (int)bins[r * sh.F + f];
         if (sg >= 0 && sg < g_count && code < B) {
           key = (sg << kSegShift) | code;
@@ -142,8 +168,14 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
       }
       s_key[i] = key;
     }
-    for (int i = tid; i < rows * S; i += kThreads) {
-      const float v = stats[t0 * S + i];
+    for (int i = tid; i < rows * CS; i += kThreads) {
+      float v;
+      if (kWide) {
+        const int r = i / CS, c = i - r * CS;
+        v = stats[(t0 + r) * S + c0 + c];
+      } else {
+        v = stats[t0 * S + i];
+      }
       s_stat[i] = sh.bf16 ? round_bf16(v) : v;
     }
     for (int i = tid; i < kWarps * kMaxBins; i += kThreads) s_wcnt[i] = 0;
@@ -206,26 +238,49 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
       __syncwarp();
     }
     __syncthreads();
-    // accumulate: thread b walks its bin's rows in row order
-    const int b = tid;
-    if (b < B) {
-      const int end = s_start[b] + s_total[b];
-      for (int i = s_start[b]; i < end; ++i) {
-        const int r = s_order[i];
-        const int off = (s_key[r] >> kSegShift) * S * B + b;
-        const float* st = s_stat + r * S;
-        for (int s = 0; s < S; ++s) {
-          kahan_add(acc[off + s * B], comp[off + s * B], st[s]);
+    // accumulate, each cell's rows in row order.  B1, B2: thread b walks
+    // its bin's rows for every channel.  B6: one thread per (bin, channel),
+    // so the rows of a heavy bin (an ordinal feature with a few codes)
+    // spread over the block's channels.
+    if (!kWide) {
+      const int b = tid;
+      if (b < B) {
+        const int end = s_start[b] + s_total[b];
+        for (int i = s_start[b]; i < end; ++i) {
+          const int r = s_order[i];
+          const int off = (s_key[r] >> kSegShift) * CS * B + b;
+          const float* st = s_stat + r * CS;
+          for (int c = 0; c < CS; ++c) {
+            kahan_add(acc[off + c * B], comp[off + c * B], st[c]);
+          }
+        }
+      }
+    } else {
+      for (int item = tid; item < B * CS; item += kThreads) {
+        const int b = item / CS, c = item - b * CS;
+        const int end = s_start[b] + s_total[b];
+        for (int i = s_start[b]; i < end; ++i) {
+          const int r = s_order[i];
+          const int off = ((s_key[r] >> kSegShift) * CS + c) * B + b;
+          kahan_add(acc[off], comp[off], s_stat[r * CS + c]);
         }
       }
     }
   }
   __syncthreads();
-  // partial [chunks, F, K*S, B]: this block's rows [g0*S, g0*S + ks)
+  // partial [chunks, F, K*S, B]: this block's rows (g0 + k)*S + c0 + c
   const size_t KS = (size_t)sh.K * S;
-  float* dst = partial + (((size_t)chunk * sh.F + f) * KS +
-                          (size_t)g0 * S) * B;
-  for (int i = tid; i < ks * B; i += kThreads) dst[i] = acc[i];
+  float* dst = partial + ((size_t)chunk * sh.F + f) * KS * B;
+  if (!kWide) {                               // rows [g0*S, g0*S + ks)
+    dst += (size_t)g0 * S * B;
+    for (int i = tid; i < ks * B; i += kThreads) dst[i] = acc[i];
+  } else {
+    for (int i = tid; i < ks * B; i += kThreads) {
+      const int kc = i / B, b = i - kc * B;
+      const int k = kc / CS, c = kc - k * CS;
+      dst[((size_t)(g0 + k) * S + c0 + c) * B + b] = acc[i];
+    }
+  }
 }
 
 // out [K, F, B, S][k, f, b, s] = (Kahan) sum over chunks c, in order, of
@@ -253,18 +308,20 @@ __global__ void hist_reduce_kernel(const float* __restrict__ partial,
 }
 
 // Launch both passes on `stream`; returns the first CUDA error (0 if none).
+// `wide`: the channel-group kernel (B6); B1 and B2 take every channel in one
+// block (sh.ch_group == sh.S).
 inline int launch(const uint8_t* bins, const float* stats, const int* seg,
                   const Shape& sh, int n_chunks, float* partial, float* out,
-                  cudaStream_t stream) {
-  const int groups = (sh.K + sh.seg_group - 1) / sh.seg_group;
+                  cudaStream_t stream, bool wide = false) {
+  if (!wide && sh.ch_group != sh.S) return (int)cudaErrorInvalidValue;
+  const int groups = (sh.K + sh.seg_group - 1) / sh.seg_group * ch_groups(sh);
   const size_t smem = smem_bytes(sh);
+  auto kernel = wide ? hist_partial_kernel<true> : hist_partial_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      hist_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_chunks, sh.F, groups);
-  hist_partial_kernel<<<grid, kThreads, smem, stream>>>(bins, stats, seg, sh,
-                                                        partial);
+  kernel<<<grid, kThreads, smem, stream>>>(bins, stats, seg, sh, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t cells = (size_t)sh.F * sh.K * sh.S * sh.B;

@@ -8,10 +8,11 @@
   ``best_iter`` / ``best_score`` where ``best_score`` follows the R binding's
   sign flip (higher is better).
 
-Training runs on the training Dataset's device.  ``cv`` trains one Booster
-per fold (the reference's per-fold path); the reference's fused-CV route,
-which batches folds into one device program with kernel B5, is ROADMAP
-slice 4.  ``init_model`` is ROADMAP slice 3.
+Training runs on the training Dataset's device.  ``cv`` takes the
+reference's route: a plain call (no callbacks, ``feval``,
+``return_cvbooster``, ``eval_train_metric`` or ``verbose_eval``) trains all
+folds at once in the fused program (``models/fused.py``), anything else one
+Booster per fold.  ``init_model`` is ROADMAP slice 3.
 """
 
 from __future__ import annotations
@@ -249,6 +250,36 @@ def cv(
     else:
         folds = _make_folds(n, nfold, labels, use_strat, shuffle,
                             seed if seed else p.seed)
+
+    # the fused route: every fold in one device loop, early stopping on the
+    # device (the reference's engine.cv, same eligibility and assembly)
+    from .models.fused import fused_cv_eligible, run_fused_cv_batch
+
+    if (fused_cv_eligible(p, feval, callbacks, train_set)
+            and not return_cvbooster and not eval_train_metric
+            and verbose_eval in (None, False)):
+        fold_masks = np.zeros((len(folds), n), dtype=bool)
+        for k, (tr_idx, _) in enumerate(folds):
+            fold_masks[k, np.asarray(tr_idx)] = True
+        history, best_iters, best_raw, rounds_run, metric_name = \
+            run_fused_cv_batch(train_set, [p], fold_masks, num_boost_round,
+                               p.early_stopping_round,
+                               seed if seed else p.seed)
+        result = CVResult()
+        hib = get_metric(metric_name, p).higher_better
+        best_iter = int(best_iters[0])
+        per_round = history[:, 0, :]                     # [T, K]
+        upto = best_iter if p.early_stopping_round > 0 else rounds_run
+        means = np.nanmean(per_round[:upto], axis=1)
+        stdvs = np.nanstd(per_round[:upto], axis=1, ddof=1) \
+            if per_round.shape[1] > 1 else np.zeros(upto)
+        result[f"valid {metric_name}-mean"] = means.tolist()
+        result[f"valid {metric_name}-stdv"] = stdvs.tolist()
+        result.best_iter = best_iter
+        result.best_iteration = best_iter
+        raw = float(best_raw[0])
+        result.best_score = raw if hib else -raw
+        return result
 
     cvb = CVBooster()
     for train_idx, test_idx in folds:

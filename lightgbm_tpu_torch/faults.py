@@ -13,8 +13,10 @@ written for either package arms in both.  The serving slice consults:
 * ``clock`` — :meth:`FaultInjector.wrap_clock` adds a skew offset to an
   injectable time source.
 
-The training, pipeline and sweep sites are registered but not yet consulted
-by any ported module.  A ``FaultInjector`` with no armed specs is a cheap
+The sweep service consults ``sweep_segment`` (between fused segments and
+host-engine configs) and ``sweep_record`` (before a ledger commit).  The
+training, pipeline and ``sweep_promote`` sites are registered but not yet
+consulted by any ported module.  A ``FaultInjector`` with no armed specs is a cheap
 no-op, so the hooks stay wired in production configurations.
 """
 

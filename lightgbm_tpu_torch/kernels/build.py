@@ -26,6 +26,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# per-source flags: the split iteration must round as its plain version
+# does, so nvcc may not contract a multiply and an add into an FMA
+SOURCE_FLAGS = {"split_iter": ("-fmad=false",)}
 
 # nvcc's report (ptxas registers, shared memory, spills) per library built
 # by this process
@@ -69,7 +72,8 @@ def library_path(name: str) -> Path:
     # the shared headers are hashed too, so editing one rebuilds its users
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         src += header.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -91,7 +95,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

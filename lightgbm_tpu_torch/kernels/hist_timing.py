@@ -2,17 +2,22 @@
 
     python3 <checkout>/lightgbm_tpu_torch/kernels/hist_timing.py
 
-Builds ``hist_fused`` (B1) and ``hist_partition`` (B2) from that checkout,
-then on ``make_higgs_like(1,000,000)`` binned to 255 bins: each kernel
-against its plain version (max abs err, routing equal) and its device ms per
-launch (CUDA events, median of 11 runs of 5 launches queued behind a spin
-kernel) at the north-star root (binary round-1 statistics, one segment) and
-at the widest wave of a real north-star tree (grown once with the plain
-versions); then 10 rounds of north-star training (seconds per round) and its
-AUC on ``make_higgs_like(200,000, seed=9)``.  Prints one ``RESULT`` JSON
-line.  To compare two versions of the kernels in one call, unpack the other
-version into an ignored directory and run both files in turns (old, new,
-new, old).  Needs a CUDA card.
+Builds ``hist_fused`` (B1), ``hist_partition`` (B2) and ``hist_segstats``
+(B6) from that checkout, then on ``make_higgs_like(1,000,000)`` binned to
+255 bins: each kernel against its plain version (max abs err, routing equal)
+and its device ms per launch (CUDA events, median of 11 runs of 5 launches
+queued behind a spin kernel) at the north-star root (binary round-1
+statistics, one segment) and at the widest wave of a real north-star tree
+(grown once with the plain versions); then 10 rounds of north-star training
+(seconds per round) and its AUC on ``make_higgs_like(200,000, seed=9)``.
+On the grid-search workflow's diamonds split (``make_synthetic_diamonds``,
+about 45,800 x 6): B6 at 240 channels (an 8-config sweep bucket's two-child
+histograms), ``cv()`` as examples/gridsearch_cv.py calls it (seconds,
+``best_iter``, ``best_score``) and the 8-config num_leaves 127 sweep bucket
+run to its end (seconds, rounds).  Prints one ``RESULT`` JSON line.  To
+compare two versions of the kernels in one call, unpack the other version
+into an ignored directory, copy this file into it, and run both files in
+turns (old, new, new, old).  Needs a CUDA card.
 """
 
 import json
@@ -48,6 +53,58 @@ def device_ms(fn, runs=11, inner=5):
     return float(np.median(per))
 
 
+def diamonds(dev) -> dict:
+    """B6 at the sweep's shape, ``cv()`` and one sweep bucket on the
+    diamonds split."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.models.fused import run_fused_cv_batch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils.datasets import (
+        make_synthetic_diamonds, train_test_split_bernoulli)
+
+    X, y, _ = make_synthetic_diamonds()
+    tr, _ = train_test_split_bernoulli(len(y), p_train=0.85, seed=3928272)
+    X, y = X[tr], y[tr]
+    bins = torch.from_numpy(BinMapper.fit(X, max_bin=255).transform(X)).to(
+        dev)
+    st = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(len(y), 240)).astype(np.float32)).to(dev)
+    out = {}
+    for mode in ("f32", "bf16"):
+        got = H.hist_segstats(bins, st, 256, mode)
+        want = H.hist_segstats_plain(bins, st, 256, mode)
+        torch.cuda.synchronize()
+        out[f"b6_{mode}"] = {
+            "err": float((got - want).abs().max()),
+            "ms": device_ms(lambda: H.hist_segstats(bins, st, 256, mode))}
+    ds = lgb.Dataset(X, label=y)
+    ds.construct()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = lgb.cv({"learning_rate": 0.1, "objective": "regression"}, ds,
+                 num_boost_round=1000, nfold=5, metrics="rmse",
+                 early_stopping_rounds=5, stratified=False, seed=3928272)
+    torch.cuda.synchronize()
+    out["cv"] = {"s": time.perf_counter() - t0, "best_iter": fit.best_iter,
+                 "best_score": fit.best_score}
+    grid = [dict(num_leaves=127, min_data_in_leaf=m, feature_fraction=f,
+                 bagging_fraction=b, bagging_freq=4, learning_rate=0.1,
+                 objective="regression", hist_dtype="bf16", verbosity=-1)
+            for b in (0.6, 0.8) for f in (0.8, 1.0) for m in (20, 40)]
+    assign = np.random.default_rng(3928272).permutation(len(y)) % 5
+    masks = np.stack([assign != k for k in range(5)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_fused_cv_batch(ds, [parse_params(g) for g in grid], masks,
+                             1000, 5, 3928272)
+    torch.cuda.synchronize()
+    out["bucket_127x8"] = {"s": time.perf_counter() - t0, "rounds": res[3],
+                           "best_iter": res[1].tolist()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("hist_timing: no CUDA device", file=sys.stderr)
@@ -63,7 +120,8 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.utils.datasets import make_higgs_like
 
-    print(ROOT, build.build(["hist_fused", "hist_partition"]))
+    print(ROOT, build.build(["hist_fused", "hist_partition",
+                             "hist_segstats", "split_iter"]))
     dev = torch.device("cuda")
     X, y = make_higgs_like(1_000_000, 28, seed=0)
     bins = torch.from_numpy(BinMapper.fit(X, max_bin=255).transform(X)).to(
@@ -118,6 +176,7 @@ def main() -> int:
     pv = torch.from_numpy(booster.predict(Xv)).to(dev)
     yt = torch.from_numpy(yv).to(dev)
     out["auc"] = float(get_metric("auc").fn(pv, yt, torch.ones_like(yt)))
+    out.update(diamonds(dev))
     print("RESULT", ROOT, json.dumps(out))
     return 0
 

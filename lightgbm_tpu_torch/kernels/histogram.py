@@ -1,13 +1,14 @@
-"""ctypes bindings of the histogram kernels (``csrc/hist_fused.cu``, B1, and
-``csrc/hist_partition.cu``, B2).
+"""ctypes bindings of the histogram kernels (``csrc/hist_fused.cu``, B1,
+``csrc/hist_partition.cu``, B2, and ``csrc/hist_segstats.cu``, B6).
 
-:func:`hist_fused` and :func:`hist_partition` check their tensors, size the
-row chunks and segment groups, allocate the outputs and the scratch of
-per-chunk partials, and launch on the current CUDA stream without
-synchronising.  A launch the card refuses raises
-:class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES`` and
-``HIST_PARTITION_LAUNCHES`` count the calls that launched, per mode (``"f32"``
-and ``"bf16"``), and nothing else counts them.  They take CUDA tensors only: the plain PyTorch versions and the
+:func:`hist_fused`, :func:`hist_partition` and :func:`hist_segstats` check
+their tensors, size the row chunks and segment (or channel) groups, allocate
+the outputs and the scratch of per-chunk partials, and launch on the current
+CUDA stream without synchronising.  A launch the card refuses raises
+:class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES``,
+``HIST_PARTITION_LAUNCHES`` and ``HIST_SEGSTATS_LAUNCHES`` count the calls
+that launched, per mode (``"f32"`` and ``"bf16"``), and nothing else counts
+them.  They take CUDA tensors only: the plain PyTorch versions and the
 dispatch on the tensor's device live in ``ops/histogram.py``.
 
 Sizing: every block owns one (row chunk, feature, segment group).  A
@@ -15,7 +16,9 @@ segment group is as many segments as the block's shared-memory partial
 ``[group * S, B]`` f32 and its Kahan compensation hold, beside the staged
 row tile and the sort's tables, while two blocks still share an SM (14
 segments of S = 3 at B = 256, so a 42-split wave runs in three groups);
-chunks are cut so that the grid holds about eight blocks per SM.
+chunks are cut so that the grid holds about eight blocks per SM.  B6 has one
+segment and up to ~1,000 channels, so its blocks own a channel group instead
+(16 channels at B = 256, :func:`plan_segstats`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from . import build
 from .predict import LaunchCounter
 
-FUSED, PARTITION = "hist_fused", "hist_partition"
+FUSED, PARTITION, SEGSTATS = "hist_fused", "hist_partition", "hist_segstats"
 TILE_ROWS = 1024                    # kTileRows in csrc/hist_common.cuh
 WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
 SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
@@ -38,6 +41,7 @@ BLOCKS_PER_SM = 8                   # blocks a launch aims to give each SM
 MODES = ("f32", "bf16")
 HIST_FUSED_LAUNCHES = {m: LaunchCounter() for m in MODES}
 HIST_PARTITION_LAUNCHES = {m: LaunchCounter() for m in MODES}
+HIST_SEGSTATS_LAUNCHES = {m: LaunchCounter() for m in MODES}
 
 _bind_lock = threading.Lock()
 _funcs = {}
@@ -59,7 +63,13 @@ def _bound():
                            ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
             fn.restype = ci
             _funcs[PARTITION] = fn
-            for name, lib_ in ((FUSED, lib), (PARTITION, lib_p)):
+            lib_s = build.load(SEGSTATS)
+            fn = lib_s.hist_segstats_launch
+            fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+            fn.restype = ci
+            _funcs[SEGSTATS] = fn
+            for name, lib_ in ((FUSED, lib), (PARTITION, lib_p),
+                               (SEGSTATS, lib_s)):
                 err = getattr(lib_, f"{name}_error_string")
                 err.argtypes = [ci]
                 err.restype = ctypes.c_char_p
@@ -77,6 +87,13 @@ def _bound():
                 raise build.KernelLaunchError(
                     "hist_fused: the kernel's shared-memory layout disagrees "
                     "with the binding")
+            smem = lib_s.hist_segstats_smem_bytes
+            smem.argtypes = [ci, ci]
+            smem.restype = ctypes.c_longlong
+            if smem(256, 16) != smem_bytes(16, 256, 1):
+                raise build.KernelLaunchError(
+                    "hist_segstats: the kernel's shared-memory layout "
+                    "disagrees with the binding")
         return _funcs
 
 
@@ -113,6 +130,25 @@ def plan(n: int, num_features: int, s: int, num_segments: int,
     rows = -(-rows // TILE_ROWS) * TILE_ROWS
     n_chunks = max(1, -(-n // rows))
     return rows, n_chunks, seg_group
+
+
+def plan_segstats(n: int, num_features: int, channels: int, num_bins: int,
+                  sm_count: int):
+    """(rows_per_chunk, n_chunks, ch_group) of a B6 launch: as many channels
+    per block as let two blocks share an SM, chunks for about
+    ``BLOCKS_PER_SM`` blocks per SM."""
+    per_ch = 4 * (TILE_ROWS + 2 * num_bins)
+    base = smem_bytes(0, num_bins, 1)
+    ch_group = max(1, min(channels, (SMEM_PER_SM // 2 - 1024 - base)
+                          // per_ch))
+    groups = -(-channels // ch_group)
+    max_chunks = max(1, -(-n // TILE_ROWS))
+    want = -(-BLOCKS_PER_SM * sm_count // (num_features * groups))
+    n_chunks = max(1, min(max_chunks, want))
+    rows = -(-n // n_chunks)
+    rows = -(-rows // TILE_ROWS) * TILE_ROWS
+    n_chunks = max(1, -(-n // rows))
+    return rows, n_chunks, ch_group
 
 
 def _check(name, t, dtype, shape, device):
@@ -229,3 +265,38 @@ def hist_partition(bins: torch.Tensor, stats: torch.Tensor,
         _raise(PARTITION, err)
     HIST_PARTITION_LAUNCHES[mode].add()
     return hist, new_leaf
+
+
+def hist_segstats(bins: torch.Tensor, segstats: torch.Tensor, num_bins: int,
+                  mode: str) -> torch.Tensor:
+    """Launch B6: f32 ``[F, B, Kc]`` histogram of the pre-folded statistics
+    ``segstats [n, Kc]`` by (feature, bin) for CUDA tensors."""
+    if bins.device.type != "cuda":
+        raise ValueError(f"the hist_segstats kernel takes CUDA tensors, got "
+                         f"{bins.device}")
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2:
+        raise TypeError("bins must be a uint8 [n, F] tensor")
+    n, f = bins.shape
+    kc = segstats.shape[1] if segstats.dim() == 2 else -1
+    _check("segstats", segstats, torch.float32, (n, kc), dev)
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
+    flag = _mode_flag(mode)
+    out = torch.empty((f, num_bins, kc), dtype=torch.float32, device=dev)
+    if n == 0 or f == 0 or kc == 0:
+        return out.zero_()
+    rows, n_chunks, group = plan_segstats(n, f, kc, num_bins, _sm_count(dev))
+    partial = torch.empty(n_chunks * f * kc * num_bins, dtype=torch.float32,
+                          device=dev)
+    bins, segstats = bins.contiguous(), segstats.contiguous()
+    funcs = _bound()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = funcs[SEGSTATS](bins.data_ptr(), n, f, segstats.data_ptr(), kc,
+                              num_bins, flag, rows, n_chunks, group,
+                              partial.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        _raise(SEGSTATS, err)
+    HIST_SEGSTATS_LAUNCHES[mode].add()
+    return out

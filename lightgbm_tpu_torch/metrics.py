@@ -5,6 +5,10 @@ All metrics are weighted means over f32 tensors on the training device
 (weight 0 on padding rows), so a round's evaluation fetches one scalar per
 metric.  Values follow the Python lightgbm convention (raw value plus a
 ``higher_better`` flag); the R binding's sign flip happens in ``cv``.
+
+Every metric reduces over the last axis, so ``pred [E, n]`` with weights
+``[E, n]`` (``w * valid_mask`` per fold in fused cross-validation) gives one
+value per element ``[E]``, each equal to the metric of that row alone.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ def _c(value, like):
 
 
 def _wmean(values, w):
-    return torch.sum(values * w) / torch.maximum(torch.sum(w), _c(1e-12, w))
+    return (torch.sum(values * w, dim=-1)
+            / torch.maximum(torch.sum(w, dim=-1), _c(1e-12, w)))
 
 
 def _l2(pred, y, w):
@@ -55,30 +60,34 @@ def _binary_error(p, y, w):
 def _auc(score, y, w):
     """Weighted ROC-AUC by the rank statistic: scores sorted ascending,
     ties share the mean of their group's negatives-below counts."""
-    n = score.shape[0]
-    order = torch.argsort(score, stable=True)
-    s_sorted = score[order]
-    y_sorted = y[order]
-    w_sorted = w[order]
+    n = score.shape[-1]
+    dev = score.device
+    lead = score.shape[:-1]
+    y = y.expand(score.shape)
+    w = w.expand(score.shape)
+    order = torch.argsort(score, dim=-1, stable=True)
+    s_sorted = score.gather(-1, order)
+    y_sorted = y.gather(-1, order)
+    w_sorted = w.gather(-1, order)
     pos_w = w_sorted * (y_sorted > 0.5)
     neg_w = w_sorted * (y_sorted <= 0.5)
-    cum_neg = torch.cumsum(neg_w, 0)
-    same_as_prev = torch.cat([torch.zeros(1, dtype=torch.bool,
-                                          device=score.device),
-                              s_sorted[1:] == s_sorted[:-1]])
-    gid = torch.cumsum((~same_as_prev).to(torch.int64), 0) - 1
-    before = torch.cat([torch.zeros(1, dtype=_F32, device=score.device),
-                        cum_neg[:-1]])
-    seg_start = torch.full((n,), float("inf"), dtype=_F32,
-                           device=score.device).scatter_reduce(
-        0, gid, before, reduce="amin")
-    seg_end = torch.full((n,), float("-inf"), dtype=_F32,
-                         device=score.device).scatter_reduce(
-        0, gid, cum_neg, reduce="amax")
-    neg_below = 0.5 * (seg_start[gid] + seg_end[gid])
-    total_pos = torch.sum(pos_w)
-    total_neg = torch.sum(neg_w)
-    return torch.sum(pos_w * neg_below) / torch.maximum(
+    cum_neg = torch.cumsum(neg_w, -1)
+    same_as_prev = torch.cat([torch.zeros(lead + (1,), dtype=torch.bool,
+                                          device=dev),
+                              s_sorted[..., 1:] == s_sorted[..., :-1]], -1)
+    gid = torch.cumsum((~same_as_prev).to(torch.int64), -1) - 1
+    before = torch.cat([torch.zeros(lead + (1,), dtype=_F32, device=dev),
+                        cum_neg[..., :-1]], -1)
+    seg_start = torch.full(lead + (n,), float("inf"), dtype=_F32,
+                           device=dev).scatter_reduce(
+        -1, gid, before, reduce="amin")
+    seg_end = torch.full(lead + (n,), float("-inf"), dtype=_F32,
+                         device=dev).scatter_reduce(
+        -1, gid, cum_neg, reduce="amax")
+    neg_below = 0.5 * (seg_start.gather(-1, gid) + seg_end.gather(-1, gid))
+    total_pos = torch.sum(pos_w, -1)
+    total_neg = torch.sum(neg_w, -1)
+    return torch.sum(pos_w * neg_below, -1) / torch.maximum(
         total_pos * total_neg, _c(1e-12, score))
 
 

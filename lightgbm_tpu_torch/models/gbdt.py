@@ -2,7 +2,8 @@
 on its plain single-device branch.
 
 One boosting round: grad/hess of the objective -> bagging-masked stats ->
-one tree from the wave grower -> the train-score update, all on the
+one tree from the wave grower or the strict best-first grower
+(:func:`resolve_wave_width`) -> the train-score update, all on the
 training Dataset's device.  The host drives the rounds and reads only what
 decides control flow (one number per wave, the pruned table of an exact-tail
 tree, the metrics a callback asks for).  Bagging and ``feature_fraction``
@@ -13,8 +14,12 @@ reference.
 What is outside this slice raises a ``NotImplementedError`` naming the
 ROADMAP slice that will port it: other objectives and boosting modes,
 constraints, categorical/linear/extra trees, per-node sampling, feature
-screening, streaming, the distributed learners, ``init_model``, int8
-histograms and the strict grower.
+screening, streaming, the distributed learners, ``init_model`` and int8
+histograms.
+
+:class:`HyperScalarsBatch` holds the same scalars as per-element tensors for
+the fused cross-validation program (``models/fused.py``), where one batch
+element is one (config, fold).
 """
 
 from __future__ import annotations
@@ -67,6 +72,41 @@ class HyperScalars(NamedTuple):
             max_depth=int(p.max_depth),
             max_delta_step=float(p.max_delta_step),
             path_smooth=float(p.path_smooth))
+
+    def ctx(self) -> SplitContext:
+        return SplitContext(
+            lambda_l1=self.lambda_l1, lambda_l2=self.lambda_l2,
+            min_data_in_leaf=self.min_data_in_leaf,
+            min_sum_hessian=self.min_sum_hessian,
+            min_gain_to_split=self.min_gain_to_split,
+            max_delta_step=self.max_delta_step,
+            path_smooth=self.path_smooth)
+
+
+class HyperScalarsBatch(NamedTuple):
+    """Per-element scalars of the fused round step: f32 ``[E]`` tensors on
+    one device (``max_depth`` too, as the kernels read it), one element per
+    (config, fold) — the reference's batched ``HyperScalars``."""
+
+    learning_rate: torch.Tensor
+    lambda_l1: torch.Tensor
+    lambda_l2: torch.Tensor
+    min_data_in_leaf: torch.Tensor
+    min_sum_hessian: torch.Tensor
+    min_gain_to_split: torch.Tensor
+    max_depth: torch.Tensor
+    max_delta_step: torch.Tensor
+    path_smooth: torch.Tensor
+
+    @staticmethod
+    def from_params(param_list, repeat: int, device) -> "HyperScalarsBatch":
+        """Each config's scalars repeated ``repeat`` times (its folds)."""
+        rows = [HyperScalars.from_params(p) for p in param_list]
+        return HyperScalarsBatch(*(
+            torch.tensor(np.repeat(np.asarray([float(h[i]) for h in rows],
+                                              np.float32), repeat),
+                         device=device)
+            for i in range(len(HyperScalars._fields))))
 
     def ctx(self) -> SplitContext:
         return SplitContext(

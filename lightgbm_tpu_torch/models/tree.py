@@ -9,15 +9,22 @@ unreachable.  Here the fields are torch tensors on one device; a forest
 stacks trees on a leading ``[T]`` axis.
 
 Growth: :func:`grow_tree` dispatches on the encoded wave width
-(:func:`decode_wave_width`).  This slice ports :func:`grow_tree_frontier`,
-the default grower at n >= 4096 rows and num_leaves >= 16, on the plain
-numeric path (no categorical, monotone, extra-trees, interaction or per-node
-sampling), with all three wave tails: ``greedy``, ``half`` and ``exact``
-(overgrow, then :func:`_exact_prune`).  Each wave runs kernel B2
-(``ops.histogram.hist_partition_fused``), which routes the rows and builds the
-smaller children's histograms in one pass; the siblings come from the
-per-leaf histogram cache by subtraction.  The strict best-first grower
-(wave width 1) is the next slice's work and raises ``NotImplementedError``.
+(:func:`decode_wave_width`), on the plain numeric path (no categorical,
+monotone, extra-trees, interaction or per-node sampling):
+
+* widths above 1 grow in waves (:func:`grow_tree_frontier`, the default at
+  n >= 4096 rows and num_leaves >= 16), with all three wave tails:
+  ``greedy``, ``half`` and ``exact`` (overgrow, then :func:`_exact_prune`).
+  Each wave runs kernel B2 (``ops.histogram.hist_partition_fused``), which
+  routes the rows and builds the smaller children's histograms in one pass;
+  the siblings come from the per-leaf histogram cache by subtraction.
+* width 1 is the strict best-first grower (:func:`grow_tree_strict`):
+  ``num_leaves - 1`` split iterations, each one histogram pass over both
+  children of the split leaf and one call of kernel B3
+  (:func:`split_iter`: the gain scan, the argmax, the node-table writes and
+  the next pick).  It grows a batch of ``E`` trees at once over a shared
+  binned matrix, which is how fused cross-validation grows configs x folds;
+  a Booster grows one (``E = 1``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.histogram import (compute_histograms, hist_partition_fused,
-                             hist_partition_plain, resolve_mode)
+                             hist_partition_plain, histograms_rows,
+                             resolve_mode)
 from ..ops.split import (SplitContext, constrained_leaf_output,
                          find_best_split)
 from .feature_mask import node_mask_fn
@@ -113,33 +121,43 @@ def _empty_packed_table(capacity: int, device) -> torch.Tensor:
 
 def _packed_root_table(capacity, root_out, root_tot, root_best
                        ) -> torch.Tensor:
-    """Initial packed table with the root's row set."""
+    """Initial packed table with the root's row set: ``[capacity, NC]``, or
+    ``[E, capacity, NC]`` when the root fields carry a leading axis ``[E]``
+    (``root_tot [E, 3]``)."""
     K = _PK
     dev = root_out.device
-    nodes = _empty_packed_table(capacity, dev)
-    row = torch.zeros(K.NC, dtype=_F32, device=dev)
+    lead = tuple(root_out.shape)
     cols = [K.SPLIT_FEAT, K.LEFT, K.RIGHT, K.LEAF_VALUE, K.IS_LEAF, K.COUNT,
             K.CAND_GAIN, K.CAND_FEAT, K.CAND_BIN, K.CAND_LG, K.CAND_LH,
             K.CAND_LC, K.CAND_RG, K.CAND_RH, K.CAND_RC, K.CAND_WL, K.CAND_WR,
             K.BOUND_LO, K.BOUND_HI, K.CAND_CAT, K.PM]
 
     def f(v):
-        return torch.as_tensor(v, device=dev).to(_F32).reshape(())
+        return torch.as_tensor(v, device=dev).to(_F32).expand(lead)
 
-    vals = [f(-1.0), f(-1.0), f(-1.0), root_out, f(1.0), root_tot[2],
+    vals = [f(-1.0), f(-1.0), f(-1.0), root_out, f(1.0), root_tot[..., 2],
             root_best.gain, f(root_best.feature), f(root_best.bin),
             root_best.left_g, root_best.left_h, root_best.left_c,
             root_best.right_g, root_best.right_h, root_best.right_c,
             root_best.left_out, root_best.right_out, f(float("-inf")),
             f(float("inf")), f(0.0), root_best.gain]
-    row[torch.tensor(cols, device=dev)] = torch.stack([f(v) for v in vals])
-    nodes[0] = row
+    nodes = _empty_packed_table(capacity, dev).expand(
+        lead + (capacity, K.NC)).clone()
+    row = nodes[..., 0, :]
+    row[..., torch.tensor(cols, device=dev)] = torch.stack(
+        [f(v) for v in vals], dim=-1)
     return nodes
 
 
-def _tree_from_packed(P: torch.Tensor, n_leaves: int) -> Tree:
-    """Unpack the packed node table into the public Tree struct."""
+def _tree_from_packed(P: torch.Tensor, n_leaves) -> Tree:
+    """Unpack the packed node table into the public Tree struct
+    (``n_leaves`` an int or a device scalar)."""
     K = _PK
+    if isinstance(n_leaves, torch.Tensor):
+        num_leaves = n_leaves.to(torch.int32).reshape(())
+    else:
+        num_leaves = torch.tensor(int(n_leaves), dtype=torch.int32,
+                                  device=P.device)
     return Tree(
         split_feature=P[:, K.SPLIT_FEAT].to(torch.int32),
         split_bin=P[:, K.SPLIT_BIN].to(torch.int32),
@@ -149,8 +167,7 @@ def _tree_from_packed(P: torch.Tensor, n_leaves: int) -> Tree:
         is_leaf=P[:, K.IS_LEAF] > 0.5,
         count=P[:, K.COUNT].clone(),
         split_gain=P[:, K.SPLIT_GAIN].clone(),
-        num_leaves=torch.tensor(int(n_leaves), dtype=torch.int32,
-                                device=P.device),
+        num_leaves=num_leaves,
     )
 
 
@@ -165,8 +182,8 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     in-bag indicator), already bagging-masked; ``feature_mask`` f32 ``[F]``;
     ``max_depth`` <= 0 means unlimited.  ``wave_width`` carries the wave
     tail in its encoding (see :func:`decode_wave_width`).  Widths above 1
-    grow in waves (:func:`grow_tree_frontier`); width 1, the strict
-    best-first grower, is not ported yet.
+    grow in waves (:func:`grow_tree_frontier`); width 1 is the strict
+    best-first grower (:func:`grow_tree_strict` with one element).
     """
     raw = wave_width
     width, tail, overgrow = decode_wave_width(int(wave_width))
@@ -178,15 +195,197 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
             "widths must be < 1024 — use gbdt.resolve_wave_width to encode "
             "the exact tail")
     if width <= 1:
-        raise NotImplementedError(
-            "the strict best-first grower (wave_width == 1: "
-            "grow_policy='leafwise', fewer than 4096 rows or num_leaves < 16) "
-            "and its split-iteration kernel B3 are not ported yet: the next "
-            "ROADMAP item of slice 2")
+        dev = bins.device
+        fmask = feature_mask.to(_F32).reshape(1, -1)
+        P, n_leaves, row_leaf = grow_tree_strict(
+            bins, stats.unsqueeze(1), fmask,
+            SplitContext.per_element([ctx], dev),
+            torch.tensor([float(max_depth)], dtype=_F32, device=dev),
+            num_leaves, num_bins, hist_impl=hist_impl,
+            hist_dtype=hist_dtype, batched=False)
+        return _tree_from_packed(P[0], n_leaves[0]), row_leaf[:, 0]
     return grow_tree_frontier(bins, stats, feature_mask, ctx, num_leaves,
                               num_bins, max_depth, width,
                               hist_impl=hist_impl, hist_dtype=hist_dtype,
                               wave_tail=tail, overgrow_leaves=overgrow)
+
+
+def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
+                     fmask: torch.Tensor, aux: torch.Tensor,
+                     scal: torch.Tensor):
+    """Plain PyTorch version of :func:`split_iter`: one iteration of the
+    reference's strict-grower body (``lightgbm_tpu/models/tree.py``, the
+    XLA loop body) for each of ``E`` elements, plus the next pick.
+
+    ``hist [E, 2, F, B, 3]`` holds the two children's histograms of the
+    leaf ``aux[:, 0]``; ``table [E, cap, 24]`` the packed nodes; ``fmask
+    [E, F]``; ``aux [E, 8]`` = [leaf, feat, thr, active, 0...]; ``scal [E,
+    16]`` = [l1, l2, min_data, min_hess, min_gain, max_delta_step,
+    path_smooth, max_depth, n_nodes, 0...].  Returns ``(table', aux')``:
+    where active, the leaf's row becomes internal and the rows ``n_nodes``
+    and ``n_nodes + 1`` receive the children with their candidate splits;
+    ``aux'`` picks the next leaf (the lowest index among the maximal
+    candidate gains) and stays active while that gain is finite.
+    """
+    K = _PK
+    e, cap, nc = table.shape
+    dev = table.device
+    ar = torch.arange(e, device=dev)
+    leaf = aux[:, 0].to(torch.int64)
+    active = aux[:, 3] > 0
+    row = table[ar, leaf]                                     # [E, NC]
+    ctx = SplitContext(*(scal[:, i] for i in range(7)))
+    md = scal[:, 7]
+    n_nodes = scal[:, 8].to(torch.int64)
+    child_depth = row[:, K.DEPTH] + 1.0
+    depth_ok = (md <= 0) | (child_depth < md)
+
+    def two(a, b=None):
+        return torch.stack([a, a if b is None else b], dim=1)
+
+    bs = find_best_split(hist, ctx, fmask[:, None, :], two(depth_ok),
+                         two(row[:, K.CAND_WL], row[:, K.CAND_WR]),
+                         two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]))
+    # the reference kernel gathers the winner's statistics as a sum over
+    # every cell of where(hit, x, 0.0), which turns -0.0 into +0.0
+    bs = bs._replace(**{f: getattr(bs, f) + 0.0 for f in (
+        "left_g", "left_h", "left_c", "right_g", "right_h", "right_c",
+        "left_out", "right_out")})
+    leaf_row = row.clone()
+    leaf_row[:, K.SPLIT_FEAT] = row[:, K.CAND_FEAT]
+    leaf_row[:, K.SPLIT_BIN] = row[:, K.CAND_BIN]
+    leaf_row[:, K.LEFT] = n_nodes.to(_F32)
+    leaf_row[:, K.RIGHT] = (n_nodes + 1).to(_F32)
+    leaf_row[:, K.IS_LEAF] = 0.0
+    leaf_row[:, K.SPLIT_GAIN] = row[:, K.CAND_GAIN]
+    full = torch.full((e, 2), -1.0, dtype=_F32, device=dev)
+    zero = torch.zeros((e, 2), dtype=_F32, device=dev)
+    child_rows = torch.stack([
+        full, zero, full, full,                               # FEAT BIN L R
+        two(row[:, K.CAND_WL], row[:, K.CAND_WR]),            # LEAF_VALUE
+        torch.ones((e, 2), dtype=_F32, device=dev),           # IS_LEAF
+        two(row[:, K.CAND_LC], row[:, K.CAND_RC]),            # COUNT
+        zero, two(child_depth),                               # GAIN, DEPTH
+        bs.gain, bs.feature.to(_F32), bs.bin.to(_F32),
+        bs.left_g, bs.left_h, bs.left_c,
+        bs.right_g, bs.right_h, bs.right_c,
+        bs.left_out, bs.right_out,                            # CAND_WL, WR
+        two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]),
+        zero,                                                 # CAND_CAT
+        torch.minimum(two(row[:, K.PM]), bs.gain),            # PM
+    ], dim=-1)                                                # [E, 2, NC]
+    new_rows = torch.cat([leaf_row[:, None], child_rows], dim=1)
+    idx = torch.stack([leaf, n_nodes, n_nodes + 1], dim=1).clamp(max=cap - 1)
+    idx3 = idx[..., None].expand(e, 3, nc)
+    rows = torch.where(active[:, None, None], new_rows, table.gather(1, idx3))
+    out = table.clone().scatter_(1, idx3, rows)
+
+    gains = torch.where(out[:, :, K.IS_LEAF] > 0.5, out[:, :, K.CAND_GAIN],
+                        torch.full_like(out[:, :, K.CAND_GAIN],
+                                        float("-inf")))
+    best = gains.max(dim=1).values
+    leaf_n = torch.argmax((gains == best[:, None]).to(torch.uint8), dim=1)
+    sel = out[ar, leaf_n]
+    active_n = (active & torch.isfinite(best)).to(_F32)
+    z = torch.zeros(e, dtype=_F32, device=dev)
+    aux_n = torch.stack([leaf_n.to(_F32), sel[:, K.CAND_FEAT],
+                         sel[:, K.CAND_BIN], active_n, z, z, z, z], dim=1)
+    return out, aux_n
+
+
+def split_iter(hist, table, fmask, aux, scal, impl: str = "auto"):
+    """One strict split iteration (see :func:`split_iter_plain`): kernel B3
+    on CUDA tensors, its plain version on CPU tensors or when ``impl`` is
+    ``"plain"``."""
+    if impl in ("plain", "jnp") or hist.device.type == "cpu":
+        return split_iter_plain(hist, table, fmask, aux, scal)
+    from ..kernels.split_iter import split_iter as launch
+
+    return launch(hist, table, fmask, aux, scal)
+
+
+def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
+                     fmask: torch.Tensor, ctx: SplitContext,
+                     max_depth: torch.Tensor, num_leaves: int, num_bins: int,
+                     hist_impl: str = "auto", hist_dtype: str = "f32",
+                     batched: bool = True):
+    """Strict best-first growth of ``E`` trees at once (the reference's
+    fused-split strict grower, ``vmap``ped over E in fused CV).
+
+    ``bins`` u8 ``[n, F]`` is shared; ``stats_t`` f32 ``[n, E, 3]`` holds
+    each element's (grad, hess, in-bag) rows, already bagging-masked (held-
+    out rows carry zeros but are partitioned all the same); ``fmask`` f32
+    ``[E, F]``; ``ctx`` per-element regularizers ``[E]``; ``max_depth`` f32
+    ``[E]`` (<= 0: unlimited).  Runs ``num_leaves - 1`` iterations with the
+    per-element ``active`` flags on the device: nothing is read back to the
+    host inside a tree.  Histograms of both children come from one pass over
+    the rows: kernel B6 for the batch (``batched``), kernel B1 with two
+    segments for a single tree (``batched=False``, ``E = 1``), as the
+    reference's batched and unbatched calls do.
+
+    Returns ``(table f32 [E, cap, 24], n_leaves i32 [E], row_leaf i32 [n,
+    E])``.
+    """
+    n, e, _ = stats_t.shape
+    dev = bins.device
+    cap = 2 * num_leaves - 1
+    if not batched and e != 1:
+        raise ValueError("the unbatched strict grower grows one tree")
+
+    def hist_fn(seg_t, k):
+        if batched:
+            return histograms_rows(bins, stats_t, seg_t, k, num_bins,
+                                   impl=hist_impl, hist_dtype=hist_dtype)
+        seg = (torch.zeros(n, dtype=torch.int32, device=dev)
+               if seg_t is None else seg_t[:, 0])
+        return compute_histograms(bins, stats_t[:, 0], seg, k, num_bins,
+                                  impl=hist_impl,
+                                  hist_dtype=hist_dtype).unsqueeze(0)
+
+    # ---- root ---------------------------------------------------------
+    root_hist = hist_fn(None, 1)[:, 0]                        # [E, F, B, 3]
+    root_tot = root_hist[:, 0].sum(dim=1)                     # [E, 3]
+    zero_e = torch.zeros(e, dtype=_F32, device=dev)
+    root_out = constrained_leaf_output(
+        root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
+        ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
+        zero_e)
+    root_best = find_best_split(root_hist, ctx, fmask, None, root_out,
+                                arith="scan")
+    P = _packed_root_table(cap, root_out, root_tot, root_best)
+    aux = torch.stack([zero_e, root_best.feature.to(_F32),
+                       root_best.bin.to(_F32),
+                       torch.isfinite(root_best.gain).to(_F32),
+                       zero_e, zero_e, zero_e, zero_e], dim=1)
+    scal = torch.zeros((e, 16), dtype=_F32, device=dev)
+    for i, v in enumerate(ctx):
+        scal[:, i] = v
+    scal[:, 7] = max_depth.to(_F32)
+    scal[:, 8] = 1.0                                          # n_nodes
+    n_leaves = torch.ones(e, dtype=torch.int32, device=dev)
+    row_leaf = torch.zeros((n, e), dtype=torch.int32, device=dev)
+    fmask = fmask.to(_F32).contiguous()
+
+    for _ in range(num_leaves - 1):
+        leaf = aux[:, 0].to(torch.int32)
+        thr = aux[:, 2].to(torch.int32)
+        grew = aux[:, 3] > 0
+        nl = scal[:, 8].to(torch.int32)
+        # partition the split leaf's rows (plain ops, as XLA ops in the
+        # reference): go left iff code <= threshold
+        col = bins.index_select(1, aux[:, 1].to(torch.int64))  # [n, E]
+        go_left = col.to(torch.int32) <= thr
+        moved = torch.where(row_leaf == leaf,
+                            torch.where(go_left, nl, nl + 1), row_leaf)
+        row_leaf = torch.where(grew, moved, row_leaf)
+        seg = torch.where(row_leaf == nl, 0,
+                          torch.where(row_leaf == nl + 1, 1, 2)).to(
+                              torch.int32)
+        hist2 = hist_fn(seg, 2)                              # [E, 2, F, B, 3]
+        P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
+        scal[:, 8] += 2.0 * grew.to(_F32)
+        n_leaves += grew.to(torch.int32)
+    return P, n_leaves, row_leaf
 
 
 def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,

@@ -9,6 +9,11 @@ and of the two histogram kernels the default grower runs.
   of the splitting leaves to their children and histogram the rows that went
   to their split's smaller ("direct") child by wave rank.  The port of kernel
   B2 (``hist_partition_fused_pallas``), as CUDA in ``csrc/hist_partition.cu``.
+* :func:`hist_segstats` — bins u8 ``[n, F]`` x pre-folded statistics f32
+  ``[n, Kc]`` -> f32 ``[F, B, Kc]``, the route of every batched histogram
+  (:func:`compute_histograms_batched`: fused cross-validation over configs x
+  folds).  The port of kernel B6 (``hist_from_segstats_pallas``), as CUDA in
+  ``csrc/hist_segstats.cu``.
 
 Each dispatches on the device of ``bins``: a CPU tensor takes the plain
 PyTorch version beside it (:func:`hist_fused_plain`,
@@ -30,6 +35,8 @@ wherever every partial sum is exact (dyadic statistics).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -135,6 +142,88 @@ def hist_partition_fused(bins, stats, row_leaf, slot_of_node, feat, thr,
 
     return launch(bins, stats, row_leaf, slot_of_node, feat, thr,
                   direct_left, n_nodes, num_bins, mode)
+
+
+def hist_segstats_plain(bins: torch.Tensor, segstats: torch.Tensor,
+                        num_bins: int, mode: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_segstats`: ``index_add_`` per
+    feature into an f64 accumulator, rounded once to f32."""
+    n, f = bins.shape
+    st = _stats_in_mode(segstats.to(_F32), mode).to(torch.float64)
+    acc = torch.zeros((f * num_bins, st.shape[1]), dtype=torch.float64,
+                      device=bins.device)
+    codes = bins.to(torch.int64)
+    for j in range(f):
+        acc.index_add_(0, j * num_bins + codes[:, j], st)
+    return acc.to(_F32).view(f, num_bins, st.shape[1])
+
+
+def hist_segstats(bins: torch.Tensor, segstats: torch.Tensor, num_bins: int,
+                  mode: str = "f32") -> torch.Tensor:
+    """bins u8 ``[n, F]`` x pre-folded statistics f32 ``[n, Kc]`` -> f32
+    ``[F, B, Kc]``: kernel B6 on a CUDA tensor (the port of
+    ``hist_from_segstats_pallas``, as CUDA in ``csrc/hist_segstats.cu``), its
+    plain version on a CPU tensor."""
+    if bins.device.type == "cpu":
+        return hist_segstats_plain(bins, segstats, num_bins, mode)
+    from ..kernels.histogram import hist_segstats as launch
+
+    return launch(bins, segstats, num_bins, mode)
+
+
+def segstats_rows(stats_t: torch.Tensor, seg_t: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """Fold (segment one-hot x statistics) in row-major batch layout:
+    ``stats_t [n, E, S]``, ``seg_t [n, E]`` -> ``[n, E * K * S]`` (channel
+    ``(e * K + k) * S + s``; segments outside ``[0, K)`` fold to zeros).
+    The reference's ``_segstats`` followed by its ``moveaxis``."""
+    n, e, s = stats_t.shape
+    iota = torch.arange(num_segments, dtype=seg_t.dtype, device=seg_t.device)
+    onehot = (seg_t.unsqueeze(-1) == iota).to(stats_t.dtype)   # [n, E, K]
+    return (onehot.unsqueeze(-1) * stats_t.unsqueeze(2)).reshape(
+        n, e * num_segments * s)
+
+
+def histograms_rows(bins: torch.Tensor, stats_t: torch.Tensor,
+                    seg_t: Optional[torch.Tensor], num_segments: int,
+                    num_bins: int, impl: str = "auto",
+                    hist_dtype: str = "f32") -> torch.Tensor:
+    """:func:`compute_histograms_batched` on the row-major layout the fused
+    grower keeps (``stats_t [n, E, S]``, ``seg_t [n, E]``; ``seg_t=None``
+    puts every row in segment 0): f32 ``[E, K, F, B, S]``."""
+    mode = resolve_mode(hist_dtype)
+    n, e, s = stats_t.shape
+    f = bins.shape[1]
+    if seg_t is None and num_segments == 1:
+        segstats = stats_t.reshape(n, e * s)
+    else:
+        segstats = segstats_rows(stats_t, seg_t, num_segments)
+    if impl in ("plain", "jnp"):
+        hists = hist_segstats_plain(bins, segstats, num_bins, mode)
+    elif impl == "auto":
+        hists = hist_segstats(bins, segstats, num_bins, mode)
+    else:
+        raise ValueError(f"unknown hist_impl {impl!r}: expected 'auto' or "
+                         "'plain'")
+    return hists.view(f, num_bins, e, num_segments, s).permute(
+        2, 3, 0, 1, 4).contiguous()
+
+
+def compute_histograms_batched(bins: torch.Tensor, stats: torch.Tensor,
+                               seg_id: torch.Tensor, num_segments: int,
+                               num_bins: int, impl: str = "auto",
+                               hist_dtype: str = "f32") -> torch.Tensor:
+    """Batched histograms over a shared binned matrix (the reference's
+    ``compute_histograms_batched``): bins ``[n, F]``, stats ``[E, n, S]``,
+    seg_id ``[E, n]`` -> f32 ``[E, K, F, B, S]``.
+
+    The batch's statistics fold into one ``[n, E*K*S]`` operand and go
+    through one histogram pass: kernel B6 on a CUDA tensor, for every
+    batched call (the reference's ``k_inner >= 64`` threshold is a TPU
+    lane-width rule), its plain version on a CPU tensor.
+    """
+    return histograms_rows(bins, stats.transpose(0, 1), seg_id.transpose(0, 1),
+                           num_segments, num_bins, impl, hist_dtype)
 
 
 def compute_histograms(bins: torch.Tensor, stats: torch.Tensor,

@@ -12,7 +12,19 @@ constraints and extra-trees are out of this slice.
 
 "Op for op" includes rounding: the reference's XLA program on the CPU fuses
 ``a * b + c`` into one fused multiply-add where LLVM contracts it, so the
-port rounds those sums once too (:func:`fma`).
+port rounds those sums once too (:func:`fma`).  Where it contracts depends
+on the program, so the scan has two roundings (``arith``):
+
+* ``"scan"`` — the reference's XLA split scan (the wave grower, the strict
+  grower's root): path smoothing ``fma(parent, 1 - f, w * f)``, the leaf
+  objective unfused;
+* ``"kernel"`` — the reference's split-iteration kernel as compiled on the
+  CPU (the strict grower's iterations, kernel B3's contract): smoothing
+  ``fma(w, f, parent * (1 - f))``, the objective's ``G*w + Y*w`` as
+  ``fma(Y, w, G*w)`` with ``Y = (H + l2)/2 * w``.
+
+The default is ``"scan"`` for scalar regularizers and ``"kernel"`` for
+per-element ones.
 """
 
 from __future__ import annotations
@@ -28,11 +40,16 @@ NEG_INF = float("-inf")
 
 
 class SplitContext(NamedTuple):
-    """Regularization scalars (Python floats, rounded to f32 on use).
+    """Regularization scalars: Python floats (rounded to f32 on use), or
+    per-element f32 tensors ``[E]`` when a leading axis of ``E`` elements
+    (configs x folds) is scanned at once (:meth:`per_element`).
 
     ``max_delta_step`` (<= 0 means unlimited) caps |leaf output|;
     ``path_smooth`` > 0 shrinks child outputs toward the parent's value by
-    ``n / (n + path_smooth)``.
+    ``n / (n + path_smooth)``.  With per-element tensors both switches are
+    decided per element on the device, as the reference's traced
+    ``jnp.where`` decides them; each element's result equals what its
+    scalar context gives.
     """
 
     lambda_l1: float
@@ -55,6 +72,21 @@ class SplitContext(NamedTuple):
             path_smooth=float(getattr(p, "path_smooth", 0.0)),
         )
 
+    @staticmethod
+    def per_element(ctxs, device) -> "SplitContext":
+        """Stack scalar contexts into one of f32 ``[E]`` tensors."""
+        return SplitContext(*(
+            torch.tensor([float(c[i]) for c in ctxs], dtype=_F32,
+                         device=device)
+            for i in range(len(SplitContext._fields))))
+
+    def broadcast_to(self, ndim: int) -> "SplitContext":
+        """Per-element fields reshaped ``[E, 1, ...]`` to broadcast over
+        arrays of ``ndim`` dims that lead with the element axis."""
+        return SplitContext(*(
+            v.reshape((-1,) + (1,) * (ndim - 1))
+            if isinstance(v, torch.Tensor) else v for v in self))
+
 
 @functools.lru_cache(maxsize=256)
 def _scalar(value: float, device: torch.device) -> torch.Tensor:
@@ -64,7 +96,10 @@ def _scalar(value: float, device: torch.device) -> torch.Tensor:
 def _c(value, like: torch.Tensor) -> torch.Tensor:
     """A scalar as an f32 tensor on ``like``'s device (the reference's
     ``jnp.float32`` scalars).  Cached per value and device, so the scan
-    copies no scalar to the card per call; callers never write to it."""
+    copies no scalar to the card per call; callers never write to it.  A
+    per-element tensor passes through as it is."""
+    if isinstance(value, torch.Tensor):
+        return value
     return _scalar(float(value), like.device)
 
 
@@ -93,39 +128,68 @@ def leaf_output(sum_g, sum_h, ctx: SplitContext):
         sum_h + _c(ctx.lambda_l2, sum_h) + _c(1e-15, sum_h))
 
 
-def leaf_objective_at(w, sum_g, sum_h, ctx: SplitContext):
+def _arith(ctx: SplitContext, arith: Optional[str]) -> str:
+    if arith is not None:
+        return arith
+    return "kernel" if isinstance(ctx.path_smooth, torch.Tensor) else "scan"
+
+
+def leaf_objective_at(w, sum_g, sum_h, ctx: SplitContext,
+                      arith: Optional[str] = None):
     """Objective contribution of a leaf forced to output ``w``:
     -2 * (G*w + (H + l2)/2 * w^2 + l1*|w|)."""
     l2 = _c(ctx.lambda_l2, sum_h)
     l1 = _c(ctx.lambda_l1, sum_h)
+    if _arith(ctx, arith) == "kernel":
+        y = 0.5 * (sum_h + l2) * w
+        return -2.0 * (fma(y, w, sum_g * w) + l1 * torch.abs(w))
     return -2.0 * (sum_g * w + 0.5 * (sum_h + l2) * w * w
                    + l1 * torch.abs(w))
 
 
+def _smooth(w, count, parent_out, ps, like, arith: str):
+    """``w * factor + parent_out * (1 - factor)`` in the rounding of
+    ``arith`` (see the module docstring)."""
+    factor = count / (count + torch.maximum(ps, _c(1e-30, like)))
+    if arith == "kernel":
+        return fma(w, factor, parent_out * (1.0 - factor))
+    return fma(parent_out, 1.0 - factor, w * factor)
+
+
 def constrained_leaf_output(sum_g, sum_h, count, ctx: SplitContext,
-                            lo, hi, parent_out):
+                            lo, hi, parent_out, arith: Optional[str] = None):
     """Leaf output under path smoothing and max_delta_step: smooth toward the
-    parent first, then clip to ``[lo, hi]`` (Python floats: the monotone
-    bounds, +-inf on this slice's path) within +-max_delta_step."""
+    parent first, then clip to ``[lo, hi]`` (the monotone bounds, +-inf on
+    this slice's path: Python floats, or tensors read from a node table)
+    within +-max_delta_step."""
+    arith = _arith(ctx, arith)
     w = leaf_output(sum_g, sum_h, ctx)
-    if _on(ctx.path_smooth):
-        ps = _c(ctx.path_smooth, sum_g)
-        factor = count / (count + torch.maximum(ps, _c(1e-30, sum_g)))
-        w = fma(parent_out, 1.0 - factor, w * factor)
-    cap = (float(np.float32(ctx.max_delta_step)) if _on(ctx.max_delta_step)
-           else float("inf"))
+    ps, mds = ctx.path_smooth, ctx.max_delta_step
+    if isinstance(ps, torch.Tensor) or isinstance(mds, torch.Tensor) \
+            or isinstance(lo, torch.Tensor):
+        ps, mds = _c(ps, sum_g), _c(mds, sum_g)
+        w = torch.where(ps > 0, _smooth(w, count, parent_out, ps, sum_g,
+                                        arith), w)
+        cap = torch.where(mds > 0, mds, _c(float("inf"), mds))
+        lo_t = torch.maximum(_c(lo, w), -cap)
+        hi_t = torch.minimum(_c(hi, w), cap)
+        return torch.minimum(torch.maximum(w, lo_t), hi_t)
+    if _on(ps):
+        w = _smooth(w, count, parent_out, _c(ps, sum_g), sum_g, arith)
+    cap = float(np.float32(mds)) if _on(mds) else float("inf")
     return torch.minimum(torch.maximum(w, _c(max(lo, -cap), w)),
                          _c(min(hi, cap), w))
 
 
 def split_gain_scan(lg, lh, lc, rg, rh, rc, tg, th, ctx: SplitContext,
-                    lo, hi, p_out):
+                    lo, hi, p_out, arith: Optional[str] = None):
     """Regularized gain over the cumsum arrays; returns (gain, wl, wr)."""
-    wl = constrained_leaf_output(lg, lh, lc, ctx, lo, hi, p_out)
-    wr = constrained_leaf_output(rg, rh, rc, ctx, lo, hi, p_out)
-    parent_obj = leaf_objective_at(p_out, tg, th, ctx)
-    gain = (leaf_objective_at(wl, lg, lh, ctx)
-            + leaf_objective_at(wr, rg, rh, ctx) - parent_obj)
+    arith = _arith(ctx, arith)
+    wl = constrained_leaf_output(lg, lh, lc, ctx, lo, hi, p_out, arith)
+    wr = constrained_leaf_output(rg, rh, rc, ctx, lo, hi, p_out, arith)
+    parent_obj = leaf_objective_at(p_out, tg, th, ctx, arith)
+    gain = (leaf_objective_at(wl, lg, lh, ctx, arith)
+            + leaf_objective_at(wr, rg, rh, ctx, arith) - parent_obj)
     return gain, wl, wr
 
 
@@ -183,9 +247,10 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scan(hist: torch.Tensor, ctx: SplitContext, feature_mask, depth_ok,
-          parent_out):
+          parent_out, lo=None, hi=None, arith=None):
     """Shared cumsum scan over ``hist [..., F, B, 3]``: masked gain
     ``[..., F, B]`` plus the operands the winner gathers need."""
+    ctx = ctx.broadcast_to(hist.dim() - 1)
     cum = prefix_sum(hist.transpose(-1, -2)).transpose(-1, -2)
     total = cum[..., -1:, :]                            # [..., F, 1, 3]
     lg, lh, lc = cum[..., 0], cum[..., 1], cum[..., 2]
@@ -195,9 +260,10 @@ def _scan(hist: torch.Tensor, ctx: SplitContext, feature_mask, depth_ok,
         p_out = leaf_output(tg, th, ctx)                # [..., F, 1]
     else:
         p_out = parent_out.reshape(parent_out.shape + (1, 1))
-    lo, hi = float("-inf"), float("inf")
+    lo = float("-inf") if lo is None else lo.reshape(lo.shape + (1, 1))
+    hi = float("inf") if hi is None else hi.reshape(hi.shape + (1, 1))
     gain, wl, wr = split_gain_scan(lg, lh, lc, rg, rh, rc, tg, th, ctx,
-                                   lo, hi, p_out)
+                                   lo, hi, p_out, arith)
     valid = (split_stats_valid(lc, rc, lh, rh, gain, ctx)
              & (feature_mask[..., :, None] > 0))
     if depth_ok is not None:
@@ -217,18 +283,24 @@ def feature_best_gains(hist, ctx: SplitContext, feature_mask, depth_ok=None,
 def find_best_split(hist: torch.Tensor, ctx: SplitContext,
                     feature_mask: torch.Tensor,
                     depth_ok: Optional[torch.Tensor] = None,
-                    parent_out: Optional[torch.Tensor] = None) -> BestSplit:
+                    parent_out: Optional[torch.Tensor] = None,
+                    lo: Optional[torch.Tensor] = None,
+                    hi: Optional[torch.Tensor] = None,
+                    arith: Optional[str] = None) -> BestSplit:
     """Scan histograms ``[..., F, B, 3]`` of (grad, hess, count) for each
     leaf's best (feature, bin) split.
 
     ``feature_mask`` is f32 ``[..., F]`` (1 = usable), ``depth_ok`` bool
     ``[...]`` (False disqualifies every split) and ``parent_out`` f32
     ``[...]`` the node's actual output (the gain baseline and the smoothing
-    anchor; defaults to the unconstrained optimum).  Every field of the
-    result has the leading shape ``[...]``.
+    anchor; defaults to the unconstrained optimum); ``lo``/``hi`` f32
+    ``[...]`` bound the child outputs (unbounded when None); ``arith``
+    picks the rounding (module docstring).  A context of
+    per-element tensors ``[E]`` applies element ``e``'s regularizers to
+    ``hist[e]``.  Every field of the result has the leading shape ``[...]``.
     """
     gain, cum, total, wl, wr = _scan(hist, ctx, feature_mask, depth_ok,
-                                     parent_out)
+                                     parent_out, lo, hi, arith)
     lead = gain.shape[:-2]
     num_features, num_bins = gain.shape[-2:]
     flat = gain.reshape(lead + (num_features * num_bins,))

@@ -1,0 +1,23 @@
+"""Grid search as a resumable service — the port of ``lightgbm_tpu/sweep``.
+
+* :class:`~.scheduler.SweepScheduler` packs a config grid into fused-CV
+  hyper-batches, bucketed by what shapes the fused program;
+* :class:`~.service.SweepService` runs the plan on one device, hyper-batch by
+  hyper-batch, with fault-injection hooks and a SIGTERM latch between
+  segments;
+* :class:`~.ledger.SweepLedger` is the crash-safe resumable result ledger.
+
+``lightgbm_tpu_torch.utils.sweep`` re-exports ``expand_grid`` /
+``SweepLedger`` / ``run_grid_search``.
+"""
+
+from .ledger import RESULT_COLUMNS, SENTINEL, SweepLedger, expand_grid
+from .scheduler import SweepPlan, SweepScheduler, SweepUnit, fused_bucket_key
+from .service import (PreemptionGuard, SweepResult, SweepService,
+                      run_grid_search)
+
+__all__ = [
+    "RESULT_COLUMNS", "SENTINEL", "SweepLedger", "expand_grid",
+    "SweepPlan", "SweepScheduler", "SweepUnit", "fused_bucket_key",
+    "PreemptionGuard", "SweepResult", "SweepService", "run_grid_search",
+]

@@ -1,8 +1,13 @@
-"""Deterministic synthetic data — the port's copy of ``make_higgs_like``
-from ``lightgbm_tpu/utils/datasets.py``.
+"""Deterministic synthetic data — the port's copy of
+``lightgbm_tpu/utils/datasets.py`` (what the port's entry points use).
 
-Binary classification with the Higgs shape (N rows x 28 continuous
-features), the repo's north-star configuration (``bench.py`` ``bench_higgs``).
+* ``make_higgs_like`` — binary classification with the Higgs shape (N rows x
+  28 continuous features), the repo's north-star configuration
+  (``bench.py`` ``bench_higgs``);
+* ``make_synthetic_diamonds`` — the diamonds log-price regression of the
+  grid-search workflow (r/gridsearchCV.R:5-23): 53,940 rows, six features;
+* ``train_test_split_bernoulli`` — that workflow's 85/15 Bernoulli split.
+
 Same seeds, same numpy streams, so both packages see identical rows.
 """
 
@@ -26,3 +31,43 @@ def make_higgs_like(n: int = 1_000_000, num_features: int = 28,
     p = 1 / (1 + np.exp(-logits))
     y = (rng.random(n) < p).astype(np.float32)
     return X, y
+
+
+def make_synthetic_diamonds(n: int = 53940, seed: int = 3928272):
+    """``(X, log_price, feature_names)`` mirroring diamonds log-price:
+    log_carat (continuous), cut/color/clarity (ordinal codes), depth, table
+    (continuous); the target is a smooth nonlinear function of them plus
+    Gaussian noise, with interactions a linear model cannot catch."""
+    rng = np.random.default_rng(seed)
+    carat = np.exp(rng.normal(-0.4, 0.6, n)).clip(0.2, 5.1)
+    log_carat = np.log(carat)
+    cut = rng.integers(1, 6, n).astype(np.float64)       # 1..5 ordered
+    color = rng.integers(1, 8, n).astype(np.float64)     # 1..7
+    clarity = rng.integers(1, 9, n).astype(np.float64)   # 1..8
+    depth = rng.normal(61.75, 1.4, n).clip(43, 79)
+    table = rng.normal(57.5, 2.2, n).clip(43, 95)
+    log_price = (
+        6.8
+        + 1.7 * log_carat
+        + 0.06 * cut
+        + 0.08 * color
+        + 0.10 * clarity
+        + 0.07 * clarity * log_carat                        # interaction
+        + 0.18 * np.sin(2.6 * log_carat)                    # curvature
+        + 0.12 * np.cos(1.9 * log_carat + 0.6 * clarity)    # mixed wiggle
+        - 0.05 * np.abs(depth - 61.75) * (log_carat > 0)
+        - 0.01 * np.abs(table - 57.0)
+        + rng.normal(0.0, 0.085, n)
+    )
+    X = np.column_stack([log_carat, cut, color, clarity, depth, table])
+    names = ["log_carat", "cut", "color", "clarity", "depth", "table"]
+    return X, log_price, names
+
+
+def train_test_split_bernoulli(n: int, p_train: float = 0.85,
+                               seed: int = 3928272):
+    """The workflow's split: Bernoulli membership, not exact counts
+    (r/gridsearchCV.R:21); ``(train_idx, test_idx)``."""
+    rng = np.random.default_rng(seed)
+    is_train = rng.random(n) < p_train
+    return np.where(is_train)[0], np.where(~is_train)[0]

@@ -13,7 +13,14 @@ re-implements the three calls the training path makes:
 * :func:`uniform` — ``uniform(key, shape)`` in f32: the row-major flat index
   of each element split into a (hi, lo) 32-bit counter pair, hashed, the two
   output words XORed, the top 23 bits placed in the mantissa of a float in
-  ``[1, 2)`` and 1 subtracted.
+  ``[1, 2)`` and 1 subtracted;
+* :func:`split` — ``split(key, num)``: key ``i`` is the key hashed with the
+  counter pair ``(0, i)`` (the partitionable scheme's ``iota_2x32_shape``
+  counters), which is also what ``fold_in(key, i)`` hashes.
+
+:func:`split_keys` and :func:`uniform_rows` are the batched forms the fused
+cross-validation program uses: one key per batch element as an int64
+``[E, 2]`` tensor, hashed in one pass on the caller's device.
 
 The hash is Threefry-2x32 with 20 rounds (Salmon et al., "Parallel random
 numbers: as easy as 1, 2, 3", SC'11).  Words are uint32 values held in int64
@@ -23,7 +30,7 @@ a few dozen elementwise operations per call, on the caller's device.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -38,11 +45,17 @@ def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
     return ((x << d) | (x >> (32 - d))) & _MASK
 
 
-def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)`` under
-    ``key``; the counters are int64 tensors holding uint32 values."""
-    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+    ``key``; the counters are int64 tensors holding uint32 values.  The key
+    is a pair of ints, or a pair of int64 tensors that broadcast against the
+    counters (one key per batch element)."""
+    k0, k1 = key
+    if isinstance(k0, torch.Tensor):
+        k0, k1 = k0 & _MASK, k1 & _MASK
+    else:
+        k0, k1 = int(k0) & _MASK, int(k1) & _MASK
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -85,10 +98,42 @@ def random_bits(key: Key, shape: Union[int, Sequence[int]],
     return (y0 ^ y1).reshape(shape)
 
 
-def uniform(key: Key, shape: Union[int, Sequence[int]],
-            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: f32 in ``[0, 1)``."""
-    bits = random_bits(key, shape, device)
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     one = 0x3F800000
     f = ((bits >> 9) | one).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def uniform(key: Key, shape: Union[int, Sequence[int]],
+            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: f32 in ``[0, 1)``."""
+    return _bits_to_unit(random_bits(key, shape, device))
+
+
+def split_keys(key: Key, num: int) -> torch.Tensor:
+    """``jax.random.split(key, num)`` as an int64 ``[num, 2]`` CPU tensor."""
+    idx = torch.arange(int(num), dtype=torch.int64)
+    y0, y1 = threefry2x32(key, torch.zeros_like(idx), idx)
+    return torch.stack([y0, y1], dim=1)
+
+
+def split(key: Key, num: int) -> List[Key]:
+    """``jax.random.split(key, num)``: ``num`` keys."""
+    return [(int(a), int(b)) for a, b in split_keys(key, num).tolist()]
+
+
+def fold_in_keys(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``vmap(fold_in)(keys, data)`` over an int64 ``[E, 2]`` key tensor."""
+    x1 = torch.full((keys.shape[0],), int(data) & _MASK, dtype=torch.int64,
+                    device=keys.device)
+    y0, y1 = threefry2x32((keys[:, 0], keys[:, 1]), torch.zeros_like(x1), x1)
+    return torch.stack([y0, y1], dim=1)
+
+
+def uniform_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``vmap(lambda k: uniform(k, (n,)))(keys)``: f32 ``[E, n]`` on the
+    keys' device, one hash per element."""
+    idx = torch.arange(int(n), dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32((keys[:, :1], keys[:, 1:]), (idx >> 32)[None, :],
+                          (idx & _MASK)[None, :])
+    return _bits_to_unit(y0 ^ y1)

@@ -49,7 +49,11 @@ def test_import_leaves_jax_and_reference_out():
             "lightgbm_tpu_torch.ops.histogram, lightgbm_tpu_torch.ops.split, "
             "lightgbm_tpu_torch.ops.sampling, lightgbm_tpu_torch.engine, "
             "lightgbm_tpu_torch.models.gbdt, lightgbm_tpu_torch.metrics, "
-            "lightgbm_tpu_torch.utils.random, lightgbm_tpu_torch.callback;"
+            "lightgbm_tpu_torch.utils.random, lightgbm_tpu_torch.callback, "
+            "lightgbm_tpu_torch.models.fused, lightgbm_tpu_torch.sweep, "
+            "lightgbm_tpu_torch.sweep.service, lightgbm_tpu_torch.utils.sweep, "
+            "lightgbm_tpu_torch.kernels.split_iter, "
+            "lightgbm_tpu_torch.utils.datasets;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -132,3 +136,24 @@ def test_histogram_wrappers_refuse_cpu_tensors_and_build_lazily():
         rows, chunks, group = kh.plan(1_000_000, 28, 3, k, 256, 132)
         assert kh.smem_bytes(3, 256, group) <= kh.SMEM_LIMIT
         assert rows % kh.TILE_ROWS == 0 and rows * chunks >= 1_000_000
+
+
+def test_b3_b6_wrappers_refuse_cpu_tensors_and_build_lazily():
+    import lightgbm_tpu_torch.kernels.build as build
+    from lightgbm_tpu_torch.kernels import histogram as kh
+    from lightgbm_tpu_torch.kernels import split_iter as ks
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ks.split_iter(torch.zeros((1, 2, 3, 4, 3)), None, None, None, None)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kh.hist_segstats(torch.zeros((4, 2), dtype=torch.uint8),
+                         torch.zeros((4, 6)), 4, "f32")
+    assert not build._loaded
+    assert build.library_path("split_iter").name.startswith("libsplit_iter-")
+    assert "-fmad=false" in build.SOURCE_FLAGS["split_iter"]
+    # B6's channel groups keep every block inside the opt-in shared memory
+    for kc in (15, 240, 1080):
+        rows, chunks, group = kh.plan_segstats(45_957, 6, kc, 256, 132)
+        assert kh.smem_bytes(group, 256, 1) <= kh.SMEM_LIMIT
+        assert 1 <= group <= kc and rows * chunks >= 45_957
+    assert ks.smem_bytes(28, 256) <= ks.SMEM_LIMIT

@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain PyTorch versions on the card:
-the forest-predict kernel (B4) and the histogram kernels (B1 ``hist_fused``,
-B2 ``hist_partition``).
+the forest-predict kernel (B4), the histogram kernels (B1 ``hist_fused``,
+B2 ``hist_partition``, B6 ``hist_segstats``) and the split iteration (B3
+``split_iter``, bit for bit).
 
 The tests need a CUDA card and nvcc and skip without them.  This file
 imports no JAX, so it runs on the machine with the card (whose Python has
@@ -165,3 +166,78 @@ def test_kernel_matches_plain_version_on_card(precision):
                                        start_iteration=s)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     assert PREDICT_FOREST_LAUNCHES.count == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_b6_kernel_matches_plain_on_card(mode):
+    dev = _card()
+    rng = np.random.default_rng(21)
+    n, f, kc, nb = 20_011, 6, 240, 256
+    bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    st = rng.normal(size=(n, kc)).astype(np.float32)
+    tb, ts = torch.from_numpy(bins).to(dev), torch.from_numpy(st).to(dev)
+    got = th.hist_segstats(tb, ts, nb, mode)
+    again = th.hist_segstats(tb, ts, nb, mode)
+    want = th.hist_segstats_plain(tb, ts, nb, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    mag = np.zeros((f, nb, kc))
+    a = np.abs(torch.from_numpy(st).to(torch.bfloat16).float().numpy()
+               if mode == "bf16" else st).astype(np.float64)
+    for j in range(f):
+        np.add.at(mag[j], bins[:, j].astype(np.int64), a)
+    err = np.abs(got.cpu().numpy().astype(np.float64)
+                 - want.cpu().numpy().astype(np.float64))
+    assert (err <= 1e-6 * mag).all()
+
+
+@pytest.mark.gpu
+def test_b3_kernel_matches_plain_bit_for_bit_on_card():
+    from lightgbm_tpu_torch.kernels.split_iter import split_iter
+    from lightgbm_tpu_torch.models.tree import (_packed_root_table,
+                                                split_iter_plain)
+    from lightgbm_tpu_torch.ops.split import (SplitContext,
+                                              constrained_leaf_output,
+                                              find_best_split)
+
+    dev = _card()
+    rng = np.random.default_rng(22)
+    e, f, nb, cap = 40, 6, 63, 63
+
+    def hists(lead):
+        shape = tuple(lead) + (f, nb)
+        c = rng.integers(0, 6, shape).astype(np.float64)
+        h = np.stack([rng.normal(size=shape), rng.uniform(0, 0.25, shape) *
+                      (c > 0), c], axis=-1).astype(np.float32)
+        return torch.from_numpy(h).to(dev)
+
+    ctx = SplitContext(*(torch.from_numpy(rng.choice(v, e).astype(
+        np.float32)).to(dev) for v in ([0.0, 0.5], [0.0, 1.0], [1.0, 20.0],
+                                       [1e-3], [0.0, 0.1], [0.0, 0.3],
+                                       [0.0, 2.0])))
+    fmask = torch.ones((e, f), device=dev)
+    root = hists((e,)) * 4
+    tot = root[:, 0].sum(dim=1)
+    zero = torch.zeros(e, device=dev)
+    out = constrained_leaf_output(tot[:, 0], tot[:, 1], tot[:, 2],
+                                  ctx._replace(path_smooth=zero),
+                                  float("-inf"), float("inf"), zero)
+    best = find_best_split(root, ctx, fmask, None, out, arith="scan")
+    table = _packed_root_table(cap, out, tot, best)
+    aux = torch.stack([zero, best.feature.float(), best.bin.float(),
+                       torch.isfinite(best.gain).float(), zero, zero, zero,
+                       zero], dim=1)
+    scal = torch.zeros((e, 16), device=dev)
+    for i, v in enumerate(ctx):
+        scal[:, i] = v
+    scal[:, 7], scal[:, 8] = -1.0, 1.0
+    for _ in range(10):
+        hist = hists((e, 2))
+        tk, ak = split_iter(hist, table, fmask, aux, scal)
+        tp, ap = split_iter_plain(hist, table, fmask, aux, scal)
+        torch.cuda.synchronize()
+        assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+        assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
+        scal[:, 8] += 2.0 * (aux[:, 3] > 0).float()
+        table, aux = tp, ap

@@ -1,10 +1,11 @@
 """Port parity: the counter-based RNG and the samplers that use it.
 
 ``lightgbm_tpu_torch.utils.random`` re-implements ``jax.random``'s
-``PRNGKey``, ``fold_in`` and f32 ``uniform`` under threefry2x32 with
-``jax_threefry_partitionable=True``; the bagging and feature-fraction masks
-drawn from them must be bit-identical to the reference's, so every check
-here is exact equality.
+``PRNGKey``, ``fold_in``, ``split`` and f32 ``uniform`` under threefry2x32
+with ``jax_threefry_partitionable=True``; the bagging and feature-fraction
+masks drawn from them must be bit-identical to the reference's, so every
+check here is exact equality.  The batched forms (one key per fused-CV
+element) are held against ``jax.vmap`` of the reference.
 """
 
 import jax
@@ -97,3 +98,59 @@ def test_sample_feature_mask_equal(seed, num_features, fraction):
             trand.fold_in(trand.prng_key(seed + 2), i), fraction,
             num_features)
         assert np.array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_keys(seed):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    tkey = trand.fold_in(trand.prng_key(seed), 3)
+    for num in (1, 5, 40):
+        want = np.asarray(jax.random.split(key, num)).tolist()
+        assert [list(k) for k in trand.split(tkey, num)] == want
+        assert trand.split_keys(tkey, num).tolist() == want
+    keys = jax.random.split(key, 6)
+    want = np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 1))(keys))
+    got = trand.fold_in_keys(trand.split_keys(tkey, 6), 1)
+    assert got.tolist() == want.tolist()
+
+
+def test_uniform_rows_equal_vmapped_uniform():
+    keys = jax.random.split(jax.random.PRNGKey(11), 7)
+    want = jax.vmap(lambda k: jax.random.uniform(k, (4352,)))(keys)
+    got = trand.uniform_rows(torch.from_numpy(
+        np.asarray(keys).astype(np.int64)), 4352)
+    assert np.array_equal(_bits(want), _bits(got.numpy()))
+
+
+def test_sample_bag_rows_equal_vmapped_sample_bag():
+    """Per-element keys, fold masks, fractions and in-fold counts, as the
+    fused program draws them; k is taken in f32."""
+    rng = np.random.default_rng(4)
+    e, n, n_pad = 6, 4100, 4352
+    masks = np.zeros((e, n_pad), np.float32)
+    masks[:, :n] = rng.random((e, n)) < 0.8
+    frac = np.array([0.6, 0.8, 1.0, 0.3333, 0.6, 0.8], np.float32)
+    n_in = masks.sum(axis=1).astype(np.float32)
+    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(9), 0), e)
+    want = jax.vmap(jsamp.sample_bag)(keys, jnp.asarray(masks),
+                                      jnp.asarray(frac), jnp.asarray(n_in))
+    got = tsamp.sample_bag_rows(
+        torch.from_numpy(np.asarray(keys).astype(np.int64)),
+        torch.from_numpy(masks), torch.from_numpy(frac),
+        torch.from_numpy(n_in))
+    assert np.array_equal(np.asarray(want), got.numpy())
+    counts = got.sum(dim=1).numpy()
+    k = np.floor(frac * n_in).astype(np.int64)
+    assert np.array_equal(counts[frac < 1], k[frac < 1])
+
+
+@pytest.mark.parametrize("num_features", [1, 6, 28])
+def test_sample_feature_mask_rows_equal_vmapped(num_features):
+    keys = jax.random.split(jax.random.PRNGKey(5), 5)
+    frac = np.array([0.8, 1.0, 0.5, 0.05, 0.8], np.float32)
+    want = jax.vmap(lambda k, f: jsamp.sample_feature_mask(
+        k, f, num_features))(keys, jnp.asarray(frac))
+    got = tsamp.sample_feature_mask_rows(
+        torch.from_numpy(np.asarray(keys).astype(np.int64)),
+        torch.from_numpy(frac), num_features)
+    assert np.array_equal(np.asarray(want), got.numpy())

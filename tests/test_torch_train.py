@@ -226,7 +226,7 @@ OUT_OF_SLICE = {
     "data_parallel": {"tree_learner": "data"},
     "feature_parallel": {"tree_learner": "feature"},
     "int8": {"hist_dtype": "int8"},
-    "strict_grower": {"grow_policy": "leafwise"},
+    "quantile": {"objective": "quantile"},
 }
 
 
