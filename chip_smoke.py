@@ -53,8 +53,10 @@ Phases:
    ``ModelBank.deploy`` -> a 1,000,000-row ``PredictorRuntime.predict``
    within 1e-5 of ``Booster.predict``; a ``torch.profiler`` breakdown of
    three rounds (device time by kernel family, the device's busy share, host
-   syncs); then each histogram kernel's time, its plain version's, its bound
-   and (B1) one ``index_add_`` call's;
+   syncs); section 2's limit on the medians of three kernel/plain pairs of
+   10-round runs in turns (the kernel path no slower); then each histogram
+   kernel's time, its plain version's, its bound and (B1) one
+   ``index_add_`` call's;
 7. the split-iteration kernel (B3, ``split_iter``) against its plain version
    bit for bit (table and pick) at E in {1, 5, 40} elements, F in {6, 28},
    B in {16, 63, 256}, capacity 253, on random, dyadic and tied histograms
@@ -75,7 +77,29 @@ Phases:
    ``run_grid_search`` over the 36 learning_rate=0.1 rows of the 108-config
    grid (six buckets), with per-bucket seconds and rounds, configs per hour
    and the top 3; a profiled fused round at num_leaves 127, E = 40; B3's and
-   B6's times, plain times, bounds and (B6) one ``index_add_`` call's.
+   B6's times, plain times, bounds and (B6) one ``index_add_`` call's;
+9. the batched fused histogram (B5, ``hist_fused_batched``) at f32 and bf16
+   against float64 (``1e-6 * sum|x|`` per cell) and its plain version: a
+   north-star wave (1,000,000 x 28, E = 5, K = 42), a Covertype-shaped wave
+   (581,012 x 54, E = 7, K = 42), K = 22 (the route's edge), out-of-range
+   segment ids on ragged rows; exact on dyadic statistics; two launches
+   bit-equal;
+10. ``cv()`` at the north star in the wave regime (``make_higgs_like(
+   1,000,000)``, binary, 127 leaves, bf16, exact tail, 5 folds, early
+   stopping 5; 20 rounds, cut from the reference bench's 100 so that both
+   runs fit) through the kernels and the plain versions: B5 launched, no
+   plain-version call on the kernel path, ``best_iter`` equal, per-round
+   fold-mean ``binary_logloss`` within 1e-4; on dyadic labels the five
+   folds' round-1 predictions (every row) the same bits; seconds per round,
+   a profiled round's device breakdown, and B5's time, plain time, bound and
+   one ``index_add_`` call's at the round's widest wave;
+11. multiclass at Covertype's shape (581,012 x 54 seed-made rows, 7 classes,
+   127 leaves, 10 rounds: the class batch of the wave grower, B6 roots and
+   B5 waves) through the kernels and the plain versions: held-out
+   ``multi_logloss`` within 1e-4; on a dyadic tier (8 classes at a zero
+   init score) the round-1 trees equal at bf16 and f32; the model saved as
+   text and as ``.npz``, reloaded, and served through ``ModelBank`` (B4,
+   ``[n, 7]``) within 1e-5 of ``Booster.predict``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -113,7 +137,7 @@ SPIN_CYCLES = 20_000_000
 KERNEL_SOURCE = "lightgbm_tpu_torch/csrc/predict_forest.cu"
 REPLACES = "lightgbm_tpu/ops/predict.py:257"
 KERNELS = ("predict_forest", "hist_fused", "hist_partition", "split_iter",
-           "hist_segstats")
+           "hist_segstats", "hist_fused_batched")
 HIST_SOURCES = {
     "hist_fused": ("lightgbm_tpu_torch/csrc/hist_fused.cu",
                    "lightgbm_tpu/ops/histogram_pallas.py:304"),
@@ -124,6 +148,8 @@ SPLIT_ITER_SOURCE = ("lightgbm_tpu_torch/csrc/split_iter.cu",
                      "lightgbm_tpu/ops/histogram_pallas.py:605")
 SEGSTATS_SOURCE = ("lightgbm_tpu_torch/csrc/hist_segstats.cu",
                    "lightgbm_tpu/ops/histogram_pallas.py:76")
+BATCHED_SOURCE = ("lightgbm_tpu_torch/csrc/hist_fused_batched.cu",
+                  "lightgbm_tpu/ops/histogram_pallas.py:955")
 # the grid-search workflow (examples/gridsearch_cv.py, r/gridsearchCV.R)
 SWEEP_SEED = 3928272
 CV_PARAMS = {"learning_rate": 0.1, "objective": "regression"}
@@ -136,6 +162,19 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": NUM_LEAVES,
                 "learning_rate": LEARNING_RATE, "min_data_in_leaf": 20,
                 "max_bin": MAX_BIN, "verbosity": -1}
 TRAIN_ROUNDS, VALID_ROWS, AUC_TOL = 10, 200_000, 1e-4
+# phase 6's limit: medians of this many kernel/plain run pairs, in turns
+TIMING_PAIRS = 3
+# phase 10: cv() at the north star in the wave regime (rounds cut from the
+# reference bench's 100 so that the kernel and plain runs both fit)
+NS_CV_ROUNDS, NS_CV_FOLDS, NS_CV_ES, NS_CV_TOL = 20, 5, 5, 1e-4
+# phase 11: multiclass at the shape of UCI Covertype (581,012 x 54, 7
+# classes: 10 quantitative columns, 4 wilderness and 40 soil indicators)
+COV_ROWS, COV_NUMERIC, COV_WILD, COV_SOIL, COV_CLASSES = (581_012, 10, 4,
+                                                          40, 7)
+COV_VALID_ROWS, COV_ROUNDS, COV_TOL = 100_000, 10, 1e-4
+COV_PARAMS = {"objective": "multiclass", "num_class": COV_CLASSES,
+              "num_leaves": NUM_LEAVES, "learning_rate": LEARNING_RATE,
+              "min_data_in_leaf": 20, "max_bin": MAX_BIN, "verbosity": -1}
 
 
 def fail(msg: str) -> None:
@@ -931,6 +970,21 @@ def phase_train(dev, X, y, workdir):
     check(sum(v for k, v in plain["counts"].items()
               if k.startswith("hist_")) == 0,
           "hist_impl='plain' launched a histogram kernel")
+    # section 2's limit (the kernel path no slower than the plain path) on
+    # medians of kernel and plain runs in turns (K P, P K, K P)
+    timed = {"bf16": [], "plain": []}
+    for i in range(TIMING_PAIRS):
+        pair = (("bf16", {}), ("plain", {"hist_impl": "plain"}))
+        for tag, extra in (pair if i % 2 == 0 else pair[::-1]):
+            secs = train_run(lgb, ds, dict(TRAIN_PARAMS, **extra),
+                             TRAIN_ROUNDS)[1]
+            timed[tag].append(secs / TRAIN_ROUNDS)
+    median_s = {k: float(np.median(v)) for k, v in timed.items()}
+    log(f"phase 6 timing: s/round in turns {json.dumps(timed)}, medians "
+        f"{json.dumps(median_s)}")
+    check(median_s["bf16"] <= median_s["plain"],
+          f"the kernel path's median {median_s['bf16']:.4f} s/round is "
+          f"slower than the plain path's {median_s['plain']:.4f}")
     d_auc = abs(runs["bf16"]["auc"] - plain["auc"])
     check(d_auc <= AUC_TOL, f"AUC kernel {runs['bf16']['auc']} vs plain "
           f"{plain['auc']}: {d_auc:.2e} > {AUC_TOL}")
@@ -978,6 +1032,8 @@ def phase_train(dev, X, y, workdir):
         "rows": len(X), "features": NUM_FEATURES, "rounds": TRAIN_ROUNDS,
         "params": TRAIN_PARAMS, "binning_s": t_bin,
         "s_per_round": {k: r["s"] / TRAIN_ROUNDS for k, r in runs.items()},
+        "s_per_round_runs_in_turns": timed,
+        "s_per_round_median": median_s,
         "rows_rounds_per_s": {k: len(X) * TRAIN_ROUNDS / r["s"]
                               for k, r in runs.items()},
         "waves_per_tree": {m: runs[m]["counts"][f"hist_partition_{m}"]
@@ -1288,10 +1344,12 @@ def phase_b3_b6(dev, higgs_bins):
 # phase 8: the strict grower, cv() and the sweep at full width
 # ---------------------------------------------------------------------------
 def b3_b6_counters():
-    from lightgbm_tpu_torch.kernels.histogram import HIST_SEGSTATS_LAUNCHES
+    from lightgbm_tpu_torch.kernels.histogram import (
+        HIST_FUSED_BATCHED_LAUNCHES, HIST_SEGSTATS_LAUNCHES)
     from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
 
-    return SPLIT_ITER_LAUNCHES, HIST_SEGSTATS_LAUNCHES
+    return (SPLIT_ITER_LAUNCHES, HIST_SEGSTATS_LAUNCHES,
+            HIST_FUSED_BATCHED_LAUNCHES)
 
 
 def plain_spies():
@@ -1302,7 +1360,8 @@ def plain_spies():
 
     calls = {"plain": 0}
     targets = [(H, "hist_fused_plain"), (H, "hist_segstats_plain"),
-               (T, "hist_partition_plain"), (T, "split_iter_plain")]
+               (H, "hist_fused_batched_plain"), (T, "hist_partition_plain"),
+               (T, "split_iter_plain")]
     origs = [(m, name, getattr(m, name)) for m, name in targets]
 
     def counted(fn):
@@ -1323,13 +1382,13 @@ def plain_spies():
 def counted_run(fn):
     """``fn()`` with every counter at 0 just before and read just after;
     returns (result, seconds, counts, plain-version calls)."""
-    si, ss = b3_b6_counters()
+    si, ss, sb = b3_b6_counters()
     calls, restore = plain_spies()
     try:
         torch.cuda.synchronize()
         reset_counters()
         si.reset()
-        for c in ss.values():
+        for c in (*ss.values(), *sb.values()):
             c.reset()
         t0 = time.perf_counter()
         out = fn()
@@ -1339,6 +1398,8 @@ def counted_run(fn):
         counts["split_iter"] = si.count
         for m, c in ss.items():
             counts[f"hist_segstats_{m}"] = c.count
+        for m, c in sb.items():
+            counts[f"hist_fused_batched_{m}"] = c.count
     finally:
         restore()
     return out, secs, counts, calls["plain"]
@@ -1602,6 +1663,393 @@ def phase_b3_b6_times(dbins):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the batched fused histogram (B5) against float64 and its plain
+# version on the card
+# ---------------------------------------------------------------------------
+def covertype_like(n, seed):
+    """Rows with the shape of UCI Covertype: 10 quantitative columns, a
+    one-hot wilderness area (4) and soil type (40); the class is the argmax
+    of a fixed linear score plus Gumbel noise (the weights come from their
+    own stream, so every seed shares the labelling function)."""
+    rng = np.random.default_rng(seed)
+    num = rng.normal(0, 1, (n, COV_NUMERIC))
+    wild = np.eye(COV_WILD)[rng.integers(0, COV_WILD, n)]
+    soil = np.eye(COV_SOIL)[rng.integers(0, COV_SOIL, n)]
+    X = np.hstack([num, wild, soil]).astype(np.float32)
+    W = np.random.default_rng(20261017).normal(0, 1, (X.shape[1],
+                                                      COV_CLASSES))
+    y = np.argmax(X @ W + rng.gumbel(size=(n, COV_CLASSES)), axis=1)
+    return X, y.astype(np.float32)
+
+
+def wave_segments(rng, e, n, k, dev, lo=0, hi=None):
+    """Segments ``[E, n]`` of a wave: about 45 % of the rows in a direct
+    child (ids in ``[lo, hi)``, ``hi`` = K by default), the rest -1."""
+    hi = k if hi is None else hi
+    ids = rng.integers(lo, hi, (e, n))
+    seg = np.where(rng.random((e, n)) < 0.45, ids, -1).astype(np.int32)
+    return torch.from_numpy(seg).to(dev)
+
+
+def b5_case(name, bins, stats, seg, k, num_bins, exact=False):
+    """B5 at both modes: two launches bit-equal, every element's cells
+    within HIST_REL_TOL x sum|x| of float64 (exact when asked), and against
+    the plain version."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    errs = {}
+    for mode in HIST_MODES:
+        what = f"hist_fused_batched {mode} {name}"
+        got = H.hist_fused_batched(bins, stats, seg, k, num_bins, mode)
+        again = H.hist_fused_batched(bins, stats, seg, k, num_bins, mode)
+        plain = H.hist_fused_batched_plain(bins, stats, seg, k, num_bins,
+                                           mode)
+        torch.cuda.synchronize()
+        check(bits_equal(got, again), f"{what}: two launches differ")
+        errs[mode] = 0.0
+        for e in range(stats.shape[0]):
+            ref, mag = f64_hists(bins, stats[e], seg[e], k, num_bins, mode)
+            check_cells(got[e], ref, mag, f"{what} element {e}", exact)
+            check_cells(plain[e], ref, mag,
+                        f"{what} element {e} (plain version)", exact)
+            errs[mode] = max(errs[mode], check_cells(
+                got[e], plain[e].to(torch.float64), mag,
+                f"{what} element {e} vs plain", exact))
+            del ref, mag
+        del got, again, plain
+    return errs
+
+
+def phase_b5(dev, higgs_bins, cov_bins):
+    rng = np.random.default_rng(SEED + 100)
+    t0 = time.perf_counter()
+    n, _ = higgs_bins.shape
+    nc = cov_bins.shape[0]
+
+    def stats(e, rows, dyadic=False):
+        return torch.stack([stats_for(rng, rows, dev, dyadic)
+                            for _ in range(e)])
+
+    errs = {m: 0.0 for m in HIST_MODES}
+
+    def keep(e):
+        for m, v in e.items():
+            errs[m] = max(errs[m], v)
+
+    keep(b5_case(f"north-star wave {n} x {higgs_bins.shape[1]}, E=5, K=42",
+                 higgs_bins, stats(5, n), wave_segments(rng, 5, n, 42, dev),
+                 42, 256))
+    keep(b5_case(f"Covertype-shaped wave {nc} x {cov_bins.shape[1]}, E=7, "
+                 "K=42", cov_bins, stats(7, nc),
+                 wave_segments(rng, 7, nc, 42, dev), 42, 256))
+    keep(b5_case("K=22 (the route's edge), E=5", higgs_bins, stats(5, n),
+                 wave_segments(rng, 5, n, 22, dev), 22, 256))
+    rows = min(300_001, n)
+    keep(b5_case(f"ragged {rows} rows, ids in [-3, 45), K=42, E=2",
+                 higgs_bins[:rows], stats(2, rows),
+                 wave_segments(rng, 2, rows, 42, dev, -3, 45), 42, 256))
+    b5_case("north-star wave, dyadic, E=5, K=42", higgs_bins,
+            stats(5, n, dyadic=True), wave_segments(rng, 5, n, 42, dev), 42,
+            256, exact=True)
+    log(f"phase 9: B5 within {HIST_REL_TOL} x sum|x| of float64 and of its "
+        f"plain version at f32 and bf16 (north-star and Covertype-shaped "
+        f"waves, K=22, out-of-range ids, ragged rows), exact on dyadic "
+        f"stats, bit-equal across launches (max abs err vs plain "
+        f"{json.dumps(errs)}; {time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 10: cv() at the north star through the wave regime
+# ---------------------------------------------------------------------------
+def north_star_cv(lgb, ds, extra):
+    return lgb.cv(dict(TRAIN_PARAMS, **extra), ds,
+                  num_boost_round=NS_CV_ROUNDS, nfold=NS_CV_FOLDS,
+                  early_stopping_rounds=NS_CV_ES, seed=SEED)
+
+
+def phase_cv_north_star(dev, X, y):
+    import lightgbm_tpu_torch as lgb
+
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    res = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        fit, secs, counts, plain_calls = counted_run(
+            lambda: north_star_cv(lgb, ds, extra))
+        hist = fit["valid binary_logloss-mean"]
+        rounds = min(fit.best_iter + NS_CV_ES, NS_CV_ROUNDS)
+        res[tag] = {"best_iter": fit.best_iter, "best_score": fit.best_score,
+                    "s": secs, "rounds_run": rounds,
+                    "s_per_round": secs / rounds, "counts": counts,
+                    "plain_calls": plain_calls, "logloss_mean": hist}
+        log(f"phase 10 cv {tag}: best_iter {fit.best_iter}, best_score "
+            f"{fit.best_score!r}, {secs:.2f} s for {rounds} rounds "
+            f"({secs / rounds:.3f} s/round), launches {json.dumps(counts)},"
+            f" plain calls {plain_calls}")
+    k, p = res["kernels"], res["plain"]
+    check(k["counts"]["hist_fused_batched_bf16"] > 0,
+          f"north-star cv launched no B5: {k['counts']}")
+    check(k["plain_calls"] == 0, f"{k['plain_calls']} plain-version calls on "
+          "the north-star cv kernel path")
+    check(sum(v for key, v in p["counts"].items()
+              if key.startswith("hist_")) == 0,
+          "the plain north-star cv launched a histogram kernel")
+    check(k["best_iter"] == p["best_iter"],
+          f"north-star cv best_iter kernel {k['best_iter']} vs plain "
+          f"{p['best_iter']}")
+    d = np.abs(np.asarray(k["logloss_mean"]) - np.asarray(p["logloss_mean"]))
+    check(len(k["logloss_mean"]) == len(p["logloss_mean"])
+          and bool((d <= NS_CV_TOL).all()),
+          f"north-star cv per-round logloss apart by {d.max():.2e}")
+    res["max_logloss_diff"] = float(d.max())
+
+    # dyadic labels (exactly half ones: init score 0, gradients +-0.5,
+    # hessians 1/4): the five folds' round-1 predictions, held-out rows
+    # included, are the same bits on both paths
+    order = np.argsort(X @ np.random.default_rng(SEED + 110).normal(
+        0, 1, NUM_FEATURES))
+    yd = np.zeros(len(X), np.float32)
+    yd[order[len(X) // 2:]] = 1.0
+    dsd = lgb.Dataset(X, label=yd, params={"max_bin": MAX_BIN})
+    preds = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        prog = fused_program(dsd, dict(TRAIN_PARAMS, **extra))
+        preds[tag] = prog.step(prog.init(), 1).pred
+    check(bits_equal(preds["kernels"], preds["plain"]),
+          "dyadic north-star cv: round-1 predictions of kernel and plain "
+          "paths differ")
+    log("phase 10 dyadic: the five folds' round-1 predictions (every row) "
+        "of kernel and plain paths are the same bits")
+    res["breakdown"], wave = profile_wave_round(ds)
+    out = {t: {f: r[f] for f in ("best_iter", "best_score", "s",
+                                 "rounds_run", "s_per_round", "counts")}
+           for t, r in res.items() if t in ("kernels", "plain")}
+    out["max_logloss_diff"] = res["max_logloss_diff"]
+    log(f"phase 10: {json.dumps(out)}")
+    return res, wave
+
+
+def fused_program(ds, params):
+    """The fused-CV program ``cv()`` runs for ``params`` on ``ds`` (the
+    same folds: stratified, shuffled, seed SEED)."""
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.engine import _make_folds
+    from lightgbm_tpu_torch.models.fused import FusedCVProgram
+
+    y = ds.get_label()
+    masks = np.zeros((NS_CV_FOLDS, len(y)), bool)
+    for i, (tr, _) in enumerate(_make_folds(len(y), NS_CV_FOLDS, y, True,
+                                            True, SEED)):
+        masks[i, tr] = True
+    return FusedCVProgram(ds, [parse_params(params)], masks, NS_CV_ROUNDS,
+                          NS_CV_ES, SEED)
+
+
+def profile_wave_round(ds):
+    """One profiled round of north-star cv (E = 5 folds, wave regime)
+    after a warm one: device time of B5, B6 and the plain ops, the host's
+    share; returns it with the inputs of the round's widest B5 call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import lightgbm_tpu_torch.models.tree as T
+
+    prog = fused_program(ds, TRAIN_PARAMS)
+    carry = prog.step(prog.init(), 1)
+    torch.cuda.synchronize()
+    rec = {}
+    orig = T.compute_histograms_batched
+
+    def spy(bins, stats, seg, k, *a, **kw):
+        if k > rec.get("k", 0):
+            rec.update(k=k, args=(bins, stats.clone(), seg.clone(), k))
+        return orig(bins, stats, seg, k, *a, **kw)
+
+    T.compute_histograms_batched = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry = prog.step(carry, 2)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        T.compute_histograms_batched = orig
+    fam = {"hist_partial_kernel<false> (B5)": 0.0,
+           "hist_partial_kernel<true> (B6)": 0.0,
+           "hist_reduce_kernel (B5, B6)": 0.0, "plain PyTorch ops": 0.0}
+    top = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
+        top.append((us, e.key, e.count))
+        key = next((k for k in fam if k.split()[0] in e.key),
+                   "plain PyTorch ops")
+        fam[key] += us / 1e3
+    dev_ms = sum(fam.values())
+    top.sort(reverse=True)
+    out = {"elements": prog.batch, "num_leaves": NUM_LEAVES,
+           "wave_width": prog.wave_width, "wall_ms": wall_ms,
+           "device_ms": dev_ms,
+           "device_busy_share": dev_ms / wall_ms if dev_ms else
+           "not measured (no device time traced)",
+           "host_share": 1.0 - dev_ms / wall_ms if dev_ms else
+           "not measured",
+           "device_ms_by_family": fam,
+           "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "calls": c}
+                              for us, k, c in top[:10]]}
+    log(f"phase 10 breakdown (profiled north-star cv round): "
+        f"{json.dumps(out)}")
+    return out, rec["args"]
+
+
+def phase_b5_times(wave):
+    """Device ms per launch of B5 at the widest wave of a north-star cv
+    round (E = 5 folds, K = 42), its plain version's, its bound and one
+    ``index_add_`` over the flat (element, segment, feature, bin) cells."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    bins, stats, seg, k = wave
+    n, f = bins.shape
+    e, s = stats.shape[0], stats.shape[2]
+    dev = bins.device
+    valid = (seg >= 0) & (seg < k)
+    direct_rows = int(valid.sum())
+    # bins read once, each element's stats and segments once, [E, K, F, B,
+    # S] written; one add per (direct row, feature, statistic)
+    bound = hist_bound_ms(n * f + e * n * (4 * s + 4)
+                          + 4 * e * k * f * 256 * s, direct_rows * f * s)
+    el, rows = torch.nonzero(valid, as_tuple=True)
+    flat = (((el * k + seg[el, rows].to(torch.int64)) * f)[:, None]
+            + torch.arange(f, device=dev)) * 256 \
+        + bins[rows].to(torch.int64)
+    flat = flat.reshape(-1)
+    vals = stats[el, rows].repeat_interleave(f, dim=0)
+    out = torch.zeros(e * k * f * 256, s, dtype=torch.float32, device=dev)
+    lib_ms = time_ms(lambda: out.index_add_(0, flat, vals), runs=11, inner=3)
+    del flat, vals, out, el, rows
+    res = {}
+    for mode in HIST_MODES:
+        res[f"hist_fused_batched_{mode}"] = {
+            "shape": f"n={n} F={f} B=256 E={e} K={k} S={s} direct rows "
+                     f"{direct_rows}",
+            "ms": time_ms(lambda: H.hist_fused_batched(bins, stats, seg, k,
+                                                       256, mode),
+                          runs=11, inner=3),
+            "plain_ms": time_ms(lambda: H.hist_fused_batched_plain(
+                bins, stats, seg, k, 256, mode), runs=3, inner=1),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms}
+    for name, r in res.items():
+        log(f"phase 10 times {name}: {json.dumps(r)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: multiclass at Covertype's shape
+# ---------------------------------------------------------------------------
+def multi_logloss(booster, Xv, yv, dev):
+    from lightgbm_tpu_torch.metrics import get_metric
+
+    p = torch.from_numpy(booster.predict(Xv)).to(dev)
+    y = torch.from_numpy(yv).to(dev)
+    return float(get_metric("multi_logloss").fn(p, y, torch.ones_like(y)))
+
+
+def phase_multiclass(dev, X, y, workdir):
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import ModelBank
+
+    Xv, yv = covertype_like(COV_VALID_ROWS, SEED + 121)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    t_bin = time.perf_counter() - t0
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain_calls = counted_run(
+            lambda: lgb.train(dict(COV_PARAMS, **extra), ds, COV_ROUNDS))
+        check(b.num_trees() == COV_ROUNDS
+              and b.num_model_per_iteration() == COV_CLASSES,
+              f"multiclass {tag}: {b.num_trees()} rounds")
+        runs[tag] = {"booster": b, "s": secs, "counts": counts,
+                     "plain_calls": plain_calls,
+                     "multi_logloss": multi_logloss(b, Xv, yv, dev)}
+        log(f"phase 11 {tag}: {COV_ROUNDS} rounds of {COV_CLASSES} trees in "
+            f"{secs:.2f} s ({secs / COV_ROUNDS:.3f} s/round), held-out "
+            f"multi_logloss {runs[tag]['multi_logloss']:.6f}, launches "
+            f"{json.dumps(counts)}, plain calls {plain_calls}")
+    k, p = runs["kernels"], runs["plain"]
+    check(k["counts"]["hist_fused_batched_bf16"] > 0
+          and k["counts"]["hist_segstats_bf16"] > 0,
+          f"multiclass kernel path launches {k['counts']}")
+    check(k["plain_calls"] == 0, f"{k['plain_calls']} plain-version calls on "
+          "the multiclass kernel path")
+    d_ll = k["multi_logloss"] - p["multi_logloss"]
+    check(np.isfinite(k["multi_logloss"]) and abs(d_ll) <= COV_TOL,
+          f"multiclass held-out multi_logloss kernel - plain {d_ll:.2e}")
+
+    # dyadic tier: 8 classes at a zero init score, so every round-1
+    # probability is 1/8, every gradient 1/8 or -7/8 and every hessian 7/32;
+    # the kernel path's round-1 trees equal the plain path's, at bf16 and f32
+    dy = dict(COV_PARAMS, num_class=8, boost_from_average=False)
+    dyadic, f32_counts = {}, None
+    for mode in HIST_MODES:
+        pm = dict(dy, hist_dtype=mode)
+        bk, _, counts, _ = counted_run(lambda: lgb.train(pm, ds, 1))
+        bp = lgb.train(dict(pm, hist_impl="plain"), ds, 1)
+        a, b = tree_arrays(bk, 0), tree_arrays(bp, 0)
+        check(all(np.array_equal(a[key], b[key]) for key in a),
+              f"dyadic multiclass {mode}: round-1 trees of kernel and plain "
+              "paths differ")
+        dyadic[mode] = a["num_leaves"].tolist()
+        if mode == "f32":
+            f32_counts = counts
+    log(f"phase 11 dyadic: round-1 trees of kernel and plain paths equal "
+        f"(leaves per class {json.dumps(dyadic)})")
+
+    # the model as text and as .npz, reloaded, and served through ModelBank
+    booster = k["booster"]
+    direct = booster.predict(X)
+    check(direct.shape == (len(X), COV_CLASSES), f"predict {direct.shape}")
+    errs = {}
+    for ext in ("txt", "npz"):
+        path = os.path.join(workdir, f"covertype_multiclass.{ext}")
+        booster.save_model(path)
+        again = lgb.Booster(model_file=path)
+        errs[ext] = float(np.abs(again.predict(X) - direct).max())
+        check(errs[ext] <= 1e-6, f"reloaded .{ext} model vs Booster.predict: "
+              f"{errs[ext]:.3e}")
+    reset_counters()
+    bank = ModelBank(max_bucket=MAX_BUCKET, warm_on_deploy=True,
+                     canary_rows=64, forest_precision="f32")
+    rep = bank.deploy("covertype", path)
+    check(rep["ok"], f"deploy of the multiclass model failed: {rep}")
+    served = bank.runtime("covertype").predict(X)
+    launches = read_counters()["predict_forest"]
+    err_serve = float(np.abs(served - direct).max())
+    check(launches > 0, "serving the multiclass model launched no kernel")
+    check(served.shape == direct.shape and err_serve <= 1e-5,
+          f"served {served.shape} vs Booster.predict: {err_serve:.3e}")
+    log(f"phase 11 serve: {len(X)} rows x {COV_CLASSES} classes through "
+        f"ModelBank, max abs diff {err_serve:.3e} vs Booster.predict, "
+        f"{launches} predict launches; reloaded models {json.dumps(errs)}")
+    out = {"rows": len(X), "features": X.shape[1], "classes": COV_CLASSES,
+           "rounds": COV_ROUNDS, "params": COV_PARAMS, "binning_s": t_bin,
+           "s_per_round": {t: r["s"] / COV_ROUNDS for t, r in runs.items()},
+           "multi_logloss": {t: r["multi_logloss"] for t, r in runs.items()},
+           "multi_logloss_kernel_minus_plain": d_ll,
+           "launches": k["counts"], "dyadic_f32_launches": f32_counts,
+           "dyadic_round1_leaves": dyadic, "reload_max_abs_diff": errs,
+           "serve_max_abs_diff": err_serve,
+           "serve_predict_launches": launches}
+    log(f"phase 11: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1613,6 +2061,8 @@ def main() -> int:
         print(f"chip_smoke: the lightgbm_tpu_torch package is missing "
               f"beside this script ({e})", file=sys.stderr)
         return 2
+    from lightgbm_tpu_torch.dataset import BinMapper
+
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1633,12 +2083,21 @@ def main() -> int:
     train = phase_train(dev, X, y, workdir)
     hist_times = phase_hist_times(bins, root_stats, wave)
     b6_errs, dbins = phase_b3_b6(dev, bins)
-    del bins, root_stats, wave
+    Xc, yc = covertype_like(COV_ROWS, SEED + 120)
+    cov_bins = torch.from_numpy(BinMapper.fit(Xc, max_bin=MAX_BIN).transform(
+        Xc)).to(dev)
+    b5_errs = phase_b5(dev, bins, cov_bins)
+    del bins, root_stats, wave, cov_bins
     strict = phase_strict(dev, X, y)
     cv_res, dds = phase_cv(dev)
     sweep = phase_sweep(dds, workdir)
     fused_round = profile_fused_round(dds)
     b3_b6_times = phase_b3_b6_times(dbins)
+    del dbins
+    ns_cv, b5_wave = phase_cv_north_star(dev, X, y)
+    b5_times = phase_b5_times(b5_wave)
+    del b5_wave
+    multiclass = phase_multiclass(dev, Xc, yc, workdir)
 
     kernels = []
     for prec in PRECISIONS:
@@ -1685,6 +2144,23 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
+    # B5 on the main path: bf16 in the north-star cv and the multiclass
+    # training, f32 in the multiclass dyadic run at f32
+    launches_b5 = {
+        "bf16": (ns_cv["kernels"]["counts"]["hist_fused_batched_bf16"]
+                 + multiclass["launches"]["hist_fused_batched_bf16"]),
+        "f32": multiclass["dyadic_f32_launches"]["hist_fused_batched_f32"]}
+    for mode in HIST_MODES:
+        t = b5_times[f"hist_fused_batched_{mode}"]
+        check(launches_b5[mode] > 0, f"B5 {mode} never launched on the main "
+              "path")
+        kernels.append({
+            "name": f"hist_fused_batched_{mode}", "route": "cuda",
+            "source": BATCHED_SOURCE[0], "replaces": BATCHED_SOURCE[1],
+            "launches": launches_b5[mode], "max_abs_err": b5_errs[mode],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"]})
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "kernel_vs_plain_max_abs_err": errs,
@@ -1695,7 +2171,12 @@ def main() -> int:
               "hist_times": hist_times, "b6_max_abs_err_vs_plain": b6_errs,
               "strict": strict, "cv": cv_res, "sweep": sweep,
               "fused_round_breakdown": fused_round,
-              "b3_b6_times": b3_b6_times,
+              "b3_b6_times": b3_b6_times, "b5_max_abs_err_vs_plain": b5_errs,
+              "north_star_cv": {t: {f: v for f, v in r.items()
+                                    if f != "logloss_mean"}
+                                if isinstance(r, dict) else r
+                                for t, r in ns_cv.items()},
+              "b5_times": b5_times, "multiclass": multiclass,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",
@@ -1706,7 +2187,10 @@ def main() -> int:
                   "split_iter": "none: no single PyTorch call scans gains "
                                 "and updates a node table",
                   "hist_segstats": "Tensor.index_add_ over precomputed flat "
-                                   "(feature, bin) cell indices"},
+                                   "(feature, bin) cell indices",
+                  "hist_fused_batched": "Tensor.index_add_ over precomputed "
+                                        "flat (element, segment, feature, "
+                                        "bin) cell indices"},
               "total_s": time.perf_counter() - t_start}
     with open(os.path.join(workdir, "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -1,22 +1,26 @@
-// Shared device code of the three histogram kernels (hist_fused.cu, B1,
-// hist_partition.cu, B2, and hist_segstats.cu, B6).
+// Shared device code of the four histogram kernels (hist_fused.cu, B1,
+// hist_partition.cu, B2, hist_segstats.cu, B6, and hist_fused_batched.cu,
+// B5).
 //
-// All build f32 histograms [K, F, B, S] of per-row statistics over
-// (segment, feature, bin) with a FIXED summation order, so two launches on
-// the same input give bit-equal output (no float atomics):
+// All build f32 histograms [E, K, F, B, S] of per-row statistics over
+// (element, segment, feature, bin) with a FIXED summation order, so two
+// launches on the same input give bit-equal output (no float atomics).  The
+// E elements (B5's batch; E = 1 for the others) share the bins and bring
+// their own statistics [E, n, S] and segments [E, n]:
 //
 //   pass 1, hist_partial_kernel: one block of 256 threads per (row chunk,
-//     feature, segment group x channel group).  The block stages a tile of
-//     its chunk's rows in shared memory (the row's code for this feature
-//     and its segment packed in one int "key", and the statistics of its
-//     channel group), sorts the tile's rows by bin with a stable counting
-//     sort, and then one thread per bin (B1, B2) or per (bin, channel)
-//     (B6) walks only that bin's rows, in row order, adding into its cells
-//     of a shared [KC, B] partial (KC = segments of the group x channels of
-//     the group).
-//     The partial goes to scratch [chunks, F, K*S, B].  B1 and B2 take all
-//     S statistics in one channel group; B6 (one segment, up to ~1,000
-//     pre-folded channels) splits them into groups that fit shared memory.
+//     feature, element x segment group x channel group).  The block stages
+//     a tile of its chunk's rows in shared memory (the row's code for this
+//     feature and its segment packed in one int "key", and the statistics
+//     of its channel group), sorts the tile's rows by bin with a stable
+//     counting sort, and then one thread per bin (B1, B2, B5) or per (bin,
+//     channel) (B6) walks only that bin's rows, in row order, adding into
+//     its cells of a shared [KC, B] partial (KC = segments of the group x
+//     channels of the group).
+//     The partial goes to scratch [E, chunks, F, K*S, B].  B1, B2 and B5
+//     take all S statistics in one channel group; B6 (one segment, up to
+//     ~1,000 pre-folded channels) splits them into groups that fit shared
+//     memory.
 //   pass 2, hist_reduce_kernel: each output cell sums its chunks' partials in
 //     chunk order.
 //
@@ -44,8 +48,9 @@
 // The sort's order is warp-major over contiguous row ranges, so a bin's
 // rows keep their row order and the sums stay deterministic.
 //
-// Rows come with their segment ids (B1: the caller's; B2: the wave's row
-// partition, computed once per wave by route_kernel in hist_partition.cu).
+// Rows come with their segment ids (B1, B5: the caller's; B2: the wave's
+// row partition, computed once per wave by route_kernel in
+// hist_partition.cu).
 
 #pragma once
 
@@ -85,10 +90,16 @@ struct Shape {
   int rows_per_chunk;
   int seg_group;     // segments per block
   int bf16;          // 1: round each statistic to bf16 first
-  int ch_group;      // statistics (channels) per block; S for B1 and B2
+  int ch_group;      // statistics (channels) per block; S for B1, B2, B5
+  int E = 1;         // elements sharing the bins (B5's batch)
 };
 
-// blocks along gridDim.z: segment groups x channel groups
+// segment groups of one element
+__host__ __device__ inline int seg_groups(const Shape& s) {
+  return (s.K + s.seg_group - 1) / s.seg_group;
+}
+
+// blocks along gridDim.z: elements x segment groups x channel groups
 __host__ __device__ inline int ch_groups(const Shape& s) {
   return (s.S + s.ch_group - 1) / s.ch_group;
 }
@@ -113,8 +124,10 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
 }
 
 // kWide: channel groups and a thread per (bin, channel) (B6); otherwise
-// every channel in one block and a thread per bin (B1, B2), compiled
-// without the channel-group index arithmetic
+// every channel in one block and a thread per bin (B1, B2, B5), compiled
+// without the channel-group index arithmetic.  The element axis is in every
+// instance: compiled into B5's alone (a template flag) it left B1's root 4 %
+// faster but B5 10 % slower on an H100 (PERF.md).
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 hist_partial_kernel(const uint8_t* __restrict__ bins,
@@ -125,7 +138,14 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
   const int S = sh.S, B = sh.B;
   const int chunk = blockIdx.x, f = blockIdx.y;
   const int n_cg = kWide ? ch_groups(sh) : 1;
-  const int group = blockIdx.z / n_cg, cgroup = blockIdx.z % n_cg;
+  const int per_element = seg_groups(sh) * n_cg;
+  const int element = blockIdx.z / per_element;
+  const int zg = blockIdx.z - element * per_element;
+  const int group = zg / n_cg, cgroup = zg % n_cg;
+  // this element's statistics, segments and partial
+  stats += (size_t)element * sh.n * S;
+  if (seg) seg += (size_t)element * sh.n;
+  partial += (size_t)element * gridDim.x * sh.F * ((size_t)sh.K * S) * B;
   const int g0 = group * sh.seg_group;
   const int g_count = min(sh.seg_group, sh.K - g0);
   const int c0 = kWide ? cgroup * sh.ch_group : 0;  // first channel
@@ -268,7 +288,7 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
     }
   }
   __syncthreads();
-  // partial [chunks, F, K*S, B]: this block's rows (g0 + k)*S + c0 + c
+  // partial [E, chunks, F, K*S, B]: this block's rows (g0 + k)*S + c0 + c
   const size_t KS = (size_t)sh.K * S;
   float* dst = partial + ((size_t)chunk * sh.F + f) * KS * B;
   if (!kWide) {                               // rows [g0*S, g0*S + ks)
@@ -283,48 +303,51 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
   }
 }
 
-// out [K, F, B, S][k, f, b, s] = (Kahan) sum over chunks c, in order, of
-// partial [c, f, k*S + s, b]; one thread per cell, b fastest in the index
-// so the partial reads coalesce.
+// out [E, K, F, B, S][e, k, f, b, s] = (Kahan) sum over chunks c, in
+// order, of partial [e, c, f, k*S + s, b]; one thread per cell, b fastest
+// in the index so the partial reads coalesce.
 __global__ void hist_reduce_kernel(const float* __restrict__ partial,
                                    int n_chunks, Shape sh,
                                    float* __restrict__ out) {
   const int S = sh.S, B = sh.B, F = sh.F;
   const size_t KS = (size_t)sh.K * S;
-  const size_t cells = (size_t)F * KS * B;
   const size_t stride = (size_t)F * KS * B;   // one chunk's partial
+  const size_t cells = (size_t)sh.E * stride;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < cells;
        i += (size_t)gridDim.x * blockDim.x) {
-    const int b = (int)(i % B);
-    const size_t fks = i / B;
+    const size_t element = i / stride;
+    const size_t cell = i - element * stride;
+    const int b = (int)(cell % B);
+    const size_t fks = cell / B;
     const int kss = (int)(fks % KS);
     const int f = (int)(fks / KS);
+    const float* src = partial + element * n_chunks * stride + cell;
     float sum = 0.0f, comp = 0.0f;
-    for (int c = 0; c < n_chunks; ++c)
-      kahan_add(sum, comp, partial[c * stride + i]);
+    for (int c = 0; c < n_chunks; ++c) kahan_add(sum, comp, src[c * stride]);
     const int k = kss / S, s = kss % S;
-    out[(((size_t)k * F + f) * B + b) * S + s] = sum;
+    out[element * stride + (((size_t)k * F + f) * B + b) * S + s] = sum;
   }
 }
 
 // Launch both passes on `stream`; returns the first CUDA error (0 if none).
-// `wide`: the channel-group kernel (B6); B1 and B2 take every channel in one
-// block (sh.ch_group == sh.S).
+// `wide`: the channel-group kernel (B6); B1, B2 and B5 take every channel in
+// one block (sh.ch_group == sh.S).
 inline int launch(const uint8_t* bins, const float* stats, const int* seg,
                   const Shape& sh, int n_chunks, float* partial, float* out,
                   cudaStream_t stream, bool wide = false) {
   if (!wide && sh.ch_group != sh.S) return (int)cudaErrorInvalidValue;
-  const int groups = (sh.K + sh.seg_group - 1) / sh.seg_group * ch_groups(sh);
+  const long long groups = (long long)sh.E * seg_groups(sh) * ch_groups(sh);
+  if (groups > 65535) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = smem_bytes(sh);
   auto kernel = wide ? hist_partial_kernel<true> : hist_partial_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_chunks, sh.F, groups);
+  dim3 grid(n_chunks, sh.F, (unsigned)groups);
   kernel<<<grid, kThreads, smem, stream>>>(bins, stats, seg, sh, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t cells = (size_t)sh.F * sh.K * sh.S * sh.B;
+  const size_t cells = (size_t)sh.E * sh.F * sh.K * sh.S * sh.B;
   const int rthreads = 256;
   const size_t want = (cells + rthreads - 1) / rthreads;
   const int rblocks = want > 65535 ? 65535 : (want < 1 ? 1 : (int)want);

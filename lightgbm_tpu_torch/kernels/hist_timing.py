@@ -2,13 +2,17 @@
 
     python3 <checkout>/lightgbm_tpu_torch/kernels/hist_timing.py
 
-Builds ``hist_fused`` (B1), ``hist_partition`` (B2) and ``hist_segstats``
-(B6) from that checkout, then on ``make_higgs_like(1,000,000)`` binned to
-255 bins: each kernel against its plain version (max abs err, routing equal)
-and its device ms per launch (CUDA events, median of 11 runs of 5 launches
-queued behind a spin kernel) at the north-star root (binary round-1
-statistics, one segment) and at the widest wave of a real north-star tree
-(grown once with the plain versions); then 10 rounds of north-star training
+Builds ``hist_fused`` (B1), ``hist_partition`` (B2), ``hist_segstats``
+(B6) and ``hist_fused_batched`` (B5) from that checkout, then on
+``make_higgs_like(1,000,000)`` binned to 255 bins: each kernel against its
+plain version (max abs err, routing equal) and its device ms per launch
+(CUDA events, median of 11 runs of 5 launches queued behind a spin kernel)
+at the north-star root (binary round-1 statistics, one segment) and at the
+widest wave of a real north-star tree (grown once with the plain versions);
+B5 at the widest wave of a north-star ``cv()`` round (5 folds, K = 42), with
+one ``index_add_`` over the flat (element, segment, feature, bin) cells as
+the library call, and both routes at the route's edge (K = 21: B6 through
+the folded operand, and B5); then 10 rounds of north-star training
 (seconds per round) and its AUC on ``make_higgs_like(200,000, seed=9)``.
 On the grid-search workflow's diamonds split (``make_synthetic_diamonds``,
 about 45,800 x 6): B6 at 240 channels (an 8-config sweep bucket's two-child
@@ -105,6 +109,71 @@ def diamonds(dev) -> dict:
     return out
 
 
+def batched_wave(ds) -> dict:
+    """B5 at the widest wave of one north-star cv round (5 stratified folds
+    of the binary task, wave regime): kernel, plain version and one
+    ``index_add_`` over the flat (element, segment, feature, bin) cells."""
+    import lightgbm_tpu_torch.models.tree as T
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.models.fused import FusedCVProgram
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    y = ds.get_label()
+    assign = np.random.default_rng(0).permutation(len(y)) % 5
+    masks = np.stack([assign != k for k in range(5)])
+    params = parse_params({"objective": "binary", "num_leaves": 127,
+                           "learning_rate": 0.1, "min_data_in_leaf": 20,
+                           "verbosity": -1})
+    prog = FusedCVProgram(ds, [params], masks, 1, 0, 0)
+    rec = {}
+    orig = T.compute_histograms_batched
+
+    def spy(bins, stats, seg, k, *a, **kw):
+        if k > rec.get("k", 0):
+            rec.update(k=k, args=(bins, stats.clone(), seg.clone(), k))
+        return orig(bins, stats, seg, k, *a, **kw)
+
+    T.compute_histograms_batched = spy
+    try:
+        prog.step(prog.init(), 1)
+    finally:
+        T.compute_histograms_batched = orig
+    bins, stats, seg, k = rec["args"]
+    e, f = stats.shape[0], bins.shape[1]
+    valid = (seg >= 0) & (seg < k)
+    el, rows = torch.nonzero(valid, as_tuple=True)
+    flat = ((((el * k + seg[el, rows].to(torch.int64)) * f)[:, None]
+             + torch.arange(f, device=bins.device)) * 256
+            + bins[rows].to(torch.int64)).reshape(-1)
+    vals = stats[el, rows].repeat_interleave(f, dim=0)
+    acc = torch.zeros(e * k * f * 256, 3, device=bins.device)
+    out = {"b5_shape": f"E={e} K={k} n={bins.shape[0]} F={f}",
+           "b5_index_add_ms": device_ms(lambda: acc.index_add_(0, flat,
+                                                               vals))}
+    del flat, vals, acc
+    # the route's edge: at K = 21 (63 lanes) the batch goes to B6 through
+    # the folded [n, E*K*S] operand; B5 at the same call for comparison
+    seg21 = torch.where(seg < 21, seg, -1)
+    stats_t = stats.transpose(0, 1)
+    out["route_edge_k21_bf16"] = {
+        "b6_route_ms": device_ms(lambda: H.hist_segstats(
+            bins, H.segstats_rows(stats_t, seg21.t(), 21), 256, "bf16"),
+            runs=5, inner=2),
+        "b5_ms": device_ms(lambda: H.hist_fused_batched(
+            bins, stats, seg21, 21, 256, "bf16"), runs=5, inner=2)}
+    for mode in ("f32", "bf16"):
+        got = H.hist_fused_batched(bins, stats, seg, k, 256, mode)
+        want = H.hist_fused_batched_plain(bins, stats, seg, k, 256, mode)
+        torch.cuda.synchronize()
+        out[f"b5_{mode}"] = {
+            "err": float((got - want).abs().max()),
+            "ms": device_ms(lambda: H.hist_fused_batched(bins, stats, seg, k,
+                                                         256, mode)),
+            "plain_ms": device_ms(lambda: H.hist_fused_batched_plain(
+                bins, stats, seg, k, 256, mode), runs=3, inner=1)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("hist_timing: no CUDA device", file=sys.stderr)
@@ -121,7 +190,8 @@ def main() -> int:
     from lightgbm_tpu_torch.utils.datasets import make_higgs_like
 
     print(ROOT, build.build(["hist_fused", "hist_partition",
-                             "hist_segstats", "split_iter"]))
+                             "hist_segstats", "split_iter",
+                             "hist_fused_batched"]))
     dev = torch.device("cuda")
     X, y = make_higgs_like(1_000_000, 28, seed=0)
     bins = torch.from_numpy(BinMapper.fit(X, max_bin=255).transform(X)).to(
@@ -176,6 +246,7 @@ def main() -> int:
     pv = torch.from_numpy(booster.predict(Xv)).to(dev)
     yt = torch.from_numpy(yv).to(dev)
     out["auc"] = float(get_metric("auc").fn(pv, yt, torch.ones_like(yt)))
+    out.update(batched_wave(ds))
     out.update(diamonds(dev))
     print("RESULT", ROOT, json.dumps(out))
     return 0

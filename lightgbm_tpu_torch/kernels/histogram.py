@@ -1,22 +1,26 @@
 """ctypes bindings of the histogram kernels (``csrc/hist_fused.cu``, B1,
-``csrc/hist_partition.cu``, B2, and ``csrc/hist_segstats.cu``, B6).
+``csrc/hist_partition.cu``, B2, ``csrc/hist_segstats.cu``, B6, and
+``csrc/hist_fused_batched.cu``, B5).
 
-:func:`hist_fused`, :func:`hist_partition` and :func:`hist_segstats` check
-their tensors, size the row chunks and segment (or channel) groups, allocate
-the outputs and the scratch of per-chunk partials, and launch on the current
-CUDA stream without synchronising.  A launch the card refuses raises
+:func:`hist_fused`, :func:`hist_partition`, :func:`hist_segstats` and
+:func:`hist_fused_batched` check their tensors, size the row chunks and
+segment (or channel) groups, allocate the outputs and the scratch of
+per-chunk partials, and launch on the current CUDA stream without
+synchronising.  A launch the card refuses raises
 :class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES``,
-``HIST_PARTITION_LAUNCHES`` and ``HIST_SEGSTATS_LAUNCHES`` count the calls
-that launched, per mode (``"f32"`` and ``"bf16"``), and nothing else counts
-them.  They take CUDA tensors only: the plain PyTorch versions and the
-dispatch on the tensor's device live in ``ops/histogram.py``.
+``HIST_PARTITION_LAUNCHES``, ``HIST_SEGSTATS_LAUNCHES`` and
+``HIST_FUSED_BATCHED_LAUNCHES`` count the calls that launched, per mode
+(``"f32"`` and ``"bf16"``), and nothing else counts them.  They take
+CUDA tensors only: the plain PyTorch versions and the dispatch on the
+tensor's device live in ``ops/histogram.py``.
 
 Sizing: every block owns one (row chunk, feature, segment group).  A
 segment group is as many segments as the block's shared-memory partial
 ``[group * S, B]`` f32 and its Kahan compensation hold, beside the staged
 row tile and the sort's tables, while two blocks still share an SM (14
 segments of S = 3 at B = 256, so a 42-split wave runs in three groups);
-chunks are cut so that the grid holds about eight blocks per SM.  B6 has one
+chunks are cut so that the grid holds about eight blocks per SM (B5's grid
+counts every element's blocks, so a wide batch gets fewer chunks).  B6 has one
 segment and up to ~1,000 channels, so its blocks own a channel group instead
 (16 channels at B = 256, :func:`plan_segstats`).
 """
@@ -32,6 +36,7 @@ from . import build
 from .predict import LaunchCounter
 
 FUSED, PARTITION, SEGSTATS = "hist_fused", "hist_partition", "hist_segstats"
+BATCHED = "hist_fused_batched"
 TILE_ROWS = 1024                    # kTileRows in csrc/hist_common.cuh
 WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
 SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
@@ -42,6 +47,7 @@ MODES = ("f32", "bf16")
 HIST_FUSED_LAUNCHES = {m: LaunchCounter() for m in MODES}
 HIST_PARTITION_LAUNCHES = {m: LaunchCounter() for m in MODES}
 HIST_SEGSTATS_LAUNCHES = {m: LaunchCounter() for m in MODES}
+HIST_FUSED_BATCHED_LAUNCHES = {m: LaunchCounter() for m in MODES}
 
 _bind_lock = threading.Lock()
 _funcs = {}
@@ -68,8 +74,14 @@ def _bound():
             fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
             fn.restype = ci
             _funcs[SEGSTATS] = fn
+            lib_b = build.load(BATCHED)
+            fn = lib_b.hist_fused_batched_launch
+            fn.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
+                           ci, vp, vp, vp]
+            fn.restype = ci
+            _funcs[BATCHED] = fn
             for name, lib_ in ((FUSED, lib), (PARTITION, lib_p),
-                               (SEGSTATS, lib_s)):
+                               (SEGSTATS, lib_s), (BATCHED, lib_b)):
                 err = getattr(lib_, f"{name}_error_string")
                 err.argtypes = [ci]
                 err.restype = ctypes.c_char_p
@@ -87,6 +99,13 @@ def _bound():
                 raise build.KernelLaunchError(
                     "hist_fused: the kernel's shared-memory layout disagrees "
                     "with the binding")
+            smem = lib_b.hist_fused_batched_smem_bytes
+            smem.argtypes = [ci, ci, ci]
+            smem.restype = ctypes.c_longlong
+            if smem(3, 256, 14) != smem_bytes(3, 256, 14):
+                raise build.KernelLaunchError(
+                    "hist_fused_batched: the kernel's shared-memory layout "
+                    "disagrees with the binding")
             smem = lib_s.hist_segstats_smem_bytes
             smem.argtypes = [ci, ci]
             smem.restype = ctypes.c_longlong
@@ -107,12 +126,13 @@ def smem_bytes(s: int, num_bins: int, seg_group: int) -> int:
 
 
 def plan(n: int, num_features: int, s: int, num_segments: int,
-         num_bins: int, sm_count: int):
+         num_bins: int, sm_count: int, elements: int = 1):
     """(rows_per_chunk, n_chunks, seg_group) of a launch.
 
     A segment group is as many segments as let two blocks share an SM (one
     when even a single segment needs more); chunks are cut so that the grid
-    holds about ``BLOCKS_PER_SM`` blocks per SM, each at least one tile.
+    of all ``elements`` holds about ``BLOCKS_PER_SM`` blocks per SM, each at
+    least one tile.
     """
     per_seg = 8 * s * num_bins
     base = smem_bytes(s, num_bins, 0)
@@ -124,7 +144,8 @@ def plan(n: int, num_features: int, s: int, num_segments: int,
                          "block's shared memory")
     groups = -(-num_segments // seg_group)
     max_chunks = max(1, -(-n // TILE_ROWS))
-    want = -(-BLOCKS_PER_SM * sm_count // (num_features * groups))
+    want = -(-BLOCKS_PER_SM * sm_count
+             // (elements * num_features * groups))
     n_chunks = max(1, min(max_chunks, want))
     rows = -(-n // n_chunks)
     rows = -(-rows // TILE_ROWS) * TILE_ROWS
@@ -299,4 +320,45 @@ def hist_segstats(bins: torch.Tensor, segstats: torch.Tensor, num_bins: int,
     if err != 0:
         _raise(SEGSTATS, err)
     HIST_SEGSTATS_LAUNCHES[mode].add()
+    return out
+
+
+def hist_fused_batched(bins: torch.Tensor, stats: torch.Tensor,
+                       seg: torch.Tensor, num_segments: int, num_bins: int,
+                       mode: str) -> torch.Tensor:
+    """Launch B5: f32 ``[E, K, F, B, S]`` histograms of each element's
+    ``stats [E, n, S]`` by (segment ``seg [E, n]``, feature, bin) over the
+    shared ``bins [n, F]``, for CUDA tensors."""
+    if bins.device.type != "cuda":
+        raise ValueError(f"the hist_fused_batched kernel takes CUDA tensors, "
+                         f"got {bins.device}")
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2:
+        raise TypeError("bins must be a uint8 [n, F] tensor")
+    n, f = bins.shape
+    e, s = (stats.shape[0], stats.shape[2]) if stats.dim() == 3 else (-1, -1)
+    _check("stats", stats, torch.float32, (e, n, s), dev)
+    _check("seg", seg, torch.int32, (e, n), dev)
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
+    flag = _mode_flag(mode)
+    k = int(num_segments)
+    out = torch.empty((e, k, f, num_bins, s), dtype=torch.float32,
+                      device=dev)
+    if n == 0 or f == 0 or k == 0 or s == 0 or e == 0:
+        return out.zero_()
+    rows, n_chunks, group = plan(n, f, s, k, num_bins, _sm_count(dev), e)
+    partial = torch.empty(e * n_chunks * f * k * s * num_bins,
+                          dtype=torch.float32, device=dev)
+    bins, stats, seg = bins.contiguous(), stats.contiguous(), seg.contiguous()
+    funcs = _bound()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = funcs[BATCHED](bins.data_ptr(), n, f, stats.data_ptr(), s,
+                             seg.data_ptr(), e, k, num_bins, flag, rows,
+                             n_chunks, group, partial.data_ptr(),
+                             out.data_ptr(), stream)
+    if err != 0:
+        _raise(BATCHED, err)
+    HIST_FUSED_BATCHED_LAUNCHES[mode].add()
     return out

@@ -6,9 +6,11 @@ All metrics are weighted means over f32 tensors on the training device
 metric.  Values follow the Python lightgbm convention (raw value plus a
 ``higher_better`` flag); the R binding's sign flip happens in ``cv``.
 
-Every metric reduces over the last axis, so ``pred [E, n]`` with weights
+Every metric reduces over the row axis, so ``pred [E, n]`` with weights
 ``[E, n]`` (``w * valid_mask`` per fold in fused cross-validation) gives one
-value per element ``[E]``, each equal to the metric of that row alone.
+value per element ``[E]``, each equal to the metric of that row alone; the
+multiclass metrics (``multi_logloss``, ``multi_error``, in ``multiclass.py``)
+take probabilities ``[..., n, K]``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple
 
 import torch
+
+from .multiclass import multi_error, multi_logloss
 
 _F32 = torch.float32
 
@@ -98,12 +102,13 @@ _METRICS: Dict[str, Metric] = {
     "binary_logloss": Metric("binary_logloss", False, _binary_logloss),
     "binary_error": Metric("binary_error", False, _binary_error),
     "auc": Metric("auc", True, _auc),
+    "multi_logloss": Metric("multi_logloss", False, multi_logloss),
+    "multi_error": Metric("multi_error", False, multi_error),
 }
 
 # the reference's other metric names: known, not ported yet
 _LATER = ("huber", "poisson", "quantile", "mape", "gamma", "gamma_deviance",
-          "tweedie", "cross_entropy", "multi_logloss", "multi_error", "ndcg",
-          "map")
+          "tweedie", "cross_entropy", "ndcg", "map")
 
 
 def get_metric(name: str, params=None) -> Metric:

@@ -1,5 +1,5 @@
 """Fused cross-validation: a batch of ``cv`` trainings as one device loop —
-the port of ``lightgbm_tpu/models/fused.py`` on its single-output path.
+the port of ``lightgbm_tpu/models/fused.py``.
 
 The reference's workload is ``lgb.cv`` inside a serial 108-config grid.
 This module trains every (config, fold) pair of a bucket together:
@@ -12,10 +12,15 @@ This module trains every (config, fold) pair of a bucket together:
   carry zero gradient, hessian and bag weight but are partitioned all the
   same, so each fold's held-out predictions come from the same
   ``leaf_value[row_leaf]`` gather that updates its training scores;
-* trees grow strictly best-first, all ``E`` at once
-  (:func:`~.tree.grow_tree_strict`): one histogram pass per split iteration
-  for the whole batch (kernel B6) and one split-iteration launch (kernel
-  B3);
+* trees grow all ``E`` at once (:func:`~.tree.grow_trees_batched`, with
+  the width of :func:`_fused_wave_width`): strictly best-first below 2^19
+  rows (one histogram pass per split iteration for the whole batch, kernel
+  B6, and one split-iteration launch, kernel B3), in waves from 2^19 rows
+  or with an explicit ``grow_policy``/``wave_width`` (one histogram pass per
+  wave for the whole batch, kernel B5);
+* multiclass: each element grows its K class trees in the same batch, so
+  the grower's batch is configs x folds x classes and the scores are
+  ``[E, n, K]``;
 * early stopping runs on the device: each config's patience counters live
   in the carry.  The host reads one flag per round (whether every config
   has stopped), the loop's only host read.
@@ -42,14 +47,14 @@ from ..ops.split import fma
 from ..utils.random import fold_in, fold_in_keys, prng_key, split_keys
 from .gbdt import (HyperScalarsBatch, check_slice_scope, resolve_hist_dtype,
                    resolve_wave_width)
-from .tree import _PK, grow_tree_strict
+from .tree import _PK, grow_trees_batched
 
 _F32 = torch.float32
 
 
 class FusedCVCarry(NamedTuple):
     r: int                      # current round (host)
-    pred: torch.Tensor          # f32 [E, n] raw scores (all rows)
+    pred: torch.Tensor          # f32 [E, n] (or [E, n, K]) raw scores
     bag: torch.Tensor           # f32 [E, n] current bagging mask
     history: torch.Tensor       # f32 [T_max, E] per-round valid metric
     best_score: torch.Tensor    # f32 [C] sign-normalized best mean metric
@@ -134,12 +139,7 @@ class FusedCVProgram:
         self.batch = n_configs * n_folds
 
         hd = resolve_hist_dtype(p0, n_pad)
-        if _fused_wave_width(p0, n_pad, hd) != 1:
-            raise NotImplementedError(
-                "fused cv in the wave regime (>= 2**19 rows, or an explicit "
-                "grow_policy/wave_width other than strict) needs the batched "
-                "wave grower with kernel B5, which is not ported yet: ROADMAP "
-                "slice 2 (the next item)")
+        self.wave_width = _fused_wave_width(p0, n_pad, hd)
         self.hist_dtype = hd
         self.hist_impl = p0.extra.get("hist_impl", "auto")
         self.num_leaves = int(p0.num_leaves)
@@ -178,7 +178,11 @@ class FusedCVProgram:
         if hasattr(obj, "prepare"):
             obj.prepare(y_host, w_host)
         self.obj = obj
-        self._init_score = float(obj.init_score(y_host, w_host))
+        self.num_class = (int(p0.num_class) if p0.objective in (
+            "multiclass", "multiclassova") else 1)
+        init = obj.init_score(y_host, w_host)     # [K] priors multiclass
+        self._init_score = (torch.from_numpy(np.asarray(init, np.float32)).to(
+            dev) if self.num_class > 1 else float(init))
         self._es_rounds = int(early_stopping_rounds)
         self._min_delta = torch.tensor(
             [p.early_stopping_min_delta for p in param_list], dtype=_F32,
@@ -190,10 +194,15 @@ class FusedCVProgram:
     def init(self) -> FusedCVCarry:
         """Fresh round-0 carry (the bags seeded to the train masks)."""
         dev = self.device
+        if self.num_class > 1:
+            pred = self._init_score.expand(self.batch, self.n_pad,
+                                           self.num_class).clone()
+        else:
+            pred = torch.full((self.batch, self.n_pad), self._init_score,
+                              dtype=_F32, device=dev)
         return FusedCVCarry(
             r=0,
-            pred=torch.full((self.batch, self.n_pad), self._init_score,
-                            dtype=_F32, device=dev),
+            pred=pred,
             bag=self._tm.clone(),
             history=torch.full((self.num_boost_round, self.batch),
                                float("nan"), dtype=_F32, device=dev),
@@ -224,14 +233,32 @@ class FusedCVProgram:
             fmask = torch.ones((self.batch, num_features), dtype=_F32,
                                device=dev)
         g, h = self.obj.grad_hess(c.pred, ts.y, ts.w)
-        g, h = g * bag, (h * bag).expand_as(g)
-        stats_t = torch.stack([g.t(), h.t(), bag.t()], dim=-1)  # [n, E, 3]
-        P, _, row_leaf = grow_tree_strict(
-            ts.X_binned, stats_t, fmask, self.hyper.ctx(),
-            self.hyper.max_depth, self.num_leaves, self.num_bins,
+        k = self.num_class
+        hyper = self.hyper
+        if k > 1:
+            # element b's class c is grower element b * K + c (the
+            # reference's vmap over classes inside the vmap over the batch)
+            bag_k = bag[:, :, None].expand_as(g)
+            stats_t = torch.stack([(g * bag_k).permute(1, 0, 2),
+                                   (h * bag_k).permute(1, 0, 2),
+                                   bag_k.permute(1, 0, 2)], dim=-1).reshape(
+                                       self.n_pad, self.batch * k, 3)
+            fmask = fmask.repeat_interleave(k, dim=0)
+            hyper = HyperScalarsBatch(*(v.repeat_interleave(k)
+                                        for v in hyper))
+        else:
+            g, h = g * bag, (h * bag).expand_as(g)
+            stats_t = torch.stack([g.t(), h.t(), bag.t()], dim=-1)  # [n, E, 3]
+        P, _, row_leaf = grow_trees_batched(
+            ts.X_binned, stats_t, fmask, hyper.ctx(), hyper.max_depth,
+            self.num_leaves, self.num_bins, self.wave_width,
             hist_impl=self.hist_impl, hist_dtype=self.hist_dtype)
         vals = P[:, :, _PK.LEAF_VALUE].gather(1, row_leaf.t().to(torch.int64))
-        pred = fma(self.hyper.learning_rate[:, None], vals, c.pred)
+        if k > 1:
+            vals = vals.view(self.batch, k, self.n_pad).transpose(1, 2)
+            pred = fma(self.hyper.learning_rate[:, None, None], vals, c.pred)
+        else:
+            pred = fma(self.hyper.learning_rate[:, None], vals, c.pred)
 
         mvals = self.metric.fn(self.obj.transform(pred), ts.y,
                                ts.w * self._vm)                    # [E]

@@ -4,12 +4,16 @@ on its plain single-device branch.
 One boosting round: grad/hess of the objective -> bagging-masked stats ->
 one tree from the wave grower or the strict best-first grower
 (:func:`resolve_wave_width`) -> the train-score update, all on the
-training Dataset's device.  The host drives the rounds and reads only what
-decides control flow (one number per wave, the pruned table of an exact-tail
-tree, the metrics a callback asks for).  Bagging and ``feature_fraction``
-draw from the reference's counter-based streams (``utils/random.py``), keyed
-by round index, so the same params and seed give the same trees as the
-reference.
+training Dataset's device.  A multiclass round grows the K class trees as
+one batch over the shared binned matrix (the reference's ``vmap`` over the
+class axis, ``mc_round_update``): the batched wave grower, or the batched
+strict grower below 4,096 rows or 16 leaves; a round's tree then holds
+``[K, M]`` node arrays and scores are ``[n, K]``.  The host drives the
+rounds and reads only what decides control flow (one number per wave, the
+pruned table of an exact-tail tree, the metrics a callback asks for).
+Bagging and ``feature_fraction`` draw from the reference's counter-based
+streams (``utils/random.py``), keyed by round index, so the same params and
+seed give the same trees as the reference.
 
 What is outside this slice raises a ``NotImplementedError`` naming the
 ROADMAP slice that will port it: other objectives and boosting modes,
@@ -19,7 +23,7 @@ histograms.
 
 :class:`HyperScalarsBatch` holds the same scalars as per-element tensors for
 the fused cross-validation program (``models/fused.py``), where one batch
-element is one (config, fold).
+element is one (config, fold), or one (config, fold, class) multiclass.
 """
 
 from __future__ import annotations
@@ -42,10 +46,16 @@ from ..ops.sampling import sample_bag
 from ..ops.split import SplitContext, fma
 from ..utils.random import fold_in, prng_key
 from .feature_mask import compose_tree_mask
-from .tree import Tree, grow_tree
+from .tree import _PK, Tree, _tree_from_packed, grow_tree, grow_trees_batched
 
 _F32 = torch.float32
 _SLICE3 = "ROADMAP slice 3 (breadth of training)"
+
+
+def _class_tree(tree: Tree, c: int, axis: int = 0) -> Tree:
+    """Class ``c``'s trees of a multiclass round (``axis=0``, fields
+    ``[K, M]``) or forest (``axis=1``, fields ``[T, K, M]``)."""
+    return Tree(*(None if f is None else f.select(axis, c) for f in tree))
 
 
 class HyperScalars(NamedTuple):
@@ -180,7 +190,8 @@ def check_slice_scope(p: Params) -> None:
 
     if p.boosting != "gbdt":
         later(f"boosting='{p.boosting}'")
-    if p.objective not in ("regression", "binary"):
+    if p.objective not in ("regression", "binary", "multiclass",
+                           "multiclassova"):
         later(f"objective='{p.objective}'")
     if p.extra.get("fobj") is not None:
         later("a custom objective (fobj)")
@@ -263,7 +274,15 @@ class Booster:
         if hasattr(self.obj, "prepare"):
             self.obj.prepare(y_host, w_host)
         n_pad = int(ds.row_mask.shape[0])
-        if ds.get_init_score() is not None:
+        k = self._num_class
+        if k > 1:
+            if ds.get_init_score() is not None:
+                raise NotImplementedError(
+                    "per-row init_score with multiclass is not supported")
+            self.init_score_ = np.asarray(self.obj.init_score(y_host, w_host),
+                                          np.float32)           # [K]
+            self._pred_train = self._init_scores(n_pad)
+        elif ds.get_init_score() is not None:
             base = np.zeros(n_pad, np.float32)
             base[:ds.num_data_] = np.asarray(ds.get_init_score(), np.float32)
             self._pred_train = torch.from_numpy(base).to(self.device)
@@ -277,6 +296,21 @@ class Booster:
         self._base_lr = float(p.learning_rate)
         self._num_bins = ds.num_bins
         self._w_eff = ds.w
+
+    @property
+    def _num_class(self) -> int:
+        if self.params.objective in ("multiclass", "multiclassova"):
+            return int(self.params.num_class)
+        return 1
+
+    def _init_scores(self, n: int) -> torch.Tensor:
+        """The init score per row: ``[n]``, or ``[n, K]`` multiclass."""
+        if self._num_class > 1:
+            return torch.from_numpy(np.asarray(self.init_score_, np.float32)
+                                    ).to(self.device).expand(
+                                        n, self._num_class).clone()
+        return torch.full((n,), float(self.init_score_), dtype=_F32,
+                          device=self.device)
 
     @property
     def _depth_cap(self) -> int:
@@ -326,24 +360,53 @@ class Booster:
         hyper = self._hyper
         g, h = self.obj.grad_hess(self._pred_train, ds.y, self._w_eff)
         bag = self._bag
-        stats = torch.stack([g * bag, h * bag, (bag > 0).to(_F32)], dim=-1)
-        tree, row_leaf = grow_tree(
-            ds.X_binned, stats, fmask, hyper.ctx(), p.num_leaves,
-            self._num_bins, hyper.max_depth,
-            hist_impl=p.extra.get("hist_impl", "auto"),
-            hist_dtype=resolve_hist_dtype(p, n_pad),
-            wave_width=resolve_wave_width(p, n_pad))
         lr = torch.tensor(hyper.learning_rate, dtype=_F32, device=self.device)
-        self._pred_train = fma(lr, tree.leaf_value[row_leaf.to(torch.int64)],
-                               self._pred_train)
+        grow = dict(hist_impl=p.extra.get("hist_impl", "auto"),
+                    hist_dtype=resolve_hist_dtype(p, n_pad))
+        k = self._num_class
+        if k > 1:
+            # the K class trees as one batch (mc_round_update)
+            stats_t = torch.stack([g * bag[:, None], h * bag[:, None],
+                                   (bag > 0).to(_F32)[:, None].expand_as(g)],
+                                  dim=-1)                      # [n, K, 3]
+            P, n_leaves, row_leaf = grow_trees_batched(
+                ds.X_binned, stats_t, fmask.expand(k, -1),
+                SplitContext.per_element([hyper.ctx()] * k, self.device),
+                torch.full((k,), float(hyper.max_depth), device=self.device),
+                p.num_leaves, self._num_bins, resolve_wave_width(p, n_pad),
+                **grow)
+            tree = _tree_from_packed(P, n_leaves)             # [K, M] fields
+            vals = P[..., _PK.LEAF_VALUE].gather(
+                1, row_leaf.t().to(torch.int64))              # [K, n]
+            self._pred_train = fma(lr, vals.t(), self._pred_train)
+        else:
+            stats = torch.stack([g * bag, h * bag, (bag > 0).to(_F32)],
+                                dim=-1)
+            tree, row_leaf = grow_tree(
+                ds.X_binned, stats, fmask, hyper.ctx(), p.num_leaves,
+                self._num_bins, hyper.max_depth,
+                wave_width=resolve_wave_width(p, n_pad), **grow)
+            self._pred_train = fma(
+                lr, tree.leaf_value[row_leaf.to(torch.int64)],
+                self._pred_train)
         self.trees.append(tree)
         self._forest_cache = None
         shrink = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
         for idx, (name, vds, vpred) in enumerate(self._valid):
-            self._valid[idx] = (name, vds, vpred + shrink * predict_tree_binned(
+            self._valid[idx] = (name, vds, vpred + shrink * self._tree_values(
                 tree, vds.X_binned, p.num_leaves))
         self._iter += 1
         return False
+
+    def _tree_values(self, tree: Tree, bins: torch.Tensor,
+                     depth_cap) -> torch.Tensor:
+        """One round's leaf values per row: ``[n]``, or ``[n, K]`` for a
+        multiclass round (a tree per class)."""
+        if self._num_class == 1:
+            return predict_tree_binned(tree, bins, depth_cap)
+        return torch.stack([predict_tree_binned(_class_tree(tree, c), bins,
+                                                depth_cap)
+                            for c in range(self._num_class)], dim=1)
 
     def update_many(self, k: int) -> None:
         """Run ``k`` rounds (the reference scans them into one device
@@ -399,11 +462,10 @@ class Booster:
         if data.device != self.device:
             raise ValueError(f"valid set '{name}' lives on {data.device}, "
                              f"the Booster on {self.device}")
-        vpred = torch.full(data.row_mask.shape, self.init_score_, dtype=_F32,
-                           device=self.device)
+        vpred = self._init_scores(int(data.row_mask.shape[0]))
         shrink = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
         for tree in self.trees:
-            vpred = vpred + shrink * predict_tree_binned(
+            vpred = vpred + shrink * self._tree_values(
                 tree, data.X_binned, self._depth_cap)
         self._valid.append((name, data, vpred))
         return self
@@ -449,16 +511,22 @@ class Booster:
             _to_2d_float_array(data))
         bins = torch.from_numpy(codes).to(self.device)
         if not self.trees:
-            raw = torch.full((bins.shape[0],), float(self.init_score_),
-                             dtype=_F32, device=self.device)
+            raw = self._init_scores(bins.shape[0])
         else:
             forest = self._stacked_forest()
-            raw = predict_forest_binned(
-                forest, bins, torch.tensor(self._base_lr, dtype=_F32,
-                                           device=self.device),
-                self.init_score_, num_iteration,
-                min(self._depth_cap, self._forest_depth),
-                start_iteration=start_iteration)
+            lr = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
+            depth = min(self._depth_cap, self._forest_depth)
+            if self._num_class == 1:
+                raw = predict_forest_binned(
+                    forest, bins, lr, self.init_score_, num_iteration, depth,
+                    start_iteration=start_iteration)
+            else:
+                # one forest replay per class (_predict_forest_mc)
+                raw = torch.stack([predict_forest_binned(
+                    _class_tree(forest, c, axis=1), bins, lr,
+                    float(self.init_score_[c]), num_iteration, depth,
+                    start_iteration=start_iteration)
+                    for c in range(self._num_class)], dim=1)
         if raw_score:
             return raw.cpu().numpy()
         return self.obj.transform(raw).cpu().numpy()
@@ -486,7 +554,7 @@ class Booster:
         return list(self._feature_names or [])
 
     def num_model_per_iteration(self) -> int:
-        return 1
+        return self._num_class
 
     def feature_importance(self, importance_type: str = "split",
                            iteration: Optional[int] = None) -> np.ndarray:

@@ -25,6 +25,12 @@ monotone, extra-trees, interaction or per-node sampling):
   the next pick).  It grows a batch of ``E`` trees at once over a shared
   binned matrix, which is how fused cross-validation grows configs x folds;
   a Booster grows one (``E = 1``).
+
+:func:`grow_trees_batched` grows a batch of ``E`` trees over a shared binned
+matrix (the reference's ``vmap`` of ``grow_tree``: configs x folds of fused
+cross-validation, the classes of multiclass): strict at width 1, else in
+waves (:func:`grow_tree_frontier_batched`), whose every wave is one
+histogram pass for the whole batch, kernel B5 at the default widths.
 """
 
 from __future__ import annotations
@@ -34,9 +40,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.histogram import (compute_histograms, hist_partition_fused,
-                             hist_partition_plain, histograms_rows,
-                             resolve_mode)
+from ..ops.histogram import (compute_histograms, compute_histograms_batched,
+                             hist_partition_fused, hist_partition_plain,
+                             histograms_rows, resolve_mode)
 from ..ops.split import (SplitContext, constrained_leaf_output,
                          find_best_split)
 from .feature_mask import node_mask_fn
@@ -150,23 +156,24 @@ def _packed_root_table(capacity, root_out, root_tot, root_best
 
 
 def _tree_from_packed(P: torch.Tensor, n_leaves) -> Tree:
-    """Unpack the packed node table into the public Tree struct
-    (``n_leaves`` an int or a device scalar)."""
+    """Unpack the packed node table ``[..., cap, NC]`` into the public Tree
+    struct (``n_leaves`` an int, or a tensor of the table's leading shape);
+    a batch of tables gives a Tree whose fields lead with the batch axes."""
     K = _PK
     if isinstance(n_leaves, torch.Tensor):
-        num_leaves = n_leaves.to(torch.int32).reshape(())
+        num_leaves = n_leaves.to(torch.int32).reshape(P.shape[:-2])
     else:
         num_leaves = torch.tensor(int(n_leaves), dtype=torch.int32,
                                   device=P.device)
     return Tree(
-        split_feature=P[:, K.SPLIT_FEAT].to(torch.int32),
-        split_bin=P[:, K.SPLIT_BIN].to(torch.int32),
-        left=P[:, K.LEFT].to(torch.int32),
-        right=P[:, K.RIGHT].to(torch.int32),
-        leaf_value=P[:, K.LEAF_VALUE].clone(),
-        is_leaf=P[:, K.IS_LEAF] > 0.5,
-        count=P[:, K.COUNT].clone(),
-        split_gain=P[:, K.SPLIT_GAIN].clone(),
+        split_feature=P[..., K.SPLIT_FEAT].to(torch.int32),
+        split_bin=P[..., K.SPLIT_BIN].to(torch.int32),
+        left=P[..., K.LEFT].to(torch.int32),
+        right=P[..., K.RIGHT].to(torch.int32),
+        leaf_value=P[..., K.LEAF_VALUE].clone(),
+        is_leaf=P[..., K.IS_LEAF] > 0.5,
+        count=P[..., K.COUNT].clone(),
+        split_gain=P[..., K.SPLIT_GAIN].clone(),
         num_leaves=num_leaves,
     )
 
@@ -185,15 +192,7 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     grow in waves (:func:`grow_tree_frontier`); width 1 is the strict
     best-first grower (:func:`grow_tree_strict` with one element).
     """
-    raw = wave_width
-    width, tail, overgrow = decode_wave_width(int(wave_width))
-    if tail == "exact" and (width > 512 or overgrow <= num_leaves):
-        raise ValueError(
-            f"wave_width={raw} decodes to exact-tail (width={width}, "
-            f"overgrow_leaves={overgrow}) but is not a valid "
-            f"resolve_wave_width encoding for num_leaves={num_leaves}; raw "
-            "widths must be < 1024 — use gbdt.resolve_wave_width to encode "
-            "the exact tail")
+    width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if width <= 1:
         dev = bins.device
         fmask = feature_mask.to(_F32).reshape(1, -1)
@@ -208,6 +207,42 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
                               num_bins, max_depth, width,
                               hist_impl=hist_impl, hist_dtype=hist_dtype,
                               wave_tail=tail, overgrow_leaves=overgrow)
+
+
+def _decode_checked(wave_width: int, num_leaves: int):
+    """:func:`decode_wave_width`, refusing an exact-tail encoding that
+    :func:`~.gbdt.resolve_wave_width` cannot have produced."""
+    width, tail, overgrow = decode_wave_width(int(wave_width))
+    if tail == "exact" and (width > 512 or overgrow <= num_leaves):
+        raise ValueError(
+            f"wave_width={wave_width} decodes to exact-tail (width={width}, "
+            f"overgrow_leaves={overgrow}) but is not a valid "
+            f"resolve_wave_width encoding for num_leaves={num_leaves}; raw "
+            "widths must be < 1024 — use gbdt.resolve_wave_width to encode "
+            "the exact tail")
+    return width, tail, overgrow
+
+
+def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
+                       fmask: torch.Tensor, ctx: SplitContext,
+                       max_depth: torch.Tensor, num_leaves: int,
+                       num_bins: int, wave_width: int,
+                       hist_impl: str = "auto", hist_dtype: str = "f32"):
+    """Grow ``E`` trees at once over the shared ``bins`` (the reference's
+    ``vmap`` of :func:`grow_tree`): the strict grower at width 1
+    (:func:`grow_tree_strict`), else the batched wave grower
+    (:func:`grow_tree_frontier_batched`).  Inputs and outputs as
+    :func:`grow_tree_strict`'s: ``(table f32 [E, M, 24], n_leaves i32 [E],
+    row_leaf i32 [n, E])``."""
+    width, tail, overgrow = _decode_checked(wave_width, num_leaves)
+    if width <= 1:
+        return grow_tree_strict(bins, stats_t, fmask, ctx, max_depth,
+                                num_leaves, num_bins, hist_impl=hist_impl,
+                                hist_dtype=hist_dtype)
+    return grow_tree_frontier_batched(
+        bins, stats_t, fmask, ctx, max_depth, num_leaves, num_bins, width,
+        hist_impl=hist_impl, hist_dtype=hist_dtype, wave_tail=tail,
+        overgrow_leaves=overgrow)
 
 
 def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
@@ -550,12 +585,23 @@ def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int
     scored; strict growth is priority-first extraction over that gain tree
     (``num_leaves - 1`` trips of argmax over the available candidates, the
     first occurrence on ties).  The table is a few KB, so the replay runs on
-    the host in numpy; one device gather then remaps ``row_leaf`` onto the
-    pruned tree's node ids.
+    the host in numpy (:func:`_exact_prune_table`); one device gather then
+    remaps ``row_leaf`` onto the pruned tree's node ids.
     """
-    K = _PK
     dev = P.device
-    Pn = P.cpu().numpy()
+    newP, node_to_new, n_kept = _exact_prune_table(P.cpu().numpy(),
+                                                   num_leaves)
+    remap = torch.from_numpy(node_to_new).to(dev)
+    row_leaf_new = remap[row_leaf.to(torch.int64)]
+    tree = _tree_from_packed(torch.from_numpy(newP).to(dev), n_kept + 1)
+    return tree, row_leaf_new
+
+
+def _exact_prune_table(Pn: np.ndarray, num_leaves: int):
+    """The host half of :func:`_exact_prune` for one overgrown table
+    ``[m, NC]``: ``(pruned table [2 * num_leaves - 1, NC], node id map
+    i32 [m] from overgrown node to the pruned tree's leaf, splits kept)``."""
+    K = _PK
     m_over = Pn.shape[0]
     capacity = 2 * num_leaves - 1
     ids = np.arange(m_over)
@@ -604,10 +650,203 @@ def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int
     for _ in range(max(4, int(m_over).bit_length())):
         f = f[f]
     node_to_new = np.where(final_leaf[f], newid[f], 0).astype(np.int32)
-    remap = torch.from_numpy(node_to_new).to(dev)
-    row_leaf_new = remap[row_leaf.to(torch.int64)]
-    tree = _tree_from_packed(torch.from_numpy(newP).to(dev), n_kept + 1)
-    return tree, row_leaf_new
+    return newP, node_to_new, n_kept
+
+
+def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
+                               fmask: torch.Tensor, ctx: SplitContext,
+                               max_depth: torch.Tensor, num_leaves: int,
+                               num_bins: int, wave_width: int,
+                               hist_impl: str = "auto",
+                               hist_dtype: str = "f32",
+                               wave_tail: str = "half",
+                               overgrow_leaves: Optional[int] = None):
+    """Wave growth of ``E`` trees at once: the reference's
+    ``grow_tree_frontier`` under ``vmap`` (fused cross-validation in the
+    wave regime, multiclass), on its plain numeric, non-fused wave path.
+
+    ``bins`` u8 ``[n, F]`` is shared; ``stats_t`` f32 ``[n, E, 3]``,
+    ``fmask`` f32 ``[E, F]``, per-element ``ctx`` ``[E]`` and ``max_depth``
+    f32 ``[E]`` as for :func:`grow_tree_strict`.  Each element's tree is the
+    one :func:`grow_tree_frontier` grows for it alone: every element takes
+    its own wave size ``s`` (from its own budget and candidate count) and
+    an element whose loop has ended takes ``s = 0``, which carries it
+    unchanged while the others go on, as ``vmap`` carries a finished
+    ``while_loop`` element.  Per wave, for the whole batch: the row
+    partition (plain PyTorch ops on ``[E, n]``, as XLA ops in the
+    reference), one histogram pass over every split's smaller child
+    (:func:`~..ops.histogram.compute_histograms_batched`: kernel B5 at
+    ``W * 3 >= 64``, B6 below), siblings by subtraction from a per-element
+    cache ``[E, leaves, F, B, 3]``, and the fresh children scored with
+    :func:`~..ops.split.find_best_split` (the reference's XLA scan
+    rounding).  The root histogram takes B6.  The loop reads one flag per
+    wave on the host (whether any element still has work); the exact tail
+    reads the overgrown tables once, to prune them.
+
+    Returns ``(table f32 [E, 2 * num_leaves - 1, 24], n_leaves i32 [E],
+    row_leaf i32 [n, E])``.
+    """
+    n, e, _ = stats_t.shape
+    num_features = bins.shape[1]
+    dev = bins.device
+    K = _PK
+    nc = K.NC
+    exact = wave_tail == "exact"
+    grow_leaves = (max(num_leaves + 1, int(overgrow_leaves or 0))
+                   if exact else num_leaves)
+    capacity = 2 * grow_leaves - 1
+    w_width = min(int(wave_width), grow_leaves - 1)
+    i64 = torch.int64
+    neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
+    ar = torch.arange(e, device=dev)[:, None]
+    iota_w = torch.arange(w_width, device=dev)
+    fmask = fmask.to(_F32)
+    md = max_depth.to(_F32)[:, None]
+
+    # ---- root: the batch's narrow pass (kernel B6) ----------------------
+    root_hist = histograms_rows(bins, stats_t, None, 1, num_bins,
+                                impl=hist_impl,
+                                hist_dtype=hist_dtype)[:, 0]   # [E, F, B, 3]
+    root_tot = root_hist[:, 0].sum(dim=1)                     # [E, 3]
+    zero_e = torch.zeros(e, dtype=_F32, device=dev)
+    root_out = constrained_leaf_output(
+        root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
+        ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
+        zero_e)
+    root_best = find_best_split(root_hist, ctx, fmask, None, root_out,
+                                arith="scan")
+    # one spare row, slot and node id past the end take every write of an
+    # element's inactive wave lanes (the reference's out-of-bounds drop)
+    P = torch.cat([_packed_root_table(capacity, root_out, root_tot,
+                                      root_best),
+                   _empty_packed_table(1, dev).expand(e, 1, nc)], dim=1)
+    hist_cache = torch.zeros((e, grow_leaves + 1, num_features, num_bins, 3),
+                             dtype=_F32, device=dev)
+    hist_cache[:, 0] = root_hist
+    node_slot = torch.zeros((e, capacity + 1), dtype=i64, device=dev)
+    row_leaf = torch.zeros((e, n), dtype=i64, device=dev)
+    n_nodes = torch.ones(e, dtype=i64, device=dev)
+    n_leaves = torch.ones(e, dtype=i64, device=dev)
+    stats = stats_t.transpose(0, 1).contiguous()              # [E, n, 3]
+    bins_flat = bins.reshape(-1)
+    row_base = torch.arange(n, device=dev) * num_features
+
+    while True:
+        Pc = P[:, :capacity]
+        is_leaf = Pc[..., K.IS_LEAF] > 0.5
+        gains = torch.where(is_leaf, Pc[..., K.CAND_GAIN], neg_inf)
+        n_cand = torch.isfinite(gains).sum(dim=1)
+        live = (n_leaves < grow_leaves) & (n_cand > 0)
+        if not bool(live.any()):                  # the wave's host read
+            break
+        sel_key = torch.where(is_leaf, Pc[..., K.PM], neg_inf) if exact \
+            else gains
+        order = torch.argsort(-sel_key, dim=1, stable=True)
+        budget = grow_leaves - n_leaves
+        alloc = budget.clamp(min=1) if wave_tail != "half" \
+            else (budget // 2).clamp(min=1)
+        s = torch.where(live, torch.minimum(n_cand, alloc).clamp(
+            max=w_width), 0)                      # splits this wave [E]
+        active = iota_w < s[:, None]              # [E, W]
+        parent_r = order[:, :w_width]
+        prow = P.gather(1, parent_r[..., None].expand(e, w_width, nc))
+        direct_left = prow[..., K.CAND_LC] <= prow[..., K.CAND_RC]
+        nl_r = n_nodes[:, None] + 2 * iota_w
+        nr_r = nl_r + 1
+
+        # route the rows of the splitting leaves (plain ops on [E, n]);
+        # rows that go to their split's smaller child get its wave rank
+        slot_of_node = torch.full((e, capacity + 1), -1, dtype=i64,
+                                  device=dev)
+        slot_of_node.scatter_(1, torch.where(active, parent_r, capacity),
+                              torch.where(active, iota_w, -1))
+        slot = slot_of_node.gather(1, row_leaf)
+        sel = slot >= 0
+        s_safe = slot.clamp(min=0)
+        feat_row = prow[..., K.CAND_FEAT].to(i64).gather(1, s_safe)
+        code = bins_flat[row_base + feat_row].to(i64)
+        go_left = code <= prow[..., K.CAND_BIN].to(i64).gather(1, s_safe)
+        row_leaf = torch.where(
+            sel, n_nodes[:, None] + 2 * s_safe + (~go_left).to(i64),
+            row_leaf)
+        direct = go_left == direct_left.gather(1, s_safe)
+        seg = torch.where(sel & direct, s_safe, -1).to(torch.int32)
+        direct_hist = compute_histograms_batched(
+            bins, stats, seg, w_width, num_bins, impl=hist_impl,
+            hist_dtype=hist_dtype)                # [E, W, F, B, 3]
+
+        # siblings by subtraction from the per-element histogram cache
+        parent_slot = node_slot.gather(1, parent_r)
+        other_hist = hist_cache[ar, parent_slot] - direct_hist
+        dl = direct_left[..., None, None, None]
+        left_hist = torch.where(dl, direct_hist, other_hist)
+        right_hist = torch.where(dl, other_hist, direct_hist)
+        right_slot = n_leaves[:, None] + iota_w
+        hist_cache[ar, torch.where(active, parent_slot, grow_leaves)] = \
+            left_hist
+        hist_cache[ar, torch.where(active, right_slot, grow_leaves)] = \
+            right_hist
+        node_slot.scatter_(1, torch.where(active, nl_r, capacity),
+                           parent_slot)
+        node_slot.scatter_(1, torch.where(active, nr_r, capacity),
+                           right_slot)
+
+        # score the 2W fresh children of every element
+        child_nodes = torch.cat([nl_r, nr_r], dim=1)           # [E, 2W]
+        child_hists = torch.cat([left_hist, right_hist], dim=1)
+        child_depth1 = prow[..., K.DEPTH] + 1.0
+        child_depth = torch.cat([child_depth1, child_depth1], dim=1)
+        depth_ok = (md <= 0) | (child_depth < md)
+        child_vals = torch.cat([prow[..., K.CAND_WL], prow[..., K.CAND_WR]],
+                               dim=1)
+        bs = find_best_split(child_hists, ctx,
+                             fmask[:, None, :].expand(e, 2 * w_width,
+                                                      num_features),
+                             depth_ok, child_vals, arith="scan")
+
+        # commit: the parents become internal, the children arrive with
+        # their candidate splits; inactive lanes write the spare row
+        parent_rows = prow.clone()
+        parent_rows[..., K.SPLIT_FEAT] = prow[..., K.CAND_FEAT]
+        parent_rows[..., K.SPLIT_BIN] = prow[..., K.CAND_BIN]
+        parent_rows[..., K.LEFT] = nl_r.to(_F32)
+        parent_rows[..., K.RIGHT] = nr_r.to(_F32)
+        parent_rows[..., K.IS_LEAF] = 0.0
+        parent_rows[..., K.SPLIT_GAIN] = gains.gather(1, parent_r)
+        c2 = (e, 2 * w_width)
+
+        def full(v):
+            return torch.full(c2, v, dtype=_F32, device=dev)
+
+        child_rows = torch.stack([
+            full(-1.0), full(0.0), full(-1.0), full(-1.0),  # FEAT BIN L R
+            child_vals,                                     # LEAF_VALUE
+            full(1.0),                                      # IS_LEAF
+            torch.cat([prow[..., K.CAND_LC], prow[..., K.CAND_RC]], dim=1),
+            full(0.0), child_depth,                         # GAIN, DEPTH
+            bs.gain, bs.feature.to(_F32), bs.bin.to(_F32),
+            bs.left_g, bs.left_h, bs.left_c,
+            bs.right_g, bs.right_h, bs.right_c,
+            bs.left_out, bs.right_out,                      # CAND_WL, WR
+            full(float("-inf")), full(float("inf")),        # BOUND_LO, HI
+            full(0.0),                                      # CAND_CAT
+            torch.minimum(torch.cat([prow[..., K.PM], prow[..., K.PM]],
+                                    dim=1), bs.gain),       # PM
+        ], dim=-1)
+        P[ar, torch.where(active, parent_r, capacity)] = parent_rows
+        active2 = torch.cat([active, active], dim=1)
+        P[ar, torch.where(active2, child_nodes, capacity)] = child_rows
+        n_nodes = n_nodes + 2 * s
+        n_leaves = n_leaves + s
+
+    P = P[:, :capacity]
+    if exact:
+        pruned = [_exact_prune_table(t, num_leaves) for t in P.cpu().numpy()]
+        P = torch.from_numpy(np.stack([p[0] for p in pruned])).to(dev)
+        remap = torch.from_numpy(np.stack([p[1] for p in pruned])).to(dev)
+        row_leaf = remap.to(i64).gather(1, row_leaf)
+        n_leaves = torch.tensor([p[2] + 1 for p in pruned], device=dev)
+    return P, n_leaves.to(torch.int32), row_leaf.t().to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,22 @@ and of the two histogram kernels the default grower runs.
   to their split's smaller ("direct") child by wave rank.  The port of kernel
   B2 (``hist_partition_fused_pallas``), as CUDA in ``csrc/hist_partition.cu``.
 * :func:`hist_segstats` — bins u8 ``[n, F]`` x pre-folded statistics f32
-  ``[n, Kc]`` -> f32 ``[F, B, Kc]``, the route of every batched histogram
-  (:func:`compute_histograms_batched`: fused cross-validation over configs x
-  folds).  The port of kernel B6 (``hist_from_segstats_pallas``), as CUDA in
+  ``[n, Kc]`` -> f32 ``[F, B, Kc]``, the route of the narrow batched
+  histograms (:func:`compute_histograms_batched`: the roots and the strict
+  grower's two children, over configs x folds x classes).  The port of
+  kernel B6 (``hist_from_segstats_pallas``), as CUDA in
   ``csrc/hist_segstats.cu``.
+* :func:`hist_fused_batched` — bins u8 ``[n, F]`` shared x stats f32
+  ``[E, n, S]`` x segment i32 ``[E, n]`` -> f32 ``[E, K, F, B, S]``, the
+  route of the wide batched histograms (``K * S >= 64``: every wave of the
+  batched wave grower).  The port of kernel B5
+  (``hist_fused_pallas_batched``), as CUDA in ``csrc/hist_fused_batched.cu``.
 
 Each dispatches on the device of ``bins``: a CPU tensor takes the plain
 PyTorch version beside it (:func:`hist_fused_plain`,
-:func:`hist_partition_plain`); a CUDA tensor launches the kernel or raises.
+:func:`hist_partition_plain`, :func:`hist_segstats_plain`,
+:func:`hist_fused_batched_plain`); a CUDA tensor launches the kernel or
+raises.
 There is no fallback from one to the other.  ``impl="plain"`` (the
 reference's ``hist_impl="jnp"``) asks for the plain version explicitly, on
 either device.
@@ -171,6 +179,44 @@ def hist_segstats(bins: torch.Tensor, segstats: torch.Tensor, num_bins: int,
     return launch(bins, segstats, num_bins, mode)
 
 
+def hist_fused_batched_plain(bins: torch.Tensor, stats: torch.Tensor,
+                             seg: torch.Tensor, num_segments: int,
+                             num_bins: int, mode: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`hist_fused_batched`: per element
+    :func:`hist_fused_plain` (an f64 ``index_add_``, rounded once), so no
+    ``[n, E*K*S]`` operand is ever folded."""
+    return torch.stack([hist_fused_plain(bins, stats[e], seg[e], num_segments,
+                                         num_bins, mode)
+                        for e in range(stats.shape[0])])
+
+
+def hist_fused_batched(bins: torch.Tensor, stats: torch.Tensor,
+                       seg: torch.Tensor, num_segments: int, num_bins: int,
+                       mode: str = "f32") -> torch.Tensor:
+    """bins u8 ``[n, F]`` x stats f32 ``[E, n, S]`` x segment i32 ``[E, n]``
+    -> f32 ``[E, K, F, B, S]``: kernel B5 on a CUDA tensor (the port of
+    ``hist_fused_pallas_batched``), its plain version on a CPU tensor."""
+    if bins.device.type == "cpu":
+        return hist_fused_batched_plain(bins, stats, seg, num_segments,
+                                        num_bins, mode)
+    from ..kernels.histogram import hist_fused_batched as launch
+
+    return launch(bins, stats, seg, num_segments, num_bins, mode)
+
+
+# the reference's batched route: a batched call with num_segments * S lanes
+# at or above this takes the batched fused kernel (B5), narrower ones the
+# segstats fold (B6).  On the H100 the threshold is the reference's, kept
+# until the card's measurement (PERF.md) says otherwise.
+WIDE_SEGMENT_LANES = 64
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ("auto", "plain", "jnp"):
+        raise ValueError(f"unknown hist_impl {impl!r}: expected 'auto' or "
+                         "'plain'")
+
+
 def segstats_rows(stats_t: torch.Tensor, seg_t: torch.Tensor,
                   num_segments: int) -> torch.Tensor:
     """Fold (segment one-hot x statistics) in row-major batch layout:
@@ -188,23 +234,26 @@ def histograms_rows(bins: torch.Tensor, stats_t: torch.Tensor,
                     seg_t: Optional[torch.Tensor], num_segments: int,
                     num_bins: int, impl: str = "auto",
                     hist_dtype: str = "f32") -> torch.Tensor:
-    """:func:`compute_histograms_batched` on the row-major layout the fused
+    """:func:`compute_histograms_batched` on the row-major layout the strict
     grower keeps (``stats_t [n, E, S]``, ``seg_t [n, E]``; ``seg_t=None``
     puts every row in segment 0): f32 ``[E, K, F, B, S]``."""
     mode = resolve_mode(hist_dtype)
+    _check_impl(impl)
     n, e, s = stats_t.shape
     f = bins.shape[1]
+    if num_segments * s >= WIDE_SEGMENT_LANES:
+        seg = (torch.zeros((e, n), dtype=torch.int32, device=bins.device)
+               if seg_t is None else seg_t.t().to(torch.int32).contiguous())
+        return _batched_fused(bins, stats_t.transpose(0, 1).contiguous(), seg,
+                              num_segments, num_bins, impl, mode)
     if seg_t is None and num_segments == 1:
         segstats = stats_t.reshape(n, e * s)
     else:
         segstats = segstats_rows(stats_t, seg_t, num_segments)
     if impl in ("plain", "jnp"):
         hists = hist_segstats_plain(bins, segstats, num_bins, mode)
-    elif impl == "auto":
-        hists = hist_segstats(bins, segstats, num_bins, mode)
     else:
-        raise ValueError(f"unknown hist_impl {impl!r}: expected 'auto' or "
-                         "'plain'")
+        hists = hist_segstats(bins, segstats, num_bins, mode)
     return hists.view(f, num_bins, e, num_segments, s).permute(
         2, 3, 0, 1, 4).contiguous()
 
@@ -217,13 +266,29 @@ def compute_histograms_batched(bins: torch.Tensor, stats: torch.Tensor,
     ``compute_histograms_batched``): bins ``[n, F]``, stats ``[E, n, S]``,
     seg_id ``[E, n]`` -> f32 ``[E, K, F, B, S]``.
 
-    The batch's statistics fold into one ``[n, E*K*S]`` operand and go
-    through one histogram pass: kernel B6 on a CUDA tensor, for every
-    batched call (the reference's ``k_inner >= 64`` threshold is a TPU
-    lane-width rule), its plain version on a CPU tensor.
+    The reference's route: a wide-segment call (``K * S >= 64``, every wave
+    of the batched wave grower) takes kernel B5, which folds each element's
+    segments itself; a narrow one (the roots, the strict grower's two
+    children) folds the batch's statistics into one ``[n, E*K*S]`` operand
+    for kernel B6 (the reference's ``k_inner >= 64`` rule for that kernel is
+    a TPU lane-width rule, so every narrow call takes it).  A CPU tensor
+    takes the plain versions.
     """
+    mode = resolve_mode(hist_dtype)
+    _check_impl(impl)
+    if num_segments * stats.shape[2] >= WIDE_SEGMENT_LANES:
+        return _batched_fused(bins, stats.contiguous(),
+                              seg_id.to(torch.int32).contiguous(),
+                              num_segments, num_bins, impl, mode)
     return histograms_rows(bins, stats.transpose(0, 1), seg_id.transpose(0, 1),
                            num_segments, num_bins, impl, hist_dtype)
+
+
+def _batched_fused(bins, stats, seg, num_segments, num_bins, impl, mode):
+    if impl in ("plain", "jnp"):
+        return hist_fused_batched_plain(bins, stats, seg, num_segments,
+                                        num_bins, mode)
+    return hist_fused_batched(bins, stats, seg, num_segments, num_bins, mode)
 
 
 def compute_histograms(bins: torch.Tensor, stats: torch.Tensor,

@@ -3,7 +3,8 @@
 Bin mappers and the JSON text model use the reference's schema, so a model
 file written by either package loads in the other: ``booster_to_string``,
 ``save_booster`` (JSON text, or the packed ``.npz`` serving artifact) and
-``load_booster_into`` (both formats).
+``load_booster_into`` (both formats).  A multiclass model stores the ``[K]``
+class priors as its init score and ``[K, M]`` node arrays per round.
 """
 
 from __future__ import annotations
@@ -173,11 +174,9 @@ def load_booster_into(booster, model_file=None, model_str=None) -> None:
         raise ValueError("not a lightgbm_tpu model file")
     _load_params(booster, doc["params"])
     init = doc["init_score"]
-    if isinstance(init, list):
-        raise NotImplementedError(
-            "multiclass models are not ported yet: ROADMAP slice 3 "
-            "(breadth of training)")
-    booster.init_score_ = float(init)
+    # a scalar for binary/regression, the [K] class priors for multiclass
+    booster.init_score_ = (np.asarray(init, np.float32)
+                           if isinstance(init, list) else float(init))
     trees = [_tree_from_dict(t, booster.device) for t in doc["trees"]]
     _reset_loaded(booster, trees, doc.get("best_iteration", -1),
                   doc.get("feature_names"), mapper_from_dict(doc["bin_mapper"]))
@@ -190,13 +189,14 @@ def _load_packed_into(booster, path: str) -> None:
     from ..serving.packed import PackedForest
 
     pf = PackedForest.load(path)
-    if pf.num_class > 1 or pf.is_cat_split is not None:
+    if pf.is_cat_split is not None:
         raise NotImplementedError(
-            "multiclass and categorical models are not ported yet: ROADMAP "
-            "slice 3 (breadth of training)")
+            "categorical models are not ported yet: ROADMAP slice 3 "
+            "(breadth of training)")
     _load_params(booster, pf.params)
-    booster.init_score_ = float(pf.init_score[0])
-    num_leaves = np.sum(pf.is_leaf, axis=-1).astype(np.int32)
+    booster.init_score_ = (np.asarray(pf.init_score, np.float32)
+                           if pf.num_class > 1 else float(pf.init_score[0]))
+    num_leaves = np.sum(pf.is_leaf, axis=-1).astype(np.int32)   # [T(, K)]
     zeros = np.zeros(pf.split_feature.shape[1:], np.float32)
     trees = [tree_from_arrays({
         "split_feature": pf.split_feature[t], "split_bin": pf.split_bin[t],

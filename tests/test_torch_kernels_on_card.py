@@ -1,7 +1,7 @@
 """The hand-written kernels against their plain PyTorch versions on the card:
 the forest-predict kernel (B4), the histogram kernels (B1 ``hist_fused``,
-B2 ``hist_partition``, B6 ``hist_segstats``) and the split iteration (B3
-``split_iter``, bit for bit).
+B2 ``hist_partition``, B5 ``hist_fused_batched``, B6 ``hist_segstats``) and
+the split iteration (B3 ``split_iter``, bit for bit).
 
 The tests need a CUDA card and nvcc and skip without them.  This file
 imports no JAX, so it runs on the machine with the card (whose Python has
@@ -241,3 +241,25 @@ def test_b3_kernel_matches_plain_bit_for_bit_on_card():
         assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
         scal[:, 8] += 2.0 * (aux[:, 3] > 0).float()
         table, aux = tp, ap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("k", [22, 42])
+def test_b5_kernel_matches_plain_on_card(mode, k):
+    dev = _card()
+    rng = np.random.default_rng(23)
+    n, f, e = 60_013, 9, 3
+    bins = rng.integers(0, 256, (n, f)).astype(np.uint8)
+    stats = np.stack([_stats(rng, n) for _ in range(e)])
+    seg = rng.integers(-1, k + 2, (e, n)).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+    got = th.hist_fused_batched(*t, k, 256, mode)
+    again = th.hist_fused_batched(*t, k, 256, mode)
+    want = th.hist_fused_batched_plain(*t, k, 256, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (e, k, f, 256, 3)
+    assert torch.equal(got, again)
+    for i in range(e):
+        _close(got[i].cpu().numpy(), want[i].cpu().numpy(),
+               _abs_hist(bins, stats[i], seg[i], k, 256, mode))

@@ -214,7 +214,10 @@ OUT_OF_SLICE = {
     "goss": {"boosting": "goss"},
     "dart": {"boosting": "dart"},
     "rf": {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-    "multiclass": {"objective": "multiclass", "num_class": 3},
+    # multiclass trains since the batched wave grower; under a boosting
+    # mode outside the slice it still raises by name
+    "multiclass": {"objective": "multiclass", "num_class": 3,
+                   "boosting": "dart"},
     "lambdarank": {"objective": "lambdarank"},
     "poisson": {"objective": "poisson"},
     "linear_tree": {"linear_tree": True},
