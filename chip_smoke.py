@@ -99,7 +99,27 @@ Phases:
    ``multi_logloss`` within 1e-4; on a dyadic tier (8 classes at a zero
    init score) the round-1 trees equal at bf16 and f32; the model saved as
    text and as ``.npz``, reloaded, and served through ``ModelBank`` (B4,
-   ``[n, 7]``) within 1e-5 of ``Booster.predict``.
+   ``[n, 7]``) within 1e-5 of ``Booster.predict``;
+12. quantized-histogram training (``hist_dtype="int8"``, B1's int8 mode,
+   ``hist_fused_int8``): (a) the kernel bit for bit against its plain
+   version (the sums are exact integers), two launches bit-equal, and
+   within the reference's bound ``scale * 4 * sqrt(rows in the cell + 9)``
+   of the float64 sums of the unquantized statistics, at the north-star
+   root, at the recorded 42-split wave (its direct children as segments)
+   and at awkward shapes; 16,909,321 rows refused before any launch; (b)
+   north-star training at int8 (10 rounds on the wave grower's unfused
+   route: B1 int8 for every root and wave, B2 never) through the kernels
+   and the plain versions, trees and predictions identical, held-out AUC
+   no more than 0.01 below phase 6's bf16, int8 and bf16 rounds timed in
+   turns; (c) the strict Booster at int8 (3 rounds: B1 int8 with two
+   segments, B3), kernel and plain trees identical; (d) ``cv()`` at int8 on
+   the diamonds split (B6 at f32, B3): ``best_iter`` and ``best_score``
+   equal to phase 8b's f32 ``cv()``; (e) ``python -m lightgbm_tpu_torch
+   task=train`` at int8 on a 200,000-row CSV written here, ``task=predict``
+   equal to ``Booster(model_file=...).predict`` (to the file's 10
+   significant digits), and the model through ``pack_booster`` and
+   ``task=serve`` within 1e-5; then B1 int8's time, plain time, bound and
+   one ``index_add_`` call's at the root and the wave.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -137,7 +157,7 @@ SPIN_CYCLES = 20_000_000
 KERNEL_SOURCE = "lightgbm_tpu_torch/csrc/predict_forest.cu"
 REPLACES = "lightgbm_tpu/ops/predict.py:257"
 KERNELS = ("predict_forest", "hist_fused", "hist_partition", "split_iter",
-           "hist_segstats", "hist_fused_batched")
+           "hist_segstats", "hist_fused_batched", "hist_fused_int8")
 HIST_SOURCES = {
     "hist_fused": ("lightgbm_tpu_torch/csrc/hist_fused.cu",
                    "lightgbm_tpu/ops/histogram_pallas.py:304"),
@@ -150,6 +170,10 @@ SEGSTATS_SOURCE = ("lightgbm_tpu_torch/csrc/hist_segstats.cu",
                    "lightgbm_tpu/ops/histogram_pallas.py:76")
 BATCHED_SOURCE = ("lightgbm_tpu_torch/csrc/hist_fused_batched.cu",
                   "lightgbm_tpu/ops/histogram_pallas.py:955")
+INT8_SOURCE = ("lightgbm_tpu_torch/csrc/hist_fused_int8.cu",
+               "lightgbm_tpu/ops/histogram_pallas.py:304")
+# phase 12e: the CLI's int8 training file, its test file, requests served
+CLI_ROWS, CLI_TEST_ROWS, CLI_SERVE_ROWS = 200_000, 20_000, 256
 # the grid-search workflow (examples/gridsearch_cv.py, r/gridsearchCV.R)
 SWEEP_SEED = 3928272
 CV_PARAMS = {"learning_rate": 0.1, "objective": "regression"}
@@ -962,6 +986,11 @@ def phase_train(dev, X, y, workdir):
               f"{mode}: B1 launched {c[f'hist_fused_{mode}']} times")
         check(c[f"hist_partition_{mode}"] > TRAIN_ROUNDS,
               f"{mode}: B2 launched {c[f'hist_partition_{mode}']} times")
+        # B1 only at the roots: every wave took B2, never the unfused route
+        check(c[f"hist_fused_{mode}"] == TRAIN_ROUNDS
+              and c["hist_fused_int8"] == 0,
+              f"{mode}: B1 launched {c[f'hist_fused_{mode}']} times (int8 "
+              f"{c['hist_fused_int8']}): a wave took the unfused route")
         check(r["plain_calls"] == 0,
               f"{mode}: {r['plain_calls']} plain-version calls on the kernel "
               "path")
@@ -1049,7 +1078,7 @@ def phase_train(dev, X, y, workdir):
     return result
 
 
-def profile_rounds(lgb, ds, params, rounds=3):
+def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
     """Where a north-star round's time goes: ``torch.profiler`` over
     ``rounds`` rounds after one warm round; device time by kernel family,
     the device's busy share of the wall time, and the host syncs (one per
@@ -1069,7 +1098,7 @@ def profile_rounds(lgb, ds, params, rounds=3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counters()
     families = {"hist_partial_kernel": 0.0, "hist_reduce_kernel": 0.0,
-                "route_kernel": 0.0, "other": 0.0}
+                "route_kernel": 0.0, "int8_hist_kernel": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -1082,7 +1111,10 @@ def profile_rounds(lgb, ds, params, rounds=3):
         families[fam] += dev_us / 1e3
     device_ms = sum(families.values())
     top.sort(reverse=True)
-    waves = counts["hist_partition_bf16"] / rounds
+    # a wave is one B2 launch, or on the unfused route one B1 int8 launch
+    # beyond the tree's root
+    waves = (counts["hist_partition_bf16"] + counts["hist_partition_f32"]
+             + max(counts["hist_fused_int8"] - rounds, 0)) / rounds
     out = {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
            "device_ms_per_round": device_ms / rounds,
            "device_busy_share": device_ms / wall_ms if wall_ms else None,
@@ -1095,7 +1127,7 @@ def profile_rounds(lgb, ds, params, rounds=3):
                 "calls_per_round": c / rounds} for us, k, c in top[:10]]}
     if device_ms == 0:
         out["device_busy_share"] = "not measured (no device time traced)"
-    log(f"phase 6 breakdown (profiled): {json.dumps(out)}")
+    log(f"{tag} breakdown (profiled): {json.dumps(out)}")
     return out
 
 
@@ -2050,6 +2082,308 @@ def phase_multiclass(dev, X, y, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: quantized-histogram training (B1's int8 mode)
+# ---------------------------------------------------------------------------
+def int8_case(name, bins, stats, seg, k, num_bins):
+    """B1 int8 against its plain version (bit for bit: the sums are exact
+    integers), two launches bit-equal, and within the reference's
+    statistical bound of the float64 sums of the unquantized statistics:
+    ``scale * 4 * sqrt(rows in the cell + 9)`` per cell."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    what = f"hist_fused int8 {name}"
+    got = H.hist_fused(bins, stats, seg, k, num_bins, "int8")
+    again = H.hist_fused(bins, stats, seg, k, num_bins, "int8")
+    plain = H.hist_fused_plain(bins, stats, seg, k, num_bins, "int8")
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    check(bits_equal(got, plain), f"{what}: kernel and plain version differ "
+          f"(max {float((got - plain).abs().max()):.3e})")
+    ref, _ = f64_hists(bins, stats, seg, k, num_bins, "f32")
+    ones = torch.ones((bins.shape[0], 1), dtype=torch.float32,
+                      device=bins.device)
+    rows, _ = f64_hists(bins, ones, seg, k, num_bins, "f32")
+    scale = H.quantize_int8(stats)[1].to(torch.float64)
+    tol = scale * 4.0 * torch.sqrt(rows + 9.0)
+    err = (got.to(torch.float64) - ref).abs()
+    check(bool(torch.isfinite(got).all()) and bool((err <= tol).all()),
+          f"{what}: a cell is outside the quantization bound (max "
+          f"err/bound {float((err / tol).max()):.3f})")
+    return float((err / tol).max())
+
+
+def phase_int8_kernel(dev, bins, root_stats, wave):
+    """(a) B1 int8 against its plain version at the north-star root, at a
+    recorded real wave and at awkward shapes; the row limit."""
+    from lightgbm_tpu_torch.kernels.histogram import HIST_FUSED_LAUNCHES
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    rng = np.random.default_rng(SEED + 130)
+    n = bins.shape[0]
+    seg_w, _ = H.route_wave(wave[0], *wave[2:8])
+    w = int(wave[4].shape[0])
+    ratios = {
+        "north-star root": int8_case(
+            "north-star root", bins, root_stats,
+            torch.zeros(n, dtype=torch.int32, device=dev), 1, 256),
+        f"north-star wave (K={w})": int8_case(
+            f"north-star wave (K={w})", bins, root_stats,
+            seg_w.to(torch.int32), w, 256)}
+    for name, (rows, f, nb, k, lo) in {
+            "ragged, ids in [-3, 9)": (300_001, 28, 256, 7, -3),
+            "300 features, 2 bins": (20_011, 300, 2, 3, 0)}.items():
+        b = torch.from_numpy(rng.integers(0, nb, (rows, f)).astype(
+            np.uint8)).to(dev)
+        sg = torch.from_numpy(rng.integers(lo, k + 2, rows).astype(
+            np.int32)).to(dev)
+        ratios[name] = int8_case(name, b, stats_for(rng, rows, dev), sg, k,
+                                 nb)
+    # the row limit: refused before any launch
+    big = H.INT8_ACC_ROW_LIMIT + 1
+    before = HIST_FUSED_LAUNCHES["int8"].count
+    try:
+        H.hist_fused(torch.zeros((big, 1), dtype=torch.uint8, device=dev),
+                     torch.zeros((big, 1), device=dev),
+                     torch.zeros(big, dtype=torch.int32, device=dev), 1, 2,
+                     "int8")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and HIST_FUSED_LAUNCHES["int8"].count == before,
+          f"{big:,} rows in int8 mode were not refused before launch")
+    log(f"phase 12a: B1 int8 == plain version bit for bit, two launches "
+        f"bit-equal, within the quantization bound (max err/bound "
+        f"{json.dumps(ratios)}); {big:,} rows refused before launch")
+    return ratios
+
+
+def trees_identical(a, b, n_trees):
+    return all(all(np.array_equal(x[key], y[key]) for key in x)
+               for x, y in ((tree_arrays(a, i), tree_arrays(b, i))
+                            for i in range(n_trees)))
+
+
+def phase_int8_train(dev, X, y, auc_bf16):
+    """(b) north-star training at ``hist_dtype="int8"`` through the kernels
+    and the plain versions; int8 and bf16 rounds timed in turns; (c) the
+    strict Booster at int8."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    params = dict(TRAIN_PARAMS, hist_dtype="int8")
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain_calls = counted_run(
+            lambda: lgb.train(dict(params, **extra), ds, TRAIN_ROUNDS))
+        runs[tag] = {"booster": b, "s": secs, "counts": counts,
+                     "plain_calls": plain_calls, "auc": auc(b, Xv, yv, dev)}
+        log(f"phase 12b int8 {tag}: {TRAIN_ROUNDS} rounds in {secs:.2f} s, "
+            f"AUC {runs[tag]['auc']:.6f}, launches {json.dumps(counts)}, "
+            f"plain calls {plain_calls}")
+    k, p = runs["kernels"], runs["plain"]
+    c = k["counts"]
+    check(c["hist_fused_int8"] > TRAIN_ROUNDS,
+          f"int8 training launched B1 int8 {c['hist_fused_int8']} times")
+    check(c["hist_partition_f32"] + c["hist_partition_bf16"] == 0
+          and c["hist_fused_f32"] + c["hist_fused_bf16"] == 0,
+          f"int8 training took another histogram kernel: {c}")
+    check(k["plain_calls"] == 0, f"{k['plain_calls']} plain-version calls on "
+          "the int8 kernel path")
+    check(sum(v for key, v in p["counts"].items()
+              if key.startswith("hist_")) == 0,
+          "int8 hist_impl='plain' launched a histogram kernel")
+    same = trees_identical(k["booster"], p["booster"], TRAIN_ROUNDS)
+    pred_k, pred_p = k["booster"].predict(Xv), p["booster"].predict(Xv)
+    check(same and np.array_equal(pred_k, pred_p),
+          "int8 kernel and plain paths grew other trees or predictions")
+    gap = k["auc"] - auc_bf16
+    check(0.5 < k["auc"] < 1.0 and gap >= -0.01,
+          f"int8 AUC {k['auc']} more than 0.01 below bf16's {auc_bf16}")
+    # int8 and bf16 rounds in turns (int8 bf16, bf16 int8)
+    timed = {"int8": [], "bf16": []}
+    for i in range(2):
+        pair = (("int8", params), ("bf16", TRAIN_PARAMS))
+        for tag, prm in (pair if i % 2 == 0 else pair[::-1]):
+            timed[tag].append(train_run(lgb, ds, prm, TRAIN_ROUNDS)[1]
+                              / TRAIN_ROUNDS)
+    log(f"phase 12b timing: s/round in turns {json.dumps(timed)}")
+    breakdown = profile_rounds(lgb, ds, params, tag="phase 12b int8")
+
+    sp = dict(params, grow_policy="leafwise")
+    strict = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain_calls = counted_run(
+            lambda: lgb.train(dict(sp, **extra), ds, STRICT_ROUNDS))
+        strict[tag] = {"booster": b, "s": secs, "counts": counts,
+                       "plain_calls": plain_calls}
+        log(f"phase 12c strict int8 {tag}: {STRICT_ROUNDS} rounds in "
+            f"{secs:.2f} s, launches {json.dumps(counts)}, plain calls "
+            f"{plain_calls}")
+    sc = strict["kernels"]["counts"]
+    check(sc["hist_fused_int8"] > 0 and sc["split_iter"] > 0
+          and strict["kernels"]["plain_calls"] == 0,
+          f"strict int8 kernel path launches {sc}")
+    check(trees_identical(strict["kernels"]["booster"],
+                          strict["plain"]["booster"], STRICT_ROUNDS),
+          "strict int8 kernel and plain trees differ")
+    out = {"rounds": TRAIN_ROUNDS,
+           "s_per_round": {t: r["s"] / TRAIN_ROUNDS for t, r in runs.items()},
+           "s_per_round_in_turns": timed,
+           "s_per_round_median": {t: float(np.median(v))
+                                  for t, v in timed.items()},
+           "auc": {t: r["auc"] for t, r in runs.items()},
+           "auc_bf16_phase6": auc_bf16, "auc_int8_minus_bf16": gap,
+           "launches": c, "trees_kernel_equal_plain": same,
+           "round_breakdown": breakdown,
+           "strict": {"rounds": STRICT_ROUNDS, "launches": sc,
+                      "s_per_round": {t: r["s"] / STRICT_ROUNDS
+                                      for t, r in strict.items()}}}
+    log(f"phase 12b/c: {json.dumps(out)}")
+    return out
+
+
+def phase_int8_cv(ds, f32_cv):
+    """(d) ``cv()`` at ``hist_dtype="int8"`` on the diamonds split (B6 at
+    f32 and B3): the same ``best_iter`` and ``best_score`` as phase 8b's f32
+    ``cv()``."""
+    import lightgbm_tpu_torch as lgb
+
+    fit, secs, counts, plain_calls = counted_run(
+        lambda: lgb.cv(dict(CV_PARAMS, hist_dtype="int8"), ds,
+                       num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                       metrics="rmse", early_stopping_rounds=CV_ES,
+                       stratified=False, seed=SWEEP_SEED))
+    check(counts["split_iter"] > 0 and counts["hist_segstats_f32"] > 0
+          and counts["hist_fused_int8"] == 0 and plain_calls == 0,
+          f"int8 cv launches {counts}, plain calls {plain_calls}")
+    check(fit.best_iter == f32_cv["best_iter"]
+          and fit.best_score == f32_cv["best_score"],
+          f"int8 cv best_iter {fit.best_iter} / best_score "
+          f"{fit.best_score!r} vs f32 {f32_cv['best_iter']} / "
+          f"{f32_cv['best_score']!r}")
+    out = {"best_iter": fit.best_iter, "best_score": fit.best_score,
+           "s": secs, "launches": counts}
+    log(f"phase 12d cv int8: {json.dumps(out)} (equal to phase 8b's f32)")
+    return out
+
+
+def write_csv(path, X, y):
+    with open(path, "w") as f:
+        f.write(",".join(["label"] + [f"f{j}" for j in range(X.shape[1])])
+                + "\n")
+        f.writelines(",".join([f"{yv:.9g}"] + [f"{v:.9g}" for v in row])
+                     + "\n" for row, yv in zip(X, y))
+
+
+def phase_int8_cli(workdir):
+    """(e) ``task=train`` (int8) on a 200,000-row CSV, ``task=predict``
+    against ``Booster(model_file=...).predict``, and the model through
+    ``pack_booster`` and ``task=serve``."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.__main__ import _serve, main as cli
+    from lightgbm_tpu_torch.serving import pack_booster
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xc, yc = make_higgs_like(CLI_ROWS, NUM_FEATURES, seed=13)
+    Xt, yt = make_higgs_like(CLI_TEST_ROWS, NUM_FEATURES, seed=14)
+    train_csv = os.path.join(workdir, "cli_train.csv")
+    test_csv = os.path.join(workdir, "cli_test.csv")
+    model = os.path.join(workdir, "cli_int8_model.txt")
+    preds = os.path.join(workdir, "cli_int8_preds.txt")
+    t0 = time.perf_counter()
+    write_csv(train_csv, Xc, yc)
+    write_csv(test_csv, Xt, yt)
+    t_csv = time.perf_counter() - t0
+    argv = ["task=train", f"data={train_csv}", "header=true",
+            "label_column=name:label", "objective=binary",
+            f"num_trees={TRAIN_ROUNDS}", f"num_leaves={NUM_LEAVES}",
+            f"max_bin={MAX_BIN}", "hist_dtype=int8", "verbosity=-1",
+            f"output_model={model}"]
+    rc, secs, counts, plain_calls = counted_run(lambda: cli(argv))
+    check(rc == 0 and counts["hist_fused_int8"] > 0 and plain_calls == 0
+          and counts["hist_partition_bf16"] + counts["hist_partition_f32"]
+          == 0, f"CLI train rc {rc}, launches {counts}, plain calls "
+          f"{plain_calls}")
+    t1 = time.perf_counter()
+    rc = cli(["task=predict", f"data={test_csv}", "header=true",
+              "label_column=name:label", f"input_model={model}",
+              f"output_result={preds}"])
+    t_pred = time.perf_counter() - t1
+    check(rc == 0, f"CLI predict rc {rc}")
+    booster = lgb.Booster(model_file=model)
+    direct = booster.predict(Xt)
+    got = np.loadtxt(preds)
+    err_pred = float(np.abs(got - direct).max())
+    check(got.shape == direct.shape and err_pred <= 1e-9,
+          f"task=predict vs Booster.predict: {err_pred:.3e}")
+    npz = os.path.join(workdir, "cli_int8_model.npz")
+    pack_booster(booster).save(npz)
+    lines = "".join(",".join(f"{v:.9g}" for v in row) + "\n"
+                    for row in Xt[:CLI_SERVE_ROWS])
+    out, err = io.StringIO(), io.StringIO()
+    reset_counters()
+    rc = _serve(npz, {"max_batch": "64"}, stdin=io.StringIO(lines),
+                stdout=out, stderr=err)
+    served = np.array([float(v) for v in out.getvalue().split()])
+    launches = read_counters()["predict_forest"]
+    err_serve = float(np.abs(served - direct[:CLI_SERVE_ROWS]).max()) \
+        if served.shape == (CLI_SERVE_ROWS,) else float("inf")
+    check(rc == 0 and launches > 0 and err_serve <= 1e-5,
+          f"task=serve rc {rc}, {launches} launches, vs Booster.predict "
+          f"{err_serve:.3e}")
+    res = {"rows": CLI_ROWS, "test_rows": CLI_TEST_ROWS, "csv_s": t_csv,
+           "train_s": secs, "predict_s": t_pred, "launches": counts,
+           "predict_max_abs_diff": err_pred,
+           "serve_rows": CLI_SERVE_ROWS, "serve_max_abs_diff": err_serve,
+           "serve_predict_launches": launches}
+    log(f"phase 12e CLI: {json.dumps(res)}")
+    return res
+
+
+def phase_int8_times(bins, root_stats, wave):
+    """B1 int8's device ms at the north-star root and the recorded wave,
+    its plain version's, its bound and one ``index_add_`` of the quantized
+    values into flat int32 (segment, feature, bin) cells."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    n, f = bins.shape
+    dev = bins.device
+    seg_w, _ = H.route_wave(wave[0], *wave[2:8])
+    q = H.quantize_int8(root_stats)[0].to(torch.int32)
+    res = {}
+    for name, seg, k in (
+            ("root", torch.zeros(n, dtype=torch.int32, device=dev), 1),
+            ("wave", seg_w.to(torch.int32), int(wave[4].shape[0]))):
+        rows = torch.nonzero((seg >= 0) & (seg < k)).squeeze(1)
+        # bins, stats, seg read once, [K, F, B, 3] f32 written; one integer
+        # add per (row in a segment, feature, statistic)
+        bound = hist_bound_ms(n * f + 12 * n + 4 * n + k * f * 256 * 12,
+                              int(rows.numel()) * f * 3)
+        flat = (((seg[rows].to(torch.int64) * f)[:, None]
+                 + torch.arange(f, device=dev)) * 256
+                + bins[rows].to(torch.int64)).reshape(-1)
+        vals = q[rows].repeat_interleave(f, dim=0)
+        acc = torch.zeros(k * f * 256, 3, dtype=torch.int32, device=dev)
+        lib_ms = time_ms(lambda: acc.index_add_(0, flat, vals), runs=11,
+                         inner=3)
+        del flat, vals, acc
+        res[name] = {
+            "shape": f"n={n} F={f} B=256 K={k} S=3 rows in a segment "
+                     f"{int(rows.numel())}",
+            "ms": time_ms(lambda: H.hist_fused(bins, root_stats, seg, k, 256,
+                                               "int8"), runs=11, inner=5),
+            "plain_ms": time_ms(lambda: H.hist_fused_plain(
+                bins, root_stats, seg, k, 256, "int8"), runs=5, inner=1),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
+        log(f"phase 12 times hist_fused_int8 {name}: "
+            f"{json.dumps(res[name])}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2087,7 +2421,7 @@ def main() -> int:
     cov_bins = torch.from_numpy(BinMapper.fit(Xc, max_bin=MAX_BIN).transform(
         Xc)).to(dev)
     b5_errs = phase_b5(dev, bins, cov_bins)
-    del bins, root_stats, wave, cov_bins
+    del cov_bins
     strict = phase_strict(dev, X, y)
     cv_res, dds = phase_cv(dev)
     sweep = phase_sweep(dds, workdir)
@@ -2098,6 +2432,14 @@ def main() -> int:
     b5_times = phase_b5_times(b5_wave)
     del b5_wave
     multiclass = phase_multiclass(dev, Xc, yc, workdir)
+    del Xc, yc
+    int8_ratios = phase_int8_kernel(dev, bins, root_stats, wave)
+    int8 = phase_int8_train(dev, X, y, train["auc"]["bf16"])
+    int8["cv"] = phase_int8_cv(dds, cv_res["kernels"])
+    int8["cli"] = phase_int8_cli(workdir)
+    int8["times"] = phase_int8_times(bins, root_stats, wave)
+    int8["err_over_bound"] = int8_ratios
+    del bins, root_stats, wave
 
     kernels = []
     for prec in PRECISIONS:
@@ -2161,6 +2503,14 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
+    t = int8["times"]["root"]
+    kernels.append({
+        "name": "hist_fused_int8", "route": "cuda", "source": INT8_SOURCE[0],
+        "replaces": INT8_SOURCE[1], "launches": int8["launches"][
+            "hist_fused_int8"], "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": t["shape"]})
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "kernel_vs_plain_max_abs_err": errs,
@@ -2177,11 +2527,15 @@ def main() -> int:
                                 if isinstance(r, dict) else r
                                 for t, r in ns_cv.items()},
               "b5_times": b5_times, "multiclass": multiclass,
+              "int8": int8,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",
                   "hist_fused": "Tensor.index_add_ over precomputed flat "
                                 "(feature, bin) cell indices",
+                  "hist_fused_int8": "Tensor.index_add_ of the quantized "
+                                     "values (int32) over precomputed flat "
+                                     "(segment, feature, bin) cells",
                   "hist_partition": "none: no single PyTorch call routes "
                                     "rows and builds their histograms",
                   "split_iter": "none: no single PyTorch call scans gains "

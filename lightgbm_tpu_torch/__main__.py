@@ -1,32 +1,50 @@
-"""Config-file CLI of the port: ``task=serve`` only.
+"""Config-file CLI of the port: ``task=train``, ``task=predict`` and
+``task=serve`` — the port of ``lightgbm_tpu/__main__.py`` (LightGBM's
+original ``key=value`` interface):
 
-The port of ``lightgbm_tpu/__main__.py``'s serving front end.  It loads a
-packed ``.npz`` model (written by either package), builds the
-ModelBank-backed PredictorRuntime + micro-batching queue and serves
-newline-delimited requests from stdin to stdout — one CSV row (or JSON
-array) of features in, one prediction out, no network dependency:
-
+    python -m lightgbm_tpu_torch task=train data=train.csv valid=valid.csv \
+        objective=regression num_trees=100 output_model=model.txt
+    python -m lightgbm_tpu_torch task=predict data=test.csv \
+        input_model=model.txt output_result=preds.txt
     python -m lightgbm_tpu_torch task=serve input_model=model.npz \
         max_batch=256 max_delay_ms=2 < requests.csv > preds.txt
 
-Keys are the reference's (``output_format``, ``raw_score``,
-``num_iteration``, ``request_timeout_ms``, ``show_stats``, ``max_bucket``,
-``max_cache_entries``, ``warm_buckets``, ``max_queue_depth``,
-``shed_policy``, ``canary_rows``, ``compile_cache_dir`` (a no-op here),
-``mesh_devices`` (must be 1), ``shard_policy``, ``forest_precision``) plus
-``device=cuda|cpu`` (default cuda; with no card, cuda fails at startup).
-``!swap <model.npz>`` / ``!rollback`` / ``!stats`` request lines are
-control commands (acks on stderr); SIGTERM drains gracefully; a kernel
-that fails to build or launch stops the server with a non-zero exit.  Config
-format: one ``key = value`` per line, ``#`` comments; command-line
-``key=value`` pairs override a ``config=`` file.  Every other task exits
-with a "not ported yet" message.
+Config format: one ``key = value`` per line, ``#`` comments; command-line
+``key=value`` pairs override a ``config=`` file.
+
+``task=train`` and ``task=predict`` read CSV/TSV files (the delimiter
+sniffed from the first line; ``NA``/``NaN``/empty cells are NaN) with
+``header=true|false`` (default false), ``label_column=<int>`` (default 0)
+or ``label_column=name:<col>``; ``valid=`` takes a comma-separated list of
+files.  ``train`` writes ``output_model`` (default ``LightGBM_model.txt``;
+a ``.npz`` suffix writes the packed model), ``predict`` writes
+``output_result`` (default ``LightGBM_predict_result.txt``), dropping the
+label column of a labelled file.  The remaining keys are the LightGBM
+params (``hist_dtype=int8`` trains on quantized histograms).  Model files
+interchange with the reference's CLI both ways.  ``device=cuda|cpu``
+(default cuda; with no card, cuda fails at startup) picks the device of
+every task.  ``checkpoint_dir=`` (resumable training) is not ported yet
+and exits by name, as do ``task=refresh`` and ``task=sweep``.
+
+``task=serve`` (alias ``predict-server``) loads a packed ``.npz`` model
+(written by either package), builds the ModelBank-backed PredictorRuntime +
+micro-batching queue and serves newline-delimited requests from stdin to
+stdout — one CSV row (or JSON array) of features in, one prediction out, no
+network dependency.  Keys are the reference's (``output_format``,
+``raw_score``, ``num_iteration``, ``request_timeout_ms``, ``show_stats``,
+``max_bucket``, ``max_cache_entries``, ``warm_buckets``,
+``max_queue_depth``, ``shed_policy``, ``canary_rows``,
+``compile_cache_dir`` (a no-op here), ``mesh_devices`` (must be 1),
+``shard_policy``, ``forest_precision``).  ``!swap <model.npz>`` /
+``!rollback`` / ``!stats`` request lines are control commands (acks on
+stderr); SIGTERM drains gracefully; a kernel that fails to build or launch
+stops the server with a non-zero exit.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +78,33 @@ def parse_argv(argv: List[str]) -> Dict[str, str]:
     return cfg
 
 
+def _load_table(path: str, header: bool) -> Tuple[np.ndarray, List[str]]:
+    import csv
+
+    with open(path) as f:
+        sample = f.read(4096)
+        f.seek(0)
+        delim = "\t" if "\t" in sample.split("\n", 1)[0] else ","
+        rows = list(csv.reader(f, delimiter=delim))
+    names: List[str] = []
+    if header:
+        names = rows[0]
+        rows = rows[1:]
+    data = np.asarray(
+        [[np.nan if c in ("", "NA", "na", "NaN") else float(c) for c in r]
+         for r in rows if r], dtype=np.float64)
+    return data, names
+
+
+def _split_label(data: np.ndarray, names: List[str],
+                 label_spec: str) -> Tuple[np.ndarray, np.ndarray]:
+    if label_spec.startswith("name:"):
+        col = names.index(label_spec[5:])
+    else:
+        col = int(label_spec)
+    return np.delete(data, col, axis=1), data[:, col]
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     raw = list(sys.argv[1:] if argv is None else argv)
     try:
@@ -67,7 +112,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, OSError) as e:
         raise SystemExit(
             f"lightgbm_tpu_torch: {e}\nusage: python -m lightgbm_tpu_torch "
-            "task=serve input_model=<model.npz> key=value ... "
+            "task=train|predict|serve key=value ... "
             "(or config=<file>; see module docs)") from None
     task = cfg.pop("task", "train")
     input_model = cfg.pop("input_model", None)
@@ -75,9 +120,84 @@ def main(argv: Optional[List[str]] = None) -> int:
         if input_model is None:
             raise SystemExit("task=serve requires input_model=<model.npz>")
         return _serve(input_model, cfg)
-    raise SystemExit(
-        f"task={task} is not ported yet: lightgbm_tpu_torch serves only "
-        "(task=serve); use python -m lightgbm_tpu for the other tasks")
+    if task not in ("train", "predict"):
+        raise SystemExit(
+            f"task={task} is not ported yet: lightgbm_tpu_torch runs "
+            "task=train|predict|serve; use python -m lightgbm_tpu for the "
+            "other tasks")
+    header = cfg.pop("header", "false").lower() in ("true", "1", "yes")
+    label_spec = cfg.pop("label_column", "0")
+    data_path = cfg.pop("data", None)
+    valid_path = cfg.pop("valid", cfg.pop("valid_data", None))
+    output_model = cfg.pop("output_model", "LightGBM_model.txt")
+    output_result = cfg.pop("output_result", "LightGBM_predict_result.txt")
+    device = cfg.pop("device", "cuda")
+    if device not in ("cuda", "cpu"):
+        raise SystemExit(f"task={task}: device must be cuda|cpu, got "
+                         f"{device!r}")
+    if task == "train":
+        if data_path is None:
+            raise SystemExit("task=train requires data=<file>")
+        if cfg.pop("checkpoint_dir", None):
+            raise SystemExit(
+                "task=train checkpoint_dir= (resumable training) is not "
+                "ported yet: ROADMAP slice 5 (out-of-core training and "
+                "recovery)")
+        return _train(cfg, data_path, valid_path, header, label_spec,
+                      output_model, device)
+    if data_path is None or input_model is None:
+        raise SystemExit(
+            "task=predict requires data=<file> input_model=<model>")
+    return _predict(data_path, input_model, header, label_spec,
+                    output_result, device)
+
+
+def _train(params: Dict[str, str], data_path: str, valid_path, header: bool,
+           label_spec: str, output_model: str, device: str) -> int:
+    """Train on a CSV/TSV file; the remaining keys are the params (``train``
+    resolves every num-rounds alias from them)."""
+    import lightgbm_tpu_torch as lgb
+
+    from .device import NoDeviceError
+
+    data, names = _load_table(data_path, header)
+    X, y = _split_label(data, names, label_spec)
+    try:
+        dtrain = lgb.Dataset(X, label=y, device=device)
+    except NoDeviceError as e:
+        raise SystemExit(f"task=train: {e}") from None
+    valid_sets = None
+    if valid_path:
+        valid_sets = []
+        for vp in valid_path.split(","):            # upstream: comma list
+            vdata, vnames = _load_table(vp.strip(), header)
+            Xv, yv = _split_label(vdata, vnames, label_spec)
+            valid_sets.append(lgb.Dataset(Xv, label=yv, reference=dtrain))
+    booster = lgb.train(dict(params), dtrain, valid_sets=valid_sets)
+    booster.save_model(output_model)
+    print(f"[lightgbm_tpu_torch] finished training; model -> {output_model}")
+    return 0
+
+
+def _predict(data_path: str, input_model: str, header: bool,
+             label_spec: str, output_result: str, device: str) -> int:
+    import lightgbm_tpu_torch as lgb
+
+    from .device import NoDeviceError
+
+    data, names = _load_table(data_path, header)
+    try:
+        booster = lgb.Booster(model_file=input_model, device=device)
+    except NoDeviceError as e:
+        raise SystemExit(f"task=predict: {e}") from None
+    if data.shape[1] == booster.num_feature() + 1:
+        # labelled file: drop the label column like upstream predict
+        X, _ = _split_label(data, names, label_spec)
+    else:
+        X = data
+    np.savetxt(output_result, booster.predict(X), fmt="%.10g")
+    print(f"[lightgbm_tpu_torch] predictions -> {output_result}")
+    return 0
 
 
 def _parse_request_line(line: str) -> Optional[np.ndarray]:

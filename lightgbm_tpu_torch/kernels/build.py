@@ -26,9 +26,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# per-source flags: the split iteration must round as its plain version
-# does, so nvcc may not contract a multiply and an add into an FMA
-SOURCE_FLAGS = {"split_iter": ("-fmad=false",)}
+# per-source flags: the split iteration and the int8 quantization must
+# round as their plain versions do, so nvcc may not contract a multiply and
+# an add into an FMA
+SOURCE_FLAGS = {"split_iter": ("-fmad=false",),
+                "hist_fused_int8": ("-fmad=false",)}
 
 # nvcc's report (ptxas registers, shared memory, spills) per library built
 # by this process

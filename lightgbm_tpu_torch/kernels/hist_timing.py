@@ -2,18 +2,23 @@
 
     python3 <checkout>/lightgbm_tpu_torch/kernels/hist_timing.py
 
-Builds ``hist_fused`` (B1), ``hist_partition`` (B2), ``hist_segstats``
-(B6) and ``hist_fused_batched`` (B5) from that checkout, then on
+Builds ``hist_fused`` (B1), ``hist_fused_int8`` (B1's int8 mode),
+``hist_partition`` (B2), ``hist_segstats`` (B6) and ``hist_fused_batched``
+(B5) from that checkout, then on
 ``make_higgs_like(1,000,000)`` binned to 255 bins: each kernel against its
 plain version (max abs err, routing equal) and its device ms per launch
 (CUDA events, median of 11 runs of 5 launches queued behind a spin kernel)
 at the north-star root (binary round-1 statistics, one segment) and at the
-widest wave of a real north-star tree (grown once with the plain versions);
+widest wave of a real north-star tree (grown once with the plain versions;
+B1 int8 there with the wave's direct children as segments, bit-equal to its
+plain version, beside one ``index_add_`` of the quantized values into flat
+int32 cells);
 B5 at the widest wave of a north-star ``cv()`` round (5 folds, K = 42), with
 one ``index_add_`` over the flat (element, segment, feature, bin) cells as
 the library call, and both routes at the route's edge (K = 21: B6 through
 the folded operand, and B5); then 10 rounds of north-star training
-(seconds per round) and its AUC on ``make_higgs_like(200,000, seed=9)``.
+(seconds per round) and its AUC on ``make_higgs_like(200,000, seed=9)``,
+at the default bf16 and at ``hist_dtype="int8"``.
 On the grid-search workflow's diamonds split (``make_synthetic_diamonds``,
 about 45,800 x 6): B6 at 240 channels (an 8-config sweep bucket's two-child
 histograms), ``cv()`` as examples/gridsearch_cv.py calls it (seconds,
@@ -109,6 +114,41 @@ def diamonds(dev) -> dict:
     return out
 
 
+def int8_times(bins, stats, wave) -> dict:
+    """B1 int8 at the north-star root (one segment) and at the recorded
+    wave (its direct children as segments): bit-equal to the plain version,
+    kernel, plain and ``index_add_`` ms."""
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    n, f = bins.shape
+    seg_w, _ = H.route_wave(wave[0], *wave[2:8])
+    out = {}
+    for name, seg, k in (
+            ("root", torch.zeros(n, dtype=torch.int32, device=bins.device),
+             1),
+            ("wave", seg_w.to(torch.int32), int(wave[4].shape[0]))):
+        got = H.hist_fused(bins, stats, seg, k, 256, "int8")
+        want = H.hist_fused_plain(bins, stats, seg, k, 256, "int8")
+        q = H.quantize_int8(stats)[0].to(torch.int32)
+        rows = torch.nonzero((seg >= 0) & (seg < k)).squeeze(1)
+        flat = (((seg[rows].to(torch.int64) * f)[:, None]
+                 + torch.arange(f, device=bins.device)) * 256
+                + bins[rows].to(torch.int64)).reshape(-1)
+        vals = q[rows].repeat_interleave(f, dim=0)
+        acc = torch.zeros(k * f * 256, 3, dtype=torch.int32,
+                          device=bins.device)
+        out[f"b1_int8_{name}"] = {
+            "k": k, "bit_equal": bool(torch.equal(got, want)),
+            "ms": device_ms(lambda: H.hist_fused(bins, stats, seg, k, 256,
+                                                 "int8")),
+            "plain_ms": device_ms(lambda: H.hist_fused_plain(
+                bins, stats, seg, k, 256, "int8"), runs=3, inner=1),
+            "index_add_ms": device_ms(lambda: acc.index_add_(0, flat,
+                                                             vals))}
+        del flat, vals, acc
+    return out
+
+
 def batched_wave(ds) -> dict:
     """B5 at the widest wave of one north-star cv round (5 stratified folds
     of the binary task, wave regime): kernel, plain version and one
@@ -191,7 +231,7 @@ def main() -> int:
 
     print(ROOT, build.build(["hist_fused", "hist_partition",
                              "hist_segstats", "split_iter",
-                             "hist_fused_batched"]))
+                             "hist_fused_batched", "hist_fused_int8"]))
     dev = torch.device("cuda")
     X, y = make_higgs_like(1_000_000, 28, seed=0)
     bins = torch.from_numpy(BinMapper.fit(X, max_bin=255).transform(X)).to(
@@ -234,18 +274,21 @@ def main() -> int:
             "b1_ms": device_ms(lambda: H.hist_fused(bins, stats, zeros, 1,
                                                     256, mode)),
             "b2_ms": device_ms(lambda: H.hist_partition_fused(*wave, mode))}
+    out.update(int8_times(bins, stats, wave))
     ds = lgb.Dataset(X, label=y, params={"max_bin": 255})
     ds.construct()
     lgb.train(params, ds, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    booster = lgb.train(params, ds, 10)
-    torch.cuda.synchronize()
-    out["s_per_round"] = (time.perf_counter() - t0) / 10
     Xv, yv = make_higgs_like(200_000, 28, seed=9)
-    pv = torch.from_numpy(booster.predict(Xv)).to(dev)
     yt = torch.from_numpy(yv).to(dev)
-    out["auc"] = float(get_metric("auc").fn(pv, yt, torch.ones_like(yt)))
+    for tag, extra in (("", {}), ("_int8", {"hist_dtype": "int8"})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster = lgb.train(dict(params, **extra), ds, 10)
+        torch.cuda.synchronize()
+        out["s_per_round" + tag] = (time.perf_counter() - t0) / 10
+        pv = torch.from_numpy(booster.predict(Xv)).to(dev)
+        out["auc" + tag] = float(get_metric("auc").fn(pv, yt,
+                                                      torch.ones_like(yt)))
     out.update(batched_wave(ds))
     out.update(diamonds(dev))
     print("RESULT", ROOT, json.dumps(out))

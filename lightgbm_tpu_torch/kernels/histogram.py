@@ -1,6 +1,6 @@
 """ctypes bindings of the histogram kernels (``csrc/hist_fused.cu``, B1,
-``csrc/hist_partition.cu``, B2, ``csrc/hist_segstats.cu``, B6, and
-``csrc/hist_fused_batched.cu``, B5).
+``csrc/hist_fused_int8.cu``, B1's int8 mode, ``csrc/hist_partition.cu``,
+B2, ``csrc/hist_segstats.cu``, B6, and ``csrc/hist_fused_batched.cu``, B5).
 
 :func:`hist_fused`, :func:`hist_partition`, :func:`hist_segstats` and
 :func:`hist_fused_batched` check their tensors, size the row chunks and
@@ -10,9 +10,15 @@ synchronising.  A launch the card refuses raises
 :class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES``,
 ``HIST_PARTITION_LAUNCHES``, ``HIST_SEGSTATS_LAUNCHES`` and
 ``HIST_FUSED_BATCHED_LAUNCHES`` count the calls that launched, per mode
-(``"f32"`` and ``"bf16"``), and nothing else counts them.  They take
-CUDA tensors only: the plain PyTorch versions and the dispatch on the
-tensor's device live in ``ops/histogram.py``.
+(``"f32"`` and ``"bf16"``; B1 also ``"int8"``), and nothing else counts
+them.  They take CUDA tensors only: the plain PyTorch versions and the
+dispatch on the tensor's device live in ``ops/histogram.py``.
+
+B1 in int8 mode (:func:`hist_fused` with ``mode="int8"``) takes the channel
+maxima with one ``amax``, then launches the int8 library's three passes
+(quantize, int32 histogram per (row chunk, feature group, segment group) in
+shared or global memory, rescale; :func:`plan_int8` sizes them).  More than
+``INT8_ACC_ROW_LIMIT`` rows raise ``ValueError`` before any launch.
 
 Sizing: every block owns one (row chunk, feature, segment group).  A
 segment group is as many segments as the block's shared-memory partial
@@ -36,7 +42,17 @@ from . import build
 from .predict import LaunchCounter
 
 FUSED, PARTITION, SEGSTATS = "hist_fused", "hist_partition", "hist_segstats"
-BATCHED = "hist_fused_batched"
+BATCHED, INT8 = "hist_fused_batched", "hist_fused_int8"
+INT8_THREADS = 512                  # kThreads in csrc/hist_fused_int8.cu
+# int8 blocks keep shared histograms only for calls of at most this many
+# segments (a root, the strict grower's two children, a wave's first
+# splits), whose rows crowd few cells, so that global atomics would contend
+# on them; wider waves add straight into global memory, faster there on an
+# H100 (PERF.md)
+INT8_SHARED_MAX_SEGMENTS = 2
+# a shared histogram is zeroed and flushed once per chunk: chunks hold at
+# least this many rows per (segment, bin) of it
+INT8_ROWS_PER_CELL = 4
 TILE_ROWS = 1024                    # kTileRows in csrc/hist_common.cuh
 WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
 SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
@@ -44,7 +60,7 @@ SMEM_PER_SM = 233_472               # shared memory of one SM (228 KB)
 BLOCKS_PER_SM = 8                   # blocks a launch aims to give each SM
 
 MODES = ("f32", "bf16")
-HIST_FUSED_LAUNCHES = {m: LaunchCounter() for m in MODES}
+HIST_FUSED_LAUNCHES = {m: LaunchCounter() for m in MODES + ("int8",)}
 HIST_PARTITION_LAUNCHES = {m: LaunchCounter() for m in MODES}
 HIST_SEGSTATS_LAUNCHES = {m: LaunchCounter() for m in MODES}
 HIST_FUSED_BATCHED_LAUNCHES = {m: LaunchCounter() for m in MODES}
@@ -80,6 +96,27 @@ def _bound():
                            ci, vp, vp, vp]
             fn.restype = ci
             _funcs[BATCHED] = fn
+            lib_i = build.load(INT8)
+            fn = lib_i.hist_fused_int8_launch
+            ll = ctypes.c_longlong
+            fn.argtypes = [vp, ll, ci, vp, ci, vp, ci, ci, vp, ll, ci, ci,
+                           ci, vp, vp, vp, vp]
+            fn.restype = ci
+            _funcs[INT8] = fn
+            err = lib_i.hist_fused_int8_error_string
+            err.argtypes = [ci]
+            err.restype = ctypes.c_char_p
+            _funcs[INT8 + "_error"] = err
+            threads = lib_i.hist_fused_int8_threads
+            threads.restype = ci
+            smem = lib_i.hist_fused_int8_smem_bytes
+            smem.argtypes = [ci, ci, ci, ci]
+            smem.restype = ctypes.c_longlong
+            if threads() != INT8_THREADS or \
+                    smem(3, 256, 1, 28) != int8_smem_bytes(3, 256, 1, 28):
+                raise build.KernelLaunchError(
+                    "hist_fused_int8: the kernel's block size or shared-"
+                    "memory layout disagrees with the binding")
             for name, lib_ in ((FUSED, lib), (PARTITION, lib_p),
                                (SEGSTATS, lib_s), (BATCHED, lib_b)):
                 err = getattr(lib_, f"{name}_error_string")
@@ -153,6 +190,45 @@ def plan(n: int, num_features: int, s: int, num_segments: int,
     return rows, n_chunks, seg_group
 
 
+def int8_smem_bytes(s: int, num_bins: int, seg_group: int,
+                    feat_group: int) -> int:
+    """Dynamic shared memory of one int8 block: its int32 histogram
+    ``[seg_group, feat_group, S, B]`` (0 in the global mode)."""
+    return 4 * seg_group * feat_group * s * num_bins
+
+
+def plan_int8(n: int, num_features: int, s: int, num_segments: int,
+              num_bins: int, sm_count: int):
+    """(rows_per_chunk, n_chunks, seg_group, feat_group) of an int8 B1
+    launch.  For at most ``INT8_SHARED_MAX_SEGMENTS`` segments, blocks
+    keep shared histograms: each holds every segment of the call and as
+    many features as let two blocks share an SM; chunks hold at least
+    ``INT8_ROWS_PER_CELL`` rows per (segment, bin), the features spread
+    over more groups while the grid has fewer blocks than SMs, and the
+    chunks make at most one round of resident blocks (a partial second
+    round would double the time).  Otherwise, or where one (segment,
+    feature) does not fit a block, ``seg_group`` is 0: the kernel's global
+    mode, every add straight into the global accumulator,
+    ``BLOCKS_PER_SM`` blocks per SM."""
+    max_chunks = max(1, -(-n // INT8_THREADS))
+    pairs = (SMEM_PER_SM // 2 - 1024) // int8_smem_bytes(s, num_bins, 1, 1)
+    if num_segments <= min(pairs, INT8_SHARED_MAX_SEGMENTS):
+        n_chunks = max(1, min(max_chunks, n // (
+            INT8_ROWS_PER_CELL * num_segments * num_bins)))
+        f_groups = max(-(-num_features // (pairs // num_segments)),
+                       min(num_features, -(-sm_count // n_chunks)))
+        feat_group = -(-num_features // f_groups)
+        smem = int8_smem_bytes(s, num_bins, num_segments, feat_group)
+        per_sm = min(2048 // INT8_THREADS, SMEM_PER_SM // (smem + 1024))
+        n_chunks = max(1, min(n_chunks, per_sm * sm_count // f_groups))
+        seg_group = num_segments
+    else:
+        seg_group, feat_group = 0, num_features
+        n_chunks = max(1, min(max_chunks, BLOCKS_PER_SM * sm_count))
+    rows = -(-n // n_chunks)
+    return rows, -(-n // rows), seg_group, feat_group
+
+
 def plan_segstats(n: int, num_features: int, channels: int, num_bins: int,
                   sm_count: int):
     """(rows_per_chunk, n_chunks, ch_group) of a B6 launch: as many channels
@@ -200,7 +276,10 @@ def _mode_flag(mode: str) -> int:
 def hist_fused(bins: torch.Tensor, stats: torch.Tensor, seg: torch.Tensor,
                num_segments: int, num_bins: int, mode: str) -> torch.Tensor:
     """Launch B1: f32 ``[K, F, B, S]`` histogram of ``stats`` by
-    (segment, feature, bin) for CUDA tensors."""
+    (segment, feature, bin) for CUDA tensors (int8 mode: the quantized
+    contract, :func:`hist_fused_int8`)."""
+    if mode == "int8":
+        return hist_fused_int8(bins, stats, seg, num_segments, num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"the hist_fused kernel takes CUDA tensors, got "
                          f"{bins.device}")
@@ -231,6 +310,50 @@ def hist_fused(bins: torch.Tensor, stats: torch.Tensor, seg: torch.Tensor,
     if err != 0:
         _raise(FUSED, err)
     HIST_FUSED_LAUNCHES[mode].add()
+    return out
+
+
+def hist_fused_int8(bins: torch.Tensor, stats: torch.Tensor,
+                    seg: torch.Tensor, num_segments: int,
+                    num_bins: int) -> torch.Tensor:
+    """Launch B1's int8 mode: f32 ``[K, F, B, S]``, ``f32(int32 sum of the
+    quantized stats) * scale`` per (segment, feature, bin, channel), for
+    CUDA tensors."""
+    from ..ops.histogram import check_int8_rows
+
+    if bins.device.type != "cuda":
+        raise ValueError(f"the hist_fused_int8 kernel takes CUDA tensors, "
+                         f"got {bins.device}")
+    dev = bins.device
+    if bins.dtype != torch.uint8 or bins.dim() != 2:
+        raise TypeError("bins must be a uint8 [n, F] tensor")
+    n, f = bins.shape
+    s = stats.shape[1] if stats.dim() == 2 else -1
+    _check("stats", stats, torch.float32, (n, s), dev)
+    _check("seg", seg, torch.int32, (n,), dev)
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
+    check_int8_rows(n)
+    k = int(num_segments)
+    out = torch.empty((k, f, num_bins, s), dtype=torch.float32, device=dev)
+    if n == 0 or f == 0 or k == 0 or s == 0:
+        return out.zero_()
+    rows, n_chunks, group, f_group = plan_int8(n, f, s, k, num_bins,
+                                               _sm_count(dev))
+    bins, stats, seg = bins.contiguous(), stats.contiguous(), seg.contiguous()
+    amax = stats.abs().amax(dim=0)
+    q = torch.empty((n, s), dtype=torch.int8, device=dev)
+    acc = torch.empty((k, f, num_bins, s), dtype=torch.int32, device=dev)
+    funcs = _bound()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = funcs[INT8](bins.data_ptr(), n, f, stats.data_ptr(), s,
+                          seg.data_ptr(), k, num_bins, amax.data_ptr(), rows,
+                          n_chunks, group, f_group, q.data_ptr(),
+                          acc.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        _raise(INT8, err)
+    HIST_FUSED_LAUNCHES["int8"].add()
     return out
 
 

@@ -1,0 +1,145 @@
+"""Time B1's int8 mode (``csrc/hist_fused_int8.cu``) on the card.
+
+    python3 lightgbm_tpu_torch/kernels/int8_timing.py [--package DIR]
+        [--plan CASE:CHUNKS:SEG_GROUP:FEAT_GROUP ...]
+
+On ``make_higgs_like(1,000,000)`` binned to 255 bins, with the binary
+round-1 statistics: B1 int8 at the north-star root (one segment), at the
+widest wave of a real north-star tree (grown once with the plain versions;
+its direct children as 42 segments), over the root split into two segments
+(the strict grower's call) and at that wave cut to its first 20 and 5
+segments (narrower waves), and the root and the strict call over the
+first 100,000 rows alone; for each, whether the kernel equals its plain
+version bit for bit, its rows in a segment and its device ms per launch
+(CUDA events, median of 11 runs of 5 launches queued behind a spin
+kernel).  ``--package DIR`` times the ``lightgbm_tpu_torch`` under ``DIR``
+instead of this checkout's (to compare two versions in one call, unpack
+the other into an ignored directory and run both in turns: old, new, new,
+old).  Each ``--plan`` forces one launch plan (``kernels/histogram.py``
+``plan_int8``'s tuple; ``SEG_GROUP`` 0 is the global mode) for one case
+and times it too.  Prints one ``RESULT`` JSON line.  Needs a CUDA card.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+SPIN_CYCLES = 20_000_000
+
+
+def device_ms(fn, runs=11, inner=5):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        for _ in range(inner):
+            fn()
+        e.record()
+        e.synchronize()
+        per.append(s.elapsed_time(e) / inner)
+    return float(np.median(per))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--package", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--plan", action="append", default=[])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("int8_timing: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.package)
+    sys.path.insert(0, root)
+    import lightgbm_tpu_torch.models.tree as T
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.kernels import histogram as KH
+    from lightgbm_tpu_torch.models.gbdt import (HyperScalars,
+                                                resolve_wave_width)
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    if not H.__file__.startswith(root):
+        raise SystemExit(f"imported {H.__file__}, not the package under "
+                         f"{root}")
+    dev = torch.device("cuda")
+    X, y = make_higgs_like(1_000_000, 28, seed=0)
+    bins = torch.from_numpy(BinMapper.fit(X, max_bin=255).transform(X)).to(
+        dev)
+    p = np.full(len(y), float(y.mean()))
+    stats = torch.from_numpy(np.stack([p - y, p * (1 - p), np.ones(len(y))],
+                                      1).astype(np.float32)).to(dev)
+    pp = parse_params({"objective": "binary", "num_leaves": 127,
+                       "learning_rate": 0.1, "min_data_in_leaf": 20,
+                       "verbosity": -1})
+    rec = {}
+    orig = T.hist_partition_plain
+
+    def spy(*a):
+        if a[4].shape[0] > rec.get("w", 0):
+            rec["w"], rec["args"] = int(a[4].shape[0]), a[:9]
+        return orig(*a)
+
+    T.hist_partition_plain = spy
+    try:
+        T.grow_tree(bins, stats, torch.ones(28, device=dev),
+                    HyperScalars.from_params(pp).ctx(), 127, 256, -1,
+                    hist_impl="plain", hist_dtype="f32",
+                    wave_width=resolve_wave_width(pp, len(y)))
+    finally:
+        T.hist_partition_plain = orig
+    wave = rec["args"]
+    seg_w = H.route_wave(wave[0], *wave[2:8])[0].to(torch.int32)
+    i32 = torch.int32
+    strict = torch.where(seg_w >= 0, 0, 1).to(i32)
+    small = 100_000
+    cases = {"root": (len(y), torch.zeros(len(y), dtype=i32, device=dev),
+                      1),
+             "wave": (len(y), seg_w, rec["w"]),
+             "strict2": (len(y), strict, 2),
+             "wave20": (len(y), torch.where(seg_w < 20, seg_w, -1).to(i32),
+                        20),
+             "wave5": (len(y), torch.where(seg_w < 5, seg_w, -1).to(i32), 5),
+             # the first 100,000 rows alone: a smaller dataset's calls
+             "root100k": (small, torch.zeros(small, dtype=i32, device=dev),
+                          1),
+             "strict100k": (small, strict[:small], 2)}
+
+    def timed(n, seg, k):
+        b, st = bins[:n], stats[:n]
+        want = H.hist_fused_plain(b, st, seg, k, 256, "int8")
+        got = H.hist_fused(b, st, seg, k, 256, "int8")
+        return {"eq": bool(torch.equal(got, want)),
+                "rows": int(((seg >= 0) & (seg < k)).sum()),
+                "ms": device_ms(lambda: H.hist_fused(b, st, seg, k, 256,
+                                                     "int8"))}
+
+    out = {"package": root, "wave_k": rec["w"]}
+    for name, case in cases.items():
+        out[name] = timed(*case)
+    real = KH.plan_int8
+    for spec in args.plan:
+        name, chunks, sg, fg = spec.split(":")
+        n, chunks = cases[name][0], int(chunks)
+        rows = -(-n // chunks)
+        KH.plan_int8 = lambda *a: (rows, -(-n // rows), int(sg), int(fg))
+        try:
+            out[f"{name}_plan_{chunks}_{sg}_{fg}"] = timed(*cases[name])
+        finally:
+            KH.plan_int8 = real
+    print("RESULT", json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

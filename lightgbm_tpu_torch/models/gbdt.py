@@ -18,8 +18,7 @@ seed give the same trees as the reference.
 What is outside this slice raises a ``NotImplementedError`` naming the
 ROADMAP slice that will port it: other objectives and boosting modes,
 constraints, categorical/linear/extra trees, per-node sampling, feature
-screening, streaming, the distributed learners, ``init_model`` and int8
-histograms.
+screening, streaming, the distributed learners and ``init_model``.
 
 :class:`HyperScalarsBatch` holds the same scalars as per-element tensors for
 the fused cross-validation program (``models/fused.py``), where one batch
@@ -40,6 +39,7 @@ from ..dataset import Dataset
 from ..device import resolve_device
 from ..metrics import get_metric
 from ..objectives import create_objective
+from ..ops.histogram import INT8_ACC_ROW_LIMIT
 from ..ops.predict import (forest_depth_cap, predict_forest_binned,
                            predict_tree_binned)
 from ..ops.sampling import sample_bag
@@ -131,13 +131,30 @@ class HyperScalarsBatch(NamedTuple):
 def resolve_hist_dtype(p: Params, n_rows: int) -> str:
     """Histogram precision: "auto" is bf16 from 2^19 rows, f32 below; an
     explicit ``hist_dtype="f32"`` resolves to "f32x", the exactness
-    contract (both are true f32 in the port)."""
+    contract (both are true f32 in the port); ``"int8"`` is B1's quantized
+    mode.  ``use_quantized_grad`` maps to bf16, as in the reference (its
+    int8 path was the slower one on a TPU)."""
     if p.use_quantized_grad:
         return "bf16"
     d = p.extra.get("hist_dtype", "auto")
     if d != "auto":
         return "f32x" if d == "f32" else d
     return "bf16" if n_rows >= (1 << 19) else "f32"
+
+
+def check_int8_row_limit(p: Params, n_rows: int, n_shards: int = 1) -> None:
+    """Refuse ``hist_dtype='int8'`` before any launch when a device's rows
+    exceed ``INT8_ACC_ROW_LIMIT``: an int32 histogram cell could wrap."""
+    if resolve_hist_dtype(p, n_rows) != "int8":
+        return
+    per_shard = -(-n_rows // max(int(n_shards), 1))
+    if per_shard > INT8_ACC_ROW_LIMIT:
+        raise ValueError(
+            f"hist_dtype='int8' with {per_shard:,} rows per device shard "
+            f"(n={n_rows:,} over {n_shards} shard(s)) exceeds the exact "
+            f"int32 accumulation limit of {INT8_ACC_ROW_LIMIT:,} rows — "
+            f"histograms would silently wrap.  Use hist_dtype='bf16' or "
+            f"train on more devices.")
 
 
 def _exact_overgrow_target(num_leaves: int, width: int, over: float) -> int:
@@ -212,9 +229,6 @@ def check_slice_scope(p: Params) -> None:
     if p.tree_learner != "serial":
         later(f"tree_learner='{p.tree_learner}' (dp/fp meshes)",
               "ROADMAP slice 6 (multi-device)")
-    if p.extra.get("hist_dtype") == "int8":
-        later("hist_dtype='int8'", "ROADMAP slice 2 follow-up (B1's int8 "
-              "mode)")
 
 
 class Booster:
@@ -355,8 +369,9 @@ class Booster:
         ds = self.train_set
         p = self.params
         i = self._iter
-        fmask = self._sample_bag_and_fmask(i)
         n_pad = int(ds.row_mask.shape[0])
+        check_int8_row_limit(p, n_pad)
+        fmask = self._sample_bag_and_fmask(i)
         hyper = self._hyper
         g, h = self.obj.grad_hess(self._pred_train, ds.y, self._w_eff)
         bag = self._bag

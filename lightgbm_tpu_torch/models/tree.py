@@ -16,7 +16,9 @@ monotone, extra-trees, interaction or per-node sampling):
   n >= 4096 rows and num_leaves >= 16), with all three wave tails:
   ``greedy``, ``half`` and ``exact`` (overgrow, then :func:`_exact_prune`).
   Each wave runs kernel B2 (``ops.histogram.hist_partition_fused``), which
-  routes the rows and builds the smaller children's histograms in one pass;
+  routes the rows and builds the smaller children's histograms in one pass
+  (int8 histograms and more than 256 features take the reference's unfused
+  route instead: the plain partition, then kernel B1);
   the siblings come from the per-leaf histogram cache by subtraction.
 * width 1 is the strict best-first grower (:func:`grow_tree_strict`):
   ``num_leaves - 1`` split iterations, each one histogram pass over both
@@ -42,7 +44,7 @@ import torch
 
 from ..ops.histogram import (compute_histograms, compute_histograms_batched,
                              hist_partition_fused, hist_partition_plain,
-                             histograms_rows, resolve_mode)
+                             histograms_rows, resolve_mode, route_wave)
 from ..ops.split import (SplitContext, constrained_leaf_output,
                          find_best_split)
 from .feature_mask import node_mask_fn
@@ -423,6 +425,16 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
     return P, n_leaves, row_leaf
 
 
+def wave_fuses_partition(num_features: int, w_width: int, num_bins: int,
+                         hist_dtype: str) -> bool:
+    """Whether a wave routes its rows and builds its histograms in one
+    kernel (B2): the reference's ``fuse_part`` condition.  int8 histograms
+    (B2 has no quantized mode) and shapes past its exact-bf16 table
+    lookup, ``max(F, 2 * width, B) > 256``, take the unfused route."""
+    return (hist_dtype != "int8"
+            and max(num_features, 2 * w_width, num_bins) <= 256)
+
+
 def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                        feature_mask: torch.Tensor, ctx: SplitContext,
                        num_leaves: int, num_bins: int, max_depth: int,
@@ -435,7 +447,10 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
 
     Per wave: the top leaves by cached candidate gain (by pathmin in the
     exact tail) split together; one pass of kernel B2 routes their rows and
-    histograms each split's smaller child; the sibling is parent minus child
+    histograms each split's smaller child (on the reference's unfused route,
+    :func:`wave_fuses_partition` false: int8 histograms or more than 256
+    features, the plain partition :func:`~..ops.histogram.route_wave` and
+    kernel B1 with one segment per split); the sibling is parent minus child
     from the per-leaf histogram cache; the fresh children are scored from
     the cached histograms.  The loop reads one number per wave on the host
     (how many leaves still have a finite candidate gain), which decides
@@ -452,6 +467,8 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                    if exact else num_leaves)
     capacity = 2 * grow_leaves - 1
     w_width = min(int(wave_width), grow_leaves - 1)
+    fuse_part = wave_fuses_partition(num_features, w_width, num_bins,
+                                     hist_dtype)
     neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
     # per-node column masks: with bynode sampling off (the only mode this
     # slice ports) every node uses the tree's mask
@@ -496,16 +513,25 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
         nl_r = n_nodes + 2 * iota_s
         nr_r = nl_r + 1
 
-        # route the rows and histogram the smaller children: kernel B2
+        # route the rows and histogram the smaller children: kernel B2, or
+        # on the unfused route the plain partition and kernel B1 with one
+        # segment per split
         slot_of_node = torch.full((capacity,), -1, dtype=torch.int32,
                                   device=dev)
         slot_of_node[parent_r] = iota_s.to(torch.int32)
         args = (bins, stats, row_leaf, slot_of_node,
                 prow[:, K.CAND_FEAT].to(torch.int32),
                 prow[:, K.CAND_BIN].to(torch.int32),
-                direct_left.to(torch.uint8), n_nodes, num_bins, mode)
-        direct_hist, row_leaf = (hist_partition_plain(*args) if plain
-                                 else hist_partition_fused(*args))
+                direct_left.to(torch.uint8), n_nodes)
+        if fuse_part:
+            args += (num_bins, mode)
+            direct_hist, row_leaf = (hist_partition_plain(*args) if plain
+                                     else hist_partition_fused(*args))
+        else:
+            seg, row_leaf = route_wave(bins, *args[2:])
+            direct_hist = compute_histograms(bins, stats, seg, s, num_bins,
+                                             impl=hist_impl,
+                                             hist_dtype=hist_dtype)
 
         # siblings by subtraction from the per-leaf histogram cache (plain
         # gathers and writes: exact, as the reference's one-hot matmuls)

@@ -4,7 +4,8 @@ and of the two histogram kernels the default grower runs.
 * :func:`hist_fused` — bins u8 ``[n, F]`` x stats f32 ``[n, S]`` x segment
   i32 ``[n]`` -> f32 ``[K, F, B, S]``; segments outside ``[0, K)`` add
   nothing.  The port of kernel B1 (``hist_fused_pallas``), as CUDA in
-  ``csrc/hist_fused.cu``.
+  ``csrc/hist_fused.cu`` (f32 and bf16) and ``csrc/hist_fused_int8.cu``
+  (int8).
 * :func:`hist_partition_fused` — one wave of the wave grower: route the rows
   of the splitting leaves to their children and histogram the rows that went
   to their split's smaller ("direct") child by wave rank.  The port of kernel
@@ -34,12 +35,27 @@ Modes: ``"bf16"`` rounds each statistic to bf16 (round to nearest even) and
 sums in f32, as the TPU kernel's bf16 fold and the reference's XLA path do;
 ``"f32"`` (and the reference's explicit ``"f32x"``) sums the f32 statistics
 in f32 — true f32, not the TPU kernel's hi/lo bf16 approximation.
-``"int8"`` is not ported yet.
+``"int8"`` is B1's quantized mode (:func:`quantize_int8`): each channel is
+scaled to ``[-127, 127]`` by its largest magnitude over all ``n`` rows of
+the call, rounded stochastically with a hash of the row index, summed
+exactly in int32 and scaled back, ``f32(int32 sum) * scale`` — in CUDA in
+``csrc/hist_fused_int8.cu``.  Wherever B1 or its plain version runs, int8
+means that quantized contract, on either device and under ``impl="auto"``
+and ``"plain"`` alike; the reference's XLA path runs int8 at full precision
+on the CPU (``lightgbm_tpu/ops/histogram.py:85-87``), a fallback of
+convenience the port does not copy.  The batched histograms
+(:func:`compute_histograms_batched`, :func:`histograms_rows`) take int8 to
+the full-precision segstats route (kernel B6 in f32 mode), as the
+reference does by documented design: B5 and B6 have no quantized mode.
+More than :data:`INT8_ACC_ROW_LIMIT` rows in one call raise ``ValueError``
+before any launch (an int32 cell could wrap past it).
 
-The kernels sum in f32 with Kahan compensation, in a fixed order; the plain
-versions accumulate in f64 and round once.  Both land within a few f32 ulps
-of the exact sum, so they agree to ``1e-6 * sum |x|`` per cell, and exactly
-wherever every partial sum is exact (dyadic statistics).
+The f32 and bf16 kernels sum in f32 with Kahan compensation, in a fixed
+order; the plain versions accumulate in f64 and round once.  Both land
+within a few f32 ulps of the exact sum, so they agree to ``1e-6 * sum |x|``
+per cell, and exactly wherever every partial sum is exact (dyadic
+statistics).  In int8 mode both sum integers exactly, so kernel and plain
+version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -50,20 +66,55 @@ import torch
 
 _F32 = torch.float32
 
+# int8 mode: quantized values reach |q| = 127, so an int32 cell is exact for
+# up to 2^31 // 127 rows; the rows of one call bound every cell's count
+INT8_ACC_ROW_LIMIT = (1 << 31) // 127          # 16,909,320
+# the per-row stochastic rounding offset: a multiplicative hash of the row
+# index, r = ((i * HASH_MUL + HASH_ADD) mod 2^32 >> 9) / 2^23 in [0, 1)
+INT8_HASH_MUL, INT8_HASH_ADD = 2654435761, 974711
+
 
 def resolve_mode(hist_dtype: str) -> str:
     """The kernels' mode for a resolved ``hist_dtype``."""
     if hist_dtype in ("f32", "f32x"):
         return "f32"
-    if hist_dtype == "bf16":
-        return "bf16"
-    if hist_dtype == "int8":
-        raise NotImplementedError(
-            "hist_dtype='int8' (quantized histograms) is not ported yet: "
-            "ROADMAP slice 2 follow-up (B1's int8 mode)")
+    if hist_dtype in ("bf16", "int8"):
+        return hist_dtype
     raise NotImplementedError(
-        f"hist_dtype={hist_dtype!r} is not ported: the port has 'f32' and "
-        "'bf16' histograms")
+        f"hist_dtype={hist_dtype!r} is not ported: the port has 'f32', "
+        "'bf16' and 'int8' histograms")
+
+
+def check_int8_rows(n: int) -> None:
+    """Refuse an int8 histogram over more rows than an int32 cell holds
+    exactly (before any launch)."""
+    if n > INT8_ACC_ROW_LIMIT:
+        raise ValueError(
+            f"hist_dtype='int8' is limited to {INT8_ACC_ROW_LIMIT:,} rows "
+            f"per device (got n={n:,}): quantized values reach |q|=127 and "
+            "an int32 bin accumulator wraps past 2^31/127.  Use "
+            "hist_dtype='bf16'.")
+
+
+def quantize_int8(stats: torch.Tensor):
+    """B1's int8 quantization of ``stats`` f32 ``[n, S]``: ``(q int8 [n, S],
+    scale f32 [S])`` with ``scale = max(max_i |stats[i]|, 1e-30) / 127``
+    over all ``n`` rows and ``q = clip(floor(stats / scale + r_i), -127,
+    127)``, ``r_i`` the row index's hash in ``[0, 1)`` (unbiased:
+    ``E[q] = stats / scale``)."""
+    n, s = stats.shape
+    st = stats.to(_F32)
+    amax = (st.abs().amax(dim=0) if n else
+            torch.zeros(s, dtype=_F32, device=st.device))
+    tiny = torch.tensor(1e-30, dtype=_F32, device=st.device)
+    # a tensor divisor: PyTorch's CUDA division by a scalar multiplies by
+    # its reciprocal, which can differ from the quotient by an ulp
+    scale = torch.maximum(amax, tiny) / torch.full_like(amax, 127.0)
+    idx = torch.arange(n, dtype=torch.int64, device=st.device)
+    h = (idx * INT8_HASH_MUL + INT8_HASH_ADD) & 0xFFFFFFFF
+    r = (h >> 9).to(_F32) / float(1 << 23)
+    q = torch.clamp(torch.floor(st / scale + r[:, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
 
 
 def _stats_in_mode(stats: torch.Tensor, mode: str) -> torch.Tensor:
@@ -76,23 +127,35 @@ def hist_fused_plain(bins: torch.Tensor, stats: torch.Tensor,
                      seg: torch.Tensor, num_segments: int, num_bins: int,
                      mode: str = "f32") -> torch.Tensor:
     """Plain PyTorch version of :func:`hist_fused` (same contract):
-    ``index_add_`` per feature into an f64 accumulator, rounded to f32."""
+    ``index_add_`` per feature into an f64 accumulator, rounded to f32; in
+    int8 mode the quantized values into an int64 one, then ``f32(int32
+    sum) * scale``."""
     n, f = bins.shape
     s = stats.shape[1]
     k = int(num_segments)
-    st = _stats_in_mode(stats.to(_F32), mode)
+    int8 = mode == "int8"
+    if int8:
+        check_int8_rows(n)
+        st, scale = quantize_int8(stats)
+        acc_t = torch.int64
+    else:
+        st = _stats_in_mode(stats.to(_F32), mode)
+        acc_t = torch.float64
     seg = seg.to(torch.int64)
     valid = (seg >= 0) & (seg < k)
     rows = torch.nonzero(valid).squeeze(1)
-    acc = torch.zeros((k * f * num_bins, s), dtype=torch.float64,
-                      device=bins.device)
+    acc = torch.zeros((k * f * num_bins, s), dtype=acc_t, device=bins.device)
     if rows.numel() > 0:
-        st_v = st[rows].to(torch.float64)
+        st_v = st[rows].to(acc_t)
         base = seg[rows] * (f * num_bins)
         codes = bins[rows].to(torch.int64)
         for j in range(f):
             acc.index_add_(0, base + j * num_bins + codes[:, j], st_v)
-    return acc.to(_F32).view(k, f, num_bins, s)
+    if int8:
+        out = acc.to(torch.int32).to(_F32) * scale
+    else:
+        out = acc.to(_F32)
+    return out.view(k, f, num_bins, s)
 
 
 def route_wave(bins, row_leaf, slot_of_node, feat, thr, direct_left,
@@ -237,11 +300,11 @@ def histograms_rows(bins: torch.Tensor, stats_t: torch.Tensor,
     """:func:`compute_histograms_batched` on the row-major layout the strict
     grower keeps (``stats_t [n, E, S]``, ``seg_t [n, E]``; ``seg_t=None``
     puts every row in segment 0): f32 ``[E, K, F, B, S]``."""
-    mode = resolve_mode(hist_dtype)
+    mode = _batched_mode(hist_dtype)
     _check_impl(impl)
     n, e, s = stats_t.shape
     f = bins.shape[1]
-    if num_segments * s >= WIDE_SEGMENT_LANES:
+    if hist_dtype != "int8" and num_segments * s >= WIDE_SEGMENT_LANES:
         seg = (torch.zeros((e, n), dtype=torch.int32, device=bins.device)
                if seg_t is None else seg_t.t().to(torch.int32).contiguous())
         return _batched_fused(bins, stats_t.transpose(0, 1).contiguous(), seg,
@@ -271,17 +334,27 @@ def compute_histograms_batched(bins: torch.Tensor, stats: torch.Tensor,
     segments itself; a narrow one (the roots, the strict grower's two
     children) folds the batch's statistics into one ``[n, E*K*S]`` operand
     for kernel B6 (the reference's ``k_inner >= 64`` rule for that kernel is
-    a TPU lane-width rule, so every narrow call takes it).  A CPU tensor
-    takes the plain versions.
+    a TPU lane-width rule, so every narrow call takes it).  int8 takes the
+    narrow route at every width, at full precision (B6 in f32 mode), as the
+    reference's int8 takes its XLA segstats path.  A CPU tensor takes the
+    plain versions.
     """
-    mode = resolve_mode(hist_dtype)
+    mode = _batched_mode(hist_dtype)
     _check_impl(impl)
-    if num_segments * stats.shape[2] >= WIDE_SEGMENT_LANES:
+    if hist_dtype != "int8" and \
+            num_segments * stats.shape[2] >= WIDE_SEGMENT_LANES:
         return _batched_fused(bins, stats.contiguous(),
                               seg_id.to(torch.int32).contiguous(),
                               num_segments, num_bins, impl, mode)
     return histograms_rows(bins, stats.transpose(0, 1), seg_id.transpose(0, 1),
                            num_segments, num_bins, impl, hist_dtype)
+
+
+def _batched_mode(hist_dtype: str) -> str:
+    """The batched routes' mode: int8 runs at full precision there (B5 and
+    B6 have no quantized mode; the reference's XLA segstats path is f32)."""
+    mode = resolve_mode(hist_dtype)
+    return "f32" if mode == "int8" else mode
 
 
 def _batched_fused(bins, stats, seg, num_segments, num_bins, impl, mode):

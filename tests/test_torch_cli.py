@@ -1,10 +1,15 @@
-"""Port parity: the ported ``task=serve`` CLI against the reference's.
+"""Port parity: the ported CLI (``task=serve``, ``task=train``,
+``task=predict``) against the reference's.
 
 The same request lines (CSV rows, JSON arrays, blank and bad lines,
 ``!swap``/``!rollback``/``!stats`` control lines) go through the reference's
 ``lightgbm_tpu.__main__._serve`` and the port's
 ``lightgbm_tpu_torch.__main__._serve`` (``device=cpu``) on in-memory streams.
 Predictions agree at rtol 1e-5 / atol 1e-6; errors and acks agree in kind.
+``task=train`` then ``task=predict`` on small CSV files (a header,
+``label_column=name:y``, ``valid=``, int8 histograms) write what
+``Booster(model_file=...).predict`` gives, and the model files of either
+package's CLI load in the other with predictions within 1e-6.
 """
 
 import dataclasses
@@ -16,7 +21,9 @@ import pytest
 import torch
 
 import lightgbm_tpu as lgb
+import lightgbm_tpu_torch as P
 from lightgbm_tpu.__main__ import _serve as ref_serve
+from lightgbm_tpu.__main__ import main as ref_main
 from lightgbm_tpu.serving.packed import pack_booster
 from lightgbm_tpu_torch.__main__ import _serve as port_serve
 from lightgbm_tpu_torch.__main__ import main as port_main
@@ -113,7 +120,7 @@ def test_serve_rejects_bad_keys_and_missing_card(models):
             port_serve(v1, {}, stdin=iter(()), stdout=io.StringIO(),
                        stderr=io.StringIO())
     with pytest.raises(SystemExit, match="not ported yet"):
-        port_main(["task=train", "data=x.csv"])
+        port_main(["task=refresh", "watch_dir=x"])
     with pytest.raises(SystemExit, match="requires input_model"):
         port_main(["task=serve"])
 
@@ -138,3 +145,73 @@ def test_serve_stops_on_kernel_failure(models, monkeypatch, canary_rows):
     assert isinstance(e.value.__cause__, KernelLaunchError)
     assert all(ln.startswith("ERROR: KernelLaunchError")
                for ln in out.getvalue().splitlines())
+
+
+# ------------------------------------------------------ task=train|predict
+@pytest.fixture(scope="module")
+def csv_files(tmp_path_factory):
+    rng = np.random.default_rng(31)
+    X = rng.normal(size=(700, 4))
+    y = 2.0 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.normal(size=700)
+    d = tmp_path_factory.mktemp("cli_train")
+    paths = {}
+    for name, rows in (("train", slice(0, 500)), ("valid", slice(500, 600)),
+                       ("valid2", slice(600, 700))):
+        paths[name] = str(d / f"{name}.csv")
+        with open(paths[name], "w") as f:
+            f.write("a,b,y,c,d\n")
+            for xr, yv in zip(X[rows], y[rows]):
+                v = [xr[0], xr[1], yv, xr[2], xr[3]]
+                f.write(",".join(f"{t:.9g}" for t in v) + "\n")
+    return d, paths, X
+
+
+TRAIN_KEYS = ["header=true", "label_column=name:y", "objective=regression",
+              "num_trees=4", "num_leaves=7", "min_data_in_leaf=5",
+              "verbose=-1"]
+
+
+def test_train_then_predict_cli_on_cpu(csv_files):
+    d, paths, X = csv_files
+    model, preds = str(d / "port.txt"), str(d / "port_preds.txt")
+    assert port_main(["task=train", f"data={paths['train']}",
+                      f"valid={paths['valid']},{paths['valid2']}",
+                      "hist_dtype=int8", "device=cpu",
+                      f"output_model={model}"] + TRAIN_KEYS) == 0
+    assert port_main(["task=predict", f"data={paths['valid']}",
+                      "header=true", "label_column=name:y", "device=cpu",
+                      f"input_model={model}",
+                      f"output_result={preds}"]) == 0
+    booster = P.Booster(model_file=model, device="cpu")
+    assert booster.num_trees() == 4
+    got = np.loadtxt(preds)
+    np.testing.assert_allclose(got, booster.predict(X[500:600]), rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_cli_models_interchange_with_reference(csv_files):
+    d, paths, X = csv_files
+    port_model, ref_model = str(d / "p.txt"), str(d / "r.txt")
+    assert port_main(["task=train", f"data={paths['train']}", "device=cpu",
+                      f"output_model={port_model}"] + TRAIN_KEYS) == 0
+    assert ref_main(["task=train", f"data={paths['train']}",
+                     f"output_model={ref_model}"] + TRAIN_KEYS) == 0
+    for path in (port_model, ref_model):
+        want = P.Booster(model_file=path, device="cpu").predict(X)
+        got = lgb.Booster(model_file=path).predict(X)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # the same data and params: the two CLIs' models agree too
+    np.testing.assert_allclose(
+        P.Booster(model_file=port_model, device="cpu").predict(X),
+        lgb.Booster(model_file=ref_model).predict(X), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("argv,name", [
+    (["task=train", "data=x.csv", "checkpoint_dir=ck"], "checkpoint_dir"),
+    (["task=refresh", "watch_dir=x"], "task=refresh"),
+    (["task=sweep", "data=x.csv"], "task=sweep"),
+    (["task=train", "data=x.csv", "device=tpu"], "device")])
+def test_cli_unported_keys_exit_by_name(argv, name):
+    with pytest.raises(SystemExit, match=name) as e:
+        port_main(argv)
+    assert e.value.code not in (0, None)

@@ -25,8 +25,9 @@ kernels B3 and B6.
   rows alike and the held-out rows of those bins differently).  Six of the
   first eight ``cv`` seeds show such a swap within 30 rounds at this shape,
   each with gains within 3 ulps; seed 3 shows none;
-* callbacks and ``return_cvbooster`` take the per-fold route; what the wave
-  regime still lacks (int8 histograms) raises by name;
+* callbacks and ``return_cvbooster`` take the per-fold route; int8 in the
+  wave regime equals f32 (its batched histograms run at full precision), and
+  a learner outside the slice raises by name;
 * a carry taken to numpy and restored continues to the result an
   uninterrupted run gives.
 """
@@ -167,10 +168,18 @@ def test_cv_wave_regime_matches_reference(data):
 
 
 def test_wave_regime_raises_by_name(data):
+    """int8 in the wave regime trains (its batched histograms run at full
+    precision, so it equals f32); a learner outside the slice still raises
+    by name."""
     X, y, rd, pd = data
-    with pytest.raises(NotImplementedError, match="int8"):
-        P.cv(dict(CONFIGS[0], grow_policy="frontier", hist_dtype="int8"),
-             pd, 3, nfold=3)
+    base = dict(CONFIGS[0], grow_policy="frontier", num_leaves=7)
+    q8 = P.cv(dict(base, hist_dtype="int8"), pd, 3, nfold=3)
+    f32 = P.cv(dict(base, hist_dtype="f32"), pd, 3, nfold=3)
+    assert q8.best_iter == f32.best_iter
+    for k in f32:
+        np.testing.assert_array_equal(q8[k], f32[k])
+    with pytest.raises(NotImplementedError, match="tree_learner"):
+        P.cv(dict(base, tree_learner="data"), pd, 3, nfold=3)
 
 
 def test_carry_round_trip_continues_identically(data):

@@ -121,9 +121,15 @@ def test_rows_layout_equals_batched_layout():
 
 
 def test_int8_raises_by_name():
+    """int8 batched histograms run at full precision (B6's f32 route, as the
+    reference's XLA segstats path), at narrow and wide widths; a mode the
+    port lacks still raises by name."""
     bins, stats, seg = _inputs(1)
-    with pytest.raises(NotImplementedError, match="int8"):
-        th.compute_histograms_batched(torch.from_numpy(bins),
-                                      torch.from_numpy(stats),
-                                      torch.from_numpy(seg), 3, B,
-                                      hist_dtype="int8")
+    args = (torch.from_numpy(bins), torch.from_numpy(stats),
+            torch.from_numpy(seg))
+    for k in (3, 25):
+        q8 = th.compute_histograms_batched(*args, k, B, hist_dtype="int8")
+        f32 = th.compute_histograms_batched(*args, k, B, hist_dtype="f32")
+        assert torch.equal(q8, f32)
+    with pytest.raises(NotImplementedError, match="int4"):
+        th.compute_histograms_batched(*args, 3, B, hist_dtype="int4")

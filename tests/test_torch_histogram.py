@@ -122,8 +122,14 @@ def test_compute_histograms_impls_agree():
     a = th.compute_histograms(*args, impl="auto", hist_dtype="f32x")
     b = th.compute_histograms(*args, impl="plain", hist_dtype="f32")
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="int8"):
-        th.compute_histograms(*args, hist_dtype="int8")
+    # int8 is the quantized contract under either impl (not the reference's
+    # full-precision XLA fallback on the CPU)
+    q8 = th.compute_histograms(*args, impl="auto", hist_dtype="int8")
+    assert torch.equal(q8, th.compute_histograms(*args, impl="plain",
+                                                 hist_dtype="int8"))
+    assert not torch.equal(q8, b)
+    with pytest.raises(NotImplementedError, match="int4"):
+        th.compute_histograms(*args, hist_dtype="int4")
     with pytest.raises(ValueError, match="hist_impl"):
         th.compute_histograms(*args, impl="pallas")
 

@@ -1,7 +1,8 @@
 """The hand-written kernels against their plain PyTorch versions on the card:
-the forest-predict kernel (B4), the histogram kernels (B1 ``hist_fused``,
-B2 ``hist_partition``, B5 ``hist_fused_batched``, B6 ``hist_segstats``) and
-the split iteration (B3 ``split_iter``, bit for bit).
+the forest-predict kernel (B4), the histogram kernels (B1 ``hist_fused``
+in f32, bf16 and int8 mode, B2 ``hist_partition``, B5
+``hist_fused_batched``, B6 ``hist_segstats``) and the split iteration (B3
+``split_iter``, bit for bit).
 
 The tests need a CUDA card and nvcc and skip without them.  This file
 imports no JAX, so it runs on the machine with the card (whose Python has
@@ -12,7 +13,7 @@ no JAX; ``--noconftest`` skips ``tests/conftest.py``, which imports it):
 Tolerances: forest predictions rtol 1e-5 / atol 1e-6; histograms per cell
 ``|kernel - plain| <= 1e-6 * sum|x|`` (the kernel sums in compensated f32,
 the plain version in f64); counts, routing and two launches of a histogram
-kernel exactly equal.
+kernel exactly equal; B1's int8 mode bit for bit (integer sums).
 """
 
 import numpy as np
@@ -73,6 +74,32 @@ def test_b1_kernel_matches_plain_on_card(mode):
     assert torch.equal(got, again)
     _close(got.cpu().numpy(), want.cpu().numpy(),
            _abs_hist(bins, stats, seg, 3, 256, mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,nb,k,lo", [(100_003, 28, 256, 1, 0),
+                                         (100_003, 28, 256, 42, -1),
+                                         (4_099, 3, 2, 5, -3),
+                                         (20_011, 300, 64, 70, 0)])
+def test_b1_int8_kernel_bit_equal_to_plain_on_card(n, f, nb, k, lo):
+    """B1's int8 mode: integer sums are exact, so the kernel equals its
+    plain version bit for bit (segments out of range, padding rows)."""
+    dev = _card()
+    rng = np.random.default_rng(23 + k)
+    bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    stats = _stats(rng, n)
+    stats[-100:] = 0.0
+    seg = rng.integers(lo, k + 2, n).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+    got = th.hist_fused(*t, k, nb, "int8")
+    again = th.hist_fused(*t, k, nb, "int8")
+    want = th.hist_fused_plain(*t, k, nb, "int8")
+    cpu = th.hist_fused_plain(*(x.cpu() for x in t), k, nb, "int8")
+    assert torch.equal(got, again) and torch.equal(got, want)
+    assert torch.equal(got.cpu(), cpu)
+    q, scale = th.quantize_int8(t[1])
+    q_cpu, scale_cpu = th.quantize_int8(t[1].cpu())
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(), scale_cpu)
 
 
 @pytest.mark.gpu
