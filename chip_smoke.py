@@ -127,6 +127,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import os
@@ -1584,6 +1585,7 @@ def profile_fused_round(ds):
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.kernels import histogram as kh
     from lightgbm_tpu_torch.models.fused import FusedCVProgram
 
     grid = [g for g in sweep_grid() if g["num_leaves"] == 127
@@ -1597,14 +1599,26 @@ def profile_fused_round(ds):
     prog = FusedCVProgram(ds, params, masks, CV_ROUNDS, CV_ES, SWEEP_SEED)
     carry = prog.step(prog.init(), 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        carry = prog.step(carry, 2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    fam = {"hist_partial_kernel (B6)": 0.0, "hist_reduce_kernel (B6)": 0.0,
-           "split_iter_kernel (B3)": 0.0, "plain PyTorch ops": 0.0}
+    # the (rows, channels) of the round's B6 calls
+    b6_shapes = collections.Counter()
+    orig = kh.hist_segstats
+
+    def spy(bins, segstats, *a):
+        b6_shapes[f"n={segstats.shape[0]} Kc={segstats.shape[1]}"] += 1
+        return orig(bins, segstats, *a)
+
+    kh.hist_segstats = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry = prog.step(carry, 2)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        kh.hist_segstats = orig
+    fam = {"b6:: kernels (B6)": 0.0, "split_iter_kernel (B3)": 0.0,
+           "plain PyTorch ops": 0.0}
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
@@ -1618,6 +1632,7 @@ def profile_fused_round(ds):
     dev_ms = sum(fam.values())
     top.sort(reverse=True)
     out = {"elements": prog.batch, "num_leaves": 127,
+           "b6_calls_by_shape": dict(b6_shapes),
            "wall_ms": wall_ms, "device_ms": dev_ms,
            "device_busy_share": dev_ms / wall_ms if dev_ms else
            "not measured (no device time traced)",
@@ -1908,9 +1923,8 @@ def profile_wave_round(ds):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         T.compute_histograms_batched = orig
-    fam = {"hist_partial_kernel<false> (B5)": 0.0,
-           "hist_partial_kernel<true> (B6)": 0.0,
-           "hist_reduce_kernel (B5, B6)": 0.0, "plain PyTorch ops": 0.0}
+    fam = {"b5:: kernels (B5: partition, items, reduce)": 0.0,
+           "b6:: kernels (B6)": 0.0, "plain PyTorch ops": 0.0}
     top = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",

@@ -1,26 +1,19 @@
-// Shared device code of the four histogram kernels (hist_fused.cu, B1,
-// hist_partition.cu, B2, hist_segstats.cu, B6, and hist_fused_batched.cu,
-// B5).
+// Shared device code of the histogram kernels B1 (hist_fused.cu) and B2
+// (hist_partition.cu).  (B5 and B6 have their own device code in
+// hist_fused_batched.cu and hist_segstats.cu.)
 //
-// All build f32 histograms [E, K, F, B, S] of per-row statistics over
-// (element, segment, feature, bin) with a FIXED summation order, so two
-// launches on the same input give bit-equal output (no float atomics).  The
-// E elements (B5's batch; E = 1 for the others) share the bins and bring
-// their own statistics [E, n, S] and segments [E, n]:
+// Both build f32 histograms [K, F, B, S] of per-row statistics over
+// (segment, feature, bin) with a FIXED summation order, so two launches on
+// the same input give bit-equal output (no float atomics):
 //
 //   pass 1, hist_partial_kernel: one block of 256 threads per (row chunk,
-//     feature, element x segment group x channel group).  The block stages
-//     a tile of its chunk's rows in shared memory (the row's code for this
-//     feature and its segment packed in one int "key", and the statistics
-//     of its channel group), sorts the tile's rows by bin with a stable
-//     counting sort, and then one thread per bin (B1, B2, B5) or per (bin,
-//     channel) (B6) walks only that bin's rows, in row order, adding into
-//     its cells of a shared [KC, B] partial (KC = segments of the group x
-//     channels of the group).
-//     The partial goes to scratch [E, chunks, F, K*S, B].  B1, B2 and B5
-//     take all S statistics in one channel group; B6 (one segment, up to
-//     ~1,000 pre-folded channels) splits them into groups that fit shared
-//     memory.
+//     feature, segment group).  The block stages a tile of its chunk's rows
+//     in shared memory (the row's code for this feature and its segment
+//     packed in one int "key", and its statistics), sorts the tile's rows
+//     by bin with a stable counting sort, and then one thread per bin walks
+//     only that bin's rows, in row order, adding into its cells of a shared
+//     [group * S, B] partial.  The partial goes to scratch
+//     [chunks, F, K*S, B].
 //   pass 2, hist_reduce_kernel: each output cell sums its chunks' partials in
 //     chunk order.
 //
@@ -36,21 +29,13 @@
 // thread look at every row (n*F*B compares, 7.2e9 at the north-star root);
 // the counting sort makes the work per row constant: each warp ranks its 32
 // rows by bin with one __match_any_sync, and each thread then touches only
-// the rows of its own bin.  A B6 block gives each (bin, channel) pair its
-// own thread: with one thread per bin, a feature with a few distinct codes
-// (the diamonds' cut, color, clarity) had a few threads walk all 1,024 rows
-// of a tile for all 16 channels while the rest idled (B6 1.40 -> 0.95 ms at
-// the sweep's shape on an H100; the same loop made B1 and B2, at 3
-// channels, 14-24 % slower, so they keep a thread per bin, and the channel
-// groups' index arithmetic is compiled into B6's kernel only).  Rows that
-// add nothing (other segments, codes
+// the rows of its own bin.  Rows that add nothing (other segments, codes
 // >= B) are never placed, which compacts a wave's tile to its direct rows.
 // The sort's order is warp-major over contiguous row ranges, so a bin's
 // rows keep their row order and the sums stay deterministic.
 //
-// Rows come with their segment ids (B1, B5: the caller's; B2: the wave's
-// row partition, computed once per wave by route_kernel in
-// hist_partition.cu).
+// Rows come with their segment ids (B1: the caller's; B2: the wave's row
+// partition, computed once per wave by route_kernel in hist_partition.cu).
 
 #pragma once
 
@@ -90,18 +75,11 @@ struct Shape {
   int rows_per_chunk;
   int seg_group;     // segments per block
   int bf16;          // 1: round each statistic to bf16 first
-  int ch_group;      // statistics (channels) per block; S for B1, B2, B5
-  int E = 1;         // elements sharing the bins (B5's batch)
 };
 
-// segment groups of one element
+// blocks along gridDim.z: segment groups
 __host__ __device__ inline int seg_groups(const Shape& s) {
   return (s.K + s.seg_group - 1) / s.seg_group;
-}
-
-// blocks along gridDim.z: elements x segment groups x channel groups
-__host__ __device__ inline int ch_groups(const Shape& s) {
-  return (s.S + s.ch_group - 1) / s.ch_group;
 }
 
 // staged keys and statistics, the sort's per-warp counts, bin starts and
@@ -109,8 +87,8 @@ __host__ __device__ inline int ch_groups(const Shape& s) {
 __host__ __device__ inline size_t smem_bytes(const Shape& s) {
   return sizeof(int) * ((size_t)kTileRows + (size_t)kWarps * kMaxBins +
                         2 * (size_t)kMaxBins) +
-         sizeof(float) * ((size_t)kTileRows * s.ch_group +
-                          2 * (size_t)s.seg_group * s.ch_group * s.B) +
+         sizeof(float) * ((size_t)kTileRows * s.S +
+                          2 * (size_t)s.seg_group * s.S * s.B) +
          sizeof(unsigned short) * kTileRows;
 }
 
@@ -123,12 +101,6 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {
   sum = t;
 }
 
-// kWide: channel groups and a thread per (bin, channel) (B6); otherwise
-// every channel in one block and a thread per bin (B1, B2, B5), compiled
-// without the channel-group index arithmetic.  The element axis is in every
-// instance: compiled into B5's alone (a template flag) it left B1's root 4 %
-// faster but B5 10 % slower on an H100 (PERF.md).
-template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 hist_partial_kernel(const uint8_t* __restrict__ bins,
                     const float* __restrict__ stats,
@@ -136,30 +108,19 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
                     float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S = sh.S, B = sh.B;
-  const int chunk = blockIdx.x, f = blockIdx.y;
-  const int n_cg = kWide ? ch_groups(sh) : 1;
-  const int per_element = seg_groups(sh) * n_cg;
-  const int element = blockIdx.z / per_element;
-  const int zg = blockIdx.z - element * per_element;
-  const int group = zg / n_cg, cgroup = zg % n_cg;
-  // this element's statistics, segments and partial
-  stats += (size_t)element * sh.n * S;
-  if (seg) seg += (size_t)element * sh.n;
-  partial += (size_t)element * gridDim.x * sh.F * ((size_t)sh.K * S) * B;
+  const int chunk = blockIdx.x, f = blockIdx.y, group = blockIdx.z;
   const int g0 = group * sh.seg_group;
   const int g_count = min(sh.seg_group, sh.K - g0);
-  const int c0 = kWide ? cgroup * sh.ch_group : 0;  // first channel
-  const int CS = kWide ? min(sh.ch_group, S - c0) : S;  // channels
-  const int ks = g_count * CS;                // partial rows of this block
+  const int ks = g_count * S;                 // partial rows of this block
   int* s_key = reinterpret_cast<int*>(smem_raw);          // [kTileRows]
   int* s_wcnt = s_key + kTileRows;            // [kWarps, kMaxBins]
   int* s_start = s_wcnt + kWarps * kMaxBins;  // [kMaxBins] first sorted slot
   int* s_total = s_start + kMaxBins;          // [kMaxBins] rows of the bin
   float* s_stat = reinterpret_cast<float*>(s_total + kMaxBins);
-  float* acc = s_stat + kTileRows * sh.ch_group;
-  float* comp = acc + (size_t)sh.seg_group * sh.ch_group * B;
+  float* acc = s_stat + kTileRows * S;
+  float* comp = acc + (size_t)sh.seg_group * S * B;
   unsigned short* s_order = reinterpret_cast<unsigned short*>(
-      comp + (size_t)sh.seg_group * sh.ch_group * B);
+      comp + (size_t)sh.seg_group * S * B);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -188,14 +149,8 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
       }
       s_key[i] = key;
     }
-    for (int i = tid; i < rows * CS; i += kThreads) {
-      float v;
-      if (kWide) {
-        const int r = i / CS, c = i - r * CS;
-        v = stats[(t0 + r) * S + c0 + c];
-      } else {
-        v = stats[t0 * S + i];
-      }
+    for (int i = tid; i < rows * S; i += kThreads) {
+      const float v = stats[t0 * S + i];
       s_stat[i] = sh.bf16 ? round_bf16(v) : v;
     }
     for (int i = tid; i < kWarps * kMaxBins; i += kThreads) s_wcnt[i] = 0;
@@ -258,96 +213,69 @@ hist_partial_kernel(const uint8_t* __restrict__ bins,
       __syncwarp();
     }
     __syncthreads();
-    // accumulate, each cell's rows in row order.  B1, B2: thread b walks
-    // its bin's rows for every channel.  B6: one thread per (bin, channel),
-    // so the rows of a heavy bin (an ordinal feature with a few codes)
-    // spread over the block's channels.
-    if (!kWide) {
-      const int b = tid;
-      if (b < B) {
-        const int end = s_start[b] + s_total[b];
-        for (int i = s_start[b]; i < end; ++i) {
-          const int r = s_order[i];
-          const int off = (s_key[r] >> kSegShift) * CS * B + b;
-          const float* st = s_stat + r * CS;
-          for (int c = 0; c < CS; ++c) {
-            kahan_add(acc[off + c * B], comp[off + c * B], st[c]);
-          }
-        }
-      }
-    } else {
-      for (int item = tid; item < B * CS; item += kThreads) {
-        const int b = item / CS, c = item - b * CS;
-        const int end = s_start[b] + s_total[b];
-        for (int i = s_start[b]; i < end; ++i) {
-          const int r = s_order[i];
-          const int off = ((s_key[r] >> kSegShift) * CS + c) * B + b;
-          kahan_add(acc[off], comp[off], s_stat[r * CS + c]);
+    // accumulate, each cell's rows in row order: thread b walks its bin's
+    // rows for every channel
+    const int b = tid;
+    if (b < B) {
+      const int end = s_start[b] + s_total[b];
+      for (int i = s_start[b]; i < end; ++i) {
+        const int r = s_order[i];
+        const int off = (s_key[r] >> kSegShift) * S * B + b;
+        const float* st = s_stat + r * S;
+        for (int c = 0; c < S; ++c) {
+          kahan_add(acc[off + c * B], comp[off + c * B], st[c]);
         }
       }
     }
   }
   __syncthreads();
-  // partial [E, chunks, F, K*S, B]: this block's rows (g0 + k)*S + c0 + c
+  // partial [chunks, F, K*S, B]: this block's rows [g0*S, g0*S + ks)
   const size_t KS = (size_t)sh.K * S;
-  float* dst = partial + ((size_t)chunk * sh.F + f) * KS * B;
-  if (!kWide) {                               // rows [g0*S, g0*S + ks)
-    dst += (size_t)g0 * S * B;
-    for (int i = tid; i < ks * B; i += kThreads) dst[i] = acc[i];
-  } else {
-    for (int i = tid; i < ks * B; i += kThreads) {
-      const int kc = i / B, b = i - kc * B;
-      const int k = kc / CS, c = kc - k * CS;
-      dst[((size_t)(g0 + k) * S + c0 + c) * B + b] = acc[i];
-    }
-  }
+  float* dst = partial + ((size_t)chunk * sh.F + f) * KS * B +
+               (size_t)g0 * S * B;
+  for (int i = tid; i < ks * B; i += kThreads) dst[i] = acc[i];
 }
 
-// out [E, K, F, B, S][e, k, f, b, s] = (Kahan) sum over chunks c, in
-// order, of partial [e, c, f, k*S + s, b]; one thread per cell, b fastest
-// in the index so the partial reads coalesce.
+// out [K, F, B, S][k, f, b, s] = (Kahan) sum over chunks c, in order, of
+// partial [c, f, k*S + s, b]; one thread per cell, b fastest in the index
+// so the partial reads coalesce.
 __global__ void hist_reduce_kernel(const float* __restrict__ partial,
                                    int n_chunks, Shape sh,
                                    float* __restrict__ out) {
   const int S = sh.S, B = sh.B, F = sh.F;
   const size_t KS = (size_t)sh.K * S;
-  const size_t stride = (size_t)F * KS * B;   // one chunk's partial
-  const size_t cells = (size_t)sh.E * stride;
+  const size_t cells = (size_t)F * KS * B;   // one chunk's partial
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < cells;
        i += (size_t)gridDim.x * blockDim.x) {
-    const size_t element = i / stride;
-    const size_t cell = i - element * stride;
-    const int b = (int)(cell % B);
-    const size_t fks = cell / B;
+    const int b = (int)(i % B);
+    const size_t fks = i / B;
     const int kss = (int)(fks % KS);
     const int f = (int)(fks / KS);
-    const float* src = partial + element * n_chunks * stride + cell;
+    const float* src = partial + i;
     float sum = 0.0f, comp = 0.0f;
-    for (int c = 0; c < n_chunks; ++c) kahan_add(sum, comp, src[c * stride]);
+    for (int c = 0; c < n_chunks; ++c) kahan_add(sum, comp, src[c * cells]);
     const int k = kss / S, s = kss % S;
-    out[element * stride + (((size_t)k * F + f) * B + b) * S + s] = sum;
+    out[(((size_t)k * F + f) * B + b) * S + s] = sum;
   }
 }
 
 // Launch both passes on `stream`; returns the first CUDA error (0 if none).
-// `wide`: the channel-group kernel (B6); B1, B2 and B5 take every channel in
-// one block (sh.ch_group == sh.S).
 inline int launch(const uint8_t* bins, const float* stats, const int* seg,
                   const Shape& sh, int n_chunks, float* partial, float* out,
-                  cudaStream_t stream, bool wide = false) {
-  if (!wide && sh.ch_group != sh.S) return (int)cudaErrorInvalidValue;
-  const long long groups = (long long)sh.E * seg_groups(sh) * ch_groups(sh);
+                  cudaStream_t stream) {
+  const int groups = seg_groups(sh);
   if (groups > 65535) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = smem_bytes(sh);
-  auto kernel = wide ? hist_partial_kernel<true> : hist_partial_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      hist_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_chunks, sh.F, (unsigned)groups);
-  kernel<<<grid, kThreads, smem, stream>>>(bins, stats, seg, sh, partial);
+  hist_partial_kernel<<<grid, kThreads, smem, stream>>>(bins, stats, seg, sh,
+                                                        partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t cells = (size_t)sh.E * sh.F * sh.K * sh.S * sh.B;
+  const size_t cells = (size_t)sh.F * sh.K * sh.S * sh.B;
   const int rthreads = 256;
   const size_t want = (cells + rthreads - 1) / rthreads;
   const int rblocks = want > 65535 ? 65535 : (want < 1 ? 1 : (int)want);

@@ -20,7 +20,7 @@ int hist_fused_launch(const void* bins, int n, int F, const void* stats,
                       int S, const void* seg, int K, int B, int bf16,
                       int rows_per_chunk, int n_chunks, int seg_group,
                       void* partial, void* out, void* stream) {
-  hist::Shape sh{n, F, S, K, B, rows_per_chunk, seg_group, bf16, S};
+  hist::Shape sh{n, F, S, K, B, rows_per_chunk, seg_group, bf16};
   return hist::launch(static_cast<const uint8_t*>(bins),
                       static_cast<const float*>(stats),
                       static_cast<const int*>(seg), sh, n_chunks,
@@ -35,7 +35,7 @@ const char* hist_fused_error_string(int err) {
 int hist_fused_tile_rows() { return hist::kTileRows; }
 
 long long hist_fused_smem_bytes(int S, int B, int seg_group) {
-  hist::Shape sh{0, 0, S, 0, B, 0, seg_group, 0, S};
+  hist::Shape sh{0, 0, S, 0, B, 0, seg_group, 0};
   return (long long)hist::smem_bytes(sh);
 }
 

@@ -79,7 +79,7 @@ int hist_partition_launch(const void* bins, int n, int F, const void* stats,
       static_cast<int*>(seg), static_cast<int*>(new_row_leaf));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  hist::Shape sh{n, F, 3, W, B, rows_per_chunk, seg_group, bf16, 3};
+  hist::Shape sh{n, F, 3, W, B, rows_per_chunk, seg_group, bf16};
   return hist::launch(static_cast<const uint8_t*>(bins),
                       static_cast<const float*>(stats),
                       static_cast<const int*>(seg), sh, n_chunks,
@@ -94,7 +94,7 @@ const char* hist_partition_error_string(int err) {
 int hist_partition_tile_rows() { return hist::kTileRows; }
 
 long long hist_partition_smem_bytes(int B, int seg_group) {
-  hist::Shape sh{0, 0, 3, 0, B, 0, seg_group, 0, 3};
+  hist::Shape sh{0, 0, 3, 0, B, 0, seg_group, 0};
   return (long long)hist::smem_bytes(sh);
 }
 

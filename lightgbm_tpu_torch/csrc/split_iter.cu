@@ -38,7 +38,9 @@
 //     by op with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, which nvcc
 //     never contracts (the source is also built with -fmad=false); the two
 //     fused multiply-adds of that rounding (path smoothing's
-//     fma(w, f, parent*(1 - f)) and the objective's fma(Y, w, G*w)) are the
+//     fma(w, f, parent*(1 - f)) for the stored outputs and
+//     fma(parent, 1 - f, w*f) inside the gain, and the objective's
+//     fma(Y, w, G*w)) are the
 //     plain version's fma(): the f32 product exact in f64, one f64 add, one
 //     rounding to f32;
 //   * the winner's statistics are gathered as the reference kernel gathers
@@ -105,7 +107,11 @@ __device__ __forceinline__ float leaf_output(float g, float h, const Reg& r) {
   return __fdiv_rn(-t, den);
 }
 
-// ops/split.py constrained_leaf_output with per-element switches
+// ops/split.py constrained_leaf_output with per-element switches; path
+// smoothing in the "kernel" rounding fma(w, f, parent*(1 - f)) for the
+// stored outputs, in the "scan" rounding fma(parent, 1 - f, w*f) for the
+// outputs inside the gain (kScan), as split_gain_scan takes them
+template <bool kScan = false>
 __device__ __forceinline__ float constrained_out(float g, float h, float cnt,
                                                  const Reg& r, float lo,
                                                  float hi, float parent) {
@@ -113,7 +119,8 @@ __device__ __forceinline__ float constrained_out(float g, float h, float cnt,
   if (r.ps > 0.0f) {
     const float factor = __fdiv_rn(cnt, __fadd_rn(cnt, tmax(r.ps, 1e-30f)));
     const float one_m = __fsub_rn(1.0f, factor);
-    w = fma_f64(w, factor, __fmul_rn(parent, one_m));
+    w = kScan ? fma_f64(parent, one_m, __fmul_rn(w, factor))
+              : fma_f64(w, factor, __fmul_rn(parent, one_m));
   }
   const float cap = r.mds > 0.0f ? r.mds : INFINITY;
   const float lo_t = tmax(lo, -cap);
@@ -257,8 +264,8 @@ split_iter_kernel(const float* __restrict__ hist,
       }
       const float rg = __fsub_rn(tg, lg), rh = __fsub_rn(th, lh);
       const float rc = __fsub_rn(tc, lc);
-      const float wl = constrained_out(lg, lh, lc, r, lo, hi, p_out);
-      const float wr = constrained_out(rg, rh, rc, r, lo, hi, p_out);
+      const float wl = constrained_out<true>(lg, lh, lc, r, lo, hi, p_out);
+      const float wr = constrained_out<true>(rg, rh, rc, r, lo, hi, p_out);
       float gain = __fsub_rn(__fadd_rn(objective_at(wl, lg, lh, r),
                                        objective_at(wr, rg, rh, r)),
                              parent_obj);

@@ -20,15 +20,18 @@ maxima with one ``amax``, then launches the int8 library's three passes
 shared or global memory, rescale; :func:`plan_int8` sizes them).  More than
 ``INT8_ACC_ROW_LIMIT`` rows raise ``ValueError`` before any launch.
 
-Sizing: every block owns one (row chunk, feature, segment group).  A
-segment group is as many segments as the block's shared-memory partial
-``[group * S, B]`` f32 and its Kahan compensation hold, beside the staged
-row tile and the sort's tables, while two blocks still share an SM (14
-segments of S = 3 at B = 256, so a 42-split wave runs in three groups);
-chunks are cut so that the grid holds about eight blocks per SM (B5's grid
-counts every element's blocks, so a wide batch gets fewer chunks).  B6 has one
-segment and up to ~1,000 channels, so its blocks own a channel group instead
-(16 channels at B = 256, :func:`plan_segstats`).
+Sizing (B1, B2): every block owns one (row chunk, feature, segment
+group).  A segment group is as many segments as the block's shared-memory
+partial ``[group * S, B]`` f32 and its Kahan compensation hold, beside the
+staged row tile and the sort's tables, while two blocks still share an SM
+(14 segments of S = 3 at B = 256, so a 42-split wave runs in three groups);
+chunks are cut so that the grid holds about eight blocks per SM.  B5
+partitions each element's rows by segment and gives a block one work item
+(at most ``R`` positions of one segment) and a feature group
+(:func:`plan_batched`); B6 gives a block a row chunk, a feature and a set of
+32-channel groups (:func:`plan_segstats`).  :func:`batched_passes_plain` and
+:func:`segstats_passes_plain` repeat B5's and B6's passes in PyTorch, in
+the kernels' order, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -58,6 +61,12 @@ WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
 SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
 SMEM_PER_SM = 233_472               # shared memory of one SM (228 KB)
 BLOCKS_PER_SM = 8                   # blocks a launch aims to give each SM
+B5_TILE = 512                       # kTile in csrc/hist_fused_batched.cu
+B5_PART_ROWS = 1024                 # kPartRows: rows a partition warp takes
+B5_WARPS = 8                        # kWarps: a B5 block's warps (features)
+B6_LANES = 32                       # channels per group (hist_segstats.cu)
+B6_CHUNK_ROWS = (8192, 4096, 2048, 1024, 512)  # row chunks a B6 block
+                                    # sorts, largest first (kMaxChunkRows)
 
 MODES = ("f32", "bf16")
 HIST_FUSED_LAUNCHES = {m: LaunchCounter() for m in MODES + ("int8",)}
@@ -87,13 +96,14 @@ def _bound():
             _funcs[PARTITION] = fn
             lib_s = build.load(SEGSTATS)
             fn = lib_s.hist_segstats_launch
-            fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+            fn.argtypes = [vp, ci, ci, vp, ci, ci, ci, ci, ci, ci, ci, vp, vp,
+                           vp]
             fn.restype = ci
             _funcs[SEGSTATS] = fn
             lib_b = build.load(BATCHED)
             fn = lib_b.hist_fused_batched_launch
             fn.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
-                           ci, vp, vp, vp]
+                           ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             fn.restype = ci
             _funcs[BATCHED] = fn
             lib_i = build.load(INT8)
@@ -123,9 +133,16 @@ def _bound():
                 err.argtypes = [ci]
                 err.restype = ctypes.c_char_p
                 _funcs[name + "_error"] = err
-                tile = getattr(lib_, f"{name}_tile_rows")
-                tile.restype = ci
-                if tile() != TILE_ROWS:
+            for name, fn, want in (
+                    (FUSED, lib.hist_fused_tile_rows, TILE_ROWS),
+                    (PARTITION, lib_p.hist_partition_tile_rows, TILE_ROWS),
+                    (BATCHED, lib_b.hist_fused_batched_tile_rows, B5_TILE),
+                    (BATCHED, lib_b.hist_fused_batched_part_rows,
+                     B5_PART_ROWS),
+                    (SEGSTATS, lib_s.hist_segstats_max_chunk_rows,
+                     B6_CHUNK_ROWS[0])):
+                fn.restype = ci
+                if fn() != want:
                     raise build.KernelLaunchError(
                         f"{name}: the kernel's tile rows disagree with the "
                         "binding")
@@ -139,14 +156,14 @@ def _bound():
             smem = lib_b.hist_fused_batched_smem_bytes
             smem.argtypes = [ci, ci, ci]
             smem.restype = ctypes.c_longlong
-            if smem(3, 256, 14) != smem_bytes(3, 256, 14):
+            if smem(3, 256, 8) != batched_smem_bytes(3, 256, 8):
                 raise build.KernelLaunchError(
                     "hist_fused_batched: the kernel's shared-memory layout "
                     "disagrees with the binding")
             smem = lib_s.hist_segstats_smem_bytes
-            smem.argtypes = [ci, ci]
+            smem.argtypes = [ci]
             smem.restype = ctypes.c_longlong
-            if smem(256, 16) != smem_bytes(16, 256, 1):
+            if smem(4096) != segstats_smem_bytes(4096):
                 raise build.KernelLaunchError(
                     "hist_segstats: the kernel's shared-memory layout "
                     "disagrees with the binding")
@@ -163,13 +180,12 @@ def smem_bytes(s: int, num_bins: int, seg_group: int) -> int:
 
 
 def plan(n: int, num_features: int, s: int, num_segments: int,
-         num_bins: int, sm_count: int, elements: int = 1):
-    """(rows_per_chunk, n_chunks, seg_group) of a launch.
+         num_bins: int, sm_count: int):
+    """(rows_per_chunk, n_chunks, seg_group) of a B1 or B2 launch.
 
     A segment group is as many segments as let two blocks share an SM (one
     when even a single segment needs more); chunks are cut so that the grid
-    of all ``elements`` holds about ``BLOCKS_PER_SM`` blocks per SM, each at
-    least one tile.
+    holds about ``BLOCKS_PER_SM`` blocks per SM, each at least one tile.
     """
     per_seg = 8 * s * num_bins
     base = smem_bytes(s, num_bins, 0)
@@ -182,7 +198,7 @@ def plan(n: int, num_features: int, s: int, num_segments: int,
     groups = -(-num_segments // seg_group)
     max_chunks = max(1, -(-n // TILE_ROWS))
     want = -(-BLOCKS_PER_SM * sm_count
-             // (elements * num_features * groups))
+             // (num_features * groups))
     n_chunks = max(1, min(max_chunks, want))
     rows = -(-n // n_chunks)
     rows = -(-rows // TILE_ROWS) * TILE_ROWS
@@ -229,23 +245,169 @@ def plan_int8(n: int, num_features: int, s: int, num_segments: int,
     return rows, -(-n // rows), seg_group, feat_group
 
 
+def segstats_smem_bytes(rows_per_chunk: int) -> int:
+    """Dynamic shared memory of one B6 block (``b6::smem_bytes``): the
+    chunk's keys and sorted positions (u16 each), the sort's tables and the
+    warps' continued runs."""
+    return (4 * rows_per_chunk + 4 * (WARPS * MAX_BINS + 2 * MAX_BINS)
+            + 8 * WARPS * B6_LANES + 4 * (WARPS + 1))
+
+
 def plan_segstats(n: int, num_features: int, channels: int, num_bins: int,
                   sm_count: int):
-    """(rows_per_chunk, n_chunks, ch_group) of a B6 launch: as many channels
-    per block as let two blocks share an SM, chunks for about
-    ``BLOCKS_PER_SM`` blocks per SM."""
-    per_ch = 4 * (TILE_ROWS + 2 * num_bins)
-    base = smem_bytes(0, num_bins, 1)
-    ch_group = max(1, min(channels, (SMEM_PER_SM // 2 - 1024 - base)
-                          // per_ch))
-    groups = -(-channels // ch_group)
-    max_chunks = max(1, -(-n // TILE_ROWS))
-    want = -(-BLOCKS_PER_SM * sm_count // (num_features * groups))
-    n_chunks = max(1, min(max_chunks, want))
-    rows = -(-n // n_chunks)
-    rows = -(-rows // TILE_ROWS) * TILE_ROWS
-    n_chunks = max(1, -(-n // rows))
-    return rows, n_chunks, ch_group
+    """(rows_per_chunk, n_chunks, groups_per_set, n_sets) of a B6 launch.
+
+    A block sorts one row chunk of one feature once and walks it for each
+    32-channel group of its set.  Chunks are as large as still give
+    ``BLOCKS_PER_SM`` blocks per SM (fewer sorts and partials); the
+    channel groups are spread over as many sets as fill that grid."""
+    groups = -(-channels // B6_LANES)
+    target = BLOCKS_PER_SM * sm_count
+    for rows in B6_CHUNK_ROWS:
+        chunks = -(-n // rows)
+        if chunks * num_features * groups >= target:
+            break
+    sets = min(groups, -(-target // (chunks * num_features)))
+    per_set = -(-groups // sets)
+    return rows, chunks, per_set, -(-groups // per_set)
+
+
+def batched_smem_bytes(s: int, num_bins: int, feat_group: int) -> int:
+    """Dynamic shared memory of one B5 histogram block
+    (``b5::hist_smem_bytes``): the f64 histogram ``[F_g, B, S]`` and the
+    tile's statistics."""
+    return 8 * feat_group * num_bins * s + 4 * B5_TILE * s
+
+
+def plan_batched(n: int, num_features: int, s: int, num_segments: int,
+                 num_bins: int, sm_count: int, elements: int):
+    """(R, cap, feat_group, part_chunks) of a B5 launch.
+
+    A block's feature group is at most ``B5_WARPS`` features (a warp each),
+    as many as let four histogram blocks share an SM (two, then one, where
+    even a single feature needs more), balanced over the features; a work
+    item holds at most ``R`` positions (whole tiles), cut so that the
+    ``elements * n`` rows (an upper bound of the direct rows) make about
+    four rounds of resident blocks; ``cap`` bounds the items of one
+    element (``ceil(n / R) + K``); the partition takes chunks of
+    ``B5_PART_ROWS`` rows."""
+    if 4 * B5_WARPS * num_segments > SMEM_LIMIT:
+        raise ValueError(f"{num_segments} segments exceed the partition's "
+                         "shared memory")
+    for per_sm in (4, 2, 1):
+        room = min(SMEM_LIMIT, SMEM_PER_SM // per_sm - 1024)
+        fg = min(num_features, B5_WARPS)
+        while fg > 1 and batched_smem_bytes(s, num_bins, fg) > room:
+            fg -= 1
+        if batched_smem_bytes(s, num_bins, fg) <= room:
+            break
+    else:
+        raise ValueError(f"{s} statistics x {num_bins} bins do not fit a "
+                         "block's shared memory")
+    groups = -(-num_features // fg)
+    fg = -(-num_features // groups)
+    want = 4 * per_sm * sm_count * B5_TILE
+    r = B5_TILE * max(1, -(-elements * n * groups // want))
+    return r, -(-n // r) + num_segments, fg, -(-n // B5_PART_ROWS)
+
+
+def batched_passes_plain(bins: torch.Tensor, stats: torch.Tensor,
+                         seg: torch.Tensor, num_segments: int, num_bins: int,
+                         mode: str, r: int) -> dict:
+    """B5's passes in PyTorch, in the kernel's order: the stable partition
+    of each element's rows by segment (``order``, ``seg_start``
+    ``[E, K + 1]``), the work items (element, segment, p0, p1) of at most
+    ``r`` positions each, their rows gathered through the order into f64
+    partials, and the reduce in item order (``out`` f32
+    ``[E, K, F, B, S]``)."""
+    n, f = bins.shape
+    e, _, s = stats.shape
+    k = int(num_segments)
+    st = stats.to(torch.bfloat16).to(torch.float32) if mode == "bf16" \
+        else stats
+    seg = seg.to(torch.int64)
+    ok = (seg >= 0) & (seg < k)
+    key = torch.where(ok, seg, k)
+    order, starts, items = [], [], []
+    for el in range(e):
+        # a stable counting sort by segment, out-of-range rows dropped
+        counts = torch.bincount(key[el], minlength=k + 1)[:k]
+        start = torch.zeros(k + 1, dtype=torch.int64)
+        start[1:] = torch.cumsum(counts, 0)
+        pos = start[key[el].clamp(max=k - 1)]
+        rank = torch.zeros(n, dtype=torch.int64)
+        for kk in range(k):
+            rows = torch.nonzero(key[el] == kk).squeeze(1)
+            rank[rows] = torch.arange(rows.numel())
+        o = torch.empty(int(start[k]), dtype=torch.int64)
+        o[(pos + rank)[ok[el]]] = torch.nonzero(ok[el]).squeeze(1)
+        order.append(o)
+        starts.append(start)
+        for kk in range(k):
+            for p0 in range(int(start[kk]), int(start[kk + 1]), r):
+                items.append((el, kk, p0, min(int(start[kk + 1]), p0 + r)))
+    acc = torch.zeros((e, k, f, num_bins, s), dtype=torch.float64)
+    codes = bins.to(torch.int64)
+    for el, kk, p0, p1 in items:
+        rows = order[el][p0:p1]
+        part = torch.zeros((f * num_bins, s), dtype=torch.float64)
+        for j in range(f):
+            c = codes[rows, j]
+            keep = c < num_bins
+            part.index_add_(0, j * num_bins + c[keep],
+                            st[el, rows[keep]].to(torch.float64))
+        acc[el, kk] += part.view(f, num_bins, s)
+    return {"order": order, "seg_start": torch.stack(starts),
+            "items": items, "out": acc.to(torch.float32)}
+
+
+def segstats_passes_plain(bins: torch.Tensor, segstats: torch.Tensor,
+                          num_bins: int, mode: str,
+                          rows_per_chunk: int) -> dict:
+    """B6's passes in PyTorch, in the kernel's order: per (row chunk,
+    feature) the rows sorted stably by bin (codes >= B dropped) as
+    ``order[chunk][feature]``, the sorted positions cut into ``WARPS``
+    equal ranges whose runs of equal bins sum in f64 (a run continued from
+    the previous range added after the others, in range order), and the
+    chunks' partials summed in chunk order (``out`` f32 ``[F, B, Kc]``)."""
+    n, f = bins.shape
+    kc = segstats.shape[1]
+    st = segstats.to(torch.bfloat16).to(torch.float32) if mode == "bf16" \
+        else segstats
+    st = st.to(torch.float64)
+    codes = bins.to(torch.int64)
+    out = torch.zeros((f, num_bins, kc), dtype=torch.float64)
+    order = []
+    for r0 in range(0, n, rows_per_chunk):
+        r1 = min(n, r0 + rows_per_chunk)
+        per_feature = []
+        for j in range(f):
+            c = codes[r0:r1, j]
+            rows = torch.nonzero(c < num_bins).squeeze(1)
+            srt = rows[torch.sort(c[rows], stable=True).indices]
+            per_feature.append(srt)
+            b = c[srt]
+            placed = srt.numel()
+            acc = torch.zeros((num_bins, kc), dtype=torch.float64)
+            heads = []
+            for w in range(WARPS):
+                pa, pb = placed * w // WARPS, placed * (w + 1) // WARPS
+                p = pa
+                while p < pb:
+                    q = p
+                    while q < pb and b[q] == b[p]:
+                        q += 1
+                    run = st[r0 + srt[p:q]].sum(dim=0)
+                    if p == 0 or b[p - 1] != b[p]:
+                        acc[b[p]] = run
+                    else:
+                        heads.append((int(b[p]), run))
+                    p = q
+            for bb, run in heads:
+                acc[bb] += run
+            out[j] += acc
+        order.append(per_feature)
+    return {"order": order, "out": out.to(torch.float32)}
 
 
 def _check(name, t, dtype, shape, device):
@@ -430,15 +592,16 @@ def hist_segstats(bins: torch.Tensor, segstats: torch.Tensor, num_bins: int,
     out = torch.empty((f, num_bins, kc), dtype=torch.float32, device=dev)
     if n == 0 or f == 0 or kc == 0:
         return out.zero_()
-    rows, n_chunks, group = plan_segstats(n, f, kc, num_bins, _sm_count(dev))
-    partial = torch.empty(n_chunks * f * kc * num_bins, dtype=torch.float32,
+    rows, n_chunks, per_set, n_sets = plan_segstats(n, f, kc, num_bins,
+                                                    _sm_count(dev))
+    partial = torch.empty(n_chunks * f * num_bins * kc, dtype=torch.float64,
                           device=dev)
     bins, segstats = bins.contiguous(), segstats.contiguous()
     funcs = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = funcs[SEGSTATS](bins.data_ptr(), n, f, segstats.data_ptr(), kc,
-                              num_bins, flag, rows, n_chunks, group,
+                              num_bins, flag, rows, n_chunks, per_set, n_sets,
                               partial.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         _raise(SEGSTATS, err)
@@ -470,17 +633,30 @@ def hist_fused_batched(bins: torch.Tensor, stats: torch.Tensor,
                       device=dev)
     if n == 0 or f == 0 or k == 0 or s == 0 or e == 0:
         return out.zero_()
-    rows, n_chunks, group = plan(n, f, s, k, num_bins, _sm_count(dev), e)
-    partial = torch.empty(e * n_chunks * f * k * s * num_bins,
-                          dtype=torch.float32, device=dev)
+    r, cap, fg, n_part = plan_batched(n, f, s, k, num_bins, _sm_count(dev),
+                                      e)
+    i32 = dict(dtype=torch.int32, device=dev)
+    counts = torch.empty(e * k * n_part, **i32)
+    order = torch.empty(e * n, **i32)
+    items = torch.empty(e * cap * 4, **i32)
+    first = torch.empty(e * k, **i32)
+    count = torch.empty(e * k, **i32)
+    sizes = torch.empty(e, **i32)
+    codes = torch.empty(e * f * n, dtype=torch.uint8, device=dev)
+    ordered = torch.empty(e * n * s, dtype=torch.float32, device=dev)
+    partial = torch.empty(e * cap * f * num_bins * s, dtype=torch.float64,
+                          device=dev)
     bins, stats, seg = bins.contiguous(), stats.contiguous(), seg.contiguous()
     funcs = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = funcs[BATCHED](bins.data_ptr(), n, f, stats.data_ptr(), s,
-                             seg.data_ptr(), e, k, num_bins, flag, rows,
-                             n_chunks, group, partial.data_ptr(),
-                             out.data_ptr(), stream)
+                             seg.data_ptr(), e, k, num_bins, flag, r, cap, fg,
+                             n_part, counts.data_ptr(), order.data_ptr(),
+                             items.data_ptr(), first.data_ptr(),
+                             count.data_ptr(), sizes.data_ptr(),
+                             codes.data_ptr(), ordered.data_ptr(),
+                             partial.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         _raise(BATCHED, err)
     HIST_FUSED_BATCHED_LAUNCHES[mode].add()

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .objectives import Objective, _f32
+from .objectives import Objective, _f32, link_exp
 
 
 class Multiclass(Objective):
@@ -65,20 +65,20 @@ class MulticlassOVA(Multiclass):
 
     def grad_hess(self, pred, y, w):
         sig = _f32(self.params.sigmoid, pred)
-        p = 1.0 / (1.0 + torch.exp(-sig * pred))
+        p = 1.0 / (1.0 + link_exp(-sig * pred))
         g = sig * (p - self._onehot(y, p)) * w[..., None]
         h = torch.maximum(sig * sig * p * (1.0 - p), _f32(1e-16, p)) \
             * w[..., None]
         return g, h
 
     def transform(self, raw):
-        p = 1.0 / (1.0 + torch.exp(-_f32(self.params.sigmoid, raw) * raw))
+        p = 1.0 / (1.0 + link_exp(-_f32(self.params.sigmoid, raw) * raw))
         return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-12)
 
 
 def _softmax(x):
     x = x - x.max(dim=-1, keepdim=True).values
-    e = torch.exp(x)
+    e = link_exp(x)
     return e / e.sum(dim=-1, keepdim=True)
 
 

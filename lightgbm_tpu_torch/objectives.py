@@ -19,10 +19,56 @@ import numpy as np
 import torch
 
 from .config import Params
+from .ops.split import fma
+
+
+# XLA's CPU f32 exp (Cephes' single-precision exp, as XLA's CPU backend
+# emits it): clamp, n = floor(x * log2(e) + 0.5) clamped to [-127, 127],
+# x - n * ln2 in two parts, a degree-5 polynomial, times 2^n, every
+# multiply-add fused (Cephes' decimal constants rounded to f32)
+def _f32c(v: float) -> float:
+    return float(np.float32(v))
+
+
+_XLA_EXP_LO, _XLA_EXP_HI = _f32c(-87.8), _f32c(88.8)
+_XLA_LOG2E = _f32c(1.44269504088896341)
+_XLA_LN2_HI, _XLA_LN2_LO = _f32c(0.693359375), _f32c(-2.12194440e-4)
+_XLA_EXP_POLY = tuple(_f32c(v) for v in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``exp`` bit for bit as XLA's CPU backend computes it (the
+    reference's ``jnp.exp`` on the CPU; ``torch.exp`` differs from it on
+    about 10 % of inputs by an ulp)."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    x = x.to(torch.float32)
+    x = torch.where(x < _XLA_EXP_LO, _XLA_EXP_LO, x)
+    x = torch.where(x > _XLA_EXP_HI, _XLA_EXP_HI, x)
+    n = torch.floor(fma(x, c(_XLA_LOG2E), c(0.5)))
+    n = torch.where(n < -127.0, -127.0, n)
+    n = torch.where(n > 127.0, 127.0, n)
+    r = fma(n, c(-_XLA_LN2_HI), x)
+    r = fma(n, c(-_XLA_LN2_LO), r)
+    y = torch.full_like(r, _XLA_EXP_POLY[0])
+    for p in _XLA_EXP_POLY[1:]:
+        y = fma(y, r, c(p))
+    y = fma(y, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return y * scale
+
+
+def link_exp(x: torch.Tensor) -> torch.Tensor:
+    """The links' ``exp``: XLA's CPU arithmetic on a CPU tensor (as
+    ``prefix_sum`` and ``fma`` copy it), ``torch.exp`` on the card."""
+    return xla_exp_f32(x) if x.device.type == "cpu" else torch.exp(x)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return 1.0 / (1.0 + torch.exp(-x))
+    return 1.0 / (1.0 + link_exp(-x))
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,11 @@ on the program, so the scan has two roundings (``arith``):
   grower's root): path smoothing ``fma(parent, 1 - f, w * f)``, the leaf
   objective unfused;
 * ``"kernel"`` — the reference's split-iteration kernel as compiled on the
-  CPU (the strict grower's iterations, kernel B3's contract): smoothing
-  ``fma(w, f, parent * (1 - f))``, the objective's ``G*w + Y*w`` as
-  ``fma(Y, w, G*w)`` with ``Y = (H + l2)/2 * w``.
+  CPU (the strict grower's iterations, kernel B3's contract): the stored
+  outputs' smoothing ``fma(w, f, parent * (1 - f))``, the gain's
+  ``fma(parent, 1 - f, w * f)`` (XLA recomputes the outputs there), the
+  objective's ``G*w + Y*w`` as ``fma(Y, w, G*w)`` with
+  ``Y = (H + l2)/2 * w``.
 
 The default is ``"scan"`` for scalar regularizers and ``"kernel"`` for
 per-element ones.
@@ -187,9 +189,15 @@ def split_gain_scan(lg, lh, lc, rg, rh, rc, tg, th, ctx: SplitContext,
     arith = _arith(ctx, arith)
     wl = constrained_leaf_output(lg, lh, lc, ctx, lo, hi, p_out, arith)
     wr = constrained_leaf_output(rg, rh, rc, ctx, lo, hi, p_out, arith)
+    gl, gr = wl, wr
+    if arith == "kernel":
+        # the split-iteration kernel's XLA program recomputes the smoothed
+        # outputs inside the gain and contracts them there as the scan does
+        gl = constrained_leaf_output(lg, lh, lc, ctx, lo, hi, p_out, "scan")
+        gr = constrained_leaf_output(rg, rh, rc, ctx, lo, hi, p_out, "scan")
     parent_obj = leaf_objective_at(p_out, tg, th, ctx, arith)
-    gain = (leaf_objective_at(wl, lg, lh, ctx, arith)
-            + leaf_objective_at(wr, rg, rh, ctx, arith) - parent_obj)
+    gain = (leaf_objective_at(gl, lg, lh, ctx, arith)
+            + leaf_objective_at(gr, rg, rh, ctx, arith) - parent_obj)
     return gain, wl, wr
 
 

@@ -151,9 +151,12 @@ def test_b3_b6_wrappers_refuse_cpu_tensors_and_build_lazily():
     assert not build._loaded
     assert build.library_path("split_iter").name.startswith("libsplit_iter-")
     assert "-fmad=false" in build.SOURCE_FLAGS["split_iter"]
-    # B6's channel groups keep every block inside the opt-in shared memory
+    # B6's row chunks keep every block inside the opt-in shared memory and
+    # its channel-group sets cover every channel
     for kc in (15, 240, 1080):
-        rows, chunks, group = kh.plan_segstats(45_957, 6, kc, 256, 132)
-        assert kh.smem_bytes(group, 256, 1) <= kh.SMEM_LIMIT
-        assert 1 <= group <= kc and rows * chunks >= 45_957
+        rows, chunks, per_set, sets = kh.plan_segstats(45_957, 6, kc, 256,
+                                                       132)
+        assert kh.segstats_smem_bytes(rows) <= kh.SMEM_LIMIT
+        assert per_set * sets >= -(-kc // kh.B6_LANES)
+        assert rows * chunks >= 45_957
     assert ks.smem_bytes(28, 256) <= ks.SMEM_LIMIT

@@ -290,3 +290,119 @@ def test_b5_kernel_matches_plain_on_card(mode, k):
     for i in range(e):
         _close(got[i].cpu().numpy(), want[i].cpu().numpy(),
                _abs_hist(bins, stats[i], seg[i], k, 256, mode))
+
+
+def _f64_sums(bins, stats, seg, k, num_bins, mode):
+    """Float64 sums ``[K, F, B, S]`` of the mode-rounded statistics."""
+    st = stats
+    if mode == "bf16":
+        st = torch.from_numpy(stats).to(torch.bfloat16).float().numpy()
+    out = np.zeros((k, bins.shape[1], num_bins, stats.shape[1]))
+    ok = (seg >= 0) & (seg < k)
+    for j in range(bins.shape[1]):
+        np.add.at(out, (seg[ok], j, bins[ok, j].astype(np.int64)),
+                  st[ok].astype(np.float64))
+    return out
+
+
+# B5's edge cases: (name, n, F, B, E, K, segment ids from lo to K + hi,
+# kind of bins, dyadic statistics)
+B5_EDGES = [("one_element", 5_000, 3, 256, 1, 5, 0, 0, "random", False),
+            ("ragged_out_of_range", 70_001, 7, 256, 3, 13, -5, 5, "random",
+             False),
+            ("few_bins", 30_011, 5, 63, 2, 42, -1, 1, "random", False),
+            ("one_bin", 40_000, 4, 256, 2, 42, 0, 0, "one", False),
+            ("skewed_bins", 50_000, 54, 256, 2, 21, -1, 0, "skewed", False),
+            ("dyadic", 80_000, 28, 256, 5, 42, -1, 0, "random", True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", B5_EDGES, ids=[c[0] for c in B5_EDGES])
+def test_b5_edge_cases_on_card(mode, case):
+    """B5 within 1e-6 * sum|x| of float64 and of its plain version (exact
+    on dyadic statistics), bit-equal across launches, at E = 1, ragged n,
+    out-of-range ids, K not a multiple of anything, B < 256, all rows in
+    one bin, a few heavy bins over 54 features."""
+    name, n, f, nb, e, k, lo, hi, kind, dyadic = case
+    dev = _card()
+    rng = np.random.default_rng(31 + n)
+    if kind == "one":
+        bins = np.zeros((n, f), np.uint8)
+    elif kind == "skewed":
+        bins = rng.choice(np.array([0, 1, 7, nb - 1], np.uint8), (n, f),
+                          p=[0.6, 0.3, 0.05, 0.05])
+    else:
+        bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    if dyadic:
+        stats = (rng.integers(-8, 9, (e, n, 3)) * 0.25).astype(np.float32)
+    else:
+        stats = np.stack([_stats(rng, n) for _ in range(e)])
+    seg = rng.integers(lo, k + hi, (e, n)).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+    got = th.hist_fused_batched(*t, k, nb, mode)
+    again = th.hist_fused_batched(*t, k, nb, mode)
+    want = th.hist_fused_batched_plain(*t, k, nb, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (e, k, f, nb, 3)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    for i in range(e):
+        g = got[i].cpu().numpy()
+        if dyadic:
+            np.testing.assert_array_equal(
+                g, _f64_sums(bins, stats[i], seg[i], k, nb, mode))
+        mag = _abs_hist(bins, stats[i], seg[i], k, nb, mode)
+        _close(g, want[i].cpu().numpy(), mag)
+        ref = _f64_sums(bins, stats[i], seg[i], k, nb, mode)
+        assert (np.abs(g - ref) <= 1e-6 * mag).all()
+
+
+# B6's edge cases: (n, F, B, Kc, kind of bins, dyadic statistics)
+B6_EDGES = [(10_007, 3, 256, 1, "random", False),
+            (45_957, 6, 256, 15, "skewed", False),
+            (45_957, 6, 256, 30, "random", False),
+            (20_011, 5, 17, 33, "random", False),
+            (9_000, 4, 256, 240, "one", False),
+            (45_957, 6, 256, 240, "skewed", True),
+            (12_345, 6, 256, 1_080, "random", False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", B6_EDGES,
+                         ids=[f"kc{c[3]}_{c[4]}_b{c[2]}" for c in B6_EDGES])
+def test_b6_edge_cases_on_card(mode, case):
+    """B6 within 1e-6 * sum|x| of float64 and of its plain version (exact
+    on dyadic statistics), bit-equal across launches, for Kc from 1 to
+    1,080, ragged n, B < 256, all rows in one bin and heavy bins."""
+    n, f, nb, kc, kind, dyadic = case
+    dev = _card()
+    rng = np.random.default_rng(41 + kc)
+    if kind == "one":
+        bins = np.full((n, f), 3, np.uint8)
+    elif kind == "skewed":
+        bins = rng.choice(np.array([0, 1, 4, 9, 200], np.uint8), (n, f),
+                          p=[0.5, 0.2, 0.15, 0.1, 0.05])
+    else:
+        bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    st = (rng.integers(-8, 9, (n, kc)) * 0.25).astype(np.float32) if dyadic \
+        else rng.normal(size=(n, kc)).astype(np.float32)
+    tb, ts = torch.from_numpy(bins).to(dev), torch.from_numpy(st).to(dev)
+    got = th.hist_segstats(tb, ts, nb, mode)
+    again = th.hist_segstats(tb, ts, nb, mode)
+    want = th.hist_segstats_plain(tb, ts, nb, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    a = torch.from_numpy(st).to(torch.bfloat16).float().numpy() \
+        if mode == "bf16" else st
+    ref = np.zeros((f, nb, kc))
+    mag = np.zeros((f, nb, kc))
+    for j in range(f):
+        np.add.at(ref[j], bins[:, j].astype(np.int64), a.astype(np.float64))
+        np.add.at(mag[j], bins[:, j].astype(np.int64),
+                  np.abs(a).astype(np.float64))
+    g = got.cpu().numpy().astype(np.float64)
+    if dyadic:
+        np.testing.assert_array_equal(g, ref)
+    assert (np.abs(g - ref) <= 1e-6 * mag).all()
+    assert (np.abs(g - want.cpu().numpy()) <= 1e-6 * mag).all()
