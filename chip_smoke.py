@@ -61,11 +61,13 @@ Phases:
    bit for bit (table and pick) at E in {1, 5, 40} elements, F in {6, 28},
    B in {16, 63, 256}, capacity 253, on random, dyadic and tied histograms
    with per-element regularizers, inactive elements and depth caps, chained
-   over iterations; the segstats histogram (B6, ``hist_segstats``) at Kc in
-   {15, 30, 120, 240, 1080} channels on the diamonds split (about 45,800 x
-   6) and on 1,000,000 x 28, at f32 and bf16, against float64 and its plain
-   version (``1e-6 * sum|x|`` per cell, exact on dyadic channels), two
-   launches bit-equal;
+   over iterations, the kernel on a clone of the table (it updates its
+   table in place); chains with the table updated in place at E = 1,
+   F = 28 (the strict Booster) and E = 5, F = 6 (``cv()``); the segstats
+   histogram (B6, ``hist_segstats``) at Kc in {15, 30, 120, 240, 1080}
+   channels on the diamonds split (about 45,800 x 6) and on 1,000,000 x 28,
+   at f32 and bf16, against float64 and its plain version (``1e-6 *
+   sum|x|`` per cell, exact on dyadic channels), two launches bit-equal;
 8. this slice's path at full width, counters at 0 just before each run and
    read just after (no plain-version call on the kernel path): (a) the
    strict grower in a Booster at the north star (``grow_policy=
@@ -76,8 +78,9 @@ Phases:
    ``best_iter`` equal, ``best_score`` within 1e-5 relative; (c)
    ``run_grid_search`` over the 36 learning_rate=0.1 rows of the 108-config
    grid (six buckets), with per-bucket seconds and rounds, configs per hour
-   and the top 3; a profiled fused round at num_leaves 127, E = 40; B3's and
-   B6's times, plain times, bounds and (B6) one ``index_add_`` call's;
+   and the top 3; a profiled fused round at num_leaves 127, E = 40; B6's
+   time, plain time, bound and one ``index_add_`` call's; B3's at E = 40,
+   20 and 5 (F = 6) and E = 1 (F = 28), beside an empty kernel's;
 9. the batched fused histogram (B5, ``hist_fused_batched``) at f32 and bf16
    against float64 (``1e-6 * sum|x|`` per cell) and its plain version: a
    north-star wave (1,000,000 x 28, E = 5, K = 42), a Covertype-shaped wave
@@ -106,7 +109,10 @@ Phases:
    within the reference's bound ``scale * 4 * sqrt(rows in the cell + 9)``
    of the float64 sums of the unquantized statistics, at the north-star
    root, at the recorded 42-split wave (its direct children as segments)
-   and at awkward shapes; 16,909,321 rows refused before any launch; (b)
+   and at awkward shapes (a feature whose rows sit in one bin, empty
+   segments, a segment holding every row, 42 segments with 70 % of the rows
+   outside, a prime row count); 16,909,321 rows refused before any launch;
+   (b)
    north-star training at int8 (10 rounds on the wave grower's unfused
    route: B1 int8 for every root and wave, B2 never) through the kernels
    and the plain versions, trees and predictions identical, held-out AUC
@@ -119,7 +125,7 @@ Phases:
    equal to ``Booster(model_file=...).predict`` (to the file's 10
    significant digits), and the model through ``pack_booster`` and
    ``task=serve`` within 1e-5; then B1 int8's time, plain time, bound and
-   one ``index_add_`` call's at the root and the wave.
+   one ``index_add_`` call's at the root, the wave and a two-segment call.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1215,11 +1221,14 @@ def rand_child_hists(rng, dev, lead, f, b, kind):
     return torch.from_numpy(hist).to(dev)
 
 
-def b3_case(rng, dev, e, f, b, cap, kind, iters):
+def b3_case(rng, dev, e, f, b, cap, kind, iters, in_place=False):
     """Chain ``iters`` strict split iterations of ``e`` elements with
     per-element regularizers, some elements inactive from the start and
     some with a depth cap; at every iteration the kernel's table and aux
-    must equal the plain version's bit for bit.  Returns the launches."""
+    must equal the plain version's bit for bit.  The kernel updates its
+    table in place: it runs on a clone of the plain version's table, or
+    with ``in_place`` on its own running table and aux, as the strict
+    grower calls it.  Returns the launches."""
     from lightgbm_tpu_torch.kernels.split_iter import split_iter
     from lightgbm_tpu_torch.models.tree import (_packed_root_table,
                                                 split_iter_plain)
@@ -1255,11 +1264,15 @@ def b3_case(rng, dev, e, f, b, cap, kind, iters):
         scal[:, i] = v
     scal[:, 7] = max_depth
     scal[:, 8] = 1.0
+    tk, ak = table.clone(), aux
     for it in range(iters):
         hist = rand_child_hists(rng, dev, (e, 2), f, b, kind)
-        tk, ak = split_iter(hist, table, fmask, aux, scal)
+        src = tk if in_place else table.clone()
+        tk, ak = split_iter(hist, src, fmask, ak if in_place else aux, scal)
         tp, ap = split_iter_plain(hist, table, fmask, aux, scal)
         torch.cuda.synchronize()
+        check(tk.data_ptr() == src.data_ptr(),
+              "B3 did not update its table in place")
         if not (bits_equal(tk, tp) and bits_equal(ak, ap)):
             diff = torch.nonzero(tk.view(torch.int32)
                                  != tp.view(torch.int32))[:5].tolist()
@@ -1334,12 +1347,22 @@ def phase_b3_b6(dev, higgs_bins):
                     iters = 12 if (b == 256 and kind == "random") else 4
                     b3_case(rng, dev, e, f, b, CAPACITY, kind, iters)
                     cases += 1
-    # one element grown through a whole 127-leaf tree
+    # five elements grown through a whole 127-leaf tree
     b3_case(rng, dev, 5, 6, 256, CAPACITY, "random", NUM_LEAVES - 1)
-    log(f"phase 7: B3 == plain version bit for bit in {cases + 1} cases "
+    # in place, as the strict grower calls it: the strict Booster's shape
+    # (E = 1, F = 28: a cluster of eight blocks) and cv()'s (E = 5, F = 6)
+    for e, f in ((1, 28), (5, 6)):
+        for b in (16, 63, 256):
+            b3_case(rng, dev, e, f, b, CAPACITY, "random", 12, in_place=True)
+            cases += 1
+    b3_case(rng, dev, 1, 28, 256, CAPACITY, "random", NUM_LEAVES - 1,
+            in_place=True)
+    log(f"phase 7: B3 == plain version bit for bit in {cases + 2} cases "
         f"(E in 1/5/40, F in 6/28, B in 16/63/256, capacity {CAPACITY}; "
         f"random, dyadic and tied histograms, per-element regularizers, "
-        f"inactive elements, depth caps; {time.perf_counter() - t0:.1f} s)")
+        f"inactive elements, depth caps; six chains and a whole 127-leaf "
+        f"tree with the table updated in place at E = 1/F = 28 and E = 5/"
+        f"F = 6; {time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     Xd, _ = diamonds_split()
@@ -1646,9 +1669,11 @@ def profile_fused_round(ds):
 
 
 def phase_b3_b6_times(dbins):
-    """Device ms per launch of B3 and B6 at the sweep's shapes (the
-    num_leaves 127, E = 40 bucket on the diamonds split), the plain
-    versions', the bounds and B6's ``index_add_`` call."""
+    """Device ms per launch of B6 at the sweep's shape (the num_leaves 127,
+    E = 40 bucket on the diamonds split) and of B3 at every main path's
+    (E = 40, 20 and 5 at F = 6; E = 1 at F = 28), the plain versions', the
+    bounds, B6's ``index_add_`` call's and an empty kernel's (the launch
+    floor B3 sits on)."""
     from lightgbm_tpu_torch.kernels.split_iter import split_iter
     from lightgbm_tpu_torch.models.tree import split_iter_plain
     from lightgbm_tpu_torch.ops import histogram as H
@@ -1679,32 +1704,28 @@ def phase_b3_b6_times(dbins):
                 dbins, st, 256, mode), runs=5, inner=1),
             "bound_ms": b6_bound[0], "bound_by": b6_bound[1],
             "library_ms": lib_ms}
-    # B3: one iteration of 40 elements at F = 6, B = 256, capacity 253
-    hist = rand_child_hists(rng, dev, (e, 2), f, 256, "random")
-    from lightgbm_tpu_torch.models.tree import _empty_packed_table
-    table = _empty_packed_table(CAPACITY, dev).expand(e, CAPACITY, 24) \
-        .contiguous()
-    table[:, 0, 5] = 1.0                       # the root is a leaf
-    table[:, 0, 9] = 1.0                       # with a finite gain
-    fmask = torch.ones((e, f), device=dev)
-    aux = torch.zeros((e, 8), device=dev)
-    aux[:, 3] = 1.0
-    scal = torch.zeros((e, 16), device=dev)
-    scal[:, 1], scal[:, 2], scal[:, 3] = 1.0, 20.0, 1e-3
-    scal[:, 7], scal[:, 8] = -1.0, 1.0
-    # bytes: histograms, table, masks and scalars read once; table and aux
-    # written; operations: about 40 f32 ops per (child, feature, bin)
-    b3_bytes = 4 * (hist.numel() + 2 * table.numel() + fmask.numel()
-                    + 2 * aux.numel() + scal.numel())
-    b3_bound = hist_bound_ms(b3_bytes, 40 * e * 2 * f * 256)
-    rows["split_iter"] = {
-        "shape": f"E={e} F={f} B=256 capacity={CAPACITY}",
-        "ms": time_ms(lambda: split_iter(hist, table, fmask, aux, scal),
-                      runs=11, inner=5),
-        "plain_ms": time_ms(lambda: split_iter_plain(hist, table, fmask, aux,
-                                                     scal), runs=5, inner=1),
-        "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
-        "library_ms": None}
+    # B3 at the main paths' shapes, B = 256, capacity 253: the strict
+    # Booster (E = 1, F = 28), the example's cv() (E = 5, F = 6) and the
+    # sweep's buckets (E = 20 and 40, F = 6); bytes: the histograms, the
+    # leaf's row, the pick's two columns, masks and scalars read, three rows
+    # and aux written (the table is updated in place); operations: about 40
+    # f32 ops per (child, feature, bin)
+    from lightgbm_tpu_torch.kernels.split_iter_timing import inputs
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0), runs=11, inner=5)
+    for e, f in ((40, 6), (1, 28), (5, 6), (20, 6)):
+        hist, table, fmask, aux, scal = inputs(rng, dev, e, f)
+        b3_bytes = 4 * (hist.numel() + e * (2 * CAPACITY + 24 + 3 * 24)
+                        + fmask.numel() + 2 * aux.numel() + scal.numel())
+        b3_bound = hist_bound_ms(b3_bytes, 40 * e * 2 * f * 256)
+        name = "split_iter" if e == 40 else f"split_iter_E{e}_F{f}"
+        rows[name] = {
+            "shape": f"E={e} F={f} B=256 capacity={CAPACITY}",
+            "ms": time_ms(lambda: split_iter(hist, table, fmask, aux, scal),
+                          runs=11, inner=5),
+            "plain_ms": time_ms(lambda: split_iter_plain(
+                hist, table, fmask, aux, scal), runs=5, inner=1),
+            "bound_ms": b3_bound[0], "bound_by": b3_bound[1],
+            "library_ms": None, "empty_kernel_ms": empty_ms}
     for name, r in rows.items():
         log(f"phase 8 times {name}: {json.dumps(r)}")
     return rows
@@ -2153,6 +2174,33 @@ def phase_int8_kernel(dev, bins, root_stats, wave):
             np.int32)).to(dev)
         ratios[name] = int8_case(name, b, stats_for(rng, rows, dev), sg, k,
                                  nb)
+    # the redesign's edges: a feature whose rows all sit in one bin (the
+    # warp aggregation's worst case for a plain scatter), empty segments, a
+    # segment holding every row, 42 segments with 70 % of the rows outside,
+    # a row count that no work item size divides
+    one_bin = bins.clone()
+    one_bin[:, 0] = 7
+    wave_k = torch.where(torch.from_numpy(rng.random(n) < 0.7).to(dev),
+                         w + 5, seg_w.to(torch.int32).clamp(min=0) % w)
+    sparse = torch.from_numpy(rng.choice(np.array([0, 4, 8, -1, 11],
+                                                  np.int32), n)).to(dev)
+    for name, (b, sg, k) in {
+            "one bin, root": (one_bin, torch.zeros(n, dtype=torch.int32,
+                                                   device=dev), 1),
+            "one bin, 42 segments": (one_bin, seg_w.to(torch.int32), w),
+            "empty segments": (bins, sparse, 9),
+            "one segment holds every row": (
+                bins, torch.ones(n, dtype=torch.int32, device=dev), 3),
+            "K=42, 70 % outside": (bins, wave_k.to(torch.int32), w)}.items():
+        ratios[name] = int8_case(name, b, root_stats, sg, k, 256)
+    del one_bin
+    odd = 999_983                       # prime: no item size divides it
+    ratios["n=999,983, root"] = int8_case(
+        "n=999,983, root", bins[:odd], root_stats[:odd],
+        torch.zeros(odd, dtype=torch.int32, device=dev), 1, 256)
+    ratios["n=999,983, 2 segments"] = int8_case(
+        "n=999,983, 2 segments", bins[:odd], root_stats[:odd],
+        (seg_w[:odd] >= 0).to(torch.int32), 2, 256)
     # the row limit: refused before any launch
     big = H.INT8_ACC_ROW_LIMIT + 1
     before = HIST_FUSED_LAUNCHES["int8"].count
@@ -2167,7 +2215,8 @@ def phase_int8_kernel(dev, bins, root_stats, wave):
     check(refused and HIST_FUSED_LAUNCHES["int8"].count == before,
           f"{big:,} rows in int8 mode were not refused before launch")
     log(f"phase 12a: B1 int8 == plain version bit for bit, two launches "
-        f"bit-equal, within the quantization bound (max err/bound "
+        f"bit-equal, within the quantization bound in {len(ratios)} cases "
+        f"(max err/bound "
         f"{json.dumps(ratios)}); {big:,} rows refused before launch")
     return ratios
 
@@ -2359,9 +2408,10 @@ def phase_int8_cli(workdir):
 
 
 def phase_int8_times(bins, root_stats, wave):
-    """B1 int8's device ms at the north-star root and the recorded wave,
-    its plain version's, its bound and one ``index_add_`` of the quantized
-    values into flat int32 (segment, feature, bin) cells."""
+    """B1 int8's device ms at the north-star root, the recorded wave and a
+    two-segment (strict) call, its plain version's, its bound and one
+    ``index_add_`` of the quantized values into flat int32 (segment,
+    feature, bin) cells."""
     from lightgbm_tpu_torch.ops import histogram as H
 
     n, f = bins.shape
@@ -2371,12 +2421,16 @@ def phase_int8_times(bins, root_stats, wave):
     res = {}
     for name, seg, k in (
             ("root", torch.zeros(n, dtype=torch.int32, device=dev), 1),
-            ("wave", seg_w.to(torch.int32), int(wave[4].shape[0]))):
+            ("wave", seg_w.to(torch.int32), int(wave[4].shape[0])),
+            # the strict grower's call: two segments (here the wave's rows
+            # and the rest)
+            ("strict2", (seg_w < 0).to(torch.int32), 2)):
         rows = torch.nonzero((seg >= 0) & (seg < k)).squeeze(1)
-        # bins, stats, seg read once, [K, F, B, 3] f32 written; one integer
-        # add per (row in a segment, feature, statistic)
-        bound = hist_bound_ms(n * f + 12 * n + 4 * n + k * f * 256 * 12,
-                              int(rows.numel()) * f * 3)
+        # stats (every row: the scale is over all n) and seg read once, the
+        # codes of the rows in a segment once, [K, F, B, 3] f32 written; one
+        # integer add per (row in a segment, feature, statistic)
+        bound = hist_bound_ms(16 * n + int(rows.numel()) * f
+                              + k * f * 256 * 12, int(rows.numel()) * f * 3)
         flat = (((seg[rows].to(torch.int64) * f)[:, None]
                  + torch.arange(f, device=dev)) * 256
                 + bins[rows].to(torch.int64)).reshape(-1)
@@ -2488,7 +2542,11 @@ def main() -> int:
                      + sweep["launches"]["split_iter"]),
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None, "shape": t["shape"]})
+        "library_ms": None, "shape": t["shape"],
+        "empty_kernel_ms": t["empty_kernel_ms"],
+        "other_shapes": {r["shape"]: {x: r[x] for x in (
+            "ms", "plain_ms", "bound_ms")} for name, r in
+            b3_b6_times.items() if name.startswith("split_iter_")}})
     launches_b6 = {"f32": cv_res["kernels"]["counts"]["hist_segstats_f32"],
                    "bf16": sweep["launches"]["hist_segstats_bf16"]}
     for mode in HIST_MODES:
@@ -2524,7 +2582,10 @@ def main() -> int:
             "hist_fused_int8"], "max_abs_err": 0.0,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "shape": t["shape"]})
+        "shape": t["shape"],
+        "other_shapes": {r["shape"]: {x: r[x] for x in (
+            "ms", "plain_ms", "bound_ms", "library_ms")} for name, r in
+            int8["times"].items() if name != "root"}})
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "kernel_vs_plain_max_abs_err": errs,

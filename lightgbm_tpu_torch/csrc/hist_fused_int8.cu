@@ -11,45 +11,58 @@
 //   out      = f32(int32 sum of q per (segment, feature, bin, s)) * scale[s]
 // The TPU kernel folded the quantized rows into a one-hot int8 MXU
 // contraction over a transposed [F, n] layout in chunks of at most 512
-// rows; those are the TPU's workarounds and are not carried over.  The
-// channel maxima come in from the wrapper (one torch amax, as the reference
-// computes them outside its pallas_call too).
+// rows: the TPU has no scatter.  Hopper has fast shared-memory integer
+// atomics, so the histogram is a scatter here.  A one-hot IMMA/wgmma
+// product was not taken: at S = 3 it spends B compares per (row, feature)
+// to place three values and pads the product's N from 3 to 8.
 //
-// Three passes on one stream:
-//   quantize_kernel: one thread per (row, channel) element: q as int8
-//     [n, S], with IEEE division and addition (__fdiv_rn, __fadd_rn) and
-//     floorf, so q is the plain version's bit for bit (compiled with
-//     -fmad=false like split_iter.cu, though no multiply-add occurs).
-//   int8_hist_kernel: one block of kThreads per (row chunk, feature group,
-//     segment group), a thread per row: it reads the row's segment, skips
-//     rows of other segments, then walks the row's codes of the group's
-//     features (contiguous bytes, so a warp's loads cover whole lines
-//     across the walk) and adds the row's q per channel with integer
-//     atomicAdd into an int32 histogram [segments, features, S, B] in
-//     shared memory, whose non-zero cells the block then adds into a
-//     global int32 accumulator [K, F, B, S].  A block's histogram holds
-//     every segment of the call (blocks of one segment each left most
-//     threads idle on other segments' rows).  This mode serves calls of at
-//     most two segments (kernels/histogram.py plan_int8: the roots, the
-//     strict grower), whose rows crowd few cells; wider calls (waves) take
-//     the global mode (seg_group = 0, int8_hist_global_kernel): every add
-//     goes straight to the global accumulator, S threads to a row.  (On an
-//     H100, against v1's block per single feature with shared histograms
-//     everywhere: root 0.25 -> 0.17 ms, a 42-segment wave 0.53 -> 0.25;
-//     PERF.md.)
-//   finalize_kernel: out = __int2float_rn(acc) * scale, rounded to nearest.
-// Integer sums do not depend on their order, so unlike the f32 kernels
-// (hist_common.cuh) this needs no sort and no chunk-ordered partials and is
-// still deterministic: kernel and plain version agree bit for bit.  Every
-// partial sum of a cell is a sum of at most n terms of magnitude <= 127, so
-// for n <= 2^31 / 127 = 16,909,320 (the wrapper refuses more) no
-// intermediate, in shared or global memory, leaves the int32 range.
+// The passes, on one stream (the redesign; the first design quantized all
+// n rows into an int8 scratch, took the maxima with a torch abs/amax pair,
+// and added a wave's rows one global atomic per (row, feature, channel)):
+//   amax_kernel: the channel maxima in one pass over stats, no |x|
+//     temporary: each thread keeps the largest bit pattern of |x| of one
+//     channel (non-negative floats order as their bits), then a shared and
+//     a global integer atomicMax.  scale follows with the plain version's
+//     IEEE steps, so it is quantize_int8's bit for bit (an all-zero channel
+//     takes the 1e-30 floor).
+//   count / scan / scatter (calls of K > 1 segments only): each block counts
+//     its rows per segment in shared memory and adds the counts into global
+//     ones; one block scans them into each segment's start, sizes the work
+//     items from the rows it found (about one round of resident blocks,
+//     at least INT8_ROWS_PER_CELL rows per bin) and cuts each segment into
+//     items (slots past the last are marked unused: the host never reads
+//     the counts); each block counts again, reserves one range per segment
+//     with a global atomicAdd and writes its rows' indices there.  The
+//     order inside a segment is free: the sums are integers.  A one-segment
+//     call (a root) skips the list: its items are row ranges, and rows of
+//     other segments are skipped.
+//   int8_hist_kernel: one block per (item, feature group) holds an int32
+//     histogram [fg, B, S] of its item's one segment in shared memory.  A
+//     lane takes a row, quantizes its S statistics in registers with the
+//     plain version's IEEE steps (__fdiv_rn, __fadd_rn, floorf; the source
+//     is built with -fmad=false), and per feature adds them into the shared
+//     histogram with integer atomics.  The block then adds its non-zero
+//     cells into the global int32 accumulator [K, F, B, S] (consecutive
+//     cells, one reduction each); a segment of one item writes its f32
+//     cells directly and the finalize skips it.  Lanes with equal codes are
+//     not first summed across the warp (__match_any_sync,
+//     __reduce_add_sync): on an H100 that made the call 16x slower (2.16
+//     against 0.13 ms at the north-star root), and a warp whose 32 rows
+//     share one bin costs no more than random codes without it (PERF.md).
+//   finalize_kernel: out = __int2float_rn(acc) * scale, rounded to nearest,
+//     for segments of more than one item.
+// Integer sums do not depend on their order, so kernel and plain version
+// agree bit for bit.  Every partial sum of a cell is a sum of at most n
+// terms of magnitude <= 127, so for n <= 2^31 / 127 = 16,909,320 (the
+// wrapper refuses more) no intermediate leaves the int32 range.
 //
-// What bounds it on the H100: the bytes are few (n * (F + 4S + 4) read once,
-// about 44 MB at the north-star root, 0.013 ms at 3.35 TB/s), so the limit
-// is the per-row work: an atomic per (row, feature, channel), which contend
-// when many rows of a warp land in one bin.  A one-hot int8 tensor-core
-// contraction (IMMA/wgmma) is the candidate for a later redesign.
+// What bounds it on the H100: not the bytes (n * (4S + 4) for the maxima
+// and the list, then (F + 4S + 4) per row of the call's segments, about
+// 44 MB at the north-star root, 0.013 ms at 3.35 TB/s) but the shared
+// atomics: one per (row, feature, channel), about 3 lanes per clock per SM
+// at the north-star root (lanes of random codes conflict on banks), then
+// the flush of the shared histograms (items x F x B x S reductions into
+// L2), then five small passes of a few microseconds each.
 //
 // Plain C interface, bound with ctypes by kernels/histogram.py.
 
@@ -57,118 +70,240 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+namespace i8 {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;          // histogram and partition blocks
+constexpr int kScanThreads = 1024;
+constexpr int kMaxS = 8;               // channels quantized in registers
+constexpr int kItemCols = 3;           // item table: segment, begin, end
 constexpr uint32_t kHashMul = 2654435761u;
 constexpr uint32_t kHashAdd = 974711u;
 
-__device__ __forceinline__ float channel_scale(float amax) {
-  return __fdiv_rn(fmaxf(amax, 1e-30f), 127.0f);
+__device__ __forceinline__ float channel_scale(uint32_t amax_bits) {
+  return __fdiv_rn(fmaxf(__uint_as_float(amax_bits), 1e-30f), 127.0f);
 }
 
-__global__ void quantize_kernel(const float* __restrict__ stats, long long n,
-                                int S, const float* __restrict__ amax,
-                                int8_t* __restrict__ q) {
-  const long long total = n * S;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long i = e / S;
-    const int c = (int)(e - i * S);
-    const uint32_t h = (uint32_t)i * kHashMul + kHashAdd;
-    // (h >> 9) < 2^23 is exact in f32, and so is the division by 2^23
-    const float r = __fdiv_rn((float)(h >> 9), 8388608.0f);
-    const float t = __fadd_rn(__fdiv_rn(stats[e], channel_scale(amax[c])), r);
-    const float v = fminf(fmaxf(floorf(t), -127.0f), 127.0f);
-    q[e] = (int8_t)(int)v;
+// q of one statistic: the plain version's quantize_int8, op by op
+__device__ __forceinline__ int quantize(float x, float scale, long long i) {
+  const uint32_t h = (uint32_t)i * kHashMul + kHashAdd;
+  // (h >> 9) < 2^23 is exact in f32, and so is the division by 2^23
+  const float r = __fdiv_rn((float)(h >> 9), 8388608.0f);
+  const float t = __fadd_rn(__fdiv_rn(x, scale), r);
+  return (int)fminf(fmaxf(floorf(t), -127.0f), 127.0f);
+}
+
+// grid * kThreads is a multiple of S, so a thread's elements share one
+// channel; amax_bits: u32 [S], zeroed by the launcher
+__global__ void __launch_bounds__(kThreads)
+amax_kernel(const float* __restrict__ stats, long long total, int S,
+            uint32_t* __restrict__ amax_bits) {
+  __shared__ uint32_t s_max[kMaxS];
+  if (threadIdx.x < S) s_max[threadIdx.x] = 0u;
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long e0 = blockIdx.x * (long long)kThreads + threadIdx.x;
+  uint32_t m = 0u;
+  for (long long e = e0; e < total; e += stride) {
+    m = max(m, __float_as_uint(stats[e]) & 0x7fffffffu);
+  }
+  if (e0 < total) atomicMax(s_max + (int)(e0 % S), m);
+  __syncthreads();
+  if (threadIdx.x < S) atomicMax(amax_bits + threadIdx.x, s_max[threadIdx.x]);
+}
+
+// counts: i32 [K], zeroed by the launcher; dynamic shared i32 [K]
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const int* __restrict__ seg, long long n, int K,
+             long long rows_per_block, int* __restrict__ counts) {
+  extern __shared__ int s_cnt[];
+  for (int k = threadIdx.x; k < K; k += kThreads) s_cnt[k] = 0;
+  __syncthreads();
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(n, r0 + rows_per_block);
+  for (long long r = r0 + threadIdx.x; r < r1; r += kThreads) {
+    const int k = seg[r];
+    if (k >= 0 && k < K) atomicAdd(s_cnt + k, 1);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    if (s_cnt[k]) atomicAdd(counts + k, s_cnt[k]);
   }
 }
 
-// grid (n_chunks, feature groups, segment groups); dynamic shared int32
-// [seg_group, feat_group, S, B]
+// one block: the item size R = max(min_rows, the call's rows x f_groups /
+// target, rounded up to 32), so that the call's items make about target
+// blocks however few of the n rows its segments hold; cursor[k] = start of
+// segment k in the row list; seg_items[k] = its items; items [slots, 3] =
+// (segment, begin, end), segment -1 unused
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const int* __restrict__ counts, int K, int min_rows,
+            int f_groups, int target, int slots, int* __restrict__ cursor,
+            int* __restrict__ seg_items, int* __restrict__ items) {
+  __shared__ int s_rows[kScanThreads], s_items[kScanThreads];
+  __shared__ int s_R;
+  const int t = threadIdx.x;
+  const int per = (K + kScanThreads - 1) / kScanThreads;
+  const int k0 = min(K, t * per), k1 = min(K, k0 + per);
+  int rows = 0;
+  for (int k = k0; k < k1; ++k) rows += counts[k];
+  s_rows[t] = rows;
+  __syncthreads();
+  // inclusive Hillis-Steele scan of the rows
+  for (int d = 1; d < kScanThreads; d <<= 1) {
+    const int a = t >= d ? s_rows[t - d] : 0;
+    __syncthreads();
+    s_rows[t] += a;
+    __syncthreads();
+  }
+  if (t == 0) {
+    const long long total = s_rows[kScanThreads - 1];
+    long long r = (total * f_groups + target - 1) / target;
+    r = ((r + 31) / 32) * 32;
+    s_R = (int)(r > min_rows ? r : min_rows);
+  }
+  __syncthreads();
+  const int R = s_R;
+  int its = 0;
+  for (int k = k0; k < k1; ++k) its += (counts[k] + R - 1) / R;
+  s_items[t] = its;
+  __syncthreads();
+  for (int d = 1; d < kScanThreads; d <<= 1) {
+    const int b = t >= d ? s_items[t - d] : 0;
+    __syncthreads();
+    s_items[t] += b;
+    __syncthreads();
+  }
+  int row = s_rows[t] - rows, slot = s_items[t] - its;
+  const int used = s_items[kScanThreads - 1];
+  for (int k = k0; k < k1; ++k) {
+    const int c = counts[k];
+    cursor[k] = row;
+    const int nk = (c + R - 1) / R;
+    seg_items[k] = nk;
+    // slots >= v / R + K >= the items (R >= v * f_groups / target): the
+    // guard only keeps a broken plan inside the table
+    for (int j = 0; j < nk && slot < slots; ++j, ++slot) {
+      items[slot * kItemCols + 0] = k;
+      items[slot * kItemCols + 1] = row + j * R;
+      items[slot * kItemCols + 2] = row + min(c, (j + 1) * R);
+    }
+    row += c;
+  }
+  for (int s = used + t; s < slots; s += kScanThreads) {
+    items[s * kItemCols + 0] = -1;
+  }
+}
+
+// rows_per_block as in count_kernel; dynamic shared i32 [2K]
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const int* __restrict__ seg, long long n, int K,
+               long long rows_per_block, int* __restrict__ cursor,
+               int* __restrict__ list) {
+  extern __shared__ int s_cnt[];
+  int* s_base = s_cnt + K;
+  for (int k = threadIdx.x; k < K; k += kThreads) s_cnt[k] = 0;
+  __syncthreads();
+  const long long r0 = blockIdx.x * rows_per_block;
+  const long long r1 = min(n, r0 + rows_per_block);
+  for (long long r = r0 + threadIdx.x; r < r1; r += kThreads) {
+    const int k = seg[r];
+    if (k >= 0 && k < K) atomicAdd(s_cnt + k, 1);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    s_base[k] = s_cnt[k] ? atomicAdd(cursor + k, s_cnt[k]) : 0;
+    s_cnt[k] = 0;
+  }
+  __syncthreads();
+  for (long long r = r0 + threadIdx.x; r < r1; r += kThreads) {
+    const int k = seg[r];
+    if (k >= 0 && k < K) list[s_base[k] + atomicAdd(s_cnt + k, 1)] = (int)r;
+  }
+}
+
+// grid (item slots, feature groups); dynamic shared i32 [fg, B, S].
+// list == nullptr: the one-segment mode, item x = rows [x R, x R + R)
 __global__ void __launch_bounds__(kThreads)
 int8_hist_kernel(const uint8_t* __restrict__ bins, long long n, int F,
-                 const int8_t* __restrict__ q, int S,
-                 const int* __restrict__ seg, int K, int B,
-                 long long rows_per_chunk, int seg_group, int feat_group,
-                 int* __restrict__ acc) {
+                 const float* __restrict__ stats, int S,
+                 const int* __restrict__ seg, int B, int R, int feat_group,
+                 const uint32_t* __restrict__ amax_bits,
+                 const int* __restrict__ items,
+                 const int* __restrict__ seg_items,
+                 const int* __restrict__ list, int* __restrict__ acc,
+                 float* __restrict__ out) {
   extern __shared__ int s_hist[];
+  __shared__ float s_scale[kMaxS];
+  int k = 0;
+  long long p0, p1;
+  bool direct;
+  if (list == nullptr) {
+    p0 = (long long)blockIdx.x * R;
+    p1 = min(n, p0 + R);
+    direct = gridDim.x == 1;
+  } else {
+    const int* it = items + (size_t)blockIdx.x * kItemCols;
+    k = it[0];
+    if (k < 0) return;                  // an unused item slot
+    p0 = it[1];
+    p1 = it[2];
+    direct = seg_items[k] == 1;
+  }
   const int f0 = blockIdx.y * feat_group;
-  const int f_count = min(feat_group, F - f0);
-  const int g0 = blockIdx.z * seg_group;
-  const int g_count = min(seg_group, K - g0);
-  const int cells = g_count * f_count * S * B;
+  const int fc = min(feat_group, F - f0);
+  const int cells = fc * B * S;
   for (int i = threadIdx.x; i < cells; i += kThreads) s_hist[i] = 0;
+  if (threadIdx.x < S) {
+    s_scale[threadIdx.x] = channel_scale(amax_bits[threadIdx.x]);
+  }
   __syncthreads();
 
-  const long long row0 = blockIdx.x * rows_per_chunk;
-  const long long row1 = min(n, row0 + rows_per_chunk);
-  for (long long r = row0 + threadIdx.x; r < row1; r += kThreads) {
-    const int sg = seg[r] - g0;
-    if (sg < 0 || sg >= g_count) continue;
-    const int8_t* qr = q + r * S;
+  for (long long p = p0 + threadIdx.x; p < p1; p += kThreads) {
+    const long long r = list == nullptr ? p : (long long)list[p];
+    if (list == nullptr && seg[r] != 0) continue;     // another segment
+    int q[kMaxS];
+#pragma unroll
+    for (int c = 0; c < kMaxS; ++c) {
+      q[c] = c < S ? quantize(stats[r * S + c], s_scale[c], r) : 0;
+    }
     const uint8_t* codes = bins + r * F + f0;
-    for (int fl = 0; fl < f_count; ++fl) {
+    for (int fl = 0; fl < fc; ++fl) {
       const int code = (int)codes[fl];
       if (code >= B) continue;
-      for (int c = 0; c < S; ++c) {
-        const int v = (int)qr[c];
-        if (v != 0) {
-          atomicAdd(s_hist + ((sg * f_count + fl) * S + c) * B + code, v);
-        }
+      int* cell = s_hist + (fl * B + code) * S;
+#pragma unroll
+      for (int c = 0; c < kMaxS; ++c) {
+        if (c < S && q[c] != 0) atomicAdd(cell + c, q[c]);
       }
     }
   }
   __syncthreads();
-  // acc [K, F, B, S]: this block's cells (segments g0.., features f0..)
-  for (int i = threadIdx.x; i < cells; i += kThreads) {
-    const int v = s_hist[i];
-    if (v == 0) continue;
-    const int b = i % B;
-    int rest = i / B;
-    const int c = rest % S;
-    rest /= S;
-    const int fl = rest % f_count, k = rest / f_count;
-    atomicAdd(acc + (((long long)(g0 + k) * F + f0 + fl) * B + b) * S + c,
-              v);
-  }
-}
-
-// the global mode, grid (n_chunks): S neighbouring threads take one row,
-// a channel each, so a warp's atomics for one feature land on the row's S
-// adjacent cells of acc [K, F, B, S] (a third of the L2 sectors a thread
-// per row would touch)
-__global__ void __launch_bounds__(kThreads)
-int8_hist_global_kernel(const uint8_t* __restrict__ bins, long long n,
-                        int F, const int8_t* __restrict__ q, int S,
-                        const int* __restrict__ seg, int K, int B,
-                        long long rows_per_chunk, int* __restrict__ acc) {
-  const int per_pass = kThreads / S;          // rows per pass of the block
-  const int lr = threadIdx.x / S, c = threadIdx.x - lr * S;
-  if (lr >= per_pass) return;
-  const long long row0 = blockIdx.x * rows_per_chunk;
-  const long long row1 = min(n, row0 + rows_per_chunk);
-  for (long long r = row0 + lr; r < row1; r += per_pass) {
-    const int sg = seg[r];
-    if (sg < 0 || sg >= K) continue;
-    const int v = (int)q[r * S + c];
-    if (v == 0) continue;
-    const uint8_t* codes = bins + r * F;
-    int* cells = acc + (long long)sg * F * B * S + c;
-    for (int f = 0; f < F; ++f) {
-      const int code = (int)codes[f];
-      if (code < B) atomicAdd(cells + ((long long)f * B + code) * S, v);
+  // the block's cells are consecutive in acc [K, F, B, S] and out
+  const long long base = ((long long)k * F + f0) * B * S;
+  if (direct) {
+    for (int i = threadIdx.x; i < cells; i += kThreads) {
+      out[base + i] = __fmul_rn(__int2float_rn(s_hist[i]), s_scale[i % S]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < cells; i += kThreads) {
+      const int v = s_hist[i];
+      if (v != 0) atomicAdd(acc + base + i, v);
     }
   }
 }
 
+// seg_items == nullptr: the one-segment mode (direct = one item)
 __global__ void finalize_kernel(const int* __restrict__ acc, long long cells,
-                                int S, const float* __restrict__ amax,
-                                float* __restrict__ out) {
+                                long long seg_cells, int S,
+                                const uint32_t* __restrict__ amax_bits,
+                                const int* __restrict__ seg_items,
+                                bool direct, float* __restrict__ out) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < cells; i += (long long)gridDim.x * blockDim.x) {
+    const bool skip = seg_items ? seg_items[i / seg_cells] == 1 : direct;
+    if (skip) continue;
     const int c = (int)(i % S);
-    out[i] = __fmul_rn(__int2float_rn(acc[i]), channel_scale(amax[c]));
+    out[i] = __fmul_rn(__int2float_rn(acc[i]), channel_scale(amax_bits[c]));
   }
 }
 
@@ -177,67 +312,103 @@ int grid_1d(long long work, int threads) {
   return want > 65535 ? 65535 : (want < 1 ? 1 : (int)want);
 }
 
-// seg_group 0: the global mode (no shared histogram)
-size_t smem_bytes(int S, int B, int seg_group, int feat_group) {
-  return sizeof(int) * (size_t)seg_group * feat_group * S * B;
+size_t hist_smem(int S, int B, int feat_group) {
+  return sizeof(int) * (size_t)feat_group * S * B;
 }
 
-}  // namespace
+}  // namespace i8
 
 extern "C" {
 
-// amax: f32 [S] channel maxima of |stats| over all n rows; q: scratch int8
-// [n, S]; acc: scratch int32 [K, F, B, S]; out: f32 [K, F, B, S];
-// seg_group, feat_group: segments and features of a block's shared
-// histogram; seg_group 0 for the global mode
+// scratch (i32): amax [S] (as u32 bits), counts [K], cursor [K],
+// seg_items [K], items [slots, 3], list [n]; acc i32 [K, F, B, S]; out f32
+// [K, F, B, S].  K == 1 takes the one-segment mode (no list; items of R
+// rows, slots = ceil(n / R)); else R is the least item size, the scan
+// picks the size for target blocks, and slots = min(ceil(n / R),
+// ceil(target / f_groups)) + K bounds the items.
+// part_blocks: blocks of the count and scatter passes.
 int hist_fused_int8_launch(const void* bins, long long n, int F,
                            const void* stats, int S, const void* seg, int K,
-                           int B, const void* amax, long long rows_per_chunk,
-                           int n_chunks, int seg_group, int feat_group,
-                           void* q, void* acc, void* out, void* stream) {
+                           int B, int R, int feat_group, int slots,
+                           int target, int part_blocks, void* amax,
+                           void* counts, void* cursor, void* seg_items,
+                           void* items, void* list, void* acc, void* out,
+                           void* stream) {
+  using namespace i8;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool shared = seg_group > 0;
-  if ((shared && feat_group < 1) || S > kThreads) {
+  if (S < 1 || S > kMaxS || feat_group < 1 || R < 1 || slots < 1 ||
+      target < 1 || part_blocks < 1 || (K > 1 && slots <= K)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int groups = shared ? (K + seg_group - 1) / seg_group : 1;
-  const int f_groups = shared ? (F + feat_group - 1) / feat_group : 1;
-  if (groups > 65535 || f_groups > 65535) {
+  const int f_groups = (F + feat_group - 1) / feat_group;
+  if (f_groups > 65535 || slots > 2147483647 / kItemCols) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  const size_t smem = smem_bytes(S, B, seg_group, feat_group);
-  cudaError_t err = cudaSuccess;
-  if (shared) {
-    err = cudaFuncSetAttribute(int8_hist_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  }
+  uint32_t* am = static_cast<uint32_t*>(amax);
+  cudaError_t err = cudaMemsetAsync(am, 0, sizeof(uint32_t) * S, st);
   if (err != cudaSuccess) return (int)err;
   const long long cells = (long long)K * F * B * S;
   err = cudaMemsetAsync(acc, 0, sizeof(int) * (size_t)cells, st);
   if (err != cudaSuccess) return (int)err;
-  quantize_kernel<<<grid_1d(n * S, 256), 256, 0, st>>>(
-      static_cast<const float*>(stats), n, S,
-      static_cast<const float*>(amax), static_cast<int8_t*>(q));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const uint8_t* b = static_cast<const uint8_t*>(bins);
-  const int8_t* qq = static_cast<const int8_t*>(q);
-  const int* sg = static_cast<const int*>(seg);
-  int* a = static_cast<int*>(acc);
-  if (shared) {
-    dim3 grid(n_chunks, f_groups, groups);
-    int8_hist_kernel<<<grid, kThreads, smem, st>>>(
-        b, n, F, qq, S, sg, K, B, rows_per_chunk, seg_group, feat_group, a);
-  } else {
-    int8_hist_global_kernel<<<n_chunks, kThreads, 0, st>>>(
-        b, n, F, qq, S, sg, K, B, rows_per_chunk, a);
+  const float* stt = static_cast<const float*>(stats);
+  {
+    // a grid whose thread count is a multiple of S
+    int g = grid_1d(n * S, kThreads);
+    g = g < 1024 ? g : 1024;
+    g = ((g + S - 1) / S) * S;
+    amax_kernel<<<g, kThreads, 0, st>>>(stt, n * S, S, am);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  const int* sg = static_cast<const int*>(seg);
+  int* cnt = static_cast<int*>(counts);
+  int* cur = static_cast<int*>(cursor);
+  int* si = static_cast<int*>(seg_items);
+  int* it = static_cast<int*>(items);
+  int* ls = static_cast<int*>(list);
+  if (K > 1) {
+    const long long per = (n + part_blocks - 1) / part_blocks;
+    const size_t psmem = sizeof(int) * 2 * (size_t)K;
+    err = cudaFuncSetAttribute(count_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)psmem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(scatter_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)psmem);
+    }
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)K, st);
+    if (err != cudaSuccess) return (int)err;
+    count_kernel<<<part_blocks, kThreads, sizeof(int) * (size_t)K, st>>>(
+        sg, n, K, per, cnt);
+    scan_kernel<<<1, kScanThreads, 0, st>>>(cnt, K, R, f_groups, target,
+                                            slots, cur, si, it);
+    scatter_kernel<<<part_blocks, kThreads, psmem, st>>>(sg, n, K, per, cur,
+                                                         ls);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    slots = (int)((n + R - 1) / R);
+    ls = nullptr;
+    si = nullptr;
+  }
+  const size_t smem = hist_smem(S, B, feat_group);
+  const dim3 grid(slots, f_groups);
+  const uint8_t* b = static_cast<const uint8_t*>(bins);
+  int* a = static_cast<int*>(acc);
+  float* o = static_cast<float*>(out);
+  err = cudaFuncSetAttribute(int8_hist_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_hist_kernel<<<grid, kThreads, smem, st>>>(b, n, F, stt, S, sg, B, R,
+                                                 feat_group, am, it, si, ls,
+                                                 a, o);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   finalize_kernel<<<grid_1d(cells, 256), 256, 0, st>>>(
-      static_cast<const int*>(acc), cells, S,
-      static_cast<const float*>(amax), static_cast<float*>(out));
+      a, cells, (long long)F * B * S, S, am, si, slots == 1, o);
   return (int)cudaGetLastError();
 }
 
@@ -245,11 +416,12 @@ const char* hist_fused_int8_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int hist_fused_int8_threads() { return kThreads; }
+int hist_fused_int8_threads() { return i8::kThreads; }
 
-long long hist_fused_int8_smem_bytes(int S, int B, int seg_group,
-                                     int feat_group) {
-  return (long long)smem_bytes(S, B, seg_group, feat_group);
+int hist_fused_int8_max_channels() { return i8::kMaxS; }
+
+long long hist_fused_int8_smem_bytes(int S, int B, int feat_group) {
+  return (long long)i8::hist_smem(S, B, feat_group);
 }
 
 }  // extern "C"

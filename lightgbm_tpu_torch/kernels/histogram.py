@@ -14,10 +14,12 @@ synchronising.  A launch the card refuses raises
 them.  They take CUDA tensors only: the plain PyTorch versions and the
 dispatch on the tensor's device live in ``ops/histogram.py``.
 
-B1 in int8 mode (:func:`hist_fused` with ``mode="int8"``) takes the channel
-maxima with one ``amax``, then launches the int8 library's three passes
-(quantize, int32 histogram per (row chunk, feature group, segment group) in
-shared or global memory, rescale; :func:`plan_int8` sizes them).  More than
+B1 in int8 mode (:func:`hist_fused` with ``mode="int8"``) launches the
+int8 library's passes (the channel maxima in one pass; for more than one
+segment a count, a scan into work items and a scatter of the rows by
+segment; an int32 shared histogram per (item, feature group) with the
+statistics quantized in registers; the rescale; :func:`plan_int8` sizes
+them, :func:`int8_passes_plain` repeats them in PyTorch).  More than
 ``INT8_ACC_ROW_LIMIT`` rows raise ``ValueError`` before any launch.
 
 Sizing (B1, B2): every block owns one (row chunk, feature, segment
@@ -47,15 +49,16 @@ from .predict import LaunchCounter
 FUSED, PARTITION, SEGSTATS = "hist_fused", "hist_partition", "hist_segstats"
 BATCHED, INT8 = "hist_fused_batched", "hist_fused_int8"
 INT8_THREADS = 512                  # kThreads in csrc/hist_fused_int8.cu
-# int8 blocks keep shared histograms only for calls of at most this many
-# segments (a root, the strict grower's two children, a wave's first
-# splits), whose rows crowd few cells, so that global atomics would contend
-# on them; wider waves add straight into global memory, faster there on an
-# H100 (PERF.md)
-INT8_SHARED_MAX_SEGMENTS = 2
-# a shared histogram is zeroed and flushed once per chunk: chunks hold at
-# least this many rows per (segment, bin) of it
+INT8_MAX_CHANNELS = 8               # kMaxS: statistics quantized in registers
+# a block's shared histogram is zeroed and flushed once per work item:
+# items hold at least this many rows per bin of it
 INT8_ROWS_PER_CELL = 4
+INT8_BLOCKS_PER_SM = 4              # int8 histogram blocks an SM holds
+INT8_ROOT_BLOCKS_PER_SM = 2         # the same for one-segment calls
+INT8_PART_ROWS = 4096               # rows a count/scatter block takes
+# the count and scatter passes keep two i32 counters per segment in shared
+# memory
+INT8_MAX_SEGMENTS = 29_056
 TILE_ROWS = 1024                    # kTileRows in csrc/hist_common.cuh
 WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
 SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
@@ -109,8 +112,8 @@ def _bound():
             lib_i = build.load(INT8)
             fn = lib_i.hist_fused_int8_launch
             ll = ctypes.c_longlong
-            fn.argtypes = [vp, ll, ci, vp, ci, vp, ci, ci, vp, ll, ci, ci,
-                           ci, vp, vp, vp, vp]
+            fn.argtypes = [vp, ll, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
+                           ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             fn.restype = ci
             _funcs[INT8] = fn
             err = lib_i.hist_fused_int8_error_string
@@ -119,11 +122,14 @@ def _bound():
             _funcs[INT8 + "_error"] = err
             threads = lib_i.hist_fused_int8_threads
             threads.restype = ci
+            chans = lib_i.hist_fused_int8_max_channels
+            chans.restype = ci
             smem = lib_i.hist_fused_int8_smem_bytes
-            smem.argtypes = [ci, ci, ci, ci]
+            smem.argtypes = [ci, ci, ci]
             smem.restype = ctypes.c_longlong
             if threads() != INT8_THREADS or \
-                    smem(3, 256, 1, 28) != int8_smem_bytes(3, 256, 1, 28):
+                    chans() != INT8_MAX_CHANNELS or \
+                    smem(3, 256, 28) != int8_smem_bytes(3, 256, 28):
                 raise build.KernelLaunchError(
                     "hist_fused_int8: the kernel's block size or shared-"
                     "memory layout disagrees with the binding")
@@ -206,43 +212,145 @@ def plan(n: int, num_features: int, s: int, num_segments: int,
     return rows, n_chunks, seg_group
 
 
-def int8_smem_bytes(s: int, num_bins: int, seg_group: int,
-                    feat_group: int) -> int:
-    """Dynamic shared memory of one int8 block: its int32 histogram
-    ``[seg_group, feat_group, S, B]`` (0 in the global mode)."""
-    return 4 * seg_group * feat_group * s * num_bins
+def int8_smem_bytes(s: int, num_bins: int, feat_group: int) -> int:
+    """Dynamic shared memory of one int8 histogram block: its int32
+    histogram ``[feat_group, B, S]``."""
+    return 4 * feat_group * s * num_bins
 
 
 def plan_int8(n: int, num_features: int, s: int, num_segments: int,
               num_bins: int, sm_count: int):
-    """(rows_per_chunk, n_chunks, seg_group, feat_group) of an int8 B1
-    launch.  For at most ``INT8_SHARED_MAX_SEGMENTS`` segments, blocks
-    keep shared histograms: each holds every segment of the call and as
-    many features as let two blocks share an SM; chunks hold at least
-    ``INT8_ROWS_PER_CELL`` rows per (segment, bin), the features spread
-    over more groups while the grid has fewer blocks than SMs, and the
-    chunks make at most one round of resident blocks (a partial second
-    round would double the time).  Otherwise, or where one (segment,
-    feature) does not fit a block, ``seg_group`` is 0: the kernel's global
-    mode, every add straight into the global accumulator,
-    ``BLOCKS_PER_SM`` blocks per SM."""
-    max_chunks = max(1, -(-n // INT8_THREADS))
-    pairs = (SMEM_PER_SM // 2 - 1024) // int8_smem_bytes(s, num_bins, 1, 1)
-    if num_segments <= min(pairs, INT8_SHARED_MAX_SEGMENTS):
-        n_chunks = max(1, min(max_chunks, n // (
-            INT8_ROWS_PER_CELL * num_segments * num_bins)))
-        f_groups = max(-(-num_features // (pairs // num_segments)),
-                       min(num_features, -(-sm_count // n_chunks)))
-        feat_group = -(-num_features // f_groups)
-        smem = int8_smem_bytes(s, num_bins, num_segments, feat_group)
-        per_sm = min(2048 // INT8_THREADS, SMEM_PER_SM // (smem + 1024))
-        n_chunks = max(1, min(n_chunks, per_sm * sm_count // f_groups))
-        seg_group = num_segments
+    """``(rows_per_item, feat_group, slots, target, part_blocks)`` of an
+    int8 B1 launch.
+
+    A block's shared histogram holds as many features as let
+    ``INT8_BLOCKS_PER_SM`` blocks share an SM (``INT8_ROOT_BLOCKS_PER_SM``
+    for one segment of enough rows, whose rows run in order; the groups
+    balanced).  Work items of one segment make about ``target`` blocks
+    (one round of resident blocks) over the call's rows, with at least
+    ``INT8_ROWS_PER_CELL`` rows per bin of a histogram: for one segment the
+    host sizes them from ``n`` (``rows_per_item``, ``slots = ceil(n / R)``
+    row ranges); for more, ``rows_per_item`` is the least size and the
+    device sizes them from the rows ``v`` its count finds
+    (:func:`int8_item_rows`: ``R >= v * groups / target``), so ``slots =
+    min(ceil(n / least), ceil(target / groups)) + K`` bounds ``sum_k
+    ceil(rows_k / R) <= v / R + K`` (the few unused slots exit; the host
+    never reads the counts).  ``part_blocks`` blocks of the count and
+    scatter passes take ``INT8_PART_ROWS`` rows each, at most ``target``.
+    """
+    least = -(-INT8_ROWS_PER_CELL * num_bins // 32) * 32
+    # one segment's rows run in order (every row's statistics quantized once
+    # per feature group): fewer, wider blocks where there are rows enough
+    # to give each of them a least-sized item; gathered rows want more
+    wide = (num_segments == 1
+            and -(-n // least) >= INT8_ROOT_BLOCKS_PER_SM * sm_count)
+    per_sm = INT8_ROOT_BLOCKS_PER_SM if wide else INT8_BLOCKS_PER_SM
+    room = SMEM_PER_SM // per_sm - 1024
+    per = int8_smem_bytes(s, num_bins, 1)
+    most = room // per if room >= per else SMEM_LIMIT // per
+    if most < 1:
+        raise ValueError(f"{s} statistics x {num_bins} bins do not fit an "
+                         "int8 block's shared memory")
+    f_groups = -(-num_features // most)
+    feat_group = -(-num_features // f_groups)
+    target = per_sm * sm_count
+    if num_segments > 1:
+        rows = min(least, max(32, -(-n // 32) * 32))
+        slots = min(-(-n // rows), -(-target // f_groups)) + num_segments
     else:
-        seg_group, feat_group = 0, num_features
-        n_chunks = max(1, min(max_chunks, BLOCKS_PER_SM * sm_count))
-    rows = -(-n // n_chunks)
-    return rows, -(-n // rows), seg_group, feat_group
+        rows = max(1, min(int8_item_rows(n, least, f_groups, target), n))
+        slots = -(-n // rows)
+    part_blocks = max(1, min(-(-n // INT8_PART_ROWS), target))
+    return rows, feat_group, slots, target, part_blocks
+
+
+def int8_item_rows(rows: int, least: int, f_groups: int, target: int) -> int:
+    """Rows of an int8 work item for a call whose segments hold ``rows``
+    rows: ``rows * f_groups / target`` rounded up to 32, at least ``least``
+    (the kernel's scan computes the same from its counts)."""
+    r = -(-rows * f_groups // target)
+    return max(least, -(-r // 32) * 32)
+
+
+def int8_scale_plain(stats: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's channel scale in PyTorch, in its steps: the largest
+    bit pattern of ``|x|`` per channel (a float's sign bit cleared; non-
+    negative floats order as their bits), reinterpreted, floored at 1e-30
+    and divided by 127.  Equals ``quantize_int8``'s ``scale``."""
+    n, s = stats.shape
+    bits = stats.contiguous().view(torch.int32) & 0x7FFFFFFF
+    top = (bits.amax(dim=0) if n else
+           torch.zeros(s, dtype=torch.int32, device=stats.device))
+    amax = top.view(torch.float32)
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=stats.device)
+    return torch.maximum(amax, tiny) / torch.full_like(amax, 127.0)
+
+
+def int8_items_plain(seg: torch.Tensor, num_segments: int, rows: int,
+                     f_groups: int = 1, target: int = 1):
+    """The int8 kernel's work items in PyTorch: ``(list, items)`` with
+    ``list`` the rows of segments ``[0, K)`` grouped by segment (the kernel
+    orders them freely inside a segment) and ``items`` ``[m, 3]`` =
+    (segment, begin, end) positions in ``list``; for one segment ``list`` is
+    every row and the items are row ranges of ``rows``; for more, items of
+    :func:`int8_item_rows` of the segments' rows (``rows`` the least)."""
+    n = seg.shape[0]
+    dev = seg.device
+    if num_segments == 1:
+        begin = torch.arange(0, n, rows, dtype=torch.int64, device=dev)
+        end = torch.clamp(begin + rows, max=n)
+        return (torch.arange(n, device=dev),
+                torch.stack([torch.zeros_like(begin), begin, end], dim=1))
+    seg = seg.to(torch.int64)
+    valid = (seg >= 0) & (seg < num_segments)
+    order = torch.argsort(torch.where(valid, seg, num_segments), stable=True)
+    counts = torch.bincount(seg[valid], minlength=num_segments)
+    rows = int8_item_rows(int(counts.sum()), rows, f_groups, target)
+    starts = torch.cumsum(counts, 0) - counts
+    per = -(-counts // rows)
+    k = torch.repeat_interleave(torch.arange(num_segments, device=dev), per)
+    j = torch.arange(k.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(per, 0) - per, per)
+    begin = starts[k] + j * rows
+    end = torch.minimum(begin + rows, starts[k] + counts[k])
+    return order[:int(counts.sum())], torch.stack([k, begin, end], dim=1)
+
+
+def int8_passes_plain(bins: torch.Tensor, stats: torch.Tensor,
+                      seg: torch.Tensor, num_segments: int, num_bins: int,
+                      rows: int, feat_group: int,
+                      target: int = 1) -> torch.Tensor:
+    """The int8 kernel's passes in PyTorch, for the CPU tests: the scale
+    (:func:`int8_scale_plain`), the work items (:func:`int8_items_plain`),
+    one int64 histogram per (item, feature group) of its rows' quantized
+    statistics (rows of other segments skipped in the one-segment mode),
+    added into the ``[K, F, B, S]`` accumulator, then ``f32(sum) *
+    scale``."""
+    from ..ops.histogram import quantize_int8
+
+    n, f = bins.shape
+    s = stats.shape[1]
+    k = int(num_segments)
+    q = quantize_int8(stats)[0].to(torch.int64)
+    scale = int8_scale_plain(stats)
+    order, items = int8_items_plain(seg, k, rows, -(-f // feat_group),
+                                    target)
+    acc = torch.zeros((k, f, num_bins, s), dtype=torch.int64,
+                      device=bins.device)
+    seg64 = seg.to(torch.int64)
+    for kk, p0, p1 in items.tolist():
+        r = order[p0:p1]
+        if k == 1:
+            r = r[seg64[r] == 0]
+        for f0 in range(0, f, feat_group):
+            part = torch.zeros((min(feat_group, f - f0) * num_bins, s),
+                               dtype=torch.int64, device=bins.device)
+            for fl in range(part.shape[0] // num_bins):
+                codes = bins[r, f0 + fl].to(torch.int64)
+                ok = codes < num_bins
+                part.index_add_(0, fl * num_bins + codes[ok], q[r][ok])
+            acc[kk, f0:f0 + feat_group] += part.view(-1, num_bins, s)
+    return acc.to(torch.int32).to(torch.float32) * scale
 
 
 def segstats_smem_bytes(rows_per_chunk: int) -> int:
@@ -497,21 +605,34 @@ def hist_fused_int8(bins: torch.Tensor, stats: torch.Tensor,
         raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
     check_int8_rows(n)
     k = int(num_segments)
+    if s > INT8_MAX_CHANNELS:
+        raise ValueError(f"the int8 kernel takes at most {INT8_MAX_CHANNELS} "
+                         f"statistics, got {s}")
+    if k > INT8_MAX_SEGMENTS:
+        raise ValueError(f"the int8 kernel takes at most "
+                         f"{INT8_MAX_SEGMENTS:,} segments, got {k:,}")
     out = torch.empty((k, f, num_bins, s), dtype=torch.float32, device=dev)
     if n == 0 or f == 0 or k == 0 or s == 0:
         return out.zero_()
-    rows, n_chunks, group, f_group = plan_int8(n, f, s, k, num_bins,
-                                               _sm_count(dev))
+    rows, f_group, slots, target, part_blocks = plan_int8(
+        n, f, s, k, num_bins, _sm_count(dev))
     bins, stats, seg = bins.contiguous(), stats.contiguous(), seg.contiguous()
-    amax = stats.abs().amax(dim=0)
-    q = torch.empty((n, s), dtype=torch.int8, device=dev)
+    # i32 scratch: amax bits [S], counts, cursor, items per segment [K]
+    # each, the item table [slots, 3] and the row list [n]
+    multi = k > 1
+    sizes = (s, k, k, k, 3 * slots if multi else 1, n if multi else 1)
+    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    ptrs, off = [], 0
+    for size in sizes:
+        ptrs.append(scratch.data_ptr() + 4 * off)
+        off += size
     acc = torch.empty((k, f, num_bins, s), dtype=torch.int32, device=dev)
     funcs = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = funcs[INT8](bins.data_ptr(), n, f, stats.data_ptr(), s,
-                          seg.data_ptr(), k, num_bins, amax.data_ptr(), rows,
-                          n_chunks, group, f_group, q.data_ptr(),
+                          seg.data_ptr(), k, num_bins, rows, f_group, slots,
+                          target, part_blocks, *ptrs,
                           acc.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         _raise(INT8, err)

@@ -1,26 +1,32 @@
 """Time B1's int8 mode (``csrc/hist_fused_int8.cu``) on the card.
 
     python3 lightgbm_tpu_torch/kernels/int8_timing.py [--package DIR]
-        [--plan CASE:CHUNKS:SEG_GROUP:FEAT_GROUP ...]
+        [--plan CASE:ROWS:FEAT_GROUP ...]
 
 On ``make_higgs_like(1,000,000)`` binned to 255 bins, with the binary
 round-1 statistics: B1 int8 at the north-star root (one segment), at the
 widest wave of a real north-star tree (grown once with the plain versions;
 its direct children as 42 segments), over the root split into two segments
 (the strict grower's call) and at that wave cut to its first 20 and 5
-segments (narrower waves), and the root and the strict call over the
-first 100,000 rows alone; for each, whether the kernel equals its plain
-version bit for bit, its rows in a segment and its device ms per launch
-(CUDA events, median of 11 runs of 5 launches queued behind a spin
-kernel).  ``--package DIR`` times the ``lightgbm_tpu_torch`` under ``DIR``
-instead of this checkout's (to compare two versions in one call, unpack
-the other into an ignored directory and run both in turns: old, new, new,
-old).  Each ``--plan`` forces one launch plan (``kernels/histogram.py``
-``plan_int8``'s tuple; ``SEG_GROUP`` 0 is the global mode) for one case
-and times it too.  Prints one ``RESULT`` JSON line.  Needs a CUDA card.
+segments (narrower waves), the root and the strict call over the first
+100,000 rows alone, and the root with every row of feature 0 in one bin
+(``skew``).  For each: whether the kernel equals its plain version bit for
+bit, its output's digest, its rows in a segment, its device ms per launch
+(CUDA events, median of 11 runs of 5 launches queued behind a spin kernel)
+and the device microseconds of each kernel and copy of one launch
+(``torch.profiler``, the mean over 5 launches), which split a call into
+its passes.  ``--package DIR`` times the ``lightgbm_tpu_torch`` under
+``DIR`` instead of this checkout's (to compare two versions in one call,
+unpack the other into an ignored directory and run both in turns: old,
+new, new, old).  Each ``--plan`` forces one launch plan of this
+checkout's kernel for one case and times it too: rows per work item (for
+more than one segment the least item size: the device sizes items from
+the call's rows) and features per block (``kernels/histogram.py``
+``plan_int8``).  Prints one ``RESULT`` JSON line.  Needs a CUDA card.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -47,6 +53,28 @@ def device_ms(fn, runs=11, inner=5):
         e.synchronize()
         per.append(s.elapsed_time(e) / inner)
     return float(np.median(per))
+
+
+def device_us_by_kernel(fn, launches=5):
+    """Device microseconds per launch of each kernel (and memset or copy)
+    that ``fn`` runs, from ``torch.profiler``; empty when the profiler sees
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            out[ev.key[:60]] = us / launches
+    return out
 
 
 def main() -> int:
@@ -115,26 +143,38 @@ def main() -> int:
                           1),
              "strict100k": (small, strict[:small], 2)}
 
-    def timed(n, seg, k):
-        b, st = bins[:n], stats[:n]
+    skew_bins = bins.clone()
+    skew_bins[:, 0] = 7
+
+    def timed(n, seg, k, b=None):
+        b = bins[:n] if b is None else b
+        st = stats[:n]
+        prof = device_us_by_kernel(lambda: H.hist_fused(b, st, seg, k, 256,
+                                                        "int8"))
         want = H.hist_fused_plain(b, st, seg, k, 256, "int8")
         got = H.hist_fused(b, st, seg, k, 256, "int8")
         return {"eq": bool(torch.equal(got, want)),
                 "rows": int(((seg >= 0) & (seg < k)).sum()),
                 "ms": device_ms(lambda: H.hist_fused(b, st, seg, k, 256,
-                                                     "int8"))}
+                                                     "int8")),
+                "sha": hashlib.sha256(got.cpu().numpy().tobytes())
+                .hexdigest()[:16], "device_us": prof}
 
     out = {"package": root, "wave_k": rec["w"]}
     for name, case in cases.items():
         out[name] = timed(*case)
-    real = KH.plan_int8
+    cases["skew"] = cases["root"] + (skew_bins,)
+    out["skew"] = timed(*cases["skew"])
+    real = KH.plan_int8 if args.plan else None
     for spec in args.plan:
-        name, chunks, sg, fg = spec.split(":")
-        n, chunks = cases[name][0], int(chunks)
-        rows = -(-n // chunks)
-        KH.plan_int8 = lambda *a: (rows, -(-n // rows), int(sg), int(fg))
+        name, rows, fg = spec.split(":")
+        n, k = cases[name][0], cases[name][2]
+        slots = real(n, 28, 3, k, 256, 132)[2] if k > 1 else \
+            -(-n // int(rows))
+        # for more than one segment ROWS is the least item size
+        KH.plan_int8 = lambda *a: (int(rows), int(fg), slots, *real(*a)[3:])
         try:
-            out[f"{name}_plan_{chunks}_{sg}_{fg}"] = timed(*cases[name])
+            out[f"{name}_plan_{rows}_{fg}"] = timed(*cases[name])
         finally:
             KH.plan_int8 = real
     print("RESULT", json.dumps(out))

@@ -333,7 +333,9 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
 def split_iter(hist, table, fmask, aux, scal, impl: str = "auto"):
     """One strict split iteration (see :func:`split_iter_plain`): kernel B3
     on CUDA tensors, its plain version on CPU tensors or when ``impl`` is
-    ``"plain"``."""
+    ``"plain"``.  The kernel writes the three changed rows into ``table``
+    in place and returns it; the plain version returns a new table.  A
+    caller drops its input table either way."""
     if impl in ("plain", "jnp") or hist.device.type == "cpu":
         return split_iter_plain(hist, table, fmask, aux, scal)
     from ..kernels.split_iter import split_iter as launch

@@ -73,13 +73,31 @@ class MulticlassOVA(Multiclass):
 
     def transform(self, raw):
         p = 1.0 / (1.0 + link_exp(-_f32(self.params.sigmoid, raw) * raw))
-        return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-12)
+        return p / torch.clamp(class_sum(p), min=1e-12)
+
+
+# XLA's CPU reduction adds up to this many classes of a row left to right
+XLA_SEQUENTIAL_CLASSES = 32
+
+
+def class_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the class axis, kept: XLA's CPU order on a CPU tensor of at
+    most ``XLA_SEQUENTIAL_CLASSES`` classes (left to right in f32, as
+    ``link_exp`` copies XLA's ``exp``), ``torch.sum`` otherwise (on the
+    card, and past 32 classes, where XLA's order is not repeated)."""
+    k = x.shape[-1]
+    if x.device.type != "cpu" or k > XLA_SEQUENTIAL_CLASSES or k == 0:
+        return x.sum(dim=-1, keepdim=True)
+    acc = x[..., 0]
+    for c in range(1, k):
+        acc = acc + x[..., c]
+    return acc[..., None]
 
 
 def _softmax(x):
     x = x - x.max(dim=-1, keepdim=True).values
     e = link_exp(x)
-    return e / e.sum(dim=-1, keepdim=True)
+    return e / class_sum(e)
 
 
 def _wmean(values, w):

@@ -159,4 +159,7 @@ def test_b3_b6_wrappers_refuse_cpu_tensors_and_build_lazily():
         assert kh.segstats_smem_bytes(rows) <= kh.SMEM_LIMIT
         assert per_set * sets >= -(-kc // kh.B6_LANES)
         assert rows * chunks >= 45_957
-    assert ks.smem_bytes(28, 256) <= ks.SMEM_LIMIT
+    # B3 at the strict Booster's shape holds its pairs in one chunk
+    cluster, chunk = ks.plan_split_iter(1, 28, 256, 132)
+    assert chunk * cluster >= 2 * 28
+    assert ks.smem_bytes(256, chunk) <= ks.SMEM_LIMIT

@@ -312,18 +312,95 @@ def test_wave_route(monkeypatch, f, hist_dtype, fused):
                                       (20_011, 300, 70, 64),
                                       (4_099, 3, 5, 2), (10, 3, 1, 256)])
 def test_int8_launch_plan(n, f, k, nb):
-    """The int8 kernel's plan (pure arithmetic, no card): chunks cover
-    every row; calls of at most ``INT8_SHARED_MAX_SEGMENTS`` segments (a
-    root, the strict grower's two children) keep shared histograms that
-    hold every segment and fit two blocks to an SM; wider calls (the
-    waves) take the global mode."""
+    """The int8 kernel's plan (pure arithmetic, no card): feature groups
+    cover every feature and fit ``INT8_BLOCKS_PER_SM`` blocks to an SM
+    (``INT8_ROOT_BLOCKS_PER_SM`` for one segment);
+    items hold at least ``INT8_ROWS_PER_CELL`` rows per bin (or every
+    row); one segment's row ranges cover every row in about ``target``
+    blocks; for more, the item slots bound ``sum_k ceil(rows_k / R)`` for
+    any split of any number of the rows, whatever size the device picks
+    (at least the least size ``rows``)."""
     from lightgbm_tpu_torch.kernels import histogram as kh
 
-    rows, chunks, sg, fg = kh.plan_int8(n, f, 3, k, nb, 132)
-    assert rows * chunks >= n > rows * (chunks - 1) and 1 <= fg <= f
-    assert bool(sg) == (k <= kh.INT8_SHARED_MAX_SEGMENTS)
-    if sg:
-        assert sg == k
-        assert kh.int8_smem_bytes(3, nb, sg, fg) <= kh.SMEM_PER_SM // 2
+    rows, fg, slots, target, part = kh.plan_int8(n, f, 3, k, nb, 132)
+    assert 1 <= fg <= f and 1 <= part <= target
+    groups = -(-f // fg)
+    assert -(-f // groups) == fg                  # balanced groups
+    least = -(-kh.INT8_ROWS_PER_CELL * nb // 32) * 32
+    wide = k == 1 and -(-n // least) >= kh.INT8_ROOT_BLOCKS_PER_SM * 132
+    per_sm = kh.INT8_ROOT_BLOCKS_PER_SM if wide else kh.INT8_BLOCKS_PER_SM
+    assert kh.int8_smem_bytes(3, nb, fg) <= kh.SMEM_PER_SM // per_sm
+    assert target == per_sm * 132
+    if k == 1:
+        assert rows == n or (rows >= least and rows % 32 == 0)
+        assert slots * rows >= n > (slots - 1) * rows
+        assert slots * groups <= max(target, groups * -(-n // least)) + \
+            groups
     else:
-        assert fg == f
+        assert rows == min(least, -(-n // 32) * 32)
+        rng = np.random.default_rng(n + k)
+        for valid in (n, n // 3, k + 1, 1):
+            r = kh.int8_item_rows(valid, rows, groups, target)
+            assert r >= rows and r % 32 == 0
+            # K - 1 one-row segments and the rest, and random splits
+            splits = [[1] * (k - 1) + [valid - (k - 1)]] if valid >= k \
+                else []
+            splits += [rng.multinomial(valid, np.ones(k) / k)
+                       for _ in range(3)]
+            for counts in splits:
+                assert sum(-(-c // r) for c in counts) <= slots
+
+
+@pytest.mark.parametrize("seed,n,f,nb,k,lo", [(0, 3000, 4, 32, 1, 0),
+                                              (1, 3001, 6, 64, 7, -3),
+                                              (2, 2500, 3, 2, 3, 0)])
+@pytest.mark.parametrize("rows,fg,target", [(512, 2, 1), (96, 6, 64),
+                                             (4096, 4, 8)])
+def test_int8_kernel_passes_bit_equal_to_pallas(seed, n, f, nb, k, lo, rows,
+                                                fg, target):
+    """The int8 kernel's passes repeated in PyTorch (one-pass channel
+    scale, the rows grouped by segment into work items, one histogram per
+    (item, feature group), the rescale) equal the reference's
+    ``hist_fused_pallas`` in interpret mode bit for bit at several plans."""
+    from lightgbm_tpu_torch.kernels import histogram as kh
+
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    stats = rng.normal(size=(n, 3)).astype(np.float32)
+    stats[:, 2] = 0.0                              # an all-zero channel
+    seg = rng.integers(lo, k + 2, n).astype(np.int32)
+    want = hist_fused_pallas(jnp.asarray(bins), jnp.asarray(stats),
+                             jnp.asarray(seg), k, nb, interpret=True,
+                             hist_dtype="int8")
+    got = kh.int8_passes_plain(torch.from_numpy(bins),
+                               torch.from_numpy(stats),
+                               torch.from_numpy(seg), k, nb, rows, fg,
+                               target)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("kind", ["normal", "zeros", "neg_zero", "tiny",
+                                  "huge", "one_row"])
+def test_int8_one_pass_scale_equals_quantize_int8(kind):
+    """The kernel's one-pass channel scale (the largest bit pattern of
+    ``|x|``) is ``quantize_int8``'s bit for bit, the all-zero channel's
+    1e-30 floor included."""
+    from lightgbm_tpu_torch.kernels import histogram as kh
+
+    rng = np.random.default_rng(5)
+    st = rng.normal(size=(997, 3)).astype(np.float32)
+    if kind == "zeros":
+        st[:, 1] = 0.0
+    elif kind == "neg_zero":
+        st[:, 0] = -0.0
+        st[:, 2] = -st[:, 2] ** 2
+    elif kind == "tiny":
+        st *= np.float32(1e-38)
+    elif kind == "huge":
+        st *= np.float32(1e37)
+    elif kind == "one_row":
+        st = st[:1]
+    t = torch.from_numpy(st)
+    want = th.quantize_int8(t)[1]
+    assert torch.equal(kh.int8_scale_plain(t).view(torch.int32),
+                       want.view(torch.int32))

@@ -10,6 +10,11 @@ no JAX; ``--noconftest`` skips ``tests/conftest.py``, which imports it):
 
     python3 -m pytest tests/test_torch_kernels_on_card.py -q --noconftest
 
+B1's int8 mode and B3 have their own edge cases (one bin holding every
+row, empty segments, a segment holding every row, most rows outside the
+call, ragged row counts; B3 at the strict Booster's F = 28 with E = 1, the
+``cv()`` shape E = 5, the in-place table).
+
 Tolerances: forest predictions rtol 1e-5 / atol 1e-6; histograms per cell
 ``|kernel - plain| <= 1e-6 * sum|x|`` (the kernel sums in compensated f32,
 the plain version in f64); counts, routing and two launches of a histogram
@@ -261,7 +266,8 @@ def test_b3_kernel_matches_plain_bit_for_bit_on_card():
     scal[:, 7], scal[:, 8] = -1.0, 1.0
     for _ in range(10):
         hist = hists((e, 2))
-        tk, ak = split_iter(hist, table, fmask, aux, scal)
+        # the kernel updates its table in place: it gets a clone
+        tk, ak = split_iter(hist, table.clone(), fmask, aux, scal)
         tp, ap = split_iter_plain(hist, table, fmask, aux, scal)
         torch.cuda.synchronize()
         assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
@@ -406,3 +412,138 @@ def test_b6_edge_cases_on_card(mode, case):
         np.testing.assert_array_equal(g, ref)
     assert (np.abs(g - ref) <= 1e-6 * mag).all()
     assert (np.abs(g - want.cpu().numpy()) <= 1e-6 * mag).all()
+
+
+INT8_EDGES = [
+    # name, n, f, nb, k, s
+    ("one_bin_feature", 100_003, 28, 256, 3, 3),
+    ("empty_segments", 50_021, 6, 64, 9, 3),
+    ("one_segment_all_rows", 70_001, 28, 256, 3, 3),
+    ("k42_70pct_outside", 300_007, 28, 256, 42, 3),
+    ("root_ragged", 12_345, 5, 256, 1, 3),
+    ("root_one_bin_zero_channel", 100_003, 28, 256, 1, 3),
+    ("one_channel", 40_009, 7, 33, 5, 1),
+    ("five_channels", 40_009, 7, 33, 5, 5),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", INT8_EDGES, ids=[c[0] for c in INT8_EDGES])
+def test_b1_int8_edge_cases_on_card(case):
+    """B1's int8 mode bit for bit against its plain version (and the plain
+    version of its own passes, :func:`int8_passes_plain`, at the launch's
+    plan) where its work items and warp aggregation are stressed."""
+    from lightgbm_tpu_torch.kernels import histogram as kh
+
+    name, n, f, nb, k, s = case
+    dev = _card()
+    rng = np.random.default_rng(len(name) + n)
+    bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    stats = rng.normal(size=(n, s)).astype(np.float32)
+    if s >= 3:
+        stats[:, 1] = rng.uniform(0, 0.25, n)
+        stats[:, 2] = (rng.random(n) < 0.8).astype(np.float32)
+    seg = rng.integers(0, k, n).astype(np.int32)
+    if name.startswith("one_bin") or name.startswith("root_one_bin"):
+        bins[:, 0] = 7                   # every row of feature 0 in one bin
+        bins[:, 5] = np.where(rng.random(n) < 0.95, 0, bins[:, 5])
+    if name == "root_one_bin_zero_channel":
+        stats[:, 1] = 0.0                # the 1e-30 scale floor
+    if name == "empty_segments":
+        seg = rng.choice(np.array([0, 4, 8, -1, 11], np.int32), n)
+    if name == "one_segment_all_rows":
+        seg[:] = 1
+    if name == "k42_70pct_outside":
+        seg = np.where(rng.random(n) < 0.7, k + 3, seg).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+    got = th.hist_fused(*t, k, nb, "int8")
+    again = th.hist_fused(*t, k, nb, "int8")
+    want = th.hist_fused_plain(*t, k, nb, "int8")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    rows, fg, _, target, _ = kh.plan_int8(
+        n, f, s, k, nb, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    passes = kh.int8_passes_plain(*t, k, nb, rows, fg, target)
+    assert torch.equal(got.view(torch.int32), passes.view(torch.int32))
+    assert torch.equal(kh.int8_scale_plain(t[1]), th.quantize_int8(t[1])[1])
+
+
+def _b3_chain(e, f, nb, iters, seed, in_place):
+    """``iters`` chained B3 iterations of ``e`` elements, bit for bit
+    against the plain version on table and aux; ``in_place``: the kernel
+    runs on its own running table (as the strict grower calls it), else on
+    a clone of the plain version's each time."""
+    from lightgbm_tpu_torch.kernels.split_iter import split_iter
+    from lightgbm_tpu_torch.models.tree import (_packed_root_table,
+                                                split_iter_plain)
+    from lightgbm_tpu_torch.ops.split import (SplitContext,
+                                              constrained_leaf_output,
+                                              find_best_split)
+
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    cap = 2 * iters + 3
+
+    def hists(lead):
+        shape = tuple(lead) + (f, nb)
+        c = rng.integers(0, 6, shape).astype(np.float64)
+        h = np.stack([rng.normal(size=shape), rng.uniform(0, 0.25, shape) *
+                      (c > 0), c], axis=-1).astype(np.float32)
+        return torch.from_numpy(h).to(dev)
+
+    ctx = SplitContext(*(torch.from_numpy(rng.choice(v, e).astype(
+        np.float32)).to(dev) for v in ([0.0, 0.5], [0.0, 1.0], [1.0, 20.0],
+                                       [1e-3], [0.0, 0.1], [0.0, 0.3],
+                                       [0.0, 2.0])))
+    fmask = torch.from_numpy((rng.random((e, f)) < 0.8).astype(
+        np.float32)).to(dev)
+    fmask[:, 0] = 1.0
+    root = hists((e,)) * 4
+    tot = root[:, 0].sum(dim=1)
+    zero = torch.zeros(e, device=dev)
+    out = constrained_leaf_output(tot[:, 0], tot[:, 1], tot[:, 2],
+                                  ctx._replace(path_smooth=zero),
+                                  float("-inf"), float("inf"), zero)
+    best = find_best_split(root, ctx, fmask, None, out, arith="scan")
+    table = _packed_root_table(cap, out, tot, best)
+    aux = torch.stack([zero, best.feature.float(), best.bin.float(),
+                       torch.isfinite(best.gain).float(), zero, zero, zero,
+                       zero], dim=1)
+    scal = torch.zeros((e, 16), device=dev)
+    for i, v in enumerate(ctx):
+        scal[:, i] = v
+    scal[:, 7] = torch.from_numpy(rng.choice([-1.0, 3.0], e).astype(
+        np.float32)).to(dev)
+    scal[:, 8] = 1.0
+    tk, ak = table.clone(), aux
+    for _ in range(iters):
+        hist = hists((e, 2))
+        src = tk if in_place else table.clone()
+        tk2, ak = split_iter(hist, src, fmask, ak if in_place else aux, scal)
+        assert tk2.data_ptr() == src.data_ptr()        # in place
+        tp, ap = split_iter_plain(hist, table, fmask, aux, scal)
+        torch.cuda.synchronize()
+        assert torch.equal(tk2.view(torch.int32), tp.view(torch.int32))
+        assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
+        scal[:, 8] += 2.0 * (aux[:, 3] > 0).float()
+        table, aux, tk = tp, ap, tk2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [16, 63, 256])
+@pytest.mark.parametrize("e,f", [(1, 28), (5, 6)])
+def test_b3_strict_and_cv_shapes_in_place_on_card(e, f, nb):
+    """B3 at the strict Booster's shape (E = 1, F = 28: a cluster of eight
+    blocks) and ``cv()``'s (E = 5, F = 6), its table updated in place
+    through a chain of iterations."""
+    _b3_chain(e, f, nb, 12, 61 + e + nb, in_place=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,f", [(3, 150), (200, 6)])
+def test_b3_chunked_and_unclustered_on_card(e, f):
+    """B3 where a block's pairs take several shared-memory chunks (F =
+    150) and where the batch fills the card without clusters (E = 200)."""
+    _b3_chain(e, f, 256, 4, 71 + e, in_place=False)

@@ -208,3 +208,27 @@ def test_dispatch_takes_plain_version_on_cpu():
         t1, a1 = split_iter(*args, impl=impl)
         t2, a2 = split_iter_plain(*args)
         assert torch.equal(t1, t2) and torch.equal(a1, a2)
+
+
+@pytest.mark.parametrize("e,f,b", [(1, 28, 256), (5, 6, 256), (20, 6, 256),
+                                   (40, 6, 256), (1, 6, 16), (200, 6, 63),
+                                   (3, 150, 256), (1, 1, 2), (7, 500, 256)])
+def test_split_iter_launch_plan(e, f, b):
+    """B3's plan (pure arithmetic, no card): a cluster of at most eight
+    blocks that divides the 2F (child, feature) pairs, larger while the
+    batch alone leaves SMs idle; each block's chunk of pairs within the
+    opt-in shared memory; the chunks cover the block's share."""
+    from lightgbm_tpu_torch.kernels import split_iter as ks
+
+    cluster, chunk = ks.plan_split_iter(e, f, b, 132)
+    pairs = 2 * f
+    assert 1 <= cluster <= ks.MAX_CLUSTER and pairs % cluster == 0
+    # the largest such divisor not above ceil(SMs / E)
+    target = min(ks.MAX_CLUSTER, -(-132 // e))
+    assert cluster <= max(1, target)
+    assert not [c for c in range(cluster + 1, target + 1) if pairs % c == 0]
+    if e >= 132:
+        assert cluster == 1
+    per = pairs // cluster
+    assert 1 <= chunk <= per
+    assert ks.smem_bytes(b, chunk) <= ks.CHUNK_SMEM <= ks.SMEM_LIMIT

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from lightgbm_tpu.multiclass import _softmax as r_softmax
 from lightgbm_tpu_torch.multiclass import _softmax
 from lightgbm_tpu_torch.objectives import link_exp, sigmoid, xla_exp_f32
 
@@ -42,9 +43,7 @@ def test_links_use_it_on_cpu_tensors():
     assert torch.equal(link_exp(t), xla_exp_f32(t))
     want = 1.0 / (1.0 + np.asarray(jnp.exp(-jnp.asarray(x))))
     assert np.array_equal(_bits(sigmoid(t).numpy()), _bits(want))
-    # the softmax's numerators are XLA's (its class sum keeps torch's
-    # order, which differs from XLA's: ROADMAP C.1)
-    z = x - x.max(axis=-1, keepdims=True)
-    e = torch.from_numpy(np.asarray(jnp.exp(jnp.asarray(z))))
+    # the softmax's numerators and its class sum are XLA's: the port's
+    # softmax is the reference's bit for bit
     assert np.array_equal(_bits(_softmax(t).numpy()),
-                          _bits((e / e.sum(dim=-1, keepdim=True)).numpy()))
+                          _bits(r_softmax(jnp.asarray(x))))
