@@ -37,9 +37,13 @@ Phases:
    and bf16 against a float64 sum on the card (``|kernel - f64| <= 1e-6 *
    sum |x|`` per cell, counts and row routing exact) and against their plain
    versions: the north-star root (1,000,000 rows x 28 features x 256 bins,
-   one segment), a north-star wave (42 splits, recorded from a real tree
-   grown by the plain grower) and awkward shapes (ragged row counts, 1 and
-   300 features, up to 64 segments with out-of-range ids, every row in one
+   one segment), a north-star wave (42 splits) and first wave (one split),
+   both recorded from a real tree grown by the plain grower, three
+   two-segment calls recorded from a strict tree (the root's split, a call
+   of about the mean rows, one of at most 5,000 rows), 95 % of the rows
+   and all but 300 outside both segments, one slot of a wave holding 90 %
+   of its direct rows, and awkward shapes (ragged row counts, 1 and 300
+   features, up to 64 segments with out-of-range ids, every row in one
    bin, empty segments); on dyadic statistics kernel == plain == f64
    exactly; two launches bit-equal;
 6. the training main path at full width: ``Dataset(make_higgs_like(
@@ -52,11 +56,13 @@ Phases:
    kernel path equals the plain path's; then ``pack_booster`` -> ``.npz`` ->
    ``ModelBank.deploy`` -> a 1,000,000-row ``PredictorRuntime.predict``
    within 1e-5 of ``Booster.predict``; a ``torch.profiler`` breakdown of
-   three rounds (device time by kernel family, the device's busy share, host
-   syncs); section 2's limit on the medians of three kernel/plain pairs of
-   10-round runs in turns (the kernel path no slower); then each histogram
-   kernel's time, its plain version's, its bound and (B1) one
-   ``index_add_`` call's;
+   three rounds (device time by kernel family: B1's passes, B2's, the
+   rest; the device's busy share, host syncs); section 2's limit on the
+   medians of three kernel/plain pairs of 10-round runs in turns (the
+   kernel path no slower); then each histogram kernel's time, its plain
+   version's, its bound (the bytes this data needs) and (B1) one
+   ``index_add_`` call's, B1 at the root and the three recorded strict
+   calls, B2 at the recorded wave and first wave;
 7. the split-iteration kernel (B3, ``split_iter``) against its plain version
    bit for bit (table and pick) at E in {1, 5, 40} elements, F in {6, 28},
    B in {16, 63, 256}, capacity 253, on random, dyadic and tied histograms
@@ -72,7 +78,8 @@ Phases:
    read just after (no plain-version call on the kernel path): (a) the
    strict grower in a Booster at the north star (``grow_policy=
    "leafwise"``, 3 rounds) through the kernels and the plain versions, AUC
-   apart by at most 1e-4, the dyadic round-1 trees equal; (b) ``cv()`` as
+   apart by at most 1e-4, the dyadic round-1 trees equal, and a profiled
+   strict round (device ms per round, B1's share); (b) ``cv()`` as
    examples/gridsearch_cv.py calls it (diamonds, 1,000 rounds, 5 folds,
    rmse, early stopping 5) through the kernels and the plain versions,
    ``best_iter`` equal, ``best_score`` within 1e-5 relative; (c)
@@ -187,6 +194,7 @@ CV_PARAMS = {"learning_rate": 0.1, "objective": "regression"}
 CV_ROUNDS, CV_FOLDS, CV_ES = 1000, 5, 5
 SEGSTATS_KC = (15, 30, 120, 240, 1080)
 STRICT_ROUNDS = 3
+STRICT_LATE_ROWS = 5_000      # phase 5/6: a late strict call's rows at most
 HIST_MODES = ("f32", "bf16")
 HIST_REL_TOL = 1e-6           # |kernel - f64| <= HIST_REL_TOL * sum |x|
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": NUM_LEAVES,
@@ -810,6 +818,21 @@ def random_wave(rng, dev, n, f, num_bins, w, capacity):
             2 * capacity, num_bins)
 
 
+def heavy_wave(rng, dev, n, f, num_bins, w, capacity, share):
+    """A synthetic wave whose first slot holds ``share`` of the rows and
+    sends them all to its direct (left) child."""
+    args = list(random_wave(rng, dev, n, f, num_bins, w, capacity))
+    slot = args[3].cpu().numpy()
+    node0 = int(np.nonzero(slot == 0)[0][0])
+    heavy = torch.from_numpy(rng.random(n) < share).to(dev)
+    args[2] = torch.where(heavy, node0, args[2]).to(torch.int32)
+    args[5] = args[5].clone()
+    args[5][0] = num_bins - 1
+    args[6] = args[6].clone()
+    args[6][0] = 1
+    return tuple(args)
+
+
 def binary_root_stats(y, dev):
     """The north-star round-1 statistics: binary logloss gradients at the
     boost-from-average score, hessians, all rows in the bag."""
@@ -821,7 +844,8 @@ def binary_root_stats(y, dev):
 
 def record_wave(bins, stats):
     """Grow one north-star tree with the plain grower and keep the inputs of
-    its first widest wave (a real B2 call)."""
+    its first widest wave and of its first wave (the root's split): real B2
+    calls."""
     import lightgbm_tpu_torch.models.tree as T
     from lightgbm_tpu_torch.config import parse_params
     from lightgbm_tpu_torch.models.gbdt import (HyperScalars,
@@ -832,6 +856,7 @@ def record_wave(bins, stats):
     rec = {}
 
     def spy(*args):
+        rec.setdefault("first", args[:9])
         if args[4].shape[0] > rec.get("w", 0):
             rec["w"] = int(args[4].shape[0])
             rec["args"] = args[:9]
@@ -846,7 +871,42 @@ def record_wave(bins, stats):
                     wave_width=resolve_wave_width(p, bins.shape[0]))
     finally:
         T.hist_partition_plain = orig
-    return rec["args"]
+    return rec["args"], rec["first"]
+
+
+def record_strict(bins, stats):
+    """Grow one north-star tree with the plain strict grower and keep the
+    segments of three of its two-segment B1 calls: the root's split (its
+    children hold every row), the call whose children hold the number of
+    rows nearest the tree's mean, and the last whose children hold at most
+    5,000 rows."""
+    import lightgbm_tpu_torch.models.tree as T
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.models.gbdt import HyperScalars
+
+    p = parse_params(TRAIN_PARAMS)
+    segs = []
+    orig = T.compute_histograms
+
+    def spy(b, st, seg, k, *a, **kw):
+        if k == 2:
+            segs.append(seg.to(torch.int8).clone())
+        return orig(b, st, seg, k, *a, **kw)
+
+    T.compute_histograms = spy
+    try:
+        T.grow_tree(bins, stats, torch.ones(bins.shape[1],
+                                            device=bins.device),
+                    HyperScalars.from_params(p).ctx(), p.num_leaves, 256,
+                    -1, hist_impl="plain", hist_dtype="f32", wave_width=1)
+    finally:
+        T.compute_histograms = orig
+    m = np.array([int((s < 2).sum()) for s in segs])
+    mid = int(np.argmin(np.abs(m - m.mean())))
+    late = max(i for i in range(len(m)) if m[i] <= STRICT_LATE_ROWS)
+    return {name: segs[i].to(torch.int32) for name, i in
+            (("strict_early", 0), ("strict_mid", mid),
+             ("strict_late", late))}
 
 
 def phase_hist_kernels(dev, X, y, mapper):
@@ -897,10 +957,36 @@ def phase_hist_kernels(dev, X, y, mapper):
     fused_case("64 segments, dyadic", awkward[3][1],
                stats_for(rng, 100_003, dev, dyadic=True), awkward[3][3], 64,
                64, exact=True)
+    # the partitioned design's edges: most rows outside both segments (the
+    # strict grower's late calls), segments of the recorded strict tree
+    outside = torch.where(torch.from_numpy(rng.random(n) < 0.95).to(dev),
+                          2, rseg(n, 0, 2))
+    keep("hist_fused", fused_case("north star, 95 % of rows outside both "
+                                  "segments", bins, root_stats, outside, 2,
+                                  256))
+    few = torch.full((n,), 2, dtype=torch.int32, device=dev)
+    few[torch.from_numpy(rng.choice(n, 300, replace=False)).to(dev)] = \
+        rseg(300, 0, 2)
+    keep("hist_fused", fused_case("north star, 300 rows in two segments",
+                                  bins, root_stats, few, 2, 256))
+    strict = record_strict(bins, root_stats)
+    for name, seg in strict.items():
+        keep("hist_fused", fused_case(f"north star, recorded {name} call "
+                                      f"({int((seg < 2).sum())} rows)", bins,
+                                      root_stats, seg, 2, 256))
+    fused_case("north star, 95 % outside, dyadic", bins,
+               stats_for(rng, n, dev, dyadic=True), outside, 2, 256,
+               exact=True)
 
-    wave = record_wave(bins, root_stats)
+    wave, first_wave = record_wave(bins, root_stats)
     keep("hist_partition", partition_case(
         f"north-star wave (W={wave[4].shape[0]})", wave))
+    keep("hist_partition", partition_case("north-star first wave (W=1)",
+                                          first_wave))
+    for share in (0.9,):
+        keep("hist_partition", partition_case(
+            f"one slot holding {share:.0%} of the direct rows",
+            heavy_wave(rng, dev, 300_001, 28, 256, 42, 120, share)))
     dy = list(wave)
     dy[1] = stats_for(rng, n, dev, dyadic=True)
     partition_case("north-star wave, dyadic", tuple(dy), exact=True)
@@ -914,7 +1000,7 @@ def phase_hist_kernels(dev, X, y, mapper):
         f"of their plain versions at f32 and bf16, exact on dyadic stats, "
         f"bit-equal across launches (max abs err vs plain {json.dumps(errs)};"
         f" {time.perf_counter() - t0:.1f} s)")
-    return errs, bins, root_stats, wave
+    return errs, bins, root_stats, wave, first_wave, strict
 
 
 # ---------------------------------------------------------------------------
@@ -1085,6 +1171,17 @@ def phase_train(dev, X, y, workdir):
     return result
 
 
+# the profiled rounds' device-time families: B1's passes (its histogram and
+# finish instances, and the partition over segment ids, which no other
+# kernel of a single booster's round runs), B2's (its own instances and the
+# routing count), B1 int8's histogram pass; everything else is "other"
+PROFILE_FAMILIES = {
+    "B1 f32/bf16 (hist_fused)": ("hr::b1", "rowpart::SegArray"),
+    "B2 (hist_partition)": ("hr::b2", "b2::Route"),
+    "B1 int8 (int8_hist_kernel)": ("int8_hist_kernel",),
+}
+
+
 def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
     """Where a north-star round's time goes: ``torch.profiler`` over
     ``rounds`` rounds after one warm round; device time by kernel family,
@@ -1104,8 +1201,8 @@ def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counters()
-    families = {"hist_partial_kernel": 0.0, "hist_reduce_kernel": 0.0,
-                "route_kernel": 0.0, "int8_hist_kernel": 0.0, "other": 0.0}
+    families = {f: 0.0 for f in PROFILE_FAMILIES}
+    families["other"] = 0.0
     top = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -1113,8 +1210,8 @@ def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
         if dev_us <= 0:
             continue
         top.append((dev_us, e.key, e.count))
-        fam = next((f for f in families if f != "other" and f in e.key),
-                   "other")
+        fam = next((f for f, keys in PROFILE_FAMILIES.items()
+                    if any(k in e.key for k in keys)), "other")
         families[fam] += dev_us / 1e3
     device_ms = sum(families.values())
     top.sort(reverse=True)
@@ -1127,6 +1224,8 @@ def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
            "device_busy_share": device_ms / wall_ms if wall_ms else None,
            "device_ms_per_round_by_family": {
                k: v / rounds for k, v in families.items()},
+           "b1_share": families["B1 f32/bf16 (hist_fused)"] / device_ms
+           if device_ms else None,
            "waves_per_tree": waves,
            "host_syncs_per_round": waves + 1,
            "top_device_ops": [
@@ -1143,51 +1242,74 @@ def hist_bound_ms(nbytes, ops):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
-def phase_hist_times(bins, root_stats, wave):
-    """Device ms per launch of each histogram kernel at the main path's
-    shapes (the north-star root and wave), its plain version's, its bound,
-    and for B1 one ``index_add_`` call over precomputed cell indices."""
+def phase_hist_times(bins, root_stats, wave, first_wave, strict):
+    """Device ms per launch of each histogram kernel at the main paths'
+    shapes (B1: the north-star root and the recorded strict calls; B2: the
+    recorded 42-split wave and first wave), its plain version's, its bound
+    and for B1 one ``index_add_`` call over precomputed cell indices.  The
+    bounds count the bytes this data needs: B1 reads each row's segment id
+    and the codes and statistics of the rows in its segments once and
+    writes ``[K, F, B, 3]`` (``4n + m (F + 12) + K F B 12``); B2 reads each
+    row's leaf, the split code of the rows of splitting leaves, the direct
+    rows' codes and statistics, and writes ``new_row_leaf`` and ``[W, F,
+    B, 3]``.  The operations (one add per row in a segment, feature and
+    statistic) bound none of them."""
     from lightgbm_tpu_torch.ops import histogram as H
 
     n, f = bins.shape
     dev = bins.device
-    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
     rows = {}
-    # B1 at the root: bins, stats, seg read once, [1, F, B, 3] written;
-    # n*F*S adds
-    b1_bound = hist_bound_ms(n * f + 12 * n + 4 * n + f * 256 * 12,
-                             n * f * 3)
-    flat = (torch.arange(f, device=dev) * 256
-            + bins.to(torch.int64)).reshape(-1)
-    vals = root_stats.repeat_interleave(f, dim=0)
-    out = torch.zeros(f * 256, 3, dtype=torch.float32, device=dev)
-    lib_ms = time_ms(lambda: out.index_add_(0, flat, vals), runs=11, inner=3)
-    del flat, vals
-    for mode in HIST_MODES:
-        rows[f"hist_fused_{mode}"] = {
-            "shape": f"n={n} F={f} B=256 K=1 S=3",
-            "ms": time_ms(lambda: H.hist_fused(bins, root_stats, zeros, 1,
-                                               256, mode), runs=11, inner=5),
-            "plain_ms": time_ms(lambda: H.hist_fused_plain(
-                bins, root_stats, zeros, 1, 256, mode), runs=5, inner=1),
-            "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
-            "library_ms": lib_ms}
-    # B2 at the recorded wave: bins, stats, row_leaf read once, new_row_leaf
-    # and [W, F, B, 3] written; adds only for rows routed to a direct child
-    w = int(wave[4].shape[0])
-    seg, _ = H.route_wave(wave[0], *wave[2:8])
-    direct_rows = int((seg >= 0).sum())
-    b2_bound = hist_bound_ms(n * f + 12 * n + 8 * n + w * f * 256 * 12,
-                             direct_rows * f * 3)
-    for mode in HIST_MODES:
-        rows[f"hist_partition_{mode}"] = {
-            "shape": f"n={n} F={f} B=256 W={w} direct rows {direct_rows}",
-            "ms": time_ms(lambda: H.hist_partition_fused(*wave, mode),
-                          runs=11, inner=5),
-            "plain_ms": time_ms(lambda: H.hist_partition_plain(*wave, mode),
-                                runs=5, inner=1),
-            "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
-            "library_ms": None}
+    b1_shapes = {"root": (torch.zeros(n, dtype=torch.int32, device=dev), 1)}
+    b1_shapes.update({name: (seg, 2) for name, seg in strict.items()})
+    for shape, (seg, k) in b1_shapes.items():
+        sel = torch.nonzero((seg >= 0) & (seg < k)).squeeze(1)
+        m = int(sel.numel())
+        bound = hist_bound_ms(4 * n + m * (f + 12) + k * f * 256 * 12,
+                              m * f * 3)
+        flat = (((seg[sel].to(torch.int64) * f)[:, None]
+                 + torch.arange(f, device=dev)) * 256
+                + bins[sel].to(torch.int64)).reshape(-1)
+        vals = root_stats[sel].repeat_interleave(f, dim=0)
+        out = torch.zeros(k * f * 256, 3, dtype=torch.float32, device=dev)
+        lib_ms = time_ms(lambda: out.index_add_(0, flat, vals), runs=11,
+                         inner=3)
+        del flat, vals, out
+        for mode in HIST_MODES:
+            name = f"hist_fused_{mode}" + ("" if shape == "root"
+                                           else f"_{shape}")
+            rows[name] = {
+                "shape": f"n={n} F={f} B=256 K={k} S=3 rows in a segment "
+                         f"{m} ({shape})",
+                "ms": time_ms(lambda: H.hist_fused(bins, root_stats, seg, k,
+                                                   256, mode),
+                              runs=11, inner=5),
+                "plain_ms": time_ms(lambda: H.hist_fused_plain(
+                    bins, root_stats, seg, k, 256, mode), runs=5, inner=1),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": lib_ms}
+    for shape, args in (("wave", wave), ("first_wave", first_wave)):
+        w = int(args[4].shape[0])
+        seg, _ = H.route_wave(args[0], *args[2:8])
+        direct = int((seg >= 0).sum())
+        leaf = args[2].to(torch.int64)
+        cap = args[3].shape[0]
+        slot = args[3].to(torch.int64)[leaf.clamp(0, cap - 1)]
+        routed = int(((leaf >= 0) & (leaf < cap) & (slot >= 0)).sum())
+        bound = hist_bound_ms(8 * n + routed + direct * (f + 12)
+                              + w * f * 256 * 12, direct * f * 3)
+        for mode in HIST_MODES:
+            name = f"hist_partition_{mode}" + ("" if shape == "wave"
+                                               else f"_{shape}")
+            rows[name] = {
+                "shape": f"n={n} F={f} B=256 W={w} direct rows {direct} "
+                         f"({shape})",
+                "ms": time_ms(lambda: H.hist_partition_fused(*args, mode),
+                              runs=11, inner=5),
+                "plain_ms": time_ms(lambda: H.hist_partition_plain(*args,
+                                                                   mode),
+                                    runs=5, inner=1),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
     for name, r in rows.items():
         log(f"phase 6 times {name}: {json.dumps(r)}")
     return rows
@@ -1501,12 +1623,16 @@ def phase_strict(dev, X, y):
     a, b = tree_arrays(bk, 0), tree_arrays(bp, 0)
     check(all(np.array_equal(a[key], b[key]) for key in a),
           "dyadic strict round-1 trees of kernel and plain paths differ")
+    breakdown = profile_rounds(lgb, ds, params, tag="phase 8a strict")
     out = {"rounds": STRICT_ROUNDS,
            "s_per_round": {t: r["s"] / STRICT_ROUNDS for t, r in runs.items()},
            "auc": {t: r["auc"] for t, r in runs.items()},
            "auc_kernel_minus_plain": d_auc,
            "launches": k["counts"], "dyadic_round1_leaves":
-           int(a["num_leaves"])}
+           int(a["num_leaves"]),
+           "profiled_device_ms_per_round": breakdown["device_ms_per_round"],
+           "profiled_b1_share": breakdown["b1_share"],
+           "round_breakdown": breakdown}
     log(f"phase 8a: {json.dumps(out)}")
     return out
 
@@ -1944,7 +2070,8 @@ def profile_wave_round(ds):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         T.compute_histograms_batched = orig
-    fam = {"b5:: kernels (B5: partition, items, reduce)": 0.0,
+    fam = {"b5:: kernels (B5: gather, items, reduce)": 0.0,
+           "rowpart:: kernels (B5's partition)": 0.0,
            "b6:: kernels (B6)": 0.0, "plain PyTorch ops": 0.0}
     top = []
     for e in prof.key_averages():
@@ -2481,9 +2608,12 @@ def main() -> int:
                                                           path2)
     table, breakdown, head, path_errs = phase_times(runtimes, X)
     runtimes.clear()
-    hist_errs, bins, root_stats, wave = phase_hist_kernels(dev, X, y, mapper)
+    hist_errs, bins, root_stats, wave, first_wave, strict_segs = \
+        phase_hist_kernels(dev, X, y, mapper)
     train = phase_train(dev, X, y, workdir)
-    hist_times = phase_hist_times(bins, root_stats, wave)
+    hist_times = phase_hist_times(bins, root_stats, wave, first_wave,
+                                  strict_segs)
+    del first_wave, strict_segs
     b6_errs, dbins = phase_b3_b6(dev, bins)
     Xc, yc = covertype_like(COV_ROWS, SEED + 120)
     cov_bins = torch.from_numpy(BinMapper.fit(Xc, max_bin=MAX_BIN).transform(
@@ -2533,6 +2663,10 @@ def main() -> int:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "shape": t["shape"],
+                "other_shapes": {r["shape"]: {x: r[x] for x in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")}
+                    for key, r in hist_times.items()
+                    if key.startswith(f"{name}_{mode}_")},
             })
     t = b3_b6_times["split_iter"]
     kernels.append({

@@ -16,13 +16,9 @@
 // learner keeps rows by leaf, so that each row is read once per (element,
 // feature group) and no tile is sorted.
 //
-//   1. partition (count, scan, scatter): a stable counting sort of each
-//      element's rows by segment.  A warp counts the segments of 1,024
-//      consecutive rows (__match_any_sync, the group's leader adds its
-//      size); one block per element scans the counts in (segment, chunk)
-//      order, so a segment's rows keep their row order, and cuts each
-//      segment into work items of at most R positions; the scatter repeats
-//      the count to place every row.  Out-of-range rows are dropped here.
+//   1. partition (row_partition.cuh, shared with B1 and B2): a stable
+//      counting sort of each element's rows by segment into work items of
+//      at most R positions.  Out-of-range rows are dropped here.
 //   2. gather: each element's direct rows, in partition order, as
 //      feature-major codes [E, F, n] and mode-rounded statistics [E, n, S],
 //      so that the histogram pass reads contiguous bytes.
@@ -51,13 +47,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_partition.cuh"
+
 namespace b5 {
 
-constexpr int kThreads = 256;           // partition and histogram blocks
+constexpr int kThreads = 256;           // gather and histogram blocks
 constexpr int kWarps = kThreads / 32;
-constexpr int kPartRows = 1024;         // rows a warp counts and scatters
 constexpr int kTile = 512;              // positions staged per tile
-constexpr int kScanThreads = 1024;      // one scan block per element
 constexpr int kNoCode = 0x100;          // code of a lane past the tile
 constexpr int kAhead = 4;               // code loads a warp keeps in flight
 
@@ -82,7 +78,7 @@ struct Shape {
   int R;       // positions per work item
   int cap;     // work-item slots per element
   int fg;      // features per block (feature group)
-  int C;       // partition chunks of kPartRows rows
+  int C;       // partition chunks of rowpart::kPartRows rows
 };
 
 // dynamic shared memory of a histogram block: the f64 histogram [fg, B, S]
@@ -90,146 +86,6 @@ struct Shape {
 __host__ __device__ inline size_t hist_smem_bytes(int S, int B, int fg) {
   return sizeof(double) * (size_t)fg * B * S +
          sizeof(float) * (size_t)kTile * S;
-}
-
-// the segment of row r, or -1 when it lies outside [0, K) or past the chunk
-__device__ __forceinline__ int segment_of(const int* seg, int r, int r1,
-                                          int K) {
-  const int k = r < r1 ? seg[r] : -1;
-  return (k >= 0 && k < K) ? k : -1;
-}
-
-// counts [E, K, C]: rows of warp-chunk c in segment k
-__global__ void __launch_bounds__(kThreads)
-part_count_kernel(const int* __restrict__ seg, Shape sh,
-                  int* __restrict__ counts) {
-  extern __shared__ int s_cnt[];                   // [kWarps, K]
-  const int e = blockIdx.y, K = sh.K;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + warp;
-  if (c >= sh.C) return;
-  int* cnt = s_cnt + warp * K;
-  for (int k = lane; k < K; k += 32) cnt[k] = 0;
-  __syncwarp();
-  const int* s = seg + (size_t)e * sh.n;
-  const int r0 = c * kPartRows, r1 = min(sh.n, r0 + kPartRows);
-  for (int base = r0; base < r1; base += 32) {
-    const int k = segment_of(s, base + lane, r1, K);
-    const unsigned peers = __match_any_sync(0xffffffffu, k);
-    if (k >= 0 && lane == __ffs(peers) - 1) cnt[k] += __popc(peers);
-    __syncwarp();
-  }
-  for (int k = lane; k < K; k += 32) {
-    counts[((size_t)e * K + k) * sh.C + c] = cnt[k];
-  }
-}
-
-// exclusive scan of data[0, len) in place by the whole block, in index
-// order; returns the total
-__device__ int block_scan(int* data, int len, int* s_warp) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (len + kScanThreads - 1) / kScanThreads;
-  const int a = min(len, tid * per), b = min(len, a + per);
-  int sum = 0;
-  for (int i = a; i < b; ++i) sum += data[i];
-  int incl = sum;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int v = s_warp[lane];
-    int w = v;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += up;
-    }
-    s_warp[lane] = w - v;
-    if (lane == 31) s_warp[32] = w;
-  }
-  __syncthreads();
-  int run = s_warp[warp] + incl - sum;
-  for (int i = a; i < b; ++i) {
-    const int t = data[i];
-    data[i] = run;
-    run += t;
-  }
-  const int total = s_warp[32];
-  __syncthreads();
-  return total;
-}
-
-// one block per element: counts -> offsets [E, K, C] (in place), the
-// element's direct rows (sizes [E]), the work items (segment, p0, p1) of
-// each segment, at most R positions each, in item slots
-// [e * cap, (e + 1) * cap) (unused slots get segment -1), and per
-// (element, segment) the first item slot and the number of items
-__global__ void __launch_bounds__(kScanThreads)
-part_scan_kernel(int* __restrict__ counts, Shape sh, int4* __restrict__ items,
-                 int* __restrict__ item_first, int* __restrict__ item_count,
-                 int* __restrict__ sizes) {
-  __shared__ int s_warp[33];
-  const int e = blockIdx.x, K = sh.K, C = sh.C, R = sh.R;
-  const int tid = threadIdx.x;
-  int* offs = counts + (size_t)e * K * C;
-  const int total = block_scan(offs, K * C, s_warp);
-  if (tid == 0) sizes[e] = total;
-  int* first = item_first + (size_t)e * K;
-  int* cnt = item_count + (size_t)e * K;
-  for (int k = tid; k < K; k += kScanThreads) {
-    const int start = offs[(size_t)k * C];
-    const int end = k + 1 < K ? offs[(size_t)(k + 1) * C] : total;
-    const int c = (end - start + R - 1) / R;
-    cnt[k] = c;
-    first[k] = c;
-  }
-  __syncthreads();
-  block_scan(first, K, s_warp);
-  int4* it = items + (size_t)e * sh.cap;
-  for (int i = tid; i < sh.cap; i += kScanThreads) {
-    it[i] = make_int4(-1, 0, 0, 0);
-  }
-  __syncthreads();
-  for (int k = tid; k < K; k += kScanThreads) {
-    const int start = offs[(size_t)k * C];
-    const int end = k + 1 < K ? offs[(size_t)(k + 1) * C] : total;
-    const int f = first[k];
-    for (int j = 0; j < cnt[k]; ++j) {
-      const int p0 = start + j * R;
-      it[f + j] = make_int4(k, p0, min(end, p0 + R), 0);
-    }
-    first[k] = e * sh.cap + f;
-  }
-}
-
-// order [E, n]: position -> row, segment-major, row order within a segment
-__global__ void __launch_bounds__(kThreads)
-part_scatter_kernel(const int* __restrict__ seg, Shape sh,
-                    const int* __restrict__ offs, int* __restrict__ order) {
-  extern __shared__ int s_run[];                   // [kWarps, K]
-  const int e = blockIdx.y, K = sh.K;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + warp;
-  if (c >= sh.C) return;
-  const unsigned below = (1u << lane) - 1u;
-  int* run = s_run + warp * K;
-  for (int k = lane; k < K; k += 32) {
-    run[k] = offs[((size_t)e * K + k) * sh.C + c];
-  }
-  __syncwarp();
-  const int* s = seg + (size_t)e * sh.n;
-  int* ord = order + (size_t)e * sh.n;
-  const int r0 = c * kPartRows, r1 = min(sh.n, r0 + kPartRows);
-  for (int base = r0; base < r1; base += 32) {
-    const int k = segment_of(s, base + lane, r1, K);
-    const unsigned peers = __match_any_sync(0xffffffffu, k);
-    if (k >= 0) ord[run[k] + __popc(peers & below)] = base + lane;
-    __syncwarp();
-    if (k >= 0 && lane == __ffs(peers) - 1) run[k] += __popc(peers);
-    __syncwarp();
-  }
 }
 
 // codes [E, F, n] (feature-major) and statistics [E, n, S] (mode-rounded)
@@ -362,33 +218,20 @@ int hist_fused_batched_launch(const void* bins, int n, int F,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sg = static_cast<const int*>(seg);
   if (E > 65535) return (int)cudaErrorInvalidConfiguration;
-  const size_t part_smem = sizeof(int) * (size_t)kWarps * K;
-  cudaError_t err;
-  err = cudaFuncSetAttribute(part_count_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)part_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(part_scatter_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)part_smem);
-  if (err != cudaSuccess) return (int)err;
   const size_t hsmem = hist_smem_bytes(S, B, fg);
-  err = cudaFuncSetAttribute(hist_item_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)hsmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_item_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)hsmem);
   if (err != cudaSuccess) return (int)err;
-  int* cnt = static_cast<int*>(counts);
   int* sz = static_cast<int*>(sizes);
-  dim3 pgrid((C + kWarps - 1) / kWarps, E);
-  part_count_kernel<<<pgrid, kThreads, part_smem, st>>>(sg, sh, cnt);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  part_scan_kernel<<<E, kScanThreads, 0, st>>>(
-      cnt, sh, static_cast<int4*>(items), static_cast<int*>(item_first),
-      static_cast<int*>(item_count), sz);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  part_scatter_kernel<<<pgrid, kThreads, part_smem, st>>>(
-      sg, sh, cnt, static_cast<int*>(order));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const rowpart::SegArray segs{sg, n, K};
+  const rowpart::Part part{n, K, C, R, cap, 0, 1, 1};
+  err = rowpart::partition(segs, segs, part, E, static_cast<int*>(counts),
+                           static_cast<int4*>(items),
+                           static_cast<int*>(item_first),
+                           static_cast<int*>(item_count), sz,
+                           static_cast<int*>(order), st);
+  if (err != cudaSuccess) return (int)err;
   dim3 ggrid((n + kThreads - 1) / kThreads, E);
   gather_kernel<<<ggrid, kThreads, 0, st>>>(
       static_cast<const uint8_t*>(bins), static_cast<const float*>(stats),
@@ -418,7 +261,7 @@ const char* hist_fused_batched_error_string(int err) {
 
 int hist_fused_batched_tile_rows() { return b5::kTile; }
 
-int hist_fused_batched_part_rows() { return b5::kPartRows; }
+int hist_fused_batched_part_rows() { return rowpart::kPartRows; }
 
 long long hist_fused_batched_smem_bytes(int S, int B, int fg) {
   return (long long)b5::hist_smem_bytes(S, B, fg);

@@ -14,88 +14,109 @@
 // _fused_part_kernel_mb).  The TPU's single- and multi-block variants, the
 // per-row [8, n] one-hot field lookup, the transposed operands and the
 // bf16-exactness gate max(F, 2W, B) <= 256 were TPU workarounds: here one
-// kernel serves every F.  route_kernel, one thread per row, reads the row's
-// leaf, its slot and its split code once and writes the new leaf id and the
-// row's segment (-1 when it adds nothing); the histogram passes of B1
-// (hist_common.cuh) then run over those segments, so the chain of dependent
-// loads is paid once per wave and not once per feature block.  The routing
-// adds about 13 bytes per row read (row_leaf, its slot, the split code) and
-// 8 written.
+// kernel serves every F.  The routing is the partition's count pass
+// (row_partition.cuh): a warp routes 1,024 consecutive rows, reading each
+// row's leaf, its slot and its split code once, writes the new leaf id and
+// the row's segment (-1 when it adds nothing) and counts the direct rows
+// per slot, so the wave's direct rows are partitioned without a further
+// pass over n; the scan and the scatter follow, then B1's histogram passes
+// over the direct rows alone (hist_rows.cuh, which says what bounds them
+// and what the design does about it).  The routing adds 13 bytes per row
+// read (row_leaf, its slot, the split code) and 8 written.
 //
 // Plain C interface, bound with ctypes by kernels/histogram.py.
 
-#include "hist_common.cuh"
+#include "hist_rows.cuh"
 
-namespace {
+namespace b2 {
 
-__global__ void route_kernel(const uint8_t* __restrict__ bins, int n, int F,
-                             const int* __restrict__ row_leaf,
-                             const int* __restrict__ slot_of_node,
-                             int capacity, const int* __restrict__ feat,
-                             const int* __restrict__ thr,
-                             const uint8_t* __restrict__ direct_left,
-                             int n_nodes, int* __restrict__ seg,
-                             int* __restrict__ new_row_leaf) {
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < n;
-       r += (long long)gridDim.x * blockDim.x) {
+// the count pass's segment of row r: routes it on the way
+struct Route {
+  const uint8_t* bins;
+  int F;
+  const int* row_leaf;
+  const int* slot_of_node;
+  int capacity;
+  const int* feat;
+  const int* thr;
+  const uint8_t* direct_left;
+  int n_nodes;
+  int* seg;
+  int* new_row_leaf;
+
+  struct Row {
+    int k;       // the row's segment, -1 when it adds nothing
+    int leaf;    // its new leaf
+  };
+
+  __device__ __forceinline__ Row load(int, int r) const {
     const int leaf = row_leaf[r];
     const int slot =
         (leaf >= 0 && leaf < capacity) ? __ldg(slot_of_node + leaf) : -1;
-    if (slot < 0) {
-      new_row_leaf[r] = leaf;
-      seg[r] = -1;
-      continue;
-    }
-    const int v = bins[r * F + __ldg(feat + slot)];
+    if (slot < 0) return Row{-1, leaf};
+    const int v = bins[(long long)r * F + __ldg(feat + slot)];
     const bool go_left = v <= __ldg(thr + slot);
-    new_row_leaf[r] = n_nodes + 2 * slot + (go_left ? 0 : 1);
-    seg[r] = (go_left == (__ldg(direct_left + slot) != 0)) ? slot : -1;
+    const int k = (go_left == (__ldg(direct_left + slot) != 0)) ? slot : -1;
+    return Row{k, n_nodes + 2 * slot + (go_left ? 0 : 1)};
   }
-}
+  __device__ __forceinline__ static int segment(const Row& v) { return v.k; }
+  __device__ __forceinline__ void store(int, int r, const Row& v) const {
+    new_row_leaf[r] = v.leaf;
+    seg[r] = v.k;
+  }
+};
 
-}  // namespace
+// the scatter's segment of row r: the route's
+struct Routed : rowpart::SegArray {};
+
+}  // namespace b2
 
 extern "C" {
 
-// seg: scratch i32 [n]; partial: scratch f32 [n_chunks, F, W*3, B];
-// hist_out: f32 [W, F, B, 3]; new_row_leaf: i32 [n]
+// Scratch (i32): seg [n], counts [W, C], items int4 [slots], item_first and
+// item_count [W], sizes [1], list [n]; partial f64 [slots, F, B, 3].
+// hist_out: f32 [W, F, B, 3]; new_row_leaf: i32 [n].  R is the least item
+// size; the scan sizes the items for `target` blocks.
 int hist_partition_launch(const void* bins, int n, int F, const void* stats,
                           const void* row_leaf, const void* slot_of_node,
                           int capacity, const void* feat, const void* thr,
                           const void* direct_left, int W, int n_nodes, int B,
-                          int bf16, int rows_per_chunk, int n_chunks,
-                          int seg_group, void* seg, void* partial,
-                          void* hist_out, void* new_row_leaf, void* stream) {
+                          int bf16, int fg, int R, int slots, int target,
+                          void* seg, void* counts, void* items,
+                          void* item_first, void* item_count, void* sizes,
+                          void* list, void* partial, void* hist_out,
+                          void* new_row_leaf, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const long long want = ((long long)n + threads - 1) / threads;
-  const int blocks = (int)(want > 65535 ? 65535 : (want < 1 ? 1 : want));
-  route_kernel<<<blocks, threads, 0, st>>>(
-      static_cast<const uint8_t*>(bins), n, F,
-      static_cast<const int*>(row_leaf),
-      static_cast<const int*>(slot_of_node), capacity,
-      static_cast<const int*>(feat), static_cast<const int*>(thr),
-      static_cast<const uint8_t*>(direct_left), n_nodes,
-      static_cast<int*>(seg), static_cast<int*>(new_row_leaf));
-  const cudaError_t err = cudaGetLastError();
+  if (W < 1 || fg < 1) return (int)cudaErrorInvalidValue;
+  const int groups = (F + fg - 1) / fg;
+  const uint8_t* b = static_cast<const uint8_t*>(bins);
+  int* sg = static_cast<int*>(seg);
+  const b2::Route route{b, F, static_cast<const int*>(row_leaf),
+                    static_cast<const int*>(slot_of_node), capacity,
+                    static_cast<const int*>(feat),
+                    static_cast<const int*>(thr),
+                    static_cast<const uint8_t*>(direct_left), n_nodes, sg,
+                    static_cast<int*>(new_row_leaf)};
+  const int C = (n + rowpart::kPartRows - 1) / rowpart::kPartRows;
+  const rowpart::Part part{n, W, C, R, slots, target, groups, hr::kTile};
+  int* ls = static_cast<int*>(list);
+  int4* it = static_cast<int4*>(items);
+  int* first = static_cast<int*>(item_first);
+  int* count = static_cast<int*>(item_count);
+  cudaError_t err = rowpart::partition(
+      route, b2::Routed{{sg, n, W}}, part, 1, static_cast<int*>(counts),
+      it, first, count, static_cast<int*>(sizes), ls, st);
   if (err != cudaSuccess) return (int)err;
-  hist::Shape sh{n, F, 3, W, B, rows_per_chunk, seg_group, bf16};
-  return hist::launch(static_cast<const uint8_t*>(bins),
-                      static_cast<const float*>(stats),
-                      static_cast<const int*>(seg), sh, n_chunks,
-                      static_cast<float*>(partial),
-                      static_cast<float*>(hist_out), st);
+  const hr::Shape sh{n, F, 3, W, B, bf16, fg, groups, 0, R, slots};
+  return (int)hr::histogram<hr::b2>(b, static_cast<const float*>(stats), sg, ls, it,
+                            first, count, sh, static_cast<double*>(partial),
+                            static_cast<float*>(hist_out), st);
 }
 
 const char* hist_partition_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int hist_partition_tile_rows() { return hist::kTileRows; }
-
-long long hist_partition_smem_bytes(int B, int seg_group) {
-  hist::Shape sh{0, 0, 3, 0, B, 0, seg_group, 0};
-  return (long long)hist::smem_bytes(sh);
-}
+int hist_partition_tile_rows() { return hr::kTile; }
 
 }  // extern "C"

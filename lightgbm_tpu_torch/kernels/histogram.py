@@ -3,11 +3,10 @@
 B2, ``csrc/hist_segstats.cu``, B6, and ``csrc/hist_fused_batched.cu``, B5).
 
 :func:`hist_fused`, :func:`hist_partition`, :func:`hist_segstats` and
-:func:`hist_fused_batched` check their tensors, size the row chunks and
-segment (or channel) groups, allocate the outputs and the scratch of
-per-chunk partials, and launch on the current CUDA stream without
-synchronising.  A launch the card refuses raises
-:class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES``,
+:func:`hist_fused_batched` check their tensors, plan the launch, allocate
+the outputs and the scratch (row lists, work items, partials), and launch
+on the current CUDA stream without synchronising.  A launch the card
+refuses raises :class:`~.build.KernelLaunchError` at once.  ``HIST_FUSED_LAUNCHES``,
 ``HIST_PARTITION_LAUNCHES``, ``HIST_SEGSTATS_LAUNCHES`` and
 ``HIST_FUSED_BATCHED_LAUNCHES`` count the calls that launched, per mode
 (``"f32"`` and ``"bf16"``; B1 also ``"int8"``), and nothing else counts
@@ -22,12 +21,16 @@ statistics quantized in registers; the rescale; :func:`plan_int8` sizes
 them, :func:`int8_passes_plain` repeats them in PyTorch).  More than
 ``INT8_ACC_ROW_LIMIT`` rows raise ``ValueError`` before any launch.
 
-Sizing (B1, B2): every block owns one (row chunk, feature, segment
-group).  A segment group is as many segments as the block's shared-memory
-partial ``[group * S, B]`` f32 and its Kahan compensation hold, beside the
-staged row tile and the sort's tables, while two blocks still share an SM
-(14 segments of S = 3 at B = 256, so a 42-split wave runs in three groups);
-chunks are cut so that the grid holds about eight blocks per SM.  B5
+Sizing (B1 f32/bf16, B2): a block owns one work item and one feature
+group, a warp per feature, as many features as let the block's f64
+histogram ``[fg, B, S]`` and its two-stage ring of row tiles fit its
+shared memory (28 at the north star: one group, one block per SM);
+:func:`plan_rows` sizes the work items so that a call makes about one
+round of resident blocks (a root's row ranges on the host; for more
+segments the least size, the device sizing the items from the rows its
+count finds), and :func:`rows_passes_plain` repeats the passes in PyTorch
+for the CPU tests.  More than ``ROWS_MAX_SEGMENTS`` segments or
+``ROWS_MAX_S`` statistics raise ``ValueError`` before any launch.  B5
 partitions each element's rows by segment and gives a block one work item
 (at most ``R`` positions of one segment) and a feature group
 (:func:`plan_batched`); B6 gives a block a row chunk, a feature and a set of
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -59,10 +63,16 @@ INT8_PART_ROWS = 4096               # rows a count/scatter block takes
 # the count and scatter passes keep two i32 counters per segment in shared
 # memory
 INT8_MAX_SEGMENTS = 29_056
-TILE_ROWS = 1024                    # kTileRows in csrc/hist_common.cuh
-WARPS, MAX_BINS = 8, 256            # kWarps, kMaxBins
+# B1 (f32/bf16) and B2: csrc/hist_rows.cuh and csrc/row_partition.cuh
+ROWS_TILE = 256                     # kTile: rows per ring stage
+ROWS_PART = 1024                    # kPartRows: rows a partition warp takes
+ROWS_MAX_WARPS = 32                 # kMaxWarps: features per block
+ROWS_MAX_S = 8                      # kMaxS: statistics summed in registers
+WARPS, MAX_BINS = 8, 256            # B6's kWarps, kMaxBins
 SMEM_LIMIT = 232_448                # opt-in dynamic shared memory per block
 SMEM_PER_SM = 233_472               # shared memory of one SM (228 KB)
+# the partition keeps one i32 counter per (warp, segment) in shared memory
+ROWS_MAX_SEGMENTS = SMEM_LIMIT // (4 * 8)     # 7,264
 BLOCKS_PER_SM = 8                   # blocks a launch aims to give each SM
 B5_TILE = 512                       # kTile in csrc/hist_fused_batched.cu
 B5_PART_ROWS = 1024                 # kPartRows: rows a partition warp takes
@@ -86,15 +96,16 @@ def _bound():
         if not _funcs:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib = build.load(FUSED)
+            ll = ctypes.c_longlong
             fn = lib.hist_fused_launch
-            fn.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
-                           vp, vp, vp]
+            fn.argtypes = [vp, ll, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
+                           ci, ci] + [vp] * 9
             fn.restype = ci
             _funcs[FUSED] = fn
             lib_p = build.load(PARTITION)
             fn = lib_p.hist_partition_launch
             fn.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp, vp, vp, ci, ci,
-                           ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+                           ci, ci, ci, ci, ci, ci] + [vp] * 11
             fn.restype = ci
             _funcs[PARTITION] = fn
             lib_s = build.load(SEGSTATS)
@@ -111,7 +122,6 @@ def _bound():
             _funcs[BATCHED] = fn
             lib_i = build.load(INT8)
             fn = lib_i.hist_fused_int8_launch
-            ll = ctypes.c_longlong
             fn.argtypes = [vp, ll, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
                            ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
             fn.restype = ci
@@ -140,8 +150,9 @@ def _bound():
                 err.restype = ctypes.c_char_p
                 _funcs[name + "_error"] = err
             for name, fn, want in (
-                    (FUSED, lib.hist_fused_tile_rows, TILE_ROWS),
-                    (PARTITION, lib_p.hist_partition_tile_rows, TILE_ROWS),
+                    (FUSED, lib.hist_fused_tile_rows, ROWS_TILE),
+                    (FUSED, lib.hist_fused_part_rows, ROWS_PART),
+                    (PARTITION, lib_p.hist_partition_tile_rows, ROWS_TILE),
                     (BATCHED, lib_b.hist_fused_batched_tile_rows, B5_TILE),
                     (BATCHED, lib_b.hist_fused_batched_part_rows,
                      B5_PART_ROWS),
@@ -153,9 +164,12 @@ def _bound():
                         f"{name}: the kernel's tile rows disagree with the "
                         "binding")
             smem = lib.hist_fused_smem_bytes
-            smem.argtypes = [ci, ci, ci]
+            smem.argtypes = [ci, ci, ci, ci, ci]
             smem.restype = ctypes.c_longlong
-            if smem(3, 256, 7) != smem_bytes(3, 256, 7):
+            if smem(28, 3, 256, 28, 1) != rows_smem_bytes(28, 3, 256, 28,
+                                                          True) or \
+                    smem(300, 2, 64, 30, 0) != rows_smem_bytes(300, 2, 64,
+                                                               30, False):
                 raise build.KernelLaunchError(
                     "hist_fused: the kernel's shared-memory layout disagrees "
                     "with the binding")
@@ -176,40 +190,176 @@ def _bound():
         return _funcs
 
 
-def smem_bytes(s: int, num_bins: int, seg_group: int) -> int:
-    """Dynamic shared memory of one block (``hist::smem_bytes``): staged
-    keys and statistics, the counting sort's counts, starts, totals and row
-    order, the partial and its Kahan compensation."""
-    return (4 * (TILE_ROWS + WARPS * MAX_BINS + 2 * MAX_BINS)
-            + 4 * (TILE_ROWS * s + 2 * seg_group * s * num_bins)
-            + 2 * TILE_ROWS)
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
-def plan(n: int, num_features: int, s: int, num_segments: int,
-         num_bins: int, sm_count: int):
-    """(rows_per_chunk, n_chunks, seg_group) of a B1 or B2 launch.
+def rows_pitch(feat_group: int) -> int:
+    """Bytes of a gathered row's codes in a ring stage
+    (``hr::gather_pitch``): the 4-byte words that cover ``feat_group``
+    codes from any byte of a word, an odd number of them."""
+    return 4 * (((feat_group + 6) // 4) | 1)
 
-    A segment group is as many segments as let two blocks share an SM (one
-    when even a single segment needs more); chunks are cut so that the grid
-    holds about ``BLOCKS_PER_SM`` blocks per SM, each at least one tile.
-    """
-    per_seg = 8 * s * num_bins
-    base = smem_bytes(s, num_bins, 0)
-    two_per_sm = SMEM_PER_SM // 2 - 1024 - base
-    room = two_per_sm if two_per_sm >= per_seg else SMEM_LIMIT - base
-    seg_group = min(num_segments, room // per_seg)
-    if seg_group < 1:
+
+def rows_smem_bytes(num_features: int, s: int, num_bins: int,
+                    feat_group: int, bulk: bool) -> int:
+    """Dynamic shared memory of one B1/B2 histogram block
+    (``hr::smem_bytes``): the f64 histogram ``[fg, B, S]``, two ring
+    stages (codes, statistics, segment ids, first-code offsets of
+    ``ROWS_TILE`` rows) and two mbarriers."""
+    p = rows_pitch(feat_group)
+    code = ROWS_TILE * (num_features if bulk and num_features > p else p)
+    stage = _a16(_a16(code) + _a16(4 * ROWS_TILE * s) + 5 * ROWS_TILE)
+    return _a16(8 * feat_group * num_bins * s) + 2 * stage + 16
+
+
+class RowsPlan(NamedTuple):
+    """A B1 (f32/bf16) or B2 launch: ``feat_group`` features per block in
+    ``groups`` groups, ``bulk`` copies of a root's tiles, ``rows`` per work
+    item (for more than one segment the least: the device sizes them),
+    ``slots`` item slots and the ``target`` blocks of one round."""
+    feat_group: int
+    groups: int
+    bulk: bool
+    rows: int
+    slots: int
+    target: int
+
+
+def plan_rows(n: int, num_features: int, s: int, num_segments: int,
+              num_bins: int, sm_count: int,
+              partitioned: bool = None) -> RowsPlan:
+    """The launch plan of B1 (f32/bf16) and B2.
+
+    A block's feature group is as many features (a warp each, at most
+    ``ROWS_MAX_WARPS``) as let its histogram and ring fit
+    ``SMEM_LIMIT``, balanced over the features; ``target`` is the blocks
+    that one round holds (by shared memory and threads per SM).  Work items
+    hold whole tiles, at least one, and about ``n_call * groups / target``
+    rows (a small call's few tiles spread over as many blocks, whose
+    histograms' flush costs less than the tiles' latency in one block):
+    one segment (a root) takes ``ceil(n / rows)`` row ranges sized here;
+    more take ``min(ceil(n / least), ceil(target / groups)) + K``
+    slots, which bound ``sum_k ceil(rows_k / R) <= v / R + K`` for the
+    ``R >= v * groups / target`` that the device picks from the rows ``v``
+    its count finds (unused slots exit).  ``partitioned`` (default: more
+    than one segment) plans a call that partitions its rows, as B2 always
+    does."""
+    if partitioned is None:
+        partitioned = num_segments > 1
+    if s > ROWS_MAX_S:
+        raise ValueError(f"the f32/bf16 histogram kernels take at most "
+                         f"{ROWS_MAX_S} statistics, got {s}")
+    fg = min(num_features, ROWS_MAX_WARPS)
+    while fg > 1 and rows_smem_bytes(num_features, s, num_bins, fg,
+                                     fg == num_features) > SMEM_LIMIT:
+        fg -= 1
+    if rows_smem_bytes(num_features, s, num_bins, fg,
+                       fg == num_features) > SMEM_LIMIT:
         raise ValueError(f"{s} statistics x {num_bins} bins do not fit a "
                          "block's shared memory")
-    groups = -(-num_segments // seg_group)
-    max_chunks = max(1, -(-n // TILE_ROWS))
-    want = -(-BLOCKS_PER_SM * sm_count
-             // (num_features * groups))
-    n_chunks = max(1, min(max_chunks, want))
-    rows = -(-n // n_chunks)
-    rows = -(-rows // TILE_ROWS) * TILE_ROWS
-    n_chunks = max(1, -(-n // rows))
-    return rows, n_chunks, seg_group
+    groups = -(-num_features // fg)
+    fg = -(-num_features // groups)
+    bulk = groups == 1 and not partitioned
+    smem = rows_smem_bytes(num_features, s, num_bins, fg, bulk)
+    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024),
+                        2048 // (32 * fg), 32))
+    target = per_sm * sm_count
+    least = ROWS_TILE
+    if not partitioned:
+        rows = max(least, rows_item_rows(n, groups, target))
+        slots = -(-n // rows)
+    else:
+        rows = least
+        slots = min(-(-n // least), -(-target // groups)) + num_segments
+    return RowsPlan(fg, groups, bulk, rows, slots, target)
+
+
+def rows_item_rows(rows: int, groups: int, target: int,
+                   num_segments: int = 0) -> int:
+    """``rows * groups / t`` rounded up to a whole tile: the item size that
+    spreads a call's ``rows`` over ``target`` blocks; ``t = target`` for a
+    root's row ranges, ``max(target - K, target / 2)`` for a call that
+    partitions its rows into ``K = num_segments`` segments, whose last
+    items may be short (the kernel's scan computes the same from its
+    counts, floored at the least size)."""
+    t = target
+    if num_segments:
+        t = max(target - num_segments, -(-target // 2))
+    r = -(-rows * groups // t)
+    return -(-r // ROWS_TILE) * ROWS_TILE
+
+
+def rows_items_plain(seg: torch.Tensor, num_segments: int,
+                     plan: RowsPlan) -> dict:
+    """B1's and B2's work items in PyTorch: ``order`` (position -> row:
+    every row for one segment, else the rows of segments ``[0, K)``
+    grouped by segment in row order), ``items`` ``[m, 3]`` = (segment, p0,
+    p1) in slot order, and per segment its first item and item count
+    (``item_first``, ``item_count``)."""
+    n = seg.shape[0]
+    k = int(num_segments)
+    if k == 1:
+        p0 = torch.arange(0, n, plan.rows, dtype=torch.int64)
+        items = torch.stack([torch.zeros_like(p0), p0,
+                             torch.clamp(p0 + plan.rows, max=n)], dim=1)
+        return {"order": torch.arange(n), "items": items,
+                "item_first": torch.zeros(1, dtype=torch.int64),
+                "item_count": torch.tensor([p0.numel()])}
+    seg = seg.to(torch.int64)
+    valid = (seg >= 0) & (seg < k)
+    order = torch.argsort(torch.where(valid, seg, k), stable=True)
+    counts = torch.bincount(seg[valid], minlength=k)
+    total = int(counts.sum())
+    rows = max(plan.rows, rows_item_rows(total, plan.groups, plan.target,
+                                         k))
+    starts = torch.cumsum(counts, 0) - counts
+    per = -(-counts // rows)
+    kk = torch.repeat_interleave(torch.arange(k), per)
+    j = torch.arange(kk.numel()) - torch.repeat_interleave(
+        torch.cumsum(per, 0) - per, per)
+    p0 = starts[kk] + j * rows
+    items = torch.stack([kk, p0, torch.minimum(p0 + rows,
+                                               starts[kk] + counts[kk])], 1)
+    return {"order": order[:total], "items": items,
+            "item_first": torch.cumsum(per, 0) - per, "item_count": per}
+
+
+def rows_passes_plain(bins: torch.Tensor, stats: torch.Tensor,
+                      seg: torch.Tensor, num_segments: int, num_bins: int,
+                      mode: str, plan: RowsPlan) -> dict:
+    """B1's and B2's histogram passes in PyTorch, in the kernels' order,
+    for the CPU tests: the work items (:func:`rows_items_plain`), one f64
+    partial per item of its rows' mode-rounded statistics (rows of other
+    segments skipped in the one-segment mode), and per segment the f32
+    cells: its one item's partial rounded, or its items' partials summed
+    in item order and rounded once, or zeros (``out`` ``[K, F, B, S]``)."""
+    n, f = bins.shape
+    s = stats.shape[1]
+    k = int(num_segments)
+    st = stats.to(torch.bfloat16).to(torch.float32) if mode == "bf16" \
+        else stats
+    st = st.to(torch.float64)
+    p = rows_items_plain(seg, k, plan)
+    codes = bins.to(torch.int64)
+    seg64 = seg.to(torch.int64)
+    partials = []
+    for kk, p0, p1 in p["items"].tolist():
+        rows = p["order"][p0:p1]
+        if k == 1:
+            rows = rows[seg64[rows] == 0]
+        part = torch.zeros((f * num_bins, s), dtype=torch.float64)
+        for jf in range(f):
+            c = codes[rows, jf]
+            keep = c < num_bins
+            part.index_add_(0, jf * num_bins + c[keep], st[rows[keep]])
+        partials.append(part.view(f, num_bins, s))
+    out = torch.zeros((k, f, num_bins, s), dtype=torch.float64)
+    for kk in range(k):
+        first, count = int(p["item_first"][kk]), int(p["item_count"][kk])
+        for i in range(first, first + count):
+            out[kk] += partials[i]
+    return dict(p, out=out.to(torch.float32))
 
 
 def int8_smem_bytes(s: int, num_bins: int, feat_group: int) -> int:
@@ -536,6 +686,42 @@ def _raise(name, err):
                                   f"(cudaError {err})")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' bulk
+    and 4-byte asynchronous copies): a copy when a view starts elsewhere."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _check_segments(k: int) -> None:
+    if k > ROWS_MAX_SEGMENTS:
+        raise ValueError(f"the f32/bf16 histogram kernels take at most "
+                         f"{ROWS_MAX_SEGMENTS:,} segments, got {k:,}")
+
+
+def _rows_scratch(n: int, k: int, p: RowsPlan, dev, with_seg: bool):
+    """One i32 scratch for B1's and B2's partition: ``(pointers, tensor)``
+    with the pointers (B2's routed segments first), items int4
+    ``[slots]``, counts ``[K, C]``, item_first and item_count ``[K]``,
+    sizes ``[1]``, the row list ``[n]``, in the C entry points' order."""
+    c = -(-n // ROWS_PART)
+    multi = k > 1 or with_seg
+    sizes = ([n] if with_seg else []) + [
+        4 * p.slots if multi else 4, k * c if multi else 1, k, k, 1,
+        n if multi else 1]
+    sizes = [_a16(4 * x) // 4 for x in sizes]        # 16-byte aligned parts
+    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    ptrs, off = [], 0
+    for size in sizes:
+        ptrs.append(scratch.data_ptr() + 4 * off)
+        off += size
+    if with_seg:
+        seg, items, counts, *rest = ptrs
+        return [seg, counts, items, *rest], scratch
+    items, counts, *rest = ptrs
+    return [counts, items, *rest], scratch
+
+
 def _mode_flag(mode: str) -> int:
     if mode not in MODES:
         raise ValueError(f"histogram mode must be 'f32' or 'bf16', got "
@@ -564,19 +750,22 @@ def hist_fused(bins: torch.Tensor, stats: torch.Tensor, seg: torch.Tensor,
         raise ValueError(f"num_bins must lie in [1, 256], got {num_bins}")
     flag = _mode_flag(mode)
     k = int(num_segments)
+    _check_segments(k)
     out = torch.empty((k, f, num_bins, s), dtype=torch.float32, device=dev)
     if n == 0 or f == 0 or k == 0 or s == 0:
         return out.zero_()
-    rows, n_chunks, group = plan(n, f, s, k, num_bins, _sm_count(dev))
-    partial = torch.empty(n_chunks * f * k * s * num_bins,
-                          dtype=torch.float32, device=dev)
-    bins, stats, seg = bins.contiguous(), stats.contiguous(), seg.contiguous()
+    p = plan_rows(n, f, s, k, num_bins, _sm_count(dev))
+    bins, stats, seg = _aligned(bins), _aligned(stats), _aligned(seg)
+    ptrs, scratch = _rows_scratch(n, k, p, dev, with_seg=False)
+    partial = torch.empty(p.slots * f * num_bins * s if p.slots > 1 or k > 1
+                          else 1, dtype=torch.float64, device=dev)
     funcs = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = funcs[FUSED](bins.data_ptr(), n, f, stats.data_ptr(), s,
-                           seg.data_ptr(), k, num_bins, flag, rows, n_chunks,
-                           group, partial.data_ptr(), out.data_ptr(), stream)
+                           seg.data_ptr(), k, num_bins, flag, p.feat_group,
+                           p.rows, p.slots, p.target, int(p.bulk), *ptrs,
+                           partial.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         _raise(FUSED, err)
     HIST_FUSED_LAUNCHES[mode].add()
@@ -672,12 +861,13 @@ def hist_partition(bins: torch.Tensor, stats: torch.Tensor,
     if w == 0 or f == 0:
         # nothing splits: every row keeps its leaf
         return hist.zero_(), row_leaf.clone()
-    rows, n_chunks, group = plan(n, f, 3, w, num_bins, _sm_count(dev))
-    seg = torch.empty(n, dtype=torch.int32, device=dev)
-    partial = torch.empty(n_chunks * f * w * 3 * num_bins,
-                          dtype=torch.float32, device=dev)
-    tensors = [t.contiguous() for t in (bins, stats, row_leaf, slot_of_node,
-                                        feat, thr, direct_left)]
+    _check_segments(w)
+    p = plan_rows(n, f, 3, w, num_bins, _sm_count(dev), partitioned=True)
+    tensors = [_aligned(t) for t in (bins, stats, row_leaf, slot_of_node,
+                                     feat, thr, direct_left)]
+    ptrs, scratch = _rows_scratch(n, w, p, dev, with_seg=True)
+    partial = torch.empty(p.slots * f * num_bins * 3, dtype=torch.float64,
+                          device=dev)
     funcs = _bound()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -686,7 +876,7 @@ def hist_partition(bins: torch.Tensor, stats: torch.Tensor,
             tensors[2].data_ptr(), tensors[3].data_ptr(),
             tensors[3].shape[0], tensors[4].data_ptr(),
             tensors[5].data_ptr(), tensors[6].data_ptr(), w, int(n_nodes),
-            num_bins, flag, rows, n_chunks, group, seg.data_ptr(),
+            num_bins, flag, p.feat_group, p.rows, p.slots, p.target, *ptrs,
             partial.data_ptr(), hist.data_ptr(), new_leaf.data_ptr(), stream)
     if err != 0:
         _raise(PARTITION, err)

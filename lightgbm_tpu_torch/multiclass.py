@@ -76,22 +76,42 @@ class MulticlassOVA(Multiclass):
         return p / torch.clamp(class_sum(p), min=1e-12)
 
 
-# XLA's CPU reduction adds up to this many classes of a row left to right
+# XLA's CPU reduction adds up to this many classes of a row left to right;
+# past it, in windows of this width
 XLA_SEQUENTIAL_CLASSES = 32
 
 
 def class_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the class axis, kept: XLA's CPU order on a CPU tensor of at
-    most ``XLA_SEQUENTIAL_CLASSES`` classes (left to right in f32, as
-    ``link_exp`` copies XLA's ``exp``), ``torch.sum`` otherwise (on the
-    card, and past 32 classes, where XLA's order is not repeated)."""
+    """Sum over the class axis, kept: XLA's CPU order on a CPU tensor (as
+    ``link_exp`` copies XLA's ``exp``), ``torch.sum`` on the card.
+
+    XLA adds at most ``XLA_SEQUENTIAL_CLASSES`` classes left to right in
+    f32.  Past that its ``TreeReductionRewriter`` turns the reduce into a
+    ``reduce-window`` of width and stride 32 over the classes padded with
+    ``p = 32 * ceil(K / 32) - K`` zeros (``p // 2`` before, the rest
+    after), each window added left to right from 0, then reduces the
+    ``ceil(K / 32)`` window sums by the same rule."""
     k = x.shape[-1]
-    if x.device.type != "cpu" or k > XLA_SEQUENTIAL_CLASSES or k == 0:
+    if x.device.type != "cpu" or k == 0:
         return x.sum(dim=-1, keepdim=True)
-    acc = x[..., 0]
-    for c in range(1, k):
-        acc = acc + x[..., c]
-    return acc[..., None]
+    if k <= XLA_SEQUENTIAL_CLASSES:
+        acc = x[..., 0]
+        for c in range(1, k):
+            acc = acc + x[..., c]
+        return acc[..., None]
+    w = XLA_SEQUENTIAL_CLASSES
+    pad = w * -(-k // w) - k
+    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    xp = xp.reshape(*x.shape[:-1], -1, w)
+    acc = torch.zeros(xp.shape[:-1], dtype=x.dtype)
+    for c in range(w):
+        acc = acc + xp[..., c]
+    if acc.shape[-1] > w:
+        return class_sum(acc)
+    out = torch.zeros(acc.shape[:-1], dtype=x.dtype)
+    for c in range(acc.shape[-1]):
+        out = out + acc[..., c]
+    return out[..., None]
 
 
 def _softmax(x):

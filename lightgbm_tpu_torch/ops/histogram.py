@@ -50,11 +50,11 @@ reference does by documented design: B5 and B6 have no quantized mode.
 More than :data:`INT8_ACC_ROW_LIMIT` rows in one call raise ``ValueError``
 before any launch (an int32 cell could wrap past it).
 
-The f32 and bf16 kernels sum in f32 with Kahan compensation, in a fixed
-order; the plain versions accumulate in f64 and round once.  Both land
-within a few f32 ulps of the exact sum, so they agree to ``1e-6 * sum |x|``
-per cell, and exactly wherever every partial sum is exact (dyadic
-statistics).  In int8 mode both sum integers exactly, so kernel and plain
+The f32 and bf16 kernels (B1, B2, B5, B6) sum in f64 in a fixed order
+and round once; the plain versions accumulate in f64 and round once.  They
+differ only where another f64 order changes a rounding, so they agree to
+``1e-6 * sum |x|`` per cell, and exactly wherever every partial sum is
+exact (dyadic statistics).  In int8 mode both sum integers exactly, so kernel and plain
 version agree bit for bit.
 """
 

@@ -131,11 +131,7 @@ def test_histogram_wrappers_refuse_cpu_tensors_and_build_lazily():
     assert not build._loaded
     for name in ("hist_fused", "hist_partition"):
         assert build.library_path(name).name.startswith(f"lib{name}-")
-    # the plan keeps every block inside the opt-in shared memory
-    for k in (1, 42, 64, 200):
-        rows, chunks, group = kh.plan(1_000_000, 28, 3, k, 256, 132)
-        assert kh.smem_bytes(3, 256, group) <= kh.SMEM_LIMIT
-        assert rows % kh.TILE_ROWS == 0 and rows * chunks >= 1_000_000
+    # the launch plan: tests/test_torch_b1_b2_passes.py
 
 
 def test_b3_b6_wrappers_refuse_cpu_tensors_and_build_lazily():

@@ -13,12 +13,17 @@ no JAX; ``--noconftest`` skips ``tests/conftest.py``, which imports it):
 B1's int8 mode and B3 have their own edge cases (one bin holding every
 row, empty segments, a segment holding every row, most rows outside the
 call, ragged row counts; B3 at the strict Booster's F = 28 with E = 1, the
-``cv()`` shape E = 5, the in-place table).
+``cv()`` shape E = 5, the in-place table), and so have B1 (f32/bf16) and
+B2 since their partitioned design (both segments empty, one row in a
+segment, every row in one bin, row counts no tile divides, views that
+start off a 16-byte boundary, F = 300 with K = 42, one slot taking 90 %
+of a wave's rows; dyadic statistics exact).
 
 Tolerances: forest predictions rtol 1e-5 / atol 1e-6; histograms per cell
-``|kernel - plain| <= 1e-6 * sum|x|`` (the kernel sums in compensated f32,
-the plain version in f64); counts, routing and two launches of a histogram
-kernel exactly equal; B1's int8 mode bit for bit (integer sums).
+``|kernel - plain| <= 1e-6 * sum|x|`` (kernel and plain version sum in f64
+in other orders and round once); counts, routing and two launches of a
+histogram kernel exactly equal; B1's int8 mode bit for bit (integer
+sums).
 """
 
 import numpy as np
@@ -79,6 +84,112 @@ def test_b1_kernel_matches_plain_on_card(mode):
     assert torch.equal(got, again)
     _close(got.cpu().numpy(), want.cpu().numpy(),
            _abs_hist(bins, stats, seg, 3, 256, mode))
+
+
+# B1's (f32/bf16) edge cases: (name, n, F, B, K, statistics)
+B1_EDGES = [("both_segments_empty", 50_000, 28, 256, 2, 3),
+            ("one_row_in_a_segment", 50_000, 28, 256, 2, 3),
+            ("every_row_in_one_bin", 70_001, 28, 256, 2, 3),
+            ("root_ragged_rows", 100_003, 28, 256, 1, 3),
+            ("strict_ragged_rows", 100_003, 28, 256, 2, 3),
+            ("root_view_off_16_bytes", 100_003, 28, 256, 1, 3),
+            ("strict_95pct_outside", 300_007, 28, 256, 2, 3),
+            ("f300_k42", 20_011, 300, 256, 42, 3),
+            ("root_f7_b64", 50_000, 7, 64, 1, 3),
+            ("two_statistics_two_bins", 4_099, 3, 2, 5, 2),
+            ("strict_dyadic", 200_000, 28, 256, 2, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", B1_EDGES, ids=[c[0] for c in B1_EDGES])
+def test_b1_edge_cases_on_card(mode, case):
+    """B1 (f32/bf16) within 1e-6 * sum|x| of float64 and of its plain
+    version (exact on dyadic statistics), bit-equal across launches, where
+    its partition, work items, ring tiles and bulk copies are stressed."""
+    name, n, f, nb, k, s = case
+    dev = _card()
+    rng = np.random.default_rng(len(name) + n)
+    bins = rng.integers(0, nb, (n, f)).astype(np.uint8)
+    stats = _stats(rng, n)[:, :s].copy()
+    seg = rng.integers(0, k, n).astype(np.int32)
+    if name == "both_segments_empty":
+        seg[:] = 2
+    elif name == "one_row_in_a_segment":
+        seg[:] = 2
+        seg[n // 3] = 1
+    elif name == "every_row_in_one_bin":
+        bins[:] = 7
+    elif name == "strict_95pct_outside":
+        seg = np.where(rng.random(n) < 0.95, 2, seg).astype(np.int32)
+    elif name == "strict_dyadic":
+        stats = (rng.integers(-8, 9, (n, 3)) * 0.25).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+    if name == "root_view_off_16_bytes":
+        # views 3 rows in: the codes start 84 bytes into their storage
+        bins, stats, seg = bins[3:], stats[3:], seg[3:]
+        t = [x[3:] for x in t]
+    got = th.hist_fused(*t, k, nb, mode)
+    again = th.hist_fused(*t, k, nb, mode)
+    want = th.hist_fused_plain(*t, k, nb, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (k, f, nb, s)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    g = got.cpu().numpy()
+    ref = _f64_sums(bins, stats, seg, k, nb, mode)
+    if name == "strict_dyadic":
+        np.testing.assert_array_equal(g, ref)
+    mag = _abs_hist(bins, stats, seg, k, nb, mode)
+    assert (np.abs(g - ref) <= 1e-6 * mag).all()
+    err = np.abs(g.astype(np.float64) - want.cpu().numpy())
+    assert (err <= 1e-6 * mag).all()
+    if s == 3:
+        np.testing.assert_array_equal(g[..., 2], want.cpu().numpy()[..., 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("w,heavy", [(42, 0.9), (1, None)],
+                         ids=["one_slot_90pct", "one_split"])
+def test_b2_edge_cases_on_card(mode, w, heavy):
+    """B2 where one slot takes 90 % of the rows (its direct child all of
+    them) and at a wave of one split: routing equal to ``route_wave``'s,
+    cells within 1e-6 * sum|x| of float64 and of the plain version,
+    bit-equal across launches."""
+    dev = _card()
+    rng = np.random.default_rng(50 + w)
+    n, cap, f = 300_001, 120, 28
+    bins = rng.integers(0, 256, (n, f)).astype(np.uint8)
+    stats = _stats(rng, n)
+    row_leaf = rng.integers(0, cap, n).astype(np.int32)
+    slot = np.full(cap, -1, np.int32)
+    nodes = rng.permutation(cap)[:w]
+    slot[nodes] = np.arange(w)
+    feat = rng.integers(0, f, w).astype(np.int32)
+    thr = rng.integers(0, 256, w).astype(np.int32)
+    dl = rng.integers(0, 2, w).astype(np.uint8)
+    if heavy is not None:
+        row_leaf = np.where(rng.random(n) < heavy, nodes[0],
+                            row_leaf).astype(np.int32)
+        thr[0], dl[0] = 255, 1
+    t = [torch.from_numpy(a).to(dev)
+         for a in (bins, stats, row_leaf, slot, feat, thr, dl)]
+    got, leaf = th.hist_partition_fused(*t, 2 * cap, 256, mode)
+    again, leaf2 = th.hist_partition_fused(*t, 2 * cap, 256, mode)
+    want, want_leaf = th.hist_partition_plain(*t, 2 * cap, 256, mode)
+    seg, route_leaf = th.route_wave(t[0], *t[2:], 2 * cap)
+    torch.cuda.synchronize()
+    assert torch.equal(leaf, route_leaf) and torch.equal(leaf, leaf2)
+    assert torch.equal(leaf, want_leaf)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    seg = seg.cpu().numpy()
+    if heavy is not None:
+        assert (seg == 0).mean() > 0.85
+    g = got.cpu().numpy()
+    mag = _abs_hist(bins, stats, seg, w, 256, mode)
+    assert (np.abs(g - _f64_sums(bins, stats, seg, w, 256, mode))
+            <= 1e-6 * mag).all()
+    _close(g, want.cpu().numpy(), mag)
 
 
 @pytest.mark.gpu
