@@ -10,13 +10,16 @@ Phases:
 
 1. the card's name and power limit, torch/CUDA versions, and the build of
    every kernel from ``lightgbm_tpu_torch/csrc`` (nvcc's ptxas report);
-2. each kernel against its plain PyTorch version on the card, on the same
-   inputs (rtol 1e-5, atol 1e-6; exactly on a dyadic-leaf forest): the
-   forest-predict kernel at f32, bf16 and int8 over a full-width forest
-   (100 trees x 127 leaves, 28 columns, 255 bins, ragged leaf-wise trees
-   with dead-slot garbage and a single-leaf tree) and awkward shapes,
+2. the forest-predict kernel against its plain PyTorch version on the
+   card, on the same inputs, bit for bit (``torch.equal``), at f32, bf16
+   and int8 over a full-width forest (100 trees x 127 leaves, 28 columns,
+   255 bins, ragged leaf-wise trees with dead-slot garbage and a
+   single-leaf tree), three trees of 8,191 leaves (16,384 node slots, more
+   than a block's shared memory holds), 1,000 trees and awkward shapes,
    among them rows of 256, 257 and 2,000 columns (codes staged in shared
-   memory up to 256 columns, read from global memory past that);
+   memory while a tile's fit 32 KB, read from global memory past that);
+   then the 8,191-leaf trees deployed in a ``PredictorRuntime`` on the
+   card and served, raw scores equal to the runtime's on the CPU;
 3. the main path, once per forest precision, with every launch counter set
    to 0 just before and read just after: bin ``make_higgs_like`` rows with
    ``BinMapper.fit``, save a seed-made full-width forest to ``.npz``,
@@ -26,13 +29,15 @@ Phases:
    ``PackedForest.predict_numpy`` on a sample, assert that no dispatch fell
    back or took the legacy path, and ``!swap``/``!rollback`` through the
    CLI's ``_serve`` on in-memory streams;
-4. each kernel against its plain version once more on the main path's own
-   tables and binned ``make_higgs_like`` rows, at the buckets the main path
-   launches (128 from the batcher, 16,384 from batch scoring); then times
-   on the card (CUDA events, median of 25 runs of 10 back-to-back launches
-   queued behind a spin kernel) of each kernel and its plain version at
-   every bucket of the ladder, with the kernel's bound; the whole table
-   goes to ``build/chip_smoke/chip_smoke_report.json``;
+4. each kernel against its plain version once more, bit for bit, on the
+   main path's own tables and binned ``make_higgs_like`` rows at every
+   bucket of the ladder; then times on the card (CUDA events, median of 25
+   runs of 10 back-to-back launches queued behind a spin kernel) of each
+   kernel and its plain version at every bucket, with the kernel's bound
+   (bytes or operations) and its walk bound (the node visits' two
+   dependent loads, one warp-wide load per clock on each SM at
+   ``clocks.max.sm``); the whole table goes to
+   ``build/chip_smoke/chip_smoke_report.json``;
 5. the histogram kernels (``hist_fused``, B1; ``hist_partition``, B2) at f32
    and bf16 against a float64 sum on the card (``|kernel - f64| <= 1e-6 *
    sum |x|`` per cell, counts and row routing exact) and against their plain
@@ -156,12 +161,12 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 SEED = 20261016
-RTOL, ATOL = 1e-5, 1e-6
 PRECISIONS = ("f32", "bf16", "int8")
 NUM_TREES, NUM_LEAVES, NUM_FEATURES, MAX_BIN = 100, 127, 28, 255
 LEARNING_RATE = 0.1
 CAPACITY = 2 * NUM_LEAVES - 1
 BIG_ROWS, SINGLE_REQUESTS, MAX_BUCKET = 1_000_000, 4096, 1 << 14
+LARGE_LEAVES = 8191        # trees of 16,384 node slots (phase 2)
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # the f32 rate outside the tensor cores, the closest listed rate for the
 # kernel's integer compares and f32 multiply-adds
@@ -230,80 +235,6 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# seed-made forests
-# ---------------------------------------------------------------------------
-def grow_tree(rng, n_leaves, capacity, col_bins, leaf_fn):
-    """One leaf-wise tree: split a random open leaf until ``n_leaves``;
-    children take the next two ids, as the grower's do.  Dead slots keep
-    the grower's sentinels plus garbage values that must never leak."""
-    feat = np.zeros(capacity, np.int32)
-    thr = np.zeros(capacity, np.int32)
-    left = -np.ones(capacity, np.int32)
-    right = -np.ones(capacity, np.int32)
-    leaf = rng.normal(size=capacity).astype(np.float32)   # internal garbage
-    is_leaf = np.zeros(capacity, bool)
-    open_leaves, n_nodes = [0], 1
-    while len(open_leaves) < n_leaves and n_nodes + 2 <= capacity:
-        i = open_leaves.pop(int(rng.integers(len(open_leaves))))
-        f = int(rng.integers(len(col_bins)))
-        feat[i] = f
-        thr[i] = int(rng.integers(0, max(int(col_bins[f]) - 1, 1)))
-        left[i], right[i] = n_nodes, n_nodes + 1
-        open_leaves += [n_nodes, n_nodes + 1]
-        n_nodes += 2
-    for i in open_leaves:
-        is_leaf[i] = True
-        leaf[i] = leaf_fn()
-    leaf[n_nodes:] = 777.0
-    return feat, thr, left, right, leaf, is_leaf
-
-
-def make_forest(seed, num_trees, num_leaves, col_bins, leaf_fn=None):
-    """Stacked node arrays of a ragged forest: most trees full-width, some
-    stopped early (dead slots), one single-leaf tree."""
-    rng = np.random.default_rng(seed)
-    leaf_fn = leaf_fn or (lambda: np.float32(rng.normal(0.0, 0.5)))
-    cap = 2 * num_leaves - 1
-    trees = []
-    for t in range(num_trees):
-        n = num_leaves
-        if t == num_trees // 2:
-            n = 1
-        elif rng.random() < 0.2:
-            n = int(rng.integers(2, num_leaves))
-        trees.append(grow_tree(rng, n, cap, col_bins, leaf_fn))
-    names = ("split_feature", "split_bin", "left", "right", "leaf_value",
-             "is_leaf")
-    return {k: np.stack(v) for k, v in zip(names, zip(*trees))}
-
-
-def soa_for(arrays, precision, device):
-    from lightgbm_tpu_torch.ops.predict import pack_forest_soa
-    from lightgbm_tpu_torch.ops.quantize import quantize_forest
-
-    a = arrays
-    if precision == "f32":
-        return pack_forest_soa(a["split_feature"], a["split_bin"], a["left"],
-                               a["right"], a["leaf_value"], a["is_leaf"],
-                               precision="f32", device=device)
-    q = quantize_forest(a["split_feature"], a["split_bin"], a["left"],
-                        a["right"], a["leaf_value"], a["is_leaf"], precision)
-    feat, thr, left, right, leaf, isl, scale = q.class_arrays(None)
-    return pack_forest_soa(feat, thr, left, right, leaf, isl,
-                           precision=precision, leaf_scale=scale,
-                           device=device)
-
-
-def depth_cap_of(arrays):
-    from types import SimpleNamespace
-
-    from lightgbm_tpu_torch.ops.predict import forest_depth_cap
-
-    return forest_depth_cap(SimpleNamespace(left=arrays["left"],
-                                            right=arrays["right"]))
-
-
-# ---------------------------------------------------------------------------
 # phase 1
 # ---------------------------------------------------------------------------
 def phase_device():
@@ -314,6 +245,12 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(clock.returncode == 0, f"nvidia-smi failed: {clock.stderr}")
+    clock_mhz = float(clock.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     from lightgbm_tpu_torch.kernels import build
@@ -324,13 +261,14 @@ def phase_device():
         f"(wall {time.perf_counter() - t0:.2f} s)")
     for name, text in build.BUILD_LOG.items():
         log(f"--- nvcc {name} ---\n{text.strip()}")
-    return card, secs
+    return card, secs, clock_mhz
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernel vs plain version on the card
 # ---------------------------------------------------------------------------
-def compare(soa, bins, lr, init, num_it, depth, start, exact, what):
+def compare(soa, bins, lr, init, num_it, depth, start, what):
+    """The kernel against its plain version, bit for bit."""
     from lightgbm_tpu_torch.ops.predict import (predict_forest,
                                                 predict_forest_plain)
 
@@ -339,15 +277,44 @@ def compare(soa, bins, lr, init, num_it, depth, start, exact, what):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if exact:
-        check(torch.equal(got, want), f"{what}: not exact (max err {err})")
-    else:
-        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-              f"{what}: max abs err {err} beyond rtol {RTOL} atol {ATOL}")
+    check(torch.equal(got, want), f"{what}: not bit-equal (max err {err})")
     return err
 
 
+def serve_large_trees(dev):
+    """Three 8,191-leaf f32 trees deployed in a ``PredictorRuntime`` on the
+    card and served, raw scores bit for bit equal to the same runtime on
+    the CPU (the plain version).  Returns the node slots of a tree."""
+    from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.kernels._timing import make_forest
+    from lightgbm_tpu_torch.serving import (PredictorRuntime,
+                                            packed_from_arrays)
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    X, _ = make_higgs_like(20_000, NUM_FEATURES, seed=5)
+    mapper = BinMapper.fit(X, max_bin=MAX_BIN)
+    arrays = make_forest(SEED + 30, 3, LARGE_LEAVES, mapper.n_bins)
+    meta = {"shrink": LEARNING_RATE, "init_score": [0.25], "num_class": 1,
+            "best_iteration": -1,
+            "params": {"objective": "binary", "num_leaves": LARGE_LEAVES},
+            "bin_mapper": mapper.to_dict()}
+    packed = packed_from_arrays(arrays, meta)
+    card = PredictorRuntime(packed, max_bucket=MAX_BUCKET, device=dev)
+    card.warm()
+    host = PredictorRuntime(packed, max_bucket=MAX_BUCKET, device="cpu")
+    codes = mapper.transform(X)
+    got = card.predict_binned(codes, raw_score=True)
+    want = host.predict_binned(codes, raw_score=True)
+    check(np.array_equal(got, want), "the 8,191-leaf forest served on the "
+          "card differs from the plain version")
+    check(card.stats.snapshot()["fallbacks"] == 0, "8,191-leaf fallbacks")
+    return int(card._soa[0].split_feature.shape[1])
+
+
 def phase_kernel_vs_plain(dev):
+    from lightgbm_tpu_torch.kernels._timing import (depth_cap_of,
+                                                    make_forest, soa_for)
+
     rng = np.random.default_rng(SEED)
     col_bins = np.full(NUM_FEATURES, MAX_BIN)
     errs = {p: 0.0 for p in PRECISIONS}
@@ -362,12 +329,18 @@ def phase_kernel_vs_plain(dev):
     isl = dyadic["is_leaf"]
     first = np.argmax(isl, axis=1)
     dyadic["leaf_value"][np.arange(isl.shape[0]), first] = 127.0 / 128.0
-    # rows wider than the kernel stages in shared memory (256 columns)
+    # rows wider than the kernel stages in shared memory (256 columns at
+    # the largest tile)
     wide = {f: make_forest(SEED + f, 24, 31, np.full(f, MAX_BIN))
             for f in (256, 257, 2000)}
+    # trees past one block's shared memory, and a forest of many rounds
+    large = make_forest(SEED + 4, 3, LARGE_LEAVES, col_bins)
+    many = make_forest(SEED + 5, 1000, NUM_LEAVES, col_bins)
     cases = [("full", full, NUM_FEATURES, [2048, 3001, 127, 1]),
              ("odd-trees", odd, NUM_FEATURES, [3001, 129]),
-             ("dyadic", dyadic, NUM_FEATURES, [4096, 3001])] + [
+             ("dyadic", dyadic, NUM_FEATURES, [4096, 3001]),
+             (f"leaves-{LARGE_LEAVES}", large, NUM_FEATURES, [2048, 1]),
+             ("trees-1000", many, NUM_FEATURES, [2048, 1])] + [
                  (f"wide-{f}", arrays, f, [300])
                  for f, arrays in wide.items()]
     for prec in PRECISIONS:
@@ -383,16 +356,20 @@ def phase_kernel_vs_plain(dev):
                 for num_it, start in windows:
                     what = f"{prec} {name} n={n} window=({num_it},{start})"
                     e = compare(soa, bins, LEARNING_RATE, 0.25, num_it, depth,
-                                start, name == "dyadic", what)
+                                start, what)
                     errs[prec] = max(errs[prec], e)
             # a depth cap below the forest's depth cuts every walk alike
             bins = torch.from_numpy(rng.integers(
                 0, MAX_BIN, (513, f)).astype(np.uint8)).to(dev)
             errs[prec] = max(errs[prec], compare(
                 soa, bins, LEARNING_RATE, 0.0, t, max(depth // 2, 1), 0,
-                name == "dyadic", f"{prec} {name} short depth cap"))
-        log(f"phase 2 {prec}: kernel == plain version over "
-            f"{len(cases)} forests (max abs err {errs[prec]:.3e})")
+                f"{prec} {name} short depth cap"))
+        log(f"phase 2 {prec}: kernel == plain version bit for bit over "
+            f"{len(cases)} forests")
+    slots = serve_large_trees(dev)
+    log(f"phase 2 serve: three {LARGE_LEAVES}-leaf trees ({slots} node "
+        f"slots each) served by PredictorRuntime on the card, raw scores "
+        f"== the plain version's")
     return errs
 
 
@@ -401,6 +378,7 @@ def phase_kernel_vs_plain(dev):
 # ---------------------------------------------------------------------------
 def build_model(workdir):
     from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.kernels._timing import make_forest
     from lightgbm_tpu_torch.serving import packed_from_arrays
     from lightgbm_tpu_torch.utils.datasets import make_higgs_like
 
@@ -577,43 +555,30 @@ def host_ms(fn, runs=200):
     return (time.perf_counter() - t0) / runs * 1e3
 
 
-def node_depths(soa):
-    """Depth of every node slot ``[Tp, Mp]`` (root 0) from the SoA."""
-    left = soa.left.cpu().numpy().astype(np.int64)
-    right = soa.right.cpu().numpy().astype(np.int64)
-    tp, mp = left.shape
-    depth = np.zeros((tp, mp), np.int64)
-    rows = np.arange(tp)
-    for node in range(mp):          # depth-major: parents precede children
-        internal = left[:, node] != node
-        d = depth[:, node] + 1
-        depth[rows[internal], left[internal, node]] = d[internal]
-        depth[rows[internal], right[internal, node]] = d[internal]
-    return torch.from_numpy(depth).to(soa.left.device)
-
-
-def bound_ms(soa, bins, depth_cap, t):
-    """Least time for the work: bytes (bins and tables read once, output
-    written once) over HBM peak, and operations (per internal node on a
-    row's path: one compare and one select; per row and tree: one multiply
-    and one add) over the f32 non-tensor peak.  Returns (ms, bound_by,
-    node_visits)."""
-    from lightgbm_tpu_torch.ops.predict import forest_leaf_nodes
+def bound_ms(soa, bins, depth_cap, t, clock_mhz):
+    """Least time for the work: bytes (the bins once, the output once, and
+    each node record the rows' paths read (8 bytes) and each cut walk's
+    leaf value (4) once) over HBM peak, and operations (per internal node
+    on a row's path: one compare and one select; per row and tree: one
+    multiply and one add) over the f32 non-tensor peak.  Also the walk
+    bound: the node visits' dependent loads (a record and a code each),
+    one warp-wide load per clock on each SM at the card's
+    ``clocks.max.sm``.  Returns (ms, bound_by, node_visits, walk_ms)."""
+    from lightgbm_tpu_torch.kernels._timing import (byte_bound_ms,
+                                                    walk_bound_ms,
+                                                    walk_counts)
 
     n, f = bins.shape
-    nodes = forest_leaf_nodes(soa, bins, depth_cap)[:t]
-    visits = int(node_depths(soa)[:t].gather(1, nodes).sum())
-    per_node = sum(x.element_size() for x in (
-        soa.split_feature, soa.split_bin, soa.left, soa.right, soa.leaf))
-    table = soa.split_feature.shape[1] * t * per_node + 4 * t
-    nbytes = n * f + 4 * n + table
+    visits, records, cut = walk_counts(soa, bins, depth_cap, t)
     ops = 2 * visits + 2 * n * t
-    b_ms, o_ms = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    b_ms = byte_bound_ms(n, f, records, cut)
+    o_ms = ops / PEAK_OPS_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations",
-            visits)
+            visits, walk_bound_ms(visits, sms, clock_mhz))
 
 
-def phase_times(runtimes, X):
+def phase_times(runtimes, X, clock_mhz):
     from lightgbm_tpu_torch.kernels.predict import forest_sums
     from lightgbm_tpu_torch.ops.predict import forest_sums_plain
 
@@ -626,26 +591,27 @@ def phase_times(runtimes, X):
         codes = rt.packed.bin_mapper.transform(X[:MAX_BUCKET])
         all_bins = torch.from_numpy(codes).to(rt.device)
         # the kernel against its plain version on the main path's own
-        # tables and rows, at the buckets the main path launches
+        # tables and rows, at every bucket of the ladder
         path_errs[prec] = 0.0
-        for b in (128, MAX_BUCKET):
+        for b in rt.buckets:
             for num_it in (t, t // 2):
                 path_errs[prec] = max(path_errs[prec], compare(
                     soa, all_bins[:b].contiguous(), float(rt.packed.shrink),
-                    float(rt.packed.init_score[0]), num_it, depth, 0, False,
+                    float(rt.packed.init_score[0]), num_it, depth, 0,
                     f"{prec} main-path tables, bucket {b}, {num_it} trees"))
-        log(f"phase 4 {prec}: kernel == plain version on the main path's "
-            f"tables at buckets 128 and {MAX_BUCKET} (max abs err "
-            f"{path_errs[prec]:.3e})")
+        log(f"phase 4 {prec}: kernel == plain version bit for bit on the "
+            f"main path's tables at every bucket 1 .. {MAX_BUCKET}")
         for b in rt.buckets:
             bins = all_bins[:b].contiguous()
             k_ms = time_ms(lambda: forest_sums(soa, bins, 0, t, depth))
             k_host = host_ms(lambda: forest_sums(soa, bins, 0, t, depth))
             p_ms = time_ms(lambda: forest_sums_plain(soa, bins, t, depth),
                            runs=21, inner=1)
-            b_ms, by, visits = bound_ms(soa, bins, depth, t)
+            b_ms, by, visits, w_ms = bound_ms(soa, bins, depth, t,
+                                              clock_mhz)
             row = {"precision": prec, "bucket": b, "kernel_ms": k_ms,
-                   "kernel_host_ms": k_host, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                   "kernel_host_ms": k_host, "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": by, "walk_bound_ms": w_ms,
                    "node_visits": visits, "rows_per_s": b / k_ms * 1e3}
             table.append(row)
             if b == MAX_BUCKET:
@@ -2596,7 +2562,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    card, build_s = phase_device()
+    card, build_s, clock_mhz = phase_device()
     errs = phase_kernel_vs_plain(dev)
 
     workdir = os.path.join(ROOT, "build", "chip_smoke")
@@ -2606,7 +2572,7 @@ def main() -> int:
     for prec in PRECISIONS:
         main_path[prec], runtimes[prec] = phase_main_path(prec, X, path,
                                                           path2)
-    table, breakdown, head, path_errs = phase_times(runtimes, X)
+    table, breakdown, head, path_errs = phase_times(runtimes, X, clock_mhz)
     runtimes.clear()
     hist_errs, bins, root_stats, wave, first_wave, strict_segs = \
         phase_hist_kernels(dev, X, y, mapper)
@@ -2642,14 +2608,22 @@ def main() -> int:
     kernels = []
     for prec in PRECISIONS:
         h = head[prec]
+        # phases 6, 11 and 12e serve their trained models at f32
+        by_phase = {"3": main_path[prec]["launches"]}
+        if prec == "f32":
+            by_phase.update({"6": train["serve_predict_launches"],
+                             "11": multiclass["serve_predict_launches"],
+                             "12e": int8["cli"]["serve_predict_launches"]})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
             "launches": main_path[prec]["launches"],
+            "launches_by_phase": by_phase,
             "max_abs_err": path_errs[prec], "max_err": path_errs[prec],
             "phase2_max_abs_err": errs[prec],
             "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "walk_bound_ms": h["walk_bound_ms"],
             "library_ms": None, "bucket": MAX_BUCKET,
         })
     for name, (source, replaces) in HIST_SOURCES.items():

@@ -43,48 +43,13 @@ import sys
 import numpy as np
 import torch
 
-SPIN_CYCLES = 20_000_000
+if __package__:
+    from . import _timing as T
+else:                   # run as a file: this directory is on sys.path
+    import _timing as T
+
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 LATE_ROWS = 5_000
-
-
-def device_ms(fn, runs=11, inner=5):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        s.record()
-        for _ in range(inner):
-            fn()
-        e.record()
-        e.synchronize()
-        per.append(s.elapsed_time(e) / inner)
-    return float(np.median(per))
-
-
-def device_us_by_kernel(fn, launches=5):
-    """Device microseconds per launch of each kernel (and memset or copy)
-    that ``fn`` runs, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            out[ev.key[:60]] = us / launches
-    return out
 
 
 def digest(t):
@@ -237,7 +202,7 @@ def main() -> int:
                 + bins[rows].to(torch.int64)).reshape(-1)
         vals = stats[rows].repeat_interleave(f, dim=0)
         acc = torch.zeros(k * f * 256, 3, device=dev)
-        lib = device_ms(lambda: acc.index_add_(0, flat, vals))
+        lib = T.device_ms(lambda: acc.index_add_(0, flat, vals))
         del flat, vals, acc
         for mode in ("f32", "bf16"):
             got = H.hist_fused(bins, stats, seg, k, 256, mode)
@@ -246,12 +211,12 @@ def main() -> int:
             out[f"b1_{name}_{mode}"] = {
                 "k": k, "m": m, "err": float((got - want).abs().max()),
                 "sha": digest(got),
-                "ms": device_ms(lambda: H.hist_fused(bins, stats, seg, k,
-                                                     256, mode)),
+                "ms": T.device_ms(lambda: H.hist_fused(bins, stats, seg, k,
+                                                       256, mode)),
                 "bound_ms": bound_ms(4 * n + m * (f + 12)
                                      + k * f * 256 * 12),
                 "index_add_ms": lib,
-                "device_us": device_us_by_kernel(lambda: H.hist_fused(
+                "device_us": T.device_us_by_kernel(lambda: H.hist_fused(
                     bins, stats, seg, k, 256, mode))}
     for name in ("wave42", "wave1"):
         wave = cases[name]
@@ -271,11 +236,11 @@ def main() -> int:
                 "w": w, "m": m, "err": float((got - want).abs().max()),
                 "route_eq": bool(torch.equal(new_leaf, want_leaf)),
                 "sha": digest(got),
-                "ms": device_ms(lambda: H.hist_partition_fused(*wave,
-                                                               mode)),
+                "ms": T.device_ms(lambda: H.hist_partition_fused(*wave,
+                                                                 mode)),
                 "bound_ms": bound_ms(8 * n + r + m * (f + 12)
                                      + w * f * 256 * 12),
-                "device_us": device_us_by_kernel(
+                "device_us": T.device_us_by_kernel(
                     lambda: H.hist_partition_fused(*wave, mode))}
     if "b5" in cases:
         b5_bins, b5_stats, b5_seg, k = cases["b5"]
@@ -288,9 +253,9 @@ def main() -> int:
             out[f"b5_wave_{mode}"] = {
                 "k": k, "e": int(b5_stats.shape[0]),
                 "err": float((got - want).abs().max()), "sha": digest(got),
-                "ms": device_ms(lambda: H.hist_fused_batched(
+                "ms": T.device_ms(lambda: H.hist_fused_batched(
                     b5_bins, b5_stats, b5_seg, k, 256, mode)),
-                "device_us": device_us_by_kernel(
+                "device_us": T.device_us_by_kernel(
                     lambda: H.hist_fused_batched(b5_bins, b5_stats, b5_seg,
                                                  k, 256, mode))}
     print("RESULT", json.dumps(out), flush=True)

@@ -34,7 +34,8 @@ north-star training (seconds per round) and its AUC on
 sweep bucket run to its end (seconds, rounds, and the (rows, Kc) of its B6
 calls).  Prints one ``RESULT`` JSON line.  To compare two versions of the
 kernels in one call, unpack the other version into an ignored directory,
-copy this file into it, and run both files in turns (old, new, new, old).
+copy this file and ``_timing.py`` into it, and run both files in turns
+(old, new, new, old).
 Needs a CUDA card.
 """
 
@@ -52,25 +53,10 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-SPIN_CYCLES = 20_000_000
-
-
-def device_ms(fn, runs=11, inner=5):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        s.record()
-        for _ in range(inner):
-            fn()
-        e.record()
-        e.synchronize()
-        per.append(s.elapsed_time(e) / inner)
-    return float(np.median(per))
+if __package__:
+    from . import _timing as T
+else:                   # run as a file: this directory is on sys.path
+    import _timing as T
 
 
 def breakdown(fn, calls=3) -> dict:
@@ -203,8 +189,8 @@ def sweep_round_b6() -> dict:
     return {"b6_sweep_call": {
         "shape": f"n={st.shape[0]} Kc={st.shape[1]}",
         "zero_share": float((st == 0).float().mean()),
-        "ms": device_ms(lambda: H.hist_segstats(bins, st, 256, "bf16")),
-        "normal_stats_ms": device_ms(lambda: H.hist_segstats(
+        "ms": T.device_ms(lambda: H.hist_segstats(bins, st, 256, "bf16")),
+        "normal_stats_ms": T.device_ms(lambda: H.hist_segstats(
             bins, normal, 256, "bf16"))}}
 
 
@@ -227,7 +213,7 @@ def segstats_shapes(dev, dbins, higgs_bins) -> dict:
                 + bins.to(torch.int64)).reshape(-1)
         vals = st.repeat_interleave(f, dim=0)
         acc = torch.zeros(f * 256, kc, dtype=torch.float32, device=dev)
-        lib = device_ms(lambda: acc.index_add_(0, flat, vals), runs=5)
+        lib = T.device_ms(lambda: acc.index_add_(0, flat, vals), runs=5)
         del flat, vals, acc
         for mode in modes:
             got = H.hist_segstats(bins, st, 256, mode)
@@ -236,8 +222,8 @@ def segstats_shapes(dev, dbins, higgs_bins) -> dict:
             out[f"{name}_{mode}"] = {
                 "shape": f"n={n} F={f} Kc={kc}",
                 "err": float((got - want).abs().max()),
-                "ms": device_ms(lambda: H.hist_segstats(bins, st, 256,
-                                                        mode)),
+                "ms": T.device_ms(lambda: H.hist_segstats(bins, st, 256,
+                                                          mode)),
                 "index_add_ms": lib,
                 "kernels_ms": breakdown(lambda: H.hist_segstats(
                     bins, st, 256, mode))}
@@ -266,7 +252,7 @@ def plan_variants(b5_wave, dbins, higgs_bins) -> dict:
         for fg, r in ((fg0, r0), (4, r0), (fg0, half), (fg0, 2 * r0)):
             forced = (r, -(-n // r) + k, fg, parts)
             kh.plan_batched = lambda *a, p=forced: p
-            out[f"b5_plan_R{r}_fg{fg}_ms"] = device_ms(
+            out[f"b5_plan_R{r}_fg{fg}_ms"] = T.device_ms(
                 lambda: H.hist_fused_batched(bins, stats, seg, k, 256,
                                              "bf16"))
         kh.plan_batched = plan_b
@@ -284,7 +270,7 @@ def plan_variants(b5_wave, dbins, higgs_bins) -> dict:
                     forced = (rows, -(-nn // rows), per_set,
                               -(-groups // per_set))
                     kh.plan_segstats = lambda *a, p=forced: p
-                    out[f"b6_{name}_plan_R{rows}_g{per_set}_ms"] = device_ms(
+                    out[f"b6_{name}_plan_R{rows}_g{per_set}_ms"] = T.device_ms(
                         lambda: H.hist_segstats(b6bins, st, 256, "bf16"))
             kh.plan_segstats = plan_s
             del st
@@ -318,12 +304,12 @@ def int8_times(bins, stats, wave) -> dict:
                           device=bins.device)
         out[f"b1_int8_{name}"] = {
             "k": k, "bit_equal": bool(torch.equal(got, want)),
-            "ms": device_ms(lambda: H.hist_fused(bins, stats, seg, k, 256,
-                                                 "int8")),
-            "plain_ms": device_ms(lambda: H.hist_fused_plain(
+            "ms": T.device_ms(lambda: H.hist_fused(bins, stats, seg, k, 256,
+                                                   "int8")),
+            "plain_ms": T.device_ms(lambda: H.hist_fused_plain(
                 bins, stats, seg, k, 256, "int8"), runs=3, inner=1),
-            "index_add_ms": device_ms(lambda: acc.index_add_(0, flat,
-                                                             vals))}
+            "index_add_ms": T.device_ms(lambda: acc.index_add_(0, flat,
+                                                               vals))}
         del flat, vals, acc
     return out
 
@@ -365,7 +351,7 @@ def b5_times(name, bins, stats, seg, k) -> dict:
     acc = torch.zeros(e * k * f * 256, 3, device=bins.device)
     out = {f"{name}_shape": f"E={e} K={k} n={bins.shape[0]} F={f} direct "
                             f"rows {int(valid.sum())}",
-           f"{name}_index_add_ms": device_ms(lambda: acc.index_add_(
+           f"{name}_index_add_ms": T.device_ms(lambda: acc.index_add_(
                0, flat, vals))}
     del flat, vals, acc, el, rows
     for mode in ("f32", "bf16"):
@@ -374,9 +360,9 @@ def b5_times(name, bins, stats, seg, k) -> dict:
         torch.cuda.synchronize()
         out[f"{name}_{mode}"] = {
             "err": float((got - want).abs().max()),
-            "ms": device_ms(lambda: H.hist_fused_batched(bins, stats, seg, k,
-                                                         256, mode)),
-            "plain_ms": device_ms(lambda: H.hist_fused_batched_plain(
+            "ms": T.device_ms(lambda: H.hist_fused_batched(bins, stats, seg, k,
+                                                           256, mode)),
+            "plain_ms": T.device_ms(lambda: H.hist_fused_batched_plain(
                 bins, stats, seg, k, 256, mode), runs=3, inner=1)}
         del got, want
     out[f"{name}_bf16"]["kernels_ms"] = breakdown(
@@ -407,10 +393,10 @@ def batched_wave(ds) -> dict:
     seg21 = torch.where(seg < 21, seg, -1)
     stats_t = stats.transpose(0, 1)
     out["route_edge_k21_bf16"] = {
-        "b6_route_ms": device_ms(lambda: H.hist_segstats(
+        "b6_route_ms": T.device_ms(lambda: H.hist_segstats(
             bins, H.segstats_rows(stats_t, seg21.t(), 21), 256, "bf16"),
             runs=5, inner=2),
-        "b5_ms": device_ms(lambda: H.hist_fused_batched(
+        "b5_ms": T.device_ms(lambda: H.hist_fused_batched(
             bins, stats, seg21, 21, 256, "bf16"), runs=5, inner=2)}
     return out, wave
 
@@ -503,9 +489,9 @@ def main() -> int:
             # digests of B1's and B2's outputs: two versions of the
             # kernels compare them across runs
             "b1_sha": digest(got), "b2_sha": digest(g2),
-            "b1_ms": device_ms(lambda: H.hist_fused(bins, stats, zeros, 1,
-                                                    256, mode)),
-            "b2_ms": device_ms(lambda: H.hist_partition_fused(*wave, mode))}
+            "b1_ms": T.device_ms(lambda: H.hist_fused(bins, stats, zeros, 1,
+                                                      256, mode)),
+            "b2_ms": T.device_ms(lambda: H.hist_partition_fused(*wave, mode))}
     out.update(int8_times(bins, stats, wave))
     ds = lgb.Dataset(X, label=y, params={"max_bin": 255})
     ds.construct()

@@ -34,47 +34,10 @@ import sys
 import numpy as np
 import torch
 
-SPIN_CYCLES = 20_000_000
-
-
-def device_ms(fn, runs=11, inner=5):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        s.record()
-        for _ in range(inner):
-            fn()
-        e.record()
-        e.synchronize()
-        per.append(s.elapsed_time(e) / inner)
-    return float(np.median(per))
-
-
-def device_us_by_kernel(fn, launches=5):
-    """Device microseconds per launch of each kernel (and memset or copy)
-    that ``fn`` runs, from ``torch.profiler``; empty when the profiler sees
-    no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            out[ev.key[:60]] = us / launches
-    return out
+if __package__:
+    from . import _timing as T
+else:                   # run as a file: this directory is on sys.path
+    import _timing as T
 
 
 def main() -> int:
@@ -149,14 +112,14 @@ def main() -> int:
     def timed(n, seg, k, b=None):
         b = bins[:n] if b is None else b
         st = stats[:n]
-        prof = device_us_by_kernel(lambda: H.hist_fused(b, st, seg, k, 256,
-                                                        "int8"))
+        prof = T.device_us_by_kernel(lambda: H.hist_fused(b, st, seg, k, 256,
+                                                          "int8"))
         want = H.hist_fused_plain(b, st, seg, k, 256, "int8")
         got = H.hist_fused(b, st, seg, k, 256, "int8")
         return {"eq": bool(torch.equal(got, want)),
                 "rows": int(((seg >= 0) & (seg < k)).sum()),
-                "ms": device_ms(lambda: H.hist_fused(b, st, seg, k, 256,
-                                                     "int8")),
+                "ms": T.device_ms(lambda: H.hist_fused(b, st, seg, k, 256,
+                                                       "int8")),
                 "sha": hashlib.sha256(got.cpu().numpy().tobytes())
                 .hexdigest()[:16], "device_us": prof}
 

@@ -29,27 +29,13 @@ import sys
 import numpy as np
 import torch
 
-SPIN_CYCLES = 20_000_000
+if __package__:
+    from . import _timing as T
+else:                   # run as a file: this directory is on sys.path
+    import _timing as T
+
 SHAPES = ((1, 28), (5, 6), (20, 6), (40, 6))
 BINS, CAPACITY = 256, 253
-
-
-def device_ms(fn, runs=11, inner=5):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        s.record()
-        for _ in range(inner):
-            fn()
-        e.record()
-        e.synchronize()
-        per.append(s.elapsed_time(e) / inner)
-    return float(np.median(per))
 
 
 def inputs(rng, dev, e, f):
@@ -114,7 +100,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     out = {"package": root,
-           "empty_kernel_ms": device_ms(lambda: torch.cuda._sleep(0))}
+           "empty_kernel_ms": T.device_ms(lambda: torch.cuda._sleep(0))}
 
     def timed(e, f):
         hist, table, fmask, aux, scal = inputs(rng, dev, e, f)
@@ -129,8 +115,8 @@ def main() -> int:
                                 + got_a.cpu().numpy().tobytes())
         work = table.clone()
         return {"eq": eq, "sha": digest.hexdigest()[:16],
-                "ms": device_ms(lambda: KS.split_iter(hist, work, fmask, aux,
-                                                      scal))}
+                "ms": T.device_ms(lambda: KS.split_iter(hist, work, fmask, aux,
+                                                        scal))}
 
     for e, f in SHAPES:
         out[f"E{e}_F{f}"] = timed(e, f)

@@ -19,7 +19,13 @@ segment, every row in one bin, row counts no tile divides, views that
 start off a 16-byte boundary, F = 300 with K = 42, one slot taking 90 %
 of a wave's rows; dyadic statistics exact).
 
-Tolerances: forest predictions rtol 1e-5 / atol 1e-6; histograms per cell
+B4 has its own: every bucket of the serving ladder and both routes of
+its plan, trees of 8,191 leaves (also served through ``PredictorRuntime``),
+1,000 trees and rows of 2,000 columns.
+
+Tolerances: forest predictions bit for bit (served probabilities, whose
+sigmoid may differ by an ulp between card and CPU, rtol 1e-5 / atol 1e-6);
+histograms per cell
 ``|kernel - plain| <= 1e-6 * sum|x|`` (kernel and plain version sum in f64
 in other orders and round once); counts, routing and two launches of a
 histogram kernel exactly equal; B1's int8 mode bit for bit (integer
@@ -307,8 +313,133 @@ def test_kernel_matches_plain_version_on_card(precision):
         got = tp.predict_forest(t, tb, 0.1, 0.5, k, 20, start_iteration=s)
         want = tp.predict_forest_plain(t, tb, 0.1, 0.5, k, 20,
                                        start_iteration=s)
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        assert torch.equal(got, want), (k, s)
     assert PREDICT_FOREST_LAUNCHES.count == before + 3
+
+
+def _windows(t):
+    """(num_iteration, start_iteration) pairs over a forest of ``t``
+    trees: all of it, its first third, a middle half, its last tree, past
+    its end."""
+    return [(t, 0), (t // 3, 0), (t // 2, t // 4), (1, t - 1), (t + 50, 0),
+            (5, t + 3)]
+
+
+def _b4_forest(seed, trees, leaves, f, precision):
+    from lightgbm_tpu_torch.kernels._timing import (depth_cap_of,
+                                                    make_forest, soa_for)
+
+    arrays = make_forest(seed, trees, leaves, np.full(f, 255))
+    return soa_for(arrays, precision, "cuda"), depth_cap_of(arrays)
+
+
+def _b4_equal(soa, depth, bins, windows, lr=0.1, init=0.5):
+    for k, s in windows:
+        got = tp.predict_forest(soa, bins, lr, init, k, depth, s)
+        want = tp.predict_forest_plain(soa, bins, lr, init, k, depth, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (bins.shape, k, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["plan", "l2"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b4_every_bucket_and_route_on_card(precision, route, monkeypatch):
+    """The north-star forest (100 trees x 127 leaves, F = 28) at every
+    bucket of the serving ladder, bit for bit against the plain version:
+    as the plan launches it, and with every record read through L2 (no
+    staged prefix)."""
+    _card()
+    from lightgbm_tpu_torch.kernels import predict as kp
+
+    if route == "l2":
+        monkeypatch.setattr(kp, "RECORD_BYTES", 0)
+        kp.plan.cache_clear()
+    soa, depth = _b4_forest(41, 100, 127, 28, precision)
+    rng = np.random.default_rng(43)
+    bins = torch.from_numpy(rng.integers(0, 255, (1 << 14, 28)).astype(
+        np.uint8)).cuda()
+    try:
+        for i in range(15):
+            b = 1 << i
+            p = kp.plan(28, soa.split_feature.shape[1], 100, b)
+            assert route == "plan" or p.route == "l2"
+            _b4_equal(soa, depth, bins[:b], [(100, 0), (40, 30)])
+    finally:
+        kp.plan.cache_clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["leaves_8191_f32", "trees_1000",
+                                  "features_2000"])
+def test_b4_large_forests_on_card(case):
+    """Trees of 8,191 leaves (16,384 slots, past one block's shared
+    memory: a staged prefix and L2 below it), 1,000 trees (several rounds
+    of a cluster) and rows of 2,000 columns (codes read from global
+    memory), bit for bit against the plain version."""
+    _card()
+    trees, leaves, f, precisions = {
+        "leaves_8191_f32": (3, 8191, 28, ["f32"]),
+        "trees_1000": (1000, 127, 28, PRECISIONS),
+        "features_2000": (24, 31, 2000, PRECISIONS)}[case]
+    rng = np.random.default_rng(47)
+    for precision in precisions:
+        soa, depth = _b4_forest(53 + leaves, trees, leaves, f, precision)
+        for n in (1, 300, 4096):
+            bins = torch.from_numpy(rng.integers(0, 255, (n, f)).astype(
+                np.uint8)).cuda()
+            _b4_equal(soa, depth, bins, _windows(trees))
+        _b4_equal(soa, max(depth // 2, 1), bins, [(trees, 0)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_b4_several_rounds_on_card(precision):
+    """1,000 trees at 8,192 and 16,384 rows: a cluster walks the window in
+    several rounds (the next round's records copied while a round is
+    folded), bit for bit against the plain version."""
+    _card()
+    from lightgbm_tpu_torch.kernels import predict as kp
+
+    soa, depth = _b4_forest(67, 1000, 127, 28, precision)
+    rng = np.random.default_rng(71)
+    bins = torch.from_numpy(rng.integers(0, 255, (1 << 14, 28)).astype(
+        np.uint8)).cuda()
+    for n in (1 << 13, 1 << 14):
+        assert kp.plan(28, soa.split_feature.shape[1], 1000, n).rounds > 1
+        _b4_equal(soa, depth, bins[:n], [(1000, 0), (700, 150)])
+
+
+@pytest.mark.gpu
+def test_b4_serves_8191_leaf_forest_on_card():
+    """A ``PredictorRuntime`` deploys three 8,191-leaf f32 trees on the
+    card and serves them, bit for bit equal to the same runtime on the CPU
+    (the plain version)."""
+    _card()
+    from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.kernels._timing import make_forest
+    from lightgbm_tpu_torch.serving import PredictorRuntime, packed_from_arrays
+
+    X = np.random.default_rng(59).normal(size=(3000, 28))
+    mapper = BinMapper.fit(X, max_bin=255)
+    arrays = make_forest(61, 3, 8191, mapper.n_bins)
+    meta = {"shrink": 0.1, "init_score": [0.25], "num_class": 1,
+            "best_iteration": -1,
+            "params": {"objective": "binary", "num_leaves": 8191},
+            "bin_mapper": mapper.to_dict()}
+    packed = packed_from_arrays(arrays, meta)
+    card = PredictorRuntime(packed, max_bucket=1024, device="cuda")
+    card.warm()
+    host = PredictorRuntime(packed, max_bucket=1024, device="cpu")
+    codes = mapper.transform(X)
+    for raw in (True, False):
+        got = card.predict_binned(codes, raw_score=raw)
+        want = host.predict_binned(codes, raw_score=raw)
+        if raw:
+            np.testing.assert_array_equal(got, want)
+        else:            # the sigmoid's exp may differ by an ulp
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert card.stats.snapshot()["fallbacks"] == 0
 
 
 @pytest.mark.gpu

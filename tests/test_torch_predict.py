@@ -228,20 +228,26 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
 
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_kernel_shared_memory_plan_has_no_column_limit(precision):
-    # a block stages its rows' codes only up to 256 columns; past that it
-    # reads them from global memory, so any column count gets a tree chunk
-    # within the shared-memory target
+    # a block stages its tile's codes only while they fit 32 KB; past that
+    # it reads them from global memory, so any column count gets a launch
+    # within a block's shared memory
     from lightgbm_tpu_torch.kernels import predict as kp
 
-    assert kp.stages_codes(256) and not kp.stages_codes(257)
-    per_node = sum(kp._SIZES[precision]) + 2 * kp._SIZES[precision][0]
-    tables = 16 + 256 * per_node                 # one tree of 256 slots
-    assert kp.smem_bytes(precision, 256, 1, 256) == 128 * 256 + tables
-    assert kp.smem_bytes(precision, 257, 1, 256) == tables
+    p = kp.plan(256, 256, 100, 128)
+    assert p.staged_codes and p.smem == kp.smem_bytes(
+        p.rows, 256, p.trees, p.prefix, True, p.cluster)
+    assert p.smem - kp.smem_bytes(p.rows, 256, p.trees, p.prefix, False,
+                                  p.cluster) == -(-p.rows * 256 // 16) * 16
     for f in (28, 256, 257, 1775, 1776, 5000, 100_000):
-        tc = kp.tree_chunk(precision, f, 256, 100)
-        assert 1 <= tc <= 64
-        assert kp.smem_bytes(precision, f, tc, 256) <= kp.SMEM_TARGET
-    # what must fit is one tree's tables
-    with pytest.raises(ValueError, match="shared memory"):
-        kp.tree_chunk(precision, 28, 128 * 256, 1)
+        for n in (1, 128, 16_384):
+            p = kp.plan(f, 256, 100, n)
+            assert 1 <= p.cluster <= kp.MAX_CLUSTER
+            assert p.smem <= kp.SMEM_LIMIT
+            assert p.staged_codes == (p.rows * f <= kp.STAGED_CODES_LIMIT)
+    # one tree whose node tables outgrow a block's shared memory plans a
+    # launch too: its top is staged, the rest read through L2 (the kernel
+    # once refused such a tree)
+    mp = 16_384 if precision == "f32" else 32_768
+    for n in (1, 128, 16_384):
+        p = kp.plan(28, mp, 1, n)
+        assert p.smem <= kp.SMEM_LIMIT and p.prefix < mp
