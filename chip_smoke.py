@@ -137,7 +137,29 @@ Phases:
    equal to ``Booster(model_file=...).predict`` (to the file's 10
    significant digits), and the model through ``pack_booster`` and
    ``task=serve`` within 1e-5; then B1 int8's time, plain time, bound and
-   one ``index_add_`` call's at the root, the wave and a two-segment call.
+   one ``index_add_`` call's at the root, the wave and a two-segment call;
+13. recovery on the card, every launch counter at 0 just before each run
+   and read just after: (a) ``train_resumable`` at the north star with
+   ``bagging_fraction=0.8``, ``bagging_freq=1``, ``feature_fraction=0.8``
+   (12 rounds, a checkpoint every 4, the generation-4, -8 and -12 files
+   kept; B1, B2), the same run sent SIGTERM by its own round hook after
+   round index 6 (it returns preempted at 7 rounds with a checkpoint) and
+   resumed to 12, and ``resume_booster`` from the generation-4 and -8
+   files continued to 12: every tree field, ``_pred_train`` and ``_bag``
+   equal to the uninterrupted run's bit for bit, and each model served
+   through ``PredictorRuntime`` (B4) on 16,384 rows equal bit for bit;
+   the checkpoint's bytes, ``save_checkpoint`` ms and ``resume_booster``
+   ms; (b) ``python -m lightgbm_tpu_torch task=train checkpoint_dir=...
+   checkpoint_rounds=5 num_trees=60`` on phase 12e's 200,000-row CSV in a
+   subprocess, sent SIGTERM once its first checkpoint file appears (it must
+   exit 0 and print "preempted"), rerun to its end: the model file equal,
+   byte for byte, to an uninterrupted run's; (c) a 12-config sweep (the
+   num_leaves 31, learning_rate 0.1 bucket of ``paramGrid.json``'s axes)
+   on phase 8's diamonds split with an ``.RData`` ledger and carry
+   checkpoints, stopped by a ``FaultInjector`` at ``sweep_segment`` hit 3
+   and rerun: ``resumed_units >= 1`` and the ledger file equal, byte for
+   byte, to an uninterrupted run's, with and without carry checkpoints
+   (B6, B3); the uninterrupted run's seconds with and without them.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -219,6 +241,13 @@ COV_VALID_ROWS, COV_ROUNDS, COV_TOL = 100_000, 10, 1e-4
 COV_PARAMS = {"objective": "multiclass", "num_class": COV_CLASSES,
               "num_leaves": NUM_LEAVES, "learning_rate": LEARNING_RATE,
               "min_data_in_leaf": 20, "max_bin": MAX_BIN, "verbosity": -1}
+# phase 13: recovery (the bag and both masks are part of the resumed state)
+RECOVERY_PARAMS = dict(TRAIN_PARAMS, bagging_fraction=0.8, bagging_freq=1,
+                       feature_fraction=0.8)
+RECOVERY_ROUNDS, RECOVERY_EVERY, RECOVERY_KILL_AFTER = 12, 4, 6
+RECOVERY_SERVE_ROWS = 16_384
+RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 60, 5
+RECOVERY_SEGMENT_ROUNDS = 25     # the sweep's carry checkpoint cadence
 
 
 def fail(msg: str) -> None:
@@ -2545,6 +2574,324 @@ def phase_int8_times(bins, root_stats, wave):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: recovery on the card
+# ---------------------------------------------------------------------------
+def same_run(a, b) -> bool:
+    """Every tree field, the train scores and the bag equal bit for bit."""
+    return (len(a.trees) == len(b.trees)
+            and trees_identical(a, b, len(a.trees))
+            and torch.equal(a._pred_train, b._pred_train)
+            and torch.equal(a._bag, b._bag))
+
+
+def phase_recovery_train(dev, X, y, workdir):
+    """(a) Kill and resume at the north star in one process."""
+    import shutil
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.training import (list_checkpoints,
+                                             load_checkpoint, resume_booster,
+                                             save_checkpoint, train_resumable)
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    root = os.path.join(workdir, "recovery")
+    shutil.rmtree(root, ignore_errors=True)
+    full_dir, kill_dir, probe_dir = (os.path.join(root, d) for d in
+                                     ("full", "killed", "probe"))
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    kw = dict(checkpoint_rounds=RECOVERY_EVERY, keep_last=3)
+
+    def kill(booster, i):
+        if i == RECOVERY_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def training():
+        full = train_resumable(dict(RECOVERY_PARAMS), ds, RECOVERY_ROUNDS,
+                               checkpoint_dir=full_dir, resume=False, **kw)
+        killed = train_resumable(dict(RECOVERY_PARAMS), ds, RECOVERY_ROUNDS,
+                                 checkpoint_dir=kill_dir, resume=False,
+                                 round_callbacks=[kill], **kw)
+        again = train_resumable(dict(RECOVERY_PARAMS), ds, RECOVERY_ROUNDS,
+                                checkpoint_dir=kill_dir, resume=True, **kw)
+        gens = {}
+        for path in list_checkpoints(full_dir)[:2]:
+            b = resume_booster(path, ds)
+            gens[f"generation {b._iter}"] = b
+            while b._iter < RECOVERY_ROUNDS:
+                b.update()
+        return full, killed, again, gens
+
+    (full, killed, again, gens), secs, counts, plain_calls = counted_run(
+        training)
+    check(full.completed and full.checkpoint_failures == 0,
+          f"uninterrupted resumable run: {full}")
+    files = list_checkpoints(full_dir)
+    iters = [load_checkpoint(q)[1]["iter"] for q in files]
+    check(iters == [4, 8, 12], f"generations kept {iters}, expected 4, 8, 12")
+    check(killed.preempted and killed.rounds_done == RECOVERY_KILL_AFTER + 1
+          and killed.last_checkpoint is not None
+          and load_checkpoint(killed.last_checkpoint)[1]["iter"]
+          == RECOVERY_KILL_AFTER + 1,
+          f"SIGTERM after round index {RECOVERY_KILL_AFTER}: preempted "
+          f"{killed.preempted} at {killed.rounds_done} rounds, checkpoint "
+          f"{killed.last_checkpoint}")
+    check(again.completed and again.resumed_from == killed.last_checkpoint,
+          f"resume after SIGTERM: {again}")
+    check(counts["hist_fused_bf16"] > 0 and counts["hist_partition_bf16"] > 0
+          and plain_calls == 0, f"recovery training launches {counts}, "
+          f"plain calls {plain_calls}")
+    runs = {"SIGTERM then resume": again.booster, **gens}
+    for tag, b in runs.items():
+        check(same_run(full.booster, b), f"{tag}: trees, _pred_train or _bag "
+              "differ from the uninterrupted run")
+    # the checkpoint's size and the two calls' times (the card synchronised
+    # around each)
+    save_ms, resume_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(full.booster, probe_dir, keep_last=1)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        resume_booster(files[1], ds)
+        torch.cuda.synchronize()
+        resume_ms.append((time.perf_counter() - t0) * 1e3)
+    # the resumed models served through PredictorRuntime (B4)
+    Xs, _ = make_higgs_like(RECOVERY_SERVE_ROWS, NUM_FEATURES, seed=21)
+    reset_counters()
+    served = {}
+    for tag, b in (("uninterrupted", full.booster), *runs.items()):
+        rt = PredictorRuntime(pack_booster(b), max_bucket=MAX_BUCKET,
+                              device=dev)
+        served[tag] = rt.predict(Xs, raw_score=True)
+    torch.cuda.synchronize()
+    serve_launches = read_counters()["predict_forest"]
+    want = served["uninterrupted"]
+    check(want.shape == (RECOVERY_SERVE_ROWS,)
+          and bool(np.isfinite(want).all()), "served scores not finite")
+    for tag, got in served.items():
+        check(np.array_equal(got, want), f"{tag}: served predictions differ "
+              "from the uninterrupted model's")
+    check(serve_launches > 0, "serving the resumed models launched no B4")
+    counts["predict_forest"] = serve_launches
+    out = {"rows": len(X), "rounds": RECOVERY_ROUNDS,
+           "params": RECOVERY_PARAMS, "training_s": secs,
+           "generations_kept": iters, "preempted_at": killed.rounds_done,
+           "bit_identical": sorted(runs), "launches": counts,
+           "checkpoint_bytes": os.path.getsize(files[-1]),
+           "save_checkpoint_ms": save_ms, "resume_booster_ms": resume_ms,
+           "served_rows": RECOVERY_SERVE_ROWS,
+           "serve_predict_launches": serve_launches}
+    log(f"phase 13a: {json.dumps(out)}")
+    return out
+
+
+def cli_train_argv(csv, ckpt_dir, model):
+    return [sys.executable, "-m", "lightgbm_tpu_torch", "task=train",
+            f"data={csv}", "header=true", "label_column=name:label",
+            "objective=binary", f"num_trees={RECOVERY_CLI_ROUNDS}",
+            f"num_leaves={NUM_LEAVES}", f"max_bin={MAX_BIN}",
+            "verbosity=-1", f"checkpoint_dir={ckpt_dir}",
+            f"checkpoint_rounds={RECOVERY_CLI_EVERY}",
+            f"output_model={model}"]
+
+
+def wait_process(proc, what, timeout=300):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what} ran past {timeout} s")
+    return out, err
+
+
+def phase_recovery_cli(workdir):
+    """(b) ``task=train checkpoint_dir=`` in a fresh process: SIGTERM after
+    its first checkpoint, a rerun to the end, the model file equal to an
+    uninterrupted run's."""
+    import shutil
+    import signal
+
+    csv = os.path.join(workdir, "cli_train.csv")     # phase 12e's file
+    check(os.path.exists(csv), f"{csv} (phase 12e's CSV) is missing")
+    root = os.path.join(workdir, "recovery_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {t: os.path.join(root, t) for t in ("killed", "clean")}
+    models = {t: os.path.join(root, f"{t}.txt") for t in dirs}
+    for d in dirs.values():
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = {t: subprocess.Popen(cli_train_argv(csv, dirs[t], models[t]),
+                                 cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for t in ("killed", "clean")}
+    killed, first = procs["killed"], None
+    try:
+        while first is None and killed.poll() is None:
+            names = [n for n in os.listdir(dirs["killed"])
+                     if n.startswith("ckpt_") and n.endswith(".lgckpt")]
+            if names:
+                first = min(names)
+            else:
+                time.sleep(0.005)
+        if first is not None:
+            killed.send_signal(signal.SIGTERM)
+        out_k, err_k = wait_process(killed, "the preempted CLI run")
+        t_killed = time.perf_counter() - t0
+        check(first is not None, f"the CLI run ended before its first "
+              f"checkpoint (rc {killed.returncode}): {err_k[-2000:]}")
+        check(killed.returncode == 0 and "preempted" in out_k,
+              f"the CLI run sent SIGTERM exited {killed.returncode} without "
+              f"\"preempted\": {out_k[-1000:]} {err_k[-2000:]}")
+        check(not os.path.exists(models["killed"]),
+              "the preempted run wrote a model file")
+        t1 = time.perf_counter()
+        procs["rerun"] = subprocess.Popen(
+            cli_train_argv(csv, dirs["killed"], models["killed"]), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out_r, err_r = wait_process(procs["rerun"], "the resumed CLI run")
+        t_rerun = time.perf_counter() - t1
+        out_c, err_c = wait_process(procs["clean"],
+                                    "the uninterrupted CLI run")
+    finally:
+        for proc in procs.values():          # stop whatever a failure left
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(procs["rerun"].returncode == 0 and "resumed from" in out_r,
+          f"the rerun exited {procs['rerun'].returncode}: {out_r[-1000:]} "
+          f"{err_r[-2000:]}")
+    check(procs["clean"].returncode == 0,
+          f"the uninterrupted CLI run exited {procs['clean'].returncode}: "
+          f"{err_c[-2000:]}")
+    with open(models["killed"], "rb") as f, open(models["clean"], "rb") as g:
+        a, b = f.read(), g.read()
+    check(a == b, "the resumed CLI model file differs from the uninterrupted "
+          "run's")
+    preempted_line = [ln for ln in out_k.splitlines() if "preempted" in ln]
+    out = {"rows": CLI_ROWS, "rounds": RECOVERY_CLI_ROUNDS,
+           "checkpoint_rounds": RECOVERY_CLI_EVERY,
+           "first_checkpoint": first, "preempted": preempted_line[-1],
+           "killed_run_s": t_killed, "rerun_s": t_rerun,
+           "model_bytes": len(a), "model_files_equal": True}
+    log(f"phase 13b: {json.dumps(out)}")
+    return out
+
+
+def recovery_grid():
+    """The num_leaves 31, learning_rate 0.1 bucket of paramGrid.json's axes
+    (12 configs)."""
+    from lightgbm_tpu_torch.utils.sweep import expand_grid
+
+    with open(os.path.join(ROOT, "paramGrid.json")) as f:
+        rows = json.load(f)["rows"]
+    axes = {k: sorted({r[k] for r in rows}) for k in rows[0]
+            if k not in ("iteration", "score")}
+    return [g for g in expand_grid(**axes)
+            if g["num_leaves"] == 31 and g["learning_rate"] == 0.1]
+
+
+def phase_recovery_sweep(ds, workdir):
+    """(c) A sweep stopped at a segment boundary and resumed from its carry
+    checkpoint: the ``.RData`` ledger equal to an uninterrupted run's."""
+    import hashlib
+    import shutil
+
+    from lightgbm_tpu_torch.faults import FaultInjector
+    from lightgbm_tpu_torch.sweep import SweepService
+
+    root = os.path.join(workdir, "recovery_sweep")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    grid = recovery_grid()
+    check(len(grid) == 12, f"{len(grid)} configs, expected 12")
+    ckpt = os.path.join(root, "ck")
+
+    def service(ledger, **kw):
+        return SweepService(
+            grid, ds, base_params={"objective": "regression", "verbosity": -1,
+                                   "cv_segment_rounds":
+                                   RECOVERY_SEGMENT_ROUNDS},
+            num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+            early_stopping_rounds=CV_ES, seed=SWEEP_SEED,
+            ledger_path=os.path.join(root, ledger),
+            clock=lambda: 0.0, **kw).run()
+
+    inj = FaultInjector()
+    inj.arm("sweep_segment", after=2)
+    runs = {}
+    for tag, fn in (
+            ("uninterrupted", lambda: service("clean.RData")),
+            ("uninterrupted_checkpointed", lambda: service(
+                "clean_ck.RData", checkpoint_dir=os.path.join(root, "ck0"))),
+            ("interrupted", lambda: service("paramGrid.RData",
+                                            checkpoint_dir=ckpt,
+                                            injector=inj)),
+            ("resumed", lambda: service("paramGrid.RData",
+                                        checkpoint_dir=ckpt))):
+        res, secs, counts, plain_calls = counted_run(fn)
+        runs[tag] = {"result": res, "s": secs, "counts": counts,
+                     "plain_calls": plain_calls}
+    clean, cut, res = (runs[t]["result"] for t in ("uninterrupted",
+                                                    "interrupted", "resumed"))
+    check(clean.completed and not clean.preempted,
+          f"uninterrupted sweep: {clean.error}")
+    clean_ck = runs["uninterrupted_checkpointed"]["result"]
+    check(clean_ck.completed and clean_ck.resumed_units == 0
+          and clean_ck.checkpoint_failures == 0,
+          f"uninterrupted checkpointed sweep: {clean_ck.error}, resumed "
+          f"{clean_ck.resumed_units}, lost writes "
+          f"{clean_ck.checkpoint_failures}")
+    check(cut.preempted and "sweep_segment" in (cut.error or ""),
+          f"the fault at sweep_segment hit 3 did not stop the sweep: "
+          f"{cut.error}")
+    check(res.completed and res.resumed_units >= 1,
+          f"the rerun resumed {res.resumed_units} units")
+    check(not os.path.exists(ckpt)
+          and not os.path.exists(os.path.join(root, "ck0")),
+          "spent carry checkpoints were kept")
+
+    def digest(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    a, b, c = (digest(os.path.join(root, n)) for n in (
+        "paramGrid.RData", "clean.RData", "clean_ck.RData"))
+    check(a == b, "the resumed .RData ledger differs from the "
+          "uninterrupted run's")
+    check(c == b, "the checkpointed .RData ledger differs from the "
+          "uninterrupted run's")
+    total = collections.Counter()
+    for r in runs.values():
+        total.update(r["counts"])
+        check(r["plain_calls"] == 0, f"{r['plain_calls']} plain-version "
+              "calls in the recovery sweep")
+    seg_key = "hist_segstats_f32"
+    check(total["split_iter"] > 0 and total[seg_key] > 0,
+          f"recovery sweep launches {dict(total)}")
+    for row in res.ledger.rows:
+        check(row["iteration"] >= 1 and np.isfinite(row["score"])
+              and row["score"] < 0, f"sweep row {row}")
+    out = {"configs": len(grid), "resumed_units": res.resumed_units,
+           "checkpoint_failures": res.checkpoint_failures,
+           "interrupted_error": cut.error, "ledger_sha256": a,
+           "s": {t: r["s"] for t, r in runs.items()},
+           "checkpoint_overhead_s": runs["uninterrupted_checkpointed"]["s"]
+           - runs["uninterrupted"]["s"],
+           "launches": {"split_iter": total["split_iter"],
+                        seg_key: total[seg_key]},
+           "best": {k: res.ledger.leaderboard()[0][k] for k in (
+               "min_data_in_leaf", "feature_fraction", "bagging_fraction",
+               "iteration", "score")}}
+    log(f"phase 13c: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2604,6 +2951,15 @@ def main() -> int:
     int8["times"] = phase_int8_times(bins, root_stats, wave)
     int8["err_over_bound"] = int8_ratios
     del bins, root_stats, wave
+    t13 = time.perf_counter()
+    recovery = {"train": phase_recovery_train(dev, X, y, workdir),
+                "cli": phase_recovery_cli(workdir),
+                "sweep": phase_recovery_sweep(dds, workdir)}
+    recovery["s"] = time.perf_counter() - t13
+    log(f"phase 13: {recovery['s']:.1f} s")
+    rec_launches = dict(recovery["train"]["launches"])
+    for k, v in recovery["sweep"]["launches"].items():
+        rec_launches[k] = rec_launches.get(k, 0) + v
 
     kernels = []
     for prec in PRECISIONS:
@@ -2613,7 +2969,8 @@ def main() -> int:
         if prec == "f32":
             by_phase.update({"6": train["serve_predict_launches"],
                              "11": multiclass["serve_predict_launches"],
-                             "12e": int8["cli"]["serve_predict_launches"]})
+                             "12e": int8["cli"]["serve_predict_launches"],
+                             "13": rec_launches["predict_forest"]})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -2633,6 +2990,9 @@ def main() -> int:
                 "name": f"{name}_{mode}", "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": train["launches"][mode][f"{name}_{mode}"],
+                "launches_by_phase": {
+                    "6": train["launches"][mode][f"{name}_{mode}"],
+                    "13": rec_launches.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2648,6 +3008,10 @@ def main() -> int:
         "replaces": SPLIT_ITER_SOURCE[1],
         "launches": (cv_res["kernels"]["counts"]["split_iter"]
                      + sweep["launches"]["split_iter"]),
+        "launches_by_phase": {
+            "8b": cv_res["kernels"]["counts"]["split_iter"],
+            "8c": sweep["launches"]["split_iter"],
+            "13": rec_launches["split_iter"]},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -2662,7 +3026,11 @@ def main() -> int:
         kernels.append({
             "name": f"hist_segstats_{mode}", "route": "cuda",
             "source": SEGSTATS_SOURCE[0], "replaces": SEGSTATS_SOURCE[1],
-            "launches": launches_b6[mode], "max_abs_err": b6_errs[mode],
+            "launches": launches_b6[mode],
+            "launches_by_phase": {
+                "8b" if mode == "f32" else "8c": launches_b6[mode],
+                "13": rec_launches.get(f"hist_segstats_{mode}", 0)},
+            "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -2710,7 +3078,7 @@ def main() -> int:
                                 if isinstance(r, dict) else r
                                 for t, r in ns_cv.items()},
               "b5_times": b5_times, "multiclass": multiclass,
-              "int8": int8,
+              "int8": int8, "recovery": recovery,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -16,7 +16,12 @@ nothing of ``lightgbm_tpu``.  Ported so far:
 * ``cv`` on the reference's fused route (every fold of a call in one device
   loop, ``models/fused.py``) and the grid sweep (``sweep``,
   ``utils.sweep.run_grid_search``), with the batched histogram kernel
-  ``csrc/hist_segstats.cu``.
+  ``csrc/hist_segstats.cu``;
+* recovery — ``training`` (versioned, checksummed checkpoints that
+  interchange with the reference's, ``train_resumable`` with its SIGTERM
+  drain), the sweep's per-hyper-batch carry checkpoints, ``.RData`` sweep
+  ledgers (``utils.rdata``) and the CLI's ``task=train checkpoint_dir=`` and
+  ``task=sweep``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
 
@@ -32,6 +37,7 @@ from .device import NoDeviceError
 from .engine import CVBooster, CVResult, cv, train
 from .models.gbdt import Booster
 from .sweep import SweepLedger, SweepService, expand_grid, run_grid_search
+from .training import train_resumable
 
 __version__ = "0.3.0"
 
@@ -39,5 +45,5 @@ __all__ = [
     "Booster", "CVBooster", "CVResult", "CallbackEnv", "Dataset",
     "EarlyStopException", "NoDeviceError", "SweepLedger", "SweepService",
     "cv", "early_stopping", "expand_grid", "log_evaluation",
-    "record_evaluation", "run_grid_search", "train",
+    "record_evaluation", "run_grid_search", "train", "train_resumable",
 ]

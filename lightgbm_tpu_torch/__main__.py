@@ -1,6 +1,6 @@
-"""Config-file CLI of the port: ``task=train``, ``task=predict`` and
-``task=serve`` — the port of ``lightgbm_tpu/__main__.py`` (LightGBM's
-original ``key=value`` interface):
+"""Config-file CLI of the port: ``task=train``, ``task=predict``,
+``task=serve`` and ``task=sweep`` — the port of ``lightgbm_tpu/__main__.py``
+(LightGBM's original ``key=value`` interface):
 
     python -m lightgbm_tpu_torch task=train data=train.csv valid=valid.csv \
         objective=regression num_trees=100 output_model=model.txt
@@ -8,6 +8,8 @@ original ``key=value`` interface):
         input_model=model.txt output_result=preds.txt
     python -m lightgbm_tpu_torch task=serve input_model=model.npz \
         max_batch=256 max_delay_ms=2 < requests.csv > preds.txt
+    python -m lightgbm_tpu_torch task=sweep data=train.csv \
+        sweep_grid=grid.json ledger=paramGrid.RData
 
 Config format: one ``key = value`` per line, ``#`` comments; command-line
 ``key=value`` pairs override a ``config=`` file.
@@ -23,8 +25,27 @@ label column of a labelled file.  The remaining keys are the LightGBM
 params (``hist_dtype=int8`` trains on quantized histograms).  Model files
 interchange with the reference's CLI both ways.  ``device=cuda|cpu``
 (default cuda; with no card, cuda fails at startup) picks the device of
-every task.  ``checkpoint_dir=`` (resumable training) is not ported yet
-and exits by name, as do ``task=refresh`` and ``task=sweep``.
+every task.  ``task=refresh`` is not ported yet and exits by name.
+
+Fault-tolerant training (``task=train``): ``checkpoint_dir=`` turns on the
+resumable loop (``training.train_resumable``) — atomic checkpoints every
+``checkpoint_rounds`` rounds (default 10), ``checkpoint_keep`` generations
+kept (default 2), and ``resume=true|false`` (default true) picks up the
+newest valid checkpoint.  A SIGTERM finishes the round in flight, writes a
+checkpoint, prints "preempted" and exits 0, so a scheduler simply reruns the
+same command line; the rerun's model file equals an uninterrupted run's.
+
+``task=sweep`` runs (or resumes) a hyperparameter sweep over a CSV/TSV
+training file through ``SweepService``: ``sweep_grid=<grid.json>``
+(``{"axes": {...}}`` expands R's ``expand.grid`` order, ``{"rows": [...]}``
+or a bare list is the explicit row set), ``ledger=`` (``.RData`` or JSON,
+resumable), ``sweep_checkpoint_dir=`` (per-hyper-batch carry checkpoints),
+``nfold`` (5), ``early_stopping_rounds`` (5), ``hyper_batch`` (36),
+``seed`` (0), ``top`` (10), ``engine=auto|fused|host``; the remaining keys
+are the params every config shares (unknown keys exit by name).  The
+leaderboard goes to stdout as JSON lines, a summary to stderr; a preempted
+sweep exits 0 and resumes on rerun.  ``sweep_devices > 1`` is not ported yet
+and exits by name.
 
 ``task=serve`` (alias ``predict-server``) loads a packed ``.npz`` model
 (written by either package), builds the ModelBank-backed PredictorRuntime +
@@ -112,7 +133,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, OSError) as e:
         raise SystemExit(
             f"lightgbm_tpu_torch: {e}\nusage: python -m lightgbm_tpu_torch "
-            "task=train|predict|serve key=value ... "
+            "task=train|predict|serve|sweep key=value ... "
             "(or config=<file>; see module docs)") from None
     task = cfg.pop("task", "train")
     input_model = cfg.pop("input_model", None)
@@ -120,11 +141,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         if input_model is None:
             raise SystemExit("task=serve requires input_model=<model.npz>")
         return _serve(input_model, cfg)
-    if task not in ("train", "predict"):
+    if task == "refresh":
         raise SystemExit(
-            f"task={task} is not ported yet: lightgbm_tpu_torch runs "
-            "task=train|predict|serve; use python -m lightgbm_tpu for the "
-            "other tasks")
+            "task=refresh (the refresh daemon) is not ported yet: ROADMAP "
+            "slice 7 (the production loop), item 13; lightgbm_tpu_torch "
+            "runs task=train|predict|serve|sweep")
+    if task not in ("train", "predict", "sweep"):
+        raise SystemExit(
+            f"unknown task {task!r} (train|predict|serve|sweep)")
     header = cfg.pop("header", "false").lower() in ("true", "1", "yes")
     label_spec = cfg.pop("label_column", "0")
     data_path = cfg.pop("data", None)
@@ -135,14 +159,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"task={task}: device must be cuda|cpu, got "
                          f"{device!r}")
+    if task == "sweep":
+        return _sweep(cfg, data_path, header, label_spec, device)
     if task == "train":
         if data_path is None:
             raise SystemExit("task=train requires data=<file>")
-        if cfg.pop("checkpoint_dir", None):
-            raise SystemExit(
-                "task=train checkpoint_dir= (resumable training) is not "
-                "ported yet: ROADMAP slice 5 (out-of-core training and "
-                "recovery)")
         return _train(cfg, data_path, valid_path, header, label_spec,
                       output_model, device)
     if data_path is None or input_model is None:
@@ -155,17 +176,21 @@ def main(argv: Optional[List[str]] = None) -> int:
 def _train(params: Dict[str, str], data_path: str, valid_path, header: bool,
            label_spec: str, output_model: str, device: str) -> int:
     """Train on a CSV/TSV file; the remaining keys are the params (``train``
-    resolves every num-rounds alias from them)."""
+    resolves every num-rounds alias from them).  With ``checkpoint_dir=``
+    the run goes through the resumable loop."""
     import lightgbm_tpu_torch as lgb
 
     from .device import NoDeviceError
 
+    ckpt_dir = params.pop("checkpoint_dir", None)
     data, names = _load_table(data_path, header)
     X, y = _split_label(data, names, label_spec)
     try:
         dtrain = lgb.Dataset(X, label=y, device=device)
     except NoDeviceError as e:
         raise SystemExit(f"task=train: {e}") from None
+    if ckpt_dir:
+        return _train_resumable(dict(params), dtrain, ckpt_dir, output_model)
     valid_sets = None
     if valid_path:
         valid_sets = []
@@ -176,6 +201,179 @@ def _train(params: Dict[str, str], data_path: str, valid_path, header: bool,
     booster = lgb.train(dict(params), dtrain, valid_sets=valid_sets)
     booster.save_model(output_model)
     print(f"[lightgbm_tpu_torch] finished training; model -> {output_model}")
+    return 0
+
+
+def _int_key(cfg: Dict[str, str], name: str, default: str, minimum: int,
+             task: str) -> int:
+    """Pop the integer key ``name`` from ``cfg``: a typed one-line exit
+    when it is not an integer or is below ``minimum``."""
+    raw_v = cfg.pop(name, default)
+    try:
+        v = int(raw_v)
+    except ValueError:
+        raise SystemExit(f"task={task}: {name} must be an integer, got "
+                         f"{raw_v!r}") from None
+    if v < minimum:
+        raise SystemExit(f"task={task}: {name} must be >= {minimum}, "
+                         f"got {v}")
+    return v
+
+
+def _train_resumable(params: Dict[str, str], dtrain, ckpt_dir: str,
+                     output_model: str) -> int:
+    """``task=train checkpoint_dir=``: auto-checkpoint + SIGTERM drain +
+    resume; a preempted run exits 0 with the checkpoint noted so a
+    scheduler can simply rerun the same command line."""
+    from .engine import _resolve_num_rounds
+    from .training import train_resumable
+
+    ckpt_rounds = _int_key(params, "checkpoint_rounds", "10", 1, "train")
+    keep_last = _int_key(params, "checkpoint_keep", "2", 0, "train")
+    resume = str(params.pop("resume", "true")).lower() in ("true", "1",
+                                                            "yes")
+    rounds = _resolve_num_rounds(params, 100)
+    result = train_resumable(params, dtrain, rounds, checkpoint_dir=ckpt_dir,
+                             checkpoint_rounds=ckpt_rounds,
+                             keep_last=keep_last, resume=resume)
+    if result.resumed_from:
+        print(f"[lightgbm_tpu_torch] resumed from {result.resumed_from}",
+              flush=True)
+    if result.preempted:
+        print(f"[lightgbm_tpu_torch] preempted at round {result.rounds_done}"
+              f"/{rounds}; state -> {result.last_checkpoint} (rerun to "
+              "resume)", flush=True)
+        return 0
+    result.booster.save_model(output_model)
+    print(f"[lightgbm_tpu_torch] finished training; model -> {output_model}")
+    return 0
+
+
+def _load_grid(path: str, die) -> list:
+    """Load a sweep grid from a JSON file: ``{"axes": {...}}`` expands
+    the cartesian product (R ``expand.grid`` order), ``{"rows": [...]}``
+    or a bare list of objects is the explicit row set.  Every misuse is
+    a typed one-line error through ``die``."""
+    import json
+
+    from .sweep import expand_grid
+
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except OSError as e:
+        raise die(f"sweep_grid file unreadable: {e}") from None
+    except json.JSONDecodeError as e:
+        raise die(f"sweep_grid is not valid JSON: {e}") from None
+    if isinstance(doc, dict) and "axes" in doc:
+        axes = doc["axes"]
+        if not isinstance(axes, dict) or not axes or \
+                not all(isinstance(v, list) and v for v in axes.values()):
+            raise die('sweep_grid "axes" must map param names to '
+                      "non-empty lists of values")
+        return expand_grid(**axes)
+    rows = doc.get("rows") if isinstance(doc, dict) else doc
+    if not isinstance(rows, list) or not rows or \
+            not all(isinstance(r, dict) for r in rows):
+        raise die('sweep_grid must be {"axes": {...}}, {"rows": [...]}, '
+                  "or a JSON list of config objects")
+    return [dict(r) for r in rows]
+
+
+def _sweep(cfg: Dict[str, str], data_path: Optional[str], header: bool,
+           label_spec: str, device: str = "cuda", stdout=None,
+           stderr=None) -> int:
+    """``task=sweep``: run (or resume) a standalone hyperparameter sweep
+    over a CSV/TSV training file through ``SweepService`` — hyper-batches
+    on the fused-CV program, per-hyper-batch carry checkpoints, a
+    crash-safe resumable ledger and a leaderboard on stdout.  Every sweep
+    key is checked up front with a typed one-line error, unknown keys are
+    rejected against the parameter vocabulary, and a preemption exits 0
+    with the resume instruction."""
+    import json
+
+    from .config import _ALIASES, _FRAMEWORK_KEYS
+    from .engine import _resolve_num_rounds
+
+    stdout = sys.stdout if stdout is None else stdout
+    stderr = sys.stderr if stderr is None else stderr
+
+    def die(msg: str) -> "SystemExit":
+        return SystemExit(f"task=sweep: {msg}")
+
+    if data_path is None:
+        raise die("requires data=<train file>")
+    grid_path = cfg.pop("sweep_grid", None)
+    if not grid_path:
+        raise die('requires sweep_grid=<grid.json> ({"axes": {...}}, '
+                  '{"rows": [...]}, or a list of config objects)')
+    grid = _load_grid(grid_path, die)
+    sweep_devices = _int_key(cfg, "sweep_devices", "1", 1, "sweep")
+    sweep_group_size = _int_key(cfg, "sweep_group_size", "1", 1, "sweep")
+    if sweep_devices % sweep_group_size:
+        raise die(f"sweep_group_size must divide sweep_devices (got "
+                  f"group_size={sweep_group_size}, "
+                  f"devices={sweep_devices})")
+    if sweep_devices > 1:
+        raise die(f"sweep_devices={sweep_devices}: a sweep over several "
+                  "devices is not ported yet: ROADMAP slice 6 "
+                  "(multi-device), item 12")
+    ckpt_dir = cfg.pop("sweep_checkpoint_dir", None)
+    if ckpt_dir is not None and not str(ckpt_dir).strip():
+        raise die("sweep_checkpoint_dir must be a directory path")
+    ledger_path = cfg.pop("ledger", None)
+    nfold = _int_key(cfg, "nfold", "5", 2, "sweep")
+    early_stopping = _int_key(cfg, "early_stopping_rounds", "5", 0, "sweep")
+    hyper_batch = _int_key(cfg, "hyper_batch", "36", 1, "sweep")
+    seed = _int_key(cfg, "seed", "0", 0, "sweep")
+    top = _int_key(cfg, "top", "10", 1, "sweep")
+    engine = cfg.pop("engine", "auto")
+    if engine not in ("auto", "fused", "host"):
+        raise die(f"engine must be auto|fused|host, got {engine!r}")
+    unknown = sorted(k for k in cfg
+                     if k.lower() not in _ALIASES
+                     and k.lower() not in _FRAMEWORK_KEYS)
+    if unknown:
+        raise die(f"unknown key(s): {', '.join(unknown)}")
+    params = dict(cfg)
+    rounds = _resolve_num_rounds(params, 100)
+
+    import lightgbm_tpu_torch as lgb
+
+    from .device import NoDeviceError
+    from .sweep import SweepService
+
+    data, names = _load_table(data_path, header)
+    X, y = _split_label(data, names, label_spec)
+    try:
+        dtrain = lgb.Dataset(X, label=y, device=device)
+    except NoDeviceError as e:
+        raise die(str(e)) from None
+    service = SweepService(
+        grid, dtrain, base_params=params,
+        num_boost_round=rounds, nfold=nfold,
+        early_stopping_rounds=early_stopping, seed=seed, engine=engine,
+        ledger_path=ledger_path, checkpoint_dir=ckpt_dir,
+        n_devices=sweep_devices, group_size=sweep_group_size,
+        hyper_batch=hyper_batch, verbose=True)
+    result = service.run()
+    if result.preempted:
+        pend = len(result.ledger.pending())
+        stderr.write(f"[lightgbm_tpu_torch] sweep preempted "
+                     f"({result.error}); {pend}/{len(grid)} configs pending "
+                     "— rerun the same command line to resume\n")
+        stderr.flush()
+        return 0
+    for row in result.ledger.leaderboard()[:top]:
+        stdout.write(json.dumps(row) + "\n")
+    stderr.write(json.dumps({
+        "engine": result.engine, "units": result.units_total,
+        "resumed_units": result.resumed_units,
+        "configs": len(grid),
+        "rounds_total": result.stats.get("rounds_total", 0),
+    }) + "\n")
+    stdout.flush()
+    stderr.flush()
     return 0
 
 
@@ -310,7 +508,7 @@ def _serve(input_model: str, cfg: Dict[str, str],
 
     if mesh_devices != 1:
         raise die(f"mesh_devices={mesh_devices}: multi-device serving is "
-                  "not ported yet (a later slice)")
+                  "not ported yet: ROADMAP slice 6 (multi-device), item 12")
     try:
         bank = ModelBank(max_bucket=max_bucket, max_cache_entries=max_cache,
                          warm_on_deploy=warm_buckets,
@@ -324,7 +522,8 @@ def _serve(input_model: str, cfg: Dict[str, str],
         if not path.endswith(".npz"):
             raise SwapRejected(
                 "ingest", f"{path}: only packed .npz artifacts are served; "
-                "JSON text models need the training slice, not ported yet")
+                "pack a text model first (serving.pack_booster(Booster("
+                "model_file=...)).save(path))")
         return bank.deploy(_SERVE_MODEL, path, raw_score=raw_score)
 
     try:

@@ -13,11 +13,22 @@ written for either package arms in both.  The serving slice consults:
 * ``clock`` — :meth:`FaultInjector.wrap_clock` adds a skew offset to an
   injectable time source.
 
+Training (``training/``) consults:
+
+* ``checkpoint_write`` — raises inside ``training.checkpoint`` after the
+  tmp file is written and before the atomic rename, modeling a failed
+  write; the prior checkpoint stays intact and the run goes on;
+* ``gradient`` — consulted once per round by ``train_resumable``; a firing
+  poisons the round's input predictions with NaN so the finiteness screen
+  (:class:`NonFiniteGradientError`) stops the run before a tree grows.
+
 The sweep service consults ``sweep_segment`` (between fused segments and
-host-engine configs) and ``sweep_record`` (before a ledger commit).  The
-training, pipeline and ``sweep_promote`` sites are registered but not yet
-consulted by any ported module.  A ``FaultInjector`` with no armed specs is a cheap
-no-op, so the hooks stay wired in production configurations.
+host-engine configs), ``sweep_record`` (before a ledger commit) and, through
+its carry checkpoints, ``checkpoint_write``.  ``block_read`` and
+``device_put`` (out-of-core blocks, ROADMAP item 11), the pipeline sites and
+``sweep_promote`` (the refresh daemon, ROADMAP item 13) are registered but
+consulted by no ported module.  A ``FaultInjector`` with no armed specs is a
+cheap no-op, so the hooks stay wired in production configurations.
 """
 
 from __future__ import annotations
@@ -34,6 +45,21 @@ SITES = SERVING_SITES + TRAINING_SITES + PIPELINE_SITES + SWEEP_SITES
 
 class FaultError(RuntimeError):
     """A deterministically injected fault."""
+
+
+class NonFiniteGradientError(RuntimeError):
+    """Diagnostic raised by the training finiteness screen.
+
+    Non-finite raw predictions make every downstream gradient/hessian
+    non-finite, and a tree grown from NaN stats silently poisons the
+    whole forest — the screen raises THIS before the round runs instead
+    of growing a garbage tree.  Carries the failing round index so the
+    operator knows which checkpoint still precedes the corruption.
+    """
+
+    def __init__(self, message: str, round_index: int = -1):
+        super().__init__(message)
+        self.round_index = int(round_index)
 
 
 @dataclass

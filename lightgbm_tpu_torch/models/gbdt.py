@@ -16,9 +16,15 @@ streams (``utils/random.py``), keyed by round index, so the same params and
 seed give the same trees as the reference.
 
 What is outside this slice raises a ``NotImplementedError`` naming the
-ROADMAP slice that will port it: other objectives and boosting modes,
-constraints, categorical/linear/extra trees, per-node sampling, feature
-screening, streaming, the distributed learners and ``init_model``.
+ROADMAP slice and item that will port it: other objectives and boosting
+modes, constraints, categorical/linear/extra trees, per-node sampling,
+feature screening, streaming, the distributed learners and ``init_model``.
+
+:meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
+carry the complete round state (forest, train scores, bag, base key,
+counters) through ``training.checkpoint`` in the reference's file format, so
+a run killed at any round resumes bit-identical, and checkpoints interchange
+with the reference package.
 
 :class:`HyperScalarsBatch` holds the same scalars as per-element tensors for
 the fused cross-validation program (``models/fused.py``), where one batch
@@ -50,6 +56,14 @@ from .tree import _PK, Tree, _tree_from_packed, grow_tree, grow_trees_batched
 
 _F32 = torch.float32
 _SLICE3 = "ROADMAP slice 3 (breadth of training)"
+
+
+def _slice3(item: int) -> str:
+    return f"{_SLICE3}, item {item}"
+
+
+_SLICE5 = "ROADMAP slice 5 (out-of-core training), item 11"
+_SLICE6 = "ROADMAP slice 6 (multi-device), item 12"
 
 
 def _class_tree(tree: Tree, c: int, axis: int = 0) -> Tree:
@@ -202,33 +216,33 @@ def resolve_wave_width(p: Params, n_rows: int) -> int:
 
 def check_slice_scope(p: Params) -> None:
     """Refuse, by name, every training option this slice does not port."""
-    def later(what: str, where: str = _SLICE3):
+    def later(what: str, where: str):
         raise NotImplementedError(f"{what} is not ported yet: {where}")
 
     if p.boosting != "gbdt":
-        later(f"boosting='{p.boosting}'")
+        later(f"boosting='{p.boosting}'",
+              _slice3(4 if p.boosting == "rf" else 6))
     if p.objective not in ("regression", "binary", "multiclass",
                            "multiclassova"):
-        later(f"objective='{p.objective}'")
+        later(f"objective='{p.objective}'", _slice3(
+            8 if p.objective in ("lambdarank", "rank_xendcg") else 5))
     if p.extra.get("fobj") is not None:
-        later("a custom objective (fobj)")
+        later("a custom objective (fobj)", _slice3(5))
     if p.linear_tree:
-        later("linear_tree")
+        later("linear_tree", _slice3(10))
     if p.monotone_constraints and any(int(c) != 0
                                       for c in p.monotone_constraints):
-        later("monotone_constraints")
+        later("monotone_constraints", _slice3(9))
     if p.interaction_constraints:
-        later("interaction_constraints")
+        later("interaction_constraints", _slice3(9))
     if p.extra_trees:
-        later("extra_trees")
+        later("extra_trees", _slice3(9))
     if p.feature_fraction_bynode < 1.0:
-        later("feature_fraction_bynode < 1")
+        later("feature_fraction_bynode < 1", _slice3(4))
     if p.feature_screen != "off":
-        later(f"feature_screen='{p.feature_screen}'",
-              "ROADMAP slice 5 (out-of-core training and recovery)")
+        later(f"feature_screen='{p.feature_screen}'", _SLICE5)
     if p.tree_learner != "serial":
-        later(f"tree_learner='{p.tree_learner}' (dp/fp meshes)",
-              "ROADMAP slice 6 (multi-device)")
+        later(f"tree_learner='{p.tree_learner}' (dp/fp meshes)", _SLICE6)
 
 
 class Booster:
@@ -268,6 +282,11 @@ class Booster:
         self._bag = None
         self._forest_cache = None
         self._base_lr = float(self.params.learning_rate)
+        # jax.random.PRNGKey(seed) of the reference (an int32 seed: high
+        # word 0); no stream of the port draws from it, the checkpoint
+        # format carries it
+        self._key = np.asarray(prng_key(int(self.params.seed) % (1 << 32)),
+                               np.uint32)
         if train_set is not None:
             self._setup_training()
 
@@ -354,12 +373,12 @@ class Booster:
         """Run one boosting round (LightGBM ``Booster.update``)."""
         if fobj is not None:
             raise NotImplementedError(
-                f"a custom objective (fobj) is not ported yet: {_SLICE3}")
+                f"a custom objective (fobj) is not ported yet: {_slice3(5)}")
         if train_set is not None and train_set is not self.train_set:
             if self.trees:
                 raise NotImplementedError(
                     f"continuing a loaded model (init_model) is not ported "
-                    f"yet: {_SLICE3}")
+                    f"yet: {_slice3(10)}")
             self.train_set = train_set
             if self.device != train_set.device:
                 self.device = train_set.device
@@ -428,6 +447,111 @@ class Booster:
         program; its docstring states the models are identical)."""
         for _ in range(max(int(k), 0)):
             self.update()
+
+    def _screen_finite(self, i: int) -> None:
+        """Gradient/hessian finiteness screen: one non-finite raw
+        prediction makes every objective's g/h non-finite and the round
+        would grow a garbage tree out of NaN stats that silently poisons
+        the rest of the run.  Costs one scalar host sync per round.
+        ``train_resumable(finite_screen=False)`` turns it off."""
+        from ..faults import NonFiniteGradientError
+
+        if not bool(torch.isfinite(self._pred_train).all()):
+            raise NonFiniteGradientError(
+                f"non-finite raw predictions entering round {i}: the "
+                "gradient/hessian stats would be non-finite and the grown "
+                "tree garbage — inspect labels/objective, or resume from "
+                "the last good checkpoint (lightgbm_tpu_torch.training)",
+                round_index=i)
+
+    # -- checkpoint state ------------------------------------------------
+    def checkpoint_state(self) -> tuple:
+        """Complete training state as ``(arrays, meta)`` host payloads, in
+        the reference's layout.
+
+        Everything a bit-identical resume needs beyond the params: the
+        forest (raw buffers, not the decimal text codec), the train scores
+        and current bagging mask exactly as the next round consumes them
+        (``[n_pad]``, or ``[n_pad, K]`` multiclass), the base key, round
+        counters and the shrinkage base.  Every per-round draw (bagging,
+        feature fraction) is re-derived from params + round index, so no
+        random stream state beyond the base key exists.  The ``.cpu()``
+        copies wait for the device work in flight.
+        """
+        if self.train_set is None or self._pred_train is None:
+            raise ValueError(
+                "checkpoint_state() needs an attached training Dataset — "
+                "this booster holds no round state")
+        from ..data.sketch import schema_digest
+        from .tree import tree_to_arrays
+
+        p = self.params
+        params_dict = dataclasses.asdict(p)
+        extra = dict(params_dict.pop("extra", None) or {})
+        params_dict.update(extra)
+        arrays = {
+            "pred_train": self._pred_train.detach().cpu().numpy(),
+            "bag": self._bag.detach().cpu().numpy(),
+            "key": np.asarray(self._key, np.uint32),
+        }
+        init_meta = None
+        if isinstance(self.init_score_, np.ndarray):
+            arrays["init_score"] = np.asarray(self.init_score_, np.float32)
+        else:
+            init_meta = float(self.init_score_)
+        for t_idx, t in enumerate(self.trees):
+            for fname, arr in tree_to_arrays(t).items():
+                arrays[f"tree{t_idx:05d}/{fname}"] = arr
+        meta = {
+            "params": params_dict,
+            "iter": int(self._iter),
+            "num_trees": len(self.trees),
+            "base_lr": float(self._base_lr),
+            "init_score": init_meta,
+            "best_iteration": int(self.best_iteration),
+            "streamed": False,
+            "parallel": {"tree_learner": p.tree_learner},
+            "schema_digest": schema_digest(self.train_set.bin_mapper),
+        }
+        return arrays, meta
+
+    def restore_checkpoint_state(self, arrays, meta) -> None:
+        """Inverse of :meth:`checkpoint_state` onto a booster already
+        constructed with the SAME params and an equivalently-binned
+        training Dataset (``training.checkpoint.resume_booster`` wraps the
+        construction and the schema check).  Every tensor lands on the
+        Booster's device; the stacked-forest cache is dropped."""
+        from .tree import tree_from_arrays
+
+        if "screen_ema" in arrays:
+            raise NotImplementedError(
+                "a checkpoint of a feature-screened run (screen_ema) is not "
+                f"ported yet: {_SLICE5}")
+        if meta.get("streamed"):
+            raise NotImplementedError(
+                "a checkpoint of a streamed (out-of-core) run is not ported "
+                f"yet: {_SLICE5}")
+        trees = []
+        for t_idx in range(int(meta["num_trees"])):
+            prefix = f"tree{t_idx:05d}/"
+            fields = {k[len(prefix):]: v for k, v in arrays.items()
+                      if k.startswith(prefix)}
+            trees.append(tree_from_arrays(fields, device=self.device))
+        self.trees = trees
+        self._forest_cache = None
+        self._iter = int(meta["iter"])
+        self._base_lr = float(meta["base_lr"])
+        self.best_iteration = int(meta["best_iteration"])
+        self.init_score_ = (
+            float(meta["init_score"]) if meta.get("init_score") is not None
+            else np.asarray(arrays["init_score"], np.float32))
+
+        def put(a):
+            return torch.from_numpy(np.array(a, np.float32)).to(self.device)
+
+        self._pred_train = put(arrays["pred_train"])
+        self._bag = put(arrays["bag"])
+        self._key = np.asarray(arrays["key"], np.uint32)
 
     # -- evaluation ------------------------------------------------------
     def _metric_names(self) -> List[str]:
@@ -509,7 +633,8 @@ class Booster:
         found one; <= 0: all trees)."""
         if pred_leaf or pred_contrib:
             raise NotImplementedError(
-                f"pred_leaf / pred_contrib are not ported yet: {_SLICE3}")
+                f"pred_leaf / pred_contrib are not ported yet: "
+                f"{_slice3(10)}")
         if isinstance(data, Dataset):
             raise TypeError("predict() expects a raw feature matrix, not a "
                             "Dataset (matching lightgbm)")

@@ -3,9 +3,11 @@
 * :class:`~.scheduler.SweepScheduler` packs a config grid into fused-CV
   hyper-batches, bucketed by what shapes the fused program;
 * :class:`~.service.SweepService` runs the plan on one device, hyper-batch by
-  hyper-batch, with fault-injection hooks and a SIGTERM latch between
-  segments;
-* :class:`~.ledger.SweepLedger` is the crash-safe resumable result ledger.
+  hyper-batch, with fault-injection hooks, a SIGTERM latch between segments
+  (``training.loop.PreemptionGuard``) and per-hyper-batch carry
+  checkpoints;
+* :class:`~.ledger.SweepLedger` is the crash-safe resumable result ledger
+  (``.RData`` or JSON).
 
 ``lightgbm_tpu_torch.utils.sweep`` re-exports ``expand_grid`` /
 ``SweepLedger`` / ``run_grid_search``.
@@ -13,8 +15,8 @@
 
 from .ledger import RESULT_COLUMNS, SENTINEL, SweepLedger, expand_grid
 from .scheduler import SweepPlan, SweepScheduler, SweepUnit, fused_bucket_key
-from .service import (PreemptionGuard, SweepResult, SweepService,
-                      run_grid_search)
+from ..training.loop import PreemptionGuard
+from .service import SweepResult, SweepService, run_grid_search
 
 __all__ = [
     "RESULT_COLUMNS", "SENTINEL", "SweepLedger", "expand_grid",

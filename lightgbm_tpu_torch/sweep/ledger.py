@@ -1,6 +1,6 @@
 """Crash-safe, resumable sweep ledger — the port's copy of
-``lightgbm_tpu/sweep/ledger.py`` (numpy only, no change of behaviour on the
-JSON codec).
+``lightgbm_tpu/sweep/ledger.py`` (numpy only, the same behaviour and the
+same bytes on both codecs).
 
 The R workflow checkpoints its 108x9 ``paramGrid`` data.frame after every
 config with ``save(paramGrid, file=...)`` "if lgb crashes"
@@ -14,13 +14,15 @@ that contract, with:
 * **sentinel-proof leaderboard** — rows still carrying the -1 "crashed/
   unfinished" sentinel are excluded from ranking, so an interrupted
   config can never be handed to auto-promotion as the "winner";
-* **JSON codec** — the reference's ``.RData`` codec (R's own
-  serialization) is not ported yet: an ``.RData`` path raises a named
-  ``NotImplementedError``.
+* **codec by suffix** — ``.RData`` paths read/write R's actual
+  serialization (byte-compatible with R's ``save()`` / ``load()``
+  checkpoint, :mod:`..utils.rdata`), anything else is JSON.  A ledger
+  saved by either package resumes in the other.
 
 Ledger writes are byte-deterministic for a given row state (the JSON
-``saved_at`` stamp comes from the injectable ``clock``), so interrupted and
-resumed ledgers compare to uninterrupted ones as files.
+``saved_at`` stamp comes from the injectable ``clock``; the RData gzip
+wrapper pins mtime=0), so interrupted and resumed ledgers compare to
+uninterrupted ones as files.
 """
 
 from __future__ import annotations
@@ -71,11 +73,6 @@ class SweepLedger:
 
     def __init__(self, grid: List[Dict[str, Any]], path: Optional[str] = None,
                  *, clock: Callable[[], float] = time.time):
-        if path and self._is_rdata(path):
-            raise NotImplementedError(
-                "an .RData sweep ledger (R's serialization, utils/rdata.py) "
-                "is not ported yet: ROADMAP slice 2 (sweep leftovers); use a "
-                "JSON ledger path")
         self.path = path
         self.clock = clock
         self.rows: List[Dict[str, Any]] = []
@@ -91,9 +88,17 @@ class SweepLedger:
         return path.lower().endswith(".rdata")
 
     def _merge_existing(self, path: str) -> None:
-        with open(path) as f:
-            saved = json.load(f)
-        saved_rows = saved.get("rows", [])
+        if self._is_rdata(path):
+            from ..utils.rdata import read_rdata
+            dfs = read_rdata(path)
+            df = dfs.get("paramGrid") or next(iter(dfs.values()), {})
+            cols = list(df.keys())
+            nrow = len(df[cols[0]]) if cols else 0
+            saved_rows = [{c: df[c][i] for c in cols} for i in range(nrow)]
+        else:
+            with open(path) as f:
+                saved = json.load(f)
+            saved_rows = saved.get("rows", [])
         for i, srow in enumerate(saved_rows):
             if i >= len(self.rows):
                 break
@@ -143,11 +148,22 @@ class SweepLedger:
             os.path.dirname(self.path) or ".",
             f".tmp-{os.path.basename(self.path)}")
         try:
-            with open(tmp, "w") as f:
-                json.dump({"rows": self.rows, "saved_at": self.clock()}, f,
-                          indent=1)
-                f.flush()
-                os.fsync(f.fileno())
+            if self._is_rdata(self.path):
+                from ..utils.rdata import write_rdata
+                cols = list(self.rows[0].keys()) if self.rows else []
+                write_rdata(tmp, "paramGrid",
+                            {c: [r[c] for r in self.rows] for c in cols})
+                fd = os.open(tmp, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                finally:
+                    os.close(fd)
+            else:
+                with open(tmp, "w") as f:
+                    json.dump({"rows": self.rows, "saved_at": self.clock()},
+                              f, indent=1)
+                    f.flush()
+                    os.fsync(f.fileno())
             os.replace(tmp, self.path)
         finally:
             if os.path.exists(tmp):

@@ -4,17 +4,23 @@
 Take a config grid and a Dataset; run the :class:`~.scheduler.SweepScheduler`
 plan hyper-batch by hyper-batch on the fused-CV program (or config by config
 through ``engine.cv`` on the host engine); commit each hyper-batch's results
-into the crash-safe :class:`~.ledger.SweepLedger`.  A SIGTERM
-(:class:`PreemptionGuard`, polled between segments and units) or an injected
-fault (``sweep_segment`` between segments, ``sweep_record`` after a
-hyper-batch finishes and before its ledger commit) returns instead of
-raising; a rerun with the same ledger path skips the rows already recorded
-and converges to the ledger an uninterrupted run writes (unit identity is
-content-derived, per-round random draws are keyed by round index).
+into the crash-safe :class:`~.ledger.SweepLedger`; with ``checkpoint_dir``,
+save every hyper-batch's full carry after each segment through the
+training checkpoint protocol (``training.checkpoint``).
 
-Per-hyper-batch carry checkpoints (``checkpoint_dir``) are not ported yet
-and raise by name: without them an interrupted hyper-batch restarts from
-round 0.
+**Kill-anywhere parity**: a SIGTERM (:class:`PreemptionGuard`, polled
+between segments and units) or an injected fault (``sweep_segment`` between
+segments, ``sweep_record`` after a hyper-batch finishes and before its
+ledger commit, ``checkpoint_write`` inside a carry checkpoint) returns
+instead of raising, and leaves durable state (unit carry checkpoints + the
+atomically saved ledger) from which a rerun converges to a ledger FILE
+byte-identical to the uninterrupted run's, on the JSON and the RData codec.
+Three properties make that true: per-round random draws are keyed by round
+index, the carry round-trips through numpy exactly (f32/i32/bool fields,
+the reference's names and dtypes, so unit checkpoints interchange too), and
+unit identity is content-derived (the same remaining work re-plans to the
+same checkpoint directory).  A restore also re-checks the grid digest, so
+a checkpoint of a different sweep definition restarts its unit instead.
 
 ``run_grid_search`` is the entry point the examples call (``utils.sweep``
 re-exports it).
@@ -22,47 +28,21 @@ re-exports it).
 
 from __future__ import annotations
 
-import signal
+import os
+import shutil
 import time
+import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 
 from ..faults import FaultError, FaultInjector
-from .ledger import SweepLedger
+from ..training.checkpoint import load_latest, save_state_checkpoint
+from ..training.loop import PreemptionGuard
+from .ledger import SweepLedger, grid_digest
 from .scheduler import SweepScheduler, SweepUnit
 
 SWEEP_ENGINES = ("auto", "fused", "host")
-
-
-class PreemptionGuard:
-    """Scoped SIGTERM latch (the port's copy of
-    ``lightgbm_tpu/training/loop.py``'s): the handler only records the
-    request; the sweep polls ``requested`` at segment and unit boundaries, so
-    the round in flight always completes.  Reentrant: the handler installs at
-    depth 0 and the previous one is restored at depth 0."""
-
-    def __init__(self, signum: int = signal.SIGTERM):
-        self.signum = signum
-        self.requested = False
-        self._prev = None
-        self._depth = 0
-
-    def __enter__(self) -> "PreemptionGuard":
-        if self._depth == 0:
-            def _on_term(signo, frame):
-                self.requested = True
-
-            self._prev = signal.signal(self.signum, _on_term)
-        self._depth += 1
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._depth -= 1
-        if self._depth == 0:
-            signal.signal(self.signum, self._prev)
-            self._prev = None
-        return None
 
 
 class SweepResult(NamedTuple):
@@ -75,6 +55,8 @@ class SweepResult(NamedTuple):
     engine: str                # "fused" or "host", post-eligibility
     units_total: int           # hyper-batches planned this run
     units_done: int            # hyper-batches committed this run
+    resumed_units: int         # units restored from a carry checkpoint
+    checkpoint_failures: int   # carry writes lost to injected/real faults
     stats: Dict[str, Any]      # per-bucket timings
 
 
@@ -95,13 +77,17 @@ class SweepService:
         fall back to the host loop otherwise; "host" forces the serial
         per-config loop (the R workflow's shape).
     ledger_path : str, optional
-        Resumable JSON ledger location.
+        Resumable ledger location (codec by suffix: .RData or JSON).
     checkpoint_dir : str, optional
-        Per-hyper-batch carry checkpoints: not ported yet, raises.
+        Root for per-hyper-batch carry checkpoints (``unit_<uid>/``
+        subdirectories, the training checkpoint file protocol).  Without
+        it the sweep still resumes unit by unit through the ledger, but an
+        interrupted unit restarts from round 0.
     n_devices / group_size / hyper_batch
         The configs x devices mesh shape handed to the scheduler.
     injector : FaultInjector, optional
-        Consults ``sweep_segment`` / ``sweep_record``.
+        Consults ``sweep_segment`` / ``sweep_record`` here (and
+        ``checkpoint_write`` inside the checkpoint writer).
     clock : callable, optional
         Injectable time source for the stats and the ledger's ``saved_at``.
     cv_fn : callable, optional
@@ -131,11 +117,6 @@ class SweepService:
             raise ValueError(f"nfold must be >= 2, got {nfold}")
         if not grid:
             raise ValueError("empty config grid")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "per-hyper-batch carry checkpoints (checkpoint_dir) are not "
-                "ported yet: ROADMAP slice 5 (recovery); the ledger alone "
-                "resumes a sweep unit by unit")
         self.grid = [dict(cfg) for cfg in grid]
         self.train_set = train_set
         self.base_params = dict(base_params or {})
@@ -144,6 +125,7 @@ class SweepService:
         self.early_stopping_rounds = int(early_stopping_rounds)
         self.seed = int(seed)
         self.engine = engine
+        self.checkpoint_dir = checkpoint_dir
         self.n_devices = int(n_devices)
         self.group_size = int(group_size)
         self.injector = injector
@@ -152,6 +134,10 @@ class SweepService:
         self.cv_fn = cv_fn
         self.scheduler = SweepScheduler(hyper_batch=hyper_batch)
         self.ledger = SweepLedger(self.grid, ledger_path, clock=clock)
+        self._digest = grid_digest(
+            self.grid, nfold=self.nfold, seed=self.seed,
+            num_boost_round=self.num_boost_round,
+            early_stopping_rounds=self.early_stopping_rounds)
 
     # -- driving -------------------------------------------------------------
     def run(self, guard: Optional[PreemptionGuard] = None) -> SweepResult:
@@ -196,12 +182,17 @@ class SweepService:
         return self._run_host(g)
 
     def _result(self, *, preempted: bool, error: Optional[str], engine: str,
-                units_total: int, units_done: int,
-                stats: Dict[str, Any]) -> SweepResult:
+                units_total: int, units_done: int, stats: Dict[str, Any],
+                resumed: int = 0, ckpt_failures: int = 0) -> SweepResult:
+        completed = not self.ledger.pending()
+        if completed and self.checkpoint_dir:
+            # every unit is committed; the carry checkpoints are spent
+            shutil.rmtree(self.checkpoint_dir, ignore_errors=True)
         return SweepResult(
-            ledger=self.ledger, completed=not self.ledger.pending(),
-            preempted=preempted, error=error, engine=engine,
-            units_total=units_total, units_done=units_done, stats=stats)
+            ledger=self.ledger, completed=completed, preempted=preempted,
+            error=error, engine=engine, units_total=units_total,
+            units_done=units_done, resumed_units=resumed,
+            checkpoint_failures=ckpt_failures, stats=stats)
 
     def _check(self, site: str) -> Optional[str]:
         """The injector's verdict at ``site``: the fault message, or None."""
@@ -257,6 +248,50 @@ class SweepService:
                             stats=stats)
 
     # -- fused engine --------------------------------------------------------
+    def _unit_dir(self, unit: SweepUnit) -> Optional[str]:
+        if not self.checkpoint_dir:
+            return None
+        return os.path.join(self.checkpoint_dir, f"unit_{unit.uid}")
+
+    def _save_unit_ckpt(self, prog, carry, unit_dir: str,
+                        unit: SweepUnit) -> int:
+        """Checkpoint a unit's carry; 1 when the write was lost, else 0."""
+        arrays = prog.carry_arrays(carry)
+        meta = {"iter": int(arrays["r"]), "kind": "sweep_unit",
+                "uid": unit.uid, "grid_digest": self._digest,
+                "configs": [int(i) for i in unit.config_indices]}
+        try:
+            save_state_checkpoint(arrays, meta, unit_dir,
+                                  injector=self.injector,
+                                  keep_last=2)
+        except (FaultError, OSError) as e:
+            # same contract as the training loop: the tmp+rename protocol
+            # kept the prior checkpoint; losing one write costs redo
+            # rounds, never the sweep
+            warnings.warn(f"sweep checkpoint write failed (prior "
+                          f"checkpoint kept): {e}")
+            return 1
+        return 0
+
+    def _restore_unit(self, prog, unit: SweepUnit, unit_dir: str):
+        """The unit's newest valid carry on the program's device, or None
+        (no checkpoint, or one of a different sweep definition)."""
+        path, found = load_latest(unit_dir)
+        for rej_path, why in found["rejected"]:
+            warnings.warn(f"skipping corrupt sweep checkpoint "
+                          f"{rej_path}: {why}")
+        if path is None:
+            return None
+        meta = found["meta"]
+        if meta.get("kind") != "sweep_unit" or meta.get("uid") != unit.uid \
+                or meta.get("grid_digest") != self._digest:
+            warnings.warn(
+                f"discarding sweep checkpoint {path}: it belongs to a "
+                "different sweep definition (grid/nfold/seed/rounds "
+                "drift); restarting this hyper-batch from round 0")
+            return None
+        return prog.restore_carry(found["arrays"])
+
     def _run_fused(self, g: PreemptionGuard, parsed: list) -> SweepResult:
         from ..metrics import get_metric
         from ..models.fused import FusedCVProgram
@@ -272,11 +307,15 @@ class SweepService:
                                           "n_groups": plan.n_groups,
                                           "group_size": plan.group_size}}
         units_done = 0
+        resumed_units = 0
+        ckpt_failures = 0
 
         def bail(err: str) -> SweepResult:
             return self._result(preempted=True, error=err, engine="fused",
                                 units_total=len(plan.units),
-                                units_done=units_done, stats=stats)
+                                units_done=units_done, stats=stats,
+                                resumed=resumed_units,
+                                ckpt_failures=ckpt_failures)
 
         for unit in plan.units:
             key = unit.bucket_key
@@ -290,7 +329,14 @@ class SweepService:
                 self.train_set, [parsed[i] for i in unit.config_indices],
                 fold_masks, self.num_boost_round,
                 self.early_stopping_rounds, self.seed)
-            carry = prog.init()
+            unit_dir = self._unit_dir(unit)
+            carry = None
+            if unit_dir:
+                carry = self._restore_unit(prog, unit, unit_dir)
+                if carry is not None:
+                    resumed_units += 1
+            if carry is None:
+                carry = prog.init()
             setup_s = self.clock() - t0
             t_exec = self.clock()
             seg = prog.segment_rounds
@@ -301,6 +347,9 @@ class SweepService:
                 seg_end = min((carry.r // seg + 1) * seg,
                               self.num_boost_round)
                 carry = prog.step(carry, seg_end)
+                if unit_dir:
+                    ckpt_failures += self._save_unit_ckpt(
+                        prog, carry, unit_dir, unit)
                 if g.requested:
                     return bail("SIGTERM drain mid-sweep")
             err = self._check("sweep_record")
@@ -315,13 +364,17 @@ class SweepService:
                 self.ledger.rows[i]["iteration"] = int(best_iters[j])
                 self.ledger.rows[i]["score"] = raw if hib else -raw
             self.ledger.save()
+            if unit_dir:
+                shutil.rmtree(unit_dir, ignore_errors=True)
             units_done += 1
             self._log_unit(stats, unit, t0, t_exec, setup_s, res.rounds_run)
             if g.requested:
                 return bail("SIGTERM drain mid-sweep")
         return self._result(preempted=False, error=None, engine="fused",
                             units_total=len(plan.units),
-                            units_done=units_done, stats=stats)
+                            units_done=units_done, stats=stats,
+                            resumed=resumed_units,
+                            ckpt_failures=ckpt_failures)
 
     def _log_unit(self, stats, unit: SweepUnit, t0: float, t_exec: float,
                   setup_s: float, rounds: int) -> None:

@@ -1,5 +1,5 @@
 """Port parity: the ported CLI (``task=serve``, ``task=train``,
-``task=predict``) against the reference's.
+``task=predict``, ``task=sweep``) against the reference's.
 
 The same request lines (CSV rows, JSON arrays, blank and bad lines,
 ``!swap``/``!rollback``/``!stats`` control lines) go through the reference's
@@ -10,11 +10,18 @@ Predictions agree at rtol 1e-5 / atol 1e-6; errors and acks agree in kind.
 ``label_column=name:y``, ``valid=``, int8 histograms) write what
 ``Booster(model_file=...).predict`` gives, and the model files of either
 package's CLI load in the other with predictions within 1e-6.
+``task=train checkpoint_dir=`` preempted by a SIGTERM exits 0 and its rerun
+writes the model file of an uninterrupted run, byte for byte;
+``task=sweep``'s leaderboard equals the reference CLI's (configs and
+iterations equal, scores within rtol 1e-5) and its typed errors read the
+same.
 """
 
 import dataclasses
 import io
 import json
+import os
+import signal
 
 import numpy as np
 import pytest
@@ -23,9 +30,12 @@ import torch
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as P
 from lightgbm_tpu.__main__ import _serve as ref_serve
+from lightgbm_tpu.__main__ import _sweep as ref_sweep
 from lightgbm_tpu.__main__ import main as ref_main
 from lightgbm_tpu.serving.packed import pack_booster
+import lightgbm_tpu_torch.training as port_training
 from lightgbm_tpu_torch.__main__ import _serve as port_serve
+from lightgbm_tpu_torch.__main__ import _sweep as port_sweep
 from lightgbm_tpu_torch.__main__ import main as port_main
 from lightgbm_tpu_torch.kernels import KernelLaunchError
 from lightgbm_tpu_torch.ops import predict as port_predict
@@ -207,11 +217,125 @@ def test_cli_models_interchange_with_reference(csv_files):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["task=train", "data=x.csv", "checkpoint_dir=ck"], "checkpoint_dir"),
+    (["task=refresh"], "item 13"),
     (["task=refresh", "watch_dir=x"], "task=refresh"),
-    (["task=sweep", "data=x.csv"], "task=sweep"),
+    (["task=sweep", "data=x.csv", "sweep_grid={grid}", "sweep_devices=2"],
+     "slice 6"),
     (["task=train", "data=x.csv", "device=tpu"], "device")])
-def test_cli_unported_keys_exit_by_name(argv, name):
+def test_cli_unported_keys_exit_by_name(argv, name, tmp_path):
+    grid = tmp_path / "grid.json"
+    grid.write_text(json.dumps({"axes": {"num_leaves": [7, 15]}}))
     with pytest.raises(SystemExit, match=name) as e:
-        port_main(argv)
+        port_main([a.format(grid=grid) for a in argv])
     assert e.value.code not in (0, None)
+
+
+def test_train_checkpoint_dir_preempted_then_resumed(csv_files, tmp_path,
+                                                     monkeypatch, capsys):
+    """A SIGTERM after round index 2 of ``task=train checkpoint_dir=``: the
+    run exits 0 naming the checkpoint, the rerun resumes and writes the
+    model file an uninterrupted run writes."""
+    _, paths, _ = csv_files
+    keys = ["task=train", f"data={paths['train']}", "device=cpu",
+            "checkpoint_rounds=2", "num_trees=6"] + \
+        [k for k in TRAIN_KEYS if not k.startswith("num_trees")]
+    clean = str(tmp_path / "clean.txt")
+    assert port_main(keys + [f"checkpoint_dir={tmp_path / 'ck0'}",
+                             f"output_model={clean}"]) == 0
+    real = port_training.train_resumable
+
+    def preempted(*a, **kw):
+        def kill(booster, i):
+            if i == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return real(*a, round_callbacks=[kill], **kw)
+
+    model, ck = str(tmp_path / "m.txt"), str(tmp_path / "ck")
+    monkeypatch.setattr(port_training, "train_resumable", preempted)
+    capsys.readouterr()
+    assert port_main(keys + [f"checkpoint_dir={ck}",
+                             f"output_model={model}"]) == 0
+    assert "preempted at round 3/6" in capsys.readouterr().out
+    assert not os.path.exists(model)
+    monkeypatch.setattr(port_training, "train_resumable", real)
+    assert port_main(keys + [f"checkpoint_dir={ck}",
+                             f"output_model={model}"]) == 0
+    assert "resumed from" in capsys.readouterr().out
+    with open(model, "rb") as f, open(clean, "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("bad,msg", [
+    ("checkpoint_rounds=0", "checkpoint_rounds must be >= 1, got 0"),
+    ("checkpoint_rounds=x", "checkpoint_rounds must be an integer"),
+    ("checkpoint_keep=-1", "checkpoint_keep must be >= 0, got -1")])
+def test_train_checkpoint_keys_typed_errors(csv_files, tmp_path, bad, msg):
+    _, paths, _ = csv_files
+    keys = ["task=train", f"data={paths['train']}", "device=cpu",
+            f"checkpoint_dir={tmp_path / 'ck'}", bad] + TRAIN_KEYS
+    with pytest.raises(SystemExit, match=f"^task=train: {msg}") as e:
+        port_main(keys)
+    assert e.value.code not in (0, None)
+    assert not os.path.exists(tmp_path / "ck")
+
+
+SWEEP_KEYS = {"objective": "regression", "num_trees": "15",
+              "min_data_in_leaf": "5", "verbose": "-1", "nfold": "3",
+              "early_stopping_rounds": "5", "label_column": "name:y"}
+
+
+def test_sweep_cli_leaderboard_matches_reference(csv_files, tmp_path):
+    _, paths, _ = csv_files
+    grid = tmp_path / "grid.json"
+    grid.write_text(json.dumps({"axes": {"learning_rate": [0.3, 0.1],
+                                         "num_leaves": [7]}}))
+    boards = {}
+    for tag, fn, extra in (("port", port_sweep, {"device": "cpu"}),
+                           ("ref", ref_sweep, {})):
+        cfg = dict(SWEEP_KEYS, sweep_grid=str(grid),
+                   ledger=str(tmp_path / f"{tag}.RData"),
+                   sweep_checkpoint_dir=str(tmp_path / f"ck_{tag}"))
+        label = cfg.pop("label_column")
+        out, err = io.StringIO(), io.StringIO()
+        assert fn(cfg, paths["train"], True, label, stdout=out, stderr=err,
+                  **extra) == 0
+        boards[tag] = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        summary = json.loads(err.getvalue().strip().splitlines()[-1])
+        assert summary["configs"] == 2 and summary["resumed_units"] == 0
+        assert not os.path.exists(tmp_path / f"ck_{tag}")
+    got, want = boards["port"], boards["ref"]
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        assert {k: v for k, v in a.items() if k != "score"} \
+            == {k: v for k, v in b.items() if k != "score"}
+        np.testing.assert_allclose(a["score"], b["score"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("cfg", [
+    {},
+    {"sweep_grid": "{missing}"},
+    {"sweep_grid": "{bad_json}"},
+    {"sweep_grid": "{bad_axes}"},
+    {"sweep_grid": "{grid}", "nfold": "1"},
+    {"sweep_grid": "{grid}", "top": "x"},
+    {"sweep_grid": "{grid}", "engine": "gpu"},
+    {"sweep_grid": "{grid}", "sweep_devices": "3", "sweep_group_size": "2"},
+    {"sweep_grid": "{grid}", "sweep_checkpoint_dir": " "},
+    {"sweep_grid": "{grid}", "bogus_key": "1"},
+], ids=["no-grid", "missing", "bad-json", "bad-axes", "nfold", "top",
+        "engine", "group-size", "ckpt-dir", "unknown-key"])
+def test_sweep_cli_typed_errors_match_reference(cfg, tmp_path):
+    files = {"missing": tmp_path / "nope.json",
+             "bad_json": tmp_path / "bad.json",
+             "bad_axes": tmp_path / "axes.json", "grid": tmp_path / "g.json"}
+    files["bad_json"].write_text("{not json")
+    files["bad_axes"].write_text(json.dumps({"axes": {"num_leaves": []}}))
+    files["grid"].write_text(json.dumps({"rows": [{"num_leaves": 7}]}))
+    msgs = []
+    for fn, extra in ((port_sweep, {"device": "cpu"}), (ref_sweep, {})):
+        c = {k: v.format(**files) for k, v in cfg.items()}
+        with pytest.raises(SystemExit) as e:
+            fn(c, "train.csv", True, "0", stdout=io.StringIO(),
+               stderr=io.StringIO(), **extra)
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] and msgs[0].startswith("task=sweep: ")

@@ -53,7 +53,10 @@ def test_import_leaves_jax_and_reference_out():
             "lightgbm_tpu_torch.models.fused, lightgbm_tpu_torch.sweep, "
             "lightgbm_tpu_torch.sweep.service, lightgbm_tpu_torch.utils.sweep, "
             "lightgbm_tpu_torch.kernels.split_iter, "
-            "lightgbm_tpu_torch.utils.datasets;"
+            "lightgbm_tpu_torch.utils.datasets, lightgbm_tpu_torch.utils.rdata, "
+            "lightgbm_tpu_torch.training, lightgbm_tpu_torch.training.loop, "
+            "lightgbm_tpu_torch.training.checkpoint, lightgbm_tpu_torch.data, "
+            "lightgbm_tpu_torch.data.sketch, lightgbm_tpu_torch.faults;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -75,6 +78,28 @@ def test_entry_points_default_to_the_card():
         resolve_device()
     with pytest.raises(NoDeviceError):
         ModelBank()
+
+
+@pytest.mark.parametrize("module", [
+    "utils/rdata.py", "data/sketch.py", "training/checkpoint.py",
+    "training/loop.py"])
+def test_recovery_modules_are_walked(module):
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+def test_recovery_entry_points_default_to_the_card(tmp_path):
+    from lightgbm_tpu_torch.__main__ import main
+
+    if torch.cuda.is_available():
+        return
+    data = tmp_path / "d.csv"
+    data.write_text("1,0.5\n0,0.25\n")
+    grid = tmp_path / "g.json"
+    grid.write_text('{"rows": [{"num_leaves": 7}]}')
+    with pytest.raises(SystemExit, match="task=train: .*device='cpu'"):
+        main(["task=train", f"data={data}", f"checkpoint_dir={tmp_path}"])
+    with pytest.raises(SystemExit, match="task=sweep: .*device='cpu'"):
+        main(["task=sweep", f"data={data}", f"sweep_grid={grid}"])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_builds_lazily():

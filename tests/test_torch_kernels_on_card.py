@@ -23,6 +23,11 @@ B4 has its own: every bucket of the serving ladder and both routes of
 its plan, trees of 8,191 leaves (also served through ``PredictorRuntime``),
 1,000 trees and rows of 2,000 columns.
 
+Recovery: a 3-round run killed after each round and resumed from its
+checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
+strict grower through B1 and B3, int8 through B1's int8 mode) grows the
+uninterrupted run's trees, train scores and bag bit for bit.
+
 Tolerances: forest predictions bit for bit (served probabilities, whose
 sigmoid may differ by an ulp between card and CPU, rtol 1e-5 / atol 1e-6);
 histograms per cell
@@ -789,3 +794,62 @@ def test_b3_chunked_and_unclustered_on_card(e, f):
     """B3 where a block's pairs take several shared-memory chunks (F =
     150) and where the batch fills the card without clusters (E = 200)."""
     _b3_chain(e, f, 256, 4, 71 + e, in_place=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grower", ["wave", "strict", "int8"])
+def test_kill_and_resume_bit_identical_on_card(grower, tmp_path):
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_PARTITION_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+    from lightgbm_tpu_torch.training import (list_checkpoints,
+                                             resume_booster, train_resumable)
+
+    dev = _card()
+    rng = np.random.default_rng(23)
+    X = rng.normal(size=(50_000, 12)).astype(np.float32)
+    logits = 1.5 * X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3]
+    y = (rng.random(50_000) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    p = dict(objective="binary", num_leaves=31, max_bin=255,
+             learning_rate=0.1, min_data_in_leaf=20, bagging_fraction=0.8,
+             bagging_freq=1, feature_fraction=0.8, verbosity=-1)
+    if grower == "strict":
+        p["grow_policy"] = "leafwise"
+    mode = "int8" if grower == "int8" else "f32"
+    if grower == "int8":
+        p["hist_dtype"] = "int8"
+
+    def make_ds():
+        return lgb.Dataset(X, label=y, params=dict(p), device=dev)
+
+    counters = [*HIST_FUSED_LAUNCHES.values(),
+                *HIST_PARTITION_LAUNCHES.values(), SPLIT_ITER_LAUNCHES]
+    for c in counters:
+        c.reset()
+    ref = lgb.Booster(dict(p), make_ds())
+    for _ in range(3):
+        ref.update()
+    assert HIST_FUSED_LAUNCHES[mode].count > 0
+    if grower == "wave":
+        assert HIST_PARTITION_LAUNCHES["f32"].count > 0
+    elif grower == "strict":
+        assert SPLIT_ITER_LAUNCHES.count > 0
+    d = str(tmp_path / "ck")
+    res = train_resumable(dict(p), make_ds(), 3, checkpoint_dir=d,
+                          checkpoint_rounds=1, keep_last=4, resume=False)
+    runs = [res.booster]
+    for path in list_checkpoints(d)[:-1]:
+        b = resume_booster(path, make_ds())
+        assert b.device.type == "cuda"
+        while b._iter < 3:
+            b.update()
+        runs.append(b)
+    assert len(runs) == 3
+    for got in runs:
+        for ta, tb in zip(ref.trees, got.trees):
+            a, b = tree_to_arrays(ta), tree_to_arrays(tb)
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+        assert torch.equal(ref._pred_train, got._pred_train)
+        assert torch.equal(ref._bag, got._bag)

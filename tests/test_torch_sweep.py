@@ -6,11 +6,22 @@ against the reference's on the CPU.
   ``iteration`` equal to the reference's, ``score`` within rtol 1e-5;
 * a rerun with the same ledger skips the recorded rows; a sweep stopped by
   an injected fault before a ledger commit resumes to the same ledger;
-* what is not ported raises by name: ``.RData`` ledgers, ``checkpoint_dir``
-  and more than one device.
+* per-hyper-batch carry checkpoints (``checkpoint_dir``): a fault at a
+  segment boundary or a SIGTERM mid-sweep, then a rerun, gives a ledger
+  FILE byte-identical to an uninterrupted run's, on the JSON and the
+  ``.RData`` codec, with ``resumed_units >= 1`` (the reference's
+  ``tests/test_sweep.py`` kill-anywhere parity); the resumed ``.RData``
+  ledger holds the reference's iterations and its scores within rtol 1e-5;
+  a corrupt unit checkpoint falls back to a clean restart and one of another
+  sweep definition (grid digest) is discarded;
+* what is not ported raises by name: more than one device, continuing a
+  saved model in ``train_resumable`` and resuming a multi-device checkpoint.
 """
 
+import hashlib
 import json
+import os
+import signal
 
 import numpy as np
 import pytest
@@ -18,10 +29,14 @@ import torch
 
 import lightgbm_tpu as R
 import lightgbm_tpu_torch as P
+from lightgbm_tpu.sweep import SweepService as RSweepService
+from lightgbm_tpu.utils.rdata import read_rdata as r_read_rdata
 from lightgbm_tpu.utils.sweep import run_grid_search as r_sweep
 from lightgbm_tpu_torch.faults import FaultInjector
 from lightgbm_tpu_torch.models import fused as pf
 from lightgbm_tpu_torch.sweep import SweepService
+from lightgbm_tpu_torch.training import (IncompatibleCheckpointError,
+                                         resume_booster, train_resumable)
 from lightgbm_tpu_torch.utils.sweep import expand_grid
 from lightgbm_tpu_torch.utils.sweep import run_grid_search as p_sweep
 
@@ -133,11 +148,150 @@ def test_expand_grid_and_digest_match_reference():
 
 def test_not_ported_options_raise_by_name(data, tmp_path):
     pd = data[2]
-    with pytest.raises(NotImplementedError, match="RData"):
-        p_sweep(_grid(), pd, base_params=BASE,
-                ledger_path=str(tmp_path / "paramGrid.RData"), **KW)
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        SweepService(_grid(), pd, checkpoint_dir=str(tmp_path / "ck"))
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        train_resumable(dict(BASE), pd, 2, checkpoint_dir=str(tmp_path / "c"),
+                        init_model=str(tmp_path / "model.txt"))
+    b = P.Booster({"objective": "regression", "num_leaves": 4,
+                   "verbosity": -1}, pd)
+    b.update()
+    arrays, meta = b.checkpoint_state()
+    meta["parallel"]["n_devices"] = 2
+    with pytest.raises(IncompatibleCheckpointError, match="slice 6"):
+        resume_booster((arrays, meta), pd)
     with pytest.raises(NotImplementedError, match="slice 6"):
         SweepService(_grid(), pd, base_params=BASE, n_devices=2,
                      group_size=1).run()
+
+
+# -- carry checkpoints: kill-anywhere parity ---------------------------------
+
+CHAOS_GRID = expand_grid(learning_rate=[0.3, 0.1], num_leaves=[7])
+CHAOS_BASE = {"objective": "regression", "metric": "l2", "verbosity": -1,
+              "min_data_in_leaf": 5, "cv_segment_rounds": 5}
+FROZEN_CLOCK = lambda: 0.0  # noqa: E731 — pins saved_at for byte parity
+CHAOS_KW = dict(base_params=CHAOS_BASE, num_boost_round=20, nfold=3,
+                early_stopping_rounds=20, seed=0, clock=FROZEN_CLOCK)
+
+
+def _chaos_problem(n=400, f=5, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] ** 2
+         + rng.normal(0, 0.1, n)).astype(np.float32)
+    return X, y
+
+
+def _digest(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@pytest.fixture(scope="module")
+def chaos(tmp_path_factory):
+    """The uninterrupted sweep's ledgers (both codecs, the port) and the
+    reference's rows on the same grid."""
+    X, y = _chaos_problem()
+    ds = P.Dataset(X, label=y, device="cpu")
+    d = tmp_path_factory.mktemp("chaos")
+    clean = {}
+    for suffix in ("json", "RData"):
+        clean[suffix] = str(d / f"clean.{suffix}")
+        res = SweepService(CHAOS_GRID, ds, ledger_path=clean[suffix],
+                           **CHAOS_KW).run()
+        assert res.completed and res.resumed_units == 0
+    ref = RSweepService(CHAOS_GRID, R.Dataset(X, label=y),
+                        **CHAOS_KW).run()
+    return ds, clean, ref.ledger.rows
+
+
+def _chaos_run(ds, path, ck, **kw):
+    return SweepService(CHAOS_GRID, ds, ledger_path=path, checkpoint_dir=ck,
+                        **CHAOS_KW, **kw).run()
+
+
+@pytest.mark.parametrize("suffix", ["json", "RData"])
+def test_kill_anywhere_file_level_parity(chaos, tmp_path, suffix):
+    """A fault mid-sweep at a segment boundary, then a rerun that resumes
+    from the hyper-batch checkpoint: the ledger FILE is byte-identical to an
+    uninterrupted run's."""
+    ds, clean, ref_rows = chaos
+    path, ck = str(tmp_path / f"chaos.{suffix}"), str(tmp_path / "ck")
+    inj = FaultInjector()
+    inj.arm("sweep_segment", after=2)
+    r = _chaos_run(ds, path, ck, injector=inj)
+    assert r.preempted and "sweep_segment" in r.error
+    assert os.path.isdir(ck)           # mid-unit carry checkpoints exist
+    r2 = _chaos_run(ds, path, ck)
+    assert r2.completed and r2.resumed_units >= 1
+    assert r2.checkpoint_failures == 0
+    assert _digest(path) == _digest(clean[suffix])
+    assert not os.path.exists(ck)      # spent checkpoints pruned
+    if suffix == "RData":
+        df = r_read_rdata(path)["paramGrid"]
+        assert df["iteration"] == [row["iteration"] for row in ref_rows]
+        np.testing.assert_allclose(df["score"],
+                                   [row["score"] for row in ref_rows],
+                                   rtol=1e-5)
+
+
+class _TermAt(FaultInjector):
+    """Delivers a real SIGTERM at the n-th ``sweep_segment`` hit instead of
+    raising: the guard drains at the next segment boundary."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.n = n
+
+    def check(self, site):
+        out = super().check(site)
+        if site == "sweep_segment" and self.hits[site] == self.n:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+
+def test_sigterm_mid_sweep_resumes(chaos, tmp_path):
+    ds, clean, _ = chaos
+    path, ck = str(tmp_path / "drain.json"), str(tmp_path / "ck")
+    before = signal.getsignal(signal.SIGTERM)
+    r = _chaos_run(ds, path, ck, injector=_TermAt(3))
+    assert signal.getsignal(signal.SIGTERM) == before
+    assert r.preempted and "SIGTERM" in r.error
+    r2 = _chaos_run(ds, path, ck)
+    assert r2.completed and r2.resumed_units >= 1
+    assert _digest(path) == _digest(clean["json"])
+
+
+def test_corrupt_unit_checkpoint_falls_back_to_restart(chaos, tmp_path):
+    ds, clean, _ = chaos
+    path, ck = str(tmp_path / "c.json"), str(tmp_path / "ck")
+    inj = FaultInjector()
+    inj.arm("sweep_segment", after=2)
+    _chaos_run(ds, path, ck, injector=inj)
+    for root, _, files in os.walk(ck):
+        for f in files:
+            with open(os.path.join(root, f), "r+b") as fh:
+                fh.write(b"\x00garbage\x00")
+    with pytest.warns(UserWarning, match="corrupt sweep checkpoint"):
+        r2 = _chaos_run(ds, path, ck)
+    assert r2.completed and r2.resumed_units == 0    # clean restart
+    assert _digest(path) == _digest(clean["json"])
+
+
+def test_stale_grid_digest_and_lost_writes(chaos, tmp_path):
+    ds, clean, _ = chaos
+    path, ck = str(tmp_path / "led.json"), str(tmp_path / "ck")
+    inj = FaultInjector()
+    inj.arm("sweep_segment", after=2)
+    inj.arm("checkpoint_write", after=0, times=1)
+    with pytest.warns(UserWarning, match="sweep checkpoint write failed"):
+        r = _chaos_run(ds, path, ck, injector=inj)
+    assert r.preempted and r.checkpoint_failures == 1
+    if os.path.exists(path):      # the fault may land before a commit
+        os.unlink(path)
+    # same units (the uid keys on bucket + indices), another seed: the
+    # checkpoint's grid digest rejects the restore
+    kw = dict(CHAOS_KW, seed=1)
+    with pytest.warns(UserWarning, match="different sweep definition"):
+        r2 = SweepService(CHAOS_GRID, ds, ledger_path=path,
+                          checkpoint_dir=ck, **kw).run()
+    assert r2.completed and r2.resumed_units == 0
