@@ -159,7 +159,38 @@ Phases:
    checkpoints, stopped by a ``FaultInjector`` at ``sweep_segment`` hit 3
    and rerun: ``resumed_units >= 1`` and the ledger file equal, byte for
    byte, to an uninterrupted run's, with and without carry checkpoints
-   (B6, B3); the uninterrupted run's seconds with and without them.
+   (B6, B3); the uninterrupted run's seconds with and without them;
+14. examples/bagging_boosting.py's calls and rf with per-node sampling
+   (``boosting="rf"``, ``feature_fraction_bynode``), every launch counter
+   at 0 just before each run and read just after: (a) the script's calls at
+   its own sizes (``make_boosting_curve(1000, 8657)``, one column, its
+   params): ``cv`` (1,000 rounds, 5 folds, early stopping 50; fused strict,
+   B6 + B3) through the kernels and the plain versions (``best_iter``
+   equal, ``best_score`` within 1e-5 relative), ``train`` of 500 rounds
+   (B1 + B3; the plain run the first 100 rounds, the plain versions being
+   launch-bound at 1,000 rows) and ``predict(grid, ntree_limit=k)`` for k
+   in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 100 trees;
+   the RMSE against the true curve falls
+   with k and differs across k), the staged fits served through
+   ``PredictorRuntime`` (B4) within 1e-5, ``LGBMRandomForestRegressor``
+   forests of 1, 3 and 100 trees fitted and served (RMSE falling from 1 to
+   100); B1, B6, B3 and B4 at F = 1 against their plain versions once; (b)
+   an rf forest at the north star (``make_higgs_like(1,000,000)``, binary,
+   127 leaves, 255 bins, ``bagging_fraction=0.632``, ``bagging_freq=1``,
+   ``feature_fraction_bynode=5/28``; 10 trees on the wave grower, B1 roots
+   and B2 waves at bf16) through the kernels and the plain versions in
+   turns: held-out AUC within 1e-4, the dyadic first tree equal, no host
+   sync from drawing the mask tables (PyTorch's sync debug mode), a round's
+   syncs with bynode on and off beside its waves, the forest served
+   through ``PredictorRuntime`` on 16,384 rows within 1e-5 of
+   ``Booster.predict``; (c) ``cv()`` on the diamonds split with
+   ``feature_fraction_bynode=0.5`` (the batched unfused strict body: B6, no
+   B3 launch; 100 rounds, cut from phase 8b's 1,000) through the kernels
+   and the plain versions, ``best_iter`` equal, ``best_score`` within 1e-5
+   relative; (d) fused ``cv()`` at 2^19
+   rows x 28, 5 folds, 63 leaves, 3 rounds, ``feature_fraction_bynode=
+   0.5`` (B6 roots, B5 waves): per-round fold-mean logloss within 1e-4 of
+   the plain versions'.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -248,6 +279,31 @@ RECOVERY_ROUNDS, RECOVERY_EVERY, RECOVERY_KILL_AFTER = 12, 4, 6
 RECOVERY_SERVE_ROWS = 16_384
 RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 60, 5
 RECOVERY_SEGMENT_ROUNDS = 25     # the sweep's carry checkpoint cadence
+# phase 14: examples/bagging_boosting.py at its own sizes (the script's
+# params; cv 1,000 rounds, 5 folds, early stopping 50; train 500; the
+# staged fits and forest sizes it prints)
+BB_ROWS, BB_SEED = 1000, 8657
+BB_PARAMS = {"objective": "reg:linear", "eval_metric": "rmse", "eta": 0.02,
+             "max_depth": 6, "max_leaf_nodes": 31, "verbosity": 0,
+             "min_data_in_leaf": 1}
+BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 1000, 50, 5, 500
+BB_STAGES, BB_FORESTS = (1, 20, 50, 100, 300), (1, 3, 100)
+# the plain versions run ~5 ms a call at 1,000 rows (launch-bound): the
+# plain train covers the stages up to 100 trees
+BB_PLAIN_ROUNDS = 100
+# EXAMPLES_r05.json (the JAX package on a TPU): staged RMSEs, printed as a
+# quality reference beside the port's, never as a time
+BB_TPU_STAGED_RMSE = {1: 0.5196, 20: 0.3567, 50: 0.1977, 100: 0.075,
+                      300: 0.0166}
+# the rf north star: sklearn's "sqrt" of 28 columns per split
+RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.632,
+                 bagging_freq=1, feature_fraction_bynode=5 / 28)
+RF_TREES, RF_SERVE_ROWS, SYNC_ROUNDS = 10, 16_384, 3
+BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
+# 14c's rounds, cut from phase 8b's 1,000 (early stopping found 301): the
+# unfused body's split scan runs in plain ops, 5-9 ms a split iteration
+BYNODE_CV_ROUNDS = 100
+BATCH_CV_ROWS, BATCH_CV_LEAVES, BATCH_CV_ROUNDS = 1 << 19, 63, 3
 
 
 def fail(msg: str) -> None:
@@ -1525,16 +1581,19 @@ def b3_b6_counters():
             HIST_FUSED_BATCHED_LAUNCHES)
 
 
-def plain_spies():
+def plain_spies(skip=()):
     """Wrap every plain version the training paths can reach so a run can
-    count the calls (they must not run on the kernel path)."""
+    count the calls (they must not run on the kernel path); ``skip`` names
+    the ones a path runs as its own body (the unfused strict body's split
+    scan, ``split_iter_plain``, under per-node sampling)."""
     import lightgbm_tpu_torch.models.tree as T
     import lightgbm_tpu_torch.ops.histogram as H
 
     calls = {"plain": 0}
-    targets = [(H, "hist_fused_plain"), (H, "hist_segstats_plain"),
-               (H, "hist_fused_batched_plain"), (T, "hist_partition_plain"),
-               (T, "split_iter_plain")]
+    targets = [(m, name) for m, name in (
+        (H, "hist_fused_plain"), (H, "hist_segstats_plain"),
+        (H, "hist_fused_batched_plain"), (T, "hist_partition_plain"),
+        (T, "split_iter_plain")) if name not in skip]
     origs = [(m, name, getattr(m, name)) for m, name in targets]
 
     def counted(fn):
@@ -1552,11 +1611,12 @@ def plain_spies():
     return calls, restore
 
 
-def counted_run(fn):
+def counted_run(fn, skip=()):
     """``fn()`` with every counter at 0 just before and read just after;
-    returns (result, seconds, counts, plain-version calls)."""
+    returns (result, seconds, counts, plain-version calls) (``skip``: see
+    :func:`plain_spies`)."""
     si, ss, sb = b3_b6_counters()
-    calls, restore = plain_spies()
+    calls, restore = plain_spies(skip)
     try:
         torch.cuda.synchronize()
         reset_counters()
@@ -2892,6 +2952,373 @@ def phase_recovery_sweep(ds, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: examples/bagging_boosting.py's calls, and rf with per-node
+# sampling at full width
+# ---------------------------------------------------------------------------
+def host_syncs(fn):
+    """``fn()`` and the call sites of the host syncs it made, found by
+    PyTorch's sync debug mode (a warning per synchronising call: a
+    device-to-host read, a blocking host-to-device copy; a prototype that,
+    by its own warning, does not yet detect every such call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return out, sites
+
+
+def mask_table_syncs(dev):
+    """Host syncs of drawing the per-node mask tables at the north star's
+    shapes: one tree's (the wave grower's overgrow capacity) and a batch's
+    (cv()'s five elements)."""
+    from lightgbm_tpu_torch.models.feature_mask import (node_mask_fn,
+                                                        node_mask_table)
+    from lightgbm_tpu_torch.utils.random import key_tensor, split_on
+
+    mask = torch.ones(NUM_FEATURES, device=dev)
+    cap = 2 * 2 * NUM_LEAVES
+
+    def draw():
+        key_tensor([(0, 7), (3, 5)], dev)      # the strict grower's keys
+        one = node_mask_fn((0, 7), 5 / 28, NUM_FEATURES, mask, False, cap)
+        batch = node_mask_table(split_on((0, 7), CV_FOLDS, dev),
+                                torch.full((CV_FOLDS,), 0.5, device=dev),
+                                mask.expand(CV_FOLDS, -1), cap)
+        return one(torch.arange(cap, device=dev)), batch
+    (one, batch), sites = host_syncs(draw)
+    check(one.shape == (cap, NUM_FEATURES) and bool((one.sum(1) == 5).all())
+          and batch.shape == (CV_FOLDS, cap, NUM_FEATURES),
+          "14b: mask tables of the wrong shape or fraction")
+    return sites
+
+
+def add_launches(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def rmse(pred, truth):
+    return float(np.sqrt(np.mean((np.asarray(pred, np.float64) - truth)
+                                 ** 2)))
+
+
+def phase_bagging_boosting(dev, launches):
+    """14a: the script's calls at its own sizes, on the card."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.sklearn import LGBMRandomForestRegressor
+    from lightgbm_tpu_torch.utils.datasets import make_boosting_curve
+
+    X, y = make_boosting_curve(BB_ROWS, BB_SEED)
+    grid = np.linspace(-4, 4, 400).reshape(-1, 1)
+    truth = np.abs(grid[:, 0]) + np.cos(grid[:, 0])
+    ds = lgb.Dataset(X, label=y)
+    ds.construct()
+    check(ds.device.type == "cuda" and ds.X_binned.shape[1] == 1,
+          f"the curve's Dataset: {ds.device}, {tuple(ds.X_binned.shape)}")
+    out = {"cv": {}, "train": {}, "forest": {}}
+    # boosting side: cv (fused strict, E = 5: B6 + B3), train (B1 + B3)
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        fit, secs, counts, plain = counted_run(lambda: lgb.cv(
+            dict(BB_PARAMS, **extra), ds, num_boost_round=BB_CV_ROUNDS,
+            early_stopping_rounds=BB_CV_ES, nfold=BB_FOLDS,
+            stratified=False))
+        out["cv"][tag] = {"best_iter": fit.best_iter,
+                          "best_score": fit.best_score, "s": secs,
+                          "counts": counts, "plain_calls": plain}
+        log(f"phase 14a cv {tag}: best_iter {fit.best_iter}, best_score "
+            f"{fit.best_score!r}, {secs:.2f} s, launches "
+            f"{json.dumps(counts)}, plain calls {plain}")
+    k, p = out["cv"]["kernels"], out["cv"]["plain"]
+    check(k["counts"]["split_iter"] > 0
+          and k["counts"]["hist_segstats_f32"] > 0 and k["plain_calls"] == 0,
+          f"14a cv kernel path: launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    check(k["best_iter"] == p["best_iter"], f"14a cv best_iter kernel "
+          f"{k['best_iter']} vs plain {p['best_iter']}")
+    rel = abs(k["best_score"] - p["best_score"]) / abs(p["best_score"])
+    check(rel <= 1e-5, f"14a cv best_score kernel vs plain: rel {rel:.2e}")
+    out["cv"]["best_score_rel_diff"] = rel
+    add_launches(launches, k["counts"])
+    # the plain run trains the first BB_PLAIN_ROUNDS trees of the staged
+    # fits
+    staged, boosters = {}, {}
+    for tag, extra, rounds in (("kernels", {}, BB_TRAIN_ROUNDS),
+                               ("plain", {"hist_impl": "plain"},
+                                BB_PLAIN_ROUNDS)):
+        b, secs, counts, plain = counted_run(lambda: lgb.train(
+            dict(BB_PARAMS, **extra), ds, num_boost_round=rounds))
+        staged[tag] = {s: b.predict(grid, ntree_limit=s) for s in BB_STAGES
+                       if s <= rounds}
+        boosters[tag] = b
+        out["train"][tag] = {"rounds": rounds, "s": secs, "counts": counts,
+                             "plain_calls": plain}
+        log(f"phase 14a train {tag}: {rounds} rounds in {secs:.2f} s, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    kt = out["train"]["kernels"]
+    check(kt["counts"]["hist_fused_f32"] > 0 and kt["counts"]["split_iter"]
+          > 0 and kt["plain_calls"] == 0, f"14a train kernel path: launches "
+          f"{kt['counts']}, plain calls {kt['plain_calls']}")
+    add_launches(launches, kt["counts"])
+    staged_diff = max(float(np.abs(staged["kernels"][s]
+                                   - staged["plain"][s]).max())
+                      for s in staged["plain"])
+    check(staged_diff <= 1e-5, f"14a staged predictions kernel vs plain "
+          f"{staged_diff:.2e}")
+    errs = [rmse(staged["kernels"][s], truth) for s in BB_STAGES]
+    check(all(a > b for a, b in zip(errs, errs[1:])),
+          f"14a staged RMSEs do not fall with k: {errs}")
+    check(len(set(errs)) == len(errs), f"14a staged RMSEs repeat: {errs}")
+    out["staged_rmse"] = dict(zip(map(str, BB_STAGES), errs))
+    out["staged_kernel_minus_plain"] = staged_diff
+    # the staged model served: B4 at F = 1, one window per stage
+    rt = PredictorRuntime(pack_booster(boosters["kernels"]), max_bucket=512)
+    served, secs, counts, _ = counted_run(lambda: {
+        s: rt.predict(grid, num_iteration=s) for s in BB_STAGES})
+    check(counts["predict_forest"] >= len(BB_STAGES),
+          f"14a staged serving launches {counts}")
+    add_launches(launches, counts)
+    serve_diff = max(float(np.abs(served[s] - staged["kernels"][s]).max())
+                     for s in BB_STAGES)
+    check(serve_diff <= 1e-5, f"14a served staged predictions vs "
+          f"Booster.predict {serve_diff:.2e}")
+    out["served_staged_max_diff"] = serve_diff
+    # bagging side: the wrapper's rf (strict at 1,000 rows: B1 + B3; one
+    # column, so max_features=1 keeps it), each forest served (B4)
+    ferr = {}
+    for n_trees in BB_FORESTS:
+        def fit_and_serve():
+            rf = LGBMRandomForestRegressor(
+                n_estimators=n_trees, max_leaf_nodes=20, max_features=1,
+                random_state=345, min_samples_leaf=3)
+            rf.fit(X, y)
+            frt = PredictorRuntime(pack_booster(rf.booster_), max_bucket=512)
+            return rf.predict(grid), frt.predict(grid)
+        (pred, srv), secs, counts, plain = counted_run(fit_and_serve)
+        check(counts["predict_forest"] > 0 and counts["split_iter"] > 0
+              and plain == 0, f"14a forest of {n_trees}: launches {counts}, "
+              f"plain calls {plain}")
+        add_launches(launches, counts)
+        d = float(np.abs(pred - srv).max())
+        check(d <= 1e-5, f"14a forest of {n_trees}: served vs predict {d}")
+        ferr[n_trees] = rmse(pred, truth)
+        out["forest"][str(n_trees)] = {"s": secs, "rmse": ferr[n_trees],
+                                       "served_max_diff": d}
+        log(f"phase 14a forest of {n_trees}: {secs:.2f} s, RMSE vs truth "
+            f"{ferr[n_trees]:.4f}, launches {json.dumps(counts)}")
+    check(ferr[BB_FORESTS[-1]] < ferr[BB_FORESTS[0]],
+          f"14a forest RMSE does not fall from 1 to 100 trees: {ferr}")
+    # every kernel of the path at F = 1 against its plain version, once
+    rng = np.random.default_rng(SEED + 141)
+    bins = ds.X_binned
+    n, nb = bins.shape[0], ds.num_bins
+    st = stats_for(rng, n, dev)
+    seg = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+    f1 = {"hist_fused": fused_case("F=1 two segments", bins, st, seg, 2, nb),
+          "hist_segstats": b6_case("F=1 cv folds", bins, torch.from_numpy(
+              rng.normal(size=(n, 3 * BB_FOLDS)).astype(np.float32)).to(dev),
+              nb)}
+    for e in (1, BB_FOLDS):
+        b3_case(rng, dev, e, 1, nb, 61, "random", 30, in_place=True)
+    f1["split_iter"] = 0.0
+    gbins = torch.from_numpy(rt.packed.bin_mapper.transform(grid)).to(dev)
+    f1["predict_forest"] = max(
+        compare(rt._soa[0], gbins, float(rt.packed.shrink),
+                float(rt.packed.init_score[0]), s, rt.packed.depth_cap, 0,
+                f"14a B4 F=1 first {s} trees") for s in BB_STAGES)
+    out["f1_max_abs_err"] = f1
+    log(f"phase 14a F=1 kernels vs plain: {json.dumps(f1)}")
+    tpu = {str(a): b for a, b in BB_TPU_STAGED_RMSE.items()}
+    log(f"phase 14a: best_iter {k['best_iter']}, cv {k['s']:.2f} s (plain "
+        f"{p['s']:.2f}), train {kt['s']:.2f} s; staged RMSE "
+        f"{json.dumps(out['staged_rmse'])} (EXAMPLES_r05.json, TPU, JAX, a "
+        f"quality reference only: {json.dumps(tpu)}); forest RMSE "
+        f"{json.dumps({str(a): b for a, b in ferr.items()})}")
+    return out
+
+
+def phase_rf_north_star(dev, X, y, launches):
+    """14b: an rf forest with per-node sampling at the north star."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    runs = {"kernels": [], "plain": []}
+    boosters = {}
+    for tag in ("kernels", "plain", "plain", "kernels"):       # in turns
+        extra = {} if tag == "kernels" else {"hist_impl": "plain"}
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(dict(RF_PARAMS, **extra), ds, RF_TREES))
+        runs[tag].append({"s_per_round": secs / RF_TREES, "counts": counts,
+                          "plain_calls": plain})
+        boosters.setdefault(tag, b)
+        log(f"phase 14b rf {tag}: {RF_TREES} trees in {secs:.2f} s, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    k = runs["kernels"][0]
+    check(k["counts"]["hist_fused_bf16"] > 0
+          and k["counts"]["hist_partition_bf16"] > 0
+          and k["plain_calls"] == 0, f"14b kernel path: launches "
+          f"{k['counts']}, plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    aucs = {t: auc(b, Xv, yv, dev) for t, b in boosters.items()}
+    d_auc = aucs["kernels"] - aucs["plain"]
+    check(abs(d_auc) <= AUC_TOL, f"14b AUC kernel - plain {d_auc:.2e}")
+    # the dyadic tier: the first tree of the kernel path equals the plain
+    # path's
+    w = np.random.default_rng(SEED + 142).normal(0, 1, NUM_FEATURES)
+    order = np.argsort(X @ w + 0.6 * np.sin(X[:, 0] * 2))
+    yd = np.zeros(len(X), np.float32)
+    yd[order[len(X) // 2:]] = 1.0
+    dsd = lgb.Dataset(X, label=yd, params={"max_bin": MAX_BIN})
+    pd_ = dict(RF_PARAMS, objective="regression", hist_dtype="f32")
+    bk = lgb.train(pd_, dsd, 1)
+    bp = lgb.train(dict(pd_, hist_impl="plain"), dsd, 1)
+    a, b = tree_arrays(bk, 0), tree_arrays(bp, 0)
+    check(all(np.array_equal(a[key], b[key]) for key in a),
+          "14b dyadic first rf trees of kernel and plain paths differ")
+    del dsd
+    # the mask table adds no host sync: its draws alone make none; a
+    # round's syncs with bynode on and off are reported beside its waves
+    # (one B2 launch each, a host read each), which differ with the trees
+    sites = mask_table_syncs(dev)
+    check(not sites, f"14b: drawing the mask tables made {len(sites)} host "
+          f"syncs, at {sites}")
+    syncs = {"mask_tables": len(sites)}
+    for tag, ff in (("bynode", RF_PARAMS["feature_fraction_bynode"]),
+                    ("bynode_off", 1.0)):
+        bs = lgb.Booster(dict(RF_PARAMS, feature_fraction_bynode=ff), ds)
+        bs.update()
+        (_, sites), _, counts, _ = counted_run(lambda: host_syncs(
+            lambda: [bs.update() for _ in range(SYNC_ROUNDS)]))
+        n, waves = len(sites), counts["hist_partition_bf16"]
+        syncs[tag] = {"per_round": n / SYNC_ROUNDS,
+                      "waves_per_round": waves / SYNC_ROUNDS,
+                      "per_wave": n / waves if waves else None}
+    log(f"phase 14b host syncs: {json.dumps(syncs)}")
+    # the forest packed and served (B4)
+    booster = boosters["kernels"]
+    rows = Xv[:RF_SERVE_ROWS]
+    rt = PredictorRuntime(pack_booster(booster), max_bucket=MAX_BUCKET)
+    served, secs, counts, _ = counted_run(lambda: rt.predict(rows))
+    check(counts["predict_forest"] > 0, f"14b serving launches {counts}")
+    add_launches(launches, counts)
+    sdiff = float(np.abs(served - booster.predict(rows)).max())
+    check(sdiff <= 1e-5, f"14b served vs Booster.predict {sdiff:.2e}")
+    out = {"trees": RF_TREES, "leaves": RF_PARAMS["num_leaves"],
+           "feature_fraction_bynode": RF_PARAMS["feature_fraction_bynode"],
+           "s_per_round_in_turns": {t: [r["s_per_round"] for r in v]
+                                    for t, v in runs.items()},
+           "launches": k["counts"], "auc": aucs,
+           "auc_kernel_minus_plain": d_auc,
+           "dyadic_first_tree_leaves": int(a["num_leaves"]),
+           "host_syncs_per_round": syncs,
+           "serve": {"rows": RF_SERVE_ROWS, "s": secs,
+                     "rows_per_s": RF_SERVE_ROWS / secs,
+                     "max_abs_diff": sdiff, "launches": counts}}
+    log(f"phase 14b: {json.dumps(out)}")
+    return out
+
+
+def phase_bynode_cv(dds, launches):
+    """14c: the batched unfused strict body (diamonds cv, E = 5, B6, no
+    B3)."""
+    import lightgbm_tpu_torch as lgb
+
+    res = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        fit, secs, counts, plain = counted_run(
+            lambda: lgb.cv(dict(BYNODE_CV_PARAMS, **extra), dds,
+                           num_boost_round=BYNODE_CV_ROUNDS, nfold=CV_FOLDS,
+                           metrics="rmse", early_stopping_rounds=CV_ES,
+                           stratified=False, seed=SWEEP_SEED),
+            skip=("split_iter_plain",))
+        res[tag] = {"best_iter": fit.best_iter, "best_score": fit.best_score,
+                    "s": secs, "counts": counts, "plain_calls": plain}
+        log(f"phase 14c cv bynode {tag}: best_iter {fit.best_iter}, "
+            f"best_score {fit.best_score!r}, {secs:.2f} s, launches "
+            f"{json.dumps(counts)}, plain histogram calls {plain}")
+    k, p = res["kernels"], res["plain"]
+    check(k["counts"]["split_iter"] == 0, "14c: B3 launched under bynode")
+    check(k["counts"]["hist_segstats_f32"] > 0 and k["plain_calls"] == 0,
+          f"14c kernel path: launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    check(k["best_iter"] == p["best_iter"], f"14c best_iter kernel "
+          f"{k['best_iter']} vs plain {p['best_iter']}")
+    rel = abs(k["best_score"] - p["best_score"]) / abs(p["best_score"])
+    check(rel <= 1e-5, f"14c best_score kernel vs plain: rel {rel:.2e}")
+    res["best_score_rel_diff"] = rel
+    add_launches(launches, k["counts"])
+    return res
+
+
+def phase_bynode_waves(launches):
+    """14d: the batched waves under bynode (fused cv at 2^19 rows: B6
+    roots, B5 waves)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xb, yb = make_higgs_like(BATCH_CV_ROWS, NUM_FEATURES, seed=SEED + 143)
+    ds = lgb.Dataset(Xb, label=yb, params={"max_bin": MAX_BIN})
+    ds.construct()
+    params = dict(TRAIN_PARAMS, num_leaves=BATCH_CV_LEAVES,
+                  feature_fraction_bynode=0.5)
+    res = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        fit, secs, counts, plain = counted_run(
+            lambda: lgb.cv(dict(params, **extra), ds,
+                           num_boost_round=BATCH_CV_ROUNDS, nfold=CV_FOLDS,
+                           stratified=False, seed=SWEEP_SEED))
+        res[tag] = {"logloss_mean": fit["valid binary_logloss-mean"],
+                    "s_per_round": secs / BATCH_CV_ROUNDS, "counts": counts,
+                    "plain_calls": plain}
+        log(f"phase 14d cv waves bynode {tag}: {secs:.2f} s, launches "
+            f"{json.dumps(counts)}, plain calls {plain}")
+    k, p = res["kernels"], res["plain"]
+    check(k["counts"]["hist_fused_batched_bf16"] > 0
+          and k["counts"]["hist_segstats_bf16"] > 0 and k["plain_calls"] == 0,
+          f"14d kernel path: launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    gap = float(np.max(np.abs(np.asarray(k["logloss_mean"])
+                              - np.asarray(p["logloss_mean"]))))
+    check(len(k["logloss_mean"]) == BATCH_CV_ROUNDS and gap <= NS_CV_TOL,
+          f"14d per-round fold-mean logloss kernel vs plain {gap:.2e}")
+    res["logloss_kernel_minus_plain"] = gap
+    add_launches(launches, k["counts"])
+    return res
+
+
+def phase_bagging_rf(dev, X, y, dds):
+    """Phase 14, every launch counter at 0 just before each run and read
+    just after; fails unless every kernel of the path launched."""
+    t0 = time.perf_counter()
+    launches = {}
+    out = {"bagging_boosting": phase_bagging_boosting(dev, launches),
+           "rf_north_star": phase_rf_north_star(dev, X, y, launches),
+           "bynode_cv": phase_bynode_cv(dds, launches),
+           "bynode_waves": phase_bynode_waves(launches)}
+    for name in ("hist_fused_f32", "hist_fused_bf16", "hist_partition_bf16",
+                 "split_iter", "predict_forest", "hist_segstats_f32",
+                 "hist_segstats_bf16", "hist_fused_batched_bf16"):
+        check(launches.get(name, 0) > 0, f"phase 14: {name} never launched")
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 14: {out['s']:.1f} s, launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2960,6 +3387,8 @@ def main() -> int:
     rec_launches = dict(recovery["train"]["launches"])
     for k, v in recovery["sweep"]["launches"].items():
         rec_launches[k] = rec_launches.get(k, 0) + v
+    phase14 = phase_bagging_rf(dev, X, y, dds)
+    l14 = phase14["launches"]
 
     kernels = []
     for prec in PRECISIONS:
@@ -2970,7 +3399,8 @@ def main() -> int:
             by_phase.update({"6": train["serve_predict_launches"],
                              "11": multiclass["serve_predict_launches"],
                              "12e": int8["cli"]["serve_predict_launches"],
-                             "13": rec_launches["predict_forest"]})
+                             "13": rec_launches["predict_forest"],
+                             "14": l14["predict_forest"]})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -2992,7 +3422,8 @@ def main() -> int:
                 "launches": train["launches"][mode][f"{name}_{mode}"],
                 "launches_by_phase": {
                     "6": train["launches"][mode][f"{name}_{mode}"],
-                    "13": rec_launches.get(f"{name}_{mode}", 0)},
+                    "13": rec_launches.get(f"{name}_{mode}", 0),
+                    "14": l14.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3011,7 +3442,8 @@ def main() -> int:
         "launches_by_phase": {
             "8b": cv_res["kernels"]["counts"]["split_iter"],
             "8c": sweep["launches"]["split_iter"],
-            "13": rec_launches["split_iter"]},
+            "13": rec_launches["split_iter"],
+            "14": l14["split_iter"]},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -3029,7 +3461,8 @@ def main() -> int:
             "launches": launches_b6[mode],
             "launches_by_phase": {
                 "8b" if mode == "f32" else "8c": launches_b6[mode],
-                "13": rec_launches.get(f"hist_segstats_{mode}", 0)},
+                "13": rec_launches.get(f"hist_segstats_{mode}", 0),
+                "14": l14.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3048,6 +3481,8 @@ def main() -> int:
             "name": f"hist_fused_batched_{mode}", "route": "cuda",
             "source": BATCHED_SOURCE[0], "replaces": BATCHED_SOURCE[1],
             "launches": launches_b5[mode], "max_abs_err": b5_errs[mode],
+            "launches_by_phase": {
+                "14": l14.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -3078,7 +3513,7 @@ def main() -> int:
                                 if isinstance(r, dict) else r
                                 for t, r in ns_cv.items()},
               "b5_times": b5_times, "multiclass": multiclass,
-              "int8": int8, "recovery": recovery,
+              "int8": int8, "recovery": recovery, "phase14": phase14,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

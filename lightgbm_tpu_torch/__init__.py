@@ -21,7 +21,12 @@ nothing of ``lightgbm_tpu``.  Ported so far:
   interchange with the reference's, ``train_resumable`` with its SIGTERM
   drain), the sweep's per-hyper-batch carry checkpoints, ``.RData`` sweep
   ledgers (``utils.rdata``) and the CLI's ``task=train checkpoint_dir=`` and
-  ``task=sweep``.
+  ``task=sweep``;
+* the bagging/boosting workflow — ``boosting="rf"``, per-node column
+  sampling (``feature_fraction_bynode``), staged ``predict(ntree_limit=)``
+  and the scikit-learn style estimators (``sklearn``: ``LGBMRegressor``,
+  ``LGBMClassifier``, ``LGBMRandomForestRegressor``), loaded lazily as in
+  the reference, like ``serving``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
 
@@ -31,19 +36,47 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
 """
 
 from .callback import (CallbackEnv, EarlyStopException, early_stopping,
-                       log_evaluation, record_evaluation)
-from .dataset import Dataset
+                       log_evaluation, record_evaluation, reset_parameter)
+from .config import Params, parse_params
+from .dataset import BinMapper, Dataset
 from .device import NoDeviceError
 from .engine import CVBooster, CVResult, cv, train
 from .models.gbdt import Booster
+from .models.tree import Tree
 from .sweep import SweepLedger, SweepService, expand_grid, run_grid_search
 from .training import train_resumable
 
 __version__ = "0.3.0"
 
 __all__ = [
-    "Booster", "CVBooster", "CVResult", "CallbackEnv", "Dataset",
-    "EarlyStopException", "NoDeviceError", "SweepLedger", "SweepService",
-    "cv", "early_stopping", "expand_grid", "log_evaluation",
-    "record_evaluation", "run_grid_search", "train", "train_resumable",
+    "BinMapper", "Booster", "CVBooster", "CVResult", "CallbackEnv",
+    "Dataset", "EarlyStopException", "NoDeviceError", "Params",
+    "SweepLedger", "SweepService", "Tree", "cv", "early_stopping",
+    "expand_grid", "log_evaluation", "parse_params", "record_evaluation",
+    "reset_parameter", "run_grid_search", "train", "train_resumable",
 ]
+
+_SERVING = ("PackedForest", "PredictorRuntime", "MicroBatcher",
+            "pack_booster")
+_SKLEARN = ("LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
+            "LGBMRandomForestRegressor")
+
+
+def __getattr__(name):
+    # the estimators and the serving runtime load on first use, as in the
+    # reference; plotting (ROADMAP item 10) is refused by name
+    import importlib
+
+    if name in ("serving", "sklearn", "faults"):
+        return importlib.import_module(f".{name}", __name__)
+    if name in _SERVING:
+        return getattr(importlib.import_module(".serving", __name__), name)
+    if name in _SKLEARN:
+        return getattr(importlib.import_module(".sklearn", __name__), name)
+    if name in ("plot_importance", "plot_metric", "create_tree_digraph",
+                "plot_split_value_histogram"):
+        raise NotImplementedError(
+            f"{name} (plotting) is not ported yet: ROADMAP slice 3 "
+            "(breadth of training), item 10")
+    raise AttributeError(
+        f"module 'lightgbm_tpu_torch' has no attribute '{name}'")

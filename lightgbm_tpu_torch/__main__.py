@@ -47,16 +47,17 @@ leaderboard goes to stdout as JSON lines, a summary to stderr; a preempted
 sweep exits 0 and resumes on rerun.  ``sweep_devices > 1`` is not ported yet
 and exits by name.
 
-``task=serve`` (alias ``predict-server``) loads a packed ``.npz`` model
-(written by either package), builds the ModelBank-backed PredictorRuntime +
-micro-batching queue and serves newline-delimited requests from stdin to
+``task=serve`` (alias ``predict-server``) loads a packed ``.npz`` model or a
+JSON text model, packed on load (written by either package), builds the
+ModelBank-backed PredictorRuntime + micro-batching queue and serves
+newline-delimited requests from stdin to
 stdout — one CSV row (or JSON array) of features in, one prediction out, no
 network dependency.  Keys are the reference's (``output_format``,
 ``raw_score``, ``num_iteration``, ``request_timeout_ms``, ``show_stats``,
 ``max_bucket``, ``max_cache_entries``, ``warm_buckets``,
 ``max_queue_depth``, ``shed_policy``, ``canary_rows``,
 ``compile_cache_dir`` (a no-op here), ``mesh_devices`` (must be 1),
-``shard_policy``, ``forest_precision``).  ``!swap <model.npz>`` /
+``shard_policy``, ``forest_precision``).  ``!swap <model>`` (either kind) /
 ``!rollback`` / ``!stats`` request lines are control commands (acks on
 stderr); SIGTERM drains gracefully; a kernel that fails to build or launch
 stops the server with a non-zero exit.
@@ -139,7 +140,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     input_model = cfg.pop("input_model", None)
     if task in ("serve", "predict-server"):
         if input_model is None:
-            raise SystemExit("task=serve requires input_model=<model.npz>")
+            raise SystemExit("task=serve requires input_model=<model.npz "
+                             "or model.txt>")
         return _serve(input_model, cfg)
     if task == "refresh":
         raise SystemExit(
@@ -425,7 +427,8 @@ def _serve(input_model: str, cfg: Dict[str, str],
 
     The model lives in a ModelBank, so lines starting with ``!`` are
     control commands (acks on stderr, so the prediction stream stays
-    clean): ``!swap <model.npz>`` hot-swaps to a new artifact
+    clean): ``!swap <model>`` hot-swaps to a new artifact (``.npz``, or
+    a text model packed on load)
     (validate -> warm -> canary -> atomic flip; a rejected swap leaves
     the current version serving), ``!rollback`` flips back to the
     previous resident version, ``!stats`` prints a stats snapshot.
@@ -519,12 +522,17 @@ def _serve(input_model: str, cfg: Dict[str, str],
         raise die(str(e)) from None
 
     def deploy(path: str) -> dict:
-        if not path.endswith(".npz"):
-            raise SwapRejected(
-                "ingest", f"{path}: only packed .npz artifacts are served; "
-                "pack a text model first (serving.pack_booster(Booster("
-                "model_file=...)).save(path))")
-        return bank.deploy(_SERVE_MODEL, path, raw_score=raw_score)
+        if path.endswith(".npz"):
+            return bank.deploy(_SERVE_MODEL, path, raw_score=raw_score)
+        # a JSON text model is packed on load, as the reference does
+        from .models.gbdt import Booster
+        from .serving import pack_booster
+
+        try:
+            packed = pack_booster(Booster(model_file=path, device="cpu"))
+        except (OSError, ValueError, KeyError) as e:
+            raise SwapRejected("ingest", f"{path}: {e}") from None
+        return bank.deploy(_SERVE_MODEL, packed, raw_score=raw_score)
 
     try:
         rep = deploy(input_model)

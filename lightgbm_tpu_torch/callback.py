@@ -2,9 +2,8 @@
 
 The reference's call sites exercise early stopping with
 ``early_stopping_rounds=5`` in every ``lgb.cv`` call (r/gridsearchCV.R).
-Pure Python, the same code as the reference's: early stopping and
-evaluation logging and recording.  The ``reset_parameter`` schedule
-callback is not ported yet (ROADMAP slice 3).
+Pure Python, the same code as the reference's: early stopping, evaluation
+logging and recording, and the ``reset_parameter`` schedule.
 """
 
 from __future__ import annotations
@@ -135,4 +134,25 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             raise EarlyStopException(best_iter[i] + 1, best_results[i])
 
     _callback.order = 30
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Per-iteration parameter schedule (LightGBM ``reset_parameter``):
+    each keyword is a list of length ``num_boost_round`` or a
+    ``callable(iteration) -> value``.  It runs before each round, so round
+    ``i`` trains with the scheduled values (``Booster.reset_parameter``);
+    a shape-static parameter (num_leaves, max_bin, objective) raises."""
+
+    def _callback(env: CallbackEnv) -> None:
+        new = {}
+        for key, spec in kwargs.items():
+            value = (spec(env.iteration - env.begin_iteration)
+                     if callable(spec) else spec[env.iteration
+                                                - env.begin_iteration])
+            new[key] = value
+        env.model.reset_parameter(new)
+
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback

@@ -375,6 +375,13 @@ class BinMapper:
 
     # -- persistence glue (single JSON schema shared by the model file and
     # the packed serving artifact — utils.serialize owns the layout) -------
+    def bin_upper_bound(self, feature: int, bin_idx: int) -> float:
+        """Raw-value threshold of ``bin <= bin_idx`` (for model dumps)."""
+        ub = self.upper_bounds[feature]
+        if bin_idx < len(ub):
+            return float(ub[bin_idx])
+        return float("inf")
+
     def to_dict(self) -> dict:
         from .utils.serialize import mapper_to_dict
         return mapper_to_dict(self)
@@ -397,6 +404,12 @@ def _to_2d_float_array(data: Any) -> np.ndarray:
     if arr.ndim != 2:
         raise ValueError(f"data must be 2-D, got shape {arr.shape}")
     return np.ascontiguousarray(arr, dtype=np.float64)
+
+
+def _refuse_group():
+    raise NotImplementedError(
+        "query groups (ranking objectives) are not ported yet: ROADMAP "
+        "slice 3 (breadth of training), item 8")
 
 
 def _to_1d_float_array(x: Any) -> np.ndarray:
@@ -424,11 +437,10 @@ class Dataset:
                  device: Union[str, torch.device, None] = None, *,
                  init_score: Any = None, group: Any = None,
                  feature_name: Union[str, Sequence[str]] = "auto",
-                 categorical_feature: Union[str, Sequence] = "auto"):
+                 categorical_feature: Union[str, Sequence] = "auto",
+                 free_raw_data: bool = False):
         if group is not None:
-            raise NotImplementedError(
-                "query groups (ranking objectives) are not ported yet: "
-                "ROADMAP slice 3 (breadth of training)")
+            _refuse_group()
         if categorical_feature not in ("auto", None, [], ()):
             raise NotImplementedError(
                 "categorical features are not ported yet: ROADMAP slice 3 "
@@ -448,6 +460,7 @@ class Dataset:
                             else _to_1d_float_array(init_score))
         self.reference = reference
         self.params: Dict[str, Any] = dict(params or {})
+        self.free_raw_data = free_raw_data
         self._feature_name_arg = feature_name
         self.bin_mapper: Optional[BinMapper] = None
         self._constructed = False
@@ -479,11 +492,61 @@ class Dataset:
     def get_label(self) -> Optional[np.ndarray]:
         return self._label
 
+    def set_label(self, label) -> "Dataset":
+        self._label = None if label is None else _to_1d_float_array(label)
+        if self._constructed and self._label is not None:
+            self._put_targets()
+        return self
+
     def get_weight(self) -> Optional[np.ndarray]:
         return self._weight
 
+    def set_weight(self, weight) -> "Dataset":
+        self._weight = None if weight is None else _to_1d_float_array(weight)
+        if self._constructed:
+            self._put_targets()
+        return self
+
+    def get_group(self):
+        _refuse_group()
+
+    def set_group(self, group) -> "Dataset":
+        _refuse_group()
+
     def get_init_score(self) -> Optional[np.ndarray]:
         return self._init_score
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self._init_score = (None if init_score is None
+                            else _to_1d_float_array(init_score))
+        return self
+
+    def feature_num_bin(self, feature: int) -> int:
+        """Number of bins a feature uses (LightGBM
+        ``Dataset.feature_num_bin``), indexed by original feature."""
+        self.construct()
+        return int(self.bin_mapper.n_bins[int(feature)])
+
+    def get_feature_name(self) -> List[str]:
+        self.construct()
+        return list(self.feature_names)
+
+    def get_field(self, name: str):
+        if name == "group":
+            _refuse_group()
+        return {"label": self._label, "weight": self._weight,
+                "init_score": self._init_score}[name]
+
+    def set_field(self, name: str, value) -> "Dataset":
+        return getattr(self, f"set_{name}")(value)
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this dataset's mapper, on its
+        device."""
+        return Dataset(data, label=label, weight=weight, group=group,
+                       init_score=init_score, reference=self,
+                       params=params or self.params)
 
     # -- construction -------------------------------------------------------
     def _resolve_feature_names(self, num_features: int) -> List[str]:

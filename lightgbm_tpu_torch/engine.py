@@ -77,7 +77,7 @@ def train(
     if init_model is not None:
         raise NotImplementedError(
             "init_model (continued training) is not ported yet: ROADMAP "
-            "slice 3 (breadth of training)")
+            "slice 3 (breadth of training), item 10")
     booster = Booster(p, train_set)
 
     if valid_sets is not None:

@@ -25,11 +25,13 @@ This module trains every (config, fold) pair of a bucket together:
   in the carry.  The host reads one flag per round (whether every config
   has stopped), the loop's only host read.
 
-Bagging and ``feature_fraction`` draw from the reference's key streams:
-round ``r``'s key is ``fold_in(PRNGKey(seed), r)``, split over the batch
-elements (``utils/random.py``), so the same call gives the same trees as the
-reference's fused program.  CV keeps no trees: the carry is the predictions,
-the bags and the metric history.
+Bagging, ``feature_fraction`` and ``feature_fraction_bynode`` draw from the
+reference's key streams: round ``r``'s key is ``fold_in(PRNGKey(seed), r)``,
+split over the batch elements (``utils/random.py``), so the same call gives
+the same trees as the reference's fused program.  With per-node sampling on
+(any config of the batch) the strict trees take the unfused body, as the
+reference's; ``boosting="rf"`` takes the per-fold route.  CV keeps no
+trees: the carry is the predictions, the bags and the metric history.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from ..metrics import get_metric
 from ..objectives import create_objective
 from ..ops.sampling import sample_bag_rows, sample_feature_mask_rows
 from ..ops.split import fma
-from ..utils.random import fold_in, fold_in_keys, prng_key, split_keys
+from ..utils.random import (fold_in, fold_in_keys, fold_in_tensor, prng_key,
+                            split_keys, split_on)
 from .gbdt import (HyperScalarsBatch, check_slice_scope, resolve_hist_dtype,
                    resolve_wave_width)
 from .tree import _PK, grow_trees_batched
@@ -167,6 +170,9 @@ class FusedCVProgram:
         ff = [p.feature_fraction for p in param_list]
         self._ff_host = rep(ff, "cpu")
         self._use_ff = any(np.float32(f) < 1.0 for f in ff)
+        # per-node sampling: on for the batch when any config samples
+        self._bynode = any(p.feature_fraction_bynode < 1.0
+                           for p in param_list)
         # configs of a bucket share bagging_freq (the sweep's bucket key)
         self.bagging_freq = p0.bagging_freq if any(
             p.bagging_fraction < 1.0 for p in param_list) else 0
@@ -225,16 +231,26 @@ class FusedCVProgram:
             bag = c.bag
         num_features = ts.X_binned.shape[1]
         if self._use_ff:
-            tkeys = split_keys(fold_in(rkey, 1), self.batch)
             fmask = sample_feature_mask_rows(
-                fold_in_keys(tkeys, 1), self._ff_host,
-                num_features).to(dev)
+                fold_in_keys(split_keys(fold_in(rkey, 1), self.batch), 1),
+                self._ff_host, num_features).to(dev)
         else:
             fmask = torch.ones((self.batch, num_features), dtype=_F32,
                                device=dev)
         g, h = self.obj.grad_hess(c.pred, ts.y, ts.w)
         k = self.num_class
         hyper = self.hyper
+        bynode = {}
+        if self._bynode:
+            # element b's grower key fold_in(split(fold_in(round key, 1),
+            # E)[b], 2), split over its classes for multiclass, as the
+            # reference's element round keys it (on the device: no copy)
+            gkeys = fold_in_keys(split_on(fold_in(rkey, 1), self.batch,
+                                          dev), 2)
+            if k > 1:
+                gkeys = fold_in_tensor(gkeys, torch.arange(
+                    k, device=dev)).reshape(-1, 2)
+            bynode = dict(keys=gkeys)
         if k > 1:
             # element b's class c is grower element b * K + c (the
             # reference's vmap over classes inside the vmap over the batch)
@@ -249,10 +265,12 @@ class FusedCVProgram:
         else:
             g, h = g * bag, (h * bag).expand_as(g)
             stats_t = torch.stack([g.t(), h.t(), bag.t()], dim=-1)  # [n, E, 3]
+        if bynode:
+            bynode["ff_bynode"] = hyper.feature_fraction_bynode
         P, _, row_leaf = grow_trees_batched(
             ts.X_binned, stats_t, fmask, hyper.ctx(), hyper.max_depth,
             self.num_leaves, self.num_bins, self.wave_width,
-            hist_impl=self.hist_impl, hist_dtype=self.hist_dtype)
+            hist_impl=self.hist_impl, hist_dtype=self.hist_dtype, **bynode)
         vals = P[:, :, _PK.LEAF_VALUE].gather(1, row_leaf.t().to(torch.int64))
         if k > 1:
             vals = vals.view(self.batch, k, self.n_pad).transpose(1, 2)

@@ -50,7 +50,7 @@ from ..ops.predict import (forest_depth_cap, predict_forest_binned,
                            predict_tree_binned)
 from ..ops.sampling import sample_bag
 from ..ops.split import SplitContext, fma
-from ..utils.random import fold_in, prng_key
+from ..utils.random import fold_in, prng_key, split_on
 from .feature_mask import compose_tree_mask
 from .tree import _PK, Tree, _tree_from_packed, grow_tree, grow_trees_batched
 
@@ -84,6 +84,7 @@ class HyperScalars(NamedTuple):
     max_depth: int
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
+    feature_fraction_bynode: float = 1.0
 
     @staticmethod
     def from_params(p: Params) -> "HyperScalars":
@@ -95,7 +96,8 @@ class HyperScalars(NamedTuple):
             min_gain_to_split=float(p.min_gain_to_split),
             max_depth=int(p.max_depth),
             max_delta_step=float(p.max_delta_step),
-            path_smooth=float(p.path_smooth))
+            path_smooth=float(p.path_smooth),
+            feature_fraction_bynode=float(p.feature_fraction_bynode))
 
     def ctx(self) -> SplitContext:
         return SplitContext(
@@ -121,6 +123,7 @@ class HyperScalarsBatch(NamedTuple):
     max_depth: torch.Tensor
     max_delta_step: torch.Tensor
     path_smooth: torch.Tensor
+    feature_fraction_bynode: torch.Tensor
 
     @staticmethod
     def from_params(param_list, repeat: int, device) -> "HyperScalarsBatch":
@@ -219,9 +222,8 @@ def check_slice_scope(p: Params) -> None:
     def later(what: str, where: str):
         raise NotImplementedError(f"{what} is not ported yet: {where}")
 
-    if p.boosting != "gbdt":
-        later(f"boosting='{p.boosting}'",
-              _slice3(4 if p.boosting == "rf" else 6))
+    if p.boosting not in ("gbdt", "rf"):
+        later(f"boosting='{p.boosting}'", _slice3(6))
     if p.objective not in ("regression", "binary", "multiclass",
                            "multiclassova"):
         later(f"objective='{p.objective}'", _slice3(
@@ -237,8 +239,9 @@ def check_slice_scope(p: Params) -> None:
         later("interaction_constraints", _slice3(9))
     if p.extra_trees:
         later("extra_trees", _slice3(9))
-    if p.feature_fraction_bynode < 1.0:
-        later("feature_fraction_bynode < 1", _slice3(4))
+    if p.extra.get("hist_dtype") == "bf16sr":
+        later("hist_dtype='bf16sr' (stochastically rounded bf16 "
+              "statistics)", "ROADMAP item 16")
     if p.feature_screen != "off":
         later(f"feature_screen='{p.feature_screen}'", _SLICE5)
     if p.tree_learner != "serial":
@@ -397,12 +400,22 @@ class Booster:
         lr = torch.tensor(hyper.learning_rate, dtype=_F32, device=self.device)
         grow = dict(hist_impl=p.extra.get("hist_impl", "auto"),
                     hist_dtype=resolve_hist_dtype(p, n_pad))
+        # the grower key (per-node sampling): the round key, split per
+        # class for multiclass, as the reference's round step keys it
+        rkey = fold_in((int(self._key[0]), int(self._key[1])), i)
+        bynode = p.feature_fraction_bynode < 1.0
+        is_rf = p.boosting == "rf"     # rf keeps _pred_train at the init
         k = self._num_class
         if k > 1:
             # the K class trees as one batch (mc_round_update)
             stats_t = torch.stack([g * bag[:, None], h * bag[:, None],
                                    (bag > 0).to(_F32)[:, None].expand_as(g)],
                                   dim=-1)                      # [n, K, 3]
+            if bynode:
+                grow.update(ff_bynode=torch.full(
+                    (k,), hyper.feature_fraction_bynode, dtype=_F32,
+                    device=self.device),
+                    keys=split_on(rkey, k, self.device))
             P, n_leaves, row_leaf = grow_trees_batched(
                 ds.X_binned, stats_t, fmask.expand(k, -1),
                 SplitContext.per_element([hyper.ctx()] * k, self.device),
@@ -410,27 +423,44 @@ class Booster:
                 p.num_leaves, self._num_bins, resolve_wave_width(p, n_pad),
                 **grow)
             tree = _tree_from_packed(P, n_leaves)             # [K, M] fields
-            vals = P[..., _PK.LEAF_VALUE].gather(
-                1, row_leaf.t().to(torch.int64))              # [K, n]
-            self._pred_train = fma(lr, vals.t(), self._pred_train)
+            if not is_rf:
+                vals = P[..., _PK.LEAF_VALUE].gather(
+                    1, row_leaf.t().to(torch.int64))          # [K, n]
+                self._pred_train = fma(lr, vals.t(), self._pred_train)
         else:
             stats = torch.stack([g * bag, h * bag, (bag > 0).to(_F32)],
                                 dim=-1)
+            if bynode:
+                grow.update(ff_bynode=hyper.feature_fraction_bynode,
+                            key=rkey)
             tree, row_leaf = grow_tree(
                 ds.X_binned, stats, fmask, hyper.ctx(), p.num_leaves,
                 self._num_bins, hyper.max_depth,
                 wave_width=resolve_wave_width(p, n_pad), **grow)
-            self._pred_train = fma(
-                lr, tree.leaf_value[row_leaf.to(torch.int64)],
-                self._pred_train)
+            if not is_rf:
+                self._pred_train = fma(
+                    lr, tree.leaf_value[row_leaf.to(torch.int64)],
+                    self._pred_train)
+        if not is_rf and p.learning_rate != self._base_lr:
+            # a reset_parameter schedule: bake lr_i / base into the stored
+            # values so the uniform predict-time shrink (base) gives lr_i
+            scale = torch.tensor(p.learning_rate / self._base_lr, dtype=_F32,
+                                 device=self.device)
+            tree = tree._replace(leaf_value=tree.leaf_value * scale)
         self.trees.append(tree)
         self._forest_cache = None
-        shrink = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
+        shrink = torch.tensor(self._shrink, dtype=_F32, device=self.device)
         for idx, (name, vds, vpred) in enumerate(self._valid):
             self._valid[idx] = (name, vds, vpred + shrink * self._tree_values(
                 tree, vds.X_binned, p.num_leaves))
         self._iter += 1
         return False
+
+    @property
+    def _shrink(self) -> float:
+        """The predict-time shrinkage: 1.0 for rf (its trees are averaged),
+        else the base learning rate the stored leaves are scaled to."""
+        return 1.0 if self.params.boosting == "rf" else float(self._base_lr)
 
     def _tree_values(self, tree: Tree, bins: torch.Tensor,
                      depth_cap) -> torch.Tensor:
@@ -441,6 +471,23 @@ class Booster:
         return torch.stack([predict_tree_binned(_class_tree(tree, c), bins,
                                                 depth_cap)
                             for c in range(self._num_class)], dim=1)
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change the per-round hyper-parameters mid-training (LightGBM
+        ``Booster.reset_parameter``, driven by the ``reset_parameter``
+        callback); the shape-static ones cannot change on a live
+        booster."""
+        newp = parse_params(params, base=self.params)
+        for f in ("num_leaves", "max_bin", "objective", "boosting",
+                  "num_class", "tree_learner", "grow_policy",
+                  "max_cat_threshold", "extra_trees", "linear_tree"):
+            if getattr(newp, f) != getattr(self.params, f):
+                raise ValueError(
+                    f"cannot reset shape-static parameter '{f}' on a "
+                    "trained booster (it changes the compiled program)")
+        self.params = newp
+        self._hyper = HyperScalars.from_params(newp)
+        return self
 
     def update_many(self, k: int) -> None:
         """Run ``k`` rounds (the reference scans them into one device
@@ -583,16 +630,47 @@ class Booster:
         return out
 
     def eval_train(self, feval=None):
-        res = self._eval_on(self._pred_train, self.train_set, "training")
-        return res + self._feval_results(feval, self._pred_train,
-                                         self.train_set, "training")
+        pred = self._pred_train_effective()
+        res = self._eval_on(pred, self.train_set, "training")
+        return res + self._feval_results(feval, pred, self.train_set,
+                                         "training")
 
     def eval_valid(self, feval=None):
         out = []
         for name, vds, vpred in self._valid:
-            out.extend(self._eval_on(vpred, vds, name))
-            out.extend(self._feval_results(feval, vpred, vds, name))
+            vp = self._rf_scale(vpred)
+            out.extend(self._eval_on(vp, vds, name))
+            out.extend(self._feval_results(feval, vp, vds, name))
         return out
+
+    def _rf_scale(self, pred_raw):
+        """rf's valid scores are sums over the trees at shrink 1.0: their
+        mean over the rounds so far."""
+        if self.params.boosting == "rf" and self._iter > 0:
+            init = self.init_score_
+            if isinstance(init, np.ndarray):
+                init = torch.from_numpy(init).to(pred_raw.device)
+            return (pred_raw - init) / self._iter + init
+        return pred_raw
+
+    def _pred_train_effective(self):
+        """The train scores the metrics see: rf keeps ``_pred_train`` at the
+        init score, so the mean over its trees is replayed (the plain
+        forest replay, as the reference's)."""
+        if self.params.boosting != "rf" or not self.trees:
+            return self._pred_train
+        forest = self._stacked_forest()
+        bins = self.train_set.X_binned
+        scale = torch.tensor(1.0 / self._iter, dtype=_F32, device=bins.device)
+        if self._num_class > 1:
+            return torch.stack([predict_forest_binned(
+                _class_tree(forest, c, axis=1), bins, scale,
+                float(self.init_score_[c]), self._iter,
+                self.params.num_leaves) for c in range(self._num_class)],
+                dim=1)
+        return predict_forest_binned(forest, bins, scale,
+                                     float(self.init_score_), self._iter,
+                                     self.params.num_leaves)
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         data.construct()
@@ -602,7 +680,7 @@ class Booster:
             raise ValueError(f"valid set '{name}' lives on {data.device}, "
                              f"the Booster on {self.device}")
         vpred = self._init_scores(int(data.row_mask.shape[0]))
-        shrink = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
+        shrink = torch.tensor(self._shrink, dtype=_F32, device=self.device)
         for tree in self.trees:
             vpred = vpred + shrink * self._tree_values(
                 tree, data.X_binned, self._depth_cap)
@@ -627,10 +705,13 @@ class Booster:
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, start_iteration: int = 0,
+                ntree_limit: Optional[int] = None,
                 **kwargs) -> np.ndarray:
-        """Predict on raw (unbinned) features; ``num_iteration`` truncates
-        to the first k trees (None: the best iteration when early stopping
-        found one; <= 0: all trees)."""
+        """Predict on raw (unbinned) features; ``num_iteration`` (or its
+        xgboost-style alias ``ntree_limit``) truncates to the first k trees
+        (None: the best iteration when early stopping found one; <= 0: all
+        trees), the staged-prediction contract.  An rf forest averages the
+        trees it uses."""
         if pred_leaf or pred_contrib:
             raise NotImplementedError(
                 f"pred_leaf / pred_contrib are not ported yet: "
@@ -638,6 +719,8 @@ class Booster:
         if isinstance(data, Dataset):
             raise TypeError("predict() expects a raw feature matrix, not a "
                             "Dataset (matching lightgbm)")
+        if num_iteration is None:
+            num_iteration = ntree_limit
         if num_iteration is None:
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else len(self.trees))
@@ -654,7 +737,7 @@ class Booster:
             raw = self._init_scores(bins.shape[0])
         else:
             forest = self._stacked_forest()
-            lr = torch.tensor(self._base_lr, dtype=_F32, device=self.device)
+            lr = torch.tensor(self._shrink, dtype=_F32, device=self.device)
             depth = min(self._depth_cap, self._forest_depth)
             if self._num_class == 1:
                 raw = predict_forest_binned(
@@ -667,6 +750,11 @@ class Booster:
                     float(self.init_score_[c]), num_iteration, depth,
                     start_iteration=start_iteration)
                     for c in range(self._num_class)], dim=1)
+            if self.params.boosting == "rf" and num_iteration > 0:
+                init = (self.init_score_ if self._num_class == 1 else
+                        torch.from_numpy(np.asarray(
+                            self.init_score_, np.float32)).to(raw.device))
+                raw = (raw - init) / num_iteration + init
         if raw_score:
             return raw.cpu().numpy()
         return self.obj.transform(raw).cpu().numpy()

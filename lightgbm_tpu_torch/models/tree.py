@@ -10,7 +10,9 @@ stacks trees on a leading ``[T]`` axis.
 
 Growth: :func:`grow_tree` dispatches on the encoded wave width
 (:func:`decode_wave_width`), on the plain numeric path (no categorical,
-monotone, extra-trees, interaction or per-node sampling):
+monotone, extra-trees or interaction constraints), with per-node column
+sampling (``ff_bynode``: each node scored under its row of a mask table
+drawn once per tree, :func:`~.feature_mask.node_mask_table`) or without:
 
 * widths above 1 grow in waves (:func:`grow_tree_frontier`, the default at
   n >= 4096 rows and num_leaves >= 16), with all three wave tails:
@@ -24,7 +26,9 @@ monotone, extra-trees, interaction or per-node sampling):
   ``num_leaves - 1`` split iterations, each one histogram pass over both
   children of the split leaf and one call of kernel B3
   (:func:`split_iter`: the gain scan, the argmax, the node-table writes and
-  the next pick).  It grows a batch of ``E`` trees at once over a shared
+  the next pick); with per-node sampling, the reference's unfused body
+  instead (the same histograms, the split scan in plain ops under a mask
+  per child).  It grows a batch of ``E`` trees at once over a shared
   binned matrix, which is how fused cross-validation grows configs x folds;
   a Booster grows one (``E = 1``).
 
@@ -47,7 +51,8 @@ from ..ops.histogram import (compute_histograms, compute_histograms_batched,
                              histograms_rows, resolve_mode, route_wave)
 from ..ops.split import (SplitContext, constrained_leaf_output,
                          find_best_split)
-from .feature_mask import node_mask_fn
+from ..utils.random import key_tensor
+from .feature_mask import node_mask_fn, node_mask_table
 
 _F32 = torch.float32
 
@@ -184,7 +189,8 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
               feature_mask: torch.Tensor, ctx: SplitContext,
               num_leaves: int, num_bins: int, max_depth: int,
               hist_impl: str = "auto", hist_dtype: str = "f32",
-              wave_width: int = 1) -> Tuple[Tree, torch.Tensor]:
+              wave_width: int = 1, ff_bynode: Optional[float] = None,
+              key=None) -> Tuple[Tree, torch.Tensor]:
     """Grow one best-first tree; returns ``(tree, row_leaf)``.
 
     ``bins`` uint8 ``[n, F]``; ``stats`` f32 ``[n, 3]`` of (grad, hess,
@@ -193,22 +199,32 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     tail in its encoding (see :func:`decode_wave_width`).  Widths above 1
     grow in waves (:func:`grow_tree_frontier`); width 1 is the strict
     best-first grower (:func:`grow_tree_strict` with one element).
+    ``ff_bynode`` (None: off) samples each node's columns within the tree
+    mask under the grower ``key``, a pair of ints
+    (:func:`~.feature_mask.node_mask_table`).
     """
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if width <= 1:
         dev = bins.device
         fmask = feature_mask.to(_F32).reshape(1, -1)
+        bynode = {}
+        if ff_bynode is not None:
+            bynode = dict(
+                ff_bynode=torch.full((1,), float(ff_bynode), dtype=_F32,
+                                     device=dev),
+                keys=key_tensor([key], dev))
         P, n_leaves, row_leaf = grow_tree_strict(
             bins, stats.unsqueeze(1), fmask,
             SplitContext.per_element([ctx], dev),
             torch.tensor([float(max_depth)], dtype=_F32, device=dev),
             num_leaves, num_bins, hist_impl=hist_impl,
-            hist_dtype=hist_dtype, batched=False)
+            hist_dtype=hist_dtype, batched=False, **bynode)
         return _tree_from_packed(P[0], n_leaves[0]), row_leaf[:, 0]
     return grow_tree_frontier(bins, stats, feature_mask, ctx, num_leaves,
                               num_bins, max_depth, width,
                               hist_impl=hist_impl, hist_dtype=hist_dtype,
-                              wave_tail=tail, overgrow_leaves=overgrow)
+                              wave_tail=tail, overgrow_leaves=overgrow,
+                              ff_bynode=ff_bynode, key=key)
 
 
 def _decode_checked(wave_width: int, num_leaves: int):
@@ -229,36 +245,43 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                        fmask: torch.Tensor, ctx: SplitContext,
                        max_depth: torch.Tensor, num_leaves: int,
                        num_bins: int, wave_width: int,
-                       hist_impl: str = "auto", hist_dtype: str = "f32"):
+                       hist_impl: str = "auto", hist_dtype: str = "f32",
+                       ff_bynode: Optional[torch.Tensor] = None,
+                       keys: Optional[torch.Tensor] = None):
     """Grow ``E`` trees at once over the shared ``bins`` (the reference's
     ``vmap`` of :func:`grow_tree`): the strict grower at width 1
     (:func:`grow_tree_strict`), else the batched wave grower
     (:func:`grow_tree_frontier_batched`).  Inputs and outputs as
     :func:`grow_tree_strict`'s: ``(table f32 [E, M, 24], n_leaves i32 [E],
-    row_leaf i32 [n, E])``."""
+    row_leaf i32 [n, E])``; ``ff_bynode`` f32 ``[E]`` and ``keys`` int64
+    ``[E, 2]`` (None: off) sample each node's columns."""
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if width <= 1:
         return grow_tree_strict(bins, stats_t, fmask, ctx, max_depth,
                                 num_leaves, num_bins, hist_impl=hist_impl,
-                                hist_dtype=hist_dtype)
+                                hist_dtype=hist_dtype, ff_bynode=ff_bynode,
+                                keys=keys)
     return grow_tree_frontier_batched(
         bins, stats_t, fmask, ctx, max_depth, num_leaves, num_bins, width,
         hist_impl=hist_impl, hist_dtype=hist_dtype, wave_tail=tail,
-        overgrow_leaves=overgrow)
+        overgrow_leaves=overgrow, ff_bynode=ff_bynode, keys=keys)
 
 
 def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
                      fmask: torch.Tensor, aux: torch.Tensor,
-                     scal: torch.Tensor):
+                     scal: torch.Tensor, arith: Optional[str] = None):
     """Plain PyTorch version of :func:`split_iter`: one iteration of the
     reference's strict-grower body (``lightgbm_tpu/models/tree.py``, the
     XLA loop body) for each of ``E`` elements, plus the next pick.
 
     ``hist [E, 2, F, B, 3]`` holds the two children's histograms of the
     leaf ``aux[:, 0]``; ``table [E, cap, 24]`` the packed nodes; ``fmask
-    [E, F]``; ``aux [E, 8]`` = [leaf, feat, thr, active, 0...]; ``scal [E,
-    16]`` = [l1, l2, min_data, min_hess, min_gain, max_delta_step,
-    path_smooth, max_depth, n_nodes, 0...].  Returns ``(table', aux')``:
+    [E, F]``, or ``[E, 2, F]`` for a mask per child (per-node sampling,
+    where the reference runs this body in XLA and ``arith="scan"`` takes
+    its rounding; the default is kernel B3's); ``aux [E, 8]`` = [leaf,
+    feat, thr, active, 0...]; ``scal [E, 16]`` = [l1, l2, min_data,
+    min_hess, min_gain, max_delta_step, path_smooth, max_depth, n_nodes,
+    0...].  Returns ``(table', aux')``:
     where active, the leaf's row becomes internal and the rows ``n_nodes``
     and ``n_nodes + 1`` receive the children with their candidate splits;
     ``aux'`` picks the next leaf (the lowest index among the maximal
@@ -280,9 +303,11 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     def two(a, b=None):
         return torch.stack([a, a if b is None else b], dim=1)
 
-    bs = find_best_split(hist, ctx, fmask[:, None, :], two(depth_ok),
+    child_masks = fmask if fmask.dim() == 3 else fmask[:, None, :]
+    bs = find_best_split(hist, ctx, child_masks, two(depth_ok),
                          two(row[:, K.CAND_WL], row[:, K.CAND_WR]),
-                         two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]))
+                         two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]),
+                         arith=arith)
     # the reference kernel gathers the winner's statistics as a sum over
     # every cell of where(hit, x, 0.0), which turns -0.0 into +0.0
     bs = bs._replace(**{f: getattr(bs, f) + 0.0 for f in (
@@ -347,9 +372,11 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                      fmask: torch.Tensor, ctx: SplitContext,
                      max_depth: torch.Tensor, num_leaves: int, num_bins: int,
                      hist_impl: str = "auto", hist_dtype: str = "f32",
-                     batched: bool = True):
+                     batched: bool = True,
+                     ff_bynode: Optional[torch.Tensor] = None,
+                     keys: Optional[torch.Tensor] = None):
     """Strict best-first growth of ``E`` trees at once (the reference's
-    fused-split strict grower, ``vmap``ped over E in fused CV).
+    strict grower, ``vmap``ped over E in fused CV).
 
     ``bins`` u8 ``[n, F]`` is shared; ``stats_t`` f32 ``[n, E, 3]`` holds
     each element's (grad, hess, in-bag) rows, already bagging-masked (held-
@@ -362,12 +389,25 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
     segments for a single tree (``batched=False``, ``E = 1``), as the
     reference's batched and unbatched calls do.
 
+    The reference's eligibility rule for its split-iteration kernel
+    (``fuse_si``, restricted to what the port grows) picks the body: with
+    per-node sampling off each iteration is one launch of kernel B3
+    (:func:`split_iter`); with it on (``ff_bynode`` f32 ``[E]`` and the
+    grower ``keys`` int64 ``[E, 2]``) each child is scored under its own
+    node mask, a row of :func:`~.feature_mask.node_mask_table` drawn once
+    per tree, by the reference's XLA body in plain ops
+    (:func:`split_iter_plain` with a mask per child).
+
     Returns ``(table f32 [E, cap, 24], n_leaves i32 [E], row_leaf i32 [n,
     E])``.
     """
     n, e, _ = stats_t.shape
     dev = bins.device
     cap = 2 * num_leaves - 1
+    fuse_si = ff_bynode is None
+    fmask = fmask.to(_F32).contiguous()
+    node_masks = (None if fuse_si
+                  else node_mask_table(keys, ff_bynode, fmask, cap))
     if not batched and e != 1:
         raise ValueError("the unbatched strict grower grows one tree")
 
@@ -389,8 +429,9 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
         ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
         zero_e)
-    root_best = find_best_split(root_hist, ctx, fmask, None, root_out,
-                                arith="scan")
+    root_best = find_best_split(
+        root_hist, ctx, fmask if fuse_si else node_masks[:, 0], None,
+        root_out, arith="scan")
     P = _packed_root_table(cap, root_out, root_tot, root_best)
     aux = torch.stack([zero_e, root_best.feature.to(_F32),
                        root_best.bin.to(_F32),
@@ -403,7 +444,6 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
     scal[:, 8] = 1.0                                          # n_nodes
     n_leaves = torch.ones(e, dtype=torch.int32, device=dev)
     row_leaf = torch.zeros((n, e), dtype=torch.int32, device=dev)
-    fmask = fmask.to(_F32).contiguous()
 
     for _ in range(num_leaves - 1):
         leaf = aux[:, 0].to(torch.int32)
@@ -421,7 +461,14 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                           torch.where(row_leaf == nl + 1, 1, 2)).to(
                               torch.int32)
         hist2 = hist_fn(seg, 2)                              # [E, 2, F, B, 3]
-        P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
+        if fuse_si:
+            P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
+        else:
+            kids = torch.stack([nl, nl + 1], dim=1).clamp(max=cap - 1)
+            child_masks = node_masks.gather(1, kids.to(torch.int64)[
+                ..., None].expand(e, 2, node_masks.shape[-1]))
+            P, aux = split_iter_plain(hist2, P, child_masks, aux, scal,
+                                      arith="scan")
         scal[:, 8] += 2.0 * grew.to(_F32)
         n_leaves += grew.to(torch.int32)
     return P, n_leaves, row_leaf
@@ -442,7 +489,8 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                        num_leaves: int, num_bins: int, max_depth: int,
                        wave_width: int, hist_impl: str = "auto",
                        hist_dtype: str = "f32", wave_tail: str = "half",
-                       overgrow_leaves: Optional[int] = None
+                       overgrow_leaves: Optional[int] = None,
+                       ff_bynode: Optional[float] = None, key=None
                        ) -> Tuple[Tree, torch.Tensor]:
     """Best-first growth in waves: up to ``wave_width`` splits per data
     pass (the reference's ``grow_tree_frontier`` on the plain numeric path).
@@ -457,7 +505,10 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     the cached histograms.  The loop reads one number per wave on the host
     (how many leaves still have a finite candidate gain), which decides
     whether another wave runs and how many splits it takes: the reference's
-    ``while_loop`` condition.
+    ``while_loop`` condition.  With ``ff_bynode`` (None: off) each fresh
+    child is scored under its own node mask, drawn once per tree under the
+    grower ``key`` for every node id below the capacity
+    (:func:`~.feature_mask.node_mask_fn`); B2 is unchanged by it.
     """
     n, num_features = bins.shape
     dev = bins.device
@@ -472,10 +523,9 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     fuse_part = wave_fuses_partition(num_features, w_width, num_bins,
                                      hist_dtype)
     neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
-    # per-node column masks: with bynode sampling off (the only mode this
-    # slice ports) every node uses the tree's mask
-    node_mask = node_mask_fn(None, None, num_features,
-                             feature_mask.to(_F32), bynode_off=True)
+    node_mask = node_mask_fn(key, ff_bynode, num_features, feature_mask,
+                             bynode_off=ff_bynode is None,
+                             capacity=capacity)
 
     # ---- root: kernel B1 with one segment --------------------------------
     root_hist = compute_histograms(
@@ -688,7 +738,9 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                                hist_impl: str = "auto",
                                hist_dtype: str = "f32",
                                wave_tail: str = "half",
-                               overgrow_leaves: Optional[int] = None):
+                               overgrow_leaves: Optional[int] = None,
+                               ff_bynode: Optional[torch.Tensor] = None,
+                               keys: Optional[torch.Tensor] = None):
     """Wave growth of ``E`` trees at once: the reference's
     ``grow_tree_frontier`` under ``vmap`` (fused cross-validation in the
     wave regime, multiclass), on its plain numeric, non-fused wave path.
@@ -709,7 +761,10 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     :func:`~..ops.split.find_best_split` (the reference's XLA scan
     rounding).  The root histogram takes B6.  The loop reads one flag per
     wave on the host (whether any element still has work); the exact tail
-    reads the overgrown tables once, to prune them.
+    reads the overgrown tables once, to prune them.  With ``ff_bynode`` f32
+    ``[E]`` and ``keys`` int64 ``[E, 2]`` (None: off) each node is scored
+    under its row of :func:`~.feature_mask.node_mask_table`, drawn once per
+    tree.
 
     Returns ``(table f32 [E, 2 * num_leaves - 1, 24], n_leaves i32 [E],
     row_leaf i32 [n, E])``.
@@ -730,6 +785,8 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     iota_w = torch.arange(w_width, device=dev)
     fmask = fmask.to(_F32)
     md = max_depth.to(_F32)[:, None]
+    node_masks = (None if ff_bynode is None
+                  else node_mask_table(keys, ff_bynode, fmask, capacity))
 
     # ---- root: the batch's narrow pass (kernel B6) ----------------------
     root_hist = histograms_rows(bins, stats_t, None, 1, num_bins,
@@ -741,8 +798,9 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
         ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
         zero_e)
-    root_best = find_best_split(root_hist, ctx, fmask, None, root_out,
-                                arith="scan")
+    root_best = find_best_split(
+        root_hist, ctx, fmask if node_masks is None else node_masks[:, 0],
+        None, root_out, arith="scan")
     # one spare row, slot and node id past the end take every write of an
     # element's inactive wave lanes (the reference's out-of-bounds drop)
     P = torch.cat([_packed_root_table(capacity, root_out, root_tot,
@@ -827,10 +885,17 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         depth_ok = (md <= 0) | (child_depth < md)
         child_vals = torch.cat([prow[..., K.CAND_WL], prow[..., K.CAND_WR]],
                                dim=1)
-        bs = find_best_split(child_hists, ctx,
-                             fmask[:, None, :].expand(e, 2 * w_width,
-                                                      num_features),
-                             depth_ok, child_vals, arith="scan")
+        if node_masks is None:
+            child_masks = fmask[:, None, :].expand(e, 2 * w_width,
+                                                   num_features)
+        else:
+            # inactive lanes may point past the table; their scores are
+            # dropped with the lane
+            child_masks = node_masks.gather(1, child_nodes.clamp(
+                max=capacity - 1)[..., None].expand(e, 2 * w_width,
+                                                    num_features))
+        bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
+                             child_vals, arith="scan")
 
         # commit: the parents become internal, the children arrive with
         # their candidate splits; inactive lanes write the spare row

@@ -422,7 +422,7 @@ def pack_booster(booster, num_iteration: Optional[int] = None,
                       else np_sel(forest.is_cat_split, bool)),
         cat_mask=(None if forest.cat_mask is None
                   else np_sel(forest.cat_mask, bool)),
-        shrink=float(booster._base_lr),
+        shrink=float(booster._shrink),
         init_score=np.atleast_1d(np.asarray(booster.init_score_,
                                             np.float32)),
         num_class=booster.num_model_per_iteration(),

@@ -6,7 +6,9 @@
   (``bench.py`` ``bench_higgs``);
 * ``make_synthetic_diamonds`` — the diamonds log-price regression of the
   grid-search workflow (r/gridsearchCV.R:5-23): 53,940 rows, six features;
-* ``train_test_split_bernoulli`` — that workflow's 85/15 Bernoulli split.
+* ``train_test_split_bernoulli`` — that workflow's 85/15 Bernoulli split;
+* ``make_boosting_curve`` — the bagging/boosting workflow's 1-D curve
+  (examples/bagging_boosting.py).
 
 Same seeds, same numpy streams, so both packages see identical rows.
 """
@@ -71,3 +73,16 @@ def train_test_split_bernoulli(n: int, p_train: float = 0.85,
     rng = np.random.default_rng(seed)
     is_train = rng.random(n) < p_train
     return np.where(is_train)[0], np.where(~is_train)[0]
+
+
+def make_boosting_curve(n: int = 1000, seed: int = 8657
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """``y = |x| + cos(x) + U(-0.05, 0.05)`` on ``x ~ U(-4, 4)``: the
+    bagging/boosting notebook's data, drawn from numpy's legacy
+    ``RandomState`` as its ``np.random.seed(8657)`` does.  Returns ``X``
+    f64 ``[n, 1]`` and ``y`` f64 ``[n]``."""
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-4, 4, n)
+    noise = rs.uniform(-0.05, 0.05, n)
+    y = np.abs(x) + np.cos(x) + noise
+    return x.reshape(-1, 1), y

@@ -20,7 +20,11 @@ re-implements the three calls the training path makes:
 
 :func:`split_keys` and :func:`uniform_rows` are the batched forms the fused
 cross-validation program uses: one key per batch element as an int64
-``[E, 2]`` tensor, hashed in one pass on the caller's device.
+``[E, 2]`` tensor, hashed in one pass on the caller's device;
+:func:`fold_in_tensor` folds a tensor of counters (the node ids of a
+per-node feature-mask table) into such keys on the device, and
+:func:`key_tensor` / :func:`split_on` put keys there without a
+host-to-device copy.
 
 The hash is Threefry-2x32 with 20 rounds (Salmon et al., "Parallel random
 numbers: as easy as 1, 2, 3", SC'11).  Words are uint32 values held in int64
@@ -128,6 +132,37 @@ def fold_in_keys(keys: torch.Tensor, data: int) -> torch.Tensor:
                     device=keys.device)
     y0, y1 = threefry2x32((keys[:, 0], keys[:, 1]), torch.zeros_like(x1), x1)
     return torch.stack([y0, y1], dim=1)
+
+
+def key_tensor(keys: Sequence[Key], device) -> torch.Tensor:
+    """Host key pairs as an int64 ``[E, 2]`` tensor on ``device``, made by
+    elementwise ops that take the words as scalars: a blocking
+    host-to-device copy (or an item write) would wait for the work queued
+    on the card, a host sync inside a tree."""
+    col = torch.arange(2, device=device)
+    return torch.stack([torch.where(col == 0, int(k0) & _MASK,
+                                    int(k1) & _MASK) for k0, k1 in keys])
+
+
+def split_on(key: Key, num: int, device) -> torch.Tensor:
+    """``jax.random.split(key, num)`` as an int64 ``[num, 2]`` tensor
+    hashed on ``device`` (the key's words enter as scalars: no
+    host-to-device copy)."""
+    idx = torch.arange(int(num), dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(key, torch.zeros_like(idx), idx)
+    return torch.stack([y0, y1], dim=1)
+
+
+def fold_in_tensor(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``vmap(vmap(fold_in, (None, 0)))(keys, data)``: every counter of
+    ``data`` (int64 ``[...]``, on the keys' device) folded into every key
+    of ``keys`` (int64 ``[E, 2]``) -> int64 ``[E, *data.shape, 2]``, in one
+    pass on the device (no host read)."""
+    lead = (keys.shape[0],) + (1,) * data.dim()
+    x1 = (data & _MASK)[None].expand(lead[:1] + tuple(data.shape))
+    y0, y1 = threefry2x32((keys[:, 0].reshape(lead), keys[:, 1].reshape(lead)),
+                          torch.zeros_like(x1), x1)
+    return torch.stack([y0, y1], dim=-1)
 
 
 def uniform_rows(keys: torch.Tensor, n: int) -> torch.Tensor:

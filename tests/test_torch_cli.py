@@ -114,6 +114,41 @@ def test_serve_control_lines_match_reference(models):
     assert stats["fused_path"]["dispatches"] >= 1
 
 
+@pytest.mark.parametrize("boosting", ["gbdt", "rf"])
+def test_serve_text_model_equals_its_npz(tmp_path, boosting):
+    """A JSON text model is packed on load: served, it answers what its
+    ``.npz`` does (and the reference's CLI serving the text), and
+    ``!swap`` takes either kind."""
+    rng = np.random.default_rng(22)
+    X = rng.normal(size=(400, 4))
+    y = 2.0 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.normal(size=400)
+    params = {"objective": "regression", "num_leaves": 7, "verbosity": -1,
+              "boosting": boosting, "feature_fraction_bynode": 0.5}
+    b = P.train(params, P.Dataset(X, label=y, device="cpu"), 5)
+    txt, npz = str(tmp_path / "m.txt"), str(tmp_path / "m.npz")
+    b.save_model(txt)
+    b.save_model(npz)
+    lines = _rows(X, 12)
+    cfg = {"max_batch": "4", "device": "cpu"}
+    rc_t, out_t, _ = _run(port_serve, txt, cfg, lines)
+    rc_n, out_n, _ = _run(port_serve, npz, cfg, lines)
+    rc_r, out_r, _ = _run(ref_serve, txt, {"max_batch": "4"}, lines)
+    assert rc_t == rc_n == rc_r == 0 and len(out_t) == 12
+    np.testing.assert_allclose(_numbers(out_t), _numbers(out_n), rtol=1e-6)
+    np.testing.assert_allclose(_numbers(out_t), _numbers(out_r), rtol=RTOL,
+                               atol=ATOL)
+    sent = _numbers(lines)                  # the rows as the server read them
+    np.testing.assert_allclose(_numbers(out_t)[:, 0], b.predict(sent),
+                               rtol=RTOL, atol=ATOL)
+    row = lines[0]
+    rc, out, err = _run(port_serve, npz, cfg,
+                        [f"!swap {txt}\n", row, f"!swap {npz}\n", row,
+                         f"!swap {tmp_path / 'missing.txt'}\n", row])
+    assert rc == 0 and err.count("swapped default") == 2
+    assert "missing.txt" in err
+    assert len(set(out)) == 1 and len(out) == 3
+
+
 def test_serve_rejects_bad_keys_and_missing_card(models):
     _, v1, _ = models
     for cfg, msg in (({"bogus": "1"}, "unknown key"),

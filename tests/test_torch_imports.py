@@ -12,7 +12,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "lightgbm_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "lightgbm_tpu")
+# the card's machine has neither scikit-learn nor matplotlib
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "lightgbm_tpu", "sklearn",
+             "matplotlib")
 
 
 def _sources():
@@ -56,7 +58,9 @@ def test_import_leaves_jax_and_reference_out():
             "lightgbm_tpu_torch.utils.datasets, lightgbm_tpu_torch.utils.rdata, "
             "lightgbm_tpu_torch.training, lightgbm_tpu_torch.training.loop, "
             "lightgbm_tpu_torch.training.checkpoint, lightgbm_tpu_torch.data, "
-            "lightgbm_tpu_torch.data.sketch, lightgbm_tpu_torch.faults;"
+            "lightgbm_tpu_torch.data.sketch, lightgbm_tpu_torch.faults, "
+            "lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.models.tree, "
+            "lightgbm_tpu_torch.models.feature_mask;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -82,7 +86,8 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("module", [
     "utils/rdata.py", "data/sketch.py", "training/checkpoint.py",
-    "training/loop.py"])
+    "training/loop.py", "sklearn.py", "models/feature_mask.py",
+    "models/tree.py", "utils/datasets.py"])
 def test_recovery_modules_are_walked(module):
     assert os.path.join(PORT, module) in set(_sources())
 
@@ -184,3 +189,20 @@ def test_b3_b6_wrappers_refuse_cpu_tensors_and_build_lazily():
     cluster, chunk = ks.plan_split_iter(1, 28, 256, 132)
     assert chunk * cluster >= 2 * 28
     assert ks.smem_bytes(256, chunk) <= ks.SMEM_LIMIT
+
+
+def test_sklearn_estimators_default_to_the_card():
+    import numpy as np
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.device import NoDeviceError
+
+    X = np.random.default_rng(0).normal(size=(200, 2))
+    y = X[:, 0] + 0.1 * X[:, 1]
+    rf = lgb.LGBMRandomForestRegressor(n_estimators=2, max_leaf_nodes=4,
+                                       device="cpu").fit(X, y)
+    assert rf.predict(X[:3]).shape == (3,)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(NoDeviceError):
+        lgb.LGBMRandomForestRegressor(n_estimators=2).fit(X, y)

@@ -23,6 +23,10 @@ B4 has its own: every bucket of the serving ladder and both routes of
 its plan, trees of 8,191 leaves (also served through ``PredictorRuntime``),
 1,000 trees and rows of 2,000 columns.
 
+One column (examples/bagging_boosting.py's data): B1, B6, B3 and B4 at
+F = 1.  Per-node sampling on the strict grower: no B3 launch, B1 or B6
+under the unfused body, structure-equal to the plain path.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -853,3 +857,98 @@ def test_kill_and_resume_bit_identical_on_card(grower, tmp_path):
             assert all(np.array_equal(a[k], b[k]) for k in a)
         assert torch.equal(ref._pred_train, got._pred_train)
         assert torch.equal(ref._bag, got._bag)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["b1", "b6", "b3", "b4"])
+def test_one_feature_kernels_match_plain_on_card(kernel):
+    """One column, as examples/bagging_boosting.py's data has: B1's root
+    and two-segment calls, B6 at cv()'s five folds, B3 chained at E = 1 and
+    E = 5, B4 over a forest on one feature."""
+    dev = _card()
+    rng = np.random.default_rng(41)
+    n, nb = 1_000, 256
+    bins = rng.integers(0, nb, (n, 1)).astype(np.uint8)
+    if kernel == "b1":
+        stats = _stats(rng, n)
+        for k in (1, 2):
+            seg = rng.integers(0, k + 1, n).astype(np.int32)
+            t = [torch.from_numpy(a).to(dev) for a in (bins, stats, seg)]
+            for mode in MODES:
+                got = th.hist_fused(*t, k, nb, mode)
+                want = th.hist_fused_plain(*t, k, nb, mode)
+                torch.cuda.synchronize()
+                _close(got.cpu().numpy(), want.cpu().numpy(),
+                       _abs_hist(bins, stats, seg, k, nb, mode))
+    elif kernel == "b6":
+        st = rng.normal(size=(n, 15)).astype(np.float32)
+        tb, ts = torch.from_numpy(bins).to(dev), torch.from_numpy(st).to(dev)
+        got = th.hist_segstats(tb, ts, nb, "f32")
+        want = th.hist_segstats_plain(tb, ts, nb, "f32")
+        torch.cuda.synchronize()
+        mag = np.zeros((1, nb, 15))
+        np.add.at(mag[0], bins[:, 0].astype(np.int64),
+                  np.abs(st).astype(np.float64))
+        err = np.abs(got.cpu().numpy().astype(np.float64)
+                     - want.cpu().numpy().astype(np.float64))
+        assert (err <= 1e-6 * mag).all()
+    elif kernel == "b3":
+        for e in (1, 5):
+            _b3_chain(e, 1, nb, 12, 91 + e, in_place=True)
+    else:
+        soa, depth = _b4_forest(43, 100, 20, 1, "f32")
+        for rows in (1, 400, 1_000):
+            _b4_equal(soa, depth, torch.from_numpy(bins[:rows]).to(dev),
+                      [(100, 0), (1, 0), (20, 0), (50, 50)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["strict", "rf", "cv"])
+def test_unfused_strict_body_on_card(case):
+    """Per-node sampling on the strict grower: no B3 launch (the
+    reference's ``fuse_si`` rule), B1 (one tree) or B6 (cv()'s batch) on
+    the card, the trees of the kernel path structure-equal to the plain
+    path's and their predictions within rtol 1e-5."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_SEGSTATS_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+
+    dev = _card()
+    rng = np.random.default_rng(44)
+    X = rng.normal(size=(20_000, 8)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=20_000)
+         ).astype(np.float32)
+    p = dict(objective="regression", num_leaves=31, grow_policy="leafwise",
+             feature_fraction_bynode=0.5, verbosity=-1)
+    if case == "rf":
+        p.update(boosting="rf", bagging_fraction=0.632, bagging_freq=1)
+    for c in (SPLIT_ITER_LAUNCHES, HIST_FUSED_LAUNCHES["f32"],
+              HIST_SEGSTATS_LAUNCHES["f32"]):
+        c.reset()
+    runs = []
+    for impl in ("auto", "plain"):
+        ds = lgb.Dataset(X, label=y, device=dev)
+        params = dict(p, hist_impl=impl)
+        if case == "cv":
+            params.pop("grow_policy")
+            runs.append(lgb.cv(params, ds, 4, nfold=5, stratified=False,
+                               seed=1))
+        else:
+            runs.append(lgb.train(params, ds, 3))
+    assert SPLIT_ITER_LAUNCHES.count == 0
+    if case == "cv":
+        assert HIST_SEGSTATS_LAUNCHES["f32"].count > 0
+        np.testing.assert_allclose(runs[0]["valid l2-mean"],
+                                   runs[1]["valid l2-mean"], rtol=1e-5)
+        return
+    assert HIST_FUSED_LAUNCHES["f32"].count > 0
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    for ta, tb in zip(runs[0].trees, runs[1].trees):
+        a, b = tree_to_arrays(ta), tree_to_arrays(tb)
+        for k in ("split_feature", "split_bin", "left", "right", "is_leaf"):
+            assert np.array_equal(a[k], b[k]), k
+    np.testing.assert_allclose(runs[0].predict(X[:2000]),
+                               runs[1].predict(X[:2000]), rtol=RTOL,
+                               atol=ATOL)

@@ -213,7 +213,10 @@ def test_cv_matches_reference_per_fold_path():
 OUT_OF_SLICE = {
     "goss": {"boosting": "goss"},
     "dart": {"boosting": "dart"},
-    "rf": {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    # rf and per-node sampling train since the bagging/boosting slice;
+    # under a learner outside the slice they still raise by name
+    "rf": {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+           "tree_learner": "data"},
     # multiclass trains since the batched wave grower; under a boosting
     # mode outside the slice it still raises by name
     "multiclass": {"objective": "multiclass", "num_class": 3,
@@ -224,7 +227,8 @@ OUT_OF_SLICE = {
     "monotone": {"monotone_constraints": [1, 0, 0, 0]},
     "interaction": {"interaction_constraints": [[0, 1], [2, 3]]},
     "extra_trees": {"extra_trees": True},
-    "bynode": {"feature_fraction_bynode": 0.5},
+    "bynode": {"feature_fraction_bynode": 0.5, "tree_learner": "feature"},
+    "bf16sr": {"hist_dtype": "bf16sr"},
     "feature_screen": {"feature_screen": "ema"},
     "data_parallel": {"tree_learner": "data"},
     "feature_parallel": {"tree_learner": "feature"},
