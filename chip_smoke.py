@@ -190,7 +190,34 @@ Phases:
    relative; (d) fused ``cv()`` at 2^19
    rows x 28, 5 folds, 63 leaves, 3 rounds, ``feature_fraction_bynode=
    0.5`` (B6 roots, B5 waves): per-round fold-mean logloss within 1e-4 of
-   the plain versions'.
+   the plain versions';
+15. the remaining objectives, every launch counter at 0 just before each
+   run and read just after: (a) ``regression_l1`` and ``quantile``
+   (alpha 0.9) at the north star's width (``make_higgs_like(1,000,000)``'s
+   rows, a continuous label: its logit plus N(0, 1) noise; 127 leaves, 255
+   bins, bf16, 10 rounds on the wave grower: B1 roots, B2 waves, the leaf
+   renewal after each tree) through the kernels and the plain versions in
+   turns, beside l2 on the same data: trees structure-equal, leaf values
+   and the held-out metric within 1e-5 relative; a profiled round's
+   renewal device ms, the renewal run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host read); (b) the
+   regression family on examples/gridsearch_cv.py's diamonds split with
+   the price in dollars and the example's untuned call (learning rate
+   0.1, 200 rounds): huber, fair, poisson, gamma, tweedie, mape,
+   cross_entropy (price over the largest price) and a custom ``fobj``
+   (l2 in arithmetic operators) through the kernels and, for the first
+   100 rounds, the plain versions, the held-out metric at 100 trees within
+   1e-5 relative; each model packed
+   and 16,384 rows served through ``PredictorRuntime`` (B4, then the exp
+   or sigmoid link) within 1e-5 (relative past 1) of ``Booster.predict``,
+   the custom model refused as the reference refuses it; (c) fused
+   ``cv()`` with ``regression_l1`` on phase 8's diamonds Dataset (5 folds,
+   l1, early stopping 5, at most 200 rounds: B6, B3; no renewal, as the
+   reference's fused program): ``best_iter`` equal, ``best_score`` within
+   1e-5 relative; (d) ``hist_dtype="bf16sr"`` at the north star, 10 rounds:
+   ``sr_round_bf16`` on the card bit-equal to the CPU's on the root
+   statistics, kernel and plain trees equal, the AUC beside phase 6's bf16
+   AUC and the s per round against bf16 in turns.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -304,6 +331,17 @@ BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
 # unfused body's split scan runs in plain ops, 5-9 ms a split iteration
 BYNODE_CV_ROUNDS = 100
 BATCH_CV_ROWS, BATCH_CV_LEAVES, BATCH_CV_ROUNDS = 1 << 19, 63, 3
+# phase 15: the remaining objectives; 15a's renewal at the north star
+RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
+# 15b: examples/gridsearch_cv.py's untuned call on diamonds prices; each
+# objective's default metric ("fair" names one neither package has: l1)
+FAMILY_OBJECTIVES = ("huber", "fair", "poisson", "gamma", "tweedie", "mape",
+                     "cross_entropy", "custom")
+FAMILY_METRIC = {"fair": "l1", "custom": "l2"}
+FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 200, 16_384
+# the plain versions train the first 100 of 15b's rounds (launch-bound at
+# 45,957 rows); the kernel path's model is compared at that many trees
+FAMILY_PLAIN_ROUNDS = 100
 
 
 def fail(msg: str) -> None:
@@ -3319,6 +3357,344 @@ def phase_bagging_rf(dev, X, y, dds):
     return out
 
 
+def continuous_label(X, seed):
+    """15a's label: the Higgs-like logit of ``make_higgs_like`` plus
+    N(0, 1) noise from ``seed``."""
+    w = np.random.default_rng(987654321).normal(0, 1, X.shape[1])
+    logits = (X @ w) * 0.6 + 0.8 * np.sin(X[:, 0] * 2) * X[:, 1] \
+        + 0.5 * (X[:, 2] ** 2 - 1)
+    noise = np.random.default_rng(seed).normal(0, 1, len(X))
+    return (logits + noise).astype(np.float32)
+
+
+def held_out_metric(booster, name, Xv, yv, dev, num_iteration=None):
+    """The objective's metric (bound to its params) of the transformed
+    predictions on held-out rows, on the card."""
+    from lightgbm_tpu_torch.metrics import get_metric
+
+    p = torch.from_numpy(booster.predict(Xv, num_iteration=num_iteration)
+                         ).to(dev)
+    y = torch.from_numpy(np.asarray(yv, np.float32)).to(dev)
+    return float(get_metric(name, booster.params).fn(p, y,
+                                                     torch.ones_like(y)))
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def profile_renewal(lgb, ds, params, rounds=3):
+    """15a: the renewal's device ms per round (``torch.profiler``, the
+    device time under a range around each call) and its CUDA-event span;
+    the renewal runs under ``torch.cuda.set_sync_debug_mode("error")``, so
+    a read back to the host fails the phase."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import lightgbm_tpu_torch.models.gbdt as G
+
+    orig = G.renew_leaf_values
+    spans = []
+
+    def renew(*a, **k):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        with record_function("renew_leaf_values"):
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+        spans.append((start, end))
+        return out
+
+    G.renew_leaf_values = renew
+    try:
+        booster = lgb.Booster(params, ds)
+        booster.update()
+        torch.cuda.synchronize()
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                booster.update()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        G.renew_leaf_values = orig
+    renew_us = device_us = 0.0
+    for e in prof.key_averages():
+        if e.key == "renew_leaf_values":
+            renew_us = getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
+        device_us += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    check(len(spans) == rounds, f"15a: {len(spans)} renewals in {rounds} "
+          "rounds")
+    out = {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
+           "device_ms_per_round": device_us / 1e3 / rounds,
+           "renewal_device_ms_per_round": (
+               renew_us / 1e3 / rounds if renew_us > 0 else
+               "not measured (no device time traced under the range)"),
+           "renewal_event_ms_per_round": sum(
+               s.elapsed_time(e) for s, e in spans) / rounds,
+           "renewal_host_syncs": 0}
+    return out
+
+
+def phase_renewal_north_star(dev, X, launches):
+    """15a: regression_l1 and quantile (alpha 0.9) at the north star's
+    width, kernel and plain paths in turns, beside l2 on the same data."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, _ = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    yc, yvc = continuous_label(X, SEED + 150), continuous_label(Xv,
+                                                                SEED + 151)
+    ds = lgb.Dataset(X, label=yc, params={"max_bin": MAX_BIN})
+    ds.construct()
+    base = dict(TRAIN_PARAMS, alpha=RENEW_ALPHA)
+    out = {"rounds": RENEW_ROUNDS, "alpha": RENEW_ALPHA}
+    for obj, metric in (("regression", "l2"), ("regression_l1", "l1"),
+                        ("quantile", "quantile")):
+        params = dict(base, objective=obj)
+        runs = {"kernels": [], "plain": []}
+        boosters = {}
+        for tag in ("kernels", "plain", "plain", "kernels"):     # in turns
+            extra = {} if tag == "kernels" else {"hist_impl": "plain"}
+            b, secs, counts, plain = counted_run(lambda: lgb.train(
+                dict(params, **extra), ds, RENEW_ROUNDS))
+            runs[tag].append({"s_per_round": secs / RENEW_ROUNDS,
+                              "counts": counts, "plain_calls": plain})
+            boosters.setdefault(tag, b)
+        k = runs["kernels"][0]
+        check(k["counts"]["hist_fused_bf16"] > 0
+              and k["counts"]["hist_partition_bf16"] > 0
+              and k["plain_calls"] == 0, f"15a {obj} kernel path: launches "
+              f"{k['counts']}, plain calls {k['plain_calls']}")
+        add_launches(launches, k["counts"])
+        res = {"s_per_round_in_turns": {t: [r["s_per_round"] for r in v]
+                                        for t, v in runs.items()},
+               "launches": k["counts"]}
+        if obj != "regression":
+            bk, bp = boosters["kernels"], boosters["plain"]
+            lv_rel = 0.0
+            for i in range(RENEW_ROUNDS):
+                a, b = tree_arrays(bk, i), tree_arrays(bp, i)
+                check(all(np.array_equal(a[f], b[f]) for f in (
+                    "split_feature", "split_bin", "left", "right",
+                    "is_leaf")), f"15a {obj}: tree {i} of the kernel and "
+                    "plain paths differ in structure")
+                leaves = a["is_leaf"]
+                lv_rel = max(lv_rel, float(np.max(
+                    np.abs(a["leaf_value"][leaves] - b["leaf_value"][leaves])
+                    / np.maximum(np.abs(b["leaf_value"][leaves]), 1e-30))))
+            check(lv_rel <= 1e-5, f"15a {obj}: leaf values kernel vs plain "
+                  f"rel {lv_rel:.2e}")
+            m = {t: held_out_metric(b, metric, Xv, yvc, dev)
+                 for t, b in boosters.items()}
+            check(rel_diff(m["kernels"], m["plain"]) <= 1e-5,
+                  f"15a {obj}: held-out {metric} kernel {m['kernels']!r} vs "
+                  f"plain {m['plain']!r}")
+            res.update(leaf_value_rel_diff=lv_rel, held_out=m,
+                       profile=profile_renewal(lgb, ds, params))
+        else:
+            res["held_out"] = {"kernels": held_out_metric(
+                boosters["kernels"], metric, Xv, yvc, dev)}
+        out[obj] = res
+        log(f"phase 15a {obj}: {json.dumps(res)}")
+    del ds
+    return out
+
+
+def l2_fobj(pred, y):
+    """15b's custom objective: l2 written with arithmetic operators only,
+    called on the Booster's tensors on the card."""
+    return pred - y, pred * 0.0 + 1.0
+
+
+def diamonds_price():
+    """15b: the diamonds split of examples/gridsearch_cv.py with the label
+    as a price in dollars (``exp`` of the log-price); train and test."""
+    from lightgbm_tpu_torch.utils.datasets import (
+        make_synthetic_diamonds, train_test_split_bernoulli)
+
+    X, y, _ = make_synthetic_diamonds()
+    tr, te = train_test_split_bernoulli(len(y), p_train=0.85,
+                                        seed=SWEEP_SEED)
+    price = np.exp(y)
+    return X[tr], price[tr], X[te], price[te]
+
+
+def phase_regression_family(dev, launches):
+    """15b: the regression family on diamonds prices, the example's
+    untuned call, kernel vs plain, each model packed and served."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    Xt, pt, Xe, pe = diamonds_price()
+    out = {}
+    serve_rows = np.concatenate([Xe, Xt])[:FAMILY_SERVE_ROWS]
+    for obj in FAMILY_OBJECTIVES:
+        y, ye, metric = pt, pe, FAMILY_METRIC.get(obj, obj)
+        if obj == "cross_entropy":
+            y, ye = pt / pt.max(), pe / pt.max()
+        params = {"learning_rate": 0.1,
+                  "objective": l2_fobj if obj == "custom" else obj}
+        ds = lgb.Dataset(Xt, label=y)
+        ds.construct()
+        res, boosters = {}, {}
+        for tag, extra, rounds in (
+                ("kernels", {}, FAMILY_ROUNDS),
+                ("plain", {"hist_impl": "plain"}, FAMILY_PLAIN_ROUNDS)):
+            b, secs, counts, plain = counted_run(lambda: lgb.train(
+                dict(params, **extra), ds, rounds))
+            boosters[tag] = b
+            res[tag] = {"rounds": rounds, "s": secs, "counts": counts,
+                        "plain_calls": plain,
+                        metric: held_out_metric(b, metric, Xe, ye, dev)}
+        k = res["kernels"]
+        check(k["counts"]["hist_fused_f32"] > 0
+              and k["counts"]["hist_partition_f32"] > 0
+              and k["plain_calls"] == 0, f"15b {obj} kernel path: launches "
+              f"{k['counts']}, plain calls {k['plain_calls']}")
+        add_launches(launches, k["counts"])
+        at = held_out_metric(boosters["kernels"], metric, Xe, ye, dev,
+                             num_iteration=FAMILY_PLAIN_ROUNDS)
+        rel = rel_diff(at, res["plain"][metric])
+        check(np.isfinite(k[metric]) and rel <= 1e-5, f"15b {obj}: held-out "
+              f"{metric} at {FAMILY_PLAIN_ROUNDS} trees kernel {at!r} vs "
+              f"plain {res['plain'][metric]!r}")
+        res["metric_rel_diff"] = rel
+        booster = boosters["kernels"]
+        packed = pack_booster(booster)
+        if obj == "custom":
+            # as the reference: no objective to rebuild, no runtime
+            try:
+                PredictorRuntime(packed)
+            except ValueError as e:
+                res["serve"] = f"refused as the reference refuses: {e}"
+            else:
+                fail("15b: a custom-objective model was served")
+        else:
+            rt = PredictorRuntime(packed, max_bucket=MAX_BUCKET)
+            served, secs, counts, _ = counted_run(
+                lambda: rt.predict(serve_rows))
+            check(counts["predict_forest"] > 0,
+                  f"15b {obj} serving launches {counts}")
+            add_launches(launches, counts)
+            want = booster.predict(serve_rows)
+            d = float(np.max(np.abs(served - want)
+                             / np.maximum(np.abs(want), 1.0)))
+            check(d <= 1e-5, f"15b {obj}: served vs Booster.predict {d:.2e}")
+            res["serve"] = {"rows": len(serve_rows), "s": secs,
+                            "max_rel_diff": d}
+        out[obj] = res
+        log(f"phase 15b {obj}: {json.dumps(res)}")
+    return out
+
+
+def phase_l1_cv(dds, launches):
+    """15c: fused ``cv()`` with regression_l1 on the diamonds split (B6 and
+    B3; no renewal, as the reference's fused program)."""
+    import lightgbm_tpu_torch as lgb
+
+    res = {}
+    params = {"learning_rate": 0.1, "objective": "regression_l1"}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        fit, secs, counts, plain = counted_run(lambda: lgb.cv(
+            dict(params, **extra), dds, num_boost_round=FAMILY_ROUNDS,
+            nfold=CV_FOLDS, metrics="l1", early_stopping_rounds=CV_ES,
+            stratified=False, seed=SWEEP_SEED))
+        res[tag] = {"best_iter": fit.best_iter, "best_score": fit.best_score,
+                    "s": secs, "counts": counts, "plain_calls": plain}
+        log(f"phase 15c cv l1 {tag}: best_iter {fit.best_iter}, best_score "
+            f"{fit.best_score!r}, {secs:.2f} s, launches {json.dumps(counts)}"
+            f", plain calls {plain}")
+    k, p = res["kernels"], res["plain"]
+    check(k["counts"]["split_iter"] > 0
+          and k["counts"]["hist_segstats_f32"] > 0 and k["plain_calls"] == 0,
+          f"15c kernel path: launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    check(k["best_iter"] == p["best_iter"], f"15c best_iter kernel "
+          f"{k['best_iter']} vs plain {p['best_iter']}")
+    rel = rel_diff(k["best_score"], p["best_score"])
+    check(rel <= 1e-5, f"15c best_score kernel vs plain: rel {rel:.2e}")
+    res["best_score_rel_diff"] = rel
+    add_launches(launches, k["counts"])
+    return res
+
+
+def phase_bf16sr(dev, X, y, auc_bf16, launches):
+    """15d: ``hist_dtype="bf16sr"`` at the north star: the rounding on the
+    card bit-equal to the CPU's, kernel and plain trees equal, AUC and s per
+    round beside bf16 in turns."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops.histogram import sr_round_bf16
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    st = binary_root_stats(y, dev)
+    on_card = sr_round_bf16(st).cpu()
+    on_cpu = sr_round_bf16(st.cpu())
+    check(torch.equal(on_card.view(torch.int32), on_cpu.view(torch.int32)),
+          "15d: sr_round_bf16 on the card differs from the CPU's")
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    runs = {"bf16sr": [], "bf16": [], "bf16sr_plain": []}
+    boosters = {}
+    for tag in ("bf16sr", "bf16", "bf16", "bf16sr", "bf16sr_plain"):
+        extra = {"hist_dtype": "bf16sr" if tag.startswith("bf16sr")
+                 else "bf16"}
+        if tag.endswith("plain"):
+            extra["hist_impl"] = "plain"
+        b, secs, counts, plain = counted_run(lambda: lgb.train(
+            dict(TRAIN_PARAMS, **extra), ds, TRAIN_ROUNDS))
+        runs[tag].append({"s_per_round": secs / TRAIN_ROUNDS,
+                          "counts": counts, "plain_calls": plain})
+        boosters.setdefault(tag, b)
+    k = runs["bf16sr"][0]
+    check(k["counts"]["hist_fused_bf16"] > 0
+          and k["counts"]["hist_partition_bf16"] > 0
+          and k["plain_calls"] == 0, f"15d kernel path: launches "
+          f"{k['counts']}, plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    for i in range(TRAIN_ROUNDS):
+        a = tree_arrays(boosters["bf16sr"], i)
+        b = tree_arrays(boosters["bf16sr_plain"], i)
+        check(all(np.array_equal(a[f], b[f]) for f in a),
+              f"15d: bf16sr tree {i} of the kernel and plain paths differ")
+    aucs = {t: auc(b, Xv, yv, dev) for t, b in boosters.items()}
+    out = {"rounds": TRAIN_ROUNDS, "sr_round_card_equals_cpu": True,
+           "auc": aucs, "phase6_auc_bf16": auc_bf16,
+           "s_per_round_in_turns": {t: [r["s_per_round"] for r in v]
+                                    for t, v in runs.items()},
+           "launches": k["counts"]}
+    log(f"phase 15d: {json.dumps(out)}")
+    return out
+
+
+def phase_objectives(dev, X, y, dds, auc_bf16):
+    """Phase 15, every launch counter at 0 just before each run and read
+    just after; fails unless B1, B2, B3, B4 and B6 launched."""
+    t0 = time.perf_counter()
+    launches = {}
+    out = {"renewal": phase_renewal_north_star(dev, X, launches),
+           "family": phase_regression_family(dev, launches),
+           "l1_cv": phase_l1_cv(dds, launches),
+           "bf16sr": phase_bf16sr(dev, X, y, auc_bf16, launches)}
+    for name in ("hist_fused_f32", "hist_fused_bf16", "hist_partition_f32",
+                 "hist_partition_bf16", "split_iter", "predict_forest",
+                 "hist_segstats_f32"):
+        check(launches.get(name, 0) > 0, f"phase 15: {name} never launched")
+    out["launches"] = launches
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 15: {out['s']:.1f} s, launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3389,6 +3765,8 @@ def main() -> int:
         rec_launches[k] = rec_launches.get(k, 0) + v
     phase14 = phase_bagging_rf(dev, X, y, dds)
     l14 = phase14["launches"]
+    phase15 = phase_objectives(dev, X, y, dds, train["auc"]["bf16"])
+    l15 = phase15["launches"]
 
     kernels = []
     for prec in PRECISIONS:
@@ -3400,7 +3778,8 @@ def main() -> int:
                              "11": multiclass["serve_predict_launches"],
                              "12e": int8["cli"]["serve_predict_launches"],
                              "13": rec_launches["predict_forest"],
-                             "14": l14["predict_forest"]})
+                             "14": l14["predict_forest"],
+                             "15": l15["predict_forest"]})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -3423,7 +3802,8 @@ def main() -> int:
                 "launches_by_phase": {
                     "6": train["launches"][mode][f"{name}_{mode}"],
                     "13": rec_launches.get(f"{name}_{mode}", 0),
-                    "14": l14.get(f"{name}_{mode}", 0)},
+                    "14": l14.get(f"{name}_{mode}", 0),
+                    "15": l15.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3443,7 +3823,7 @@ def main() -> int:
             "8b": cv_res["kernels"]["counts"]["split_iter"],
             "8c": sweep["launches"]["split_iter"],
             "13": rec_launches["split_iter"],
-            "14": l14["split_iter"]},
+            "14": l14["split_iter"], "15": l15["split_iter"]},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -3462,7 +3842,8 @@ def main() -> int:
             "launches_by_phase": {
                 "8b" if mode == "f32" else "8c": launches_b6[mode],
                 "13": rec_launches.get(f"hist_segstats_{mode}", 0),
-                "14": l14.get(f"hist_segstats_{mode}", 0)},
+                "14": l14.get(f"hist_segstats_{mode}", 0),
+                "15": l15.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3482,7 +3863,8 @@ def main() -> int:
             "source": BATCHED_SOURCE[0], "replaces": BATCHED_SOURCE[1],
             "launches": launches_b5[mode], "max_abs_err": b5_errs[mode],
             "launches_by_phase": {
-                "14": l14.get(f"hist_fused_batched_{mode}", 0)},
+                "14": l14.get(f"hist_fused_batched_{mode}", 0),
+                "15": l15.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -3514,6 +3896,7 @@ def main() -> int:
                                 for t, r in ns_cv.items()},
               "b5_times": b5_times, "multiclass": multiclass,
               "int8": int8, "recovery": recovery, "phase14": phase14,
+              "phase15": phase15,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -444,7 +444,7 @@ class Dataset:
         if categorical_feature not in ("auto", None, [], ()):
             raise NotImplementedError(
                 "categorical features are not ported yet: ROADMAP slice 3 "
-                "(breadth of training)")
+                "(breadth of training), item 7")
         if isinstance(data, str):
             raise NotImplementedError(
                 "binary dataset files (save_binary) are not ported yet: "

@@ -12,7 +12,7 @@ Training runs on the training Dataset's device.  ``cv`` takes the
 reference's route: a plain call (no callbacks, ``feval``,
 ``return_cvbooster``, ``eval_train_metric`` or ``verbose_eval``) trains all
 folds at once in the fused program (``models/fused.py``), anything else one
-Booster per fold.  ``init_model`` is ROADMAP slice 3.
+Booster per fold.  ``init_model`` is ROADMAP slice 3, item 10.
 """
 
 from __future__ import annotations

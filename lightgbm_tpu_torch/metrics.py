@@ -1,5 +1,4 @@
-"""Evaluation metrics — the port of ``lightgbm_tpu/metrics.py`` (the metrics
-of the training slice).
+"""Evaluation metrics — the port of ``lightgbm_tpu/metrics.py``.
 
 All metrics are weighted means over f32 tensors on the training device
 (weight 0 on padding rows), so a round's evaluation fetches one scalar per
@@ -20,6 +19,7 @@ from typing import Callable, Dict, NamedTuple
 import torch
 
 from .multiclass import multi_error, multi_logloss
+from .objectives import link_exp
 
 _F32 = torch.float32
 
@@ -52,6 +52,12 @@ def _l1(pred, y, w):
     return _wmean(torch.abs(pred - y), w)
 
 
+def _huber(pred, y, w, alpha=0.9):
+    r = torch.abs(pred - y)
+    loss = torch.where(r <= alpha, 0.5 * r * r, alpha * (r - 0.5 * alpha))
+    return _wmean(loss, w)
+
+
 def _binary_logloss(p, y, w):
     p = torch.clamp(p, 1e-15, 1 - 1e-15)
     return _wmean(-(y * torch.log(p) + (1 - y) * torch.log(1 - p)), w)
@@ -59,6 +65,40 @@ def _binary_logloss(p, y, w):
 
 def _binary_error(p, y, w):
     return _wmean(((p > 0.5) != (y > 0.5)).to(_F32), w)
+
+
+def _poisson_nll(mu, y, w):
+    mu = torch.clamp(mu, min=1e-15)
+    return _wmean(mu - y * torch.log(mu), w)
+
+
+def _quantile(pred, y, w, alpha=0.9):
+    r = y - pred
+    return _wmean(torch.maximum(alpha * r, (alpha - 1) * r), w)
+
+
+def _mape(pred, y, w):
+    return _wmean(torch.abs(pred - y) / torch.clamp(torch.abs(y), min=1.0), w)
+
+
+def _gamma_nll(mu, y, w):
+    """Upstream's "gamma" metric: the negative log-likelihood at shape 1."""
+    mu = torch.clamp(mu, min=1e-15)
+    ys = torch.clamp(y, min=1e-15)
+    return _wmean(torch.log(mu) + ys / mu, w)
+
+
+def _gamma_deviance(mu, y, w):
+    mu = torch.clamp(mu, min=1e-15)
+    ys = torch.clamp(y, min=1e-15)
+    return _wmean(2.0 * (torch.log(mu / ys) + ys / mu - 1.0), w)
+
+
+def _tweedie_nll(mu, y, w, rho=1.5):
+    mu = torch.clamp(mu, min=1e-15)
+    a = y * link_exp((1.0 - rho) * torch.log(mu)) / (1.0 - rho)
+    b = link_exp((2.0 - rho) * torch.log(mu)) / (2.0 - rho)
+    return _wmean(-a + b, w)
 
 
 def _auc(score, y, w):
@@ -99,6 +139,14 @@ _METRICS: Dict[str, Metric] = {
     "l2": Metric("l2", False, _l2),
     "rmse": Metric("rmse", False, _rmse),
     "l1": Metric("l1", False, _l1),
+    "huber": Metric("huber", False, _huber),
+    "poisson": Metric("poisson", False, _poisson_nll),
+    "quantile": Metric("quantile", False, _quantile),
+    "mape": Metric("mape", False, _mape),
+    "gamma": Metric("gamma", False, _gamma_nll),
+    "gamma_deviance": Metric("gamma_deviance", False, _gamma_deviance),
+    "tweedie": Metric("tweedie", False, _tweedie_nll),
+    "cross_entropy": Metric("cross_entropy", False, _binary_logloss),
     "binary_logloss": Metric("binary_logloss", False, _binary_logloss),
     "binary_error": Metric("binary_error", False, _binary_error),
     "auc": Metric("auc", True, _auc),
@@ -106,17 +154,27 @@ _METRICS: Dict[str, Metric] = {
     "multi_error": Metric("multi_error", False, multi_error),
 }
 
-# the reference's other metric names: known, not ported yet
-_LATER = ("huber", "poisson", "quantile", "mape", "gamma", "gamma_deviance",
-          "tweedie", "cross_entropy", "ndcg", "map")
+# the reference's ranking metrics: known, not ported yet
+_LATER = ("ndcg", "map")
 
 
 def get_metric(name: str, params=None) -> Metric:
-    m = _METRICS.get(name)
-    if m is not None:
-        return m
+    """The metric by name; with ``params``, huber and quantile bind
+    ``alpha`` and tweedie ``tweedie_variance_power``, as the reference's
+    lookup does."""
     if name in _LATER:
         raise NotImplementedError(
             f"metric '{name}' is not ported yet: ROADMAP slice 3 (breadth "
-            "of training)")
-    raise ValueError(f"Unknown metric: {name}")
+            "of training), item 8")
+    m = _METRICS.get(name)
+    if m is None:
+        raise ValueError(f"Unknown metric: {name}")
+    if params is not None and name in ("huber", "quantile"):
+        alpha = float(params.alpha)
+        return Metric(m.name, m.higher_better,
+                      lambda p, y, w, a=alpha: m.fn(p, y, w, a))
+    if params is not None and name == "tweedie":
+        rho = float(params.tweedie_variance_power)
+        return Metric(m.name, m.higher_better,
+                      lambda p, y, w, r=rho: m.fn(p, y, w, r))
+    return m

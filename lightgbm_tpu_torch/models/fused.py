@@ -44,6 +44,7 @@ import torch
 from ..config import Params, default_metric_for_objective
 from ..metrics import get_metric
 from ..objectives import create_objective
+from ..ops.histogram import sr_round_bf16
 from ..ops.sampling import sample_bag_rows, sample_feature_mask_rows
 from ..ops.split import fma
 from ..utils.random import (fold_in, fold_in_keys, fold_in_tensor, prng_key,
@@ -259,6 +260,14 @@ class FusedCVProgram:
                                    (h * bag_k).permute(1, 0, 2),
                                    bag_k.permute(1, 0, 2)], dim=-1).reshape(
                                        self.n_pad, self.batch * k, 3)
+            if self.hist_dtype == "bf16sr":
+                # the reference's class vmap inside the batch vmap hashes
+                # each element's statistics in its own [K, n, 3] layout;
+                # the grower's rounding after this one changes nothing
+                stats_t = sr_round_bf16(stats_t.view(
+                    self.n_pad, self.batch, k, 3).permute(1, 2, 0, 3),
+                    batch_dims=1).permute(2, 0, 1, 3).reshape(
+                        self.n_pad, self.batch * k, 3)
             fmask = fmask.repeat_interleave(k, dim=0)
             hyper = HyperScalarsBatch(*(v.repeat_interleave(k)
                                         for v in hyper))

@@ -15,10 +15,14 @@ Bagging and ``feature_fraction`` draw from the reference's counter-based
 streams (``utils/random.py``), keyed by round index, so the same params and
 seed give the same trees as the reference.
 
-What is outside this slice raises a ``NotImplementedError`` naming the
-ROADMAP slice and item that will port it: other objectives and boosting
-modes, constraints, categorical/linear/extra trees, per-node sampling,
-feature screening, streaming, the distributed learners and ``init_model``.
+The objectives with leaf renewal (``regression_l1``, ``quantile``, ``mape``)
+refit each single-class tree's leaves to weighted quantiles of the residuals
+(:func:`~.tree.renew_leaf_values`) before the score update, as the
+reference's round step does.  What is outside the port so far raises a
+``NotImplementedError`` naming the ROADMAP slice and item that will port it:
+ranking objectives, GOSS and DART, constraints, categorical/linear/extra
+trees, feature screening, streaming, the distributed learners and
+``init_model``.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -52,7 +56,8 @@ from ..ops.sampling import sample_bag
 from ..ops.split import SplitContext, fma
 from ..utils.random import fold_in, prng_key, split_on
 from .feature_mask import compose_tree_mask
-from .tree import _PK, Tree, _tree_from_packed, grow_tree, grow_trees_batched
+from .tree import (_PK, Tree, _tree_from_packed, grow_tree,
+                   grow_trees_batched, renew_leaf_values)
 
 _F32 = torch.float32
 _SLICE3 = "ROADMAP slice 3 (breadth of training)"
@@ -224,12 +229,8 @@ def check_slice_scope(p: Params) -> None:
 
     if p.boosting not in ("gbdt", "rf"):
         later(f"boosting='{p.boosting}'", _slice3(6))
-    if p.objective not in ("regression", "binary", "multiclass",
-                           "multiclassova"):
-        later(f"objective='{p.objective}'", _slice3(
-            8 if p.objective in ("lambdarank", "rank_xendcg") else 5))
-    if p.extra.get("fobj") is not None:
-        later("a custom objective (fobj)", _slice3(5))
+    if p.objective in ("lambdarank", "rank_xendcg"):
+        later(f"objective='{p.objective}'", _slice3(8))
     if p.linear_tree:
         later("linear_tree", _slice3(10))
     if p.monotone_constraints and any(int(c) != 0
@@ -239,9 +240,6 @@ def check_slice_scope(p: Params) -> None:
         later("interaction_constraints", _slice3(9))
     if p.extra_trees:
         later("extra_trees", _slice3(9))
-    if p.extra.get("hist_dtype") == "bf16sr":
-        later("hist_dtype='bf16sr' (stochastically rounded bf16 "
-              "statistics)", "ROADMAP item 16")
     if p.feature_screen != "off":
         later(f"feature_screen='{p.feature_screen}'", _SLICE5)
     if p.tree_learner != "serial":
@@ -373,10 +371,9 @@ class Booster:
 
     # -- round step ------------------------------------------------------
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        """Run one boosting round (LightGBM ``Booster.update``)."""
-        if fobj is not None:
-            raise NotImplementedError(
-                f"a custom objective (fobj) is not ported yet: {_slice3(5)}")
+        """Run one boosting round (LightGBM ``Booster.update``).  ``fobj``
+        is accepted and not used, as in the reference: a custom objective
+        is given as ``objective=callable`` in the params."""
         if train_set is not None and train_set is not self.train_set:
             if self.trees:
                 raise NotImplementedError(
@@ -437,6 +434,16 @@ class Booster:
                 ds.X_binned, stats, fmask, hyper.ctx(), p.num_leaves,
                 self._num_bins, hyper.max_depth,
                 wave_width=resolve_wave_width(p, n_pad), **grow)
+            renew_alpha = getattr(self.obj, "renew_alpha", None)
+            if renew_alpha is not None:
+                # L1/quantile/MAPE: leaves refit to weighted quantiles of
+                # the residuals, before the score update (rf too)
+                rw = self._w_eff * bag
+                if hasattr(self.obj, "renew_scale"):
+                    rw = rw * self.obj.renew_scale(ds.y)
+                tree = renew_leaf_values(tree, row_leaf,
+                                         ds.y - self._pred_train, rw,
+                                         renew_alpha)
             if not is_rf:
                 self._pred_train = fma(
                     lr, tree.leaf_value[row_leaf.to(torch.int64)],

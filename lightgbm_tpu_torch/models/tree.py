@@ -48,9 +48,10 @@ import torch
 
 from ..ops.histogram import (compute_histograms, compute_histograms_batched,
                              hist_partition_fused, hist_partition_plain,
-                             histograms_rows, resolve_mode, route_wave)
+                             histograms_rows, resolve_mode, route_wave,
+                             sr_round_bf16)
 from ..ops.split import (SplitContext, constrained_leaf_output,
-                         find_best_split)
+                         find_best_split, prefix_sum)
 from ..utils.random import key_tensor
 from .feature_mask import node_mask_fn, node_mask_table
 
@@ -204,6 +205,11 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     (:func:`~.feature_mask.node_mask_table`).
     """
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
+    if hist_dtype == "bf16sr":
+        # the statistics rounded once, in the reference's [n, S] layout;
+        # the rounding is idempotent, so every histogram of the tree sees
+        # them as the reference's B1 and B2 calls do
+        stats, hist_dtype = sr_round_bf16(stats), "bf16"
     if width <= 1:
         dev = bins.device
         fmask = feature_mask.to(_F32).reshape(1, -1)
@@ -256,6 +262,10 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     row_leaf i32 [n, E])``; ``ff_bynode`` f32 ``[E]`` and ``keys`` int64
     ``[E, 2]`` (None: off) sample each node's columns."""
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
+    if hist_dtype == "bf16sr":
+        # rounded once in the reference's batched layout [E, n, S]
+        stats_t = sr_round_bf16(stats_t.transpose(0, 1)).transpose(0, 1)
+        hist_dtype = "bf16"
     if width <= 1:
         return grow_tree_strict(bins, stats_t, fmask, ctx, max_depth,
                                 num_leaves, num_bins, hist_impl=hist_impl,
@@ -950,6 +960,44 @@ _TREE_OPTIONAL_FIELDS = ("is_cat_split", "cat_mask", "linear_feat",
                          "linear_coef")
 
 
+def renew_leaf_values(tree: Tree, row_leaf: torch.Tensor,
+                      residual: torch.Tensor, weight: torch.Tensor,
+                      alpha: float) -> Tree:
+    """Refit each leaf's value to the weighted alpha-quantile of its rows'
+    ``residual`` (alpha 0.5: the weighted median), the reference's
+    ``renew_leaf_values`` (upstream ``RenewTreeOutput``).
+
+    One global sort of the rows by residual, one stable sort by leaf, the
+    cumulative weights, and a ``searchsorted`` for every leaf's span and
+    target, all on the tree's device with no host read.  Zero-weight rows
+    (padding, out of bag) advance no cumulative weight and never become a
+    quantile; a leaf without weight keeps its Newton value.  On CPU tensors
+    the cumulative weights are summed in XLA's CPU scan order
+    (:func:`~..ops.split.prefix_sum`), so the target row is the
+    reference's whatever the weights; on the card in ``torch.cumsum``'s.
+    """
+    capacity = tree.leaf_value.shape[-1]
+    n = residual.shape[0]
+    order = torch.argsort(residual, stable=True)
+    order = order[torch.argsort(row_leaf[order], stable=True)]
+    leaf_s = row_leaf[order].to(torch.int32).contiguous()
+    r_s = residual[order]
+    w_s = weight[order].to(_F32)
+    cw = prefix_sum(w_s) if w_s.device.type == "cpu" else \
+        torch.cumsum(w_s, 0)
+    ids = torch.arange(capacity, dtype=torch.int32, device=leaf_s.device)
+    starts = torch.searchsorted(leaf_s, ids)
+    ends = torch.searchsorted(leaf_s, ids, right=True)
+    cw0 = torch.cat([cw.new_zeros(1), cw])
+    w_before = cw0[starts]
+    totals = cw0[ends] - w_before
+    target = w_before + float(alpha) * totals      # alpha rounded to f32
+    idx = torch.clamp(torch.searchsorted(cw, target), 0, n - 1)
+    new_vals = torch.where((totals > 0) & tree.is_leaf, r_s[idx],
+                           tree.leaf_value)
+    return tree._replace(leaf_value=new_vals)
+
+
 def tree_to_arrays(tree: Tree) -> dict:
     """Tree -> ``{field: np.ndarray}`` (optional None fields omitted)."""
     return {name: val.detach().cpu().numpy()
@@ -963,7 +1011,7 @@ def tree_from_arrays(arrays: dict, device="cpu") -> Tree:
         if arrays.get(name) is not None:
             raise NotImplementedError(
                 "linear_tree models are not ported yet: ROADMAP slice 3 "
-                "(breadth of training)")
+                "(breadth of training), item 10")
     kw = {}
     for name in Tree._fields:
         if name in arrays and arrays[name] is not None:

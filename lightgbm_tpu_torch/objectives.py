@@ -1,19 +1,24 @@
 """Objectives — the port of ``lightgbm_tpu/objectives.py``.
 
-Every objective has its raw-score -> prediction ``transform`` (serving).  The
-two objectives of the training slice, :class:`RegressionL2` and
-:class:`Binary`, also have ``init_score`` (boost-from-average, host numpy,
-once per training) and ``grad_hess`` (per round, f32 tensors on the
-training device; gradients and hessians already multiplied by the row
-weight).  All of it uses the reference's own formulas op by op (``1 / (1 +
-exp(-x))`` rather than ``torch.sigmoid``), so the two packages agree to f32
-rounding.  :func:`create_objective` accepts every objective name the
-reference registry accepts; the Booster refuses to train the others.
+Each objective has ``init_score`` (boost-from-average, host numpy, once per
+training), ``grad_hess`` (per round, f32 tensors on the training device;
+gradients and hessians already multiplied by the row weight) and its
+raw-score -> prediction ``transform`` (serving).  All of it uses the
+reference's own formulas op by op (``1 / (1 + exp(-x))`` rather than
+``torch.sigmoid``), and every ``exp`` goes through :func:`link_exp`, so the
+two packages agree bit for bit on CPU tensors.  ``regression_l1``,
+``quantile`` and ``mape`` carry ``renew_alpha`` (and ``mape`` its
+``renew_scale``): after each tree is grown its leaf values are refit to
+weighted quantiles of the residuals (``models/tree.py``
+``renew_leaf_values``).  A custom objective (``objective=callable``, or
+``objective="none"`` with ``fobj``) is called as ``fobj(pred, y)`` on the
+Booster's tensors (torch, on its device) and must return ``(grad, hess)``
+tensors of the same shape; the row weights are applied after it.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -67,6 +72,15 @@ def link_exp(x: torch.Tensor) -> torch.Tensor:
     return xla_exp_f32(x) if x.device.type == "cpu" else torch.exp(x)
 
 
+def mul_add(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """``a * b + c``: fused (rounded once) on CPU tensors, where the
+    reference's XLA CPU program contracts the multiply-add; two roundings
+    on the card, as PyTorch computes it."""
+    if a.device.type == "cpu":
+        return fma(a, b, torch.as_tensor(c, dtype=torch.float32))
+    return a * b + c
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + link_exp(-x))
 
@@ -87,9 +101,7 @@ class Objective:
         return 0.0
 
     def grad_hess(self, pred, y, w):
-        raise NotImplementedError(
-            f"training with objective '{self.name}' is not ported yet: "
-            "ROADMAP slice 3 (breadth of training)")
+        raise NotImplementedError
 
     def transform(self, raw: torch.Tensor) -> torch.Tensor:
         """Raw score -> user-facing prediction (e.g. sigmoid for binary)."""
@@ -108,47 +120,171 @@ class RegressionL2(Objective):
         return (pred - y) * w, w
 
 
+def _weighted_quantile(y: np.ndarray, w: np.ndarray, alpha: float) -> float:
+    """Host-side weighted alpha-quantile (alpha=0.5 -> weighted median):
+    the boost-from-score base of the L1, quantile and MAPE objectives."""
+    order = np.argsort(y)
+    cw = np.cumsum(w[order])
+    idx = np.searchsorted(cw, alpha * cw[-1])
+    return float(y[order][min(idx, len(y) - 1)])
+
+
+def _log_mean(y, w) -> float:
+    """The log-link objectives' init score: log of the weighted mean."""
+    mean = max(np.average(y, weights=np.maximum(w, 0)), 1e-9)
+    return float(np.log(mean))
+
+
 class RegressionL1(Objective):
+    """MAE: sign gradients, then each tree's leaves renewed to the weighted
+    median of their residuals (upstream ``RegressionL1loss``)."""
+
     name = "regression_l1"
+    renew_alpha = 0.5
+
+    def init_score(self, y, w):
+        if not self.params.boost_from_average:
+            return 0.0
+        return _weighted_quantile(y, w, 0.5)
+
+    def grad_hess(self, pred, y, w):
+        return torch.sign(pred - y) * w, w
 
 
 class Huber(Objective):
     name = "huber"
 
+    def grad_hess(self, pred, y, w):
+        delta = _f32(self.params.alpha, pred)
+        g = torch.clamp(pred - y, -delta, delta)
+        return g * w, w
+
+    def init_score(self, y, w):
+        if not self.params.boost_from_average:
+            return 0.0
+        return float(np.average(y, weights=np.maximum(w, 0)))
+
 
 class Fair(Objective):
     name = "fair"
 
+    def grad_hess(self, pred, y, w):
+        c = _f32(self.params.fair_c, pred)
+        r = pred - y
+        g = c * r / (torch.abs(r) + c)
+        h = c * c / (torch.abs(r) + c) ** 2
+        return g * w, h * w
+
 
 class Quantile(Objective):
+    """Pinball loss; leaves renewed to the weighted alpha-quantile of their
+    residuals (upstream ``RegressionQuantileloss``)."""
+
     name = "quantile"
+
+    @property
+    def renew_alpha(self):
+        return float(self.params.alpha)
+
+    def init_score(self, y, w):
+        if not self.params.boost_from_average:
+            return 0.0
+        return _weighted_quantile(y, w, float(self.params.alpha))
+
+    def grad_hess(self, pred, y, w):
+        alpha = _f32(self.params.alpha, pred)
+        g = torch.where(y > pred, -alpha, 1.0 - alpha)
+        return g * w, w
 
 
 class MAPE(Objective):
+    """L1 on residuals scaled by ``1/max(1, |y|)`` (upstream
+    ``RegressionMAPELOSS``): the scale rides on the gradients, hessians and
+    the renewal's weights."""
+
     name = "mape"
+    renew_alpha = 0.5
+
+    @staticmethod
+    def renew_scale(y):
+        return 1.0 / torch.clamp(torch.abs(y), min=1.0)
+
+    def init_score(self, y, w):
+        if not self.params.boost_from_average:
+            return 0.0
+        return _weighted_quantile(y, w / np.maximum(np.abs(y), 1.0), 0.5)
+
+    def grad_hess(self, pred, y, w):
+        scale = self.renew_scale(y)
+        return torch.sign(pred - y) * scale * w, scale * w
 
 
 class _LogLink(Objective):
     """Raw score is log(mu): poisson, gamma and tweedie."""
 
+    def init_score(self, y, w):
+        return _log_mean(y, w)
+
     def transform(self, raw):
-        return torch.exp(raw)
+        return link_exp(raw)
 
 
 class Poisson(_LogLink):
     name = "poisson"
 
+    def grad_hess(self, pred, y, w):
+        mu = link_exp(pred)
+        h = link_exp(pred + _f32(self.params.poisson_max_delta_step, pred))
+        return (mu - y) * w, h * w
+
 
 class Gamma(_LogLink):
+    """Gamma deviance: grad = 1 - y*exp(-s), hess = y*exp(-s)."""
+
     name = "gamma"
+
+    def grad_hess(self, pred, y, w):
+        e = link_exp(-pred)
+        return (mul_add(-y, e, 1.0) * w,
+                torch.maximum(y * e, _f32(1e-16, pred)) * w)
 
 
 class Tweedie(_LogLink):
+    """Tweedie deviance, variance power rho in (1, 2):
+    grad = -y*exp((1-rho)s) + exp((2-rho)s)."""
+
     name = "tweedie"
+
+    def __init__(self, params: Params):
+        super().__init__(params)
+        self.rho = float(params.tweedie_variance_power)
+
+    def grad_hess(self, pred, y, w):
+        rho = _f32(self.rho, pred)
+        a = link_exp((1.0 - rho) * pred)
+        b = link_exp((2.0 - rho) * pred)
+        g = mul_add(-y, a, b)
+        h = mul_add(-y * (1.0 - rho), a, (2.0 - rho) * b)
+        return g * w, torch.maximum(h, _f32(1e-16, pred)) * w
 
 
 class CrossEntropy(Objective):
+    """Cross-entropy on continuous labels in [0, 1]: the logistic link
+    without the ``sigmoid`` scale."""
+
     name = "cross_entropy"
+
+    def init_score(self, y, w):
+        if not self.params.boost_from_average:
+            return 0.0
+        pbar = float(np.average(y, weights=np.maximum(w, 1e-12)))
+        pbar = min(max(pbar, 1e-12), 1 - 1e-12)
+        return float(np.log(pbar / (1 - pbar)))
+
+    def grad_hess(self, pred, y, w):
+        p = sigmoid(pred)
+        return (p - y) * w, torch.maximum(p * (1.0 - p),
+                                          _f32(1e-16, pred)) * w
 
     def transform(self, raw):
         return sigmoid(raw)
@@ -197,11 +333,25 @@ class LambdaRank(Objective):
     name = "lambdarank"
     needs_group = True
 
+    def grad_hess(self, pred, y, w):
+        raise NotImplementedError(
+            "training with objective 'lambdarank' is not ported yet: ROADMAP "
+            "slice 3 (breadth of training), item 8")
+
 
 class CustomObjective(Objective):
-    """A user ``fobj`` model: raw scores are served untransformed."""
+    """A user ``fobj(pred, y) -> (grad, hess)``; raw scores are served
+    untransformed."""
 
     name = "custom"
+
+    def __init__(self, params: Params, fobj: Callable):
+        super().__init__(params)
+        self.fobj = fobj
+
+    def grad_hess(self, pred, y, w):
+        g, h = self.fobj(pred, y)
+        return g * w, h * w
 
 
 _REGISTRY: Dict[str, type] = {
@@ -225,7 +375,7 @@ def create_objective(params: Params) -> Objective:
     if fobj is not None or params.objective == "none":
         if fobj is None:
             raise ValueError("objective='none' requires a custom fobj")
-        return CustomObjective(params)
+        return CustomObjective(params, fobj)
     if params.objective in ("multiclass", "multiclassova"):
         from .multiclass import Multiclass, MulticlassOVA
         cls = MulticlassOVA if params.objective == "multiclassova" else \

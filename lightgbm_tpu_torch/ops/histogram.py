@@ -35,6 +35,8 @@ Modes: ``"bf16"`` rounds each statistic to bf16 (round to nearest even) and
 sums in f32, as the TPU kernel's bf16 fold and the reference's XLA path do;
 ``"f32"`` (and the reference's explicit ``"f32x"``) sums the f32 statistics
 in f32 — true f32, not the TPU kernel's hi/lo bf16 approximation.
+``hist_dtype="bf16sr"`` has no mode of its own: the growers round a
+tree's statistics once with :func:`sr_round_bf16` and take bf16.
 ``"int8"`` is B1's quantized mode (:func:`quantize_int8`): each channel is
 scaled to ``[-127, 127]`` by its largest magnitude over all ``n`` rows of
 the call, rounded stochastically with a hash of the row index, summed
@@ -81,8 +83,9 @@ def resolve_mode(hist_dtype: str) -> str:
     if hist_dtype in ("bf16", "int8"):
         return hist_dtype
     raise NotImplementedError(
-        f"hist_dtype={hist_dtype!r} is not ported: the port has 'f32', "
-        "'bf16' and 'int8' histograms")
+        f"hist_dtype={hist_dtype!r} is not ported: the histograms take "
+        "'f32', 'bf16' and 'int8' ('bf16sr' is rounded by the growers, "
+        "then 'bf16')")
 
 
 def check_int8_rows(n: int) -> None:
@@ -115,6 +118,32 @@ def quantize_int8(stats: torch.Tensor):
     r = (h >> 9).to(_F32) / float(1 << 23)
     q = torch.clamp(torch.floor(st / scale + r[:, None]), -127.0, 127.0)
     return q.to(torch.int8), scale
+
+
+# hist_dtype="bf16sr": the per-element hash of sr_round_bf16
+SR_HASH_MUL, SR_HASH_ADD, SR_HASH_SHIFT = 2654435761, 974711, 13
+
+
+def sr_round_bf16(x: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
+    """Stochastically round f32 values to bf16-representable f32, as the
+    reference's ``sr_round_bf16`` does: add a 16-bit hash of each element's
+    row-major flat index to its f32 bit pattern and truncate the low 16
+    bits (unbiased, idempotent on representable values); non-finite inputs,
+    and values the carry would take past the largest finite, stay as they
+    are.  The uint32 arithmetic runs in int64 masked to 32 bits; a
+    transposed view hashes the index of its own (viewed) layout.  The
+    leading ``batch_dims`` axes are not part of the hashed layout (each of
+    their elements gets the same indices), as where an outer ``vmap``
+    batches the reference's call."""
+    x = x.to(_F32)
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    inner = x.shape[batch_dims:]
+    idx = torch.arange(inner.numel(), dtype=torch.int64,
+                       device=x.device).view(inner)
+    h = (idx * SR_HASH_MUL + SR_HASH_ADD) & 0xFFFFFFFF
+    q = (u + ((h >> SR_HASH_SHIFT) & 0xFFFF)) & 0xFFFF0000
+    out = (q - ((q >> 31) << 32)).to(torch.int32).view(_F32)
+    return torch.where(torch.isfinite(x) & torch.isfinite(out), out, x)
 
 
 def _stats_in_mode(stats: torch.Tensor, mode: str) -> torch.Tensor:

@@ -61,7 +61,7 @@ def _tree_to_dict(tree) -> dict:
     if tree.is_cat_split is not None:
         raise NotImplementedError(
             "categorical trees are not ported yet: ROADMAP slice 3 (breadth "
-            "of training)")
+            "of training), item 7")
     return {
         "split_feature": _host(tree.split_feature).tolist(),
         "split_bin": _host(tree.split_bin).tolist(),
@@ -81,7 +81,7 @@ def _tree_from_dict(d: dict, device):
     if "cat_splits" in d or "linear_feat" in d:
         raise NotImplementedError(
             "categorical and linear-leaf trees are not ported yet: ROADMAP "
-            "slice 3 (breadth of training)")
+            "slice 3 (breadth of training), items 7 and 10")
     return tree_from_arrays({
         "split_feature": np.asarray(d["split_feature"], np.int32),
         "split_bin": np.asarray(d["split_bin"], np.int32),
@@ -192,7 +192,7 @@ def _load_packed_into(booster, path: str) -> None:
     if pf.is_cat_split is not None:
         raise NotImplementedError(
             "categorical models are not ported yet: ROADMAP slice 3 "
-            "(breadth of training)")
+            "(breadth of training), item 7")
     _load_params(booster, pf.params)
     booster.init_score_ = (np.asarray(pf.init_score, np.float32)
                            if pf.num_class > 1 else float(pf.init_score[0]))

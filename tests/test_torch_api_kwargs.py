@@ -68,7 +68,7 @@ def test_ntree_limit_is_the_staged_prediction(c3_models, k):
 # parameters the port names but refuses, each with the item that ports it
 REFUSED = {
     ("Dataset.__init__", "group"): "item 8",
-    ("Dataset.__init__", "categorical_feature"): "slice 3",
+    ("Dataset.__init__", "categorical_feature"): "item 7",
     ("train", "init_model"): "item 10",
     ("Booster.predict", "pred_leaf"): "item 10",
     ("Booster.predict", "pred_contrib"): "item 10",
@@ -83,6 +83,7 @@ CALLABLES = {
     "cv": (R.cv, P.cv),
     "Booster.__init__": (RB.__init__, PB.__init__),
     "Booster.predict": (RB.predict, PB.predict),
+    "Booster.update": (RB.update, PB.update),
     "Dataset.__init__": (R.Dataset.__init__, P.Dataset.__init__),
     "LGBMModel.__init__": (RS.LGBMModel.__init__, PS.LGBMModel.__init__),
     "LGBMModel.fit": (RS.LGBMModel.fit, PS.LGBMModel.fit),

@@ -952,3 +952,99 @@ def test_unfused_strict_body_on_card(case):
     np.testing.assert_allclose(runs[0].predict(X[:2000]),
                                runs[1].predict(X[:2000]), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(50_000, 3), (5, 20_000, 3)])
+def test_sr_round_bf16_on_card_bit_equal_to_cpu(shape):
+    """``hist_dtype="bf16sr"``'s rounding on the card, bit for bit the CPU
+    version's (integer arithmetic), with non-finite and largest values."""
+    dev = _card()
+    rng = np.random.default_rng(45)
+    x = rng.normal(0, 1e3, shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[:8] = [np.inf, -np.inf, np.nan, 1e-40, -0.0, 3.4028235e38,
+                -3.4028235e38, 1.5]
+    cpu = th.sr_round_bf16(torch.from_numpy(x))
+    card = th.sr_round_bf16(torch.from_numpy(x).to(dev)).cpu()
+    assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
+    t = torch.from_numpy(x).transpose(0, 1)
+    assert torch.equal(th.sr_round_bf16(t.to(dev)).cpu().view(torch.int32),
+                       th.sr_round_bf16(t).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["bag", "mape"])
+def test_renew_leaf_values_on_card(weights):
+    """Leaf renewal on the card against the CPU: with 0/1 weights every
+    partial sum is an exact integer, so the leaves are bit-equal; with
+    MAPE's scale ``torch.cumsum``'s order may move a target by a row, so
+    each leaf is a residual of one of its own in-bag rows, at most one
+    place from the CPU's in the leaf's sorted residuals."""
+    from lightgbm_tpu_torch.models.tree import Tree, renew_leaf_values
+
+    dev = _card()
+    rng = np.random.default_rng(46)
+    n, cap = 200_000, 253
+    leaves = rng.choice(cap, 127, replace=False)
+    is_leaf = np.zeros(cap, bool)
+    is_leaf[leaves] = True
+    row_leaf = rng.choice(leaves, n).astype(np.int32)
+    res = rng.normal(size=n).astype(np.float32)
+    w = (rng.random(n) < 0.8).astype(np.float32)
+    if weights == "mape":
+        y = rng.normal(0, 50, n).astype(np.float32)
+        w = w / np.maximum(np.abs(y), 1.0).astype(np.float32)
+    z = torch.zeros(cap, dtype=torch.int32)
+    lv = torch.from_numpy(rng.normal(size=cap).astype(np.float32))
+    tree = Tree(z, z, z, z, lv, torch.from_numpy(is_leaf), torch.zeros(cap),
+                torch.zeros(cap), torch.tensor(127))
+    args = (torch.from_numpy(row_leaf), torch.from_numpy(res),
+            torch.from_numpy(w), 0.5)
+    cpu = renew_leaf_values(tree, *args).leaf_value.numpy()
+    card = renew_leaf_values(
+        Tree(*(None if f is None else f.to(dev) for f in tree)),
+        *(a.to(dev) for a in args[:3]), 0.5).leaf_value.cpu().numpy()
+    if weights == "bag":
+        assert np.array_equal(card, cpu)
+        return
+    for leaf in leaves:
+        r = np.sort(res[(row_leaf == leaf) & (w > 0)])
+        assert card[leaf] in r
+        assert abs(np.searchsorted(r, card[leaf])
+                   - np.searchsorted(r, cpu[leaf])) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["regression_l1", "quantile", "mape",
+                                       "gamma"])
+def test_objectives_train_kernel_vs_plain_on_card(objective):
+    """The new objectives on the card's wave grower (B1 roots, B2 waves,
+    renewal where the objective asks): the kernel path's trees
+    structure-equal to the plain path's, predictions within rtol 1e-5."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_PARTITION_LAUNCHES)
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    rng = np.random.default_rng(47)
+    X = rng.normal(size=(20_000, 8)).astype(np.float32)
+    y = rng.gamma(2.0, np.exp(0.4 * X[:, 0] - 0.3 * X[:, 1]) / 2.0
+                  ).astype(np.float32)
+    p = dict(objective=objective, num_leaves=31, alpha=0.9, verbosity=-1,
+             hist_dtype="f32")
+    HIST_FUSED_LAUNCHES["f32"].reset()
+    HIST_PARTITION_LAUNCHES["f32"].reset()
+    runs = [lgb.train(dict(p, hist_impl=impl),
+                      lgb.Dataset(X, label=y, device=dev), 4)
+            for impl in ("auto", "plain")]
+    assert HIST_FUSED_LAUNCHES["f32"].count > 0
+    assert HIST_PARTITION_LAUNCHES["f32"].count > 0
+    for ta, tb in zip(runs[0].trees, runs[1].trees):
+        a, b = tree_to_arrays(ta), tree_to_arrays(tb)
+        for k in ("split_feature", "split_bin", "left", "right", "is_leaf"):
+            assert np.array_equal(a[k], b[k]), k
+    np.testing.assert_allclose(runs[0].predict(X[:2000]),
+                               runs[1].predict(X[:2000]), rtol=RTOL,
+                               atol=ATOL)

@@ -222,20 +222,22 @@ OUT_OF_SLICE = {
     "multiclass": {"objective": "multiclass", "num_class": 3,
                    "boosting": "dart"},
     "lambdarank": {"objective": "lambdarank"},
-    "poisson": {"objective": "poisson"},
+    # the remaining objectives and bf16sr train since their slice; under a
+    # learner outside the slice they still raise by name
+    "poisson": {"objective": "poisson", "tree_learner": "data"},
     "linear_tree": {"linear_tree": True},
     "monotone": {"monotone_constraints": [1, 0, 0, 0]},
     "interaction": {"interaction_constraints": [[0, 1], [2, 3]]},
     "extra_trees": {"extra_trees": True},
     "bynode": {"feature_fraction_bynode": 0.5, "tree_learner": "feature"},
-    "bf16sr": {"hist_dtype": "bf16sr"},
+    "bf16sr": {"hist_dtype": "bf16sr", "tree_learner": "data"},
     "feature_screen": {"feature_screen": "ema"},
     "data_parallel": {"tree_learner": "data"},
     "feature_parallel": {"tree_learner": "feature"},
     # int8 trains since B1's int8 mode; under a learner outside the slice
     # it still raises by name
     "int8": {"hist_dtype": "int8", "tree_learner": "data"},
-    "quantile": {"objective": "quantile"},
+    "quantile": {"objective": "quantile", "tree_learner": "data"},
 }
 
 
