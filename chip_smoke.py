@@ -217,7 +217,32 @@ Phases:
    1e-5 relative; (d) ``hist_dtype="bf16sr"`` at the north star, 10 rounds:
    ``sr_round_bf16`` on the card bit-equal to the CPU's on the root
    statistics, kernel and plain trees equal, the AUC beside phase 6's bf16
-   AUC and the s per round against bf16 in turns.
+   AUC and the s per round against bf16 in turns;
+16. GOSS and DART at LightGBM's defaults, every launch counter at 0 just
+   before each run and read just after: (a) GOSS at the north star
+   (``top_rate`` 0.2, ``other_rate`` 0.1: 300,000 compacted rows, f32
+   under "auto", B1 roots and B2 waves), 10 rounds through the kernels and
+   the plain versions in turns beside the gbdt round: the selected rows
+   and weights of every round equal on both paths, the card's selection
+   equal to the CPU's on the same gradients and run under
+   ``torch.cuda.set_sync_debug_mode("error")``, trees equal, AUC within
+   1e-4; host syncs per round, the selection's and the full-row
+   traversal's device ms from the profiler; 16,384 rows served by B4
+   within 1e-5 of ``Booster.predict``; (b) multiclass GOSS at Covertype's
+   shape, 3 rounds (B5 and B6 by the route rule): trees equal,
+   ``multi_logloss`` within 1e-4; (c) DART at the north star (``drop_rate``
+   0.1, ``max_drop`` 50, ``skip_drop`` 0.5), 30 rounds with the valid set
+   attached: the same drops, stored leaves after rescaling equal within
+   1e-5, valid AUC within 1e-4, the dropped-tree replay's CUDA-event ms
+   per drop round, the final model served by B4 within 1e-5; (d)
+   examples/gridsearch_cv.py's ``cv()`` arguments with ``boosting="goss"``
+   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's kernel run to
+   early stopping against a plain run cut at 60 rounds, DART's both at 50,
+   fold-mean RMSE per round within 1e-5 and the best round equal; (e)
+   DART on examples/bagging_boosting.py's curve (the strict grower: B1
+   and B3), ``train_resumable`` killed by SIGTERM after round index 6 and
+   resumed: every tree field, ``_pred_train`` and the served scores bit
+   for bit as the uninterrupted run, its trees equal to the plain path's.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -342,6 +367,22 @@ FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 200, 16_384
 # the plain versions train the first 100 of 15b's rounds (launch-bound at
 # 45,957 rows); the kernel path's model is compared at that many trees
 FAMILY_PLAIN_ROUNDS = 100
+# phase 16: GOSS and DART at LightGBM's defaults (top_rate 0.2, other_rate
+# 0.1; drop_rate 0.1, max_drop 50, skip_drop 0.5)
+GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
+                   other_rate=0.1)
+GOSS_ROUNDS, GOSS_SERVE_ROWS, MC_GOSS_ROUNDS = 10, 16_384, 3
+DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
+                   max_drop=50, skip_drop=0.5)
+DART_ROUNDS = 30
+# 16d: the example's cv() at most 1,000 rounds (kernels, plain): GOSS's
+# plain run is cut to 60 rounds and compared with the kernel run's first
+# 60; DART's early stopping rarely ends it (each drop round moves the
+# ensemble), so both of its runs stop at 50 (phase 16 within ~120 s)
+GD_CV_ROUNDS = {"goss": (CV_ROUNDS, 60), "dart": (50, 50)}
+# 16e: the curve's params with DART dropping half the trees every round
+DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
+                         skip_drop=0.0)
 
 
 def fail(msg: str) -> None:
@@ -3695,6 +3736,501 @@ def phase_objectives(dev, X, y, dds, auc_bf16):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: GOSS and DART
+# ---------------------------------------------------------------------------
+def trees_parity(a_booster, b_booster, n_trees, what):
+    """Tree structure equal and leaf values within 1e-5 relative (the
+    parity regime of kernel and plain sums in other orders)."""
+    lv_rel = 0.0
+    for i in range(n_trees):
+        a, b = tree_arrays(a_booster, i), tree_arrays(b_booster, i)
+        check(all(np.array_equal(a[f], b[f]) for f in (
+            "split_feature", "split_bin", "left", "right", "is_leaf",
+            "num_leaves", "count")),
+            f"{what}: tree {i} of the kernel and plain paths differ in "
+            "structure")
+        leaves = a["is_leaf"]
+        lv_rel = max(lv_rel, float(np.max(
+            np.abs(a["leaf_value"][leaves] - b["leaf_value"][leaves])
+            / np.maximum(np.abs(b["leaf_value"][leaves]), 1e-30))))
+    check(lv_rel <= 1e-5, f"{what}: leaf values kernel vs plain rel "
+          f"{lv_rel:.2e}")
+    return lv_rel
+
+
+def range_device_ms(prof, key):
+    """Device time (ms) traced under the profiler range ``key``."""
+    for e in prof.key_averages():
+        if e.key == key:
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)) / 1e3
+    return 0.0
+
+
+def profile_goss_round(lgb, ds, rounds=3):
+    """16a: a GOSS round's device time by part (``torch.profiler`` ranges
+    around the selection and the full-row traversal, the tree's depth read
+    included), the device's busy share; the selection runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host read fails."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import lightgbm_tpu_torch.models.gbdt as G
+
+    origs = {n: getattr(G, n) for n in ("goss_select", "predict_tree_binned",
+                                        "forest_depth_cap")}
+    spans = {"goss_select": [], "traversal": []}
+
+    def select(*a, **k):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        with record_function("goss_select"):
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = origs["goss_select"](*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+        spans["goss_select"].append((start, end))
+        return out
+
+    def ranged(name, key):
+        def fn(*a, **k):
+            with record_function(key):
+                return origs[name](*a, **k)
+        return fn
+
+    G.goss_select = select
+    G.predict_tree_binned = ranged("predict_tree_binned", "goss_traversal")
+    G.forest_depth_cap = ranged("forest_depth_cap", "goss_depth_read")
+    try:
+        booster = lgb.Booster(GOSS_PARAMS, ds)
+        booster.update()
+        torch.cuda.synchronize()
+        spans["goss_select"].clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                booster.update()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in origs.items():
+            setattr(G, n, fn)
+    ranges = ("goss_select", "goss_traversal", "goss_depth_read")
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in prof.key_averages() if e.key not in ranges)
+    check(len(spans["goss_select"]) == rounds,
+          f"16a: {len(spans['goss_select'])} selections in {rounds} rounds")
+    sel = range_device_ms(prof, "goss_select")
+    trav = (range_device_ms(prof, "goss_traversal")
+            + range_device_ms(prof, "goss_depth_read"))
+    nm = "not measured (no device time traced under the range)"
+    return {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
+            "device_ms_per_round": device_us / 1e3 / rounds,
+            "device_busy_share": (device_us / 1e3 / wall_ms if device_us
+                                  else "not measured"),
+            "selection_device_ms_per_round": sel / rounds if sel else nm,
+            "selection_event_ms_per_round": sum(
+                s.elapsed_time(e) for s, e in spans["goss_select"]) / rounds,
+            "traversal_device_ms_per_round": trav / rounds if trav else nm,
+            "selection_host_syncs": 0}
+
+
+def phase_goss_north_star(dev, X, y, launches):
+    """16a: GOSS at the north star (LightGBM's defaults a = 0.2, b = 0.1:
+    300,000 compacted rows, f32 under "auto", B1 roots and B2 waves),
+    kernel and plain paths in turns beside phase 6's gbdt round."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.gbdt as G
+    from lightgbm_tpu_torch.ops.sampling import goss_select
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    orig, selections = G.goss_select, {}
+
+    def recording(tag):
+        rec = selections.setdefault(tag, [])
+
+        def fn(*a, **k):
+            out = orig(*a, **k)
+            rec.append((out[0].clone(), out[1].clone()))
+            return out
+        return fn
+
+    for extra in ({}, {"hist_impl": "plain"}):                # warm
+        lgb.train(dict(GOSS_PARAMS, **extra), ds, 1)
+    runs = {"kernels": [], "plain": [], "gbdt": []}
+    boosters = {}
+    for tag in ("kernels", "plain", "gbdt", "gbdt", "plain", "kernels"):
+        params = (TRAIN_PARAMS if tag == "gbdt" else dict(
+            GOSS_PARAMS, **({"hist_impl": "plain"} if tag == "plain"
+                            else {})))
+        if tag != "gbdt" and tag not in boosters:
+            G.goss_select = recording(tag)
+        try:
+            b, secs, counts, plain = counted_run(
+                lambda: lgb.train(params, ds, GOSS_ROUNDS))
+        finally:
+            G.goss_select = orig
+        runs[tag].append({"s_per_round": secs / GOSS_ROUNDS,
+                          "counts": counts, "plain_calls": plain})
+        boosters.setdefault(tag, b)
+        log(f"phase 16a {tag}: {GOSS_ROUNDS} rounds in {secs:.2f} s, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    k = runs["kernels"][0]
+    check(k["counts"]["hist_fused_f32"] > 0
+          and k["counts"]["hist_partition_f32"] > 0
+          and k["counts"]["hist_fused_bf16"] == 0
+          and k["plain_calls"] == 0, f"16a kernel path (f32 at 300,000 "
+          f"compacted rows): launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    bk, bp = boosters["kernels"], boosters["plain"]
+    check(bk._goss_k() == (200_000, 100_000) and bk._eff_rows() == 300_000,
+          f"16a GOSS counts {bk._goss_k()}")
+    sk, sp = selections["kernels"], selections["plain"]
+    check(len(sk) == len(sp) == GOSS_ROUNDS, f"16a: {len(sk)}/{len(sp)} "
+          "selections recorded")
+    for r, ((ik, wk), (ip, wp)) in enumerate(zip(sk, sp)):
+        check(torch.equal(ik, ip) and torch.equal(wk, wp),
+              f"16a round {r}: the kernel and plain paths selected other "
+              "rows or weights")
+    del selections, sk, sp
+    lv_rel = trees_parity(bk, bp, GOSS_ROUNDS, "16a")
+    # the card's selection equals the CPU's on the same gradients, with no
+    # host read
+    g, _ = bk.obj.grad_hess(bk._pred_train, ds.y, bk._w_eff)
+    key = bk._round_key(GOSS_ROUNDS)
+    args = (bk._goss_k(), GOSS_PARAMS["top_rate"], GOSS_PARAMS["other_rate"])
+    goss_select(key, g, bk._bag, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card_sel = goss_select(key, g, bk._bag, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu_sel = goss_select(key, g.cpu(), bk._bag.cpu(), *args)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card_sel, cpu_sel)),
+          "16a: the card's GOSS selection differs from the CPU's")
+    aucs = {t: auc(b, Xv, yv, dev) for t, b in boosters.items()}
+    d_auc = aucs["kernels"] - aucs["plain"]
+    check(abs(d_auc) <= AUC_TOL, f"16a AUC kernel - plain {d_auc:.2e}")
+    syncs = {}
+    for tag, params in (("goss", GOSS_PARAMS), ("gbdt", TRAIN_PARAMS)):
+        bs = lgb.Booster(params, ds)
+        bs.update()
+        (_, sites), _, _, _ = counted_run(lambda: host_syncs(
+            lambda: [bs.update() for _ in range(SYNC_ROUNDS)]))
+        syncs[tag] = len(sites) / SYNC_ROUNDS
+    profile = profile_goss_round(lgb, ds)
+    rows = Xv[:GOSS_SERVE_ROWS]
+    rt = PredictorRuntime(pack_booster(bk), max_bucket=MAX_BUCKET)
+    served, secs, counts, _ = counted_run(lambda: rt.predict(rows))
+    check(counts["predict_forest"] > 0, f"16a serving launches {counts}")
+    add_launches(launches, counts)
+    sdiff = float(np.abs(served - bk.predict(rows)).max())
+    check(sdiff <= 1e-5, f"16a served vs Booster.predict {sdiff:.2e}")
+    out = {"rounds": GOSS_ROUNDS, "goss_k": list(bk._goss_k()),
+           "hist_dtype": "f32",
+           "s_per_round_in_turns": {t: [r["s_per_round"] for r in v]
+                                    for t, v in runs.items()},
+           "launches": k["counts"], "auc": aucs,
+           "auc_kernel_minus_plain": d_auc, "leaf_value_rel_diff": lv_rel,
+           "selection_card_equals_cpu": True,
+           "host_syncs_per_round": syncs, "profile": profile,
+           "serve": {"rows": GOSS_SERVE_ROWS, "s": secs,
+                     "max_abs_diff": sdiff, "launches": counts}}
+    log(f"phase 16a: {json.dumps(out)}")
+    return out
+
+
+def phase_goss_multiclass(dev, Xc, yc, launches):
+    """16b: multiclass GOSS (rows re-weighted by sum_c |g_c|, not
+    compacted) at Covertype's shape: the batched class trees, B5 or B6 by
+    the route rule."""
+    import lightgbm_tpu_torch as lgb
+
+    Xv, yv = covertype_like(COV_VALID_ROWS, SEED + 121)
+    ds = lgb.Dataset(Xc, label=yc, params={"max_bin": MAX_BIN})
+    ds.construct()
+    params = dict(COV_PARAMS, boosting="goss")
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(dict(params, **extra), ds, MC_GOSS_ROUNDS))
+        runs[tag] = {"booster": b, "s_per_round": secs / MC_GOSS_ROUNDS,
+                     "counts": counts, "plain_calls": plain,
+                     "multi_logloss": multi_logloss(b, Xv, yv, dev)}
+        log(f"phase 16b {tag}: {MC_GOSS_ROUNDS} rounds in {secs:.2f} s, "
+            f"multi_logloss {runs[tag]['multi_logloss']:.6f}, launches "
+            f"{json.dumps(counts)}, plain calls {plain}")
+    k, p = runs["kernels"], runs["plain"]
+    b5, b6 = (k["counts"]["hist_fused_batched_bf16"],
+              k["counts"]["hist_segstats_bf16"])
+    check(b5 + b6 > 0 and k["plain_calls"] == 0, f"16b kernel path: "
+          f"launches {k['counts']}, plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    for i in range(MC_GOSS_ROUNDS):
+        a, b = tree_arrays(k["booster"], i), tree_arrays(p["booster"], i)
+        check(all(np.array_equal(a[f], b[f]) for f in (
+            "split_feature", "split_bin", "left", "right", "is_leaf")),
+            f"16b: round {i}'s class trees of the kernel and plain paths "
+            "differ in structure")
+    d_ll = k["multi_logloss"] - p["multi_logloss"]
+    check(np.isfinite(k["multi_logloss"]) and abs(d_ll) <= COV_TOL,
+          f"16b multi_logloss kernel - plain {d_ll:.2e}")
+    out = {"rounds": MC_GOSS_ROUNDS,
+           "s_per_round": {t: r["s_per_round"] for t, r in runs.items()},
+           "multi_logloss": {t: r["multi_logloss"] for t, r in runs.items()},
+           "launches": k["counts"], "b5_launched": b5 > 0,
+           "b6_launched": b6 > 0}
+    log(f"phase 16b: {json.dumps(out)}")
+    return out
+
+
+def phase_dart_north_star(dev, X, y, launches):
+    """16c: DART at the north star with LightGBM's defaults, the phase-6
+    valid set attached, kernel and plain paths: the same drops, stored
+    leaves after rescaling and valid AUC; the dropped-tree replay's device
+    ms per drop round (CUDA events around its stacked forest passes)."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.gbdt as G
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    dv = lgb.Dataset(Xv, label=yv, reference=ds)
+    origs = (G.dart_drops, G.predict_forest_binned)
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        drops, spans = [], []
+
+        def dart_drops(*a, **k):
+            out = origs[0](*a, **k)
+            drops.append(out)
+            return out
+
+        def replay(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            out = origs[1](*a, **k)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        G.dart_drops, G.predict_forest_binned = dart_drops, replay
+        try:
+            b, secs, counts, plain = counted_run(lambda: lgb.train(
+                dict(DART_PARAMS, **extra), ds, DART_ROUNDS,
+                valid_sets=[dv], valid_names=["valid"]))
+        finally:
+            G.dart_drops, G.predict_forest_binned = origs
+        n_drop = sum(1 for d in drops if d)
+        runs[tag] = {"booster": b, "s_per_round": secs / DART_ROUNDS,
+                     "counts": counts, "plain_calls": plain, "drops": drops,
+                     "drop_rounds": n_drop,
+                     "replay_event_ms_per_drop_round": (
+                         sum(s.elapsed_time(e) for s, e in spans) / n_drop
+                         if n_drop else None),
+                     "auc": auc(b, Xv, yv, dev)}
+        log(f"phase 16c {tag}: {DART_ROUNDS} rounds in {secs:.2f} s, "
+            f"{n_drop} drop rounds, dropped {[len(d) for d in drops]}, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    k, p = runs["kernels"], runs["plain"]
+    check(k["counts"]["hist_fused_bf16"] > 0
+          and k["counts"]["hist_partition_bf16"] > 0
+          and k["plain_calls"] == 0, f"16c kernel path: launches "
+          f"{k['counts']}, plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    check(k["drops"] == p["drops"] and k["drop_rounds"] > 0,
+          f"16c: drops kernel {k['drops']} vs plain {p['drops']}")
+    lv_rel = trees_parity(k["booster"], p["booster"], DART_ROUNDS, "16c")
+    d_auc = k["auc"] - p["auc"]
+    check(abs(d_auc) <= AUC_TOL, f"16c valid AUC kernel - plain {d_auc:.2e}")
+    bk = k["booster"]
+    rows = Xv[:GOSS_SERVE_ROWS]
+    rt = PredictorRuntime(pack_booster(bk), max_bucket=MAX_BUCKET)
+    served, secs, counts, _ = counted_run(lambda: rt.predict(rows))
+    check(counts["predict_forest"] > 0, f"16c serving launches {counts}")
+    add_launches(launches, counts)
+    sdiff = float(np.abs(served - bk.predict(rows)).max())
+    check(sdiff <= 1e-5, f"16c served vs Booster.predict {sdiff:.2e}")
+    out = {"rounds": DART_ROUNDS,
+           "drops_per_round": [len(d) for d in k["drops"]],
+           "s_per_round": {t: r["s_per_round"] for t, r in runs.items()},
+           "replay_event_ms_per_drop_round": {
+               t: r["replay_event_ms_per_drop_round"]
+               for t, r in runs.items()},
+           "auc": {t: r["auc"] for t, r in runs.items()},
+           "auc_kernel_minus_plain": d_auc, "leaf_value_rel_diff": lv_rel,
+           "launches": k["counts"],
+           "serve": {"rows": GOSS_SERVE_ROWS, "s": secs,
+                     "max_abs_diff": sdiff, "launches": counts}}
+    log(f"phase 16c: {json.dumps(out)}")
+    return out
+
+
+def phase_goss_dart_cv(dds, launches):
+    """16d: examples/gridsearch_cv.py's cv() arguments with GOSS and then
+    DART (the per-fold route; 31 leaves and ~11,000 compacted rows per fold
+    put GOSS on the wave grower: B1 and B2).  A plain run cut short of the
+    kernel run is compared over the rounds both ran: the fold-mean RMSE per
+    round within 1e-5 relative and the best round among them equal."""
+    import lightgbm_tpu_torch as lgb
+
+    out = {}
+    for boosting in ("goss", "dart"):
+        res = {}
+        for tag, extra, rounds in (
+                ("kernels", {}, GD_CV_ROUNDS[boosting][0]),
+                ("plain", {"hist_impl": "plain"}, GD_CV_ROUNDS[boosting][1])):
+            fit, secs, counts, plain = counted_run(lambda: lgb.cv(
+                dict(CV_PARAMS, boosting=boosting, **extra), dds,
+                num_boost_round=rounds, nfold=CV_FOLDS, metrics="rmse",
+                early_stopping_rounds=CV_ES, stratified=False,
+                seed=SWEEP_SEED))
+            res[tag] = {"max_rounds": rounds, "best_iter": fit.best_iter,
+                        "best_score": fit.best_score, "s": secs,
+                        "rounds_run": len(fit["valid rmse-mean"]),
+                        "counts": counts, "plain_calls": plain,
+                        "history": list(fit["valid rmse-mean"])}
+            log(f"phase 16d {boosting} cv {tag}: best_iter {fit.best_iter},"
+                f" best_score {fit.best_score!r}, {secs:.2f} s, launches "
+                f"{json.dumps(counts)}, plain calls {plain}")
+        kc, pc = res["kernels"], res["plain"]
+        check(kc["counts"]["hist_fused_f32"] > 0
+              and kc["counts"]["hist_partition_f32"] > 0
+              and kc["plain_calls"] == 0, f"16d {boosting} kernel path: "
+              f"launches {kc['counts']}, plain calls {kc['plain_calls']}")
+        add_launches(launches, kc["counts"])
+        hk, hp = kc.pop("history"), pc.pop("history")
+        n = min(len(hk), len(hp))
+        rel = max(rel_diff(a, b) for a, b in zip(hk[:n], hp[:n]))
+        check(rel <= 1e-5, f"16d {boosting} fold-mean RMSE kernel vs plain "
+              f"over {n} rounds: rel {rel:.2e}")
+        if pc["rounds_run"] >= kc["rounds_run"]:
+            check(kc["best_iter"] == pc["best_iter"], f"16d {boosting} "
+                  f"best_iter kernel {kc['best_iter']} vs plain "
+                  f"{pc['best_iter']}")
+            res["compared"] = "best_iter and best_score"
+        else:
+            check(int(np.argmin(hk[:n])) == int(np.argmin(hp[:n])),
+                  f"16d {boosting}: best round of the first {n}")
+            res["compared"] = f"the first {n} rounds (plain run cut)"
+        res["rmse_rel_diff"] = rel
+        out[boosting] = res
+    log(f"phase 16d: {json.dumps(out)}")
+    return out
+
+
+def phase_dart_recovery(dev, workdir, launches):
+    """16e: DART on examples/bagging_boosting.py's curve (the strict
+    grower: B1's two segments and B3), ``train_resumable`` killed by SIGTERM
+    after round index 6 and resumed: every tree field (rescaled leaves
+    included), the train scores and the served scores bit-identical to the
+    uninterrupted run; its trees equal to the plain path's."""
+    import shutil
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.gbdt import dart_drops
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.training import train_resumable
+    from lightgbm_tpu_torch.utils.datasets import make_boosting_curve
+
+    X, y = make_boosting_curve(BB_ROWS, BB_SEED)
+    ds = lgb.Dataset(X, label=y)
+    ds.construct()
+    root = os.path.join(workdir, "dart_recovery")
+    shutil.rmtree(root, ignore_errors=True)
+    full_dir, kill_dir = (os.path.join(root, d) for d in ("full", "killed"))
+    kw = dict(checkpoint_rounds=RECOVERY_EVERY, keep_last=3)
+
+    def kill(booster, i):
+        if i == RECOVERY_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def training():
+        full = train_resumable(dict(DART_CURVE_PARAMS), ds, RECOVERY_ROUNDS,
+                               checkpoint_dir=full_dir, resume=False, **kw)
+        killed = train_resumable(dict(DART_CURVE_PARAMS), ds,
+                                 RECOVERY_ROUNDS, checkpoint_dir=kill_dir,
+                                 resume=False, round_callbacks=[kill], **kw)
+        again = train_resumable(dict(DART_CURVE_PARAMS), ds, RECOVERY_ROUNDS,
+                                checkpoint_dir=kill_dir, resume=True, **kw)
+        return full, killed, again
+
+    (full, killed, again), secs, counts, plain = counted_run(training)
+    check(counts["hist_fused_f32"] > 0 and counts["split_iter"] > 0
+          and plain == 0, f"16e kernel path: launches {counts}, plain calls "
+          f"{plain}")
+    add_launches(launches, counts)
+    check(killed.preempted and killed.rounds_done == RECOVERY_KILL_AFTER + 1
+          and again.completed and again.resumed_from
+          == killed.last_checkpoint, f"16e SIGTERM after round index "
+          f"{RECOVERY_KILL_AFTER}: {killed}, then {again}")
+    fb, ab = full.booster, again.booster
+    check(same_run(fb, ab), "16e: the resumed DART run's trees, _pred_train "
+          "or _bag differ from the uninterrupted run")
+    drops = [dart_drops(fb.params, i, i) for i in range(RECOVERY_ROUNDS)]
+    check(sum(map(len, drops)) > 0, f"16e: no round dropped a tree {drops}")
+    grid = np.linspace(-4, 4, 400).reshape(-1, 1)
+    served = [PredictorRuntime(pack_booster(b), max_bucket=512).predict(
+        grid, raw_score=True) for b in (fb, ab)]
+    check(np.array_equal(served[0], served[1]), "16e: served scores of the "
+          "resumed and uninterrupted runs differ")
+    bp = lgb.train(dict(DART_CURVE_PARAMS, hist_impl="plain"), ds,
+                   RECOVERY_ROUNDS)
+    lv_rel = trees_parity(fb, bp, RECOVERY_ROUNDS, "16e")
+    out = {"rows": BB_ROWS, "rounds": RECOVERY_ROUNDS,
+           "preempted_at": killed.rounds_done, "s": secs,
+           "drops_per_round": [len(d) for d in drops],
+           "bit_identical": True, "leaf_value_rel_diff_vs_plain": lv_rel,
+           "launches": counts}
+    log(f"phase 16e: {json.dumps(out)}")
+    return out
+
+
+def phase_goss_dart(dev, X, y, Xc, yc, dds, workdir, card):
+    """Phase 16, every launch counter at 0 just before each run and read
+    just after; fails unless B1, B2, B3, B4 and B5 or B6 launched."""
+    t0 = time.perf_counter()
+    launches, secs = {}, {}
+    out = {}
+    for name, fn in (("16a", lambda: phase_goss_north_star(dev, X, y,
+                                                           launches)),
+                     ("16b", lambda: phase_goss_multiclass(dev, Xc, yc,
+                                                           launches)),
+                     ("16c", lambda: phase_dart_north_star(dev, X, y,
+                                                           launches)),
+                     ("16d", lambda: phase_goss_dart_cv(dds, launches)),
+                     ("16e", lambda: phase_dart_recovery(dev, workdir,
+                                                         launches))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    for name in ("hist_fused_f32", "hist_partition_f32", "split_iter",
+                 "predict_forest"):
+        check(launches.get(name, 0) > 0, f"phase 16: {name} never launched")
+    check(launches.get("hist_fused_batched_bf16", 0)
+          + launches.get("hist_segstats_bf16", 0) > 0,
+          "phase 16: neither B5 nor B6 launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 16: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3746,7 +4282,6 @@ def main() -> int:
     b5_times = phase_b5_times(b5_wave)
     del b5_wave
     multiclass = phase_multiclass(dev, Xc, yc, workdir)
-    del Xc, yc
     int8_ratios = phase_int8_kernel(dev, bins, root_stats, wave)
     int8 = phase_int8_train(dev, X, y, train["auc"]["bf16"])
     int8["cv"] = phase_int8_cv(dds, cv_res["kernels"])
@@ -3767,6 +4302,9 @@ def main() -> int:
     l14 = phase14["launches"]
     phase15 = phase_objectives(dev, X, y, dds, train["auc"]["bf16"])
     l15 = phase15["launches"]
+    phase16 = phase_goss_dart(dev, X, y, Xc, yc, dds, workdir, card)
+    l16 = phase16["launches"]
+    del Xc, yc
 
     kernels = []
     for prec in PRECISIONS:
@@ -3779,7 +4317,8 @@ def main() -> int:
                              "12e": int8["cli"]["serve_predict_launches"],
                              "13": rec_launches["predict_forest"],
                              "14": l14["predict_forest"],
-                             "15": l15["predict_forest"]})
+                             "15": l15["predict_forest"],
+                             "16": l16["predict_forest"]})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -3803,7 +4342,8 @@ def main() -> int:
                     "6": train["launches"][mode][f"{name}_{mode}"],
                     "13": rec_launches.get(f"{name}_{mode}", 0),
                     "14": l14.get(f"{name}_{mode}", 0),
-                    "15": l15.get(f"{name}_{mode}", 0)},
+                    "15": l15.get(f"{name}_{mode}", 0),
+                    "16": l16.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3823,7 +4363,8 @@ def main() -> int:
             "8b": cv_res["kernels"]["counts"]["split_iter"],
             "8c": sweep["launches"]["split_iter"],
             "13": rec_launches["split_iter"],
-            "14": l14["split_iter"], "15": l15["split_iter"]},
+            "14": l14["split_iter"], "15": l15["split_iter"],
+            "16": l16["split_iter"]},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -3843,7 +4384,8 @@ def main() -> int:
                 "8b" if mode == "f32" else "8c": launches_b6[mode],
                 "13": rec_launches.get(f"hist_segstats_{mode}", 0),
                 "14": l14.get(f"hist_segstats_{mode}", 0),
-                "15": l15.get(f"hist_segstats_{mode}", 0)},
+                "15": l15.get(f"hist_segstats_{mode}", 0),
+                "16": l16.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3864,7 +4406,8 @@ def main() -> int:
             "launches": launches_b5[mode], "max_abs_err": b5_errs[mode],
             "launches_by_phase": {
                 "14": l14.get(f"hist_fused_batched_{mode}", 0),
-                "15": l15.get(f"hist_fused_batched_{mode}", 0)},
+                "15": l15.get(f"hist_fused_batched_{mode}", 0),
+                "16": l16.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -3873,6 +4416,9 @@ def main() -> int:
         "name": "hist_fused_int8", "route": "cuda", "source": INT8_SOURCE[0],
         "replaces": INT8_SOURCE[1], "launches": int8["launches"][
             "hist_fused_int8"], "max_abs_err": 0.0,
+        "launches_by_phase": {
+            "12": int8["launches"]["hist_fused_int8"],
+            "16": l16.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -3896,7 +4442,7 @@ def main() -> int:
                                 for t, r in ns_cv.items()},
               "b5_times": b5_times, "multiclass": multiclass,
               "int8": int8, "recovery": recovery, "phase14": phase14,
-              "phase15": phase15,
+              "phase15": phase15, "phase16": phase16,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -18,11 +18,24 @@ seed give the same trees as the reference.
 The objectives with leaf renewal (``regression_l1``, ``quantile``, ``mape``)
 refit each single-class tree's leaves to weighted quantiles of the residuals
 (:func:`~.tree.renew_leaf_values`) before the score update, as the
-reference's round step does.  What is outside the port so far raises a
-``NotImplementedError`` naming the ROADMAP slice and item that will port it:
-ranking objectives, GOSS and DART, constraints, categorical/linear/extra
-trees, feature screening, streaming, the distributed learners and
-``init_model``.
+reference's round step does.
+
+``boosting="goss"`` grows a single-class tree on its compacted rows (the
+``k_top`` largest ``|g|`` and ``k_other`` sampled others, gathered into a
+dense ``[k_top + k_other, F]`` matrix by :func:`~..ops.sampling.goss_select`,
+which reads nothing back to the host) and updates every row's score by one
+traversal; multiclass GOSS re-weights the rows instead.  Precision, wave
+width and the int8 row limit resolve at the compacted row count.
+``boosting="dart"`` drops trees by the reference's host draw
+(:func:`dart_drops`), grows the round's tree from the scores without them
+and rescales the new and the dropped trees' stored leaves in place.  All
+share one round body (:meth:`Booster._round_body`, the reference's
+``_round_fn``).
+
+What is outside the port so far raises a ``NotImplementedError`` naming the
+ROADMAP slice and item that will port it: ranking objectives, constraints,
+categorical/linear/extra trees, feature screening, streaming, the
+distributed learners and ``init_model``.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -52,7 +65,7 @@ from ..objectives import create_objective
 from ..ops.histogram import INT8_ACC_ROW_LIMIT
 from ..ops.predict import (forest_depth_cap, predict_forest_binned,
                            predict_tree_binned)
-from ..ops.sampling import sample_bag
+from ..ops.sampling import goss_select, goss_weights, sample_bag
 from ..ops.split import SplitContext, fma
 from ..utils.random import fold_in, prng_key, split_on
 from .feature_mask import compose_tree_mask
@@ -75,6 +88,19 @@ def _class_tree(tree: Tree, c: int, axis: int = 0) -> Tree:
     """Class ``c``'s trees of a multiclass round (``axis=0``, fields
     ``[K, M]``) or forest (``axis=1``, fields ``[T, K, M]``)."""
     return Tree(*(None if f is None else f.select(axis, c) for f in tree))
+
+
+def _predict_forest_mc(forest: Tree, bins: torch.Tensor, shrink, inits,
+                       n_trees: int, depth_cap: int,
+                       start_iteration: int = 0) -> torch.Tensor:
+    """Raw scores ``[n, K]`` of a multiclass forest (fields ``[T, K, M]``):
+    one forest replay per class (the reference's ``_predict_forest_mc``,
+    shared by ``predict``, rf's train scores and DART's dropped trees)."""
+    return torch.stack([predict_forest_binned(
+        _class_tree(forest, c, axis=1), bins, shrink,
+        float(inits[c]) if np.ndim(inits) else float(inits), n_trees,
+        depth_cap, start_iteration=start_iteration)
+        for c in range(int(forest.leaf_value.shape[1]))], dim=1)
 
 
 class HyperScalars(NamedTuple):
@@ -222,13 +248,28 @@ def resolve_wave_width(p: Params, n_rows: int) -> int:
     return width if (n_rows >= 4096 and p.num_leaves >= 16) else 1
 
 
+def dart_drops(p: Params, i: int, n_trees: int) -> List[int]:
+    """The trees DART round ``i`` drops, in ascending order, drawn on the
+    host as the reference draws them: ``default_rng(drop_seed + seed +
+    7919 i)``; no drop with probability ``skip_drop``, else each of the
+    ``n_trees`` trees with probability ``drop_rate``, and at most
+    ``max_drop`` of them (when positive) chosen without replacement."""
+    rng = np.random.default_rng(p.drop_seed + p.seed + i * 7919)
+    if not (n_trees > 0 and p.drop_rate > 0 and rng.random() >= p.skip_drop):
+        return []
+    dropped = [int(t) for t in np.flatnonzero(rng.random(n_trees)
+                                              < p.drop_rate)]
+    if p.max_drop > 0 and len(dropped) > p.max_drop:
+        dropped = sorted(int(t) for t in rng.choice(dropped, p.max_drop,
+                                                    replace=False))
+    return dropped
+
+
 def check_slice_scope(p: Params) -> None:
     """Refuse, by name, every training option this slice does not port."""
     def later(what: str, where: str):
         raise NotImplementedError(f"{what} is not ported yet: {where}")
 
-    if p.boosting not in ("gbdt", "rf"):
-        later(f"boosting='{p.boosting}'", _slice3(6))
     if p.objective in ("lambdarank", "rank_xendcg"):
         later(f"objective='{p.objective}'", _slice3(8))
     if p.linear_tree:
@@ -385,30 +426,83 @@ class Booster:
             self._setup_training()
         if self.train_set is None:
             raise ValueError("update() needs a training Dataset")
-        ds = self.train_set
+        check_int8_row_limit(self.params, self._eff_rows())
+        if self.params.boosting == "dart":
+            return self._dart_round()
         p = self.params
         i = self._iter
-        n_pad = int(ds.row_mask.shape[0])
-        check_int8_row_limit(p, n_pad)
         fmask = self._sample_bag_and_fmask(i)
+        tree, new_pred = self._round_body(self._pred_train, self._bag, fmask,
+                                          self._round_key(i))
+        if p.boosting != "rf":             # rf keeps _pred_train at the init
+            self._pred_train = new_pred
+            if p.learning_rate != self._base_lr:
+                # a reset_parameter schedule: bake lr_i / base into the
+                # stored values so the uniform predict-time shrink (base)
+                # gives lr_i
+                scale = torch.tensor(p.learning_rate / self._base_lr,
+                                     dtype=_F32, device=self.device)
+                tree = tree._replace(leaf_value=tree.leaf_value * scale)
+        self._append_round(tree, self._shrink)
+        return False
+
+    def _round_key(self, i: int):
+        """The round key ``fold_in(key, i)``: the grower's per-node draws
+        and GOSS's sample are keyed by it."""
+        return fold_in((int(self._key[0]), int(self._key[1])), i)
+
+    def _goss_k(self) -> Optional[Tuple[int, int]]:
+        """GOSS's ``(k_top, k_other)`` row counts, taken in float64 on the
+        host as the reference takes them; None unless ``boosting='goss'``."""
+        p = self.params
+        if p.boosting != "goss":
+            return None
+        n = self.train_set.num_data_
+        return int(p.top_rate * n), int(p.other_rate * n)
+
+    def _eff_rows(self) -> int:
+        """The rows a round's histograms see, which resolve its precision,
+        wave width and int8 row limit: the compacted rows of a single-class
+        GOSS round, else every (padded) row."""
+        goss_k = self._goss_k()
+        if goss_k is not None and self._num_class == 1:
+            return goss_k[0] + goss_k[1]
+        return int(self.train_set.row_mask.shape[0])
+
+    def _round_body(self, pred: torch.Tensor, bag: torch.Tensor,
+                    fmask: torch.Tensor, rkey) -> Tuple[Tree, torch.Tensor]:
+        """One round's tree grown from the scores ``pred``, and the train
+        scores after it (the reference's ``_round_fn``): plain and rf
+        rounds, single-class GOSS on its compacted rows, multiclass GOSS by
+        re-weighting, and DART's round from the dropped-tree scores.  rf
+        returns ``pred`` unchanged."""
+        ds = self.train_set
+        p = self.params
         hyper = self._hyper
-        g, h = self.obj.grad_hess(self._pred_train, ds.y, self._w_eff)
-        bag = self._bag
+        eff_rows = self._eff_rows()
+        g, h = self.obj.grad_hess(pred, ds.y, self._w_eff)
         lr = torch.tensor(hyper.learning_rate, dtype=_F32, device=self.device)
         grow = dict(hist_impl=p.extra.get("hist_impl", "auto"),
-                    hist_dtype=resolve_hist_dtype(p, n_pad))
-        # the grower key (per-node sampling): the round key, split per
-        # class for multiclass, as the reference's round step keys it
-        rkey = fold_in((int(self._key[0]), int(self._key[1])), i)
+                    hist_dtype=resolve_hist_dtype(p, eff_rows))
+        width = resolve_wave_width(p, eff_rows)
         bynode = p.feature_fraction_bynode < 1.0
-        is_rf = p.boosting == "rf"     # rf keeps _pred_train at the init
+        is_rf = p.boosting == "rf"
+        goss_k = self._goss_k()
         k = self._num_class
         if k > 1:
+            if goss_k is not None:
+                # multiclass GOSS re-weights the rows by sum_c |g_c|
+                g_abs = g[:, 0].abs()
+                for c in range(1, k):
+                    g_abs = g_abs + g[:, c].abs()
+                bag = goss_weights(fold_in(rkey, 0x7FFFFFFF), g_abs, bag,
+                                   p.top_rate, p.other_rate, bag.sum())
             # the K class trees as one batch (mc_round_update)
             stats_t = torch.stack([g * bag[:, None], h * bag[:, None],
                                    (bag > 0).to(_F32)[:, None].expand_as(g)],
                                   dim=-1)                      # [n, K, 3]
             if bynode:
+                # the grower key split per class, as the reference keys it
                 grow.update(ff_bynode=torch.full(
                     (k,), hyper.feature_fraction_bynode, dtype=_F32,
                     device=self.device),
@@ -417,50 +511,119 @@ class Booster:
                 ds.X_binned, stats_t, fmask.expand(k, -1),
                 SplitContext.per_element([hyper.ctx()] * k, self.device),
                 torch.full((k,), float(hyper.max_depth), device=self.device),
-                p.num_leaves, self._num_bins, resolve_wave_width(p, n_pad),
-                **grow)
+                p.num_leaves, self._num_bins, width, **grow)
             tree = _tree_from_packed(P, n_leaves)             # [K, M] fields
-            if not is_rf:
-                vals = P[..., _PK.LEAF_VALUE].gather(
-                    1, row_leaf.t().to(torch.int64))          # [K, n]
-                self._pred_train = fma(lr, vals.t(), self._pred_train)
+            if is_rf:
+                return tree, pred
+            vals = P[..., _PK.LEAF_VALUE].gather(
+                1, row_leaf.t().to(torch.int64))              # [K, n]
+            return tree, fma(lr, vals.t(), pred)
+        if bynode:
+            grow.update(ff_bynode=hyper.feature_fraction_bynode, key=rkey)
+        bins, y, w = ds.X_binned, ds.y, self._w_eff
+        if goss_k is not None:
+            # the tree grows on the compacted rows, in the selection's order
+            idx, wt, live = goss_select(rkey, g, bag, goss_k, p.top_rate,
+                                        p.other_rate)
+            bins, y, w, pred_c = bins[idx], y[idx], w[idx], pred[idx]
+            stats = torch.stack([g[idx] * wt, h[idx] * wt, live], dim=-1)
+            rw = w * wt
         else:
+            pred_c = pred
             stats = torch.stack([g * bag, h * bag, (bag > 0).to(_F32)],
                                 dim=-1)
-            if bynode:
-                grow.update(ff_bynode=hyper.feature_fraction_bynode,
-                            key=rkey)
-            tree, row_leaf = grow_tree(
-                ds.X_binned, stats, fmask, hyper.ctx(), p.num_leaves,
-                self._num_bins, hyper.max_depth,
-                wave_width=resolve_wave_width(p, n_pad), **grow)
-            renew_alpha = getattr(self.obj, "renew_alpha", None)
-            if renew_alpha is not None:
-                # L1/quantile/MAPE: leaves refit to weighted quantiles of
-                # the residuals, before the score update (rf too)
-                rw = self._w_eff * bag
-                if hasattr(self.obj, "renew_scale"):
-                    rw = rw * self.obj.renew_scale(ds.y)
-                tree = renew_leaf_values(tree, row_leaf,
-                                         ds.y - self._pred_train, rw,
-                                         renew_alpha)
-            if not is_rf:
-                self._pred_train = fma(
-                    lr, tree.leaf_value[row_leaf.to(torch.int64)],
-                    self._pred_train)
-        if not is_rf and p.learning_rate != self._base_lr:
-            # a reset_parameter schedule: bake lr_i / base into the stored
-            # values so the uniform predict-time shrink (base) gives lr_i
-            scale = torch.tensor(p.learning_rate / self._base_lr, dtype=_F32,
-                                 device=self.device)
-            tree = tree._replace(leaf_value=tree.leaf_value * scale)
+            rw = w * bag
+        tree, row_leaf = grow_tree(bins, stats, fmask, hyper.ctx(),
+                                   p.num_leaves, self._num_bins,
+                                   hyper.max_depth, wave_width=width, **grow)
+        renew_alpha = getattr(self.obj, "renew_alpha", None)
+        if renew_alpha is not None:
+            # L1/quantile/MAPE: leaves refit to weighted quantiles of the
+            # residuals, before the score update (rf too)
+            if hasattr(self.obj, "renew_scale"):
+                rw = rw * self.obj.renew_scale(y)
+            tree = renew_leaf_values(tree, row_leaf, y - pred_c, rw,
+                                     renew_alpha)
+        if is_rf:
+            return tree, pred
+        if goss_k is not None:
+            # every row's score from a traversal of the tree grown on the
+            # sampled rows: its depth is read once, as a tight cap
+            return tree, fma(lr, predict_tree_binned(
+                tree, ds.X_binned, forest_depth_cap(tree)), pred)
+        return tree, fma(lr, tree.leaf_value[row_leaf.to(torch.int64)], pred)
+
+    def _append_round(self, tree: Tree, shrink: float) -> None:
+        """Store the round's tree and add it to every valid set's scores at
+        ``shrink``."""
         self.trees.append(tree)
         self._forest_cache = None
-        shrink = torch.tensor(self._shrink, dtype=_F32, device=self.device)
+        s = torch.tensor(shrink, dtype=_F32, device=self.device)
         for idx, (name, vds, vpred) in enumerate(self._valid):
-            self._valid[idx] = (name, vds, vpred + shrink * self._tree_values(
-                tree, vds.X_binned, p.num_leaves))
+            self._valid[idx] = (name, vds, vpred + s * self._tree_values(
+                tree, vds.X_binned, self.params.num_leaves))
         self._iter += 1
+
+    def _dart_round(self) -> bool:
+        """One DART round (upstream ``dart.hpp``; Rashmi & Gilad-Bachrach,
+        AISTATS 2015), as the reference's ``_dart_round``.
+
+        :func:`dart_drops` picks the dropped trees, and the round's tree
+        grows from the scores without them.  On a drop round the new tree's
+        stored leaves are scaled by ``1 / ((k + 1) lr)`` and each dropped
+        tree's by ``k / (k + 1)`` in place (``xgboost_dart_mode``:
+        ``1 / (k + lr)`` and ``k / (k + lr)``), so the stored leaves carry
+        the scales and any predictor of the forest serves the model.  The
+        rescaling runs op by op, each rounded once, as the reference's eager
+        ops outside its jitted round; no ``reset_parameter`` rate is baked
+        into the stored leaves, as in the reference."""
+        ds = self.train_set
+        p = self.params
+        i = self._iter
+        fmask = self._sample_bag_and_fmask(i)
+        dropped = dart_drops(p, i, len(self.trees))
+        k = len(dropped)
+        lr = np.float32(p.learning_rate)
+        pred = self._pred_train
+        if k > 0:
+            stack = Tree(*(None if f[0] is None else torch.stack(f) for f in
+                           zip(*(self.trees[t] for t in dropped))))
+            depth = forest_depth_cap(stack)
+
+            def dropped_sum(bins):
+                """The dropped trees' summed raw values: one stacked forest
+                pass (per class for multiclass stacks)."""
+                if self._num_class > 1:
+                    return _predict_forest_mc(stack, bins, 1.0, 0.0, k, depth)
+                return predict_forest_binned(stack, bins, 1.0, 0.0, k, depth)
+
+            drop_sum = dropped_sum(ds.X_binned)
+            pred = pred - float(lr) * drop_sum
+        tree, new_pred = self._round_body(pred, self._bag, fmask,
+                                          self._round_key(i))
+        if k > 0:
+            if p.xgboost_dart_mode:
+                new_scale = 1.0 / (k + float(p.learning_rate))
+                drop_scale = k / (k + float(p.learning_rate))
+            else:
+                new_scale = 1.0 / ((k + 1.0) * float(p.learning_rate))
+                drop_scale = k / (k + 1.0)
+            new_s, drop_s = float(np.float32(new_scale)), \
+                float(np.float32(drop_scale))
+            tree = tree._replace(leaf_value=tree.leaf_value * new_s)
+            new_pred = pred + (new_pred - pred) * new_s
+            # the valid sets' change from the dropped trees' rescaling, from
+            # their old leaf values
+            vscale = float(lr * np.float32(drop_scale - 1.0))
+            for idx, (name, vds, vpred) in enumerate(self._valid):
+                self._valid[idx] = (name, vds,
+                                    vpred + vscale * dropped_sum(vds.X_binned))
+            for t in dropped:
+                self.trees[t] = self.trees[t]._replace(
+                    leaf_value=self.trees[t].leaf_value * drop_s)
+            new_pred = new_pred + float(lr * np.float32(drop_scale)) * drop_sum
+        self._pred_train = new_pred
+        self._append_round(tree, float(lr))
         return False
 
     @property
@@ -485,9 +648,13 @@ class Booster:
         callback); the shape-static ones cannot change on a live
         booster."""
         newp = parse_params(params, base=self.params)
-        for f in ("num_leaves", "max_bin", "objective", "boosting",
+        static = ["num_leaves", "max_bin", "objective", "boosting",
                   "num_class", "tree_learner", "grow_policy",
-                  "max_cat_threshold", "extra_trees", "linear_tree"):
+                  "max_cat_threshold", "extra_trees", "linear_tree"]
+        if self.params.boosting == "goss":
+            # GOSS's row counts are fixed for the run, as in the reference
+            static += ["top_rate", "other_rate"]
+        for f in static:
             if getattr(newp, f) != getattr(self.params, f):
                 raise ValueError(
                     f"cannot reset shape-static parameter '{f}' on a "
@@ -670,11 +837,8 @@ class Booster:
         bins = self.train_set.X_binned
         scale = torch.tensor(1.0 / self._iter, dtype=_F32, device=bins.device)
         if self._num_class > 1:
-            return torch.stack([predict_forest_binned(
-                _class_tree(forest, c, axis=1), bins, scale,
-                float(self.init_score_[c]), self._iter,
-                self.params.num_leaves) for c in range(self._num_class)],
-                dim=1)
+            return _predict_forest_mc(forest, bins, scale, self.init_score_,
+                                      self._iter, self.params.num_leaves)
         return predict_forest_binned(forest, bins, scale,
                                      float(self.init_score_), self._iter,
                                      self.params.num_leaves)
@@ -751,12 +915,9 @@ class Booster:
                     forest, bins, lr, self.init_score_, num_iteration, depth,
                     start_iteration=start_iteration)
             else:
-                # one forest replay per class (_predict_forest_mc)
-                raw = torch.stack([predict_forest_binned(
-                    _class_tree(forest, c, axis=1), bins, lr,
-                    float(self.init_score_[c]), num_iteration, depth,
-                    start_iteration=start_iteration)
-                    for c in range(self._num_class)], dim=1)
+                raw = _predict_forest_mc(forest, bins, lr, self.init_score_,
+                                         num_iteration, depth,
+                                         start_iteration=start_iteration)
             if self.params.boosting == "rf" and num_iteration > 0:
                 init = (self.init_score_ if self._num_class == 1 else
                         torch.from_numpy(np.asarray(

@@ -319,14 +319,14 @@ def predict_tree_binned(tree, bins: torch.Tensor,
 def forest_depth_cap(forest) -> int:
     """Tight traversal bound: 1 + the deepest internal path in the forest.
 
-    Host-side sweep over the node arrays: children are always created after
-    their parent (higher node id), so one ascending id sweep settles all
-    depths.
+    Host-side sweep over the node arrays, read back in one transfer:
+    children are always created after their parent (higher node id), so one
+    ascending id sweep settles all depths.
     """
-    left = np.asarray(torch.as_tensor(forest.left).cpu())
-    right = np.asarray(torch.as_tensor(forest.right).cpu())
-    left = left.reshape(-1, left.shape[-1])
-    right = right.reshape(-1, right.shape[-1])
+    lr = torch.stack([torch.as_tensor(forest.left),
+                      torch.as_tensor(forest.right)]).cpu().numpy()
+    left = lr[0].reshape(-1, lr.shape[-1])
+    right = lr[1].reshape(-1, lr.shape[-1])
     t, m = left.shape
     depth = np.zeros((t, m), np.int64)
     rows = np.arange(t)

@@ -27,6 +27,10 @@ One column (examples/bagging_boosting.py's data): B1, B6, B3 and B4 at
 F = 1.  Per-node sampling on the strict grower: no B3 launch, B1 or B6
 under the unfused body, structure-equal to the plain path.
 
+GOSS and DART: the compacted selection on the card equals the CPU's with
+no host read; GOSS's compacted rows and DART's dropped rounds train on the
+wave grower, kernel path structure-equal to the plain path.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1045,6 +1049,73 @@ def test_objectives_train_kernel_vs_plain_on_card(objective):
         a, b = tree_to_arrays(ta), tree_to_arrays(tb)
         for k in ("split_feature", "split_bin", "left", "right", "is_leaf"):
             assert np.array_equal(a[k], b[k]), k
+    np.testing.assert_allclose(runs[0].predict(X[:2000]),
+                               runs[1].predict(X[:2000]), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_goss_selection_on_card_equals_cpu(seed):
+    """GOSS's compacted selection on the card: the same rows, weights and
+    counts as on the CPU for the same gradients and key, with no host read
+    (PyTorch's sync debug mode "error")."""
+    from lightgbm_tpu_torch.ops.sampling import goss_select
+
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    n = 300_000
+    g = (rng.standard_cauchy(n) * (rng.random(n) < 0.999)).astype(np.float32)
+    bag = (np.arange(n) < n - 1000).astype(np.float32)      # padded rows
+    goss_k = (int(0.2 * (n - 1000)), int(0.1 * (n - 1000)))
+    key = (0, 12345 + seed)
+    cpu = goss_select(key, torch.from_numpy(g), torch.from_numpy(bag),
+                      goss_k, 0.2, 0.1)
+    gd, bd = torch.from_numpy(g).to(dev), torch.from_numpy(bag).to(dev)
+    goss_select(key, gd, bd, goss_k, 0.2, 0.1)                 # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = goss_select(key, gd, bd, goss_k, 0.2, 0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boosting", ["goss", "dart"])
+def test_goss_dart_train_kernel_vs_plain_on_card(boosting):
+    """GOSS (compacted rows on the wave grower: B1 roots, B2 waves) and a
+    DART run whose rounds drop and rescale trees, on the card: the kernel
+    path's trees structure-equal to the plain path's, leaf values and
+    predictions within rtol 1e-5."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_PARTITION_LAUNCHES)
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    rng = np.random.default_rng(53)
+    X = rng.normal(size=(30_000, 8)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2]
+         + 0.3 * rng.normal(size=30_000) > 0).astype(np.float32)
+    p = dict(objective="binary", num_leaves=31, verbosity=-1,
+             boosting=boosting, drop_rate=0.5, skip_drop=0.0,
+             top_rate=0.3, other_rate=0.2)
+    HIST_FUSED_LAUNCHES["f32"].reset()
+    HIST_PARTITION_LAUNCHES["f32"].reset()
+    runs = [lgb.train(dict(p, hist_impl=impl),
+                      lgb.Dataset(X, label=y, device=dev), 6)
+            for impl in ("auto", "plain")]
+    assert HIST_FUSED_LAUNCHES["f32"].count > 0
+    assert HIST_PARTITION_LAUNCHES["f32"].count > 0
+    for ta, tb in zip(runs[0].trees, runs[1].trees):
+        a, b = tree_to_arrays(ta), tree_to_arrays(tb)
+        for k in ("split_feature", "split_bin", "left", "right", "is_leaf"):
+            assert np.array_equal(a[k], b[k]), k
+        np.testing.assert_allclose(a["leaf_value"], b["leaf_value"],
+                                   rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(runs[0].predict(X[:2000]),
                                runs[1].predict(X[:2000]), rtol=RTOL,
                                atol=ATOL)

@@ -211,16 +211,19 @@ def test_cv_matches_reference_per_fold_path():
 
 # ------------------------------------------------------ (e) out of the slice
 OUT_OF_SLICE = {
-    "goss": {"boosting": "goss"},
-    "dart": {"boosting": "dart"},
+    # goss and dart train since their slice; under a learner outside the
+    # slice they still raise by name
+    "goss": {"boosting": "goss", "tree_learner": "data"},
+    "dart": {"boosting": "dart", "tree_learner": "data"},
     # rf and per-node sampling train since the bagging/boosting slice;
     # under a learner outside the slice they still raise by name
     "rf": {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
            "tree_learner": "data"},
-    # multiclass trains since the batched wave grower; under a boosting
-    # mode outside the slice it still raises by name
+    # multiclass trains since the batched wave grower, and multiclass dart
+    # since its slice; under a learner outside the slice it still raises by
+    # name
     "multiclass": {"objective": "multiclass", "num_class": 3,
-                   "boosting": "dart"},
+                   "boosting": "dart", "tree_learner": "data"},
     "lambdarank": {"objective": "lambdarank"},
     # the remaining objectives and bf16sr train since their slice; under a
     # learner outside the slice they still raise by name
