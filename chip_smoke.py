@@ -164,9 +164,10 @@ Phases:
    (``boosting="rf"``, ``feature_fraction_bynode``), every launch counter
    at 0 just before each run and read just after: (a) the script's calls at
    its own sizes (``make_boosting_curve(1000, 8657)``, one column, its
-   params): ``cv`` (1,000 rounds, 5 folds, early stopping 50; fused strict,
-   B6 + B3) through the kernels and the plain versions (``best_iter``
-   equal, ``best_score`` within 1e-5 relative), ``train`` of 500 rounds
+   params): ``cv`` (5 folds, early stopping 50, the script's 1,000 rounds
+   cut to 150 on both paths; fused strict, B6 + B3) through the kernels
+   and the plain versions (fold-mean RMSE per round within 1e-5 relative,
+   ``best_iter`` equal, ``best_score`` within 1e-5), ``train`` of 500 rounds
    (B1 + B3; the plain run the first 100 rounds, the plain versions being
    launch-bound at 1,000 rows) and ``predict(grid, ntree_limit=k)`` for k
    in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 100 trees;
@@ -185,7 +186,7 @@ Phases:
    through ``PredictorRuntime`` on 16,384 rows within 1e-5 of
    ``Booster.predict``; (c) ``cv()`` on the diamonds split with
    ``feature_fraction_bynode=0.5`` (the batched unfused strict body: B6, no
-   B3 launch; 100 rounds, cut from phase 8b's 1,000) through the kernels
+   B3 launch; 50 rounds, cut from phase 8b's 1,000) through the kernels
    and the plain versions, ``best_iter`` equal, ``best_score`` within 1e-5
    relative; (d) fused ``cv()`` at 2^19
    rows x 28, 5 folds, 63 leaves, 3 rounds, ``feature_fraction_bynode=
@@ -203,16 +204,15 @@ Phases:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host read); (b) the
    regression family on examples/gridsearch_cv.py's diamonds split with
    the price in dollars and the example's untuned call (learning rate
-   0.1, 200 rounds): huber, fair, poisson, gamma, tweedie, mape,
+   0.1, 100 rounds): huber, fair, poisson, gamma, tweedie, mape,
    cross_entropy (price over the largest price) and a custom ``fobj``
-   (l2 in arithmetic operators) through the kernels and, for the first
-   100 rounds, the plain versions, the held-out metric at 100 trees within
-   1e-5 relative; each model packed
+   (l2 in arithmetic operators) through the kernels and the plain
+   versions, the held-out metric within 1e-5 relative; each model packed
    and 16,384 rows served through ``PredictorRuntime`` (B4, then the exp
    or sigmoid link) within 1e-5 (relative past 1) of ``Booster.predict``,
    the custom model refused as the reference refuses it; (c) fused
    ``cv()`` with ``regression_l1`` on phase 8's diamonds Dataset (5 folds,
-   l1, early stopping 5, at most 200 rounds: B6, B3; no renewal, as the
+   l1, early stopping 5, at most 100 rounds: B6, B3; no renewal, as the
    reference's fused program): ``best_iter`` equal, ``best_score`` within
    1e-5 relative; (d) ``hist_dtype="bf16sr"`` at the north star, 10 rounds:
    ``sr_round_bf16`` on the card bit-equal to the CPU's on the root
@@ -237,12 +237,35 @@ Phases:
    per drop round, the final model served by B4 within 1e-5; (d)
    examples/gridsearch_cv.py's ``cv()`` arguments with ``boosting="goss"``
    and ``"dart"`` (the per-fold route, B1 and B2): GOSS's kernel run to
-   early stopping against a plain run cut at 60 rounds, DART's both at 50,
-   fold-mean RMSE per round within 1e-5 and the best round equal; (e)
+   both runs cut at 60 rounds, DART's both at 50, fold-mean RMSE per round
+   within 1e-5 and the best round equal; (e)
    DART on examples/bagging_boosting.py's curve (the strict grower: B1
    and B3), ``train_resumable`` killed by SIGTERM after round index 6 and
    resumed: every tree field, ``_pred_train`` and the served scores bit
-   for bit as the uninterrupted run, its trees equal to the plain path's.
+   for bit as the uninterrupted run, its trees equal to the plain path's;
+17. categorical features, every launch counter at 0 just before each run
+   and read just after: (a) the north star's model on a seed-made table at
+   the shape of szilard/GBM-perf's airline-delay data (1,000,000 x 8:
+   Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest as
+   categories, Origin and Dest past the 254 a column keeps; DepTime,
+   Distance), 10 rounds through the kernels and the plain versions in
+   turns (waves on the unfused route: B1 bf16, no B2): AUC on 200,000
+   held-out rows within 1e-4, the round-1 trees on a dyadic label equal
+   (subset masks included), host syncs of a categorical and a numeric
+   round with their sites (none of its own, no more beyond the one per
+   wave), one round whose every split scan runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, a profiled round, the
+   text model reloaded with predictions bit-equal, the forest served by
+   the legacy traversal within 1e-5 with no B4 launch; (b) the strict
+   grower, 3 rounds (B1 pairs, no B3), AUC within 1e-4; (c)
+   examples/gridsearch_cv.py's ``cv()`` with cut, color and clarity as
+   factors (fused strict, E = 5: B6, no B3; the plain run cut at 60
+   rounds, compared over the rounds both ran); (d) multiclass at
+   Covertype's shape with Wilderness_Area and Soil_Type as categorical
+   columns, 3 rounds (B5, B6), ``multi_logloss`` within 1e-4; (e) int8
+   (B1 int8) and GOSS (f32 B1) at (a)'s shape, 3 rounds each, trees and
+   masks equal.  B2, B3 and B4 never launch on categorical data, as the
+   reference routes it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -332,13 +355,16 @@ RECOVERY_SERVE_ROWS = 16_384
 RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 60, 5
 RECOVERY_SEGMENT_ROUNDS = 25     # the sweep's carry checkpoint cadence
 # phase 14: examples/bagging_boosting.py at its own sizes (the script's
-# params; cv 1,000 rounds, 5 folds, early stopping 50; train 500; the
-# staged fits and forest sizes it prints)
+# params; cv 5 folds, early stopping 50; train 500; the staged fits and
+# forest sizes it prints).  Its cv's 1,000 rounds are cut to 150 on both
+# paths (early stopping ends them at 323): the plain versions are
+# launch-bound at 1,000 rows and the script must fit its time limit on a
+# slow host
 BB_ROWS, BB_SEED = 1000, 8657
 BB_PARAMS = {"objective": "reg:linear", "eval_metric": "rmse", "eta": 0.02,
              "max_depth": 6, "max_leaf_nodes": 31, "verbosity": 0,
              "min_data_in_leaf": 1}
-BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 1000, 50, 5, 500
+BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 150, 50, 5, 500
 BB_STAGES, BB_FORESTS = (1, 20, 50, 100, 300), (1, 3, 100)
 # the plain versions run ~5 ms a call at 1,000 rows (launch-bound): the
 # plain train covers the stages up to 100 trees
@@ -354,7 +380,7 @@ RF_TREES, RF_SERVE_ROWS, SYNC_ROUNDS = 10, 16_384, 3
 BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
 # 14c's rounds, cut from phase 8b's 1,000 (early stopping found 301): the
 # unfused body's split scan runs in plain ops, 5-9 ms a split iteration
-BYNODE_CV_ROUNDS = 100
+BYNODE_CV_ROUNDS = 50
 BATCH_CV_ROWS, BATCH_CV_LEAVES, BATCH_CV_ROUNDS = 1 << 19, 63, 3
 # phase 15: the remaining objectives; 15a's renewal at the north star
 RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
@@ -363,10 +389,9 @@ RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
 FAMILY_OBJECTIVES = ("huber", "fair", "poisson", "gamma", "tweedie", "mape",
                      "cross_entropy", "custom")
 FAMILY_METRIC = {"fair": "l1", "custom": "l2"}
-FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 200, 16_384
-# the plain versions train the first 100 of 15b's rounds (launch-bound at
-# 45,957 rows); the kernel path's model is compared at that many trees
-FAMILY_PLAIN_ROUNDS = 100
+# the example's rounds cut to 100 on both paths (the plain versions are
+# launch-bound at 45,957 rows)
+FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 100, 16_384
 # phase 16: GOSS and DART at LightGBM's defaults (top_rate 0.2, other_rate
 # 0.1; drop_rate 0.1, max_drop 50, skip_drop 0.5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
@@ -375,14 +400,27 @@ GOSS_ROUNDS, GOSS_SERVE_ROWS, MC_GOSS_ROUNDS = 10, 16_384, 3
 DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
 DART_ROUNDS = 30
-# 16d: the example's cv() at most 1,000 rounds (kernels, plain): GOSS's
-# plain run is cut to 60 rounds and compared with the kernel run's first
-# 60; DART's early stopping rarely ends it (each drop round moves the
-# ensemble), so both of its runs stop at 50 (phase 16 within ~120 s)
-GD_CV_ROUNDS = {"goss": (CV_ROUNDS, 60), "dart": (50, 50)}
+# 16d: the example's cv() rounds (kernels, plain), cut so the script fits
+# its time limit on a slow host: GOSS's both at 60 (early stopping ends
+# them at 177); DART's early stopping rarely ends it (each drop round
+# moves the ensemble), so both of its runs stop at 50
+GD_CV_ROUNDS = {"goss": 60, "dart": 50}
 # 16e: the curve's params with DART dropping half the trees every round
 DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
                          skip_drop=0.0)
+# phase 17: categorical features.  17a at the shape of szilard/GBM-perf's
+# airline-delay table (8 columns; Origin and Dest past the 254 categories a
+# column keeps at 255 bins, so their rarest share the overflow bin)
+AIR_COLUMNS = ("Month", "DayofMonth", "DayOfWeek", "DepTime",
+               "UniqueCarrier", "Origin", "Dest", "Distance")
+AIR_CATS = {"Month": 12, "DayofMonth": 31, "DayOfWeek": 7,
+            "UniqueCarrier": 22, "Origin": 300, "Dest": 300}
+AIR_ROWS, CAT_ROUNDS, CAT_SHORT_ROUNDS, CAT_SERVE_ROWS = (1_000_000, 10, 3,
+                                                          16_384)
+# 17c: examples/gridsearch_cv.py's cv() with the diamonds factors; the
+# plain run is cut and compared over the rounds both ran (as 16d)
+DIAMOND_CATS = ["cut", "color", "clarity"]
+CAT_CV_PLAIN_ROUNDS = 60
 
 
 def fail(msg: str) -> None:
@@ -1312,11 +1350,13 @@ PROFILE_FAMILIES = {
 }
 
 
-def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
+def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6",
+                   unfused=False):
     """Where a north-star round's time goes: ``torch.profiler`` over
     ``rounds`` rounds after one warm round; device time by kernel family,
     the device's busy share of the wall time, and the host syncs (one per
-    wave, one per exact-tail prune)."""
+    wave, one per exact-tail prune).  ``unfused``: the waves take the
+    unfused route (B1 beyond each root, no B2), as categorical ones do."""
     from torch.profiler import ProfilerActivity, profile
 
     booster = lgb.Booster(params, ds)
@@ -1347,8 +1387,11 @@ def profile_rounds(lgb, ds, params, rounds=3, tag="phase 6"):
     top.sort(reverse=True)
     # a wave is one B2 launch, or on the unfused route one B1 int8 launch
     # beyond the tree's root
+    fused = counts["hist_fused_int8"] + (
+        counts["hist_fused_bf16"] + counts["hist_fused_f32"] if unfused
+        else 0)
     waves = (counts["hist_partition_bf16"] + counts["hist_partition_f32"]
-             + max(counts["hist_fused_int8"] - rounds, 0)) / rounds
+             + max(fused - rounds, 0)) / rounds
     out = {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
            "device_ms_per_round": device_ms / rounds,
            "device_busy_share": device_ms / wall_ms if wall_ms else None,
@@ -3107,11 +3150,13 @@ def phase_bagging_boosting(dev, launches):
           f"the curve's Dataset: {ds.device}, {tuple(ds.X_binned.shape)}")
     out = {"cv": {}, "train": {}, "forest": {}}
     # boosting side: cv (fused strict, E = 5: B6 + B3), train (B1 + B3)
+    hist = {}
     for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
         fit, secs, counts, plain = counted_run(lambda: lgb.cv(
             dict(BB_PARAMS, **extra), ds, num_boost_round=BB_CV_ROUNDS,
             early_stopping_rounds=BB_CV_ES, nfold=BB_FOLDS,
             stratified=False))
+        hist[tag] = list(fit["valid rmse-mean"])
         out["cv"][tag] = {"best_iter": fit.best_iter,
                           "best_score": fit.best_score, "s": secs,
                           "counts": counts, "plain_calls": plain}
@@ -3123,6 +3168,9 @@ def phase_bagging_boosting(dev, launches):
           and k["counts"]["hist_segstats_f32"] > 0 and k["plain_calls"] == 0,
           f"14a cv kernel path: launches {k['counts']}, plain calls "
           f"{k['plain_calls']}")
+    check(len(hist["kernels"]) == len(hist["plain"]) and max(
+        rel_diff(a, b) for a, b in zip(hist["kernels"], hist["plain"]))
+          <= 1e-5, "14a cv fold-mean RMSE kernel vs plain per round")
     check(k["best_iter"] == p["best_iter"], f"14a cv best_iter kernel "
           f"{k['best_iter']} vs plain {p['best_iter']}")
     rel = abs(k["best_score"] - p["best_score"]) / abs(p["best_score"])
@@ -3408,13 +3456,12 @@ def continuous_label(X, seed):
     return (logits + noise).astype(np.float32)
 
 
-def held_out_metric(booster, name, Xv, yv, dev, num_iteration=None):
+def held_out_metric(booster, name, Xv, yv, dev):
     """The objective's metric (bound to its params) of the transformed
     predictions on held-out rows, on the card."""
     from lightgbm_tpu_torch.metrics import get_metric
 
-    p = torch.from_numpy(booster.predict(Xv, num_iteration=num_iteration)
-                         ).to(dev)
+    p = torch.from_numpy(booster.predict(Xv)).to(dev)
     y = torch.from_numpy(np.asarray(yv, np.float32)).to(dev)
     return float(get_metric(name, booster.params).fn(p, y,
                                                      torch.ones_like(y)))
@@ -3587,13 +3634,11 @@ def phase_regression_family(dev, launches):
         ds = lgb.Dataset(Xt, label=y)
         ds.construct()
         res, boosters = {}, {}
-        for tag, extra, rounds in (
-                ("kernels", {}, FAMILY_ROUNDS),
-                ("plain", {"hist_impl": "plain"}, FAMILY_PLAIN_ROUNDS)):
+        for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
             b, secs, counts, plain = counted_run(lambda: lgb.train(
-                dict(params, **extra), ds, rounds))
+                dict(params, **extra), ds, FAMILY_ROUNDS))
             boosters[tag] = b
-            res[tag] = {"rounds": rounds, "s": secs, "counts": counts,
+            res[tag] = {"rounds": FAMILY_ROUNDS, "s": secs, "counts": counts,
                         "plain_calls": plain,
                         metric: held_out_metric(b, metric, Xe, ye, dev)}
         k = res["kernels"]
@@ -3602,12 +3647,10 @@ def phase_regression_family(dev, launches):
               and k["plain_calls"] == 0, f"15b {obj} kernel path: launches "
               f"{k['counts']}, plain calls {k['plain_calls']}")
         add_launches(launches, k["counts"])
-        at = held_out_metric(boosters["kernels"], metric, Xe, ye, dev,
-                             num_iteration=FAMILY_PLAIN_ROUNDS)
-        rel = rel_diff(at, res["plain"][metric])
+        rel = rel_diff(k[metric], res["plain"][metric])
         check(np.isfinite(k[metric]) and rel <= 1e-5, f"15b {obj}: held-out "
-              f"{metric} at {FAMILY_PLAIN_ROUNDS} trees kernel {at!r} vs "
-              f"plain {res['plain'][metric]!r}")
+              f"{metric} kernel {k[metric]!r} vs plain "
+              f"{res['plain'][metric]!r}")
         res["metric_rel_diff"] = rel
         booster = boosters["kernels"]
         packed = pack_booster(booster)
@@ -4081,17 +4124,16 @@ def phase_dart_north_star(dev, X, y, launches):
 def phase_goss_dart_cv(dds, launches):
     """16d: examples/gridsearch_cv.py's cv() arguments with GOSS and then
     DART (the per-fold route; 31 leaves and ~11,000 compacted rows per fold
-    put GOSS on the wave grower: B1 and B2).  A plain run cut short of the
-    kernel run is compared over the rounds both ran: the fold-mean RMSE per
-    round within 1e-5 relative and the best round among them equal."""
+    put GOSS on the wave grower: B1 and B2), both paths cut at the same
+    round: the fold-mean RMSE per round within 1e-5 relative and
+    ``best_iter`` equal."""
     import lightgbm_tpu_torch as lgb
 
     out = {}
     for boosting in ("goss", "dart"):
         res = {}
-        for tag, extra, rounds in (
-                ("kernels", {}, GD_CV_ROUNDS[boosting][0]),
-                ("plain", {"hist_impl": "plain"}, GD_CV_ROUNDS[boosting][1])):
+        rounds = GD_CV_ROUNDS[boosting]
+        for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
             fit, secs, counts, plain = counted_run(lambda: lgb.cv(
                 dict(CV_PARAMS, boosting=boosting, **extra), dds,
                 num_boost_round=rounds, nfold=CV_FOLDS, metrics="rmse",
@@ -4112,19 +4154,14 @@ def phase_goss_dart_cv(dds, launches):
               f"launches {kc['counts']}, plain calls {kc['plain_calls']}")
         add_launches(launches, kc["counts"])
         hk, hp = kc.pop("history"), pc.pop("history")
-        n = min(len(hk), len(hp))
-        rel = max(rel_diff(a, b) for a, b in zip(hk[:n], hp[:n]))
+        check(len(hk) == len(hp), f"16d {boosting}: rounds run kernel "
+              f"{len(hk)} vs plain {len(hp)}")
+        rel = max(rel_diff(a, b) for a, b in zip(hk, hp))
         check(rel <= 1e-5, f"16d {boosting} fold-mean RMSE kernel vs plain "
-              f"over {n} rounds: rel {rel:.2e}")
-        if pc["rounds_run"] >= kc["rounds_run"]:
-            check(kc["best_iter"] == pc["best_iter"], f"16d {boosting} "
-                  f"best_iter kernel {kc['best_iter']} vs plain "
-                  f"{pc['best_iter']}")
-            res["compared"] = "best_iter and best_score"
-        else:
-            check(int(np.argmin(hk[:n])) == int(np.argmin(hp[:n])),
-                  f"16d {boosting}: best round of the first {n}")
-            res["compared"] = f"the first {n} rounds (plain run cut)"
+              f"per round: rel {rel:.2e}")
+        check(kc["best_iter"] == pc["best_iter"], f"16d {boosting} "
+              f"best_iter kernel {kc['best_iter']} vs plain "
+              f"{pc['best_iter']}")
         res["rmse_rel_diff"] = rel
         out[boosting] = res
     log(f"phase 16d: {json.dumps(out)}")
@@ -4231,6 +4268,412 @@ def phase_goss_dart(dev, X, y, Xc, yc, dds, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: categorical features
+# ---------------------------------------------------------------------------
+def airline_like(n, seed):
+    """Rows at the shape of the airline-delay table: Month (12), DayofMonth
+    (31), DayOfWeek (7), UniqueCarrier (22), Origin and Dest (300 airports
+    each, Zipf-like traffic) as category codes, DepTime (hhmm) and Distance
+    numeric; the label (about a fifth delayed) from per-category effects
+    drawn from their own stream, so every seed shares the labelling."""
+    rng = np.random.default_rng(seed)
+    fx = np.random.default_rng(20261018)
+    traffic = 1.0 / np.arange(1, 301) ** 0.9
+    traffic /= traffic.sum()
+    cols = {"Month": rng.integers(1, 13, n), "DayofMonth": rng.integers(
+        1, 32, n), "DayOfWeek": rng.integers(1, 8, n),
+        "DepTime": rng.integers(5, 24, n) * 100 + rng.integers(0, 60, n),
+        "UniqueCarrier": rng.integers(0, 22, n),
+        "Origin": rng.choice(300, n, p=traffic),
+        "Dest": rng.choice(300, n, p=traffic),
+        "Distance": np.exp(rng.normal(6.4, 0.6, n)).clip(30, 5000)}
+    score = -1.6 + 0.45 * (cols["DepTime"] / 100.0 - 14.0) / 5.0 \
+        + 0.1 * np.log(cols["Distance"] / 600.0)
+    for name, k in AIR_CATS.items():
+        base = 1 if name in ("Month", "DayofMonth", "DayOfWeek") else 0
+        scale = 0.2 if name == "DayofMonth" else 0.5
+        score = score + fx.normal(0, scale, k)[cols[name] - base]
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-score))).astype(np.float32)
+    X = np.column_stack([cols[c] for c in AIR_COLUMNS]).astype(np.float32)
+    return X, y
+
+
+def cat_dataset(lgb, X, y):
+    return lgb.Dataset(X, label=y, feature_name=list(AIR_COLUMNS),
+                       categorical_feature=list(AIR_CATS),
+                       params={"max_bin": MAX_BIN})
+
+
+def cat_split_nodes(booster):
+    return int(sum(int(t.is_cat_split.sum()) for t in booster.trees))
+
+
+def syncs_per_round(lgb, params, ds):
+    """Host syncs per round (PyTorch's sync debug mode) and waves per round
+    (a wave is a B2 launch, or on the unfused route a B1 launch beyond the
+    root) over SYNC_ROUNDS rounds after a warm one, and the sync sites."""
+    b = lgb.Booster(params, ds)
+    b.update()
+    (_, sites), _, counts, _ = counted_run(lambda: host_syncs(
+        lambda: [b.update() for _ in range(SYNC_ROUNDS)]))
+    waves = sum(v for k, v in counts.items()
+                if k.startswith(("hist_partition_", "hist_fused_"))
+                and not k.startswith("hist_fused_batched")) - SYNC_ROUNDS
+    return {"syncs_per_round": len(sites) / SYNC_ROUNDS,
+            "waves_per_round": waves / SYNC_ROUNDS,
+            "sites": dict(sorted(collections.Counter(sites).items()))}
+
+
+def scan_without_host_reads(booster):
+    """One round whose every split scan (``find_best_split`` in the
+    growers) runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    host read in the subset scan fails the round; returns the scans run."""
+    import lightgbm_tpu_torch.models.tree as T
+
+    orig, calls = T.find_best_split, [0]
+
+    def guarded(*a, **k):
+        calls[0] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    T.find_best_split = guarded
+    try:
+        booster.update()
+        torch.cuda.synchronize()
+    finally:
+        T.find_best_split = orig
+    return calls[0]
+
+
+def phase_cat_airline(dev, workdir, launches):
+    """17a: the north star's model on the airline-shaped table, the wave
+    grower through B1 (categorical waves take the unfused route: the plain
+    partition, then B1 with a segment per split), kernel and plain paths in
+    turns."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    X, y = airline_like(AIR_ROWS, SEED + 170)
+    Xv, yv = airline_like(VALID_ROWS, SEED + 171)
+    t0 = time.perf_counter()
+    ds = cat_dataset(lgb, X, y)
+    ds.construct()
+    bin_s = time.perf_counter() - t0
+    check(ds.col_is_categorical.tolist() == [c in AIR_CATS
+                                             for c in AIR_COLUMNS],
+          f"17a categorical columns {ds.col_is_categorical}")
+    origin = AIR_COLUMNS.index("Origin")
+    over = int((ds.X_binned[:, origin] == 254).sum())
+    check(ds.feature_num_bin(origin) == 255 and over > 0,
+          f"17a Origin: {ds.feature_num_bin(origin)} bins, {over} rows in "
+          "the overflow bin")
+    for extra in ({}, {"hist_impl": "plain"}):                # warm
+        lgb.train(dict(TRAIN_PARAMS, **extra), ds, 1)
+    runs, boosters = {"kernels": [], "plain": []}, {}
+    for tag in ("kernels", "plain", "plain", "kernels"):
+        params = dict(TRAIN_PARAMS, **({"hist_impl": "plain"}
+                                       if tag == "plain" else {}))
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(params, ds, CAT_ROUNDS))
+        runs[tag].append({"s_per_round": secs / CAT_ROUNDS,
+                          "counts": counts, "plain_calls": plain})
+        boosters.setdefault(tag, b)
+        log(f"phase 17a {tag}: {CAT_ROUNDS} rounds in {secs:.2f} s, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    k = runs["kernels"][0]
+    check(k["counts"]["hist_fused_bf16"] > 0 and k["plain_calls"] == 0
+          and k["counts"]["hist_partition_bf16"] == 0
+          and k["counts"]["hist_partition_f32"] == 0,
+          f"17a kernel path (B1 bf16, no B2): launches {k['counts']}, plain "
+          f"calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    bk, bp = boosters["kernels"], boosters["plain"]
+    n_cat = cat_split_nodes(bk)
+    check(n_cat > 0, "17a: no categorical split in the kernel path's trees")
+    aucs = {t: auc(b, Xv, yv, dev) for t, b in boosters.items()}
+    d_auc = aucs["kernels"] - aucs["plain"]
+    check(abs(d_auc) <= AUC_TOL, f"17a AUC kernel - plain {d_auc:.2e}")
+    same_trees = all(
+        all(np.array_equal(tree_arrays(bk, i)[f], tree_arrays(bp, i)[f])
+            for f in ("split_feature", "split_bin", "left", "right",
+                      "is_leaf", "is_cat_split", "cat_mask"))
+        for i in range(CAT_ROUNDS))
+    # the round-1 tree on a dyadic label (l2, exactly half ones): exact sums
+    score = X[:, AIR_COLUMNS.index("DepTime")] / 2400.0 + np.random.\
+        default_rng(SEED + 172).normal(0, 1, 300)[X[:, origin].astype(int)]
+    yd = np.zeros(len(y), np.float32)
+    yd[np.argsort(score, kind="stable")[len(y) // 2:]] = 1.0
+    dsd = cat_dataset(lgb, X, yd)
+    pd_ = dict(TRAIN_PARAMS, objective="regression", hist_dtype="f32")
+    a, b = (tree_arrays(lgb.train(dict(pd_, **extra), dsd, 1), 0)
+            for extra in ({}, {"hist_impl": "plain"}))
+    check(a.keys() == b.keys() and all(np.array_equal(a[f], b[f])
+                                       for f in a),
+          "17a: the dyadic round-1 trees of the kernel and plain paths differ")
+    check(bool(a["is_cat_split"].any()), "17a: no subset split in the dyadic "
+          "round-1 tree")
+    del dsd, yd
+    # host syncs: a categorical round against a numeric round of the same
+    # tree shape (the same table with no categorical column)
+    dsn = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    syncs = {"categorical": syncs_per_round(lgb, TRAIN_PARAMS, ds),
+             "numeric": syncs_per_round(lgb, TRAIN_PARAMS, dsn)}
+    del dsn
+    sc, sn = syncs["categorical"], syncs["numeric"]
+    # no site of its own, and no more syncs beyond the one per wave
+    check(set(sc["sites"]) <= set(sn["sites"])
+          and sc["syncs_per_round"] - sc["waves_per_round"]
+          <= sn["syncs_per_round"] - sn["waves_per_round"],
+          f"17a host syncs: categorical {sc}, numeric {sn}")
+    scans = scan_without_host_reads(lgb.Booster(TRAIN_PARAMS, ds))
+    breakdown = profile_rounds(lgb, ds, TRAIN_PARAMS, tag="phase 17a",
+                               unfused=True)
+    # the text model reloads with the same predictions, bit for bit
+    path = os.path.join(workdir, "cat_airline.txt")
+    bk.save_model(path)
+    rows = Xv[:CAT_SERVE_ROWS]
+    want = bk.predict(rows)
+    check(np.array_equal(lgb.Booster(model_file=path).predict(rows), want),
+          "17a: the reloaded text model predicts other bits")
+    rt = PredictorRuntime(pack_booster(bk), max_bucket=MAX_BUCKET)
+    served, serve_s, counts, _ = counted_run(lambda: rt.predict(rows))
+    check(counts["predict_forest"] == 0 and not rt.fused_predict,
+          f"17a: a categorical forest reached B4 ({counts})")
+    sdiff = float(np.abs(served - want).max())
+    check(sdiff <= 1e-5, f"17a served vs Booster.predict {sdiff:.2e}")
+    out = {"rounds": CAT_ROUNDS, "binning_s": bin_s, "overflow_rows": over,
+           "s_per_round_in_turns": {t: [r["s_per_round"] for r in v]
+                                    for t, v in runs.items()},
+           "launches": k["counts"], "b1_launches": k["counts"][
+               "hist_fused_bf16"], "categorical_split_nodes": n_cat,
+           "auc": aucs, "auc_kernel_minus_plain": d_auc,
+           "all_trees_equal_kernel_vs_plain": same_trees,
+           "host_syncs": syncs, "scans_under_sync_error": scans,
+           "round_breakdown": breakdown,
+           "serve": {"rows": CAT_SERVE_ROWS, "s": serve_s,
+                     "max_abs_diff": sdiff, "b4_launches": 0}}
+    log(f"phase 17a: {json.dumps(out)}")
+    return out, ds, Xv, yv
+
+
+def phase_cat_strict(dev, ds, Xv, yv, launches):
+    """17b: the same table on the strict grower: B1 with two segments per
+    split iteration, the reference's unfused body (no B3)."""
+    import lightgbm_tpu_torch as lgb
+
+    params = dict(TRAIN_PARAMS, grow_policy="leafwise")
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(dict(params, **extra), ds, CAT_SHORT_ROUNDS),
+            skip=("split_iter_plain",))
+        runs[tag] = {"s_per_round": secs / CAT_SHORT_ROUNDS,
+                     "counts": counts, "plain_calls": plain,
+                     "auc": auc(b, Xv, yv, dev),
+                     "categorical_split_nodes": cat_split_nodes(b)}
+        log(f"phase 17b {tag}: {CAT_SHORT_ROUNDS} strict rounds in "
+            f"{secs:.2f} s, launches {json.dumps(counts)}, plain calls "
+            f"{plain}")
+    k = runs["kernels"]
+    check(k["counts"]["hist_fused_bf16"] > 0 and k["counts"]["split_iter"]
+          == 0 and k["plain_calls"] == 0, f"17b kernel path (B1, no B3): "
+          f"launches {k['counts']}, plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    d_auc = k["auc"] - runs["plain"]["auc"]
+    check(abs(d_auc) <= AUC_TOL, f"17b AUC kernel - plain {d_auc:.2e}")
+    out = {"rounds": CAT_SHORT_ROUNDS, **{t: {f: v for f, v in r.items()
+                                             if f != "counts"}
+                                         for t, r in runs.items()},
+           "launches": k["counts"], "auc_kernel_minus_plain": d_auc}
+    log(f"phase 17b: {json.dumps(out)}")
+    return out
+
+
+def phase_cat_cv(launches):
+    """17c: examples/gridsearch_cv.py's cv() with cut, color and clarity as
+    factors (fused, strict trees, E = 5: B6 and the unfused body)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.utils.datasets import (
+        make_synthetic_diamonds, train_test_split_bernoulli)
+
+    X, y, names = make_synthetic_diamonds()
+    tr, _ = train_test_split_bernoulli(len(y), p_train=0.85, seed=SWEEP_SEED)
+    ds = lgb.Dataset(X[tr], label=y[tr], feature_name=names,
+                     categorical_feature=DIAMOND_CATS)
+    ds.construct()
+    res = {}
+    for tag, extra, rounds in (("kernels", {}, CV_ROUNDS),
+                               ("plain", {"hist_impl": "plain"},
+                                CAT_CV_PLAIN_ROUNDS)):
+        fit, secs, counts, plain = counted_run(lambda: lgb.cv(
+            dict(CV_PARAMS, **extra), ds, num_boost_round=rounds,
+            nfold=CV_FOLDS, metrics="rmse", early_stopping_rounds=CV_ES,
+            stratified=False, seed=SWEEP_SEED), skip=("split_iter_plain",))
+        res[tag] = {"max_rounds": rounds, "best_iter": fit.best_iter,
+                    "best_score": fit.best_score, "s": secs,
+                    "rounds_run": len(fit["valid rmse-mean"]),
+                    "counts": counts, "plain_calls": plain,
+                    "history": list(fit["valid rmse-mean"])}
+        log(f"phase 17c cv {tag}: best_iter {fit.best_iter}, best_score "
+            f"{fit.best_score!r}, {secs:.2f} s, launches {json.dumps(counts)}"
+            f", plain calls {plain}")
+    kc, pc = res["kernels"], res["plain"]
+    check(kc["counts"]["hist_segstats_f32"] > 0 and kc["counts"][
+        "split_iter"] == 0 and kc["plain_calls"] == 0, f"17c kernel path "
+        f"(B6, no B3): launches {kc['counts']}, plain calls "
+        f"{kc['plain_calls']}")
+    add_launches(launches, kc["counts"])
+    hk, hp = kc.pop("history"), pc.pop("history")
+    n = min(len(hk), len(hp))
+    rel = max(rel_diff(a, b) for a, b in zip(hk[:n], hp[:n]))
+    check(rel <= 1e-5, f"17c fold-mean RMSE kernel vs plain over {n} rounds: "
+          f"rel {rel:.2e}")
+    if pc["rounds_run"] >= kc["rounds_run"]:
+        check(kc["best_iter"] == pc["best_iter"], f"17c best_iter kernel "
+              f"{kc['best_iter']} vs plain {pc['best_iter']}")
+        res["compared"] = "best_iter and best_score"
+    else:
+        check(int(np.argmin(hk[:n])) == int(np.argmin(hp[:n])),
+              f"17c: best round of the first {n}")
+        res["compared"] = f"the first {n} rounds (plain run cut)"
+    res["rmse_rel_diff"] = rel
+    log(f"phase 17c: {json.dumps(res)}")
+    return res
+
+
+def covertype_cat(n, seed):
+    """Covertype's shape with its two categorical columns: the ten
+    quantitative columns, Wilderness_Area (4 categories) and Soil_Type
+    (40) as codes, and the class of :func:`covertype_like`."""
+    X, y = covertype_like(n, seed)
+    wild = np.argmax(X[:, COV_NUMERIC:COV_NUMERIC + COV_WILD], axis=1)
+    soil = np.argmax(X[:, COV_NUMERIC + COV_WILD:], axis=1)
+    return np.column_stack([X[:, :COV_NUMERIC], wild, soil]).astype(
+        np.float32), y
+
+
+def phase_cat_multiclass(dev, launches):
+    """17d: multiclass at Covertype's shape with its two categorical
+    columns, 7 classes, 127 leaves (B6 roots, B5 waves)."""
+    import lightgbm_tpu_torch as lgb
+
+    Xc, yc = covertype_cat(COV_ROWS, SEED + 120)
+    Xv, yv = covertype_cat(COV_VALID_ROWS, SEED + 121)
+    ds = lgb.Dataset(Xc, label=yc, categorical_feature=[COV_NUMERIC,
+                                                        COV_NUMERIC + 1],
+                     params={"max_bin": MAX_BIN})
+    ds.construct()
+    runs = {}
+    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain = counted_run(lambda: lgb.train(
+            dict(COV_PARAMS, **extra), ds, CAT_SHORT_ROUNDS))
+        runs[tag] = {"s_per_round": secs / CAT_SHORT_ROUNDS,
+                     "counts": counts, "plain_calls": plain,
+                     "multi_logloss": multi_logloss(b, Xv, yv, dev),
+                     "categorical_split_nodes": cat_split_nodes(b)}
+        log(f"phase 17d {tag}: {CAT_SHORT_ROUNDS} rounds in {secs:.2f} s, "
+            f"multi_logloss {runs[tag]['multi_logloss']:.6f}, launches "
+            f"{json.dumps(counts)}, plain calls {plain}")
+    k, p = runs["kernels"], runs["plain"]
+    check(k["counts"]["hist_fused_batched_bf16"] > 0
+          and k["counts"]["hist_segstats_bf16"] > 0 and k["plain_calls"] == 0
+          and k["categorical_split_nodes"] > 0, f"17d kernel path (B5 and "
+          f"B6): launches {k['counts']}, plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    d_ll = k["multi_logloss"] - p["multi_logloss"]
+    check(np.isfinite(k["multi_logloss"]) and abs(d_ll) <= COV_TOL,
+          f"17d multi_logloss kernel - plain {d_ll:.2e}")
+    out = {"rounds": CAT_SHORT_ROUNDS, **{t: {f: v for f, v in r.items()
+                                             if f != "counts"}
+                                         for t, r in runs.items()},
+           "launches": k["counts"], "multi_logloss_kernel_minus_plain": d_ll}
+    log(f"phase 17d: {json.dumps(out)}")
+    return out
+
+
+def phase_cat_int8_goss(ds, launches):
+    """17e: 17a's table at ``hist_dtype="int8"`` (B1's int8 mode) and with
+    ``boosting="goss"`` (300,000 compacted rows: f32 B1), kernel and plain
+    trees equal."""
+    import lightgbm_tpu_torch as lgb
+
+    out = {}
+    for name, params, b1 in (
+            ("int8", dict(TRAIN_PARAMS, hist_dtype="int8"),
+             "hist_fused_int8"),
+            ("goss", GOSS_PARAMS, "hist_fused_f32")):
+        runs = {}
+        for tag, extra in (("kernels", {}),
+                           ("plain", {"hist_impl": "plain"})):
+            b, secs, counts, plain = counted_run(lambda: lgb.train(
+                dict(params, **extra), ds, CAT_SHORT_ROUNDS))
+            runs[tag] = {"booster": b, "s_per_round": secs /
+                         CAT_SHORT_ROUNDS, "counts": counts,
+                         "plain_calls": plain}
+            log(f"phase 17e {name} {tag}: {CAT_SHORT_ROUNDS} rounds in "
+                f"{secs:.2f} s, launches {json.dumps(counts)}, plain calls "
+                f"{plain}")
+        k = runs["kernels"]
+        check(k["counts"][b1] > 0 and k["plain_calls"] == 0
+              and k["counts"]["hist_partition_f32"] == 0
+              and k["counts"]["hist_partition_bf16"] == 0,
+              f"17e {name} kernel path: launches {k['counts']}, plain calls "
+              f"{k['plain_calls']}")
+        add_launches(launches, k["counts"])
+        bk, bp = k.pop("booster"), runs["plain"].pop("booster")
+        lv_rel = trees_parity(bk, bp, CAT_SHORT_ROUNDS, f"17e {name}")
+        for i in range(CAT_SHORT_ROUNDS):
+            a, b = tree_arrays(bk, i), tree_arrays(bp, i)
+            check(all(np.array_equal(a[f], b[f])
+                      for f in ("is_cat_split", "cat_mask")),
+                  f"17e {name}: tree {i}'s subset masks differ")
+        out[name] = {"s_per_round": {t: r["s_per_round"]
+                                     for t, r in runs.items()},
+                     "launches": k["counts"], "leaf_value_rel_diff": lv_rel,
+                     "categorical_split_nodes": cat_split_nodes(bk)}
+    log(f"phase 17e: {json.dumps(out)}")
+    return out
+
+
+def phase_categorical(dev, workdir, card):
+    """Phase 17, every launch counter at 0 just before each run and read
+    just after; fails unless B1, B1 int8, B5 and B6 launched on categorical
+    data, and B2, B3 and B4 never did."""
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    t1 = time.perf_counter()
+    out["17a"], ds, Xv, yv = phase_cat_airline(dev, workdir, launches)
+    secs["17a"] = time.perf_counter() - t1
+    for name, fn in (("17b", lambda: phase_cat_strict(dev, ds, Xv, yv,
+                                                      launches)),
+                     ("17c", lambda: phase_cat_cv(launches)),
+                     ("17d", lambda: phase_cat_multiclass(dev, launches)),
+                     ("17e", lambda: phase_cat_int8_goss(ds, launches))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    del ds
+    for name in ("hist_fused_bf16", "hist_fused_int8",
+                 "hist_fused_batched_bf16", "hist_segstats_bf16",
+                 "hist_segstats_f32"):
+        check(launches.get(name, 0) > 0, f"phase 17: {name} never launched")
+    for name in ("hist_partition_f32", "hist_partition_bf16", "split_iter",
+                 "predict_forest"):
+        check(launches.get(name, 0) == 0, f"phase 17: {name} launched "
+              f"{launches.get(name)} times on categorical data")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 17: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4305,6 +4748,8 @@ def main() -> int:
     phase16 = phase_goss_dart(dev, X, y, Xc, yc, dds, workdir, card)
     l16 = phase16["launches"]
     del Xc, yc
+    phase17 = phase_categorical(dev, workdir, card)
+    l17 = phase17["launches"]
 
     kernels = []
     for prec in PRECISIONS:
@@ -4318,7 +4763,8 @@ def main() -> int:
                              "13": rec_launches["predict_forest"],
                              "14": l14["predict_forest"],
                              "15": l15["predict_forest"],
-                             "16": l16["predict_forest"]})
+                             "16": l16["predict_forest"],
+                             "17": l17.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -4343,7 +4789,8 @@ def main() -> int:
                     "13": rec_launches.get(f"{name}_{mode}", 0),
                     "14": l14.get(f"{name}_{mode}", 0),
                     "15": l15.get(f"{name}_{mode}", 0),
-                    "16": l16.get(f"{name}_{mode}", 0)},
+                    "16": l16.get(f"{name}_{mode}", 0),
+                    "17": l17.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4364,7 +4811,7 @@ def main() -> int:
             "8c": sweep["launches"]["split_iter"],
             "13": rec_launches["split_iter"],
             "14": l14["split_iter"], "15": l15["split_iter"],
-            "16": l16["split_iter"]},
+            "16": l16["split_iter"], "17": l17.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -4385,7 +4832,8 @@ def main() -> int:
                 "13": rec_launches.get(f"hist_segstats_{mode}", 0),
                 "14": l14.get(f"hist_segstats_{mode}", 0),
                 "15": l15.get(f"hist_segstats_{mode}", 0),
-                "16": l16.get(f"hist_segstats_{mode}", 0)},
+                "16": l16.get(f"hist_segstats_{mode}", 0),
+                "17": l17.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4407,7 +4855,8 @@ def main() -> int:
             "launches_by_phase": {
                 "14": l14.get(f"hist_fused_batched_{mode}", 0),
                 "15": l15.get(f"hist_fused_batched_{mode}", 0),
-                "16": l16.get(f"hist_fused_batched_{mode}", 0)},
+                "16": l16.get(f"hist_fused_batched_{mode}", 0),
+                "17": l17.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -4418,7 +4867,8 @@ def main() -> int:
             "hist_fused_int8"], "max_abs_err": 0.0,
         "launches_by_phase": {
             "12": int8["launches"]["hist_fused_int8"],
-            "16": l16.get("hist_fused_int8", 0)},
+            "16": l16.get("hist_fused_int8", 0),
+            "17": l17.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -4442,7 +4892,7 @@ def main() -> int:
                                 for t, r in ns_cv.items()},
               "b5_times": b5_times, "multiclass": multiclass,
               "int8": int8, "recovery": recovery, "phase14": phase14,
-              "phase15": phase15, "phase16": phase16,
+              "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

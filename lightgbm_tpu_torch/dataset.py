@@ -12,8 +12,11 @@ and stays in numpy.
 with ``row_mask`` marking the real ones, exactly as the reference pads: the
 bagging draw is ``uniform(key, (n_pad,))``, so the padding decides which rows
 a seed bags.  Labels and weights ride alongside as f32 (weight 0 on padding).
-In-memory numeric data only: categorical features, query groups, streamed
-(``from_blocks``) and binary-file datasets raise ``NotImplementedError``.
+``categorical_feature`` (indices or names) bins those columns one bin per
+kept category, as the reference does, and :attr:`Dataset.col_is_categorical`
+flags them among the training columns (EFB never bundles them).  In-memory
+data only: query groups, streamed (``from_blocks``) and binary-file datasets
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -441,10 +444,6 @@ class Dataset:
                  free_raw_data: bool = False):
         if group is not None:
             _refuse_group()
-        if categorical_feature not in ("auto", None, [], ()):
-            raise NotImplementedError(
-                "categorical features are not ported yet: ROADMAP slice 3 "
-                "(breadth of training), item 7")
         if isinstance(data, str):
             raise NotImplementedError(
                 "binary dataset files (save_binary) are not ported yet: "
@@ -462,6 +461,7 @@ class Dataset:
         self.params: Dict[str, Any] = dict(params or {})
         self.free_raw_data = free_raw_data
         self._feature_name_arg = feature_name
+        self._categorical_feature_arg = categorical_feature
         self.bin_mapper: Optional[BinMapper] = None
         self._constructed = False
         self.num_data_: Optional[int] = None
@@ -560,6 +560,24 @@ class Dataset:
             raise ValueError("feature_name length mismatch")
         return [str(c) for c in names]
 
+    def _resolve_categorical(self, feature_names: List[str]) -> List[int]:
+        """``categorical_feature`` as sorted, distinct column indices (names
+        looked up in ``feature_names``; an unknown name raises
+        ``ValueError``), as the reference resolves it."""
+        cf = self._categorical_feature_arg
+        if cf == "auto" or cf is None:
+            return []
+        out = []
+        for c in cf:
+            if isinstance(c, str):
+                if c not in feature_names:
+                    raise ValueError(
+                        f"categorical_feature '{c}' not in feature names")
+                out.append(feature_names.index(c))
+            else:
+                out.append(int(c))
+        return sorted(set(out))
+
     def construct(self) -> "Dataset":
         if self._constructed:
             return self
@@ -570,6 +588,7 @@ class Dataset:
         self.num_feature_ = num_features
         self.raw_num_feature_ = num_features
         self.feature_names = self._resolve_feature_names(num_features)
+        cat_idx = self._resolve_categorical(self.feature_names)
         codes = None
         if self.reference is not None:
             self.reference.construct()
@@ -577,7 +596,7 @@ class Dataset:
         if self.bin_mapper is None:
             self.bin_mapper = BinMapper.fit(
                 X, max_bin=p.max_bin, min_data_in_bin=p.min_data_in_bin,
-                seed=p.data_random_seed)
+                categorical=cat_idx, seed=p.data_random_seed)
             raw_codes = self.bin_mapper._transform_unbundled(X)
             if p.enable_bundle:
                 self.bin_mapper.bundler = FeatureBundler.fit(
@@ -643,3 +662,15 @@ class Dataset:
         """Bin-axis size of the histograms."""
         self.construct()
         return max(2, self.bin_mapper.max_num_bins)
+
+    @property
+    def col_is_categorical(self) -> np.ndarray:
+        """Categorical flag per training column: after EFB a bundled column
+        is never categorical (categoricals are excluded from bundling)."""
+        self.construct()
+        raw = self.bin_mapper.is_categorical
+        b = self.bin_mapper.bundler
+        if b is None:
+            return np.asarray(raw, bool)
+        return np.array([len(g) == 1 and bool(raw[g[0]]) for g in b.groups])
+

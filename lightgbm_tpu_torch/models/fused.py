@@ -30,8 +30,13 @@ reference's key streams: round ``r``'s key is ``fold_in(PRNGKey(seed), r)``,
 split over the batch elements (``utils/random.py``), so the same call gives
 the same trees as the reference's fused program.  With per-node sampling on
 (any config of the batch) the strict trees take the unfused body, as the
-reference's; ``boosting="rf"`` takes the per-fold route.  CV keeps no
-trees: the carry is the predictions, the bags and the metric history.
+reference's; categorical columns take k-vs-rest subset splits, through the
+unfused strict body and the batched waves' plain partition, with the
+first config's ``cat_smooth``, ``cat_l2`` and ``max_cat_threshold`` (the
+reference's static ``cat_key``); ``boosting="rf"`` takes the per-fold
+route.  CV keeps no trees: the carry is the predictions, the bags and the
+metric history.
+
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ from ..ops.sampling import sample_bag_rows, sample_feature_mask_rows
 from ..ops.split import fma
 from ..utils.random import (fold_in, fold_in_keys, fold_in_tensor, prng_key,
                             split_keys, split_on)
-from .gbdt import (HyperScalarsBatch, check_slice_scope, resolve_hist_dtype,
-                   resolve_wave_width)
+from .gbdt import (HyperScalarsBatch, build_cat_info, check_slice_scope,
+                   resolve_hist_dtype, resolve_wave_width)
 from .tree import _PK, grow_trees_batched
 
 _F32 = torch.float32
@@ -148,6 +153,9 @@ class FusedCVProgram:
         self.hist_impl = p0.extra.get("hist_impl", "auto")
         self.num_leaves = int(p0.num_leaves)
         self.num_bins = train_set.num_bins
+        # categorical columns: the first config's cat_smooth, cat_l2 and
+        # max_cat_threshold for the batch, as the reference's static cat_key
+        self.cat_info = build_cat_info(train_set, p0, dev)
 
         # [E, n_pad] masks; padding rows excluded everywhere
         tm = np.zeros((self.batch, n_pad), np.float32)
@@ -276,10 +284,11 @@ class FusedCVProgram:
             stats_t = torch.stack([g.t(), h.t(), bag.t()], dim=-1)  # [n, E, 3]
         if bynode:
             bynode["ff_bynode"] = hyper.feature_fraction_bynode
-        P, _, row_leaf = grow_trees_batched(
+        P, _, row_leaf, _ = grow_trees_batched(
             ts.X_binned, stats_t, fmask, hyper.ctx(), hyper.max_depth,
             self.num_leaves, self.num_bins, self.wave_width,
-            hist_impl=self.hist_impl, hist_dtype=self.hist_dtype, **bynode)
+            hist_impl=self.hist_impl, hist_dtype=self.hist_dtype,
+            cat_info=self.cat_info, **bynode)
         vals = P[:, :, _PK.LEAF_VALUE].gather(1, row_leaf.t().to(torch.int64))
         if k > 1:
             vals = vals.view(self.batch, k, self.n_pad).transpose(1, 2)

@@ -32,10 +32,15 @@ and rescales the new and the dropped trees' stored leaves in place.  All
 share one round body (:meth:`Booster._round_body`, the reference's
 ``_round_fn``).
 
+Categorical columns (``Dataset(categorical_feature=)``) take k-vs-rest
+subset splits in every round kind: the Booster builds the dataset's
+:class:`~..ops.split.CatInfo` once (:func:`build_cat_info`) and hands it
+to each grower call, as the reference's ``cat_key`` does.
+
 What is outside the port so far raises a ``NotImplementedError`` naming the
 ROADMAP slice and item that will port it: ranking objectives, constraints,
-categorical/linear/extra trees, feature screening, streaming, the
-distributed learners and ``init_model``.
+linear/extra trees, feature screening, streaming, the distributed learners
+and ``init_model``.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -66,7 +71,7 @@ from ..ops.histogram import INT8_ACC_ROW_LIMIT
 from ..ops.predict import (forest_depth_cap, predict_forest_binned,
                            predict_tree_binned)
 from ..ops.sampling import goss_select, goss_weights, sample_bag
-from ..ops.split import SplitContext, fma
+from ..ops.split import CatInfo, SplitContext, fma
 from ..utils.random import fold_in, prng_key, split_on
 from .feature_mask import compose_tree_mask
 from .tree import (_PK, Tree, _tree_from_packed, grow_tree,
@@ -82,6 +87,20 @@ def _slice3(item: int) -> str:
 
 _SLICE5 = "ROADMAP slice 5 (out-of-core training), item 11"
 _SLICE6 = "ROADMAP slice 6 (multi-device), item 12"
+
+
+def build_cat_info(train_set: Dataset, p: Params,
+                   device) -> Optional[CatInfo]:
+    """The dataset's :class:`~..ops.split.CatInfo` on ``device`` (None
+    without categorical training columns): the reference's static
+    ``cat_key`` (the columns, ``cat_smooth``, ``cat_l2``,
+    ``max_cat_threshold``) built as its ``_build_cat_info`` builds it."""
+    is_cat = np.asarray(train_set.col_is_categorical, bool)
+    if not is_cat.any():
+        return None
+    return CatInfo(is_cat=torch.from_numpy(is_cat).to(device),
+                   cat_smooth=float(p.cat_smooth), cat_l2=float(p.cat_l2),
+                   max_cat_threshold=int(p.max_cat_threshold))
 
 
 def _class_tree(tree: Tree, c: int, axis: int = 0) -> Tree:
@@ -371,6 +390,7 @@ class Booster:
         self._base_lr = float(p.learning_rate)
         self._num_bins = ds.num_bins
         self._w_eff = ds.w
+        self._cat_info = build_cat_info(ds, p, self.device)
 
     @property
     def _num_class(self) -> int:
@@ -483,7 +503,8 @@ class Booster:
         g, h = self.obj.grad_hess(pred, ds.y, self._w_eff)
         lr = torch.tensor(hyper.learning_rate, dtype=_F32, device=self.device)
         grow = dict(hist_impl=p.extra.get("hist_impl", "auto"),
-                    hist_dtype=resolve_hist_dtype(p, eff_rows))
+                    hist_dtype=resolve_hist_dtype(p, eff_rows),
+                    cat_info=self._cat_info)
         width = resolve_wave_width(p, eff_rows)
         bynode = p.feature_fraction_bynode < 1.0
         is_rf = p.boosting == "rf"
@@ -507,12 +528,13 @@ class Booster:
                     (k,), hyper.feature_fraction_bynode, dtype=_F32,
                     device=self.device),
                     keys=split_on(rkey, k, self.device))
-            P, n_leaves, row_leaf = grow_trees_batched(
+            P, n_leaves, row_leaf, catmask = grow_trees_batched(
                 ds.X_binned, stats_t, fmask.expand(k, -1),
                 SplitContext.per_element([hyper.ctx()] * k, self.device),
                 torch.full((k,), float(hyper.max_depth), device=self.device),
                 p.num_leaves, self._num_bins, width, **grow)
-            tree = _tree_from_packed(P, n_leaves)             # [K, M] fields
+            tree = _tree_from_packed(P, n_leaves, catmask)  # [K, M] fields
+
             if is_rf:
                 return tree, pred
             vals = P[..., _PK.LEAF_VALUE].gather(

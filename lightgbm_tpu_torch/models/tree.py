@@ -9,26 +9,31 @@ unreachable.  Here the fields are torch tensors on one device; a forest
 stacks trees on a leading ``[T]`` axis.
 
 Growth: :func:`grow_tree` dispatches on the encoded wave width
-(:func:`decode_wave_width`), on the plain numeric path (no categorical,
-monotone, extra-trees or interaction constraints), with per-node column
-sampling (``ff_bynode``: each node scored under its row of a mask table
-drawn once per tree, :func:`~.feature_mask.node_mask_table`) or without:
+(:func:`decode_wave_width`), without monotone, extra-trees or interaction
+constraints, with per-node column sampling (``ff_bynode``: each node scored
+under its row of a mask table drawn once per tree,
+:func:`~.feature_mask.node_mask_table`) or without, and with categorical
+k-vs-rest subset splits (``cat_info``, :class:`~..ops.split.CatInfo`) or
+without.  A categorical candidate keeps its left-bin set in a mask table
+``[capacity, B]`` beside the packed nodes, the partition sends a row left
+by its code's bit there, and the tree's ``is_cat_split``/``cat_mask`` come
+from that table, as in the reference:
 
 * widths above 1 grow in waves (:func:`grow_tree_frontier`, the default at
   n >= 4096 rows and num_leaves >= 16), with all three wave tails:
   ``greedy``, ``half`` and ``exact`` (overgrow, then :func:`_exact_prune`).
   Each wave runs kernel B2 (``ops.histogram.hist_partition_fused``), which
   routes the rows and builds the smaller children's histograms in one pass
-  (int8 histograms and more than 256 features take the reference's unfused
-  route instead: the plain partition, then kernel B1);
+  (int8 histograms, more than 256 features and categorical splits take the
+  reference's unfused route instead: the plain partition, then kernel B1);
   the siblings come from the per-leaf histogram cache by subtraction.
 * width 1 is the strict best-first grower (:func:`grow_tree_strict`):
   ``num_leaves - 1`` split iterations, each one histogram pass over both
   children of the split leaf and one call of kernel B3
   (:func:`split_iter`: the gain scan, the argmax, the node-table writes and
-  the next pick); with per-node sampling, the reference's unfused body
-  instead (the same histograms, the split scan in plain ops under a mask
-  per child).  It grows a batch of ``E`` trees at once over a shared
+  the next pick); with per-node sampling or categorical splits, the
+  reference's unfused body instead (the same histograms, the split scan in
+  plain ops, under a mask per child with per-node sampling).  It grows a batch of ``E`` trees at once over a shared
   binned matrix, which is how fused cross-validation grows configs x folds;
   a Booster grows one (``E = 1``).
 
@@ -50,7 +55,7 @@ from ..ops.histogram import (compute_histograms, compute_histograms_batched,
                              hist_partition_fused, hist_partition_plain,
                              histograms_rows, resolve_mode, route_wave,
                              sr_round_bf16)
-from ..ops.split import (SplitContext, constrained_leaf_output,
+from ..ops.split import (CatInfo, SplitContext, constrained_leaf_output,
                          find_best_split, prefix_sum)
 from ..utils.random import key_tensor
 from .feature_mask import node_mask_fn, node_mask_table
@@ -103,9 +108,16 @@ class _PK:
     CAND_WR = 19
     BOUND_LO = 20     # init -inf
     BOUND_HI = 21     # init +inf
-    CAND_CAT = 22     # 0/1 (categorical splits are out of this slice)
+    CAND_CAT = 22     # 0/1: the candidate is a categorical subset split
     PM = 23           # pathmin: min candidate gain over ancestors-or-self
     NC = 24
+
+
+def _xla_arith(cat_info: Optional[CatInfo]) -> str:
+    """The rounding of the reference's XLA split scan in a grower
+    (:mod:`~..ops.split`): ``"cat"`` in a program with categorical
+    columns, else ``"scan"``."""
+    return "scan" if cat_info is None else "cat"
 
 
 def decode_wave_width(wave_width: int):
@@ -154,7 +166,9 @@ def _packed_root_table(capacity, root_out, root_tot, root_best
             root_best.left_g, root_best.left_h, root_best.left_c,
             root_best.right_g, root_best.right_h, root_best.right_c,
             root_best.left_out, root_best.right_out, f(float("-inf")),
-            f(float("inf")), f(0.0), root_best.gain]
+            f(float("inf")),
+            f(0.0) if root_best.cat is None else root_best.cat,
+            root_best.gain]
     nodes = _empty_packed_table(capacity, dev).expand(
         lead + (capacity, K.NC)).clone()
     row = nodes[..., 0, :]
@@ -163,10 +177,26 @@ def _packed_root_table(capacity, root_out, root_tot, root_best
     return nodes
 
 
-def _tree_from_packed(P: torch.Tensor, n_leaves) -> Tree:
+class GrownTrees(NamedTuple):
+    """What the batched growers return: the packed node tables ``table``
+    f32 ``[E, cap, 24]``, ``n_leaves`` i32 ``[E]``, ``row_leaf`` i32 ``[n,
+    E]``, and the candidate mask table ``catmask`` bool ``[E, cap, B]``
+    (None without categorical columns)."""
+
+    table: torch.Tensor
+    n_leaves: torch.Tensor
+    row_leaf: torch.Tensor
+    catmask: Optional[torch.Tensor] = None
+
+
+def _tree_from_packed(P: torch.Tensor, n_leaves,
+                      cand_catmask: Optional[torch.Tensor] = None) -> Tree:
     """Unpack the packed node table ``[..., cap, NC]`` into the public Tree
     struct (``n_leaves`` an int, or a tensor of the table's leading shape);
-    a batch of tables gives a Tree whose fields lead with the batch axes."""
+    a batch of tables gives a Tree whose fields lead with the batch axes.
+    With the candidate mask table ``cand_catmask`` bool ``[..., cap, B]``
+    the tree carries ``is_cat_split`` (internal nodes whose split was a
+    subset split) and ``cat_mask`` (that table, as the reference's)."""
     K = _PK
     if isinstance(n_leaves, torch.Tensor):
         num_leaves = n_leaves.to(torch.int32).reshape(P.shape[:-2])
@@ -183,6 +213,10 @@ def _tree_from_packed(P: torch.Tensor, n_leaves) -> Tree:
         count=P[..., K.COUNT].clone(),
         split_gain=P[..., K.SPLIT_GAIN].clone(),
         num_leaves=num_leaves,
+        is_cat_split=(None if cand_catmask is None else
+                      (P[..., K.IS_LEAF] <= 0.5) & (P[..., K.LEFT] >= 0)
+                      & (P[..., K.CAND_CAT] > 0.5)),
+        cat_mask=None if cand_catmask is None else cand_catmask.clone(),
     )
 
 
@@ -191,7 +225,8 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
               num_leaves: int, num_bins: int, max_depth: int,
               hist_impl: str = "auto", hist_dtype: str = "f32",
               wave_width: int = 1, ff_bynode: Optional[float] = None,
-              key=None) -> Tuple[Tree, torch.Tensor]:
+              key=None, cat_info: Optional[CatInfo] = None
+              ) -> Tuple[Tree, torch.Tensor]:
     """Grow one best-first tree; returns ``(tree, row_leaf)``.
 
     ``bins`` uint8 ``[n, F]``; ``stats`` f32 ``[n, 3]`` of (grad, hess,
@@ -202,7 +237,8 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     best-first grower (:func:`grow_tree_strict` with one element).
     ``ff_bynode`` (None: off) samples each node's columns within the tree
     mask under the grower ``key``, a pair of ints
-    (:func:`~.feature_mask.node_mask_table`).
+    (:func:`~.feature_mask.node_mask_table`).  ``cat_info`` (None: no
+    categorical columns) gives its columns k-vs-rest subset splits.
     """
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if hist_dtype == "bf16sr":
@@ -219,18 +255,22 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
                 ff_bynode=torch.full((1,), float(ff_bynode), dtype=_F32,
                                      device=dev),
                 keys=key_tensor([key], dev))
-        P, n_leaves, row_leaf = grow_tree_strict(
+        P, n_leaves, row_leaf, catmask = grow_tree_strict(
             bins, stats.unsqueeze(1), fmask,
             SplitContext.per_element([ctx], dev),
             torch.tensor([float(max_depth)], dtype=_F32, device=dev),
             num_leaves, num_bins, hist_impl=hist_impl,
-            hist_dtype=hist_dtype, batched=False, **bynode)
-        return _tree_from_packed(P[0], n_leaves[0]), row_leaf[:, 0]
+            hist_dtype=hist_dtype, batched=False, cat_info=cat_info,
+            **bynode)
+        return (_tree_from_packed(P[0], n_leaves[0],
+                                  None if catmask is None else catmask[0]),
+                row_leaf[:, 0])
     return grow_tree_frontier(bins, stats, feature_mask, ctx, num_leaves,
                               num_bins, max_depth, width,
                               hist_impl=hist_impl, hist_dtype=hist_dtype,
                               wave_tail=tail, overgrow_leaves=overgrow,
-                              ff_bynode=ff_bynode, key=key)
+                              ff_bynode=ff_bynode, key=key,
+                              cat_info=cat_info)
 
 
 def _decode_checked(wave_width: int, num_leaves: int):
@@ -253,14 +293,15 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                        num_bins: int, wave_width: int,
                        hist_impl: str = "auto", hist_dtype: str = "f32",
                        ff_bynode: Optional[torch.Tensor] = None,
-                       keys: Optional[torch.Tensor] = None):
+                       keys: Optional[torch.Tensor] = None,
+                       cat_info: Optional[CatInfo] = None):
     """Grow ``E`` trees at once over the shared ``bins`` (the reference's
     ``vmap`` of :func:`grow_tree`): the strict grower at width 1
     (:func:`grow_tree_strict`), else the batched wave grower
     (:func:`grow_tree_frontier_batched`).  Inputs and outputs as
-    :func:`grow_tree_strict`'s: ``(table f32 [E, M, 24], n_leaves i32 [E],
-    row_leaf i32 [n, E])``; ``ff_bynode`` f32 ``[E]`` and ``keys`` int64
-    ``[E, 2]`` (None: off) sample each node's columns."""
+    :func:`grow_tree_strict`'s (a :class:`GrownTrees`); ``ff_bynode`` f32
+    ``[E]`` and ``keys`` int64 ``[E, 2]`` (None: off) sample each node's
+    columns."""
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if hist_dtype == "bf16sr":
         # rounded once in the reference's batched layout [E, n, S]
@@ -270,16 +311,19 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         return grow_tree_strict(bins, stats_t, fmask, ctx, max_depth,
                                 num_leaves, num_bins, hist_impl=hist_impl,
                                 hist_dtype=hist_dtype, ff_bynode=ff_bynode,
-                                keys=keys)
+                                keys=keys, cat_info=cat_info)
     return grow_tree_frontier_batched(
         bins, stats_t, fmask, ctx, max_depth, num_leaves, num_bins, width,
         hist_impl=hist_impl, hist_dtype=hist_dtype, wave_tail=tail,
-        overgrow_leaves=overgrow, ff_bynode=ff_bynode, keys=keys)
+        overgrow_leaves=overgrow, ff_bynode=ff_bynode, keys=keys,
+        cat_info=cat_info)
 
 
 def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
                      fmask: torch.Tensor, aux: torch.Tensor,
-                     scal: torch.Tensor, arith: Optional[str] = None):
+                     scal: torch.Tensor, arith: Optional[str] = None,
+                     cat_info: Optional[CatInfo] = None,
+                     catmask: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`split_iter`: one iteration of the
     reference's strict-grower body (``lightgbm_tpu/models/tree.py``, the
     XLA loop body) for each of ``E`` elements, plus the next pick.
@@ -295,7 +339,11 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     where active, the leaf's row becomes internal and the rows ``n_nodes``
     and ``n_nodes + 1`` receive the children with their candidate splits;
     ``aux'`` picks the next leaf (the lowest index among the maximal
-    candidate gains) and stays active while that gain is finite.
+    candidate gains) and stays active while that gain is finite.  With
+    ``cat_info`` (the reference's XLA body, never kernel B3's) the children
+    take categorical subset candidates too, and their left-bin sets go into
+    the candidate mask table ``catmask`` bool ``[E, cap, B]``; the result is
+    then ``(table', aux', catmask')``.
     """
     K = _PK
     e, cap, nc = table.shape
@@ -317,7 +365,7 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     bs = find_best_split(hist, ctx, child_masks, two(depth_ok),
                          two(row[:, K.CAND_WL], row[:, K.CAND_WR]),
                          two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]),
-                         arith=arith)
+                         arith=arith, cat_info=cat_info)
     # the reference kernel gathers the winner's statistics as a sum over
     # every cell of where(hit, x, 0.0), which turns -0.0 into +0.0
     bs = bs._replace(**{f: getattr(bs, f) + 0.0 for f in (
@@ -343,7 +391,7 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
         bs.right_g, bs.right_h, bs.right_c,
         bs.left_out, bs.right_out,                            # CAND_WL, WR
         two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]),
-        zero,                                                 # CAND_CAT
+        zero if bs.cat is None else bs.cat.to(_F32),          # CAND_CAT
         torch.minimum(two(row[:, K.PM]), bs.gain),            # PM
     ], dim=-1)                                                # [E, 2, NC]
     new_rows = torch.cat([leaf_row[:, None], child_rows], dim=1)
@@ -362,7 +410,13 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     z = torch.zeros(e, dtype=_F32, device=dev)
     aux_n = torch.stack([leaf_n.to(_F32), sel[:, K.CAND_FEAT],
                          sel[:, K.CAND_BIN], active_n, z, z, z, z], dim=1)
-    return out, aux_n
+    if cat_info is None:
+        return out, aux_n
+    kids = idx[:, 1:, None].expand(e, 2, catmask.shape[-1])
+    masks = torch.where(active[:, None, None], bs.cat_mask,
+                        catmask.gather(1, kids))
+    return out, aux_n, catmask.clone().scatter_(1, kids, masks)
+
 
 
 def split_iter(hist, table, fmask, aux, scal, impl: str = "auto"):
@@ -384,7 +438,8 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                      hist_impl: str = "auto", hist_dtype: str = "f32",
                      batched: bool = True,
                      ff_bynode: Optional[torch.Tensor] = None,
-                     keys: Optional[torch.Tensor] = None):
+                     keys: Optional[torch.Tensor] = None,
+                     cat_info: Optional[CatInfo] = None):
     """Strict best-first growth of ``E`` trees at once (the reference's
     strict grower, ``vmap``ped over E in fused CV).
 
@@ -401,22 +456,27 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
 
     The reference's eligibility rule for its split-iteration kernel
     (``fuse_si``, restricted to what the port grows) picks the body: with
-    per-node sampling off each iteration is one launch of kernel B3
-    (:func:`split_iter`); with it on (``ff_bynode`` f32 ``[E]`` and the
-    grower ``keys`` int64 ``[E, 2]``) each child is scored under its own
-    node mask, a row of :func:`~.feature_mask.node_mask_table` drawn once
-    per tree, by the reference's XLA body in plain ops
-    (:func:`split_iter_plain` with a mask per child).
+    per-node sampling off and no categorical columns each iteration is one
+    launch of kernel B3 (:func:`split_iter`); otherwise the reference's XLA
+    body runs in plain ops (:func:`split_iter_plain` at its rounding,
+    :func:`_xla_arith`).  With per-node sampling (``ff_bynode`` f32 ``[E]``
+    and the grower ``keys`` int64 ``[E, 2]``) each child is scored under
+    its own node mask, a row of :func:`~.feature_mask.node_mask_table`
+    drawn once per tree.  With ``cat_info`` the children take categorical
+    subset candidates, whose left-bin sets live in a mask table bool ``[E,
+    cap, B]``, and the partition sends a row of a subset split left by its
+    code's bit there.
 
-    Returns ``(table f32 [E, cap, 24], n_leaves i32 [E], row_leaf i32 [n,
-    E])``.
+    Returns a :class:`GrownTrees`: ``(table f32 [E, cap, 24], n_leaves
+    i32 [E], row_leaf i32 [n, E], catmask)``, the mask table None without
+    ``cat_info``.
     """
     n, e, _ = stats_t.shape
     dev = bins.device
     cap = 2 * num_leaves - 1
-    fuse_si = ff_bynode is None
+    fuse_si = ff_bynode is None and cat_info is None
     fmask = fmask.to(_F32).contiguous()
-    node_masks = (None if fuse_si
+    node_masks = (None if ff_bynode is None
                   else node_mask_table(keys, ff_bynode, fmask, cap))
     if not batched and e != 1:
         raise ValueError("the unbatched strict grower grows one tree")
@@ -440,9 +500,15 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
         zero_e)
     root_best = find_best_split(
-        root_hist, ctx, fmask if fuse_si else node_masks[:, 0], None,
-        root_out, arith="scan")
+        root_hist, ctx, fmask if node_masks is None else node_masks[:, 0],
+        None, root_out, arith=_xla_arith(cat_info), cat_info=cat_info)
     P = _packed_root_table(cap, root_out, root_tot, root_best)
+    catmask = None
+    if cat_info is not None:
+        catmask = torch.zeros((e, cap, num_bins), dtype=torch.bool,
+                              device=dev)
+        catmask[:, 0] = root_best.cat_mask
+        ar = torch.arange(e, device=dev)
     aux = torch.stack([zero_e, root_best.feature.to(_F32),
                        root_best.bin.to(_F32),
                        torch.isfinite(root_best.gain).to(_F32),
@@ -464,6 +530,13 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         # reference): go left iff code <= threshold
         col = bins.index_select(1, aux[:, 1].to(torch.int64))  # [n, E]
         go_left = col.to(torch.int32) <= thr
+        if catmask is not None:
+            # a subset split sends a row left by its code's bit in the
+            # leaf's candidate mask
+            leaf64 = leaf.to(torch.int64)
+            bit = catmask[ar, leaf64].t().gather(0, col.to(torch.int64))
+            go_left = torch.where(P[ar, leaf64, _PK.CAND_CAT] > 0.5, bit,
+                                  go_left)
         moved = torch.where(row_leaf == leaf,
                             torch.where(go_left, nl, nl + 1), row_leaf)
         row_leaf = torch.where(grew, moved, row_leaf)
@@ -474,23 +547,31 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         if fuse_si:
             P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
         else:
-            kids = torch.stack([nl, nl + 1], dim=1).clamp(max=cap - 1)
-            child_masks = node_masks.gather(1, kids.to(torch.int64)[
-                ..., None].expand(e, 2, node_masks.shape[-1]))
-            P, aux = split_iter_plain(hist2, P, child_masks, aux, scal,
-                                      arith="scan")
+            child_masks = fmask
+            if node_masks is not None:
+                kids = torch.stack([nl, nl + 1], dim=1).clamp(max=cap - 1)
+                child_masks = node_masks.gather(1, kids.to(torch.int64)[
+                    ..., None].expand(e, 2, node_masks.shape[-1]))
+            out = split_iter_plain(hist2, P, child_masks, aux, scal,
+                                   arith=_xla_arith(cat_info),
+                                   cat_info=cat_info, catmask=catmask)
+            P, aux = out[:2]
+            if catmask is not None:
+                catmask = out[2]
         scal[:, 8] += 2.0 * grew.to(_F32)
         n_leaves += grew.to(torch.int32)
-    return P, n_leaves, row_leaf
+    return GrownTrees(P, n_leaves, row_leaf, catmask)
+
 
 
 def wave_fuses_partition(num_features: int, w_width: int, num_bins: int,
-                         hist_dtype: str) -> bool:
+                         hist_dtype: str, categorical: bool = False) -> bool:
     """Whether a wave routes its rows and builds its histograms in one
-    kernel (B2): the reference's ``fuse_part`` condition.  int8 histograms
-    (B2 has no quantized mode) and shapes past its exact-bf16 table
-    lookup, ``max(F, 2 * width, B) > 256``, take the unfused route."""
-    return (hist_dtype != "int8"
+    kernel (B2): the reference's ``fuse_part`` condition.  Categorical
+    splits (B2 routes by threshold only), int8 histograms (B2 has no
+    quantized mode) and shapes past its exact-bf16 table lookup, ``max(F,
+    2 * width, B) > 256``, take the unfused route."""
+    return (not categorical and hist_dtype != "int8"
             and max(num_features, 2 * w_width, num_bins) <= 256)
 
 
@@ -500,17 +581,20 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                        wave_width: int, hist_impl: str = "auto",
                        hist_dtype: str = "f32", wave_tail: str = "half",
                        overgrow_leaves: Optional[int] = None,
-                       ff_bynode: Optional[float] = None, key=None
+                       ff_bynode: Optional[float] = None, key=None,
+                       cat_info: Optional[CatInfo] = None
                        ) -> Tuple[Tree, torch.Tensor]:
     """Best-first growth in waves: up to ``wave_width`` splits per data
-    pass (the reference's ``grow_tree_frontier`` on the plain numeric path).
+    pass (the reference's ``grow_tree_frontier``).
 
     Per wave: the top leaves by cached candidate gain (by pathmin in the
     exact tail) split together; one pass of kernel B2 routes their rows and
     histograms each split's smaller child (on the reference's unfused route,
-    :func:`wave_fuses_partition` false: int8 histograms or more than 256
-    features, the plain partition :func:`~..ops.histogram.route_wave` and
-    kernel B1 with one segment per split); the sibling is parent minus child
+    :func:`wave_fuses_partition` false: categorical splits, int8 histograms
+    or more than 256 features, the plain partition
+    :func:`~..ops.histogram.route_wave`, which sends a subset split's rows
+    left by their code's bit in its candidate mask, and kernel B1 with one
+    segment per split); the sibling is parent minus child
     from the per-leaf histogram cache; the fresh children are scored from
     the cached histograms.  The loop reads one number per wave on the host
     (how many leaves still have a finite candidate gain), which decides
@@ -531,7 +615,7 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     capacity = 2 * grow_leaves - 1
     w_width = min(int(wave_width), grow_leaves - 1)
     fuse_part = wave_fuses_partition(num_features, w_width, num_bins,
-                                     hist_dtype)
+                                     hist_dtype, cat_info is not None)
     neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
     node_mask = node_mask_fn(key, ff_bynode, num_features, feature_mask,
                              bynode_off=ff_bynode is None,
@@ -547,8 +631,14 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
         float("-inf"), float("inf"), torch.zeros((), dtype=_F32, device=dev))
     root_best = find_best_split(root_hist, ctx, node_mask(0),
                                 torch.ones((), dtype=torch.bool, device=dev),
-                                root_out)
+                                root_out, arith=_xla_arith(cat_info),
+                                cat_info=cat_info)
     P = _packed_root_table(capacity, root_out, root_tot, root_best)
+    catmask = None
+    if cat_info is not None:
+        catmask = torch.zeros((capacity, num_bins), dtype=torch.bool,
+                              device=dev)
+        catmask[0] = root_best.cat_mask
     hist_cache = torch.zeros((grow_leaves, num_features, num_bins, 3),
                              dtype=_F32, device=dev)
     hist_cache[0] = root_hist
@@ -590,7 +680,9 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             direct_hist, row_leaf = (hist_partition_plain(*args) if plain
                                      else hist_partition_fused(*args))
         else:
-            seg, row_leaf = route_wave(bins, *args[2:])
+            cat = {} if catmask is None else dict(
+                cat=prow[:, K.CAND_CAT] > 0.5, catmask=catmask[parent_r])
+            seg, row_leaf = route_wave(bins, *args[2:], **cat)
             direct_hist = compute_histograms(bins, stats, seg, s, num_bins,
                                              impl=hist_impl,
                                              hist_dtype=hist_dtype)
@@ -620,7 +712,8 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
         child_vals = torch.cat([prow[:, K.CAND_WL], prow[:, K.CAND_WR]])
         child_masks = node_mask(child_nodes).expand(2 * s, num_features)
         bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                             child_vals)
+                             child_vals, arith=_xla_arith(cat_info),
+                             cat_info=cat_info)
 
         # commit: the parents become internal, the children arrive with
         # their candidate splits
@@ -649,21 +742,25 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             bs.left_out, bs.right_out,                    # CAND_WL, WR
             torch.full((c2,), float("-inf"), device=dev),  # BOUND_LO
             torch.full((c2,), float("inf"), device=dev),  # BOUND_HI
-            torch.zeros(c2, device=dev),                  # CAND_CAT
+            torch.zeros(c2, device=dev) if bs.cat is None
+            else bs.cat.to(_F32),                         # CAND_CAT
             torch.minimum(torch.cat([prow[:, K.PM], prow[:, K.PM]]),
                           bs.gain),                       # PM
         ], dim=-1).to(_F32)
         P[parent_r] = parent_rows
         P[child_nodes] = child_rows
+        if catmask is not None:
+            catmask[child_nodes] = bs.cat_mask
         n_nodes += 2 * s
         n_leaves += s
 
     if exact:
-        return _exact_prune(P, row_leaf, num_leaves)
-    return _tree_from_packed(P, n_leaves), row_leaf
+        return _exact_prune(P, row_leaf, num_leaves, catmask)
+    return _tree_from_packed(P, n_leaves, catmask), row_leaf
 
 
-def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int
+def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int,
+                 catmask: Optional[torch.Tensor] = None
                  ) -> Tuple[Tree, torch.Tensor]:
     """Replay strict best-first selection over an overgrown wave tree and
     prune it back to ``num_leaves`` (the reference's ``_exact_prune``).
@@ -674,21 +771,53 @@ def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int
     (``num_leaves - 1`` trips of argmax over the available candidates, the
     first occurrence on ties).  The table is a few KB, so the replay runs on
     the host in numpy (:func:`_exact_prune_table`); one device gather then
-    remaps ``row_leaf`` onto the pruned tree's node ids.
+    remaps ``row_leaf`` onto the pruned tree's node ids.  The candidate
+    mask table ``catmask`` (None: no categorical columns) follows its
+    surviving nodes to their new ids (:func:`_prune_tables`).
     """
     dev = P.device
-    newP, node_to_new, n_kept = _exact_prune_table(P.cpu().numpy(),
-                                                   num_leaves)
+    newP, catmask, node_to_new, kept = _prune_tables(P, catmask, num_leaves)
     remap = torch.from_numpy(node_to_new).to(dev)
     row_leaf_new = remap[row_leaf.to(torch.int64)]
-    tree = _tree_from_packed(torch.from_numpy(newP).to(dev), n_kept + 1)
-    return tree, row_leaf_new
+    return _tree_from_packed(newP, kept[0] + 1, catmask), row_leaf_new
+
+
+def _prune_tables(P: torch.Tensor, catmask: Optional[torch.Tensor],
+                  num_leaves: int):
+    """The host half of the exact tail for one overgrown table ``[m, NC]``
+    or a batch ``[E, m, NC]`` (:func:`_exact_prune_table` each), with the
+    candidate mask tables ``catmask`` bool ``[..., m, B]`` (None: no
+    categorical columns) riding in the same transfers: one read of the
+    tables and one copy of the pruned ones back, as without masks.
+    Returns ``(pruned tables [..., 2 * num_leaves - 1, NC] and masks on the
+    device, node id maps i32 [..., m] on the host, splits kept per
+    table)``."""
+    nc = _PK.NC
+    both = P if catmask is None else torch.cat([P, catmask.to(_F32)], -1)
+    host = both.cpu().numpy()
+    pruned, remaps, kept = [], [], []
+    for t in host.reshape((-1,) + host.shape[-2:]):
+        newP, node_to_new, n_kept, target = _exact_prune_table(t[:, :nc],
+                                                               num_leaves)
+        if catmask is not None:
+            masks = np.zeros((newP.shape[0], t.shape[1] - nc), np.float32)
+            masks[target[target >= 0]] = t[target >= 0, nc:]
+            newP = np.concatenate([newP, masks], axis=1)
+        pruned.append(newP)
+        remaps.append(node_to_new)
+        kept.append(n_kept)
+    out = torch.from_numpy(np.stack(pruned).reshape(
+        host.shape[:-2] + pruned[0].shape)).to(P.device)
+    new_cat = None if catmask is None else out[..., nc:] > 0.5
+    return (out[..., :nc], new_cat,
+            np.stack(remaps).reshape(host.shape[:-1]), kept)
 
 
 def _exact_prune_table(Pn: np.ndarray, num_leaves: int):
     """The host half of :func:`_exact_prune` for one overgrown table
     ``[m, NC]``: ``(pruned table [2 * num_leaves - 1, NC], node id map
-    i32 [m] from overgrown node to the pruned tree's leaf, splits kept)``."""
+    i32 [m] from overgrown node to the pruned tree's leaf, splits kept,
+    each node's row in the pruned table i64 [m], -1 where pruned away)``."""
     K = _PK
     m_over = Pn.shape[0]
     capacity = 2 * num_leaves - 1
@@ -738,7 +867,8 @@ def _exact_prune_table(Pn: np.ndarray, num_leaves: int):
     for _ in range(max(4, int(m_over).bit_length())):
         f = f[f]
     node_to_new = np.where(final_leaf[f], newid[f], 0).astype(np.int32)
-    return newP, node_to_new, n_kept
+    return newP, node_to_new, n_kept, np.where(surv, newid, -1)
+
 
 
 def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
@@ -750,10 +880,11 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                                wave_tail: str = "half",
                                overgrow_leaves: Optional[int] = None,
                                ff_bynode: Optional[torch.Tensor] = None,
-                               keys: Optional[torch.Tensor] = None):
+                               keys: Optional[torch.Tensor] = None,
+                               cat_info: Optional[CatInfo] = None):
     """Wave growth of ``E`` trees at once: the reference's
     ``grow_tree_frontier`` under ``vmap`` (fused cross-validation in the
-    wave regime, multiclass), on its plain numeric, non-fused wave path.
+    wave regime, multiclass), on its non-fused wave path.
 
     ``bins`` u8 ``[n, F]`` is shared; ``stats_t`` f32 ``[n, E, 3]``,
     ``fmask`` f32 ``[E, F]``, per-element ``ctx`` ``[E]`` and ``max_depth``
@@ -774,10 +905,12 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     reads the overgrown tables once, to prune them.  With ``ff_bynode`` f32
     ``[E]`` and ``keys`` int64 ``[E, 2]`` (None: off) each node is scored
     under its row of :func:`~.feature_mask.node_mask_table`, drawn once per
-    tree.
+    tree.  With ``cat_info`` each element keeps its candidates' left-bin
+    sets in a mask table ``[E, capacity, B]``, and a subset split's rows go
+    left by their code's bit there.
 
-    Returns ``(table f32 [E, 2 * num_leaves - 1, 24], n_leaves i32 [E],
-    row_leaf i32 [n, E])``.
+    Returns a :class:`GrownTrees` whose tables hold ``2 * num_leaves - 1``
+    rows (the mask table None without ``cat_info``).
     """
     n, e, _ = stats_t.shape
     num_features = bins.shape[1]
@@ -810,12 +943,17 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         zero_e)
     root_best = find_best_split(
         root_hist, ctx, fmask if node_masks is None else node_masks[:, 0],
-        None, root_out, arith="scan")
+        None, root_out, arith=_xla_arith(cat_info), cat_info=cat_info)
     # one spare row, slot and node id past the end take every write of an
     # element's inactive wave lanes (the reference's out-of-bounds drop)
     P = torch.cat([_packed_root_table(capacity, root_out, root_tot,
                                       root_best),
                    _empty_packed_table(1, dev).expand(e, 1, nc)], dim=1)
+    catmask = None
+    if cat_info is not None:
+        catmask = torch.zeros((e, capacity + 1, num_bins), dtype=torch.bool,
+                              device=dev)
+        catmask[:, 0] = root_best.cat_mask
     hist_cache = torch.zeros((e, grow_leaves + 1, num_features, num_bins, 3),
                              dtype=_F32, device=dev)
     hist_cache[:, 0] = root_hist
@@ -862,6 +1000,15 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         feat_row = prow[..., K.CAND_FEAT].to(i64).gather(1, s_safe)
         code = bins_flat[row_base + feat_row].to(i64)
         go_left = code <= prow[..., K.CAND_BIN].to(i64).gather(1, s_safe)
+        if catmask is not None:
+            # a subset split's rows go left by their code's bit in the
+            # split leaf's candidate mask
+            wmask = catmask.gather(1, parent_r[..., None].expand(
+                e, w_width, num_bins)).reshape(e, w_width * num_bins)
+            bit = wmask.gather(1, s_safe * num_bins + code)
+            go_left = torch.where(
+                (prow[..., K.CAND_CAT] > 0.5).gather(1, s_safe), bit,
+                go_left)
         row_leaf = torch.where(
             sel, n_nodes[:, None] + 2 * s_safe + (~go_left).to(i64),
             row_leaf)
@@ -905,7 +1052,8 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                 max=capacity - 1)[..., None].expand(e, 2 * w_width,
                                                     num_features))
         bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                             child_vals, arith="scan")
+                             child_vals, arith=_xla_arith(cat_info),
+                             cat_info=cat_info)
 
         # commit: the parents become internal, the children arrive with
         # their candidate splits; inactive lanes write the spare row
@@ -932,24 +1080,32 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
             bs.right_g, bs.right_h, bs.right_c,
             bs.left_out, bs.right_out,                      # CAND_WL, WR
             full(float("-inf")), full(float("inf")),        # BOUND_LO, HI
-            full(0.0),                                      # CAND_CAT
+            full(0.0) if bs.cat is None else bs.cat.to(_F32),  # CAND_CAT
             torch.minimum(torch.cat([prow[..., K.PM], prow[..., K.PM]],
                                     dim=1), bs.gain),       # PM
         ], dim=-1)
         P[ar, torch.where(active, parent_r, capacity)] = parent_rows
         active2 = torch.cat([active, active], dim=1)
         P[ar, torch.where(active2, child_nodes, capacity)] = child_rows
+        if catmask is not None:
+            catmask[ar, torch.where(active2, child_nodes, capacity)] = \
+                bs.cat_mask
         n_nodes = n_nodes + 2 * s
         n_leaves = n_leaves + s
 
     P = P[:, :capacity]
+    if catmask is not None:
+        catmask = catmask[:, :capacity]
     if exact:
-        pruned = [_exact_prune_table(t, num_leaves) for t in P.cpu().numpy()]
-        P = torch.from_numpy(np.stack([p[0] for p in pruned])).to(dev)
-        remap = torch.from_numpy(np.stack([p[1] for p in pruned])).to(dev)
+        P, catmask, node_to_new, kept = _prune_tables(P, catmask,
+                                                      num_leaves)
+        remap = torch.from_numpy(node_to_new).to(dev)
         row_leaf = remap.to(i64).gather(1, row_leaf)
-        n_leaves = torch.tensor([p[2] + 1 for p in pruned], device=dev)
-    return P, n_leaves.to(torch.int32), row_leaf.t().to(torch.int32)
+        n_leaves = torch.tensor([k + 1 for k in kept], device=dev)
+
+    return GrownTrees(P, n_leaves.to(torch.int32),
+                      row_leaf.t().to(torch.int32), catmask)
+
 
 
 # ---------------------------------------------------------------------------

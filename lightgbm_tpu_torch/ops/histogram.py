@@ -188,10 +188,13 @@ def hist_fused_plain(bins: torch.Tensor, stats: torch.Tensor,
 
 
 def route_wave(bins, row_leaf, slot_of_node, feat, thr, direct_left,
-               n_nodes: int):
+               n_nodes: int, cat=None, catmask=None):
     """The wave's row partition (plain PyTorch): ``(segment i64 [n],
     new_row_leaf i32 [n])`` — segment is the wave rank for rows that go to
-    their split's direct child and -1 otherwise."""
+    their split's direct child and -1 otherwise.  A row goes left iff its
+    code is at most the split's threshold, or, for a categorical subset
+    split (``cat`` bool ``[W]``), iff its code's bit in the split's row of
+    ``catmask`` bool ``[W, B]`` is set."""
     capacity = slot_of_node.shape[0]
     leaf = row_leaf.to(torch.int64)
     in_range = (leaf >= 0) & (leaf < capacity)
@@ -202,7 +205,12 @@ def route_wave(bins, row_leaf, slot_of_node, feat, thr, direct_left,
     s_safe = slot.clamp(min=0)
     code = bins.gather(1, feat.to(torch.int64)[s_safe].unsqueeze(1))[:, 0]
     go_left = code.to(torch.int64) <= thr.to(torch.int64)[s_safe]
+    if cat is not None:
+        nb = catmask.shape[-1]
+        bit = catmask.reshape(-1)[s_safe * nb + code.to(torch.int64)]
+        go_left = torch.where(cat[s_safe], bit, go_left)
     child = n_nodes + 2 * s_safe + (~go_left).to(torch.int64)
+
     new_leaf = torch.where(sel, child, leaf).to(torch.int32)
     direct = go_left == (direct_left[s_safe] != 0)
     seg = torch.where(sel & direct, s_safe, torch.full_like(slot, -1))

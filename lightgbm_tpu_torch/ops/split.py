@@ -1,5 +1,5 @@
 """Best-split search over histograms — the port of ``lightgbm_tpu/ops/split.py``
-(numeric splits).
+(numeric threshold splits and categorical k-vs-rest subset splits).
 
 A cumulative sum along the bin axis yields every candidate left partition's
 (G, H, count) at once; the regularized gain is evaluated for every (feature,
@@ -7,8 +7,10 @@ bin) pair and a flat argmax picks the winner, the first occurrence on ties,
 as ``jnp.argmax`` does.  :func:`find_best_split` takes a leading batch axis
 where the reference ``vmap``s over the wave's children.  The arithmetic is the
 reference's, op for op, in f32: the same histograms give the same winners and
-bitwise the same child statistics.  Categorical subset splits, monotone
-constraints and extra-trees are out of this slice.
+bitwise the same child statistics.  With a :class:`CatInfo` the categorical
+columns take LightGBM's gradient-ordered subset scan instead of thresholds
+(plain PyTorch ops with no host read, as the reference computes it in XLA).
+Monotone constraints and extra-trees are out of this slice.
 
 "Op for op" includes rounding: the reference's XLA program on the CPU fuses
 ``a * b + c`` into one fused multiply-add where LLVM contracts it, so the
@@ -23,10 +25,17 @@ on the program, so the scan has two roundings (``arith``):
   outputs' smoothing ``fma(w, f, parent * (1 - f))``, the gain's
   ``fma(parent, 1 - f, w * f)`` (XLA recomputes the outputs there), the
   objective's ``G*w + Y*w`` as ``fma(Y, w, G*w)`` with
-  ``Y = (H + l2)/2 * w``.
+  ``Y = (H + l2)/2 * w``;
+* ``"cat"`` — the reference's scan in a program with categorical columns,
+  where XLA fuses the numeric and the subset scans alike: the leaf
+  objective as ``"kernel"`` contracts it, path smoothing as ``"scan"``
+  (found by matching the reference's trees on exact sums; with
+  ``path_smooth`` on, that program contracts the smoothing further and
+  leaf values differ by ulps).
 
 The default is ``"scan"`` for scalar regularizers and ``"kernel"`` for
-per-element ones.
+per-element ones; the growers ask for ``"cat"`` when a :class:`CatInfo` is
+given.
 """
 
 from __future__ import annotations
@@ -142,7 +151,7 @@ def leaf_objective_at(w, sum_g, sum_h, ctx: SplitContext,
     -2 * (G*w + (H + l2)/2 * w^2 + l1*|w|)."""
     l2 = _c(ctx.lambda_l2, sum_h)
     l1 = _c(ctx.lambda_l1, sum_h)
-    if _arith(ctx, arith) == "kernel":
+    if _arith(ctx, arith) in ("kernel", "cat"):
         y = 0.5 * (sum_h + l2) * w
         return -2.0 * (fma(y, w, sum_g * w) + l1 * torch.abs(w))
     return -2.0 * (sum_g * w + 0.5 * (sum_h + l2) * w * w
@@ -210,6 +219,19 @@ def split_stats_valid(lc, rc, lh, rh, gain, ctx: SplitContext):
             & (gain > _c(ctx.min_gain_to_split, gain)))
 
 
+class CatInfo(NamedTuple):
+    """Categorical split configuration of a dataset (the reference's
+    ``CatInfo``): ``is_cat`` bool ``[F]`` marks the training columns (after
+    EFB) that hold category codes; ``cat_smooth``, ``cat_l2`` and
+    ``max_cat_threshold`` are upstream's regularizers of the k-vs-rest
+    subset search, shared by every element of a batch."""
+
+    is_cat: torch.Tensor
+    cat_smooth: float
+    cat_l2: float
+    max_cat_threshold: int
+
+
 class BestSplit(NamedTuple):
     gain: torch.Tensor      # f32 [...] best gain (-inf if no valid split)
     feature: torch.Tensor   # i64 [...]
@@ -222,6 +244,9 @@ class BestSplit(NamedTuple):
     right_c: torch.Tensor
     left_out: torch.Tensor
     right_out: torch.Tensor
+    # categorical subset splits (None without a CatInfo)
+    cat: Optional[torch.Tensor] = None       # bool [...] a k-vs-rest winner
+    cat_mask: Optional[torch.Tensor] = None  # bool [..., B] bins going LEFT
 
 
 _SCAN_BLOCK = 16
@@ -254,30 +279,46 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n]
 
 
+def _cumsum_bins(hist: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of ``hist [..., F, B, 3]`` along the bin axis,
+    in the reference's ``jnp.cumsum`` order (:func:`prefix_sum`)."""
+    return prefix_sum(hist.transpose(-1, -2)).transpose(-1, -2)
+
+
+def _masked_gain(cum, total, ctx_gain: SplitContext, ctx_valid: SplitContext,
+                 p_out, lo, hi, arith, ok):
+    """Gain ``[..., F, B]`` of every prefix of ``cum`` (the left child's
+    statistics; the right is ``total`` minus it) under ``ctx_gain``, -inf
+    where ``ctx_valid``'s data checks or ``ok`` fail; returns ``(gain, wl,
+    wr)``."""
+    lg, lh, lc = cum[..., 0], cum[..., 1], cum[..., 2]
+    tg, th, tc = total[..., 0], total[..., 1], total[..., 2]
+    rg, rh, rc = tg - lg, th - lh, tc - lc
+    gain, wl, wr = split_gain_scan(lg, lh, lc, rg, rh, rc, tg, th, ctx_gain,
+                                   lo, hi, p_out, arith)
+    valid = split_stats_valid(lc, rc, lh, rh, gain, ctx_valid) & ok
+    return torch.where(valid, gain, _c(NEG_INF, gain)), wl, wr
+
+
 def _scan(hist: torch.Tensor, ctx: SplitContext, feature_mask, depth_ok,
           parent_out, lo=None, hi=None, arith=None):
     """Shared cumsum scan over ``hist [..., F, B, 3]``: masked gain
     ``[..., F, B]`` plus the operands the winner gathers need."""
     ctx = ctx.broadcast_to(hist.dim() - 1)
-    cum = prefix_sum(hist.transpose(-1, -2)).transpose(-1, -2)
+    cum = _cumsum_bins(hist)
     total = cum[..., -1:, :]                            # [..., F, 1, 3]
-    lg, lh, lc = cum[..., 0], cum[..., 1], cum[..., 2]
-    tg, th, tc = total[..., 0], total[..., 1], total[..., 2]
-    rg, rh, rc = tg - lg, th - lh, tc - lc
     if parent_out is None:
-        p_out = leaf_output(tg, th, ctx)                # [..., F, 1]
+        p_out = leaf_output(total[..., 0], total[..., 1], ctx)  # [..., F, 1]
     else:
         p_out = parent_out.reshape(parent_out.shape + (1, 1))
     lo = float("-inf") if lo is None else lo.reshape(lo.shape + (1, 1))
     hi = float("inf") if hi is None else hi.reshape(hi.shape + (1, 1))
-    gain, wl, wr = split_gain_scan(lg, lh, lc, rg, rh, rc, tg, th, ctx,
-                                   lo, hi, p_out, arith)
-    valid = (split_stats_valid(lc, rc, lh, rh, gain, ctx)
-             & (feature_mask[..., :, None] > 0))
+    ok = feature_mask[..., :, None] > 0
     if depth_ok is not None:
-        valid = valid & depth_ok.reshape(depth_ok.shape + (1, 1))
-    gain = torch.where(valid, gain, _c(NEG_INF, gain))
-    return gain, cum, total, wl, wr
+        ok = ok & depth_ok.reshape(depth_ok.shape + (1, 1))
+    gain, wl, wr = _masked_gain(cum, total, ctx, ctx, p_out, lo, hi, arith,
+                                ok)
+    return gain, cum, total, wl, wr, (ctx, p_out, lo, hi, ok)
 
 
 def feature_best_gains(hist, ctx: SplitContext, feature_mask, depth_ok=None,
@@ -288,13 +329,60 @@ def feature_best_gains(hist, ctx: SplitContext, feature_mask, depth_ok=None,
     return gain.max(dim=-1).values
 
 
+def _cat_scan(hist, cat_info: CatInfo, total, gain_num, parts, parent_out,
+              arith):
+    """The reference's k-vs-rest subset scan over the categorical columns.
+
+    Bins are ranked by ``g / (h + cat_smooth)`` (``+inf`` for bins with no
+    rows, so they fall to the right child), ascending and descending on
+    ``-g / (h + cat_smooth)``, each by a stable sort as ``jnp.argsort`` is;
+    the usual prefix scan then runs in each order with ``lambda_l2 +
+    cat_l2`` in the gain (the base regularizers decide validity) and a
+    prefix of at most ``max_cat_threshold`` bins.  The descending scan wins
+    a candidate only where its gain is strictly greater.  Both directions
+    run as one batch on a leading axis of 2 (ascending first).  Returns the
+    combined gain ``[..., F, B]`` (categorical columns take only subset
+    splits, numeric ones only thresholds), where the descending scan won,
+    and the operands the winner gathers need, ``(order, cum, wl, wr)``,
+    each ``[2, ...]``."""
+    ctx, p_out, lo, hi, ok = parts
+    num_bins = hist.shape[-2]
+    if isinstance(ctx.lambda_l2, torch.Tensor):
+        l2_cat = ctx.lambda_l2 + _c(cat_info.cat_l2, ctx.lambda_l2)
+    else:
+        l2_cat = float(np.float32(ctx.lambda_l2)
+                       + np.float32(cat_info.cat_l2))
+    ctx_cat = ctx._replace(lambda_l2=l2_cat)
+    p_out_cat = (leaf_output(total[..., 0], total[..., 1], ctx_cat)
+                 if parent_out is None else p_out)
+    g_, h_, c_ = hist[..., 0], hist[..., 1], hist[..., 2]
+    raw_score = g_ / (h_ + _c(cat_info.cat_smooth, h_))
+    inf = _c(float("inf"), raw_score)
+    pos = torch.arange(num_bins, device=hist.device)
+    ok_cat = ok & (pos < int(cat_info.max_cat_threshold))
+
+    key = torch.where(c_ > 0, torch.stack([raw_score, -raw_score]), inf)
+    order = torch.argsort(key, dim=-1, stable=True)           # [2, ..., F, B]
+    shape2 = (2,) + hist.shape
+    hist_s = torch.gather(hist.expand(shape2), -2,
+                          order.unsqueeze(-1).expand(shape2))
+    cum_s = _cumsum_bins(hist_s)
+    gain, wl, wr = _masked_gain(cum_s, total, ctx_cat, ctx, p_out_cat, lo,
+                                hi, arith, ok_cat)
+    use_desc = gain[1] > gain[0]
+    gain_all = torch.where(cat_info.is_cat.to(hist.device)[:, None],
+                           torch.maximum(gain[0], gain[1]), gain_num)
+    return gain_all, use_desc, (order, cum_s, wl, wr)
+
+
 def find_best_split(hist: torch.Tensor, ctx: SplitContext,
                     feature_mask: torch.Tensor,
                     depth_ok: Optional[torch.Tensor] = None,
                     parent_out: Optional[torch.Tensor] = None,
                     lo: Optional[torch.Tensor] = None,
                     hi: Optional[torch.Tensor] = None,
-                    arith: Optional[str] = None) -> BestSplit:
+                    arith: Optional[str] = None,
+                    cat_info: Optional[CatInfo] = None) -> BestSplit:
     """Scan histograms ``[..., F, B, 3]`` of (grad, hess, count) for each
     leaf's best (feature, bin) split.
 
@@ -305,10 +393,18 @@ def find_best_split(hist: torch.Tensor, ctx: SplitContext,
     ``[...]`` bound the child outputs (unbounded when None); ``arith``
     picks the rounding (module docstring).  A context of
     per-element tensors ``[E]`` applies element ``e``'s regularizers to
-    ``hist[e]``.  Every field of the result has the leading shape ``[...]``.
+    ``hist[e]``.  With ``cat_info`` the categorical columns take the
+    k-vs-rest subset scan (:func:`_cat_scan`), and the result's ``cat``
+    flags a subset winner whose left bins are ``cat_mask`` (the bins whose
+    rank in the winning order is at most ``bin``).  Every field of the
+    result has the leading shape ``[...]``.
     """
-    gain, cum, total, wl, wr = _scan(hist, ctx, feature_mask, depth_ok,
-                                     parent_out, lo, hi, arith)
+    gain, cum, total, wl, wr, parts = _scan(hist, ctx, feature_mask,
+                                            depth_ok, parent_out, lo, hi,
+                                            arith)
+    if cat_info is not None:
+        gain, use_desc, (order, cum_s, wl_s, wr_s) = _cat_scan(
+            hist, cat_info, total, gain, parts, parent_out, arith)
     lead = gain.shape[:-2]
     num_features, num_bins = gain.shape[-2:]
     flat = gain.reshape(lead + (num_features * num_bins,))
@@ -319,19 +415,47 @@ def find_best_split(hist: torch.Tensor, ctx: SplitContext,
     idx = torch.argmax(is_max.to(torch.uint8), dim=-1)
     feat = idx // num_bins
     bin_idx = idx % num_bins
-    g = idx.unsqueeze(-1)
-    cum_flat = cum.reshape(lead + (num_features * num_bins, 3))
-    win_l = torch.gather(cum_flat, -2,
-                         g.unsqueeze(-1).expand(lead + (1, 3))).squeeze(-2)
     tot = torch.gather(total.reshape(lead + (num_features, 3)), -2,
                        feat.unsqueeze(-1).unsqueeze(-1).expand(lead + (1, 3))
                        ).squeeze(-2)
+    g = idx.unsqueeze(-1)
+
+    def winner(cum_x, wl_x, wr_x):
+        """The left child's (g, h, c) and both outputs at ``idx``: one
+        gather from the contiguous ``[..., F*B, 3]`` view."""
+        cum_flat = cum_x.reshape(lead + (num_features * num_bins, 3))
+        win_l = torch.gather(cum_flat, -2,
+                             g.unsqueeze(-1).expand(lead + (1, 3))).squeeze(-2)
+        wl_b = wl_x.expand(gain.shape).reshape(flat.shape)
+        wr_b = wr_x.expand(gain.shape).reshape(flat.shape)
+        return (win_l, torch.gather(wl_b, -1, g).squeeze(-1),
+                torch.gather(wr_b, -1, g).squeeze(-1))
+
+    win_l, out_l, out_r = winner(cum, wl, wr)
+    cat = cat_mask = None
+    if cat_info is not None:
+        # take, not indexing: a 0-d index would be read back to the host
+        cat = torch.take(cat_info.is_cat.to(hist.device), feat)
+        desc_won = torch.gather(use_desc.reshape(flat.shape), -1,
+                                g).squeeze(-1)
+        va = winner(cum_s[0], wl_s[0], wr_s[0])
+        vd = winner(cum_s[1], wl_s[1], wr_s[1])
+        c3, d3 = cat.unsqueeze(-1), desc_won.unsqueeze(-1)
+        win_l = torch.where(c3, torch.where(d3, vd[0], va[0]), win_l)
+        out_l = torch.where(cat, torch.where(desc_won, vd[1], va[1]), out_l)
+        out_r = torch.where(cat, torch.where(desc_won, vd[2], va[2]), out_r)
+        fidx = feat.reshape(lead + (1, 1)).expand(lead + (1, num_bins))
+        order_f = torch.where(desc_won.unsqueeze(-1),
+                              torch.gather(order[1], -2, fidx).squeeze(-2),
+                              torch.gather(order[0], -2, fidx).squeeze(-2))
+        # each bin's rank in the winning order (argsort of the order)
+        rank = torch.empty_like(order_f).scatter_(
+            -1, order_f, torch.arange(num_bins, device=hist.device).expand(
+                order_f.shape))
+        cat_mask = cat.unsqueeze(-1) & (rank <= bin_idx.unsqueeze(-1))
     win_r = tot - win_l
-    wl_b = wl.expand(gain.shape).reshape(flat.shape)
-    wr_b = wr.expand(gain.shape).reshape(flat.shape)
     return BestSplit(
         gain=best.values, feature=feat, bin=bin_idx,
         left_g=win_l[..., 0], left_h=win_l[..., 1], left_c=win_l[..., 2],
         right_g=win_r[..., 0], right_h=win_r[..., 1], right_c=win_r[..., 2],
-        left_out=torch.gather(wl_b, -1, g).squeeze(-1),
-        right_out=torch.gather(wr_b, -1, g).squeeze(-1))
+        left_out=out_l, right_out=out_r, cat=cat, cat_mask=cat_mask)

@@ -58,11 +58,7 @@ def _host(t) -> np.ndarray:
 
 
 def _tree_to_dict(tree) -> dict:
-    if tree.is_cat_split is not None:
-        raise NotImplementedError(
-            "categorical trees are not ported yet: ROADMAP slice 3 (breadth "
-            "of training), item 7")
-    return {
+    d = {
         "split_feature": _host(tree.split_feature).tolist(),
         "split_bin": _host(tree.split_bin).tolist(),
         "left": _host(tree.left).tolist(),
@@ -73,15 +69,37 @@ def _tree_to_dict(tree) -> dict:
         "split_gain": _host(tree.split_gain).astype(np.float64).tolist(),
         "num_leaves": _host(tree.num_leaves).tolist(),
     }
+    if tree.is_cat_split is not None:
+        # sparse: only the categorical split nodes carry their left-bin
+        # sets, keyed by the flat node index over the tree's node shape
+        icb = _host(tree.is_cat_split).reshape(-1)
+        cm = _host(tree.cat_mask)
+        d["num_bins"] = int(cm.shape[-1])
+        cm2 = cm.reshape(-1, cm.shape[-1])
+        d["cat_splits"] = {str(i): np.flatnonzero(cm2[i]).tolist()
+                           for i in np.flatnonzero(icb)}
+        d["cat_shape"] = list(_host(tree.is_cat_split).shape)
+    return d
 
 
 def _tree_from_dict(d: dict, device):
     from ..models.tree import tree_from_arrays
 
-    if "cat_splits" in d or "linear_feat" in d:
+    if "linear_feat" in d:
         raise NotImplementedError(
-            "categorical and linear-leaf trees are not ported yet: ROADMAP "
-            "slice 3 (breadth of training), items 7 and 10")
+            "linear-leaf trees are not ported yet: ROADMAP slice 3 (breadth "
+            "of training), item 10")
+    cat = {}
+    if "cat_splits" in d:
+        shape = tuple(d["cat_shape"])
+        size = int(np.prod(shape))
+        icb = np.zeros(size, bool)
+        cm = np.zeros((size, int(d["num_bins"])), bool)
+        for k, bins_left in d["cat_splits"].items():
+            icb[int(k)] = True
+            cm[int(k), np.asarray(bins_left, np.int64)] = True
+        cat = {"is_cat_split": icb.reshape(shape),
+               "cat_mask": cm.reshape(shape + (cm.shape[-1],))}
     return tree_from_arrays({
         "split_feature": np.asarray(d["split_feature"], np.int32),
         "split_bin": np.asarray(d["split_bin"], np.int32),
@@ -92,6 +110,7 @@ def _tree_from_dict(d: dict, device):
         "count": np.asarray(d["count"], np.float32),
         "split_gain": np.asarray(d["split_gain"], np.float32),
         "num_leaves": np.asarray(d["num_leaves"], np.int32),
+        **cat,
     }, device)
 
 
@@ -189,21 +208,20 @@ def _load_packed_into(booster, path: str) -> None:
     from ..serving.packed import PackedForest
 
     pf = PackedForest.load(path)
-    if pf.is_cat_split is not None:
-        raise NotImplementedError(
-            "categorical models are not ported yet: ROADMAP slice 3 "
-            "(breadth of training), item 7")
     _load_params(booster, pf.params)
     booster.init_score_ = (np.asarray(pf.init_score, np.float32)
                            if pf.num_class > 1 else float(pf.init_score[0]))
     num_leaves = np.sum(pf.is_leaf, axis=-1).astype(np.int32)   # [T(, K)]
     zeros = np.zeros(pf.split_feature.shape[1:], np.float32)
+    cat = {name: getattr(pf, name) for name in ("is_cat_split", "cat_mask")
+           if getattr(pf, name) is not None}
     trees = [tree_from_arrays({
         "split_feature": pf.split_feature[t], "split_bin": pf.split_bin[t],
         "left": pf.left[t], "right": pf.right[t],
         "leaf_value": pf.leaf_value[t], "is_leaf": pf.is_leaf[t],
         "count": zeros, "split_gain": zeros,
-        "num_leaves": num_leaves[t]}, booster.device)
-        for t in range(pf.num_trees)]
+        "num_leaves": num_leaves[t], **{k: v[t] for k, v in cat.items()}},
+        booster.device) for t in range(pf.num_trees)]
+
     _reset_loaded(booster, trees, pf.best_iteration, pf.feature_names,
                   pf.bin_mapper)

@@ -68,7 +68,6 @@ def test_ntree_limit_is_the_staged_prediction(c3_models, k):
 # parameters the port names but refuses, each with the item that ports it
 REFUSED = {
     ("Dataset.__init__", "group"): "item 8",
-    ("Dataset.__init__", "categorical_feature"): "item 7",
     ("train", "init_model"): "item 10",
     ("Booster.predict", "pred_leaf"): "item 10",
     ("Booster.predict", "pred_contrib"): "item 10",
@@ -120,8 +119,6 @@ def test_refused_parameters_cite_their_item():
     calls = {
         ("Dataset.__init__", "group"): lambda: P.Dataset(
             X, label=y, device="cpu", group=[100, 100]),
-        ("Dataset.__init__", "categorical_feature"): lambda: P.Dataset(
-            X, label=y, device="cpu", categorical_feature=[0]),
         ("train", "init_model"): lambda: P.train(
             {"objective": "binary"}, ds, 1, init_model=b),
         ("Booster.predict", "pred_leaf"): lambda: b.predict(
@@ -146,7 +143,7 @@ NAME_GAPS = {
     "create_tree_digraph": "item 10", "plot_split_value_histogram": "item 10",
     "LGBMRanker": "item 8",
 }
-DATASET_GAPS = {"col_is_categorical": "item 7", "save_binary": "item 10"}
+DATASET_GAPS = {"save_binary": "item 10"}
 LAZY = ("serving", "sklearn", "PackedForest", "PredictorRuntime",
         "MicroBatcher", "pack_booster", "LGBMModel", "LGBMRegressor",
         "LGBMClassifier", "LGBMRandomForestRegressor")

@@ -119,7 +119,7 @@ def test_growers_round_once_then_take_bf16():
         bins, sr_round_bf16(st_t.transpose(0, 1)).transpose(0, 1),
         fm.expand(e, -1), ectx, md, 16, nb, 8, hist_dtype="bf16")
     for x, y in zip(got, want):
-        assert torch.equal(x, y)
+        assert x is None and y is None or torch.equal(x, y)
 
 
 def _binary(n=5000, seed=5):

@@ -148,7 +148,7 @@ def _port(bins, stats, fmask, ww, batched):
         return p_arrays(tree), rl.numpy()
     ctx = PCtx(*(torch.from_numpy(CTX[:, i].copy())
                  for i in range(CTX.shape[1])))
-    P, n_leaves, rl = grow_trees_batched(
+    P, n_leaves, rl, _ = grow_trees_batched(
         torch.from_numpy(bins), torch.from_numpy(stats).transpose(0, 1),
         torch.from_numpy(fmask), ctx,
         torch.from_numpy(MAX_DEPTH.astype(np.float32)), LEAVES, B, ww,

@@ -1119,3 +1119,133 @@ def test_goss_dart_train_kernel_vs_plain_on_card(boosting):
     np.testing.assert_allclose(runs[0].predict(X[:2000]),
                                runs[1].predict(X[:2000]), rtol=RTOL,
                                atol=ATOL)
+
+
+def _cat_dyadic(n, seed):
+    """Two categorical columns (12 and 40 categories) and two numeric ones;
+    y in {0, 1} with exactly n/2 ones from per-category effects, so every
+    round-1 l2 statistic is +-0.5 or 1 and every histogram sum is exact."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, 12, n), rng.integers(0, 40, n)
+    x1, x2 = rng.normal(size=n), rng.normal(size=n)
+    s = rng.normal(size=12)[a] + rng.normal(size=40)[b] + 0.7 * x1 + x2 ** 2
+    y = np.zeros(n, np.float32)
+    y[np.argsort(s)[n // 2:]] = 1.0
+    return np.column_stack([a, x1, b, x2]).astype(np.float32), y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["wave", "strict", "int8", "multiclass",
+                                  "cv"])
+def test_categorical_kernel_vs_plain_on_card(case):
+    """Categorical training on the card: the round-1 trees of the kernel
+    path equal the plain path's bit for bit on exact sums (every field, the
+    subset masks included; multiclass and the folds' scores are not exact
+    sums, so there predictions and held-out metrics agree within rtol
+    1e-5); subset splits never launch B2 or B3 (the reference's
+    ``fuse_part``/``fuse_si`` rules), and B1 (waves, the strict pair,
+    int8) or B5/B6 (the batched growers) run."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (
+        HIST_FUSED_BATCHED_LAUNCHES, HIST_FUSED_LAUNCHES,
+        HIST_PARTITION_LAUNCHES, HIST_SEGSTATS_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    X, y = _cat_dyadic(40_000, 61)
+    p = dict(objective="l2", num_leaves=31, learning_rate=0.5,
+             min_data_in_leaf=5, verbosity=-1)
+    p.update({"wave": {}, "strict": dict(grow_policy="leafwise"),
+              "int8": dict(hist_dtype="int8"),
+              "multiclass": dict(objective="multiclass", num_class=3),
+              "cv": dict(grow_policy="leafwise")}[case])
+    if case == "multiclass":
+        y = (np.arange(len(y)) % 2 + y).astype(np.float32)     # 3 classes
+    counters = ([SPLIT_ITER_LAUNCHES] + list(HIST_FUSED_LAUNCHES.values())
+                + list(HIST_PARTITION_LAUNCHES.values())
+                + list(HIST_SEGSTATS_LAUNCHES.values())
+                + list(HIST_FUSED_BATCHED_LAUNCHES.values()))
+    for c in counters:
+        c.reset()
+    runs = []
+    for impl in ("auto", "plain"):
+        ds = lgb.Dataset(X, label=y, device=dev, categorical_feature=[0, 2])
+        params = dict(p, hist_impl=impl)
+        if case == "cv":
+            runs.append(lgb.cv(params, ds, 1, nfold=5, stratified=False,
+                               seed=1))
+        else:
+            runs.append(lgb.train(params, ds, 1))
+    assert SPLIT_ITER_LAUNCHES.count == 0
+    assert sum(c.count for c in HIST_PARTITION_LAUNCHES.values()) == 0
+    if case == "cv":
+        assert HIST_SEGSTATS_LAUNCHES["f32"].count > 0
+        np.testing.assert_allclose(runs[0]["valid l2-mean"],
+                                   runs[1]["valid l2-mean"], rtol=RTOL)
+        return
+    if case == "multiclass":
+        assert HIST_FUSED_BATCHED_LAUNCHES["f32"].count > 0
+        assert HIST_SEGSTATS_LAUNCHES["f32"].count > 0
+        assert runs[0].trees[0].is_cat_split.any()
+        np.testing.assert_allclose(runs[0].predict(X[:5000]),
+                                   runs[1].predict(X[:5000]), rtol=RTOL,
+                                   atol=ATOL)
+        return
+    mode = "int8" if case == "int8" else "f32"
+    assert HIST_FUSED_LAUNCHES[mode].count > 0
+    a, b = tree_to_arrays(runs[0].trees[0]), tree_to_arrays(runs[1].trees[0])
+    assert a.keys() == b.keys() and "cat_mask" in a
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    assert a["is_cat_split"].any()
+    assert np.array_equal(runs[0].predict(X[:5000]),
+                          runs[1].predict(X[:5000]))
+
+
+@pytest.mark.gpu
+def test_categorical_scan_reads_nothing_back_on_card():
+    """The subset scan (sorts, gathers, the winner's rank by a scatter) on
+    CUDA tensors under PyTorch's sync debug mode "error", equal to the same
+    scan on the CPU, bit for bit (both add the prefix sums in the
+    reference's block order)."""
+    from lightgbm_tpu_torch.ops.split import (CatInfo, SplitContext,
+                                              find_best_split)
+
+    dev = _card()
+    rng = np.random.default_rng(62)
+    w, f, nb = 42, 8, 255
+    hist = np.zeros((w, f, nb, 3), np.float32)
+    hist[..., 0] = rng.normal(size=(w, f, nb)) * 10
+    hist[..., 1] = rng.uniform(1, 5, (w, f, nb))
+    hist[..., 2] = rng.integers(0, 40, (w, f, nb))
+    hist[hist[..., 2] == 0] = 0.0
+    is_cat = torch.tensor([True, False] * (f // 2))
+
+    def inputs(d):
+        return (torch.from_numpy(hist).to(d),
+                SplitContext(0.0, 1.0, 20.0, 1e-3, 0.0),
+                torch.ones((w, f), device=d),
+                torch.ones(w, dtype=torch.bool, device=d),
+                torch.zeros(w, device=d), CatInfo(is_cat.to(d), 10.0, 10.0,
+                                                  32))
+
+    def run(a):
+        return find_best_split(*a[:5], arith="cat", cat_info=a[5])
+
+    cpu = run(inputs("cpu"))
+    args = inputs(dev)
+    one_leaf = (args[0][0], args[1], args[2][0], args[3][0], args[4][0],
+                args[5])                      # a 0-d winner, as a root's
+    run(args)
+    run(one_leaf)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = run(args)
+        run(one_leaf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(card.cat.any())
+    for name, a in cpu._asdict().items():
+        assert torch.equal(a, getattr(card, name).cpu()), name

@@ -129,7 +129,7 @@ def _ulps(a, b):
 def _compare_round(args, port_out):
     """Tie-aware comparison of one grower call; returns the swaps seen as
     (element, node, gain ulps)."""
-    P_, n_leaves, rl = port_out
+    P_, n_leaves, rl, _ = port_out
     pa = p_arrays(_tree_from_packed(P_, n_leaves))
     ra, rrl = _reference(args)
     prl = rl.t().numpy()

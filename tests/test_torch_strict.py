@@ -190,11 +190,11 @@ def test_batched_grower_equals_single_tree_runs():
     depths = torch.tensor([-1.0, 3.0, 5.0])
     fmask = torch.from_numpy((rng.random((3, F)) < 0.8).astype(np.float32))
     fmask[:, 0] = 1.0
-    P_b, nl_b, rl_b = grow_tree_strict(bins, stats, fmask,
+    P_b, nl_b, rl_b, _ = grow_tree_strict(bins, stats, fmask,
                                        PCtx.per_element(ctxs, "cpu"), depths,
                                        LEAVES, B)
     for e in range(3):
-        P_1, nl_1, rl_1 = grow_tree_strict(
+        P_1, nl_1, rl_1, _ = grow_tree_strict(
             bins, stats[:, e:e + 1].contiguous(), fmask[e:e + 1],
             PCtx.per_element([ctxs[e]], "cpu"), depths[e:e + 1], LEAVES, B,
             batched=False)

@@ -263,8 +263,17 @@ def test_out_of_slice_raises_named_error(small_set, case):
 
 def test_out_of_slice_datasets_and_init_model(small_set, tmp_path):
     X, y = small_set
-    with pytest.raises(NotImplementedError, match="categorical"):
-        P.Dataset(X, label=y, device="cpu", categorical_feature=[0])
+    # categorical features train (ROADMAP item 7): a categorical Dataset
+    # constructs, flags its column and grows subset splits on it
+    Xc = X.copy()
+    Xc[:, 0] = X[:, 3]                  # the label lives in the categories
+    Xc[:, 1] = np.where(X[:, 0] > 0, 2.0, 5.0) + (X[:, 2] > 0)
+    dc = P.Dataset(Xc, label=y, device="cpu", categorical_feature=[1])
+    assert dc.col_is_categorical.tolist() == [False, True, False, False]
+    bc = P.train({"objective": "binary", "num_leaves": 7, "verbose": -1},
+                 dc, 2)
+    assert all(t.is_cat_split is not None for t in bc.trees)
+    assert bool(torch.stack([t.is_cat_split for t in bc.trees]).any())
     with pytest.raises(NotImplementedError, match="group"):
         P.Dataset(X, label=y, device="cpu", group=[2048, 2048])
     with pytest.raises(NotImplementedError, match="slice 5"):
