@@ -165,7 +165,7 @@ Phases:
    at 0 just before each run and read just after: (a) the script's calls at
    its own sizes (``make_boosting_curve(1000, 8657)``, one column, its
    params): ``cv`` (5 folds, early stopping 50, the script's 1,000 rounds
-   cut to 150 on both paths; fused strict, B6 + B3) through the kernels
+   cut to 100 on both paths; fused strict, B6 + B3) through the kernels
    and the plain versions (fold-mean RMSE per round within 1e-5 relative,
    ``best_iter`` equal, ``best_score`` within 1e-5), ``train`` of 500 rounds
    (B1 + B3; the plain run the first 100 rounds, the plain versions being
@@ -236,8 +236,8 @@ Phases:
    1e-5, valid AUC within 1e-4, the dropped-tree replay's CUDA-event ms
    per drop round, the final model served by B4 within 1e-5; (d)
    examples/gridsearch_cv.py's ``cv()`` arguments with ``boosting="goss"``
-   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's kernel run to
-   both runs cut at 60 rounds, DART's both at 50, fold-mean RMSE per round
+   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's runs cut at 40
+   rounds, DART's both at 50, fold-mean RMSE per round
    within 1e-5 and the best round equal; (e)
    DART on examples/bagging_boosting.py's curve (the strict grower: B1
    and B3), ``train_resumable`` killed by SIGTERM after round index 6 and
@@ -259,13 +259,37 @@ Phases:
    the legacy traversal within 1e-5 with no B4 launch; (b) the strict
    grower, 3 rounds (B1 pairs, no B3), AUC within 1e-4; (c)
    examples/gridsearch_cv.py's ``cv()`` with cut, color and clarity as
-   factors (fused strict, E = 5: B6, no B3; the plain run cut at 60
-   rounds, compared over the rounds both ran); (d) multiclass at
+   factors (fused strict, E = 5: B6, no B3; both runs cut at 60 rounds,
+   ``best_iter`` compared); (d) multiclass at
    Covertype's shape with Wilderness_Area and Soil_Type as categorical
    columns, 3 rounds (B5, B6), ``multi_logloss`` within 1e-4; (e) int8
    (B1 int8) and GOSS (f32 B1) at (a)'s shape, 3 rounds each, trees and
    masks equal.  B2, B3 and B4 never launch on categorical data, as the
-   reference routes it.
+   reference routes it;
+18. ranking, every launch counter at 0 just before each run and read just
+   after: (a) the reference bench's MSLR configuration uncut (bench.py
+   ``bench_mslr``: 1,000 queries x 100 documents x 136 features and 200
+   held-out queries from ``default_rng(5)``, per-query feature offsets,
+   top-heavy labels 0-4; ``lambdarank``, 63 leaves, learning rate 0.1,
+   ``min_data_in_leaf`` 20, 255 bins, bf16, truncation at the query depth;
+   the wave grower with the exact tail: B1 roots, B2 waves), 50 rounds
+   through the kernels and the plain versions in turns: held-out NDCG@10
+   within 1e-4, the round-1 trees equal (a near tie is recorded), host
+   syncs per round, the lambda pass's device ms and launches, a profiled
+   round, 20,000 held-out rows served by B4 within 1e-5 of
+   ``Booster.predict``; (b) 10,000 ragged queries of 20-220 documents
+   (about 1.2 M rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
+   10 rounds each path: the lambda pass's gather/scatter route over
+   several query chunks with no host read (sync debug mode "error"),
+   training NDCG@10 within 1e-4; (c) group-aware ``cv()`` at the reference
+   test's ``make_ranked`` shape (40 queries of 8-24 documents, 6 features,
+   3 folds, early stopping 5, 30 rounds; the strict grower: B1, B3): the
+   whole-query folds equal to the reference's rule, per-round means
+   within 1e-5, ``best_iter`` equal; (d) ``LGBMRanker.fit(group=,
+   eval_set=, eval_group=, eval_at=[10])`` on (a)'s data, 20 rounds, its
+   text model reloaded and served by B4 within 1e-5; a 12-round
+   ``train_resumable`` killed by SIGTERM after round index 6 and resumed,
+   bit for bit as the uninterrupted run.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -356,7 +380,7 @@ RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 60, 5
 RECOVERY_SEGMENT_ROUNDS = 25     # the sweep's carry checkpoint cadence
 # phase 14: examples/bagging_boosting.py at its own sizes (the script's
 # params; cv 5 folds, early stopping 50; train 500; the staged fits and
-# forest sizes it prints).  Its cv's 1,000 rounds are cut to 150 on both
+# forest sizes it prints).  Its cv's 1,000 rounds are cut to 100 on both
 # paths (early stopping ends them at 323): the plain versions are
 # launch-bound at 1,000 rows and the script must fit its time limit on a
 # slow host
@@ -364,7 +388,7 @@ BB_ROWS, BB_SEED = 1000, 8657
 BB_PARAMS = {"objective": "reg:linear", "eval_metric": "rmse", "eta": 0.02,
              "max_depth": 6, "max_leaf_nodes": 31, "verbosity": 0,
              "min_data_in_leaf": 1}
-BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 150, 50, 5, 500
+BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 100, 50, 5, 500
 BB_STAGES, BB_FORESTS = (1, 20, 50, 100, 300), (1, 3, 100)
 # the plain versions run ~5 ms a call at 1,000 rows (launch-bound): the
 # plain train covers the stages up to 100 trees
@@ -401,10 +425,10 @@ DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
 DART_ROUNDS = 30
 # 16d: the example's cv() rounds (kernels, plain), cut so the script fits
-# its time limit on a slow host: GOSS's both at 60 (early stopping ends
+# its time limit on a slow host: GOSS's both at 40 (early stopping ends
 # them at 177); DART's early stopping rarely ends it (each drop round
 # moves the ensemble), so both of its runs stop at 50
-GD_CV_ROUNDS = {"goss": 60, "dart": 50}
+GD_CV_ROUNDS = {"goss": 40, "dart": 50}
 # 16e: the curve's params with DART dropping half the trees every round
 DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
                          skip_drop=0.0)
@@ -417,10 +441,32 @@ AIR_CATS = {"Month": 12, "DayofMonth": 31, "DayOfWeek": 7,
             "UniqueCarrier": 22, "Origin": 300, "Dest": 300}
 AIR_ROWS, CAT_ROUNDS, CAT_SHORT_ROUNDS, CAT_SERVE_ROWS = (1_000_000, 10, 3,
                                                           16_384)
-# 17c: examples/gridsearch_cv.py's cv() with the diamonds factors; the
-# plain run is cut and compared over the rounds both ran (as 16d)
+# 17c: examples/gridsearch_cv.py's cv() with the diamonds factors; both
+# runs are cut at the same round (early stopping ends the kernel run at
+# 139), so the script fits its time limit on a slow host (as 16d)
 DIAMOND_CATS = ["cut", "color", "clarity"]
-CAT_CV_PLAIN_ROUNDS = 60
+CAT_CV_ROUNDS = 60
+# phase 18: ranking; 18a is the reference bench's MSLR configuration
+# (bench.py bench_mslr): 1,000 training and 200 held-out queries of 100
+# documents, 136 features, truncation at the query depth
+MSLR_QUERIES, MSLR_VALID_QUERIES, MSLR_DOCS, MSLR_FEATURES = 1000, 200, 100, \
+    136
+MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 50, 5, 10, 1e-4
+MSLR_PARAMS = {"objective": "lambdarank", "num_leaves": 63,
+               "learning_rate": 0.1, "min_data_in_leaf": 20,
+               "hist_dtype": "bf16", "lambdarank_truncation_level": MSLR_DOCS,
+               "max_bin": MAX_BIN, "eval_at": [NDCG_K], "verbosity": -1}
+# 18b: ragged queries at MSLR-WEB30K's mean depth (3,771,125 documents over
+# 31,531 queries: about 120 a query)
+RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 10_000, (20, 221), \
+    10, 120
+# 18c: the reference test's make_ranked shape in a group-aware cv()
+RANK_CV_QUERIES, RANK_CV_FOLDS, RANK_CV_ES, RANK_CV_ROUNDS, RANK_CV_SEED = \
+    40, 3, 5, 30, 7
+RANK_CV_PARAMS = {"objective": "lambdarank", "num_leaves": 7,
+                  "min_data_in_leaf": 5, "learning_rate": 0.3,
+                  "eval_at": [5], "verbosity": -1}
+RANKER_ROUNDS = 20
 
 
 def fail(msg: str) -> None:
@@ -4507,9 +4553,9 @@ def phase_cat_cv(launches):
                      categorical_feature=DIAMOND_CATS)
     ds.construct()
     res = {}
-    for tag, extra, rounds in (("kernels", {}, CV_ROUNDS),
+    for tag, extra, rounds in (("kernels", {}, CAT_CV_ROUNDS),
                                ("plain", {"hist_impl": "plain"},
-                                CAT_CV_PLAIN_ROUNDS)):
+                                CAT_CV_ROUNDS)):
         fit, secs, counts, plain = counted_run(lambda: lgb.cv(
             dict(CV_PARAMS, **extra), ds, num_boost_round=rounds,
             nfold=CV_FOLDS, metrics="rmse", early_stopping_rounds=CV_ES,
@@ -4674,6 +4720,430 @@ def phase_categorical(dev, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: ranking
+# ---------------------------------------------------------------------------
+def mslr_like(sizes, rng, n_features=MSLR_FEATURES):
+    """The reference bench's MSLR-shaped rows for queries of ``sizes``:
+    normal features, per-query offsets on five informative columns, a
+    nonlinear utility and top-heavy graded labels 0-4 from each query's
+    utility ranks (most documents irrelevant, a few highly relevant)."""
+    n = int(sizes.sum())
+    X = rng.normal(0, 1, (n, n_features)).astype(np.float32)
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    qoff = rng.normal(0, 2.0, (len(sizes), 5)).astype(np.float32)
+    X[:, :5] += qoff[qid]
+    u = (1.5 * X[:, 0] + np.sin(2 * X[:, 1]) + 0.8 * X[:, 2] * X[:, 3]
+         + 0.5 * X[:, 4] ** 2 + 0.6 * rng.normal(0, 1, n))
+    y = np.zeros(n)
+    start = 0
+    for s in sizes:
+        q = slice(start, start + s)
+        r = u[q].argsort().argsort() / (s - 1)
+        y[q] = np.digitize(r, [0.55, 0.8, 0.92, 0.98])
+        start += s
+    return X, y
+
+
+def make_ranked(n_queries, docs_lo, docs_hi, f, seed):
+    """The reference test's ranked data (tests/test_ranking.py): a hidden
+    utility, graded labels 0-4 by within-query quantile."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(docs_lo, docs_hi + 1, n_queries)
+    n = int(sizes.sum())
+    X = rng.normal(0, 1, (n, f))
+    u = (1.2 * X[:, 0] + np.sin(2 * X[:, 1]) + 0.6 * X[:, 2] ** 2
+         + 0.3 * rng.normal(0, 1, n))
+    y = np.zeros(n)
+    start = 0
+    for s in sizes:
+        ranks = u[start:start + s].argsort().argsort()
+        y[start:start + s] = np.minimum(4, (5 * ranks) // s)
+        start += s
+    return X, y, sizes
+
+
+def lambda_pass(booster, reps=5):
+    """The lambda pass (``LambdaRank.grad_hess``) on the booster's train
+    scores: CUDA-event ms (median of ``reps``), the profiler's device ms
+    and kernel launches of one call, its query chunks, and one call under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host read fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    obj = booster.obj
+    args = (booster._pred_train, booster.train_set.y, booster._w_eff)
+    obj.grad_hess(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        obj.grad_hess(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        obj.grad_hess(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0)) > 0]
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in kernels)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obj.grad_hess(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    q, g = obj._packed["valid"].shape
+    return {"queries": q, "G": g, "query_chunk": obj.query_chunk,
+            "chunks": -(-q // obj.query_chunk),
+            "route": "uniform" if obj._packed["uniform"] else "ragged",
+            "event_ms": float(np.median(times)),
+            "device_ms": (device_us / 1e3 if device_us
+                          else "not measured (no device time traced)"),
+            "launches": int(sum(e.count for e in kernels)),
+            "host_reads": 0}
+
+
+def first_split_difference(a, b):
+    """None when two trees' structure agrees, else the first node whose
+    split differs with both trees' gains there (a near tie when they are
+    within 1e-4 relative: C.1's treatment)."""
+    fields = ("split_feature", "split_bin", "left", "right", "is_leaf",
+              "num_leaves")
+    if all(np.array_equal(a[f], b[f]) for f in fields):
+        return None
+    diff = np.flatnonzero((a["split_feature"] != b["split_feature"])
+                          | (a["split_bin"] != b["split_bin"])
+                          | (a["is_leaf"] != b["is_leaf"]))
+    i = int(diff[0]) if len(diff) else 0
+    ga, gb = float(a["split_gain"][i]), float(b["split_gain"][i])
+    return {"node": i, "gains": [ga, gb],
+            "rel": abs(ga - gb) / max(abs(ga), abs(gb), 1e-30)}
+
+
+def phase_rank_mslr(dev, workdir, launches):
+    """18a: the reference bench's MSLR configuration, uncut, on the wave
+    grower (B1 roots, B2 waves), kernel and plain paths in turns."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ranking import RankEvalContext
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    rng = np.random.default_rng(MSLR_SEED)
+    sizes_all = np.full(MSLR_QUERIES + MSLR_VALID_QUERIES, MSLR_DOCS)
+    X_all, y_all = mslr_like(sizes_all, rng)
+    n = MSLR_QUERIES * MSLR_DOCS
+    X, y, sizes = X_all[:n], y_all[:n], sizes_all[:MSLR_QUERIES]
+    Xv, yv, sv = X_all[n:], y_all[n:], sizes_all[MSLR_QUERIES:]
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, group=sizes, params={"max_bin": MAX_BIN})
+    ds.construct()
+    bin_s = time.perf_counter() - t0
+    ctx = RankEvalContext(sv, yv, None, device=dev)
+    for extra in ({}, {"hist_impl": "plain"}):                # warm
+        lgb.train(dict(MSLR_PARAMS, **extra), ds, 1)
+    runs, boosters = {"kernels": [], "plain": []}, {}
+    for tag in ("kernels", "plain", "plain", "kernels"):
+        params = dict(MSLR_PARAMS, **({"hist_impl": "plain"}
+                                      if tag == "plain" else {}))
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(params, ds, MSLR_ROUNDS))
+        runs[tag].append({"s_per_round": secs / MSLR_ROUNDS,
+                          "counts": counts, "plain_calls": plain})
+        boosters.setdefault(tag, b)
+        log(f"phase 18a {tag}: {MSLR_ROUNDS} rounds in {secs:.2f} s, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    k = runs["kernels"][0]
+    check(k["counts"]["hist_fused_bf16"] > 0
+          and k["counts"]["hist_partition_bf16"] > 0
+          and k["plain_calls"] == 0,
+          f"18a kernel path (B1 and B2 at bf16): launches {k['counts']}, "
+          f"plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    bk, bp = boosters["kernels"], boosters["plain"]
+    ndcg = {t: ctx.ndcg(torch.from_numpy(b.predict(Xv)).to(dev), NDCG_K)
+            for t, b in boosters.items()}
+    d_ndcg = ndcg["kernels"] - ndcg["plain"]
+    check(abs(d_ndcg) <= RANK_TOL and 0.0 < ndcg["kernels"] <= 1.0,
+          f"18a held-out NDCG@{NDCG_K} kernel {ndcg['kernels']:.6f}, plain "
+          f"{ndcg['plain']:.6f}")
+    tie = first_split_difference(tree_arrays(bk, 0), tree_arrays(bp, 0))
+    check(tie is None or tie["rel"] <= 1e-4,
+          f"18a: the round-1 trees of the kernel and plain paths differ "
+          f"beyond a near tie: {tie}")
+    if tie is not None:
+        log(f"phase 18a: round-1 near tie (C.1) kernel vs plain: {tie}")
+    b = lgb.Booster(MSLR_PARAMS, ds)
+    b.update()
+    (_, sites), _, _, _ = counted_run(lambda: host_syncs(
+        lambda: [b.update() for _ in range(SYNC_ROUNDS)]))
+    lam = lambda_pass(bk)
+    breakdown = profile_rounds(lgb, ds, MSLR_PARAMS, tag="phase 18a")
+    rt = PredictorRuntime(pack_booster(bk), max_bucket=MAX_BUCKET)
+    want = bk.predict(Xv, raw_score=True)
+    served, serve_s, counts, _ = counted_run(
+        lambda: rt.predict(Xv, raw_score=True))
+    sdiff = float(np.abs(served - want).max())
+    check(counts["predict_forest"] > 0 and sdiff <= 1e-5,
+          f"18a served vs Booster.predict {sdiff:.2e}, B4 launches "
+          f"{counts['predict_forest']}")
+    add_launches(launches, {"predict_forest": counts["predict_forest"]})
+    out = {"rows": n, "queries": MSLR_QUERIES, "docs": MSLR_DOCS,
+           "features": MSLR_FEATURES, "rounds": MSLR_ROUNDS,
+           "params": MSLR_PARAMS, "binning_s": bin_s,
+           "s_per_round_in_turns": {t: [r["s_per_round"] for r in v]
+                                    for t, v in runs.items()},
+           "launches": k["counts"], f"ndcg@{NDCG_K}_held_out": ndcg,
+           "ndcg_kernel_minus_plain": d_ndcg,
+           "round1_structure_equal": tie is None, "round1_near_tie": tie,
+           "host_syncs_per_round": len(sites) / SYNC_ROUNDS,
+           "host_sync_sites": dict(sorted(collections.Counter(
+               sites).items())),
+           "lambda_pass": lam, "round_breakdown": breakdown,
+           "serve": {"rows": len(Xv), "s": serve_s, "max_abs_diff": sdiff,
+                     "b4_launches": counts["predict_forest"]}}
+    log(f"phase 18a: {json.dumps(out)}")
+    return out, ds, (X, y, sizes), (Xv, yv, sv), ctx
+
+
+def phase_rank_ragged(dev, launches):
+    """18b: 10,000 ragged queries (20-220 documents) with 18a's feature and
+    label recipe: the gather/scatter route of the lambda pass over several
+    query chunks, kernel and plain paths."""
+    import lightgbm_tpu_torch as lgb
+
+    rng = np.random.default_rng(SEED + 180)
+    sizes = rng.integers(*RAGGED_DOCS, RAGGED_QUERIES)
+    X, y = mslr_like(sizes, rng)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, group=sizes, params={"max_bin": MAX_BIN})
+    ds.construct()
+    bin_s = time.perf_counter() - t0
+    del X
+    params = dict(MSLR_PARAMS, lambdarank_truncation_level=RAGGED_DEPTH,
+                  metric="ndcg")
+    runs, ndcg = {}, {}
+    for tag in ("kernels", "plain"):
+        p = dict(params, **({"hist_impl": "plain"} if tag == "plain"
+                            else {}))
+        b = lgb.Booster(p, ds)
+        b.update()                                            # warm
+        _, secs, counts, plain = counted_run(
+            lambda: [b.update() for _ in range(RAGGED_ROUNDS - 1)])
+        runs[tag] = {"s_per_round": secs / (RAGGED_ROUNDS - 1),
+                     "counts": counts, "plain_calls": plain}
+        ndcg[tag] = b.eval_train()[0][2]
+        if tag == "kernels":
+            lam = lambda_pass(b)
+        log(f"phase 18b {tag}: {json.dumps(runs[tag])}")
+    k = runs["kernels"]
+    check(k["counts"]["hist_fused_bf16"] > 0
+          and k["counts"]["hist_partition_bf16"] > 0
+          and k["plain_calls"] == 0,
+          f"18b kernel path: launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    d_ndcg = ndcg["kernels"] - ndcg["plain"]
+    check(abs(d_ndcg) <= RANK_TOL,
+          f"18b NDCG@{NDCG_K} kernel {ndcg['kernels']:.6f}, plain "
+          f"{ndcg['plain']:.6f}")
+    check(lam["route"] == "ragged" and lam["chunks"] > 1,
+          f"18b lambda pass {lam}")
+    out = {"rows": int(sizes.sum()), "queries": RAGGED_QUERIES,
+           "docs": list(RAGGED_DOCS), "rounds": RAGGED_ROUNDS,
+           "binning_s": bin_s,
+           "s_per_round": {t: r["s_per_round"] for t, r in runs.items()},
+           "launches": k["counts"], f"ndcg@{NDCG_K}_train": ndcg,
+           "ndcg_kernel_minus_plain": d_ndcg, "lambda_pass": lam}
+    log(f"phase 18b: {json.dumps(out)}")
+    return out
+
+
+def reference_query_folds(sizes, n, nfold, seed):
+    """The reference's whole-query folds (engine._make_folds with groups),
+    written out here: a seeded permutation of the queries, every nfold-th
+    to one fold."""
+    rng = np.random.default_rng(seed)
+    gidx = rng.permutation(len(sizes))
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    out = []
+    for k in range(nfold):
+        test = np.concatenate([np.arange(bounds[g], bounds[g + 1])
+                               for g in gidx[k::nfold]])
+        mask = np.zeros(n, bool)
+        mask[test] = True
+        out.append((np.flatnonzero(~mask), np.flatnonzero(mask)))
+    return out
+
+
+def phase_rank_cv(launches):
+    """18c: group-aware cv() at the reference test's make_ranked shape on
+    the strict grower (B1, B3), kernel and plain paths."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.engine import _make_folds
+
+    X, y, sizes = make_ranked(RANK_CV_QUERIES, 8, 24, 6, SEED + 181)
+    n = len(y)
+    want = reference_query_folds(sizes, n, RANK_CV_FOLDS, RANK_CV_SEED)
+    got = _make_folds(n, RANK_CV_FOLDS, y, False, True, RANK_CV_SEED, sizes)
+    check(all(np.array_equal(a, c) and np.array_equal(b, d)
+              for (a, b), (c, d) in zip(want, got)),
+          "18c: the whole-query folds differ from the reference's")
+    ds = lgb.Dataset(X, label=y, group=sizes)
+    res = {}
+    for tag in ("kernels", "plain"):
+        p = dict(RANK_CV_PARAMS, **({"hist_impl": "plain"} if tag == "plain"
+                                    else {}))
+        r, secs, counts, plain = counted_run(lambda: lgb.cv(
+            p, ds, RANK_CV_ROUNDS, nfold=RANK_CV_FOLDS,
+            early_stopping_rounds=RANK_CV_ES, seed=RANK_CV_SEED,
+            return_cvbooster=True))
+        res[tag] = {"result": r, "s": secs, "counts": counts,
+                    "plain_calls": plain}
+        log(f"phase 18c {tag}: {secs:.2f} s, best_iter {r.best_iter}, "
+            f"launches {json.dumps(counts)}, plain calls {plain}")
+    rk, rp = res["kernels"]["result"], res["plain"]["result"]
+    counts = res["kernels"]["counts"]
+    check(counts["split_iter"] > 0 and res["kernels"]["plain_calls"] == 0,
+          f"18c kernel path: launches {counts}")
+    add_launches(launches, counts)
+    key = "valid ndcg@5-mean"
+    mk, mp = np.asarray(rk[key]), np.asarray(rp[key])
+    check(rk.best_iter == rp.best_iter and len(mk) == len(mp)
+          and float(np.abs(mk - mp).max()) <= 1e-5,
+          f"18c cv kernel vs plain: best_iter {rk.best_iter} / "
+          f"{rp.best_iter}, means {mk.tolist()} / {mp.tolist()}")
+    for b, (tr, _) in zip(rk.cvbooster.boosters, want):
+        check(int(b.train_set.get_group().sum()) == len(tr),
+              "18c: a fold's query groups do not cover its rows")
+    out = {"rows": n, "queries": RANK_CV_QUERIES, "folds": RANK_CV_FOLDS,
+           "best_iter": rk.best_iter, "best_score": rk.best_score,
+           "mean_max_abs_diff": float(np.abs(mk - mp).max()),
+           "s": {t: r["s"] for t, r in res.items()}, "launches": counts}
+    log(f"phase 18c: {json.dumps(out)}")
+    return out
+
+
+def phase_rank_ranker_recovery(dev, workdir, ds, train, valid, ctx,
+                               launches):
+    """18d: LGBMRanker on 18a's data, its text model reloaded and served
+    (B4); then a 12-round lambdarank train_resumable killed by SIGTERM
+    after round index 6 and resumed, bit for bit as the uninterrupted
+    run."""
+    import shutil
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.training import train_resumable
+
+    X, y, sizes = train
+    Xv, yv, sv = valid
+    kw = {k: v for k, v in MSLR_PARAMS.items()
+          if k not in ("objective", "num_leaves", "learning_rate",
+                       "min_data_in_leaf", "eval_at")}
+    est = lgb.LGBMRanker(n_estimators=RANKER_ROUNDS, num_leaves=63,
+                         learning_rate=0.1, min_child_samples=20, **kw)
+    (_, fit_s, counts, _) = counted_run(lambda: est.fit(
+        X, y, group=sizes, eval_set=[(Xv, yv)], eval_group=[sv],
+        eval_at=[NDCG_K]))
+    add_launches(launches, counts)
+    got = est.best_score_["valid_0"][f"ndcg@{NDCG_K}"]
+    direct = ctx.ndcg(torch.from_numpy(est.predict(Xv)).to(dev), NDCG_K)
+    check(abs(got - direct) <= RANK_TOL and 0.0 < got <= 1.0,
+          f"18d LGBMRanker valid NDCG@{NDCG_K} {got} vs its predictions' "
+          f"{direct}")
+    path = os.path.join(workdir, "ranker.txt")
+    est.booster_.save_model(path)
+    back = lgb.Booster(model_file=path)
+    want = back.predict(Xv, raw_score=True)
+    rdiff = float(np.abs(want - est.predict(Xv, raw_score=True)).max())
+    rt = PredictorRuntime(pack_booster(back), max_bucket=MAX_BUCKET)
+    served, _, scounts, _ = counted_run(lambda: rt.predict(Xv,
+                                                           raw_score=True))
+    sdiff = float(np.abs(served - want).max())
+    check(rdiff <= 1e-5 and sdiff <= 1e-5 and scounts["predict_forest"] > 0,
+          f"18d ranker reloaded {rdiff:.2e}, served {sdiff:.2e}, B4 "
+          f"{scounts['predict_forest']}")
+    add_launches(launches, {"predict_forest": scounts["predict_forest"]})
+    root = os.path.join(workdir, "rank_recovery")
+    shutil.rmtree(root, ignore_errors=True)
+    full_dir, kill_dir = (os.path.join(root, d) for d in ("full", "killed"))
+    rkw = dict(checkpoint_rounds=RECOVERY_EVERY, keep_last=3)
+    params = dict(MSLR_PARAMS, bagging_fraction=0.8, bagging_freq=1)
+
+    def kill(booster, i):
+        if i == RECOVERY_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def training():
+        full = train_resumable(dict(params), ds, RECOVERY_ROUNDS,
+                               checkpoint_dir=full_dir, resume=False, **rkw)
+        killed = train_resumable(dict(params), ds, RECOVERY_ROUNDS,
+                                 checkpoint_dir=kill_dir, resume=False,
+                                 round_callbacks=[kill], **rkw)
+        again = train_resumable(dict(params), ds, RECOVERY_ROUNDS,
+                                checkpoint_dir=kill_dir, resume=True, **rkw)
+        return full, killed, again
+
+    (full, killed, again), rec_s, rcounts, _ = counted_run(training)
+    add_launches(launches, rcounts)
+    check(killed.preempted and killed.rounds_done == RECOVERY_KILL_AFTER + 1
+          and again.completed and again.resumed_from == killed.last_checkpoint,
+          f"18d SIGTERM then resume: {killed}, {again}")
+    check(same_run(full.booster, again.booster),
+          "18d: the resumed lambdarank run differs from the uninterrupted "
+          "one")
+    s_full, s_again = (PredictorRuntime(pack_booster(b.booster),
+                                        max_bucket=MAX_BUCKET).predict(
+        Xv, raw_score=True) for b in (full, again))
+    check(np.array_equal(s_full, s_again),
+          "18d: the resumed model serves other scores")
+    out = {"ranker": {"rounds": RANKER_ROUNDS, "fit_s": fit_s,
+                      f"valid_ndcg@{NDCG_K}": got,
+                      "reloaded_max_abs_diff": rdiff,
+                      "served_max_abs_diff": sdiff,
+                      "b4_launches": scounts["predict_forest"]},
+           "recovery": {"rounds": RECOVERY_ROUNDS,
+                        "preempted_at": killed.rounds_done,
+                        "bit_identical": True, "s": rec_s,
+                        "launches": rcounts}}
+    log(f"phase 18d: {json.dumps(out)}")
+    return out
+
+
+def phase_ranking(dev, workdir, card):
+    """Phase 18, every launch counter at 0 just before each run and read
+    just after; fails unless B1, B2, B3 and B4 launched."""
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    t1 = time.perf_counter()
+    out["18a"], ds, train, valid, ctx = phase_rank_mslr(dev, workdir,
+                                                        launches)
+    secs["18a"] = time.perf_counter() - t1
+    for name, fn in (("18b", lambda: phase_rank_ragged(dev, launches)),
+                     ("18c", lambda: phase_rank_cv(launches)),
+                     ("18d", lambda: phase_rank_ranker_recovery(
+                         dev, workdir, ds, train, valid, ctx, launches))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    del ds
+    for name in ("hist_fused_bf16", "hist_partition_bf16", "split_iter",
+                 "predict_forest"):
+        check(launches.get(name, 0) > 0, f"phase 18: {name} never launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 18: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4750,6 +5220,8 @@ def main() -> int:
     del Xc, yc
     phase17 = phase_categorical(dev, workdir, card)
     l17 = phase17["launches"]
+    phase18 = phase_ranking(dev, workdir, card)
+    l18 = phase18["launches"]
 
     kernels = []
     for prec in PRECISIONS:
@@ -4764,7 +5236,8 @@ def main() -> int:
                              "14": l14["predict_forest"],
                              "15": l15["predict_forest"],
                              "16": l16["predict_forest"],
-                             "17": l17.get("predict_forest", 0)})
+                             "17": l17.get("predict_forest", 0),
+                             "18": l18.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -4790,7 +5263,8 @@ def main() -> int:
                     "14": l14.get(f"{name}_{mode}", 0),
                     "15": l15.get(f"{name}_{mode}", 0),
                     "16": l16.get(f"{name}_{mode}", 0),
-                    "17": l17.get(f"{name}_{mode}", 0)},
+                    "17": l17.get(f"{name}_{mode}", 0),
+                    "18": l18.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4811,7 +5285,8 @@ def main() -> int:
             "8c": sweep["launches"]["split_iter"],
             "13": rec_launches["split_iter"],
             "14": l14["split_iter"], "15": l15["split_iter"],
-            "16": l16["split_iter"], "17": l17.get("split_iter", 0)},
+            "16": l16["split_iter"], "17": l17.get("split_iter", 0),
+            "18": l18.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -4833,7 +5308,8 @@ def main() -> int:
                 "14": l14.get(f"hist_segstats_{mode}", 0),
                 "15": l15.get(f"hist_segstats_{mode}", 0),
                 "16": l16.get(f"hist_segstats_{mode}", 0),
-                "17": l17.get(f"hist_segstats_{mode}", 0)},
+                "17": l17.get(f"hist_segstats_{mode}", 0),
+                "18": l18.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4856,7 +5332,8 @@ def main() -> int:
                 "14": l14.get(f"hist_fused_batched_{mode}", 0),
                 "15": l15.get(f"hist_fused_batched_{mode}", 0),
                 "16": l16.get(f"hist_fused_batched_{mode}", 0),
-                "17": l17.get(f"hist_fused_batched_{mode}", 0)},
+                "17": l17.get(f"hist_fused_batched_{mode}", 0),
+                "18": l18.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -4868,7 +5345,8 @@ def main() -> int:
         "launches_by_phase": {
             "12": int8["launches"]["hist_fused_int8"],
             "16": l16.get("hist_fused_int8", 0),
-            "17": l17.get("hist_fused_int8", 0)},
+            "17": l17.get("hist_fused_int8", 0),
+            "18": l18.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -4893,6 +5371,7 @@ def main() -> int:
               "b5_times": b5_times, "multiclass": multiclass,
               "int8": int8, "recovery": recovery, "phase14": phase14,
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
+              "phase18": phase18,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -26,7 +26,12 @@ nothing of ``lightgbm_tpu``.  Ported so far:
   sampling (``feature_fraction_bynode``), staged ``predict(ntree_limit=)``
   and the scikit-learn style estimators (``sklearn``: ``LGBMRegressor``,
   ``LGBMClassifier``, ``LGBMRandomForestRegressor``), loaded lazily as in
-  the reference, like ``serving``.
+  the reference, like ``serving``;
+* the remaining objectives (l1/quantile/mape leaf renewal, huber, fair,
+  poisson, gamma, tweedie, cross_entropy, a custom ``fobj``), GOSS and DART,
+  categorical features, and ranking: ``Dataset(group=)``,
+  ``objective="lambdarank"`` (``ranking``), ``metric="ndcg"``/``"map"`` at
+  ``eval_at``, whole-query ``cv`` folds and ``LGBMRanker``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
 

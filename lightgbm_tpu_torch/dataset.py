@@ -14,9 +14,11 @@ bagging draw is ``uniform(key, (n_pad,))``, so the padding decides which rows
 a seed bags.  Labels and weights ride alongside as f32 (weight 0 on padding).
 ``categorical_feature`` (indices or names) bins those columns one bin per
 kept category, as the reference does, and :attr:`Dataset.col_is_categorical`
-flags them among the training columns (EFB never bundles them).  In-memory
-data only: query groups, streamed (``from_blocks``) and binary-file datasets
-raise ``NotImplementedError``.
+flags them among the training columns (EFB never bundles them).  Query
+groups (``group=``, the ranking objectives' query sizes, in row order) stay
+on the host, with per-row query ids (``group_id``, -1 on padding) on the
+device.  In-memory data only: streamed (``from_blocks``) and binary-file
+datasets raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -409,10 +411,8 @@ def _to_2d_float_array(data: Any) -> np.ndarray:
     return np.ascontiguousarray(arr, dtype=np.float64)
 
 
-def _refuse_group():
-    raise NotImplementedError(
-        "query groups (ranking objectives) are not ported yet: ROADMAP "
-        "slice 3 (breadth of training), item 8")
+def _to_group(group: Any) -> Optional[np.ndarray]:
+    return None if group is None else np.asarray(group, np.int64).reshape(-1)
 
 
 def _to_1d_float_array(x: Any) -> np.ndarray:
@@ -442,8 +442,6 @@ class Dataset:
                  feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
                  free_raw_data: bool = False):
-        if group is not None:
-            _refuse_group()
         if isinstance(data, str):
             raise NotImplementedError(
                 "binary dataset files (save_binary) are not ported yet: "
@@ -455,6 +453,7 @@ class Dataset:
         self.raw_data = data
         self._label = None if label is None else _to_1d_float_array(label)
         self._weight = None if weight is None else _to_1d_float_array(weight)
+        self._group = _to_group(group)
         self._init_score = (None if init_score is None
                             else _to_1d_float_array(init_score))
         self.reference = reference
@@ -472,6 +471,10 @@ class Dataset:
         self.y: Optional[torch.Tensor] = None         # f32 [n_pad]
         self.w: Optional[torch.Tensor] = None         # f32 [n_pad], 0 pad
         self.row_mask: Optional[torch.Tensor] = None  # f32 [n_pad] 1/0
+        # int32 [n_pad] query ids for ranking (-1 on padding), None
+        # without groups
+        self.group_id: Optional[torch.Tensor] = None
+        self._rank_eval_ctx = None    # ranking.RankEvalContext, built lazily
 
     @classmethod
     def from_blocks(cls, *args, **kwargs):
@@ -507,11 +510,15 @@ class Dataset:
             self._put_targets()
         return self
 
-    def get_group(self):
-        _refuse_group()
+    def get_group(self) -> Optional[np.ndarray]:
+        return self._group
 
     def set_group(self, group) -> "Dataset":
-        _refuse_group()
+        self._group = _to_group(group)
+        self._rank_eval_ctx = None
+        if self._constructed:
+            self._put_targets()
+        return self
 
     def get_init_score(self) -> Optional[np.ndarray]:
         return self._init_score
@@ -532,10 +539,8 @@ class Dataset:
         return list(self.feature_names)
 
     def get_field(self, name: str):
-        if name == "group":
-            _refuse_group()
         return {"label": self._label, "weight": self._weight,
-                "init_score": self._init_score}[name]
+                "group": self._group, "init_score": self._init_score}[name]
 
     def set_field(self, name: str, value) -> "Dataset":
         return getattr(self, f"set_{name}")(value)
@@ -639,6 +644,15 @@ class Dataset:
             self.y = padded(self._label, "label")
         self.w = padded(np.ones(n) if self._weight is None else self._weight,
                         "weight")
+        self._rank_eval_ctx = None
+        if self._group is None:
+            self.group_id = None
+            return
+        if self._group.sum() != n:
+            raise ValueError("group sizes must sum to num_data")
+        gid = np.full(n_pad, -1, np.int32)
+        gid[:n] = np.repeat(np.arange(len(self._group)), self._group)
+        self.group_id = torch.from_numpy(gid).to(self.device)
 
     def subset(self, used_indices, params=None) -> "Dataset":
         """Row subset sharing this dataset's bin mapper (the cv folds)."""
@@ -652,6 +666,7 @@ class Dataset:
         sub.params = dict(params or self.params)
         sub._label = None if self._label is None else self._label[used]
         sub._weight = None if self._weight is None else self._weight[used]
+        sub._group = None                # a row subset has no query groups
         sub._init_score = (None if self._init_score is None
                            else self._init_score[used])
         sub._from_codes(codes)

@@ -12,7 +12,9 @@ Training runs on the training Dataset's device.  ``cv`` takes the
 reference's route: a plain call (no callbacks, ``feval``,
 ``return_cvbooster``, ``eval_train_metric`` or ``verbose_eval``) trains all
 folds at once in the fused program (``models/fused.py``), anything else one
-Booster per fold.  ``init_model`` is ROADMAP slice 3, item 10.
+Booster per fold.  A Dataset with query groups gets whole-query folds and
+its ranking objective the per-fold route, each fold's groups cut from its
+rows.  ``init_model`` is ROADMAP slice 3, item 10.
 """
 
 from __future__ import annotations
@@ -185,10 +187,23 @@ class CVResult(dict):
 
 
 def _make_folds(n: int, nfold: int, labels: Optional[np.ndarray],
-                stratified: bool, shuffle: bool, seed: int):
+                stratified: bool, shuffle: bool, seed: int,
+                group_sizes: Optional[np.ndarray] = None):
     """The reference's seeded folds (numpy streams, so both packages cut
-    the same folds)."""
+    the same folds); with ``group_sizes`` whole queries go to one fold."""
     rng = np.random.default_rng(seed)
+    if group_sizes is not None:
+        num_groups = len(group_sizes)
+        gidx = rng.permutation(num_groups) if shuffle else np.arange(num_groups)
+        bounds = np.concatenate([[0], np.cumsum(group_sizes)])
+        folds = []
+        for k in range(nfold):
+            test_idx = np.concatenate(
+                [np.arange(bounds[g], bounds[g + 1]) for g in gidx[k::nfold]])
+            mask = np.zeros(n, bool)
+            mask[test_idx] = True
+            folds.append((np.where(~mask)[0], np.where(mask)[0]))
+        return folds
     if stratified and labels is not None:
         order = np.argsort(labels, kind="stable")
         if shuffle:
@@ -249,7 +264,7 @@ def cv(
             folds = list(folds)
     else:
         folds = _make_folds(n, nfold, labels, use_strat, shuffle,
-                            seed if seed else p.seed)
+                            seed if seed else p.seed, train_set.get_group())
 
     # the fused route: every fold in one device loop, early stopping on the
     # device (the reference's engine.cv, same eligibility and assembly)
@@ -281,10 +296,25 @@ def cv(
         result.best_score = raw if hib else -raw
         return result
 
+    gs_all = train_set.get_group()
+    qid = (np.repeat(np.arange(len(gs_all)), gs_all)
+           if gs_all is not None else None)
+
+    def _subset_groups(idx):
+        """Group sizes of a whole-query row subset (runs of equal query id;
+        group-aware folds keep queries contiguous)."""
+        q = qid[np.asarray(idx)]
+        edges = np.flatnonzero(np.concatenate([[True], q[1:] != q[:-1],
+                                               [True]]))
+        return np.diff(edges)
+
     cvb = CVBooster()
     for train_idx, test_idx in folds:
         dtr = train_set.subset(train_idx)
         dva = train_set.subset(test_idx)
+        if qid is not None:
+            dtr.set_group(_subset_groups(train_idx))
+            dva.set_group(_subset_groups(test_idx))
         b = Booster(p.copy(), dtr)
         b.add_valid(dva, "valid")
         cvb.append(b)

@@ -9,7 +9,9 @@ Every metric reduces over the row axis, so ``pred [E, n]`` with weights
 ``[E, n]`` (``w * valid_mask`` per fold in fused cross-validation) gives one
 value per element ``[E]``, each equal to the metric of that row alone; the
 multiclass metrics (``multi_logloss``, ``multi_error``, in ``multiclass.py``)
-take probabilities ``[..., n, K]``.
+take probabilities ``[..., n, K]``.  The ranking metrics (``ndcg@k``,
+``map@k``) need the query groups and are evaluated by
+``ranking.eval_ranking``.
 """
 
 from __future__ import annotations
@@ -154,18 +156,14 @@ _METRICS: Dict[str, Metric] = {
     "multi_error": Metric("multi_error", False, multi_error),
 }
 
-# the reference's ranking metrics: known, not ported yet
-_LATER = ("ndcg", "map")
-
-
 def get_metric(name: str, params=None) -> Metric:
     """The metric by name; with ``params``, huber and quantile bind
     ``alpha`` and tweedie ``tweedie_variance_power``, as the reference's
-    lookup does."""
-    if name in _LATER:
-        raise NotImplementedError(
-            f"metric '{name}' is not ported yet: ROADMAP slice 3 (breadth "
-            "of training), item 8")
+    lookup does; ``ndcg`` and ``map`` are the grouped metrics'
+    ``ranking.get_ranking_metric`` entries."""
+    if name in ("ndcg", "map"):
+        from .ranking import get_ranking_metric
+        return get_ranking_metric(name, params)
     m = _METRICS.get(name)
     if m is None:
         raise ValueError(f"Unknown metric: {name}")

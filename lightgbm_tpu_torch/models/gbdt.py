@@ -37,8 +37,13 @@ subset splits in every round kind: the Booster builds the dataset's
 :class:`~..ops.split.CatInfo` once (:func:`build_cat_info`) and hands it
 to each grower call, as the reference's ``cat_key`` does.
 
+``objective="lambdarank"`` packs the training Dataset's query groups
+into its objective at setup (``ranking.LambdaRank.set_group``) and takes
+the exact wave tail; ``ndcg@k`` / ``map@k`` are evaluated per query group
+(``ranking.eval_ranking``).
+
 What is outside the port so far raises a ``NotImplementedError`` naming the
-ROADMAP slice and item that will port it: ranking objectives, constraints,
+ROADMAP slice and item that will port it: constraints,
 linear/extra trees, feature screening, streaming, the distributed learners
 and ``init_model``.
 
@@ -289,8 +294,6 @@ def check_slice_scope(p: Params) -> None:
     def later(what: str, where: str):
         raise NotImplementedError(f"{what} is not ported yet: {where}")
 
-    if p.objective in ("lambdarank", "rank_xendcg"):
-        later(f"objective='{p.objective}'", _slice3(8))
     if p.linear_tree:
         later("linear_tree", _slice3(10))
     if p.monotone_constraints and any(int(c) != 0
@@ -368,6 +371,13 @@ class Booster:
         if hasattr(self.obj, "prepare"):
             self.obj.prepare(y_host, w_host)
         n_pad = int(ds.row_mask.shape[0])
+        if getattr(self.obj, "needs_group", False):
+            gs = ds.get_group()
+            if gs is None:
+                raise ValueError(
+                    f"objective '{self.obj.name}' requires query group "
+                    "information: Dataset(X, label=y, group=sizes)")
+            self.obj.set_group(gs, y_host, n_pad, device=self.device)
         k = self._num_class
         if k > 1:
             if ds.get_init_score() is not None:
@@ -806,12 +816,25 @@ class Booster:
         return names
 
     def _eval_on(self, pred_raw, ds: Dataset, name: str):
+        names = self._metric_names()
         out = []
-        t = self.obj.transform(pred_raw)
-        for mname in self._metric_names():
-            m = get_metric(mname, self.params)
-            out.append((name, mname, float(m.fn(t, ds.y, ds.w)),
-                        m.higher_better))
+        # the ranking metrics need the query groups: they take the grouped
+        # path on the raw scores, after the plain metrics, as the reference
+        plain = [m for m in names if m not in ("ndcg", "map")]
+        grouped = tuple(m for m in names if m in ("ndcg", "map"))
+        if plain:
+            t = self.obj.transform(pred_raw)
+            for mname in plain:
+                m = get_metric(mname, self.params)
+                out.append((name, mname, float(m.fn(t, ds.y, ds.w)),
+                            m.higher_better))
+        if grouped:
+            from ..ranking import eval_ranking
+
+            for mname, val, hib in eval_ranking(
+                    pred_raw, ds, self.params.eval_at,
+                    self.params.label_gain, metrics=grouped):
+                out.append((name, mname, val, hib))
         return out
 
     def _feval_results(self, feval, pred_raw, ds, name):

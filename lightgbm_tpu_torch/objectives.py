@@ -10,7 +10,8 @@ two packages agree bit for bit on CPU tensors.  ``regression_l1``,
 ``quantile`` and ``mape`` carry ``renew_alpha`` (and ``mape`` its
 ``renew_scale``): after each tree is grown its leaf values are refit to
 weighted quantiles of the residuals (``models/tree.py``
-``renew_leaf_values``).  A custom objective (``objective=callable``, or
+``renew_leaf_values``).  ``lambdarank`` (and its aliases) is
+``ranking.LambdaRank``.  A custom objective (``objective=callable``, or
 ``objective="none"`` with ``fobj``) is called as ``fobj(pred, y)`` on the
 Booster's tensors (torch, on its device) and must return ``(grad, hess)``
 tensors of the same shape; the row weights are applied after it.
@@ -70,6 +71,64 @@ def link_exp(x: torch.Tensor) -> torch.Tensor:
     """The links' ``exp``: XLA's CPU arithmetic on a CPU tensor (as
     ``prefix_sum`` and ``fma`` copy it), ``torch.exp`` on the card."""
     return xla_exp_f32(x) if x.device.type == "cpu" else torch.exp(x)
+
+
+# XLA's CPU f32 log (Cephes' single-precision logf): the mantissa in
+# [sqrt(1/2), sqrt(2)) minus 1, a degree-8 polynomial with its multiply-adds
+# fused, the exponent's ln 2 in two parts; ``y * x^3 + e * ln2_lo`` is
+# contracted too
+_XLA_LOG_SQRTHF = _f32c(0.707106781186547524)
+_XLA_LOG_POLY = tuple(_f32c(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_XLA_LOG_MIN_NORM = float(np.array(0x00800000, np.int32).view(np.float32))
+# XLA's log2 is log times this constant
+XLA_INV_LN2 = _f32c(1.0 / np.log(2.0))
+
+
+def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 natural ``log`` bit for bit as XLA's CPU backend computes it
+    (``torch.log`` rounds correctly, XLA's differs on about 2 % of
+    inputs); 0 and denormals give -inf, a negative or NaN input NaN."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    x = x.to(torch.float32)
+    m_in = torch.clamp(x, min=_XLA_LOG_MIN_NORM)
+    bits = m_in.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _XLA_LOG_SQRTHF
+    e = e - small.to(torch.float32)
+    m = (m - 1.0) + torch.where(small, m, 0.0)
+    x2 = m * m
+    x3 = x2 * m
+    p = _XLA_LOG_POLY
+    y = fma(m, c(p[0]), c(p[1]))
+    y1 = fma(m, c(p[3]), c(p[4]))
+    y2 = fma(m, c(p[6]), c(p[7]))
+    y = fma(y, m, c(p[2]))
+    y1 = fma(y1, m, c(p[5]))
+    y2 = fma(y2, m, c(p[8]))
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * _XLA_LN2_LO)
+    m = fma(x2, c(-0.5), m) + y
+    out = fma(e, c(_XLA_LN2_HI), m)
+    # denormals are flushed to zero
+    out = torch.where((x >= 0.0) & (x < _XLA_LOG_MIN_NORM), float("-inf"),
+                      out)
+    out = torch.where(x == float("inf"), float("inf"), out)
+    return torch.where((x < 0.0) | torch.isnan(x), float("nan"), out)
+
+
+def link_log2(x: torch.Tensor) -> torch.Tensor:
+    """``log2``: XLA's (its ``log`` times ``XLA_INV_LN2``) on a CPU tensor,
+    ``torch.log2`` on the card."""
+    if x.device.type == "cpu":
+        return xla_log_f32(x) * XLA_INV_LN2
+    return torch.log2(x)
 
 
 def mul_add(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
@@ -329,16 +388,6 @@ class Binary(Objective):
         return sigmoid(_f32(self.params.sigmoid, raw) * raw)
 
 
-class LambdaRank(Objective):
-    name = "lambdarank"
-    needs_group = True
-
-    def grad_hess(self, pred, y, w):
-        raise NotImplementedError(
-            "training with objective 'lambdarank' is not ported yet: ROADMAP "
-            "slice 3 (breadth of training), item 8")
-
-
 class CustomObjective(Objective):
     """A user ``fobj(pred, y) -> (grad, hess)``; raw scores are served
     untransformed."""
@@ -366,7 +415,6 @@ _REGISTRY: Dict[str, type] = {
     "tweedie": Tweedie,
     "cross_entropy": CrossEntropy,
     "binary": Binary,
-    "lambdarank": LambdaRank,
 }
 
 
@@ -381,6 +429,9 @@ def create_objective(params: Params) -> Objective:
         cls = MulticlassOVA if params.objective == "multiclassova" else \
             Multiclass
         return cls(params)
+    if params.objective == "lambdarank":
+        from .ranking import LambdaRank
+        return LambdaRank(params)
     cls = _REGISTRY.get(params.objective)
     if cls is None:
         raise ValueError(f"Unsupported objective: {params.objective}")

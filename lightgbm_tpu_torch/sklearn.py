@@ -1,7 +1,8 @@
 """scikit-learn style estimators — the port of ``lightgbm_tpu/sklearn.py``.
 
 ``LGBMModel``, ``LGBMRegressor``, ``LGBMClassifier`` (binary and multiclass,
-``predict_proba``) and ``LGBMRandomForestRegressor``, the bagging side of
+``predict_proba``), ``LGBMRanker`` (``fit(group=, eval_group=, eval_at=)``)
+and ``LGBMRandomForestRegressor``, the bagging side of
 examples/bagging_boosting.py (``RandomForestRegressor(n_estimators,
 max_leaf_nodes, max_features, random_state)``): ``boosting="rf"`` with
 sklearn's ``max_features`` as ``feature_fraction_bynode``.  The estimators
@@ -14,7 +15,7 @@ anything else beyond numpy and the port.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -139,8 +140,8 @@ class LGBMModel:
         early_stopping_rounds: Optional[int] = None,
         callbacks: Optional[List[Callable]] = None,
     ) -> "LGBMModel":
-        """Train on ``X``, ``y`` (``group``/``eval_group`` are ranking's and
-        raise by name, ROADMAP item 8)."""
+        """Train on ``X``, ``y``; ``group``/``eval_group`` are the query
+        sizes of the training and eval sets (ranking)."""
         y_arr = np.asarray(y, dtype=np.float64).reshape(-1)
         y_fit = self._process_label(y_arr)  # may learn classes_ first
         params = self._resolved_params()
@@ -291,14 +292,35 @@ class LGBMClassifier(LGBMModel):
 
 
 class LGBMRanker(LGBMModel):
-    """Ranking estimator: refused by name until ranking is ported."""
+    """Ranking estimator: ``lambdarank`` over the query groups of
+    ``fit(group=)``; ``predict`` returns raw scores to order each query
+    by."""
 
     _objective_default = "lambdarank"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LGBMRanker (ranking objectives) is not ported yet: ROADMAP "
-            "slice 3 (breadth of training), item 8")
+    def fit(self, X, y, sample_weight=None, init_score=None, group=None,
+            eval_set=None, eval_names=None, eval_sample_weight=None,
+            eval_group=None, eval_metric=None,
+            eval_at: Optional[Sequence[int]] = None,
+            early_stopping_rounds: Optional[int] = None,
+            callbacks: Optional[List[Callable]] = None) -> "LGBMRanker":
+        """:meth:`LGBMModel.fit` with the ranking metrics' cut-offs
+        ``eval_at`` (None keeps the params' ``eval_at``, 1 to 5 by
+        default); ``eval_group`` holds one group array per ``eval_set``
+        entry."""
+        self._eval_at = None if eval_at is None else [int(k) for k in eval_at]
+        return super().fit(
+            X, y, sample_weight=sample_weight, init_score=init_score,
+            group=group, eval_set=eval_set, eval_names=eval_names,
+            eval_sample_weight=eval_sample_weight, eval_group=eval_group,
+            eval_metric=eval_metric,
+            early_stopping_rounds=early_stopping_rounds, callbacks=callbacks)
+
+    def _resolved_params(self) -> Dict[str, Any]:
+        p = super()._resolved_params()
+        if getattr(self, "_eval_at", None) is not None:
+            p["eval_at"] = list(self._eval_at)
+        return p
 
 
 class LGBMRandomForestRegressor(LGBMRegressor):

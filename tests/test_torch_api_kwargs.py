@@ -7,7 +7,8 @@ without a refusal that cites its ROADMAP item.
     examples/bagging_boosting.py calls) in both packages, and the port's
     values equal the reference's within the parity regime;
 (b) every parameter of the reference's public callables on this path is
-    named by the port's, or refused by name with its item;
+    named by the port's, or refused by name with its item (the ranking
+    parameters ``group``/``eval_group`` take the query groups);
 (c) the package's, ``Dataset``'s and ``BinMapper``'s public names, the
     lazy serving and estimator attributes included.
 """
@@ -67,13 +68,14 @@ def test_ntree_limit_is_the_staged_prediction(c3_models, k):
 
 # parameters the port names but refuses, each with the item that ports it
 REFUSED = {
-    ("Dataset.__init__", "group"): "item 8",
     ("train", "init_model"): "item 10",
     ("Booster.predict", "pred_leaf"): "item 10",
     ("Booster.predict", "pred_contrib"): "item 10",
-    ("LGBMModel.fit", "group"): "item 8",
-    ("LGBMModel.fit", "eval_group"): "item 8",
 }
+# parameters that were refused until ranking was ported (item 8): each now
+# takes its query groups
+RANKING_PARAMS = (("Dataset.__init__", "group"), ("LGBMModel.fit", "group"),
+                  ("LGBMModel.fit", "eval_group"))
 # parameters the port adds: the entry points' device
 PORT_ONLY = {"device"}
 
@@ -117,36 +119,43 @@ def test_refused_parameters_cite_their_item():
     b = P.train({"objective": "binary", "num_leaves": 4, "verbose": -1},
                 ds, 1)
     calls = {
-        ("Dataset.__init__", "group"): lambda: P.Dataset(
-            X, label=y, device="cpu", group=[100, 100]),
         ("train", "init_model"): lambda: P.train(
             {"objective": "binary"}, ds, 1, init_model=b),
         ("Booster.predict", "pred_leaf"): lambda: b.predict(
             X, pred_leaf=True),
         ("Booster.predict", "pred_contrib"): lambda: b.predict(
             X, pred_contrib=True),
-        ("LGBMModel.fit", "group"): lambda: PS.LGBMRegressor(
-            device="cpu").fit(X, y, group=[100, 100]),
-        ("LGBMModel.fit", "eval_group"): lambda: PS.LGBMRegressor(
-            n_estimators=1, device="cpu").fit(
-                X, y, eval_set=[(X, y)], eval_group=[[200]]),
     }
     assert set(calls) == set(REFUSED)
     for key, call in calls.items():
         with pytest.raises(NotImplementedError, match=REFUSED[key]):
             call()
+    # the ranking parameters take the query groups now
+    taken = {
+        ("Dataset.__init__", "group"): lambda: P.Dataset(
+            X, label=y, device="cpu", group=[100, 100]).get_group(),
+        ("LGBMModel.fit", "group"): lambda: PS.LGBMRanker(
+            n_estimators=1, min_child_samples=5, device="cpu").fit(
+                X, y, group=[100, 100]).booster_.train_set.get_group(),
+        ("LGBMModel.fit", "eval_group"): lambda: PS.LGBMRanker(
+            n_estimators=1, min_child_samples=5, device="cpu").fit(
+                X, y, group=[100, 100], eval_set=[(X, y)],
+                eval_group=[[200]]).booster_._valid[0][1].get_group(),
+    }
+    assert set(taken) == set(RANKING_PARAMS)
+    for key, call in taken.items():
+        assert call().sum() == 200, key
 
 
 # public names of the reference with no counterpart yet, by item
 NAME_GAPS = {
     "plot_importance": "item 10", "plot_metric": "item 10",
     "create_tree_digraph": "item 10", "plot_split_value_histogram": "item 10",
-    "LGBMRanker": "item 8",
 }
 DATASET_GAPS = {"save_binary": "item 10"}
 LAZY = ("serving", "sklearn", "PackedForest", "PredictorRuntime",
         "MicroBatcher", "pack_booster", "LGBMModel", "LGBMRegressor",
-        "LGBMClassifier", "LGBMRandomForestRegressor")
+        "LGBMClassifier", "LGBMRanker", "LGBMRandomForestRegressor")
 
 
 def test_package_public_names():
@@ -157,6 +166,13 @@ def test_package_public_names():
             getattr(P, name)()       # the estimator refuses on construction
     assert P.Params is P.config.Params
     assert P.sklearn.LGBMRandomForestRegressor is P.LGBMRandomForestRegressor
+    # the ranker (refused until item 8) constructs with the reference's
+    # objective and parameters
+    assert P.LGBMRanker is P.sklearn.LGBMRanker
+    est = P.LGBMRanker(n_estimators=3)
+    assert est._resolved_params()["objective"] == "lambdarank"
+    assert est.get_params() == {**R.LGBMRanker(n_estimators=3).get_params(),
+                                "device": None}
 
 
 def test_dataset_and_bin_mapper_public_names():
@@ -185,10 +201,15 @@ def test_dataset_and_bin_mapper_public_names():
                                   (2 * y).astype(np.float32))
     pd.set_field("label", y)
     np.testing.assert_array_equal(pd.get_field("label"), y)
-    for call in (pd.get_group, lambda: pd.set_group([300]),
-                 lambda: pd.get_field("group")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    # the group fields (refused until item 8) hold the query sizes
+    assert pd.get_group() is None
+    pd.set_group([100, 200])
+    np.testing.assert_array_equal(pd.get_field("group"), [100, 200])
+    np.testing.assert_array_equal(pd.group_id[:300].numpy(),
+                                  np.repeat([0, 1], [100, 200]))
+    rd.set_group([100, 200])
+    np.testing.assert_array_equal(pd.group_id.numpy(),
+                                  np.asarray(rd.group_id))
     valid = pd.create_valid(X[:50], label=y[:50])
     valid.construct()
     assert valid.bin_mapper is pd.bin_mapper and valid.device == pd.device

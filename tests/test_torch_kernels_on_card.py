@@ -31,6 +31,10 @@ GOSS and DART: the compacted selection on the card equals the CPU's with
 no host read; GOSS's compacted rows and DART's dropped rounds train on the
 wave grower, kernel path structure-equal to the plain path.
 
+Ranking: the lambda pass on the card against the CPU's on both routes
+with no host read, and a lambdarank round through B1/B2 against the plain
+path.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1249,3 +1253,109 @@ def test_categorical_scan_reads_nothing_back_on_card():
     assert bool(card.cat.any())
     for name, a in cpu._asdict().items():
         assert torch.equal(a, getattr(card, name).cpu()), name
+
+
+def _ranked(sizes, f, seed):
+    """Query-grouped rows: graded labels 0-4 from each query's utility
+    ranks (the shape of the reference's ranking test data)."""
+    rng = np.random.default_rng(seed)
+    n = int(sizes.sum())
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    u = X[:, 0] + np.sin(2 * X[:, 1]) + 0.3 * rng.normal(size=n)
+    y = np.zeros(n)
+    start = 0
+    for s in sizes:
+        r = u[start:start + s].argsort().argsort()
+        y[start:start + s] = np.minimum(4, (5 * r) // s)
+        start += s
+    return X, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["uniform", "ragged"])
+def test_lambdarank_grad_hess_on_card_vs_cpu(route):
+    """LambdaRank's pair pass on the card (plain torch ops: ``torch.exp``,
+    ``torch.log2``, ``torch.sum``) against the CPU's (XLA's rounding), with
+    no host read (PyTorch's sync debug mode "error"): the uniform route at
+    MSLR's 100 documents (truncation 100) and the ragged route over three
+    query chunks (20-220 documents).  Tolerance: a gradient within 1e-4 of
+    its query's largest |gradient| (a row's lambdas cancel, and 1 - p
+    cancels where p is near 1, so ulps of ``exp`` and of the sum order
+    reach 1.1e-5 of it), a hessian within rtol 1e-4."""
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.ranking import LambdaRank
+
+    dev = _card()
+    rng = np.random.default_rng(71)
+    sizes = (np.full(300, 100) if route == "uniform"
+             else rng.integers(20, 221, 800))
+    _, y = _ranked(sizes, 2, 72)
+    n = int(sizes.sum())
+    n_pad = n + 5
+    yp = np.zeros(n_pad, np.float32)
+    yp[:n] = y
+    pred = (0.5 * rng.normal(size=n_pad)).astype(np.float32)
+    w = np.ones(n_pad, np.float32)
+    params = parse_params(dict(objective="lambdarank",
+                               lambdarank_truncation_level=100))
+    out = {}
+    for d in ("cpu", dev):
+        obj = LambdaRank(params)
+        obj.set_group(sizes, yp, n_pad, device=d)
+        args = [torch.from_numpy(a).to(d) for a in (pred, yp, w)]
+        if d == "cpu":
+            out[d] = obj.grad_hess(*args)
+            continue
+        assert (obj._packed["uniform"] is not None) == (route == "uniform")
+        assert route == "uniform" or -(-len(sizes) // obj.query_chunk) == 3
+        obj.grad_hess(*args)                                     # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out["card"] = obj.grad_hess(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    (gc, hc), (gd, hd) = ([t.cpu().numpy() for t in p]
+                          for p in (out["cpu"], out["card"]))
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    qmax = np.zeros(len(sizes))
+    np.maximum.at(qmax, qid, np.abs(gc[:n]))
+    assert (np.abs(gd[:n] - gc[:n]) <= 1e-4 * qmax[qid]).all()
+    np.testing.assert_allclose(hd, hc, rtol=1e-4, atol=0)
+    # padding rows: no lambda, the hessian floor 2e-3 (times w = 1 here)
+    assert (gd[n:] == 0).all() and (hd[n:] == np.float32(2e-3)).all()
+
+
+@pytest.mark.gpu
+def test_lambdarank_round_kernel_vs_plain_on_card():
+    """One lambdarank round on the wave grower through B1 (the root) and B2
+    (the waves): the kernel path's tree structure-equal to the plain
+    path's, leaves within rtol 1e-5 (atol 1e-5, ROADMAP C.5), and the
+    held-out NDCG@10 of three rounds within 1e-4."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_PARTITION_LAUNCHES)
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    sizes = np.random.default_rng(73).integers(10, 41, 400)
+    X, y = _ranked(sizes, 12, 74)
+    p = dict(objective="lambdarank", num_leaves=31, min_data_in_leaf=20,
+             hist_dtype="bf16", eval_at=[10], verbosity=-1)
+    for c in (HIST_FUSED_LAUNCHES["bf16"], HIST_PARTITION_LAUNCHES["bf16"]):
+        c.reset()
+    runs = []
+    for impl in ("auto", "plain"):
+        ds = lgb.Dataset(X, label=y, group=sizes, device=dev)
+        runs.append(lgb.train(dict(p, hist_impl=impl), ds, 3,
+                              valid_sets=[ds]))
+        if impl == "auto":
+            assert HIST_FUSED_LAUNCHES["bf16"].count > 0
+            assert HIST_PARTITION_LAUNCHES["bf16"].count > 0
+    a, b = (tree_to_arrays(r.trees[0]) for r in runs)
+    for k in ("split_feature", "split_bin", "left", "right", "is_leaf"):
+        assert np.array_equal(a[k], b[k]), k
+    np.testing.assert_allclose(a["leaf_value"], b["leaf_value"], rtol=RTOL,
+                               atol=1e-5)
+    ndcg = [r.eval_train()[0][2] for r in runs]
+    assert abs(ndcg[0] - ndcg[1]) <= 1e-4, ndcg

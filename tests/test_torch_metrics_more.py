@@ -10,8 +10,9 @@ the CPU, against the JAX package.
   give one value per element, each equal to that row's own metric.
 * The metrics through ``train(valid_sets=...)``: ``evals_result`` within
   rtol 1e-5 of the reference's over five rounds.
-* ``ndcg`` and ``map`` are still refused by name (ROADMAP item 8); an
-  unknown name raises the reference's ``ValueError``.
+* ``ndcg`` and ``map`` resolve to the reference's registry entries, whose
+  plain call refuses without query groups; an unknown name raises the
+  reference's ``ValueError``.
 """
 
 import jax
@@ -113,9 +114,16 @@ def test_metrics_through_train_valid_sets(objective, metrics):
 
 
 def test_ranking_metrics_refused_by_item_and_unknown_names():
+    # ndcg and map are ported (ROADMAP item 8): their registry entries are
+    # the reference's, and the plain (pred, y, w) call refuses as its does,
+    # since the values need the query groups (``ranking.eval_ranking``)
     for name in ("ndcg", "map"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            p_metric(name)
+        got, want = p_metric(name), r_metric(name)
+        assert (got.name, got.higher_better) == (want.name,
+                                                 want.higher_better)
+        for m in (got, want):
+            with pytest.raises(ValueError, match="group"):
+                m.fn(None, None, None)
     for name in ("fair", "no_such_metric"):
         with pytest.raises(ValueError, match="Unknown metric"):
             p_metric(name)

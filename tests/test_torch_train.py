@@ -224,7 +224,9 @@ OUT_OF_SLICE = {
     # name
     "multiclass": {"objective": "multiclass", "num_class": 3,
                    "boosting": "dart", "tree_learner": "data"},
-    "lambdarank": {"objective": "lambdarank"},
+    # ranking trains since its slice (a Dataset with group=); under a
+    # learner outside the slice it still raises by name
+    "lambdarank": {"objective": "lambdarank", "tree_learner": "data"},
     # the remaining objectives and bf16sr train since their slice; under a
     # learner outside the slice they still raise by name
     "poisson": {"objective": "poisson", "tree_learner": "data"},
@@ -274,8 +276,14 @@ def test_out_of_slice_datasets_and_init_model(small_set, tmp_path):
                  dc, 2)
     assert all(t.is_cat_split is not None for t in bc.trees)
     assert bool(torch.stack([t.is_cat_split for t in bc.trees]).any())
-    with pytest.raises(NotImplementedError, match="group"):
-        P.Dataset(X, label=y, device="cpu", group=[2048, 2048])
+    # query groups train (ROADMAP item 8): a grouped Dataset constructs,
+    # holds its per-row query ids and trains lambdarank
+    dg = P.Dataset(X, label=y, device="cpu", group=[2048, 2048])
+    assert np.array_equal(dg.get_group(), [2048, 2048])
+    bg = P.train({"objective": "lambdarank", "num_leaves": 7, "verbose": -1,
+                  "eval_at": [5]}, dg, 2, valid_sets=[dg])
+    assert int(dg.group_id.max()) == 1 and bg.num_trees() == 2
+    assert [r[1] for r in bg.eval_train()] == ["ndcg@5"]
     with pytest.raises(NotImplementedError, match="slice 5"):
         P.Dataset.from_blocks([X])
     ds = P.Dataset(X, label=y, device="cpu")
