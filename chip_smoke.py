@@ -289,7 +289,33 @@ Phases:
    eval_set=, eval_group=, eval_at=[10])`` on (a)'s data, 20 rounds, its
    text model reloaded and served by B4 within 1e-5; a 12-round
    ``train_resumable`` killed by SIGTERM after round index 6 and resumed,
-   bit for bit as the uninterrupted run.
+   bit for bit as the uninterrupted run;
+19. constraints and randomized splits, every launch counter at 0 just
+   before each run and read just after: (a) the north star with
+   ``monotone_constraints`` +1 on columns 6 and 14 and -1 on column 17, 10
+   rounds through the kernels and the plain versions (B1 roots, B2 waves,
+   no plain-version call on the kernel path): AUC on
+   ``make_higgs_like(200,000, seed=9)`` within 1e-4, the round-1 trees on a
+   dyadic label equal and their overgrown node tables equal too (the bounds
+   included), 1,000 held-out rows swept over every bin of each constrained
+   column with the raw score never moving against the sign, exactly, on
+   both paths; seconds a round beside phase 6's unconstrained round and
+   against unconstrained rounds in turns, a profiled round; (b)
+   ``extra_trees`` at the north star, 10 rounds: the rand-bin table of
+   every round drawn on the card equal to the CPU's bit for bit, the dyadic
+   round-1 trees equal, AUC within 1e-4, no host-sync site and no more
+   syncs beyond the one per wave than an unconstrained round; (c)
+   ``interaction_constraints`` of four groups of seven columns, 10 rounds:
+   no root-to-leaf path across groups, the dyadic round-1 trees equal, AUC
+   within 1e-4; (d) examples/advanced_features.py's monotone call (seed 7,
+   4,000 training rows, ``[1, -1, 0, 0, 0]``, 60 rounds) as called (its
+   rows pad to 4,096: the wave grower, B2) and on the strict grower (B1
+   pairs, B3 never; 20 rounds): held-out RMSE within 1e-5 of the plain
+   path, the raw score monotone over the held-out rows' sweeps, CUDA-event
+   ms a split iteration and of the unfused body's scan; (e) multiclass at
+   Covertype's shape with its first column constrained, 3 rounds (B6 roots,
+   B5 waves): ``multi_logloss`` within 1e-4; (f) (a)'s model served by B4
+   within 1e-5 of ``Booster.predict``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -467,6 +493,17 @@ RANK_CV_PARAMS = {"objective": "lambdarank", "num_leaves": 7,
                   "min_data_in_leaf": 5, "learning_rate": 0.3,
                   "eval_at": [5], "verbosity": -1}
 RANKER_ROUNDS = 20
+# phase 19: constraints at the north star; the monotone columns are three of
+# make_higgs_like's purely linear ones (its weights 2.41, 1.43 and -1.42)
+MONO_NS = [0] * NUM_FEATURES
+MONO_NS[6], MONO_NS[14], MONO_NS[17] = 1, 1, -1
+IC_GROUPS = [list(range(g, g + 7)) for g in range(0, NUM_FEATURES, 7)]
+MONO_SWEEP_ROWS, MONO_SERVE_ROWS, MONO_MC_ROUNDS = 1000, 16_384, 3
+ADV_ROUNDS = 60            # examples/advanced_features.py's num_boost_round
+# 19d's strict-grower runs are cut to 20 rounds on both paths (the unfused
+# body takes ~8 ms a split iteration on the card), so phase 19 fits its
+# 60-75 s
+ADV_STRICT_ROUNDS = 20
 
 
 def fail(msg: str) -> None:
@@ -5144,6 +5181,423 @@ def phase_ranking(dev, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: constraints and randomized splits
+# ---------------------------------------------------------------------------
+def overgrown_tables(fn):
+    """``fn()`` and the packed node tables every exact-tail wave tree held
+    before its prune (bounds included), read back to the host."""
+    import lightgbm_tpu_torch.models.tree as T
+
+    orig, tables = T._exact_prune, []
+
+    def spy(P, *a, **k):
+        tables.append(P.detach().cpu().numpy().copy())
+        return orig(P, *a, **k)
+
+    T._exact_prune = spy
+    try:
+        out = fn()
+    finally:
+        T._exact_prune = orig
+    return out, tables
+
+
+def monotone_sweep(booster, rows, mono):
+    """Each of ``rows`` (binned, on the card) swept over every bin of each
+    constrained column: the steps of the raw score against the column's
+    sign; the smallest step per column (never below 0 when monotone).  The
+    forest is summed in one fixed order for every row, and f32 rounding is
+    monotone, so the check is exact."""
+    from lightgbm_tpu_torch.ops.predict import predict_forest_binned
+
+    forest = booster._stacked_forest()
+    n_bins = booster.train_set.bin_mapper.n_bins
+    out = {}
+    for f, sign in enumerate(mono):
+        if sign == 0:
+            continue
+        nb = int(n_bins[f])
+        grid = rows.repeat_interleave(nb, dim=0)
+        grid[:, f] = torch.arange(nb, device=rows.device,
+                                  dtype=grid.dtype).repeat(rows.shape[0])
+        raw = predict_forest_binned(
+            forest, grid, booster._shrink, float(booster.init_score_),
+            len(booster.trees), booster._depth_cap).reshape(-1, nb)
+        step = torch.diff(raw.double(), dim=1) * sign
+        out[f] = float(step.min())
+    return out
+
+
+def paths_outside_groups(booster, groups):
+    """The root-to-leaf paths of the forest that split on columns of more
+    than one interaction group."""
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    bad = 0
+    for t in booster.trees:
+        a = tree_to_arrays(t)
+        stack = [(0, frozenset())]
+        while stack:
+            node, used = stack.pop()
+            if a["is_leaf"][node] or a["left"][node] < 0:
+                bad += not any(used <= set(g) for g in groups)
+                continue
+            used = used | {int(a["split_feature"][node])}
+            stack += [(int(a["left"][node]), used),
+                      (int(a["right"][node]), used)]
+    return bad
+
+
+def dyadic_label(X, seed):
+    """y in {0, 1} with exactly half ones: every round-1 l2 statistic is
+    +-0.5 or 1, so every histogram sum is exact on both paths."""
+    w = np.random.default_rng(seed).normal(0, 1, X.shape[1])
+    order = np.argsort(X @ w + 0.6 * np.sin(X[:, 0] * 2), kind="stable")
+    yd = np.zeros(len(X), np.float32)
+    yd[order[len(X) // 2:]] = 1.0
+    return yd
+
+
+def constrained_runs(lgb, ds, params, dsd, tag, launches, Xv, yv, dev):
+    """One option at the north star: kernel and plain paths (10 rounds
+    each, the kernel path first), AUC, and the dyadic round-1 trees and
+    overgrown tables (bounds included) of both paths."""
+    runs, boosters = {}, {}
+    for path, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(dict(params, **extra), ds, TRAIN_ROUNDS))
+        runs[path] = {"s_per_round": secs / TRAIN_ROUNDS, "counts": counts,
+                      "plain_calls": plain, "auc": auc(b, Xv, yv, dev)}
+        boosters[path] = b
+        log(f"phase {tag} {path}: {TRAIN_ROUNDS} rounds in {secs:.2f} s, "
+            f"AUC {runs[path]['auc']:.6f}, launches {json.dumps(counts)}, "
+            f"plain calls {plain}")
+    k = runs["kernels"]
+    check(k["counts"]["hist_fused_bf16"] == TRAIN_ROUNDS
+          and k["counts"]["hist_partition_bf16"] > TRAIN_ROUNDS
+          and k["plain_calls"] == 0 and k["counts"]["split_iter"] == 0,
+          f"{tag} kernel path (B1 roots, B2 waves): launches {k['counts']},"
+          f" plain calls {k['plain_calls']}")
+    check(sum(v for n, v in runs["plain"]["counts"].items()
+              if n.startswith("hist_")) == 0,
+          f"{tag}: hist_impl='plain' launched a histogram kernel")
+    add_launches(launches, k["counts"])
+    d_auc = k["auc"] - runs["plain"]["auc"]
+    check(abs(d_auc) <= AUC_TOL, f"{tag} AUC kernel - plain {d_auc:.2e}")
+    pd_ = dict(params, objective="regression", hist_dtype="f32")
+    dy = {}
+    for path, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, tables = overgrown_tables(
+            lambda: lgb.train(dict(pd_, **extra), dsd, 1))
+        dy[path] = (tree_arrays(b, 0), tables)
+    (a, ta), (b, tb) = dy["kernels"], dy["plain"]
+    check(a.keys() == b.keys() and all(np.array_equal(a[f], b[f])
+                                       for f in a),
+          f"{tag}: the dyadic round-1 trees of the kernel and plain paths "
+          "differ")
+    check(len(ta) == len(tb) == 1 and np.array_equal(ta[0], tb[0]),
+          f"{tag}: the dyadic overgrown tables (bounds included) differ")
+    out = {"s_per_round": {p: r["s_per_round"] for p, r in runs.items()},
+           "auc": {p: r["auc"] for p, r in runs.items()},
+           "auc_kernel_minus_plain": d_auc, "launches": k["counts"],
+           "dyadic_round1_equal": True,
+           "dyadic_leaves": int(a["num_leaves"])}
+    return out, boosters, ta[0]
+
+
+def phase_mono_north_star(dev, ds, dsd, Xv, yv, workdir, launches,
+                          unconstrained):
+    """19a and 19f: the north star with monotone constraints, its sweep,
+    a profiled round, and the model served by B4."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.tree import _PK
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    params = dict(TRAIN_PARAMS, monotone_constraints=MONO_NS)
+    out, boosters, table = constrained_runs(lgb, ds, params, dsd, "19a",
+                                            launches, Xv, yv, dev)
+    bounded = int(np.isfinite(table[:, _PK.BOUND_LO]).sum()
+                  + np.isfinite(table[:, _PK.BOUND_HI]).sum())
+    check(bounded > 0, "19a: no bounded node in the dyadic tree")
+    rows = ds.bin_mapper.transform(Xv[:MONO_SWEEP_ROWS])
+    rows = torch.from_numpy(rows).to(dev)
+    sweeps = {p: monotone_sweep(b, rows, MONO_NS)
+              for p, b in boosters.items()}
+    check(all(v >= 0 for s in sweeps.values() for v in s.values()),
+          f"19a: the raw score moves against a constraint: {sweeps}")
+    out["sweep_min_step"] = sweeps
+    out["bounded_dyadic_nodes"] = bounded
+    out["unconstrained_s_per_round"] = unconstrained
+    # the monotone round against an unconstrained one on this Dataset, in
+    # turns (unconstrained, monotone, monotone, unconstrained)
+    turns = {"unconstrained": [], "monotone": []}
+    for tag in ("unconstrained", "monotone", "monotone", "unconstrained"):
+        p = params if tag == "monotone" else TRAIN_PARAMS
+        secs = counted_run(lambda: lgb.train(p, ds, TRAIN_ROUNDS))[1]
+        turns[tag].append(secs / TRAIN_ROUNDS)
+    out["s_per_round_in_turns"] = turns
+    out["round_breakdown"] = profile_rounds(lgb, ds, params,
+                                            tag="phase 19a")
+    # 19f: served by B4
+    bk = boosters["kernels"]
+    rt = PredictorRuntime(pack_booster(bk), max_bucket=MAX_BUCKET)
+    served, serve_s, counts, _ = counted_run(
+        lambda: rt.predict(Xv[:MONO_SERVE_ROWS]))
+    want = bk.predict(Xv[:MONO_SERVE_ROWS])
+    sdiff = float(np.abs(served - want).max())
+    check(counts["predict_forest"] > 0, f"19f: B4 never launched ({counts})")
+    check(sdiff <= 1e-5, f"19f served vs Booster.predict {sdiff:.2e}")
+    add_launches(launches, counts)
+    out["serve"] = {"rows": MONO_SERVE_ROWS, "s": serve_s,
+                    "max_abs_diff": sdiff,
+                    "b4_launches": counts["predict_forest"]}
+    log(f"phase 19a/f: {json.dumps(out)}")
+    return out
+
+
+def phase_extra_trees_north_star(dev, ds, dsd, Xv, yv, launches):
+    """19b: extra-trees at the north star; its rand-bin table on the card
+    against the CPU's, and its host syncs against an unconstrained
+    round's."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.gbdt import (extra_trees_col_bins,
+                                                resolve_wave_width)
+    from lightgbm_tpu_torch.models.tree import (decode_wave_width,
+                                                rand_bin_table)
+    from lightgbm_tpu_torch.utils.random import key_tensor
+
+    params = dict(TRAIN_PARAMS, extra_trees=True)
+    out, _, _ = constrained_runs(lgb, ds, params, dsd, "19b", launches, Xv,
+                                 yv, dev)
+    # the table a round draws (the exact tail's overgrown capacity)
+    b = lgb.Booster(params, ds)
+    _, _, over = decode_wave_width(resolve_wave_width(
+        b.params, int(ds.row_mask.shape[0])))
+    cap = 2 * max(NUM_LEAVES + 1, int(over or 0)) - 1
+    colb = torch.tensor(extra_trees_col_bins(ds.bin_mapper))
+    keys = [b._round_key(i) for i in range(TRAIN_ROUNDS)]
+    card = rand_bin_table(key_tensor(keys, dev), NUM_FEATURES, MAX_BIN + 1,
+                          colb.to(dev), cap)
+    cpu = rand_bin_table(key_tensor(keys, "cpu"), NUM_FEATURES,
+                         MAX_BIN + 1, colb, cap)
+    check(torch.equal(card.cpu(), cpu),
+          "19b: the rand-bin table on the card differs from the CPU's")
+    syncs = {"extra_trees": syncs_per_round(lgb, params, ds),
+             "unconstrained": syncs_per_round(lgb, TRAIN_PARAMS, ds)}
+    se, su = syncs["extra_trees"], syncs["unconstrained"]
+    check(set(se["sites"]) <= set(su["sites"])
+          and se["syncs_per_round"] - se["waves_per_round"]
+          <= su["syncs_per_round"] - su["waves_per_round"],
+          f"19b host syncs: extra_trees {se}, unconstrained {su}")
+    out["rand_bin_table"] = {"shape": list(cpu.shape), "equal_cpu": True}
+    out["host_syncs"] = syncs
+    log(f"phase 19b: {json.dumps(out)}")
+    return out
+
+
+def phase_interaction_north_star(dev, ds, dsd, Xv, yv, launches):
+    """19c: four interaction groups of seven columns at the north star."""
+    import lightgbm_tpu_torch as lgb
+
+    params = dict(TRAIN_PARAMS, interaction_constraints=IC_GROUPS)
+    out, boosters, _ = constrained_runs(lgb, ds, params, dsd, "19c",
+                                        launches, Xv, yv, dev)
+    bad = {p: paths_outside_groups(b, IC_GROUPS)
+           for p, b in boosters.items()}
+    check(not any(bad.values()), f"19c: paths across groups {bad}")
+    out["paths_across_groups"] = bad
+    log(f"phase 19c: {json.dumps(out)}")
+    return out
+
+
+def advanced_features_data():
+    """examples/advanced_features.py's data: seed 7, 5,000 rows x 5, the
+    first 4,000 for training."""
+    rng = np.random.default_rng(7)
+    n = 5000
+    X = rng.normal(size=(n, 5)).astype(np.float32)
+    y = (1.2 * X[:, 0] - 0.8 * X[:, 1]
+         + np.where(X[:, 2] > 0, 2.0 * X[:, 2], 0.3 * X[:, 2])
+         + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return X, y
+
+
+def split_iteration_events(fn):
+    """``fn()`` with CUDA events around every call of the unfused strict
+    body's split scan (``split_iter_plain``) and around the whole call:
+    (result, scan ms per call, calls, total event ms)."""
+    import lightgbm_tpu_torch.models.tree as T
+
+    orig, pairs = T.split_iter_plain, []
+
+    def timed(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(*a, **k)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    T.split_iter_plain = timed
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        T.split_iter_plain = orig
+    scan = [s.elapsed_time(e) for s, e in pairs]
+    return (out, float(np.mean(scan)) if scan else 0.0, len(scan),
+            start.elapsed_time(end))
+
+
+def phase_advanced_features(dev, launches):
+    """19d: examples/advanced_features.py's monotone call (its data, its
+    params, 60 rounds) as the script calls it, and again on the strict
+    grower (``grow_policy="leafwise"``): the example's 4,000 rows pad to
+    4,096, which takes the wave grower by the default rule."""
+    import lightgbm_tpu_torch as lgb
+
+    X, y = advanced_features_data()
+    tr, te = slice(0, 4000), slice(4000, None)
+    params = {"objective": "regression", "verbosity": -1,
+              "monotone_constraints": [1, -1, 0, 0, 0]}
+    out = {}
+    for grower, extra, rounds in (
+            ("as_called", {}, ADV_ROUNDS),
+            ("strict", {"grow_policy": "leafwise"}, ADV_STRICT_ROUNDS)):
+        res = {}
+        for path, imp in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+            ds = lgb.Dataset(X[tr], label=y[tr])
+            skip = ("split_iter_plain",) if grower == "strict" else ()
+            (b, scan_ms, scans, ev_ms), secs, counts, plain = counted_run(
+                lambda: split_iteration_events(lambda: lgb.train(
+                    dict(params, **extra, **imp), ds, rounds)),
+                skip=skip)
+            pred = b.predict(X[te])
+            rmse_ = float(np.sqrt(np.mean((pred.astype(np.float64)
+                                           - y[te]) ** 2)))
+            splits = sum(int(t.num_leaves) - 1 for t in b.trees)
+            res[path] = {"s": secs, "rmse": rmse_, "counts": counts,
+                         "plain_calls": plain, "split_iterations": splits,
+                         "event_ms": ev_ms,
+                         "event_ms_per_split_iteration": ev_ms / splits,
+                         "scan_event_ms_per_call": scan_ms,
+                         "scan_calls": scans, "booster": b}
+            log(f"phase 19d {grower} {path}: {rounds} rounds in "
+                f"{secs:.2f} s, RMSE {rmse_:.7f}, launches "
+                f"{json.dumps(counts)}, plain calls {plain}, "
+                f"{ev_ms / splits:.3f} event ms a split iteration")
+        k = res["kernels"]
+        check(k["plain_calls"] == 0 and k["counts"]["split_iter"] == 0,
+              f"19d {grower}: plain calls {k['plain_calls']}, B3 launched "
+              f"{k['counts']['split_iter']} times")
+        if grower == "strict":
+            check(k["counts"]["hist_fused_f32"] >= rounds
+                  and k["scan_calls"] > 0,
+                  f"19d strict: B1 pairs {k['counts']}")
+        else:
+            check(k["counts"]["hist_partition_f32"] > 0,
+                  f"19d as called: B2 never launched {k['counts']}")
+        add_launches(launches, k["counts"])
+        d = k["rmse"] - res["plain"]["rmse"]
+        check(abs(d) <= 1e-5, f"19d {grower}: RMSE kernel - plain {d:.2e}")
+        sweep = monotone_sweep(k["booster"], torch.from_numpy(
+            k["booster"].train_set.bin_mapper.transform(X[te])).to(dev),
+            params["monotone_constraints"])
+        check(all(v >= 0 for v in sweep.values()),
+              f"19d {grower}: the raw score moves against a constraint "
+              f"{sweep}")
+        out[grower] = {p: {f: v for f, v in r.items() if f != "booster"}
+                       for p, r in res.items()}
+        out[grower]["rounds"] = rounds
+        out[grower]["rmse_kernel_minus_plain"] = d
+        out[grower]["sweep_min_step"] = sweep
+    log(f"phase 19d: {json.dumps(out)}")
+    return out
+
+
+def phase_mono_multiclass(dev, Xc, yc, launches):
+    """19e: multiclass at Covertype's shape with its first column
+    constrained, 3 rounds (B6 roots, B5 waves)."""
+    import lightgbm_tpu_torch as lgb
+
+    Xv, yv = covertype_like(COV_VALID_ROWS, SEED + 121)
+    ds = lgb.Dataset(Xc, label=yc, params={"max_bin": MAX_BIN})
+    ds.construct()                  # binned before the timed runs
+    mono = [1] + [0] * (Xc.shape[1] - 1)
+    params = dict(COV_PARAMS, monotone_constraints=mono)
+    runs = {}
+    for path, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        b, secs, counts, plain = counted_run(
+            lambda: lgb.train(dict(params, **extra), ds, MONO_MC_ROUNDS))
+        runs[path] = {"s_per_round": secs / MONO_MC_ROUNDS,
+                      "counts": counts, "plain_calls": plain,
+                      "multi_logloss": multi_logloss(b, Xv, yv, dev)}
+        log(f"phase 19e {path}: {MONO_MC_ROUNDS} rounds in {secs:.2f} s, "
+            f"multi_logloss {runs[path]['multi_logloss']:.6f}, launches "
+            f"{json.dumps(counts)}")
+    k = runs["kernels"]
+    check(k["counts"]["hist_fused_batched_bf16"] > 0
+          and k["plain_calls"] == 0,
+          f"19e kernel path (B5): launches {k['counts']}, plain calls "
+          f"{k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    d = k["multi_logloss"] - runs["plain"]["multi_logloss"]
+    check(abs(d) <= COV_TOL, f"19e multi_logloss kernel - plain {d:.2e}")
+    out = {"rounds": MONO_MC_ROUNDS,
+           **{p: {f: v for f, v in r.items() if f != "counts"}
+              for p, r in runs.items()},
+           "launches": k["counts"], "multi_logloss_kernel_minus_plain": d}
+    log(f"phase 19e: {json.dumps(out)}")
+    return out
+
+
+def phase_constraints(dev, X, y, Xc, yc, workdir, card, unconstrained):
+    """Phase 19, every launch counter at 0 just before each run and read
+    just after; fails unless B1, B2, B4 and B5 launched and B3 did not."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    t1 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN})
+    ds.construct()
+    dsd = lgb.Dataset(X, label=dyadic_label(X, SEED + 190), reference=ds)
+    dsd.construct()
+    secs["binning"] = time.perf_counter() - t1
+    for name, fn in (
+            ("19a", lambda: phase_mono_north_star(
+                dev, ds, dsd, Xv, yv, workdir, launches, unconstrained)),
+            ("19b", lambda: phase_extra_trees_north_star(
+                dev, ds, dsd, Xv, yv, launches)),
+            ("19c", lambda: phase_interaction_north_star(
+                dev, ds, dsd, Xv, yv, launches)),
+            ("19d", lambda: phase_advanced_features(dev, launches)),
+            ("19e", lambda: phase_mono_multiclass(dev, Xc, yc, launches))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    del ds, dsd
+    for name in ("hist_fused_bf16", "hist_partition_bf16", "hist_fused_f32",
+                 "hist_fused_batched_bf16", "predict_forest"):
+        check(launches.get(name, 0) > 0, f"phase 19: {name} never launched")
+    check(launches.get("split_iter", 0) == 0,
+          f"phase 19: B3 launched {launches.get('split_iter')} times")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 19: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5217,11 +5671,16 @@ def main() -> int:
     l15 = phase15["launches"]
     phase16 = phase_goss_dart(dev, X, y, Xc, yc, dds, workdir, card)
     l16 = phase16["launches"]
-    del Xc, yc
     phase17 = phase_categorical(dev, workdir, card)
     l17 = phase17["launches"]
     phase18 = phase_ranking(dev, workdir, card)
     l18 = phase18["launches"]
+    phase19 = phase_constraints(
+        dev, X, y, Xc, yc, workdir, card,
+        {"s_per_round": train["s_per_round"]["bf16"],
+         "s_per_round_median": train["s_per_round_median"]["bf16"]})
+    l19 = phase19["launches"]
+    del Xc, yc
 
     kernels = []
     for prec in PRECISIONS:
@@ -5237,7 +5696,8 @@ def main() -> int:
                              "15": l15["predict_forest"],
                              "16": l16["predict_forest"],
                              "17": l17.get("predict_forest", 0),
-                             "18": l18.get("predict_forest", 0)})
+                             "18": l18.get("predict_forest", 0),
+                             "19": l19.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -5264,7 +5724,8 @@ def main() -> int:
                     "15": l15.get(f"{name}_{mode}", 0),
                     "16": l16.get(f"{name}_{mode}", 0),
                     "17": l17.get(f"{name}_{mode}", 0),
-                    "18": l18.get(f"{name}_{mode}", 0)},
+                    "18": l18.get(f"{name}_{mode}", 0),
+                    "19": l19.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -5286,7 +5747,7 @@ def main() -> int:
             "13": rec_launches["split_iter"],
             "14": l14["split_iter"], "15": l15["split_iter"],
             "16": l16["split_iter"], "17": l17.get("split_iter", 0),
-            "18": l18.get("split_iter", 0)},
+            "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -5309,7 +5770,8 @@ def main() -> int:
                 "15": l15.get(f"hist_segstats_{mode}", 0),
                 "16": l16.get(f"hist_segstats_{mode}", 0),
                 "17": l17.get(f"hist_segstats_{mode}", 0),
-                "18": l18.get(f"hist_segstats_{mode}", 0)},
+                "18": l18.get(f"hist_segstats_{mode}", 0),
+                "19": l19.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -5333,7 +5795,8 @@ def main() -> int:
                 "15": l15.get(f"hist_fused_batched_{mode}", 0),
                 "16": l16.get(f"hist_fused_batched_{mode}", 0),
                 "17": l17.get(f"hist_fused_batched_{mode}", 0),
-                "18": l18.get(f"hist_fused_batched_{mode}", 0)},
+                "18": l18.get(f"hist_fused_batched_{mode}", 0),
+                "19": l19.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -5346,7 +5809,8 @@ def main() -> int:
             "12": int8["launches"]["hist_fused_int8"],
             "16": l16.get("hist_fused_int8", 0),
             "17": l17.get("hist_fused_int8", 0),
-            "18": l18.get("hist_fused_int8", 0)},
+            "18": l18.get("hist_fused_int8", 0),
+            "19": l19.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -5371,7 +5835,7 @@ def main() -> int:
               "b5_times": b5_times, "multiclass": multiclass,
               "int8": int8, "recovery": recovery, "phase14": phase14,
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
-              "phase18": phase18,
+              "phase18": phase18, "phase19": phase19,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -480,7 +480,7 @@ class Dataset:
     def from_blocks(cls, *args, **kwargs):
         raise NotImplementedError(
             "streamed (out-of-core) datasets are not ported yet: ROADMAP "
-            "slice 5 (out-of-core training)")
+            "slice 5 (out-of-core training), item 11")
 
     # -- lightgbm-compatible introspection ---------------------------------
     def num_data(self) -> int:

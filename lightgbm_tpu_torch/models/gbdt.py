@@ -42,10 +42,16 @@ into its objective at setup (``ranking.LambdaRank.set_group``) and takes
 the exact wave tail; ``ndcg@k`` / ``map@k`` are evaluated per query group
 (``ranking.eval_ranking``).
 
+``monotone_constraints`` (basic method), ``interaction_constraints`` and
+``extra_trees`` reach every round kind's grower as the reference's
+``mono_key``, ``ic_key`` and ``nbins_key`` do: resolved once at setup onto
+the training columns (:func:`resolve_monotone_constraints`,
+:func:`resolve_interaction_constraints`, :func:`extra_trees_col_bins`),
+held on the device, and handed to each grower call with the round key.
+
 What is outside the port so far raises a ``NotImplementedError`` naming the
-ROADMAP slice and item that will port it: constraints,
-linear/extra trees, feature screening, streaming, the distributed learners
-and ``init_model``.
+ROADMAP slice and item that will port it: linear trees, feature screening,
+streaming, the distributed learners and ``init_model``.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -106,6 +112,95 @@ def build_cat_info(train_set: Dataset, p: Params,
     return CatInfo(is_cat=torch.from_numpy(is_cat).to(device),
                    cat_smooth=float(p.cat_smooth), cat_l2=float(p.cat_l2),
                    max_cat_threshold=int(p.max_cat_threshold))
+
+
+def resolve_monotone_constraints(p: Params, bin_mapper
+                                 ) -> Optional[Tuple[int, ...]]:
+    """``monotone_constraints`` (one sign per original feature) mapped onto
+    the training columns through EFB, under the reference's rules
+    (``_resolve_monotone_constraints``): a list of the wrong length, a
+    constraint on a categorical feature and one on a feature of a
+    multi-member bundle raise ``ValueError``.  None when no constraint is
+    set."""
+    mc = p.monotone_constraints
+    if mc is None or not any(int(c) != 0 for c in mc):
+        return None
+    bm = bin_mapper
+    if len(mc) != bm.num_features:
+        raise ValueError(
+            f"monotone_constraints has {len(mc)} entries for "
+            f"{bm.num_features} features")
+    for f, c in enumerate(mc):
+        if c != 0 and bm.is_categorical[f]:
+            raise ValueError(
+                f"monotone constraint on categorical feature {f} is not "
+                "supported (matching lightgbm)")
+    b = bm.bundler
+    if b is None:
+        return tuple(int(c) for c in mc)
+    train_mc = []
+    for g in b.groups:
+        if len(g) == 1:
+            train_mc.append(int(mc[g[0]]))
+        elif any(int(mc[f]) != 0 for f in g):
+            raise ValueError(
+                "monotone constraint on an EFB-bundled feature (bundle "
+                f"members {g}); pass enable_bundle=False when constraining "
+                "sparse features")
+        else:
+            train_mc.append(0)
+    return tuple(train_mc)
+
+
+def resolve_interaction_constraints(p: Params, bin_mapper
+                                    ) -> Optional[Tuple[Tuple[int, ...],
+                                                        ...]]:
+    """``interaction_constraints`` (groups of original features) as group
+    membership over the training columns, rows ``[NG][F]`` of 0/1, under
+    the reference's rules (``_resolve_interaction_constraints``): a feature
+    in no listed group becomes a group of its own; an EFB bundle column
+    belongs to a group only if all its members do, a bundle of unlisted
+    features is a group of its own, and one that mixes listed features
+    across groups raises ``ValueError``, as does an index past the
+    features.  None when no group is given."""
+    ic = p.interaction_constraints
+    if not ic:
+        return None
+    bm = bin_mapper
+    f_orig = bm.num_features
+    groups = [set(g) for g in ic]
+    listed = set().union(*groups) if groups else set()
+    bad = sorted(f for f in listed if not (0 <= f < f_orig))
+    if bad:
+        raise ValueError(
+            f"interaction_constraints reference feature indices {bad} but "
+            f"the dataset has {f_orig} features")
+    for f in sorted(set(range(f_orig)) - listed):
+        groups.append({f})
+    b = bm.bundler
+    cols = ([tuple(g) for g in b.groups] if b is not None
+            else [(f,) for f in range(f_orig)])
+    member = [[1 if all(f in g for f in col) else 0 for col in cols]
+              for g in groups]
+    for c, col in enumerate(cols):
+        if any(member[g][c] for g in range(len(member))):
+            continue
+        if any(f in listed for f in col):
+            raise ValueError(
+                f"interaction_constraints split an EFB bundle (members "
+                f"{list(col)}); pass params={{'enable_bundle': False}} on "
+                "the Dataset when constraining sparse features")
+        member.append([1 if i == c else 0 for i in range(len(cols))])
+    return tuple(tuple(row) for row in member)
+
+
+def extra_trees_col_bins(bin_mapper) -> Tuple[int, ...]:
+    """Each training column's used-bin count, which bounds its extra-trees
+    draw (the reference's ``nbins_key``): the bundler's per-column counts
+    under EFB, else ``BinMapper.n_bins``."""
+    b = bin_mapper.bundler
+    colb = b.col_bins if b is not None else bin_mapper.n_bins
+    return tuple(int(x) for x in colb)
 
 
 def _class_tree(tree: Tree, c: int, axis: int = 0) -> Tree:
@@ -296,13 +391,6 @@ def check_slice_scope(p: Params) -> None:
 
     if p.linear_tree:
         later("linear_tree", _slice3(10))
-    if p.monotone_constraints and any(int(c) != 0
-                                      for c in p.monotone_constraints):
-        later("monotone_constraints", _slice3(9))
-    if p.interaction_constraints:
-        later("interaction_constraints", _slice3(9))
-    if p.extra_trees:
-        later("extra_trees", _slice3(9))
     if p.feature_screen != "off":
         later(f"feature_screen='{p.feature_screen}'", _SLICE5)
     if p.tree_learner != "serial":
@@ -401,6 +489,19 @@ class Booster:
         self._num_bins = ds.num_bins
         self._w_eff = ds.w
         self._cat_info = build_cat_info(ds, p, self.device)
+        # the constraints over the training columns, on the device once
+        bm = ds.bin_mapper
+        mono = resolve_monotone_constraints(p, bm)
+        ic = resolve_interaction_constraints(p, bm)
+        self._constraints = dict(
+            mono=None if mono is None else torch.tensor(
+                mono, dtype=torch.int32, device=self.device),
+            ic_member=None if ic is None else torch.tensor(
+                ic, dtype=torch.bool, device=self.device),
+            extra_trees=bool(p.extra_trees),
+            col_bins=torch.tensor(extra_trees_col_bins(bm),
+                                  dtype=torch.int32, device=self.device)
+            if p.extra_trees else None)
 
     @property
     def _num_class(self) -> int:
@@ -514,7 +615,7 @@ class Booster:
         lr = torch.tensor(hyper.learning_rate, dtype=_F32, device=self.device)
         grow = dict(hist_impl=p.extra.get("hist_impl", "auto"),
                     hist_dtype=resolve_hist_dtype(p, eff_rows),
-                    cat_info=self._cat_info)
+                    cat_info=self._cat_info, **self._constraints)
         width = resolve_wave_width(p, eff_rows)
         bynode = p.feature_fraction_bynode < 1.0
         is_rf = p.boosting == "rf"
@@ -532,12 +633,13 @@ class Booster:
             stats_t = torch.stack([g * bag[:, None], h * bag[:, None],
                                    (bag > 0).to(_F32)[:, None].expand_as(g)],
                                   dim=-1)                      # [n, K, 3]
-            if bynode:
+            if bynode or p.extra_trees:
                 # the grower key split per class, as the reference keys it
+                grow.update(keys=split_on(rkey, k, self.device))
+            if bynode:
                 grow.update(ff_bynode=torch.full(
                     (k,), hyper.feature_fraction_bynode, dtype=_F32,
-                    device=self.device),
-                    keys=split_on(rkey, k, self.device))
+                    device=self.device))
             P, n_leaves, row_leaf, catmask = grow_trees_batched(
                 ds.X_binned, stats_t, fmask.expand(k, -1),
                 SplitContext.per_element([hyper.ctx()] * k, self.device),
@@ -551,7 +653,9 @@ class Booster:
                 1, row_leaf.t().to(torch.int64))              # [K, n]
             return tree, fma(lr, vals.t(), pred)
         if bynode:
-            grow.update(ff_bynode=hyper.feature_fraction_bynode, key=rkey)
+            grow.update(ff_bynode=hyper.feature_fraction_bynode)
+        if bynode or p.extra_trees:
+            grow.update(key=rkey)
         bins, y, w = ds.X_binned, ds.y, self._w_eff
         if goss_k is not None:
             # the tree grows on the compacted rows, in the selection's order

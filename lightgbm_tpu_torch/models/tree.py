@@ -9,15 +9,19 @@ unreachable.  Here the fields are torch tensors on one device; a forest
 stacks trees on a leading ``[T]`` axis.
 
 Growth: :func:`grow_tree` dispatches on the encoded wave width
-(:func:`decode_wave_width`), without monotone, extra-trees or interaction
-constraints, with per-node column sampling (``ff_bynode``: each node scored
-under its row of a mask table drawn once per tree,
-:func:`~.feature_mask.node_mask_table`) or without, and with categorical
-k-vs-rest subset splits (``cat_info``, :class:`~..ops.split.CatInfo`) or
-without.  A categorical candidate keeps its left-bin set in a mask table
-``[capacity, B]`` beside the packed nodes, the partition sends a row left
-by its code's bit there, and the tree's ``is_cat_split``/``cat_mask`` come
-from that table, as in the reference:
+(:func:`decode_wave_width`), with per-node column sampling (``ff_bynode``:
+each node scored under its row of a mask table drawn once per tree,
+:func:`~.feature_mask.node_mask_table`) or without, with monotone
+constraints (the basic method's mid-point bounds in the node table's
+``BOUND_LO``/``BOUND_HI``), extra-trees (every node's scan positions drawn
+once per tree, :func:`rand_bin_table`) and interaction constraints (each
+node's surviving groups carried beside the nodes) or without, and with
+categorical k-vs-rest subset splits (``cat_info``,
+:class:`~..ops.split.CatInfo`) or without.  A categorical candidate keeps
+its left-bin set in a mask table ``[capacity, B]`` beside the packed
+nodes, the partition sends a row left by its code's bit there, and the
+tree's ``is_cat_split``/``cat_mask`` come from that table, as in the
+reference:
 
 * widths above 1 grow in waves (:func:`grow_tree_frontier`, the default at
   n >= 4096 rows and num_leaves >= 16), with all three wave tails:
@@ -31,9 +35,11 @@ from that table, as in the reference:
   ``num_leaves - 1`` split iterations, each one histogram pass over both
   children of the split leaf and one call of kernel B3
   (:func:`split_iter`: the gain scan, the argmax, the node-table writes and
-  the next pick); with per-node sampling or categorical splits, the
-  reference's unfused body instead (the same histograms, the split scan in
-  plain ops, under a mask per child with per-node sampling).  It grows a batch of ``E`` trees at once over a shared
+  the next pick); with per-node sampling, categorical splits or any
+  constraint, the reference's unfused body instead (the same histograms,
+  the split scan in plain ops, under a mask per child with per-node
+  sampling or interaction constraints, bounds per child with monotone
+  constraints).  It grows a batch of ``E`` trees at once over a shared
   binned matrix, which is how fused cross-validation grows configs x folds;
   a Booster grows one (``E = 1``).
 
@@ -57,7 +63,8 @@ from ..ops.histogram import (compute_histograms, compute_histograms_batched,
                              sr_round_bf16)
 from ..ops.split import (CatInfo, SplitContext, constrained_leaf_output,
                          find_best_split, prefix_sum)
-from ..utils.random import key_tensor
+from ..utils.random import (fold_in_keys, fold_in_tensor, key_tensor,
+                            uniform_rows)
 from .feature_mask import node_mask_fn, node_mask_table
 
 _F32 = torch.float32
@@ -113,11 +120,66 @@ class _PK:
     NC = 24
 
 
-def _xla_arith(cat_info: Optional[CatInfo]) -> str:
+def _xla_arith(cat_info: Optional[CatInfo],
+               mono: Optional[torch.Tensor] = None) -> str:
     """The rounding of the reference's XLA split scan in a grower
-    (:mod:`~..ops.split`): ``"cat"`` in a program with categorical
-    columns, else ``"scan"``."""
-    return "scan" if cat_info is None else "cat"
+    (:mod:`~..ops.split`): ``"cat"`` in a program with categorical columns
+    or monotone constraints (XLA contracts the leaf objective of the
+    clipped outputs there; found by matching the reference's split gains
+    on exact sums), else ``"scan"``."""
+    return "scan" if cat_info is None and mono is None else "cat"
+
+
+def rand_bin_table(keys: torch.Tensor, num_features: int, num_bins: int,
+                   col_bins: Optional[torch.Tensor], capacity: int
+                   ) -> torch.Tensor:
+    """Every node's extra-trees threshold positions for ``E`` trees: int64
+    ``[E, capacity, F]``, drawn once per tree on the keys' device with no
+    host read.  Row ``i`` of element ``e`` is the reference's
+    ``_rand_bins_for_node(keys[e], i, ...)``: ``u = uniform(fold_in(
+    fold_in(key, 0x0EF7), i), (F,))``, then ``floor(u * max(hi, 1))`` with
+    ``hi`` each column's used bins less one (``col_bins`` int ``[F]``), or
+    ``max(num_bins - 1, 1)`` for every column when None; the product is
+    rounded to f32 before the floor, as there."""
+    dev = keys.device
+    e = keys.shape[0]
+    node_ids = torch.arange(int(capacity), dtype=torch.int64, device=dev)
+    node_keys = fold_in_tensor(fold_in_keys(keys, 0x0EF7), node_ids)
+    u = uniform_rows(node_keys.reshape(-1, 2), num_features).view(
+        e, int(capacity), num_features)
+    if col_bins is None:
+        hi = torch.full((num_features,), float(max(num_bins - 1, 1)),
+                        dtype=_F32, device=dev)
+    else:
+        hi = col_bins.to(device=dev, dtype=_F32) - 1.0
+    return torch.floor(u * torch.clamp(hi, min=1.0)).to(torch.int64)
+
+
+def _ic_allowed(group_sets: torch.Tensor, member: torch.Tensor
+                ) -> torch.Tensor:
+    """Interaction constraints: the columns a node may split on, f32
+    ``[..., F]``: the union of the groups its path still fits in
+    (``group_sets`` bool ``[..., NG]``) over ``member`` bool ``[NG, F]``,
+    as the reference's f32 product compared > 0.5."""
+    return ((group_sets.to(_F32) @ member.to(_F32)) > 0.5).to(_F32)
+
+
+def _mono_child_bounds(mono: Optional[torch.Tensor], feat, wl, wr, lo, hi):
+    """The basic method's output bounds of a split's children (the
+    reference's ``_mono_child_bounds``): an increasing split caps its left
+    side's descendants at the mid-point of the two outputs and floors its
+    right side's there, a decreasing one the other way round.  ``feat``,
+    ``wl``, ``wr``, ``lo``, ``hi`` share a shape; returns ``(lo_l, hi_l,
+    lo_r, hi_r)``."""
+    if mono is None:
+        return lo, hi, lo, hi
+    mval = torch.take(mono.to(feat.device), feat.to(torch.int64))
+    mid = 0.5 * (wl + wr)
+    hi_l = torch.where(mval > 0, torch.minimum(hi, mid), hi)
+    lo_l = torch.where(mval < 0, torch.maximum(lo, mid), lo)
+    lo_r = torch.where(mval > 0, torch.maximum(lo, mid), lo)
+    hi_r = torch.where(mval < 0, torch.minimum(hi, mid), hi)
+    return lo_l, hi_l, lo_r, hi_r
 
 
 def decode_wave_width(wave_width: int):
@@ -225,7 +287,11 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
               num_leaves: int, num_bins: int, max_depth: int,
               hist_impl: str = "auto", hist_dtype: str = "f32",
               wave_width: int = 1, ff_bynode: Optional[float] = None,
-              key=None, cat_info: Optional[CatInfo] = None
+              key=None, cat_info: Optional[CatInfo] = None,
+              mono: Optional[torch.Tensor] = None,
+              extra_trees: bool = False,
+              col_bins: Optional[torch.Tensor] = None,
+              ic_member: Optional[torch.Tensor] = None
               ) -> Tuple[Tree, torch.Tensor]:
     """Grow one best-first tree; returns ``(tree, row_leaf)``.
 
@@ -238,7 +304,15 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     ``ff_bynode`` (None: off) samples each node's columns within the tree
     mask under the grower ``key``, a pair of ints
     (:func:`~.feature_mask.node_mask_table`).  ``cat_info`` (None: no
-    categorical columns) gives its columns k-vs-rest subset splits.
+    categorical columns) gives its columns k-vs-rest subset splits.  The
+    constraints, as the reference's: ``mono`` int ``[F]`` monotone signs
+    (the basic method: violating candidates rejected, descendants bounded
+    at a split's output mid-point); ``extra_trees`` one threshold position
+    a column per node, drawn under ``key`` within the column's used bins
+    (``col_bins`` int ``[F]``, None: ``num_bins``; :func:`rand_bin_table`);
+    ``ic_member`` bool ``[NG, F]`` the interaction groups (a node splits
+    only on columns of the groups its path still fits in).  ``key`` None
+    is ``PRNGKey(0)``.
     """
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if hist_dtype == "bf16sr":
@@ -246,22 +320,25 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
         # the rounding is idempotent, so every histogram of the tree sees
         # them as the reference's B1 and B2 calls do
         stats, hist_dtype = sr_round_bf16(stats), "bf16"
+    key = (0, 0) if key is None else key
+    cons = dict(mono=mono, extra_trees=extra_trees, col_bins=col_bins,
+                ic_member=ic_member)
     if width <= 1:
         dev = bins.device
         fmask = feature_mask.to(_F32).reshape(1, -1)
-        bynode = {}
+        keyed = {}
+        if ff_bynode is not None or extra_trees:
+            keyed["keys"] = key_tensor([key], dev)
         if ff_bynode is not None:
-            bynode = dict(
-                ff_bynode=torch.full((1,), float(ff_bynode), dtype=_F32,
-                                     device=dev),
-                keys=key_tensor([key], dev))
+            keyed["ff_bynode"] = torch.full((1,), float(ff_bynode),
+                                            dtype=_F32, device=dev)
         P, n_leaves, row_leaf, catmask = grow_tree_strict(
             bins, stats.unsqueeze(1), fmask,
             SplitContext.per_element([ctx], dev),
             torch.tensor([float(max_depth)], dtype=_F32, device=dev),
             num_leaves, num_bins, hist_impl=hist_impl,
             hist_dtype=hist_dtype, batched=False, cat_info=cat_info,
-            **bynode)
+            **keyed, **cons)
         return (_tree_from_packed(P[0], n_leaves[0],
                                   None if catmask is None else catmask[0]),
                 row_leaf[:, 0])
@@ -270,7 +347,7 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
                               hist_impl=hist_impl, hist_dtype=hist_dtype,
                               wave_tail=tail, overgrow_leaves=overgrow,
                               ff_bynode=ff_bynode, key=key,
-                              cat_info=cat_info)
+                              cat_info=cat_info, **cons)
 
 
 def _decode_checked(wave_width: int, num_leaves: int):
@@ -294,36 +371,45 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                        hist_impl: str = "auto", hist_dtype: str = "f32",
                        ff_bynode: Optional[torch.Tensor] = None,
                        keys: Optional[torch.Tensor] = None,
-                       cat_info: Optional[CatInfo] = None):
+                       cat_info: Optional[CatInfo] = None,
+                       mono: Optional[torch.Tensor] = None,
+                       extra_trees: bool = False,
+                       col_bins: Optional[torch.Tensor] = None,
+                       ic_member: Optional[torch.Tensor] = None):
     """Grow ``E`` trees at once over the shared ``bins`` (the reference's
     ``vmap`` of :func:`grow_tree`): the strict grower at width 1
     (:func:`grow_tree_strict`), else the batched wave grower
     (:func:`grow_tree_frontier_batched`).  Inputs and outputs as
     :func:`grow_tree_strict`'s (a :class:`GrownTrees`); ``ff_bynode`` f32
     ``[E]`` and ``keys`` int64 ``[E, 2]`` (None: off) sample each node's
-    columns."""
+    columns; the constraints as :func:`grow_tree`'s, shared by the batch,
+    with ``extra_trees`` drawn under each element's key."""
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if hist_dtype == "bf16sr":
         # rounded once in the reference's batched layout [E, n, S]
         stats_t = sr_round_bf16(stats_t.transpose(0, 1)).transpose(0, 1)
         hist_dtype = "bf16"
+    cons = dict(mono=mono, extra_trees=extra_trees, col_bins=col_bins,
+                ic_member=ic_member)
     if width <= 1:
         return grow_tree_strict(bins, stats_t, fmask, ctx, max_depth,
                                 num_leaves, num_bins, hist_impl=hist_impl,
                                 hist_dtype=hist_dtype, ff_bynode=ff_bynode,
-                                keys=keys, cat_info=cat_info)
+                                keys=keys, cat_info=cat_info, **cons)
     return grow_tree_frontier_batched(
         bins, stats_t, fmask, ctx, max_depth, num_leaves, num_bins, width,
         hist_impl=hist_impl, hist_dtype=hist_dtype, wave_tail=tail,
         overgrow_leaves=overgrow, ff_bynode=ff_bynode, keys=keys,
-        cat_info=cat_info)
+        cat_info=cat_info, **cons)
 
 
 def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
                      fmask: torch.Tensor, aux: torch.Tensor,
                      scal: torch.Tensor, arith: Optional[str] = None,
                      cat_info: Optional[CatInfo] = None,
-                     catmask: Optional[torch.Tensor] = None):
+                     catmask: Optional[torch.Tensor] = None,
+                     mono: Optional[torch.Tensor] = None,
+                     rand_bins: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`split_iter`: one iteration of the
     reference's strict-grower body (``lightgbm_tpu/models/tree.py``, the
     XLA loop body) for each of ``E`` elements, plus the next pick.
@@ -343,7 +429,11 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     ``cat_info`` (the reference's XLA body, never kernel B3's) the children
     take categorical subset candidates too, and their left-bin sets go into
     the candidate mask table ``catmask`` bool ``[E, cap, B]``; the result is
-    then ``(table', aux', catmask')``.
+    then ``(table', aux', catmask')``.  With ``mono`` int ``[F]`` (the
+    reference's XLA body too) each child is scored, and written, under its
+    own bounds from the split's mid-point (:func:`_mono_child_bounds`), and
+    candidates run against a column's sign are rejected; ``rand_bins`` int
+    ``[E, 2, F]`` are the children's extra-trees scan positions.
     """
     K = _PK
     e, cap, nc = table.shape
@@ -361,11 +451,15 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     def two(a, b=None):
         return torch.stack([a, a if b is None else b], dim=1)
 
+    lo_l, hi_l, lo_r, hi_r = _mono_child_bounds(
+        mono, row[:, K.CAND_FEAT], row[:, K.CAND_WL], row[:, K.CAND_WR],
+        row[:, K.BOUND_LO], row[:, K.BOUND_HI])
     child_masks = fmask if fmask.dim() == 3 else fmask[:, None, :]
     bs = find_best_split(hist, ctx, child_masks, two(depth_ok),
                          two(row[:, K.CAND_WL], row[:, K.CAND_WR]),
-                         two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]),
-                         arith=arith, cat_info=cat_info)
+                         two(lo_l, lo_r), two(hi_l, hi_r),
+                         arith=arith, cat_info=cat_info, mono=mono,
+                         rand_bins=rand_bins)
     # the reference kernel gathers the winner's statistics as a sum over
     # every cell of where(hit, x, 0.0), which turns -0.0 into +0.0
     bs = bs._replace(**{f: getattr(bs, f) + 0.0 for f in (
@@ -390,7 +484,7 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
         bs.left_g, bs.left_h, bs.left_c,
         bs.right_g, bs.right_h, bs.right_c,
         bs.left_out, bs.right_out,                            # CAND_WL, WR
-        two(row[:, K.BOUND_LO]), two(row[:, K.BOUND_HI]),
+        two(lo_l, lo_r), two(hi_l, hi_r),                     # BOUNDS
         zero if bs.cat is None else bs.cat.to(_F32),          # CAND_CAT
         torch.minimum(two(row[:, K.PM]), bs.gain),            # PM
     ], dim=-1)                                                # [E, 2, NC]
@@ -439,7 +533,11 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                      batched: bool = True,
                      ff_bynode: Optional[torch.Tensor] = None,
                      keys: Optional[torch.Tensor] = None,
-                     cat_info: Optional[CatInfo] = None):
+                     cat_info: Optional[CatInfo] = None,
+                     mono: Optional[torch.Tensor] = None,
+                     extra_trees: bool = False,
+                     col_bins: Optional[torch.Tensor] = None,
+                     ic_member: Optional[torch.Tensor] = None):
     """Strict best-first growth of ``E`` trees at once (the reference's
     strict grower, ``vmap``ped over E in fused CV).
 
@@ -456,11 +554,18 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
 
     The reference's eligibility rule for its split-iteration kernel
     (``fuse_si``, restricted to what the port grows) picks the body: with
-    per-node sampling off and no categorical columns each iteration is one
-    launch of kernel B3 (:func:`split_iter`); otherwise the reference's XLA
-    body runs in plain ops (:func:`split_iter_plain` at its rounding,
-    :func:`_xla_arith`).  With per-node sampling (``ff_bynode`` f32 ``[E]``
-    and the grower ``keys`` int64 ``[E, 2]``) each child is scored under
+    per-node sampling off, no categorical columns and no constraint each
+    iteration is one launch of kernel B3 (:func:`split_iter`); otherwise
+    the reference's XLA body runs in plain ops (:func:`split_iter_plain` at
+    its rounding, :func:`_xla_arith`).  The constraints are
+    :func:`grow_tree`'s: ``mono`` bounds each child at its split's
+    mid-point, ``extra_trees`` scores each node at the positions of its row
+    of :func:`rand_bin_table` (drawn once per tree under ``keys``), and
+    ``ic_member`` carries each node's surviving interaction groups in a
+    table ``[E, cap, NG]`` beside the nodes, a child's mask the product of
+    its column mask and :func:`_ic_allowed`.  With per-node sampling
+    (``ff_bynode`` f32 ``[E]`` and the grower ``keys`` int64 ``[E, 2]``)
+    each child is scored under
     its own node mask, a row of :func:`~.feature_mask.node_mask_table`
     drawn once per tree.  With ``cat_info`` the children take categorical
     subset candidates, whose left-bin sets live in a mask table bool ``[E,
@@ -474,10 +579,13 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
     n, e, _ = stats_t.shape
     dev = bins.device
     cap = 2 * num_leaves - 1
-    fuse_si = ff_bynode is None and cat_info is None
+    fuse_si = (ff_bynode is None and cat_info is None and mono is None
+               and not extra_trees and ic_member is None)
     fmask = fmask.to(_F32).contiguous()
     node_masks = (None if ff_bynode is None
                   else node_mask_table(keys, ff_bynode, fmask, cap))
+    rand = (rand_bin_table(keys, bins.shape[1], num_bins, col_bins, cap)
+            if extra_trees else None)                         # [E, cap, F]
     if not batched and e != 1:
         raise ValueError("the unbatched strict grower grows one tree")
 
@@ -499,16 +607,26 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
         ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
         zero_e)
+    root_mask = fmask if node_masks is None else node_masks[:, 0]
+    icsets = None
+    if ic_member is not None:
+        # every group survives at the root
+        member = ic_member.to(dev)
+        icsets = torch.zeros((e, cap, member.shape[0]), dtype=torch.bool,
+                             device=dev)
+        icsets[:, 0] = True
+        root_mask = root_mask * _ic_allowed(icsets[:, 0], member)
     root_best = find_best_split(
-        root_hist, ctx, fmask if node_masks is None else node_masks[:, 0],
-        None, root_out, arith=_xla_arith(cat_info), cat_info=cat_info)
+        root_hist, ctx, root_mask, None, root_out,
+        arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
+        rand_bins=None if rand is None else rand[:, 0])
     P = _packed_root_table(cap, root_out, root_tot, root_best)
+    ar = torch.arange(e, device=dev)
     catmask = None
     if cat_info is not None:
         catmask = torch.zeros((e, cap, num_bins), dtype=torch.bool,
                               device=dev)
         catmask[:, 0] = root_best.cat_mask
-        ar = torch.arange(e, device=dev)
     aux = torch.stack([zero_e, root_best.feature.to(_F32),
                        root_best.bin.to(_F32),
                        torch.isfinite(root_best.gain).to(_F32),
@@ -547,14 +665,29 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         if fuse_si:
             P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
         else:
+            kids = torch.stack([nl, nl + 1], dim=1).clamp(
+                max=cap - 1).to(torch.int64)                  # [E, 2]
             child_masks = fmask
             if node_masks is not None:
-                kids = torch.stack([nl, nl + 1], dim=1).clamp(max=cap - 1)
-                child_masks = node_masks.gather(1, kids.to(torch.int64)[
-                    ..., None].expand(e, 2, node_masks.shape[-1]))
-            out = split_iter_plain(hist2, P, child_masks, aux, scal,
-                                   arith=_xla_arith(cat_info),
-                                   cat_info=cat_info, catmask=catmask)
+                child_masks = node_masks.gather(1, kids[..., None].expand(
+                    e, 2, node_masks.shape[-1]))
+            if icsets is not None:
+                # the children keep the split leaf's groups that hold its
+                # split column
+                child_sets = icsets[ar, leaf.to(torch.int64)] & \
+                    member.t()[aux[:, 1].to(torch.int64)]     # [E, NG]
+                allowed = _ic_allowed(child_sets, member)     # [E, F]
+                child_masks = (child_masks if child_masks.dim() == 3 else
+                               child_masks[:, None, :]) * allowed[:, None]
+                for j in range(2):
+                    icsets[ar, kids[:, j]] = torch.where(
+                        grew[:, None], child_sets, icsets[ar, kids[:, j]])
+            out = split_iter_plain(
+                hist2, P, child_masks, aux, scal,
+                arith=_xla_arith(cat_info, mono), cat_info=cat_info,
+                catmask=catmask, mono=mono,
+                rand_bins=None if rand is None else rand.gather(
+                    1, kids[..., None].expand(e, 2, rand.shape[-1])))
             P, aux = out[:2]
             if catmask is not None:
                 catmask = out[2]
@@ -582,7 +715,11 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                        hist_dtype: str = "f32", wave_tail: str = "half",
                        overgrow_leaves: Optional[int] = None,
                        ff_bynode: Optional[float] = None, key=None,
-                       cat_info: Optional[CatInfo] = None
+                       cat_info: Optional[CatInfo] = None,
+                       mono: Optional[torch.Tensor] = None,
+                       extra_trees: bool = False,
+                       col_bins: Optional[torch.Tensor] = None,
+                       ic_member: Optional[torch.Tensor] = None
                        ) -> Tuple[Tree, torch.Tensor]:
     """Best-first growth in waves: up to ``wave_width`` splits per data
     pass (the reference's ``grow_tree_frontier``).
@@ -602,7 +739,14 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     ``while_loop`` condition.  With ``ff_bynode`` (None: off) each fresh
     child is scored under its own node mask, drawn once per tree under the
     grower ``key`` for every node id below the capacity
-    (:func:`~.feature_mask.node_mask_fn`); B2 is unchanged by it.
+    (:func:`~.feature_mask.node_mask_fn`); B2 is unchanged by it.  The
+    constraints (:func:`grow_tree`'s) leave the partition alone too, so B2
+    runs with them as in the reference: a wave's children are scored under
+    the bounds from their parents' mid-points (``mono``), at their rows of
+    the extra-trees table (drawn once per tree for every node id below the
+    capacity, the exact tail's overgrowth included) and under their
+    surviving interaction groups; the bounds ride in the node table, so the
+    exact tail's prune keeps them.
     """
     n, num_features = bins.shape
     dev = bins.device
@@ -620,6 +764,9 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     node_mask = node_mask_fn(key, ff_bynode, num_features, feature_mask,
                              bynode_off=ff_bynode is None,
                              capacity=capacity)
+    rand = (rand_bin_table(key_tensor([key], dev), num_features, num_bins,
+                           col_bins, capacity)[0]
+            if extra_trees else None)                         # [cap, F]
 
     # ---- root: kernel B1 with one segment --------------------------------
     root_hist = compute_histograms(
@@ -629,10 +776,20 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     root_out = constrained_leaf_output(
         root_tot[0], root_tot[1], root_tot[2], ctx._replace(path_smooth=0.0),
         float("-inf"), float("inf"), torch.zeros((), dtype=_F32, device=dev))
-    root_best = find_best_split(root_hist, ctx, node_mask(0),
+    root_mask = node_mask(0)
+    icsets = None
+    if ic_member is not None:
+        member = ic_member.to(dev)
+        icsets = torch.zeros((capacity, member.shape[0]), dtype=torch.bool,
+                             device=dev)
+        icsets[0] = True
+        root_mask = root_mask * _ic_allowed(icsets[0], member)
+    root_best = find_best_split(root_hist, ctx, root_mask,
                                 torch.ones((), dtype=torch.bool, device=dev),
-                                root_out, arith=_xla_arith(cat_info),
-                                cat_info=cat_info)
+                                root_out,
+                                arith=_xla_arith(cat_info, mono),
+                                cat_info=cat_info, mono=mono,
+                                rand_bins=None if rand is None else rand[0])
     P = _packed_root_table(capacity, root_out, root_tot, root_best)
     catmask = None
     if cat_info is not None:
@@ -711,9 +868,27 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             depth_ok = child_depth < float(max_depth)
         child_vals = torch.cat([prow[:, K.CAND_WL], prow[:, K.CAND_WR]])
         child_masks = node_mask(child_nodes).expand(2 * s, num_features)
+        pf = prow[:, K.CAND_FEAT].to(torch.int64)
+        lo_l, hi_l, lo_r, hi_r = _mono_child_bounds(
+            mono, pf, prow[:, K.CAND_WL], prow[:, K.CAND_WR],
+            prow[:, K.BOUND_LO], prow[:, K.BOUND_HI])
+        child_lo = torch.cat([lo_l, lo_r])
+        child_hi = torch.cat([hi_l, hi_r])
+        if icsets is not None:
+            child_sets = icsets[parent_r] & member.t()[pf]    # [s, NG]
+            allowed = _ic_allowed(child_sets, member)         # [s, F]
+            child_masks = child_masks * torch.cat([allowed, allowed])
+            icsets[child_nodes] = torch.cat([child_sets, child_sets])
+        # without monotone constraints every bound is infinite: the scan
+        # keeps its scalar clip (fewer ops a wave)
+        bounded = mono is not None
         bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                             child_vals, arith=_xla_arith(cat_info),
-                             cat_info=cat_info)
+                             child_vals, child_lo if bounded else None,
+                             child_hi if bounded else None,
+                             arith=_xla_arith(cat_info, mono),
+                             cat_info=cat_info, mono=mono,
+                             rand_bins=None if rand is None
+                             else rand[child_nodes])
 
         # commit: the parents become internal, the children arrive with
         # their candidate splits
@@ -740,8 +915,7 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             bs.left_g, bs.left_h, bs.left_c,
             bs.right_g, bs.right_h, bs.right_c,
             bs.left_out, bs.right_out,                    # CAND_WL, WR
-            torch.full((c2,), float("-inf"), device=dev),  # BOUND_LO
-            torch.full((c2,), float("inf"), device=dev),  # BOUND_HI
+            child_lo, child_hi,                           # BOUND_LO, HI
             torch.zeros(c2, device=dev) if bs.cat is None
             else bs.cat.to(_F32),                         # CAND_CAT
             torch.minimum(torch.cat([prow[:, K.PM], prow[:, K.PM]]),
@@ -881,7 +1055,11 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                                overgrow_leaves: Optional[int] = None,
                                ff_bynode: Optional[torch.Tensor] = None,
                                keys: Optional[torch.Tensor] = None,
-                               cat_info: Optional[CatInfo] = None):
+                               cat_info: Optional[CatInfo] = None,
+                               mono: Optional[torch.Tensor] = None,
+                               extra_trees: bool = False,
+                               col_bins: Optional[torch.Tensor] = None,
+                               ic_member: Optional[torch.Tensor] = None):
     """Wave growth of ``E`` trees at once: the reference's
     ``grow_tree_frontier`` under ``vmap`` (fused cross-validation in the
     wave regime, multiclass), on its non-fused wave path.
@@ -907,7 +1085,9 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     under its row of :func:`~.feature_mask.node_mask_table`, drawn once per
     tree.  With ``cat_info`` each element keeps its candidates' left-bin
     sets in a mask table ``[E, capacity, B]``, and a subset split's rows go
-    left by their code's bit there.
+    left by their code's bit there.  The constraints are
+    :func:`grow_tree_frontier`'s, per element (``extra_trees`` drawn under
+    each element's key), the bounds in the node tables.
 
     Returns a :class:`GrownTrees` whose tables hold ``2 * num_leaves - 1``
     rows (the mask table None without ``cat_info``).
@@ -930,6 +1110,8 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     md = max_depth.to(_F32)[:, None]
     node_masks = (None if ff_bynode is None
                   else node_mask_table(keys, ff_bynode, fmask, capacity))
+    rand = (rand_bin_table(keys, num_features, num_bins, col_bins, capacity)
+            if extra_trees else None)                         # [E, cap, F]
 
     # ---- root: the batch's narrow pass (kernel B6) ----------------------
     root_hist = histograms_rows(bins, stats_t, None, 1, num_bins,
@@ -941,9 +1123,18 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
         ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
         zero_e)
+    root_mask = fmask if node_masks is None else node_masks[:, 0]
+    icsets = None
+    if ic_member is not None:
+        member = ic_member.to(dev)
+        icsets = torch.zeros((e, capacity + 1, member.shape[0]),
+                             dtype=torch.bool, device=dev)
+        icsets[:, 0] = True
+        root_mask = root_mask * _ic_allowed(icsets[:, 0], member)
     root_best = find_best_split(
-        root_hist, ctx, fmask if node_masks is None else node_masks[:, 0],
-        None, root_out, arith=_xla_arith(cat_info), cat_info=cat_info)
+        root_hist, ctx, root_mask, None, root_out,
+        arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
+        rand_bins=None if rand is None else rand[:, 0])
     # one spare row, slot and node id past the end take every write of an
     # element's inactive wave lanes (the reference's out-of-bounds drop)
     P = torch.cat([_packed_root_table(capacity, root_out, root_tot,
@@ -1051,9 +1242,33 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
             child_masks = node_masks.gather(1, child_nodes.clamp(
                 max=capacity - 1)[..., None].expand(e, 2 * w_width,
                                                     num_features))
+        pf = prow[..., K.CAND_FEAT].to(i64)                   # [E, W]
+        lo_l, hi_l, lo_r, hi_r = _mono_child_bounds(
+            mono, pf, prow[..., K.CAND_WL], prow[..., K.CAND_WR],
+            prow[..., K.BOUND_LO], prow[..., K.BOUND_HI])
+        child_lo = torch.cat([lo_l, lo_r], dim=1)             # [E, 2W]
+        child_hi = torch.cat([hi_l, hi_r], dim=1)
+        active2 = torch.cat([active, active], dim=1)
+        if icsets is not None:
+            child_sets = icsets.gather(1, parent_r[..., None].expand(
+                e, w_width, icsets.shape[-1])) & member.t()[pf]  # [E, W, NG]
+            allowed = _ic_allowed(child_sets, member)         # [E, W, F]
+            child_masks = child_masks * torch.cat([allowed, allowed], dim=1)
+            icsets[ar, torch.where(active2, child_nodes, capacity)] = \
+                torch.cat([child_sets, child_sets], dim=1)
+        child_rand = None
+        if rand is not None:
+            # inactive lanes may point past the table (dropped with them)
+            child_rand = rand.gather(1, child_nodes.clamp(
+                max=capacity - 1)[..., None].expand(e, 2 * w_width,
+                                                    num_features))
+        bounded = mono is not None            # as in grow_tree_frontier
         bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                             child_vals, arith=_xla_arith(cat_info),
-                             cat_info=cat_info)
+                             child_vals, child_lo if bounded else None,
+                             child_hi if bounded else None,
+                             arith=_xla_arith(cat_info, mono),
+                             cat_info=cat_info, mono=mono,
+                             rand_bins=child_rand)
 
         # commit: the parents become internal, the children arrive with
         # their candidate splits; inactive lanes write the spare row
@@ -1079,13 +1294,12 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
             bs.left_g, bs.left_h, bs.left_c,
             bs.right_g, bs.right_h, bs.right_c,
             bs.left_out, bs.right_out,                      # CAND_WL, WR
-            full(float("-inf")), full(float("inf")),        # BOUND_LO, HI
+            child_lo, child_hi,                             # BOUND_LO, HI
             full(0.0) if bs.cat is None else bs.cat.to(_F32),  # CAND_CAT
             torch.minimum(torch.cat([prow[..., K.PM], prow[..., K.PM]],
                                     dim=1), bs.gain),       # PM
         ], dim=-1)
         P[ar, torch.where(active, parent_r, capacity)] = parent_rows
-        active2 = torch.cat([active, active], dim=1)
         P[ar, torch.where(active2, child_nodes, capacity)] = child_rows
         if catmask is not None:
             catmask[ar, torch.where(active2, child_nodes, capacity)] = \

@@ -10,7 +10,11 @@ reference's, op for op, in f32: the same histograms give the same winners and
 bitwise the same child statistics.  With a :class:`CatInfo` the categorical
 columns take LightGBM's gradient-ordered subset scan instead of thresholds
 (plain PyTorch ops with no host read, as the reference computes it in XLA).
-Monotone constraints and extra-trees are out of this slice.
+Monotone constraints (``mono``: a candidate whose clipped child outputs run
+against its column's sign is invalid, and a constrained column takes no
+subset split) and extra-trees (``rand_bins``: each column considers the one
+scan position drawn for the node) mask candidates as the reference's scan
+does, with the rounding ``arith`` picks.
 
 "Op for op" includes rounding: the reference's XLA program on the CPU fuses
 ``a * b + c`` into one fused multiply-add where LLVM contracts it, so the
@@ -170,9 +174,9 @@ def _smooth(w, count, parent_out, ps, like, arith: str):
 def constrained_leaf_output(sum_g, sum_h, count, ctx: SplitContext,
                             lo, hi, parent_out, arith: Optional[str] = None):
     """Leaf output under path smoothing and max_delta_step: smooth toward the
-    parent first, then clip to ``[lo, hi]`` (the monotone bounds, +-inf on
-    this slice's path: Python floats, or tensors read from a node table)
-    within +-max_delta_step."""
+    parent first, then clip to ``[lo, hi]`` (the basic method's monotone
+    bounds: Python floats, +-inf when unbounded, or tensors read from a
+    node table) within +-max_delta_step."""
     arith = _arith(ctx, arith)
     w = leaf_output(sum_g, sum_h, ctx)
     ps, mds = ctx.path_smooth, ctx.max_delta_step
@@ -286,24 +290,30 @@ def _cumsum_bins(hist: torch.Tensor) -> torch.Tensor:
 
 
 def _masked_gain(cum, total, ctx_gain: SplitContext, ctx_valid: SplitContext,
-                 p_out, lo, hi, arith, ok):
+                 p_out, lo, hi, arith, ok, mono=None):
     """Gain ``[..., F, B]`` of every prefix of ``cum`` (the left child's
     statistics; the right is ``total`` minus it) under ``ctx_gain``, -inf
-    where ``ctx_valid``'s data checks or ``ok`` fail; returns ``(gain, wl,
-    wr)``."""
+    where ``ctx_valid``'s data checks or ``ok`` fail, or where the clipped
+    outputs run against ``mono`` (f32 ``[F, 1]`` of -1/0/+1, None: off);
+    returns ``(gain, wl, wr)``."""
     lg, lh, lc = cum[..., 0], cum[..., 1], cum[..., 2]
     tg, th, tc = total[..., 0], total[..., 1], total[..., 2]
     rg, rh, rc = tg - lg, th - lh, tc - lc
     gain, wl, wr = split_gain_scan(lg, lh, lc, rg, rh, rc, tg, th, ctx_gain,
                                    lo, hi, p_out, arith)
     valid = split_stats_valid(lc, rc, lh, rh, gain, ctx_valid) & ok
+    if mono is not None:
+        valid = valid & ((mono == 0) | (mono * (wr - wl) >= 0))
     return torch.where(valid, gain, _c(NEG_INF, gain)), wl, wr
 
 
 def _scan(hist: torch.Tensor, ctx: SplitContext, feature_mask, depth_ok,
-          parent_out, lo=None, hi=None, arith=None):
+          parent_out, lo=None, hi=None, arith=None, mono=None,
+          rand_bins=None):
     """Shared cumsum scan over ``hist [..., F, B, 3]``: masked gain
-    ``[..., F, B]`` plus the operands the winner gathers need."""
+    ``[..., F, B]`` plus the operands the winner gathers need.  ``mono``
+    (int ``[F]``) and ``rand_bins`` (int ``[..., F]``) as for
+    :func:`find_best_split`."""
     ctx = ctx.broadcast_to(hist.dim() - 1)
     cum = _cumsum_bins(hist)
     total = cum[..., -1:, :]                            # [..., F, 1, 3]
@@ -316,16 +326,27 @@ def _scan(hist: torch.Tensor, ctx: SplitContext, feature_mask, depth_ok,
     ok = feature_mask[..., :, None] > 0
     if depth_ok is not None:
         ok = ok & depth_ok.reshape(depth_ok.shape + (1, 1))
+    if rand_bins is not None:
+        # extra-trees: each column's one drawn position (in the subset scan,
+        # a position of the sorted order)
+        pos = torch.arange(hist.shape[-2], device=hist.device)
+        ok = ok & (pos == rand_bins.to(hist.device)[..., None])
+    m = None
+    if mono is not None:
+        m = mono.to(device=hist.device, dtype=_F32)[:, None]   # [F, 1]
     gain, wl, wr = _masked_gain(cum, total, ctx, ctx, p_out, lo, hi, arith,
-                                ok)
-    return gain, cum, total, wl, wr, (ctx, p_out, lo, hi, ok)
+                                ok, m)
+    return gain, cum, total, wl, wr, (ctx, p_out, lo, hi, ok, m)
 
 
 def feature_best_gains(hist, ctx: SplitContext, feature_mask, depth_ok=None,
-                       parent_out=None) -> torch.Tensor:
+                       parent_out=None, lo=None, hi=None, mono=None,
+                       rand_bins=None) -> torch.Tensor:
     """Per-feature best numeric split gain ``[..., F]`` over ``hist [...,
-    F, B, 3]`` (invalid candidates score -inf)."""
-    gain = _scan(hist, ctx, feature_mask, depth_ok, parent_out)[0]
+    F, B, 3]`` (invalid candidates score -inf); the arguments as
+    :func:`find_best_split`'s."""
+    gain = _scan(hist, ctx, feature_mask, depth_ok, parent_out, lo, hi,
+                 None, mono, rand_bins)[0]
     return gain.max(dim=-1).values
 
 
@@ -345,7 +366,7 @@ def _cat_scan(hist, cat_info: CatInfo, total, gain_num, parts, parent_out,
     splits, numeric ones only thresholds), where the descending scan won,
     and the operands the winner gathers need, ``(order, cum, wl, wr)``,
     each ``[2, ...]``."""
-    ctx, p_out, lo, hi, ok = parts
+    ctx, p_out, lo, hi, ok, m = parts
     num_bins = hist.shape[-2]
     if isinstance(ctx.lambda_l2, torch.Tensor):
         l2_cat = ctx.lambda_l2 + _c(cat_info.cat_l2, ctx.lambda_l2)
@@ -360,6 +381,10 @@ def _cat_scan(hist, cat_info: CatInfo, total, gain_num, parts, parent_out,
     inf = _c(float("inf"), raw_score)
     pos = torch.arange(num_bins, device=hist.device)
     ok_cat = ok & (pos < int(cat_info.max_cat_threshold))
+    if m is not None:
+        # a category set has no order to be monotone in: a constrained
+        # column takes no subset split
+        ok_cat = ok_cat & (m == 0)
 
     key = torch.where(c_ > 0, torch.stack([raw_score, -raw_score]), inf)
     order = torch.argsort(key, dim=-1, stable=True)           # [2, ..., F, B]
@@ -382,7 +407,9 @@ def find_best_split(hist: torch.Tensor, ctx: SplitContext,
                     lo: Optional[torch.Tensor] = None,
                     hi: Optional[torch.Tensor] = None,
                     arith: Optional[str] = None,
-                    cat_info: Optional[CatInfo] = None) -> BestSplit:
+                    cat_info: Optional[CatInfo] = None,
+                    mono: Optional[torch.Tensor] = None,
+                    rand_bins: Optional[torch.Tensor] = None) -> BestSplit:
     """Scan histograms ``[..., F, B, 3]`` of (grad, hess, count) for each
     leaf's best (feature, bin) split.
 
@@ -396,12 +423,17 @@ def find_best_split(hist: torch.Tensor, ctx: SplitContext,
     ``hist[e]``.  With ``cat_info`` the categorical columns take the
     k-vs-rest subset scan (:func:`_cat_scan`), and the result's ``cat``
     flags a subset winner whose left bins are ``cat_mask`` (the bins whose
-    rank in the winning order is at most ``bin``).  Every field of the
+    rank in the winning order is at most ``bin``).  ``mono`` int ``[F]``
+    (-1/0/+1, None: off) rejects a candidate whose clipped child outputs
+    run against its column's sign, ``sign * (wr - wl) < 0`` (upstream's
+    basic method), and gives a constrained column no subset split;
+    ``rand_bins`` int ``[..., F]`` (None: off) keeps only the one scan
+    position drawn for each column (``extra_trees``).  Every field of the
     result has the leading shape ``[...]``.
     """
     gain, cum, total, wl, wr, parts = _scan(hist, ctx, feature_mask,
                                             depth_ok, parent_out, lo, hi,
-                                            arith)
+                                            arith, mono, rand_bins)
     if cat_info is not None:
         gain, use_desc, (order, cum_s, wl_s, wr_s) = _cat_scan(
             hist, cat_info, total, gain, parts, parent_out, arith)

@@ -35,6 +35,12 @@ Ranking: the lambda pass on the card against the CPU's on both routes
 with no host read, and a lambdarank round through B1/B2 against the plain
 path.
 
+Constraints: monotone constraints, interaction constraints and
+extra-trees on the wave grower (B1 roots, B2 waves), the strict grower (B1
+pairs, no B3) and the batched multiclass waves (B5), kernel path against
+the plain path on exact sums; the extra-trees table drawn on the card
+equal to the CPU's with no host read.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1359,3 +1365,115 @@ def test_lambdarank_round_kernel_vs_plain_on_card():
                                atol=1e-5)
     ndcg = [r.eval_train()[0][2] for r in runs]
     assert abs(ndcg[0] - ndcg[1]) <= 1e-4, ndcg
+
+
+def _mono_dyadic(n, seed):
+    """Six numeric columns; y in {0, 1} with exactly n/2 ones, so every
+    round-1 l2 statistic is +-0.5 or 1 and every histogram sum is exact."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    s = 1.2 * X[:, 0] - 0.8 * X[:, 1] + np.sin(2 * X[:, 2]) \
+        + 0.5 * X[:, 3] * X[:, 4]
+    y = np.zeros(n, np.float32)
+    y[np.argsort(s)[n // 2:]] = 1.0
+    return X, y
+
+
+CONSTRAINTS = {
+    "mono": {"monotone_constraints": [1, -1, 0, 0, 1, 0]},
+    "extra_trees": {"extra_trees": True},
+    "interaction": {"interaction_constraints": [[0, 1, 2], [3, 4]]},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grower", ["wave", "strict", "multiclass"])
+@pytest.mark.parametrize("option", sorted(CONSTRAINTS))
+def test_constrained_kernel_vs_plain_on_card(option, grower):
+    """Constrained training on the card: the round-1 trees of the kernel
+    path equal the plain path's bit for bit on exact sums (every field;
+    multiclass scores are not exact sums, so there the trees are
+    structure-equal and predictions within rtol 1e-5).  The wave grower
+    keeps B1 roots and B2 waves (the reference's ``fuse_part`` holds for
+    these options); the strict grower runs B1's two-segment calls and never
+    B3 (``fuse_si`` excludes them); multiclass waves run B5."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (
+        HIST_FUSED_BATCHED_LAUNCHES, HIST_FUSED_LAUNCHES,
+        HIST_PARTITION_LAUNCHES, HIST_SEGSTATS_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    X, y = _mono_dyadic(40_000, 91)
+    p = dict(objective="l2", num_leaves=31, learning_rate=0.5,
+             min_data_in_leaf=5, verbosity=-1, hist_dtype="f32",
+             **CONSTRAINTS[option])
+    p.update({"wave": {}, "strict": dict(grow_policy="leafwise"),
+              "multiclass": dict(objective="multiclass",
+                                 num_class=3)}[grower])
+    if grower == "multiclass":
+        y = (np.arange(len(y)) % 2 + y).astype(np.float32)     # 3 classes
+    counters = ([SPLIT_ITER_LAUNCHES] + list(HIST_FUSED_LAUNCHES.values())
+                + list(HIST_PARTITION_LAUNCHES.values())
+                + list(HIST_SEGSTATS_LAUNCHES.values())
+                + list(HIST_FUSED_BATCHED_LAUNCHES.values()))
+    for c in counters:
+        c.reset()
+    runs = []
+    for impl in ("auto", "plain"):
+        ds = lgb.Dataset(X, label=y, device=dev)
+        runs.append(lgb.train(dict(p, hist_impl=impl), ds, 1))
+        if impl == "auto":
+            launched = {"b1": HIST_FUSED_LAUNCHES["f32"].count,
+                        "b2": HIST_PARTITION_LAUNCHES["f32"].count,
+                        "b3": SPLIT_ITER_LAUNCHES.count,
+                        "b5": HIST_FUSED_BATCHED_LAUNCHES["f32"].count}
+    assert launched["b3"] == 0, launched
+    if grower == "wave":
+        assert launched["b1"] > 0 and launched["b2"] > 0, launched
+    elif grower == "strict":
+        assert launched["b1"] > 0, launched
+    else:
+        assert launched["b5"] > 0, launched
+    a, b = (tree_to_arrays(r.trees[0]) for r in runs)
+    if grower == "multiclass":
+        for k in ("split_feature", "split_bin", "left", "right", "is_leaf"):
+            assert np.array_equal(a[k], b[k]), k
+        np.testing.assert_allclose(runs[0].predict(X[:5000]),
+                                   runs[1].predict(X[:5000]), rtol=RTOL,
+                                   atol=ATOL)
+        return
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    assert np.array_equal(runs[0].predict(X[:5000]),
+                          runs[1].predict(X[:5000]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("col_bins", [None, (2, 255, 17, 1, 64, 3)],
+                         ids=["global", "per_column"])
+def test_rand_bin_table_on_card_equals_cpu(col_bins):
+    """The extra-trees table drawn on the card equals the CPU's bit for
+    bit (the threefry words are integers; ``floor(u * hi)`` rounds the f32
+    product once on both), with no host read (sync debug mode "error")."""
+    from lightgbm_tpu_torch.models.tree import rand_bin_table
+    from lightgbm_tpu_torch.utils.random import split_on
+
+    dev = _card()
+    cb = None if col_bins is None else torch.tensor(col_bins)
+    out = {}
+    for d in ("cpu", dev):
+        keys = split_on((0, 12345), 7, d)
+        if d == "cpu":
+            out[d] = rand_bin_table(keys, 6, 256, cb, 509)
+            continue
+        cbd = None if cb is None else cb.to(dev)
+        rand_bin_table(keys, 6, 256, cbd, 509)                   # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out["card"] = rand_bin_table(keys, 6, 256, cbd, 509)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out["card"].cpu(), out["cpu"])

@@ -231,9 +231,13 @@ OUT_OF_SLICE = {
     # learner outside the slice they still raise by name
     "poisson": {"objective": "poisson", "tree_learner": "data"},
     "linear_tree": {"linear_tree": True},
-    "monotone": {"monotone_constraints": [1, 0, 0, 0]},
-    "interaction": {"interaction_constraints": [[0, 1], [2, 3]]},
-    "extra_trees": {"extra_trees": True},
+    # the constraints and extra_trees train since their slice; under a
+    # learner outside the slice they still raise by name
+    "monotone": {"monotone_constraints": [1, 0, 0, 0],
+                 "tree_learner": "data"},
+    "interaction": {"interaction_constraints": [[0, 1], [2, 3]],
+                    "tree_learner": "data"},
+    "extra_trees": {"extra_trees": True, "tree_learner": "data"},
     "bynode": {"feature_fraction_bynode": 0.5, "tree_learner": "feature"},
     "bf16sr": {"hist_dtype": "bf16sr", "tree_learner": "data"},
     "feature_screen": {"feature_screen": "ema"},
