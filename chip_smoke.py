@@ -186,7 +186,7 @@ Phases:
    through ``PredictorRuntime`` on 16,384 rows within 1e-5 of
    ``Booster.predict``; (c) ``cv()`` on the diamonds split with
    ``feature_fraction_bynode=0.5`` (the batched unfused strict body: B6, no
-   B3 launch; 50 rounds, cut from phase 8b's 1,000) through the kernels
+   B3 launch; 30 rounds, cut from phase 8b's 1,000) through the kernels
    and the plain versions, ``best_iter`` equal, ``best_score`` within 1e-5
    relative; (d) fused ``cv()`` at 2^19
    rows x 28, 5 folds, 63 leaves, 3 rounds, ``feature_fraction_bynode=
@@ -204,7 +204,7 @@ Phases:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host read); (b) the
    regression family on examples/gridsearch_cv.py's diamonds split with
    the price in dollars and the example's untuned call (learning rate
-   0.1, 100 rounds): huber, fair, poisson, gamma, tweedie, mape,
+   0.1, cut to 60 rounds): huber, fair, poisson, gamma, tweedie, mape,
    cross_entropy (price over the largest price) and a custom ``fobj``
    (l2 in arithmetic operators) through the kernels and the plain
    versions, the held-out metric within 1e-5 relative; each model packed
@@ -236,8 +236,8 @@ Phases:
    1e-5, valid AUC within 1e-4, the dropped-tree replay's CUDA-event ms
    per drop round, the final model served by B4 within 1e-5; (d)
    examples/gridsearch_cv.py's ``cv()`` arguments with ``boosting="goss"``
-   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's runs cut at 40
-   rounds, DART's both at 50, fold-mean RMSE per round
+   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's runs cut at 25
+   rounds, DART's both at 30, fold-mean RMSE per round
    within 1e-5 and the best round equal; (e)
    DART on examples/bagging_boosting.py's curve (the strict grower: B1
    and B3), ``train_resumable`` killed by SIGTERM after round index 6 and
@@ -259,7 +259,7 @@ Phases:
    the legacy traversal within 1e-5 with no B4 launch; (b) the strict
    grower, 3 rounds (B1 pairs, no B3), AUC within 1e-4; (c)
    examples/gridsearch_cv.py's ``cv()`` with cut, color and clarity as
-   factors (fused strict, E = 5: B6, no B3; both runs cut at 60 rounds,
+   factors (fused strict, E = 5: B6, no B3; both runs cut at 30 rounds,
    ``best_iter`` compared); (d) multiclass at
    Covertype's shape with Wilderness_Area and Soil_Type as categorical
    columns, 3 rounds (B5, B6), ``multi_logloss`` within 1e-4; (e) int8
@@ -316,6 +316,29 @@ Phases:
    Covertype's shape with its first column constrained, 3 rounds (B6 roots,
    B5 waves): ``multi_logloss`` within 1e-4; (f) (a)'s model served by B4
    within 1e-5 of ``Booster.predict``.
+20. linear leaves and introspection, every launch counter at 0 just
+   before each run and read just after: (a) ``linear_tree=True`` at the
+   north star (``enable_bundle=False``), 10 rounds through the kernels and
+   the plain versions in turns (B1 roots, B2 waves, then the ridge fit in
+   plain PyTorch; no plain-version call on the kernel path): AUC on
+   ``make_higgs_like(200,000, seed=9)`` within 1e-4, the dyadic round-1
+   trees equal in every field (``linear_feat``, ``linear_coef``), the
+   fit's CUDA-event ms a round, seconds a round beside a constant-leaf
+   round and phase 6's, host syncs of a linear and a constant round (the
+   fit adds none), one round's fit under ``torch.cuda.set_sync_debug_mode(
+   "error")``; (b) examples/advanced_features.py's linear call (seed 7,
+   4,000 rows, 8 leaves, 25 rounds: the strict grower, B1 pairs and B3)
+   beside its constant-leaf twin: held-out RMSE within 1e-5 of the plain
+   path and below the constant one, CUDA-event ms a split iteration and a
+   fit; (c) TreeSHAP on the card: the example's monotone model (60 rounds),
+   500 held-out rows, additive within 1e-4 and within 1e-5 of the same
+   model's contributions on CPU tensors; 4,096 rows of (a)'s constant-leaf
+   counterpart (10 trees of 127 leaves): seconds, additivity, peak memory;
+   (d) ``pred_leaf`` of 16,384 rows of that model, ``dump_model`` and
+   ``create_tree_digraph``'s text equal to the CPU's; (e) (b)'s model
+   through the text model reloaded with predictions bit-equal on the card,
+   and ``pack_booster`` (and ``save_model`` to ``.npz``) refusing it by
+   name.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -430,7 +453,8 @@ RF_TREES, RF_SERVE_ROWS, SYNC_ROUNDS = 10, 16_384, 3
 BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
 # 14c's rounds, cut from phase 8b's 1,000 (early stopping found 301): the
 # unfused body's split scan runs in plain ops, 5-9 ms a split iteration
-BYNODE_CV_ROUNDS = 50
+# (50 until phase 20 needed the time)
+BYNODE_CV_ROUNDS = 30
 BATCH_CV_ROWS, BATCH_CV_LEAVES, BATCH_CV_ROUNDS = 1 << 19, 63, 3
 # phase 15: the remaining objectives; 15a's renewal at the north star
 RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
@@ -439,9 +463,9 @@ RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
 FAMILY_OBJECTIVES = ("huber", "fair", "poisson", "gamma", "tweedie", "mape",
                      "cross_entropy", "custom")
 FAMILY_METRIC = {"fair": "l1", "custom": "l2"}
-# the example's rounds cut to 100 on both paths (the plain versions are
-# launch-bound at 45,957 rows)
-FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 100, 16_384
+# the example's rounds cut to 60 on both paths (the plain versions are
+# launch-bound at 45,957 rows; 100 until phase 20 needed the time)
+FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 60, 16_384
 # phase 16: GOSS and DART at LightGBM's defaults (top_rate 0.2, other_rate
 # 0.1; drop_rate 0.1, max_drop 50, skip_drop 0.5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
@@ -451,10 +475,11 @@ DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
 DART_ROUNDS = 30
 # 16d: the example's cv() rounds (kernels, plain), cut so the script fits
-# its time limit on a slow host: GOSS's both at 40 (early stopping ends
+# its time limit on a slow host: GOSS's both at 25 (early stopping ends
 # them at 177); DART's early stopping rarely ends it (each drop round
-# moves the ensemble), so both of its runs stop at 50
-GD_CV_ROUNDS = {"goss": 40, "dart": 50}
+# moves the ensemble), so both of its runs stop at 30 (40 and 50 until
+# phase 20 needed the time)
+GD_CV_ROUNDS = {"goss": 25, "dart": 30}
 # 16e: the curve's params with DART dropping half the trees every round
 DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
                          skip_drop=0.0)
@@ -471,7 +496,7 @@ AIR_ROWS, CAT_ROUNDS, CAT_SHORT_ROUNDS, CAT_SERVE_ROWS = (1_000_000, 10, 3,
 # runs are cut at the same round (early stopping ends the kernel run at
 # 139), so the script fits its time limit on a slow host (as 16d)
 DIAMOND_CATS = ["cut", "color", "clarity"]
-CAT_CV_ROUNDS = 60
+CAT_CV_ROUNDS = 30
 # phase 18: ranking; 18a is the reference bench's MSLR configuration
 # (bench.py bench_mslr): 1,000 training and 200 held-out queries of 100
 # documents, 136 features, truncation at the query depth
@@ -504,6 +529,10 @@ ADV_ROUNDS = 60            # examples/advanced_features.py's num_boost_round
 # body takes ~8 ms a split iteration on the card), so phase 19 fits its
 # 60-75 s
 ADV_STRICT_ROUNDS = 20
+# phase 20: examples/advanced_features.py's linear call and TreeSHAP rows,
+# and the north star's TreeSHAP and pred_leaf rows
+LINEAR_EXAMPLE_ROUNDS, SHAP_EXAMPLE_ROWS = 25, 500
+SHAP_NORTH_STAR_ROWS, LEAF_ROWS = 4096, 16_384
 
 
 def fail(msg: str) -> None:
@@ -4408,13 +4437,11 @@ def syncs_per_round(lgb, params, ds):
             "sites": dict(sorted(collections.Counter(sites).items()))}
 
 
-def scan_without_host_reads(booster):
-    """One round whose every split scan (``find_best_split`` in the
-    growers) runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
-    host read in the subset scan fails the round; returns the scans run."""
-    import lightgbm_tpu_torch.models.tree as T
-
-    orig, calls = T.find_best_split, [0]
+def round_without_host_reads(booster, module, name):
+    """One round whose every call of ``module.name`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host read there
+    fails the round; returns the calls run."""
+    orig, calls = getattr(module, name), [0]
 
     def guarded(*a, **k):
         calls[0] += 1
@@ -4424,12 +4451,12 @@ def scan_without_host_reads(booster):
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    T.find_best_split = guarded
+    setattr(module, name, guarded)
     try:
         booster.update()
         torch.cuda.synchronize()
     finally:
-        T.find_best_split = orig
+        setattr(module, name, orig)
     return calls[0]
 
 
@@ -4439,6 +4466,7 @@ def phase_cat_airline(dev, workdir, launches):
     partition, then B1 with a segment per split), kernel and plain paths in
     turns."""
     import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.tree as T
     from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
 
     X, y = airline_like(AIR_ROWS, SEED + 170)
@@ -4513,7 +4541,8 @@ def phase_cat_airline(dev, workdir, launches):
           and sc["syncs_per_round"] - sc["waves_per_round"]
           <= sn["syncs_per_round"] - sn["waves_per_round"],
           f"17a host syncs: categorical {sc}, numeric {sn}")
-    scans = scan_without_host_reads(lgb.Booster(TRAIN_PARAMS, ds))
+    scans = round_without_host_reads(lgb.Booster(TRAIN_PARAMS, ds), T,
+                                     "find_best_split")
     breakdown = profile_rounds(lgb, ds, TRAIN_PARAMS, tag="phase 17a",
                                unfused=True)
     # the text model reloads with the same predictions, bit for bit
@@ -5598,6 +5627,296 @@ def phase_constraints(dev, X, y, Xc, yc, workdir, card, unconstrained):
     return out
 
 
+def event_timed(module, name, fn):
+    """``fn()`` with CUDA events around every call of ``module.name``:
+    (result, median event ms per call, calls)."""
+    orig, pairs = getattr(module, name), []
+
+    def timed(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(*a, **k)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, orig)
+    ms = [s.elapsed_time(e) for s, e in pairs]
+    return out, (float(np.median(ms)) if ms else 0.0), len(ms)
+
+
+def phase_linear_north_star(dev, X, y, Xv, yv, launches, constant_s):
+    """20a: linear leaves at the north star, 10 rounds through the kernels
+    and the plain versions in turns (B1 roots, B2 waves, then the fit)."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.gbdt as G
+
+    ds = lgb.Dataset(X, label=y, params={"max_bin": MAX_BIN,
+                                         "enable_bundle": False})
+    ds.construct()
+    dsd = lgb.Dataset(X, label=dyadic_label(X, SEED + 200), reference=ds)
+    dsd.construct()
+    params = dict(TRAIN_PARAMS, linear_tree=True)
+    runs, boosters = {}, {}
+    for path, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"}),
+                        ("plain", {"hist_impl": "plain"}), ("kernels", {})):
+        if path in runs:
+            # the second of each pair is timed only
+            secs = counted_run(lambda: lgb.train(
+                dict(params, **extra), ds, TRAIN_ROUNDS))[1]
+            runs[path]["s_per_round_turns"].append(secs / TRAIN_ROUNDS)
+            continue
+        (b, fit_ms, fits), secs, counts, plain = counted_run(
+            lambda: event_timed(G, "fit_linear_leaves", lambda: lgb.train(
+                dict(params, **extra), ds, TRAIN_ROUNDS)))
+        runs[path] = {"s_per_round": secs / TRAIN_ROUNDS,
+                      "s_per_round_turns": [secs / TRAIN_ROUNDS],
+                      "counts": counts, "plain_calls": plain,
+                      "fit_event_ms_per_round": fit_ms, "fits": fits,
+                      "auc": auc(b, Xv, yv, dev)}
+        boosters[path] = b
+        log(f"phase 20a {path}: {TRAIN_ROUNDS} rounds in {secs:.2f} s, "
+            f"AUC {runs[path]['auc']:.6f}, fit {fit_ms:.3f} event ms a "
+            f"round, launches {json.dumps(counts)}, plain calls {plain}")
+    k = runs["kernels"]
+    check(k["counts"]["hist_fused_bf16"] == TRAIN_ROUNDS
+          and k["counts"]["hist_partition_bf16"] > TRAIN_ROUNDS
+          and k["plain_calls"] == 0 and k["counts"]["split_iter"] == 0
+          and k["fits"] == TRAIN_ROUNDS,
+          f"20a kernel path (B1 roots, B2 waves): launches {k['counts']}, "
+          f"plain calls {k['plain_calls']}, fits {k['fits']}")
+    check(sum(v for n, v in runs["plain"]["counts"].items()
+              if n.startswith("hist_")) == 0,
+          "20a: hist_impl='plain' launched a histogram kernel")
+    check(boosters["kernels"].trees[0].linear_feat is not None,
+          "20a: the trees carry no linear leaves")
+    add_launches(launches, k["counts"])
+    d_auc = k["auc"] - runs["plain"]["auc"]
+    check(abs(d_auc) <= AUC_TOL, f"20a AUC kernel - plain {d_auc:.2e}")
+    pd_ = dict(params, objective="regression", hist_dtype="f32")
+    dy = {}
+    for path, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        dy[path] = tree_arrays(lgb.train(dict(pd_, **extra), dsd, 1), 0)
+    a, b = dy["kernels"], dy["plain"]
+    check("linear_coef" in a and a.keys() == b.keys()
+          and all(np.array_equal(a[f], b[f]) for f in a),
+          "20a: the dyadic round-1 linear trees of the kernel and plain "
+          "paths differ")
+    # host syncs: a linear round beside a constant-leaf round, and one
+    # round whose fit runs under the sync debug mode "error"
+    syncs = {"linear": syncs_per_round(lgb, params, ds),
+             "constant": syncs_per_round(lgb, TRAIN_PARAMS, ds)}
+    guarded = lgb.Booster(params, ds)
+    guarded.update()
+    check(round_without_host_reads(guarded, G, "fit_linear_leaves") == 1,
+          "20a: the fit did not run under the sync debug mode")
+    check(syncs["linear"]["syncs_per_round"]
+          - syncs["linear"]["waves_per_round"]
+          <= syncs["constant"]["syncs_per_round"]
+          - syncs["constant"]["waves_per_round"],
+          f"20a: the linear round adds host syncs {syncs}")
+    # the constant-leaf counterpart (TreeSHAP and introspection run on it)
+    const, const_s, _, _ = counted_run(
+        lambda: lgb.train(TRAIN_PARAMS, ds, TRAIN_ROUNDS))
+    out = {"s_per_round": {p: r["s_per_round"] for p, r in runs.items()},
+           "s_per_round_turns": {p: r["s_per_round_turns"]
+                                 for p, r in runs.items()},
+           "constant_s_per_round": const_s / TRAIN_ROUNDS,
+           "phase6_constant_s_per_round": constant_s,
+           "fit_event_ms_per_round": {p: r["fit_event_ms_per_round"]
+                                      for p, r in runs.items()},
+           "auc": {p: r["auc"] for p, r in runs.items()},
+           "auc_kernel_minus_plain": d_auc, "launches": k["counts"],
+           "dyadic_round1_equal": True,
+           "dyadic_leaves": int(a["num_leaves"]), "host_syncs": syncs,
+           "fit_under_sync_error": True}
+    log(f"phase 20a: {json.dumps(out)}")
+    return out, const, ds
+
+
+def phase_linear_example(dev, workdir, launches):
+    """20b and 20e: examples/advanced_features.py's linear call (seed 7,
+    4,000 rows, 8 leaves, 25 rounds: the strict grower, B1 pairs and B3)
+    beside its constant-leaf twin, kernel and plain paths; its model
+    through the text model, and ``pack_booster``'s refusal."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.gbdt as G
+    import lightgbm_tpu_torch.models.tree as T
+    from lightgbm_tpu_torch.serving import pack_booster
+
+    X, y = advanced_features_data()
+    tr, te = slice(0, 4000), slice(4000, None)
+    lin = {"objective": "regression", "verbosity": -1, "num_leaves": 8,
+           "linear_tree": True}
+    res = {}
+    for path, imp in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+        ds = lgb.Dataset(X[tr], label=y[tr])
+        ((b, fit_ms, fits), si_ms, si_calls), secs, counts, plain = \
+            counted_run(lambda: event_timed(T, "split_iter", lambda:
+                        event_timed(G, "fit_linear_leaves", lambda:
+                                    lgb.train(dict(lin, **imp), ds,
+                                              LINEAR_EXAMPLE_ROUNDS))))
+        res[path] = {"s": secs, "rmse": rmse(b.predict(X[te]), y[te]),
+                     "counts": counts, "plain_calls": plain,
+                     "split_iter_event_ms": si_ms, "split_iterations":
+                     si_calls, "fit_event_ms": fit_ms, "fits": fits,
+                     "booster": b}
+        log(f"phase 20b {path}: {LINEAR_EXAMPLE_ROUNDS} rounds in "
+            f"{secs:.2f} s, RMSE {res[path]['rmse']:.7f}, launches "
+            f"{json.dumps(counts)}, plain calls {plain}, "
+            f"{si_ms:.4f} event ms a split iteration, {fit_ms:.3f} a fit")
+    k = res["kernels"]
+    check(k["plain_calls"] == 0 and k["counts"]["split_iter"] > 0
+          and k["counts"]["hist_fused_f32"] > 0,
+          f"20b strict kernel path (B1 pairs, B3): launches {k['counts']}, "
+          f"plain calls {k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    d = k["rmse"] - res["plain"]["rmse"]
+    check(abs(d) <= 1e-5, f"20b: RMSE kernel - plain {d:.2e}")
+    con = lgb.train({"objective": "regression", "verbosity": -1,
+                     "num_leaves": 8}, lgb.Dataset(X[tr], label=y[tr]),
+                    LINEAR_EXAMPLE_ROUNDS)
+    con_rmse = rmse(con.predict(X[te]), y[te])
+    check(k["rmse"] < con_rmse,
+          f"20b: linear RMSE {k['rmse']:.5f} not below constant "
+          f"{con_rmse:.5f}")
+    # 20e: the linear model through the text model; the packed artifact
+    # refuses it by name
+    bk = k["booster"]
+    path = os.path.join(workdir, "linear_model.txt")
+    bk.save_model(path)
+    back = lgb.Booster(model_file=path)
+    same = bool(np.array_equal(back.predict(X[te]), bk.predict(X[te])))
+    check(same, "20e: the reloaded text model predicts other bits")
+    refused = []
+    for fn in (lambda: pack_booster(bk),
+               lambda: bk.save_model(os.path.join(workdir, "linear.npz"))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            refused.append("linear_tree" in str(e))
+    check(refused == [True, True], f"20e: pack_booster refusals {refused}")
+    out = {"rounds": LINEAR_EXAMPLE_ROUNDS,
+           **{p: {f: v for f, v in r.items() if f != "booster"}
+              for p, r in res.items()},
+           "rmse_kernel_minus_plain": d, "constant_rmse": con_rmse,
+           "text_model_bit_equal": same, "packed_refused": True}
+    log(f"phase 20b/e: {json.dumps(out)}")
+    return out
+
+
+def phase_shap_and_introspection(dev, const, Xv, launches):
+    """20c and 20d: TreeSHAP on the card (the example's monotone model,
+    then 4,096 rows of the north-star constant model), ``pred_leaf``,
+    ``dump_model`` and ``create_tree_digraph`` against the CPU's."""
+    import lightgbm_tpu_torch as lgb
+
+    X, y = advanced_features_data()
+    tr, te = slice(0, 4000), slice(4000, None)
+    mono = lgb.train({"objective": "regression", "verbosity": -1,
+                      "monotone_constraints": [1, -1, 0, 0, 0]},
+                     lgb.Dataset(X[tr], label=y[tr]), ADV_ROUNDS)
+    mono_cpu = lgb.Booster(model_str=mono.model_to_string(), device="cpu")
+    rows = X[te][:SHAP_EXAMPLE_ROWS]
+    t0 = time.perf_counter()
+    contrib = mono.predict(rows, pred_contrib=True)
+    ex_s = time.perf_counter() - t0
+    add = float(np.abs(contrib.sum(1) - mono.predict(rows, raw_score=True))
+                .max())
+    d_cpu = float(np.abs(contrib - mono_cpu.predict(rows, pred_contrib=True))
+                  .max())
+    mean_abs = np.abs(contrib[:, :5]).mean(0)
+    check(add <= 1e-4, f"20c: additivity {add:.2e}")
+    check(d_cpu <= 1e-5, f"20c: card - CPU contributions {d_cpu:.2e}")
+    check(mean_abs[3:].max() < 0.05 * mean_abs[:3].min(),
+          f"20c: mean |SHAP| {mean_abs}")
+    # 4,096 rows of the north-star constant model (10 trees of 127 leaves)
+    rows = Xv[:SHAP_NORTH_STAR_ROWS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (ns, _, counts, _) = counted_run(lambda: const.predict(
+        rows, pred_contrib=True))
+    t0 = time.perf_counter()
+    ns = const.predict(rows, pred_contrib=True)
+    torch.cuda.synchronize()
+    ns_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    ns_add = float(np.abs(ns.sum(1) - const.predict(rows, raw_score=True))
+                   .max())
+    check(ns.shape == (SHAP_NORTH_STAR_ROWS, NUM_FEATURES + 1)
+          and np.isfinite(ns).all() and ns_add <= 1e-4,
+          f"20c north star: shape {ns.shape}, additivity {ns_add:.2e}")
+    # 20d: pred_leaf, dump_model and the DOT text against the CPU's
+    const_cpu = lgb.Booster(model_str=const.model_to_string(), device="cpu")
+    leaf_rows = Xv[:LEAF_ROWS]
+    t0 = time.perf_counter()
+    leaves = const.predict(leaf_rows, pred_leaf=True)
+    leaf_s = time.perf_counter() - t0
+    leaves_equal = bool(np.array_equal(
+        leaves, const_cpu.predict(leaf_rows, pred_leaf=True)))
+    check(leaves_equal and leaves.shape == (LEAF_ROWS, TRAIN_ROUNDS)
+          and leaves.max() < NUM_LEAVES,
+          f"20d: pred_leaf differs from the CPU's ({leaves.shape})")
+    dump_equal = const.dump_model() == const_cpu.dump_model()
+    dot_equal = all(lgb.create_tree_digraph(const, tree_index=i)
+                    == lgb.create_tree_digraph(const_cpu, tree_index=i)
+                    for i in (0, TRAIN_ROUNDS - 1))
+    check(dump_equal and dot_equal,
+          f"20d: dump_model equal {dump_equal}, DOT text equal {dot_equal}")
+    out = {"example": {"rows": SHAP_EXAMPLE_ROWS, "s": ex_s,
+                       "additivity": add, "max_abs_card_minus_cpu": d_cpu,
+                       "mean_abs_shap": mean_abs.tolist()},
+           "north_star": {"rows": SHAP_NORTH_STAR_ROWS, "trees":
+                          TRAIN_ROUNDS, "s": ns_s, "additivity": ns_add,
+                          "peak_bytes_above_base": int(peak),
+                          "launches": counts},
+           "pred_leaf": {"rows": LEAF_ROWS, "s": leaf_s,
+                         "equal_to_cpu": leaves_equal},
+           "dump_model_equal": dump_equal, "dot_text_equal": dot_equal}
+    log(f"phase 20c/d: {json.dumps(out)}")
+    return out
+
+
+def phase_linear_introspection(dev, X, y, card, constant_s):
+    """Phase 20, every launch counter at 0 just before each run and read
+    just after; fails unless B1 (bf16 and f32), B2 and B3 launched."""
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    workdir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    t1 = time.perf_counter()
+    out["20a"], const, ds = phase_linear_north_star(dev, X, y, Xv, yv,
+                                                    launches, constant_s)
+    secs["20a"] = time.perf_counter() - t1
+    for name, fn in (
+            ("20b", lambda: phase_linear_example(dev, workdir, launches)),
+            ("20c", lambda: phase_shap_and_introspection(dev, const, Xv,
+                                                         launches))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    del ds, const
+    for name in ("hist_fused_bf16", "hist_partition_bf16", "hist_fused_f32",
+                 "split_iter"):
+        check(launches.get(name, 0) > 0, f"phase 20: {name} never launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 20: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5681,6 +6000,9 @@ def main() -> int:
          "s_per_round_median": train["s_per_round_median"]["bf16"]})
     l19 = phase19["launches"]
     del Xc, yc
+    phase20 = phase_linear_introspection(dev, X, y, card,
+                                         train["s_per_round"]["bf16"])
+    l20 = phase20["launches"]
 
     kernels = []
     for prec in PRECISIONS:
@@ -5697,7 +6019,8 @@ def main() -> int:
                              "16": l16["predict_forest"],
                              "17": l17.get("predict_forest", 0),
                              "18": l18.get("predict_forest", 0),
-                             "19": l19.get("predict_forest", 0)})
+                             "19": l19.get("predict_forest", 0),
+                             "20": l20.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -5725,7 +6048,8 @@ def main() -> int:
                     "16": l16.get(f"{name}_{mode}", 0),
                     "17": l17.get(f"{name}_{mode}", 0),
                     "18": l18.get(f"{name}_{mode}", 0),
-                    "19": l19.get(f"{name}_{mode}", 0)},
+                    "19": l19.get(f"{name}_{mode}", 0),
+                             "20": l20.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -5747,7 +6071,8 @@ def main() -> int:
             "13": rec_launches["split_iter"],
             "14": l14["split_iter"], "15": l15["split_iter"],
             "16": l16["split_iter"], "17": l17.get("split_iter", 0),
-            "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0)},
+            "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
+                             "20": l20.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -5771,7 +6096,8 @@ def main() -> int:
                 "16": l16.get(f"hist_segstats_{mode}", 0),
                 "17": l17.get(f"hist_segstats_{mode}", 0),
                 "18": l18.get(f"hist_segstats_{mode}", 0),
-                "19": l19.get(f"hist_segstats_{mode}", 0)},
+                "19": l19.get(f"hist_segstats_{mode}", 0),
+                             "20": l20.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -5796,7 +6122,8 @@ def main() -> int:
                 "16": l16.get(f"hist_fused_batched_{mode}", 0),
                 "17": l17.get(f"hist_fused_batched_{mode}", 0),
                 "18": l18.get(f"hist_fused_batched_{mode}", 0),
-                "19": l19.get(f"hist_fused_batched_{mode}", 0)},
+                "19": l19.get(f"hist_fused_batched_{mode}", 0),
+                             "20": l20.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -5810,7 +6137,8 @@ def main() -> int:
             "16": l16.get("hist_fused_int8", 0),
             "17": l17.get("hist_fused_int8", 0),
             "18": l18.get("hist_fused_int8", 0),
-            "19": l19.get("hist_fused_int8", 0)},
+            "19": l19.get("hist_fused_int8", 0),
+                             "20": l20.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -5835,7 +6163,7 @@ def main() -> int:
               "b5_times": b5_times, "multiclass": multiclass,
               "int8": int8, "recovery": recovery, "phase14": phase14,
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
-              "phase18": phase18, "phase19": phase19,
+              "phase18": phase18, "phase19": phase19, "phase20": phase20,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -31,7 +31,12 @@ nothing of ``lightgbm_tpu``.  Ported so far:
   poisson, gamma, tweedie, cross_entropy, a custom ``fobj``), GOSS and DART,
   categorical features, and ranking: ``Dataset(group=)``,
   ``objective="lambdarank"`` (``ranking``), ``metric="ndcg"``/``"map"`` at
-  ``eval_at``, whole-query ``cv`` folds and ``LGBMRanker``.
+  ``eval_at``, whole-query ``cv`` folds and ``LGBMRanker``;
+* constraints and randomized splits (``monotone_constraints``,
+  ``interaction_constraints``, ``extra_trees``), linear leaves
+  (``linear_tree``) and introspection: ``predict(pred_leaf=True)``,
+  TreeSHAP ``predict(pred_contrib=True)`` (``ops.shap``), ``dump_model``,
+  ``trees_to_dataframe`` and the plotting helpers (``plotting``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
 
@@ -65,23 +70,22 @@ _SERVING = ("PackedForest", "PredictorRuntime", "MicroBatcher",
             "pack_booster")
 _SKLEARN = ("LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
             "LGBMRandomForestRegressor")
+_PLOTTING = ("plot_importance", "plot_metric", "create_tree_digraph",
+             "plot_split_value_histogram")
 
 
 def __getattr__(name):
-    # the estimators and the serving runtime load on first use, as in the
-    # reference; plotting (ROADMAP item 10) is refused by name
+    # the estimators, the serving runtime and the plotting helpers load on
+    # first use (matplotlib only when a plot is drawn), as in the reference
     import importlib
 
-    if name in ("serving", "sklearn", "faults"):
+    if name in ("serving", "sklearn", "faults", "plotting"):
         return importlib.import_module(f".{name}", __name__)
     if name in _SERVING:
         return getattr(importlib.import_module(".serving", __name__), name)
     if name in _SKLEARN:
         return getattr(importlib.import_module(".sklearn", __name__), name)
-    if name in ("plot_importance", "plot_metric", "create_tree_digraph",
-                "plot_split_value_histogram"):
-        raise NotImplementedError(
-            f"{name} (plotting) is not ported yet: ROADMAP slice 3 "
-            "(breadth of training), item 10")
+    if name in _PLOTTING:
+        return getattr(importlib.import_module(".plotting", __name__), name)
     raise AttributeError(
         f"module 'lightgbm_tpu_torch' has no attribute '{name}'")

@@ -445,7 +445,7 @@ class Dataset:
         if isinstance(data, str):
             raise NotImplementedError(
                 "binary dataset files (save_binary) are not ported yet: "
-                "ROADMAP slice 5")
+                "ROADMAP slice 3 (breadth of training), item 10")
         if device is None and reference is not None:
             self.device = reference.device
         else:

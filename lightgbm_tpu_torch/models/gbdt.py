@@ -49,9 +49,19 @@ the training columns (:func:`resolve_monotone_constraints`,
 :func:`resolve_interaction_constraints`, :func:`extra_trees_col_bins`),
 held on the device, and handed to each grower call with the round key.
 
+``linear_tree`` grows each tree on the binned codes as any round does and
+then fits a ridge model in every leaf over its path features on the RAW
+values (:func:`~.tree.fit_linear_leaves`, the reference's
+``round_fn_linear``); the raw matrix goes to the device once at setup, and
+valid sets and ``predict`` evaluate the leaves on theirs
+(:func:`linear_tree_add`).  ``predict(pred_leaf=True)`` returns leaf
+ordinals, ``predict(pred_contrib=True)`` exact TreeSHAP values
+(``ops/shap.py``), and ``dump_model``/``trees_to_dataframe`` the
+reference's nested and flat views.
+
 What is outside the port so far raises a ``NotImplementedError`` naming the
-ROADMAP slice and item that will port it: linear trees, feature screening,
-streaming, the distributed learners and ``init_model``.
+ROADMAP slice and item that will port it: feature screening, streaming,
+the distributed learners and ``init_model``.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -80,13 +90,13 @@ from ..metrics import get_metric
 from ..objectives import create_objective
 from ..ops.histogram import INT8_ACC_ROW_LIMIT
 from ..ops.predict import (forest_depth_cap, predict_forest_binned,
-                           predict_tree_binned)
+                           predict_leaf_nodes, predict_tree_binned)
 from ..ops.sampling import goss_select, goss_weights, sample_bag
 from ..ops.split import CatInfo, SplitContext, fma
 from ..utils.random import fold_in, prng_key, split_on
 from .feature_mask import compose_tree_mask
-from .tree import (_PK, Tree, _tree_from_packed, grow_tree,
-                   grow_trees_batched, renew_leaf_values)
+from .tree import (_PK, Tree, _tree_from_packed, fit_linear_leaves,
+                   grow_tree, grow_trees_batched, renew_leaf_values)
 
 _F32 = torch.float32
 _SLICE3 = "ROADMAP slice 3 (breadth of training)"
@@ -220,6 +230,34 @@ def _predict_forest_mc(forest: Tree, bins: torch.Tensor, shrink, inits,
         float(inits[c]) if np.ndim(inits) else float(inits), n_trees,
         depth_cap, start_iteration=start_iteration)
         for c in range(int(forest.leaf_value.shape[1]))], dim=1)
+
+
+def linear_tree_add(pred: torch.Tensor, tree: Tree, bins: torch.Tensor,
+                    xraw: torch.Tensor, shrink, depth_cap: int
+                    ) -> torch.Tensor:
+    """``pred + shrink * (leaf constant + coef . raw path features)`` for
+    ONE linear tree, the reference's ``_linear_tree_pred_fn``: traversal on
+    the binned codes, evaluation on the raw values, NaN and unused slots
+    read as 0."""
+    node = predict_leaf_nodes(tree, bins, depth_cap)
+    feats = tree.linear_feat.to(torch.int64)[node]            # [n, K]
+    xg = xraw.gather(1, feats.clamp(min=0))
+    xg = torch.where((feats >= 0) & torch.isfinite(xg), xg,
+                     torch.zeros((), dtype=_F32, device=xg.device))
+    val = tree.leaf_value[node] + (tree.linear_coef[node] * xg).sum(dim=1)
+    return pred + shrink * val
+
+
+def raw_to_device(raw, n_pad: int, device) -> torch.Tensor:
+    """A raw feature matrix as padded f32 ``[n_pad, F]`` on ``device``
+    (zero rows past the data): what linear leaves read."""
+    from ..dataset import _to_2d_float_array
+
+    X = _to_2d_float_array(raw).astype(np.float32)
+    if X.shape[0] < n_pad:
+        X = np.concatenate(
+            [X, np.zeros((n_pad - X.shape[0], X.shape[1]), np.float32)])
+    return torch.from_numpy(np.ascontiguousarray(X)).to(device)
 
 
 class HyperScalars(NamedTuple):
@@ -389,8 +427,6 @@ def check_slice_scope(p: Params) -> None:
     def later(what: str, where: str):
         raise NotImplementedError(f"{what} is not ported yet: {where}")
 
-    if p.linear_tree:
-        later("linear_tree", _slice3(10))
     if p.feature_screen != "off":
         later(f"feature_screen='{p.feature_screen}'", _SLICE5)
     if p.tree_learner != "serial":
@@ -502,6 +538,31 @@ class Booster:
             col_bins=torch.tensor(extra_trees_col_bins(bm),
                                   dtype=torch.int32, device=self.device)
             if p.extra_trees else None)
+        self._xraw = None
+        self._linear_k = None
+        if p.linear_tree:
+            self._setup_linear_tree()
+
+    def _setup_linear_tree(self) -> None:
+        """The raw feature matrix on the device for linear leaves, as the
+        reference's ``_setup_linear_tree``: the ridge fit and the linear
+        predictor read RAW values.  EFB must be off (a bundle column has
+        no single raw value), and the Dataset must hold its raw matrix."""
+        ds = self.train_set
+        if ds.bin_mapper.bundler is not None:
+            raise ValueError(
+                "linear_tree with EFB bundling is not supported; construct "
+                "the Dataset with params={'enable_bundle': False}")
+        raw = ds.raw_data
+        if raw is None or isinstance(raw, str):
+            raise ValueError(
+                "linear_tree needs the raw feature values: keep "
+                "free_raw_data=False and build the Dataset from an "
+                "in-memory matrix (not a saved binary)")
+        self._xraw = raw_to_device(raw, int(ds.row_mask.shape[0]),
+                                   self.device)
+        self._linear_k = max(1, min(int(self.params.extra.get("linear_k", 8)),
+                                    int(ds.num_feature_)))
 
     @property
     def _num_class(self) -> int:
@@ -573,7 +634,10 @@ class Booster:
                 # gives lr_i
                 scale = torch.tensor(p.learning_rate / self._base_lr,
                                      dtype=_F32, device=self.device)
-                tree = tree._replace(leaf_value=tree.leaf_value * scale)
+                tree = tree._replace(
+                    leaf_value=tree.leaf_value * scale,
+                    linear_coef=(None if tree.linear_coef is None
+                                 else tree.linear_coef * scale))
         self._append_round(tree, self._shrink)
         return False
 
@@ -672,6 +736,13 @@ class Booster:
         tree, row_leaf = grow_tree(bins, stats, fmask, hyper.ctx(),
                                    p.num_leaves, self._num_bins,
                                    hyper.max_depth, wave_width=width, **grow)
+        if self._linear_k is not None:
+            # linear leaves: the grown tree's leaves refit as ridge models
+            # on the raw values (round_fn_linear; gbdt only, no renewal)
+            tree, delta = fit_linear_leaves(
+                tree, row_leaf, self._xraw, g, h, bag, p.linear_lambda,
+                self._linear_k, int(p.extra.get("row_chunk", 131072)))
+            return tree, fma(lr, delta, pred)
         renew_alpha = getattr(self.obj, "renew_alpha", None)
         if renew_alpha is not None:
             # L1/quantile/MAPE: leaves refit to weighted quantiles of the
@@ -696,8 +767,13 @@ class Booster:
         self._forest_cache = None
         s = torch.tensor(shrink, dtype=_F32, device=self.device)
         for idx, (name, vds, vpred) in enumerate(self._valid):
-            self._valid[idx] = (name, vds, vpred + s * self._tree_values(
-                tree, vds.X_binned, self.params.num_leaves))
+            if self._linear_k is not None:
+                vpred = linear_tree_add(vpred, tree, vds.X_binned,
+                                        vds._xraw_dev, s, self._depth_cap)
+            else:
+                vpred = vpred + s * self._tree_values(
+                    tree, vds.X_binned, self.params.num_leaves)
+            self._valid[idx] = (name, vds, vpred)
         self._iter += 1
 
     def _dart_round(self) -> bool:
@@ -798,6 +874,18 @@ class Booster:
         self.params = newp
         self._hyper = HyperScalars.from_params(newp)
         return self
+
+    def can_fuse_rounds(self) -> bool:
+        """Whether the reference's ``update_many`` may scan rounds into one
+        device program (its predicate: single-class, no mesh, no
+        streaming, gbdt/rf/goss, no linear leaves, no screening, no valid
+        set).  The port runs every round on the host loop either way."""
+        p = self.params
+        return (self._num_class == 1
+                and p.boosting in ("gbdt", "rf", "goss")
+                and not p.linear_tree
+                and p.feature_screen == "off"
+                and not self._valid)
 
     def update_many(self, k: int) -> None:
         """Run ``k`` rounds (the reference scans them into one device
@@ -1001,9 +1089,22 @@ class Booster:
                              f"the Booster on {self.device}")
         vpred = self._init_scores(int(data.row_mask.shape[0]))
         shrink = torch.tensor(self._shrink, dtype=_F32, device=self.device)
-        for tree in self.trees:
-            vpred = vpred + shrink * self._tree_values(
-                tree, data.X_binned, self._depth_cap)
+        if getattr(self, "_linear_k", None) is not None:
+            raw = data.raw_data
+            if raw is None or isinstance(raw, str):
+                raise ValueError(
+                    "linear_tree valid sets need raw feature values "
+                    "(free_raw_data=False, in-memory matrix)")
+            data._xraw_dev = raw_to_device(raw, int(data.row_mask.shape[0]),
+                                           self.device)
+            for tree in self.trees:
+                vpred = linear_tree_add(vpred, tree, data.X_binned,
+                                        data._xraw_dev, shrink,
+                                        self._depth_cap)
+        else:
+            for tree in self.trees:
+                vpred = vpred + shrink * self._tree_values(
+                    tree, data.X_binned, self._depth_cap)
         self._valid.append((name, data, vpred))
         return self
 
@@ -1031,11 +1132,10 @@ class Booster:
         xgboost-style alias ``ntree_limit``) truncates to the first k trees
         (None: the best iteration when early stopping found one; <= 0: all
         trees), the staged-prediction contract.  An rf forest averages the
-        trees it uses."""
-        if pred_leaf or pred_contrib:
-            raise NotImplementedError(
-                f"pred_leaf / pred_contrib are not ported yet: "
-                f"{_slice3(10)}")
+        trees it uses.  ``pred_leaf`` gives each tree's leaf ordinal
+        ``[n, T*K]`` (iteration-major); ``pred_contrib`` exact TreeSHAP
+        values ``[n, F+1]`` (``[n, K*(F+1)]`` multiclass) in raw-score
+        space, the expected value in the last column (``ops/shap.py``)."""
         if isinstance(data, Dataset):
             raise TypeError("predict() expects a raw feature matrix, not a "
                             "Dataset (matching lightgbm)")
@@ -1050,10 +1150,27 @@ class Booster:
         num_iteration = min(num_iteration, len(self.trees) - start_iteration)
         from ..dataset import _to_2d_float_array
 
-        codes = self._bin_mapper_for_predict().transform(
-            _to_2d_float_array(data))
+        X = _to_2d_float_array(data)
+        codes = self._bin_mapper_for_predict().transform(X)
         bins = torch.from_numpy(codes).to(self.device)
-        if not self.trees:
+        if pred_leaf:
+            return self._pred_leaf(bins, start_iteration, num_iteration)
+        linear = bool(self.trees) and self.trees[0].linear_feat is not None
+        if pred_contrib:
+            if linear:
+                raise NotImplementedError(
+                    "pred_contrib with linear_tree is not supported")
+            return self._pred_contrib(bins, start_iteration, num_iteration)
+        if linear:
+            xr = torch.from_numpy(np.ascontiguousarray(
+                X, dtype=np.float32)).to(self.device)
+            raw = self._init_scores(bins.shape[0])
+            shrink = torch.tensor(self._shrink, dtype=_F32,
+                                  device=self.device)
+            for t in range(start_iteration, start_iteration + num_iteration):
+                raw = linear_tree_add(raw, self.trees[t], bins, xr, shrink,
+                                      self._depth_cap)
+        elif not self.trees:
             raw = self._init_scores(bins.shape[0])
         else:
             forest = self._stacked_forest()
@@ -1075,6 +1192,53 @@ class Booster:
         if raw_score:
             return raw.cpu().numpy()
         return self.obj.transform(raw).cpu().numpy()
+
+    def _pred_leaf(self, bins: torch.Tensor, start: int,
+                   num: int) -> np.ndarray:
+        """Leaf ordinals ``[n, num * K]``, iteration-major: the rank of the
+        reached slot among the tree's leaf slots (``cumsum(is_leaf) - 1``),
+        not the slot itself, as LightGBM's contract and the reference's."""
+        k = self._num_class
+        cols = []
+        for t in range(start, start + num):
+            for c in range(k):
+                tree = self.trees[t] if k == 1 else \
+                    _class_tree(self.trees[t], c)
+                node = predict_leaf_nodes(tree, bins, self._depth_cap)
+                ordinal = torch.cumsum(tree.is_leaf.to(torch.int32), 0) - 1
+                cols.append(ordinal[node].to(torch.int32))
+        if not cols:
+            return np.zeros((bins.shape[0], 0), np.int32)
+        return torch.stack(cols, dim=1).cpu().numpy()
+
+    def _pred_contrib(self, bins: torch.Tensor, start: int,
+                      num: int) -> np.ndarray:
+        """Exact TreeSHAP contributions over the selected trees, per
+        ORIGINAL feature (EFB bundle splits resolved through the bundle
+        map); the bias column carries the trees' expected values plus the
+        init score, so a row sums to its raw prediction.  rf divides by the
+        tree count, as its prediction averages."""
+        from ..ops.shap import forest_pred_contrib
+
+        bm = self._bin_mapper_for_predict()
+        p = self.params
+        k = self._num_class
+        sel = self.trees[start:start + num]
+        is_rf = p.boosting == "rf"
+        shrink = np.full(len(sel), self._shrink, np.float32)
+        outs = []
+        for c in range(k):
+            trees = [t if k == 1 else _class_tree(t, c) for t in sel]
+            phi = forest_pred_contrib(trees, bins, bm.num_features, shrink,
+                                      bundler=bm.bundler)
+            if is_rf and len(sel) > 0:
+                phi = phi / len(sel)
+            init = (float(self.init_score_[c]) if k > 1
+                    else float(np.float32(self.init_score_)))
+            phi[:, -1] += init
+            outs.append(phi)
+        out = torch.cat(outs, dim=1) if k > 1 else outs[0]
+        return out.cpu().numpy()
 
     def _bin_mapper_for_predict(self):
         if self.train_set is not None:
@@ -1127,6 +1291,57 @@ class Booster:
         if importance_type == "split":
             return out.astype(np.int64)
         return out
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict[str, Any]:
+        """Nested-dict model dump (LightGBM ``dump_model`` contract)."""
+        from ..utils.serialize import dump_booster_dict
+
+        return dump_booster_dict(self, num_iteration=num_iteration,
+                                 start_iteration=start_iteration)
+
+    def trees_to_dataframe(self):
+        """Flat per-node pandas DataFrame (LightGBM ``trees_to_dataframe``):
+        one row per node with tree_index / node_depth / node_index /
+        children / parent / split_feature / split_gain / threshold /
+        decision_type / value / count, node names in LightGBM's
+        ``{tree}-S{split}`` / ``{tree}-L{leaf}`` convention."""
+        import pandas as pd
+
+        names = self.feature_name()
+        rows: List[Dict[str, Any]] = []
+
+        def walk(node: Dict[str, Any], tree_idx: int, depth: int,
+                 parent: Optional[str]) -> str:
+            is_leaf = "leaf_index" in node
+            nid = (f"{tree_idx}-L{node['leaf_index']}" if is_leaf
+                   else f"{tree_idx}-S{node['split_index']}")
+            row = {
+                "tree_index": tree_idx, "node_depth": depth,
+                "node_index": nid, "left_child": None, "right_child": None,
+                "parent_index": parent, "split_feature": None,
+                "split_gain": None, "threshold": None,
+                "decision_type": None,
+                "value": node.get("leaf_value"),
+                "count": int(node.get("leaf_count",
+                                      node.get("internal_count", 0))),
+            }
+            rows.append(row)
+            if not is_leaf:
+                row["split_feature"] = names[node["split_feature"]]
+                row["split_gain"] = node["split_gain"]
+                row["threshold"] = node["threshold"]
+                row["decision_type"] = node.get("decision_type", "<=")
+                row["value"] = None
+                row["left_child"] = walk(node["left_child"], tree_idx,
+                                         depth + 1, nid)
+                row["right_child"] = walk(node["right_child"], tree_idx,
+                                          depth + 1, nid)
+            return nid
+
+        for ti, tinfo in enumerate(self.dump_model()["tree_info"]):
+            walk(tinfo["tree_structure"], ti, 1, None)
+        return pd.DataFrame(rows)
 
     # -- persistence -----------------------------------------------------
     def save_model(self, filename: str, num_iteration: Optional[int] = None,

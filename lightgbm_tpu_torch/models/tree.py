@@ -83,6 +83,11 @@ class Tree(NamedTuple):
     # categorical subset splits — None for forests without categoricals
     is_cat_split: Optional[torch.Tensor] = None  # bool[M]
     cat_mask: Optional[torch.Tensor] = None      # bool[M, B] bins going LEFT
+    # linear leaves (``linear_tree``) — None for constant-leaf models; a
+    # leaf predicts leaf_value[l] + sum_k linear_coef[l, k] *
+    # raw[linear_feat[l, k]] (feature -1: an unused slot; NaN reads as 0)
+    linear_feat: Optional[torch.Tensor] = None   # i32[M, K] training columns
+    linear_coef: Optional[torch.Tensor] = None   # f32[M, K]
 
     @property
     def capacity(self) -> int:
@@ -1368,6 +1373,146 @@ def renew_leaf_values(tree: Tree, row_leaf: torch.Tensor,
     return tree._replace(leaf_value=new_vals)
 
 
+def linear_path_features(tree: Tree, k_feats: int) -> torch.Tensor:
+    """Each node's first ``k_feats`` distinct split features from the root
+    down to it (its own split excluded), int32 ``[M, k_feats]`` padded with
+    -1: the lists the reference's ``fit_linear_leaves`` builds by a sweep
+    over every node slot (``fori_loop(0, capacity)``).
+
+    Here the sweep is by binary lifting, with no host read and launches
+    bounded by the log of the depth: each node's parent, its depth and its
+    ancestor at every depth (the path ``[M, D]``, ``D`` the deepest a tree
+    of this capacity can be), then a feature is kept where no shallower
+    ancestor split on it, and the kept ones are ranked by depth.  Unused
+    slots and the root get no feature.
+    """
+    cap = tree.capacity
+    dev = tree.left.device
+    i64 = torch.int64
+    ids = torch.arange(cap, dtype=i64, device=dev)
+    internal = (~tree.is_leaf) & (tree.left >= 0)
+    # parent of every slot; slot ``cap`` is the sentinel "no parent" (the
+    # scatter drops non-children into slot ``cap + 1``)
+    parent = torch.full((cap + 2,), cap, dtype=i64, device=dev)
+    for child in (tree.left, tree.right):
+        parent.scatter_(0, torch.where(internal, child.to(i64), cap + 1),
+                        ids)
+    parent = parent[:cap + 1]
+    d_max = max(1, (cap - 1) // 2)
+    levels = max(1, int(d_max).bit_length())
+    up = [parent]
+    for _ in range(levels - 1):
+        up.append(up[-1][up[-1]])
+    depth = torch.zeros(cap, dtype=i64, device=dev)
+    cur = ids.clone()
+    for j in range(levels - 1, -1, -1):
+        nxt = up[j][cur]
+        move = nxt != cap
+        cur = torch.where(move, nxt, cur)
+        depth = depth + move.to(i64) * (1 << j)
+    feat_of = torch.cat([tree.split_feature.to(i64),
+                         torch.full((1,), -1, dtype=i64, device=dev)])
+    k = int(k_feats)
+    flist = torch.full((cap, k + 1), -1, dtype=i64, device=dev)
+    d_ids = torch.arange(d_max, dtype=i64, device=dev)
+    # node blocks bound the [nodes, D, D] comparison
+    block = max(1, (1 << 24) // (d_max * d_max))
+    for s in range(0, cap, block):
+        nodes = ids[s:s + block]
+        dist = depth[nodes, None] - d_ids[None]          # [b, D]
+        valid = dist > 0
+        cur = nodes[:, None].expand(-1, d_max)
+        for j in range(levels):
+            cur = torch.where(valid & (((dist >> j) & 1) > 0), up[j][cur],
+                              cur)
+        fp = torch.where(valid, feat_of[cur], -1)        # [b, D] root first
+        earlier = torch.tril(torch.ones(d_max, d_max, dtype=torch.bool,
+                                        device=dev), diagonal=-1)
+        dup = ((fp[:, :, None] == fp[:, None, :]) & earlier).any(-1)
+        keep = valid & ~dup
+        rank = torch.cumsum(keep.to(i64), dim=1) - 1
+        slot = torch.where(keep & (rank < k), rank, k)
+        out = torch.full((nodes.shape[0], k + 1), -1, dtype=i64, device=dev)
+        out.scatter_(1, slot, torch.where(slot < k, fp, -1))
+        flist[s:s + block] = out
+    return flist[:, :k].to(torch.int32)
+
+
+def _gram_sums(z: torch.Tensor, row_leaf: torch.Tensor, gb: torch.Tensor,
+               hb: torch.Tensor, capacity: int, row_chunk: int):
+    """Per-leaf ``A = Z^T H Z`` ``[M, K+1, K+1]`` and ``b = Z^T g``
+    ``[M, K+1]``: one-hot matmuls over row chunks added in chunk order, the
+    reference's formulation (each row's ``z z^T h`` first, then the one-hot
+    contraction), with no atomics, so the sums are the same bits run to
+    run."""
+    n, kp1 = z.shape
+    dev = z.device
+    leaf_ids = torch.arange(capacity, dtype=row_leaf.dtype, device=dev)
+    A = torch.zeros((capacity, kp1 * kp1), dtype=_F32, device=dev)
+    bvec = torch.zeros((capacity, kp1), dtype=_F32, device=dev)
+    c = row_chunk if n > row_chunk else n
+    for s in range(0, n, c):
+        zc, rl = z[s:s + c], row_leaf[s:s + c]
+        onehot_t = (rl[None, :] == leaf_ids[:, None]).to(_F32)   # [M, c]
+        zzh = (zc[:, :, None] * zc[:, None, :]).reshape(-1, kp1 * kp1) \
+            * hb[s:s + c, None]
+        A = A + onehot_t @ zzh
+        bvec = bvec + onehot_t @ (zc * gb[s:s + c, None])
+    return A.reshape(capacity, kp1, kp1), bvec
+
+
+def fit_linear_leaves(tree: Tree, row_leaf: torch.Tensor, xraw: torch.Tensor,
+                      g: torch.Tensor, h: torch.Tensor, bag: torch.Tensor,
+                      linear_lambda: float, k_feats: int,
+                      row_chunk: int = 131072) -> Tuple[Tree, torch.Tensor]:
+    """Ridge models in every leaf (upstream ``linear_tree``), the
+    reference's ``fit_linear_leaves``: per-leaf path-feature lists
+    (:func:`linear_path_features`), the design ``Z = [x_path, 1]`` on the
+    RAW values with NaN and unused slots at 0, ``A = Z^T H Z`` and
+    ``b = Z^T g`` per leaf over row chunks (:func:`_gram_sums`), and one
+    batched solve of ``(A + (lambda + 1e-6) I) beta = -b``.
+
+    Leaves whose solve is singular or non-finite, or with fewer than
+    ``k_feats + 2`` rows, keep their constant Newton value.  The solve is
+    ``torch.linalg.solve_ex`` with ``check_errors=False``: a singular batch
+    member raises nothing and reads nothing back to the host, and its
+    ``info`` marks it for the fallback, as the reference's non-finite
+    result does.  Everything runs on the tensors' device.
+
+    Returns ``(tree with linear_feat/linear_coef/leaf_value set, the
+    per-row f(x_i) of this tree)``.
+    """
+    n = xraw.shape[0]
+    capacity = tree.capacity
+    k = int(k_feats)
+    kp1 = k + 1
+    dev = xraw.device
+    flist = linear_path_features(tree, k)                     # [M, K]
+    rl = row_leaf.to(torch.int64)
+    feats = flist[rl].to(torch.int64)                         # [n, K]
+    xg = xraw.gather(1, feats.clamp(min=0))
+    xg = torch.where((feats >= 0) & torch.isfinite(xg), xg,
+                     torch.zeros((), dtype=_F32, device=dev))
+    z = torch.cat([xg, torch.ones((n, 1), dtype=_F32, device=dev)], dim=1)
+    A, bvec = _gram_sums(z, rl, g * bag, h * bag, capacity, int(row_chunk))
+    # filled on the device: a host tensor copied over would sync
+    lam = torch.full((), float(linear_lambda), dtype=_F32, device=dev) \
+        + torch.full((), 1e-6, dtype=_F32, device=dev)
+    eye = torch.eye(kp1, dtype=_F32, device=dev)
+    beta, info = torch.linalg.solve_ex(A + lam * eye[None],
+                                       -bvec[..., None], check_errors=False)
+    beta = beta[..., 0]                                       # [M, K+1]
+    ok = (tree.is_leaf & torch.isfinite(beta).all(dim=-1) & (info == 0)
+          & (tree.count >= kp1 + 1))
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    coef = torch.where(ok[:, None], beta[:, :k], zero)
+    intercept = torch.where(ok, beta[:, k], tree.leaf_value)
+    new_tree = tree._replace(leaf_value=intercept, linear_feat=flist,
+                             linear_coef=coef)
+    delta = intercept[rl] + (coef[rl] * xg).sum(dim=1)
+    return new_tree, delta
+
+
 def tree_to_arrays(tree: Tree) -> dict:
     """Tree -> ``{field: np.ndarray}`` (optional None fields omitted)."""
     return {name: val.detach().cpu().numpy()
@@ -1375,13 +1520,8 @@ def tree_to_arrays(tree: Tree) -> dict:
 
 
 def tree_from_arrays(arrays: dict, device="cpu") -> Tree:
-    """Inverse of :func:`tree_to_arrays`; takes the reference's arrays too.
-    Linear-leaf fields are out of this slice and refused."""
-    for name in ("linear_feat", "linear_coef"):
-        if arrays.get(name) is not None:
-            raise NotImplementedError(
-                "linear_tree models are not ported yet: ROADMAP slice 3 "
-                "(breadth of training), item 10")
+    """Inverse of :func:`tree_to_arrays`; takes the reference's arrays too,
+    linear-leaf fields included."""
     kw = {}
     for name in Tree._fields:
         if name in arrays and arrays[name] is not None:

@@ -295,11 +295,12 @@ def map_node_arrays(tree, fn):
                             if getattr(tree, k) is not None})
 
 
-def predict_tree_binned(tree, bins: torch.Tensor,
-                        max_depth_cap=None) -> torch.Tensor:
-    """Leaf value per row for one tensorized tree (f32 ``[n]``, no
-    shrinkage).  ``max_depth_cap=None`` iterates until every row sits on a
-    leaf, bounded by node capacity so a malformed tree cannot hang."""
+def predict_leaf_nodes(tree, bins: torch.Tensor,
+                       max_depth_cap=None) -> torch.Tensor:
+    """The node each row reaches in one tensorized tree (int64 ``[n]``).
+    ``max_depth_cap=None`` iterates until every row sits on a leaf, bounded
+    by node capacity so a malformed tree cannot hang; else exactly that many
+    steps (the reference's ``_leaf_index``)."""
     t1 = map_node_arrays(tree, lambda a: a[None])   # a one-tree stack
     bins_l = bins.to(torch.int64)
     node = torch.zeros((1, bins.shape[0]), dtype=torch.int64,
@@ -313,7 +314,15 @@ def predict_tree_binned(tree, bins: torch.Tensor,
     else:
         for _ in range(int(max_depth_cap)):
             node = _advance(t1, bins_l, node)
-    return t1.leaf_value.to(torch.float32).gather(1, node)[0]
+    return node[0]
+
+
+def predict_tree_binned(tree, bins: torch.Tensor,
+                        max_depth_cap=None) -> torch.Tensor:
+    """Leaf value per row for one tensorized tree (f32 ``[n]``, no
+    shrinkage), at the node :func:`predict_leaf_nodes` reaches."""
+    node = predict_leaf_nodes(tree, bins, max_depth_cap)
+    return tree.leaf_value.to(torch.float32)[node]
 
 
 def forest_depth_cap(forest) -> int:

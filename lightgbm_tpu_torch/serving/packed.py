@@ -394,6 +394,10 @@ def pack_booster(booster, num_iteration: Optional[int] = None,
     """
     if not booster.trees:
         raise ValueError("cannot pack a booster with no trees")
+    if booster.trees[0].linear_feat is not None:
+        raise NotImplementedError(
+            "packed serving does not support linear_tree models yet "
+            "(linear leaves need the raw feature matrix at the edge)")
     forest = booster._stacked_forest()
     t_real = len(booster.trees)
     start = max(int(start_iteration), 0)

@@ -270,7 +270,8 @@ class LGBMClassifier(LGBMModel):
                 num_iteration: Optional[int] = None, **kwargs) -> np.ndarray:
         proba = self.predict_proba(X, raw_score=raw_score,
                                    num_iteration=num_iteration, **kwargs)
-        if raw_score:
+        if raw_score or kwargs.get("pred_contrib") or \
+                kwargs.get("pred_leaf"):
             return proba
         return self.classes_[np.argmax(proba, axis=1)]
 
@@ -280,8 +281,9 @@ class LGBMClassifier(LGBMModel):
         self._check_fitted()
         p = self._Booster.predict(X, raw_score=raw_score,
                                   num_iteration=num_iteration, **kwargs)
-        if raw_score:
-            return p
+        if raw_score or kwargs.get("pred_contrib") or \
+                kwargs.get("pred_leaf"):
+            return p  # contributions / leaf ids pass through unchanged
         if p.ndim == 2:  # multiclass softmax probabilities
             return p
         return np.column_stack([1.0 - p, p])

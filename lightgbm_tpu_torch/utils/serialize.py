@@ -4,7 +4,9 @@ Bin mappers and the JSON text model use the reference's schema, so a model
 file written by either package loads in the other: ``booster_to_string``,
 ``save_booster`` (JSON text, or the packed ``.npz`` serving artifact) and
 ``load_booster_into`` (both formats).  A multiclass model stores the ``[K]``
-class priors as its init score and ``[K, M]`` node arrays per round.
+class priors as its init score and ``[K, M]`` node arrays per round; a
+linear-leaf tree adds ``linear_feat``/``linear_coef``.
+:func:`dump_booster_dict` is ``Booster.dump_model``'s nested view.
 """
 
 from __future__ import annotations
@@ -79,16 +81,15 @@ def _tree_to_dict(tree) -> dict:
         d["cat_splits"] = {str(i): np.flatnonzero(cm2[i]).tolist()
                            for i in np.flatnonzero(icb)}
         d["cat_shape"] = list(_host(tree.is_cat_split).shape)
+    if tree.linear_feat is not None:
+        d["linear_feat"] = _host(tree.linear_feat).tolist()
+        d["linear_coef"] = _host(tree.linear_coef).astype(np.float64).tolist()
     return d
 
 
 def _tree_from_dict(d: dict, device):
     from ..models.tree import tree_from_arrays
 
-    if "linear_feat" in d:
-        raise NotImplementedError(
-            "linear-leaf trees are not ported yet: ROADMAP slice 3 (breadth "
-            "of training), item 10")
     cat = {}
     if "cat_splits" in d:
         shape = tuple(d["cat_shape"])
@@ -100,6 +101,9 @@ def _tree_from_dict(d: dict, device):
             cm[int(k), np.asarray(bins_left, np.int64)] = True
         cat = {"is_cat_split": icb.reshape(shape),
                "cat_mask": cm.reshape(shape + (cm.shape[-1],))}
+    if "linear_feat" in d:
+        cat["linear_feat"] = np.asarray(d["linear_feat"], np.int32)
+        cat["linear_coef"] = np.asarray(d["linear_coef"], np.float32)
     return tree_from_arrays({
         "split_feature": np.asarray(d["split_feature"], np.int32),
         "split_bin": np.asarray(d["split_bin"], np.int32),
@@ -149,6 +153,110 @@ def save_booster(booster, filename: str, num_iteration=None,
     with open(filename, "w") as f:
         f.write(booster_to_string(booster, num_iteration=num_iteration,
                                   start_iteration=start_iteration))
+
+
+def dump_booster_dict(booster, num_iteration=None,
+                      start_iteration: int = 0) -> dict:
+    """LightGBM ``Booster.dump_model()``: a nested-dict view of the model
+    with RAW-VALUE thresholds (bin bounds resolved through the bin
+    mapper), as the reference's ``dump_booster_dict``.
+
+    Categorical subset splits dump ``decision_type: '=='`` with the LEFT
+    bin set; numeric splits ``'<='`` with the raw threshold.  Under EFB,
+    ``split_feature`` is the ORIGINAL feature; thresholds on multi-member
+    bundle columns stay in bundled-bin space, marked
+    ``"bundled_bin_threshold": true``.  A multiclass round dumps one tree
+    per class.
+    """
+    import sys
+
+    start = max(int(start_iteration), 0)
+    k = (len(booster.trees) if num_iteration is None or num_iteration <= 0
+         else min(int(num_iteration), len(booster.trees) - start))
+    mapper = booster._bin_mapper_for_predict()
+    bundler = getattr(mapper, "bundler", None)
+    multi_groups = (set() if bundler is None else
+                    {c for c, g in enumerate(bundler.groups) if len(g) > 1})
+
+    def node_dict(t: dict) -> dict:
+        sf, sb = t["split_feature"], t["split_bin"]
+        left, right, is_leaf = t["left"], t["right"], t["is_leaf"]
+        vals = t["leaf_value"].astype(np.float64)
+        gains = t["split_gain"].astype(np.float64)
+        counts = t["count"].astype(np.float64)
+        icb, cm = t.get("is_cat_split"), t.get("cat_mask")
+
+        def rec(node: int) -> dict:
+            if is_leaf[node] or left[node] < 0:
+                return {"leaf_index": int(node),
+                        "leaf_value": float(vals[node]),
+                        "leaf_count": int(counts[node])}
+            col = int(sf[node])
+            thr_bin = int(sb[node])
+            feat = (col if bundler is None else int(bundler.split_to_original(
+                np.array([col]), np.array([thr_bin]))[0]))
+            out = {
+                "split_index": int(node),
+                "split_feature": feat,
+                "split_gain": float(gains[node]),
+                "internal_count": int(counts[node]),
+                "default_left": True,
+                "left_child": rec(int(left[node])),
+                "right_child": rec(int(right[node])),
+            }
+            if icb is not None and icb[node]:
+                out["decision_type"] = "=="
+                out["threshold"] = [int(b) for b in np.flatnonzero(cm[node])]
+            elif col in multi_groups:
+                # the threshold lives on the merged EFB bin axis
+                out["decision_type"] = "<="
+                out["threshold"] = thr_bin
+                out["bundled_bin_threshold"] = True
+            else:
+                out["decision_type"] = "<="
+                out["threshold"] = float(mapper.bin_upper_bound(feat,
+                                                                thr_bin))
+            return out
+
+        old_limit = sys.getrecursionlimit()
+        sys.setrecursionlimit(max(old_limit, 2 * len(sf) + 100))
+        try:
+            return rec(0)
+        finally:
+            sys.setrecursionlimit(old_limit)
+
+    trees_info = []
+    per_iter = booster.num_model_per_iteration()
+    idx = start * per_iter
+    shrink = float(getattr(booster, "_base_lr",
+                           booster.params.learning_rate))
+    for tree in booster.trees[start:start + k]:
+        host = {name: _host(v) for name, v in zip(type(tree)._fields, tree)
+                if v is not None}
+        if host["split_feature"].ndim == 1:
+            per_round = [host]
+        else:
+            per_round = [{name: (v[c] if v.ndim else v)
+                          for name, v in host.items()}
+                         for c in range(host["split_feature"].shape[0])]
+        for t in per_round:
+            trees_info.append({
+                "tree_index": idx,
+                "num_leaves": int(np.asarray(t["num_leaves"]).max()),
+                "shrinkage": shrink,
+                "tree_structure": node_dict(t),
+            })
+            idx += 1
+    return {
+        "name": "tree",
+        "version": "lightgbm_tpu",
+        "objective": booster.params.objective,
+        "num_class": per_iter,
+        "num_tree_per_iteration": per_iter,
+        "max_feature_idx": booster.num_feature() - 1,
+        "feature_names": booster.feature_name(),
+        "tree_info": trees_info,
+    }
 
 
 def _load_params(booster, params: dict) -> None:

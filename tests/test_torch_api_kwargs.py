@@ -9,8 +9,8 @@ without a refusal that cites its ROADMAP item.
 (b) every parameter of the reference's public callables on this path is
     named by the port's, or refused by name with its item (the ranking
     parameters ``group``/``eval_group`` take the query groups);
-(c) the package's, ``Dataset``'s and ``BinMapper``'s public names, the
-    lazy serving and estimator attributes included.
+(c) the package's, ``Dataset``'s, ``BinMapper``'s and ``Booster``'s public
+    names, the lazy serving, estimator and plotting attributes included.
 """
 
 import inspect
@@ -69,9 +69,11 @@ def test_ntree_limit_is_the_staged_prediction(c3_models, k):
 # parameters the port names but refuses, each with the item that ports it
 REFUSED = {
     ("train", "init_model"): "item 10",
-    ("Booster.predict", "pred_leaf"): "item 10",
-    ("Booster.predict", "pred_contrib"): "item 10",
 }
+# parameters that were refused until introspection was ported (item 10's
+# first half): each now returns the reference's layout
+INTROSPECTION_PARAMS = (("Booster.predict", "pred_leaf"),
+                        ("Booster.predict", "pred_contrib"))
 # parameters that were refused until ranking was ported (item 8): each now
 # takes its query groups
 RANKING_PARAMS = (("Dataset.__init__", "group"), ("LGBMModel.fit", "group"),
@@ -121,15 +123,21 @@ def test_refused_parameters_cite_their_item():
     calls = {
         ("train", "init_model"): lambda: P.train(
             {"objective": "binary"}, ds, 1, init_model=b),
-        ("Booster.predict", "pred_leaf"): lambda: b.predict(
-            X, pred_leaf=True),
-        ("Booster.predict", "pred_contrib"): lambda: b.predict(
-            X, pred_contrib=True),
     }
     assert set(calls) == set(REFUSED)
     for key, call in calls.items():
         with pytest.raises(NotImplementedError, match=REFUSED[key]):
             call()
+    # the introspection parameters return the reference's shapes
+    shapes = {
+        ("Booster.predict", "pred_leaf"): (
+            b.predict(X, pred_leaf=True).shape, (200, 1)),
+        ("Booster.predict", "pred_contrib"): (
+            b.predict(X, pred_contrib=True).shape, (200, 4)),
+    }
+    assert set(shapes) == set(INTROSPECTION_PARAMS)
+    for key, (got, want) in shapes.items():
+        assert got == want, key
     # the ranking parameters take the query groups now
     taken = {
         ("Dataset.__init__", "group"): lambda: P.Dataset(
@@ -148,14 +156,17 @@ def test_refused_parameters_cite_their_item():
 
 
 # public names of the reference with no counterpart yet, by item
-NAME_GAPS = {
-    "plot_importance": "item 10", "plot_metric": "item 10",
-    "create_tree_digraph": "item 10", "plot_split_value_histogram": "item 10",
-}
+NAME_GAPS = {}
 DATASET_GAPS = {"save_binary": "item 10"}
+# Booster methods still to port: item 10's continuation half
+BOOSTER_GAPS = {"ingest_init_model": "item 10", "refit": "item 10",
+                "rollback_one_iter": "item 10"}
+PLOTTING = ("plot_importance", "plot_metric", "create_tree_digraph",
+            "plot_split_value_histogram")
 LAZY = ("serving", "sklearn", "PackedForest", "PredictorRuntime",
         "MicroBatcher", "pack_booster", "LGBMModel", "LGBMRegressor",
-        "LGBMClassifier", "LGBMRanker", "LGBMRandomForestRegressor")
+        "LGBMClassifier", "LGBMRanker", "LGBMRandomForestRegressor",
+        "plotting") + PLOTTING
 
 
 def test_package_public_names():
@@ -164,6 +175,13 @@ def test_package_public_names():
     for name, item in NAME_GAPS.items():
         with pytest.raises(NotImplementedError, match=item):
             getattr(P, name)()       # the estimator refuses on construction
+    # the plotting helpers (refused until item 10) are the plotting module's
+    import lightgbm_tpu.plotting as RP
+
+    for name in PLOTTING:
+        assert getattr(P, name) is getattr(P.plotting, name), name
+        assert list(inspect.signature(getattr(P, name)).parameters) == \
+            list(inspect.signature(getattr(RP, name)).parameters), name
     assert P.Params is P.config.Params
     assert P.sklearn.LGBMRandomForestRegressor is P.LGBMRandomForestRegressor
     # the ranker (refused until item 8) constructs with the reference's
@@ -173,6 +191,17 @@ def test_package_public_names():
     assert est._resolved_params()["objective"] == "lambdarank"
     assert est.get_params() == {**R.LGBMRanker(n_estimators=3).get_params(),
                                 "device": None}
+
+
+def test_booster_public_names():
+    def public(cls):
+        return {m for m in dir(cls) if not m.startswith("_")}
+
+    assert public(RB) - public(PB) == set(BOOSTER_GAPS)
+    # introspection (item 10's first half) names the reference's methods
+    for name in ("dump_model", "trees_to_dataframe", "can_fuse_rounds"):
+        assert list(inspect.signature(getattr(PB, name)).parameters) == \
+            list(inspect.signature(getattr(RB, name)).parameters), name
 
 
 def test_dataset_and_bin_mapper_public_names():

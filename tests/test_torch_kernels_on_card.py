@@ -41,6 +41,13 @@ pairs, no B3) and the batched multiclass waves (B5), kernel path against
 the plain path on exact sums; the extra-trees table drawn on the card
 equal to the CPU's with no host read.
 
+Linear leaves and introspection: a linear round on the wave grower (B1
+roots, B2 waves) and on the strict grower (B1 pairs and B3) against the
+plain path on exact sums, every field of the round-1 tree (the linear fit
+is the same plain code on the same rows) equal, the fit under sync debug
+mode "error"; TreeSHAP on the card against the CPU (within 1e-5) and its
+additivity.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1477,3 +1484,87 @@ def test_rand_bin_table_on_card_equals_cpu(col_bins):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(out["card"].cpu(), out["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grower", ["wave", "strict"])
+def test_linear_round_kernel_vs_plain_on_card(grower):
+    """``linear_tree=True`` on the card: the wave grower keeps B1 roots and
+    B2 waves (the reference's linear round grows with ``fuse_partition``),
+    the strict grower B1 pairs and B3 (``fuse_si`` does not exclude linear
+    leaves); on exact sums the round-1 trees of the kernel path equal the
+    plain path's in every field, ``linear_feat`` and ``linear_coef``
+    included, and so do the predictions.  The fit itself reads nothing back
+    to the host."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (HIST_FUSED_LAUNCHES,
+                                                      HIST_PARTITION_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import (fit_linear_leaves,
+                                                tree_to_arrays)
+
+    dev = _card()
+    X, y = _mono_dyadic(40_000, 93)
+    p = dict(objective="l2", num_leaves=31, learning_rate=0.5,
+             min_data_in_leaf=5, verbosity=-1, hist_dtype="f32",
+             linear_tree=True)
+    if grower == "strict":
+        p["grow_policy"] = "leafwise"
+    counters = ([SPLIT_ITER_LAUNCHES] + list(HIST_FUSED_LAUNCHES.values())
+                + list(HIST_PARTITION_LAUNCHES.values()))
+    for c in counters:
+        c.reset()
+    runs = []
+    for impl in ("auto", "plain"):
+        ds = lgb.Dataset(X, label=y, device=dev)
+        runs.append(lgb.train(dict(p, hist_impl=impl), ds, 1))
+        if impl == "auto":
+            launched = {"b1": HIST_FUSED_LAUNCHES["f32"].count,
+                        "b2": HIST_PARTITION_LAUNCHES["f32"].count,
+                        "b3": SPLIT_ITER_LAUNCHES.count}
+    assert launched["b1"] > 0, launched
+    if grower == "wave":
+        assert launched["b2"] > 0 and launched["b3"] == 0, launched
+    else:
+        assert launched["b3"] > 0, launched
+    a, b = (tree_to_arrays(r.trees[0]) for r in runs)
+    assert "linear_coef" in a
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    assert np.array_equal(runs[0].predict(X[:5000]),
+                          runs[1].predict(X[:5000]))
+    # the fit alone under the sync debug mode: no host read
+    bst = runs[0]
+    tree = bst.trees[0]
+    n_pad = int(bst.train_set.row_mask.shape[0])
+    row_leaf = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    g = torch.ones(n_pad, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fit_linear_leaves(tree, row_leaf, bst._xraw, g, g, bst._bag, 0.0, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.gpu
+def test_pred_contrib_on_card_vs_cpu(tmp_path):
+    """TreeSHAP on the card: within 1e-5 of the same model's contributions
+    on CPU tensors (the card's f32 ops round as the CPU's up to ulps), rows
+    summing to the raw score within 1e-4."""
+    import lightgbm_tpu_torch as lgb
+
+    dev = _card()
+    X, y = _mono_dyadic(20_000, 95)
+    b = lgb.train(dict(objective="l2", num_leaves=31, verbosity=-1),
+                  lgb.Dataset(X, label=y, device=dev), 10)
+    path = str(tmp_path / "m.txt")
+    b.save_model(path)
+    cpu = lgb.Booster(model_file=path, device="cpu")
+    got = b.predict(X[:2000], pred_contrib=True)
+    want = cpu.predict(X[:2000], pred_contrib=True)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.abs(got.sum(1) - b.predict(X[:2000], raw_score=True)).max() \
+        <= 1e-4
+    np.testing.assert_array_equal(b.predict(X[:2000], pred_leaf=True),
+                                  cpu.predict(X[:2000], pred_leaf=True))

@@ -230,7 +230,9 @@ OUT_OF_SLICE = {
     # the remaining objectives and bf16sr train since their slice; under a
     # learner outside the slice they still raise by name
     "poisson": {"objective": "poisson", "tree_learner": "data"},
-    "linear_tree": {"linear_tree": True},
+    # linear leaves train since their slice; under a learner outside the
+    # slice they still raise by name
+    "linear_tree": {"linear_tree": True, "tree_learner": "data"},
     # the constraints and extra_trees train since their slice; under a
     # learner outside the slice they still raise by name
     "monotone": {"monotone_constraints": [1, 0, 0, 0],
