@@ -339,6 +339,33 @@ Phases:
    through the text model reloaded with predictions bit-equal on the card,
    and ``pack_booster`` (and ``save_model`` to ``.npz``) refusing it by
    name.
+21. continuation, every launch counter at 0 just before each run and read
+   just after, on the Datasets phases 6, 8 and 11 built: (a) the north
+   star with phase 13's bagging and feature fraction, 5 rounds continued
+   5 more through ``train(init_model=<Booster>)``, ``train(init_model=
+   <JSON model file>)``, ``Booster(model_file).update(ds)`` and
+   ``train_resumable(init_model=)``: every tree field, ``_pred_train`` and
+   the bag equal to 10 uninterrupted rounds bit for bit (B1 roots, B2
+   waves); the replay's CUDA-event ms at 5 and at 10 trees, the 10-tree
+   replay equal to the live scores; (b) that 127-leaf model continued 3
+   rounds at 31 leaves and learning rate 0.05 (a forest of two node
+   capacities): ``predict(num_iteration=10)`` within rtol 1e-6 of the first
+   model's (bit-equality recorded), 16,384 rows served through B4 within
+   1e-5 of ``Booster.predict``, a DART continuation of 3 rounds whose drops
+   span both capacities, and ``train_resumable`` of the mixed forest killed
+   by SIGTERM and resumed bit for bit; (c) ``rollback_one_iter`` twice
+   with a valid set: valid scores within 1e-6 of the 8-round run's, then 2
+   more rounds; (d) ``refit`` of the 10-round model on ``make_higgs_like(
+   200,000, seed=9)``: two refits on the card bit-identical, the card's
+   refit on 4,096 of those rows within the parity regime of the CPU's
+   (leaves rtol 1e-5 / atol 1e-6, predictions rtol 1e-5), the refit model
+   served through B4, its seconds; (e) multiclass at Covertype's shape, 3 +
+   3 rounds equal to 6 bit for bit (B6 roots, B5 waves); (f) diamonds'
+   Dataset through ``save_binary`` and ``Dataset(path)``: the fused strict
+   ``cv()`` (B6, B3) and a strict ``train`` (B1 pairs, B3) equal to the
+   original's, examples/advanced_features.py's linear call continued 10 +
+   10 equal to 20 (strict, B3), and the north star's file bytes and its
+   write and read seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -533,6 +560,15 @@ ADV_STRICT_ROUNDS = 20
 # and the north star's TreeSHAP and pred_leaf rows
 LINEAR_EXAMPLE_ROUNDS, SHAP_EXAMPLE_ROWS = 25, 500
 SHAP_NORTH_STAR_ROWS, LEAF_ROWS = 4096, 16_384
+# phase 21: continuation.  21a: phase 13's config, 5 + 5 rounds against 10;
+# 21b: the 127-leaf model continued at 31 leaves and half the rate (the
+# ratio 2 is exact in f32), DART dropping half the trees of every round
+CONT_ROUNDS, MIXED_ROUNDS = 5, 3
+MIXED_PARAMS = dict(RECOVERY_PARAMS, num_leaves=31, learning_rate=0.05)
+MIXED_DART_PARAMS = dict(MIXED_PARAMS, boosting="dart", drop_rate=0.5,
+                         skip_drop=0.0, max_drop=50)
+ROLLBACK_STEPS, REFIT_CPU_ROWS, COV_CONT_ROUNDS = 2, 4096, 3
+LINEAR_CONT_ROUNDS, STRICT_BINARY_ROUNDS, CV_BINARY_ROUNDS = 10, 10, 10
 
 
 def fail(msg: str) -> None:
@@ -1448,7 +1484,7 @@ def phase_train(dev, X, y, workdir):
         "round_breakdown": breakdown,
     }
     log(f"phase 6: {json.dumps(result)}")
-    return result
+    return result, ds
 
 
 # the profiled rounds' device-time families: B1's passes (its histogram and
@@ -2530,7 +2566,7 @@ def phase_multiclass(dev, X, y, workdir):
            "serve_max_abs_diff": err_serve,
            "serve_predict_launches": launches}
     log(f"phase 11: {json.dumps(out)}")
-    return out
+    return out, ds
 
 
 # ---------------------------------------------------------------------------
@@ -5917,6 +5953,390 @@ def phase_linear_introspection(dev, X, y, card, constant_s):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: continuation (init_model, mixed capacities, rollback, refit,
+# binary dataset files)
+# ---------------------------------------------------------------------------
+def leaves_equal(a, b) -> bool:
+    """Every tree's leaf values equal bit for bit (the same structures)."""
+    return len(a.trees) == len(b.trees) and all(
+        torch.equal(ta.leaf_value.cpu(), tb.leaf_value.cpu())
+        for ta, tb in zip(a.trees, b.trees))
+
+
+def phase_continue_north_star(dev, ds, root, launches):
+    """21a: 5 + 5 rounds against 10, four ways, and the replay's time."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.gbdt as G
+    from lightgbm_tpu_torch.training import train_resumable
+
+    params, n = dict(RECOVERY_PARAMS), 2 * CONT_ROUNDS
+    path = os.path.join(root, "first5.txt")
+
+    def runs():
+        full = lgb.train(params, ds, n)
+        first = lgb.train(params, ds, CONT_ROUNDS)
+        first.save_model(path)
+        conts = {"init_model=Booster": lgb.train(params, ds, CONT_ROUNDS,
+                                                 init_model=first),
+                 "init_model=model file": lgb.train(params, ds, CONT_ROUNDS,
+                                                    init_model=path)}
+        loaded = lgb.Booster(model_file=path)
+        for _ in range(CONT_ROUNDS):
+            loaded.update(ds)
+        conts["Booster(model_file).update(ds)"] = loaded
+        res = train_resumable(params, ds, n, resume=False, init_model=path,
+                              checkpoint_dir=os.path.join(root, "ck21a"),
+                              checkpoint_rounds=CONT_ROUNDS)
+        check(res.completed and res.rounds_done == n
+              and res.resumed_from == path,
+              f"21a train_resumable(init_model=): {res}")
+        conts["train_resumable(init_model=)"] = res.booster
+        return full, conts
+
+    ((full, conts), replay_ms, replays), secs, counts, plain = counted_run(
+        lambda: event_timed(G.Booster, "_rebase_and_replay", runs))
+    for how, b in conts.items():
+        check(same_run(full, b), f"21a {how}: trees, _pred_train or _bag "
+              "differ from 10 uninterrupted rounds")
+    check(counts["hist_fused_bf16"] > 0 and counts["hist_partition_bf16"] > 0
+          and plain == 0 and replays == len(conts),
+          f"21a launches {counts}, plain calls {plain}, replays {replays}")
+    add_launches(launches, counts)
+    # the replay of all 10 trees, three times: the live scores' bits
+    fresh = [lgb.Booster(params, ds) for _ in range(3)]
+    _, replay10_ms, _ = event_timed(G.Booster, "_rebase_and_replay", lambda: [
+        b.ingest_init_model(full) for b in fresh])
+    check(all(torch.equal(b._pred_train, full._pred_train) for b in fresh),
+          "21a: the 10-tree replay differs from the live train scores")
+    out = {"rounds": [CONT_ROUNDS, CONT_ROUNDS], "params": params,
+           "bit_identical": sorted(conts), "s": secs, "launches": counts,
+           "replay_event_ms_5_trees": replay_ms,
+           "replay_event_ms_10_trees": replay10_ms,
+           "replay_rows": int(ds.num_data_)}
+    log(f"phase 21a: {json.dumps(out)}")
+    return out, full
+
+
+def phase_mixed_capacity(dev, ds, full, Xv, root, launches):
+    """21b: the 127-leaf model continued at 31 leaves: predict, B4, DART,
+    and a killed and resumed ``train_resumable`` of the mixed forest."""
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.models.gbdt import dart_drops
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+    from lightgbm_tpu_torch.training import train_resumable
+
+    n = full.num_trees()
+    mixed, secs, counts, _ = counted_run(lambda: lgb.train(
+        MIXED_PARAMS, ds, MIXED_ROUNDS, init_model=full))
+    add_launches(launches, counts)
+    caps = sorted({t.capacity for t in mixed.trees})
+    check(caps == [2 * MIXED_PARAMS["num_leaves"] - 1, CAPACITY],
+          f"21b: capacities {caps}")
+    p_first, p_full = mixed.predict(Xv, num_iteration=n), full.predict(Xv)
+    rel = float(np.max(np.abs(p_first - p_full) / np.abs(p_full)))
+    check(rel <= 1e-6, f"21b: predict(num_iteration={n}) rel {rel:.2e}")
+    # served through B4 (the padded stack)
+    Xs = Xv[:RECOVERY_SERVE_ROWS]
+    (served, direct), _, serve_counts, _ = counted_run(lambda: (
+        PredictorRuntime(pack_booster(mixed), max_bucket=MAX_BUCKET,
+                         device=dev).predict(Xs, raw_score=True),
+        mixed.predict(Xs, raw_score=True)))
+    err = float(np.abs(served - direct).max())
+    check(serve_counts["predict_forest"] > 0 and err <= 1e-5,
+          f"21b served: B4 launches {serve_counts['predict_forest']}, "
+          f"max abs diff {err:.2e}")
+    add_launches(launches, serve_counts)
+    # DART on top: its dropped-tree stacks span both capacities
+    drops = [dart_drops(parse_params(MIXED_DART_PARAMS), i, i)
+             for i in range(n, n + MIXED_ROUNDS)]
+    check(any(min(d) < n <= max(d) for d in drops if d),
+          f"21b DART drops {drops} never mix the capacities")
+    dart, dart_s, dart_counts, _ = counted_run(lambda: lgb.train(
+        MIXED_DART_PARAMS, ds, MIXED_ROUNDS, init_model=full))
+    check(dart.num_trees() == n + MIXED_ROUNDS
+          and bool(np.isfinite(dart.predict(Xs)).all()),
+          "21b: the DART continuation")
+    add_launches(launches, dart_counts)
+    # the mixed forest killed and resumed through its checkpoints
+    path = os.path.join(root, "mixed.txt")
+    mixed.save_model(path)
+    total = n + MIXED_ROUNDS + 3
+
+    def kill(booster, i):
+        if i == n + MIXED_ROUNDS:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    kw = dict(checkpoint_rounds=1, init_model=path)
+
+    def resumable():
+        whole = train_resumable(MIXED_PARAMS, ds, total, resume=False,
+                                checkpoint_dir=os.path.join(root, "m_full"),
+                                **kw)
+        killed = train_resumable(MIXED_PARAMS, ds, total, resume=False,
+                                 checkpoint_dir=os.path.join(root, "m_kill"),
+                                 round_callbacks=[kill], **kw)
+        again = train_resumable(MIXED_PARAMS, ds, total, resume=True,
+                                checkpoint_dir=os.path.join(root, "m_kill"),
+                                **kw)
+        return whole, killed, again
+
+    (whole, killed, again), res_s, res_counts, _ = counted_run(resumable)
+    add_launches(launches, res_counts)
+    check(killed.preempted and killed.rounds_done == n + MIXED_ROUNDS + 1
+          and again.completed and again.resumed_from == killed.last_checkpoint,
+          f"21b kill/resume: killed {killed}, again {again}")
+    check(same_run(whole.booster, again.booster)
+          and sorted({t.capacity for t in again.booster.trees}) == caps,
+          "21b: the resumed mixed forest differs from the uninterrupted one")
+    out = {"capacities": caps, "s": secs,
+           "predict_first_10_rel_diff": rel,
+           "predict_first_10_bit_equal": bool(np.array_equal(p_first,
+                                                             p_full)),
+           "served_rows": len(Xs), "served_max_abs_diff": err,
+           "dart_drops": drops, "dart_s": dart_s,
+           "resume_bit_identical": True, "resumable_s": res_s,
+           "launches": {"train": counts, "serve": serve_counts,
+                        "dart": dart_counts, "resumable": res_counts}}
+    log(f"phase 21b: {json.dumps(out)}")
+    return out
+
+
+def phase_rollback(dev, ds, Xv, yv, launches):
+    """21c: ``rollback_one_iter`` twice with a valid set, then 2 rounds."""
+    import lightgbm_tpu_torch as lgb
+
+    dv = lgb.Dataset(Xv, label=yv, reference=ds)
+    dv.construct()
+
+    def with_valid(rounds):
+        b = lgb.Booster(RECOVERY_PARAMS, ds)
+        b.add_valid(dv, "v")
+        for _ in range(rounds):
+            b.update()
+        return b
+
+    n = 2 * CONT_ROUNDS
+    (long, short), secs, counts, _ = counted_run(
+        lambda: (with_valid(n), with_valid(n - ROLLBACK_STEPS)))
+    add_launches(launches, counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ROLLBACK_STEPS):
+        long.rollback_one_iter()
+    torch.cuda.synchronize()
+    rb_s = time.perf_counter() - t0
+    d_valid = float((long._valid[0][2] - short._valid[0][2]).abs().max())
+    d_train = float((long._pred_train - short._pred_train).abs().max())
+    d_metric = abs(long.eval_valid()[0][2] - short.eval_valid()[0][2])
+    check(long.num_trees() == n - ROLLBACK_STEPS and d_valid <= 1e-6,
+          f"21c: valid scores after rollback {d_valid:.2e} from the "
+          f"{n - ROLLBACK_STEPS}-round run's")
+    _, more_s, more_counts, _ = counted_run(lambda: [
+        long.update() for _ in range(ROLLBACK_STEPS)])
+    add_launches(launches, more_counts)
+    check(long.num_trees() == n
+          and bool(torch.isfinite(long._valid[0][2]).all()),
+          "21c: rounds after the rollback")
+    out = {"rollback_s": rb_s, "valid_rows": len(Xv),
+           "valid_max_abs_diff": d_valid, "train_max_abs_diff": d_train,
+           "metric_abs_diff": d_metric, "rounds_after_s": more_s,
+           "launches": counts}
+    log(f"phase 21c: {json.dumps(out)}")
+    return out
+
+
+def phase_refit(dev, full, Xv, yv, launches):
+    """21d: ``refit`` of the 10-round model on 200,000 rows: deterministic
+    on the card, near the CPU's, served through B4."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    secs, refits = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refits.append(full.refit(Xv, yv))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check(leaves_equal(*refits), "21d: two refits on the card differ")
+    check(not leaves_equal(full, refits[0]), "21d: the refit moved no leaf")
+    cpu = lgb.Booster(model_str=full.model_to_string(), device="cpu")
+    rows = slice(0, REFIT_CPU_ROWS)
+    want = cpu.refit(Xv[rows], yv[rows])
+    got = full.refit(Xv[rows], yv[rows])
+    # the parity regime (rtol 1e-5, atol 1e-6): the card's links round
+    # their exp otherwise than the CPU's copy of XLA's, and a leaf near 0
+    # keeps only the absolute part of its sums' rounding
+    a = torch.stack([t.leaf_value for t in got.trees]).cpu()
+    b = torch.stack([t.leaf_value for t in want.trees])
+    d_abs = float((a - b).abs().max())
+    rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+    p_got = got.predict(Xv[rows])
+    p_rel = float(np.max(np.abs(p_got - want.predict(Xv[rows]))
+                         / np.abs(p_got)))
+    check(bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-6).all())
+          and p_rel <= 1e-5,
+          f"21d: card - CPU refit leaves {d_abs:.2e} abs ({rel:.2e} rel), "
+          f"predictions {p_rel:.2e} rel")
+    Xs = Xv[:RECOVERY_SERVE_ROWS]
+    (served, direct), _, counts, _ = counted_run(lambda: (
+        PredictorRuntime(pack_booster(refits[0]), max_bucket=MAX_BUCKET,
+                         device=dev).predict(Xs, raw_score=True),
+        refits[0].predict(Xs, raw_score=True)))
+    err = float(np.abs(served - direct).max())
+    check(counts["predict_forest"] > 0 and err <= 1e-5,
+          f"21d served: B4 launches {counts['predict_forest']}, {err:.2e}")
+    add_launches(launches, counts)
+    out = {"rows": len(Xv), "trees": full.num_trees(), "refit_s": secs,
+           "bit_identical_on_card": True, "cpu_rows": REFIT_CPU_ROWS,
+           "card_minus_cpu_leaf_max_abs": d_abs,
+           "card_minus_cpu_leaf_max_rel": rel,
+           "card_minus_cpu_predict_max_rel": p_rel,
+           "served_max_abs_diff": err,
+           "launches": counts}
+    log(f"phase 21d: {json.dumps(out)}")
+    return out
+
+
+def phase_continue_multiclass(dev, cds, launches):
+    """21e: multiclass at Covertype's shape, 3 + 3 rounds against 6."""
+    import lightgbm_tpu_torch as lgb
+
+    def runs():
+        whole = lgb.train(COV_PARAMS, cds, 2 * COV_CONT_ROUNDS)
+        first = lgb.train(COV_PARAMS, cds, COV_CONT_ROUNDS)
+        return whole, lgb.train(COV_PARAMS, cds, COV_CONT_ROUNDS,
+                                init_model=first)
+
+    (whole, cont), secs, counts, plain = counted_run(runs)
+    check(whole.num_trees() == 2 * COV_CONT_ROUNDS
+          and trees_identical(whole, cont, whole.num_trees())
+          and torch.equal(whole._pred_train, cont._pred_train),
+          "21e: the multiclass continuation differs from 6 rounds")
+    check(counts["hist_fused_batched_bf16"] > 0
+          and counts["hist_segstats_bf16"] > 0 and plain == 0,
+          f"21e launches {counts}, plain calls {plain}")
+    add_launches(launches, counts)
+    out = {"rounds": [COV_CONT_ROUNDS, COV_CONT_ROUNDS], "s": secs,
+           "bit_identical": True, "launches": counts}
+    log(f"phase 21e: {json.dumps(out)}")
+    return out
+
+
+def phase_binary_dataset(dev, dds, ds, root, launches):
+    """21f: diamonds through ``save_binary`` and ``Dataset(path)`` (fused
+    strict ``cv()``, strict ``train``), the example's linear call continued
+    10 + 10, and the north star's file."""
+    import lightgbm_tpu_torch as lgb
+
+    path = os.path.join(root, "diamonds.bin")
+    dds.save_binary(path)
+    back = lgb.Dataset(path)
+    back.construct()
+    check(back.device.type == "cuda" and torch.equal(back.X_binned,
+                                                     dds.X_binned)
+          and np.array_equal(back.get_label(), dds.get_label()),
+          "21f: the reloaded diamonds Dataset differs")
+    strict = dict(CV_PARAMS, grow_policy="leafwise")
+
+    def both(d):
+        return (lgb.cv(CV_PARAMS, d, CV_BINARY_ROUNDS, nfold=CV_FOLDS,
+                       metrics="rmse", stratified=False, seed=SWEEP_SEED),
+                lgb.train(strict, d, STRICT_BINARY_ROUNDS))
+
+    (cv_a, tr_a), secs, counts, plain = counted_run(lambda: both(dds))
+    cv_b, tr_b = both(back)
+    check(dict(cv_a) == dict(cv_b)
+          and trees_identical(tr_a, tr_b, STRICT_BINARY_ROUNDS),
+          "21f: cv() or strict train on the reloaded Dataset differ")
+    check(counts["hist_segstats_f32"] > 0 and counts["hist_fused_f32"] > 0
+          and counts["split_iter"] > 0 and plain == 0,
+          f"21f launches {counts}, plain calls {plain}")
+    add_launches(launches, counts)
+    # examples/advanced_features.py's linear call, 10 + 10 against 20
+    X, y = advanced_features_data()
+    lin = {"objective": "regression", "verbosity": -1, "num_leaves": 8,
+           "linear_tree": True}
+    lds = lgb.Dataset(X[:4000], label=y[:4000])
+
+    def linear():
+        whole = lgb.train(lin, lds, 2 * LINEAR_CONT_ROUNDS)
+        first = lgb.train(lin, lds, LINEAR_CONT_ROUNDS)
+        return whole, lgb.train(lin, lds, LINEAR_CONT_ROUNDS,
+                                init_model=first)
+
+    (whole, cont), lin_s, lin_counts, _ = counted_run(linear)
+    check(trees_identical(whole, cont, whole.num_trees())
+          and torch.equal(whole._pred_train, cont._pred_train)
+          and lin_counts["split_iter"] > 0,
+          f"21f: the linear continuation (B3 {lin_counts['split_iter']})")
+    add_launches(launches, lin_counts)
+    # the north star's file: bytes, write and read seconds
+    big = os.path.join(root, "higgs.bin")
+    t0 = time.perf_counter()
+    ds.save_binary(big)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = lgb.Dataset(big)
+    again.construct()
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    check(torch.equal(again.X_binned, ds.X_binned), "21f: the north star's "
+          "reloaded codes differ")
+    out = {"diamonds_cv_and_strict_equal": True, "s": secs,
+           "launches": counts, "linear_continuation_equal": True,
+           "linear_s": lin_s, "linear_launches": lin_counts,
+           "north_star_bytes": os.path.getsize(big + ".npz"),
+           "north_star_write_s": write_s, "north_star_read_s": read_s}
+    del again
+    log(f"phase 21f: {json.dumps(out)}")
+    return out
+
+
+def phase_continuation(dev, ds, dds, cds, card):
+    """Phase 21, every launch counter at 0 just before each run and read
+    just after; fails unless B1 (bf16 and f32), B2, B3, B4, B5 and B6
+    launched."""
+    import shutil
+
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    root = os.path.join(ROOT, "build", "chip_smoke", "continuation")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    t1 = time.perf_counter()
+    out["21a"], full = phase_continue_north_star(dev, ds, root, launches)
+    secs["21a"] = time.perf_counter() - t1
+    for name, fn in (
+            ("21b", lambda: phase_mixed_capacity(dev, ds, full, Xv, root,
+                                                 launches)),
+            ("21c", lambda: phase_rollback(dev, ds, Xv, yv, launches)),
+            ("21d", lambda: phase_refit(dev, full, Xv, yv, launches)),
+            ("21e", lambda: phase_continue_multiclass(dev, cds, launches)),
+            ("21f", lambda: phase_binary_dataset(dev, dds, ds, root,
+                                                 launches))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t1
+    for name in ("hist_fused_bf16", "hist_partition_bf16", "hist_fused_f32",
+                 "split_iter", "predict_forest", "hist_fused_batched_bf16",
+                 "hist_segstats_bf16", "hist_segstats_f32"):
+        check(launches.get(name, 0) > 0, f"phase 21: {name} never launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 21: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5948,7 +6368,7 @@ def main() -> int:
     runtimes.clear()
     hist_errs, bins, root_stats, wave, first_wave, strict_segs = \
         phase_hist_kernels(dev, X, y, mapper)
-    train = phase_train(dev, X, y, workdir)
+    train, ds_north = phase_train(dev, X, y, workdir)
     hist_times = phase_hist_times(bins, root_stats, wave, first_wave,
                                   strict_segs)
     del first_wave, strict_segs
@@ -5967,7 +6387,7 @@ def main() -> int:
     ns_cv, b5_wave = phase_cv_north_star(dev, X, y)
     b5_times = phase_b5_times(b5_wave)
     del b5_wave
-    multiclass = phase_multiclass(dev, Xc, yc, workdir)
+    multiclass, ds_cov = phase_multiclass(dev, Xc, yc, workdir)
     int8_ratios = phase_int8_kernel(dev, bins, root_stats, wave)
     int8 = phase_int8_train(dev, X, y, train["auc"]["bf16"])
     int8["cv"] = phase_int8_cv(dds, cv_res["kernels"])
@@ -6003,6 +6423,9 @@ def main() -> int:
     phase20 = phase_linear_introspection(dev, X, y, card,
                                          train["s_per_round"]["bf16"])
     l20 = phase20["launches"]
+    phase21 = phase_continuation(dev, ds_north, dds, ds_cov, card)
+    l21 = phase21["launches"]
+    del ds_north, ds_cov
 
     kernels = []
     for prec in PRECISIONS:
@@ -6020,7 +6443,8 @@ def main() -> int:
                              "17": l17.get("predict_forest", 0),
                              "18": l18.get("predict_forest", 0),
                              "19": l19.get("predict_forest", 0),
-                             "20": l20.get("predict_forest", 0)})
+                             "20": l20.get("predict_forest", 0),
+                             "21": l21.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -6049,7 +6473,8 @@ def main() -> int:
                     "17": l17.get(f"{name}_{mode}", 0),
                     "18": l18.get(f"{name}_{mode}", 0),
                     "19": l19.get(f"{name}_{mode}", 0),
-                             "20": l20.get(f"{name}_{mode}", 0)},
+                    "20": l20.get(f"{name}_{mode}", 0),
+                    "21": l21.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6072,7 +6497,7 @@ def main() -> int:
             "14": l14["split_iter"], "15": l15["split_iter"],
             "16": l16["split_iter"], "17": l17.get("split_iter", 0),
             "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
-                             "20": l20.get("split_iter", 0)},
+            "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -6097,7 +6522,8 @@ def main() -> int:
                 "17": l17.get(f"hist_segstats_{mode}", 0),
                 "18": l18.get(f"hist_segstats_{mode}", 0),
                 "19": l19.get(f"hist_segstats_{mode}", 0),
-                             "20": l20.get(f"hist_segstats_{mode}", 0)},
+                "20": l20.get(f"hist_segstats_{mode}", 0),
+                "21": l21.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6123,7 +6549,8 @@ def main() -> int:
                 "17": l17.get(f"hist_fused_batched_{mode}", 0),
                 "18": l18.get(f"hist_fused_batched_{mode}", 0),
                 "19": l19.get(f"hist_fused_batched_{mode}", 0),
-                             "20": l20.get(f"hist_fused_batched_{mode}", 0)},
+                "20": l20.get(f"hist_fused_batched_{mode}", 0),
+                "21": l21.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -6138,7 +6565,8 @@ def main() -> int:
             "17": l17.get("hist_fused_int8", 0),
             "18": l18.get("hist_fused_int8", 0),
             "19": l19.get("hist_fused_int8", 0),
-                             "20": l20.get("hist_fused_int8", 0)},
+            "20": l20.get("hist_fused_int8", 0),
+            "21": l21.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -6164,6 +6592,7 @@ def main() -> int:
               "int8": int8, "recovery": recovery, "phase14": phase14,
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "phase18": phase18, "phase19": phase19, "phase20": phase20,
+              "phase21": phase21,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

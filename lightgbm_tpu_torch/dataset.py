@@ -17,8 +17,10 @@ kept category, as the reference does, and :attr:`Dataset.col_is_categorical`
 flags them among the training columns (EFB never bundles them).  Query
 groups (``group=``, the ranking objectives' query sizes, in row order) stay
 on the host, with per-row query ids (``group_id``, -1 on padding) on the
-device.  In-memory data only: streamed (``from_blocks``) and binary-file
-datasets raise ``NotImplementedError``.
+device.  :meth:`Dataset.save_binary` writes the binned dataset to one
+``.npz`` in the reference's layout and ``Dataset(path)`` reads it back
+(either package's file) without binning again.  Streamed datasets
+(``from_blocks``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -442,10 +444,6 @@ class Dataset:
                  feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
                  free_raw_data: bool = False):
-        if isinstance(data, str):
-            raise NotImplementedError(
-                "binary dataset files (save_binary) are not ported yet: "
-                "ROADMAP slice 3 (breadth of training), item 10")
         if device is None and reference is not None:
             self.device = reference.device
         else:
@@ -586,6 +584,14 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._constructed:
             return self
+        if isinstance(self.raw_data, str):
+            # a path: reload a save_binary() file (LightGBM's
+            # Dataset('train.bin') contract)
+            path = self.raw_data
+            if self.free_raw_data:
+                self.raw_data = None
+            self._load_binary(path)
+            return self
         p = parse_params(self.params, warn_unknown=False)
         X = _to_2d_float_array(self.raw_data)
         n, num_features = X.shape
@@ -653,6 +659,65 @@ class Dataset:
         gid = np.full(n_pad, -1, np.int32)
         gid[:n] = np.repeat(np.arange(len(self._group)), self._group)
         self.group_id = torch.from_numpy(gid).to(self.device)
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the CONSTRUCTED (binned) dataset to one ``.npz`` file
+        (LightGBM ``Dataset.save_binary``), the reference's layout: the bin
+        codes, labels, weights, groups and ``init_score``, the bin mapper
+        and the EFB bundle map, so ``Dataset(filename)`` reloads it in
+        either package without the raw data or a binning pass.  A
+        filename without the ``.npz`` suffix gets it."""
+        import json
+
+        from .utils.serialize import mapper_to_dict
+
+        self.construct()
+        if not filename.endswith(".npz"):
+            filename += ".npz"  # numpy appends it anyway; keep load in sync
+        n = self.num_data_
+        payload = {
+            "codes": self.X_binned[:n].cpu().numpy(),
+            "mapper_json": np.frombuffer(
+                json.dumps(mapper_to_dict(self.bin_mapper)).encode(),
+                dtype=np.uint8),
+            "feature_names": np.asarray(self.feature_names, dtype=object),
+            "raw_num_feature": np.int64(self.raw_num_feature_
+                                        or self.num_feature_),
+        }
+        for name, arr in (("label", self._label), ("weight", self._weight),
+                          ("group", self._group),
+                          ("init_score", self._init_score)):
+            if arr is not None:
+                payload[name] = np.asarray(arr)
+        np.savez_compressed(filename, **payload)
+        return self
+
+    def _load_binary(self, filename: str) -> None:
+        """Read a :meth:`save_binary` file (either package's) onto this
+        Dataset's device; the constructor's label, weight, group and
+        ``init_score`` take precedence over the stored ones."""
+        import json
+        import os
+
+        from .utils.serialize import mapper_from_dict
+
+        if not os.path.exists(filename) and not filename.endswith(".npz"):
+            filename += ".npz"  # save_binary adds the suffix
+        with np.load(filename, allow_pickle=True) as z:
+            codes = z["codes"].astype(np.uint8)
+            self.bin_mapper = mapper_from_dict(
+                json.loads(bytes(z["mapper_json"]).decode()))
+            self.feature_names = [str(s) for s in z["feature_names"]]
+            self.raw_num_feature_ = int(z["raw_num_feature"])
+            if self._label is None and "label" in z:
+                self._label = _to_1d_float_array(z["label"])
+            if self._weight is None and "weight" in z:
+                self._weight = _to_1d_float_array(z["weight"])
+            if self._group is None and "group" in z:
+                self._group = _to_group(z["group"])
+            if self._init_score is None and "init_score" in z:
+                self._init_score = _to_1d_float_array(z["init_score"])
+        self._from_codes(codes)
 
     def subset(self, used_indices, params=None) -> "Dataset":
         """Row subset sharing this dataset's bin mapper (the cv folds)."""

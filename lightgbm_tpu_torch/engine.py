@@ -14,7 +14,9 @@ reference's route: a plain call (no callbacks, ``feval``,
 folds at once in the fused program (``models/fused.py``), anything else one
 Booster per fold.  A Dataset with query groups gets whole-query folds and
 its ranking objective the per-fold route, each fold's groups cut from its
-rows.  ``init_model`` is ROADMAP slice 3, item 10.
+rows.  ``train(init_model=)`` continues a Booster or a saved model file
+(:meth:`~.models.gbdt.Booster.ingest_init_model`): its trees come first
+and the new rounds grow on from its scores.
 """
 
 from __future__ import annotations
@@ -76,11 +78,11 @@ def train(
     if isinstance(train_set, np.ndarray):
         raise TypeError("train() expects a Dataset; wrap your matrix in "
                         "Dataset(X, label=y)")
-    if init_model is not None:
-        raise NotImplementedError(
-            "init_model (continued training) is not ported yet: ROADMAP "
-            "slice 3 (breadth of training), item 10")
     booster = Booster(p, train_set)
+    if init_model is not None:
+        prev = (init_model if isinstance(init_model, Booster)
+                else Booster(model_file=init_model, device=train_set.device))
+        booster.ingest_init_model(prev)
 
     if valid_sets is not None:
         if isinstance(valid_sets, Dataset):

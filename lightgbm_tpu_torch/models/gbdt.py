@@ -54,14 +54,28 @@ then fits a ridge model in every leaf over its path features on the RAW
 values (:func:`~.tree.fit_linear_leaves`, the reference's
 ``round_fn_linear``); the raw matrix goes to the device once at setup, and
 valid sets and ``predict`` evaluate the leaves on theirs
-(:func:`linear_tree_add`).  ``predict(pred_leaf=True)`` returns leaf
+(:func:`linear_tree_values`).  ``predict(pred_leaf=True)`` returns leaf
 ordinals, ``predict(pred_contrib=True)`` exact TreeSHAP values
 (``ops/shap.py``), and ``dump_model``/``trees_to_dataframe`` the
 reference's nested and flat views.
 
+Continuation follows the reference: ``train(init_model=)`` ingests a
+Booster's or a model file's forest (:meth:`Booster.ingest_init_model`,
+its leaves rescaled to the new learning rate), a loaded Booster's
+``update(train_set)`` attaches the Dataset
+(:meth:`Booster._attach_continuation`), and both replay the forest into
+the train scores with the live round's update op
+(:meth:`Booster._rebase_and_replay`), so a continued run grows the trees
+of an uninterrupted one.  A continuation may change
+``num_leaves``: a forest of mixed node capacities is padded to the largest
+(:func:`~.tree.pad_tree`) wherever it is stacked (predict, DART's dropped
+trees, serving).  :meth:`Booster.rollback_one_iter` takes the last round
+back out of every score, and :meth:`Booster.refit` renews the leaves on
+new data into a predict-only Booster.
+
 What is outside the port so far raises a ``NotImplementedError`` naming the
-ROADMAP slice and item that will port it: feature screening, streaming,
-the distributed learners and ``init_model``.
+ROADMAP slice and item that will port it: feature screening, streaming and
+the distributed learners.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -96,16 +110,10 @@ from ..ops.split import CatInfo, SplitContext, fma
 from ..utils.random import fold_in, prng_key, split_on
 from .feature_mask import compose_tree_mask
 from .tree import (_PK, Tree, _tree_from_packed, fit_linear_leaves,
-                   grow_tree, grow_trees_batched, renew_leaf_values)
+                   grow_tree, grow_trees_batched, pad_tree,
+                   renew_leaf_values, stack_trees)
 
 _F32 = torch.float32
-_SLICE3 = "ROADMAP slice 3 (breadth of training)"
-
-
-def _slice3(item: int) -> str:
-    return f"{_SLICE3}, item {item}"
-
-
 _SLICE5 = "ROADMAP slice 5 (out-of-core training), item 11"
 _SLICE6 = "ROADMAP slice 6 (multi-device), item 12"
 
@@ -232,20 +240,60 @@ def _predict_forest_mc(forest: Tree, bins: torch.Tensor, shrink, inits,
         for c in range(int(forest.leaf_value.shape[1]))], dim=1)
 
 
-def linear_tree_add(pred: torch.Tensor, tree: Tree, bins: torch.Tensor,
-                    xraw: torch.Tensor, shrink, depth_cap: int
-                    ) -> torch.Tensor:
-    """``pred + shrink * (leaf constant + coef . raw path features)`` for
-    ONE linear tree, the reference's ``_linear_tree_pred_fn``: traversal on
-    the binned codes, evaluation on the raw values, NaN and unused slots
-    read as 0."""
+def linear_tree_values(tree: Tree, bins: torch.Tensor, xraw: torch.Tensor,
+                       depth_cap: int) -> torch.Tensor:
+    """ONE linear tree's ``leaf constant + coef . raw path features`` per
+    row, the reference's ``_linear_tree_pred_fn`` before the shrink:
+    traversal on the binned codes, evaluation on the raw values, NaN and
+    unused slots read as 0."""
     node = predict_leaf_nodes(tree, bins, depth_cap)
     feats = tree.linear_feat.to(torch.int64)[node]            # [n, K]
     xg = xraw.gather(1, feats.clamp(min=0))
     xg = torch.where((feats >= 0) & torch.isfinite(xg), xg,
                      torch.zeros((), dtype=_F32, device=xg.device))
-    val = tree.leaf_value[node] + (tree.linear_coef[node] * xg).sum(dim=1)
-    return pred + shrink * val
+    return tree.leaf_value[node] + (tree.linear_coef[node] * xg).sum(dim=1)
+
+
+def _tree_to(tree: Tree, device) -> Tree:
+    return Tree(*(None if f is None else f.to(device) for f in tree))
+
+
+def leaf_sums(leaf: torch.Tensor, stats: torch.Tensor, capacity: int,
+              row_chunk: int = 65536) -> torch.Tensor:
+    """Per-node sums ``[capacity, S]`` of the rows' statistics ``[n, S]``
+    by the node each row reached.  On CPU tensors one scatter-add in row
+    order (the reference's ``.at[leaf].add``); on the card one-hot matmuls
+    over row chunks added in chunk order, as ``_gram_sums`` does: no float
+    atomics, so the sums are the same bits run to run."""
+    n, s = stats.shape
+    out = torch.zeros((capacity, s), dtype=_F32, device=stats.device)
+    if stats.device.type == "cpu":
+        return out.index_add_(0, leaf, stats)
+    ids = torch.arange(capacity, dtype=leaf.dtype, device=stats.device)
+    for r in range(0, n, row_chunk):
+        onehot_t = (leaf[None, r:r + row_chunk] == ids[:, None]).to(_F32)
+        out = out + onehot_t @ stats[r:r + row_chunk]
+    return out
+
+
+def refit_leaves(tree: Tree, leaf: torch.Tensor, g: torch.Tensor,
+                 h: torch.Tensor, lambda_l2, decay
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One single-class tree's refit leaf values ``[M]`` and each row's new
+    value ``[n]``, the reference's ``refit`` ``renew``: a leaf that new rows
+    reach becomes ``decay * old + (1 - decay) * newton`` with the Newton
+    step ``-sum g / (sum h + lambda_l2 + 1e-15)`` over those rows, with
+    ``decay * old`` fused into the sum as XLA contracts the reference's
+    jitted expression; the others keep their value."""
+    one = torch.ones_like(g)
+    sums = leaf_sums(leaf, torch.stack([g, h, one], dim=1),
+                     int(tree.leaf_value.shape[0]))
+    gs, hs, cnt = sums.unbind(1)
+    newton = -gs / (hs + lambda_l2 + 1e-15)
+    vals = torch.where(tree.is_leaf & (cnt > 0),
+                       fma(decay, tree.leaf_value, (1.0 - decay) * newton),
+                       tree.leaf_value)
+    return vals, vals[leaf]
 
 
 def raw_to_device(raw, n_pad: int, device) -> torch.Tensor:
@@ -470,13 +518,16 @@ class Booster:
         self._bag = None
         self._forest_cache = None
         self._base_lr = float(self.params.learning_rate)
-        # jax.random.PRNGKey(seed) of the reference (an int32 seed: high
-        # word 0); no stream of the port draws from it, the checkpoint
-        # format carries it
-        self._key = np.asarray(prng_key(int(self.params.seed) % (1 << 32)),
-                               np.uint32)
+        self._key = self._seed_key()
         if train_set is not None:
             self._setup_training()
+
+    def _seed_key(self) -> np.ndarray:
+        """``jax.random.PRNGKey(seed)`` of the reference (an int32 seed:
+        high word 0), the base of the round keys; the checkpoint format
+        carries it."""
+        return np.asarray(prng_key(int(self.params.seed) % (1 << 32)),
+                          np.uint32)
 
     # ------------------------------------------------------------------
     def _setup_training(self) -> None:
@@ -581,9 +632,134 @@ class Booster:
 
     @property
     def _depth_cap(self) -> int:
+        """Traversal depth bound over every tree of the forest: from
+        ``num_leaves``, or from a deeper ingested tree's own capacity."""
         caps = {int(t.split_feature.shape[-1]) for t in self.trees}
         cap = max([2 * self.params.num_leaves - 1, *caps])
         return (cap + 1) // 2
+
+    # -- continuation ----------------------------------------------------
+    def ingest_init_model(self, prev: "Booster") -> None:
+        """Continue training from ``prev``'s forest (``train(init_model=)``),
+        the reference's ``ingest_init_model``.  Stored leaves are raw (the
+        CURRENT learning rate shrinks them at predict time), so the
+        ingested trees are rescaled by ``prev_lr / cur_lr`` in f32 and
+        keep their contribution."""
+        p = self.params
+        if p.boosting == "rf" or prev.params.boosting == "rf":
+            raise NotImplementedError(
+                "init_model continuation is not supported for rf boosting "
+                "(averaged forests have no additive continuation)")
+        if prev.num_model_per_iteration() != self._num_class:
+            raise ValueError(
+                "init_model has a different number of classes "
+                f"({prev.num_model_per_iteration()} vs {self._num_class})")
+        if not prev.trees:
+            return
+        # the ingested split_bin codes mean something only under the bin
+        # mapper they were trained with
+        if not self._same_binning(self.train_set.bin_mapper,
+                                  prev._bin_mapper_for_predict()):
+            raise ValueError(
+                "init_model was trained with different feature binning than "
+                "this Dataset; rebuild the Dataset with "
+                "reference=<original training Dataset> (or identical data) "
+                "before continuing training")
+        prev_linear = prev.trees[0].linear_feat is not None
+        if prev_linear != bool(p.linear_tree):
+            raise ValueError(
+                "init_model and the continuation must agree on linear_tree "
+                f"(init_model linear={prev_linear}, params "
+                f"linear_tree={p.linear_tree}) — a forest cannot mix "
+                "constant and linear leaves")
+        prev_lr = float(getattr(prev, "_base_lr", prev.params.learning_rate))
+        scale = torch.tensor(prev_lr / self._base_lr, dtype=_F32,
+                             device=self.device)
+        self.trees = []
+        for t in prev.trees:
+            t = _tree_to(t, self.device)
+            self.trees.append(t._replace(
+                leaf_value=t.leaf_value * scale,
+                linear_coef=(None if t.linear_coef is None
+                             else t.linear_coef * scale)))
+        self._iter = len(self.trees)
+        self._forest_cache = None
+        # restart from the PREVIOUS model's base score and replay its trees
+        self._rebase_and_replay(prev.init_score_)
+
+    @staticmethod
+    def _same_binning(cur_m, prev_m) -> bool:
+        """Whether two bin mappers describe the same training columns:
+        equal bounds and equal EFB bundling (bundling remaps the columns
+        without touching ``upper_bounds``)."""
+        same = (len(cur_m.upper_bounds) == len(prev_m.upper_bounds) and all(
+            len(a) == len(b) and np.allclose(a, b)
+            for a, b in zip(cur_m.upper_bounds, prev_m.upper_bounds)))
+        cur_b = getattr(cur_m, "bundler", None)
+        prev_b = getattr(prev_m, "bundler", None)
+        if (cur_b is None) != (prev_b is None):
+            return False
+        if cur_b is not None and (
+                cur_b.groups != prev_b.groups
+                or not np.array_equal(cur_b.default_bins,
+                                      prev_b.default_bins)):
+            return False
+        return same
+
+    def _rebase_and_replay(self, init_score) -> None:
+        """``_pred_train`` rebuilt from ``init_score`` (the Dataset's per-row
+        ``init_score`` on top, as upstream keeps both) with the forest
+        replayed into it by the live round's update, ``fma(lr, value,
+        pred)`` per tree in order, so the continued gradients are the
+        uninterrupted run's bits."""
+        ds = self.train_set
+        self.init_score_ = init_score
+        n_pad = int(ds.row_mask.shape[0])
+        pred = self._init_scores(n_pad)
+        if self._num_class == 1 and ds.get_init_score() is not None:
+            base = np.zeros(n_pad, np.float32)
+            base[:ds.num_data_] = np.asarray(ds.get_init_score(), np.float32)
+            pred = pred + torch.from_numpy(base).to(self.device)
+        if self.trees:
+            shrink = torch.tensor(self._base_lr, dtype=_F32,
+                                  device=self.device)
+            # a tight traversal bound, read once: a row that reaches its
+            # leaf earlier stays there
+            depth = min(self._depth_cap,
+                        forest_depth_cap(self._stacked_forest()))
+            for tree in self.trees:
+                pred = fma(shrink, self._tree_round_values(
+                    tree, ds.X_binned, self._xraw, depth), pred)
+        self._pred_train = pred
+
+    def _attach_continuation(self, ds: Dataset) -> None:
+        """Attach a training Dataset to a loaded Booster so ``update()``
+        continues the saved model, the reference's ``_attach_continuation``:
+        the Dataset must be binned as the model was, the training setup
+        runs, and the forest is replayed into the train scores.  A bag
+        drawn mid-``bagging_freq`` is not in the model file: resume from a
+        training checkpoint where that matters."""
+        ds.construct()
+        prev_m = self._bin_mapper_for_predict()
+        if prev_m is not None and not self._same_binning(ds.bin_mapper,
+                                                         prev_m):
+            raise ValueError(
+                "this Booster was saved under a different feature binning "
+                "than the offered Dataset (bin bounds / EFB bundling "
+                "differ); rebuild the Dataset with reference=<original "
+                "training Dataset> (or identical data) before continuing "
+                "training")
+        loaded_init, loaded_iter = self.init_score_, self._iter
+        if ds.device != self.device:
+            # training runs on the Dataset's device
+            self.device = ds.device
+            self.trees = [_tree_to(t, self.device) for t in self.trees]
+        self.train_set = ds
+        self._key = self._seed_key()
+        self._setup_training()
+        self._iter = loaded_iter
+        self._forest_cache = None
+        self._rebase_and_replay(loaded_init)
 
     def _sample_bag_and_fmask(self, i: int) -> torch.Tensor:
         """This round's bag (resampled on schedule into ``self._bag``) and
@@ -608,14 +784,16 @@ class Booster:
         is accepted and not used, as in the reference: a custom objective
         is given as ``objective=callable`` in the params."""
         if train_set is not None and train_set is not self.train_set:
-            if self.trees:
-                raise NotImplementedError(
-                    f"continuing a loaded model (init_model) is not ported "
-                    f"yet: {_slice3(10)}")
-            self.train_set = train_set
-            if self.device != train_set.device:
-                self.device = train_set.device
-            self._setup_training()
+            if self.train_set is None and self.trees:
+                # a loaded model continuing: attach the Dataset and replay
+                # the forest into the train scores, so the gradients go on
+                # where the saved run stopped
+                self._attach_continuation(train_set)
+            else:
+                self.train_set = train_set
+                if self.device != train_set.device:
+                    self.device = train_set.device
+                self._setup_training()
         if self.train_set is None:
             raise ValueError("update() needs a training Dataset")
         check_int8_row_limit(self.params, self._eff_rows())
@@ -766,15 +944,25 @@ class Booster:
         self.trees.append(tree)
         self._forest_cache = None
         s = torch.tensor(shrink, dtype=_F32, device=self.device)
-        for idx, (name, vds, vpred) in enumerate(self._valid):
-            if self._linear_k is not None:
-                vpred = linear_tree_add(vpred, tree, vds.X_binned,
-                                        vds._xraw_dev, s, self._depth_cap)
-            else:
-                vpred = vpred + s * self._tree_values(
-                    tree, vds.X_binned, self.params.num_leaves)
-            self._valid[idx] = (name, vds, vpred)
+        self._add_to_valid(tree, s)
         self._iter += 1
+
+    def _add_to_valid(self, tree: Tree, shrink: torch.Tensor) -> None:
+        """Every valid set's scores plus ``shrink`` times one round's
+        values."""
+        for idx, (name, vds, vpred) in enumerate(self._valid):
+            vals = self._tree_round_values(
+                tree, vds.X_binned, getattr(vds, "_xraw_dev", None),
+                (tree.capacity + 1) // 2)
+            self._valid[idx] = (name, vds, vpred + shrink * vals)
+
+    def _tree_round_values(self, tree: Tree, bins: torch.Tensor, xraw,
+                           depth_cap: int) -> torch.Tensor:
+        """One round's values per row: linear leaves evaluated on the raw
+        values ``xraw``, else the leaf values (:meth:`_tree_values`)."""
+        if tree.linear_feat is not None:
+            return linear_tree_values(tree, bins, xraw, depth_cap)
+        return self._tree_values(tree, bins, depth_cap)
 
     def _dart_round(self) -> bool:
         """One DART round (upstream ``dart.hpp``; Rashmi & Gilad-Bachrach,
@@ -798,8 +986,9 @@ class Booster:
         lr = np.float32(p.learning_rate)
         pred = self._pred_train
         if k > 0:
-            stack = Tree(*(None if f[0] is None else torch.stack(f) for f in
-                           zip(*(self.trees[t] for t in dropped))))
+            # one stacked pass over the dropped trees, padded to the largest
+            # capacity among them (a continuation may mix num_leaves)
+            stack = stack_trees([self.trees[t] for t in dropped])
             depth = forest_depth_cap(stack)
 
             def dropped_sum(bins):
@@ -874,6 +1063,113 @@ class Booster:
         self.params = newp
         self._hyper = HyperScalars.from_params(newp)
         return self
+
+    def rollback_one_iter(self) -> "Booster":
+        """Take the last round out (LightGBM ``rollback_one_iter``), the
+        reference's: its tree leaves the forest and its values leave the
+        train scores (rf keeps them at the init score) and every valid
+        set's, a linear tree's through the linear predictor."""
+        if not self.trees:
+            return self
+        depth = self._depth_cap
+        tree = self.trees.pop()
+        self._forest_cache = None
+        self._iter -= 1
+        neg = torch.tensor(-self._shrink, dtype=_F32, device=self.device)
+        if self.params.boosting != "rf" and self._pred_train is not None:
+            vals = self._tree_round_values(tree, self.train_set.X_binned,
+                                           self._xraw, depth)
+            # the reference's update: one multiply-add under XLA's
+            # contraction for a single class, eager for [n, K]
+            self._pred_train = (
+                fma(neg, vals, self._pred_train) if self._num_class == 1
+                else self._pred_train + neg * vals)
+        self._add_to_valid(tree, neg)
+        return self
+
+    def refit(self, data, label, decay_rate: float = 0.9, weight=None,
+              group=None, **kwargs) -> "Booster":
+        """Refit the leaf values on new data, keeping every tree's structure
+        (LightGBM ``Booster.refit``), the reference's ``refit``: tree by
+        tree in order, each leaf the new rows reach becomes ``decay_rate *
+        old + (1 - decay_rate) * newton``, the Newton step from the new
+        rows' gradients at the refit ensemble's running score
+        (:func:`refit_leaves`); a multiclass round refits its K trees at
+        once.  A ranking model takes ``group=`` (the new rows' query
+        sizes), for which a fresh objective packs its lambda layout.
+        Returns a NEW predict-only Booster on this one's device; ``self``
+        is untouched."""
+        import copy
+
+        if self.params.boosting in ("rf", "dart"):
+            raise NotImplementedError(
+                "refit supports additive boosting (gbdt/goss); rf averages "
+                "trees and dart bakes dropout scales into leaf values")
+        if self.trees and self.trees[0].linear_feat is not None:
+            raise NotImplementedError(
+                "refit with linear_tree is not supported (leaf models need "
+                "re-solving, not Newton-constant renewal)")
+        if kwargs:
+            raise TypeError(f"refit got unsupported arguments: "
+                            f"{sorted(kwargs)}")
+        from ..dataset import _to_2d_float_array
+
+        dev = self.device
+        X = _to_2d_float_array(data)
+        y_host = np.asarray(label, np.float32)
+        y = torch.from_numpy(np.ascontiguousarray(y_host)).to(dev)
+        w = (torch.ones_like(y) if weight is None else torch.from_numpy(
+            np.ascontiguousarray(weight, np.float32)).to(dev))
+        codes = torch.from_numpy(
+            self._bin_mapper_for_predict().transform(X)).to(dev)
+        p = self.params
+        lam = torch.tensor(p.lambda_l2, dtype=_F32, device=dev)
+        decay = torch.tensor(decay_rate, dtype=_F32, device=dev)
+        lr = torch.tensor(self._base_lr, dtype=_F32, device=dev)
+        obj = self.obj
+        if getattr(obj, "needs_group", False):
+            if group is None:
+                raise ValueError(
+                    "refit with a ranking objective requires group= "
+                    "(query sizes of the refit data)")
+            # a fresh lambda layout packed for the NEW rows
+            obj = create_objective(p)
+            obj.set_group(np.asarray(group, np.int64).reshape(-1), y_host,
+                          int(y_host.reshape(-1).shape[0]), device=dev)
+        elif group is not None:
+            raise TypeError("refit got group= for a non-ranking objective")
+        depth = self._depth_cap
+        k = self._num_class
+        pred = self._init_scores(int(codes.shape[0]))
+        new_trees = []
+        for tree in self.trees:
+            g, h = obj.grad_hess(pred, y, w)
+            if k == 1:
+                leaf = predict_leaf_nodes(tree, codes, depth)
+                vals, delta = refit_leaves(tree, leaf, g, h, lam, decay)
+            else:
+                per_class = [refit_leaves(
+                    tc, predict_leaf_nodes(tc, codes, depth), g[:, c],
+                    h[:, c], lam, decay)
+                    for c, tc in ((c, _class_tree(tree, c))
+                                  for c in range(k))]
+                vals = torch.stack([v for v, _ in per_class])    # [K, M]
+                delta = torch.stack([d for _, d in per_class], dim=1)
+            new_trees.append(tree._replace(leaf_value=vals))
+            # XLA fuses the reference's single-class update into one
+            # multiply-add and leaves its transposed multiclass one eager
+            pred = fma(lr, delta, pred) if k == 1 else pred + lr * delta
+        out = copy.copy(self)
+        out.trees = new_trees
+        out._forest_cache = None
+        out._valid = []
+        # predict-only: the train scores and bag hold the OLD leaves
+        out.train_set = None
+        out._bin_mapper = self._bin_mapper_for_predict()
+        out._feature_names = list(self.feature_name())
+        out._pred_train = None
+        out._bag = None
+        return out
 
     def can_fuse_rounds(self) -> bool:
         """Whether the reference's ``update_many`` may scan rounds into one
@@ -1097,14 +1393,10 @@ class Booster:
                     "(free_raw_data=False, in-memory matrix)")
             data._xraw_dev = raw_to_device(raw, int(data.row_mask.shape[0]),
                                            self.device)
-            for tree in self.trees:
-                vpred = linear_tree_add(vpred, tree, data.X_binned,
-                                        data._xraw_dev, shrink,
-                                        self._depth_cap)
-        else:
-            for tree in self.trees:
-                vpred = vpred + shrink * self._tree_values(
-                    tree, data.X_binned, self._depth_cap)
+        for tree in self.trees:
+            vpred = vpred + shrink * self._tree_round_values(
+                tree, data.X_binned, getattr(data, "_xraw_dev", None),
+                self._depth_cap)
         self._valid.append((name, data, vpred))
         return self
 
@@ -1113,12 +1405,9 @@ class Booster:
         if self._forest_cache is None:
             if not self.trees:
                 raise ValueError("no trees trained yet")
-            fields = {}
-            for name in Tree._fields:
-                vals = [getattr(t, name) for t in self.trees]
-                fields[name] = (None if vals[0] is None
-                                else torch.stack(vals))
-            forest = Tree(**fields)
+            # trees of mixed capacity (a continuation at another
+            # num_leaves) are padded to the largest
+            forest = stack_trees(self.trees)
             self._forest_depth = forest_depth_cap(forest)
             self._forest_cache = forest
         return self._forest_cache
@@ -1168,8 +1457,8 @@ class Booster:
             shrink = torch.tensor(self._shrink, dtype=_F32,
                                   device=self.device)
             for t in range(start_iteration, start_iteration + num_iteration):
-                raw = linear_tree_add(raw, self.trees[t], bins, xr, shrink,
-                                      self._depth_cap)
+                raw = raw + shrink * linear_tree_values(
+                    self.trees[t], bins, xr, self._depth_cap)
         elif not self.trees:
             raw = self._init_scores(bins.shape[0])
         else:
@@ -1224,6 +1513,10 @@ class Booster:
         p = self.params
         k = self._num_class
         sel = self.trees[start:start + num]
+        if sel:
+            # one node capacity for the whole selection
+            cap = max(t.capacity for t in sel)
+            sel = [pad_tree(t, cap) for t in sel]
         is_rf = p.boosting == "rf"
         shrink = np.full(len(sel), self._shrink, np.float32)
         outs = []

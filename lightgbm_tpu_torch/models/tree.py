@@ -1531,3 +1531,49 @@ def tree_from_arrays(arrays: dict, device="cpu") -> Tree:
         else:
             raise KeyError(f"tree arrays missing field {name!r}")
     return Tree(**kw)
+
+
+def pad_tree(tree: Tree, capacity: int) -> Tree:
+    """A tree's node arrays padded on their last axis (``cat_mask`` and the
+    linear fields on their node axis) up to ``capacity`` slots, the
+    reference's ``pad_tree``: what stacks a forest of mixed ``num_leaves``
+    (an ``init_model`` continuation with another leaf budget).  The padded
+    slots are unreachable and carry the grower's unused-slot sentinels
+    (``is_leaf=False``, children -1, zero values), so a used-node mask
+    ``~is_leaf & (left >= 0)`` skips them."""
+    m = tree.capacity
+    if m == capacity:
+        return tree
+    if m > capacity:
+        raise ValueError(f"cannot shrink tree capacity {m} -> {capacity}")
+    extra = capacity - m
+
+    def p(a, val=0):
+        return torch.nn.functional.pad(a, (0, extra), value=val)
+
+    def p_node2(a, val=0):
+        """Pad the NODE axis of a ``[..., M, X]`` array."""
+        return torch.nn.functional.pad(a, (0, 0, 0, extra), value=val)
+
+    def opt(a, fn, val):
+        return None if a is None else fn(a, val)
+
+    return Tree(
+        split_feature=p(tree.split_feature), split_bin=p(tree.split_bin),
+        left=p(tree.left, -1), right=p(tree.right, -1),
+        leaf_value=p(tree.leaf_value), is_leaf=p(tree.is_leaf, False),
+        count=p(tree.count), split_gain=p(tree.split_gain),
+        num_leaves=tree.num_leaves,
+        is_cat_split=opt(tree.is_cat_split, p, False),
+        cat_mask=opt(tree.cat_mask, p_node2, False),
+        linear_feat=opt(tree.linear_feat, p_node2, -1),
+        linear_coef=opt(tree.linear_coef, p_node2, 0.0))
+
+
+def stack_trees(trees) -> Tree:
+    """Trees stacked on a leading ``[T]`` axis, each padded to the largest
+    capacity among them (:func:`pad_tree`) when their capacities differ."""
+    cap = max(t.capacity for t in trees)
+    trees = [pad_tree(t, cap) for t in trees]
+    return Tree(*(None if f[0] is None else torch.stack(f)
+                  for f in zip(*trees)))

@@ -115,6 +115,12 @@ def class_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _softmax(x):
+    # row-major first: the card's class sum adds in an order that follows
+    # the memory layout, and a round's scores come out class-major (its
+    # update adds a transposed [K, n]) while replayed or restored scores
+    # are row-major, so a continued or resumed run would otherwise differ
+    # from the uninterrupted one in the gradients' last bits
+    x = x.contiguous()
     x = x - x.max(dim=-1, keepdim=True).values
     e = link_exp(x)
     return e / class_sum(e)

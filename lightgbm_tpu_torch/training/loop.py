@@ -45,7 +45,7 @@ class TrainResult(NamedTuple):
     completed: bool            # reached num_boost_round
     preempted: bool            # SIGTERM drained mid-run
     rounds_done: int           # booster iteration at exit
-    resumed_from: Optional[str]      # checkpoint path we started from
+    resumed_from: Optional[str]      # checkpoint or init_model path
     last_checkpoint: Optional[str]   # newest checkpoint written/seen
     checkpoint_failures: int   # writes lost to injected/real faults
 
@@ -111,19 +111,20 @@ def train_resumable(
     too, and one already latched BEFORE this call makes the run drain at
     its first round boundary instead of being missed.
 
-    ``init_model`` (continuing a saved model file) is not ported yet and
-    raises by name.
+    ``init_model`` seeds the run by CONTINUING a saved model file (the
+    JSON text model or a packed ``.npz``) when no checkpoint exists yet:
+    a generation trains on from the model of the one before, while a
+    preemption mid-generation still resumes from this generation's own
+    checkpoints, which take precedence (they carry the exact round
+    state).  The params come from the model file; the offered Dataset
+    must be binned as the model was.
     """
     from ..config import parse_params
-    from ..models.gbdt import Booster, _slice3
+    from ..models.gbdt import Booster
 
     if checkpoint_rounds <= 0:
         raise ValueError(
             f"checkpoint_rounds must be positive, got {checkpoint_rounds}")
-    if init_model is not None:
-        raise NotImplementedError(
-            "train_resumable(init_model=...) (continuing a saved model) is "
-            f"not ported yet: {_slice3(10)}")
 
     booster = None
     resumed_from = None
@@ -142,6 +143,10 @@ def train_resumable(
                     (found["arrays"], found["meta"]), train_set,
                     params=params)
                 resumed_from = last_checkpoint = path
+    if booster is None and init_model is not None:
+        booster = Booster(model_file=init_model, device=train_set.device)
+        booster._attach_continuation(train_set)
+        resumed_from = init_model
     if booster is None:
         p = params if not isinstance(params, dict) else parse_params(params)
         booster = Booster(p, train_set)

@@ -67,9 +67,11 @@ def test_ntree_limit_is_the_staged_prediction(c3_models, k):
 
 
 # parameters the port names but refuses, each with the item that ports it
-REFUSED = {
-    ("train", "init_model"): "item 10",
-}
+# (none since continuation, item 10's second half, was ported)
+REFUSED = {}
+# parameters that were refused until continuation was ported (item 10's
+# second half): each now continues training
+CONTINUATION_PARAMS = (("train", "init_model"),)
 # parameters that were refused until introspection was ported (item 10's
 # first half): each now returns the reference's layout
 INTROSPECTION_PARAMS = (("Booster.predict", "pred_leaf"),
@@ -120,14 +122,22 @@ def test_refused_parameters_cite_their_item():
     ds = P.Dataset(X, label=y, device="cpu")
     b = P.train({"objective": "binary", "num_leaves": 4, "verbose": -1},
                 ds, 1)
-    calls = {
-        ("train", "init_model"): lambda: P.train(
-            {"objective": "binary"}, ds, 1, init_model=b),
-    }
+    calls = {}
     assert set(calls) == set(REFUSED)
     for key, call in calls.items():
         with pytest.raises(NotImplementedError, match=REFUSED[key]):
             call()
+    # init_model continues the given model: its tree first, then one more
+    continued = {
+        ("train", "init_model"): lambda: P.train(
+            {"objective": "binary", "num_leaves": 4, "verbose": -1}, ds, 1,
+            init_model=b),
+    }
+    assert set(continued) == set(CONTINUATION_PARAMS)
+    for key, call in continued.items():
+        c = call()
+        assert c.num_trees() == 2 and c.current_iteration() == 2, key
+        assert torch.equal(c.trees[0].split_feature, b.trees[0].split_feature)
     # the introspection parameters return the reference's shapes
     shapes = {
         ("Booster.predict", "pred_leaf"): (
@@ -157,10 +167,9 @@ def test_refused_parameters_cite_their_item():
 
 # public names of the reference with no counterpart yet, by item
 NAME_GAPS = {}
-DATASET_GAPS = {"save_binary": "item 10"}
-# Booster methods still to port: item 10's continuation half
-BOOSTER_GAPS = {"ingest_init_model": "item 10", "refit": "item 10",
-                "rollback_one_iter": "item 10"}
+DATASET_GAPS = {}
+# Booster methods still to port (none since item 10's continuation half)
+BOOSTER_GAPS = {}
 PLOTTING = ("plot_importance", "plot_metric", "create_tree_digraph",
             "plot_split_value_histogram")
 LAZY = ("serving", "sklearn", "PackedForest", "PredictorRuntime",
@@ -198,8 +207,9 @@ def test_booster_public_names():
         return {m for m in dir(cls) if not m.startswith("_")}
 
     assert public(RB) - public(PB) == set(BOOSTER_GAPS)
-    # introspection (item 10's first half) names the reference's methods
-    for name in ("dump_model", "trees_to_dataframe", "can_fuse_rounds"):
+    # introspection and continuation (item 10) name the reference's methods
+    for name in ("dump_model", "trees_to_dataframe", "can_fuse_rounds",
+                 "ingest_init_model", "refit", "rollback_one_iter"):
         assert list(inspect.signature(getattr(PB, name)).parameters) == \
             list(inspect.signature(getattr(RB, name)).parameters), name
 
@@ -209,6 +219,9 @@ def test_dataset_and_bin_mapper_public_names():
         return {m for m in dir(cls) if not m.startswith("_")}
 
     assert public(R.Dataset) - public(P.Dataset) == set(DATASET_GAPS)
+    # the binary dataset file (item 10) takes the reference's parameters
+    assert list(inspect.signature(P.Dataset.save_binary).parameters) == \
+        list(inspect.signature(R.Dataset.save_binary).parameters)
     assert public(R.BinMapper) <= public(P.BinMapper)
     rng = np.random.default_rng(2)
     X = rng.normal(size=(300, 3))

@@ -138,3 +138,97 @@ def test_quantile_helpers_identical():
                                       td._to_2d_float_array(data))
     with pytest.raises(ValueError):
         td._to_2d_float_array(np.zeros((2, 2, 2)))
+
+
+# -- binary dataset files (save_binary / Dataset(path)) ---------------------
+def _binary_set(kind, seed=11):
+    """(X, Dataset kwargs) of a binary-file case: dense with weights and
+    ``init_score``, EFB-bundled sparse columns, or query groups."""
+    rng = np.random.default_rng(seed)
+    if kind == "efb":
+        X = _sparse(seed)
+    else:
+        X = rng.normal(size=(1200, 4))
+    n = len(X)
+    kw = {"label": X[:, -1] + 0.1 * rng.normal(size=n)}
+    if kind == "dense":
+        kw.update(weight=rng.uniform(0.5, 2.0, n),
+                  init_score=rng.normal(size=n))
+    elif kind == "groups":
+        kw["group"] = [100] * 12
+    return X, kw
+
+
+def _same_binary(a, b):
+    """Two constructed Datasets (either package) hold the same file
+    contents: codes, mapper, names, fields."""
+    n = a.num_data_
+    assert b.num_data_ == n and a.num_feature() == b.num_feature()
+    np.testing.assert_array_equal(np.asarray(a.X_binned)[:n],
+                                  np.asarray(b.X_binned)[:n])
+    _same_mapper(a.bin_mapper, b.bin_mapper)
+    assert (a.bin_mapper.bundler is None) == (b.bin_mapper.bundler is None)
+    if a.bin_mapper.bundler is not None:
+        assert a.bin_mapper.bundler.groups == b.bin_mapper.bundler.groups
+    assert list(a.feature_names) == list(b.feature_names)
+    for f in ("label", "weight", "group", "init_score"):
+        va, vb = a.get_field(f), b.get_field(f)
+        assert (va is None) == (vb is None), f
+        if va is not None:
+            np.testing.assert_allclose(np.asarray(vb, np.float64),
+                                       np.asarray(va, np.float64),
+                                       rtol=1e-7, err_msg=f)
+
+
+@pytest.mark.parametrize("kind", ["dense", "efb", "groups"])
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_save_binary_interchanges_both_ways(tmp_path, kind, writer):
+    """A ``.bin`` name gets the ``.npz`` suffix on save and is found again
+    on load; the file one package writes loads in the other (and in its
+    own) with equal codes, mapper, EFB map and fields."""
+    import lightgbm_tpu as R
+    import lightgbm_tpu_torch as P
+
+    X, kw = _binary_set(kind)
+    src = (P.Dataset(X, device="cpu", **kw) if writer == "port"
+           else R.Dataset(X, **kw))
+    src.construct()
+    path = str(tmp_path / "train.bin")
+    src.save_binary(path)
+    assert not (tmp_path / "train.bin").exists()
+    assert (tmp_path / "train.bin.npz").exists()
+    port = P.Dataset(path, device="cpu")
+    port.construct()
+    ref = R.Dataset(path)
+    ref.construct()
+    _same_binary(src, port)
+    _same_binary(src, ref)
+    if kind == "efb":
+        assert port.bin_mapper.bundler is not None
+        assert port.num_feature_ < port.num_feature()
+    if kind == "groups":
+        assert port.group_id is not None
+
+
+def test_binary_dataset_trains_as_the_original(tmp_path):
+    """Training on the reloaded file grows the original's trees bit for
+    bit; a label given to the constructor replaces the stored one; the
+    loaded Dataset takes the device it is given."""
+    import lightgbm_tpu_torch as P
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    X, kw = _binary_set("dense")
+    ds = P.Dataset(X, device="cpu", **kw)
+    path = str(tmp_path / "t")
+    ds.save_binary(path)
+    back = P.Dataset(path + ".npz", device="cpu")
+    params = {"objective": "regression", "num_leaves": 7, "verbosity": -1}
+    a, b = P.train(params, ds, 3), P.train(params, back, 3)
+    for ta, tb in zip(a.trees, b.trees):
+        fa, fb = tree_to_arrays(ta), tree_to_arrays(tb)
+        for k in fa:
+            assert np.array_equal(fa[k], fb[k]), k
+    relabeled = P.Dataset(path, label=np.zeros(len(X)), device="cpu")
+    relabeled.construct()
+    assert not relabeled.get_label().any()
+    assert back.device.type == "cpu"

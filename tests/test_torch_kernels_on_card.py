@@ -48,6 +48,13 @@ is the same plain code on the same rows) equal, the fit under sync debug
 mode "error"; TreeSHAP on the card against the CPU (within 1e-5) and its
 additivity.
 
+Continuation: 3 rounds continued 3 more on the card through
+``init_model=<Booster>``, ``init_model=<model file>`` and
+``Booster(model_file).update(ds)`` equal to 6 uninterrupted rounds bit for
+bit (waves: B1 and B2; strict: B1 and B3); ``refit`` on the card
+deterministic (one-hot matmul sums over row chunks, no float atomics) and
+within rtol 1e-5 of the CPU's.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1568,3 +1575,110 @@ def test_pred_contrib_on_card_vs_cpu(tmp_path):
         <= 1e-4
     np.testing.assert_array_equal(b.predict(X[:2000], pred_leaf=True),
                                   cpu.predict(X[:2000], pred_leaf=True))
+
+
+def _continuation_frame(n=50_000, seed=29):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 12)).astype(np.float32)
+    logits = 1.5 * X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3]
+    y = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grower", ["wave", "strict", "multiclass"])
+def test_continuation_bit_identical_on_card(grower, tmp_path):
+    """3 rounds continued 3 more on the card (``init_model=<Booster>``,
+    ``init_model=<model file>``, ``Booster(model_file).update(ds)``) grow
+    the trees, train scores and bag of 6 uninterrupted rounds bit for bit,
+    through B1 and B2 (waves), B1 and B3 (strict) or B6 and B5 (the
+    multiclass class batch, whose replayed scores are row-major where a
+    live round's are class-major: ROADMAP C.8)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (
+        HIST_FUSED_BATCHED_LAUNCHES, HIST_FUSED_LAUNCHES,
+        HIST_PARTITION_LAUNCHES, HIST_SEGSTATS_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    X, y = _continuation_frame()
+    p = dict(objective="binary", num_leaves=31, max_bin=255,
+             learning_rate=0.1, min_data_in_leaf=20, bagging_fraction=0.8,
+             bagging_freq=1, feature_fraction=0.8, hist_dtype="f32",
+             verbosity=-1)
+    if grower == "strict":
+        p["grow_policy"] = "leafwise"
+    elif grower == "multiclass":
+        p.update(objective="multiclass", num_class=3)
+        y = np.digitize(X[:, 0] + X[:, 4], [-0.5, 0.5]).astype(np.float32)
+    ds = lgb.Dataset(X, label=y, device=dev)
+    batched = (HIST_FUSED_BATCHED_LAUNCHES["f32"],
+               HIST_SEGSTATS_LAUNCHES["f32"])
+    for c in (*HIST_FUSED_LAUNCHES.values(),
+              *HIST_PARTITION_LAUNCHES.values(), SPLIT_ITER_LAUNCHES,
+              *batched):
+        c.reset()
+    full = lgb.train(p, ds, 6)
+    first = lgb.train(p, ds, 3)
+    path = str(tmp_path / "first.txt")
+    first.save_model(path)
+    loaded = lgb.Booster(model_file=path)
+    for _ in range(3):
+        loaded.update(ds)
+    runs = [lgb.train(p, ds, 3, init_model=first),
+            lgb.train(p, ds, 3, init_model=path), loaded]
+    if grower == "multiclass":
+        assert all(c.count > 0 for c in batched)
+    else:
+        assert HIST_FUSED_LAUNCHES["f32"].count > 0
+    if grower == "wave":
+        assert HIST_PARTITION_LAUNCHES["f32"].count > 0
+    elif grower == "strict":
+        assert SPLIT_ITER_LAUNCHES.count > 0
+    for b in runs:
+        assert b.num_trees() == 6 and b._pred_train.device.type == "cuda"
+        for ta, tb in zip(full.trees, b.trees):
+            fa, fb = tree_to_arrays(ta), tree_to_arrays(tb)
+            for k in fa:
+                assert np.array_equal(fa[k], fb[k]), k
+        assert torch.equal(b._pred_train, full._pred_train)
+        assert torch.equal(b._bag, full._bag)
+
+
+@pytest.mark.gpu
+def test_refit_deterministic_on_card():
+    """``refit`` on the card: the per-leaf sums are one-hot matmuls over row
+    chunks added in order (no float atomics), so two refits are bit-equal;
+    within rtol 1e-5 of the same refit on CPU tensors (row-order scatter
+    sums); a multi-chunk sum equal to a one-chunk one within 1e-6 of the
+    rows' sum of |x|."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.gbdt import leaf_sums
+
+    dev = _card()
+    X, y = _continuation_frame()
+    b = lgb.train(dict(objective="binary", num_leaves=31, verbosity=-1),
+                  lgb.Dataset(X, label=y, device=dev), 5)
+    Xn, yn = X[:30_000] * 1.05, y[:30_000]
+    r1, r2 = b.refit(Xn, yn), b.refit(Xn, yn)
+    cpu = lgb.Booster(model_str=b.model_to_string(), device="cpu").refit(
+        Xn, yn)
+    for t1, t2, tc in zip(r1.trees, r2.trees, cpu.trees):
+        assert torch.equal(t1.leaf_value, t2.leaf_value)
+        np.testing.assert_allclose(t1.leaf_value.cpu().numpy(),
+                                   tc.leaf_value.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+    rng = np.random.default_rng(31)
+    leaf = torch.from_numpy(rng.integers(0, 61, 200_000)).to(dev)
+    stats = torch.from_numpy(rng.normal(size=(200_000, 3)).astype(
+        np.float32)).to(dev)
+    chunked = leaf_sums(leaf, stats, 61, row_chunk=4096)
+    assert torch.equal(chunked, leaf_sums(leaf, stats, 61, row_chunk=4096))
+    whole = leaf_sums(leaf, stats, 61, row_chunk=200_000)
+    ref = torch.zeros((61, 3), dtype=torch.float64, device=dev).index_add_(
+        0, leaf, stats.double())
+    mag = torch.zeros((61, 3), dtype=torch.float64, device=dev).index_add_(
+        0, leaf, stats.double().abs())
+    for got in (chunked, whole):
+        assert bool(((got.double() - ref).abs() <= 1e-6 * mag).all())

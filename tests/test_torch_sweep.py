@@ -14,8 +14,9 @@ against the reference's on the CPU.
   ledger holds the reference's iterations and its scores within rtol 1e-5;
   a corrupt unit checkpoint falls back to a clean restart and one of another
   sweep definition (grid digest) is discarded;
-* what is not ported raises by name: more than one device, continuing a
-  saved model in ``train_resumable`` and resuming a multi-device checkpoint.
+* what is not ported raises by name: more than one device and resuming a
+  multi-device checkpoint; continuing a saved model in ``train_resumable``
+  (ported with continuation) trains on from the model file.
 """
 
 import hashlib
@@ -148,9 +149,12 @@ def test_expand_grid_and_digest_match_reference():
 
 def test_not_ported_options_raise_by_name(data, tmp_path):
     pd = data[2]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        train_resumable(dict(BASE), pd, 2, checkpoint_dir=str(tmp_path / "c"),
-                        init_model=str(tmp_path / "model.txt"))
+    model = str(tmp_path / "model.txt")
+    P.train(dict(BASE), pd, 1).save_model(model)
+    res = train_resumable(dict(BASE), pd, 2,
+                          checkpoint_dir=str(tmp_path / "c"),
+                          init_model=model)
+    assert res.resumed_from == model and res.rounds_done == 2
     b = P.Booster({"objective": "regression", "num_leaves": 4,
                    "verbosity": -1}, pd)
     b.update()

@@ -292,10 +292,17 @@ def test_out_of_slice_datasets_and_init_model(small_set, tmp_path):
     assert [r[1] for r in bg.eval_train()] == ["ndcg@5"]
     with pytest.raises(NotImplementedError, match="slice 5"):
         P.Dataset.from_blocks([X])
+    # continuation trains (ROADMAP item 10): init_model's trees come first
     ds = P.Dataset(X, label=y, device="cpu")
     b = P.train({"objective": "binary", "verbose": -1}, ds, 1)
-    with pytest.raises(NotImplementedError, match="init_model"):
-        P.train({"objective": "binary", "verbose": -1}, ds, 1, init_model=b)
+    c = P.train({"objective": "binary", "verbose": -1}, ds, 1, init_model=b)
+    assert c.num_trees() == 2
+    assert torch.equal(c.trees[0].leaf_value, b.trees[0].leaf_value)
+    # a binary dataset file reloads (ROADMAP item 10)
+    path = str(tmp_path / "train.bin")
+    ds.save_binary(path)
+    back = P.Dataset(path, device="cpu")
+    assert torch.equal(back.construct().X_binned, ds.X_binned)
 
 
 def test_update_many_equals_update_loop(small_set):
