@@ -165,12 +165,12 @@ Phases:
    at 0 just before each run and read just after: (a) the script's calls at
    its own sizes (``make_boosting_curve(1000, 8657)``, one column, its
    params): ``cv`` (5 folds, early stopping 50, the script's 1,000 rounds
-   cut to 100 on both paths; fused strict, B6 + B3) through the kernels
+   cut to 60 on both paths; fused strict, B6 + B3) through the kernels
    and the plain versions (fold-mean RMSE per round within 1e-5 relative,
    ``best_iter`` equal, ``best_score`` within 1e-5), ``train`` of 500 rounds
-   (B1 + B3; the plain run the first 100 rounds, the plain versions being
+   (B1 + B3; the plain run the first 50 rounds, the plain versions being
    launch-bound at 1,000 rows) and ``predict(grid, ntree_limit=k)`` for k
-   in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 100 trees;
+   in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 50 trees;
    the RMSE against the true curve falls
    with k and differs across k), the staged fits served through
    ``PredictorRuntime`` (B4) within 1e-5, ``LGBMRandomForestRegressor``
@@ -236,8 +236,8 @@ Phases:
    1e-5, valid AUC within 1e-4, the dropped-tree replay's CUDA-event ms
    per drop round, the final model served by B4 within 1e-5; (d)
    examples/gridsearch_cv.py's ``cv()`` arguments with ``boosting="goss"``
-   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's runs cut at 25
-   rounds, DART's both at 30, fold-mean RMSE per round
+   and ``"dart"`` (the per-fold route, B1 and B2): GOSS's runs cut at 15
+   rounds, DART's both at 20, fold-mean RMSE per round
    within 1e-5 and the best round equal; (e)
    DART on examples/bagging_boosting.py's curve (the strict grower: B1
    and B3), ``train_resumable`` killed by SIGTERM after round index 6 and
@@ -366,6 +366,40 @@ Phases:
    original's, examples/advanced_features.py's linear call continued 10 +
    10 equal to 20 (strict, B3), and the north star's file bytes and its
    write and read seconds.
+22. out-of-core training, every launch counter at 0 just before each run
+   and read just after: (a) the north star streamed (``Dataset.from_blocks``
+   over phase 6's rows in 131,072-row blocks with ``reference=`` phase 6's
+   Dataset: 8 blocks, the tail padded), 10 bf16 rounds on the wave grower
+   through the kernels, through the plain versions and in memory, in
+   turns: AUC within 1e-4 of in memory and of plain, B1 launched once per
+   block of every pass (the root and each wave, after the plain routing;
+   no B2, no plain-version call), ``X_binned`` None and at most
+   ``prefetch_blocks + 1`` block buffers on the device, the dyadic round-1
+   tree equal to the in-memory one, the model served through
+   ``PredictorRuntime`` (B4) within 1e-5 of ``Booster.predict``; bytes
+   streamed, verify ms (crc32) and copy-wait ms (CUDA events) per round,
+   a round's peak device bytes streamed and in memory, and a fresh sketch
+   fit's host seconds at 10^6 rows; (b) the strict grower streamed (200,000
+   rows in 65,536-row blocks, 31 leaves, ``grow_policy="leafwise"``, 3
+   rounds): B3 90 times, B1 two-segment per block of every split iteration,
+   the trees within the parity regime of the in-memory strict grower's (a
+   near tie recorded), ms a split iteration; (c) GOSS at the source on (a)'s
+   store (``top_rate`` 0.2, ``other_rate`` 0.1, 5 rounds: the in-memory
+   grower on the gathered rows, B1 and B2 at f32): each round's host
+   selection equal to a recomputation from the same gradients, gathered
+   bytes over a full pass, AUC beside in-memory GOSS's; (d) on (b)'s
+   streamed Dataset with bagging and feature fraction: ``train_resumable``
+   killed by SIGTERM after round index 2 of 6 and resumed, bit for bit as
+   the uninterrupted run (trees, train scores, bag), the same with
+   ``feature_screen="ema"`` (the screener's state carried), ``init_model=``
+   5 + 5 rounds (a Booster and a model file) equal to 10, and a Dataset
+   binned by another sketch refused by ``resume_booster`` (its schema
+   digest) and by ``Booster(model_file).update``; (e) EMA screening at the
+   reference bench's width (136 columns, 16 informative, keep 0.25,
+   refresh 10; 100,000 rows, 20 rounds) in memory and streamed: AUC drift
+   against screen-off within 1e-4, ``screen_refresh_rounds=1`` bit for bit
+   as screen-off, every screened pass moving ``F_active`` columns and every
+   refresh pass ``F``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -456,19 +490,19 @@ RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 60, 5
 RECOVERY_SEGMENT_ROUNDS = 25     # the sweep's carry checkpoint cadence
 # phase 14: examples/bagging_boosting.py at its own sizes (the script's
 # params; cv 5 folds, early stopping 50; train 500; the staged fits and
-# forest sizes it prints).  Its cv's 1,000 rounds are cut to 100 on both
-# paths (early stopping ends them at 323): the plain versions are
-# launch-bound at 1,000 rows and the script must fit its time limit on a
-# slow host
+# forest sizes it prints).  Its cv's 1,000 rounds are cut to 60 on both
+# paths (early stopping ends them at 323; 100 until phase 22 needed the
+# time): the plain versions are launch-bound at 1,000 rows and the script
+# must fit its time limit on a slow host
 BB_ROWS, BB_SEED = 1000, 8657
 BB_PARAMS = {"objective": "reg:linear", "eval_metric": "rmse", "eta": 0.02,
              "max_depth": 6, "max_leaf_nodes": 31, "verbosity": 0,
              "min_data_in_leaf": 1}
-BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 100, 50, 5, 500
+BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 60, 50, 5, 500
 BB_STAGES, BB_FORESTS = (1, 20, 50, 100, 300), (1, 3, 100)
 # the plain versions run ~5 ms a call at 1,000 rows (launch-bound): the
-# plain train covers the stages up to 100 trees
-BB_PLAIN_ROUNDS = 100
+# plain train covers the stages up to 50 trees (100 until phase 22)
+BB_PLAIN_ROUNDS = 50
 # EXAMPLES_r05.json (the JAX package on a TPU): staged RMSEs, printed as a
 # quality reference beside the port's, never as a time
 BB_TPU_STAGED_RMSE = {1: 0.5196, 20: 0.3567, 50: 0.1977, 100: 0.075,
@@ -502,11 +536,11 @@ DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
 DART_ROUNDS = 30
 # 16d: the example's cv() rounds (kernels, plain), cut so the script fits
-# its time limit on a slow host: GOSS's both at 25 (early stopping ends
+# its time limit on a slow host: GOSS's both at 15 (early stopping ends
 # them at 177); DART's early stopping rarely ends it (each drop round
-# moves the ensemble), so both of its runs stop at 30 (40 and 50 until
-# phase 20 needed the time)
-GD_CV_ROUNDS = {"goss": 25, "dart": 30}
+# moves the ensemble), so both of its runs stop at 20 (GOSS 25 and DART
+# 30 until phase 22 needed the time, 40 and 50 before phase 20)
+GD_CV_ROUNDS = {"goss": 15, "dart": 20}
 # 16e: the curve's params with DART dropping half the trees every round
 DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
                          skip_drop=0.0)
@@ -6337,6 +6371,517 @@ def phase_continuation(dev, ds, dds, cds, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: out-of-core training (streamed Datasets, EMA feature screening)
+# ---------------------------------------------------------------------------
+STREAM_BLOCK_ROWS = 131_072          # 1,000,000 rows: 8 blocks, tail padded
+STREAM_PARAMS = dict(TRAIN_PARAMS, stream_block_rows=STREAM_BLOCK_ROWS)
+STREAM_STRICT_ROWS, STREAM_STRICT_BLOCK = 200_000, 65_536   # 4 blocks
+STREAM_STRICT_PARAMS = dict(TRAIN_PARAMS, num_leaves=31,
+                            grow_policy="leafwise",
+                            stream_block_rows=STREAM_STRICT_BLOCK)
+STREAM_STRICT_ROUNDS, STREAM_GOSS_ROUNDS = 3, 5
+STREAM_RECOVERY_PARAMS = dict(RECOVERY_PARAMS, num_leaves=63,
+                              stream_block_rows=STREAM_STRICT_BLOCK)
+STREAM_RECOVERY_ROUNDS, STREAM_KILL_AFTER, STREAM_CONT_ROUNDS = 6, 2, 5
+# 22e: the reference's screening bench width (tools/bench_screening.py:
+# 136 columns, 16 informative, keep 0.25, refresh every 10)
+SCREEN_F, SCREEN_INFORMATIVE, SCREEN_ROWS = 136, 16, 100_000
+SCREEN_ROUNDS, SCREEN_BLOCK, SCREEN_DRIFT = 20, 32_768, 1e-4
+SCREEN_BASE = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.2,
+               "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
+               "seed": 7}
+SCREEN = {"feature_screen": "ema", "screen_keep_ratio": 0.25,
+          "screen_refresh_rounds": 10}
+
+
+def row_blocks(X, y, rows):
+    """A zero-argument callable yielding ``(X, y)`` row blocks (the two
+    passes of ``Dataset.from_blocks``)."""
+    return lambda: ((X[lo:lo + rows], y[lo:lo + rows])
+                    for lo in range(0, len(X), rows))
+
+
+def streamed_rounds(booster, store, rounds):
+    """``rounds`` updates of a Booster on a streamed Dataset, each timed to
+    a synchronize, with the store's odometers per round."""
+    per = []
+    for _ in range(rounds):
+        store.copy_wait_ms()                 # drop earlier waits
+        b0, p0, v0 = store.bytes_streamed, store.passes, store.verify_ms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster.update()
+        torch.cuda.synchronize()
+        per.append({"s": time.perf_counter() - t0,
+                    "bytes": store.bytes_streamed - b0,
+                    "passes": store.passes - p0,
+                    "verify_ms": store.verify_ms - v0,
+                    "copy_wait_ms": store.copy_wait_ms()})
+    return per
+
+
+def peak_round_bytes(booster):
+    """Device bytes a round allocates above what was live before it
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    booster.update()
+    torch.cuda.synchronize()
+    return {"round_peak_above_live": torch.cuda.max_memory_allocated() - base,
+            "live_before": base}
+
+
+def phase_stream_north_star(dev, X, y, ds, Xv, yv, launches):
+    """22a: the north star streamed from 131,072-row blocks with phase 6's
+    bins, kernel / plain / in-memory in turns; the dyadic round-1 tree;
+    the ring's buffers; B4 serving; peak memory; a fresh sketch fit."""
+    import copy
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.data.sketch import schema_digest
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    t0 = time.perf_counter()
+    sds = lgb.Dataset.from_blocks(row_blocks(X, y, STREAM_BLOCK_ROWS),
+                                  params=STREAM_PARAMS, reference=ds)
+    t_blocks = time.perf_counter() - t0
+    store = sds.block_store
+    check(sds.X_binned is None and sds.is_streamed
+          and store.num_blocks == 8
+          and store.padded_rows == 8 * STREAM_BLOCK_ROWS
+          and schema_digest(sds.bin_mapper) == schema_digest(ds.bin_mapper),
+          f"22a streamed Dataset: {store.num_blocks} blocks, "
+          f"{store.padded_rows} padded rows")
+    store.time_waits = True
+
+    def streamed(extra):
+        def go():
+            b = lgb.Booster(dict(STREAM_PARAMS, **extra), sds)
+            return b, streamed_rounds(b, store, TRAIN_ROUNDS)
+        (b, per), secs, counts, plain = counted_run(go)
+        return {"booster": b, "per_round": per, "s": secs, "counts": counts,
+                "plain_calls": plain}
+
+    runs, turns = {}, {"streamed": [], "plain": [], "in_memory": []}
+    for tag in ("streamed", "plain", "in_memory", "in_memory", "streamed"):
+        if tag == "in_memory":
+            b, secs, counts, plain = train_run(lgb, ds, TRAIN_PARAMS,
+                                               TRAIN_ROUNDS)
+            r = {"booster": b, "s": secs, "counts": counts,
+                 "plain_calls": plain}
+        else:
+            r = streamed({} if tag == "streamed" else {"hist_impl": "plain"})
+        turns[tag].append(r["s"] / TRAIN_ROUNDS)
+        runs.setdefault(tag, r)
+    k, pl, mem = runs["streamed"], runs["plain"], runs["in_memory"]
+    passes = sum(r["passes"] for r in k["per_round"])
+    check(k["counts"]["hist_fused_bf16"] == passes * store.num_blocks
+          and k["counts"]["hist_partition_bf16"] == 0
+          and k["plain_calls"] == 0,
+          f"22a streamed launches {k['counts']} over {passes} passes, "
+          f"plain calls {k['plain_calls']}")
+    check(sum(v for n, v in pl["counts"].items() if n.startswith("hist_"))
+          == 0, f"22a hist_impl='plain' launched {pl['counts']}")
+    check(store.peak_device_buffers <= store.prefetch_blocks + 1,
+          f"22a {store.peak_device_buffers} block buffers on the device, "
+          f"prefetch {store.prefetch_blocks}")
+    aucs = {t: auc(r["booster"], Xv, yv, dev) for t, r in runs.items()}
+    check(abs(aucs["streamed"] - aucs["in_memory"]) <= AUC_TOL
+          and abs(aucs["streamed"] - aucs["plain"]) <= AUC_TOL,
+          f"22a AUC {json.dumps(aucs)}")
+    add_launches(launches, k["counts"])
+
+    # the dyadic round-1 tree: streamed == in memory, every field
+    # (phase 6's bins and 22a's blocks relabelled: shallow copies share
+    # the codes, ``set_label`` puts the new labels on the card)
+    yd = dyadic_label(X, SEED + 220)
+    dsd, sdd = copy.copy(ds).set_label(yd), copy.copy(sds).set_label(yd)
+    pd = dict(STREAM_PARAMS, objective="regression")
+    (bm, bs), _, counts, _ = counted_run(lambda: (lgb.train(pd, dsd, 1),
+                                                  lgb.train(pd, sdd, 1)))
+    add_launches(launches, counts)
+    check(trees_identical(bm, bs, 1), "22a dyadic: the streamed round-1 "
+          "tree differs from the in-memory one")
+    del dsd, sdd
+
+    # served through PredictorRuntime (B4)
+    rows = Xv[:RECOVERY_SERVE_ROWS]
+    rt = PredictorRuntime(pack_booster(k["booster"]), max_bucket=MAX_BUCKET,
+                          device=dev)
+    served, _, counts, _ = counted_run(lambda: rt.predict(rows))
+    check(counts["predict_forest"] > 0, f"22a serving launches {counts}")
+    add_launches(launches, counts)
+    sdiff = float(np.abs(served - k["booster"].predict(rows)).max())
+    check(sdiff <= 1e-5, f"22a served vs Booster.predict {sdiff:.2e}")
+
+    # a round's peak device memory, streamed against in memory
+    peaks = {}
+    for tag, d in (("streamed", sds), ("in_memory", ds)):
+        b = lgb.Booster(dict(STREAM_PARAMS), d)
+        b.update()
+        peaks[tag] = peak_round_bytes(b)
+    peaks["in_memory_X_binned_bytes"] = int(ds.X_binned.numel())
+    peaks["ring_bytes"] = int(store.device_buffers * STREAM_BLOCK_ROWS
+                              * NUM_FEATURES)
+
+    # a fresh sketch fit at 10^6 rows (no reference): host seconds
+    t0 = time.perf_counter()
+    fresh = lgb.Dataset.from_blocks(row_blocks(X, y, STREAM_BLOCK_ROWS),
+                                    params=STREAM_PARAMS)
+    t_sketch = time.perf_counter() - t0
+    same = schema_digest(fresh.bin_mapper) == schema_digest(ds.bin_mapper)
+    del fresh
+    per = k["per_round"]
+    out = {"rows": len(X), "blocks": store.num_blocks,
+           "block_rows": STREAM_BLOCK_ROWS, "padded_rows": store.padded_rows,
+           "prefetch_blocks": store.prefetch_blocks,
+           "peak_device_buffers": store.peak_device_buffers,
+           "from_blocks_reference_s": t_blocks,
+           "from_blocks_fresh_sketch_s": t_sketch,
+           "fresh_sketch_digest_equals_in_memory_fit": same,
+           "s_per_round_in_turns": turns, "auc": aucs,
+           "passes_per_round": [r["passes"] for r in per],
+           "bytes_streamed_per_round": [r["bytes"] for r in per],
+           "verify_ms_per_round": [r["verify_ms"] for r in per],
+           "copy_wait_ms_per_round": [r["copy_wait_ms"] for r in per],
+           "s_per_round": [r["s"] for r in per],
+           "launches": k["counts"], "dyadic_round1_equal": True,
+           "serve_max_abs_diff": sdiff, "peak_bytes": peaks}
+    log(f"phase 22a: {json.dumps(out)}")
+    return out, sds
+
+
+def trees_regime(a, b, what):
+    """Structure equal and leaves within rtol 1e-5 / atol 1e-6, else a near
+    tie recorded (the first differing split's gains within 1e-4
+    relative, C.1's treatment); returns the near ties."""
+    ties = []
+    for i in range(min(len(a.trees), len(b.trees))):
+        ta, tb = tree_arrays(a, i), tree_arrays(b, i)
+        d = first_split_difference(ta, tb)
+        if d is not None:
+            check(d["rel"] <= 1e-4, f"{what}: tree {i} differs: {d}")
+            ties.append({"tree": i, **d})
+            break                       # later trees grow on other scores
+        check(np.allclose(ta["leaf_value"], tb["leaf_value"], rtol=1e-5,
+                          atol=1e-6), f"{what}: tree {i} leaf values")
+    check(len(a.trees) == len(b.trees), f"{what}: tree counts")
+    return ties
+
+
+def phase_stream_strict(dev, X, y, ds, launches):
+    """22b: the strict grower streamed, 31 leaves on 200,000 rows in
+    65,536-row blocks: B1 pairs per block and B3 per split iteration."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.data.stream_grow as SG
+
+    Xs, ys = X[:STREAM_STRICT_ROWS], y[:STREAM_STRICT_ROWS]
+    sds = lgb.Dataset.from_blocks(row_blocks(Xs, ys, STREAM_STRICT_BLOCK),
+                                  params=STREAM_STRICT_PARAMS, reference=ds)
+    mds = lgb.Dataset(Xs, label=ys, reference=ds)
+    p, n = STREAM_STRICT_PARAMS, STREAM_STRICT_ROUNDS
+    (bs, tree_ms, trees), secs, counts, plain = counted_run(
+        lambda: event_timed(SG, "_grow_strict",
+                            lambda: lgb.train(p, sds, n)))
+    iters = n * (p["num_leaves"] - 1)
+    nb = sds.block_store.num_blocks
+    check(counts["split_iter"] == iters
+          and counts["hist_fused_f32"] == (n + iters) * nb and plain == 0
+          and trees == n, f"22b launches {counts}, plain calls {plain}")
+    add_launches(launches, counts)
+    bm, msecs, mcounts, _ = train_run(lgb, mds, p, n)
+    add_launches(launches, mcounts)
+    ties = trees_regime(bs, bm, "22b streamed vs in-memory strict")
+    out = {"rows": STREAM_STRICT_ROWS, "blocks": nb, "rounds": n,
+           "num_leaves": p["num_leaves"], "launches": counts,
+           "s": secs, "in_memory_s": msecs,
+           "ms_per_split_iteration": tree_ms / (p["num_leaves"] - 1),
+           "near_ties": ties}
+    log(f"phase 22b: {json.dumps(out)}")
+    return out, sds
+
+
+def goss_recompute(g_abs, bag, goss_k, top_rate, other_rate, seed):
+    """GOSS's host selection recomputed from its inputs: the k_top in-bag
+    rows of largest |g| (checked as a multiset of scores, since
+    ``argpartition`` breaks ties its own way), then ``default_rng(seed)``'s
+    uniform draw from the rest."""
+    k_top, k_other = goss_k
+    valid = bag > 0
+    score = np.where(valid, g_abs, -1.0)
+    kt = min(k_top, int(valid.sum()))
+    top = np.sort(np.argpartition(-score, kt - 1)[:kt])
+    top_scores = np.sort(score[top])
+    want_scores = np.sort(score)[::-1][:kt][::-1]
+    rest = np.flatnonzero(valid & ~np.isin(np.arange(len(score)), top))
+    other = np.sort(np.random.default_rng(seed).choice(
+        rest, size=min(k_other, len(rest)), replace=False))
+    return top, other, bool(np.array_equal(top_scores, want_scores))
+
+
+def phase_stream_goss(dev, sds, ds, Xv, yv, launches):
+    """22c: GOSS at the source on 22a's store, LightGBM's default rates."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.data.stream_grow as SG
+
+    store = sds.block_store
+    p = dict(STREAM_PARAMS, boosting="goss")
+    seen, orig = [], SG.goss_host_select
+
+    def spy(*a):
+        out = orig(*a)
+        seen.append((a, out))
+        return out
+
+    SG.goss_host_select = spy
+    try:
+        def go():
+            b = lgb.Booster(p, sds)
+            return b, streamed_rounds(b, store, STREAM_GOSS_ROUNDS)
+        (bs, per), secs, counts, plain = counted_run(go)
+    finally:
+        SG.goss_host_select = orig
+    check(counts["hist_partition_f32"] > 0 and counts["hist_fused_f32"] > 0
+          and plain == 0 and len(seen) == STREAM_GOSS_ROUNDS,
+          f"22c launches {counts}, plain calls {plain}")
+    add_launches(launches, counts)
+    for (g_abs, bag, goss_k, tr, orr, seed), (idx, wt) in seen:
+        top, other, top_ok = goss_recompute(g_abs, bag, goss_k, tr, orr,
+                                            seed)
+        check(top_ok and np.array_equal(idx[:len(top)], top)
+              and np.array_equal(idx[goss_k[0]:goss_k[0] + len(other)],
+                                 other),
+              "22c: the host selection differs from its recomputation")
+    full_pass = store.padded_rows * store.num_features
+    gathered = [r["bytes"] - r["passes"] * full_pass for r in per]
+    bm, msecs, mcounts, _ = train_run(
+        lgb, ds, dict(TRAIN_PARAMS, boosting="goss"), STREAM_GOSS_ROUNDS)
+    add_launches(launches, mcounts)
+    aucs = {"streamed_goss": auc(bs, Xv, yv, dev),
+            "in_memory_goss": auc(bm, Xv, yv, dev)}
+    check(abs(aucs["streamed_goss"] - aucs["in_memory_goss"]) <= 0.01,
+          f"22c AUC {json.dumps(aucs)}")
+    out = {"rounds": STREAM_GOSS_ROUNDS, "goss_k": list(bs._goss_k()),
+           "gathered_over_full_pass": [gb / full_pass for gb in gathered],
+           "s_per_round": [r["s"] for r in per],
+           "in_memory_goss_s_per_round": msecs / STREAM_GOSS_ROUNDS,
+           "auc": aucs, "launches": counts,
+           "selection_equals_recomputation": True}
+    log(f"phase 22c: {json.dumps(out)}")
+    return out
+
+
+def phase_stream_recovery(dev, sds, ds, X, y, launches):
+    """22d: kill and resume, a screened resume, init_model continuation,
+    and another schema refused, on 22b's streamed Dataset."""
+    import shutil
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.training import (IncompatibleCheckpointError,
+                                             latest_checkpoint,
+                                             resume_booster, train_resumable)
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "stream_recovery")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n = STREAM_RECOVERY_ROUNDS
+
+    def kill(booster, i):
+        if i == STREAM_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def resumable(params, tag):
+        kw = dict(checkpoint_rounds=STREAM_KILL_AFTER + 1, keep_last=2)
+        full = train_resumable(params, sds, n, resume=False,
+                               checkpoint_dir=os.path.join(root, tag + "f"),
+                               **kw)
+        d = os.path.join(root, tag + "k")
+        killed = train_resumable(params, sds, n, resume=False,
+                                 checkpoint_dir=d, round_callbacks=[kill],
+                                 **kw)
+        again = train_resumable(params, sds, n, resume=True,
+                                checkpoint_dir=d, **kw)
+        check(killed.preempted and killed.rounds_done == STREAM_KILL_AFTER + 1
+              and again.completed and again.resumed_from is not None,
+              f"22d {tag}: killed {killed}, resumed {again}")
+        check(same_run(full.booster, again.booster), f"22d {tag}: the "
+              "resumed run differs from the uninterrupted one")
+        return full.booster, again.booster
+
+    p = dict(STREAM_RECOVERY_PARAMS)
+    ps = dict(p, feature_screen="ema", screen_keep_ratio=0.25,
+              screen_refresh_rounds=2)
+    path = os.path.join(root, "first5.txt")
+
+    def runs():
+        resumable(p, "plain")
+        full_s, again_s = resumable(ps, "screened")
+        ema = [b._screener.state() for b in (full_s, again_s)]
+        check(np.array_equal(ema[0][0], ema[1][0]) and ema[0][1] == ema[1][1],
+              "22d screened: the screener's state differs after the resume")
+        full10 = lgb.train(p, sds, 2 * STREAM_CONT_ROUNDS)
+        first = lgb.train(p, sds, STREAM_CONT_ROUNDS)
+        first.save_model(path)
+        conts = [lgb.train(p, sds, STREAM_CONT_ROUNDS, init_model=first),
+                 lgb.train(p, sds, STREAM_CONT_ROUNDS, init_model=path)]
+        for c in conts:
+            check(same_run(full10, c), "22d: init_model 5 + 5 differs from "
+                  "10 uninterrupted rounds")
+        return first
+
+    first, secs, counts, plain = counted_run(runs)
+    check(counts["hist_fused_bf16"] + counts["hist_fused_f32"] > 0
+          and plain == 0, f"22d launches {counts}, plain {plain}")
+    add_launches(launches, counts)
+    # another schema: a fresh sketch over other rows is refused by digest
+    other = lgb.Dataset.from_blocks(
+        row_blocks(X[-STREAM_STRICT_ROWS:] * 1.5, y[-STREAM_STRICT_ROWS:],
+                   STREAM_STRICT_BLOCK), params=STREAM_RECOVERY_PARAMS)
+    ckpt = latest_checkpoint(os.path.join(root, "screenedk"))
+    refused = []
+    try:
+        resume_booster(ckpt, other)
+    except IncompatibleCheckpointError as e:
+        refused.append(e.field)
+    try:
+        lgb.Booster(model_file=path).update(other)
+    except ValueError as e:
+        refused.append("binning" if "binning" in str(e) else str(e))
+    check(refused == ["schema_digest", "binning"],
+          f"22d: another schema was not refused: {refused}")
+    out = {"rounds": n, "killed_after_round_index": STREAM_KILL_AFTER,
+           "bit_identical": ["kill/resume", "screened kill/resume",
+                             "init_model=Booster 5+5", "init_model=file 5+5"],
+           "other_schema_refused": refused, "s": secs, "launches": counts}
+    log(f"phase 22d: {json.dumps(out)}")
+    return out
+
+
+def wide_problem(n, seed):
+    """The reference bench's screening task: 136 columns, 16 informative,
+    rows within margin 1 of the boundary dropped."""
+    rng = np.random.default_rng(seed)
+    Xw = rng.normal(0, 1, (3 * n, SCREEN_F)).astype(np.float32)
+    w = rng.normal(0, 1, SCREEN_INFORMATIVE)
+    margin = (Xw[:, :SCREEN_INFORMATIVE] @ w) * 1.5
+    keep = np.abs(margin) >= 1.0
+    Xw, margin = Xw[keep][:n], margin[keep][:n]
+    return Xw, (margin > 0).astype(np.float32)
+
+
+def phase_stream_screening(dev, launches):
+    """22e: EMA screening at F = 136, in memory and streamed."""
+    import lightgbm_tpu_torch as lgb
+
+    Xw, yw = wide_problem(SCREEN_ROWS + SCREEN_ROWS // 2, SEED + 221)
+    Xt, yt = Xw[:SCREEN_ROWS], yw[:SCREEN_ROWS]
+    Xv, yv = Xw[SCREEN_ROWS:], yw[SCREEN_ROWS:]
+    mds = lgb.Dataset(Xt, label=yt, params=dict(SCREEN_BASE))
+    mds.construct()
+    sp = dict(SCREEN_BASE, stream_block_rows=SCREEN_BLOCK)
+    sds = lgb.Dataset.from_blocks(row_blocks(Xt, yt, SCREEN_BLOCK),
+                                  params=sp, reference=mds)
+    store = sds.block_store
+    configs = {"off": {}, "ema": SCREEN,
+               "refresh_1": dict(SCREEN, screen_refresh_rounds=1)}
+    res, per_round = {}, {}
+
+    def runs():
+        for where, d in (("in_memory", mds), ("streamed", sds)):
+            for tag, extra in configs.items():
+                b = lgb.Booster(dict(sp, **extra), d)
+                if where == "streamed":
+                    per_round[tag] = streamed_rounds(b, store, SCREEN_ROUNDS)
+                else:
+                    for _ in range(SCREEN_ROUNDS):
+                        b.update()
+                res[where, tag] = b
+        return res
+
+    _, secs, counts, plain = counted_run(runs)
+    check(counts["hist_fused_f32"] > 0 and plain == 0,
+          f"22e launches {counts}, plain {plain}")
+    add_launches(launches, counts)
+    aucs, f_active = {}, int(np.ceil(0.25 * SCREEN_F))
+    for where in ("in_memory", "streamed"):
+        a = {t: auc(res[where, t], Xv, yv, dev) for t in configs}
+        aucs[where] = a
+        check(abs(a["ema"] - a["off"]) <= SCREEN_DRIFT,
+              f"22e {where}: AUC drift {a['ema'] - a['off']:.2e}")
+        check(same_run(res[where, "off"], res[where, "refresh_1"]),
+              f"22e {where}: screen_refresh_rounds=1 differs from off")
+    # the bytes: every pass of a refresh round moves F columns, of a
+    # screened round F_active
+    rows = store.padded_rows
+    screened_rounds = 0
+    for r in per_round["ema"]:
+        width = r["bytes"] // max(r["passes"] * rows, 1)
+        check(r["bytes"] == r["passes"] * rows * width
+              and width in (SCREEN_F, f_active),
+              f"22e: a screened round moved {r['bytes']} bytes in "
+              f"{r['passes']} passes")
+        screened_rounds += width == f_active
+    off_b = sum(r["bytes"] for r in per_round["off"])
+    ema_b = sum(r["bytes"] for r in per_round["ema"])
+    off_pass = off_b / sum(r["passes"] for r in per_round["off"])
+    nominal = ((SCREEN_ROUNDS - screened_rounds) * SCREEN_F
+               + screened_rounds * f_active) / (SCREEN_ROUNDS * SCREEN_F)
+    check(screened_rounds >= SCREEN_ROUNDS - 3 and ema_b < off_b,
+          f"22e: {screened_rounds} screened rounds moved {ema_b} bytes "
+          f"against screen-off's {off_b}")
+    out = {"rows": SCREEN_ROWS, "features": SCREEN_F, "f_active": f_active,
+           "rounds": SCREEN_ROUNDS, "auc": aucs,
+           "screened_rounds": screened_rounds,
+           "bytes_streamed": {"off": off_b, "ema": ema_b},
+           "bytes_ratio": ema_b / off_b, "nominal_ratio": nominal,
+           "off_bytes_per_pass": off_pass,
+           "s_per_round_streamed": {t: float(np.median([r["s"] for r in v]))
+                                    for t, v in per_round.items()},
+           "s": secs, "launches": counts}
+    log(f"phase 22e: {json.dumps(out)}")
+    return out
+
+
+def phase_streaming(dev, X, y, ds, card):
+    """Phase 22, every launch counter at 0 just before each run and read
+    just after; fails unless B1 (bf16 and f32), B2, B3 and B4 launched."""
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    t1 = time.perf_counter()
+    out["22a"], sds = phase_stream_north_star(dev, X, y, ds, Xv, yv,
+                                              launches)
+    secs["22a"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["22b"], sds_strict = phase_stream_strict(dev, X, y, ds, launches)
+    secs["22b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["22c"] = phase_stream_goss(dev, sds, ds, Xv, yv, launches)
+    secs["22c"] = time.perf_counter() - t1
+    del sds
+    t1 = time.perf_counter()
+    out["22d"] = phase_stream_recovery(dev, sds_strict, ds, X, y, launches)
+    secs["22d"] = time.perf_counter() - t1
+    del sds_strict
+    t1 = time.perf_counter()
+    out["22e"] = phase_stream_screening(dev, launches)
+    secs["22e"] = time.perf_counter() - t1
+    for name in ("hist_fused_bf16", "hist_fused_f32", "hist_partition_f32",
+                 "split_iter", "predict_forest"):
+        check(launches.get(name, 0) > 0, f"phase 22: {name} never launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 22: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6425,7 +6970,10 @@ def main() -> int:
     l20 = phase20["launches"]
     phase21 = phase_continuation(dev, ds_north, dds, ds_cov, card)
     l21 = phase21["launches"]
-    del ds_north, ds_cov
+    del ds_cov
+    phase22 = phase_streaming(dev, X, y, ds_north, card)
+    l22 = phase22["launches"]
+    del ds_north
 
     kernels = []
     for prec in PRECISIONS:
@@ -6444,7 +6992,8 @@ def main() -> int:
                              "18": l18.get("predict_forest", 0),
                              "19": l19.get("predict_forest", 0),
                              "20": l20.get("predict_forest", 0),
-                             "21": l21.get("predict_forest", 0)})
+                             "21": l21.get("predict_forest", 0),
+                             "22": l22.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -6474,7 +7023,8 @@ def main() -> int:
                     "18": l18.get(f"{name}_{mode}", 0),
                     "19": l19.get(f"{name}_{mode}", 0),
                     "20": l20.get(f"{name}_{mode}", 0),
-                    "21": l21.get(f"{name}_{mode}", 0)},
+                    "21": l21.get(f"{name}_{mode}", 0),
+                    "22": l22.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6497,7 +7047,8 @@ def main() -> int:
             "14": l14["split_iter"], "15": l15["split_iter"],
             "16": l16["split_iter"], "17": l17.get("split_iter", 0),
             "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
-            "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0)},
+            "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0),
+            "22": l22.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -6523,7 +7074,8 @@ def main() -> int:
                 "18": l18.get(f"hist_segstats_{mode}", 0),
                 "19": l19.get(f"hist_segstats_{mode}", 0),
                 "20": l20.get(f"hist_segstats_{mode}", 0),
-                "21": l21.get(f"hist_segstats_{mode}", 0)},
+                "21": l21.get(f"hist_segstats_{mode}", 0),
+                "22": l22.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6550,7 +7102,8 @@ def main() -> int:
                 "18": l18.get(f"hist_fused_batched_{mode}", 0),
                 "19": l19.get(f"hist_fused_batched_{mode}", 0),
                 "20": l20.get(f"hist_fused_batched_{mode}", 0),
-                "21": l21.get(f"hist_fused_batched_{mode}", 0)},
+                "21": l21.get(f"hist_fused_batched_{mode}", 0),
+                "22": l22.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -6566,7 +7119,8 @@ def main() -> int:
             "18": l18.get("hist_fused_int8", 0),
             "19": l19.get("hist_fused_int8", 0),
             "20": l20.get("hist_fused_int8", 0),
-            "21": l21.get("hist_fused_int8", 0)},
+            "21": l21.get("hist_fused_int8", 0),
+            "22": l22.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -6592,7 +7146,7 @@ def main() -> int:
               "int8": int8, "recovery": recovery, "phase14": phase14,
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "phase18": phase18, "phase19": phase19, "phase20": phase20,
-              "phase21": phase21,
+              "phase21": phase21, "phase22": phase22,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

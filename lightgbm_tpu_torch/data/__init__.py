@@ -1,10 +1,23 @@
-"""Data-side helpers of the port beside ``Dataset``: for now only the binning
-schema's fingerprint (:func:`.sketch.schema_digest`), which checkpoints carry.
-
-The reference's out-of-core stack (the GK sketch, ``StreamingBinMapperBuilder``,
-``BlockStore``, ``Dataset.from_blocks``) is ROADMAP slice 5, item 11.
+"""Out-of-core data of the port: streaming BinMapper construction (a
+mergeable quantile sketch, :mod:`.sketch`), host-resident binned blocks
+with their prefetch to the card (:mod:`.block_store`), and the streamed
+per-block growers and rounds (:mod:`.stream_grow`).  The streamed
+data-parallel composition (``data/stream_dp.py``) is ROADMAP slice 6,
+item 12.
 """
 
-from .sketch import schema_digest
+from .block_store import BlockStore, ColumnViewStore, OOCBlockError
+from .sketch import GKSummary, StreamingBinMapperBuilder, schema_digest
+from .stream_grow import stream_goss_round, stream_grow_tree, stream_plain_round
 
-__all__ = ["schema_digest"]
+__all__ = [
+    "BlockStore",
+    "ColumnViewStore",
+    "OOCBlockError",
+    "GKSummary",
+    "schema_digest",
+    "StreamingBinMapperBuilder",
+    "stream_goss_round",
+    "stream_grow_tree",
+    "stream_plain_round",
+]

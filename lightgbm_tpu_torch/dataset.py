@@ -19,8 +19,15 @@ groups (``group=``, the ranking objectives' query sizes, in row order) stay
 on the host, with per-row query ids (``group_id``, -1 on padding) on the
 device.  :meth:`Dataset.save_binary` writes the binned dataset to one
 ``.npz`` in the reference's layout and ``Dataset(path)`` reads it back
-(either package's file) without binning again.  Streamed datasets
-(``from_blocks``) raise ``NotImplementedError``.
+(either package's file) without binning again.
+
+:meth:`Dataset.from_blocks` builds a STREAMED dataset from row blocks
+(out-of-core training): the bin mapper comes from one pass of the mergeable
+quantile sketch (``data/sketch.py``) or from ``reference=``, the codes stay
+on the host in a :class:`~.data.block_store.BlockStore` (``X_binned`` is
+None), and only the O(n) vectors (labels, weights, the row mask) live on
+the device, sized by the store's ``padded_rows``.  ``save_binary``,
+``subset`` and valid sets refuse a streamed dataset, as the reference's do.
 """
 
 from __future__ import annotations
@@ -474,11 +481,194 @@ class Dataset:
         self.group_id: Optional[torch.Tensor] = None
         self._rank_eval_ctx = None    # ranking.RankEvalContext, built lazily
 
+    # a streamed dataset (from_blocks) sets these; an in-memory one keeps
+    # the codes in X_binned
+    is_streamed = False
+    block_store = None
+
     @classmethod
-    def from_blocks(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "streamed (out-of-core) datasets are not ported yet: ROADMAP "
-            "slice 5 (out-of-core training), item 11")
+    def from_blocks(cls, blocks, label=None, *, weight=None,
+                    params: Optional[Dict[str, Any]] = None,
+                    feature_name: Union[str, Sequence[str]] = "auto",
+                    reference: Optional["Dataset"] = None,
+                    device: Union[str, torch.device, None] = None
+                    ) -> "Dataset":
+        """Build a STREAMED dataset from row blocks without materializing
+        the raw matrix, the reference's ``from_blocks``: the device holds
+        one ``[block_rows, F]`` transfer buffer per prefetched block, not
+        the ``[n, F]`` matrix.
+
+        ``blocks`` is a sequence of blocks or a zero-argument callable
+        returning a fresh iterator (two passes are needed: the sketch fit,
+        then binning); a one-shot generator is refused.  Each block is a
+        2-D ``[rows, F]`` array or an ``(X, y)`` / ``(X, y, w)`` tuple; all
+        blocks must agree on the feature count and dtype (ValueError
+        otherwise).  ``max_bin``, ``min_data_in_bin``,
+        ``stream_block_rows`` (a multiple of 256, default 131,072),
+        ``stream_sketch_capacity`` and ``stream_sketch_eps`` come from
+        ``params``.  The bin mapper is the one-pass sketch's
+        (:class:`~.data.sketch.StreamingBinMapperBuilder`), bit-identical to
+        the in-memory fit while the rows stay within the sketch capacity and
+        the in-memory fit's 200,000-row sample.
+
+        Streaming scope: numeric features, no EFB.  ``reference`` pins the
+        binning schema: its fitted mapper is reused verbatim (no sketch
+        pass), so growing data keeps the schema digest that continuation
+        checks; it must be constructed and unbundled.  The O(n) vectors go
+        to ``device`` (None: ``reference``'s device if given, else
+        ``cuda``).
+        """
+        from .data import BlockStore, StreamingBinMapperBuilder
+
+        if callable(blocks):
+            make_iter = blocks
+        elif hasattr(blocks, "__len__"):
+            def make_iter():
+                return iter(blocks)
+        else:
+            raise ValueError(
+                "from_blocks needs two passes over the blocks (sketch fit, "
+                "then binning) — pass a list/tuple or a zero-arg callable "
+                "returning a fresh iterator, not a one-shot generator")
+
+        def split_block(b, idx):
+            ys = ws = None
+            if isinstance(b, tuple):
+                if len(b) == 2:
+                    x, ys = b
+                elif len(b) == 3:
+                    x, ys, ws = b
+                else:
+                    raise ValueError(
+                        f"block {idx}: tuples must be (X, y) or (X, y, w), "
+                        f"got length {len(b)}")
+            else:
+                x = b
+            x = np.asarray(x)
+            if x.ndim == 1:
+                x = x[:, None]
+            if x.ndim != 2:
+                raise ValueError(
+                    f"block {idx}: blocks must be 2-D [rows, F], got shape "
+                    f"{x.shape}")
+            return x, ys, ws
+
+        ref_dev = getattr(reference, "device", None)
+        dev = (ref_dev if device is None and ref_dev is not None
+               else resolve_device(device))
+        p = parse_params(dict(params or {}), warn_unknown=False)
+        block_rows = int(p.extra.get("stream_block_rows", 131072))
+        if block_rows <= 0 or block_rows % ROW_PAD_MULTIPLE:
+            raise ValueError(
+                f"stream_block_rows={block_rows} must be a positive "
+                f"multiple of {ROW_PAD_MULTIPLE}")
+
+        ref_mapper = None
+        if reference is not None:
+            ref_mapper = getattr(reference, "bin_mapper", reference)
+            if ref_mapper is None:
+                raise ValueError(
+                    "reference= Dataset has no fitted BinMapper — call "
+                    "construct() on it (or train with it) first")
+            if getattr(ref_mapper, "bundler", None) is not None:
+                raise ValueError(
+                    "reference= Dataset was built with EFB bundling, "
+                    "which streamed datasets do not support — rebuild "
+                    "the reference with enable_bundle=false")
+
+        # pass 1: the streaming quantile sketch -> BinMapper (skipped when
+        # a reference pins the schema; the loop still validates the blocks
+        # and collects labels and weights)
+        builder = None
+        first_dtype = None
+        y_parts: List[np.ndarray] = []
+        w_parts: List[np.ndarray] = []
+        blocks_have_y = blocks_have_w = False
+        saw_block = False
+        for idx, b in enumerate(make_iter()):
+            x, ys, ws = split_block(b, idx)
+            if not saw_block:
+                saw_block = True
+                first_dtype = x.dtype
+                if ref_mapper is None:
+                    builder = StreamingBinMapperBuilder(
+                        x.shape[1],
+                        capacity=int(p.extra.get("stream_sketch_capacity",
+                                                 200_000)),
+                        eps=float(p.extra.get("stream_sketch_eps", 1e-3)))
+                blocks_have_y = ys is not None
+                blocks_have_w = ws is not None
+            if x.dtype != first_dtype:
+                raise ValueError(
+                    f"block {idx}: dtype {x.dtype} != block 0's "
+                    f"{first_dtype} — blocks must agree on dtype")
+            if (ys is not None) != blocks_have_y or \
+                    (ws is not None) != blocks_have_w:
+                raise ValueError(
+                    f"block {idx}: inconsistent (X, y[, w]) tuple shape "
+                    "across blocks")
+            if builder is not None:
+                builder.update(x)   # raises on ragged feature counts
+            elif x.shape[1] != ref_mapper.num_features:
+                raise ValueError(
+                    f"block {idx}: {x.shape[1]} features != reference "
+                    f"Dataset's {ref_mapper.num_features}")
+            if ys is not None:
+                y_parts.append(np.asarray(ys, np.float64).reshape(-1))
+            if ws is not None:
+                w_parts.append(np.asarray(ws, np.float64).reshape(-1))
+        if not saw_block:
+            raise ValueError("from_blocks: empty block iterator")
+        if blocks_have_y and label is not None:
+            raise ValueError(
+                "labels supplied both per-block and via label= — pick one")
+        mapper = (ref_mapper if ref_mapper is not None
+                  else builder.finalize(max_bin=p.max_bin,
+                                        min_data_in_bin=p.min_data_in_bin))
+
+        # pass 2: bin each block and pack the codes on the host
+        writer = BlockStore.writer(block_rows)
+        for idx, b in enumerate(make_iter()):
+            x, _, _ = split_block(b, idx)
+            writer.append(mapper._transform_unbundled(
+                np.ascontiguousarray(x, dtype=np.float64)))
+        store = writer.finish()
+        store.device = dev
+        n, num_features = store.num_rows, store.num_features
+
+        ds = cls.__new__(cls)
+        ds.device = dev
+        ds.raw_data = None
+        ds._label = (np.concatenate(y_parts) if blocks_have_y
+                     else None if label is None else _to_1d_float_array(label))
+        ds._weight = (np.concatenate(w_parts) if blocks_have_w
+                      else None if weight is None
+                      else _to_1d_float_array(weight))
+        ds._group = None
+        ds._init_score = None
+        ds.reference = None
+        ds.params = dict(params or {})
+        ds.free_raw_data = False
+        ds._feature_name_arg = feature_name
+        ds._categorical_feature_arg = None
+        ds.bin_mapper = mapper
+        ds.num_data_ = n
+        ds.num_feature_ = num_features
+        ds.raw_num_feature_ = num_features
+        ds.feature_names = ds._resolve_feature_names(num_features)
+        ds.X_binned = None
+        ds.is_streamed = True
+        ds.block_store = store
+        ds.y = ds.w = ds.group_id = None
+        ds._rank_eval_ctx = None
+        # the O(n) vectors stay on the device, sized to the store's padded
+        # extent so per-block slices never go ragged
+        mask = np.zeros(store.padded_rows, np.float32)
+        mask[:n] = 1.0
+        ds.row_mask = torch.from_numpy(mask).to(dev)
+        ds._put_targets()
+        ds._constructed = True
+        return ds
 
     # -- lightgbm-compatible introspection ---------------------------------
     def num_data(self) -> int:
@@ -672,6 +862,11 @@ class Dataset:
         from .utils.serialize import mapper_to_dict
 
         self.construct()
+        if self.is_streamed:
+            raise ValueError(
+                "save_binary is not supported for streamed datasets — the "
+                "binned codes live host-side in the BlockStore, not as one "
+                "materialized matrix")
         if not filename.endswith(".npz"):
             filename += ".npz"  # numpy appends it anyway; keep load in sync
         n = self.num_data_
@@ -722,6 +917,9 @@ class Dataset:
     def subset(self, used_indices, params=None) -> "Dataset":
         """Row subset sharing this dataset's bin mapper (the cv folds)."""
         self.construct()
+        if self.is_streamed:
+            raise ValueError(
+                "subset is not supported for streamed datasets")
         used = np.asarray(used_indices, dtype=np.int64)
         codes = self.X_binned[: self.num_data_].cpu().numpy()[used]
         sub = Dataset.__new__(Dataset)

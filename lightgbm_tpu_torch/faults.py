@@ -22,10 +22,20 @@ Training (``training/``) consults:
   poisons the round's input predictions with NaN so the finiteness screen
   (:class:`NonFiniteGradientError`) stops the run before a tree grows.
 
+Out-of-core training (``data/block_store.py``) consults, on every block
+read of a streamed pass:
+
+* ``block_read`` — raises before the block's integrity screen, modeling a
+  transient host read error;
+* ``device_put`` — raises before the block's host-to-device copy, modeling
+  a transient transfer error.
+
+Both are absorbed by the store's bounded retry; one that persists past it
+surfaces as ``OOCBlockError(kind="read")`` naming the block.
+
 The sweep service consults ``sweep_segment`` (between fused segments and
 host-engine configs), ``sweep_record`` (before a ledger commit) and, through
-its carry checkpoints, ``checkpoint_write``.  ``block_read`` and
-``device_put`` (out-of-core blocks, ROADMAP item 11), the pipeline sites and
+its carry checkpoints, ``checkpoint_write``.  The pipeline sites and
 ``sweep_promote`` (the refresh daemon, ROADMAP item 13) are registered but
 consulted by no ported module.  A ``FaultInjector`` with no armed specs is a
 cheap no-op, so the hooks stay wired in production configurations.
@@ -45,6 +55,39 @@ SITES = SERVING_SITES + TRAINING_SITES + PIPELINE_SITES + SWEEP_SITES
 
 class FaultError(RuntimeError):
     """A deterministically injected fault."""
+
+
+class StreamScopeError(ValueError):
+    """A parameter the streamed (out-of-core) trainer does not cover.
+
+    The per-block grower steps restate the strict and wave bodies without
+    the categorical / monotone / extra-trees / interaction / bynode
+    machinery: training anyway would be subtly DIFFERENT, not slower, so the
+    fence is a hard typed error.  ``key`` names the exact offending
+    parameter so callers (and tests) can assert on the field rather than
+    parse prose.
+    """
+
+    def __init__(self, message: str, key: str = ""):
+        super().__init__(message)
+        self.key = key
+
+
+class ScreenScopeError(ValueError):
+    """A parameter gain-informed feature screening does not cover.
+
+    Screened rounds grow trees in COMPACTED feature space and remap the
+    winners; configs whose static per-column state (categorical sets,
+    monotone signs, per-column bin counts, interaction groups, linear leaf
+    designs, the feature-sharded learner) is indexed by GLOBAL column would
+    train subtly differently, not merely slower, so the fence is a hard
+    typed error.  ``key`` names the exact offending parameter, mirroring
+    :class:`StreamScopeError`.
+    """
+
+    def __init__(self, message: str, key: str = ""):
+        super().__init__(message)
+        self.key = key
 
 
 class NonFiniteGradientError(RuntimeError):

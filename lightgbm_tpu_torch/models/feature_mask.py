@@ -5,9 +5,17 @@
 (``feature_fraction`` drawn within an optional base mask);
 :func:`node_mask_table` draws every per-node mask of a tree at once
 (``feature_fraction_bynode``, drawn within the tree mask), and
-:func:`node_mask_fn` is the per-node sampler the growers consume.  The EMA
-feature screener is refused by the Booster with a named
-``NotImplementedError``.
+:func:`node_mask_fn` is the per-node sampler the growers consume.
+
+:class:`FeatureScreener` is gain-informed feature screening (EMA-FS,
+``feature_screen="ema"``): per-feature gain EWMAs across rounds select a
+compacted active set per round, with periodic full refresh rounds for
+exactness and cold-feature rediscovery.  Trees of a screened round grow in
+compacted ``[0, F_active)`` space and :func:`remap_split_features` gathers
+their winner ids back to global feature ids before the tree is stored, so
+predict, valid sets and checkpoints never see compacted ids.  The screener
+is host numpy on purpose, as the reference's: it reads one tree's realized
+split gains a round, and its output is a sorted id vector.
 
 The reference draws a node's mask inside its grower loop from
 ``fold_in(key, node_id)``.  The port's growers keep node ids on the device
@@ -19,6 +27,10 @@ node ``i`` bit for bit.
 
 from __future__ import annotations
 
+import math
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
 from ..ops.sampling import sample_feature_mask
@@ -81,3 +93,91 @@ def node_mask_fn(key, ff_bynode, num_features: int, tree_mask,
     table = node_mask_table(key_tensor([key], dev), frac,
                             mask.reshape(1, num_features), capacity)[0]
     return lambda node_id: table[node_id]
+
+
+def active_feature_count(num_features: int, keep_ratio: float) -> int:
+    """Size of the screened active set: ``ceil(keep_ratio * F)``, at least
+    1."""
+    return max(1, int(math.ceil(float(keep_ratio) * int(num_features))))
+
+
+def remap_split_features(tree, active_ids):
+    """Gather a compacted-space tree's winner ids back to GLOBAL feature
+    ids; ``-1`` slots (unused node-table rows, leaves) pass through."""
+    sf = tree.split_feature
+    ids = torch.as_tensor(np.asarray(active_ids), dtype=torch.int32,
+                          device=sf.device)
+    safe = torch.clamp(sf, 0, ids.shape[0] - 1).to(torch.int64)
+    return tree._replace(split_feature=torch.where(sf >= 0, ids[safe], sf))
+
+
+class FeatureScreener:
+    """EMA-FS: per-feature gain EWMAs -> per-round active set (the
+    reference's ``FeatureScreener``, host numpy).
+
+    Lifecycle per round: :meth:`plan` returns ``(active_ids, is_refresh)``
+    — ``active_ids`` is ``None`` on refresh rounds (grow over the FULL
+    feature set: round 0, every ``refresh_rounds`` rounds after, and any
+    round before the EWMA has seen a positive gain), otherwise a sorted
+    i32 id vector of the ``keep`` hottest features.  After the round,
+    :meth:`observe` folds the tree's realized split gains (GLOBAL ids)
+    into the EWMA.  Refresh rounds observe too, which is how a feature
+    whose gain appears late re-enters the active set.
+
+    State is two host values (the EWMA vector and the rounds-since-refresh
+    counter); both ride the checkpoint, so kill-anywhere resume replans
+    identical rounds.
+    """
+
+    def __init__(self, num_features: int, keep_ratio: float,
+                 ema_decay: float, refresh_rounds: int):
+        self.num_features = int(num_features)
+        self.keep = active_feature_count(num_features, keep_ratio)
+        self.ema_decay = float(ema_decay)
+        self.refresh_rounds = int(refresh_rounds)
+        self.ema = np.zeros(self.num_features, np.float32)
+        self.rounds_since_refresh = 0
+
+    @property
+    def screening(self) -> bool:
+        """Whether compaction can ever trigger (keep < F)."""
+        return self.keep < self.num_features
+
+    def plan(self) -> Tuple[Optional[np.ndarray], bool]:
+        """Active set for the NEXT round: ``(sorted_ids | None,
+        is_refresh)``."""
+        if (not self.screening or self.rounds_since_refresh == 0
+                or not np.any(self.ema > 0.0)):
+            return None, True
+        # stable arg-partition by descending EWMA: ties keep the lower
+        # feature id, then sort ascending so the compacted layout keeps
+        # column order
+        hot = np.argsort(-self.ema, kind="stable")[:self.keep]
+        return np.sort(hot).astype(np.int32), False
+
+    def observe(self, split_feature: np.ndarray,
+                split_gain: np.ndarray) -> None:
+        """Fold one tree's realized split gains (global feature ids) into
+        the EWMA and advance the refresh counter."""
+        sf = np.asarray(split_feature).ravel()
+        sg = np.asarray(split_gain, np.float64).ravel()
+        gains = np.zeros(self.num_features, np.float64)
+        m = (sf >= 0) & (sf < self.num_features)
+        np.add.at(gains, sf[m].astype(np.int64), np.maximum(sg[m], 0.0))
+        d = self.ema_decay
+        self.ema = (d * self.ema + (1.0 - d) * gains).astype(np.float32)
+        self.rounds_since_refresh += 1
+        if self.rounds_since_refresh >= self.refresh_rounds:
+            self.rounds_since_refresh = 0   # next plan() is a refresh
+
+    def state(self) -> Tuple[np.ndarray, int]:
+        return self.ema.copy(), int(self.rounds_since_refresh)
+
+    def restore(self, ema: np.ndarray, rounds_since_refresh: int) -> None:
+        ema = np.asarray(ema, np.float32)
+        if ema.shape != (self.num_features,):
+            raise ValueError(
+                f"screener EWMA shape {ema.shape} does not match "
+                f"num_features={self.num_features}")
+        self.ema = ema.copy()
+        self.rounds_since_refresh = int(rounds_since_refresh)

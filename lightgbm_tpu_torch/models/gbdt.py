@@ -73,9 +73,19 @@ trees, serving).  :meth:`Booster.rollback_one_iter` takes the last round
 back out of every score, and :meth:`Booster.refit` renews the leaves on
 new data into a predict-only Booster.
 
+Out-of-core training follows the reference: a streamed Dataset
+(``Dataset.from_blocks``) keeps its codes in a host ``BlockStore``, and each
+round grows its tree by passes over the blocks (``data/stream_grow.py``:
+kernel B1 per block, B3 per strict split iteration), GOSS sampling its rows
+on the host before they cross to the device; the streamed path covers the
+plain numeric gbdt/rf/goss growers and refuses the rest by key
+(:class:`~..faults.StreamScopeError`).  ``feature_screen="ema"`` (EMA-FS,
+:class:`~.feature_mask.FeatureScreener`) grows each screened round's tree
+on the active columns, in memory and streamed, and remaps its split
+features; what it does not cover raises :class:`~..faults.ScreenScopeError`.
+
 What is outside the port so far raises a ``NotImplementedError`` naming the
-ROADMAP slice and item that will port it: feature screening, streaming and
-the distributed learners.
+ROADMAP slice and item that will port it: the distributed learners.
 
 :meth:`Booster.checkpoint_state` / :meth:`Booster.restore_checkpoint_state`
 carry the complete round state (forest, train scores, bag, base key,
@@ -108,13 +118,13 @@ from ..ops.predict import (forest_depth_cap, predict_forest_binned,
 from ..ops.sampling import goss_select, goss_weights, sample_bag
 from ..ops.split import CatInfo, SplitContext, fma
 from ..utils.random import fold_in, prng_key, split_on
-from .feature_mask import compose_tree_mask
+from .feature_mask import (FeatureScreener, compose_tree_mask,
+                           remap_split_features)
 from .tree import (_PK, Tree, _tree_from_packed, fit_linear_leaves,
                    grow_tree, grow_trees_batched, pad_tree,
                    renew_leaf_values, stack_trees)
 
 _F32 = torch.float32
-_SLICE5 = "ROADMAP slice 5 (out-of-core training), item 11"
 _SLICE6 = "ROADMAP slice 6 (multi-device), item 12"
 
 
@@ -470,15 +480,17 @@ def dart_drops(p: Params, i: int, n_trees: int) -> List[int]:
     return dropped
 
 
-def check_slice_scope(p: Params) -> None:
-    """Refuse, by name, every training option this slice does not port."""
-    def later(what: str, where: str):
-        raise NotImplementedError(f"{what} is not ported yet: {where}")
-
-    if p.feature_screen != "off":
-        later(f"feature_screen='{p.feature_screen}'", _SLICE5)
-    if p.tree_learner != "serial":
-        later(f"tree_learner='{p.tree_learner}' (dp/fp meshes)", _SLICE6)
+def check_slice_scope(p: Params, streamed: bool = False) -> None:
+    """Refuse, by name, every training option this slice does not port.
+    On a streamed Dataset ``tree_learner="feature"``/``"voting"`` is not
+    refused: the Booster warns and streams serially, as the reference
+    does."""
+    if p.tree_learner == "serial" or (
+            streamed and p.tree_learner in ("feature", "voting")):
+        return
+    raise NotImplementedError(
+        f"tree_learner='{p.tree_learner}' (dp/fp meshes"
+        f"{', streamed' if streamed else ''}) is not ported yet: {_SLICE6}")
 
 
 class Booster:
@@ -533,7 +545,7 @@ class Booster:
     def _setup_training(self) -> None:
         ds = self.train_set
         p = self.params
-        check_slice_scope(p)
+        check_slice_scope(p, streamed=ds.is_streamed)
         if ds.device != self.device:
             raise ValueError(f"the training Dataset lives on {ds.device}, "
                              f"the Booster on {self.device}")
@@ -589,10 +601,110 @@ class Booster:
             col_bins=torch.tensor(extra_trees_col_bins(bm),
                                   dtype=torch.int32, device=self.device)
             if p.extra_trees else None)
+        self._streamed = bool(ds.is_streamed)
+        if self._streamed:
+            self._check_streamed_scope()
         self._xraw = None
         self._linear_k = None
         if p.linear_tree:
             self._setup_linear_tree()
+        # the screener plans a compacted active set per round (None on
+        # refresh rounds); a checkpoint restored before this setup left its
+        # EWMA state in a stash
+        self._screener = None
+        self._screen_bins_cache = None
+        if p.feature_screen == "ema":
+            self._check_screen_scope()
+            self._screener = FeatureScreener(
+                int(ds.num_feature_), p.screen_keep_ratio,
+                p.screen_ema_decay, p.screen_refresh_rounds)
+            stash = getattr(self, "_screen_restore", None)
+            if stash is not None:
+                self._screener.restore(*stash)
+                self._screen_restore = None
+        if self._streamed:
+            ds.block_store.prefetch_blocks = int(
+                p.extra.get("stream_prefetch_blocks", 1))
+            if p.tree_learner != "serial":
+                import warnings
+
+                warnings.warn(
+                    f"tree_learner='{p.tree_learner}' is not routed under "
+                    "streamed (from_blocks) training — only 'data' "
+                    "composes with the block loop; falling back to serial")
+
+    def _check_streamed_scope(self) -> None:
+        """Out-of-core training covers the PLAIN numeric path: the per-block
+        grower steps restate the strict and wave bodies without the
+        categorical / monotone / extra-trees / interaction / bynode
+        machinery, and multiclass and ranking need per-round state the
+        streamed rounds do not carry.  Each fence raises
+        :class:`~..faults.StreamScopeError` naming the exact offending key,
+        in the reference's order."""
+        from ..faults import StreamScopeError
+
+        p = self.params
+        c = self._constraints
+        bad = key = None
+        if self._num_class > 1:
+            bad, key = "multiclass objectives", "num_class"
+        elif getattr(self.obj, "needs_group", False):
+            bad, key = f"ranking objective '{self.obj.name}'", "objective"
+        elif p.linear_tree:
+            bad = key = "linear_tree"
+        elif p.extra_trees:
+            bad = key = "extra_trees"
+        elif c["mono"] is not None:
+            bad = key = "monotone_constraints"
+        elif c["ic_member"] is not None:
+            bad = key = "interaction_constraints"
+        elif self._cat_info is not None:
+            bad, key = "categorical features", "categorical_feature"
+        elif p.feature_fraction_bynode < 1.0:
+            bad, key = ("feature_fraction_bynode < 1",
+                        "feature_fraction_bynode")
+        elif p.boosting == "dart":
+            bad, key = "boosting='dart'", "boosting"
+        if bad is not None:
+            raise StreamScopeError(
+                f"streamed (from_blocks) training does not support {bad} "
+                f"(unsupported key: {key})", key=key)
+
+    def _check_screen_scope(self) -> None:
+        """Feature screening covers the plain gbdt/rf/goss growers, in
+        memory and streamed.  Configs whose static per-column state is
+        indexed by GLOBAL feature id — categorical sets, monotone signs,
+        interaction groups, per-column bin counts (extra_trees), linear leaf
+        designs, the feature-sharded learner, DART's per-round replay —
+        raise :class:`~..faults.ScreenScopeError` naming the exact
+        offending key, in the reference's order."""
+        from ..faults import ScreenScopeError
+
+        p = self.params
+        c = self._constraints
+        bad = key = None
+        if self._num_class > 1:
+            bad, key = "multiclass objectives", "num_class"
+        elif getattr(self.obj, "needs_group", False):
+            bad, key = f"ranking objective '{self.obj.name}'", "objective"
+        elif p.linear_tree:
+            bad = key = "linear_tree"
+        elif p.boosting == "dart":
+            bad, key = "boosting='dart'", "boosting"
+        elif p.extra_trees:
+            bad = key = "extra_trees"
+        elif c["mono"] is not None:
+            bad = key = "monotone_constraints"
+        elif c["ic_member"] is not None:
+            bad = key = "interaction_constraints"
+        elif self._cat_info is not None:
+            bad, key = "categorical features", "categorical_feature"
+        elif p.tree_learner == "feature":
+            bad, key = "tree_learner='feature'", "tree_learner"
+        if bad is not None:
+            raise ScreenScopeError(
+                f"feature_screen='ema' does not support {bad} "
+                f"(unsupported key: {key})", key=key)
 
     def _setup_linear_tree(self) -> None:
         """The raw feature matrix on the device for linear leaves, as the
@@ -728,9 +840,20 @@ class Booster:
             depth = min(self._depth_cap,
                         forest_depth_cap(self._stacked_forest()))
             for tree in self.trees:
-                pred = fma(shrink, self._tree_round_values(
-                    tree, ds.X_binned, self._xraw, depth), pred)
+                pred = fma(shrink, self._train_values(tree, depth), pred)
         self._pred_train = pred
+
+    def _train_values(self, tree: Tree, depth_cap: int) -> torch.Tensor:
+        """One round's values on every training row: on a streamed Dataset
+        by one traversal pass over its block store, else on the resident
+        binned matrix (linear leaves on the raw values)."""
+        ds = self.train_set
+        if ds.is_streamed:
+            from ..data.stream_grow import stream_tree_values
+
+            return stream_tree_values(ds.block_store, tree, depth_cap)
+        return self._tree_round_values(tree, ds.X_binned, self._xraw,
+                                       depth_cap)
 
     def _attach_continuation(self, ds: Dataset) -> None:
         """Attach a training Dataset to a loaded Booster so ``update()``
@@ -757,13 +880,30 @@ class Booster:
         self.train_set = ds
         self._key = self._seed_key()
         self._setup_training()
+        if self._streamed and prev_m is not None:
+            # the loaded forest's split_bin codes mean something only under
+            # the binning they were trained with: the checkpoint-grade
+            # schema digest (bounds, nan bin, bin counts, categorical
+            # flags, EFB), as resume_booster checks it
+            from ..data.sketch import schema_digest
+
+            got, want = schema_digest(ds.bin_mapper), schema_digest(prev_m)
+            if got != want:
+                raise ValueError(
+                    "this Booster was saved under a different binning "
+                    f"schema (digest {want[:12]}… vs the streamed "
+                    f"Dataset's {got[:12]}…); rebuild the blocks with "
+                    "Dataset.from_blocks(..., reference=<original "
+                    "training Dataset>) before continuing training")
         self._iter = loaded_iter
         self._forest_cache = None
         self._rebase_and_replay(loaded_init)
 
-    def _sample_bag_and_fmask(self, i: int) -> torch.Tensor:
+    def _sample_bag_and_fmask(self, i: int, screen_ids=None) -> torch.Tensor:
         """This round's bag (resampled on schedule into ``self._bag``) and
-        feature mask, from streams keyed by the round index."""
+        feature mask, from streams keyed by the round index.  The
+        screener's active set ``screen_ids`` enters as the BASE mask, so
+        ``feature_fraction`` samples within it."""
         ds = self.train_set
         p = self.params
         if p.bagging_freq > 0 and p.bagging_fraction < 1.0 and \
@@ -772,11 +912,30 @@ class Booster:
             self._bag = sample_bag(bkey, ds.row_mask, p.bagging_fraction,
                                    float(ds.num_data_))
         n_cols = int(ds.num_feature_)
+        base = None
+        if screen_ids is not None:
+            bm = np.zeros(n_cols, np.float32)
+            bm[screen_ids] = 1.0
+            base = torch.from_numpy(bm).to(self.device)
         if p.feature_fraction < 1.0:
             fkey = fold_in(prng_key(p.feature_fraction_seed + p.seed), i)
             return compose_tree_mask(fkey, p.feature_fraction, n_cols,
-                                     device=self.device)
-        return torch.ones(n_cols, dtype=_F32, device=self.device)
+                                     base_mask=base, device=self.device)
+        return base if base is not None else torch.ones(
+            n_cols, dtype=_F32, device=self.device)
+
+    def _screen_view(self, bins: torch.Tensor, active_ids) -> torch.Tensor:
+        """The binned matrix's active columns ``[n, F_active]`` for a
+        screened round, cached on (matrix, active ids) so rounds with an
+        unchanged active set reuse the gather."""
+        ck = active_ids.tobytes()
+        c = self._screen_bins_cache
+        if c is not None and c[0] is bins and c[1] == ck:
+            return c[2]
+        ids = torch.from_numpy(active_ids.astype(np.int64)).to(bins.device)
+        out = bins.index_select(1, ids).contiguous()
+        self._screen_bins_cache = (bins, ck, out)
+        return out
 
     # -- round step ------------------------------------------------------
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
@@ -801,9 +960,31 @@ class Booster:
             return self._dart_round()
         p = self.params
         i = self._iter
-        fmask = self._sample_bag_and_fmask(i)
-        tree, new_pred = self._round_body(self._pred_train, self._bag, fmask,
-                                          self._round_key(i))
+        screener = self._screener
+        active_ids = None
+        if screener is not None:
+            active_ids, _ = screener.plan()   # None on refresh rounds
+        fmask = self._sample_bag_and_fmask(i, screen_ids=active_ids)
+        if active_ids is not None:
+            # a screened round grows on the active columns only
+            fmask = fmask[torch.from_numpy(active_ids.astype(np.int64)).to(
+                self.device)]
+        if self._streamed:
+            tree, new_pred = self._stream_round(i, fmask, active_ids)
+        else:
+            tree, new_pred = self._round_body(
+                self._pred_train, self._bag, fmask, self._round_key(i),
+                bins=(None if active_ids is None else self._screen_view(
+                    self.train_set.X_binned, active_ids)))
+        if active_ids is not None:
+            # back to GLOBAL feature ids before anything downstream
+            # (predict, valid sets, checkpoints, the screener) sees it
+            tree = remap_split_features(tree, active_ids)
+        if screener is not None:
+            # refresh rounds observe too: that is how a feature whose gain
+            # appears late re-enters the active set
+            screener.observe(tree.split_feature.cpu().numpy(),
+                             tree.split_gain.cpu().numpy())
         if p.boosting != "rf":             # rf keeps _pred_train at the init
             self._pred_train = new_pred
             if p.learning_rate != self._base_lr:
@@ -818,6 +999,41 @@ class Booster:
                                  else tree.linear_coef * scale))
         self._append_round(tree, self._shrink)
         return False
+
+    def _stream_round(self, i: int, fmask: torch.Tensor, active_ids):
+        """One gbdt/rf/goss round over the streamed Dataset's block store
+        (a column view of it on a screened round), the reference's streamed
+        branch of ``update``: the finiteness screen unless
+        ``finite_screen=false``, then :func:`~..data.stream_grow.
+        stream_goss_round` (rows sampled at the source, seeded by ``seed *
+        1,000,003 + i``) or :func:`~..data.stream_grow.
+        stream_plain_round`."""
+        from ..data.block_store import ColumnViewStore
+        from ..data.stream_grow import stream_goss_round, stream_plain_round
+
+        ds = self.train_set
+        p = self.params
+        if p.extra.get("finite_screen", True):
+            self._screen_finite(i)
+        store = ds.block_store
+        if active_ids is not None:
+            # only the active columns cross to the device
+            store = ColumnViewStore(store, active_ids)
+        eff_rows = self._eff_rows()
+        grow = dict(num_leaves=p.num_leaves, num_bins=self._num_bins,
+                    hist_impl=p.extra.get("hist_impl", "auto"),
+                    hist_dtype=resolve_hist_dtype(p, eff_rows),
+                    wave_width=resolve_wave_width(p, eff_rows),
+                    renew_alpha=getattr(self.obj, "renew_alpha", None),
+                    renew_scale=getattr(self.obj, "renew_scale", None))
+        args = (store, self.obj, ds.y, self._w_eff, self._bag,
+                self._pred_train, fmask, self._hyper)
+        goss_k = self._goss_k()
+        if goss_k is not None:
+            return stream_goss_round(*args, goss_k, float(p.top_rate),
+                                     float(p.other_rate),
+                                     p.seed * 1_000_003 + i, **grow)
+        return stream_plain_round(*args, is_rf=p.boosting == "rf", **grow)
 
     def _round_key(self, i: int):
         """The round key ``fold_in(key, i)``: the grower's per-node draws
@@ -843,12 +1059,15 @@ class Booster:
         return int(self.train_set.row_mask.shape[0])
 
     def _round_body(self, pred: torch.Tensor, bag: torch.Tensor,
-                    fmask: torch.Tensor, rkey) -> Tuple[Tree, torch.Tensor]:
+                    fmask: torch.Tensor, rkey,
+                    bins: Optional[torch.Tensor] = None
+                    ) -> Tuple[Tree, torch.Tensor]:
         """One round's tree grown from the scores ``pred``, and the train
         scores after it (the reference's ``_round_fn``): plain and rf
         rounds, single-class GOSS on its compacted rows, multiclass GOSS by
         re-weighting, and DART's round from the dropped-tree scores.  rf
-        returns ``pred`` unchanged."""
+        returns ``pred`` unchanged.  ``bins`` (None: the Dataset's binned
+        matrix) is a screened round's active columns."""
         ds = self.train_set
         p = self.params
         hyper = self._hyper
@@ -898,7 +1117,8 @@ class Booster:
             grow.update(ff_bynode=hyper.feature_fraction_bynode)
         if bynode or p.extra_trees:
             grow.update(key=rkey)
-        bins, y, w = ds.X_binned, ds.y, self._w_eff
+        bins_all = ds.X_binned if bins is None else bins
+        bins, y, w = bins_all, ds.y, self._w_eff
         if goss_k is not None:
             # the tree grows on the compacted rows, in the selection's order
             idx, wt, live = goss_select(rkey, g, bag, goss_k, p.top_rate,
@@ -935,7 +1155,7 @@ class Booster:
             # every row's score from a traversal of the tree grown on the
             # sampled rows: its depth is read once, as a tight cap
             return tree, fma(lr, predict_tree_binned(
-                tree, ds.X_binned, forest_depth_cap(tree)), pred)
+                tree, bins_all, forest_depth_cap(tree)), pred)
         return tree, fma(lr, tree.leaf_value[row_leaf.to(torch.int64)], pred)
 
     def _append_round(self, tree: Tree, shrink: float) -> None:
@@ -1077,8 +1297,7 @@ class Booster:
         self._iter -= 1
         neg = torch.tensor(-self._shrink, dtype=_F32, device=self.device)
         if self.params.boosting != "rf" and self._pred_train is not None:
-            vals = self._tree_round_values(tree, self.train_set.X_binned,
-                                           self._xraw, depth)
+            vals = self._train_values(tree, depth)
             # the reference's update: one multiply-add under XLA's
             # contraction for a single class, eager for [n, K]
             self._pred_train = (
@@ -1178,6 +1397,7 @@ class Booster:
         set).  The port runs every round on the host loop either way."""
         p = self.params
         return (self._num_class == 1
+                and not getattr(self, "_streamed", False)
                 and p.boosting in ("gbdt", "rf", "goss")
                 and not p.linear_tree
                 and p.feature_screen == "off"
@@ -1250,10 +1470,16 @@ class Booster:
             "base_lr": float(self._base_lr),
             "init_score": init_meta,
             "best_iteration": int(self.best_iteration),
-            "streamed": False,
+            "streamed": bool(self._streamed),
             "parallel": {"tree_learner": p.tree_learner},
             "schema_digest": schema_digest(self.train_set.bin_mapper),
         }
+        if self._screener is not None:
+            # the EWMA vector and the refresh counter are the screener's
+            # whole state: restored, plan() replans the same rounds
+            ema, rounds_since = self._screener.state()
+            arrays["screen_ema"] = ema
+            meta["screen_rounds_since_refresh"] = rounds_since
         return arrays, meta
 
     def restore_checkpoint_state(self, arrays, meta) -> None:
@@ -1264,14 +1490,6 @@ class Booster:
         Booster's device; the stacked-forest cache is dropped."""
         from .tree import tree_from_arrays
 
-        if "screen_ema" in arrays:
-            raise NotImplementedError(
-                "a checkpoint of a feature-screened run (screen_ema) is not "
-                f"ported yet: {_SLICE5}")
-        if meta.get("streamed"):
-            raise NotImplementedError(
-                "a checkpoint of a streamed (out-of-core) run is not ported "
-                f"yet: {_SLICE5}")
         trees = []
         for t_idx in range(int(meta["num_trees"])):
             prefix = f"tree{t_idx:05d}/"
@@ -1293,6 +1511,15 @@ class Booster:
         self._pred_train = put(arrays["pred_train"])
         self._bag = put(arrays["bag"])
         self._key = np.asarray(arrays["key"], np.uint32)
+        if "screen_ema" in arrays:
+            state = (np.asarray(arrays["screen_ema"], np.float32),
+                     int(meta.get("screen_rounds_since_refresh", 0)))
+            if getattr(self, "_screener", None) is not None:
+                self._screener.restore(*state)
+            else:
+                # the restore came before the training setup: keep it for
+                # the screener that setup builds
+                self._screen_restore = state
 
     # -- evaluation ------------------------------------------------------
     def _metric_names(self) -> List[str]:
@@ -1367,17 +1594,30 @@ class Booster:
         if self.params.boosting != "rf" or not self.trees:
             return self._pred_train
         forest = self._stacked_forest()
-        bins = self.train_set.X_binned
-        scale = torch.tensor(1.0 / self._iter, dtype=_F32, device=bins.device)
+        ds = self.train_set
+        scale = torch.tensor(1.0 / self._iter, dtype=_F32, device=self.device)
         if self._num_class > 1:
-            return _predict_forest_mc(forest, bins, scale, self.init_score_,
-                                      self._iter, self.params.num_leaves)
-        return predict_forest_binned(forest, bins, scale,
+            return _predict_forest_mc(forest, ds.X_binned, scale,
+                                      self.init_score_, self._iter,
+                                      self.params.num_leaves)
+        if ds.is_streamed:
+            # one traversal pass of the forest over the block store
+            return torch.cat([predict_forest_binned(
+                forest, bins_b, scale, float(self.init_score_), self._iter,
+                self.params.num_leaves)
+                for _, bins_b in ds.block_store.device_blocks()])
+        return predict_forest_binned(forest, ds.X_binned, scale,
                                      float(self.init_score_), self._iter,
                                      self.params.num_leaves)
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         data.construct()
+        if data.is_streamed:
+            raise ValueError(
+                f"valid set '{name}' is a streamed (from_blocks) dataset — "
+                "incremental valid-set scoring needs a resident binned "
+                "matrix; bin the valid set in memory with "
+                "reference=<streamed train set> instead")
         if data.y is None:
             raise ValueError(f"valid set '{name}' requires a label")
         if data.device != self.device:

@@ -531,6 +531,68 @@ def split_iter(hist, table, fmask, aux, scal, impl: str = "auto"):
     return launch(hist, table, fmask, aux, scal)
 
 
+def _strict_root(root_hist: torch.Tensor, ctx: SplitContext,
+                 root_mask: torch.Tensor, max_depth: torch.Tensor, cap: int,
+                 **split_kw):
+    """The strict grower's root from its histograms ``[E, F, B, 3]``:
+    ``(packed table [E, cap, NC], aux [E, 8], scal [E, 16], root split)``
+    — the root's output and candidate, the first pick and the split
+    iteration's scalars (``ctx`` per element, ``max_depth`` f32 ``[E]``).
+    ``split_kw`` goes to :func:`~..ops.split.find_best_split`."""
+    e = root_hist.shape[0]
+    dev = root_hist.device
+    root_tot = root_hist[:, 0].sum(dim=1)                     # [E, 3]
+    zero_e = torch.zeros(e, dtype=_F32, device=dev)
+    root_out = constrained_leaf_output(
+        root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
+        ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
+        zero_e)
+    root_best = find_best_split(root_hist, ctx, root_mask, None, root_out,
+                                **split_kw)
+    P = _packed_root_table(cap, root_out, root_tot, root_best)
+    aux = torch.stack([zero_e, root_best.feature.to(_F32),
+                       root_best.bin.to(_F32),
+                       torch.isfinite(root_best.gain).to(_F32),
+                       zero_e, zero_e, zero_e, zero_e], dim=1)
+    scal = torch.zeros((e, 16), dtype=_F32, device=dev)
+    for i, v in enumerate(ctx):
+        scal[:, i] = v
+    scal[:, 7] = max_depth.to(_F32)
+    scal[:, 8] = 1.0                                          # n_nodes
+    return P, aux, scal, root_best
+
+
+def _strict_partition(bins: torch.Tensor, row_leaf: torch.Tensor,
+                      aux: torch.Tensor, scal: torch.Tensor,
+                      catmask: Optional[torch.Tensor] = None,
+                      P: Optional[torch.Tensor] = None):
+    """One strict split iteration's row partition (plain ops, as XLA ops in
+    the reference): the rows of the leaf ``aux[:, 0]`` go to the children
+    ``n_nodes`` (left iff code <= threshold, or by the code's bit in the
+    leaf's candidate mask for a subset split) and ``n_nodes + 1``.
+    ``row_leaf`` i32 ``[n, E]``; returns ``(row_leaf', seg i32 [n, E])``
+    with segment 0 / 1 for the left / right child's rows and 2 for the
+    rest."""
+    leaf = aux[:, 0].to(torch.int32)
+    thr = aux[:, 2].to(torch.int32)
+    grew = aux[:, 3] > 0
+    nl = scal[:, 8].to(torch.int32)
+    col = bins.index_select(1, aux[:, 1].to(torch.int64))     # [n, E]
+    go_left = col.to(torch.int32) <= thr
+    if catmask is not None:
+        ar = torch.arange(aux.shape[0], device=aux.device)
+        leaf64 = leaf.to(torch.int64)
+        bit = catmask[ar, leaf64].t().gather(0, col.to(torch.int64))
+        go_left = torch.where(P[ar, leaf64, _PK.CAND_CAT] > 0.5, bit,
+                              go_left)
+    moved = torch.where(row_leaf == leaf,
+                        torch.where(go_left, nl, nl + 1), row_leaf)
+    row_leaf = torch.where(grew, moved, row_leaf)
+    seg = torch.where(row_leaf == nl, 0,
+                      torch.where(row_leaf == nl + 1, 1, 2)).to(torch.int32)
+    return row_leaf, seg
+
+
 def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                      fmask: torch.Tensor, ctx: SplitContext,
                      max_depth: torch.Tensor, num_leaves: int, num_bins: int,
@@ -606,12 +668,6 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
 
     # ---- root ---------------------------------------------------------
     root_hist = hist_fn(None, 1)[:, 0]                        # [E, F, B, 3]
-    root_tot = root_hist[:, 0].sum(dim=1)                     # [E, 3]
-    zero_e = torch.zeros(e, dtype=_F32, device=dev)
-    root_out = constrained_leaf_output(
-        root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
-        ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
-        zero_e)
     root_mask = fmask if node_masks is None else node_masks[:, 0]
     icsets = None
     if ic_member is not None:
@@ -621,51 +677,25 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                              device=dev)
         icsets[:, 0] = True
         root_mask = root_mask * _ic_allowed(icsets[:, 0], member)
-    root_best = find_best_split(
-        root_hist, ctx, root_mask, None, root_out,
+    P, aux, scal, root_best = _strict_root(
+        root_hist, ctx, root_mask, max_depth, cap,
         arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
         rand_bins=None if rand is None else rand[:, 0])
-    P = _packed_root_table(cap, root_out, root_tot, root_best)
     ar = torch.arange(e, device=dev)
     catmask = None
     if cat_info is not None:
         catmask = torch.zeros((e, cap, num_bins), dtype=torch.bool,
                               device=dev)
         catmask[:, 0] = root_best.cat_mask
-    aux = torch.stack([zero_e, root_best.feature.to(_F32),
-                       root_best.bin.to(_F32),
-                       torch.isfinite(root_best.gain).to(_F32),
-                       zero_e, zero_e, zero_e, zero_e], dim=1)
-    scal = torch.zeros((e, 16), dtype=_F32, device=dev)
-    for i, v in enumerate(ctx):
-        scal[:, i] = v
-    scal[:, 7] = max_depth.to(_F32)
-    scal[:, 8] = 1.0                                          # n_nodes
     n_leaves = torch.ones(e, dtype=torch.int32, device=dev)
     row_leaf = torch.zeros((n, e), dtype=torch.int32, device=dev)
 
     for _ in range(num_leaves - 1):
         leaf = aux[:, 0].to(torch.int32)
-        thr = aux[:, 2].to(torch.int32)
         grew = aux[:, 3] > 0
         nl = scal[:, 8].to(torch.int32)
-        # partition the split leaf's rows (plain ops, as XLA ops in the
-        # reference): go left iff code <= threshold
-        col = bins.index_select(1, aux[:, 1].to(torch.int64))  # [n, E]
-        go_left = col.to(torch.int32) <= thr
-        if catmask is not None:
-            # a subset split sends a row left by its code's bit in the
-            # leaf's candidate mask
-            leaf64 = leaf.to(torch.int64)
-            bit = catmask[ar, leaf64].t().gather(0, col.to(torch.int64))
-            go_left = torch.where(P[ar, leaf64, _PK.CAND_CAT] > 0.5, bit,
-                                  go_left)
-        moved = torch.where(row_leaf == leaf,
-                            torch.where(go_left, nl, nl + 1), row_leaf)
-        row_leaf = torch.where(grew, moved, row_leaf)
-        seg = torch.where(row_leaf == nl, 0,
-                          torch.where(row_leaf == nl + 1, 1, 2)).to(
-                              torch.int32)
+        row_leaf, seg = _strict_partition(bins, row_leaf, aux, scal,
+                                          catmask, P)
         hist2 = hist_fn(seg, 2)                              # [E, 2, F, B, 3]
         if fuse_si:
             P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
@@ -711,6 +741,191 @@ def wave_fuses_partition(num_features: int, w_width: int, num_bins: int,
     2 * width, B) > 256``, take the unfused route."""
     return (not categorical and hist_dtype != "int8"
             and max(num_features, 2 * w_width, num_bins) <= 256)
+
+
+class WavePlan(NamedTuple):
+    """One wave's splits, chosen from the packed table (:func:`_wave_plan`):
+    ``s`` splits of the leaves ``parent_r`` (their rows ``prow``), each
+    histogramming its smaller ("direct") child, the children at node ids
+    ``nl_r`` / ``nr_r``; ``gains`` the leaves' candidate gains; and
+    ``route_args`` the routing inputs after the row vectors (slot of each
+    node, split feature, threshold, direct-left flag, ``n_nodes``)."""
+
+    s: int
+    parent_r: torch.Tensor
+    prow: torch.Tensor
+    direct_left: torch.Tensor
+    nl_r: torch.Tensor
+    nr_r: torch.Tensor
+    gains: torch.Tensor
+    route_args: tuple
+
+
+def _wave_root(root_hist: torch.Tensor, ctx: SplitContext,
+               root_mask: torch.Tensor, capacity: int, **split_kw):
+    """The wave grower's root from its histogram ``[F, B, 3]``: ``(packed
+    table [capacity, NC], root split)``; ``split_kw`` goes to
+    :func:`~..ops.split.find_best_split`."""
+    dev = root_hist.device
+    root_tot = root_hist[0].sum(dim=0)                        # (g, h, c)
+    root_out = constrained_leaf_output(
+        root_tot[0], root_tot[1], root_tot[2], ctx._replace(path_smooth=0.0),
+        float("-inf"), float("inf"), torch.zeros((), dtype=_F32, device=dev))
+    root_best = find_best_split(root_hist, ctx, root_mask,
+                                torch.ones((), dtype=torch.bool, device=dev),
+                                root_out, **split_kw)
+    return _packed_root_table(capacity, root_out, root_tot,
+                              root_best), root_best
+
+
+def _wave_cache(root_hist: torch.Tensor, grow_leaves: int, capacity: int):
+    """The per-leaf histogram cache ``[grow_leaves, F, B, 3]`` holding the
+    root's, and every node's cache slot (the root's, 0)."""
+    dev = root_hist.device
+    hist_cache = torch.zeros((grow_leaves,) + tuple(root_hist.shape),
+                             dtype=_F32, device=dev)
+    hist_cache[0] = root_hist
+    return hist_cache, torch.zeros(capacity, dtype=torch.int64, device=dev)
+
+
+def _wave_plan(P: torch.Tensor, n_nodes: int, n_leaves: int,
+               grow_leaves: int, w_width: int,
+               wave_tail: str) -> Optional[WavePlan]:
+    """The next wave's splits (None when no leaf has a finite candidate
+    gain): the top leaves by candidate gain (by pathmin in the exact
+    tail), as many as the tail's budget and the width allow.  Reads one
+    number on the host, the wave's sync."""
+    K = _PK
+    dev = P.device
+    capacity = P.shape[0]
+    neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
+    is_leaf = P[:, K.IS_LEAF] > 0.5
+    gains = torch.where(is_leaf, P[:, K.CAND_GAIN], neg_inf)
+    n_cand = int(torch.isfinite(gains).sum())             # the wave's sync
+    if n_cand == 0:
+        return None
+    sel_key = (torch.where(is_leaf, P[:, K.PM], neg_inf)
+               if wave_tail == "exact" else gains)
+    order = torch.argsort(-sel_key, stable=True)
+    budget = grow_leaves - n_leaves
+    alloc = max(1, budget // 2) if wave_tail == "half" else budget
+    s = min(n_cand, alloc, w_width)                       # splits this wave
+    iota_s = torch.arange(s, device=dev)
+    parent_r = order[:s]
+    prow = P[parent_r]                                    # [s, NC]
+    direct_left = prow[:, K.CAND_LC] <= prow[:, K.CAND_RC]
+    nl_r = n_nodes + 2 * iota_s
+    slot_of_node = torch.full((capacity,), -1, dtype=torch.int32,
+                              device=dev)
+    slot_of_node[parent_r] = iota_s.to(torch.int32)
+    route_args = (slot_of_node, prow[:, K.CAND_FEAT].to(torch.int32),
+                  prow[:, K.CAND_BIN].to(torch.int32),
+                  direct_left.to(torch.uint8), n_nodes)
+    return WavePlan(s, parent_r, prow, direct_left, nl_r, nl_r + 1, gains,
+                    route_args)
+
+
+def _wave_commit(plan: WavePlan, direct_hist: torch.Tensor, P: torch.Tensor,
+                 hist_cache: torch.Tensor, node_slot: torch.Tensor,
+                 n_leaves: int, ctx: SplitContext, max_depth: int,
+                 node_mask, mono=None, icsets=None, member=None, rand=None,
+                 cat_info: Optional[CatInfo] = None,
+                 catmask: Optional[torch.Tensor] = None):
+    """A wave's table work once its direct children's histograms ``[s, F,
+    B, 3]`` are in: the siblings by subtraction from the per-leaf cache,
+    the 2s fresh children scored (under ``node_mask``, the monotone bounds,
+    the interaction groups and the extra-trees positions where given) and
+    the packed table, cache, slots and masks updated in place.  Returns
+    ``(n_nodes, n_leaves)`` after the wave."""
+    K = _PK
+    s, parent_r, prow = plan.s, plan.parent_r, plan.prow
+    nl_r, nr_r = plan.nl_r, plan.nr_r
+    dev = P.device
+    num_features = hist_cache.shape[1]
+    iota_s = torch.arange(s, device=dev)
+
+    # siblings by subtraction from the per-leaf histogram cache (plain
+    # gathers and writes: exact, as the reference's one-hot matmuls)
+    parent_slot = node_slot[parent_r]
+    other_hist = hist_cache[parent_slot] - direct_hist
+    dl = plan.direct_left[:, None, None, None]
+    left_hist = torch.where(dl, direct_hist, other_hist)
+    right_hist = torch.where(dl, other_hist, direct_hist)
+    right_slot = n_leaves + iota_s
+    hist_cache[parent_slot] = left_hist
+    hist_cache[right_slot] = right_hist
+    node_slot[nl_r] = parent_slot
+    node_slot[nr_r] = right_slot
+
+    # score the 2s fresh children from their histograms
+    child_nodes = torch.cat([nl_r, nr_r])
+    child_hists = torch.cat([left_hist, right_hist])
+    child_depth1 = prow[:, K.DEPTH] + 1.0
+    child_depth = torch.cat([child_depth1, child_depth1])
+    if max_depth <= 0:
+        depth_ok = torch.ones_like(child_depth, dtype=torch.bool)
+    else:
+        depth_ok = child_depth < float(max_depth)
+    child_vals = torch.cat([prow[:, K.CAND_WL], prow[:, K.CAND_WR]])
+    child_masks = node_mask(child_nodes).expand(2 * s, num_features)
+    pf = prow[:, K.CAND_FEAT].to(torch.int64)
+    lo_l, hi_l, lo_r, hi_r = _mono_child_bounds(
+        mono, pf, prow[:, K.CAND_WL], prow[:, K.CAND_WR],
+        prow[:, K.BOUND_LO], prow[:, K.BOUND_HI])
+    child_lo = torch.cat([lo_l, lo_r])
+    child_hi = torch.cat([hi_l, hi_r])
+    if icsets is not None:
+        child_sets = icsets[parent_r] & member.t()[pf]        # [s, NG]
+        allowed = _ic_allowed(child_sets, member)             # [s, F]
+        child_masks = child_masks * torch.cat([allowed, allowed])
+        icsets[child_nodes] = torch.cat([child_sets, child_sets])
+    # without monotone constraints every bound is infinite: the scan keeps
+    # its scalar clip (fewer ops a wave)
+    bounded = mono is not None
+    bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
+                         child_vals, child_lo if bounded else None,
+                         child_hi if bounded else None,
+                         arith=_xla_arith(cat_info, mono),
+                         cat_info=cat_info, mono=mono,
+                         rand_bins=None if rand is None
+                         else rand[child_nodes])
+
+    # commit: the parents become internal, the children arrive with their
+    # candidate splits
+    parent_rows = prow.clone()
+    parent_rows[:, K.SPLIT_FEAT] = prow[:, K.CAND_FEAT]
+    parent_rows[:, K.SPLIT_BIN] = prow[:, K.CAND_BIN]
+    parent_rows[:, K.LEFT] = nl_r.to(_F32)
+    parent_rows[:, K.RIGHT] = nr_r.to(_F32)
+    parent_rows[:, K.IS_LEAF] = 0.0
+    parent_rows[:, K.SPLIT_GAIN] = plan.gains[parent_r]
+    c2 = 2 * s
+    child_rows = torch.stack([
+        torch.full((c2,), -1.0, device=dev),              # SPLIT_FEAT
+        torch.zeros(c2, device=dev),                      # SPLIT_BIN
+        torch.full((c2,), -1.0, device=dev),              # LEFT
+        torch.full((c2,), -1.0, device=dev),              # RIGHT
+        child_vals,                                       # LEAF_VALUE
+        torch.ones(c2, device=dev),                       # IS_LEAF
+        torch.cat([prow[:, K.CAND_LC], prow[:, K.CAND_RC]]),  # COUNT
+        torch.zeros(c2, device=dev),                      # SPLIT_GAIN
+        child_depth,                                      # DEPTH
+        bs.gain,                                          # CAND_GAIN
+        bs.feature.to(_F32), bs.bin.to(_F32),             # CAND_FEAT, BIN
+        bs.left_g, bs.left_h, bs.left_c,
+        bs.right_g, bs.right_h, bs.right_c,
+        bs.left_out, bs.right_out,                        # CAND_WL, WR
+        child_lo, child_hi,                               # BOUND_LO, HI
+        torch.zeros(c2, device=dev) if bs.cat is None
+        else bs.cat.to(_F32),                             # CAND_CAT
+        torch.minimum(torch.cat([prow[:, K.PM], prow[:, K.PM]]),
+                      bs.gain),                           # PM
+    ], dim=-1).to(_F32)
+    P[parent_r] = parent_rows
+    P[child_nodes] = child_rows
+    if catmask is not None:
+        catmask[child_nodes] = bs.cat_mask
+    return plan.route_args[-1] + 2 * s, n_leaves + s
 
 
 def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
@@ -765,7 +980,6 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     w_width = min(int(wave_width), grow_leaves - 1)
     fuse_part = wave_fuses_partition(num_features, w_width, num_bins,
                                      hist_dtype, cat_info is not None)
-    neg_inf = torch.tensor(float("-inf"), dtype=_F32, device=dev)
     node_mask = node_mask_fn(key, ff_bynode, num_features, feature_mask,
                              bynode_off=ff_bynode is None,
                              capacity=capacity)
@@ -777,161 +991,53 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     root_hist = compute_histograms(
         bins, stats, torch.zeros(n, dtype=torch.int32, device=dev), 1,
         num_bins, impl=hist_impl, hist_dtype=hist_dtype)[0]   # [F, B, 3]
-    root_tot = root_hist[0].sum(dim=0)                        # (g, h, c)
-    root_out = constrained_leaf_output(
-        root_tot[0], root_tot[1], root_tot[2], ctx._replace(path_smooth=0.0),
-        float("-inf"), float("inf"), torch.zeros((), dtype=_F32, device=dev))
     root_mask = node_mask(0)
-    icsets = None
+    icsets = member = None
     if ic_member is not None:
         member = ic_member.to(dev)
         icsets = torch.zeros((capacity, member.shape[0]), dtype=torch.bool,
                              device=dev)
         icsets[0] = True
         root_mask = root_mask * _ic_allowed(icsets[0], member)
-    root_best = find_best_split(root_hist, ctx, root_mask,
-                                torch.ones((), dtype=torch.bool, device=dev),
-                                root_out,
-                                arith=_xla_arith(cat_info, mono),
-                                cat_info=cat_info, mono=mono,
-                                rand_bins=None if rand is None else rand[0])
-    P = _packed_root_table(capacity, root_out, root_tot, root_best)
+    P, root_best = _wave_root(root_hist, ctx, root_mask, capacity,
+                              arith=_xla_arith(cat_info, mono),
+                              cat_info=cat_info, mono=mono,
+                              rand_bins=None if rand is None else rand[0])
     catmask = None
     if cat_info is not None:
         catmask = torch.zeros((capacity, num_bins), dtype=torch.bool,
                               device=dev)
         catmask[0] = root_best.cat_mask
-    hist_cache = torch.zeros((grow_leaves, num_features, num_bins, 3),
-                             dtype=_F32, device=dev)
-    hist_cache[0] = root_hist
-    node_slot = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    hist_cache, node_slot = _wave_cache(root_hist, grow_leaves, capacity)
     row_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
     n_nodes, n_leaves = 1, 1
 
     while n_leaves < grow_leaves:
-        is_leaf = P[:, K.IS_LEAF] > 0.5
-        gains = torch.where(is_leaf, P[:, K.CAND_GAIN], neg_inf)
-        n_cand = int(torch.isfinite(gains).sum())         # the wave's sync
-        if n_cand == 0:
+        plan = _wave_plan(P, n_nodes, n_leaves, grow_leaves, w_width,
+                          wave_tail)
+        if plan is None:
             break
-        sel_key = torch.where(is_leaf, P[:, K.PM], neg_inf) if exact \
-            else gains
-        order = torch.argsort(-sel_key, stable=True)
-        budget = grow_leaves - n_leaves
-        alloc = max(1, budget // 2) if wave_tail == "half" else budget
-        s = min(n_cand, alloc, w_width)                   # splits this wave
-        iota_s = torch.arange(s, device=dev)
-        parent_r = order[:s]
-        prow = P[parent_r]                                # [s, NC]
-        direct_left = prow[:, K.CAND_LC] <= prow[:, K.CAND_RC]
-        nl_r = n_nodes + 2 * iota_s
-        nr_r = nl_r + 1
 
         # route the rows and histogram the smaller children: kernel B2, or
         # on the unfused route the plain partition and kernel B1 with one
         # segment per split
-        slot_of_node = torch.full((capacity,), -1, dtype=torch.int32,
-                                  device=dev)
-        slot_of_node[parent_r] = iota_s.to(torch.int32)
-        args = (bins, stats, row_leaf, slot_of_node,
-                prow[:, K.CAND_FEAT].to(torch.int32),
-                prow[:, K.CAND_BIN].to(torch.int32),
-                direct_left.to(torch.uint8), n_nodes)
+        args = (bins, stats, row_leaf) + plan.route_args
         if fuse_part:
             args += (num_bins, mode)
             direct_hist, row_leaf = (hist_partition_plain(*args) if plain
                                      else hist_partition_fused(*args))
         else:
             cat = {} if catmask is None else dict(
-                cat=prow[:, K.CAND_CAT] > 0.5, catmask=catmask[parent_r])
+                cat=plan.prow[:, K.CAND_CAT] > 0.5,
+                catmask=catmask[plan.parent_r])
             seg, row_leaf = route_wave(bins, *args[2:], **cat)
-            direct_hist = compute_histograms(bins, stats, seg, s, num_bins,
-                                             impl=hist_impl,
+            direct_hist = compute_histograms(bins, stats, seg, plan.s,
+                                             num_bins, impl=hist_impl,
                                              hist_dtype=hist_dtype)
-
-        # siblings by subtraction from the per-leaf histogram cache (plain
-        # gathers and writes: exact, as the reference's one-hot matmuls)
-        parent_slot = node_slot[parent_r]
-        other_hist = hist_cache[parent_slot] - direct_hist
-        dl = direct_left[:, None, None, None]
-        left_hist = torch.where(dl, direct_hist, other_hist)
-        right_hist = torch.where(dl, other_hist, direct_hist)
-        right_slot = n_leaves + iota_s
-        hist_cache[parent_slot] = left_hist
-        hist_cache[right_slot] = right_hist
-        node_slot[nl_r] = parent_slot
-        node_slot[nr_r] = right_slot
-
-        # score the 2s fresh children from their histograms
-        child_nodes = torch.cat([nl_r, nr_r])
-        child_hists = torch.cat([left_hist, right_hist])
-        child_depth1 = prow[:, K.DEPTH] + 1.0
-        child_depth = torch.cat([child_depth1, child_depth1])
-        if max_depth <= 0:
-            depth_ok = torch.ones_like(child_depth, dtype=torch.bool)
-        else:
-            depth_ok = child_depth < float(max_depth)
-        child_vals = torch.cat([prow[:, K.CAND_WL], prow[:, K.CAND_WR]])
-        child_masks = node_mask(child_nodes).expand(2 * s, num_features)
-        pf = prow[:, K.CAND_FEAT].to(torch.int64)
-        lo_l, hi_l, lo_r, hi_r = _mono_child_bounds(
-            mono, pf, prow[:, K.CAND_WL], prow[:, K.CAND_WR],
-            prow[:, K.BOUND_LO], prow[:, K.BOUND_HI])
-        child_lo = torch.cat([lo_l, lo_r])
-        child_hi = torch.cat([hi_l, hi_r])
-        if icsets is not None:
-            child_sets = icsets[parent_r] & member.t()[pf]    # [s, NG]
-            allowed = _ic_allowed(child_sets, member)         # [s, F]
-            child_masks = child_masks * torch.cat([allowed, allowed])
-            icsets[child_nodes] = torch.cat([child_sets, child_sets])
-        # without monotone constraints every bound is infinite: the scan
-        # keeps its scalar clip (fewer ops a wave)
-        bounded = mono is not None
-        bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                             child_vals, child_lo if bounded else None,
-                             child_hi if bounded else None,
-                             arith=_xla_arith(cat_info, mono),
-                             cat_info=cat_info, mono=mono,
-                             rand_bins=None if rand is None
-                             else rand[child_nodes])
-
-        # commit: the parents become internal, the children arrive with
-        # their candidate splits
-        parent_rows = prow.clone()
-        parent_rows[:, K.SPLIT_FEAT] = prow[:, K.CAND_FEAT]
-        parent_rows[:, K.SPLIT_BIN] = prow[:, K.CAND_BIN]
-        parent_rows[:, K.LEFT] = nl_r.to(_F32)
-        parent_rows[:, K.RIGHT] = nr_r.to(_F32)
-        parent_rows[:, K.IS_LEAF] = 0.0
-        parent_rows[:, K.SPLIT_GAIN] = gains[parent_r]
-        c2 = 2 * s
-        child_rows = torch.stack([
-            torch.full((c2,), -1.0, device=dev),          # SPLIT_FEAT
-            torch.zeros(c2, device=dev),                  # SPLIT_BIN
-            torch.full((c2,), -1.0, device=dev),          # LEFT
-            torch.full((c2,), -1.0, device=dev),          # RIGHT
-            child_vals,                                   # LEAF_VALUE
-            torch.ones(c2, device=dev),                   # IS_LEAF
-            torch.cat([prow[:, K.CAND_LC], prow[:, K.CAND_RC]]),  # COUNT
-            torch.zeros(c2, device=dev),                  # SPLIT_GAIN
-            child_depth,                                  # DEPTH
-            bs.gain,                                      # CAND_GAIN
-            bs.feature.to(_F32), bs.bin.to(_F32),         # CAND_FEAT, BIN
-            bs.left_g, bs.left_h, bs.left_c,
-            bs.right_g, bs.right_h, bs.right_c,
-            bs.left_out, bs.right_out,                    # CAND_WL, WR
-            child_lo, child_hi,                           # BOUND_LO, HI
-            torch.zeros(c2, device=dev) if bs.cat is None
-            else bs.cat.to(_F32),                         # CAND_CAT
-            torch.minimum(torch.cat([prow[:, K.PM], prow[:, K.PM]]),
-                          bs.gain),                       # PM
-        ], dim=-1).to(_F32)
-        P[parent_r] = parent_rows
-        P[child_nodes] = child_rows
-        if catmask is not None:
-            catmask[child_nodes] = bs.cat_mask
-        n_nodes += 2 * s
-        n_leaves += s
+        n_nodes, n_leaves = _wave_commit(
+            plan, direct_hist, P, hist_cache, node_slot, n_leaves, ctx,
+            max_depth, node_mask, mono=mono, icsets=icsets, member=member,
+            rand=rand, cat_info=cat_info, catmask=catmask)
 
     if exact:
         return _exact_prune(P, row_leaf, num_leaves, catmask)
@@ -1048,6 +1154,112 @@ def _exact_prune_table(Pn: np.ndarray, num_leaves: int):
     node_to_new = np.where(final_leaf[f], newid[f], 0).astype(np.int32)
     return newP, node_to_new, n_kept, np.where(surv, newid, -1)
 
+
+
+# ---------------------------------------------------------------------------
+# Streamed (out-of-core) grower steps.
+#
+# The in-memory growers walk a resident [n, F] matrix.  Under out-of-core
+# training the matrix lives host-side in a data.BlockStore and each
+# histogram pass is a host loop over blocks prefetched to the device, so
+# the growers decompose into per-block row work (the partition and the
+# block's histogram partial: kernel B1 once per block) and per-iteration
+# table work (kernel B3 for a strict split iteration, the wave body's
+# sibling / score / commit steps for a wave).  Every piece is built from
+# the in-memory growers' own helpers (_strict_root, _strict_partition,
+# _wave_root, _wave_plan, _wave_commit) on the plain numeric path (no
+# categorical / monotone / extra-trees / interaction / bynode), so the same
+# ops see the same sums: a streamed tree equals the in-memory tree bit for
+# bit wherever the block partials sum exactly (the dyadic tier).  The host
+# drivers live in data/stream_grow.py.
+# ---------------------------------------------------------------------------
+
+
+def stream_strict_init(root_hist: torch.Tensor, ctx: SplitContext,
+                       feature_mask: torch.Tensor, max_depth: int,
+                       capacity: int):
+    """The strict grower's state from the block-accumulated root histogram
+    ``[F, B, 3]``: ``(packed table [1, cap, NC], aux [1, 8], scal [1, 16],
+    n_leaves i32 [1])``, as :func:`grow_tree_strict` starts one tree."""
+    dev = root_hist.device
+    P, aux, scal, _ = _strict_root(
+        root_hist[None], SplitContext.per_element([ctx], dev),
+        feature_mask.to(_F32).reshape(1, -1),
+        torch.tensor([float(max_depth)], dtype=_F32, device=dev), capacity,
+        arith=_xla_arith(None))
+    return P, aux, scal, torch.ones(1, dtype=torch.int32, device=dev)
+
+
+def stream_wave_init(root_hist: torch.Tensor, ctx: SplitContext,
+                     feature_mask: torch.Tensor, capacity: int,
+                     grow_leaves: int):
+    """The wave grower's state from the block-accumulated root histogram
+    ``[F, B, 3]``: ``(packed table [cap, NC], per-leaf histogram cache,
+    node slots)``, as :func:`grow_tree_frontier` starts one tree."""
+    P, _ = _wave_root(root_hist, ctx, feature_mask.to(_F32), capacity,
+                      arith=_xla_arith(None))
+    return (P,) + _wave_cache(root_hist, grow_leaves, capacity)
+
+
+def _stream_root_block(bins_b: torch.Tensor, stats_b: torch.Tensor,
+                       num_bins: int, hist_impl: str, hist_dtype: str):
+    """One block's root histogram partial ``[1, F, B, 3]`` (kernel B1, one
+    segment)."""
+    seg = torch.zeros(bins_b.shape[0], dtype=torch.int32,
+                      device=bins_b.device)
+    return compute_histograms(bins_b, stats_b, seg, 1, num_bins,
+                              impl=hist_impl, hist_dtype=hist_dtype)
+
+
+def _stream_strict_block(bins_b: torch.Tensor, stats_b: torch.Tensor,
+                         row_leaf_b: torch.Tensor, aux: torch.Tensor,
+                         scal: torch.Tensor, num_bins: int, hist_impl: str,
+                         hist_dtype: str):
+    """One strict split iteration's row work on one block: the split leaf's
+    rows partitioned into ``row_leaf_b`` (the block's view of the row
+    vector, updated in place) and the two children's histogram partial
+    ``[2, F, B, 3]`` (kernel B1, two segments)."""
+    rl, seg = _strict_partition(bins_b, row_leaf_b[:, None], aux, scal)
+    row_leaf_b.copy_(rl[:, 0])
+    return compute_histograms(bins_b, stats_b, seg[:, 0], 2, num_bins,
+                              impl=hist_impl, hist_dtype=hist_dtype)
+
+
+def _stream_wave_block(bins_b: torch.Tensor, stats_b: torch.Tensor,
+                       row_leaf_b: torch.Tensor, plan: WavePlan,
+                       num_bins: int, hist_impl: str, hist_dtype: str):
+    """One wave's row work on one block, the unfused wave body's: the
+    plain partition routes the block's rows of the splitting leaves into
+    ``row_leaf_b`` (in place) and kernel B1 builds the direct children's
+    histogram partial ``[s, F, B, 3]``."""
+    seg, rl = route_wave(bins_b, row_leaf_b, *plan.route_args)
+    row_leaf_b.copy_(rl)
+    return compute_histograms(bins_b, stats_b, seg, plan.s, num_bins,
+                              impl=hist_impl, hist_dtype=hist_dtype)
+
+
+def stream_strict_update(hist2: torch.Tensor, P: torch.Tensor,
+                         aux: torch.Tensor, scal: torch.Tensor,
+                         n_leaves: torch.Tensor, feature_mask: torch.Tensor,
+                         hist_impl: str = "auto"):
+    """One strict split iteration's table work on the block-accumulated
+    children's histograms ``[2, F, B, 3]``: kernel B3 (:func:`split_iter`),
+    the call the in-memory strict body makes; advances ``scal``'s node
+    count and ``n_leaves`` in place.  Returns ``(table', aux')``."""
+    grew = aux[:, 3] > 0
+    P, aux = split_iter(hist2.unsqueeze(0), P,
+                        feature_mask.to(_F32).reshape(1, -1).contiguous(),
+                        aux, scal, impl=hist_impl)
+    scal[:, 8] += 2.0 * grew.to(_F32)
+    n_leaves += grew.to(torch.int32)
+    return P, aux
+
+
+def stream_exact_prune(P: torch.Tensor, row_leaf: torch.Tensor,
+                       num_leaves: int) -> Tuple[Tree, torch.Tensor]:
+    """The exact tail of the streamed wave grower (no categorical masks):
+    :func:`_exact_prune` on the overgrown table, ``row_leaf`` remapped."""
+    return _exact_prune(P, row_leaf, num_leaves)
 
 
 def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,

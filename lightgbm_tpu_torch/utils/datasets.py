@@ -6,6 +6,8 @@
   (``bench.py`` ``bench_higgs``);
 * ``make_synthetic_diamonds`` — the diamonds log-price regression of the
   grid-search workflow (r/gridsearchCV.R:5-23): 53,940 rows, six features;
+* ``iter_higgs_like_blocks`` — the Higgs-like task as ``(X, y)`` row
+  blocks, never materialized (``Dataset.from_blocks``'s companion);
 * ``train_test_split_bernoulli`` — that workflow's 85/15 Bernoulli split;
 * ``make_boosting_curve`` — the bagging/boosting workflow's 1-D curve
   (examples/bagging_boosting.py).
@@ -33,6 +35,31 @@ def make_higgs_like(n: int = 1_000_000, num_features: int = 28,
     p = 1 / (1 + np.exp(-logits))
     y = (rng.random(n) < p).astype(np.float32)
     return X, y
+
+
+def iter_higgs_like_blocks(n: int = 1_000_000, num_features: int = 28,
+                           seed: int = 0, block_rows: int = 131_072):
+    """Yield ``(X_block, y_block)`` pairs of the Higgs-like task without
+    ever materializing the full matrix — the host-memory companion to
+    ``Dataset.from_blocks``.
+
+    Each block draws from its own ``default_rng((seed, b))`` stream, so a
+    re-iterated generator yields identical blocks (``from_blocks`` needs two
+    passes).  The signal vector ``w`` comes from the same fixed stream as
+    :func:`make_higgs_like`, so the two share the labelling function, though
+    not the row values.
+    """
+    w = np.random.default_rng(987654321).normal(0, 1, num_features)
+    n_blocks = (n + block_rows - 1) // block_rows
+    for b in range(n_blocks):
+        nb = min(block_rows, n - b * block_rows)
+        rng = np.random.default_rng((seed, b))
+        X = rng.normal(0, 1, (nb, num_features)).astype(np.float32)
+        logits = (X @ w) * 0.6 + 0.8 * np.sin(X[:, 0] * 2) * X[:, 1] \
+            + 0.5 * (X[:, 2] ** 2 - 1)
+        p = 1 / (1 + np.exp(-logits))
+        y = (rng.random(nb) < p).astype(np.float32)
+        yield X, y
 
 
 def make_synthetic_diamonds(n: int = 53940, seed: int = 3928272):

@@ -1682,3 +1682,155 @@ def test_refit_deterministic_on_card():
         0, leaf, stats.double().abs())
     for got in (chunked, whole):
         assert bool(((got.double() - ref).abs() <= 1e-6 * mag).all())
+
+
+def _stream_frame(n=60_000, f=28, seed=41):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(0, 1, (n, f)).astype(np.float32)
+    w = rng.normal(0, 1, f)
+    s = X @ w + 0.6 * np.sin(X[:, 0] * 2)
+    yd = np.zeros(n, np.float32)
+    yd[np.argsort(s, kind="stable")[n // 2:]] = 1.0
+    return X, yd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grower", ["wave", "strict"])
+def test_streamed_trees_equal_in_memory_on_card(grower):
+    """Out-of-core training on the card: 60,000 rows streamed in 16,384-row
+    blocks (4 blocks, the tail padded) grow the in-memory trees bit for bit
+    on exact sums (dyadic labels, l2: every histogram sum exact, so the
+    float64 sum of the block partials equals the in-memory sum), through B1
+    per block and, on the strict grower, B3; the in-memory wave grower
+    takes B2 where the streamed one routes in plain ops and launches B1."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import HIST_FUSED_LAUNCHES
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    X, y = _stream_frame()
+    p = dict(objective="regression", num_leaves=31, max_bin=255,
+             learning_rate=0.5, min_data_in_leaf=20, hist_dtype="f32",
+             wave_tail="greedy", stream_block_rows=16_384, verbosity=-1)
+    if grower == "strict":
+        p["grow_policy"] = "leafwise"
+    ds = lgb.Dataset(X, label=y, device=dev, params=dict(p)).construct()
+    sds = lgb.Dataset.from_blocks(
+        [(X[lo:lo + 16_384], y[lo:lo + 16_384])
+         for lo in range(0, len(X), 16_384)], params=dict(p), reference=ds)
+    for c in (*HIST_FUSED_LAUNCHES.values(), SPLIT_ITER_LAUNCHES):
+        c.reset()
+    bs = lgb.train(p, sds, 1)
+    nb = sds.block_store.num_blocks
+    assert nb == 4 and HIST_FUSED_LAUNCHES["f32"].count % nb == 0
+    if grower == "strict":
+        assert SPLIT_ITER_LAUNCHES.count == 30
+    bm = lgb.train(p, ds, 1)
+    fa, fb = tree_to_arrays(bm.trees[0]), tree_to_arrays(bs.trees[0])
+    for k in fa:
+        assert np.array_equal(fa[k], fb[k]), k
+    assert torch.equal(bm._pred_train[:len(X)], bs._pred_train[:len(X)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_streamed_block_hist_equals_resident_on_card(mode):
+    """A block that crossed through the store's ring gives B1 the same
+    histogram, bit for bit, as the same rows resident on the card (the same
+    kernel on the same bytes); in int8 mode the per-block call quantizes
+    over its own rows and equals its plain version bit for bit."""
+    from lightgbm_tpu_torch.data import BlockStore
+
+    dev = _card()
+    rng = np.random.default_rng(43)
+    codes = rng.integers(0, 256, (3 * 16_384 + 1000, 28)).astype(np.uint8)
+    stats = torch.from_numpy(_stats(rng, 4 * 16_384)).to(dev)
+    store = BlockStore.from_binned(codes, 16_384)
+    store.device = dev
+    for off, b in store.device_blocks():
+        st = stats[off:off + b.shape[0]]
+        seg = torch.from_numpy(rng.integers(-1, 3, b.shape[0]).astype(
+            np.int32)).to(dev)
+        resident = torch.from_numpy(store.blocks[off // 16_384]).to(dev)
+        got = th.hist_fused(b, st, seg, 3, 256, mode)
+        assert torch.equal(got, th.hist_fused(resident, st, seg, 3, 256,
+                                              mode))
+        if mode == "int8":
+            assert torch.equal(got, th.hist_fused_plain(b, st, seg, 3, 256,
+                                                        mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_block_ring_stress_on_card(depth):
+    """The ring of ``prefetch_blocks + 1`` device buffers under a slow
+    consumer: 24 blocks, each read by a chain of B1 launches while later
+    blocks' copies run on the side stream; every block's histogram equals
+    the one from its resident copy bit for bit (a copy that overwrote a
+    buffer still being read would show here), over three passes and a
+    column view's pass, and no more than ``depth + 1`` buffers are ever
+    alive."""
+    from lightgbm_tpu_torch.data import BlockStore, ColumnViewStore
+
+    dev = _card()
+    rng = np.random.default_rng(47 + depth)
+    rows = 8192
+    codes = rng.integers(0, 256, (24 * rows, 28)).astype(np.uint8)
+    store = BlockStore.from_binned(codes, rows)
+    store.device = dev
+    store.prefetch_blocks = depth
+    stats = torch.from_numpy(_stats(rng, rows)).to(dev)
+    seg = torch.zeros(rows, dtype=torch.int32, device=dev)
+    want = [th.hist_fused(torch.from_numpy(b).to(dev), stats, seg, 1, 256,
+                          "f32") for b in store.blocks]
+    for _ in range(3):
+        got = []
+        for _, b in store.device_blocks():
+            for _ in range(6):          # keep the block busy on the card
+                h = th.hist_fused(b, stats, seg, 1, 256, "f32")
+            got.append(h)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert store.peak_device_buffers == depth + 1
+    # a column view: the active columns staged in pinned memory per slot
+    cols = np.array([0, 3, 7, 11, 27])
+    view = ColumnViewStore(store, cols)
+    for k, (_, b) in enumerate(view.device_blocks()):
+        for _ in range(6):
+            h = th.hist_fused(b, stats, seg, 1, 256, "f32")
+        resident = torch.from_numpy(np.ascontiguousarray(
+            store.blocks[k][:, cols])).to(dev)
+        assert torch.equal(h, th.hist_fused(resident, stats, seg, 1, 256,
+                                            "f32"))
+    assert store.peak_device_buffers == depth + 1
+
+
+@pytest.mark.gpu
+def test_streamed_int8_and_goss_kernel_vs_plain_on_card():
+    """Streamed int8 (B1's int8 mode per block: each block quantized over
+    its own rows) and streamed GOSS (the in-memory grower on the gathered
+    rows: B1 and B2) through the kernels equal the same runs through the
+    plain versions: the same trees (int8 sums are exact integers; GOSS on
+    exact dyadic sums)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+
+    dev = _card()
+    X, y = _stream_frame()
+    blocks = [(X[lo:lo + 16_384], y[lo:lo + 16_384])
+              for lo in range(0, len(X), 16_384)]
+    base = dict(objective="regression", num_leaves=31, max_bin=255,
+                learning_rate=0.5, min_data_in_leaf=20, verbosity=-1,
+                stream_block_rows=16_384)
+    for extra, rounds in (({"hist_dtype": "int8"}, 3),
+                          ({"boosting": "goss", "hist_dtype": "f32"}, 1)):
+        p = dict(base, **extra)
+        sds = lgb.Dataset.from_blocks(blocks, params=dict(p), device=dev)
+        bk = lgb.train(p, sds, rounds)
+        bp = lgb.train(dict(p, hist_impl="plain"), sds, rounds)
+        for ta, tb in zip(bk.trees, bp.trees):
+            fa, fb = tree_to_arrays(ta), tree_to_arrays(tb)
+            for k in fa:
+                assert np.array_equal(fa[k], fb[k]), (extra, k)

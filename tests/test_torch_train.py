@@ -242,7 +242,9 @@ OUT_OF_SLICE = {
     "extra_trees": {"extra_trees": True, "tree_learner": "data"},
     "bynode": {"feature_fraction_bynode": 0.5, "tree_learner": "feature"},
     "bf16sr": {"hist_dtype": "bf16sr", "tree_learner": "data"},
-    "feature_screen": {"feature_screen": "ema"},
+    # feature screening trains since its slice; under a learner outside
+    # the slice it still raises by name
+    "feature_screen": {"feature_screen": "ema", "tree_learner": "data"},
     "data_parallel": {"tree_learner": "data"},
     "feature_parallel": {"tree_learner": "feature"},
     # int8 trains since B1's int8 mode; under a learner outside the slice
@@ -290,8 +292,16 @@ def test_out_of_slice_datasets_and_init_model(small_set, tmp_path):
                   "eval_at": [5]}, dg, 2, valid_sets=[dg])
     assert int(dg.group_id.max()) == 1 and bg.num_trees() == 2
     assert [r[1] for r in bg.eval_train()] == ["ndcg@5"]
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        P.Dataset.from_blocks([X])
+    # streamed datasets train (ROADMAP item 11): from_blocks constructs a
+    # block store with the codes on the host, and train grows from it
+    blocks = [(X[i:i + 1024], y[i:i + 1024]) for i in range(0, 4096, 1024)]
+    dstream = P.Dataset.from_blocks(
+        blocks, params={"stream_block_rows": 1024}, device="cpu")
+    assert dstream.is_streamed and dstream.X_binned is None
+    assert dstream.block_store.num_blocks == 4
+    bs = P.train({"objective": "binary", "num_leaves": 7, "verbose": -1},
+                 dstream, 2)
+    assert bs.num_trees() == 2 and dstream.block_store.passes > 0
     # continuation trains (ROADMAP item 10): init_model's trees come first
     ds = P.Dataset(X, label=y, device="cpu")
     b = P.train({"objective": "binary", "verbose": -1}, ds, 1)

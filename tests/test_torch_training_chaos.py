@@ -12,8 +12,9 @@
 * a ``checkpoint_write`` fault costs one generation, never the run: no torn
   file survives and the forest is unchanged;
 * what the port cannot resume is refused by name: a multi-device
-  checkpoint or merge mode (``n_devices``, ``merge_mode``), a
-  feature-screened checkpoint (``screen_ema``).
+  checkpoint or merge mode (``n_devices``, ``merge_mode``); a
+  feature-screened checkpoint (``screen_ema``) resumes with the screener's
+  state and goes on bit for bit.
 """
 
 import os
@@ -167,8 +168,24 @@ def test_unported_checkpoint_state_refused_by_name(tmp_path, field, edit):
     arrays, meta = b.checkpoint_state()
     edit(arrays, meta)
     if field == "screen_ema":
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            resume_booster((arrays, meta), _make_ds())
+        # a feature-screened checkpoint resumes (ROADMAP item 11): the
+        # screener's EWMA and refresh counter come back, and the resumed
+        # run grows the uninterrupted run's trees
+        sp = dict(PARAMS, feature_screen="ema", screen_keep_ratio=0.4,
+                  screen_refresh_rounds=3)
+        full = P.Booster(sp, _make_ds())
+        for _ in range(2):
+            full.update()
+        arrays, meta = full.checkpoint_state()
+        back = resume_booster((arrays, meta), _make_ds())
+        ema, since = back._screener.state()
+        assert np.array_equal(ema, arrays["screen_ema"])
+        assert since == meta["screen_rounds_since_refresh"] == 2
+        for _ in range(3):
+            full.update()
+            back.update()
+        assert _trees_equal(full, back)
+        assert torch.equal(full._pred_train, back._pred_train)
         return
     with pytest.raises(IncompatibleCheckpointError, match="slice 6") as ei:
         resume_booster((arrays, meta), _make_ds())
