@@ -165,12 +165,12 @@ Phases:
    at 0 just before each run and read just after: (a) the script's calls at
    its own sizes (``make_boosting_curve(1000, 8657)``, one column, its
    params): ``cv`` (5 folds, early stopping 50, the script's 1,000 rounds
-   cut to 60 on both paths; fused strict, B6 + B3) through the kernels
+   cut to 40 on both paths; fused strict, B6 + B3) through the kernels
    and the plain versions (fold-mean RMSE per round within 1e-5 relative,
    ``best_iter`` equal, ``best_score`` within 1e-5), ``train`` of 500 rounds
-   (B1 + B3; the plain run the first 50 rounds, the plain versions being
+   (B1 + B3; the plain run the first 20 rounds, the plain versions being
    launch-bound at 1,000 rows) and ``predict(grid, ntree_limit=k)`` for k
-   in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 50 trees;
+   in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 20 trees;
    the RMSE against the true curve falls
    with k and differs across k), the staged fits served through
    ``PredictorRuntime`` (B4) within 1e-5, ``LGBMRandomForestRegressor``
@@ -186,7 +186,7 @@ Phases:
    through ``PredictorRuntime`` on 16,384 rows within 1e-5 of
    ``Booster.predict``; (c) ``cv()`` on the diamonds split with
    ``feature_fraction_bynode=0.5`` (the batched unfused strict body: B6, no
-   B3 launch; 30 rounds, cut from phase 8b's 1,000) through the kernels
+   B3 launch; 15 rounds, cut from phase 8b's 1,000) through the kernels
    and the plain versions, ``best_iter`` equal, ``best_score`` within 1e-5
    relative; (d) fused ``cv()`` at 2^19
    rows x 28, 5 folds, 63 leaves, 3 rounds, ``feature_fraction_bynode=
@@ -204,7 +204,7 @@ Phases:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host read); (b) the
    regression family on examples/gridsearch_cv.py's diamonds split with
    the price in dollars and the example's untuned call (learning rate
-   0.1, cut to 60 rounds): huber, fair, poisson, gamma, tweedie, mape,
+   0.1, cut to 30 rounds): huber, fair, poisson, gamma, tweedie, mape,
    cross_entropy (price over the largest price) and a custom ``fobj``
    (l2 in arithmetic operators) through the kernels and the plain
    versions, the held-out metric within 1e-5 relative; each model packed
@@ -259,7 +259,7 @@ Phases:
    the legacy traversal within 1e-5 with no B4 launch; (b) the strict
    grower, 3 rounds (B1 pairs, no B3), AUC within 1e-4; (c)
    examples/gridsearch_cv.py's ``cv()`` with cut, color and clarity as
-   factors (fused strict, E = 5: B6, no B3; both runs cut at 30 rounds,
+   factors (fused strict, E = 5: B6, no B3; both runs cut at 15 rounds,
    ``best_iter`` compared); (d) multiclass at
    Covertype's shape with Wilderness_Area and Soil_Type as categorical
    columns, 3 rounds (B5, B6), ``multi_logloss`` within 1e-4; (e) int8
@@ -272,13 +272,13 @@ Phases:
    held-out queries from ``default_rng(5)``, per-query feature offsets,
    top-heavy labels 0-4; ``lambdarank``, 63 leaves, learning rate 0.1,
    ``min_data_in_leaf`` 20, 255 bins, bf16, truncation at the query depth;
-   the wave grower with the exact tail: B1 roots, B2 waves), 50 rounds
+   the wave grower with the exact tail: B1 roots, B2 waves), 25 rounds
    through the kernels and the plain versions in turns: held-out NDCG@10
    within 1e-4, the round-1 trees equal (a near tie is recorded), host
    syncs per round, the lambda pass's device ms and launches, a profiled
    round, 20,000 held-out rows served by B4 within 1e-5 of
-   ``Booster.predict``; (b) 10,000 ragged queries of 20-220 documents
-   (about 1.2 M rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
+   ``Booster.predict``; (b) 5,000 ragged queries of 20-220 documents
+   (about 600,000 rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
    10 rounds each path: the lambda pass's gather/scatter route over
    several query chunks with no host read (sync debug mode "error"),
    training NDCG@10 within 1e-4; (c) group-aware ``cv()`` at the reference
@@ -310,7 +310,7 @@ Phases:
    within 1e-4; (d) examples/advanced_features.py's monotone call (seed 7,
    4,000 training rows, ``[1, -1, 0, 0, 0]``, 60 rounds) as called (its
    rows pad to 4,096: the wave grower, B2) and on the strict grower (B1
-   pairs, B3 never; 20 rounds): held-out RMSE within 1e-5 of the plain
+   pairs, B3 never; 10 rounds): held-out RMSE within 1e-5 of the plain
    path, the raw score monotone over the held-out rows' sweeps, CUDA-event
    ms a split iteration and of the unfused body's scan; (e) multiclass at
    Covertype's shape with its first column constrained, 3 rounds (B6 roots,
@@ -399,7 +399,37 @@ Phases:
    refresh 10; 100,000 rows, 20 rounds) in memory and streamed: AUC drift
    against screen-off within 1e-4, ``screen_refresh_rounds=1`` bit for bit
    as screen-off, every screened pass moving ``F_active`` columns and every
-   refresh pass ``F``.
+   refresh pass ``F``;
+23. multi-device training over ``parallel.set_virtual_devices(4)`` shards
+   of the one card (virtual shards measure the code path, not several
+   cards), every launch counter at 0 just before each run and read just
+   after: (a) ``tree_learner="data"`` at the north star (the default
+   ``reduce_scatter_pipelined`` merge, 4 chunks, f32 wire, bf16
+   histograms, 10 rounds) in turns with serial and with the plain
+   versions: B1 4 times a root and B2 4 times a wave, AUC within 1e-4 of
+   both, split structure equal to serial's (a near tie allowed) and the
+   leaves within rtol 1e-5 / atol 1e-6, the dyadic round-1 tree equal to
+   serial's, host syncs a round no more than serial's, the merges, scans
+   and the pieces' exchanges under sync debug mode "error", the merge's
+   CUDA-event ms a round, a round's peak bytes, the model served by B4
+   within 1e-5; (b) every merge at f32 wire grows serial's dyadic round-1
+   tree bit for bit at D = 4 and D = 8; bf16 and int8 wire within AUC 1e-4
+   of f32 wire on the reference's gate task (tools/bench_multichip.py's
+   "margin" data), their drift at the north star recorded (ungated in the
+   reference too); voting at ``top_k`` 20 (the exact union at F = 28)
+   and 5 trains a valid tree, its AUC beside serial's; (c)
+   ``tree_learner="feature"`` (7 columns a shard) and ``mesh_shape="2x2"``:
+   B1 without B2 or B3, the dyadic round-1 tree equal to serial's; (d) on
+   200,000 north-star rows or their own shape, 3 rounds each against
+   serial: the strict grower under ``histogram_merge="psum"`` (B1 pairs
+   per shard, B3), multiclass at Covertype's shape (B5/B6 per shard),
+   GOSS sampled per shard (AUC within 5e-3 of serial GOSS), lambdarank at
+   18a's shape, the airline table's categorical columns (voting warns and
+   takes ``reduce_scatter``), linear leaves and int8 histograms; (e) a
+   D = 4 ``train_resumable`` killed by SIGTERM after round index 6 and
+   resumed bit for bit, resumed at D = 2 and D = 8 with the checkpoint's
+   trees kept, and a checkpoint naming D = 3 or another merge mode refused
+   with ``IncompatibleCheckpointError`` naming the field.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -498,11 +528,13 @@ BB_ROWS, BB_SEED = 1000, 8657
 BB_PARAMS = {"objective": "reg:linear", "eval_metric": "rmse", "eta": 0.02,
              "max_depth": 6, "max_leaf_nodes": 31, "verbosity": 0,
              "min_data_in_leaf": 1}
-BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 60, 50, 5, 500
+# (60 until phase 23 needed the time)
+BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 40, 50, 5, 500
 BB_STAGES, BB_FORESTS = (1, 20, 50, 100, 300), (1, 3, 100)
 # the plain versions run ~5 ms a call at 1,000 rows (launch-bound): the
-# plain train covers the stages up to 50 trees (100 until phase 22)
-BB_PLAIN_ROUNDS = 50
+# plain train covers the stages up to 20 trees (100 until phase 22, 50
+# until phase 23)
+BB_PLAIN_ROUNDS = 20
 # EXAMPLES_r05.json (the JAX package on a TPU): staged RMSEs, printed as a
 # quality reference beside the port's, never as a time
 BB_TPU_STAGED_RMSE = {1: 0.5196, 20: 0.3567, 50: 0.1977, 100: 0.075,
@@ -514,8 +546,8 @@ RF_TREES, RF_SERVE_ROWS, SYNC_ROUNDS = 10, 16_384, 3
 BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
 # 14c's rounds, cut from phase 8b's 1,000 (early stopping found 301): the
 # unfused body's split scan runs in plain ops, 5-9 ms a split iteration
-# (50 until phase 20 needed the time)
-BYNODE_CV_ROUNDS = 30
+# (50 until phase 20 needed the time, 30 until phase 23 did)
+BYNODE_CV_ROUNDS = 15
 BATCH_CV_ROWS, BATCH_CV_LEAVES, BATCH_CV_ROUNDS = 1 << 19, 63, 3
 # phase 15: the remaining objectives; 15a's renewal at the north star
 RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
@@ -524,9 +556,10 @@ RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
 FAMILY_OBJECTIVES = ("huber", "fair", "poisson", "gamma", "tweedie", "mape",
                      "cross_entropy", "custom")
 FAMILY_METRIC = {"fair": "l1", "custom": "l2"}
-# the example's rounds cut to 60 on both paths (the plain versions are
-# launch-bound at 45,957 rows; 100 until phase 20 needed the time)
-FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 60, 16_384
+# the example's rounds cut to 30 on both paths (the plain versions are
+# launch-bound at 45,957 rows; 100 until phase 20 needed the time, 60
+# until phase 23 did)
+FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 30, 16_384
 # phase 16: GOSS and DART at LightGBM's defaults (top_rate 0.2, other_rate
 # 0.1; drop_rate 0.1, max_drop 50, skip_drop 0.5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
@@ -536,11 +569,12 @@ DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
 DART_ROUNDS = 30
 # 16d: the example's cv() rounds (kernels, plain), cut so the script fits
-# its time limit on a slow host: GOSS's both at 15 (early stopping ends
+# its time limit on a slow host: GOSS's both at 10 (early stopping ends
 # them at 177); DART's early stopping rarely ends it (each drop round
-# moves the ensemble), so both of its runs stop at 20 (GOSS 25 and DART
-# 30 until phase 22 needed the time, 40 and 50 before phase 20)
-GD_CV_ROUNDS = {"goss": 15, "dart": 20}
+# moves the ensemble), so both of its runs stop at 12 (15 and 20 until
+# phase 23 needed the time, 25 and 30 until phase 22, 40 and 50 before
+# phase 20)
+GD_CV_ROUNDS = {"goss": 10, "dart": 12}
 # 16e: the curve's params with DART dropping half the trees every round
 DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
                          skip_drop=0.0)
@@ -555,22 +589,26 @@ AIR_ROWS, CAT_ROUNDS, CAT_SHORT_ROUNDS, CAT_SERVE_ROWS = (1_000_000, 10, 3,
                                                           16_384)
 # 17c: examples/gridsearch_cv.py's cv() with the diamonds factors; both
 # runs are cut at the same round (early stopping ends the kernel run at
-# 139), so the script fits its time limit on a slow host (as 16d)
+# 139), so the script fits its time limit on a slow host (as 16d; 30
+# until phase 23 needed the time)
 DIAMOND_CATS = ["cut", "color", "clarity"]
-CAT_CV_ROUNDS = 30
+CAT_CV_ROUNDS = 15
 # phase 18: ranking; 18a is the reference bench's MSLR configuration
 # (bench.py bench_mslr): 1,000 training and 200 held-out queries of 100
 # documents, 136 features, truncation at the query depth
 MSLR_QUERIES, MSLR_VALID_QUERIES, MSLR_DOCS, MSLR_FEATURES = 1000, 200, 100, \
     136
-MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 50, 5, 10, 1e-4
+# 18a's rounds on both paths in turns: 25 (50 until phase 23 needed the
+# time)
+MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 25, 5, 10, 1e-4
 MSLR_PARAMS = {"objective": "lambdarank", "num_leaves": 63,
                "learning_rate": 0.1, "min_data_in_leaf": 20,
                "hist_dtype": "bf16", "lambdarank_truncation_level": MSLR_DOCS,
                "max_bin": MAX_BIN, "eval_at": [NDCG_K], "verbosity": -1}
 # 18b: ragged queries at MSLR-WEB30K's mean depth (3,771,125 documents over
-# 31,531 queries: about 120 a query)
-RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 10_000, (20, 221), \
+# 31,531 queries: about 120 a query); 5,000 of them, about 600,000 rows
+# (10,000 until phase 23 needed the time: host binning is most of 18b)
+RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 5_000, (20, 221), \
     10, 120
 # 18c: the reference test's make_ranked shape in a group-aware cv()
 RANK_CV_QUERIES, RANK_CV_FOLDS, RANK_CV_ES, RANK_CV_ROUNDS, RANK_CV_SEED = \
@@ -586,10 +624,10 @@ MONO_NS[6], MONO_NS[14], MONO_NS[17] = 1, 1, -1
 IC_GROUPS = [list(range(g, g + 7)) for g in range(0, NUM_FEATURES, 7)]
 MONO_SWEEP_ROWS, MONO_SERVE_ROWS, MONO_MC_ROUNDS = 1000, 16_384, 3
 ADV_ROUNDS = 60            # examples/advanced_features.py's num_boost_round
-# 19d's strict-grower runs are cut to 20 rounds on both paths (the unfused
-# body takes ~8 ms a split iteration on the card), so phase 19 fits its
-# 60-75 s
-ADV_STRICT_ROUNDS = 20
+# 19d's strict-grower runs are cut to 10 rounds on both paths (the unfused
+# body takes ~8 ms a split iteration on the card; 20 until phase 23
+# needed the time)
+ADV_STRICT_ROUNDS = 10
 # phase 20: examples/advanced_features.py's linear call and TreeSHAP rows,
 # and the north star's TreeSHAP and pred_leaf rows
 LINEAR_EXAMPLE_ROUNDS, SHAP_EXAMPLE_ROWS = 25, 500
@@ -4957,7 +4995,9 @@ def first_split_difference(a, b):
                           | (a["split_bin"] != b["split_bin"])
                           | (a["is_leaf"] != b["is_leaf"]))
     i = int(diff[0]) if len(diff) else 0
-    ga, gb = float(a["split_gain"][i]), float(b["split_gain"][i])
+    # flat over a multiclass round's [K, M] tables
+    ga = float(a["split_gain"].reshape(-1)[i])
+    gb = float(b["split_gain"].reshape(-1)[i])
     return {"node": i, "gains": [ga, gb],
             "rel": abs(ga - gb) / max(abs(ga), abs(gb), 1e-30)}
 
@@ -5047,7 +5087,7 @@ def phase_rank_mslr(dev, workdir, launches):
 
 
 def phase_rank_ragged(dev, launches):
-    """18b: 10,000 ragged queries (20-220 documents) with 18a's feature and
+    """18b: 5,000 ragged queries (20-220 documents) with 18a's feature and
     label recipe: the gather/scatter route of the lambda pass over several
     query chunks, kernel and plain paths."""
     import lightgbm_tpu_torch as lgb
@@ -6882,6 +6922,563 @@ def phase_streaming(dev, X, y, ds, card):
     return out
 
 
+# phase 23: multi-device training on virtual shards of the one card.  23a:
+# the north star at D = 4 (the default reduce_scatter_pipelined merge, 4
+# chunks, f32 wire); 23b-e at D = 4 unless named.  23d's options run on the
+# first DP_SUB_ROWS north-star rows (or their own shape) for DP_ROUNDS
+# rounds; 23e kills after round index DP_KILL_AFTER of DP_RECOVERY_ROUNDS
+DP_DEVICES, DP_ROUNDS, DP_SUB_ROWS = 4, 3, 200_000
+DP_MERGES = ("psum", "reduce_scatter", "reduce_scatter_ring",
+             "reduce_scatter_pipelined")
+DP_RECOVERY_ROUNDS, DP_RECOVERY_EVERY, DP_KILL_AFTER = 8, 4, 6
+# 23b: the lossy wires are gated where the reference gates them
+# (tools/bench_multichip.py: AUC drift <= 1e-4 on its exactly-learnable
+# "margin" task, 4,096 x 16, 15 leaves, 10 rounds); on the north star,
+# like the reference's ungated noisy "ladder" task, the drift is recorded
+# under a sanity bound (on an H100 80GB HBM3 at 700 W: bf16 6.6e-4, int8
+# 4.2e-3 below f32 wire; the port's wire is the reference's bit for bit
+# on the CPU, tests/test_torch_parallel.py)
+WIRE_AUC_LIMIT = 1e-2
+MARGIN_ROWS, MARGIN_FEATURES, MARGIN_ROUNDS = 4096, 16, 10
+DP_PARAMS = dict(TRAIN_PARAMS, tree_learner="data")
+
+
+def structure_regime(a, b, what, leaf_tol=False):
+    """Split structure equal tree by tree (the first differing split, if
+    any, a near tie: gains within 1e-4 relative, after which later trees
+    grow on other scores and are not compared); the leaves' largest
+    absolute and relative differences recorded over the equal trees, and
+    with ``leaf_tol`` held to rtol 1e-5 / atol 1e-6 (the parity regime).
+    Only leaf slots count: an internal node keeps the value it had as a
+    leaf, and the root's comes from the root totals, which a slicing merge
+    takes from the statistics (f32) where serial takes them from the
+    (bf16-rounded) histogram, as the reference's do."""
+    ties, worst_abs, worst_rel, n = [], 0.0, 0.0, 0
+    for i in range(min(len(a.trees), len(b.trees))):
+        ta, tb = tree_arrays(a, i), tree_arrays(b, i)
+        d = first_split_difference(ta, tb)
+        if d is not None:
+            check(d["rel"] <= 1e-4, f"{what}: tree {i} differs: {d}")
+            ties.append({"tree": i, **d})
+            break
+        leaf = ta["is_leaf"].astype(bool)
+        la = ta["leaf_value"].astype(np.float64)[leaf]
+        lb = tb["leaf_value"].astype(np.float64)[leaf]
+        if leaf_tol:
+            check(np.allclose(la, lb, rtol=1e-5, atol=1e-6),
+                  f"{what}: tree {i} leaf values")
+        diff = np.abs(la - lb)
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_rel = max(worst_rel, float((diff / np.maximum(
+            np.abs(la), 1e-30)).max()))
+        n += 1
+    check(len(a.trees) == len(b.trees), f"{what}: tree counts")
+    return ties, {"trees_equal_structure": n, "max_abs": worst_abs,
+                  "max_rel": worst_rel}
+
+
+def dp_counts(counts, d):
+    """Whether every histogram kernel's launches on a mesh run are a
+    multiple of the shard count (each pass launches once per shard)."""
+    return all(v % d == 0 for k, v in counts.items()
+               if k.startswith("hist_") and v)
+
+
+def phase_dp_north_star(dev, X, y, ds, Xv, yv, launches):
+    """23a: ``tree_learner="data"`` at the north star over DP_DEVICES
+    virtual shards, mesh / serial / mesh-plain in turns (10 rounds each):
+    B1 D times a root and B2 D times a wave, AUC within 1e-4 of serial and
+    of plain, split structure equal to serial's (a near tie allowed) and
+    the leaves within rtol 1e-5 / atol 1e-6, the dyadic round-1
+    tree equal to serial's, host syncs a round no more than serial's, the
+    merges and exchanges with no host read, the merge's CUDA-event ms, a
+    round's peak bytes, the model served (B4)."""
+    import copy
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.parallel import data_parallel as DP
+    from lightgbm_tpu_torch.serving import PredictorRuntime, pack_booster
+
+    d = DP_DEVICES
+    runs, turns = {}, {"mesh": [], "serial": [], "plain": []}
+    for tag in ("mesh", "serial", "plain", "serial", "mesh"):
+        extra = {"serial": {"tree_learner": "serial"},
+                 "plain": {"hist_impl": "plain"}}.get(tag, {})
+        DP.MERGE_TIMER["on"] = tag == "mesh"
+        b, secs, counts, plain = train_run(lgb, ds, dict(DP_PARAMS, **extra),
+                                           TRAIN_ROUNDS)
+        DP.MERGE_TIMER["on"] = False
+        merge = DP.merge_ms()
+        turns[tag].append(secs / TRAIN_ROUNDS)
+        if tag not in runs:
+            runs[tag] = {"booster": b, "counts": counts, "plain_calls": plain,
+                         "merge_ms_per_round": merge / TRAIN_ROUNDS}
+        log(f"phase 23a {tag}: {secs / TRAIN_ROUNDS:.4f} s/round, launches "
+            f"{json.dumps(counts)}, plain calls {plain}, merge "
+            f"{merge / TRAIN_ROUNDS:.3f} ms/round")
+    m, ser, pl = runs["mesh"], runs["serial"], runs["plain"]
+    mb = m["booster"]
+    check(mb._mesh is not None and mb._mesh.n_devices == d
+          and mb._mesh.mode == "reduce_scatter_pipelined"
+          and mb._mesh.chunks == 4 and mb._mesh.wire == "f32",
+          f"23a mesh {getattr(mb, '_mesh', None)}")
+    c = m["counts"]
+    check(c["hist_fused_bf16"] == d * TRAIN_ROUNDS
+          and c["hist_partition_bf16"] > 0 and dp_counts(c, d)
+          and m["plain_calls"] == 0,
+          f"23a launches {c} (B1 {d} a root, B2 {d} a wave), plain calls "
+          f"{m['plain_calls']}")
+    check(sum(v for k, v in pl["counts"].items() if k.startswith("hist_"))
+          == 0, f"23a hist_impl='plain' launched {pl['counts']}")
+    waves = {"mesh": c["hist_partition_bf16"] / d,
+             "serial": ser["counts"]["hist_partition_bf16"]}
+    aucs = {t: auc(r["booster"], Xv, yv, dev) for t, r in runs.items()}
+    check(abs(aucs["mesh"] - aucs["serial"]) <= AUC_TOL
+          and abs(aucs["mesh"] - aucs["plain"]) <= AUC_TOL,
+          f"23a AUC {json.dumps(aucs)}")
+    ties, leaf_diff = structure_regime(ser["booster"], mb,
+                                       "23a mesh vs serial", leaf_tol=True)
+    add_launches(launches, c)
+
+    # the dyadic round-1 tree (phase 6's codes relabelled): mesh == serial
+    yd = dyadic_label(X, SEED + 230)
+    dsd = copy.copy(ds).set_label(yd)
+    pd = dict(DP_PARAMS, objective="regression")
+    (bm, bs), _, counts, _ = counted_run(lambda: (
+        lgb.train(pd, dsd, 1), lgb.train(dict(pd, tree_learner="serial"),
+                                          dsd, 1)))
+    add_launches(launches, counts)
+    check(trees_identical(bm, bs, 1), "23a dyadic: the mesh's round-1 tree "
+          "differs from the serial one")
+
+    # host syncs a round (sync debug mode), mesh against serial
+    syncs = {"mesh": syncs_per_round(lgb, DP_PARAMS, ds),
+             "serial": syncs_per_round(
+                 lgb, dict(DP_PARAMS, tree_learner="serial"), ds)}
+    check(syncs["mesh"]["syncs_per_round"]
+          <= syncs["serial"]["syncs_per_round"],
+          f"23a host syncs a round {json.dumps(syncs)}")
+
+    # mesh rounds with every merge, every split scan and every exchange of
+    # the pieces' winners under sync debug mode "error": none reads the host
+    import lightgbm_tpu_torch.models.tree as T
+
+    probe = lgb.Booster(dict(DP_PARAMS), ds)
+    merges = round_without_host_reads(probe, DP.MeshLayout, "merge")
+    scans = round_without_host_reads(probe, T, "find_best_split")
+    exchanges = round_without_host_reads(probe, T, "_best_of_pieces")
+    check(merges > 0 and scans > 0 and exchanges > 0,
+          f"23a sync probe: {merges} merges, {scans} scans, {exchanges} "
+          "exchanges")
+    del probe
+
+    # a round's peak device bytes above live, mesh against serial
+    peaks = {}
+    for tag, extra in (("mesh", {}), ("serial", {"tree_learner": "serial"})):
+        peaks[tag] = peak_round_bytes(lgb.Booster(dict(DP_PARAMS, **extra),
+                                                  ds))
+    # served through PredictorRuntime (B4)
+    rows = Xv[:RECOVERY_SERVE_ROWS]
+    rt = PredictorRuntime(pack_booster(mb), max_bucket=MAX_BUCKET,
+                          device=dev)
+    served, _, counts, _ = counted_run(lambda: rt.predict(rows))
+    check(counts["predict_forest"] > 0, f"23a serving launches {counts}")
+    add_launches(launches, counts)
+    sdiff = float(np.abs(served - mb.predict(rows)).max())
+    check(sdiff <= 1e-5, f"23a served vs Booster.predict {sdiff:.2e}")
+    pdiff = float(np.abs(mb.predict(Xv) - ser["booster"].predict(Xv)).max())
+    out = {"devices": d, "virtual": True, "s_per_round_in_turns": turns,
+           "merge_event_ms_per_round": m["merge_ms_per_round"],
+           "auc": aucs, "near_ties_vs_serial": ties,
+           "leaf_diff_vs_serial": leaf_diff,
+           "pred_max_abs_diff_vs_serial": pdiff, "waves": waves,
+           "launches": c, "host_syncs": syncs, "peak_bytes": peaks,
+           "dyadic_round1_equal": True, "serve_max_abs_diff": sdiff,
+           "under_sync_error": {"merges": merges, "scans": scans,
+                                "exchanges": exchanges}}
+    log(f"phase 23a: {json.dumps(out)}")
+    return out, dsd, aucs["mesh"]
+
+
+def phase_dp_merges(dev, X, ds, dsd, Xv, yv, auc_f32_wire, launches):
+    """23b: every merge at f32 wire grows serial's round-1 tree on the
+    dyadic tier at D = 4 and D = 8, bit for bit; bf16 and int8 wire within
+    AUC 1e-4 of f32 wire on the reference's gate task
+    (:func:`wire_margin_gate`), their drift at the north star recorded
+    (within WIRE_AUC_LIMIT, a sanity bound); voting (top_k 20, the
+    exact union at F = 28, and top_k 5, a real ballot) trains a valid
+    tree, its AUC beside serial's."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+
+    pd = dict(DP_PARAMS, objective="regression", hist_dtype="f32")
+    serial = lgb.train(dict(pd, tree_learner="serial"), dsd, 1)
+    dyadic = {}
+    try:
+        for d in (DP_DEVICES, 8):
+            set_virtual_devices(d)
+            for mode in DP_MERGES:
+                b, _, counts, _ = counted_run(lambda: lgb.train(
+                    dict(pd, histogram_merge=mode), dsd, 1))
+                check(b._mesh.n_devices == d and dp_counts(counts, d),
+                      f"23b {mode} D={d}: launches {counts}")
+                check(trees_identical(serial, b, 1), f"23b {mode} D={d}: "
+                      "the round-1 tree differs from serial's")
+                dyadic[f"{mode}@{d}"] = True
+                add_launches(launches, counts)
+    finally:
+        set_virtual_devices(DP_DEVICES)
+    aucs = {"f32": auc_f32_wire}
+    secs = {}
+    for wire in ("bf16", "int8"):
+        b, s, counts, _ = counted_run(lambda: lgb.train(
+            dict(DP_PARAMS, histogram_wire=wire), ds, TRAIN_ROUNDS))
+        aucs[wire] = auc(b, Xv, yv, dev)
+        secs[wire] = s / TRAIN_ROUNDS
+        add_launches(launches, counts)
+        # the lossy wires re-round every hop's partial sums (bf16: 8 bits
+        # of mantissa; int8: 255 levels a column): recorded, a sanity limit
+        check(b._mesh.wire == wire and abs(aucs[wire] - aucs["f32"])
+              <= WIRE_AUC_LIMIT, f"23b {wire} wire AUC {aucs[wire]} vs "
+              f"f32 {aucs['f32']}")
+    margin = wire_margin_gate(lgb, dev, launches)
+    voting = {}
+    for k in (20, 5):
+        b, s, counts, _ = counted_run(lambda: lgb.train(
+            dict(DP_PARAMS, tree_learner="voting", top_k=k), ds,
+            DP_ROUNDS))
+        add_launches(launches, counts)
+        t = tree_arrays(b, 0)
+        check(b._mesh.mode == "voting" and int(t["num_leaves"]) > 1,
+              f"23b voting top_k={k}: {int(t['num_leaves'])} leaves")
+        voting[f"top_k={k}"] = {"auc": auc(b, Xv, yv, dev),
+                                "s_per_round": s / DP_ROUNDS,
+                                "leaves_round1": int(t["num_leaves"])}
+    serial3 = lgb.train(dict(DP_PARAMS, tree_learner="serial"), ds,
+                        DP_ROUNDS)
+    voting["serial_auc"] = auc(serial3, Xv, yv, dev)
+    out = {"dyadic_round1_equal": dyadic, "wire_auc": aucs,
+           "wire_auc_drift": {w: aucs[w] - aucs["f32"]
+                              for w in ("bf16", "int8")},
+           "wire_s_per_round": secs, "margin_gate": margin,
+           "voting": voting}
+    log(f"phase 23b: {json.dumps(out)}")
+    return out
+
+
+def wire_margin_gate(lgb, dev, launches):
+    """The reference's wire quality gate (tools/bench_multichip.py's
+    "margin" task: labels a deterministic function of three thresholded
+    columns, 4,096 x 16, 15 leaves, lr 0.2, 10 rounds, held-out AUC from
+    another seed): bf16 and int8 wire within AUC 1e-4 of f32 wire."""
+    def make(seed):
+        rng = np.random.default_rng(seed)
+        X = rng.uniform(-1, 1, size=(MARGIN_ROWS, MARGIN_FEATURES)).astype(
+            np.float32)
+        logit = (4.0 * (X[:, 0] > 0.3) + 3.0 * (X[:, 1] < 0.1)
+                 + 2.0 * (X[:, 2] > 0.6) - 4.5)
+        return X, (logit > 0).astype(np.float32)
+
+    X, y = make(1)
+    Xv, yv = make(2)
+    ds = lgb.Dataset(X, label=y)
+    base = {"objective": "binary", "num_leaves": 15, "learning_rate": 0.2,
+            "verbosity": -1, "tree_learner": "data", "mesh_shape": "1d"}
+    aucs = {}
+    for wire in ("f32", "bf16", "int8"):
+        b, _, counts, _ = counted_run(lambda: lgb.train(
+            dict(base, histogram_wire=wire), ds, MARGIN_ROUNDS))
+        add_launches(launches, counts)
+        aucs[wire] = auc(b, Xv, yv, dev)
+    for wire in ("bf16", "int8"):
+        check(abs(aucs[wire] - aucs["f32"]) <= AUC_TOL,
+              f"23b margin gate: {wire} wire AUC {aucs[wire]} vs f32 "
+              f"{aucs['f32']}")
+    return aucs
+
+
+def phase_dp_features(dev, ds, dsd, Xv, yv, launches):
+    """23c: ``tree_learner="feature"`` (28 columns, 7 a shard) and
+    ``mesh_shape="2x2"``: B1 without B2 (and no B3), the dyadic round-1
+    tree equal to serial's; DP_ROUNDS binary rounds timed, AUC recorded."""
+    import lightgbm_tpu_torch as lgb
+
+    pd = dict(DP_PARAMS, objective="regression")
+    serial = lgb.train(dict(pd, tree_learner="serial"), dsd, 1)
+    out = {}
+    for tag, extra in (("feature", {"tree_learner": "feature"}),
+                       ("mesh_2x2", {"mesh_shape": "2x2"})):
+        b, _, counts, _ = counted_run(lambda: lgb.train(dict(pd, **extra),
+                                                        dsd, 1))
+        lay = b._mesh
+        check(lay is not None and lay.dc == (4 if tag == "feature" else 2)
+              and counts["hist_fused_bf16"] > 0
+              and counts["hist_partition_bf16"] == 0
+              and counts["split_iter"] == 0 and dp_counts(counts, 4),
+              f"23c {tag}: mesh {lay and (lay.dr, lay.dc)}, launches "
+              f"{counts}")
+        check(trees_identical(serial, b, 1), f"23c {tag}: the dyadic "
+              "round-1 tree differs from serial's")
+        add_launches(launches, counts)
+        bb, s, counts, _ = counted_run(lambda: lgb.train(
+            dict(DP_PARAMS, **extra), ds, DP_ROUNDS))
+        add_launches(launches, counts)
+        out[tag] = {"mesh": [lay.dr, lay.dc], "f_local": lay.f_loc,
+                    "s_per_round": s / DP_ROUNDS,
+                    "auc": auc(bb, Xv, yv, dev), "launches": counts}
+    log(f"phase 23c: {json.dumps(out)}")
+    return out
+
+
+def dp_pair(lgb, ds, params, rounds, what, launches, d=DP_DEVICES):
+    """Serial, then mesh runs of ``params``; the mesh's split structure
+    equal to serial's (a near tie allowed, :func:`structure_regime`), the
+    leaves' differences recorded; returns (mesh booster, serial booster,
+    the record)."""
+    ser, s_ser, _, _ = counted_run(lambda: lgb.train(
+        dict(params, tree_learner="serial"), ds, rounds))
+    b, s, counts, plain = counted_run(lambda: lgb.train(params, ds, rounds))
+    check(b._mesh is not None and b._mesh.n_devices == d
+          and dp_counts(counts, d) and plain == 0,
+          f"{what}: mesh {b._mesh}, launches {counts}, plain calls {plain}")
+    add_launches(launches, counts)
+    ties, leaf_diff = structure_regime(ser, b, what)
+    return b, ser, {"s_per_round": s / rounds,
+                    "serial_s_per_round": s_ser / rounds,
+                    "launches": counts, "near_ties": ties,
+                    "leaf_diff": leaf_diff}
+
+
+def phase_dp_options(dev, X, y, ds_cov, Xv, yv, launches):
+    """23d: what the mesh composes with, DP_ROUNDS rounds each against
+    serial (split structure equal, a near tie allowed, the leaves'
+    differences recorded): the strict grower under psum (B1 pairs per
+    shard, B3), multiclass at Covertype's shape (B5/B6 per shard), GOSS
+    (per-shard samples: AUC within 5e-3 of serial GOSS), lambdarank at
+    18a's shape, categorical columns at the airline table's shape (and
+    voting's warning and fallback), linear leaves, int8 histograms."""
+    import warnings
+
+    import lightgbm_tpu_torch as lgb
+
+    out = {}
+    sub = DP_SUB_ROWS
+    dsub = lgb.Dataset(X[:sub], label=y[:sub], params={"max_bin": MAX_BIN})
+    b, _, r = dp_pair(lgb, dsub, dict(DP_PARAMS, grow_policy="leafwise",
+                                      histogram_merge="psum"),
+                      DP_ROUNDS, "23d strict psum", launches)
+    check(r["launches"]["split_iter"] == DP_ROUNDS * (NUM_LEAVES - 1)
+          and r["launches"]["hist_partition_bf16"] == 0,
+          f"23d strict: launches {r['launches']}")
+    out["strict_psum"] = r
+    b, _, r = dp_pair(lgb, ds_cov, dict(COV_PARAMS, tree_learner="data"),
+                      DP_ROUNDS, "23d multiclass", launches)
+    check(r["launches"]["hist_fused_batched_bf16"]
+          + r["launches"]["hist_segstats_bf16"] > 0,
+          f"23d multiclass: launches {r['launches']}")
+    out["multiclass"] = r
+    gp = dict(GOSS_PARAMS, tree_learner="data")
+    b, ser, r = dp_pair_goss(lgb, dsub, gp, launches)
+    out["goss"] = r
+
+    rng = np.random.default_rng(MSLR_SEED)
+    sizes = np.full(MSLR_QUERIES, MSLR_DOCS)
+    Xr, yr = mslr_like(sizes, rng)
+    dr = lgb.Dataset(Xr, label=yr, group=sizes, params={"max_bin": MAX_BIN})
+    b, ser, r = dp_pair(lgb, dr, dict(MSLR_PARAMS, tree_learner="data"),
+                        DP_ROUNDS, "23d lambdarank", launches)
+    r["ndcg@10"] = {"mesh": b.eval_train()[0][2],
+                    "serial": ser.eval_train()[0][2]}
+    out["lambdarank"] = r
+
+    Xa, ya = airline_like(sub, SEED + 231)
+    da = cat_dataset(lgb, Xa, ya)
+    b, ser, r = dp_pair(lgb, da, DP_PARAMS, DP_ROUNDS, "23d categorical",
+                        launches)
+    check(cat_split_nodes(b) > 0, "23d categorical: no subset split")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        bv = lgb.train(dict(DP_PARAMS, tree_learner="voting"), da,
+                       DP_ROUNDS)
+    check(bv._mesh.mode == "reduce_scatter" and any(
+        "reduce_scatter merge instead" in str(w.message) for w in caught),
+        "23d categorical voting: no warning and fallback")
+    structure_regime(ser, bv, "23d categorical voting fallback")
+    r["voting_fallback"] = "reduce_scatter"
+    out["categorical"] = r
+    del da, dr
+
+    dl = lgb.Dataset(X[:sub], label=y[:sub], free_raw_data=False,
+                     params={"max_bin": MAX_BIN, "enable_bundle": False})
+    b, ser, r = dp_pair(lgb, dl, dict(DP_PARAMS, linear_tree=True),
+                        DP_ROUNDS, "23d linear", launches)
+    check(b.trees[0].linear_coef is not None, "23d linear: no coefficients")
+    out["linear"] = r
+    b, _, counts, _ = counted_run(lambda: lgb.train(
+        dict(DP_PARAMS, hist_dtype="int8"), dsub, DP_ROUNDS))
+    ser = lgb.train(dict(DP_PARAMS, hist_dtype="int8",
+                         tree_learner="serial"), dsub, DP_ROUNDS)
+    check(counts["hist_fused_int8"] > 0 and dp_counts(counts, DP_DEVICES),
+          f"23d int8: launches {counts}")
+    add_launches(launches, counts)
+    out["int8"] = {"launches": counts, "auc": {
+        "mesh": auc(b, Xv, yv, dev), "serial": auc(ser, Xv, yv, dev)}}
+    check(abs(out["int8"]["auc"]["mesh"] - out["int8"]["auc"]["serial"])
+          <= 1e-3, f"23d int8 AUC {out['int8']['auc']}")
+    log(f"phase 23d: {json.dumps(out)}")
+    return out
+
+
+def dp_pair_goss(lgb, ds, params, launches):
+    """GOSS samples each shard's rows (per-shard keys), so its trees are
+    not serial GOSS's: the AUCs within 5e-3 (a sanity limit; the gap is
+    recorded), the tree replicated and every row scored."""
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    Xv, yv = make_higgs_like(VALID_ROWS // 4, NUM_FEATURES, seed=9)
+    dev = ds.device
+    ser = lgb.train(dict(params, tree_learner="serial"), ds, DP_ROUNDS)
+    b, s, counts, _ = counted_run(lambda: lgb.train(params, ds, DP_ROUNDS))
+    add_launches(launches, counts)
+    k_shard = b._goss_k_shard()
+    check(b._mesh is not None and dp_counts(counts, DP_DEVICES)
+          and np.isfinite(b._pred_train.cpu().numpy()).all(),
+          f"23d GOSS: launches {counts}")
+    aucs = {"mesh": auc(b, Xv, yv, dev), "serial": auc(ser, Xv, yv, dev)}
+    check(abs(aucs["mesh"] - aucs["serial"]) <= 5e-3, f"23d GOSS {aucs}")
+    return b, ser, {"s_per_round": s / DP_ROUNDS, "auc": aucs,
+                    "k_per_shard": list(k_shard), "launches": counts}
+
+
+def phase_dp_recovery(dev, ds, workdir, launches):
+    """23e: a D = 4 ``train_resumable`` killed by SIGTERM after round index
+    DP_KILL_AFTER and resumed at D = 4 equals the uninterrupted D = 4 run
+    bit for bit; resumed at D = 2 and D = 8 it keeps the forest so far and
+    continues with its structure; a checkpoint naming D = 3, or another
+    merge mode, raises ``IncompatibleCheckpointError`` naming the field.
+    (Another D merges the same partials in another order: structure equal
+    to the uninterrupted run, a near tie allowed, the leaves recorded.)"""
+    import shutil
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+    from lightgbm_tpu_torch.training import (IncompatibleCheckpointError,
+                                             load_checkpoint, resume_booster,
+                                             train_resumable)
+
+    root = os.path.join(workdir, "dp_recovery")
+    shutil.rmtree(root, ignore_errors=True)
+    params = dict(RECOVERY_PARAMS, tree_learner="data")
+    kw = dict(checkpoint_rounds=DP_RECOVERY_EVERY, keep_last=3)
+
+    def kill(booster, i):
+        if i == DP_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def training():
+        full = train_resumable(dict(params), ds, DP_RECOVERY_ROUNDS,
+                               checkpoint_dir=os.path.join(root, "full"),
+                               resume=False, **kw)
+        killed = train_resumable(dict(params), ds, DP_RECOVERY_ROUNDS,
+                                 checkpoint_dir=os.path.join(root, "kill"),
+                                 resume=False, round_callbacks=[kill], **kw)
+        again = train_resumable(dict(params), ds, DP_RECOVERY_ROUNDS,
+                                checkpoint_dir=os.path.join(root, "kill"),
+                                resume=True, **kw)
+        return full, killed, again
+
+    (full, killed, again), secs, counts, _ = counted_run(training)
+    add_launches(launches, counts)
+    check(killed.preempted and killed.rounds_done == DP_KILL_AFTER + 1
+          and again.completed and full.booster._mesh.n_devices == DP_DEVICES,
+          f"23e runs: {killed}, {again}")
+    check(same_run(full.booster, again.booster),
+          "23e: the resumed D = 4 run differs from the uninterrupted one")
+    path = killed.last_checkpoint
+    arrays, meta = load_checkpoint(path)
+    check(meta["parallel"]["n_devices"] == DP_DEVICES
+          and meta["parallel"]["merge_mode"] == "reduce_scatter_pipelined",
+          f"23e checkpoint meta {meta['parallel']}")
+    elastic = {}
+    try:
+        for d in (2, 8):
+            set_virtual_devices(d)
+            b = resume_booster(path, ds)
+            check(b._mesh.n_devices == d and b._iter == DP_KILL_AFTER + 1,
+                  f"23e resume at D = {d}: {b._mesh}, iter {b._iter}")
+            while b._iter < DP_RECOVERY_ROUNDS:
+                b.update()
+            check(trees_identical(full.booster, b, DP_KILL_AFTER + 1),
+                  f"23e resume at D = {d}: the checkpoint's trees changed")
+            elastic[d] = structure_regime(full.booster, b,
+                                          f"23e D=4 -> {d}")
+    finally:
+        set_virtual_devices(DP_DEVICES)
+    refusals = {}
+    for field, patch in (("n_devices", {"n_devices": 3}),
+                         ("merge_mode", {"merge_mode": "psum"})):
+        bad = dict(meta, parallel=dict(meta["parallel"], **patch))
+        try:
+            resume_booster((arrays, bad), ds)
+            fail(f"23e: a checkpoint with {patch} resumed")
+        except IncompatibleCheckpointError as e:
+            check(e.field == field, f"23e refusal names {e.field}")
+            refusals[field] = str(e)[:80]
+    out = {"s": secs, "bit_identical": True,
+           "elastic_vs_uninterrupted": {str(k): v for k, v in
+                                        elastic.items()},
+           "refusals": refusals}
+    log(f"phase 23e: {json.dumps(out)}")
+    return out
+
+
+def phase_multi_device(dev, X, y, ds, ds_cov, workdir, card):
+    """Phase 23 over DP_DEVICES virtual shards on the one card, every
+    launch counter at 0 just before each run and read just after; fails
+    unless B1, B2, B3, B4, B5/B6 and B1 int8 launched."""
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    set_virtual_devices(DP_DEVICES)
+    try:
+        t1 = time.perf_counter()
+        out["23a"], dsd, auc_mesh = phase_dp_north_star(dev, X, y, ds, Xv,
+                                                        yv, launches)
+        secs["23a"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["23b"] = phase_dp_merges(dev, X, ds, dsd, Xv, yv, auc_mesh,
+                                     launches)
+        secs["23b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["23c"] = phase_dp_features(dev, ds, dsd, Xv, yv, launches)
+        secs["23c"] = time.perf_counter() - t1
+        del dsd
+        t1 = time.perf_counter()
+        out["23d"] = phase_dp_options(dev, X, y, ds_cov, Xv, yv, launches)
+        secs["23d"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["23e"] = phase_dp_recovery(dev, ds, workdir, launches)
+        secs["23e"] = time.perf_counter() - t1
+    finally:
+        set_virtual_devices(0)
+    for name in ("hist_fused_bf16", "hist_fused_f32", "hist_partition_bf16",
+                 "split_iter", "predict_forest", "hist_fused_int8"):
+        check(launches.get(name, 0) > 0, f"phase 23: {name} never launched")
+    check(launches.get("hist_fused_batched_bf16", 0)
+          + launches.get("hist_segstats_bf16", 0) > 0,
+          "phase 23: neither B5 nor B6 launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 23: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6970,10 +7567,11 @@ def main() -> int:
     l20 = phase20["launches"]
     phase21 = phase_continuation(dev, ds_north, dds, ds_cov, card)
     l21 = phase21["launches"]
-    del ds_cov
     phase22 = phase_streaming(dev, X, y, ds_north, card)
     l22 = phase22["launches"]
-    del ds_north
+    phase23 = phase_multi_device(dev, X, y, ds_north, ds_cov, workdir, card)
+    l23 = phase23["launches"]
+    del ds_north, ds_cov
 
     kernels = []
     for prec in PRECISIONS:
@@ -6993,7 +7591,8 @@ def main() -> int:
                              "19": l19.get("predict_forest", 0),
                              "20": l20.get("predict_forest", 0),
                              "21": l21.get("predict_forest", 0),
-                             "22": l22.get("predict_forest", 0)})
+                             "22": l22.get("predict_forest", 0),
+                             "23": l23.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -7024,7 +7623,8 @@ def main() -> int:
                     "19": l19.get(f"{name}_{mode}", 0),
                     "20": l20.get(f"{name}_{mode}", 0),
                     "21": l21.get(f"{name}_{mode}", 0),
-                    "22": l22.get(f"{name}_{mode}", 0)},
+                    "22": l22.get(f"{name}_{mode}", 0),
+                    "23": l23.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7048,7 +7648,7 @@ def main() -> int:
             "16": l16["split_iter"], "17": l17.get("split_iter", 0),
             "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
             "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0),
-            "22": l22.get("split_iter", 0)},
+            "22": l22.get("split_iter", 0), "23": l23.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -7075,7 +7675,8 @@ def main() -> int:
                 "19": l19.get(f"hist_segstats_{mode}", 0),
                 "20": l20.get(f"hist_segstats_{mode}", 0),
                 "21": l21.get(f"hist_segstats_{mode}", 0),
-                "22": l22.get(f"hist_segstats_{mode}", 0)},
+                "22": l22.get(f"hist_segstats_{mode}", 0),
+                "23": l23.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7103,7 +7704,8 @@ def main() -> int:
                 "19": l19.get(f"hist_fused_batched_{mode}", 0),
                 "20": l20.get(f"hist_fused_batched_{mode}", 0),
                 "21": l21.get(f"hist_fused_batched_{mode}", 0),
-                "22": l22.get(f"hist_fused_batched_{mode}", 0)},
+                "22": l22.get(f"hist_fused_batched_{mode}", 0),
+                "23": l23.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -7120,7 +7722,8 @@ def main() -> int:
             "19": l19.get("hist_fused_int8", 0),
             "20": l20.get("hist_fused_int8", 0),
             "21": l21.get("hist_fused_int8", 0),
-            "22": l22.get("hist_fused_int8", 0)},
+            "22": l22.get("hist_fused_int8", 0),
+            "23": l23.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -7146,7 +7749,7 @@ def main() -> int:
               "int8": int8, "recovery": recovery, "phase14": phase14,
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "phase18": phase18, "phase19": phase19, "phase20": phase20,
-              "phase21": phase21, "phase22": phase22,
+              "phase21": phase21, "phase22": phase22, "phase23": phase23,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

@@ -319,7 +319,7 @@ def _sweep(cfg: Dict[str, str], data_path: Optional[str], header: bool,
     if sweep_devices > 1:
         raise die(f"sweep_devices={sweep_devices}: a sweep over several "
                   "devices is not ported yet: ROADMAP slice 6 "
-                  "(multi-device), item 12")
+                  "(multi-device), item 12b")
     ckpt_dir = cfg.pop("sweep_checkpoint_dir", None)
     if ckpt_dir is not None and not str(ckpt_dir).strip():
         raise die("sweep_checkpoint_dir must be a directory path")
@@ -511,7 +511,7 @@ def _serve(input_model: str, cfg: Dict[str, str],
 
     if mesh_devices != 1:
         raise die(f"mesh_devices={mesh_devices}: multi-device serving is "
-                  "not ported yet: ROADMAP slice 6 (multi-device), item 12")
+                  "not ported yet: ROADMAP slice 6 (multi-device), item 12b")
     try:
         bank = ModelBank(max_bucket=max_bucket, max_cache_entries=max_cache,
                          warm_on_deploy=warm_buckets,

@@ -3,7 +3,7 @@ mergeable quantile sketch, :mod:`.sketch`), host-resident binned blocks
 with their prefetch to the card (:mod:`.block_store`), and the streamed
 per-block growers and rounds (:mod:`.stream_grow`).  The streamed
 data-parallel composition (``data/stream_dp.py``) is ROADMAP slice 6,
-item 12.
+item 12b.
 """
 
 from .block_store import BlockStore, ColumnViewStore, OOCBlockError

@@ -125,7 +125,7 @@ from .tree import (_PK, Tree, _tree_from_packed, fit_linear_leaves,
                    renew_leaf_values, stack_trees)
 
 _F32 = torch.float32
-_SLICE6 = "ROADMAP slice 6 (multi-device), item 12"
+_STREAM_DP = "ROADMAP slice 6 (multi-device), item 12b (streamed dp)"
 
 
 def build_cat_info(train_set: Dataset, p: Params,
@@ -481,16 +481,15 @@ def dart_drops(p: Params, i: int, n_trees: int) -> List[int]:
 
 
 def check_slice_scope(p: Params, streamed: bool = False) -> None:
-    """Refuse, by name, every training option this slice does not port.
-    On a streamed Dataset ``tree_learner="feature"``/``"voting"`` is not
-    refused: the Booster warns and streams serially, as the reference
+    """Refuse, by name, every training option the port does not hold yet:
+    ``tree_learner="data"`` on a streamed Dataset (the per-shard block
+    stores).  In memory every learner trains; on a streamed Dataset
+    ``"feature"``/``"voting"`` warn and stream serially, as the reference
     does."""
-    if p.tree_learner == "serial" or (
-            streamed and p.tree_learner in ("feature", "voting")):
-        return
-    raise NotImplementedError(
-        f"tree_learner='{p.tree_learner}' (dp/fp meshes"
-        f"{', streamed' if streamed else ''}) is not ported yet: {_SLICE6}")
+    if streamed and p.tree_learner == "data":
+        raise NotImplementedError(
+            "tree_learner='data' on a streamed (from_blocks) Dataset is not "
+            f"ported yet: {_STREAM_DP}")
 
 
 class Booster:
@@ -622,6 +621,8 @@ class Booster:
             if stash is not None:
                 self._screener.restore(*stash)
                 self._screen_restore = None
+        self._mesh = None
+        self._dp2 = False
         if self._streamed:
             ds.block_store.prefetch_blocks = int(
                 p.extra.get("stream_prefetch_blocks", 1))
@@ -632,6 +633,10 @@ class Booster:
                     f"tree_learner='{p.tree_learner}' is not routed under "
                     "streamed (from_blocks) training — only 'data' "
                     "composes with the block loop; falling back to serial")
+        elif p.tree_learner == "feature":
+            self._maybe_setup_fp()
+        elif p.tree_learner in ("data", "voting"):
+            self._maybe_setup_dp()
 
     def _check_streamed_scope(self) -> None:
         """Out-of-core training covers the PLAIN numeric path: the per-block
@@ -726,6 +731,246 @@ class Booster:
                                    self.device)
         self._linear_k = max(1, min(int(self.params.extra.get("linear_k", 8)),
                                     int(ds.num_feature_)))
+
+    # -- the mesh learners -----------------------------------------------
+    def _dp_merge_mode(self) -> Tuple[str, int]:
+        """The row-sharded learners' histogram merge, the reference's rule:
+        ``"data"`` takes ``reduce_scatter_pipelined``, ``"voting"`` the
+        PV-Tree ballot (``top_k``); ``histogram_merge`` overrides either,
+        and voting on categorical data warns and takes ``reduce_scatter``.
+        Returns ``(mode, voting_k)``."""
+        import warnings
+
+        from ..ops.histogram import MERGE_MODES
+
+        p = self.params
+        override = p.extra.get("histogram_merge")
+        if override is not None:
+            if override not in MERGE_MODES:
+                raise ValueError(
+                    f"histogram_merge must be one of {MERGE_MODES}, "
+                    f"got {override!r}")
+            mode = override
+        elif p.tree_learner == "voting":
+            mode = "voting"
+        else:
+            mode = "reduce_scatter_pipelined"
+        if mode == "voting" and self._cat_info is not None:
+            warnings.warn(
+                "tree_learner='voting' does not support categorical "
+                "features (the local ballot scans numeric thresholds "
+                "only); using the reduce_scatter merge instead",
+                stacklevel=3)
+            mode = "reduce_scatter"
+        return mode, int(p.top_k)
+
+    def _dp_wire(self, merge_mode: str, n_shards: int) -> Tuple[str, int]:
+        """The ring merge's ``(wire_dtype, merge_chunks)``: ``histogram_wire``
+        (``"f32"`` default) and ``merge_chunks`` (default 4).  A non-f32
+        wire needs a ring mode (``ValueError`` otherwise); int8 wire past
+        ``INT8_ACC_ROW_LIMIT`` rows a shard warns and takes f32, as the
+        reference's gate does."""
+        import warnings
+
+        from ..ops.quantize import WIRE_DTYPES
+
+        p = self.params
+        wire = str(p.extra.get("histogram_wire", "f32"))
+        if wire not in WIRE_DTYPES:
+            raise ValueError(
+                f"histogram_wire must be one of {WIRE_DTYPES}, got {wire!r}")
+        chunks = int(p.extra.get("merge_chunks", 4))
+        if chunks < 1:
+            raise ValueError(f"merge_chunks must be >= 1, got {chunks}")
+        if wire == "f32":
+            return wire, chunks
+        if merge_mode not in ("reduce_scatter_ring",
+                              "reduce_scatter_pipelined"):
+            raise ValueError(
+                f"histogram_wire={wire!r} compresses ring-hop messages "
+                f"and needs histogram_merge='reduce_scatter_ring' or "
+                f"'reduce_scatter_pipelined', not {merge_mode!r}")
+        if wire == "int8":
+            per_shard = -(-self._eff_rows() // max(n_shards, 1))
+            if per_shard > INT8_ACC_ROW_LIMIT:
+                warnings.warn(
+                    f"histogram_wire='int8' with {per_shard:,} rows per "
+                    f"shard exceeds the exact-accumulation bound "
+                    f"({INT8_ACC_ROW_LIMIT:,}); falling back to f32 wire",
+                    stacklevel=3)
+                return "f32", chunks
+        return wire, chunks
+
+    def _dp2_shape(self, n_dev: int, n_features: int):
+        """The data learner's mesh: None for the 1-D row mesh or ``(rows,
+        cols)`` for the 2-D rows x features mesh (the reference's rule:
+        ``mesh_shape="auto"`` promotes to ``(n_dev // 2, 2)`` at ``n_dev >=
+        8`` and ``F >= 64`` for the plain single-class gbdt/rf learner,
+        ``"1d"`` forces rows, ``"RxC"`` pins the shape)."""
+        p = self.params
+        spec = str(p.extra.get("mesh_shape", "auto"))
+        if spec == "1d":
+            return None
+        c = self._constraints
+        plain = (p.tree_learner == "data"
+                 and p.boosting in ("gbdt", "rf")
+                 and self._num_class == 1
+                 and not p.linear_tree and not p.extra_trees
+                 and c["mono"] is None and c["ic_member"] is None
+                 and self._cat_info is None
+                 and p.feature_fraction_bynode >= 1.0
+                 and p.feature_screen == "off"
+                 and p.extra.get("histogram_merge") is None
+                 and p.extra.get("histogram_wire", "f32") == "f32")
+        if spec == "auto":
+            if plain and n_dev >= 8 and n_dev % 2 == 0 and n_features >= 64:
+                return n_dev // 2, 2
+            return None
+        try:
+            rows, cols = (int(t) for t in spec.lower().split("x"))
+            if rows < 1 or cols < 1:
+                raise ValueError
+        except ValueError:
+            raise ValueError(
+                f"mesh_shape must be 'auto', '1d', or 'RxC' (e.g. '4x2'), "
+                f"got {spec!r}") from None
+        if cols == 1:
+            return None
+        if not plain:
+            import warnings
+
+            warnings.warn(
+                f"mesh_shape={spec!r} needs the plain single-class "
+                "gbdt/rf data learner with the default psum-over-rows "
+                "merge; using the 1-D row mesh", stacklevel=4)
+            return None
+        if rows * cols != n_dev:
+            raise ValueError(
+                f"mesh_shape={spec!r} wants {rows * cols} devices but the "
+                f"row-divisible device count is {n_dev}")
+        return rows, cols
+
+    def _maybe_setup_dp(self) -> None:
+        """Shard the training rows over the mesh for ``tree_learner="data"``
+        / ``"voting"`` (the reference's ``_maybe_setup_dp``): D is the
+        visible device count (``parallel.set_virtual_devices`` for virtual
+        shards), lowered until it divides the padded rows.  Out of the
+        learners' scope (DART, leaf renewal, linear leaves beyond plain
+        single-class gbdt, ranking beyond plain gbdt) it warns and trains
+        serially, as the reference does; so with one device."""
+        import warnings
+
+        from ..parallel.data_parallel import MeshLayout
+        from ..parallel.mesh import make_mesh, make_mesh_2d, visible_devices
+
+        p = self.params
+        ds = self.train_set
+        c = self._constraints
+        ranking = getattr(self.obj, "needs_group", False)
+        extra = (c["mono"] is not None or c["ic_member"] is not None
+                 or self._cat_info is not None or p.extra_trees)
+        if (p.boosting == "dart"
+                or getattr(self.obj, "renew_alpha", None) is not None
+                or (p.linear_tree and (p.boosting != "gbdt"
+                                       or self._num_class > 1 or ranking
+                                       or extra))
+                or (ranking and (p.boosting != "gbdt" or extra))):
+            warnings.warn(
+                f"tree_learner='{p.tree_learner}' currently supports "
+                "gbdt/rf/goss boosting without leaf renewal "
+                "(ranking: plain gbdt only; linear_tree: plain "
+                "single-class gbdt); training serially", stacklevel=3)
+            return
+        n_pad = int(ds.row_mask.shape[0])
+        devices = visible_devices(self.device)
+        n_dev = len(devices)
+        while n_dev > 1 and n_pad % n_dev != 0:
+            n_dev -= 1
+        if n_dev <= 1:
+            if len(devices) <= 1:
+                warnings.warn(
+                    f"tree_learner='{p.tree_learner}' requested but only "
+                    "one device is visible; training serially",
+                    stacklevel=3)
+            return
+        shape2 = None if ranking else self._dp2_shape(
+            n_dev, int(ds.X_binned.shape[1]))
+        if shape2 is not None:
+            self._dp2 = True
+            self._mesh = MeshLayout(make_mesh_2d(*shape2, devices=devices),
+                                    ds.X_binned, self._num_bins)
+            return
+        mode, voting_k = self._dp_merge_mode()
+        wire, chunks = self._dp_wire(mode, n_dev)
+        self._mesh = MeshLayout(make_mesh(n_dev, devices=devices),
+                                ds.X_binned, self._num_bins, mode, wire,
+                                chunks, voting_k)
+
+    def _maybe_setup_fp(self) -> None:
+        """Shard the columns for ``tree_learner="feature"`` (the reference's
+        ``_maybe_setup_fp``): every shard holds all rows and ``F / D``
+        columns (F padded to a shard multiple).  gbdt/rf, single or
+        multiclass, categorical columns included; anything else warns and
+        trains serially, as in the reference."""
+        import warnings
+
+        from ..parallel.data_parallel import MeshLayout
+        from ..parallel.mesh import FEATURE_AXIS, make_mesh, visible_devices
+
+        p = self.params
+        c = self._constraints
+        if (p.boosting in ("goss", "dart") or p.linear_tree
+                or getattr(self.obj, "needs_group", False)
+                or getattr(self.obj, "renew_alpha", None) is not None
+                or c["mono"] is not None or p.extra_trees
+                or c["ic_member"] is not None
+                or p.feature_fraction_bynode < 1.0):
+            warnings.warn(
+                "tree_learner='feature' currently supports gbdt/rf "
+                "(single or multiclass, with categoricals) without "
+                "monotone/interaction constraints, extra_trees, goss, "
+                "dart, linear_tree, ranking, or per-node feature "
+                "sampling (bynode would sample per SHARD and diverge "
+                "from serial); training serially", stacklevel=3)
+            return
+        devices = visible_devices(self.device)
+        if len(devices) <= 1:
+            warnings.warn(
+                "tree_learner='feature' requested but only one device is "
+                "visible; training serially", stacklevel=3)
+            return
+        self._mesh = MeshLayout(
+            make_mesh(len(devices), devices=devices, axis_name=FEATURE_AXIS),
+            self.train_set.X_binned, self._num_bins)
+
+    def parallel_meta(self) -> Dict[str, Any]:
+        """The ``parallel`` block of the model and checkpoint meta, the
+        reference's: the learner, and under a mesh its device count and
+        merge topology (``"mesh": "dp2"`` for the 2-D mesh)."""
+        p = self.params
+        out: Dict[str, Any] = {"tree_learner": p.tree_learner}
+        mesh = getattr(self, "_mesh", None)
+        if mesh is None:
+            return out
+        out["n_devices"] = int(mesh.n_devices)
+        if mesh.dc > 1 and mesh.dr == 1:
+            return out                       # the feature-sharded learner
+        if self._dp2:
+            out["mesh"] = "dp2"
+        else:
+            out["merge_mode"] = mesh.mode
+            out["voting_k"] = int(mesh.voting_k)
+        return out
+
+    def _goss_k_shard(self) -> Optional[Tuple[int, int]]:
+        """Per-shard GOSS counts under a row mesh (the reference's
+        ``goss_k_shard``: each shard samples its own rows)."""
+        goss_k = self._goss_k()
+        mesh = getattr(self, "_mesh", None)
+        if goss_k is None or mesh is None:
+            return goss_k
+        return (max(goss_k[0] // mesh.n_devices, 1),
+                max(goss_k[1] // mesh.n_devices, 1))
 
     @property
     def _num_class(self) -> int:
@@ -955,7 +1200,9 @@ class Booster:
                 self._setup_training()
         if self.train_set is None:
             raise ValueError("update() needs a training Dataset")
-        check_int8_row_limit(self.params, self._eff_rows())
+        mesh = self._mesh
+        check_int8_row_limit(self.params, self._eff_rows(),
+                             1 if mesh is None else mesh.dr)
         if self.params.boosting == "dart":
             return self._dart_round()
         p = self.params
@@ -975,7 +1222,9 @@ class Booster:
             tree, new_pred = self._round_body(
                 self._pred_train, self._bag, fmask, self._round_key(i),
                 bins=(None if active_ids is None else self._screen_view(
-                    self.train_set.X_binned, active_ids)))
+                    self.train_set.X_binned, active_ids)),
+                layout=(mesh if mesh is None or active_ids is None
+                        else mesh.screened(active_ids)))
         if active_ids is not None:
             # back to GLOBAL feature ids before anything downstream
             # (predict, valid sets, checkpoints, the screener) sees it
@@ -1053,21 +1302,33 @@ class Booster:
         """The rows a round's histograms see, which resolve its precision,
         wave width and int8 row limit: the compacted rows of a single-class
         GOSS round, else every (padded) row."""
-        goss_k = self._goss_k()
+        goss_k = self._goss_k_shard()
         if goss_k is not None and self._num_class == 1:
             return goss_k[0] + goss_k[1]
         return int(self.train_set.row_mask.shape[0])
 
     def _round_body(self, pred: torch.Tensor, bag: torch.Tensor,
                     fmask: torch.Tensor, rkey,
-                    bins: Optional[torch.Tensor] = None
-                    ) -> Tuple[Tree, torch.Tensor]:
+                    bins: Optional[torch.Tensor] = None,
+                    layout=None) -> Tuple[Tree, torch.Tensor]:
         """One round's tree grown from the scores ``pred``, and the train
         scores after it (the reference's ``_round_fn``): plain and rf
         rounds, single-class GOSS on its compacted rows, multiclass GOSS by
         re-weighting, and DART's round from the dropped-tree scores.  rf
         returns ``pred`` unchanged.  ``bins`` (None: the Dataset's binned
-        matrix) is a screened round's active columns."""
+        matrix) is a screened round's active columns.
+
+        On a mesh (``layout``, a ``parallel.data_parallel.MeshLayout``;
+        the reference's ``make_dp_train_step`` / ``make_fp_train_step`` /
+        ``make_dp_fp_train_step`` / ``make_dp_linear_train_step`` /
+        ``make_dp_grow_step``) the gradients run on the whole rows as here
+        (elementwise, so each shard's slice is what the shard would
+        compute; ranking's lambda pass is replicated, as the reference's
+        is), the grower takes its row work from the shards and its merged
+        histograms through the mesh's scorer, GOSS samples each shard's
+        rows under ``fold_in(key, shard)`` (multiclass:
+        ``fold_in(fold_in(key, 0x7FFFFFFF), shard)``) with the growth key
+        shared, and linear leaves sum their Gram systems per shard."""
         ds = self.train_set
         p = self.params
         hyper = self._hyper
@@ -1078,18 +1339,45 @@ class Booster:
                     hist_dtype=resolve_hist_dtype(p, eff_rows),
                     cat_info=self._cat_info, **self._constraints)
         width = resolve_wave_width(p, eff_rows)
+        if layout is not None and layout.dc > 1 and \
+                self._cat_info is not None:
+            # categorical splits under feature shards keep the strict
+            # grower (the reference's grow_tree routing)
+            width = 1
         bynode = p.feature_fraction_bynode < 1.0
         is_rf = p.boosting == "rf"
         goss_k = self._goss_k()
         k = self._num_class
+
+
+        def mesh_kw(stats_x):
+            """The grower's row work and scorer from the shards (nothing
+            off a mesh)."""
+            if layout is None:
+                return {}
+            from ..parallel.data_parallel import mesh_rows
+
+            return dict(rows=mesh_rows(layout, stats_x, width,
+                                       grow["hist_impl"], grow["hist_dtype"]),
+                        scorer=layout.scorer())
+
         if k > 1:
             if goss_k is not None:
                 # multiclass GOSS re-weights the rows by sum_c |g_c|
                 g_abs = g[:, 0].abs()
                 for c in range(1, k):
                     g_abs = g_abs + g[:, c].abs()
-                bag = goss_weights(fold_in(rkey, 0x7FFFFFFF), g_abs, bag,
-                                   p.top_rate, p.other_rate, bag.sum())
+                skey = fold_in(rkey, 0x7FFFFFFF)
+                if layout is None:
+                    bag = goss_weights(skey, g_abs, bag, p.top_rate,
+                                       p.other_rate, bag.sum())
+                else:
+                    # each shard samples its own rows
+                    bag = torch.cat([goss_weights(
+                        fold_in(skey, d), ga, b, p.top_rate, p.other_rate,
+                        b.sum()).to(self.device) for d, (ga, b) in enumerate(
+                            zip(layout.split_rows(g_abs),
+                                layout.split_rows(bag)))])
             # the K class trees as one batch (mc_round_update)
             stats_t = torch.stack([g * bag[:, None], h * bag[:, None],
                                    (bag > 0).to(_F32)[:, None].expand_as(g)],
@@ -1105,7 +1393,8 @@ class Booster:
                 ds.X_binned, stats_t, fmask.expand(k, -1),
                 SplitContext.per_element([hyper.ctx()] * k, self.device),
                 torch.full((k,), float(hyper.max_depth), device=self.device),
-                p.num_leaves, self._num_bins, width, **grow)
+                p.num_leaves, self._num_bins, width, **grow,
+                **mesh_kw(stats_t))
             tree = _tree_from_packed(P, n_leaves, catmask)  # [K, M] fields
 
             if is_rf:
@@ -1119,7 +1408,23 @@ class Booster:
             grow.update(key=rkey)
         bins_all = ds.X_binned if bins is None else bins
         bins, y, w = bins_all, ds.y, self._w_eff
-        if goss_k is not None:
+        if goss_k is not None and layout is not None:
+            # each shard compacts its own rows under fold_in(key, shard);
+            # the growth key stays shared
+            sel = [goss_select(fold_in(rkey, d), gd, bd,
+                               self._goss_k_shard(), p.top_rate,
+                               p.other_rate)
+                   for d, (gd, bd) in enumerate(zip(layout.split_rows(g),
+                                                    layout.split_rows(bag)))]
+            idx = torch.cat([(ix + a).to(self.device) for (ix, _, _), (a, _)
+                             in zip(sel, layout.bounds)])
+            wt = torch.cat([x[1].to(self.device) for x in sel])
+            live = torch.cat([x[2].to(self.device) for x in sel])
+            layout = layout.compacted([x[0] for x in sel])
+            y, w, pred_c = y[idx], w[idx], pred[idx]
+            stats = torch.stack([g[idx] * wt, h[idx] * wt, live], dim=-1)
+            rw = w * wt
+        elif goss_k is not None:
             # the tree grows on the compacted rows, in the selection's order
             idx, wt, live = goss_select(rkey, g, bag, goss_k, p.top_rate,
                                         p.other_rate)
@@ -1133,13 +1438,17 @@ class Booster:
             rw = w * bag
         tree, row_leaf = grow_tree(bins, stats, fmask, hyper.ctx(),
                                    p.num_leaves, self._num_bins,
-                                   hyper.max_depth, wave_width=width, **grow)
+                                   hyper.max_depth, wave_width=width, **grow,
+                                   **mesh_kw(stats))
         if self._linear_k is not None:
             # linear leaves: the grown tree's leaves refit as ridge models
-            # on the raw values (round_fn_linear; gbdt only, no renewal)
+            # on the raw values (round_fn_linear; gbdt only, no renewal);
+            # on a mesh each shard sums its Gram systems and one psum
+            # merges them
             tree, delta = fit_linear_leaves(
                 tree, row_leaf, self._xraw, g, h, bag, p.linear_lambda,
-                self._linear_k, int(p.extra.get("row_chunk", 131072)))
+                self._linear_k, int(p.extra.get("row_chunk", 131072)),
+                row_shards=None if layout is None else layout.bounds)
             return tree, fma(lr, delta, pred)
         renew_alpha = getattr(self.obj, "renew_alpha", None)
         if renew_alpha is not None:
@@ -1397,6 +1706,7 @@ class Booster:
         set).  The port runs every round on the host loop either way."""
         p = self.params
         return (self._num_class == 1
+                and getattr(self, "_mesh", None) is None
                 and not getattr(self, "_streamed", False)
                 and p.boosting in ("gbdt", "rf", "goss")
                 and not p.linear_tree
@@ -1471,7 +1781,7 @@ class Booster:
             "init_score": init_meta,
             "best_iteration": int(self.best_iteration),
             "streamed": bool(self._streamed),
-            "parallel": {"tree_learner": p.tree_learner},
+            "parallel": self.parallel_meta(),
             "schema_digest": schema_digest(self.train_set.bin_mapper),
         }
         if self._screener is not None:

@@ -296,8 +296,8 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
               mono: Optional[torch.Tensor] = None,
               extra_trees: bool = False,
               col_bins: Optional[torch.Tensor] = None,
-              ic_member: Optional[torch.Tensor] = None
-              ) -> Tuple[Tree, torch.Tensor]:
+              ic_member: Optional[torch.Tensor] = None,
+              rows=None, scorer=None) -> Tuple[Tree, torch.Tensor]:
     """Grow one best-first tree; returns ``(tree, row_leaf)``.
 
     ``bins`` uint8 ``[n, F]``; ``stats`` f32 ``[n, 3]`` of (grad, hess,
@@ -317,19 +317,23 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
     (``col_bins`` int ``[F]``, None: ``num_bins``; :func:`rand_bin_table`);
     ``ic_member`` bool ``[NG, F]`` the interaction groups (a node splits
     only on columns of the groups its path still fits in).  ``key`` None
-    is ``PRNGKey(0)``.
+    is ``PRNGKey(0)``.  On a mesh, ``rows`` and ``scorer`` go to the
+    grower (:func:`grow_tree_strict`, :func:`grow_tree_frontier`); the rows
+    then carry the shards' statistics, already rounded for ``bf16sr``.
     """
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if hist_dtype == "bf16sr":
         # the statistics rounded once, in the reference's [n, S] layout;
         # the rounding is idempotent, so every histogram of the tree sees
         # them as the reference's B1 and B2 calls do
-        stats, hist_dtype = sr_round_bf16(stats), "bf16"
+        if rows is None:
+            stats = sr_round_bf16(stats)
+        hist_dtype = "bf16"
     key = (0, 0) if key is None else key
     cons = dict(mono=mono, extra_trees=extra_trees, col_bins=col_bins,
-                ic_member=ic_member)
+                ic_member=ic_member, rows=rows, scorer=scorer)
     if width <= 1:
-        dev = bins.device
+        dev = bins.device if rows is None else rows.device
         fmask = feature_mask.to(_F32).reshape(1, -1)
         keyed = {}
         if ff_bynode is not None or extra_trees:
@@ -338,7 +342,7 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
             keyed["ff_bynode"] = torch.full((1,), float(ff_bynode),
                                             dtype=_F32, device=dev)
         P, n_leaves, row_leaf, catmask = grow_tree_strict(
-            bins, stats.unsqueeze(1), fmask,
+            bins, None if rows is not None else stats.unsqueeze(1), fmask,
             SplitContext.per_element([ctx], dev),
             torch.tensor([float(max_depth)], dtype=_F32, device=dev),
             num_leaves, num_bins, hist_impl=hist_impl,
@@ -353,6 +357,180 @@ def grow_tree(bins: torch.Tensor, stats: torch.Tensor,
                               wave_tail=tail, overgrow_leaves=overgrow,
                               ff_bynode=ff_bynode, key=key,
                               cat_info=cat_info, **cons)
+
+
+def _lead_axis(x):
+    """A per-node argument with a trailing axis for the pieces a mesh
+    scorer scans side by side (None and scalars as they are)."""
+    return x.unsqueeze(-1) if isinstance(x, torch.Tensor) else x
+
+
+def _best_of_pieces(bs, gfeat: torch.Tensor):
+    """The winner among the pieces on the last axis of ``bs``'s fields
+    (each scanned on its own), its feature the GLOBAL id ``gfeat`` (same
+    shape): the first occurrence of the largest gain, so ties go to the
+    lowest piece — under ascending pieces the serial scan's lowest-feature
+    tie-break (:func:`~..parallel.feature_parallel.reduce_best_split`'s
+    rule, batched)."""
+    best = bs.gain.max(dim=-1, keepdim=True).values
+    win = torch.argmax((bs.gain == best).to(torch.uint8), dim=-1,
+                       keepdim=True)
+    fields = {}
+    for name in bs._fields:
+        v = gfeat if name == "feature" else getattr(bs, name)
+        if v is None:
+            fields[name] = None
+        elif name == "cat_mask":
+            idx = win[..., None].expand(win.shape + (v.shape[-1],))
+            fields[name] = v.gather(-2, idx).squeeze(-2)
+        else:
+            fields[name] = v.gather(-1, win).squeeze(-1)
+    return type(bs)(**fields)
+
+
+def make_dist_scorer(mode: str, n_shards: int, num_features: int,
+                     voting_k: int = 0, merge_chunks: int = 1):
+    """The split scorer of a mesh's distributed merge (the reference's
+    ``_make_dist_scorer``), with :func:`~..ops.split.find_best_split`'s
+    signature and GLOBAL per-feature arguments (masks ``[..., F]``,
+    ``mono [F]``, ``cat_info``, extra-trees positions ``[..., F]``): the
+    scorer slices them to match.
+
+    * ``"reduce_scatter"``, ``"reduce_scatter_ring"`` and
+      ``"reduce_scatter_pipelined"`` (and the feature-sharded learners):
+      ``hist [..., F_pad, B, 3]`` holds the shards' merged slices side by
+      side (slice ``d`` at ``[d * f_loc, (d + 1) * f_loc)``, widths from
+      :func:`~..ops.histogram.merge_slice_width`).  Each slice is scanned
+      on its own (the pipelined mode in ``merge_chunks`` sub-chunks) and
+      the winners combine by a first-occurrence argmax: lowest chunk,
+      lowest shard, so the serial scan's tie-break holds.  The slices are
+      scanned as one batch (a pieces axis before the features), not one
+      call each.  Pad columns carry mask 0, sign 0 and no category.
+    * ``"voting"`` (PV-Tree): ``hist [..., D, F, B, 3]`` holds each shard's
+      LOCAL partials.  Each shard ranks its features by local gain
+      (:func:`~..ops.split.feature_best_gains`) and votes for the ones at
+      or above its ``k``-th largest (``k = voting_k``, 20 when 0); the
+      global candidates are the top ``2k`` by votes (a stable sort: vote
+      ties go to the lower feature id), their columns are reduce-scattered
+      (summed in shard order) and each shard scans its share, the winners
+      mapped back to global ids.  When ``2k >= F`` the union is exact and
+      the candidates keep ascending ids, so the trees match
+      reduce-scatter's.  No categorical columns (the ballot scans numeric
+      thresholds)."""
+    from ..ops.histogram import merge_slice_width
+    from ..ops.split import feature_best_gains
+
+    if mode == "voting":
+        k_top = max(1, min(int(voting_k) if voting_k else 20, num_features))
+        kc = min(2 * k_top, num_features)
+        kc_pad = -(-kc // n_shards) * n_shards
+        kc_loc = kc_pad // n_shards
+        exact_union = kc == num_features
+
+        def score_voting(hist, ctx, feature_mask, depth_ok=None,
+                         parent_out=None, lo=None, hi=None, arith=None,
+                         cat_info=None, mono=None, rand_bins=None):
+            if cat_info is not None:
+                raise ValueError(
+                    "hist_merge='voting' does not support categorical "
+                    "splits (the local ballot scans numeric thresholds "
+                    "only) — use 'reduce_scatter' or 'psum'")
+            lead = tuple(hist.shape[:-4])
+            dev = hist.device
+            nb = hist.shape[-2]
+            mask = feature_mask.to(dev).expand(lead + (num_features,))
+            rb = (None if rand_bins is None else
+                  rand_bins.to(dev).expand(lead + (num_features,)))
+            node = [_lead_axis(x) for x in (depth_ok, parent_out, lo, hi)]
+            if exact_union:
+                cand = torch.arange(kc, device=dev).expand(lead + (kc,))
+            else:
+                # every shard's ballot at once (the shard axis before F)
+                g = feature_best_gains(
+                    hist, ctx, mask.unsqueeze(-2), node[0], node[1],
+                    node[2], node[3], mono,
+                    None if rb is None else rb.unsqueeze(-2))  # [..., D, F]
+                kth = torch.sort(g, dim=-1, descending=True).values[
+                    ..., k_top - 1:k_top]
+                ballot = (torch.isfinite(g) & (g >= kth)).to(torch.float32)
+                votes = ballot[..., 0, :]
+                for d in range(1, n_shards):             # shard order
+                    votes = votes + ballot[..., d, :]
+                cand = torch.sort(-votes, dim=-1, stable=True).indices[
+                    ..., :kc]
+            cand_pad = cand
+            if kc_pad != kc:
+                cand_pad = torch.cat([cand, cand.new_zeros(
+                    lead + (kc_pad - kc,))], dim=-1)
+            valid = torch.arange(kc_pad, device=dev) < kc
+            idx = cand_pad[..., None, :, None, None].expand(
+                lead + (n_shards, kc_pad, nb, 3))
+            cand_hist = torch.where(valid[:, None, None],
+                                    hist.gather(-3, idx), 0.0)
+            merged = cand_hist[..., 0, :, :, :]
+            for d in range(1, n_shards):                 # shard order
+                merged = merged + cand_hist[..., d, :, :, :]
+            # shard d's share: candidate slots [d * kc_loc, (d+1) * kc_loc)
+            merged = merged.reshape(lead + (n_shards, kc_loc, nb, 3))
+            ids = cand_pad.reshape(lead + (n_shards, kc_loc))
+            ok = valid.reshape(n_shards, kc_loc)
+            m_l = torch.where(ok, mask.gather(-1, cand_pad).reshape(
+                lead + (n_shards, kc_loc)), 0.0)
+            mono_l = None if mono is None else torch.where(
+                ok, mono.to(dev)[ids], 0)
+            rb_l = None if rb is None else rb.gather(-1, cand_pad).reshape(
+                lead + (n_shards, kc_loc))
+            bs = find_best_split(merged, ctx, m_l, node[0], node[1],
+                                 node[2], node[3], arith, None, mono_l,
+                                 rb_l)                    # [..., D]
+            gfeat = ids.gather(-1, bs.feature.unsqueeze(-1)).squeeze(-1)
+            return _best_of_pieces(bs, gfeat)
+
+        return score_voting
+
+    chunks = (max(int(merge_chunks), 1)
+              if mode == "reduce_scatter_pipelined" else 1)
+    f_loc = merge_slice_width(num_features, n_shards, mode, chunks)
+    f_pad = f_loc * n_shards
+    sub = f_loc // chunks
+    n_pieces = n_shards * chunks
+
+    def pad_f(a, value):
+        if a is None or a.shape[-1] == f_pad:
+            return a
+        fill = torch.full(tuple(a.shape[:-1]) + (f_pad - a.shape[-1],),
+                          value, dtype=a.dtype, device=a.device)
+        return torch.cat([a, fill], dim=-1)
+
+    def score_rs(hist, ctx, feature_mask, depth_ok=None, parent_out=None,
+                 lo=None, hi=None, arith=None, cat_info=None, mono=None,
+                 rand_bins=None):
+        masks = pad_f(feature_mask.to(hist.device), 0.0)
+        mono_p = pad_f(mono, 0)
+        rand_p = pad_f(rand_bins, 0)
+        if hist.shape[-3] != f_pad:
+            hist = hist.narrow(-3, 0, min(hist.shape[-3], f_pad))
+            if hist.shape[-3] < f_pad:
+                shape = list(hist.shape)
+                shape[-3] = f_pad - hist.shape[-3]
+                hist = torch.cat([hist, hist.new_zeros(shape)], dim=-3)
+        lead = tuple(hist.shape[:-3])
+        pieces = lead + (n_pieces, sub)
+        cat_p = None if cat_info is None else cat_info._replace(
+            is_cat=pad_f(cat_info.is_cat.to(hist.device), False).reshape(
+                n_pieces, sub))
+        bs = find_best_split(
+            hist.reshape(pieces + tuple(hist.shape[-2:])), ctx,
+            masks.expand(lead + (f_pad,)).reshape(pieces),
+            *[_lead_axis(x) for x in (depth_ok, parent_out, lo, hi)],
+            arith, cat_p,
+            None if mono_p is None else mono_p.reshape(n_pieces, sub),
+            None if rand_p is None
+            else rand_p.expand(lead + (f_pad,)).reshape(pieces))
+        base = torch.arange(n_pieces, device=hist.device) * sub
+        return _best_of_pieces(bs, bs.feature + base)
+
+    return score_rs
 
 
 def _decode_checked(wave_width: int, num_leaves: int):
@@ -380,7 +558,8 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                        mono: Optional[torch.Tensor] = None,
                        extra_trees: bool = False,
                        col_bins: Optional[torch.Tensor] = None,
-                       ic_member: Optional[torch.Tensor] = None):
+                       ic_member: Optional[torch.Tensor] = None,
+                       rows=None, scorer=None):
     """Grow ``E`` trees at once over the shared ``bins`` (the reference's
     ``vmap`` of :func:`grow_tree`): the strict grower at width 1
     (:func:`grow_tree_strict`), else the batched wave grower
@@ -388,14 +567,16 @@ def grow_trees_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     :func:`grow_tree_strict`'s (a :class:`GrownTrees`); ``ff_bynode`` f32
     ``[E]`` and ``keys`` int64 ``[E, 2]`` (None: off) sample each node's
     columns; the constraints as :func:`grow_tree`'s, shared by the batch,
-    with ``extra_trees`` drawn under each element's key."""
+    with ``extra_trees`` drawn under each element's key; ``rows`` and
+    ``scorer`` as :func:`grow_tree`'s."""
     width, tail, overgrow = _decode_checked(wave_width, num_leaves)
     if hist_dtype == "bf16sr":
         # rounded once in the reference's batched layout [E, n, S]
-        stats_t = sr_round_bf16(stats_t.transpose(0, 1)).transpose(0, 1)
+        if rows is None:
+            stats_t = sr_round_bf16(stats_t.transpose(0, 1)).transpose(0, 1)
         hist_dtype = "bf16"
     cons = dict(mono=mono, extra_trees=extra_trees, col_bins=col_bins,
-                ic_member=ic_member)
+                ic_member=ic_member, rows=rows, scorer=scorer)
     if width <= 1:
         return grow_tree_strict(bins, stats_t, fmask, ctx, max_depth,
                                 num_leaves, num_bins, hist_impl=hist_impl,
@@ -414,7 +595,8 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
                      cat_info: Optional[CatInfo] = None,
                      catmask: Optional[torch.Tensor] = None,
                      mono: Optional[torch.Tensor] = None,
-                     rand_bins: Optional[torch.Tensor] = None):
+                     rand_bins: Optional[torch.Tensor] = None,
+                     scorer=None):
     """Plain PyTorch version of :func:`split_iter`: one iteration of the
     reference's strict-grower body (``lightgbm_tpu/models/tree.py``, the
     XLA loop body) for each of ``E`` elements, plus the next pick.
@@ -439,6 +621,8 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
     own bounds from the split's mid-point (:func:`_mono_child_bounds`), and
     candidates run against a column's sign are rejected; ``rand_bins`` int
     ``[E, 2, F]`` are the children's extra-trees scan positions.
+    ``scorer`` (None: :func:`~..ops.split.find_best_split`) scores the
+    children from a mesh merge's histograms (:func:`make_dist_scorer`).
     """
     K = _PK
     e, cap, nc = table.shape
@@ -460,7 +644,8 @@ def split_iter_plain(hist: torch.Tensor, table: torch.Tensor,
         mono, row[:, K.CAND_FEAT], row[:, K.CAND_WL], row[:, K.CAND_WR],
         row[:, K.BOUND_LO], row[:, K.BOUND_HI])
     child_masks = fmask if fmask.dim() == 3 else fmask[:, None, :]
-    bs = find_best_split(hist, ctx, child_masks, two(depth_ok),
+    bs = (scorer or find_best_split)(
+                         hist, ctx, child_masks, two(depth_ok),
                          two(row[:, K.CAND_WL], row[:, K.CAND_WR]),
                          two(lo_l, lo_r), two(hi_l, hi_r),
                          arith=arith, cat_info=cat_info, mono=mono,
@@ -533,22 +718,27 @@ def split_iter(hist, table, fmask, aux, scal, impl: str = "auto"):
 
 def _strict_root(root_hist: torch.Tensor, ctx: SplitContext,
                  root_mask: torch.Tensor, max_depth: torch.Tensor, cap: int,
+                 scorer=None, root_tot: Optional[torch.Tensor] = None,
                  **split_kw):
     """The strict grower's root from its histograms ``[E, F, B, 3]``:
     ``(packed table [E, cap, NC], aux [E, 8], scal [E, 16], root split)``
     — the root's output and candidate, the first pick and the split
     iteration's scalars (``ctx`` per element, ``max_depth`` f32 ``[E]``).
-    ``split_kw`` goes to :func:`~..ops.split.find_best_split`."""
+    ``split_kw`` goes to :func:`~..ops.split.find_best_split`, or to
+    ``scorer`` (a mesh's split scorer, :func:`make_dist_scorer`, whose
+    histograms are a merge's slices and whose root totals ``root_tot [E,
+    3]`` come from the rows)."""
     e = root_hist.shape[0]
     dev = root_hist.device
-    root_tot = root_hist[:, 0].sum(dim=1)                     # [E, 3]
+    if root_tot is None:
+        root_tot = root_hist[:, 0].sum(dim=1)                 # [E, 3]
     zero_e = torch.zeros(e, dtype=_F32, device=dev)
     root_out = constrained_leaf_output(
         root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
         ctx._replace(path_smooth=zero_e), float("-inf"), float("inf"),
         zero_e)
-    root_best = find_best_split(root_hist, ctx, root_mask, None, root_out,
-                                **split_kw)
+    root_best = (scorer or find_best_split)(root_hist, ctx, root_mask, None,
+                                            root_out, **split_kw)
     P = _packed_root_table(cap, root_out, root_tot, root_best)
     aux = torch.stack([zero_e, root_best.feature.to(_F32),
                        root_best.bin.to(_F32),
@@ -593,6 +783,54 @@ def _strict_partition(bins: torch.Tensor, row_leaf: torch.Tensor,
     return row_leaf, seg
 
 
+class StrictRows:
+    """The strict grower's row work on one device: the partition of the
+    split leaf's rows and the children's histograms from one pass (kernel
+    B6 for a batch, B1 with two segments for one tree).  A mesh supplies
+    its own (``parallel.data_parallel.MeshStrictRows``) with the same
+    methods."""
+
+    fuse_split = True
+
+    def __init__(self, bins: torch.Tensor, stats_t: torch.Tensor,
+                 num_bins: int, hist_impl: str, hist_dtype: str,
+                 batched: bool):
+        self.bins, self.stats_t = bins, stats_t
+        self.n, self.e, _ = stats_t.shape
+        self.num_features = bins.shape[1]
+        self.device = bins.device
+        self.num_bins, self.hist_impl = num_bins, hist_impl
+        self.hist_dtype, self.batched = hist_dtype, batched
+        self.row_leaf = torch.zeros((self.n, self.e), dtype=torch.int32,
+                                    device=self.device)
+
+    def hist(self, seg_t, k):
+        if self.batched:
+            return histograms_rows(self.bins, self.stats_t, seg_t, k,
+                                   self.num_bins, impl=self.hist_impl,
+                                   hist_dtype=self.hist_dtype)
+        seg = (torch.zeros(self.n, dtype=torch.int32, device=self.device)
+               if seg_t is None else seg_t[:, 0])
+        return compute_histograms(self.bins, self.stats_t[:, 0], seg, k,
+                                  self.num_bins, impl=self.hist_impl,
+                                  hist_dtype=self.hist_dtype).unsqueeze(0)
+
+    def root(self) -> torch.Tensor:
+        """The roots' histograms ``[E, F, B, 3]``."""
+        return self.hist(None, 1)[:, 0]
+
+    def total(self) -> torch.Tensor:
+        """The roots' (g, h, count) totals ``[E, 3]``."""
+        return self.stats_t.sum(dim=0)
+
+    def strict(self, aux, scal, catmask, P) -> torch.Tensor:
+        """One split iteration's rows: partition, then both children's
+        histograms ``[E, 2, F, B, 3]``."""
+        self.row_leaf, seg = _strict_partition(self.bins, self.row_leaf, aux,
+                                               scal, catmask, P)
+        return self.hist(seg, 2)
+
+
 def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                      fmask: torch.Tensor, ctx: SplitContext,
                      max_depth: torch.Tensor, num_leaves: int, num_bins: int,
@@ -604,7 +842,8 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                      mono: Optional[torch.Tensor] = None,
                      extra_trees: bool = False,
                      col_bins: Optional[torch.Tensor] = None,
-                     ic_member: Optional[torch.Tensor] = None):
+                     ic_member: Optional[torch.Tensor] = None,
+                     rows=None, scorer=None):
     """Strict best-first growth of ``E`` trees at once (the reference's
     strict grower, ``vmap``ped over E in fused CV).
 
@@ -642,32 +881,33 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
     Returns a :class:`GrownTrees`: ``(table f32 [E, cap, 24], n_leaves
     i32 [E], row_leaf i32 [n, E], catmask)``, the mask table None without
     ``cat_info``.
+
+    On a mesh, ``rows`` (None: :class:`StrictRows` over ``bins`` and
+    ``stats_t``) does the row work per shard and hands back merged
+    histograms, and ``scorer`` (None: :func:`~..ops.split.find_best_split`)
+    scores them when the merge leaves slices or local partials
+    (:func:`make_dist_scorer`); the root totals then come from the rows and
+    B3 does not run (the reference's ``fuse_si`` excludes ``dist_mode``).
     """
-    n, e, _ = stats_t.shape
-    dev = bins.device
+    if rows is None:
+        rows = StrictRows(bins, stats_t, num_bins, hist_impl, hist_dtype,
+                          batched)
+    e = rows.e
+    dev = rows.device
     cap = 2 * num_leaves - 1
     fuse_si = (ff_bynode is None and cat_info is None and mono is None
-               and not extra_trees and ic_member is None)
+               and not extra_trees and ic_member is None
+               and scorer is None and rows.fuse_split)
     fmask = fmask.to(_F32).contiguous()
     node_masks = (None if ff_bynode is None
                   else node_mask_table(keys, ff_bynode, fmask, cap))
-    rand = (rand_bin_table(keys, bins.shape[1], num_bins, col_bins, cap)
+    rand = (rand_bin_table(keys, rows.num_features, num_bins, col_bins, cap)
             if extra_trees else None)                         # [E, cap, F]
     if not batched and e != 1:
         raise ValueError("the unbatched strict grower grows one tree")
 
-    def hist_fn(seg_t, k):
-        if batched:
-            return histograms_rows(bins, stats_t, seg_t, k, num_bins,
-                                   impl=hist_impl, hist_dtype=hist_dtype)
-        seg = (torch.zeros(n, dtype=torch.int32, device=dev)
-               if seg_t is None else seg_t[:, 0])
-        return compute_histograms(bins, stats_t[:, 0], seg, k, num_bins,
-                                  impl=hist_impl,
-                                  hist_dtype=hist_dtype).unsqueeze(0)
-
     # ---- root ---------------------------------------------------------
-    root_hist = hist_fn(None, 1)[:, 0]                        # [E, F, B, 3]
+    root_hist = rows.root()                                   # [E, F, B, 3]
     root_mask = fmask if node_masks is None else node_masks[:, 0]
     icsets = None
     if ic_member is not None:
@@ -678,7 +918,8 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
         icsets[:, 0] = True
         root_mask = root_mask * _ic_allowed(icsets[:, 0], member)
     P, aux, scal, root_best = _strict_root(
-        root_hist, ctx, root_mask, max_depth, cap,
+        root_hist, ctx, root_mask, max_depth, cap, scorer=scorer,
+        root_tot=None if scorer is None else rows.total(),
         arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
         rand_bins=None if rand is None else rand[:, 0])
     ar = torch.arange(e, device=dev)
@@ -688,15 +929,12 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                               device=dev)
         catmask[:, 0] = root_best.cat_mask
     n_leaves = torch.ones(e, dtype=torch.int32, device=dev)
-    row_leaf = torch.zeros((n, e), dtype=torch.int32, device=dev)
 
     for _ in range(num_leaves - 1):
         leaf = aux[:, 0].to(torch.int32)
         grew = aux[:, 3] > 0
         nl = scal[:, 8].to(torch.int32)
-        row_leaf, seg = _strict_partition(bins, row_leaf, aux, scal,
-                                          catmask, P)
-        hist2 = hist_fn(seg, 2)                              # [E, 2, F, B, 3]
+        hist2 = rows.strict(aux, scal, catmask, P)           # [E, 2, F, B, 3]
         if fuse_si:
             P, aux = split_iter(hist2, P, fmask, aux, scal, impl=hist_impl)
         else:
@@ -722,13 +960,14 @@ def grow_tree_strict(bins: torch.Tensor, stats_t: torch.Tensor,
                 arith=_xla_arith(cat_info, mono), cat_info=cat_info,
                 catmask=catmask, mono=mono,
                 rand_bins=None if rand is None else rand.gather(
-                    1, kids[..., None].expand(e, 2, rand.shape[-1])))
+                    1, kids[..., None].expand(e, 2, rand.shape[-1])),
+                scorer=scorer)
             P, aux = out[:2]
             if catmask is not None:
                 catmask = out[2]
         scal[:, 8] += 2.0 * grew.to(_F32)
         n_leaves += grew.to(torch.int32)
-    return GrownTrees(P, n_leaves, row_leaf, catmask)
+    return GrownTrees(P, n_leaves, rows.row_leaf, catmask)
 
 
 
@@ -762,18 +1001,21 @@ class WavePlan(NamedTuple):
 
 
 def _wave_root(root_hist: torch.Tensor, ctx: SplitContext,
-               root_mask: torch.Tensor, capacity: int, **split_kw):
+               root_mask: torch.Tensor, capacity: int, scorer=None,
+               root_tot: Optional[torch.Tensor] = None, **split_kw):
     """The wave grower's root from its histogram ``[F, B, 3]``: ``(packed
     table [capacity, NC], root split)``; ``split_kw`` goes to
-    :func:`~..ops.split.find_best_split`."""
+    :func:`~..ops.split.find_best_split`, or to a mesh's ``scorer`` with
+    the root totals ``root_tot [3]`` from the rows."""
     dev = root_hist.device
-    root_tot = root_hist[0].sum(dim=0)                        # (g, h, c)
+    if root_tot is None:
+        root_tot = root_hist[0].sum(dim=0)                    # (g, h, c)
     root_out = constrained_leaf_output(
         root_tot[0], root_tot[1], root_tot[2], ctx._replace(path_smooth=0.0),
         float("-inf"), float("inf"), torch.zeros((), dtype=_F32, device=dev))
-    root_best = find_best_split(root_hist, ctx, root_mask,
-                                torch.ones((), dtype=torch.bool, device=dev),
-                                root_out, **split_kw)
+    root_best = (scorer or find_best_split)(
+        root_hist, ctx, root_mask,
+        torch.ones((), dtype=torch.bool, device=dev), root_out, **split_kw)
     return _packed_root_table(capacity, root_out, root_tot,
                               root_best), root_best
 
@@ -830,25 +1072,29 @@ def _wave_commit(plan: WavePlan, direct_hist: torch.Tensor, P: torch.Tensor,
                  n_leaves: int, ctx: SplitContext, max_depth: int,
                  node_mask, mono=None, icsets=None, member=None, rand=None,
                  cat_info: Optional[CatInfo] = None,
-                 catmask: Optional[torch.Tensor] = None):
+                 catmask: Optional[torch.Tensor] = None,
+                 scorer=None, num_features: Optional[int] = None):
     """A wave's table work once its direct children's histograms ``[s, F,
     B, 3]`` are in: the siblings by subtraction from the per-leaf cache,
     the 2s fresh children scored (under ``node_mask``, the monotone bounds,
     the interaction groups and the extra-trees positions where given) and
-    the packed table, cache, slots and masks updated in place.  Returns
+    the packed table, cache, slots and masks updated in place.  On a mesh
+    the histograms are a merge's representation (slices or local partials,
+    ``num_features`` the global F) and ``scorer`` scores them.  Returns
     ``(n_nodes, n_leaves)`` after the wave."""
     K = _PK
     s, parent_r, prow = plan.s, plan.parent_r, plan.prow
     nl_r, nr_r = plan.nl_r, plan.nr_r
     dev = P.device
-    num_features = hist_cache.shape[1]
+    if num_features is None:
+        num_features = hist_cache.shape[1]
     iota_s = torch.arange(s, device=dev)
 
     # siblings by subtraction from the per-leaf histogram cache (plain
     # gathers and writes: exact, as the reference's one-hot matmuls)
     parent_slot = node_slot[parent_r]
     other_hist = hist_cache[parent_slot] - direct_hist
-    dl = plan.direct_left[:, None, None, None]
+    dl = plan.direct_left.view((s,) + (1,) * (direct_hist.dim() - 1))
     left_hist = torch.where(dl, direct_hist, other_hist)
     right_hist = torch.where(dl, other_hist, direct_hist)
     right_slot = n_leaves + iota_s
@@ -882,13 +1128,11 @@ def _wave_commit(plan: WavePlan, direct_hist: torch.Tensor, P: torch.Tensor,
     # without monotone constraints every bound is infinite: the scan keeps
     # its scalar clip (fewer ops a wave)
     bounded = mono is not None
-    bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                         child_vals, child_lo if bounded else None,
-                         child_hi if bounded else None,
-                         arith=_xla_arith(cat_info, mono),
-                         cat_info=cat_info, mono=mono,
-                         rand_bins=None if rand is None
-                         else rand[child_nodes])
+    bs = (scorer or find_best_split)(
+        child_hists, ctx, child_masks, depth_ok, child_vals,
+        child_lo if bounded else None, child_hi if bounded else None,
+        arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
+        rand_bins=None if rand is None else rand[child_nodes])
 
     # commit: the parents become internal, the children arrive with their
     # candidate splits
@@ -928,6 +1172,52 @@ def _wave_commit(plan: WavePlan, direct_hist: torch.Tensor, P: torch.Tensor,
     return plan.route_args[-1] + 2 * s, n_leaves + s
 
 
+class WaveRows:
+    """The wave grower's row work on one device: the root's histogram
+    (kernel B1, one segment) and each wave's routing with the direct
+    children's histograms (kernel B2, or the plain partition then B1 on
+    the unfused route).  A mesh supplies its own
+    (``parallel.data_parallel.MeshWaveRows``) with the same methods."""
+
+    def __init__(self, bins: torch.Tensor, stats: torch.Tensor,
+                 num_bins: int, hist_impl: str, hist_dtype: str):
+        self.bins, self.stats = bins, stats
+        self.n, self.num_features = bins.shape
+        self.device = bins.device
+        self.num_bins, self.hist_impl = num_bins, hist_impl
+        self.hist_dtype = hist_dtype
+        self.row_leaf = torch.zeros(self.n, dtype=torch.int32,
+                                    device=self.device)
+
+    def root(self) -> torch.Tensor:
+        """The root's histogram ``[F, B, 3]``."""
+        return compute_histograms(
+            self.bins, self.stats,
+            torch.zeros(self.n, dtype=torch.int32, device=self.device), 1,
+            self.num_bins, impl=self.hist_impl,
+            hist_dtype=self.hist_dtype)[0]
+
+    def total(self) -> torch.Tensor:
+        """The root's (g, h, count) totals ``[3]``."""
+        return self.stats.sum(dim=0)
+
+    def wave(self, plan: "WavePlan", fuse_part: bool, **cat) -> torch.Tensor:
+        """Route the wave's rows into ``row_leaf`` and return the direct
+        children's histograms ``[s, F, B, 3]``."""
+        args = (self.bins, self.stats, self.row_leaf) + plan.route_args
+        if fuse_part:
+            args += (self.num_bins, resolve_mode(self.hist_dtype))
+            direct, self.row_leaf = (
+                hist_partition_plain(*args)
+                if self.hist_impl in ("plain", "jnp")
+                else hist_partition_fused(*args))
+            return direct
+        seg, self.row_leaf = route_wave(self.bins, *args[2:], **cat)
+        return compute_histograms(self.bins, self.stats, seg, plan.s,
+                                  self.num_bins, impl=self.hist_impl,
+                                  hist_dtype=self.hist_dtype)
+
+
 def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                        feature_mask: torch.Tensor, ctx: SplitContext,
                        num_leaves: int, num_bins: int, max_depth: int,
@@ -939,7 +1229,8 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                        mono: Optional[torch.Tensor] = None,
                        extra_trees: bool = False,
                        col_bins: Optional[torch.Tensor] = None,
-                       ic_member: Optional[torch.Tensor] = None
+                       ic_member: Optional[torch.Tensor] = None,
+                       rows=None, scorer=None
                        ) -> Tuple[Tree, torch.Tensor]:
     """Best-first growth in waves: up to ``wave_width`` splits per data
     pass (the reference's ``grow_tree_frontier``).
@@ -967,12 +1258,17 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     capacity, the exact tail's overgrowth included) and under their
     surviving interaction groups; the bounds ride in the node table, so the
     exact tail's prune keeps them.
+
+    On a mesh, ``rows`` (None: :class:`WaveRows` over ``bins`` and
+    ``stats``) routes each shard's rows and hands back merged histograms,
+    and ``scorer`` (:func:`make_dist_scorer`) scores a merge's slices or
+    local partials, the root totals then coming from the rows.
     """
-    n, num_features = bins.shape
-    dev = bins.device
+    if rows is None:
+        rows = WaveRows(bins, stats, num_bins, hist_impl, hist_dtype)
+    num_features = rows.num_features
+    dev = rows.device
     K = _PK
-    mode = resolve_mode(hist_dtype)
-    plain = hist_impl in ("plain", "jnp")
     exact = wave_tail == "exact"
     grow_leaves = (max(num_leaves + 1, int(overgrow_leaves or 0))
                    if exact else num_leaves)
@@ -988,9 +1284,7 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             if extra_trees else None)                         # [cap, F]
 
     # ---- root: kernel B1 with one segment --------------------------------
-    root_hist = compute_histograms(
-        bins, stats, torch.zeros(n, dtype=torch.int32, device=dev), 1,
-        num_bins, impl=hist_impl, hist_dtype=hist_dtype)[0]   # [F, B, 3]
+    root_hist = rows.root()                                   # [F, B, 3]
     root_mask = node_mask(0)
     icsets = member = None
     if ic_member is not None:
@@ -1000,6 +1294,9 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
         icsets[0] = True
         root_mask = root_mask * _ic_allowed(icsets[0], member)
     P, root_best = _wave_root(root_hist, ctx, root_mask, capacity,
+                              scorer=scorer,
+                              root_tot=None if scorer is None
+                              else rows.total(),
                               arith=_xla_arith(cat_info, mono),
                               cat_info=cat_info, mono=mono,
                               rand_bins=None if rand is None else rand[0])
@@ -1009,7 +1306,6 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                               device=dev)
         catmask[0] = root_best.cat_mask
     hist_cache, node_slot = _wave_cache(root_hist, grow_leaves, capacity)
-    row_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
     n_nodes, n_leaves = 1, 1
 
     while n_leaves < grow_leaves:
@@ -1021,27 +1317,19 @@ def grow_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
         # route the rows and histogram the smaller children: kernel B2, or
         # on the unfused route the plain partition and kernel B1 with one
         # segment per split
-        args = (bins, stats, row_leaf) + plan.route_args
-        if fuse_part:
-            args += (num_bins, mode)
-            direct_hist, row_leaf = (hist_partition_plain(*args) if plain
-                                     else hist_partition_fused(*args))
-        else:
-            cat = {} if catmask is None else dict(
-                cat=plan.prow[:, K.CAND_CAT] > 0.5,
-                catmask=catmask[plan.parent_r])
-            seg, row_leaf = route_wave(bins, *args[2:], **cat)
-            direct_hist = compute_histograms(bins, stats, seg, plan.s,
-                                             num_bins, impl=hist_impl,
-                                             hist_dtype=hist_dtype)
+        cat = {} if catmask is None else dict(
+            cat=plan.prow[:, K.CAND_CAT] > 0.5,
+            catmask=catmask[plan.parent_r])
+        direct_hist = rows.wave(plan, fuse_part, **cat)
         n_nodes, n_leaves = _wave_commit(
             plan, direct_hist, P, hist_cache, node_slot, n_leaves, ctx,
             max_depth, node_mask, mono=mono, icsets=icsets, member=member,
-            rand=rand, cat_info=cat_info, catmask=catmask)
+            rand=rand, cat_info=cat_info, catmask=catmask, scorer=scorer,
+            num_features=num_features)
 
     if exact:
-        return _exact_prune(P, row_leaf, num_leaves, catmask)
-    return _tree_from_packed(P, n_leaves, catmask), row_leaf
+        return _exact_prune(P, rows.row_leaf, num_leaves, catmask)
+    return _tree_from_packed(P, n_leaves, catmask), rows.row_leaf
 
 
 def _exact_prune(P: torch.Tensor, row_leaf: torch.Tensor, num_leaves: int,
@@ -1262,6 +1550,79 @@ def stream_exact_prune(P: torch.Tensor, row_leaf: torch.Tensor,
     return _exact_prune(P, row_leaf, num_leaves)
 
 
+def batched_wave_route(bins: torch.Tensor, row_leaf: torch.Tensor,
+                       route, row_base: torch.Tensor, num_bins: int):
+    """One wave's row partition for ``E`` trees (plain ops on ``[E, n]``,
+    as XLA ops in the reference): ``route = (slot_of_node [E, cap + 1],
+    prow [E, W, NC], direct_left [E, W], n_nodes [E], wmask)`` with
+    ``wmask`` bool ``[E, W * B]`` the splitting leaves' candidate masks
+    (None: no categorical split).  Returns ``(row_leaf' i64 [E, n], seg
+    i32 [E, n])``: a row of a split moves to its child, and one that went
+    to its split's smaller child gets its wave rank as segment (else
+    -1)."""
+    K = _PK
+    i64 = torch.int64
+    slot_of_node, prow, direct_left, n_nodes, wmask = route
+    slot = slot_of_node.gather(1, row_leaf)
+    sel = slot >= 0
+    s_safe = slot.clamp(min=0)
+    feat_row = prow[..., K.CAND_FEAT].to(i64).gather(1, s_safe)
+    code = bins.reshape(-1)[row_base + feat_row].to(i64)
+    go_left = code <= prow[..., K.CAND_BIN].to(i64).gather(1, s_safe)
+    if wmask is not None:
+        # a subset split's rows go left by their code's bit in the split
+        # leaf's candidate mask
+        bit = wmask.gather(1, s_safe * num_bins + code)
+        go_left = torch.where(
+            (prow[..., K.CAND_CAT] > 0.5).gather(1, s_safe), bit, go_left)
+    row_leaf = torch.where(
+        sel, n_nodes[:, None] + 2 * s_safe + (~go_left).to(i64), row_leaf)
+    direct = go_left == direct_left.gather(1, s_safe)
+    seg = torch.where(sel & direct, s_safe, -1).to(torch.int32)
+    return row_leaf, seg
+
+
+class BatchWaveRows:
+    """The batched wave grower's row work on one device: the roots'
+    narrow pass (kernel B6) and each wave's partition
+    (:func:`batched_wave_route`) with the direct children's histograms
+    (:func:`~..ops.histogram.compute_histograms_batched`, kernel B5 at the
+    default widths).  A mesh supplies its own with the same methods."""
+
+    def __init__(self, bins: torch.Tensor, stats_t: torch.Tensor,
+                 num_bins: int, hist_impl: str, hist_dtype: str):
+        self.bins, self.stats_t = bins, stats_t
+        self.n, self.e, _ = stats_t.shape
+        self.num_features = bins.shape[1]
+        self.device = bins.device
+        self.num_bins, self.hist_impl = num_bins, hist_impl
+        self.hist_dtype = hist_dtype
+        self.stats = stats_t.transpose(0, 1).contiguous()     # [E, n, 3]
+        self.row_base = (torch.arange(self.n, device=self.device)
+                         * self.num_features)
+        self.row_leaf = torch.zeros((self.e, self.n), dtype=torch.int64,
+                                    device=self.device)
+
+    def root(self) -> torch.Tensor:
+        """The roots' histograms ``[E, F, B, 3]``."""
+        return histograms_rows(self.bins, self.stats_t, None, 1,
+                               self.num_bins, impl=self.hist_impl,
+                               hist_dtype=self.hist_dtype)[:, 0]
+
+    def total(self) -> torch.Tensor:
+        """The roots' (g, h, count) totals ``[E, 3]``."""
+        return self.stats_t.sum(dim=0)
+
+    def wave(self, route, w_width: int) -> torch.Tensor:
+        """Route the wave's rows into ``row_leaf`` and return the direct
+        children's histograms ``[E, W, F, B, 3]``."""
+        self.row_leaf, seg = batched_wave_route(
+            self.bins, self.row_leaf, route, self.row_base, self.num_bins)
+        return compute_histograms_batched(
+            self.bins, self.stats, seg, w_width, self.num_bins,
+            impl=self.hist_impl, hist_dtype=self.hist_dtype)
+
+
 def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                                fmask: torch.Tensor, ctx: SplitContext,
                                max_depth: torch.Tensor, num_leaves: int,
@@ -1276,7 +1637,8 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                                mono: Optional[torch.Tensor] = None,
                                extra_trees: bool = False,
                                col_bins: Optional[torch.Tensor] = None,
-                               ic_member: Optional[torch.Tensor] = None):
+                               ic_member: Optional[torch.Tensor] = None,
+                               rows=None, scorer=None):
     """Wave growth of ``E`` trees at once: the reference's
     ``grow_tree_frontier`` under ``vmap`` (fused cross-validation in the
     wave regime, multiclass), on its non-fused wave path.
@@ -1308,10 +1670,16 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
 
     Returns a :class:`GrownTrees` whose tables hold ``2 * num_leaves - 1``
     rows (the mask table None without ``cat_info``).
+
+    On a mesh, ``rows`` (None: :class:`BatchWaveRows`) routes each shard's
+    rows and hands back merged histograms, and ``scorer``
+    (:func:`make_dist_scorer`) scores a merge's slices or local partials.
     """
-    n, e, _ = stats_t.shape
-    num_features = bins.shape[1]
-    dev = bins.device
+    if rows is None:
+        rows = BatchWaveRows(bins, stats_t, num_bins, hist_impl, hist_dtype)
+    e = rows.e
+    num_features = rows.num_features
+    dev = rows.device
     K = _PK
     nc = K.NC
     exact = wave_tail == "exact"
@@ -1331,10 +1699,10 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
             if extra_trees else None)                         # [E, cap, F]
 
     # ---- root: the batch's narrow pass (kernel B6) ----------------------
-    root_hist = histograms_rows(bins, stats_t, None, 1, num_bins,
-                                impl=hist_impl,
-                                hist_dtype=hist_dtype)[:, 0]   # [E, F, B, 3]
-    root_tot = root_hist[:, 0].sum(dim=1)                     # [E, 3]
+    root_hist = rows.root()                                   # [E, F, B, 3]
+    root_tot = None if scorer is None else rows.total()
+    if root_tot is None:
+        root_tot = root_hist[:, 0].sum(dim=1)                 # [E, 3]
     zero_e = torch.zeros(e, dtype=_F32, device=dev)
     root_out = constrained_leaf_output(
         root_tot[:, 0], root_tot[:, 1], root_tot[:, 2],
@@ -1348,7 +1716,7 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                              dtype=torch.bool, device=dev)
         icsets[:, 0] = True
         root_mask = root_mask * _ic_allowed(icsets[:, 0], member)
-    root_best = find_best_split(
+    root_best = (scorer or find_best_split)(
         root_hist, ctx, root_mask, None, root_out,
         arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
         rand_bins=None if rand is None else rand[:, 0])
@@ -1362,16 +1730,12 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
         catmask = torch.zeros((e, capacity + 1, num_bins), dtype=torch.bool,
                               device=dev)
         catmask[:, 0] = root_best.cat_mask
-    hist_cache = torch.zeros((e, grow_leaves + 1, num_features, num_bins, 3),
+    hist_cache = torch.zeros((e, grow_leaves + 1) + tuple(root_hist.shape[1:]),
                              dtype=_F32, device=dev)
     hist_cache[:, 0] = root_hist
     node_slot = torch.zeros((e, capacity + 1), dtype=i64, device=dev)
-    row_leaf = torch.zeros((e, n), dtype=i64, device=dev)
     n_nodes = torch.ones(e, dtype=i64, device=dev)
     n_leaves = torch.ones(e, dtype=i64, device=dev)
-    stats = stats_t.transpose(0, 1).contiguous()              # [E, n, 3]
-    bins_flat = bins.reshape(-1)
-    row_base = torch.arange(n, device=dev) * num_features
 
     while True:
         Pc = P[:, :capacity]
@@ -1402,34 +1766,18 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                                   device=dev)
         slot_of_node.scatter_(1, torch.where(active, parent_r, capacity),
                               torch.where(active, iota_w, -1))
-        slot = slot_of_node.gather(1, row_leaf)
-        sel = slot >= 0
-        s_safe = slot.clamp(min=0)
-        feat_row = prow[..., K.CAND_FEAT].to(i64).gather(1, s_safe)
-        code = bins_flat[row_base + feat_row].to(i64)
-        go_left = code <= prow[..., K.CAND_BIN].to(i64).gather(1, s_safe)
+        wmask = None
         if catmask is not None:
-            # a subset split's rows go left by their code's bit in the
-            # split leaf's candidate mask
             wmask = catmask.gather(1, parent_r[..., None].expand(
                 e, w_width, num_bins)).reshape(e, w_width * num_bins)
-            bit = wmask.gather(1, s_safe * num_bins + code)
-            go_left = torch.where(
-                (prow[..., K.CAND_CAT] > 0.5).gather(1, s_safe), bit,
-                go_left)
-        row_leaf = torch.where(
-            sel, n_nodes[:, None] + 2 * s_safe + (~go_left).to(i64),
-            row_leaf)
-        direct = go_left == direct_left.gather(1, s_safe)
-        seg = torch.where(sel & direct, s_safe, -1).to(torch.int32)
-        direct_hist = compute_histograms_batched(
-            bins, stats, seg, w_width, num_bins, impl=hist_impl,
-            hist_dtype=hist_dtype)                # [E, W, F, B, 3]
+        direct_hist = rows.wave((slot_of_node, prow, direct_left, n_nodes,
+                                 wmask), w_width)         # [E, W, F, B, 3]
 
         # siblings by subtraction from the per-element histogram cache
         parent_slot = node_slot.gather(1, parent_r)
         other_hist = hist_cache[ar, parent_slot] - direct_hist
-        dl = direct_left[..., None, None, None]
+        dl = direct_left.view(direct_left.shape
+                              + (1,) * (direct_hist.dim() - 2))
         left_hist = torch.where(dl, direct_hist, other_hist)
         right_hist = torch.where(dl, other_hist, direct_hist)
         right_slot = n_leaves[:, None] + iota_w
@@ -1480,12 +1828,11 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
                 max=capacity - 1)[..., None].expand(e, 2 * w_width,
                                                     num_features))
         bounded = mono is not None            # as in grow_tree_frontier
-        bs = find_best_split(child_hists, ctx, child_masks, depth_ok,
-                             child_vals, child_lo if bounded else None,
-                             child_hi if bounded else None,
-                             arith=_xla_arith(cat_info, mono),
-                             cat_info=cat_info, mono=mono,
-                             rand_bins=child_rand)
+        bs = (scorer or find_best_split)(
+            child_hists, ctx, child_masks, depth_ok, child_vals,
+            child_lo if bounded else None, child_hi if bounded else None,
+            arith=_xla_arith(cat_info, mono), cat_info=cat_info, mono=mono,
+            rand_bins=child_rand)
 
         # commit: the parents become internal, the children arrive with
         # their candidate splits; inactive lanes write the spare row
@@ -1527,6 +1874,7 @@ def grow_tree_frontier_batched(bins: torch.Tensor, stats_t: torch.Tensor,
     P = P[:, :capacity]
     if catmask is not None:
         catmask = catmask[:, :capacity]
+    row_leaf = rows.row_leaf
     if exact:
         P, catmask, node_to_new, kept = _prune_tables(P, catmask,
                                                       num_leaves)
@@ -1676,7 +2024,8 @@ def _gram_sums(z: torch.Tensor, row_leaf: torch.Tensor, gb: torch.Tensor,
 def fit_linear_leaves(tree: Tree, row_leaf: torch.Tensor, xraw: torch.Tensor,
                       g: torch.Tensor, h: torch.Tensor, bag: torch.Tensor,
                       linear_lambda: float, k_feats: int,
-                      row_chunk: int = 131072) -> Tuple[Tree, torch.Tensor]:
+                      row_chunk: int = 131072,
+                      row_shards=None) -> Tuple[Tree, torch.Tensor]:
     """Ridge models in every leaf (upstream ``linear_tree``), the
     reference's ``fit_linear_leaves``: per-leaf path-feature lists
     (:func:`linear_path_features`), the design ``Z = [x_path, 1]`` on the
@@ -1690,6 +2039,11 @@ def fit_linear_leaves(tree: Tree, row_leaf: torch.Tensor, xraw: torch.Tensor,
     member raises nothing and reads nothing back to the host, and its
     ``info`` marks it for the fallback, as the reference's non-finite
     result does.  Everything runs on the tensors' device.
+
+    ``row_shards`` (a mesh's row ranges ``[(start, stop)]``, None: one
+    device) sums each shard's Gram systems over its own rows and merges
+    them with one psum in shard order (the reference's ``axis_name``
+    path); the solve is replicated.
 
     Returns ``(tree with linear_feat/linear_coef/leaf_value set, the
     per-row f(x_i) of this tree)``.
@@ -1706,7 +2060,16 @@ def fit_linear_leaves(tree: Tree, row_leaf: torch.Tensor, xraw: torch.Tensor,
     xg = torch.where((feats >= 0) & torch.isfinite(xg), xg,
                      torch.zeros((), dtype=_F32, device=dev))
     z = torch.cat([xg, torch.ones((n, 1), dtype=_F32, device=dev)], dim=1)
-    A, bvec = _gram_sums(z, rl, g * bag, h * bag, capacity, int(row_chunk))
+    gb, hb = g * bag, h * bag
+    if row_shards is None:
+        A, bvec = _gram_sums(z, rl, gb, hb, capacity, int(row_chunk))
+    else:
+        from ..parallel.mesh import psum
+
+        parts = [_gram_sums(z[a:b], rl[a:b], gb[a:b], hb[a:b], capacity,
+                            int(row_chunk)) for a, b in row_shards]
+        A = psum([x[0] for x in parts])[0]
+        bvec = psum([x[1] for x in parts])[0]
     # filled on the device: a host tensor copied over would sync
     lam = torch.full((), float(linear_lambda), dtype=_F32, device=dev) \
         + torch.full((), 1e-6, dtype=_F32, device=dev)

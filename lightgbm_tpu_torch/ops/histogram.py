@@ -418,3 +418,154 @@ def compute_histograms(bins: torch.Tensor, stats: torch.Tensor,
         raise ValueError(f"unknown hist_impl {impl!r}: expected 'auto' or "
                          "'plain'")
     return hist_fused(bins, stats, seg, num_segments, num_bins, mode)
+
+
+# ---------------------------------------------------------------------------
+# Histogram merges over a mesh (the reference's ops/histogram.py:314-513)
+#
+# Per-shard partial histograms ``[..., F, B, C]`` arrive as a list (one
+# tensor a shard, ``parallel.mesh``) and merge by a collective.  Plain
+# PyTorch on purpose: in the reference these are lax collectives, not
+# Pallas kernels.  Every sum runs in a fixed order.
+# ---------------------------------------------------------------------------
+
+MERGE_MODES = ("psum", "reduce_scatter", "reduce_scatter_ring",
+               "reduce_scatter_pipelined", "voting")
+
+
+def histogram_psum(hists):
+    """The full allreduce: every shard receives the whole merged
+    histogram (:func:`histogram_merge` with ``mode="psum"``)."""
+    return histogram_merge(hists, mode="psum")
+
+
+def pad_feature_axis(hist: torch.Tensor, n_shards: int,
+                     axis: int) -> torch.Tensor:
+    """Zero-pad ``axis`` to a multiple of ``n_shards`` (pad columns are
+    all-zero histograms, masked out of every split scan)."""
+    f = hist.shape[axis]
+    f_pad = -(-f // n_shards) * n_shards
+    if f_pad == f:
+        return hist
+    shape = list(hist.shape)
+    shape[axis] = f_pad - f
+    return torch.cat([hist, hist.new_zeros(shape)], dim=axis)
+
+
+def merge_slice_width(num_features: int, n_shards: int,
+                      mode: str = "reduce_scatter",
+                      n_chunks: int = 1) -> int:
+    """Per-shard feature-slice width a merge mode hands the scorer: F padded
+    to a multiple of ``D`` (of ``D * n_chunks`` for the pipelined mode)
+    over ``D``.  Size per-shard metadata with this, never ``ceil(F/D)``."""
+    mult = n_shards * (n_chunks if mode == "reduce_scatter_pipelined"
+                       else 1)
+    f_pad = -(-num_features // mult) * mult
+    return f_pad // n_shards
+
+
+def ring_reduce_scatter(xs, n_shards: int, axis: int,
+                        wire_dtype: str = "f32"):
+    """Reduce-scatter as ``D - 1`` ring hops (``i -> i + 1``): chunk ``c``'s
+    partial starts at shard ``c + 1`` and each hop adds the receiver's
+    contribution, so shard ``i`` ends holding chunk ``i`` summed over all
+    shards, in the owner's ``idx - 1 - k`` rotation (the reference's
+    order).  ``axis`` must be padded to a shard multiple."""
+    from .quantize import wire_transfer
+
+    f_pad = xs[0].shape[axis]
+    if f_pad % n_shards:
+        raise ValueError("pad the feature axis first")
+    f_loc = f_pad // n_shards
+    perm = [(i, (i + 1) % n_shards) for i in range(n_shards)]
+
+    def chunk(idx, k):
+        return xs[idx].narrow(axis, ((idx - 1 - k) % n_shards) * f_loc,
+                              f_loc)
+
+    accs = [chunk(i, 0) for i in range(n_shards)]
+    for k in range(1, n_shards):
+        accs = [a + chunk(i, k) for i, a in enumerate(
+            wire_transfer(accs, perm, wire_dtype, f_axis=axis))]
+    return accs
+
+
+def ring_reduce_scatter_pipelined(xs, n_shards: int, axis: int,
+                                  n_chunks: int, wire_dtype: str = "f32"):
+    """:func:`ring_reduce_scatter` split into ``n_chunks`` sub-rings along
+    the feature axis, every hop ``k`` issued for all chunks before hop
+    ``k + 1``; each column keeps the plain ring's rotation.  ``axis`` must
+    be padded to a ``D * n_chunks`` multiple (:func:`merge_slice_width`)."""
+    from .quantize import wire_transfer
+
+    f_pad = xs[0].shape[axis]
+    if f_pad % (n_shards * n_chunks):
+        raise ValueError(
+            "pad the feature axis to a shards*chunks multiple first")
+    f_loc = f_pad // n_shards
+    sub = f_loc // n_chunks
+    perm = [(i, (i + 1) % n_shards) for i in range(n_shards)]
+
+    def piece(idx, c, k):
+        return xs[idx].narrow(
+            axis, ((idx - 1 - k) % n_shards) * f_loc + c * sub, sub)
+
+    accs = [[piece(i, c, 0) for i in range(n_shards)]
+            for c in range(n_chunks)]
+    for k in range(1, n_shards):
+        accs = [[a + piece(i, c, k) for i, a in enumerate(
+            wire_transfer(acc_c, perm, wire_dtype, f_axis=axis))]
+            for c, acc_c in enumerate(accs)]
+    return [torch.cat([accs[c][i] for c in range(n_chunks)], dim=axis)
+            for i in range(n_shards)]
+
+
+def histogram_merge(hists, mode: str = "psum", n_shards: Optional[int] = None,
+                    wire_dtype: str = "f32", n_chunks: int = 1):
+    """Merge per-shard partial histograms ``[..., F, B, C]`` (a list, one a
+    shard), the reference's ``histogram_merge``:
+
+    * ``"psum"`` — every shard receives the whole merged histogram;
+    * ``"reduce_scatter"`` — shard ``d`` receives its slice of F (padded to
+      a shard multiple), summed in shard order;
+    * ``"reduce_scatter_ring"`` — the same slices through
+      :func:`ring_reduce_scatter`'s ``D - 1`` hops;
+    * ``"reduce_scatter_pipelined"`` — the ring in ``n_chunks`` sub-rings
+      (:func:`ring_reduce_scatter_pipelined`); F pads to a ``D * n_chunks``
+      multiple.
+
+    ``wire_dtype`` (``"f32"``/``"bf16"``/``"int8"``) compresses ring hops;
+    a non-f32 wire with ``psum``/``reduce_scatter`` (no hop boundary) is a
+    ``ValueError``, as in the reference.  Reduce-scatter modes return the
+    local padded slices ``[..., F_pad / D, B, C]``."""
+    from ..parallel.mesh import psum, psum_scatter
+    from .quantize import WIRE_DTYPES
+
+    hists = list(hists)
+    n_shards = len(hists) if n_shards is None else int(n_shards)
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(
+            f"unknown wire dtype {wire_dtype!r}; expected one of "
+            f"{WIRE_DTYPES}")
+    if wire_dtype != "f32" and mode in ("psum", "reduce_scatter"):
+        raise ValueError(
+            f"wire_dtype={wire_dtype!r} needs a ring merge mode with "
+            f"explicit hop boundaries; {mode!r} is one fused collective")
+    if mode == "psum":
+        return psum(hists)
+    axis = hists[0].dim() - 3
+    if mode == "reduce_scatter_pipelined":
+        n_chunks = max(int(n_chunks), 1)
+        padded = [pad_feature_axis(h, n_shards * n_chunks, axis)
+                  for h in hists]
+        return ring_reduce_scatter_pipelined(padded, n_shards, axis,
+                                             n_chunks, wire_dtype)
+    padded = [pad_feature_axis(h, n_shards, axis) for h in hists]
+    if mode == "reduce_scatter":
+        return psum_scatter(padded, axis)
+    if mode == "reduce_scatter_ring":
+        return ring_reduce_scatter(padded, n_shards, axis, wire_dtype)
+    raise ValueError(
+        f"unknown histogram merge mode {mode!r}; expected 'psum', "
+        "'reduce_scatter', 'reduce_scatter_ring', or "
+        "'reduce_scatter_pipelined'")

@@ -1,5 +1,5 @@
-"""Packed-forest quantization — the port's copy of the serving half of
-``lightgbm_tpu/ops/quantize.py``.
+"""Low-precision quantization — the port of ``lightgbm_tpu/ops/quantize.py``:
+the histogram ring's wire format (:func:`wire_transfer`) and packed forests.
 
 :func:`quantize_forest` shrinks a packed forest's device residency: int8 or
 bf16 leaf values (int8 with one symmetric f32 scale per tree), uint8
@@ -11,8 +11,13 @@ bound comes back beside the arrays so the serving canary gates on
 arithmetic.
 
 bf16 rounding goes through ``torch.bfloat16`` (round to nearest even), the
-same rounding as the reference's cast.  The ring-wire quantizer
-(``wire_transfer``) is multi-device and waits for that slice.
+same rounding as the reference's cast.
+
+:func:`wire_transfer` is one ring hop of an f32 partial-sum histogram over
+per-shard lists (``parallel.mesh``): f32 as it is, bf16 rounded on the
+wire, or int8 with one scale per (feature, stat) column, re-quantized at
+every hop.  Plain PyTorch on purpose: in the reference it is a ``lax``
+collective and XLA ops, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+WIRE_DTYPES = ("f32", "bf16", "int8")
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
 FOREST_PRECISIONS = ("f32", "bf16", "int8")
 
 # Per-node storage bytes of a packed forest's traversal arrays by
@@ -40,6 +47,46 @@ PACKED_SCALE_BYTES_PER_TREE = {"f32": 0, "bf16": 0, "int8": 4}
 
 _I16_MAX = np.iinfo(np.int16).max
 _U8_MAX = np.iinfo(np.uint8).max
+
+
+def wire_transfer(ts, perm, wire_dtype: str, f_axis: int = 1):
+    """One ring hop of per-shard f32 partial sums ``ts`` (a list, one tensor
+    a shard) along ``perm`` in the chosen wire format (the reference's
+    ``wire_transfer``):
+
+    * ``"f32"`` — the plain hop (:func:`~..parallel.mesh.ppermute`);
+    * ``"bf16"`` — rounded to bf16 (nearest even) on the wire, widened back
+      on arrival;
+    * ``"int8"`` — ``q = clip(round(t / s), ±127)`` with one f32 scale
+      ``s = max|t| * f32(1 / 127)`` per (feature, stat) column (axes ``f_axis`` and
+      the last; 1 where the column is all zero); ``q`` and the scales hop,
+      the receiver takes ``q * s``.  ``round`` is half-to-even, as
+      ``jnp.round``.
+
+    Lossy for bf16 and int8, and re-quantized at every hop, so the error
+    grows with the ring's length: only the ring merge modes reach it."""
+    from ..parallel.mesh import ppermute
+
+    if wire_dtype == "f32":
+        return ppermute(ts, perm)
+    if wire_dtype == "bf16":
+        return [t.to(torch.float32) for t in ppermute(
+            [t.to(torch.bfloat16) for t in ts], perm)]
+    if wire_dtype == "int8":
+        qs, ss = [], []
+        for t in ts:
+            red = tuple(i for i in range(t.dim())
+                        if i not in (f_axis % t.dim(), t.dim() - 1))
+            # XLA's program multiplies by the f32 reciprocal of 127
+            s = t.abs().amax(dim=red, keepdim=True) * _INV127
+            s = torch.where(s > 0, s, torch.ones_like(s))
+            qs.append(torch.clamp(torch.round(t / s), -127, 127).to(
+                torch.int8))
+            ss.append(s)
+        return [q.to(torch.float32) * s for q, s in zip(
+            ppermute(qs, perm), ppermute(ss, perm))]
+    raise ValueError(
+        f"unknown wire dtype {wire_dtype!r}; expected one of {WIRE_DTYPES}")
 
 
 class ThresholdBoundError(ValueError):

@@ -225,7 +225,8 @@ def split_stats_valid(lc, rc, lh, rh, gain, ctx: SplitContext):
 
 class CatInfo(NamedTuple):
     """Categorical split configuration of a dataset (the reference's
-    ``CatInfo``): ``is_cat`` bool ``[F]`` marks the training columns (after
+    ``CatInfo``): ``is_cat`` bool ``[F]`` (or ``[..., F]``, a mesh scorer's
+    column pieces) marks the training columns (after
     EFB) that hold category codes; ``cat_smooth``, ``cat_l2`` and
     ``max_cat_threshold`` are upstream's regularizers of the k-vs-rest
     subset search, shared by every element of a batch."""
@@ -333,7 +334,9 @@ def _scan(hist: torch.Tensor, ctx: SplitContext, feature_mask, depth_ok,
         ok = ok & (pos == rand_bins.to(hist.device)[..., None])
     m = None
     if mono is not None:
-        m = mono.to(device=hist.device, dtype=_F32)[:, None]   # [F, 1]
+        # [F, 1], or [..., F, 1] for per-node columns (a voting candidate
+        # set gathers each node's own)
+        m = mono.to(device=hist.device, dtype=_F32)[..., None]
     gain, wl, wr = _masked_gain(cum, total, ctx, ctx, p_out, lo, hi, arith,
                                 ok, m)
     return gain, cum, total, wl, wr, (ctx, p_out, lo, hi, ok, m)
@@ -395,7 +398,7 @@ def _cat_scan(hist, cat_info: CatInfo, total, gain_num, parts, parent_out,
     gain, wl, wr = _masked_gain(cum_s, total, ctx_cat, ctx, p_out_cat, lo,
                                 hi, arith, ok_cat)
     use_desc = gain[1] > gain[0]
-    gain_all = torch.where(cat_info.is_cat.to(hist.device)[:, None],
+    gain_all = torch.where(cat_info.is_cat.to(hist.device)[..., None],
                            torch.maximum(gain[0], gain[1]), gain_num)
     return gain_all, use_desc, (order, cum_s, wl, wr)
 
@@ -467,7 +470,12 @@ def find_best_split(hist: torch.Tensor, ctx: SplitContext,
     cat = cat_mask = None
     if cat_info is not None:
         # take, not indexing: a 0-d index would be read back to the host
-        cat = torch.take(cat_info.is_cat.to(hist.device), feat)
+        is_cat = cat_info.is_cat.to(hist.device)
+        if is_cat.dim() == 1:
+            cat = torch.take(is_cat, feat)
+        else:
+            cat = is_cat.expand(lead + (num_features,)).gather(
+                -1, feat.unsqueeze(-1)).squeeze(-1)
         desc_won = torch.gather(use_desc.reshape(flat.shape), -1,
                                 g).squeeze(-1)
         va = winner(cum_s[0], wl_s[0], wr_s[0])

@@ -16,8 +16,8 @@ grid into an executable plan over a configs x devices mesh:
   bucket's early stopping is collective), greedily balancing total
   configs per group.
 
-The port runs on one device (``n_devices > 1`` raises: ROADMAP slice 6,
-multi-device, item 12).  Unit identity (``uid``) is content-derived, so a resumed
+The port's sweep runs on one device (``n_devices > 1`` raises: ROADMAP
+slice 6, multi-device, item 12b).  Unit identity (``uid``) is content-derived, so a resumed
 sweep re-plans the same remaining units.
 """
 
@@ -105,7 +105,7 @@ class SweepScheduler:
         if n_devices > 1:
             raise NotImplementedError(
                 "a sweep over several devices is not ported yet: ROADMAP "
-                "slice 6 (multi-device), item 12")
+                "slice 6 (multi-device), item 12b")
         if group_size < 1 or n_devices % group_size:
             raise ValueError(
                 f"group_size must be >= 1 and divide n_devices "

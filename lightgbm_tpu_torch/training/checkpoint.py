@@ -254,7 +254,6 @@ def resume_booster(source, train_set, params=None):
         arrays, meta = load_checkpoint(os.fspath(source))
     else:
         arrays, meta = source
-    validate_parallel_topology(meta, requested=params)
     params_dict = {k: v for k, v in meta["params"].items() if v is not None}
     metric = params_dict.pop("metric", None)
     ckpt_params = parse_params(params_dict, warn_unknown=False)
@@ -270,43 +269,51 @@ def resume_booster(source, train_set, params=None):
             "rebuild the Dataset from the same source data / reference "
             "before resuming", field="schema_digest")
     booster = Booster(ckpt_params, train_set)
+    validate_parallel_topology(booster, meta, requested=params)
     booster.restore_checkpoint_state(arrays, meta)
     return booster
 
 
-_MULTI_DEVICE = "ROADMAP slice 6 (multi-device), item 12"
+def validate_parallel_topology(booster, meta: dict, requested=None) -> None:
+    """Elastic-resume gate (the reference's): reject a topology change the
+    writer's state cannot reshard onto BEFORE any round runs.
 
-
-def validate_parallel_topology(meta: dict, requested=None) -> None:
-    """Resume gate: reject a topology this port cannot resume onto BEFORE
-    any round runs.
-
-    The port trains on one device, so it keeps the reference's one-device
-    half: a checkpoint written by a multi-device run (its ``parallel``
-    block names ``n_devices > 1`` or a histogram ``merge_mode``), or a
-    resume that requests a ``histogram_merge`` mode, is refused with a
-    typed :class:`IncompatibleCheckpointError` naming the field.
-    """
+    The checkpoint's arrays are in global row order, so they reshard onto
+    any row mesh whose device count divides or is a multiple of the
+    writer's: shard boundaries nest, placement moves, values do not.  A
+    device count that neither divides nor is a multiple of the writer's,
+    or another histogram merge topology (resolved, or requested by
+    ``requested``'s ``histogram_merge``), raises
+    :class:`IncompatibleCheckpointError` naming the field."""
     old = dict(meta.get("parallel") or {})
     old_d = int(old.get("n_devices", 1))
-    if old_d != 1:
+    mesh = getattr(booster, "_mesh", None)
+    new_d = int(mesh.n_devices) if mesh is not None else 1
+    if old_d != new_d and (old_d < 1 or new_d < 1 or (
+            old_d % new_d and new_d % old_d)):
         raise IncompatibleCheckpointError(
-            f"checkpoint was written at n_devices={old_d}; resuming a "
-            f"multi-device run is not ported yet: {_MULTI_DEVICE} "
+            f"checkpoint was written at n_devices={old_d} and this resume "
+            f"resolved n_devices={new_d}: elastic resume needs the device "
+            "counts to divide one another so shard boundaries nest "
             "(field: n_devices)", field="n_devices")
     old_mode = old.get("merge_mode")
-    if old_mode is not None:
-        raise IncompatibleCheckpointError(
-            f"checkpoint trained with histogram merge_mode={old_mode!r}; "
-            f"histogram merges are not ported yet: {_MULTI_DEVICE} "
-            "(field: merge_mode)", field="merge_mode")
-    if requested is not None:
+    if old_mode is not None and mesh is not None and \
+            not getattr(booster, "_dp2", False) and mesh.dc == 1:
+        new_mode = mesh.mode
+        if new_mode != old_mode:
+            raise IncompatibleCheckpointError(
+                f"checkpoint trained with histogram merge_mode="
+                f"{old_mode!r} but this resume resolved {new_mode!r}: "
+                "mixing merge topologies changes the partial-sum order "
+                "mid-forest (field: merge_mode)", field="merge_mode")
+    if requested is not None and old_mode is not None:
         if hasattr(requested, "extra"):
             req_mode = (requested.extra or {}).get("histogram_merge")
         else:
             req_mode = dict(requested or {}).get("histogram_merge")
-        if req_mode is not None:
+        if req_mode is not None and req_mode != old_mode:
             raise IncompatibleCheckpointError(
-                f"resume config requests histogram_merge={req_mode!r}; "
-                f"histogram merges are not ported yet: {_MULTI_DEVICE} "
-                "(field: merge_mode)", field="merge_mode")
+                f"resume config requests histogram_merge={req_mode!r} "
+                f"but the checkpoint's forest grew under {old_mode!r}: "
+                "mixing merge topologies changes the partial-sum order "
+                "mid-forest (field: merge_mode)", field="merge_mode")

@@ -169,8 +169,9 @@ def test_cv_wave_regime_matches_reference(data):
 
 def test_wave_regime_raises_by_name(data):
     """int8 in the wave regime trains (its batched histograms run at full
-    precision, so it equals f32); a learner outside the slice still raises
-    by name."""
+    precision, so it equals f32); a mesh learner on the fused route trains
+    the fused program, as the reference's fused route does (it never
+    consults ``tree_learner``), so it equals the serial result."""
     X, y, rd, pd = data
     base = dict(CONFIGS[0], grow_policy="frontier", num_leaves=7)
     q8 = P.cv(dict(base, hist_dtype="int8"), pd, 3, nfold=3)
@@ -178,8 +179,11 @@ def test_wave_regime_raises_by_name(data):
     assert q8.best_iter == f32.best_iter
     for k in f32:
         np.testing.assert_array_equal(q8[k], f32[k])
-    with pytest.raises(NotImplementedError, match="tree_learner"):
-        P.cv(dict(base, tree_learner="data"), pd, 3, nfold=3)
+    dp = P.cv(dict(base, hist_dtype="f32", tree_learner="data"), pd, 3,
+              nfold=3)
+    assert dp.best_iter == f32.best_iter
+    for k in f32:
+        np.testing.assert_array_equal(dp[k], f32[k])
 
 
 def test_carry_round_trip_continues_identically(data):

@@ -55,6 +55,12 @@ bit (waves: B1 and B2; strict: B1 and B3); ``refit`` on the card
 deterministic (one-hot matmul sums over row chunks, no float atomics) and
 within rtol 1e-5 of the CPU's.
 
+Multi-device training on virtual shards (2 and 4 on the card): wave,
+strict, voting, feature-sharded, 2-D, multiclass and int8 runs through
+the kernels per shard grow the plain path's trees bit for bit on exact
+sums, and (but int8 and voting) the serial round-1 tree (multiclass: its
+first differing split, if any, a near tie).
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1834,3 +1840,118 @@ def test_streamed_int8_and_goss_kernel_vs_plain_on_card():
             fa, fb = tree_to_arrays(ta), tree_to_arrays(tb)
             for k in fa:
                 assert np.array_equal(fa[k], fb[k]), (extra, k)
+
+
+# -- multi-device training on virtual shards ------------------------------
+
+DP_CASES = {
+    "wave_pipelined": {},
+    "wave_psum": {"histogram_merge": "psum"},
+    "strict_psum": {"histogram_merge": "psum", "grow_policy": "leafwise"},
+    "strict_ring": {"histogram_merge": "reduce_scatter_ring",
+                    "grow_policy": "leafwise"},
+    "voting": {"tree_learner": "voting", "top_k": 5},
+    "feature": {"tree_learner": "feature"},
+    "mesh_2d": {"mesh_shape": None},          # d // 2 x 2
+    "multiclass": {"objective": "multiclass", "num_class": 3},
+    "int8": {"hist_dtype": "int8"},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("case", sorted(DP_CASES))
+def test_dp_trees_kernel_vs_plain_on_card(case, d):
+    """Multi-device training on ``d`` virtual shards on the card: every
+    shard's histograms through the kernels (B1 roots and B2 waves per
+    shard; B1 pairs and, under psum, B3 on the strict grower; B1 without
+    B2 on feature shards; B5/B6 per shard for multiclass; B1's int8 mode)
+    grow the plain path's trees bit for bit on exact sums (dyadic labels,
+    l2; int8 sums are exact integers), and the serial kernel path's
+    where no per-shard quantization or ballot enters (multiclass: its
+    softmax sums are not exact, so a first differing split must be a near
+    tie)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import (
+        HIST_FUSED_BATCHED_LAUNCHES, HIST_FUSED_LAUNCHES,
+        HIST_PARTITION_LAUNCHES, HIST_SEGSTATS_LAUNCHES)
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+
+    dev = _card()
+    X, y = _stream_frame(n=40_960)
+    extra = dict(DP_CASES[case])
+    if case == "mesh_2d":
+        extra["mesh_shape"] = f"{d // 2}x2"
+    if extra.get("objective") == "multiclass":
+        y = (y + (X[:, 1] > 0.5)).astype(np.float32)
+    p = dict(dict(objective="regression", num_leaves=31, max_bin=255,
+                  learning_rate=0.5, min_data_in_leaf=20, hist_dtype="f32",
+                  verbosity=-1, tree_learner="data"), **extra)
+    ds = lgb.Dataset(X, label=y, device=dev, params=dict(p)).construct()
+    counters = (*HIST_FUSED_LAUNCHES.values(),
+                *HIST_PARTITION_LAUNCHES.values(),
+                *HIST_SEGSTATS_LAUNCHES.values(),
+                *HIST_FUSED_BATCHED_LAUNCHES.values(), SPLIT_ITER_LAUNCHES)
+    set_virtual_devices(d)
+    try:
+        for c in counters:
+            c.reset()
+        bk = lgb.train(p, ds, 2)
+        launched = {"b1": sum(HIST_FUSED_LAUNCHES[m].count
+                              for m in HIST_FUSED_LAUNCHES),
+                    "b2": sum(c.count for c in
+                              HIST_PARTITION_LAUNCHES.values()),
+                    "b3": SPLIT_ITER_LAUNCHES.count,
+                    "b56": sum(c.count for c in (
+                        *HIST_SEGSTATS_LAUNCHES.values(),
+                        *HIST_FUSED_BATCHED_LAUNCHES.values()))}
+        bp = lgb.train(dict(p, hist_impl="plain"), ds, 2)
+        assert bk._mesh is not None and bk._mesh.n_devices == d
+    finally:
+        set_virtual_devices(0)
+    if case == "multiclass":
+        assert launched["b56"] > 0 and launched["b56"] % d == 0
+    else:
+        assert launched["b1"] > 0 and launched["b1"] % d == 0, launched
+    if case in ("wave_pipelined", "wave_psum", "voting"):
+        assert launched["b2"] > 0 and launched["b2"] % d == 0
+    if case in ("feature", "mesh_2d"):
+        assert launched["b2"] == 0 and launched["b3"] == 0
+    if case == "strict_psum":
+        assert launched["b3"] == 2 * 30
+    if case == "strict_ring":
+        assert launched["b3"] == 0
+    # softmax statistics are not exact: multiclass holds structure and
+    # leaves within rtol 1e-5 (kernel and plain sum in f64 in other orders)
+    exact = case != "multiclass"
+
+    def same(a, b, what):
+        fa, fb = tree_to_arrays(a), tree_to_arrays(b)
+        for k in fa:
+            if exact or k not in ("leaf_value", "split_gain"):
+                assert np.array_equal(fa[k], fb[k]), (case, what, k)
+            else:
+                np.testing.assert_allclose(fa[k], fb[k], rtol=1e-5,
+                                           atol=1e-6)
+
+    for ta, tb in zip(bk.trees, bp.trees):
+        same(ta, tb, "plain")
+    if exact:
+        assert torch.equal(bk._pred_train, bp._pred_train)
+    if case not in ("int8", "voting", "multiclass"):
+        serial = lgb.train(dict(p, tree_learner="serial"), ds, 1)
+        same(serial.trees[0], bk.trees[0], "serial")
+    elif case == "multiclass":
+        # softmax sums merged from shard partials against one f64 pass:
+        # the first differing node (if any) a near tie, gains within 1e-4
+        serial = lgb.train(dict(p, tree_learner="serial"), ds, 1)
+        fa, fb = tree_to_arrays(serial.trees[0]), tree_to_arrays(bk.trees[0])
+        diff = np.flatnonzero((fa["split_feature"] != fb["split_feature"])
+                              | (fa["split_bin"] != fb["split_bin"]))
+        if len(diff):
+            i = int(diff[0])
+            ga = fa["split_gain"].reshape(-1)[i]
+            gb = fb["split_gain"].reshape(-1)[i]
+            assert abs(ga - gb) <= 1e-4 * max(abs(ga), abs(gb)), (ga, gb)

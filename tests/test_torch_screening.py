@@ -189,13 +189,12 @@ def test_screen_scope_keys(extra, key):
         y = (np.abs(X[:, 0]) * 2).astype(np.int32) % 3
     p = dict(dict(objective="binary", num_leaves=7, verbose=-1,
                   feature_screen="ema"), **extra)
-    # the feature-parallel learner is refused by name in memory (item 12);
-    # on a streamed Dataset it reaches the screening fence, as the
-    # reference's does
-    streamed = key == "tree_learner"
-    with pytest.raises(ScreenScopeError) as ei:
-        _booster(P, p, X, y, streamed)
-    assert ei.value.key == key
+    # the feature-parallel learner reaches the screening fence in memory
+    # and on a streamed Dataset, as the reference's does
+    for streamed in ((False, True) if key == "tree_learner" else (False,)):
+        with pytest.raises(ScreenScopeError) as ei:
+            _booster(P, p, X, y, streamed)
+        assert ei.value.key == key
 
 
 def test_screened_kill_resume_bit_identical(tmp_path):

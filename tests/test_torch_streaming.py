@@ -250,7 +250,7 @@ def test_tree_learner_warns_and_streams_serially(learner):
         b = _streamed_booster(tree_learner=learner)
     b.update()
     assert len(b.trees) == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         _streamed_booster(tree_learner="data")
 
 

@@ -159,10 +159,16 @@ def test_not_ported_options_raise_by_name(data, tmp_path):
                    "verbosity": -1}, pd)
     b.update()
     arrays, meta = b.checkpoint_state()
-    meta["parallel"]["n_devices"] = 2
-    with pytest.raises(IncompatibleCheckpointError, match="slice 6"):
-        resume_booster((arrays, meta), pd)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # elastic resume: a one-device run resumes a checkpoint written at 2
+    # (or 3) devices, shard boundaries nest; another merge mode requested
+    # than the writer's raises by name
+    for d in (2, 3):
+        meta["parallel"].update(n_devices=d, merge_mode="psum")
+        assert resume_booster((arrays, meta), pd).current_iteration() == 1
+    with pytest.raises(IncompatibleCheckpointError, match="merge_mode"):
+        resume_booster((arrays, meta), pd,
+                       params={"histogram_merge": "reduce_scatter"})
+    with pytest.raises(NotImplementedError, match="item 12b"):
         SweepService(_grid(), pd, base_params=BASE, n_devices=2,
                      group_size=1).run()
 

@@ -21,7 +21,9 @@ Every input is made from a numpy seed and goes through ``lightgbm_tpu``
 (d) ``cv(nfold=3, early_stopping_rounds=5)`` against the reference's
     per-fold path: histories within rtol 1e-5, ``best_iter`` equal,
     ``best_score`` sign-flipped and within rtol 1e-5;
-(e) every option outside the slice raises a named ``NotImplementedError``.
+(e) every option under a mesh learner (``tree_learner="data"`` /
+    ``"feature"``) trains on 8 virtual shards, or warns and trains serially
+    where the reference keeps it serial.
 """
 
 import numpy as np
@@ -210,6 +212,9 @@ def test_cv_matches_reference_per_fold_path():
 
 
 # ------------------------------------------------------ (e) out of the slice
+# each option under a mesh learner: on 8 virtual shards it trains on the
+# mesh, or (the reference's scope) warns and trains serially
+MESH_SERIAL = ("dart", "multiclass", "bynode", "quantile")
 OUT_OF_SLICE = {
     # goss and dart train since their slice; under a learner outside the
     # slice they still raise by name
@@ -264,11 +269,34 @@ def small_set():
 
 @pytest.mark.parametrize("case", sorted(OUT_OF_SLICE))
 def test_out_of_slice_raises_named_error(small_set, case):
+    """Since the multi-device slice these options train under the mesh
+    learners (the name is kept from when they raised): on the mesh, or with
+    the reference's warning serially; lambdarank still needs its groups."""
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+
     X, y = small_set
     params = dict(objective="binary", num_leaves=31, verbose=-1)
     params.update(OUT_OF_SLICE[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.train(params, P.Dataset(X, label=y, device="cpu"), 2)
+    set_virtual_devices(8)
+    try:
+        ds = P.Dataset(X, label=y, device="cpu",
+                       free_raw_data=case != "linear_tree",
+                       params={"enable_bundle": False})
+        if case == "lambdarank":
+            with pytest.raises(ValueError, match="query group"):
+                P.train(params, ds, 2)
+            return
+        if case in MESH_SERIAL:
+            with pytest.warns(UserWarning, match="training serially"):
+                b = P.train(params, ds, 2)
+            assert b._mesh is None
+        else:
+            b = P.train(params, ds, 2)
+            assert b._mesh is not None and b._mesh.n_devices == 8
+        assert b.current_iteration() == 2
+        assert np.isfinite(b.predict(X)).all()
+    finally:
+        set_virtual_devices(0)
 
 
 def test_out_of_slice_datasets_and_init_model(small_set, tmp_path):
