@@ -150,13 +150,14 @@ Phases:
    through ``PredictorRuntime`` (B4) on 16,384 rows equal bit for bit;
    the checkpoint's bytes, ``save_checkpoint`` ms and ``resume_booster``
    ms; (b) ``python -m lightgbm_tpu_torch task=train checkpoint_dir=...
-   checkpoint_rounds=5 num_trees=60`` on phase 12e's 200,000-row CSV in a
+   checkpoint_rounds=5 num_trees=30`` on phase 12e's 200,000-row CSV in a
    subprocess, sent SIGTERM once its first checkpoint file appears (it must
    exit 0 and print "preempted"), rerun to its end: the model file equal,
    byte for byte, to an uninterrupted run's; (c) a 12-config sweep (the
    num_leaves 31, learning_rate 0.1 bucket of ``paramGrid.json``'s axes)
    on phase 8's diamonds split with an ``.RData`` ledger and carry
-   checkpoints, stopped by a ``FaultInjector`` at ``sweep_segment`` hit 3
+   checkpoints (100 rounds, 5 folds, early stopping 5, a segment every 25
+   rounds), stopped by a ``FaultInjector`` at ``sweep_segment`` hit 3
    and rerun: ``resumed_units >= 1`` and the ledger file equal, byte for
    byte, to an uninterrupted run's, with and without carry checkpoints
    (B6, B3); the uninterrupted run's seconds with and without them;
@@ -167,7 +168,7 @@ Phases:
    params): ``cv`` (5 folds, early stopping 50, the script's 1,000 rounds
    cut to 40 on both paths; fused strict, B6 + B3) through the kernels
    and the plain versions (fold-mean RMSE per round within 1e-5 relative,
-   ``best_iter`` equal, ``best_score`` within 1e-5), ``train`` of 500 rounds
+   ``best_iter`` equal, ``best_score`` within 1e-5), ``train`` of 300 rounds
    (B1 + B3; the plain run the first 20 rounds, the plain versions being
    launch-bound at 1,000 rows) and ``predict(grid, ntree_limit=k)`` for k
    in {1, 20, 50, 100, 300} (kernel vs plain within 1e-5 up to 20 trees;
@@ -204,7 +205,7 @@ Phases:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host read); (b) the
    regression family on examples/gridsearch_cv.py's diamonds split with
    the price in dollars and the example's untuned call (learning rate
-   0.1, cut to 30 rounds): huber, fair, poisson, gamma, tweedie, mape,
+   0.1, cut to 20 rounds): huber, fair, poisson, gamma, tweedie, mape,
    cross_entropy (price over the largest price) and a custom ``fobj``
    (l2 in arithmetic operators) through the kernels and the plain
    versions, the held-out metric within 1e-5 relative; each model packed
@@ -221,7 +222,7 @@ Phases:
 16. GOSS and DART at LightGBM's defaults, every launch counter at 0 just
    before each run and read just after: (a) GOSS at the north star
    (``top_rate`` 0.2, ``other_rate`` 0.1: 300,000 compacted rows, f32
-   under "auto", B1 roots and B2 waves), 10 rounds through the kernels and
+   under "auto", B1 roots and B2 waves), 6 rounds through the kernels and
    the plain versions in turns beside the gbdt round: the selected rows
    and weights of every round equal on both paths, the card's selection
    equal to the CPU's on the same gradients and run under
@@ -231,7 +232,7 @@ Phases:
    within 1e-5 of ``Booster.predict``; (b) multiclass GOSS at Covertype's
    shape, 3 rounds (B5 and B6 by the route rule): trees equal,
    ``multi_logloss`` within 1e-4; (c) DART at the north star (``drop_rate``
-   0.1, ``max_drop`` 50, ``skip_drop`` 0.5), 30 rounds with the valid set
+   0.1, ``max_drop`` 50, ``skip_drop`` 0.5), 20 rounds with the valid set
    attached: the same drops, stored leaves after rescaling equal within
    1e-5, valid AUC within 1e-4, the dropped-tree replay's CUDA-event ms
    per drop round, the final model served by B4 within 1e-5; (d)
@@ -248,7 +249,7 @@ Phases:
    the shape of szilard/GBM-perf's airline-delay data (1,000,000 x 8:
    Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin and Dest as
    categories, Origin and Dest past the 254 a column keeps; DepTime,
-   Distance), 10 rounds through the kernels and the plain versions in
+   Distance), 6 rounds through the kernels and the plain versions in
    turns (waves on the unfused route: B1 bf16, no B2): AUC on 200,000
    held-out rows within 1e-4, the round-1 trees on a dyadic label equal
    (subset masks included), host syncs of a categorical and a numeric
@@ -272,13 +273,13 @@ Phases:
    held-out queries from ``default_rng(5)``, per-query feature offsets,
    top-heavy labels 0-4; ``lambdarank``, 63 leaves, learning rate 0.1,
    ``min_data_in_leaf`` 20, 255 bins, bf16, truncation at the query depth;
-   the wave grower with the exact tail: B1 roots, B2 waves), 25 rounds
+   the wave grower with the exact tail: B1 roots, B2 waves), 15 rounds
    through the kernels and the plain versions in turns: held-out NDCG@10
    within 1e-4, the round-1 trees equal (a near tie is recorded), host
    syncs per round, the lambda pass's device ms and launches, a profiled
    round, 20,000 held-out rows served by B4 within 1e-5 of
-   ``Booster.predict``; (b) 5,000 ragged queries of 20-220 documents
-   (about 600,000 rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
+   ``Booster.predict``; (b) 2,500 ragged queries of 20-220 documents
+   (about 300,000 rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
    10 rounds each path: the lambda pass's gather/scatter route over
    several query chunks with no host read (sync debug mode "error"),
    training NDCG@10 within 1e-4; (c) group-aware ``cv()`` at the reference
@@ -430,6 +431,38 @@ Phases:
    resumed bit for bit, resumed at D = 2 and D = 8 with the checkpoint's
    trees kept, and a checkpoint naming D = 3 or another merge mode refused
    with ``IncompatibleCheckpointError`` naming the field.
+24. the rest of multi-device over ``set_virtual_devices(4)`` shards of the
+   card (the code path, not several cards), every launch counter at 0
+   just before each run and read just after: (a) the serving mesh — phase
+   3's north-star forest at f32, bf16 and int8 and phase 11's 7-class
+   Covertype forest, every bucket of the ladder through ``dp``, ``tp``
+   and ``auto``: dp equal to the single route bit for bit, tp within the
+   a-priori f32 bound of regrouping the tree sum into 4 shard sums plus 2
+   ulp of the largest served output (the reference's 2-ulp bound, which
+   its 12-tree tests meet, is recorded: 100 trees can regroup past it),
+   at ``num_iteration`` 1, 5 and all too, and within 1e-5 of ``Booster.predict`` (f32) or the dequantized
+   oracle; B4 4 times a dp dispatch and 4·K times a tp dispatch; no
+   ``build_node_tables`` after ``warm()``; every shard's tree slice
+   through B4 bit for bit its plain version; rows/s of a 1,000,000-row
+   dp ``predict_binned`` against single in turns; the MicroBatcher's
+   p50/p99 over 4,096 requests on the tp route against single; ``task=
+   serve mesh_devices=4`` in a subprocess under
+   ``LIGHTGBM_TPU_TORCH_VIRTUAL_DEVICES=4``; (b) streamed data
+   parallelism — phase 22a's store (8 blocks, 2 a shard) with
+   ``tree_learner="data"``, 10 rounds in turns with serial streaming and
+   the in-memory mesh: AUC within 1e-4 of both, B1 once per block of
+   every pass (no B2), each shard streaming a quarter of serial's bytes,
+   at most 4 · (``prefetch_blocks`` + 1) block buffers, the dyadic
+   round-1 tree equal to serial streaming's, the merge's CUDA-event ms
+   and a round's peak bytes; the strict grower streamed under ``psum``
+   (B3, ms a split iteration); GOSS at the source with the int8 wire
+   (gathered bytes a shard, B1/B2 per shard); ``train_resumable`` killed
+   after round index 6 and resumed at D = 4 bit for bit, then at D = 2;
+   (c) the multi-device sweep — phase 13c's 12-config ``.RData`` grid with
+   4 devices in groups of 2 through ``SweepService`` and through ``task=
+   sweep sweep_devices=4 sweep_group_size=2`` in a subprocess: both
+   ledger files byte-equal to 13c's single-device ledger, the plan's two
+   groups recorded per bucket.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -516,10 +549,19 @@ RECOVERY_PARAMS = dict(TRAIN_PARAMS, bagging_fraction=0.8, bagging_freq=1,
                        feature_fraction=0.8)
 RECOVERY_ROUNDS, RECOVERY_EVERY, RECOVERY_KILL_AFTER = 12, 4, 6
 RECOVERY_SERVE_ROWS = 16_384
-RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 60, 5
+# 13b's CLI runs 15 rounds (60 until phase 24 needed the time, 30 until
+# 13c's and 24c's sweeps took back their early-stopped rounds; the kill lands after the first checkpoint, at round 5)
+RECOVERY_CLI_ROUNDS, RECOVERY_CLI_EVERY = 15, 5
 RECOVERY_SEGMENT_ROUNDS = 25     # the sweep's carry checkpoint cadence
+# 13c's and 24c's sweeps run up to 1,000 rounds: early stopping ends every
+# bucket (at 167-191 rounds on the card) after the fault at segment hit 3
+# (round 75 at the latest), so the resumed run's stopping point depends on
+# the restored early-stopping state (best score, patience count)
+RECOVERY_SWEEP_ROUNDS = 1000
 # phase 14: examples/bagging_boosting.py at its own sizes (the script's
-# params; cv 5 folds, early stopping 50; train 500; the staged fits and
+# params; cv 5 folds, early stopping 50; train 500, cut to 300 when phase
+# 24 needed the time and to a largest stage of 100 when 13c's and 24c's
+# sweeps took back their early-stopped rounds; the staged fits and
 # forest sizes it prints).  Its cv's 1,000 rounds are cut to 60 on both
 # paths (early stopping ends them at 323; 100 until phase 22 needed the
 # time): the plain versions are launch-bound at 1,000 rows and the script
@@ -529,8 +571,8 @@ BB_PARAMS = {"objective": "reg:linear", "eval_metric": "rmse", "eta": 0.02,
              "max_depth": 6, "max_leaf_nodes": 31, "verbosity": 0,
              "min_data_in_leaf": 1}
 # (60 until phase 23 needed the time)
-BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 40, 50, 5, 500
-BB_STAGES, BB_FORESTS = (1, 20, 50, 100, 300), (1, 3, 100)
+BB_CV_ROUNDS, BB_CV_ES, BB_FOLDS, BB_TRAIN_ROUNDS = 40, 50, 5, 100
+BB_STAGES, BB_FORESTS = (1, 20, 50, 100), (1, 3, 100)
 # the plain versions run ~5 ms a call at 1,000 rows (launch-bound): the
 # plain train covers the stages up to 20 trees (100 until phase 22, 50
 # until phase 23)
@@ -549,32 +591,35 @@ BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
 # (50 until phase 20 needed the time, 30 until phase 23 did)
 BYNODE_CV_ROUNDS = 15
 BATCH_CV_ROWS, BATCH_CV_LEAVES, BATCH_CV_ROUNDS = 1 << 19, 63, 3
-# phase 15: the remaining objectives; 15a's renewal at the north star
-RENEW_ROUNDS, RENEW_ALPHA = 10, 0.9
+# phase 15: the remaining objectives; 15a's renewal at the north star, 6
+# rounds on each path in turns (10 until 13c's and 24c's sweeps took back their early-stopped rounds)
+RENEW_ROUNDS, RENEW_ALPHA = 6, 0.9
 # 15b: examples/gridsearch_cv.py's untuned call on diamonds prices; each
 # objective's default metric ("fair" names one neither package has: l1)
 FAMILY_OBJECTIVES = ("huber", "fair", "poisson", "gamma", "tweedie", "mape",
                      "cross_entropy", "custom")
 FAMILY_METRIC = {"fair": "l1", "custom": "l2"}
-# the example's rounds cut to 30 on both paths (the plain versions are
+# the example's rounds cut to 12 on both paths (the plain versions are
 # launch-bound at 45,957 rows; 100 until phase 20 needed the time, 60
-# until phase 23 did)
-FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 30, 16_384
+# until phase 23 did, 30 until phase 24 did, 20 until 13c's and 24c's sweeps took back their early-stopped rounds)
+FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 12, 16_384
 # phase 16: GOSS and DART at LightGBM's defaults (top_rate 0.2, other_rate
 # 0.1; drop_rate 0.1, max_drop 50, skip_drop 0.5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
                    other_rate=0.1)
-GOSS_ROUNDS, GOSS_SERVE_ROWS, MC_GOSS_ROUNDS = 10, 16_384, 3
+# 16a's rounds on each path in turns: 6 (10 until phase 24 needed the time)
+GOSS_ROUNDS, GOSS_SERVE_ROWS, MC_GOSS_ROUNDS = 6, 16_384, 3
 DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
-DART_ROUNDS = 30
+# 12 rounds (30 until phase 24 needed the time, 20 until 13c's and 24c's sweeps took back their early-stopped rounds)
+DART_ROUNDS = 12
 # 16d: the example's cv() rounds (kernels, plain), cut so the script fits
-# its time limit on a slow host: GOSS's both at 10 (early stopping ends
+# its time limit on a slow host: GOSS's both at 6 (early stopping ends
 # them at 177); DART's early stopping rarely ends it (each drop round
-# moves the ensemble), so both of its runs stop at 12 (15 and 20 until
-# phase 23 needed the time, 25 and 30 until phase 22, 40 and 50 before
-# phase 20)
-GD_CV_ROUNDS = {"goss": 10, "dart": 12}
+# moves the ensemble), so both of its runs stop at 8 (10 and 12 until
+# phase 24 needed the time, 15 and 20 until phase 23, 25 and 30 until
+# phase 22, 40 and 50 before phase 20)
+GD_CV_ROUNDS = {"goss": 6, "dart": 8}
 # 16e: the curve's params with DART dropping half the trees every round
 DART_CURVE_PARAMS = dict(BB_PARAMS, boosting="dart", drop_rate=0.5,
                          skip_drop=0.0)
@@ -585,30 +630,37 @@ AIR_COLUMNS = ("Month", "DayofMonth", "DayOfWeek", "DepTime",
                "UniqueCarrier", "Origin", "Dest", "Distance")
 AIR_CATS = {"Month": 12, "DayofMonth": 31, "DayOfWeek": 7,
             "UniqueCarrier": 22, "Origin": 300, "Dest": 300}
-AIR_ROWS, CAT_ROUNDS, CAT_SHORT_ROUNDS, CAT_SERVE_ROWS = (1_000_000, 10, 3,
+# 17a's rounds on each path in turns: 4 (10 until phase 24 needed the time,
+# 6 until 13c's and 24c's sweeps took back their early-stopped rounds);
+# 17b, 17d and 17e: 2 (3 until 13c's and 24c's sweeps took back their
+# early-stopped rounds)
+AIR_ROWS, CAT_ROUNDS, CAT_SHORT_ROUNDS, CAT_SERVE_ROWS = (1_000_000, 4, 2,
                                                           16_384)
 # 17c: examples/gridsearch_cv.py's cv() with the diamonds factors; both
 # runs are cut at the same round (early stopping ends the kernel run at
 # 139), so the script fits its time limit on a slow host (as 16d; 30
-# until phase 23 needed the time)
+# until phase 23 and 15 until 13c's and 24c's sweeps took back their
+# early-stopped 1,000 rounds needed the time)
 DIAMOND_CATS = ["cut", "color", "clarity"]
-CAT_CV_ROUNDS = 15
+CAT_CV_ROUNDS = 8
 # phase 18: ranking; 18a is the reference bench's MSLR configuration
 # (bench.py bench_mslr): 1,000 training and 200 held-out queries of 100
 # documents, 136 features, truncation at the query depth
 MSLR_QUERIES, MSLR_VALID_QUERIES, MSLR_DOCS, MSLR_FEATURES = 1000, 200, 100, \
     136
-# 18a's rounds on both paths in turns: 25 (50 until phase 23 needed the
-# time)
-MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 25, 5, 10, 1e-4
+# 18a's rounds on both paths in turns: 10 (50 until phase 23 needed the
+# time, 25 until phase 24 did, 15 until 13c's and 24c's sweeps took back
+# their early-stopped rounds)
+MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 10, 5, 10, 1e-4
 MSLR_PARAMS = {"objective": "lambdarank", "num_leaves": 63,
                "learning_rate": 0.1, "min_data_in_leaf": 20,
                "hist_dtype": "bf16", "lambdarank_truncation_level": MSLR_DOCS,
                "max_bin": MAX_BIN, "eval_at": [NDCG_K], "verbosity": -1}
 # 18b: ragged queries at MSLR-WEB30K's mean depth (3,771,125 documents over
-# 31,531 queries: about 120 a query); 5,000 of them, about 600,000 rows
-# (10,000 until phase 23 needed the time: host binning is most of 18b)
-RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 5_000, (20, 221), \
+# 31,531 queries: about 120 a query); 2,500 of them, about 300,000 rows
+# (10,000 until phase 23 needed the time, 5,000 until phase 24 did: host
+# binning is most of 18b)
+RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 2_500, (20, 221), \
     10, 120
 # 18c: the reference test's make_ranked shape in a group-aware cv()
 RANK_CV_QUERIES, RANK_CV_FOLDS, RANK_CV_ES, RANK_CV_ROUNDS, RANK_CV_SEED = \
@@ -624,10 +676,10 @@ MONO_NS[6], MONO_NS[14], MONO_NS[17] = 1, 1, -1
 IC_GROUPS = [list(range(g, g + 7)) for g in range(0, NUM_FEATURES, 7)]
 MONO_SWEEP_ROWS, MONO_SERVE_ROWS, MONO_MC_ROUNDS = 1000, 16_384, 3
 ADV_ROUNDS = 60            # examples/advanced_features.py's num_boost_round
-# 19d's strict-grower runs are cut to 10 rounds on both paths (the unfused
+# 19d's strict-grower runs are cut to 6 rounds on both paths (the unfused
 # body takes ~8 ms a split iteration on the card; 20 until phase 23
-# needed the time)
-ADV_STRICT_ROUNDS = 10
+# needed the time, 10 until phase 24 did)
+ADV_STRICT_ROUNDS = 6
 # phase 20: examples/advanced_features.py's linear call and TreeSHAP rows,
 # and the north star's TreeSHAP and pred_leaf rows
 LINEAR_EXAMPLE_ROUNDS, SHAP_EXAMPLE_ROWS = 25, 500
@@ -943,7 +995,7 @@ def phase_main_path(precision, X, path, path2):
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
-def time_ms(fn, runs=25, inner=10):
+def time_ms(fn, runs=9, inner=10):
     """Device ms per call: median over ``runs`` of CUDA events around
     ``inner`` back-to-back calls.  A spin kernel enqueued first keeps the
     card busy while the host enqueues the calls, so the events time the
@@ -1028,7 +1080,7 @@ def phase_times(runtimes, X, clock_mhz):
             k_ms = time_ms(lambda: forest_sums(soa, bins, 0, t, depth))
             k_host = host_ms(lambda: forest_sums(soa, bins, 0, t, depth))
             p_ms = time_ms(lambda: forest_sums_plain(soa, bins, t, depth),
-                           runs=21, inner=1)
+                           runs=11, inner=1)
             b_ms, by, visits, w_ms = bound_ms(soa, bins, depth, t,
                                               clock_mhz)
             row = {"precision": prec, "bucket": b, "kernel_ms": k_ms,
@@ -3219,7 +3271,7 @@ def phase_recovery_sweep(ds, workdir):
             grid, ds, base_params={"objective": "regression", "verbosity": -1,
                                    "cv_segment_rounds":
                                    RECOVERY_SEGMENT_ROUNDS},
-            num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+            num_boost_round=RECOVERY_SWEEP_ROUNDS, nfold=CV_FOLDS,
             early_stopping_rounds=CV_ES, seed=SWEEP_SEED,
             ledger_path=os.path.join(root, ledger),
             clock=lambda: 0.0, **kw).run()
@@ -3254,6 +3306,15 @@ def phase_recovery_sweep(ds, workdir):
           f"{cut.error}")
     check(res.completed and res.resumed_units >= 1,
           f"the rerun resumed {res.resumed_units} units")
+    # early stopping, not the cap, ended every bucket, and after the fault
+    rounds = {t: [b["rounds"] for b in r.stats["buckets"]]
+              for t, r in (("uninterrupted", clean), ("resumed", res))}
+    fault_round = 3 * RECOVERY_SEGMENT_ROUNDS
+    check(all(fault_round < r < RECOVERY_SWEEP_ROUNDS
+              for r in rounds["uninterrupted"] + rounds["resumed"]),
+          f"13c bucket rounds {rounds}: early stopping did not end every "
+          f"bucket between the fault (round {fault_round}) and the cap "
+          f"{RECOVERY_SWEEP_ROUNDS}")
     check(not os.path.exists(ckpt)
           and not os.path.exists(os.path.join(root, "ck0")),
           "spent carry checkpoints were kept")
@@ -3280,6 +3341,7 @@ def phase_recovery_sweep(ds, workdir):
         check(row["iteration"] >= 1 and np.isfinite(row["score"])
               and row["score"] < 0, f"sweep row {row}")
     out = {"configs": len(grid), "resumed_units": res.resumed_units,
+           "bucket_rounds": rounds,
            "checkpoint_failures": res.checkpoint_failures,
            "interrupted_error": cut.error, "ledger_sha256": a,
            "s": {t: r["s"] for t, r in runs.items()},
@@ -5087,7 +5149,7 @@ def phase_rank_mslr(dev, workdir, launches):
 
 
 def phase_rank_ragged(dev, launches):
-    """18b: 5,000 ragged queries (20-220 documents) with 18a's feature and
+    """18b: 2,500 ragged queries (20-220 documents) with 18a's feature and
     label recipe: the gather/scatter route of the lambda pass over several
     query chunks, kernel and plain paths."""
     import lightgbm_tpu_torch as lgb
@@ -7479,6 +7541,654 @@ def phase_multi_device(dev, X, y, ds, ds_cov, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the serving mesh, streamed data parallelism and the
+# multi-device sweep, on MESH_DEVICES virtual shards of the one card
+# ---------------------------------------------------------------------------
+MESH_DEVICES = 4
+MESH_ULPS = 2                      # tp's bound (the reference's _ulp_tol)
+MESH_COV_ROWS = 16_384             # Covertype-shaped rows served in 24a
+MESH_CLI_ROWS = 8
+SDP_PARAMS = dict(STREAM_PARAMS, tree_learner="data")
+SDP_ROUNDS, SDP_GOSS_ROUNDS, SDP_STRICT_ROUNDS = 10, 3, 3
+SDP_RECOVERY_ROUNDS, SDP_KILL_AFTER, SDP_RECOVERY_EVERY = 8, 6, 4
+
+
+def ulp_ratio(got, want):
+    """max |got - want| over MESH_ULPS ulp of the largest |want|."""
+    tol = MESH_ULPS * np.spacing(np.float32(np.abs(want).max()))
+    return float(np.abs(got.astype(np.float64) - want).max() / tol)
+
+
+def regroup_bound(rt, codes, num_it=None):
+    """Per row, the a-priori f32 bound on two groupings of the tree sum
+    ``shrink * sum_t leaf_t`` (``(T + D) * 2^-24 * |shrink| * sum_t
+    |leaf_t|``) plus MESH_ULPS ulp of the largest served output (each
+    route's own transform rounding): tp regroups the single route's sum
+    into D shard sums, which can differ by more than 2 ulp of the output
+    once T is large.  ``[n]`` or ``[n, K]``, for served probabilities too
+    (the transforms' slopes are at most 1)."""
+    from lightgbm_tpu_torch.ops.predict import forest_sums_plain
+
+    pf = rt.packed
+    t = pf.num_trees if num_it is None else min(int(num_it), pf.num_trees)
+    bins = torch.from_numpy(codes).to(rt.device)
+    cols = [forest_sums_plain(s._replace(leaf=s.leaf.abs()), bins, t,
+                              pf.depth_cap).double().cpu().numpy()
+            for s in rt._soa]
+    abs_sum = np.stack(cols, axis=1) if len(cols) > 1 else cols[0]
+    return (t + MESH_DEVICES) * 2.0 ** -24 * abs(pf.shrink) * abs_sum
+
+
+def mesh_forests(X, path, workdir):
+    """24a's forests: phase 3's north-star artifact at each precision and
+    phase 11's Covertype model, each with rows to serve."""
+    from lightgbm_tpu_torch.serving import PackedForest
+
+    ns = PackedForest.load(path)
+    cov_path = os.path.join(workdir, "covertype_multiclass.npz")
+    Xc, _ = covertype_like(MESH_COV_ROWS, SEED + 240)
+    out = {f"north_star_{p}": (ns, path, X, p) for p in PRECISIONS}
+    out["covertype_f32"] = (PackedForest.load(cov_path), cov_path, Xc, "f32")
+    return out
+
+
+def phase_serve_mesh(dev, X, path, workdir, launches):
+    """24a: the serving mesh at full width (see the module docstring)."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.kernels.predict as KP
+    from lightgbm_tpu_torch.ops import predict as OP
+    from lightgbm_tpu_torch.parallel.mesh import row_bounds
+    from lightgbm_tpu_torch.serving import ModelBank, PredictorRuntime
+
+    builds, real_build = [], KP.build_node_tables
+
+    def counted_build(soa):
+        builds.append(1)
+        return real_build(soa)
+
+    out = {}
+    for name, (pf, art, Xs, prec) in mesh_forests(X, path, workdir).items():
+        nc = pf.num_class
+        codes = pf.bin_mapper.transform(Xs[:MAX_BUCKET])
+        kw = dict(max_bucket=MAX_BUCKET, forest_precision=prec, device=dev)
+        single = PredictorRuntime(pf, **kw)
+        rts = {pol: PredictorRuntime(pf, mesh_devices=MESH_DEVICES,
+                                     shard_policy=pol, **kw)
+               for pol in ("dp", "tp", "auto")}
+        KP.build_node_tables = counted_build
+        try:
+            for rt in (single, *rts.values()):
+                rt.warm()
+            warm_builds = len(builds)
+            bounds = regroup_bound(single, codes)
+            routes, worst, served = collections.Counter(), 0.0, 0
+            for b in single.buckets:
+                want = single.predict_binned(codes[:b], raw_score=False)
+                for pol, rt in rts.items():
+                    route = rt.route_for(b)
+                    got, _, counts, _ = counted_run(
+                        lambda: rt.predict_binned(codes[:b], raw_score=False))
+                    add_launches(launches, counts)
+                    served += 1
+                    routes[f"{pol}:{route}"] += 1
+                    shards = MESH_DEVICES if route != "single" else 1
+                    check(counts["predict_forest"] == shards * nc,
+                          f"24a {name} {pol} bucket {b} ({route}): "
+                          f"{counts['predict_forest']} B4 launches")
+                    if route == "tp":
+                        r = ulp_ratio(got, want)
+                        worst = max(worst, r)
+                        over = float((np.abs(got.astype(np.float64) - want)
+                                      - bounds[:b]).max() / (MESH_ULPS *
+                                      np.spacing(np.float32(
+                                          np.abs(want).max()))))
+                        check(over <= 1.0, f"24a {name} tp bucket {b}: "
+                              f"{r:.2f} x {MESH_ULPS} ulp, past the "
+                              "regrouping bound")
+                    else:
+                        check(np.array_equal(got, want),
+                              f"24a {name} {pol} bucket {b} ({route}) "
+                              "differs from the single route")
+            trunc = {}
+            for k in (1, 5, None):
+                want = single.predict_binned(codes[:64], num_iteration=k,
+                                             raw_score=False)
+                got = rts["tp"].predict_binned(codes[:64], num_iteration=k,
+                                               raw_score=False)
+                trunc[str(k)] = ulp_ratio(got, want)
+                over = float((np.abs(got.astype(np.float64) - want)
+                              - regroup_bound(single, codes[:64], k)).max()
+                             / (MESH_ULPS * np.spacing(np.float32(
+                                 np.abs(want).max()))))
+                check(over <= 1.0, f"24a {name} tp num_iteration={k}: "
+                      f"{trunc[str(k)]:.2f} x {MESH_ULPS} ulp, past the "
+                      "regrouping bound")
+            new_builds = len(builds) - warm_builds
+            check(new_builds == 0, f"24a {name}: {new_builds} node-table "
+                  "builds after warm()")
+        finally:
+            KP.build_node_tables = real_build
+        # the served probabilities against Booster.predict (f32) or the
+        # dequantized oracle (bf16, int8)
+        rows = Xs[:4096]
+        tp_out = rts["tp"].predict(rows)
+        if prec == "f32":
+            ref_out = lgb.Booster(model_file=art).predict(rows)
+        else:
+            ref_out = rts["tp"].oracle.predict_numpy(
+                pf.bin_mapper.transform(rows), raw_score=False)
+        vs_ref = float(np.abs(tp_out - ref_out).max())
+        check(vs_ref <= 1e-5, f"24a {name} tp vs reference {vs_ref:.2e}")
+        # every shard route's kernel against its plain version, bit for bit
+        n_cmp = min(4096, len(codes))
+        bins = torch.from_numpy(codes[:n_cmp]).to(dev)
+        shards, t_loc = rts["tp"]._tp_soa_parts()
+        pairs = []
+        for d, soas in enumerate(shards):
+            for soa in soas:
+                t0, t1 = OP.tree_window(t_loc, pf.num_trees, -d * t_loc)
+                pairs.append((f"tp shard {d}",
+                              KP.forest_sums(soa, bins, t0, t1,
+                                             pf.depth_cap),
+                              OP.forest_sums_plain(soa, bins, pf.num_trees,
+                                                   pf.depth_cap, -d * t_loc)))
+        for (a, e), (soas, _, _) in zip(row_bounds(n_cmp, MESH_DEVICES),
+                                        rts["dp"]._dp_parts()):
+            for soa in soas:
+                pairs.append((f"dp rows [{a}, {e})",
+                              KP.forest_sums(soa, bins[a:e], 0, pf.num_trees,
+                                             pf.depth_cap),
+                              OP.forest_sums_plain(soa, bins[a:e],
+                                                   pf.num_trees,
+                                                   pf.depth_cap)))
+        kerr = max(float((g - w).abs().max()) for _, g, w in pairs)
+        for what, g, w in pairs:
+            check(torch.equal(g, w), f"24a {name} {what}: kernel != plain")
+        out[name] = {"classes": nc, "trees": pf.num_trees,
+                     "dispatches": served, "routes": dict(routes),
+                     "tp_worst_over_2ulp": worst,
+                     "tp_truncated_over_2ulp": trunc,
+                     "regroup_bound_max": float(bounds.max()),
+                     "tp_vs_reference_max_abs": vs_ref,
+                     "trees_per_shard": t_loc,
+                     "node_table_builds_after_warm": 0,
+                     "kernel_vs_plain_max_abs_err": kerr}
+        log(f"phase 24a {name}: {json.dumps(out[name])}")
+
+    # rows/s of a 1,000,000-row predict_binned (codes binned once), dp
+    # against single in turns; and the MicroBatcher on tp against single
+    ns = mesh_forests(X, path, workdir)["north_star_f32"][0]
+    big = ns.bin_mapper.transform(X)
+    rt_single = PredictorRuntime(ns, max_bucket=MAX_BUCKET, device=dev)
+    rt_dp = PredictorRuntime(ns, max_bucket=MAX_BUCKET, device=dev,
+                             mesh_devices=MESH_DEVICES, shard_policy="dp")
+    turns = {"single": [], "dp": []}
+    outs = {}
+    for tag in ("single", "dp", "dp", "single"):
+        rt = rt_single if tag == "single" else rt_dp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[tag] = rt.predict_binned(big)
+        turns[tag].append(len(big) / (time.perf_counter() - t0))
+    check(np.array_equal(outs["dp"], outs["single"]),
+          "24a 1,000,000-row dp predict differs from single")
+    del big
+    # the MicroBatcher on the single and tp routes in turns (single, tp,
+    # tp, single), each turn's queue latencies read from its own batches
+    banks, latency, answers = {}, {"single": [], "tp": []}, {}
+    for tag, extra in (("single", {}), ("tp", {
+            "mesh_devices": MESH_DEVICES, "shard_policy": "tp"})):
+        bank = ModelBank(max_bucket=MAX_BUCKET, warm_on_deploy=True,
+                         canary_rows=64, device=dev, **extra)
+        check(bank.deploy("higgs", path)["ok"], f"24a {tag} deploy")
+        banks[tag] = bank
+    for tag in ("single", "tp", "tp", "single"):
+        bank = banks[tag]
+        mb = bank.batcher("higgs", max_batch=128, max_delay_ms=2.0)
+        stats = bank.runtime("higgs").stats
+
+        def serve():
+            pend = []
+            for row in X[:SINGLE_REQUESTS]:
+                pend.append(mb.submit(row))
+                mb.pump()
+            mb.flush()
+            return np.array([p_.result() for p_ in pend], np.float32)
+
+        n0 = len(stats.queue_latencies)
+        routes0 = dict(stats.snapshot()["route_dispatches"])
+        answers[tag], secs, counts, _ = counted_run(serve)
+        add_launches(launches, counts)
+        snap = stats.snapshot()
+        lat_ms = np.array(list(stats.queue_latencies)[n0:]) * 1e3
+        latency[tag].append({
+            "p50_ms": float(np.quantile(lat_ms, 0.50)),
+            "p99_ms": float(np.quantile(lat_ms, 0.99)), "s": secs,
+            "batches": int(lat_ms.size),
+            "routes": {r: n - routes0.get(r, 0) for r, n in
+                       snap["route_dispatches"].items()}})
+        check(snap["fallbacks"] == 0, f"24a {tag} MicroBatcher fallbacks")
+    rel = float(np.abs(answers["tp"] - answers["single"]).max())
+    check(rel <= 1e-5 and all(t["routes"].get("tp", 0) > 0
+                              for t in latency["tp"]),
+          f"24a MicroBatcher tp vs single {rel:.2e}, routes "
+          f"{[t['routes'] for t in latency['tp']]}")
+    # the CLI in a subprocess with the environment variable
+    lines = "".join(",".join(f"{v:.9g}" for v in r) + "\n"
+                    for r in X[:MESH_CLI_ROWS])
+    env = dict(os.environ, LIGHTGBM_TPU_TORCH_VIRTUAL_DEVICES=str(
+        MESH_DEVICES))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+         f"input_model={path}", f"mesh_devices={MESH_DEVICES}",
+         "shard_policy=tp", "max_batch=4", "show_stats=true"],
+        input=lines, capture_output=True, text=True, cwd=ROOT, env=env,
+        timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"24a task=serve mesh_devices=4 exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    got = np.array([float(v) for v in proc.stdout.split()], np.float64)
+    want = rt_single.predict(X[:MESH_CLI_ROWS])
+    check(got.shape == want.shape
+          and float(np.abs(got - want).max()) <= 1e-5,
+          f"24a CLI answers {proc.stdout[:200]!r}")
+    check('"mesh_devices": 4' in proc.stderr, "24a CLI stats name no "
+          "4-device mesh")
+    out.update(rows_per_s_in_turns=turns, microbatcher=latency,
+               microbatcher_tp_vs_single_max_abs=rel,
+               cli_serve_s=cli_s, cli_rows=MESH_CLI_ROWS)
+    log(f"phase 24a: rows/s {json.dumps(turns)}, MicroBatcher "
+        f"{json.dumps(latency)}, CLI {cli_s:.1f} s")
+    return out
+
+
+def sdp_rounds(booster, rounds):
+    """``rounds`` timed updates of a streamed dp Booster, each shard's
+    odometer and pass count per round."""
+    shards = booster._mesh.shards
+    per = []
+    for _ in range(rounds):
+        b0 = [sh.bytes_streamed for sh in shards]
+        p0 = shards[0].passes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booster.update()
+        torch.cuda.synchronize()
+        per.append({"s": time.perf_counter() - t0,
+                    "shard_bytes": [sh.bytes_streamed - b for sh, b
+                                    in zip(shards, b0)],
+                    "passes": shards[0].passes - p0})
+    return per
+
+
+def phase_stream_dp(dev, X, y, ds, Xv, yv, workdir, launches):
+    """24b: streamed data parallelism (see the module docstring)."""
+    import copy
+    import shutil
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.data.stream_dp as SDP
+    import lightgbm_tpu_torch.data.stream_grow as SG
+    from lightgbm_tpu_torch.parallel import data_parallel as DP
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+    from lightgbm_tpu_torch.training import resume_booster, train_resumable
+
+    sds = lgb.Dataset.from_blocks(row_blocks(X, y, STREAM_BLOCK_ROWS),
+                                  params=STREAM_PARAMS, reference=ds)
+    store = sds.block_store
+    d = MESH_DEVICES
+    runs, turns = {}, {"stream_dp": [], "serial_streamed": [],
+                       "in_memory_mesh": []}
+    for tag in ("stream_dp", "serial_streamed", "in_memory_mesh",
+                "stream_dp"):
+        DP.MERGE_TIMER["on"] = tag != "serial_streamed"
+        if tag == "in_memory_mesh":
+            b, secs, counts, plain = train_run(lgb, ds, DP_PARAMS, SDP_ROUNDS)
+            r = {"booster": b, "counts": counts, "plain_calls": plain}
+        else:
+            params = SDP_PARAMS if tag == "stream_dp" else STREAM_PARAMS
+
+            def go():
+                b = lgb.Booster(dict(params), sds)
+                return b, (sdp_rounds(b, SDP_ROUNDS) if tag == "stream_dp"
+                           else streamed_rounds(b, store, SDP_ROUNDS))
+            (b, per), secs, counts, plain = counted_run(go)
+            r = {"booster": b, "per_round": per, "counts": counts,
+                 "plain_calls": plain}
+        DP.MERGE_TIMER["on"] = False
+        r["merge_ms_per_round"] = DP.merge_ms() / SDP_ROUNDS
+        turns[tag].append(secs / SDP_ROUNDS)
+        runs.setdefault(tag, r)
+        log(f"phase 24b {tag}: {secs / SDP_ROUNDS:.4f} s/round, launches "
+            f"{json.dumps(r['counts'])}, merge "
+            f"{r['merge_ms_per_round']:.2f} ms/round")
+    k, ser, mem = (runs[t] for t in ("stream_dp", "serial_streamed",
+                                     "in_memory_mesh"))
+    kb = k["booster"]
+    shards = kb._mesh.shards
+    check(isinstance(kb._mesh, SDP.StreamMesh) and kb._mesh.n_devices == d
+          and all(sh.num_blocks == store.num_blocks // d for sh in shards),
+          f"24b mesh {kb._mesh}")
+    passes = sum(r["passes"] for r in k["per_round"])
+    check(k["counts"]["hist_fused_bf16"] == passes * store.num_blocks
+          and k["counts"]["hist_partition_bf16"] == 0
+          and k["plain_calls"] == 0,
+          f"24b launches {k['counts']} over {passes} passes, plain calls "
+          f"{k['plain_calls']}")
+    add_launches(launches, k["counts"])
+    add_launches(launches, mem["counts"])
+    ser_bytes = [r["bytes"] for r in ser["per_round"]]
+    # each shard streams a quarter of what serial streams a pass
+    quarter = [[b * d for b in r["shard_bytes"]] for r in k["per_round"]]
+    check(all(len(set(q)) == 1 for q in quarter)
+          and all(q[0] * ser["per_round"][i]["passes"]
+                  == ser_bytes[i] * k["per_round"][i]["passes"]
+                  for i, q in enumerate(quarter)),
+          f"24b shard bytes a round {[r['shard_bytes'] for r in k['per_round']]}"
+          f" against serial's {ser_bytes}")
+    buffers = sum(sh.peak_device_buffers for sh in shards)
+    check(buffers <= d * (store.prefetch_blocks + 1),
+          f"24b {buffers} block buffers on the device")
+    aucs = {t: auc(r["booster"], Xv, yv, dev) for t, r in runs.items()}
+    check(abs(aucs["stream_dp"] - aucs["serial_streamed"]) <= AUC_TOL
+          and abs(aucs["stream_dp"] - aucs["in_memory_mesh"]) <= AUC_TOL,
+          f"24b AUC {json.dumps(aucs)}")
+
+    # the dyadic round-1 tree at each histogram precision: the kernels'
+    # streamed dp tree == the plain versions' (B1 f32/bf16/int8 held
+    # against plain on the main path's blocks), and at f32/bf16 == serial
+    # streaming's (int8 quantizes per shard block: recorded)
+    yd = dyadic_label(X, SEED + 241)
+    sdd = copy.copy(sds).set_label(yd)
+    pd = dict(SDP_PARAMS, objective="regression")
+    dyadic = {}
+    for mode in ("bf16", "f32", "int8"):
+        pm = dict(pd, hist_dtype=mode)
+        (bk, bp, bs), _, counts, _ = counted_run(lambda: (
+            lgb.train(pm, sdd, 1), lgb.train(dict(pm, hist_impl="plain"),
+                                             sdd, 1),
+            lgb.train(dict(pm, tree_learner="serial"), sdd, 1)))
+        add_launches(launches, counts)
+        check(bk._mesh is not None and counts[f"hist_fused_{mode}"] > 0
+              and trees_identical(bk, bp, 1),
+              f"24b dyadic {mode}: the kernels' streamed dp tree differs "
+              f"from the plain versions' (launches {counts})")
+        dyadic[mode] = {"kernel_equals_plain": True,
+                        "equals_serial_streamed": trees_identical(bk, bs, 1)}
+        check(mode == "int8" or dyadic[mode]["equals_serial_streamed"],
+              f"24b dyadic {mode}: the streamed dp tree differs from "
+              "serial streaming's")
+    del bk, bp, bs
+    peaks = {"stream_dp": peak_round_bytes(lgb.Booster(dict(SDP_PARAMS),
+                                                       sds)),
+             "serial_streamed": peak_round_bytes(
+                 lgb.Booster(dict(STREAM_PARAMS), sds))}
+
+    # the strict grower streamed under psum: 200,000 rows, 4 blocks, one a
+    # shard; B3 once a split iteration
+    Xs, ys = X[:STREAM_STRICT_ROWS], y[:STREAM_STRICT_ROWS]
+    sst = lgb.Dataset.from_blocks(row_blocks(Xs, ys, STREAM_STRICT_BLOCK),
+                                  params=STREAM_STRICT_PARAMS, reference=ds)
+    ps = dict(STREAM_STRICT_PARAMS, tree_learner="data",
+              histogram_merge="psum")
+    (bst, tree_ms, trees), secs, counts, plain = counted_run(
+        lambda: event_timed(SG, "_grow_strict",
+                            lambda: lgb.train(ps, sst, SDP_STRICT_ROUNDS)))
+    iters = SDP_STRICT_ROUNDS * (ps["num_leaves"] - 1)
+    nb = sst.block_store.num_blocks
+    check(bst._mesh.n_devices == d and counts["split_iter"] == iters
+          and counts["hist_fused_f32"] == (SDP_STRICT_ROUNDS + iters) * nb
+          and plain == 0 and trees == SDP_STRICT_ROUNDS,
+          f"24b strict launches {counts}, plain calls {plain}")
+    add_launches(launches, counts)
+    # B3 (and the pairs' B1) against the plain versions: a dyadic round
+    sst_d = copy.copy(sst).set_label(yd[:STREAM_STRICT_ROWS])
+    psd = dict(ps, objective="regression")
+    (bk, bp), _, counts, _ = counted_run(lambda: (
+        lgb.train(psd, sst_d, 1),
+        lgb.train(dict(psd, hist_impl="plain"), sst_d, 1)))
+    add_launches(launches, counts)
+    check(counts["split_iter"] == ps["num_leaves"] - 1
+          and trees_identical(bk, bp, 1),
+          f"24b strict dyadic: kernel tree != plain tree ({counts})")
+    strict = {"rows": STREAM_STRICT_ROWS, "blocks": nb, "launches": counts,
+              "s": secs, "ms_per_split_iteration":
+              tree_ms / (ps["num_leaves"] - 1),
+              "dyadic_kernel_equals_plain": True}
+    del sst, sst_d, bst, bk, bp
+
+    # GOSS at the source with the int8 wire over reduce_scatter_ring
+    pg = dict(SDP_PARAMS, boosting="goss",
+              histogram_merge="reduce_scatter_ring", histogram_wire="int8")
+
+    def goss():
+        b = lgb.Booster(dict(pg), sds)
+        return b, sdp_rounds(b, SDP_GOSS_ROUNDS)
+    (bg, per_g), secs_g, counts_g, plain_g = counted_run(goss)
+    check(bg._mesh.wire == "int8" and plain_g == 0
+          and counts_g["hist_partition_f32"] > 0
+          and counts_g["hist_partition_f32"] % d == 0
+          and counts_g["hist_fused_f32"] % d == 0,
+          f"24b GOSS launches {counts_g}, plain calls {plain_g}")
+    add_launches(launches, counts_g)
+    shard_pass = (store.padded_rows // d) * store.num_features
+    gathered = [[(sb - r["passes"] * shard_pass) / shard_pass
+                 for sb in r["shard_bytes"]] for r in per_g]
+    # serial streaming's GOSS at the same rounds: one host sample over all
+    # rows where each shard samples its own (statistically equivalent)
+    bgs = lgb.train(dict(pg, tree_learner="serial"), sds, SDP_GOSS_ROUNDS)
+    auc_g = {"stream_dp_goss_int8_wire": auc(bg, Xv, yv, dev),
+             "serial_streamed_goss": auc(bgs, Xv, yv, dev)}
+    check(abs(auc_g["stream_dp_goss_int8_wire"]
+              - auc_g["serial_streamed_goss"]) <= 0.01,
+          f"24b GOSS AUC {json.dumps(auc_g)}")
+    del bgs
+    # B2 (and B1) of the compacted shards against the plain versions
+    (bk, bp), _, counts, _ = counted_run(lambda: (
+        lgb.train(dict(pg, objective="regression"), sdd, 1),
+        lgb.train(dict(pg, objective="regression", hist_impl="plain"),
+                  sdd, 1)))
+    add_launches(launches, counts)
+    check(counts["hist_partition_f32"] > 0 and trees_identical(bk, bp, 1),
+          f"24b GOSS dyadic: kernel tree != plain tree ({counts})")
+    del bk, bp, sdd
+    goss_out = {"gathered_over_shard_pass": gathered,
+                "s_per_round": [r["s"] for r in per_g], "auc": auc_g,
+                "launches": counts_g, "goss_k_shard": list(
+                    bg._goss_k_shard())}
+    del bg
+
+    # kill after round index SDP_KILL_AFTER, resume at D = 4, then D = 2
+    root = os.path.join(workdir, "stream_dp_recovery")
+    shutil.rmtree(root, ignore_errors=True)
+    pr = dict(SDP_PARAMS, bagging_fraction=0.8, bagging_freq=1)
+    kw = dict(checkpoint_rounds=SDP_RECOVERY_EVERY, keep_last=3)
+
+    def kill(booster, i):
+        if i == SDP_KILL_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def recovery():
+        full = train_resumable(dict(pr), sds, SDP_RECOVERY_ROUNDS,
+                               checkpoint_dir=os.path.join(root, "full"),
+                               resume=False, **kw)
+        cut = train_resumable(dict(pr), sds, SDP_RECOVERY_ROUNDS,
+                              checkpoint_dir=os.path.join(root, "kill"),
+                              resume=False, round_callbacks=[kill], **kw)
+        again = train_resumable(dict(pr), sds, SDP_RECOVERY_ROUNDS,
+                                checkpoint_dir=os.path.join(root, "kill"),
+                                resume=True, **kw)
+        return full, cut, again
+    (full, cut, again), secs_r, counts_r, _ = counted_run(recovery)
+    add_launches(launches, counts_r)
+    check(cut.preempted and cut.rounds_done == SDP_KILL_AFTER + 1
+          and again.completed and full.booster._mesh.n_devices == d,
+          f"24b recovery runs {cut}, {again}")
+    check(same_run(full.booster, again.booster),
+          "24b: the resumed D = 4 run differs from the uninterrupted one")
+    set_virtual_devices(2)
+    try:
+        b2 = resume_booster(cut.last_checkpoint, sds)
+        check(b2._mesh.n_devices == 2, f"24b resume at D = 2: {b2._mesh}")
+        while b2._iter < SDP_RECOVERY_ROUNDS:
+            b2.update()
+    finally:
+        set_virtual_devices(d)
+    check(trees_identical(full.booster, b2, SDP_KILL_AFTER + 1),
+          "24b resume at D = 2: the checkpoint's trees changed")
+    elastic = structure_regime(full.booster, b2, "24b D=4 -> 2")
+    del b2, full, cut, again
+    per = k["per_round"]
+    out = {"devices": d, "virtual": True, "blocks": store.num_blocks,
+           "blocks_per_shard": store.num_blocks // d,
+           "s_per_round_in_turns": turns, "auc": aucs,
+           "merge_event_ms_per_round": k["merge_ms_per_round"],
+           "in_memory_mesh_merge_event_ms_per_round":
+           mem["merge_ms_per_round"],
+           "passes_per_round": [r["passes"] for r in per],
+           "shard_bytes_per_round": [r["shard_bytes"] for r in per],
+           "serial_bytes_per_round": ser_bytes,
+           "peak_device_buffers": buffers, "peak_bytes": peaks,
+           "launches": k["counts"], "dyadic_round1": dyadic,
+           "strict_psum": strict, "goss_int8_wire": goss_out,
+           "recovery_s": secs_r, "resume_bit_identical": True,
+           "elastic_d2_vs_uninterrupted": elastic}
+    log(f"phase 24b: {json.dumps(out)}")
+    return out
+
+
+def phase_sweep_devices(dds, workdir, launches):
+    """24c: 13c's 12-config grid over 4 devices in groups of 2, through the
+    service and the CLI, both ledgers byte-equal to 13c's single-device
+    ledger (the service writing it anew when 13c's file is missing)."""
+    import hashlib
+
+    from lightgbm_tpu_torch.sweep import SweepService
+
+    root = os.path.join(workdir, "sweep_devices")
+    os.makedirs(root, exist_ok=True)
+    grid = recovery_grid()
+    base = {"objective": "regression", "verbosity": -1,
+            "cv_segment_rounds": RECOVERY_SEGMENT_ROUNDS}
+
+    def service(ledger, **kw):
+        path_ = os.path.join(root, ledger)
+        if os.path.exists(path_):
+            os.unlink(path_)
+        return SweepService(
+            grid, dds, base_params=base,
+            num_boost_round=RECOVERY_SWEEP_ROUNDS,
+            nfold=CV_FOLDS, early_stopping_rounds=CV_ES, seed=SWEEP_SEED,
+            ledger_path=path_, clock=lambda: 0.0, **kw).run()
+
+    single = os.path.join(workdir, "recovery_sweep", "clean.RData")
+    if not os.path.exists(single):
+        service("single.RData")
+        single = os.path.join(root, "single.RData")
+    res, secs, counts, plain = counted_run(lambda: service(
+        "mesh.RData", n_devices=MESH_DEVICES, group_size=2))
+    add_launches(launches, counts)
+    check(res.completed and plain == 0, f"24c sweep: {res.error}")
+    plan = res.stats["plan"]
+    groups = sorted({b["group"] for b in res.stats["buckets"]})
+    check(plan["n_groups"] == 2 and plan["group_size"] == 2
+          and groups == list(range(min(2, plan["units"]))),
+          f"24c plan {plan}, groups {groups}")
+    b_rounds = [b["rounds"] for b in res.stats["buckets"]]
+    check(all(r < RECOVERY_SWEEP_ROUNDS for r in b_rounds),
+          f"24c bucket rounds {b_rounds}: early stopping did not end every "
+          f"bucket before the cap {RECOVERY_SWEEP_ROUNDS}")
+
+    def digest(p_):
+        with open(p_, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    want = digest(single)
+    check(digest(os.path.join(root, "mesh.RData")) == want,
+          "24c: the 4-device ledger differs from the single-device one")
+    # the CLI on the same rows, written exactly
+    from lightgbm_tpu_torch.utils.rdata import read_rdata
+
+    Xd, yd = diamonds_split()
+    csv = os.path.join(root, "diamonds.csv")
+    np.savetxt(csv, np.column_stack([yd, Xd]), delimiter=",", fmt="%.17g",
+               header=",".join(["label"] + [f"f{j}" for j in
+                                            range(Xd.shape[1])]),
+               comments="")
+    grid_json = os.path.join(root, "grid.json")
+    with open(grid_json, "w") as f:
+        json.dump({"rows": grid}, f)
+    ledger_cli = os.path.join(root, "cli.RData")
+    if os.path.exists(ledger_cli):
+        os.unlink(ledger_cli)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=sweep",
+         f"data={csv}", "header=true", "label_column=name:label",
+         f"sweep_grid={grid_json}", f"ledger={ledger_cli}",
+         f"sweep_devices={MESH_DEVICES}", "sweep_group_size=2",
+         "objective=regression", "verbosity=-1",
+         f"cv_segment_rounds={RECOVERY_SEGMENT_ROUNDS}",
+         f"num_iterations={RECOVERY_SWEEP_ROUNDS}", f"nfold={CV_FOLDS}",
+         f"early_stopping_rounds={CV_ES}", f"seed={SWEEP_SEED}"],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"24c task=sweep exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    a = read_rdata(ledger_cli)["paramGrid"]
+    b = read_rdata(single)["paramGrid"]
+    check(a == b, "24c: the CLI's 4-device ledger rows differ from the "
+          "single-device ledger's")
+    summary = json.loads(proc.stderr.strip().splitlines()[-1])
+    out = {"configs": len(grid), "plan": plan, "groups": groups,
+           "buckets": [{k_: v for k_, v in b_.items()
+                        if k_ in ("group", "configs", "rounds", "s")}
+                       for b_ in res.stats["buckets"]],
+           "service_s": secs, "cli_s": cli_s, "cli_summary": summary,
+           "ledger_sha256": want, "ledgers_equal": True,
+           "cli_bytes_equal": digest(ledger_cli) == want}
+    log(f"phase 24c: {json.dumps(out)}")
+    return out
+
+
+def phase_multi_device_rest(dev, X, y, ds, dds, path, workdir, card):
+    """Phase 24 over MESH_DEVICES virtual shards; fails unless B4 (dp and
+    tp), B1 (f32 and bf16), B2 and B3 launched."""
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    set_virtual_devices(MESH_DEVICES)
+    try:
+        t1 = time.perf_counter()
+        out["24a"] = phase_serve_mesh(dev, X, path, workdir, launches)
+        secs["24a"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["24b"] = phase_stream_dp(dev, X, y, ds, Xv, yv, workdir,
+                                     launches)
+        secs["24b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["24c"] = phase_sweep_devices(dds, workdir, launches)
+        secs["24c"] = time.perf_counter() - t1
+    finally:
+        set_virtual_devices(0)
+    for name in ("predict_forest", "hist_fused_bf16", "hist_fused_f32",
+                 "hist_fused_int8", "hist_partition_f32", "split_iter"):
+        check(launches.get(name, 0) > 0, f"phase 24: {name} never launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    out["virtual_shards"] = MESH_DEVICES
+    log(f"phase 24: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7498,6 +8208,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card, build_s, clock_mhz = phase_device()
     errs = phase_kernel_vs_plain(dev)
+    log(f"elapsed through phase 2: {time.perf_counter() - t_start:.1f} s")
 
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
@@ -7507,10 +8218,13 @@ def main() -> int:
         main_path[prec], runtimes[prec] = phase_main_path(prec, X, path,
                                                           path2)
     table, breakdown, head, path_errs = phase_times(runtimes, X, clock_mhz)
+    log(f"elapsed through phase 3-4: {time.perf_counter() - t_start:.1f} s")
     runtimes.clear()
     hist_errs, bins, root_stats, wave, first_wave, strict_segs = \
         phase_hist_kernels(dev, X, y, mapper)
+    log(f"elapsed through phase 5: {time.perf_counter() - t_start:.1f} s")
     train, ds_north = phase_train(dev, X, y, workdir)
+    log(f"elapsed through phase 6: {time.perf_counter() - t_start:.1f} s")
     hist_times = phase_hist_times(bins, root_stats, wave, first_wave,
                                   strict_segs)
     del first_wave, strict_segs
@@ -7519,23 +8233,28 @@ def main() -> int:
     cov_bins = torch.from_numpy(BinMapper.fit(Xc, max_bin=MAX_BIN).transform(
         Xc)).to(dev)
     b5_errs = phase_b5(dev, bins, cov_bins)
+    log(f"elapsed through phase 7, 9: {time.perf_counter() - t_start:.1f} s")
     del cov_bins
     strict = phase_strict(dev, X, y)
     cv_res, dds = phase_cv(dev)
     sweep = phase_sweep(dds, workdir)
     fused_round = profile_fused_round(dds)
+    log(f"elapsed through phase 8: {time.perf_counter() - t_start:.1f} s")
     b3_b6_times = phase_b3_b6_times(dbins)
     del dbins
     ns_cv, b5_wave = phase_cv_north_star(dev, X, y)
     b5_times = phase_b5_times(b5_wave)
+    log(f"elapsed through phase 10: {time.perf_counter() - t_start:.1f} s")
     del b5_wave
     multiclass, ds_cov = phase_multiclass(dev, Xc, yc, workdir)
+    log(f"elapsed through phase 11: {time.perf_counter() - t_start:.1f} s")
     int8_ratios = phase_int8_kernel(dev, bins, root_stats, wave)
     int8 = phase_int8_train(dev, X, y, train["auc"]["bf16"])
     int8["cv"] = phase_int8_cv(dds, cv_res["kernels"])
     int8["cli"] = phase_int8_cli(workdir)
     int8["times"] = phase_int8_times(bins, root_stats, wave)
     int8["err_over_bound"] = int8_ratios
+    log(f"elapsed through phase 12: {time.perf_counter() - t_start:.1f} s")
     del bins, root_stats, wave
     t13 = time.perf_counter()
     recovery = {"train": phase_recovery_train(dev, X, y, workdir),
@@ -7571,7 +8290,11 @@ def main() -> int:
     l22 = phase22["launches"]
     phase23 = phase_multi_device(dev, X, y, ds_north, ds_cov, workdir, card)
     l23 = phase23["launches"]
-    del ds_north, ds_cov
+    del ds_cov
+    phase24 = phase_multi_device_rest(dev, X, y, ds_north, dds, path,
+                                      workdir, card)
+    l24 = phase24["launches"]
+    del ds_north
 
     kernels = []
     for prec in PRECISIONS:
@@ -7592,7 +8315,8 @@ def main() -> int:
                              "20": l20.get("predict_forest", 0),
                              "21": l21.get("predict_forest", 0),
                              "22": l22.get("predict_forest", 0),
-                             "23": l23.get("predict_forest", 0)})
+                             "23": l23.get("predict_forest", 0),
+                             "24": l24.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -7624,7 +8348,8 @@ def main() -> int:
                     "20": l20.get(f"{name}_{mode}", 0),
                     "21": l21.get(f"{name}_{mode}", 0),
                     "22": l22.get(f"{name}_{mode}", 0),
-                    "23": l23.get(f"{name}_{mode}", 0)},
+                    "23": l23.get(f"{name}_{mode}", 0),
+                    "24": l24.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7648,7 +8373,8 @@ def main() -> int:
             "16": l16["split_iter"], "17": l17.get("split_iter", 0),
             "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
             "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0),
-            "22": l22.get("split_iter", 0), "23": l23.get("split_iter", 0)},
+            "22": l22.get("split_iter", 0), "23": l23.get("split_iter", 0),
+                    "24": l24.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -7676,7 +8402,8 @@ def main() -> int:
                 "20": l20.get(f"hist_segstats_{mode}", 0),
                 "21": l21.get(f"hist_segstats_{mode}", 0),
                 "22": l22.get(f"hist_segstats_{mode}", 0),
-                "23": l23.get(f"hist_segstats_{mode}", 0)},
+                "23": l23.get(f"hist_segstats_{mode}", 0),
+                    "24": l24.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7705,7 +8432,8 @@ def main() -> int:
                 "20": l20.get(f"hist_fused_batched_{mode}", 0),
                 "21": l21.get(f"hist_fused_batched_{mode}", 0),
                 "22": l22.get(f"hist_fused_batched_{mode}", 0),
-                "23": l23.get(f"hist_fused_batched_{mode}", 0)},
+                "23": l23.get(f"hist_fused_batched_{mode}", 0),
+                    "24": l24.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -7723,13 +8451,18 @@ def main() -> int:
             "20": l20.get("hist_fused_int8", 0),
             "21": l21.get("hist_fused_int8", 0),
             "22": l22.get("hist_fused_int8", 0),
-            "23": l23.get("hist_fused_int8", 0)},
+            "23": l23.get("hist_fused_int8", 0),
+                    "24": l24.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
         "other_shapes": {r["shape"]: {x: r[x] for x in (
             "ms", "plain_ms", "bound_ms", "library_ms")} for name, r in
             int8["times"].items() if name != "root"}})
+    for k_ in kernels:
+        # phases 23 and 24 ran on virtual shards of the one card
+        k_["virtual_shards"] = {"phases": ["23", "24"],
+                                "shards": MESH_DEVICES, "card": card}
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "kernel_vs_plain_max_abs_err": errs,
@@ -7750,6 +8483,7 @@ def main() -> int:
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "phase18": phase18, "phase19": phase19, "phase20": phase20,
               "phase21": phase21, "phase22": phase22, "phase23": phase23,
+              "phase24": phase24,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

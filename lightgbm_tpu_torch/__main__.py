@@ -44,8 +44,10 @@ resumable), ``sweep_checkpoint_dir=`` (per-hyper-batch carry checkpoints),
 ``seed`` (0), ``top`` (10), ``engine=auto|fused|host``; the remaining keys
 are the params every config shares (unknown keys exit by name).  The
 leaderboard goes to stdout as JSON lines, a summary to stderr; a preempted
-sweep exits 0 and resumes on rerun.  ``sweep_devices > 1`` is not ported yet
-and exits by name.
+sweep exits 0 and resumes on rerun.  ``sweep_devices``/``sweep_group_size``
+(the mesh shape; the group size must divide the devices) plan the
+hyper-batches over device groups, recorded in each ledger row's ``group``;
+the units run one after another, as the reference's do.
 
 ``task=serve`` (alias ``predict-server``) loads a packed ``.npz`` model or a
 JSON text model, packed on load (written by either package), builds the
@@ -56,7 +58,9 @@ network dependency.  Keys are the reference's (``output_format``,
 ``raw_score``, ``num_iteration``, ``request_timeout_ms``, ``show_stats``,
 ``max_bucket``, ``max_cache_entries``, ``warm_buckets``,
 ``max_queue_depth``, ``shed_policy``, ``canary_rows``,
-``compile_cache_dir`` (a no-op here), ``mesh_devices`` (must be 1),
+``compile_cache_dir`` (a no-op here), ``mesh_devices`` (a power of two:
+the serving mesh over the visible CUDA devices, or over
+``LIGHTGBM_TPU_TORCH_VIRTUAL_DEVICES`` virtual shards of one),
 ``shard_policy``, ``forest_precision``).  ``!swap <model>`` (either kind) /
 ``!rollback`` / ``!stats`` request lines are control commands (acks on
 stderr); SIGTERM drains gracefully; a kernel that fails to build or launch
@@ -316,10 +320,6 @@ def _sweep(cfg: Dict[str, str], data_path: Optional[str], header: bool,
         raise die(f"sweep_group_size must divide sweep_devices (got "
                   f"group_size={sweep_group_size}, "
                   f"devices={sweep_devices})")
-    if sweep_devices > 1:
-        raise die(f"sweep_devices={sweep_devices}: a sweep over several "
-                  "devices is not ported yet: ROADMAP slice 6 "
-                  "(multi-device), item 12b")
     ckpt_dir = cfg.pop("sweep_checkpoint_dir", None)
     if ckpt_dir is not None and not str(ckpt_dir).strip():
         raise die("sweep_checkpoint_dir must be a directory path")
@@ -509,17 +509,23 @@ def _serve(input_model: str, cfg: Dict[str, str],
     if cfg:
         raise die(f"unknown key(s): {', '.join(sorted(cfg))}")
 
-    if mesh_devices != 1:
-        raise die(f"mesh_devices={mesh_devices}: multi-device serving is "
-                  "not ported yet: ROADMAP slice 6 (multi-device), item 12b")
     try:
         bank = ModelBank(max_bucket=max_bucket, max_cache_entries=max_cache,
                          warm_on_deploy=warm_buckets,
                          canary_rows=canary_rows, cache_dir=cache_dir,
-                         shard_policy=shard_policy,
+                         mesh_devices=mesh_devices, shard_policy=shard_policy,
                          forest_precision=forest_precision, device=device)
     except NoDeviceError as e:
         raise die(str(e)) from None
+    if mesh_devices > 1:
+        from .parallel.mesh import visible_devices
+
+        have = len(visible_devices(bank.device))
+        if have < mesh_devices:
+            raise die(f"mesh_devices={mesh_devices} needs {mesh_devices} "
+                      f"devices, {have} visible; set "
+                      f"LIGHTGBM_TPU_TORCH_VIRTUAL_DEVICES={mesh_devices} "
+                      "for virtual shards on one device")
 
     def deploy(path: str) -> dict:
         if path.endswith(".npz"):

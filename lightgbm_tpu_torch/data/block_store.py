@@ -376,6 +376,50 @@ class BlockStore:
         return _BlockWriter(block_rows)
 
 
+def shard_block_store(store: BlockStore, n_shards: int) -> List[BlockStore]:
+    """Split a multi-block store into ``n_shards`` per-shard stores over
+    CONTIGUOUS block ranges (streamed data parallelism).
+
+    Each shard is a real :class:`BlockStore` over the same host blocks by
+    reference (no copy; on a CUDA store the parent is pinned first and the
+    shards share its pinned tensors), with its own ``bytes_streamed``
+    odometer, ring of device buffers and copy stream, and the parent's
+    verify, fault and retry settings.  Contiguity keeps the global row order
+    shard-major: row ``i`` of shard ``s`` is global row ``s *
+    rows_per_shard + i``, which is :func:`~..parallel.mesh.row_bounds`'s
+    split of the resident vectors.  Requires ``num_blocks % n_shards ==
+    0``, so the per-shard block walks stay in lockstep.
+    """
+    n_shards = int(n_shards)
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    if store.num_blocks % n_shards:
+        raise ValueError(
+            f"cannot shard {store.num_blocks} blocks across "
+            f"{n_shards} devices: block count must be divisible so "
+            "per-shard block walks stay in lockstep")
+    if store.device.type == "cuda":
+        store._pin()
+    per = store.num_blocks // n_shards
+    rows_per_shard = per * store.block_rows
+    shards: List[BlockStore] = []
+    for s in range(n_shards):
+        lo = s * rows_per_shard
+        real = max(0, min(store.num_rows - lo, rows_per_shard))
+        ks = slice(s * per, (s + 1) * per)
+        sh = BlockStore(store.blocks[ks], max(real, 1), store.block_rows)
+        sh.num_rows = real          # may be 0 for all-padding tail shards
+        if store._pinned is not None:
+            sh._pinned = store._pinned[ks]
+        sh.device = store.device
+        for name in ("verify_checksums", "fault_injector",
+                     "max_read_retries", "retry_backoff_s", "_sleep",
+                     "prefetch_blocks"):
+            setattr(sh, name, getattr(store, name))
+        shards.append(sh)
+    return shards
+
+
 class ColumnViewStore:
     """A column-restricted VIEW of a BlockStore (feature screening).
 
@@ -383,9 +427,11 @@ class ColumnViewStore:
     and ``gather_rows`` yield ``[rows, F_active]`` slices (sliced on the
     host, before the copy — the PCIe saving is real), while every other
     attribute — retry config, fault injector, device, quarantine set, the
-    odometers — reads and writes through to the parent.  Trees grown
-    against a view live in compacted feature space; the caller remaps
-    winners to global ids (``models.feature_mask.remap_split_features``).
+    odometers — reads and writes through to the parent, so a view of a
+    :func:`shard_block_store` shard counts its bytes on the real shard.
+    Trees grown against a view live in compacted feature space; the caller
+    remaps winners to global ids
+    (``models.feature_mask.remap_split_features``).
     """
 
     def __init__(self, store, col_ids):

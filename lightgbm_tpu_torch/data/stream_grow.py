@@ -8,7 +8,9 @@ steps of ``models/tree.py`` (``_stream_*_block``) partition the block's
 rows and build its histogram partial with kernel B1, the partials are
 summed in float64 and rounded once after the last block, and the table
 steps (kernel B3 for a strict split iteration, the wave body's sibling /
-score / commit steps for a wave) run on the accumulated histograms.
+score / commit steps for a wave) run on the accumulated histograms.  The
+grower reads its rows through a row source: :class:`SerialSource` for one
+store, ``data.stream_dp.StreamMesh`` for per-shard stores on a row mesh.
 
 Resident O(n) state: the statistics, ``row_leaf``, the scores, labels,
 weights and bag stay on the device, sized ``store.padded_rows``; what
@@ -45,6 +47,7 @@ from ..models.tree import (Tree, _stream_root_block, _stream_strict_block,
 from ..ops.histogram import sr_round_bf16
 from ..ops.predict import forest_depth_cap, predict_tree_binned
 from ..ops.split import SplitContext, fma
+from ..parallel.mesh import _put
 
 _F32 = torch.float32
 
@@ -69,85 +72,115 @@ def stream_hist(store, stats: torch.Tensor,
     return acc if single else acc.to(_F32)
 
 
-def stream_grow_tree(store, stats: torch.Tensor, feature_mask: torch.Tensor,
+class SerialSource:
+    """The streamed grower's rows as one shard: a store (or a column view
+    of one) on the statistics' device.  A row source answers three
+    questions of the grower: ``split(stats)`` the per-shard statistics,
+    ``hist(parts, block_fn)`` one histogram pass (``block_fn(s, off,
+    bins_b, stats_b)`` is shard ``s``'s partial of its block at local row
+    ``off``) and ``gather(row_leaf)`` the shards' ``row_leaf`` in global row
+    order; ``data.stream_dp.StreamMesh`` answers them over a row mesh."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def split(self, stats: torch.Tensor):
+        return [stats]
+
+    def hist(self, parts, block_fn: Callable) -> torch.Tensor:
+        return stream_hist(self.store, parts[0],
+                           lambda off, b, st: block_fn(0, off, b, st))
+
+    def gather(self, row_leaf):
+        return row_leaf[0]
+
+
+def stream_grow_tree(source, stats: torch.Tensor, feature_mask: torch.Tensor,
                      ctx: SplitContext, num_leaves: int, num_bins: int,
                      max_depth: int, wave_width: int,
                      hist_impl: str = "auto",
                      hist_dtype: str = "f32") -> Tuple[Tree, torch.Tensor]:
-    """Grow one tree from a BlockStore (the plain numeric path): the strict
-    grower at width 1, else the wave grower with the width's tail, as
-    :func:`~..models.tree.grow_tree` dispatches.  ``stats`` f32
-    ``[padded_rows, 3]`` on the device; returns ``(tree, row_leaf)`` with
-    ``row_leaf`` sized ``store.padded_rows``."""
+    """Grow one tree from a row ``source`` (:class:`SerialSource`, or a
+    ``StreamMesh`` for streamed data parallelism) on the plain numeric
+    path: the strict grower at width 1, else the wave grower with the
+    width's tail, as :func:`~..models.tree.grow_tree` dispatches.
+    ``stats`` f32 ``[padded_rows, 3]`` in global row order on the device;
+    returns ``(tree, row_leaf)`` with ``row_leaf`` sized ``padded_rows``
+    there.  Each shard keeps its own ``row_leaf``; the table steps run once,
+    on the statistics' device."""
     if hist_dtype == "bf16sr":
-        # rounded once, as the in-memory grower rounds a tree's statistics
+        # rounded once over the global rows, as the in-memory grower rounds
+        # a tree's statistics
         stats, hist_dtype = sr_round_bf16(stats), "bf16"
     width, tail, overgrow = decode_wave_width(wave_width)
     grow = (_grow_strict if width <= 1 else _grow_wave)
-    return grow(store, stats, feature_mask, ctx, num_leaves, num_bins,
-                max_depth, width, tail, overgrow, hist_impl, hist_dtype)
+    return grow(source, source.split(stats), feature_mask, ctx, num_leaves,
+                num_bins, max_depth, width, tail, overgrow, hist_impl,
+                hist_dtype)
 
 
-def _root_hist(store, stats, num_bins, hist_impl, hist_dtype):
-    return stream_hist(store, stats, lambda off, b, st: _stream_root_block(
+def _row_leaf(parts):
+    return [torch.zeros(p.shape[0], dtype=torch.int32, device=p.device)
+            for p in parts]
+
+
+def _root_hist(source, parts, num_bins, hist_impl, hist_dtype):
+    return source.hist(parts, lambda s, off, b, st: _stream_root_block(
         b, st, num_bins, hist_impl, hist_dtype))[0]          # [F, B, 3]
 
 
-def _grow_strict(store, stats, feature_mask, ctx, num_leaves, num_bins,
+def _grow_strict(source, parts, feature_mask, ctx, num_leaves, num_bins,
                  max_depth, width, tail, overgrow, hist_impl, hist_dtype):
     """``num_leaves - 1`` split iterations, each one pass of B1 with two
-    segments over every block and one launch of B3."""
+    segments over every shard's blocks and one launch of B3."""
     capacity = 2 * num_leaves - 1
-    root = _root_hist(store, stats, num_bins, hist_impl, hist_dtype)
+    root = _root_hist(source, parts, num_bins, hist_impl, hist_dtype)
     P, aux, scal, n_leaves = stream_strict_init(root, ctx, feature_mask,
                                                 max_depth, capacity)
-    row_leaf = torch.zeros(store.padded_rows, dtype=torch.int32,
-                           device=stats.device)
-
-    def block(off, bins_b, stats_b):
-        return _stream_strict_block(bins_b, stats_b,
-                                    row_leaf[off:off + bins_b.shape[0]],
-                                    aux, scal, num_bins, hist_impl,
-                                    hist_dtype)
-
+    row_leaf = _row_leaf(parts)
     for _ in range(num_leaves - 1):
-        hist2 = stream_hist(store, stats, block)             # [2, F, B, 3]
+        on = [(_put(aux, r.device), _put(scal, r.device)) for r in row_leaf]
+        hist2 = source.hist(parts, lambda s, off, b, st: _stream_strict_block(
+            b, st, row_leaf[s][off:off + b.shape[0]], on[s][0], on[s][1],
+            num_bins, hist_impl, hist_dtype))                # [2, F, B, 3]
         P, aux = stream_strict_update(hist2, P, aux, scal, n_leaves,
                                       feature_mask, hist_impl)
-    return _tree_from_packed(P[0], n_leaves[0]), row_leaf
+    return _tree_from_packed(P[0], n_leaves[0]), source.gather(row_leaf)
 
 
-def _grow_wave(store, stats, feature_mask, ctx, num_leaves, num_bins,
+def _grow_wave(source, parts, feature_mask, ctx, num_leaves, num_bins,
                max_depth, width, tail, overgrow, hist_impl, hist_dtype):
     """Waves of up to ``width`` splits, each one pass of the plain
-    partition and B1 (one segment per split) over every block, then the
-    wave body's table steps; the exact tail prunes the overgrown tree."""
+    partition and B1 (one segment per split) over every shard's blocks,
+    then the wave body's table steps; the exact tail prunes the overgrown
+    tree."""
     exact = tail == "exact"
     grow_leaves = (max(num_leaves + 1, int(overgrow or 0)) if exact
                    else num_leaves)
     capacity = 2 * grow_leaves - 1
     w_width = min(int(width), grow_leaves - 1)
-    root = _root_hist(store, stats, num_bins, hist_impl, hist_dtype)
+    root = _root_hist(source, parts, num_bins, hist_impl, hist_dtype)
     P, hist_cache, node_slot = stream_wave_init(root, ctx, feature_mask,
                                                 capacity, grow_leaves)
     fmask = feature_mask.to(_F32)
-    row_leaf = torch.zeros(store.padded_rows, dtype=torch.int32,
-                           device=stats.device)
+    row_leaf = _row_leaf(parts)
     n_nodes, n_leaves = 1, 1
     while n_leaves < grow_leaves:
         plan = _wave_plan(P, n_nodes, n_leaves, grow_leaves, w_width, tail)
         if plan is None:
             break
-        direct = stream_hist(
-            store, stats, lambda off, b, st: _stream_wave_block(
-                b, st, row_leaf[off:off + b.shape[0]], plan, num_bins,
-                hist_impl, hist_dtype))
+        plans = [plan._replace(route_args=tuple(
+            _put(a, r.device) if torch.is_tensor(a) else a
+            for a in plan.route_args)) for r in row_leaf]
+        direct = source.hist(parts, lambda s, off, b, st: _stream_wave_block(
+            b, st, row_leaf[s][off:off + b.shape[0]], plans[s], num_bins,
+            hist_impl, hist_dtype))
         n_nodes, n_leaves = _wave_commit(plan, direct, P, hist_cache,
                                          node_slot, n_leaves, ctx, max_depth,
                                          lambda node_id: fmask)
     if exact:
-        return stream_exact_prune(P, row_leaf, num_leaves)
-    return _tree_from_packed(P, n_leaves), row_leaf
+        return stream_exact_prune(P, source.gather(row_leaf), num_leaves)
+    return _tree_from_packed(P, n_leaves), source.gather(row_leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -172,19 +205,21 @@ def _renew(tree, row_leaf, y, pred, rw, renew_alpha, renew_scale):
     return renew_leaf_values(tree, row_leaf, y - pred, rw, renew_alpha)
 
 
-def stream_plain_round(store, obj, y, w, bag, pred, fmask, hyper,
+def stream_plain_round(source, obj, y, w, bag, pred, fmask, hyper,
                        num_leaves: int, num_bins: int, hist_impl: str,
                        hist_dtype: str, wave_width: int, is_rf: bool,
                        renew_alpha=None, renew_scale=None):
-    """One plain gbdt/rf round over a BlockStore — the streamed restatement
+    """One plain gbdt/rf round over a row ``source`` (a BlockStore's
+    :class:`SerialSource`, or a ``StreamMesh``) — the streamed restatement
     of the Booster's round body: grad/hess, the bagging-masked statistics,
     one streamed tree, the leaf renewal where the objective has one, and
     the train-score update ``fma(lr, value, pred)`` (rf returns ``pred``
-    unchanged)."""
+    unchanged).  The gradients are elementwise, so the whole-row
+    computation is every shard's."""
     g, h = obj.grad_hess(pred, y, w)
     stats = torch.stack([g * bag, h * bag, (bag > 0).to(_F32)], dim=-1)
     tree, row_leaf = stream_grow_tree(
-        store, stats, fmask, hyper.ctx(), num_leaves, num_bins,
+        source, stats, fmask, hyper.ctx(), num_leaves, num_bins,
         hyper.max_depth, wave_width, hist_impl, hist_dtype)
     tree = _renew(tree, row_leaf, y, pred, w * bag, renew_alpha,
                   renew_scale)
@@ -199,7 +234,8 @@ def goss_host_select(g_abs: np.ndarray, bag: np.ndarray, goss_k,
     """GOSS's selection on the host, as the reference's streamed round
     draws it: the exact top ``k_top`` in-bag rows by ``|g|``
     (``argpartition``), then ``k_other`` of the remaining in-bag rows drawn
-    uniformly without replacement by ``default_rng(seed)``, each list
+    uniformly without replacement by ``default_rng(seed)`` (an int, or a
+    tuple such as streamed data parallelism's ``(seed, shard)``), each list
     sorted and zero-padded to its size.  Returns ``(row ids i64 [k_top +
     k_other], weights f32)``: 1 for a top row, ``(1 - top_rate) /
     other_rate`` for a sampled one, 0 for padding."""

@@ -54,8 +54,8 @@ from ..ops.sampling import sample_bag_rows, sample_feature_mask_rows
 from ..ops.split import fma
 from ..utils.random import (fold_in, fold_in_keys, fold_in_tensor, prng_key,
                             split_keys, split_on)
-from .gbdt import (HyperScalarsBatch, build_cat_info, check_slice_scope,
-                   resolve_hist_dtype, resolve_wave_width)
+from .gbdt import (HyperScalarsBatch, build_cat_info, resolve_hist_dtype,
+                   resolve_wave_width)
 from .tree import _PK, grow_trees_batched
 
 _F32 = torch.float32
@@ -128,8 +128,6 @@ class FusedCVProgram:
                  fold_masks: np.ndarray, num_boost_round: int,
                  early_stopping_rounds: int, seed: int):
         p0 = param_list[0]
-        for p in param_list:
-            check_slice_scope(p)
         metrics = [m for m in p0.metric if m != "none"] or \
             [default_metric_for_objective(p0.objective)]
         self.metric_name = metrics[0]

@@ -125,7 +125,6 @@ from .tree import (_PK, Tree, _tree_from_packed, fit_linear_leaves,
                    renew_leaf_values, stack_trees)
 
 _F32 = torch.float32
-_STREAM_DP = "ROADMAP slice 6 (multi-device), item 12b (streamed dp)"
 
 
 def build_cat_info(train_set: Dataset, p: Params,
@@ -480,18 +479,6 @@ def dart_drops(p: Params, i: int, n_trees: int) -> List[int]:
     return dropped
 
 
-def check_slice_scope(p: Params, streamed: bool = False) -> None:
-    """Refuse, by name, every training option the port does not hold yet:
-    ``tree_learner="data"`` on a streamed Dataset (the per-shard block
-    stores).  In memory every learner trains; on a streamed Dataset
-    ``"feature"``/``"voting"`` warn and stream serially, as the reference
-    does."""
-    if streamed and p.tree_learner == "data":
-        raise NotImplementedError(
-            "tree_learner='data' on a streamed (from_blocks) Dataset is not "
-            f"ported yet: {_STREAM_DP}")
-
-
 class Booster:
     """LightGBM-compatible Booster trained on its Dataset's device.
 
@@ -544,7 +531,6 @@ class Booster:
     def _setup_training(self) -> None:
         ds = self.train_set
         p = self.params
-        check_slice_scope(p, streamed=ds.is_streamed)
         if ds.device != self.device:
             raise ValueError(f"the training Dataset lives on {ds.device}, "
                              f"the Booster on {self.device}")
@@ -626,7 +612,11 @@ class Booster:
         if self._streamed:
             ds.block_store.prefetch_blocks = int(
                 p.extra.get("stream_prefetch_blocks", 1))
-            if p.tree_learner != "serial":
+            if p.tree_learner == "data":
+                # streamed x data-parallel: per-shard block stores, one
+                # merge per block-round
+                self._maybe_setup_stream_dp()
+            elif p.tree_learner != "serial":
                 import warnings
 
                 warnings.warn(
@@ -905,6 +895,61 @@ class Booster:
         self._mesh = MeshLayout(make_mesh(n_dev, devices=devices),
                                 ds.X_binned, self._num_bins, mode, wire,
                                 chunks, voting_k)
+
+    def _maybe_setup_stream_dp(self) -> None:
+        """Compose out-of-core streaming with the row mesh (the reference's
+        ``_maybe_setup_stream_dp``): split the block store into per-shard
+        stores over contiguous block ranges, each streaming its rows onto
+        its own device (``data.stream_dp``).  D is the visible device count
+        (capped by ``stream_dp_devices``), lowered until it divides the
+        block count.  Objectives that renew leaves, one device, or a block
+        count with no divisor > 1 warn and stream serially, as the
+        reference does; ``histogram_merge="voting"`` raises
+        :class:`~..faults.StreamScopeError`."""
+        import warnings
+
+        from ..data.stream_dp import (StreamMesh, choose_stream_dp_devices,
+                                      setup_stream_shards)
+        from ..faults import StreamScopeError
+        from ..parallel.mesh import make_mesh, visible_devices
+
+        p = self.params
+        if getattr(self.obj, "renew_alpha", None) is not None:
+            warnings.warn(
+                "tree_learner='data' under streamed training supports "
+                "gbdt/rf/goss without leaf renewal (the renewal pass "
+                "needs an extra full stream per round); training with "
+                "the serial block loop", stacklevel=3)
+            return
+        if p.extra.get("histogram_merge") == "voting":
+            raise StreamScopeError(
+                "streamed (from_blocks) dp training does not support "
+                "histogram_merge='voting' — the PV-Tree ballot needs "
+                "in-memory per-shard split scans (unsupported key: "
+                "histogram_merge)", key="histogram_merge")
+        store = self.train_set.block_store
+        devices = visible_devices(self.device)
+        n_dev = len(devices)
+        cap = int(p.extra.get("stream_dp_devices", 0))
+        if cap > 0:
+            n_dev = min(n_dev, cap)
+        n_dev = choose_stream_dp_devices(store.num_blocks, n_dev)
+        if n_dev <= 1:
+            if len(devices) <= 1:
+                warnings.warn(
+                    "tree_learner='data' requested but only one device "
+                    "is visible; streaming serially", stacklevel=3)
+            else:
+                warnings.warn(
+                    f"tree_learner='data' requested but {store.num_blocks}"
+                    " block(s) admit no >1-device lockstep shard split; "
+                    "streaming serially", stacklevel=3)
+            return
+        mesh = make_mesh(n_dev, devices=devices)
+        mode, _ = self._dp_merge_mode()
+        wire, chunks = self._dp_wire(mode, n_dev)
+        self._mesh = StreamMesh(mesh, setup_stream_shards(store, mesh), mode,
+                                wire, chunks)
 
     def _maybe_setup_fp(self) -> None:
         """Shard the columns for ``tree_learner="feature"`` (the reference's
@@ -1256,33 +1301,59 @@ class Booster:
         ``finite_screen=false``, then :func:`~..data.stream_grow.
         stream_goss_round` (rows sampled at the source, seeded by ``seed *
         1,000,003 + i``) or :func:`~..data.stream_grow.
-        stream_plain_round`."""
+        stream_plain_round` over the store.  Under streamed data
+        parallelism (``_mesh`` a :class:`~..data.stream_dp.StreamMesh`) the
+        plain round streams over the mesh (column views of its per-shard
+        stores on a screened round), GOSS samples each shard's rows
+        (:func:`~..data.stream_dp.stream_dp_goss_round`), and the shards'
+        odometers fold into the store's afterwards."""
         from ..data.block_store import ColumnViewStore
-        from ..data.stream_grow import stream_goss_round, stream_plain_round
+        from ..data.stream_grow import (SerialSource, stream_goss_round,
+                                        stream_plain_round)
 
         ds = self.train_set
         p = self.params
         if p.extra.get("finite_screen", True):
             self._screen_finite(i)
-        store = ds.block_store
-        if active_ids is not None:
-            # only the active columns cross to the device
-            store = ColumnViewStore(store, active_ids)
         eff_rows = self._eff_rows()
         grow = dict(num_leaves=p.num_leaves, num_bins=self._num_bins,
                     hist_impl=p.extra.get("hist_impl", "auto"),
                     hist_dtype=resolve_hist_dtype(p, eff_rows),
-                    wave_width=resolve_wave_width(p, eff_rows),
-                    renew_alpha=getattr(self.obj, "renew_alpha", None),
-                    renew_scale=getattr(self.obj, "renew_scale", None))
-        args = (store, self.obj, ds.y, self._w_eff, self._bag,
-                self._pred_train, fmask, self._hyper)
+                    wave_width=resolve_wave_width(p, eff_rows))
+        args = (self.obj, ds.y, self._w_eff, self._bag, self._pred_train,
+                fmask, self._hyper)
         goss_k = self._goss_k()
+        seed = p.seed * 1_000_003 + i
+        smesh = self._mesh
+        if smesh is not None:
+            from ..data.stream_dp import (drain_shard_odometers,
+                                          stream_dp_goss_round)
+
+            src = smesh
+            if active_ids is not None:
+                # each shard streams only the active columns
+                src = smesh.with_shards([ColumnViewStore(sh, active_ids)
+                                         for sh in smesh.shards])
+            if goss_k is not None:
+                out = stream_dp_goss_round(
+                    src, *args, self._goss_k_shard(), float(p.top_rate),
+                    float(p.other_rate), seed, **grow)
+            else:
+                out = stream_plain_round(src, *args,
+                                         is_rf=p.boosting == "rf", **grow)
+            drain_shard_odometers(ds.block_store, smesh.shards)
+            return out
+        store = ds.block_store
+        if active_ids is not None:
+            # only the active columns cross to the device
+            store = ColumnViewStore(store, active_ids)
+        grow.update(renew_alpha=getattr(self.obj, "renew_alpha", None),
+                    renew_scale=getattr(self.obj, "renew_scale", None))
         if goss_k is not None:
-            return stream_goss_round(*args, goss_k, float(p.top_rate),
-                                     float(p.other_rate),
-                                     p.seed * 1_000_003 + i, **grow)
-        return stream_plain_round(*args, is_rf=p.boosting == "rf", **grow)
+            return stream_goss_round(store, *args, goss_k, float(p.top_rate),
+                                     float(p.other_rate), seed, **grow)
+        return stream_plain_round(SerialSource(store), *args,
+                                  is_rf=p.boosting == "rf", **grow)
 
     def _round_key(self, i: int):
         """The round key ``fold_in(key, i)``: the grower's per-node draws
@@ -1301,8 +1372,10 @@ class Booster:
     def _eff_rows(self) -> int:
         """The rows a round's histograms see, which resolve its precision,
         wave width and int8 row limit: the compacted rows of a single-class
-        GOSS round, else every (padded) row."""
-        goss_k = self._goss_k_shard()
+        GOSS round (every shard's under streaming, as the reference's
+        streamed rounds count them; one shard's on an in-memory mesh), else
+        every (padded) row."""
+        goss_k = self._goss_k() if self._streamed else self._goss_k_shard()
         if goss_k is not None and self._num_class == 1:
             return goss_k[0] + goss_k[1]
         return int(self.train_set.row_mask.shape[0])

@@ -95,6 +95,26 @@ class MeshLayout:
         self.chunks, self.voting_k = int(chunks), int(voting_k)
         self._view = None
 
+    @classmethod
+    def of_row_blocks(cls, mesh: Mesh, blocks: Sequence[torch.Tensor],
+                      num_bins: int, mode: str = "psum", wire: str = "f32",
+                      chunks: int = 1) -> "MeshLayout":
+        """The layout of a 1-D row mesh over row blocks already on their
+        shards' devices (``blocks[i]`` ``[k, F]`` on ``mesh.devices[i]``,
+        one ``k`` for all): streamed GOSS's per-shard samples, which never
+        meet on one device."""
+        view = cls.__new__(cls)
+        k = int(blocks[0].shape[0])
+        view.mesh, view.dr, view.dc = mesh, mesh.size, 1
+        view.num_features = view.f_loc = int(blocks[0].shape[1])
+        view.num_bins = int(num_bins)
+        view.bounds = [(i * k, (i + 1) * k) for i in range(mesh.size)]
+        view.blocks = [[b.contiguous()] for b in blocks]
+        view.mode, view.wire = mode, wire
+        view.chunks, view.voting_k = int(chunks), 0
+        view._view = None
+        return view
+
     @property
     def n_devices(self) -> int:
         return self.mesh.size

@@ -171,6 +171,23 @@ def _put(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return x if x.device == dev else x.to(dev, non_blocking=True)
 
 
+def place_tables(tables, dev: torch.device, sl: Optional[slice] = None,
+                 host: Tuple[str, ...] = ()):
+    """A namedtuple of tables on a shard: every field sliced to ``sl`` on
+    its leading axis (None: whole) and moved to ``dev``, contiguous; None
+    fields stay None and the fields named in ``host`` are sliced but stay
+    where they are.  A whole field already on ``dev`` is returned as it is,
+    so the tables cached by its identity stay valid."""
+    def one(name, a):
+        if a is None:
+            return None
+        a = a if sl is None else a[sl]
+        return (a if name in host else a.to(dev)).contiguous()
+
+    return type(tables)(*(one(n, a) for n, a in zip(tables._fields,
+                                                     tables)))
+
+
 def axis_index(shard: int) -> int:
     """``lax.axis_index``: a shard's position on its axis."""
     return int(shard)

@@ -96,11 +96,12 @@ class ModelBank:
       clock: injectable time source for the compile-timeout measurement.
       cache_dir: accepted for the reference's API; a no-op (see
         :func:`runtime.enable_persistent_cache`).
-      mesh_devices / forest_precision: runtime knobs shared by every
-        tenant (see :class:`runtime.PredictorRuntime`; ``mesh_devices``
-        must be 1).
-      shard_policy: validated and otherwise ignored: one device has only
-        the ``single`` route.
+      mesh_devices / shard_policy / forest_precision: runtime knobs shared
+        by every tenant (see :class:`runtime.PredictorRuntime`).  A mesh
+        stays atomic per tenant: one runtime owns all of a model's shard
+        programs (dp shards, tp slices, the single-route ladder), so a hot
+        swap or a rollback flips every shard of a model at once, and the
+        canary and the numpy fallback check the mesh's own output.
       device: ``"cuda"`` (the default, ``None``) or ``"cpu"``.
     """
 
@@ -131,6 +132,7 @@ class ModelBank:
         self.max_bucket = int(max_bucket)
         self.max_cache_entries = int(max_cache_entries)
         self.mesh_devices = int(mesh_devices)
+        self.shard_policy = shard_policy
         self.forest_precision = forest_precision
         del donate                      # no buffer donation in the port
         self.warm_on_deploy = bool(warm_on_deploy)
@@ -212,6 +214,7 @@ class ModelBank:
                     max_cache_entries=self.max_cache_entries,
                     stats=stats, faults=self.faults,
                     mesh_devices=self.mesh_devices,
+                    shard_policy=self.shard_policy,
                     forest_precision=self.forest_precision,
                     device=self.device)
             except ThresholdBoundError as e:

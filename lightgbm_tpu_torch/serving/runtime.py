@@ -1,7 +1,6 @@
-"""PredictorRuntime — batch inference over a PackedForest on one device.
+"""PredictorRuntime — batch inference over a PackedForest.
 
-The port of ``lightgbm_tpu/serving/runtime.py`` on its ``single`` route.
-The runtime:
+The port of ``lightgbm_tpu/serving/runtime.py``.  The runtime:
 
 * bins raw rows on the edge (host numpy) with the packed bin bounds — the
   same ``BinMapper`` search the trainer used;
@@ -25,10 +24,18 @@ The runtime:
   reference), and ``quant_error_bound``, the worst-case |quantized - exact|
   served margin.
 
+With ``mesh_devices > 1`` the dispatches shard over a serving mesh
+(:mod:`.mesh`): the route (``single`` | ``dp`` | ``tp``, chosen per bucket
+by ``mesh.choose_route``) is the third component of the program key, and
+``warm()`` runs the route each bucket resolves to.  dp splits the bucket's
+rows over the shards (bit-identical to single); tp gives each shard a slice
+of the padded forest's trees (one kernel launch per shard and class) and
+``psum``s the partial margins.  The shards' tree slices are built once per
+runtime and kept, so the kernel's node tables are built once per slice.
+
 The runtime runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; with no card it raises.  On the CPU the same dispatch
-programs call the kernel's plain PyTorch version.  Multi-device serving
-(``mesh_devices > 1``) is a later slice and raises here.
+programs call the kernel's plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -45,12 +52,12 @@ import torch
 from ..device import resolve_device
 from ..ops.quantize import (FOREST_PRECISIONS, packed_model_bytes,
                             quantize_forest, to_device_tree, widen_tree)
+from .mesh import SHARD_POLICIES, ServingMesh, choose_route
 from .packed import PackedForest
 from .stats import ServingStats
 
 DEFAULT_MAX_BUCKET = 1 << 14          # 16384-row dispatches
 DEFAULT_CACHE_ENTRIES = 12
-SHARD_POLICIES = ("auto", "dp", "tp")
 
 
 def bucket_for(n: int, max_bucket: int) -> int:
@@ -69,7 +76,7 @@ def enable_persistent_cache(cache_dir: str) -> bool:
 
 
 class PredictorRuntime:
-    """Serve a packed forest at fixed bucket shapes on one device.
+    """Serve a packed forest at fixed bucket shapes.
 
     Args:
       packed: a validated PackedForest (``PackedForest.load`` validates).
@@ -81,9 +88,12 @@ class PredictorRuntime:
         donate.
       faults: optional FaultInjector consulted at the ``device_predict``
         site before every dispatch.
-      mesh_devices: must be 1; multi-device serving is a later slice.
-      shard_policy: ``auto`` | ``dp`` | ``tp``, validated and otherwise
-        ignored: only the ``single`` route exists on one device.
+      mesh_devices: shard dispatches over this many devices (a power of
+        two; 1 = the single route).  The devices are the visible CUDA
+        devices, or virtual shards on ``device`` under
+        ``parallel.set_virtual_devices``.
+      shard_policy: ``auto`` | ``dp`` | ``tp`` — see
+        :func:`.mesh.choose_route`.
       forest_precision: ``f32`` | ``bf16`` | ``int8`` resident forest.
         Raises ``ops.quantize.ThresholdBoundError`` when a structural field
         cannot be narrowed EXACTLY.
@@ -111,11 +121,10 @@ class PredictorRuntime:
             raise ValueError(f"forest_precision must be one of "
                              f"{FOREST_PRECISIONS}, got "
                              f"{forest_precision!r}")
-        if int(mesh_devices) != 1:
-            raise ValueError(
-                f"mesh_devices={mesh_devices}: multi-device serving is not "
-                "ported yet (a later slice of the port); use mesh_devices=1")
         self.device = resolve_device(device)
+        self.shard_policy = shard_policy
+        self.mesh = (ServingMesh(mesh_devices, base=self.device)
+                     if int(mesh_devices) > 1 else None)
         self.packed = packed
         self.max_bucket = int(max_bucket)
         self.max_cache_entries = int(max_cache_entries)
@@ -158,6 +167,9 @@ class PredictorRuntime:
         # the legacy path) — mirrored into every record_dispatch
         self.kernel_launches_per_dispatch = (
             packed.num_class if self.fused_predict else 0)
+        self._dp_tables = None          # built once: per-shard tables
+        self._tp_padded = None          # built once: [(tree, scale)], t/D
+        self._tp_soa = None             # built once: [shard][class], t/D
         self._obj = packed._objective()
         self._cache: "OrderedDict[tuple, object]" = OrderedDict()
         self._cache_lock = threading.Lock()
@@ -249,7 +261,7 @@ class PredictorRuntime:
             "num_compiles": self.num_compiles,
             "warmed_buckets": self.warmed_buckets,
             "buckets_live": sorted({k[0] for k in keys}),
-            "mesh_devices": 1,
+            "mesh_devices": self.mesh.devices if self.mesh else 1,
             "forest_precision": self.forest_precision,
             "shard_programs": sum(1 for k in keys if k[2] != "single"),
             "routes_live": sorted({k[2] for k in keys}),
@@ -260,16 +272,21 @@ class PredictorRuntime:
         }
 
     def route_for(self, bucket: int) -> str:
-        """The dispatch route of a bucket: ``single`` on one device."""
-        del bucket
-        return "single"
+        """The dispatch route this bucket resolves to — deterministic, and
+        shared by ``_dispatch`` and ``warm()``."""
+        if self.mesh is None:
+            return "single"
+        return choose_route(self.shard_policy, bucket,
+                            self.packed.num_trees, self.mesh.devices)
 
     def warm(self, raw_score: bool = False, buckets=None) -> int:
         """Run every bucket program of the ladder once before traffic.
 
         Dispatches one fully-masked all-zeros uint8 batch per bucket over
-        the full key ``(bucket, raw_score, route)`` and records the keys in
-        ``warmed_keys``.  When the ladder exceeds the LRU bound only the
+        the full key ``(bucket, raw_score, route)`` — the route the
+        chooser resolves the bucket to, so with a mesh the shard programs
+        (and the shards' node tables) are built here, not on the first
+        request — and records the keys in ``warmed_keys``.  When the ladder exceeds the LRU bound only the
         LARGEST ``max_cache_entries`` buckets are warmed.  Returns the
         number of programs built.
         """
@@ -326,7 +343,7 @@ class PredictorRuntime:
             if hit:
                 self._cache.move_to_end(key)
             else:
-                fn = self._build_fn(raw_score)
+                fn = self._build_fn(raw_score, route)
                 self.num_compiles += 1
                 self._cache[key] = fn
                 while len(self._cache) > self.max_cache_entries:
@@ -334,7 +351,35 @@ class PredictorRuntime:
         self.stats.record_cache(bucket, hit=hit)
         return fn
 
-    def _build_fn(self, raw_score: bool):
+    def _tp_parts(self):
+        """Each shard's slice of the tree-padded stacked ``Tree`` (legacy
+        route) and ``trees_per_device``, built once and shared by every tp
+        program."""
+        if self._tp_padded is None:
+            from .mesh import pad_forest_for_tp, shard_forest
+
+            forest, scale, t_loc = pad_forest_for_tp(
+                self._forest, self._leaf_scale, self.mesh.devices)
+            self._tp_padded = (shard_forest(self.mesh, forest, scale, t_loc),
+                               t_loc)
+        return self._tp_padded
+
+    def _tp_soa_parts(self):
+        """Each shard's slice of every per-class SoA, padded to a multiple
+        of (tree chunk x devices), and ``trees_per_device``: built once
+        and kept for the runtime's life, so the kernel's node tables of a
+        slice are built once (on the first tp dispatch or in ``warm()``)."""
+        if self._tp_soa is None:
+            from .mesh import pad_soa_for_tp, shard_soas
+
+            padded = [pad_soa_for_tp(s, self.mesh.devices)
+                      for s in self._soa]
+            t_loc = padded[0][1]
+            self._tp_soa = (shard_soas(self.mesh, [p[0] for p in padded],
+                                       t_loc), t_loc)
+        return self._tp_soa
+
+    def _build_fn(self, raw_score: bool, route: str = "single"):
         """One dispatch program over the resident tables.
 
         ``num_it`` is an argument, so every staged-prediction variant
@@ -343,6 +388,12 @@ class PredictorRuntime:
         transform.  On the kernel path the body is ONE forest-predict
         launch per class; categorical forests take the legacy traversal,
         which widens quantized tables per dispatch.
+
+        Routes (:mod:`.mesh`): ``single`` is that body; ``dp`` runs the
+        same body on each shard's rows (bit-identical outputs); ``tp``
+        sums each shard's tree slice, ``psum``s the tree sums and applies
+        the learning rate and init (as the single route does), the rf
+        adjust, the transform and the mask to the sum.
         """
         from ..ops.predict import (map_node_arrays, predict_forest,
                                    predict_forest_binned)
@@ -358,40 +409,86 @@ class PredictorRuntime:
         obj = self._obj
 
         def finalize(raw, mask, num_it):
+            init = inits_t.to(raw.device)
             if is_rf:
                 if nc > 1:
-                    raw = ((raw - inits_t[None, :]) / max(num_it, 1)
-                           + inits_t[None, :])
+                    raw = ((raw - init[None, :]) / max(num_it, 1)
+                           + init[None, :])
                 else:
-                    raw = (raw - inits_t[0]) / max(num_it, 1) + inits_t[0]
+                    raw = (raw - init[0]) / max(num_it, 1) + init[0]
             out = raw if raw_score else obj.transform(raw)
             return out * (mask[:, None] if nc > 1 else mask)
 
-        if self.fused_predict:
-            soas = self._soa
+        if route == "tp":
+            from .mesh import tp_raw_margins, tp_raw_margins_fused
+
+            if self.fused_predict:
+                shards, t_loc = self._tp_soa_parts()
+                sum_fn = tp_raw_margins_fused(self.mesh, shards, t_loc,
+                                              depth_cap, nc)
+            else:
+                shards, t_loc = self._tp_parts()
+                sum_fn = tp_raw_margins(self.mesh, shards, t_loc, depth_cap,
+                                        nc, widen=quantized)
 
             def fn(bins, mask, num_it):
-                cols = [predict_forest(soas[c], bins, shrink,
-                                       float(inits[c]), num_it, depth_cap)
-                        for c in range(nc)]
-                raw = torch.stack(cols, dim=1) if nc > 1 else cols[0]
+                # the single route's init + shrink * sum, on the psum
+                raw = (inits_t[None, :] if nc > 1 else inits_t[0]) \
+                    + shrink * sum_fn(bins, num_it)
                 return finalize(raw, mask, num_it)
-        else:
-            forest, leaf_scale = self._forest, self._leaf_scale
+
+            return fn
+
+        def body(soas, forest, leaf_scale):
+            """The single-route program over tables on one device."""
+            if soas is not None:
+                def fn(bins, mask, num_it):
+                    cols = [predict_forest(soas[c], bins, shrink,
+                                           float(inits[c]), num_it,
+                                           depth_cap) for c in range(nc)]
+                    raw = torch.stack(cols, dim=1) if nc > 1 else cols[0]
+                    return finalize(raw, mask, num_it)
+                return fn
 
             def fn(bins, mask, num_it):
                 f = widen_tree(forest, leaf_scale) if quantized else forest
                 if nc > 1:
                     cols = [predict_forest_binned(
-                        map_node_arrays(f, lambda a, c=c: a[:, c]), bins, shrink, float(inits[c]),
-                        num_it, depth_cap) for c in range(nc)]
+                        map_node_arrays(f, lambda a, c=c: a[:, c]), bins,
+                        shrink, float(inits[c]), num_it, depth_cap)
+                        for c in range(nc)]
                     raw = torch.stack(cols, dim=1)
                 else:
                     raw = predict_forest_binned(
                         f, bins, shrink, float(inits[0]), num_it, depth_cap)
                 return finalize(raw, mask, num_it)
+            return fn
 
-        return fn
+        if route == "dp":
+            from .mesh import dp_shard
+
+            return dp_shard(self.mesh, [body(*t) for t in self._dp_parts()])
+        return body(self._soa, self._forest, self._leaf_scale)
+
+    def _dp_parts(self):
+        """The resident tables on every shard's device, ``[(soas, forest,
+        leaf_scale)]``, built once (``Tensor.to`` moves nothing for a
+        shard on the runtime's own device)."""
+        if self._dp_tables is None:
+            from ..parallel.mesh import place_tables
+
+            def on(dev):
+                soas = None if self._soa is None else [
+                    place_tables(s, dev, host=("is_leaf",))
+                    for s in self._soa]
+                forest = (None if self._forest is None
+                          else place_tables(self._forest, dev))
+                scale = (None if self._leaf_scale is None
+                         else self._leaf_scale.to(dev))
+                return soas, forest, scale
+
+            self._dp_tables = [on(dev) for dev in self.mesh.mesh.devices]
+        return self._dp_tables
 
 
 def _as_codes(codes) -> np.ndarray:

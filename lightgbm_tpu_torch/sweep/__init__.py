@@ -1,8 +1,9 @@
 """Grid search as a resumable service — the port of ``lightgbm_tpu/sweep``.
 
 * :class:`~.scheduler.SweepScheduler` packs a config grid into fused-CV
-  hyper-batches, bucketed by what shapes the fused program;
-* :class:`~.service.SweepService` runs the plan on one device, hyper-batch by
+  hyper-batches, bucketed by what shapes the fused program, and assigns
+  them to device groups;
+* :class:`~.service.SweepService` runs the plan hyper-batch by
   hyper-batch, with fault-injection hooks, a SIGTERM latch between segments
   (``training.loop.PreemptionGuard``) and per-hyper-batch carry
   checkpoints;

@@ -16,9 +16,10 @@ grid into an executable plan over a configs x devices mesh:
   bucket's early stopping is collective), greedily balancing total
   configs per group.
 
-The port's sweep runs on one device (``n_devices > 1`` raises: ROADMAP
-slice 6, multi-device, item 12b).  Unit identity (``uid``) is content-derived, so a resumed
-sweep re-plans the same remaining units.
+The groups are a plan, as in the reference: the service runs its units one
+after another and records each unit's group in its ledger rows.  Unit
+identity (``uid``) is content-derived, so a resumed sweep re-plans the same
+remaining units.
 """
 
 from __future__ import annotations
@@ -102,10 +103,6 @@ class SweepScheduler:
         """
         if n_devices < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-        if n_devices > 1:
-            raise NotImplementedError(
-                "a sweep over several devices is not ported yet: ROADMAP "
-                "slice 6 (multi-device), item 12b")
         if group_size < 1 or n_devices % group_size:
             raise ValueError(
                 f"group_size must be >= 1 and divide n_devices "

@@ -1,5 +1,5 @@
 """SweepService: resumable grid-search execution — the port of
-``lightgbm_tpu/sweep/service.py`` on one device.
+``lightgbm_tpu/sweep/service.py``.
 
 Take a config grid and a Dataset; run the :class:`~.scheduler.SweepScheduler`
 plan hyper-batch by hyper-batch on the fused-CV program (or config by config
@@ -21,6 +21,11 @@ the reference's names and dtypes, so unit checkpoints interchange too), and
 unit identity is content-derived (the same remaining work re-plans to the
 same checkpoint directory).  A restore also re-checks the grid digest, so
 a checkpoint of a different sweep definition restarts its unit instead.
+
+``n_devices``/``group_size`` shape the plan's device groups (the
+scheduler's greedy LPT); as in the reference, the groups are a plan: the
+units run one after another on the Dataset's device, each ledger row
+records its unit's ``group``, and the ``plan`` stats give the group count.
 
 ``run_grid_search`` is the entry point the examples call (``utils.sweep``
 re-exports it).

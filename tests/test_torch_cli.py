@@ -153,7 +153,8 @@ def test_serve_rejects_bad_keys_and_missing_card(models):
     _, v1, _ = models
     for cfg, msg in (({"bogus": "1"}, "unknown key"),
                      ({"device": "tpu"}, "device"),
-                     ({"mesh_devices": "2"}, "not ported yet"),
+                     ({"mesh_devices": "3"}, "power of two"),
+                     ({"mesh_devices": "2"}, "2 devices, 1 visible"),
                      ({"shed_policy": "yolo"}, "shed_policy"),
                      ({"forest_precision": "fp8"}, "forest_precision")):
         with pytest.raises(SystemExit, match=msg):
@@ -254,8 +255,8 @@ def test_cli_models_interchange_with_reference(csv_files):
 @pytest.mark.parametrize("argv,name", [
     (["task=refresh"], "item 13"),
     (["task=refresh", "watch_dir=x"], "task=refresh"),
-    (["task=sweep", "data=x.csv", "sweep_grid={grid}", "sweep_devices=2"],
-     "slice 6"),
+    (["task=sweep", "data=x.csv", "sweep_grid={grid}", "sweep_devices=3",
+      "sweep_group_size=2"], "sweep_group_size must divide"),
     (["task=train", "data=x.csv", "device=tpu"], "device")])
 def test_cli_unported_keys_exit_by_name(argv, name, tmp_path):
     grid = tmp_path / "grid.json"
@@ -344,6 +345,41 @@ def test_sweep_cli_leaderboard_matches_reference(csv_files, tmp_path):
         assert {k: v for k, v in a.items() if k != "score"} \
             == {k: v for k, v in b.items() if k != "score"}
         np.testing.assert_allclose(a["score"], b["score"], rtol=1e-5)
+
+
+def test_sweep_cli_multi_device_ledger(csv_files, tmp_path):
+    """``sweep_devices=4 sweep_group_size=2`` plans the two hyper-batches
+    over two device groups and runs them one after another, as the
+    reference's CLI does (the plan itself is held against the reference's
+    scheduler in ``test_torch_sweep.py``): the ledger file and the
+    leaderboard are the single-device run's byte for byte.  One intra-op
+    thread: the fused program runs thousands of small ops."""
+    _, paths, _ = csv_files
+    grid = tmp_path / "grid.json"
+    grid.write_text(json.dumps({"axes": {"learning_rate": [0.3, 0.1],
+                                         "num_leaves": [7]}}))
+    boards, ledgers = {}, {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for tag, devices in (("one", {}), ("four", {
+                "sweep_devices": "4", "sweep_group_size": "2"})):
+            ledgers[tag] = tmp_path / f"{tag}.RData"
+            cfg = dict(SWEEP_KEYS, sweep_grid=str(grid),
+                       ledger=str(ledgers[tag]), **devices)
+            label = cfg.pop("label_column")
+            out, err = io.StringIO(), io.StringIO()
+            assert port_sweep(cfg, paths["train"], True, label, stdout=out,
+                              stderr=err, device="cpu") == 0
+            boards[tag] = out.getvalue()
+            # one hyper-batch a bucket: a bucket per learning rate
+            assert json.loads(err.getvalue().strip().splitlines()[-1])[
+                "units"] == 2
+    finally:
+        torch.set_num_threads(threads)
+    assert ledgers["one"].read_bytes() == ledgers["four"].read_bytes()
+    assert boards["one"] == boards["four"]
+    assert len(boards["four"].splitlines()) == 2
 
 
 @pytest.mark.parametrize("cfg", [

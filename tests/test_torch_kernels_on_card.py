@@ -61,6 +61,14 @@ the kernels per shard grow the plain path's trees bit for bit on exact
 sums, and (but int8 and voting) the serial round-1 tree (multiclass: its
 first differing split, if any, a near tie).
 
+The serving mesh and streamed data parallelism on 4 virtual shards: dp
+through B4 bit for bit the single route at every bucket and tp bit for bit
+the same route on the CPU (B4 == plain, the psum in shard order), each
+shard's tree slice kernel == plain, the node tables built once in
+``warm()``; a streamed dp round (B1 per shard per block, B3 under psum)
+growing the in-memory mesh's tree (serial streaming's at int8) on exact
+sums; streamed dp killed and resumed bit for bit, and at D = 2.
+
 Recovery: a 3-round run killed after each round and resumed from its
 checkpoint on the card (50,000 rows, the wave grower through B1 and B2, the
 strict grower through B1 and B3, int8 through B1's int8 mode) grows the
@@ -1955,3 +1963,205 @@ def test_dp_trees_kernel_vs_plain_on_card(case, d):
             ga = fa["split_gain"].reshape(-1)[i]
             gb = fb["split_gain"].reshape(-1)[i]
             assert abs(ga - gb) <= 1e-4 * max(abs(ga), abs(gb)), (ga, gb)
+
+
+# -- the serving mesh and streamed data parallelism on virtual shards --------
+
+
+def _mesh_forest(precision, nc=1):
+    """A seed-made packed forest (20 trees x 31 leaves a class, 16 columns,
+    64 bins) and 3,000 rows of codes."""
+    from lightgbm_tpu_torch.dataset import BinMapper
+    from lightgbm_tpu_torch.kernels._timing import make_forest
+    from lightgbm_tpu_torch.serving import packed_from_arrays
+
+    rng = np.random.default_rng(61)
+    X = rng.normal(size=(3_000, 16))
+    mapper = BinMapper.fit(X, max_bin=63)
+    arrays = make_forest(62, 20 * nc, 31, mapper.n_bins)
+    if nc > 1:
+        arrays = {k: v.reshape((20, nc) + v.shape[1:])
+                  for k, v in arrays.items()}
+    meta = {"shrink": 0.1, "init_score": [0.1 * c for c in range(nc)],
+            "num_class": nc, "best_iteration": -1,
+            "params": {"objective": "multiclass" if nc > 1 else "binary",
+                       "num_class": nc, "num_leaves": 31},
+            "bin_mapper": mapper.to_dict()}
+    return packed_from_arrays(arrays, meta), mapper.transform(X)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc", [1, 3])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_serving_mesh_routes_on_card(precision, nc):
+    """dp and tp on 4 virtual shards of the card: dp through B4 (one launch a
+    shard and class) bit for bit the single route, at every bucket; tp (a
+    launch a shard and class over its tree slice) bit for bit the same
+    route on the CPU, whose shards take B4's plain version (B4 == plain,
+    and the psum adds in shard order on both), truncated windows too; each
+    shard's tree slice through B4 bit for bit its plain version; the
+    slices' node tables built once, in ``warm()``."""
+    from lightgbm_tpu_torch.kernels import predict as kp
+    from lightgbm_tpu_torch.kernels.predict import PREDICT_FOREST_LAUNCHES
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+    from lightgbm_tpu_torch.serving import PredictorRuntime, bucket_for
+
+    dev = _card()
+    packed, codes = _mesh_forest(precision, nc)
+    set_virtual_devices(4)
+    try:
+        kw = dict(max_bucket=1024, forest_precision=precision)
+        single = PredictorRuntime(packed, device=dev, **kw)
+        rts = {pol: PredictorRuntime(packed, mesh_devices=4,
+                                     shard_policy=pol, device=dev, **kw)
+               for pol in ("dp", "tp")}
+        tp_cpu = PredictorRuntime(packed, mesh_devices=4, shard_policy="tp",
+                                  device="cpu", **kw)
+        builds = []
+        real = kp.build_node_tables
+        kp.build_node_tables = lambda soa: (builds.append(1), real(soa))[1]
+        try:
+            for rt in (single, *rts.values()):
+                rt.warm()
+            warmed = len(builds)
+            for n in (1, 7, 64, 65, 300, 1024):
+                want = single.predict_binned(codes[:n], raw_score=True)
+                for pol, rt in rts.items():
+                    PREDICT_FOREST_LAUNCHES.reset()
+                    got = rt.predict_binned(codes[:n], raw_score=True)
+                    route = rt.route_for(bucket_for(n, 1024))
+                    shards = 4 if route != "single" else 1
+                    assert PREDICT_FOREST_LAUNCHES.count == shards * nc
+                    np.testing.assert_array_equal(
+                        got, want if pol == "dp" else tp_cpu.predict_binned(
+                            codes[:n], raw_score=True), err_msg=(pol, n))
+            for k in (1, 5, 20):
+                np.testing.assert_array_equal(
+                    rts["tp"].predict_binned(codes[:32], num_iteration=k,
+                                             raw_score=True),
+                    tp_cpu.predict_binned(codes[:32], num_iteration=k,
+                                          raw_score=True), err_msg=k)
+            assert len(builds) == warmed
+        finally:
+            kp.build_node_tables = real
+    finally:
+        set_virtual_devices(0)
+    shards, t_loc = rts["tp"]._tp_soa_parts()
+    bins = torch.from_numpy(codes[:512]).to(dev)
+    for d, soas_d in enumerate(shards):
+        for soa in soas_d:
+            t0, t1 = tp.tree_window(t_loc, 13, -d * t_loc)
+            got = kp.forest_sums(soa, bins, t0, t1, packed.depth_cap)
+            want = tp.forest_sums_plain(soa, bins, 13, packed.depth_cap,
+                                        -d * t_loc)
+            assert torch.equal(got, want), (d, t0, t1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("grower", ["wave", "strict"])
+def test_stream_dp_trees_equal_in_memory_mesh_on_card(grower, mode):
+    """Streamed data parallelism on 4 virtual shards of the card: 65,536 rows
+    in 8,192-row blocks (8 blocks, two a shard), every shard's block through
+    B1 (and B3 on the strict grower under psum), one merge a block-round,
+    grow the in-memory mesh's round-1 tree bit for bit on exact sums
+    (dyadic labels, l2; int8 against the streamed serial run: both quantize
+    per block) and the streamed plain path's."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.kernels.histogram import HIST_FUSED_LAUNCHES
+    from lightgbm_tpu_torch.kernels.split_iter import SPLIT_ITER_LAUNCHES
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+
+    dev = _card()
+    X, y = _stream_frame(n=65_536)
+    p = dict(objective="regression", num_leaves=31, max_bin=255,
+             learning_rate=0.5, min_data_in_leaf=20, hist_dtype=mode,
+             wave_tail="greedy", stream_block_rows=8_192, verbosity=-1,
+             tree_learner="data", histogram_merge="psum")
+    if grower == "strict":
+        p["grow_policy"] = "leafwise"
+    ds = lgb.Dataset(X, label=y, device=dev, params=dict(p)).construct()
+    sds = lgb.Dataset.from_blocks(
+        [(X[lo:lo + 8_192], y[lo:lo + 8_192])
+         for lo in range(0, len(X), 8_192)], params=dict(p), reference=ds)
+    set_virtual_devices(4)
+    try:
+        for c in (*HIST_FUSED_LAUNCHES.values(), SPLIT_ITER_LAUNCHES):
+            c.reset()
+        bs = lgb.train(p, sds, 1)
+        assert bs._mesh.n_devices == 4
+        assert all(sh.num_blocks == 2 for sh in bs._mesh.shards)
+        assert HIST_FUSED_LAUNCHES[mode].count % 8 == 0
+        if grower == "strict":
+            assert SPLIT_ITER_LAUNCHES.count == 30
+        plain = lgb.train(dict(p, hist_impl="plain"), sds, 1)
+        other = (lgb.train(dict(p, tree_learner="serial"), sds, 1)
+                 if mode == "int8" else lgb.train(p, ds, 1))
+    finally:
+        set_virtual_devices(0)
+    for b in (plain, other):
+        fa, fb = tree_to_arrays(b.trees[0]), tree_to_arrays(bs.trees[0])
+        for k in fa:
+            assert np.array_equal(fa[k], fb[k]), k
+        assert torch.equal(b._pred_train[:len(X)], bs._pred_train[:len(X)])
+
+
+@pytest.mark.gpu
+def test_stream_dp_kill_resume_on_card(tmp_path):
+    """A 4-shard streamed run killed after round index 1 of 3 and resumed
+    from its checkpoint on the card: the uninterrupted run's trees, scores
+    and bag bit for bit; resumed at D = 2 it keeps the first two trees."""
+    import os
+    import signal
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+    from lightgbm_tpu_torch.parallel import set_virtual_devices
+    from lightgbm_tpu_torch.training import resume_booster, train_resumable
+
+    dev = _card()
+    X, y = _stream_frame(n=65_536)
+    y = y + 0.25 * X[:, 2].astype(np.float32)
+    p = dict(objective="regression", num_leaves=31, max_bin=255,
+             learning_rate=0.3, min_data_in_leaf=20, verbosity=-1,
+             bagging_fraction=0.8, bagging_freq=1, stream_block_rows=8_192,
+             tree_learner="data")
+    ds = lgb.Dataset(X, label=y, device=dev, params=dict(p)).construct()
+
+    def sds():
+        return lgb.Dataset.from_blocks(
+            [(X[lo:lo + 8_192], y[lo:lo + 8_192])
+             for lo in range(0, len(X), 8_192)], params=dict(p),
+            reference=ds)
+
+    def kill(booster, i):
+        if i == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    set_virtual_devices(4)
+    try:
+        full = train_resumable(dict(p), sds(), 3, resume=False,
+                               checkpoint_dir=str(tmp_path / "full"))
+        cut = train_resumable(dict(p), sds(), 3, resume=False,
+                              checkpoint_dir=str(tmp_path / "kill"),
+                              round_callbacks=[kill])
+        again = train_resumable(dict(p), sds(), 3, resume=True,
+                                checkpoint_dir=str(tmp_path / "kill"))
+        set_virtual_devices(2)
+        two = resume_booster(cut.last_checkpoint, sds())
+        assert two._mesh.n_devices == 2
+    finally:
+        set_virtual_devices(0)
+    assert cut.preempted and cut.rounds_done == 2 and again.completed
+    a, b = full.booster, again.booster
+    assert len(a.trees) == len(b.trees) == 3
+    for ta, tb in zip(a.trees, b.trees):
+        fa, fb = tree_to_arrays(ta), tree_to_arrays(tb)
+        for k in fa:
+            assert np.array_equal(fa[k], fb[k]), k
+    assert torch.equal(a._pred_train, b._pred_train)
+    assert torch.equal(a._bag, b._bag)
+    for ta, tb in zip(a.trees[:2], two.trees):
+        assert np.array_equal(tree_to_arrays(ta)["leaf_value"],
+                              tree_to_arrays(tb)["leaf_value"])

@@ -196,8 +196,12 @@ def _corrupt(jpf, tmp_path):
 def test_runtime_contract_errors(binary):
     _, jpf = binary
     pf = to_port(jpf)
-    with pytest.raises(ValueError, match="later slice"):
+    # the serving mesh needs as many devices as it shards over (virtual
+    # shards: parallel.set_virtual_devices), and a power of two of them
+    with pytest.raises(ValueError, match="need 2 devices"):
         ts.PredictorRuntime(pf, mesh_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        ts.PredictorRuntime(pf, mesh_devices=3, device="cpu")
     with pytest.raises(ValueError, match="power of two"):
         ts.PredictorRuntime(pf, max_bucket=12, device="cpu")
     bad = dataclasses.replace(pf, split_bin=pf.split_bin.copy())

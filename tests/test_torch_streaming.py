@@ -20,9 +20,9 @@ sums, so
   gradients (round 1);
 * the streamed scope fences raise ``StreamScopeError`` with the
   reference's keys in the reference's order, ``tree_learner="feature"`` /
-  ``"voting"`` warns and streams serially, ``"data"`` stays refused by name
-  (ROADMAP item 12), and a streamed valid set, ``save_binary`` and
-  ``subset`` are refused;
+  ``"voting"`` warns and streams serially, as ``"data"`` does on one
+  device, and a streamed valid set, ``save_binary`` and ``subset`` are
+  refused;
 * streamed checkpoints interchange with the reference's in both directions
   (``streamed: true``, a ``padded_rows``-long ``pred_train``), a killed run
   resumes bit for bit, and ``init_model`` continues a streamed run bit for
@@ -250,8 +250,12 @@ def test_tree_learner_warns_and_streams_serially(learner):
         b = _streamed_booster(tree_learner=learner)
     b.update()
     assert len(b.trees) == 1
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        _streamed_booster(tree_learner="data")
+    # "data" composes with the block loop; on one device it warns and
+    # streams serially, as the reference does (test_torch_stream_dp.py
+    # covers the mesh)
+    with pytest.warns(UserWarning, match="only one device is visible"):
+        b = _streamed_booster(tree_learner="data")
+    assert b._mesh is None
 
 
 def test_streamed_refusals():

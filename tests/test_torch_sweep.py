@@ -14,9 +14,11 @@ against the reference's on the CPU.
   ledger holds the reference's iterations and its scores within rtol 1e-5;
   a corrupt unit checkpoint falls back to a clean restart and one of another
   sweep definition (grid digest) is discarded;
-* what is not ported raises by name: more than one device and resuming a
-  multi-device checkpoint; continuing a saved model in ``train_resumable``
-  (ported with continuation) trains on from the model file.
+* several devices: the plan's units, uids and device groups are the
+  reference scheduler's, and a 4-device sweep in groups of 2 writes the
+  single-device ledger, its buckets carrying the plan's groups;
+* a multi-device checkpoint resumes under the elastic gate; continuing a
+  saved model in ``train_resumable`` trains on from the model file.
 """
 
 import hashlib
@@ -131,6 +133,53 @@ def test_fault_before_commit_resumes_to_same_ledger(swept, data, tmp_path):
     assert done.rows == got.rows
 
 
+def _plan_of(svc, ds, **kw):
+    plan = svc.scheduler.plan(svc._parsed(), ds, n_devices=svc.n_devices,
+                              group_size=svc.group_size, **kw)
+    return (plan.n_devices, plan.group_size, plan.n_groups,
+            [(u.uid, u.config_indices, u.group) for u in plan.units])
+
+
+@pytest.mark.parametrize("n_devices,group_size,hyper_batch",
+                         [(2, 1, 36), (4, 2, 1), (8, 2, 3), (8, 8, 2)])
+def test_multi_device_plan_matches_reference(data, n_devices, group_size,
+                                             hyper_batch):
+    """The scheduler's greedy LPT over device groups: the same units, uids
+    and groups as the reference's, on a grid whose buckets split into
+    several hyper-batches, with and without rows already done."""
+    X, y, pd = data
+    grid = expand_grid(learning_rate=[0.3, 0.1], num_leaves=[7, 15, 31],
+                       min_data_in_leaf=[20, 40])
+    kw = dict(base_params=BASE, n_devices=n_devices, group_size=group_size,
+              hyper_batch=hyper_batch)
+    ours = SweepService(grid, pd, **kw)
+    ref = RSweepService(grid, R.Dataset(X, label=y), **kw)
+    for done in ((), (0, 5, 6)):
+        assert _plan_of(ours, pd, done=done) == _plan_of(
+            ref, ref.train_set, done=done)
+
+
+def test_multi_device_sweep_ledger_groups(swept, data):
+    """``n_devices=4, group_size=2`` runs the same units one after another:
+    every ledger row is the single-device run's, the plan stats name two
+    groups, and each bucket's ``group`` is the reference plan's."""
+    X, y, pd = data
+    _, got, _ = swept
+    kw = {k: v for k, v in KW.items() if k != "verbose"}
+    res = SweepService(_grid(), pd, base_params=BASE, n_devices=4,
+                       group_size=2, **kw).run()
+    assert not res.preempted
+    assert res.ledger.rows == got.rows
+    stats = res.stats
+    assert stats["plan"] == {"units": 2, "n_groups": 2, "group_size": 2}
+    ref = RSweepService(_grid(), R.Dataset(X, label=y), base_params=BASE,
+                        n_devices=4, group_size=2)
+    want = {u.uid: u.group for u in ref.scheduler.plan(
+        ref._parsed(), ref.train_set, n_devices=4, group_size=2).units}
+    assert {b["uid"]: b["group"] for b in stats["buckets"]} == want
+    assert sorted(want.values()) == [0, 1]
+
+
 def test_expand_grid_and_digest_match_reference():
     from lightgbm_tpu.sweep.ledger import expand_grid as r_expand
     from lightgbm_tpu.sweep.ledger import grid_digest as r_digest
@@ -168,9 +217,13 @@ def test_not_ported_options_raise_by_name(data, tmp_path):
     with pytest.raises(IncompatibleCheckpointError, match="merge_mode"):
         resume_booster((arrays, meta), pd,
                        params={"histogram_merge": "reduce_scatter"})
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        SweepService(_grid(), pd, base_params=BASE, n_devices=2,
-                     group_size=1).run()
+    # a sweep over several devices is planned over device groups (the
+    # plan: test_multi_device_plan_matches_reference); a group size that
+    # does not divide the devices raises by name
+    svc = SweepService(_grid(), pd, base_params=BASE, n_devices=2,
+                       group_size=1)
+    with pytest.raises(ValueError, match="group_size"):
+        svc.scheduler.plan(svc._parsed(), pd, n_devices=2, group_size=3)
 
 
 # -- carry checkpoints: kill-anywhere parity ---------------------------------
