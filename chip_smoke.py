@@ -31,7 +31,7 @@ Phases:
    CLI's ``_serve`` on in-memory streams;
 4. each kernel against its plain version once more, bit for bit, on the
    main path's own tables and binned ``make_higgs_like`` rows at every
-   bucket of the ladder; then times on the card (CUDA events, median of 25
+   bucket of the ladder; then times on the card (CUDA events, median of 5
    runs of 10 back-to-back launches queued behind a spin kernel) of each
    kernel and its plain version at every bucket, with the kernel's bound
    (bytes or operations) and its walk bound (the node visits' two
@@ -86,8 +86,9 @@ Phases:
    apart by at most 1e-4, the dyadic round-1 trees equal, and a profiled
    strict round (device ms per round, B1's share); (b) ``cv()`` as
    examples/gridsearch_cv.py calls it (diamonds, 1,000 rounds, 5 folds,
-   rmse, early stopping 5) through the kernels and the plain versions,
-   ``best_iter`` equal, ``best_score`` within 1e-5 relative; (c)
+   rmse, early stopping 5) through the kernels, and through the plain
+   versions for its first 40 rounds: every fold-mean RMSE within 1e-5
+   relative of the kernel run's, the best of those rounds equal; (c)
    ``run_grid_search`` over the 36 learning_rate=0.1 rows of the 108-config
    grid (six buckets), with per-bucket seconds and rounds, configs per hour
    and the top 3; a profiled fused round at num_leaves 127, E = 40; B6's
@@ -179,7 +180,7 @@ Phases:
    100); B1, B6, B3 and B4 at F = 1 against their plain versions once; (b)
    an rf forest at the north star (``make_higgs_like(1,000,000)``, binary,
    127 leaves, 255 bins, ``bagging_fraction=0.632``, ``bagging_freq=1``,
-   ``feature_fraction_bynode=5/28``; 10 trees on the wave grower, B1 roots
+   ``feature_fraction_bynode=5/28``; 6 trees on the wave grower, B1 roots
    and B2 waves at bf16) through the kernels and the plain versions in
    turns: held-out AUC within 1e-4, the dyadic first tree equal, no host
    sync from drawing the mask tables (PyTorch's sync debug mode), a round's
@@ -205,7 +206,7 @@ Phases:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host read); (b) the
    regression family on examples/gridsearch_cv.py's diamonds split with
    the price in dollars and the example's untuned call (learning rate
-   0.1, cut to 20 rounds): huber, fair, poisson, gamma, tweedie, mape,
+   0.1, cut to 8 rounds): huber, fair, poisson, gamma, tweedie, mape,
    cross_entropy (price over the largest price) and a custom ``fobj``
    (l2 in arithmetic operators) through the kernels and the plain
    versions, the held-out metric within 1e-5 relative; each model packed
@@ -213,7 +214,7 @@ Phases:
    or sigmoid link) within 1e-5 (relative past 1) of ``Booster.predict``,
    the custom model refused as the reference refuses it; (c) fused
    ``cv()`` with ``regression_l1`` on phase 8's diamonds Dataset (5 folds,
-   l1, early stopping 5, at most 100 rounds: B6, B3; no renewal, as the
+   l1, early stopping 5, at most 8 rounds: B6, B3; no renewal, as the
    reference's fused program): ``best_iter`` equal, ``best_score`` within
    1e-5 relative; (d) ``hist_dtype="bf16sr"`` at the north star, 10 rounds:
    ``sr_round_bf16`` on the card bit-equal to the CPU's on the root
@@ -222,7 +223,7 @@ Phases:
 16. GOSS and DART at LightGBM's defaults, every launch counter at 0 just
    before each run and read just after: (a) GOSS at the north star
    (``top_rate`` 0.2, ``other_rate`` 0.1: 300,000 compacted rows, f32
-   under "auto", B1 roots and B2 waves), 6 rounds through the kernels and
+   under "auto", B1 roots and B2 waves), 4 rounds through the kernels and
    the plain versions in turns beside the gbdt round: the selected rows
    and weights of every round equal on both paths, the card's selection
    equal to the CPU's on the same gradients and run under
@@ -273,14 +274,14 @@ Phases:
    held-out queries from ``default_rng(5)``, per-query feature offsets,
    top-heavy labels 0-4; ``lambdarank``, 63 leaves, learning rate 0.1,
    ``min_data_in_leaf`` 20, 255 bins, bf16, truncation at the query depth;
-   the wave grower with the exact tail: B1 roots, B2 waves), 15 rounds
+   the wave grower with the exact tail: B1 roots, B2 waves), 6 rounds
    through the kernels and the plain versions in turns: held-out NDCG@10
    within 1e-4, the round-1 trees equal (a near tie is recorded), host
    syncs per round, the lambda pass's device ms and launches, a profiled
    round, 20,000 held-out rows served by B4 within 1e-5 of
-   ``Booster.predict``; (b) 2,500 ragged queries of 20-220 documents
-   (about 300,000 rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
-   10 rounds each path: the lambda pass's gather/scatter route over
+   ``Booster.predict``; (b) 1,500 ragged queries of 20-220 documents
+   (about 180,000 rows x 136, MSLR-WEB30K's mean depth) with (a)'s recipe,
+   6 rounds each path: the lambda pass's gather/scatter route over
    several query chunks with no host read (sync debug mode "error"),
    training NDCG@10 within 1e-4; (c) group-aware ``cv()`` at the reference
    test's ``make_ranked`` shape (40 queries of 8-24 documents, 6 features,
@@ -293,7 +294,7 @@ Phases:
    bit for bit as the uninterrupted run;
 19. constraints and randomized splits, every launch counter at 0 just
    before each run and read just after: (a) the north star with
-   ``monotone_constraints`` +1 on columns 6 and 14 and -1 on column 17, 10
+   ``monotone_constraints`` +1 on columns 6 and 14 and -1 on column 17, 6
    rounds through the kernels and the plain versions (B1 roots, B2 waves,
    no plain-version call on the kernel path): AUC on
    ``make_higgs_like(200,000, seed=9)`` within 1e-4, the round-1 trees on a
@@ -302,11 +303,11 @@ Phases:
    column with the raw score never moving against the sign, exactly, on
    both paths; seconds a round beside phase 6's unconstrained round and
    against unconstrained rounds in turns, a profiled round; (b)
-   ``extra_trees`` at the north star, 10 rounds: the rand-bin table of
+   ``extra_trees`` at the north star, 6 rounds: the rand-bin table of
    every round drawn on the card equal to the CPU's bit for bit, the dyadic
    round-1 trees equal, AUC within 1e-4, no host-sync site and no more
    syncs beyond the one per wave than an unconstrained round; (c)
-   ``interaction_constraints`` of four groups of seven columns, 10 rounds:
+   ``interaction_constraints`` of four groups of seven columns, 6 rounds:
    no root-to-leaf path across groups, the dyadic round-1 trees equal, AUC
    within 1e-4; (d) examples/advanced_features.py's monotone call (seed 7,
    4,000 training rows, ``[1, -1, 0, 0, 0]``, 60 rounds) as called (its
@@ -319,7 +320,7 @@ Phases:
    within 1e-5 of ``Booster.predict``.
 20. linear leaves and introspection, every launch counter at 0 just
    before each run and read just after: (a) ``linear_tree=True`` at the
-   north star (``enable_bundle=False``), 10 rounds through the kernels and
+   north star (``enable_bundle=False``), 6 rounds through the kernels and
    the plain versions in turns (B1 roots, B2 waves, then the ridge fit in
    plain PyTorch; no plain-version call on the kernel path): AUC on
    ``make_higgs_like(200,000, seed=9)`` within 1e-4, the dyadic round-1
@@ -370,7 +371,7 @@ Phases:
 22. out-of-core training, every launch counter at 0 just before each run
    and read just after: (a) the north star streamed (``Dataset.from_blocks``
    over phase 6's rows in 131,072-row blocks with ``reference=`` phase 6's
-   Dataset: 8 blocks, the tail padded), 10 bf16 rounds on the wave grower
+   Dataset: 8 blocks, the tail padded), 6 bf16 rounds on the wave grower
    through the kernels, through the plain versions and in memory, in
    turns: AUC within 1e-4 of in memory and of plain, B1 launched once per
    block of every pass (the root and each wave, after the plain routing;
@@ -397,7 +398,7 @@ Phases:
    binned by another sketch refused by ``resume_booster`` (its schema
    digest) and by ``Booster(model_file).update``; (e) EMA screening at the
    reference bench's width (136 columns, 16 informative, keep 0.25,
-   refresh 10; 100,000 rows, 20 rounds) in memory and streamed: AUC drift
+   refresh 10; 100,000 rows, 12 rounds) in memory and streamed: AUC drift
    against screen-off within 1e-4, ``screen_refresh_rounds=1`` bit for bit
    as screen-off, every screened pass moving ``F_active`` columns and every
    refresh pass ``F``;
@@ -406,7 +407,7 @@ Phases:
    cards), every launch counter at 0 just before each run and read just
    after: (a) ``tree_learner="data"`` at the north star (the default
    ``reduce_scatter_pipelined`` merge, 4 chunks, f32 wire, bf16
-   histograms, 10 rounds) in turns with serial and with the plain
+   histograms, 6 rounds) in turns with serial and with the plain
    versions: B1 4 times a root and B2 4 times a wave, AUC within 1e-4 of
    both, split structure equal to serial's (a near tie allowed) and the
    leaves within rtol 1e-5 / atol 1e-6, the dyadic round-1 tree equal to
@@ -449,7 +450,7 @@ Phases:
    serve mesh_devices=4`` in a subprocess under
    ``LIGHTGBM_TPU_TORCH_VIRTUAL_DEVICES=4``; (b) streamed data
    parallelism — phase 22a's store (8 blocks, 2 a shard) with
-   ``tree_learner="data"``, 10 rounds in turns with serial streaming and
+   ``tree_learner="data"``, 4 rounds in turns with serial streaming and
    the in-memory mesh: AUC within 1e-4 of both, B1 once per block of
    every pass (no B2), each shard streaming a quarter of serial's bytes,
    at most 4 · (``prefetch_blocks`` + 1) block buffers, the dyadic
@@ -463,6 +464,38 @@ Phases:
    sweep sweep_devices=4 sweep_group_size=2`` in a subprocess: both
    ledger files byte-equal to 13c's single-device ledger, the plan's two
    groups recorded per bucket.
+25. the production loop, every launch counter at 0 just before each run
+   and read just after: (a) the refresh daemon (``pipeline.RefreshDaemon``
+   on the wall clock) over phase 6's rows arriving as 131,072-row blocks:
+   generation 1 the first 5 blocks and 10 rounds, generations 2-4 a block
+   each (the last the padded tail) and 5 rounds, phase 6's params, a
+   checkpoint every 2 rounds; once with a fault at ``continue_train``
+   (generation 2, preempted after its round-14 checkpoint and retried from
+   it), ``artifact_push`` (generation 3, poisoned NaN leaves rejected at
+   ingest while generation 2 serves) and ``flip`` (generation 4, rolled
+   back, generation 3 serving and anchoring), once without: every
+   artifact of the faulted run equal to the control run's bit for bit,
+   generation 2 equal to ``train_resumable(init_model=<generation 1>)``
+   by hand, every flip's served scores on 16,384 held-out rows within
+   1e-5 of ``Booster(model_file=...).predict`` (B4), generation 1
+   through the plain versions within AUC 1e-4; per generation the
+   staleness, its legs (wait, train, publish, deploy, flip) and the
+   train leg's CUDA-event ms; (b) a retune on the diamonds split
+   (16,384-row blocks): 4 configs of ``paramGrid.json``'s learning_rate
+   0.1 rows at the workflow's ``cv()`` arguments (5 folds, 1,000 rounds,
+   early stopping 5; B6, B3), a ``sweep_promote`` fault, the retry
+   launching no sweep kernel and promoting the ledger's best, the ledger
+   equal to a ``SweepService`` run by hand, the winner served within 1e-5,
+   B6 + B3 equal to their plain versions on exact sums; (c) ``python -m
+   lightgbm_tpu_torch task=refresh`` in a subprocess over 2 north-star
+   blocks (``g0001``), then again with a third (re-anchored, ``g0002``),
+   the summaries and the served scores checked; (d) ``profile_training``
+   at the north star (10 rounds, CUDA events, a trace under ``build/``):
+   every key, the timed rounds equal to ``lgb.train``'s bit for bit, a
+   histogram pass one B1 launch, a tree one B1 and one B2 a wave, both
+   equal to their plain versions on the profile's exact statistics; (e)
+   the ``*_card`` launch budgets in a fresh process, each between its
+   floor and its ceiling.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -522,6 +555,9 @@ CLI_ROWS, CLI_TEST_ROWS, CLI_SERVE_ROWS = 200_000, 20_000, 256
 SWEEP_SEED = 3928272
 CV_PARAMS = {"learning_rate": 0.1, "objective": "regression"}
 CV_ROUNDS, CV_FOLDS, CV_ES = 1000, 5, 5
+# 8b's plain cv() runs this many rounds (the kernel run's early stopping
+# ends near 139) and is held to the kernel run's first rounds
+CV_PLAIN_ROUNDS = 40
 SEGSTATS_KC = (15, 30, 120, 240, 1080)
 STRICT_ROUNDS = 3
 STRICT_LATE_ROWS = 5_000      # phase 5/6: a late strict call's rows at most
@@ -531,6 +567,9 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": NUM_LEAVES,
                 "learning_rate": LEARNING_RATE, "min_data_in_leaf": 20,
                 "max_bin": MAX_BIN, "verbosity": -1}
 TRAIN_ROUNDS, VALID_ROWS, AUC_TOL = 10, 200_000, 1e-4
+# phases 19a-c, 20a, 22a and 23a train the north star for this many rounds
+# a run (10 until phase 25 needed the time; every check is relative)
+LATE_ROUNDS = 6
 # phase 6's limit: medians of this many kernel/plain run pairs, in turns
 TIMING_PAIRS = 3
 # phase 10: cv() at the north star in the wave regime (rounds cut from the
@@ -584,7 +623,7 @@ BB_TPU_STAGED_RMSE = {1: 0.5196, 20: 0.3567, 50: 0.1977, 100: 0.075,
 # the rf north star: sklearn's "sqrt" of 28 columns per split
 RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.632,
                  bagging_freq=1, feature_fraction_bynode=5 / 28)
-RF_TREES, RF_SERVE_ROWS, SYNC_ROUNDS = 10, 16_384, 3
+RF_TREES, RF_SERVE_ROWS, SYNC_ROUNDS = 6, 16_384, 3   # 14b: 10 until phase 25
 BYNODE_CV_PARAMS = dict(CV_PARAMS, feature_fraction_bynode=0.5)
 # 14c's rounds, cut from phase 8b's 1,000 (early stopping found 301): the
 # unfused body's split scan runs in plain ops, 5-9 ms a split iteration
@@ -602,13 +641,13 @@ FAMILY_METRIC = {"fair": "l1", "custom": "l2"}
 # the example's rounds cut to 12 on both paths (the plain versions are
 # launch-bound at 45,957 rows; 100 until phase 20 needed the time, 60
 # until phase 23 did, 30 until phase 24 did, 20 until 13c's and 24c's sweeps took back their early-stopped rounds)
-FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 12, 16_384
+FAMILY_ROUNDS, FAMILY_SERVE_ROWS = 8, 16_384   # 15b/c: 12 until phase 25
 # phase 16: GOSS and DART at LightGBM's defaults (top_rate 0.2, other_rate
 # 0.1; drop_rate 0.1, max_drop 50, skip_drop 0.5)
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
                    other_rate=0.1)
 # 16a's rounds on each path in turns: 6 (10 until phase 24 needed the time)
-GOSS_ROUNDS, GOSS_SERVE_ROWS, MC_GOSS_ROUNDS = 6, 16_384, 3
+GOSS_ROUNDS, GOSS_SERVE_ROWS, MC_GOSS_ROUNDS = 4, 16_384, 3   # 16a: 6 until phase 25
 DART_PARAMS = dict(TRAIN_PARAMS, boosting="dart", drop_rate=0.1,
                    max_drop=50, skip_drop=0.5)
 # 12 rounds (30 until phase 24 needed the time, 20 until 13c's and 24c's sweeps took back their early-stopped rounds)
@@ -651,17 +690,17 @@ MSLR_QUERIES, MSLR_VALID_QUERIES, MSLR_DOCS, MSLR_FEATURES = 1000, 200, 100, \
 # 18a's rounds on both paths in turns: 10 (50 until phase 23 needed the
 # time, 25 until phase 24 did, 15 until 13c's and 24c's sweeps took back
 # their early-stopped rounds)
-MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 10, 5, 10, 1e-4
+MSLR_ROUNDS, MSLR_SEED, NDCG_K, RANK_TOL = 6, 5, 10, 1e-4   # 18a: 10 until phase 25
 MSLR_PARAMS = {"objective": "lambdarank", "num_leaves": 63,
                "learning_rate": 0.1, "min_data_in_leaf": 20,
                "hist_dtype": "bf16", "lambdarank_truncation_level": MSLR_DOCS,
                "max_bin": MAX_BIN, "eval_at": [NDCG_K], "verbosity": -1}
 # 18b: ragged queries at MSLR-WEB30K's mean depth (3,771,125 documents over
-# 31,531 queries: about 120 a query); 2,500 of them, about 300,000 rows
-# (10,000 until phase 23 needed the time, 5,000 until phase 24 did: host
-# binning is most of 18b)
-RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 2_500, (20, 221), \
-    10, 120
+# 31,531 queries: about 120 a query); 1,500 of them, about 180,000 rows
+# (10,000 until phase 23 needed the time, 5,000 until phase 24 did, 2,500
+# and 10 rounds until phase 25 did: host binning is most of 18b)
+RAGGED_QUERIES, RAGGED_DOCS, RAGGED_ROUNDS, RAGGED_DEPTH = 1_500, (20, 221), \
+    6, 120
 # 18c: the reference test's make_ranked shape in a group-aware cv()
 RANK_CV_QUERIES, RANK_CV_FOLDS, RANK_CV_ES, RANK_CV_ROUNDS, RANK_CV_SEED = \
     40, 3, 5, 30, 7
@@ -995,7 +1034,7 @@ def phase_main_path(precision, X, path, path2):
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
-def time_ms(fn, runs=9, inner=10):
+def time_ms(fn, runs=5, inner=10):
     """Device ms per call: median over ``runs`` of CUDA events around
     ``inner`` back-to-back calls.  A spin kernel enqueued first keeps the
     card busy while the host enqueues the calls, so the events time the
@@ -2094,14 +2133,17 @@ def phase_cv(dev):
     Xd, yd = diamonds_split()
     ds = lgb.Dataset(Xd, label=yd)
     ds.construct()
-    res = {}
-    for tag, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
+    res, hist = {}, {}
+    for tag, extra, cap in (("kernels", {}, CV_ROUNDS),
+                            ("plain", {"hist_impl": "plain"},
+                             CV_PLAIN_ROUNDS)):
         fit, secs, counts, plain_calls = counted_run(
             lambda: lgb.cv(dict(CV_PARAMS, **extra), ds,
-                           num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                           num_boost_round=cap, nfold=CV_FOLDS,
                            metrics="rmse", early_stopping_rounds=CV_ES,
                            stratified=False, seed=SWEEP_SEED))
-        rounds = len(fit["valid rmse-mean"])
+        hist[tag] = np.asarray(fit["valid rmse-mean"], np.float64)
+        rounds = len(hist[tag])
         res[tag] = {"best_iter": fit.best_iter, "best_score": fit.best_score,
                     "s": secs, "counts": counts, "plain_calls": plain_calls,
                     "history_len": rounds}
@@ -2116,10 +2158,17 @@ def phase_cv(dev):
           "the cv kernel path")
     check(np.isfinite(k["best_score"]) and k["best_score"] < 0,
           f"cv best_score {k['best_score']}")
-    check(k["best_iter"] == p["best_iter"],
-          f"cv best_iter kernel {k['best_iter']} vs plain {p['best_iter']}")
-    rel = abs(k["best_score"] - p["best_score"]) / abs(p["best_score"])
-    check(rel <= 1e-5, f"cv best_score kernel vs plain: rel {rel:.2e}")
+    # the plain run against the kernel run's first CV_PLAIN_ROUNDS rounds:
+    # every fold-mean RMSE within 1e-5 relative, the best round equal
+    n = p["history_len"]
+    head = hist["kernels"][:n]
+    check(k["history_len"] > n == CV_PLAIN_ROUNDS,
+          f"cv rounds kernel {k['history_len']} plain {n}")
+    rel = float(np.max(np.abs(head - hist["plain"]) / hist["plain"]))
+    check(rel <= 1e-5, f"cv fold-mean RMSE kernel vs plain: rel {rel:.2e}")
+    check(int(np.argmin(head)) + 1 == p["best_iter"],
+          f"cv best round of the first {n}: kernel "
+          f"{int(np.argmin(head)) + 1} vs plain {p['best_iter']}")
     res["best_score_rel_diff"] = rel
     res["rounds_run"] = min(k["best_iter"] + CV_ES, CV_ROUNDS)
     return res, ds
@@ -5149,7 +5198,7 @@ def phase_rank_mslr(dev, workdir, launches):
 
 
 def phase_rank_ragged(dev, launches):
-    """18b: 2,500 ragged queries (20-220 documents) with 18a's feature and
+    """18b: 1,500 ragged queries (20-220 documents) with 18a's feature and
     label recipe: the gather/scatter route of the lambda pass over several
     query chunks, kernel and plain paths."""
     import lightgbm_tpu_torch as lgb
@@ -5461,22 +5510,22 @@ def dyadic_label(X, seed):
 
 
 def constrained_runs(lgb, ds, params, dsd, tag, launches, Xv, yv, dev):
-    """One option at the north star: kernel and plain paths (10 rounds
+    """One option at the north star: kernel and plain paths (6 rounds
     each, the kernel path first), AUC, and the dyadic round-1 trees and
     overgrown tables (bounds included) of both paths."""
     runs, boosters = {}, {}
     for path, extra in (("kernels", {}), ("plain", {"hist_impl": "plain"})):
         b, secs, counts, plain = counted_run(
-            lambda: lgb.train(dict(params, **extra), ds, TRAIN_ROUNDS))
-        runs[path] = {"s_per_round": secs / TRAIN_ROUNDS, "counts": counts,
+            lambda: lgb.train(dict(params, **extra), ds, LATE_ROUNDS))
+        runs[path] = {"s_per_round": secs / LATE_ROUNDS, "counts": counts,
                       "plain_calls": plain, "auc": auc(b, Xv, yv, dev)}
         boosters[path] = b
-        log(f"phase {tag} {path}: {TRAIN_ROUNDS} rounds in {secs:.2f} s, "
+        log(f"phase {tag} {path}: {LATE_ROUNDS} rounds in {secs:.2f} s, "
             f"AUC {runs[path]['auc']:.6f}, launches {json.dumps(counts)}, "
             f"plain calls {plain}")
     k = runs["kernels"]
-    check(k["counts"]["hist_fused_bf16"] == TRAIN_ROUNDS
-          and k["counts"]["hist_partition_bf16"] > TRAIN_ROUNDS
+    check(k["counts"]["hist_fused_bf16"] == LATE_ROUNDS
+          and k["counts"]["hist_partition_bf16"] > LATE_ROUNDS
           and k["plain_calls"] == 0 and k["counts"]["split_iter"] == 0,
           f"{tag} kernel path (B1 roots, B2 waves): launches {k['counts']},"
           f" plain calls {k['plain_calls']}")
@@ -5535,8 +5584,8 @@ def phase_mono_north_star(dev, ds, dsd, Xv, yv, workdir, launches,
     turns = {"unconstrained": [], "monotone": []}
     for tag in ("unconstrained", "monotone", "monotone", "unconstrained"):
         p = params if tag == "monotone" else TRAIN_PARAMS
-        secs = counted_run(lambda: lgb.train(p, ds, TRAIN_ROUNDS))[1]
-        turns[tag].append(secs / TRAIN_ROUNDS)
+        secs = counted_run(lambda: lgb.train(p, ds, LATE_ROUNDS))[1]
+        turns[tag].append(secs / LATE_ROUNDS)
     out["s_per_round_in_turns"] = turns
     out["round_breakdown"] = profile_rounds(lgb, ds, params,
                                             tag="phase 19a")
@@ -5577,7 +5626,7 @@ def phase_extra_trees_north_star(dev, ds, dsd, Xv, yv, launches):
         b.params, int(ds.row_mask.shape[0])))
     cap = 2 * max(NUM_LEAVES + 1, int(over or 0)) - 1
     colb = torch.tensor(extra_trees_col_bins(ds.bin_mapper))
-    keys = [b._round_key(i) for i in range(TRAIN_ROUNDS)]
+    keys = [b._round_key(i) for i in range(LATE_ROUNDS)]
     card = rand_bin_table(key_tensor(keys, dev), NUM_FEATURES, MAX_BIN + 1,
                           colb.to(dev), cap)
     cpu = rand_bin_table(key_tensor(keys, "cpu"), NUM_FEATURES,
@@ -5802,16 +5851,24 @@ def phase_constraints(dev, X, y, Xc, yc, workdir, card, unconstrained):
 def event_timed(module, name, fn):
     """``fn()`` with CUDA events around every call of ``module.name``:
     (result, median event ms per call, calls)."""
+    out, ms = calls_event_ms(module, name, fn)
+    return out, (float(np.median(ms)) if ms else 0.0), len(ms)
+
+
+def calls_event_ms(module, name, fn):
+    """``fn()`` with CUDA events around every call of ``module.name``:
+    (result, the event ms of each call in order)."""
     orig, pairs = getattr(module, name), []
 
     def timed(*a, **k):
         s, e = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         s.record()
-        out = orig(*a, **k)
-        e.record()
-        pairs.append((s, e))
-        return out
+        try:
+            return orig(*a, **k)
+        finally:
+            e.record()
+            pairs.append((s, e))
 
     setattr(module, name, timed)
     try:
@@ -5819,12 +5876,11 @@ def event_timed(module, name, fn):
         torch.cuda.synchronize()
     finally:
         setattr(module, name, orig)
-    ms = [s.elapsed_time(e) for s, e in pairs]
-    return out, (float(np.median(ms)) if ms else 0.0), len(ms)
+    return out, [s.elapsed_time(e) for s, e in pairs]
 
 
 def phase_linear_north_star(dev, X, y, Xv, yv, launches, constant_s):
-    """20a: linear leaves at the north star, 10 rounds through the kernels
+    """20a: linear leaves at the north star, 6 rounds through the kernels
     and the plain versions in turns (B1 roots, B2 waves, then the fit)."""
     import lightgbm_tpu_torch as lgb
     import lightgbm_tpu_torch.models.gbdt as G
@@ -5841,26 +5897,26 @@ def phase_linear_north_star(dev, X, y, Xv, yv, launches, constant_s):
         if path in runs:
             # the second of each pair is timed only
             secs = counted_run(lambda: lgb.train(
-                dict(params, **extra), ds, TRAIN_ROUNDS))[1]
-            runs[path]["s_per_round_turns"].append(secs / TRAIN_ROUNDS)
+                dict(params, **extra), ds, LATE_ROUNDS))[1]
+            runs[path]["s_per_round_turns"].append(secs / LATE_ROUNDS)
             continue
         (b, fit_ms, fits), secs, counts, plain = counted_run(
             lambda: event_timed(G, "fit_linear_leaves", lambda: lgb.train(
-                dict(params, **extra), ds, TRAIN_ROUNDS)))
-        runs[path] = {"s_per_round": secs / TRAIN_ROUNDS,
-                      "s_per_round_turns": [secs / TRAIN_ROUNDS],
+                dict(params, **extra), ds, LATE_ROUNDS)))
+        runs[path] = {"s_per_round": secs / LATE_ROUNDS,
+                      "s_per_round_turns": [secs / LATE_ROUNDS],
                       "counts": counts, "plain_calls": plain,
                       "fit_event_ms_per_round": fit_ms, "fits": fits,
                       "auc": auc(b, Xv, yv, dev)}
         boosters[path] = b
-        log(f"phase 20a {path}: {TRAIN_ROUNDS} rounds in {secs:.2f} s, "
+        log(f"phase 20a {path}: {LATE_ROUNDS} rounds in {secs:.2f} s, "
             f"AUC {runs[path]['auc']:.6f}, fit {fit_ms:.3f} event ms a "
             f"round, launches {json.dumps(counts)}, plain calls {plain}")
     k = runs["kernels"]
-    check(k["counts"]["hist_fused_bf16"] == TRAIN_ROUNDS
-          and k["counts"]["hist_partition_bf16"] > TRAIN_ROUNDS
+    check(k["counts"]["hist_fused_bf16"] == LATE_ROUNDS
+          and k["counts"]["hist_partition_bf16"] > LATE_ROUNDS
           and k["plain_calls"] == 0 and k["counts"]["split_iter"] == 0
-          and k["fits"] == TRAIN_ROUNDS,
+          and k["fits"] == LATE_ROUNDS,
           f"20a kernel path (B1 roots, B2 waves): launches {k['counts']}, "
           f"plain calls {k['plain_calls']}, fits {k['fits']}")
     check(sum(v for n, v in runs["plain"]["counts"].items()
@@ -5895,11 +5951,11 @@ def phase_linear_north_star(dev, X, y, Xv, yv, launches, constant_s):
           f"20a: the linear round adds host syncs {syncs}")
     # the constant-leaf counterpart (TreeSHAP and introspection run on it)
     const, const_s, _, _ = counted_run(
-        lambda: lgb.train(TRAIN_PARAMS, ds, TRAIN_ROUNDS))
+        lambda: lgb.train(TRAIN_PARAMS, ds, LATE_ROUNDS))
     out = {"s_per_round": {p: r["s_per_round"] for p, r in runs.items()},
            "s_per_round_turns": {p: r["s_per_round_turns"]
                                  for p, r in runs.items()},
-           "constant_s_per_round": const_s / TRAIN_ROUNDS,
+           "constant_s_per_round": const_s / LATE_ROUNDS,
            "phase6_constant_s_per_round": constant_s,
            "fit_event_ms_per_round": {p: r["fit_event_ms_per_round"]
                                       for p, r in runs.items()},
@@ -6033,20 +6089,20 @@ def phase_shap_and_introspection(dev, const, Xv, launches):
     leaf_s = time.perf_counter() - t0
     leaves_equal = bool(np.array_equal(
         leaves, const_cpu.predict(leaf_rows, pred_leaf=True)))
-    check(leaves_equal and leaves.shape == (LEAF_ROWS, TRAIN_ROUNDS)
+    check(leaves_equal and leaves.shape == (LEAF_ROWS, LATE_ROUNDS)
           and leaves.max() < NUM_LEAVES,
           f"20d: pred_leaf differs from the CPU's ({leaves.shape})")
     dump_equal = const.dump_model() == const_cpu.dump_model()
     dot_equal = all(lgb.create_tree_digraph(const, tree_index=i)
                     == lgb.create_tree_digraph(const_cpu, tree_index=i)
-                    for i in (0, TRAIN_ROUNDS - 1))
+                    for i in (0, LATE_ROUNDS - 1))
     check(dump_equal and dot_equal,
           f"20d: dump_model equal {dump_equal}, DOT text equal {dot_equal}")
     out = {"example": {"rows": SHAP_EXAMPLE_ROWS, "s": ex_s,
                        "additivity": add, "max_abs_card_minus_cpu": d_cpu,
                        "mean_abs_shap": mean_abs.tolist()},
            "north_star": {"rows": SHAP_NORTH_STAR_ROWS, "trees":
-                          TRAIN_ROUNDS, "s": ns_s, "additivity": ns_add,
+                          LATE_ROUNDS, "s": ns_s, "additivity": ns_add,
                           "peak_bytes_above_base": int(peak),
                           "launches": counts},
            "pred_leaf": {"rows": LEAF_ROWS, "s": leaf_s,
@@ -6489,7 +6545,7 @@ STREAM_RECOVERY_ROUNDS, STREAM_KILL_AFTER, STREAM_CONT_ROUNDS = 6, 2, 5
 # 22e: the reference's screening bench width (tools/bench_screening.py:
 # 136 columns, 16 informative, keep 0.25, refresh every 10)
 SCREEN_F, SCREEN_INFORMATIVE, SCREEN_ROWS = 136, 16, 100_000
-SCREEN_ROUNDS, SCREEN_BLOCK, SCREEN_DRIFT = 20, 32_768, 1e-4
+SCREEN_ROUNDS, SCREEN_BLOCK, SCREEN_DRIFT = 12, 32_768, 1e-4   # 20 until phase 25
 SCREEN_BASE = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.2,
                "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
                "seed": 7}
@@ -6561,7 +6617,7 @@ def phase_stream_north_star(dev, X, y, ds, Xv, yv, launches):
     def streamed(extra):
         def go():
             b = lgb.Booster(dict(STREAM_PARAMS, **extra), sds)
-            return b, streamed_rounds(b, store, TRAIN_ROUNDS)
+            return b, streamed_rounds(b, store, LATE_ROUNDS)
         (b, per), secs, counts, plain = counted_run(go)
         return {"booster": b, "per_round": per, "s": secs, "counts": counts,
                 "plain_calls": plain}
@@ -6570,12 +6626,12 @@ def phase_stream_north_star(dev, X, y, ds, Xv, yv, launches):
     for tag in ("streamed", "plain", "in_memory", "in_memory", "streamed"):
         if tag == "in_memory":
             b, secs, counts, plain = train_run(lgb, ds, TRAIN_PARAMS,
-                                               TRAIN_ROUNDS)
+                                               LATE_ROUNDS)
             r = {"booster": b, "s": secs, "counts": counts,
                  "plain_calls": plain}
         else:
             r = streamed({} if tag == "streamed" else {"hist_impl": "plain"})
-        turns[tag].append(r["s"] / TRAIN_ROUNDS)
+        turns[tag].append(r["s"] / LATE_ROUNDS)
         runs.setdefault(tag, r)
     k, pl, mem = runs["streamed"], runs["plain"], runs["in_memory"]
     passes = sum(r["passes"] for r in k["per_round"])
@@ -7048,7 +7104,7 @@ def dp_counts(counts, d):
 
 def phase_dp_north_star(dev, X, y, ds, Xv, yv, launches):
     """23a: ``tree_learner="data"`` at the north star over DP_DEVICES
-    virtual shards, mesh / serial / mesh-plain in turns (10 rounds each):
+    virtual shards, mesh / serial / mesh-plain in turns (6 rounds each):
     B1 D times a root and B2 D times a wave, AUC within 1e-4 of serial and
     of plain, split structure equal to serial's (a near tie allowed) and
     the leaves within rtol 1e-5 / atol 1e-6, the dyadic round-1
@@ -7068,16 +7124,16 @@ def phase_dp_north_star(dev, X, y, ds, Xv, yv, launches):
                  "plain": {"hist_impl": "plain"}}.get(tag, {})
         DP.MERGE_TIMER["on"] = tag == "mesh"
         b, secs, counts, plain = train_run(lgb, ds, dict(DP_PARAMS, **extra),
-                                           TRAIN_ROUNDS)
+                                           LATE_ROUNDS)
         DP.MERGE_TIMER["on"] = False
         merge = DP.merge_ms()
-        turns[tag].append(secs / TRAIN_ROUNDS)
+        turns[tag].append(secs / LATE_ROUNDS)
         if tag not in runs:
             runs[tag] = {"booster": b, "counts": counts, "plain_calls": plain,
-                         "merge_ms_per_round": merge / TRAIN_ROUNDS}
-        log(f"phase 23a {tag}: {secs / TRAIN_ROUNDS:.4f} s/round, launches "
+                         "merge_ms_per_round": merge / LATE_ROUNDS}
+        log(f"phase 23a {tag}: {secs / LATE_ROUNDS:.4f} s/round, launches "
             f"{json.dumps(counts)}, plain calls {plain}, merge "
-            f"{merge / TRAIN_ROUNDS:.3f} ms/round")
+            f"{merge / LATE_ROUNDS:.3f} ms/round")
     m, ser, pl = runs["mesh"], runs["serial"], runs["plain"]
     mb = m["booster"]
     check(mb._mesh is not None and mb._mesh.n_devices == d
@@ -7085,7 +7141,7 @@ def phase_dp_north_star(dev, X, y, ds, Xv, yv, launches):
           and mb._mesh.chunks == 4 and mb._mesh.wire == "f32",
           f"23a mesh {getattr(mb, '_mesh', None)}")
     c = m["counts"]
-    check(c["hist_fused_bf16"] == d * TRAIN_ROUNDS
+    check(c["hist_fused_bf16"] == d * LATE_ROUNDS
           and c["hist_partition_bf16"] > 0 and dp_counts(c, d)
           and m["plain_calls"] == 0,
           f"23a launches {c} (B1 {d} a root, B2 {d} a wave), plain calls "
@@ -7194,9 +7250,9 @@ def phase_dp_merges(dev, X, ds, dsd, Xv, yv, auc_f32_wire, launches):
     secs = {}
     for wire in ("bf16", "int8"):
         b, s, counts, _ = counted_run(lambda: lgb.train(
-            dict(DP_PARAMS, histogram_wire=wire), ds, TRAIN_ROUNDS))
+            dict(DP_PARAMS, histogram_wire=wire), ds, LATE_ROUNDS))
         aucs[wire] = auc(b, Xv, yv, dev)
-        secs[wire] = s / TRAIN_ROUNDS
+        secs[wire] = s / LATE_ROUNDS
         add_launches(launches, counts)
         # the lossy wires re-round every hop's partial sums (bf16: 8 bits
         # of mantissa; int8: 255 levels a column): recorded, a sanity limit
@@ -7550,7 +7606,7 @@ MESH_ULPS = 2                      # tp's bound (the reference's _ulp_tol)
 MESH_COV_ROWS = 16_384             # Covertype-shaped rows served in 24a
 MESH_CLI_ROWS = 8
 SDP_PARAMS = dict(STREAM_PARAMS, tree_learner="data")
-SDP_ROUNDS, SDP_GOSS_ROUNDS, SDP_STRICT_ROUNDS = 10, 3, 3
+SDP_ROUNDS, SDP_GOSS_ROUNDS, SDP_STRICT_ROUNDS = 4, 3, 3   # 24b: 10 until phase 25
 SDP_RECOVERY_ROUNDS, SDP_KILL_AFTER, SDP_RECOVERY_EVERY = 8, 6, 4
 
 
@@ -8189,6 +8245,539 @@ def phase_multi_device_rest(dev, X, y, ds, dds, path, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the production loop — the refresh daemon over the north star's
+# blocks with a fault at every pipeline site, a retune on the grid-search
+# workflow's data, task=refresh in a subprocess, profile_training at the
+# north star, and the launch budgets
+# ---------------------------------------------------------------------------
+# 25a: phase 6's params on 131,072-row blocks; generation 1 takes the first
+# REFRESH_FIRST_BLOCKS blocks and REFRESH_INITIAL rounds, generations 2-4 a
+# block each (the last the padded tail) and REFRESH_ROUNDS rounds.  A
+# checkpoint every 2 rounds: at 5, a 5-round generation that starts at
+# round 10 writes none before its end, so a preempted generation could not
+# retry from its own checkpoint
+REFRESH_FIRST_BLOCKS, REFRESH_INITIAL, REFRESH_ROUNDS = 5, 10, 5
+REFRESH_CKPT_ROUNDS, REFRESH_SLO_MS = 2, 120_000.0
+REFRESH_SERVE_ROWS = 16_384
+# 25b: the diamonds split in 16,384-row blocks, 4 configs of
+# paramGrid.json's learning_rate 0.1 rows, the workflow's cv() arguments
+RETUNE_BLOCK, RETUNE_CONFIGS, RETUNE_INITIAL = 16_384, 4, 20
+# 25c: two north-star blocks, then a third; 25d: profile_training's rounds
+CLI_REFRESH_INITIAL, CLI_REFRESH_ROUNDS, PROFILE_ROUNDS = 3, 2, 10
+
+
+def daemon_with_feed(root, params, dev, injector=None, **kw):
+    """A RefreshDaemon on the wall clock over an in-memory feed."""
+    import shutil
+
+    from lightgbm_tpu_torch.pipeline import (ArrivalFeed, RefreshDaemon,
+                                             wall_clock)
+
+    shutil.rmtree(root, ignore_errors=True)
+    feed = ArrivalFeed(wall_clock)
+    return RefreshDaemon(params, root, feed=feed, injector=injector,
+                         clock=wall_clock, device=dev, **kw), feed
+
+
+def packed_equal(a_path, b_path):
+    from lightgbm_tpu_torch.serving.packed import PackedForest
+
+    a, b = PackedForest.load(a_path), PackedForest.load(b_path)
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "split_feature", "split_bin", "left", "right", "is_leaf",
+        "leaf_value")) and np.array_equal(a.init_score, b.init_score)
+
+
+def served_vs_model(d, Xs, dev, what):
+    """The bank's served scores against ``Booster(model_file=<live
+    artifact>).predict`` on the same rows (B4 against the plain replay)."""
+    import lightgbm_tpu_torch as lgb
+
+    got = d.bank.predict(d.model_name, Xs)
+    want = lgb.Booster(model_file=d._live_path, device=dev).predict(Xs)
+    err = float(np.abs(np.asarray(got, np.float64) - want).max())
+    check(err <= 1e-5, f"{what}: served scores {err:.2e} from "
+          f"Booster(model_file={os.path.basename(d._live_path)}).predict")
+    return err
+
+
+def refresh_generations(d, feed, blocks, Xs, dev, inj=None):
+    """Drive 25a's four generations; with ``inj`` arm continue_train in
+    generation 2, artifact_push in 3 and flip in 4.  Returns the events and
+    each flip's served-score error."""
+    from lightgbm_tpu_torch.faults import FaultSpec
+
+    k = REFRESH_FIRST_BLOCKS
+    events, served = [], {}
+
+    def tick(expect):
+        ev = d.tick()
+        check(ev is not None and ev["event"] == expect,
+              f"25a generation {d._gen + 1}: {expect} expected, got "
+              f"{None if ev is None else {x: v for x, v in ev.items() if x != 'report'}}")
+        events.append({x: v for x, v in ev.items() if x != "report"})
+        if expect == "flipped":
+            served[ev["version"]] = served_vs_model(d, Xs, dev,
+                                                    f"25a {ev['version']}")
+        return ev
+
+    for X_b, y_b in blocks[:k]:
+        feed.push(X_b, y_b)
+    tick("flipped")
+    feed.push(*blocks[k])
+    if inj is not None:
+        # the 5th round callback of the generation (round 15), after the
+        # round-14 checkpoint
+        inj.arm(FaultSpec(site="continue_train",
+                          after=inj.hits["continue_train"] + 4, times=1))
+        tick("preempted")
+        ev = tick("flipped")
+        check(str(ev["resumed_from"]).endswith(".lgckpt"),
+              f"25a the preempted generation resumed from "
+              f"{ev['resumed_from']}, not its checkpoint")
+    else:
+        tick("flipped")
+    feed.push(*blocks[k + 1])
+    if inj is not None:
+        before = d.bank.predict(d.model_name, Xs)
+        inj.arm(FaultSpec(site="artifact_push", after=inj.hits[
+            "artifact_push"], times=1))
+        ev = tick("rejected")
+        check(ev["poisoned"] and ev["stage"] == "ingest"
+              and d.bank.version(d.model_name) == "g0002"
+              and np.array_equal(before, d.bank.predict(d.model_name, Xs)),
+              f"25a poisoned artifact: {ev}; version "
+              f"{d.bank.version(d.model_name)}")
+    tick("flipped")
+    feed.push(*blocks[k + 2])
+    if inj is not None:
+        inj.arm(FaultSpec(site="flip", after=inj.hits["flip"], times=1))
+        tick("rolled_back")
+        check(d.bank.version(d.model_name) == "g0003"
+              and d._live_path.endswith("model_g0003.npz"),
+              f"25a rollback: serving {d.bank.version(d.model_name)}, "
+              f"anchored on {d._live_path}")
+        served["g0003_after_rollback"] = served_vs_model(
+            d, Xs, dev, "25a after the rollback")
+    else:
+        tick("flipped")
+    check(d.tick() is None, "25a the daemon is not idle after generation 4")
+    return events, served
+
+
+def phase_refresh_north_star(dev, X, y, Xv, yv, workdir, launches):
+    """25a: the refresh loop at the north star, faulted and unfaulted."""
+    import shutil
+
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.pipeline.daemon as D
+    from lightgbm_tpu_torch.faults import FaultInjector
+    from lightgbm_tpu_torch.serving.packed import PackedForest, pack_booster
+    from lightgbm_tpu_torch.training import train_resumable
+
+    blocks = list(row_blocks(X, y, STREAM_BLOCK_ROWS)())
+    check(len(blocks) == REFRESH_FIRST_BLOCKS + 3,
+          f"25a: {len(blocks)} blocks")
+    Xs = Xv[:REFRESH_SERVE_ROWS]
+    kw = dict(refresh_rounds=REFRESH_ROUNDS, initial_rounds=REFRESH_INITIAL,
+              checkpoint_rounds=REFRESH_CKPT_ROUNDS,
+              staleness_slo_ms=REFRESH_SLO_MS)
+    runs = {}
+    for tag in ("faulted", "control"):
+        inj = FaultInjector() if tag == "faulted" else None
+        d, feed = daemon_with_feed(os.path.join(workdir, f"refresh_{tag}"),
+                                   STREAM_PARAMS, dev, injector=inj, **kw)
+        ((events, served), train_ms), secs, counts, plain = counted_run(
+            lambda: calls_event_ms(D, "train_resumable",
+                                   lambda: refresh_generations(
+                                       d, feed, blocks, Xs, dev, inj)))
+        check(plain == 0, f"25a {tag}: {plain} plain-version calls")
+        add_launches(launches, counts)
+        runs[tag] = {"daemon": d, "events": events, "served": served,
+                     "s": secs, "counts": counts, "train_ms": train_ms}
+    f, c = runs["faulted"]["daemon"], runs["control"]["daemon"]
+    for g in (2, 3, 4):
+        name = f"model_g{g:04d}.npz"
+        check(packed_equal(os.path.join(f.models_dir, name),
+                           os.path.join(c.models_dir, name)),
+              f"25a faulted {name} differs from the control run's")
+    check(f._live_path.endswith("model_g0003.npz")
+          and c._live_path.endswith("model_g0004.npz"),
+          f"25a live artifacts {f._live_path}, {c._live_path}")
+    for tag in ("faulted", "control"):
+        k = runs[tag]["counts"]
+        check(k["hist_fused_bf16"] > 0 and k["predict_forest"] > 0
+              and k["hist_partition_bf16"] == 0,
+              f"25a {tag} launches {k}")
+    # generation 2 by hand: train_resumable(init_model=<generation 1>)
+    g1 = os.path.join(c.models_dir, "model_g0001.npz")
+    mapper = PackedForest.load(g1).bin_mapper
+    ds2 = lgb.Dataset.from_blocks(blocks[:REFRESH_FIRST_BLOCKS + 1],
+                                  params=dict(STREAM_PARAMS),
+                                  reference=mapper, device=dev)
+    hand_dir = os.path.join(workdir, "refresh_hand")
+    shutil.rmtree(hand_dir, ignore_errors=True)
+    res = train_resumable(dict(STREAM_PARAMS), ds2,
+                          REFRESH_INITIAL + REFRESH_ROUNDS,
+                          checkpoint_dir=hand_dir,
+                          checkpoint_rounds=REFRESH_CKPT_ROUNDS,
+                          init_model=g1)
+    hand = os.path.join(hand_dir, "g2.npz")
+    pack_booster(res.booster).save(hand)
+    check(res.completed and packed_equal(hand, os.path.join(
+        c.models_dir, "model_g0002.npz")),
+        "25a generation 2 differs from train_resumable(init_model="
+        "<generation 1>) by hand")
+    del ds2
+    # generation 1 through the plain versions: AUC within AUC_TOL
+    ds1 = lgb.Dataset.from_blocks(blocks[:REFRESH_FIRST_BLOCKS],
+                                  params=dict(STREAM_PARAMS),
+                                  reference=mapper, device=dev)
+    plain = lgb.train(dict(STREAM_PARAMS, hist_impl="plain"), ds1,
+                      REFRESH_INITIAL)
+    del ds1
+    auc_kernel = auc(lgb.Booster(model_file=g1, device=dev), Xv, yv, dev)
+    auc_plain = auc(plain, Xv, yv, dev)
+    check(abs(auc_kernel - auc_plain) <= AUC_TOL,
+          f"25a generation 1 AUC {auc_kernel:.6f} kernel vs "
+          f"{auc_plain:.6f} plain")
+    gens = {}
+    for tag in ("faulted", "control"):
+        d = runs[tag]["daemon"]
+        recs = d.tracker.snapshot()
+        gens[tag] = {"events": runs[tag]["events"],
+                     "served_max_abs": runs[tag]["served"],
+                     "train_event_ms": runs[tag]["train_ms"],
+                     "staleness": recs, "s": runs[tag]["s"],
+                     "launches": runs[tag]["counts"]}
+    out = {"generations": gens, "auc_kernel": auc_kernel,
+           "auc_plain": auc_plain, "blocks": len(blocks),
+           "rounds": [e.get("rounds") for e in runs["control"]["events"]]}
+    log("phase 25a: " + json.dumps({
+        t: {"s": g["s"], "staleness_ms": [
+            r["staleness_ms"] for r in g["staleness"]["generations"]],
+            "decomposition": [r["decomposition"]
+                              for r in g["staleness"]["generations"]],
+            "train_event_ms": g["train_event_ms"],
+            "events": [e["event"] for e in g["events"]]}
+        for t, g in gens.items()}) + f", AUC kernel {auc_kernel:.6f} "
+        f"plain {auc_plain:.6f}")
+    return out
+
+
+def batched_kernel_vs_plain(bins, num_bins, e, dev, what):
+    """B6 + B3 (the fused strict grower over ``e`` elements) against their
+    plain versions on ``bins`` with dyadic statistics: the same tables."""
+    from lightgbm_tpu_torch.models.gbdt import HyperScalars, HyperScalarsBatch
+    from lightgbm_tpu_torch.models.tree import grow_trees_batched
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 25)
+    n, nf = bins.shape
+    g = (torch.randint(-8, 9, (n, e), generator=gen).float() / 8).to(dev)
+    ones = torch.ones((n, e), dtype=torch.float32, device=dev)
+    stats = torch.stack([g, ones, ones], -1)
+    scal = HyperScalars(learning_rate=0.1, lambda_l1=0.0, lambda_l2=0.0,
+                        min_data_in_leaf=20.0, min_sum_hessian=1e-3,
+                        min_gain_to_split=0.0, max_depth=0)
+    batch = HyperScalarsBatch(*(torch.full((e,), float(v), device=dev)
+                                for v in scal))
+    fmask = torch.ones((e, nf), dtype=torch.float32, device=dev)
+    out = {}
+    for impl in ("auto", "plain"):
+        out[impl] = grow_trees_batched(bins, stats, fmask, batch.ctx(),
+                                       batch.max_depth, 31, num_bins, 1,
+                                       hist_impl=impl, hist_dtype="f32")
+    check(all(torch.equal(a, b) for a, b in zip(out["auto"][:3],
+                                                 out["plain"][:3])),
+          f"{what}: B6 + B3 differ from their plain versions on exact sums")
+
+
+def phase_retune(dev, workdir, launches):
+    """25b: a retune on the grid-search workflow's diamonds split with a
+    sweep_promote fault; the ledger against a SweepService run by hand."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.faults import FaultInjector
+    from lightgbm_tpu_torch.sweep import SweepService
+
+    Xd, yd = diamonds_split()
+    blocks = [(Xd[lo:lo + RETUNE_BLOCK], yd[lo:lo + RETUNE_BLOCK])
+              for lo in range(0, len(yd), RETUNE_BLOCK)]
+    grid = recovery_grid()[:RETUNE_CONFIGS]
+    params = dict(CV_PARAMS, verbosity=-1, stream_block_rows=RETUNE_BLOCK)
+    inj = FaultInjector()
+    root = os.path.join(workdir, "retune")
+    d, feed = daemon_with_feed(
+        root, params, dev, injector=inj, refresh_rounds=REFRESH_ROUNDS,
+        initial_rounds=RETUNE_INITIAL, sweep_grid=grid,
+        sweep_rounds=CV_ROUNDS, sweep_nfold=CV_FOLDS,
+        sweep_early_stopping=CV_ES)
+    for b in blocks:
+        feed.push(*b)
+    steps = {}
+    for tag, fn, expect in (("generation_1", d.tick, "flipped"),
+                            ("retune", d.retune, "preempted"),
+                            ("retry", d.tick, "retuned")):
+        if tag == "retune":
+            inj.arm("sweep_promote")
+        ev, secs, counts, plain = counted_run(fn)
+        check(ev is not None and ev["event"] == expect and plain == 0,
+              f"25b {tag}: {expect} expected, got {ev}, {plain} plain "
+              f"calls")
+        add_launches(launches, counts)
+        steps[tag] = {"event": {k: v for k, v in ev.items()
+                                if k != "report"}, "s": secs,
+                      "counts": counts}
+    check(steps["retune"]["event"]["phase"] == "sweep_promote",
+          f"25b the fault stopped {steps['retune']['event']}")
+    sweep_counts, retry_counts = (steps[t]["counts"]
+                                  for t in ("retune", "retry"))
+    check(sweep_counts["split_iter"] > 0
+          and sweep_counts["hist_segstats_f32"] > 0,
+          f"25b sweep launches {sweep_counts}")
+    check(retry_counts["split_iter"] == 0
+          and retry_counts["hist_segstats_f32"] == 0
+          and retry_counts["hist_segstats_bf16"] == 0,
+          f"25b the retry redid sweep units: {retry_counts}")
+    with open(os.path.join(d._sweep_dir(2), "ledger.json")) as f:
+        ledger = json.load(f)["rows"]
+    top = min(ledger, key=lambda r: -r["score"])
+    winner = steps["retry"]["event"]["winner"]
+    check(all(winner[k] == top[k] for k in winner)
+          and steps["retry"]["event"]["rounds"] == max(
+              int(top["iteration"]), 1),
+          f"25b winner {winner} is not the ledger's best {top}")
+    served = served_vs_model(d, Xd[:4096], dev, "25b the retuned model")
+    # the ledger against a SweepService run by hand on the same Dataset
+    ds = lgb.Dataset(np.concatenate([b[0] for b in blocks]),
+                     label=np.concatenate([b[1] for b in blocks]),
+                     params=dict(params), device=dev)
+    ds.bin_mapper = d._ref_mapper
+    hand = os.path.join(root, "hand")
+    res = SweepService(grid, ds, base_params=dict(params),
+                       num_boost_round=CV_ROUNDS, nfold=CV_FOLDS,
+                       early_stopping_rounds=CV_ES, seed=2,
+                       ledger_path=os.path.join(hand, "ledger.json"),
+                       checkpoint_dir=os.path.join(hand, "ckpt")).run()
+    check(res.completed, f"25b the sweep by hand: {res.error}")
+    with open(os.path.join(hand, "ledger.json")) as f:
+        hand_rows = json.load(f)["rows"]
+    check(hand_rows == ledger, "25b the daemon's ledger differs from the "
+          "SweepService run by hand")
+    ds.construct()
+    batched_kernel_vs_plain(ds.X_binned, ds.num_bins, CV_FOLDS, dev, "25b")
+    out = {"configs": len(grid), "ledger": ledger, "winner": winner,
+           "served_max_abs": served,
+           "steps": {t: {"event": s["event"], "s": s["s"],
+                         "launches": s["counts"]} for t, s in steps.items()}}
+    log(f"phase 25b: {json.dumps({t: s['s'] for t, s in steps.items()})} s,"
+        f" winner {json.dumps(winner)} at {steps['retry']['event']['rounds']}"
+        f" rounds, sweep launches {json.dumps(sweep_counts)}")
+    return out
+
+
+def phase_refresh_cli(dev, X, y, workdir):
+    """25c: ``task=refresh`` in a subprocess, twice over a growing watch
+    directory of north-star blocks."""
+    import shutil
+
+    from lightgbm_tpu_torch.serving import ModelBank
+
+    root = os.path.join(workdir, "refresh_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    watch, state = os.path.join(root, "watch"), os.path.join(root, "state")
+    os.makedirs(watch)
+    blocks = list(row_blocks(X, y, STREAM_BLOCK_ROWS)())
+    argv = [sys.executable, "-m", "lightgbm_tpu_torch", "task=refresh",
+            f"watch_dir={watch}", f"state_dir={state}",
+            f"initial_rounds={CLI_REFRESH_INITIAL}",
+            f"refresh_rounds={CLI_REFRESH_ROUNDS}", f"device={dev.type}",
+            f"stream_block_rows={STREAM_BLOCK_ROWS}"] + [
+        f"{k}={v}" for k, v in TRAIN_PARAMS.items()]
+    runs = []
+    for i, n_blocks in enumerate((2, 3)):
+        for j in range(n_blocks):
+            path = os.path.join(watch, f"block{j}.npz")
+            if not os.path.exists(path):
+                np.savez(path, X=blocks[j][0], y=blocks[j][1])
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              cwd=ROOT, timeout=300)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"25c task=refresh run {i + 1} exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        events = [json.loads(ln) for ln in proc.stdout.splitlines()
+                  if ln.startswith("{")]
+        summary = json.loads(proc.stderr.strip().splitlines()[-1])
+        rounds = CLI_REFRESH_INITIAL + i * CLI_REFRESH_ROUNDS
+        check([e["event"] for e in events] == ["flipped"]
+              and events[0]["version"] == f"g{i + 1:04d}"
+              and events[0]["rounds"] == rounds
+              and summary["generation"] == i + 1
+              and summary["served"] == 1 and summary["breaches"] == [],
+              f"25c run {i + 1}: events {events}, summary {summary}")
+        runs.append({"s": secs, "events": events, "summary": summary})
+    check(str(runs[1]["events"][0]["resumed_from"]).endswith(
+        "model_g0001.npz"), f"25c the rerun did not re-anchor: "
+        f"{runs[1]['events'][0]}")
+    import lightgbm_tpu_torch as lgb
+
+    art = os.path.join(state, "models", "model_g0002.npz")
+    bank = ModelBank(device=dev)
+    bank.deploy("model", art, version="g0002")
+    Xs = X[:4096]
+    got = bank.predict("model", Xs)
+    want = lgb.Booster(model_file=art, device=dev).predict(Xs)
+    err = float(np.abs(np.asarray(got, np.float64) - want).max())
+    check(err <= 1e-5, f"25c served {err:.2e} from the model file")
+    log(f"phase 25c: runs {[r['s'] for r in runs]} s, served {err:.2e}")
+    return {"runs": runs, "served_max_abs": err}
+
+
+def phase_profile_north_star(dev, X, y, ds, workdir, launches):
+    """25d: profile_training at the north star (CUDA events), its timed
+    rounds against lgb.train, B1/B2 launches and kernel vs plain."""
+    import lightgbm_tpu_torch as lgb
+    import lightgbm_tpu_torch.models.tree as T
+    import lightgbm_tpu_torch.ops.histogram as H
+    from lightgbm_tpu_torch.config import parse_params
+    from lightgbm_tpu_torch.models.gbdt import (Booster, HyperScalars,
+                                                resolve_hist_dtype,
+                                                resolve_wave_width)
+    from lightgbm_tpu_torch.models.tree import grow_tree, tree_to_arrays
+    from lightgbm_tpu_torch.utils.profiling import profile_training
+
+    trace = os.path.join(workdir, "p25_trace")
+    boosters, orig = [], Booster.update_many
+
+    def spy(self, k):
+        orig(self, k)
+        boosters.append(self)
+
+    Booster.update_many = spy
+    try:
+        report, secs, counts, plain = counted_run(
+            lambda: profile_training(dict(TRAIN_PARAMS), X, y,
+                                     PROFILE_ROUNDS, trace_dir=trace,
+                                     device=dev))
+    finally:
+        Booster.update_many = orig
+    check(plain == 0, f"25d {plain} plain-version calls")
+    add_launches(launches, counts)
+    keys = {"bin_construct_s", "histogram_pass_s", "split_scan_s",
+            "partition_s", "tree_grow_s", "round_s", "train_total_s",
+            "num_boost_round", "rows", "rows_per_s", "hist_dtype",
+            "wave_width", "wave_tail"}
+    check(keys <= set(report) and all(report[k] > 0 for k in keys
+                                      if k.endswith("_s"))
+          and report["rows"] == len(y) and report["hist_dtype"] == "bf16",
+          f"25d report {report}")
+    check(os.path.exists(os.path.join(trace, "profile_training.trace.json")),
+          "25d no trace written")
+    want = lgb.train(dict(TRAIN_PARAMS), ds, PROFILE_ROUNDS)
+    got = boosters[-1]
+    check(len(got.trees) == len(want.trees) == PROFILE_ROUNDS
+          and all(all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+                  for a, b in ((tree_to_arrays(s), tree_to_arrays(t))
+                               for s, t in zip(got.trees, want.trees))),
+          "25d the profiled rounds differ from lgb.train's")
+    # one histogram pass: B1 once; one tree: B1 once and B2 once a wave;
+    # on the profile's exact statistics the kernels equal their plain
+    # versions bit for bit
+    p = parse_params(dict(TRAIN_PARAMS))
+    n_pad = int(ds.row_mask.shape[0])
+    hd, ww = resolve_hist_dtype(p, n_pad), resolve_wave_width(p, n_pad)
+    stats = torch.stack([ds.y, torch.ones_like(ds.y), ds.row_mask], -1)
+    seg = torch.where(ds.row_mask > 0.5, 0, 2).to(torch.int32)
+    _, _, c_hist, _ = counted_run(lambda: H.compute_histograms(
+        ds.X_binned, stats, seg, 2, ds.num_bins, "auto", hd))
+    fmask = torch.ones(ds.num_feature_, dtype=torch.float32, device=dev)
+    ctx = HyperScalars.from_params(p).ctx()
+    waves = {"n": 0}
+    tree_orig = T.hist_partition_fused
+
+    def count_waves(*a, **k):
+        waves["n"] += 1
+        return tree_orig(*a, **k)
+
+    T.hist_partition_fused = count_waves
+    try:
+        (tk, rk), _, c_tree, _ = counted_run(lambda: grow_tree(
+            ds.X_binned, stats, fmask, ctx, p.num_leaves, ds.num_bins,
+            p.max_depth, hist_dtype=hd, wave_width=ww))
+    finally:
+        T.hist_partition_fused = tree_orig
+    mode = "bf16" if hd == "bf16" else "f32"
+    check(c_hist[f"hist_fused_{mode}"] == 1
+          and c_tree[f"hist_fused_{mode}"] == 1
+          and c_tree[f"hist_partition_{mode}"] == waves["n"] > 0,
+          f"25d launches: histogram pass {c_hist}, tree {c_tree}, "
+          f"{waves['n']} waves")
+    tp_, rp = grow_tree(ds.X_binned, stats, fmask, ctx, p.num_leaves,
+                        ds.num_bins, p.max_depth, hist_impl="plain",
+                        hist_dtype=hd, wave_width=ww)
+    a, b = tree_to_arrays(tk), tree_to_arrays(tp_)
+    check(all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+          and torch.equal(rk, rp),
+          "25d B1/B2 differ from their plain versions on exact sums")
+    ms = {k[:-2] + "_ms": report[k] * 1e3 for k in report
+          if k.endswith("_s")}
+    out = {"report": report, "event_ms": ms, "s": secs,
+           "launches": counts, "waves_per_tree": waves["n"]}
+    log(f"phase 25d: {json.dumps(report)}")
+    return out
+
+
+def phase_card_budgets():
+    """25e: the ``*_card`` launch budgets, measured in a fresh process
+    (late in a long process the profiler can lose records): every one
+    between its floor and its ceiling."""
+    code = ("import json; from lightgbm_tpu_torch.analysis.budgets import "
+            "LAUNCH_BUDGETS, check_launch_budgets; print(json.dumps("
+            "check_launch_budgets([b.name for b in LAUNCH_BUDGETS "
+            "if b.where == 'card'])))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300)
+    check(proc.returncode == 0, f"25e launch budgets exit {proc.returncode}:"
+          f" {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(len(res) == 3 and all(r["ok"] for r in res),
+          f"25e launch budgets {res}")
+    out = {r["name"]: [r["floor"], r["measured"], r["budget"]] for r in res}
+    log("phase 25e: " + json.dumps(out))
+    return out
+
+
+def phase_production_loop(dev, X, y, ds, workdir, card):
+    """Phase 25, every launch counter at 0 just before each run and read
+    just after; fails unless B1, B2, B3, B4 and B6 launched."""
+    from lightgbm_tpu_torch.utils.datasets import make_higgs_like
+
+    t0 = time.perf_counter()
+    launches, secs, out = {}, {}, {}
+    Xv, yv = make_higgs_like(VALID_ROWS, NUM_FEATURES, seed=9)
+    for part, fn in (
+            ("25a", lambda: phase_refresh_north_star(dev, X, y, Xv, yv,
+                                                     workdir, launches)),
+            ("25b", lambda: phase_retune(dev, workdir, launches)),
+            ("25c", lambda: phase_refresh_cli(dev, X, y, workdir)),
+            ("25d", lambda: phase_profile_north_star(dev, X, y, ds, workdir,
+                                                     launches)),
+            ("25e", phase_card_budgets)):
+        t1 = time.perf_counter()
+        out[part] = fn()
+        secs[part] = time.perf_counter() - t1
+    for name in ("predict_forest", "hist_fused_bf16", "hist_partition_bf16",
+                 "split_iter", "hist_segstats_f32"):
+        check(launches.get(name, 0) > 0, f"phase 25: {name} never launched")
+    out["launches"] = launches
+    out["s_by_part"] = secs
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 25: {out['s']:.1f} s ({json.dumps(secs)}) on {card}, "
+        f"launches {json.dumps(launches)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -8294,6 +8883,8 @@ def main() -> int:
     phase24 = phase_multi_device_rest(dev, X, y, ds_north, dds, path,
                                       workdir, card)
     l24 = phase24["launches"]
+    phase25 = phase_production_loop(dev, X, y, ds_north, workdir, card)
+    l25 = phase25["launches"]
     del ds_north
 
     kernels = []
@@ -8316,7 +8907,8 @@ def main() -> int:
                              "21": l21.get("predict_forest", 0),
                              "22": l22.get("predict_forest", 0),
                              "23": l23.get("predict_forest", 0),
-                             "24": l24.get("predict_forest", 0)})
+                             "24": l24.get("predict_forest", 0),
+                             "25": l25.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -8349,7 +8941,8 @@ def main() -> int:
                     "21": l21.get(f"{name}_{mode}", 0),
                     "22": l22.get(f"{name}_{mode}", 0),
                     "23": l23.get(f"{name}_{mode}", 0),
-                    "24": l24.get(f"{name}_{mode}", 0)},
+                    "24": l24.get(f"{name}_{mode}", 0),
+                    "25": l25.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -8374,7 +8967,8 @@ def main() -> int:
             "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
             "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0),
             "22": l22.get("split_iter", 0), "23": l23.get("split_iter", 0),
-                    "24": l24.get("split_iter", 0)},
+                    "24": l24.get("split_iter", 0),
+            "25": l25.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -8403,7 +8997,8 @@ def main() -> int:
                 "21": l21.get(f"hist_segstats_{mode}", 0),
                 "22": l22.get(f"hist_segstats_{mode}", 0),
                 "23": l23.get(f"hist_segstats_{mode}", 0),
-                    "24": l24.get(f"hist_segstats_{mode}", 0)},
+                    "24": l24.get(f"hist_segstats_{mode}", 0),
+                "25": l25.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -8433,7 +9028,8 @@ def main() -> int:
                 "21": l21.get(f"hist_fused_batched_{mode}", 0),
                 "22": l22.get(f"hist_fused_batched_{mode}", 0),
                 "23": l23.get(f"hist_fused_batched_{mode}", 0),
-                    "24": l24.get(f"hist_fused_batched_{mode}", 0)},
+                    "24": l24.get(f"hist_fused_batched_{mode}", 0),
+                "25": l25.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -8452,7 +9048,8 @@ def main() -> int:
             "21": l21.get("hist_fused_int8", 0),
             "22": l22.get("hist_fused_int8", 0),
             "23": l23.get("hist_fused_int8", 0),
-                    "24": l24.get("hist_fused_int8", 0)},
+                    "24": l24.get("hist_fused_int8", 0),
+            "25": l25.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -8483,7 +9080,7 @@ def main() -> int:
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "phase18": phase18, "phase19": phase19, "phase20": phase20,
               "phase21": phase21, "phase22": phase22, "phase23": phase23,
-              "phase24": phase24,
+              "phase24": phase24, "phase25": phase25,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

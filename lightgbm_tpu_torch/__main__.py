@@ -1,6 +1,6 @@
 """Config-file CLI of the port: ``task=train``, ``task=predict``,
-``task=serve`` and ``task=sweep`` — the port of ``lightgbm_tpu/__main__.py``
-(LightGBM's original ``key=value`` interface):
+``task=serve``, ``task=refresh`` and ``task=sweep`` — the port of
+``lightgbm_tpu/__main__.py`` (LightGBM's original ``key=value`` interface):
 
     python -m lightgbm_tpu_torch task=train data=train.csv valid=valid.csv \
         objective=regression num_trees=100 output_model=model.txt
@@ -10,6 +10,9 @@
         max_batch=256 max_delay_ms=2 < requests.csv > preds.txt
     python -m lightgbm_tpu_torch task=sweep data=train.csv \
         sweep_grid=grid.json ledger=paramGrid.RData
+    python -m lightgbm_tpu_torch task=refresh watch_dir=blocks/ \
+        state_dir=state/ objective=binary refresh_rounds=5
+    python -m lightgbm_tpu_torch lint [paths...] [--budgets]
 
 Config format: one ``key = value`` per line, ``#`` comments; command-line
 ``key=value`` pairs override a ``config=`` file.
@@ -25,7 +28,7 @@ label column of a labelled file.  The remaining keys are the LightGBM
 params (``hist_dtype=int8`` trains on quantized histograms).  Model files
 interchange with the reference's CLI both ways.  ``device=cuda|cpu``
 (default cuda; with no card, cuda fails at startup) picks the device of
-every task.  ``task=refresh`` is not ported yet and exits by name.
+every task.
 
 Fault-tolerant training (``task=train``): ``checkpoint_dir=`` turns on the
 resumable loop (``training.train_resumable``) — atomic checkpoints every
@@ -48,6 +51,21 @@ sweep exits 0 and resumes on rerun.  ``sweep_devices``/``sweep_group_size``
 (the mesh shape; the group size must divide the devices) plan the
 hyper-batches over device groups, recorded in each ledger row's ``group``;
 the units run one after another, as the reference's do.
+
+``task=refresh`` drives the refresh daemon (``pipeline.RefreshDaemon``) over
+a watch directory of ``.npz`` blocks (``X``, ``y``; ``.tmp`` names are
+skipped until renamed): ``watch_dir=`` and ``state_dir=`` are required;
+``refresh_rounds`` (5), ``initial_rounds``, ``checkpoint_rounds`` (5),
+``canary_rows`` (8), ``max_ticks`` (64), ``model_name``,
+``staleness_slo_ms``, and the retune keys ``sweep_grid=``, ``sweep_every``
+(0), ``sweep_rounds`` (50), ``sweep_nfold`` (3), ``sweep_early_stopping``
+(5), ``sweep_devices`` (1); the remaining keys are the training params
+(unknown keys exit by name).  One invocation drains the directory and
+exits, one JSON event a line on stdout and a summary on stderr; rerunning
+the same command line re-anchors on the newest artifact in ``state_dir``.
+
+``lint`` runs graftlint's backend-neutral rules over the port
+(``analysis.cli``; ``--budgets`` adds the launch budgets).
 
 ``task=serve`` (alias ``predict-server``) loads a packed ``.npz`` model or a
 JSON text model, packed on load (written by either package), builds the
@@ -133,12 +151,17 @@ def _split_label(data: np.ndarray, names: List[str],
 
 def main(argv: Optional[List[str]] = None) -> int:
     raw = list(sys.argv[1:] if argv is None else argv)
+    if raw and raw[0] == "lint":
+        # graftlint front end: flag-style argv, not key=value config
+        from .analysis.cli import main as lint_main
+
+        return lint_main(raw[1:])
     try:
         cfg = parse_argv(raw)
     except (ValueError, OSError) as e:
         raise SystemExit(
             f"lightgbm_tpu_torch: {e}\nusage: python -m lightgbm_tpu_torch "
-            "task=train|predict|serve|sweep key=value ... "
+            "task=train|predict|serve|refresh|sweep key=value ... "
             "(or config=<file>; see module docs)") from None
     task = cfg.pop("task", "train")
     input_model = cfg.pop("input_model", None)
@@ -147,20 +170,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise SystemExit("task=serve requires input_model=<model.npz "
                              "or model.txt>")
         return _serve(input_model, cfg)
-    if task == "refresh":
+    if task not in ("train", "predict", "refresh", "sweep"):
         raise SystemExit(
-            "task=refresh (the refresh daemon) is not ported yet: ROADMAP "
-            "slice 7 (the production loop), item 13; lightgbm_tpu_torch "
-            "runs task=train|predict|serve|sweep")
-    if task not in ("train", "predict", "sweep"):
-        raise SystemExit(
-            f"unknown task {task!r} (train|predict|serve|sweep)")
+            f"unknown task {task!r} (train|predict|serve|refresh|sweep)")
     header = cfg.pop("header", "false").lower() in ("true", "1", "yes")
     label_spec = cfg.pop("label_column", "0")
     data_path = cfg.pop("data", None)
     valid_path = cfg.pop("valid", cfg.pop("valid_data", None))
     output_model = cfg.pop("output_model", "LightGBM_model.txt")
     output_result = cfg.pop("output_result", "LightGBM_predict_result.txt")
+    if task == "refresh":
+        return _refresh(cfg)
     device = cfg.pop("device", "cuda")
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"task={task}: device must be cuda|cpu, got "
@@ -252,6 +272,115 @@ def _train_resumable(params: Dict[str, str], dtrain, ckpt_dir: str,
         return 0
     result.booster.save_model(output_model)
     print(f"[lightgbm_tpu_torch] finished training; model -> {output_model}")
+    return 0
+
+
+def _refresh(cfg: Dict[str, str], stdout=None, stderr=None) -> int:
+    """``task=refresh``: drive the refresh daemon over a watch directory.
+    Every refresh key is validated up front and unknown keys are rejected
+    (the ``serve`` contract): a typo'd operating point fails at startup,
+    not mid-refresh; the keys left over after the refresh set must belong
+    to the parameter vocabulary.  One invocation drains the watch
+    directory (bounded by ``max_ticks``) and exits; schedulers keep the
+    loop alive by rerunning the same command line — the daemon re-anchors
+    on the newest completed artifact in ``state_dir``.  ``device=`` picks
+    the device as in the other tasks (default cuda)."""
+    import json
+
+    from .config import _ALIASES, _FRAMEWORK_KEYS
+    from .device import NoDeviceError
+    from .pipeline import DirectoryFeed, RefreshDaemon
+
+    stdout = sys.stdout if stdout is None else stdout
+    stderr = sys.stderr if stderr is None else stderr
+
+    def die(msg: str) -> "SystemExit":
+        return SystemExit(f"task=refresh: {msg}")
+
+    def intkey(key: str, default: str, minimum: int):
+        raw_v = cfg.pop(key, default)
+        if raw_v is None:
+            return None
+        try:
+            v = int(raw_v)
+        except ValueError:
+            raise die(f"{key} must be an integer, got {raw_v!r}") \
+                from None
+        if v < minimum:
+            raise die(f"{key} must be >= {minimum}, got {v}")
+        return v
+
+    watch_dir = cfg.pop("watch_dir", None)
+    if not watch_dir:
+        raise die("requires watch_dir=<directory of X/y .npz blocks>")
+    state_dir = cfg.pop("state_dir", None)
+    if not state_dir:
+        raise die("requires state_dir=<directory for models/checkpoints>")
+    refresh_rounds = intkey("refresh_rounds", "5", 1)
+    initial_rounds = intkey("initial_rounds", None, 1)
+    checkpoint_rounds = intkey("checkpoint_rounds", "5", 1)
+    canary_rows = intkey("canary_rows", "8", 0)
+    max_ticks = intkey("max_ticks", "64", 1)
+    model_name = cfg.pop("model_name", "model")
+    # the closed tune->serve loop: every sweep_every'th data-bearing
+    # generation sweeps the grid and promotes the winner
+    grid_path = cfg.pop("sweep_grid", None)
+    sweep_grid = None
+    if grid_path is not None:
+        sweep_grid = _load_grid(grid_path, die)
+    sweep_every = intkey("sweep_every", "0", 0)
+    if sweep_every > 0 and sweep_grid is None:
+        raise die("sweep_every > 0 requires sweep_grid=<grid.json>")
+    sweep_rounds = intkey("sweep_rounds", "50", 1)
+    sweep_nfold = intkey("sweep_nfold", "3", 2)
+    sweep_early_stopping = intkey("sweep_early_stopping", "5", 0)
+    sweep_devices = intkey("sweep_devices", "1", 1)
+    slo_s = cfg.pop("staleness_slo_ms", None)
+    staleness_slo_ms = None
+    if slo_s is not None:
+        try:
+            staleness_slo_ms = float(slo_s)
+        except ValueError:
+            raise die(f"staleness_slo_ms must be a number, got "
+                      f"{slo_s!r}") from None
+        if staleness_slo_ms <= 0:
+            raise die(f"staleness_slo_ms must be > 0, got "
+                      f"{staleness_slo_ms}")
+    device = cfg.pop("device", "cuda")
+    if device not in ("cuda", "cpu"):
+        raise die(f"device must be cuda|cpu, got {device!r}")
+    unknown = sorted(k for k in cfg
+                     if k.lower() not in _ALIASES
+                     and k.lower() not in _FRAMEWORK_KEYS)
+    if unknown:
+        raise die(f"unknown key(s): {', '.join(unknown)}")
+
+    try:
+        daemon = RefreshDaemon(
+            dict(cfg), state_dir, feed=DirectoryFeed(watch_dir),
+            model_name=model_name, refresh_rounds=refresh_rounds,
+            initial_rounds=initial_rounds,
+            checkpoint_rounds=checkpoint_rounds,
+            staleness_slo_ms=staleness_slo_ms, canary_rows=canary_rows,
+            sweep_grid=sweep_grid, sweep_every=sweep_every,
+            sweep_rounds=sweep_rounds, sweep_nfold=sweep_nfold,
+            sweep_early_stopping=sweep_early_stopping,
+            sweep_devices=sweep_devices, device=device)
+    except NoDeviceError as e:
+        raise die(str(e)) from None
+    events = daemon.run_until_idle(max_ticks=max_ticks)
+    for ev in events:
+        doc = {k: v for k, v in ev.items() if k != "report"}
+        stdout.write(json.dumps(doc) + "\n")
+    snap = daemon.tracker.snapshot()
+    stderr.write(json.dumps({
+        "generation": daemon.snapshot()["generation"],
+        "served": snap["served"],
+        "worst_staleness_ms": snap["worst_staleness_ms"],
+        "breaches": snap["breaches"],
+    }) + "\n")
+    stdout.flush()
+    stderr.flush()
     return 0
 
 

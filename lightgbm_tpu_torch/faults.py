@@ -35,10 +35,26 @@ surfaces as ``OOCBlockError(kind="read")`` naming the block.
 
 The sweep service consults ``sweep_segment`` (between fused segments and
 host-engine configs), ``sweep_record`` (before a ledger commit) and, through
-its carry checkpoints, ``checkpoint_write``.  The pipeline sites and
-``sweep_promote`` (the refresh daemon, ROADMAP item 13) are registered but
-consulted by no ported module.  A ``FaultInjector`` with no armed specs is a
-cheap no-op, so the hooks stay wired in production configurations.
+its carry checkpoints, ``checkpoint_write``.
+
+The refresh daemon (``pipeline/daemon.py``) consults the pipeline sites and
+``sweep_promote``:
+
+* ``data_arrival`` — before each tick drains its feed (a poll outage; the
+  arrivals are kept and the next tick takes them);
+* ``continue_train`` — after every round of a generation's training (a
+  preemption; the retry resumes from the generation's checkpoint);
+* ``artifact_push`` — after the artifact is packed and before its rename
+  (the bytes are poisoned with NaN leaves, so the bank's ingest must
+  reject them while the prior version serves);
+* ``flip`` — after the canary passed (a health alarm: the bank rolls back
+  and the daemon re-anchors on what serves);
+* ``sweep_promote`` — between a completed retune sweep and the winner's
+  training (retried next tick; the finished ledger makes the rerun a
+  no-op).
+
+A ``FaultInjector`` with no armed specs is a cheap no-op, so the hooks stay
+wired in production configurations.
 """
 
 from __future__ import annotations

@@ -199,15 +199,6 @@ class SweepService:
             units_done=units_done, resumed_units=resumed,
             checkpoint_failures=ckpt_failures, stats=stats)
 
-    def _check(self, site: str) -> Optional[str]:
-        """The injector's verdict at ``site``: the fault message, or None."""
-        try:
-            if self.injector is not None:
-                self.injector.check(site)
-        except FaultError as e:
-            return str(e)
-        return None
-
     # -- host engine ---------------------------------------------------------
     def _run_host(self, g: PreemptionGuard) -> SweepResult:
         from ..engine import cv as _cv
@@ -229,9 +220,11 @@ class SweepService:
                     print(f"[{i + 1}/{len(self.grid)}] already done, "
                           "skipping")
                 continue
-            err = self._check("sweep_segment")
-            if err is not None:
-                return stop(err)
+            try:
+                if self.injector is not None:
+                    self.injector.check("sweep_segment")
+            except FaultError as e:
+                return stop(str(e))
             if self.verbose:
                 print(f"[{i + 1}/{len(self.grid)}]")
             params = dict(self.base_params)
@@ -241,9 +234,11 @@ class SweepService:
                         nfold=self.nfold,
                         early_stopping_rounds=self.early_stopping_rounds,
                         seed=self.seed, stratified=False)
-            err = self._check("sweep_record")
-            if err is not None:
-                return stop(err)
+            try:
+                if self.injector is not None:
+                    self.injector.check("sweep_record")
+            except FaultError as e:
+                return stop(str(e))
             self.ledger.record(i, fit.best_iter, fit.best_score)
             done_now += 1
             if g.requested:
@@ -346,9 +341,11 @@ class SweepService:
             t_exec = self.clock()
             seg = prog.segment_rounds
             while not prog.done(carry):
-                err = self._check("sweep_segment")
-                if err is not None:
-                    return bail(err)
+                try:
+                    if self.injector is not None:
+                        self.injector.check("sweep_segment")
+                except FaultError as e:
+                    return bail(str(e))
                 seg_end = min((carry.r // seg + 1) * seg,
                               self.num_boost_round)
                 carry = prog.step(carry, seg_end)
@@ -357,9 +354,11 @@ class SweepService:
                         prog, carry, unit_dir, unit)
                 if g.requested:
                     return bail("SIGTERM drain mid-sweep")
-            err = self._check("sweep_record")
-            if err is not None:
-                return bail(err)
+            try:
+                if self.injector is not None:
+                    self.injector.check("sweep_record")
+            except FaultError as e:
+                return bail(str(e))
             res = prog.finalize(carry)
             best_iters = res.best_iter.cpu().numpy()
             best_raw = res.best_score.cpu().numpy()

@@ -1,5 +1,5 @@
 """Port parity: the ported CLI (``task=serve``, ``task=train``,
-``task=predict``, ``task=sweep``) against the reference's.
+``task=predict``, ``task=sweep``, ``task=refresh``) against the reference's.
 
 The same request lines (CSV rows, JSON arrays, blank and bad lines,
 ``!swap``/``!rollback``/``!stats`` control lines) go through the reference's
@@ -14,7 +14,9 @@ package's CLI load in the other with predictions within 1e-6.
 writes the model file of an uninterrupted run, byte for byte;
 ``task=sweep``'s leaderboard equals the reference CLI's (configs and
 iterations equal, scores within rtol 1e-5) and its typed errors read the
-same.
+same.  ``task=refresh``'s misuses give the reference's messages, and two
+invocations over a growing watch directory give the reference's events
+(the second re-anchors and continues).
 """
 
 import dataclasses
@@ -29,11 +31,13 @@ import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as P
+from lightgbm_tpu.__main__ import _refresh as ref_refresh
 from lightgbm_tpu.__main__ import _serve as ref_serve
 from lightgbm_tpu.__main__ import _sweep as ref_sweep
 from lightgbm_tpu.__main__ import main as ref_main
 from lightgbm_tpu.serving.packed import pack_booster
 import lightgbm_tpu_torch.training as port_training
+from lightgbm_tpu_torch.__main__ import _refresh as port_refresh
 from lightgbm_tpu_torch.__main__ import _serve as port_serve
 from lightgbm_tpu_torch.__main__ import _sweep as port_sweep
 from lightgbm_tpu_torch.__main__ import main as port_main
@@ -165,7 +169,7 @@ def test_serve_rejects_bad_keys_and_missing_card(models):
         with pytest.raises(SystemExit, match="no CUDA device"):
             port_serve(v1, {}, stdin=iter(()), stdout=io.StringIO(),
                        stderr=io.StringIO())
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="requires state_dir"):
         port_main(["task=refresh", "watch_dir=x"])
     with pytest.raises(SystemExit, match="requires input_model"):
         port_main(["task=serve"])
@@ -253,8 +257,8 @@ def test_cli_models_interchange_with_reference(csv_files):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["task=refresh"], "item 13"),
-    (["task=refresh", "watch_dir=x"], "task=refresh"),
+    (["task=refresh"], "requires watch_dir"),
+    (["task=refresh", "watch_dir=x"], "requires state_dir"),
     (["task=sweep", "data=x.csv", "sweep_grid={grid}", "sweep_devices=3",
       "sweep_group_size=2"], "sweep_group_size must divide"),
     (["task=train", "data=x.csv", "device=tpu"], "device")])
@@ -410,3 +414,87 @@ def test_sweep_cli_typed_errors_match_reference(cfg, tmp_path):
                stderr=io.StringIO(), **extra)
         msgs.append(str(e.value.code))
     assert msgs[0] == msgs[1] and msgs[0].startswith("task=sweep: ")
+
+
+# -- task=refresh ----------------------------------------------------------
+
+REFRESH_KEYS = {"objective": "binary", "num_leaves": "7",
+                "learning_rate": "0.2", "max_bin": "31",
+                "min_data_in_leaf": "5", "verbose": "-1", "seed": "7",
+                "stream_block_rows": "256", "refresh_rounds": "2"}
+
+
+def _refresh_cfg(tmp_path, **over):
+    cfg = dict(REFRESH_KEYS, watch_dir=str(tmp_path / "watch"),
+               state_dir=str(tmp_path / "state"))
+    cfg.update(over)
+    return cfg
+
+
+@pytest.mark.parametrize("cfg,full", [
+    ({}, False), ({"watch_dir": "{w}"}, False), ({"bogus_knob": "1"}, True),
+    ({"refresh_rounds": "five"}, True), ({"max_ticks": "0"}, True),
+    ({"staleness_slo_ms": "-3"}, True), ({"staleness_slo_ms": "soon"}, True),
+    ({"sweep_every": "2"}, True), ({"sweep_nfold": "1"}, True),
+    ({"sweep_grid": "{w}/none.json"}, True),
+], ids=["no-watch", "no-state", "unknown-key", "not-int", "ticks",
+        "slo-negative", "slo-word", "every-no-grid", "nfold", "grid-file"])
+def test_refresh_cli_misuse_matches_reference(cfg, full, tmp_path):
+    msgs = []
+    for fn, extra in ((port_refresh, {"device": "cpu"}), (ref_refresh, {})):
+        c = {k: v.format(w=tmp_path) for k, v in cfg.items()}
+        if full:
+            c = _refresh_cfg(tmp_path, **c, **extra)
+        with pytest.raises(SystemExit) as e:
+            fn(c, stdout=io.StringIO(), stderr=io.StringIO())
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] and msgs[0].startswith("task=refresh: ")
+
+
+def test_refresh_cli_device_and_usage():
+    with pytest.raises(SystemExit, match="device must be cuda|cpu"):
+        port_refresh({"watch_dir": "w", "state_dir": "s", "device": "tpu"})
+    with pytest.raises(SystemExit, match="usage"):
+        port_main(["task=refresh", "--help"])
+    with pytest.raises(SystemExit, match="refresh"):
+        port_main(["task=refres"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            port_refresh({"watch_dir": "w", "state_dir": "s"})
+
+
+def test_refresh_cli_two_invocations_match_reference(tmp_path):
+    rng = np.random.default_rng(0)
+    X = rng.normal(0, 1, (512, 5)).astype(np.float32)
+    w = rng.normal(0, 1, 5)
+    y = (rng.random(512) < 1 / (1 + np.exp(-(X @ w)))).astype(np.float32)
+    out = {}
+    for name, fn, extra in (("port", port_refresh, {"device": "cpu"}),
+                            ("reference", ref_refresh, {})):
+        root = tmp_path / name
+        watch = root / "watch"
+        watch.mkdir(parents=True)
+        np.savez(str(watch / "block0.npz"), X=X[:256], y=y[:256])
+        np.savez(str(watch / "block1.npz"), X=X[256:], y=y[256:])
+        runs = []
+        for extra_block in (False, True):
+            if extra_block:
+                np.savez(str(watch / "block2.npz"), X=X[:256],
+                         y=1.0 - y[:256])
+            so, se = io.StringIO(), io.StringIO()
+            assert fn(_refresh_cfg(root, **extra), stdout=so,
+                      stderr=se) == 0
+            events = [json.loads(ln) for ln in so.getvalue().splitlines()]
+            runs.append(([{k: v for k, v in e.items()
+                           if k not in ("resumed_from", "staleness_ms")}
+                          for e in events], json.loads(se.getvalue())))
+        out[name] = runs
+    assert [[e["event"] for e in r[0]] for r in out["port"]] == \
+        [["flipped"], ["flipped"]]
+    assert out["port"][0][0][0]["version"] == "g0001"
+    assert out["port"][1][0][-1]["version"] == "g0002"
+    assert out["port"][1][0][-1]["rounds"] == 4
+    for (ev_p, sum_p), (ev_r, sum_r) in zip(out["port"], out["reference"]):
+        assert ev_p == ev_r
+        assert {k: v for k, v in sum_p.items() if k != "worst_staleness_ms"} \
+            == {k: v for k, v in sum_r.items() if k != "worst_staleness_ms"}

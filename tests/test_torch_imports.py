@@ -75,7 +75,11 @@ def test_import_leaves_jax_and_reference_out():
             "lightgbm_tpu_torch.data.sketch, lightgbm_tpu_torch.faults, "
             "lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.models.tree, "
             "lightgbm_tpu_torch.models.feature_mask, "
-            "lightgbm_tpu_torch.plotting, lightgbm_tpu_torch.ops.shap;"
+            "lightgbm_tpu_torch.plotting, lightgbm_tpu_torch.ops.shap, "
+            "lightgbm_tpu_torch.pipeline, lightgbm_tpu_torch.pipeline.daemon, "
+            "lightgbm_tpu_torch.utils.profiling, lightgbm_tpu_torch.analysis, "
+            "lightgbm_tpu_torch.analysis.cli, "
+            "lightgbm_tpu_torch.analysis.budgets;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -221,3 +225,36 @@ def test_sklearn_estimators_default_to_the_card():
         return
     with pytest.raises(NoDeviceError):
         lgb.LGBMRandomForestRegressor(n_estimators=2).fit(X, y)
+
+
+@pytest.mark.parametrize("module", [
+    "pipeline/__init__.py", "pipeline/staleness.py", "pipeline/daemon.py",
+    "utils/profiling.py", "analysis/__init__.py", "analysis/rules.py",
+    "analysis/program.py", "analysis/baseline.py", "analysis/engine.py",
+    "analysis/cli.py", "analysis/budgets.py"])
+def test_production_loop_modules_are_walked(module):
+    assert os.path.join(PORT, module) in set(_sources())
+
+
+def test_production_loop_entry_points_default_to_the_card(tmp_path):
+    import numpy as np
+
+    from lightgbm_tpu_torch.__main__ import main
+    from lightgbm_tpu_torch.device import NoDeviceError
+    from lightgbm_tpu_torch.pipeline import ArrivalFeed, RefreshDaemon
+    from lightgbm_tpu_torch.utils.profiling import profile_training
+
+    d = RefreshDaemon({"objective": "binary"}, str(tmp_path / "cpu"),
+                      feed=ArrivalFeed(), device="cpu")
+    assert d.device.type == d.bank.device.type == "cpu"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(NoDeviceError):
+        RefreshDaemon({"objective": "binary"}, str(tmp_path / "card"),
+                      feed=ArrivalFeed())
+    X = np.zeros((8, 2))
+    with pytest.raises(NoDeviceError):
+        profile_training({"objective": "binary"}, X, np.zeros(8), 1)
+    with pytest.raises(SystemExit, match="task=refresh: .*device='cpu'"):
+        main(["task=refresh", f"watch_dir={tmp_path}",
+              f"state_dir={tmp_path / 's'}"])

@@ -2165,3 +2165,106 @@ def test_stream_dp_kill_resume_on_card(tmp_path):
     for ta, tb in zip(a.trees[:2], two.trees):
         assert np.array_equal(tree_to_arrays(ta)["leaf_value"],
                               tree_to_arrays(tb)["leaf_value"])
+
+
+def _refresh_run(root, impl, blocks):
+    """Two refresh generations of the daemon on the card (SimClock)."""
+    from lightgbm_tpu_torch.pipeline import (ArrivalFeed, RefreshDaemon,
+                                             SimClock)
+
+    p = dict(objective="regression", num_leaves=31, max_bin=255,
+             learning_rate=0.5, min_data_in_leaf=20, hist_dtype="f32",
+             wave_tail="greedy", stream_block_rows=16_384, verbosity=-1,
+             hist_impl=impl)
+    clock = SimClock()
+    feed = ArrivalFeed(clock)
+    d = RefreshDaemon(p, str(root), feed=feed, refresh_rounds=2,
+                      initial_rounds=2, checkpoint_rounds=2, clock=clock,
+                      device="cuda")
+    events = []
+    for X, y in blocks:
+        feed.push(X, y)
+        events.append(d.tick())
+    return d, events
+
+
+@pytest.mark.gpu
+def test_refresh_daemon_generation_kernel_vs_plain_on_card(tmp_path):
+    """The refresh daemon on the card: two generations (60,000 rows in
+    16,384-row blocks, then 20,000 more) through the kernels (B1 per block,
+    B4 in the bank's canary) grow the plain path's forest bit for bit on
+    exact sums (dyadic labels, l2, f32 histograms); each stamp follows the
+    stage's device work."""
+    from lightgbm_tpu_torch.kernels.histogram import HIST_FUSED_LAUNCHES
+    from lightgbm_tpu_torch.kernels.predict import PREDICT_FOREST_LAUNCHES
+    from lightgbm_tpu_torch.serving.packed import PackedForest
+
+    _card()
+    X, y = _stream_frame()
+    X2, y2 = _stream_frame(n=20_000, seed=43)
+    blocks = [(X, y), (X2, y2)]
+    for c in (HIST_FUSED_LAUNCHES["f32"], PREDICT_FOREST_LAUNCHES):
+        c.reset()
+    dk, ek = _refresh_run(tmp_path / "kernel", "auto", blocks)
+    assert HIST_FUSED_LAUNCHES["f32"].count > 0
+    assert PREDICT_FOREST_LAUNCHES.count > 0
+    dp, ep = _refresh_run(tmp_path / "plain", "plain", blocks)
+    assert [e["event"] for e in ek] == [e["event"] for e in ep] == \
+        ["flipped", "flipped"]
+    assert ek[-1]["rounds"] == ep[-1]["rounds"] == 4
+    a, b = PackedForest.load(dk._live_path), PackedForest.load(dp._live_path)
+    for f in ("split_feature", "split_bin", "left", "right", "is_leaf",
+              "leaf_value"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    served = dk.bank.predict("model", X2[:4096], raw_score=True)
+    want = a.predict_numpy(a.bin_mapper.transform(X2[:4096]))
+    np.testing.assert_allclose(served, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_profile_training_booster_equals_train_on_card():
+    """profile_training on the card (CUDA events): every time positive,
+    and its timed rounds are ``lgb.train``'s with the same params bit for
+    bit (B1 roots, B2 waves)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models.gbdt import Booster
+    from lightgbm_tpu_torch.models.tree import tree_to_arrays
+    from lightgbm_tpu_torch.utils.profiling import profile_training
+
+    dev = _card()
+    X, y = _stream_frame()
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1}
+    boosters = []
+    orig = Booster.update_many
+
+    def spy(self, k):
+        orig(self, k)
+        boosters.append(self)
+
+    Booster.update_many = spy
+    try:
+        rep = profile_training(dict(params), X, y, 3)
+    finally:
+        Booster.update_many = orig
+    assert all(rep[k] > 0 for k in rep if k.endswith("_s"))
+    want = lgb.train(dict(params), lgb.Dataset(X, label=y, device=dev), 3)
+    got = boosters[-1]
+    assert len(got.trees) == len(want.trees) == 3
+    for ta, tb in zip(got.trees, want.trees):
+        fa, fb = tree_to_arrays(ta), tree_to_arrays(tb)
+        for k in fa:
+            assert np.array_equal(fa[k], fb[k], equal_nan=True), k
+
+
+@pytest.mark.gpu
+def test_card_launch_budgets_hold():
+    """The *_card launch budgets: CUDA launches a split iteration (B1 + B3,
+    B6 + B3) and a bucket-8 dispatch (B4), counted by torch.profiler."""
+    from lightgbm_tpu_torch.analysis.budgets import (LAUNCH_BUDGETS,
+                                                     check_launch_budgets)
+
+    _card()
+    res = check_launch_budgets([b.name for b in LAUNCH_BUDGETS
+                                if b.where == "card"])
+    assert len(res) == 3
+    assert all(r["ok"] for r in res), res
