@@ -496,6 +496,25 @@ Phases:
    equal to their plain versions on the profile's exact statistics; (e)
    the ``*_card`` launch budgets in a fresh process, each between its
    floor and its ceiling.
+26. the budget models' constants (``analysis/budgets.py``), each device
+   figure measured on the card: a ring hop on virtual shards (a
+   device-to-device copy at 1 B, 104,448 B and 835,584 B), B1 (f32) at the
+   reference block (131,072 x 136, 256 bins, 2 segments) against its
+   plain version, pinned host->device copies on a side stream (1 B and a
+   block), B4's wrapper and launch at bucket 8 against its plain version
+   and the scores' copy back, a new bucket's first dispatch, the canary's
+   oracle replay, ``save_state_checkpoint``'s legs at 1 KiB and 64 MiB,
+   the north star's rounds at 28 and 7 columns in turns, a fused bucket's
+   set-up, a serial round's host time and a ledger commit; the rest from
+   earlier phases (rows per second from 6, the flip from 25a, the sweep's
+   efficiency and straggler factor from 8c, group scaling from 24c
+   against 13c).  Then each family's model at an earlier phase's shape on
+   these constants beside what that phase measured (the port's hop
+   messages through ``wire_transfer``, 23a's and 24b's merges, 22a's copy
+   wait, 24a's dp rows/s, 13a's save, 25a's staleness, 22e's screened
+   rounds, 8c's sweep), and ``python -m lightgbm_tpu_torch lint`` in a
+   fresh process on the committed constants: exit 0, every section, every
+   miss a known one.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -2216,6 +2235,7 @@ def phase_sweep(ds, workdir):
     out = {"configs": len(grid), "s": secs,
            "configs_per_hour": len(grid) / secs * 3600.0,
            "buckets": buckets, "launches": counts,
+           "iterations": [int(r["iteration"]) for r in ledger.rows],
            "top3": [{k: r[k] for k in ("num_leaves", "min_data_in_leaf",
                                        "feature_fraction",
                                        "bagging_fraction", "iteration",
@@ -8778,6 +8798,558 @@ def phase_production_loop(dev, X, y, ds, workdir, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the budget models' constants on the card (analysis/budgets.py)
+# ---------------------------------------------------------------------------
+# A 1 B hop and two copies beyond the 50 MB L2 (the link's slope); the
+# reference stream block (rows × columns, bins, segments); checkpoint state
+# sizes; the narrow north star's columns; rounds timed a turn
+P26_LINK_BYTES = (1, 64 << 20, 256 << 20)
+P26_BLOCK, P26_BINS, P26_SEGS = (131_072, 136), 256, 2
+P26_GATHER_BYTES = (65_536, 1 << 20)
+P26_CKPT_BYTES = (1024, 64 << 20)
+P26_F_NARROW, P26_ROUNDS, P26_WARM_BUCKETS = 7, 6, (16, 32, 64)
+# the constants phase 26 measures, by the key its log and report use
+P26_CONSTANTS = {
+    "link": ("LINK_BYTES_PER_S", "LINK_HOP_LATENCY_S"),
+    "hist_equiv_flops": ("HIST_EQUIV_FLOPS",),
+    "h2d": ("H2D_BYTES_PER_S", "H2D_PUT_LATENCY_S"),
+    "serve_dispatch": ("SERVE_DISPATCH_FIXED_S", "SERVE_GATHER_BYTES_PER_S"),
+    "ckpt": ("HOST_WRITE_BYTES_PER_S", "CKPT_DIGEST_BYTES_PER_S",
+             "CKPT_FIXED_LATENCY_S"),
+    "train_rows": ("TRAIN_ROWS_PER_S",),
+    "warm": ("WARM_S_PER_SHAPE",),
+    "canary": ("CANARY_ORACLE_S_PER_ROW_TREE",),
+    "flip": ("FLIP_S",),
+    "round_f_axis": ("ROUND_F_AXIS_FRAC",),
+    "sweep": ("SWEEP_SETUP_S_PER_BUCKET", "HOST_ROUND_LATENCY_S",
+              "FUSED_BATCH_EFF", "SWEEP_STRAGGLER", "GROUP_OVERLAP_EFF",
+              "LEDGER_SAVE_S"),
+}
+P26_SECTIONS = ("comm_budgets", "comm_time", "stream_time", "stream_dp",
+                "serve_slo", "ckpt", "freshness", "sweep", "screen",
+                "budget_anchors")
+
+
+def stream_ms(fn, calls, stream=None):
+    """ms per call of ``calls`` back-to-back ``fn()`` on ``stream`` (the
+    current one by default), CUDA events around them, the median of three:
+    the rate the host can issue them or the card run them, whichever is
+    slower (a host->device put's cost as the block store pays it)."""
+    stream = stream or torch.cuda.current_stream()
+    per = []
+    with torch.cuda.stream(stream):
+        fn()
+        for _ in range(3):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record(stream)
+            for _ in range(calls):
+                fn()
+            e.record(stream)
+            e.synchronize()
+            per.append(s.elapsed_time(e) / calls)
+    return float(np.median(per))
+
+
+def wall_median(fn, runs=3):
+    """Median host seconds of ``runs`` calls of ``fn()`` (synchronised)."""
+    per = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        per.append(time.perf_counter() - t0)
+    return float(np.median(per))
+
+
+def p26_link(dev):
+    """A ring hop on virtual shards: a device-to-device ``copy_`` in HBM,
+    its rate the slope between two copies too large for L2."""
+    ms = {}
+    for n in P26_LINK_BYTES:
+        src = torch.ones(n, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        ms[n] = time_ms(lambda: dst.copy_(src), runs=5, inner=50)
+    lo, mid, hi = P26_LINK_BYTES
+    slope_s = (ms[hi] - ms[mid]) / 1e3
+    check(slope_s > 0 and ms[lo] > 0, f"26 link: copies {ms} ms")
+    return {"LINK_BYTES_PER_S": (hi - mid) / slope_s,
+            "LINK_HOP_LATENCY_S": ms[lo] / 1e3}, {"copy_ms": ms}
+
+
+def p26_hist(dev):
+    """B1 (f32) at the reference block: the histogram rate in the models'
+    unit of work, 2·rows·B·3S·F."""
+    import lightgbm_tpu_torch.ops.histogram as H
+
+    n, f = P26_BLOCK
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 260)
+    bins = torch.randint(0, P26_BINS, (n, f), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    stats = torch.rand((n, 3), generator=gen).to(dev)
+    seg = torch.randint(0, P26_SEGS, (n,), generator=gen,
+                        dtype=torch.int32).to(dev)
+
+    def call():
+        return H.compute_histograms(bins, stats, seg, P26_SEGS, P26_BINS,
+                                    "auto", "f32")
+
+    _, _, counts, plain = counted_run(call)
+    check(counts["hist_fused_f32"] == 1 and plain == 0,
+          f"26 hist: launches {counts}, plain {plain}")
+    got, want = call(), H.compute_histograms(bins, stats, seg, P26_SEGS,
+                                             P26_BINS, "plain", "f32")
+    err = float((got.double() - want.double()).abs().max())
+    check(err <= HIST_REL_TOL * float(stats.abs().sum()),
+          f"26 hist: B1 {err:.2e} from its plain version")
+    ms = time_ms(call)
+    work = 2.0 * n * P26_BINS * 3 * P26_SEGS * f
+    return {"HIST_EQUIV_FLOPS": work / (ms / 1e3)}, {
+        "b1_ms": ms, "work": work, "max_abs_err": err,
+        "launches": {k: v for k, v in counts.items() if v}}
+
+
+def p26_h2d(dev):
+    """Pinned host -> device copies on a side stream (the block store's)."""
+    side = torch.cuda.Stream(dev)
+    ms = {}
+    for n in (1, P26_BLOCK[0] * P26_BLOCK[1]):
+        src = torch.ones(n, dtype=torch.uint8).pin_memory()
+        dst = torch.empty(n, dtype=torch.uint8, device=dev)
+        ms[n] = stream_ms(lambda: dst.copy_(src, non_blocking=True), 20,
+                          side)
+    (lo, t_lo), (hi, t_hi) = sorted(ms.items())
+    check(t_hi > t_lo > 0, f"26 h2d: copies {ms} ms")
+    return {"H2D_BYTES_PER_S": (hi - lo) / ((t_hi - t_lo) / 1e3),
+            "H2D_PUT_LATENCY_S": t_lo / 1e3}, {"copy_ms": ms}
+
+
+def p26_serve(dev, pf):
+    """B4's wrapper and launch at bucket 8 (host time), the scores' device
+    -> host rate, a new bucket's first dispatch, the canary's replay."""
+    import lightgbm_tpu_torch.kernels.predict as KP
+    from lightgbm_tpu_torch.ops.predict import forest_sums_plain
+    from lightgbm_tpu_torch.serving import PredictorRuntime
+
+    rt = PredictorRuntime(pf, max_bucket=MAX_BUCKET, device=dev)
+    c0 = KP.PREDICT_FOREST_LAUNCHES.count
+    rng = np.random.default_rng(SEED + 261)
+    Xs = rng.normal(0, 1, (max(P26_WARM_BUCKETS), pf.num_feature()))
+    rt.predict(Xs[:8])                           # node tables built here
+    soa = rt._soa[0]
+    bins8 = torch.from_numpy(pf.bin_mapper.transform(Xs[:8])).to(dev)
+    before = KP.PREDICT_FOREST_LAUNCHES.count
+    dispatch_ms = host_ms(lambda: KP.forest_sums(soa, bins8, 0, pf.num_trees,
+                                                 pf.depth_cap), runs=200)
+    check(KP.PREDICT_FOREST_LAUNCHES.count - before == 201,
+          "26 serve: B4 did not launch once a call")
+    c1 = KP.PREDICT_FOREST_LAUNCHES.count
+    got = KP.forest_sums(soa, bins8, 0, pf.num_trees, pf.depth_cap)
+    c2 = KP.PREDICT_FOREST_LAUNCHES.count
+    want = forest_sums_plain(soa, bins8, pf.num_trees, pf.depth_cap)
+    check(torch.equal(got, want), "26 serve: B4 differs from its plain "
+          "version at bucket 8")
+    d2h = {}
+    for n in P26_GATHER_BYTES:
+        src = torch.ones(n // 4, dtype=torch.float32, device=dev)
+        dst = torch.empty(n // 4, dtype=torch.float32).pin_memory()
+        d2h[n] = stream_ms(lambda: dst.copy_(src, non_blocking=True), 20)
+    (lo, t_lo), (hi, t_hi) = sorted(d2h.items())
+    check(t_hi > t_lo, f"26 serve: device->host copies {d2h} ms")
+    warm = []
+    for b in P26_WARM_BUCKETS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.predict(Xs[:b])
+        warm.append(time.perf_counter() - t0)
+    codes = pf.bin_mapper.transform(Xs[:8])
+    oracle = rt.oracle
+    oracle.predict_numpy(codes)
+    canary_s = wall_median(lambda: oracle.predict_numpy(codes), runs=5)
+    per_row_tree = canary_s / (8 * pf.num_trees * pf.num_class)
+    # B4's launches of the drives above, the comparison's left out
+    launches = (c1 - c0) + (KP.PREDICT_FOREST_LAUNCHES.count - c2)
+    return ({"SERVE_DISPATCH_FIXED_S": dispatch_ms / 1e3,
+             "SERVE_GATHER_BYTES_PER_S": (hi - lo) / ((t_hi - t_lo) / 1e3)},
+            {"WARM_S_PER_SHAPE": float(np.median(warm))},
+            {"CANARY_ORACLE_S_PER_ROW_TREE": per_row_tree},
+            {"dispatch_ms": dispatch_ms, "d2h_ms": d2h, "warm_s": warm,
+             "buckets": P26_WARM_BUCKETS, "canary_s": canary_s,
+             "trees": pf.num_trees, "single_bucket_rows": MAX_BUCKET,
+             "launches": {"predict_forest": launches}})
+
+
+def p26_ckpt(workdir):
+    """``save_state_checkpoint`` at two state sizes: the digest leg (the
+    npz payload with its crc32s, and its sha256) alone, the write leg the
+    rest; the fixed cost is the write leg of the small state."""
+    import hashlib
+    import shutil
+
+    from lightgbm_tpu_torch.training.checkpoint import (_payload_bytes,
+                                                        save_state_checkpoint)
+
+    root = os.path.join(workdir, "p26_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 262)
+    legs = {}
+    for i, n in enumerate(P26_CKPT_BYTES):
+        arrays = {"pred_train": rng.random(n // 4, dtype=np.float32)}
+        meta = {"iter": i}
+        nbytes = len(_payload_bytes(arrays, meta))
+        total = wall_median(lambda: save_state_checkpoint(
+            arrays, meta, root, keep_last=1))
+        digest = wall_median(lambda: hashlib.sha256(
+            _payload_bytes(arrays, meta)).digest())
+        legs[nbytes] = {"total_s": total, "digest_s": digest,
+                        "write_s": total - digest}
+    (b_lo, lo), (b_hi, hi) = sorted(legs.items())
+    slope = (hi["write_s"] - lo["write_s"]) / (b_hi - b_lo)
+    check(slope > 0 and lo["write_s"] > 0 and hi["digest_s"] > 0,
+          f"26 ckpt: legs {legs}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"HOST_WRITE_BYTES_PER_S": 1.0 / slope,
+            "CKPT_DIGEST_BYTES_PER_S": b_hi / hi["digest_s"],
+            "CKPT_FIXED_LATENCY_S": lo["write_s"]}, {"legs": legs}
+
+
+def p26_f_axis(dev, X, y, ds):
+    """The north star's rounds at its 28 columns and at its first 7, in
+    turns: the share of a round on the line t = a + b·F.  A round the host
+    bounds may not grow with F at all: a slope below 0 is that, within the
+    spread of the turns, and counts as a share of 0 (the raw estimate is
+    kept beside it)."""
+    import lightgbm_tpu_torch as lgb
+
+    narrow = lgb.Dataset(np.ascontiguousarray(X[:, :P26_F_NARROW]), label=y,
+                         params={"max_bin": MAX_BIN}, device=dev)
+    narrow.construct()
+    turns = {NUM_FEATURES: [], P26_F_NARROW: []}
+    for f in (NUM_FEATURES, P26_F_NARROW, P26_F_NARROW, NUM_FEATURES):
+        b = lgb.Booster(dict(TRAIN_PARAMS), ds if f == NUM_FEATURES
+                        else narrow)
+        b.update()
+        turns[f].append(wall_median(lambda: b.update_many(P26_ROUNDS),
+                                    runs=1) / P26_ROUNDS)
+    del narrow
+    t_full = float(np.median(turns[NUM_FEATURES]))
+    t_narrow = float(np.median(turns[P26_F_NARROW]))
+    raw = (t_full - t_narrow) / (NUM_FEATURES - P26_F_NARROW) \
+        * NUM_FEATURES / t_full
+    check(np.isfinite(raw) and raw <= 1, f"26 round_f_axis: rounds {turns} s")
+    return {"ROUND_F_AXIS_FRAC": max(raw, 0.0)}, {
+        "s_per_round": turns, "raw_share": raw}
+
+
+def p26_sweep(dds, workdir, train_rows_per_s, earlier):
+    """The sweep's legs: a fused bucket's set-up (cv() of one round less a
+    round), the serial loop's host time a round, the fused batch's
+    efficiency and the straggler factor (phase 8c's buckets and ledger),
+    device-group scaling (24c against 13c), one ledger commit."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.sweep import SweepLedger
+
+    params = dict(CV_PARAMS, verbosity=-1)
+
+    def cv(rounds):
+        return lambda: lgb.cv(params, dds, rounds, nfold=CV_FOLDS,
+                              stratified=False, seed=SWEEP_SEED)
+
+    cv(1)()
+    t1, t4 = wall_median(cv(1)), wall_median(cv(4))
+    setup = t1 - (t4 - t1) / 3
+    b = lgb.Booster(params, dds)
+    b.update()
+    n = int(dds.num_data())
+    t_round = wall_median(lambda: b.update_many(10), runs=1) / 10
+    round_s = n / train_rows_per_s
+    sw = earlier["sweep"]
+    work = sum(k["rounds"] * k["configs"] * CV_FOLDS * round_s
+               for k in sw["buckets"])
+    fused = sum(k["s"] - setup for k in sw["buckets"])
+    paid = sum(k["rounds"] * k["configs"] for k in sw["buckets"])
+    needed = sum(min(i + CV_ES, CV_ROUNDS) for i in sw["iterations"])
+    single = earlier["recovery_sweep_s"]["uninterrupted"]
+    group = earlier["sweep_devices_s"] * MESH_DEVICES
+    path = os.path.join(workdir, "p26_ledger.json")
+    ledger = SweepLedger(sweep_grid(), path=path)
+    k = iter(range(len(ledger.rows)))
+    ledger_s = wall_median(lambda: ledger.record(next(k), 10, -1.0), runs=5)
+    os.unlink(path)
+    check(setup > 0 and t_round > round_s and fused > 0,
+          f"26 sweep: set-up {setup:.4f} s, a serial round {t_round:.4f} s "
+          f"against {round_s:.5f}, fused {fused:.2f} s")
+    return {"SWEEP_SETUP_S_PER_BUCKET": setup,
+            "HOST_ROUND_LATENCY_S": t_round - round_s,
+            "FUSED_BATCH_EFF": work / fused,
+            "SWEEP_STRAGGLER": paid / needed,
+            "GROUP_OVERLAP_EFF": single / group,
+            "LEDGER_SAVE_S": ledger_s}, {
+        "cv_1_round_s": t1, "cv_4_rounds_s": t4, "serial_round_s": t_round,
+        "rows": n, "bucket_rounds_paid": paid, "config_rounds_needed": needed,
+        "single_device_sweep_s": single,
+        "group_sweep_s": earlier["sweep_devices_s"]}
+
+
+def p26_wire_bytes(dev, f, num_bins):
+    """The bytes one shard's hop messages carry through the port's merge
+    (``wire_transfer`` spied) at D = 4, S = 2, for each ring wire."""
+    import lightgbm_tpu_torch.ops.quantize as Q
+    from lightgbm_tpu_torch.ops.histogram import histogram_merge
+
+    real, out = Q.wire_transfer, {}
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 263)
+    hists = [torch.rand((P26_SEGS, f, num_bins, 3), generator=gen).to(dev)
+             for _ in range(MESH_DEVICES)]
+    for wire, cell in (("f32", 4), ("bf16", 2), ("int8", 1)):
+        sent = []
+
+        def spy(ts, perm, wire_dtype, f_axis=1):
+            t = ts[0]
+            side = t.shape[f_axis] * 3 * 4 if wire_dtype == "int8" else 0
+            sent.append(t.numel() * cell + side)
+            return real(ts, perm, wire_dtype, f_axis=f_axis)
+
+        Q.wire_transfer = spy
+        try:
+            histogram_merge(hists, "reduce_scatter_pipelined",
+                            wire_dtype=wire, n_chunks=4)
+        finally:
+            Q.wire_transfer = real
+        out[wire] = sum(sent)
+    return out
+
+
+def p26_families(B, measured, earlier, dev, num_bins):
+    """Each family's model at a phase's shape on this run's constants,
+    beside what that phase measured: (predicted, measured, ratio)."""
+    c = measured
+    link = dict(link_bytes_per_s=c["LINK_BYTES_PER_S"],
+                link_hop_latency_s=c["LINK_HOP_LATENCY_S"])
+    h2d = dict(h2d_bytes_per_s=c["H2D_BYTES_PER_S"],
+               h2d_put_latency_s=c["H2D_PUT_LATENCY_S"])
+    rate = dict(hist_equiv_flops=c["HIST_EQUIV_FLOPS"])
+    out = {}
+
+    def line(name, shape, pred, meas, unit):
+        out[name] = {"shape": shape, "predicted": pred, "measured": meas,
+                     "unit": unit, "ratio": meas / pred if pred else None}
+
+    # comm bytes: the model's ring wire bytes at 23a's shape against the
+    # port's hop messages on the card
+    wire = p26_wire_bytes(dev, NUM_FEATURES, num_bins)
+    for w in ("f32", "int8"):
+        m = B.hist_merge_comm_bytes("reduce_scatter_pipelined", MESH_DEVICES,
+                                    NUM_FEATURES, num_bins, P26_SEGS,
+                                    wire_dtype=w)
+        line(f"comm_bytes_{w}", "D=4 F=28 S=2 pipelined",
+             m["ring_wire_bytes_per_shard"] - MESH_DEVICES * 64, wire[w], "B")
+    # comm time: one merge at 23a's shape against 23a's merge ms a round
+    # over its passes (22a's: the same grower, data and params)
+    passes = float(np.mean(earlier["22a"]["passes_per_round"]))
+    t = B.hist_merge_comm_time("reduce_scatter_pipelined", MESH_DEVICES,
+                               NUM_FEATURES, num_bins, P26_SEGS,
+                               rows_per_shard=BIG_ROWS // MESH_DEVICES,
+                               **link, **rate)
+    line("comm_time", "23a: D=4, merges a round = 22a's passes",
+         t["exposed_ms"] * passes,
+         float(earlier["23a"]["merge_event_ms_per_round"]), "ms a round")
+    # stream: exposed copy time a pass × passes against 22a's copy wait
+    s = B.stream_prefetch_time(STREAM_BLOCK_ROWS, NUM_FEATURES, num_bins,
+                               P26_SEGS, n_blocks=8, **h2d, **rate)
+    line("stream", "22a: 8 blocks of 131,072 × 28, prefetch 1",
+         s["exposed_ms"] * passes,
+         float(np.median(earlier["22a"]["copy_wait_ms_per_round"])),
+         "ms a round")
+    # stream dp: the merge a pass at 24b's shape against 24b's merge ms
+    sd = B.stream_dp_time_model(STREAM_BLOCK_ROWS, NUM_FEATURES, num_bins,
+                                P26_SEGS, n_blocks_per_shard=2,
+                                n_shards=MESH_DEVICES, **link, **h2d, **rate)
+    line("stream_dp", "24b: D=4, 2 blocks a shard",
+         sd["merge_ms"] * passes,
+         float(earlier["24b"]["merge_event_ms_per_round"]), "ms a round")
+    # serve: the dp speed-up at D=4 against 24a's rows/s, dp over single
+    turns = earlier["24a"]["rows_per_s_in_turns"]
+    single = float(np.median(turns["single"]))
+    bucket_ms = MAX_BUCKET / single * 1e3
+    sm = B.serve_mesh_dispatch_model(
+        MESH_DEVICES, bucket_ms, MAX_BUCKET,
+        serve_dispatch_fixed_s=c["SERVE_DISPATCH_FIXED_S"],
+        serve_gather_bytes_per_s=c["SERVE_GATHER_BYTES_PER_S"])
+    line("serve_slo", "24a: D=4 dp, 16,384-row buckets", sm["speedup_x"],
+         float(np.median(turns["dp"])) / single, "× single's rows/s")
+    ck = dict(host_write_bytes_per_s=c["HOST_WRITE_BYTES_PER_S"],
+              ckpt_digest_bytes_per_s=c["CKPT_DIGEST_BYTES_PER_S"],
+              ckpt_fixed_latency_s=c["CKPT_FIXED_LATENCY_S"],
+              train_rows_per_s=c["TRAIN_ROWS_PER_S"])
+    k = B.ckpt_overhead_time(BIG_ROWS, NUM_LEAVES, RECOVERY_ROUNDS, **ck)
+    line("ckpt", "13a: 1,000,000 rows, 12 trees of 127 leaves",
+         k["ckpt_ms"], float(np.median(earlier["13a"]["save_checkpoint_ms"])),
+         "ms")
+    # freshness: the control run's generations 2-4 (tick 0, no warm)
+    recs = earlier["25a"]["generations"]["control"]["staleness"][
+        "generations"][1:]
+    pred, meas = [], []
+    for g, r in enumerate(recs, start=2):
+        rows = min((REFRESH_FIRST_BLOCKS + g - 1) * STREAM_BLOCK_ROWS,
+                   BIG_ROWS)
+        f = B.staleness_model(
+            rows, REFRESH_ROUNDS, NUM_LEAVES,
+            REFRESH_INITIAL + (g - 1) * REFRESH_ROUNDS, 1, 0, 8, 0.0,
+            train_rows_per_s=c["TRAIN_ROWS_PER_S"],
+            host_write_bytes_per_s=c["HOST_WRITE_BYTES_PER_S"],
+            ckpt_fixed_latency_s=c["CKPT_FIXED_LATENCY_S"],
+            warm_s_per_shape=c["WARM_S_PER_SHAPE"],
+            serve_dispatch_fixed_s=c["SERVE_DISPATCH_FIXED_S"],
+            canary_oracle_s_per_row_tree=c["CANARY_ORACLE_S_PER_ROW_TREE"],
+            flip_s=c["FLIP_S"])
+        pred.append(f["staleness_s"])
+        meas.append(r["staleness_ms"] / 1e3)
+    line("freshness", "25a: generations 2-4, 5 rounds, tick 0",
+         float(np.median(pred)), float(np.median(meas)), "s")
+    # screen: the speed-up at 22e's shape against 22e's streamed rounds
+    e = earlier["22e"]
+    sc = B.feature_screen_time_model(
+        e["rows"], e["features"], 0.25, SCREEN["screen_refresh_rounds"],
+        round_f_axis_frac=c["ROUND_F_AXIS_FRAC"],
+        train_rows_per_s=c["TRAIN_ROWS_PER_S"])
+    sp = e["s_per_round_streamed"]
+    line("screen", "22e: 136 columns, keep 0.25, streamed", sc["speedup_x"],
+         sp["off"] / sp["ema"], "× unscreened")
+    # sweep: 8c's 36 configs in its buckets on one device
+    sw = earlier["sweep"]
+    bk = sw["buckets"]
+    st = B.sweep_time_model(
+        sw["configs"], earlier["diamonds_rows"], CV_FOLDS,
+        int(round(np.mean([k_["rounds"] for k_ in bk]))), len(bk), 1, 1,
+        train_rows_per_s=c["TRAIN_ROWS_PER_S"],
+        host_round_latency_s=c["HOST_ROUND_LATENCY_S"],
+        ledger_save_s=c["LEDGER_SAVE_S"],
+        fused_batch_eff=c["FUSED_BATCH_EFF"],
+        group_overlap_eff=c["GROUP_OVERLAP_EFF"],
+        sweep_setup_s_per_bucket=c["SWEEP_SETUP_S_PER_BUCKET"],
+        sweep_straggler=c["SWEEP_STRAGGLER"])
+    line("sweep", "8c: 36 configs, 5 folds, its buckets", st["makespan_s"],
+         sw["s"], "s")
+    return out
+
+
+def p26_lint():
+    """The port's ``lint`` default pass in a fresh process, on the
+    committed constants: exit 0, every section there, every miss known."""
+    proc = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch", "lint",
+                           "--format", "json"], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300)
+    check(proc.returncode == 0, f"26 lint exit {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    rep = json.loads(proc.stdout)
+    check(rep["ok"] and set(P26_SECTIONS) <= set(rep),
+          f"26 lint sections {sorted(rep)}")
+    misses = sorted(r["name"] for key in P26_SECTIONS for r in rep[key]
+                    if not r["ok"])
+    check(all("known_miss" in r for key in P26_SECTIONS for r in rep[key]
+              if not r["ok"]), f"26 lint: unknown misses {misses}")
+    return {"rc": proc.returncode, "misses": misses,
+            "specs": sum(len(rep[k]) for k in P26_SECTIONS)}
+
+
+def phase_budget_constants(dev, X, y, ds, dds, workdir, card, earlier):
+    """Phase 26: every device constant of ``analysis/budgets.py`` measured
+    on the card, each family's model at an earlier phase's shape beside
+    what that phase measured, the specs this run's own figures miss beside
+    ``CARD_MISSES``, and ``lint``'s default pass in a fresh process.  The
+    kernels' launches are counted per part (B1 and B4 by their own
+    drives, the rounds and the sweep with every counter at 0 before)."""
+    import lightgbm_tpu_torch.analysis.budgets as B
+    from lightgbm_tpu_torch.serving.packed import PackedForest
+
+    t0 = time.perf_counter()
+    c, detail, secs, launches = {}, {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def part(key, fn, counted=False):
+        t1 = time.perf_counter()
+        if counted:
+            (got, detail[key]), _, counts, _ = counted_run(fn)
+            add(counts)
+        else:
+            got, detail[key] = fn()
+        c.update(got)
+        secs[key] = time.perf_counter() - t1
+
+    part("link", lambda: p26_link(dev))
+    part("hist_equiv_flops", lambda: p26_hist(dev))
+    add(detail["hist_equiv_flops"]["launches"])
+    part("h2d", lambda: p26_h2d(dev))
+    pf = PackedForest.load(os.path.join(workdir, "trained_higgs.npz"))
+    t1 = time.perf_counter()
+    srv, warm, canary, detail["serve_dispatch"] = p26_serve(dev, pf)
+    c.update(srv)
+    c.update(warm)
+    c.update(canary)
+    add(detail["serve_dispatch"]["launches"])
+    secs["serve_dispatch"] = time.perf_counter() - t1
+    part("ckpt", lambda: p26_ckpt(workdir))
+    c["TRAIN_ROWS_PER_S"] = BIG_ROWS / earlier["train_s_per_round"]
+    flips = [r["decomposition"]["flip"] for r in earlier["25a"][
+        "generations"]["control"]["staleness"]["generations"]]
+    c["FLIP_S"] = float(np.median(flips))
+    part("round_f_axis", lambda: p26_f_axis(dev, X, y, ds), counted=True)
+    part("sweep", lambda: p26_sweep(dds, workdir, c["TRAIN_ROWS_PER_S"],
+                                    earlier), counted=True)
+    want = [n for names in P26_CONSTANTS.values() for n in names]
+    check(sorted(c) == sorted(want) == sorted(B.DEVICE_CONSTANTS)
+          and all(np.isfinite(v) and v >= 0 for v in c.values())
+          and all(v > 0 for n, v in c.items() if n != "ROUND_F_AXIS_FRAC"),
+          f"26: constants {c}")
+    committed = {n: getattr(B, n) for n in want}
+    t1 = time.perf_counter()
+    families = p26_families(B, c, earlier, dev, ds.num_bins)
+    secs["families"] = time.perf_counter() - t1
+    # the miss set on this run's figures: the committed constants are
+    # medians over runs, so a spec near its bar may land either side here
+    # (reported, not failed; ``lint`` below holds the committed set)
+    t1 = time.perf_counter()
+    here = B.misses_at(c)
+    misses = {"at_this_run": here,
+              "not_in_card_misses": sorted(set(here) - set(B.CARD_MISSES)),
+              "in_card_misses_but_pass": sorted(set(B.CARD_MISSES)
+                                                - set(here))}
+    secs["misses_at_run"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lint = p26_lint()
+    secs["lint"] = time.perf_counter() - t1
+    check(launches.get("hist_fused_f32", 0) > 0
+          and launches.get("predict_forest", 0) > 0,
+          f"phase 26: B1 f32 or B4 never launched ({launches})")
+    out = {"card": card, "constants": c, "committed": committed,
+           "measured_over_committed": {n: c[n] / committed[n] for n in c},
+           "families": families, "misses_at_run": misses, "lint": lint,
+           "launches": launches, "detail": detail, "s_by_part": secs,
+           "s": time.perf_counter() - t0}
+    for key, names in P26_CONSTANTS.items():
+        log(f"phase 26 {key}: " + ", ".join(
+            f"{n} {c[n]:.6g} (committed {committed[n]:.6g})" for n in names))
+    for name, f in families.items():
+        log(f"phase 26 {name} ({f['shape']}): model {f['predicted']:.6g}, "
+            f"measured {f['measured']:.6g} {f['unit']}, measured/model "
+            f"{f['ratio']:.4g}")
+    log(f"phase 26 misses on this run's figures: {here}; not in CARD_MISSES "
+        f"{misses['not_in_card_misses']}, in CARD_MISSES but passing "
+        f"{misses['in_card_misses_but_pass']}")
+    log(f"phase 26: {out['s']:.1f} s ({json.dumps(secs)}) on {card}; lint "
+        f"rc {lint['rc']}, {lint['specs']} specs, misses {lint['misses']}; "
+        f"launches {json.dumps(launches)}")
+    with open(os.path.join(workdir, "p26.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -8885,6 +9457,15 @@ def main() -> int:
     l24 = phase24["launches"]
     phase25 = phase_production_loop(dev, X, y, ds_north, workdir, card)
     l25 = phase25["launches"]
+    phase26 = phase_budget_constants(dev, X, y, ds_north, dds, workdir, card, {
+        "train_s_per_round": train["s_per_round_median"]["bf16"],
+        "sweep": sweep, "13a": recovery["train"],
+        "recovery_sweep_s": recovery["sweep"]["s"],
+        "22a": phase22["22a"], "22e": phase22["22e"],
+        "23a": phase23["23a"], "24a": phase24["24a"], "24b": phase24["24b"],
+        "sweep_devices_s": phase24["24c"]["service_s"],
+        "25a": phase25["25a"], "diamonds_rows": dds.num_data()})
+    l26 = phase26["launches"]
     del ds_north
 
     kernels = []
@@ -8908,7 +9489,8 @@ def main() -> int:
                              "22": l22.get("predict_forest", 0),
                              "23": l23.get("predict_forest", 0),
                              "24": l24.get("predict_forest", 0),
-                             "25": l25.get("predict_forest", 0)})
+                             "25": l25.get("predict_forest", 0),
+                             "26": l26.get("predict_forest", 0)})
         kernels.append({
             "name": f"predict_forest_{prec}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -8942,7 +9524,8 @@ def main() -> int:
                     "22": l22.get(f"{name}_{mode}", 0),
                     "23": l23.get(f"{name}_{mode}", 0),
                     "24": l24.get(f"{name}_{mode}", 0),
-                    "25": l25.get(f"{name}_{mode}", 0)},
+                    "25": l25.get(f"{name}_{mode}", 0),
+                    "26": l26.get(f"{name}_{mode}", 0)},
                 "max_abs_err": hist_errs[name][mode],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -8967,8 +9550,8 @@ def main() -> int:
             "18": l18.get("split_iter", 0), "19": l19.get("split_iter", 0),
             "20": l20.get("split_iter", 0), "21": l21.get("split_iter", 0),
             "22": l22.get("split_iter", 0), "23": l23.get("split_iter", 0),
-                    "24": l24.get("split_iter", 0),
-            "25": l25.get("split_iter", 0)},
+            "24": l24.get("split_iter", 0), "25": l25.get("split_iter", 0),
+            "26": l26.get("split_iter", 0)},
         "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": t["shape"],
@@ -8998,7 +9581,8 @@ def main() -> int:
                 "22": l22.get(f"hist_segstats_{mode}", 0),
                 "23": l23.get(f"hist_segstats_{mode}", 0),
                     "24": l24.get(f"hist_segstats_{mode}", 0),
-                "25": l25.get(f"hist_segstats_{mode}", 0)},
+                "25": l25.get(f"hist_segstats_{mode}", 0),
+                "26": l26.get(f"hist_segstats_{mode}", 0)},
             "max_abs_err": b6_errs[mode],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -9029,7 +9613,8 @@ def main() -> int:
                 "22": l22.get(f"hist_fused_batched_{mode}", 0),
                 "23": l23.get(f"hist_fused_batched_{mode}", 0),
                     "24": l24.get(f"hist_fused_batched_{mode}", 0),
-                "25": l25.get(f"hist_fused_batched_{mode}", 0)},
+                "25": l25.get(f"hist_fused_batched_{mode}", 0),
+                "26": l26.get(f"hist_fused_batched_{mode}", 0)},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
@@ -9049,7 +9634,8 @@ def main() -> int:
             "22": l22.get("hist_fused_int8", 0),
             "23": l23.get("hist_fused_int8", 0),
                     "24": l24.get("hist_fused_int8", 0),
-            "25": l25.get("hist_fused_int8", 0)},
+            "25": l25.get("hist_fused_int8", 0),
+            "26": l26.get("hist_fused_int8", 0)},
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shape": t["shape"],
@@ -9080,7 +9666,7 @@ def main() -> int:
               "phase15": phase15, "phase16": phase16, "phase17": phase17,
               "phase18": phase18, "phase19": phase19, "phase20": phase20,
               "phase21": phase21, "phase22": phase22, "phase23": phase23,
-              "phase24": phase24, "phase25": phase25,
+              "phase24": phase24, "phase25": phase25, "phase26": phase26,
               "library_call": {
                   "predict_forest": "none: no single PyTorch call computes "
                                     "forest traversal",

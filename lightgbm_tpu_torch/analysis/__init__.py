@@ -2,9 +2,11 @@
 
 The AST rules that mean something without JAX (:mod:`.rules`: GL008
 determinism, GL009 lock discipline, GL011 typed errors; :mod:`.program`:
-GL010 fault-site registry drift), the engine and the accepted-debt baseline
-(:mod:`.engine`, :mod:`.baseline`, ``baseline.toml``), and launch budgets
-counted from the port's own launches (:mod:`.budgets`).
+GL010 fault-site registry drift, GL014 parity-contract anchors), the
+engine and the accepted-debt baseline (:mod:`.engine`, :mod:`.baseline`,
+``baseline.toml``), and layer 2 (:mod:`.budgets`): launch budgets counted
+from the port's own launches, the analytic budget models on the card's
+constants, and their anchors.
 
 Front ends: ``python -m lightgbm_tpu_torch lint`` (:mod:`.cli`) and
 ``tests/test_torch_graftlint.py``.

@@ -1,15 +1,19 @@
 """``python -m lightgbm_tpu_torch lint`` — the graftlint front end, the port
 of ``lightgbm_tpu/analysis/cli.py``.
 
-Default run: the AST rules (GL008, GL009, GL011 per file; GL010 over the
-whole package in the no-paths case) plus the baseline — fast, no torch.
-``--budgets`` adds the launch budgets (:mod:`.budgets`): the ``*_cpu`` pins
-everywhere, the ``*_card`` counts where a CUDA device is visible.
+Default run: the AST rules (GL008, GL009, GL011 per file; GL010 and GL014
+over the whole program in the no-paths case) plus the baseline, the nine
+analytic budget model families on the card's constants and the budget
+anchors — fast, pure arithmetic and ``ast``, no torch.  ``--budgets`` adds
+the launch budgets (:mod:`.budgets`): the ``*_cpu`` pins everywhere, the
+``*_card`` counts where a CUDA device is visible.
 
 Exit codes (machine-readable by construction):
 
-* 0 — clean;
-* 1 — findings above the baseline / budget violations;
+* 0 — clean (a model spec in ``budgets.CARD_MISSES`` may miss its bar: it
+  is printed ``[MISS]`` with its ROADMAP entry);
+* 1 — findings above the baseline / budget violations / a new or stale
+  card miss;
 * 2 — usage or baseline-format error (``graftlint: usage-error: ...``);
 * 3 — internal analyzer error (``graftlint: internal-error: ...``) —
   the analyzer itself broke, which must never masquerade as "the tree
@@ -139,6 +143,19 @@ def _run(argv: Optional[List[str]] = None) -> int:
     }}
     failed = bool(report.unsuppressed)
 
+    # pure arithmetic on the card's constants — always on
+    from .budgets import check_budget_anchors, model_sections, section_failed
+
+    for key, res in model_sections().items():
+        sections[key] = res
+        failed |= section_failed(res)
+
+    # stale-entry reporting: budget specs must anchor to live symbols —
+    # pure ast, so it rides in the default pass
+    res = check_budget_anchors()
+    sections["budget_anchors"] = res
+    failed |= any(not r["ok"] for r in res)
+
     if budgets:
         from .budgets import check_launch_budgets
 
@@ -152,18 +169,31 @@ def _run(argv: Optional[List[str]] = None) -> int:
         return 1 if failed else 0
 
     if fmt == "github":
-        # workflow-annotation lines: findings anchor file+line, budget
-        # failures annotate without a location
+        # workflow-annotation lines: findings anchor file+line, budget /
+        # anchor failures annotate without a location, known card misses
+        # warn
         for f in report.unsuppressed:
             print(f"::error file={f.path},line={f.line},"
                   f"col={f.col + 1},title=graftlint {f.rule}::"
                   f"{f.message}")
         for line in sections["layer1"]["stale_suppressions"]:
             print(f"::warning title=graftlint stale baseline::{line}")
-        for r in sections.get("launch_budgets", ()):
-            if not r["ok"]:
-                print(f"::error title=graftlint launch_budgets::"
-                      f"{r['name']}: {r['measured']}/{r['budget']}")
+        for key, rs in sections.items():
+            if key == "layer1":
+                continue
+            for r in rs:
+                known = r.get("known_miss")
+                if r["ok"] and not known:
+                    continue
+                if known and not r["ok"]:
+                    print(f"::warning title=graftlint {key}::"
+                          f"{r['name']}: known card miss ({known})")
+                    continue
+                why = r.get("why") or (
+                    f"listed in CARD_MISSES ({known}) but passes"
+                    if known else json.dumps(
+                        {k: v for k, v in r.items() if k != "name"}))
+                print(f"::error title=graftlint {key}::{r['name']}: {why}")
         return 1 if failed else 0
 
     l1 = sections["layer1"]
@@ -172,14 +202,36 @@ def _run(argv: Optional[List[str]] = None) -> int:
     if not quiet:
         for line in l1["stale_suppressions"]:
             print(f"stale baseline entry: {line}")
-        for r in sections.get("launch_budgets", ()):
-            mark = "ok" if r["ok"] else "FAIL"
-            print(f"[{mark}] launch_budgets:{r['name']} "
-                  f"{r['measured']}/{r['budget']}")
+        for key in ("comm_budgets", "comm_time", "stream_time",
+                    "stream_dp", "serve_slo", "ckpt", "freshness",
+                    "sweep", "screen", "budget_anchors",
+                    "launch_budgets"):
+            for r in sections.get(key, ()):
+                known = r.get("known_miss")
+                mark = ("ok" if r["ok"] and not known else
+                        "MISS" if known and not r["ok"] else "FAIL")
+                detail = (f"{r['measured']} B ({r['drop_x']}x vs psum, "
+                          f"floor {r['min_drop_x']}x)"
+                          if key == "comm_budgets" else
+                          f"{r['measured']*100:.0f}% hidden "
+                          f"({r['exposed_ms']:.3f} ms exposed of "
+                          f"{r['comm_ms']:.3f} ms, floor "
+                          f"{r['budget']*100:.0f}%)"
+                          if key in ("comm_time", "stream_time") else
+                          f"{r['path']}" + (f" ({r['why']})"
+                                            if r["why"] else "")
+                          if key == "budget_anchors" else
+                          f"{r['measured']}/{r['budget']}")
+                if known:
+                    detail += (f" (known card miss, {known})" if not r["ok"]
+                               else f" (listed as a card miss, {known}, "
+                                    f"but passes: stale)")
+                print(f"[{mark}] {key}:{r['name']} {detail}")
         n_unsup = len(l1["unsuppressed"])
+        layers = ["budget models"] + (["launch budgets"] if budgets
+                                      else [])
         print(f"graftlint: {l1['files_checked']} files, {n_unsup} "
               f"finding(s), {len(l1['suppressed'])} baselined"
-              + ("; launch budgets "
-                 + ("FAILED" if failed and not n_unsup else "ok")
-                 if budgets else ""))
+              + f"; {' + '.join(layers)} "
+              + ("FAILED" if failed and not n_unsup else "ok"))
     return 1 if failed else 0

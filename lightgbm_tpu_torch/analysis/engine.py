@@ -3,8 +3,9 @@ port of ``lightgbm_tpu/analysis/engine.py``.
 
 The engine imports neither torch nor the package under analysis: the rules
 are pure ``ast``, so ``lint`` stays fast and runs on a machine with no card.
-The launch budgets live in :mod:`.budgets` and are pulled in by the CLI only
-when asked (``--budgets``).
+The budget models and anchors (:mod:`.budgets`) are pure arithmetic and
+``ast`` too; the launch budgets, which load torch, run only when asked
+(``--budgets``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Iterable, List, Optional
 
 from .baseline import (BaselineResult, Suppression, apply_baseline,
                        parse_baseline)
-from .program import Program, fault_site_findings
+from .program import (Program, fault_site_findings,
+                      parity_anchor_findings)
 from .rules import Finding, analyze_source
 
 # Directories never linted: fixtures are deliberately-broken snippets,
@@ -90,9 +92,10 @@ def run_lint(paths: Optional[Iterable[str]] = None,
     With no explicit ``paths`` (the default pass) the whole port package is
     analyzed as one :class:`~.program.Program`, and GL010 checks the
     fault-site registry against every consultation site and the port's
-    tests (``tests/test_torch_*.py``).  Explicit paths are linted file by
-    file (fixtures, CLI-on-a-file); GL010 needs the whole program and is
-    skipped there.
+    tests (``tests/test_torch_*.py``), and GL014 pins the port's PARITY.md
+    contracts to live symbols.  Explicit paths are linted file by file
+    (fixtures, CLI-on-a-file); GL010 and GL014 need the whole program and
+    are skipped there.
 
     ``baseline_path=None`` disables suppression.  GL000 parse failures
     are never baselined and never waived: a tree that does not parse
@@ -104,6 +107,8 @@ def run_lint(paths: Optional[Iterable[str]] = None,
         program = Program(modules)
         report.findings.extend(program.run_rules())
         report.findings.extend(fault_site_findings(program, _port_tests()))
+        # GL014: the port's PARITY.md contracts pinned to live symbols
+        report.findings.extend(parity_anchor_findings(REPO_ROOT))
         report.files_checked = len(modules)
     else:
         for rel, src in _read_sources(paths):

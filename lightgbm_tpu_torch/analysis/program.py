@@ -1,5 +1,5 @@
-"""graftlint's whole-program rule, GL010 — the port of the fault-site part
-of ``lightgbm_tpu/analysis/program.py``.
+"""graftlint's whole-program rules, GL010 and GL014 — the port of the
+fault-site and parity-anchor parts of ``lightgbm_tpu/analysis/program.py``.
 
 GL010 (fault-site registry drift) is whole-program by nature: the registry
 in :mod:`lightgbm_tpu_torch.faults`, the consultation sites spread across
@@ -14,16 +14,22 @@ directions:
 3. every registered site is referenced from at least one test module
    (the chaos matrix must not silently stop covering a site).
 
+:func:`parity_anchor_findings` (GL014) pins every claim of the port's
+parity contracts (``lightgbm_tpu_torch/PARITY.md``) to the live port
+symbols and ``tests/test_torch_*.py`` tests that carry it, both ways.
+
 :class:`Program` parses every module of the package once and runs the
 per-file rules over each.  The reference's traced and mesh closures
-(GL001-GL007, GL012, GL013) and its parity anchors (GL014) are not ported.
-Pure ``ast``: nothing here imports torch or the package under analysis.
+(GL001-GL007, GL012, GL013) are not ported.  Pure ``ast``: nothing here
+imports torch or the package under analysis.
 """
 
 from __future__ import annotations
 
 import ast
+import re
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from .rules import Finding, _ModuleAnalysis, apply_waivers
@@ -241,4 +247,222 @@ def fault_site_findings(
                     f"registered fault site {site!r} is not referenced "
                     f"by any chaos/resilience test — the chaos matrix "
                     f"silently stopped covering it"))
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# GL014 — parity-contract anchors
+# ---------------------------------------------------------------------------
+# Every section of the port's PARITY.md that makes a bit-identical /
+# tolerance claim is pinned to the live code and tests that carry it — the
+# BUDGET_ANCHORS discipline applied to parity contracts.  Keys are the
+# ``## `` heading texts, values (repo-relative file, top-level symbol)
+# pairs; renaming or deleting a pinned symbol fails the lint NAMING the
+# stale contract.
+PARITY_DOC = "lightgbm_tpu_torch/PARITY.md"
+_PARITY_CLAIM_RE = re.compile(r"bit-?identical|bitwise|tolerance", re.I)
+
+PARITY_ANCHORS: Dict[str, Tuple[Tuple[str, str], ...]] = {
+    "The dyadic tier: bit-identical trees and predictions": (
+        ("lightgbm_tpu_torch/models/tree.py", "grow_tree"),
+        ("lightgbm_tpu_torch/ops/split.py", "find_best_split"),
+        ("lightgbm_tpu_torch/ops/histogram.py", "compute_histograms"),
+        ("tests/test_torch_train.py", "test_dyadic_round1_bit_identical"),
+        ("tests/test_torch_train.py",
+         "test_dyadic_half_tail_with_every_regularizer"),
+        ("tests/test_torch_int8.py", "test_wave_tree_dyadic_bit_identical"),
+    ),
+    "General data: split structure equal, values within tolerance": (
+        ("lightgbm_tpu_torch/ops/split.py", "find_best_split"),
+        ("lightgbm_tpu_torch/models/gbdt.py", "Booster"),
+        ("tests/test_torch_train.py",
+         "test_general_l2_structure_and_values"),
+        ("tests/test_torch_train.py",
+         "test_general_binary_structure_and_values"),
+        ("tests/test_torch_near_ties.py",
+         "test_near_tied_thresholds_swap_only_where_no_in_bag_row_lies"),
+    ),
+    "Kernels against their plain versions": (
+        ("lightgbm_tpu_torch/ops/histogram.py", "compute_histograms"),
+        ("lightgbm_tpu_torch/ops/predict.py", "predict_forest"),
+        ("lightgbm_tpu_torch/ops/predict.py", "predict_forest_plain"),
+        ("lightgbm_tpu_torch/kernels/histogram.py", "int8_passes_plain"),
+        ("tests/test_torch_b1_b2_passes.py",
+         "test_passes_match_the_plain_version"),
+        ("tests/test_torch_predict.py",
+         "test_wrapper_takes_plain_version_only_for_cpu_tensors"),
+        ("tests/test_torch_kernels_on_card.py",
+         "test_b1_kernel_matches_plain_on_card"),
+        ("tests/test_torch_kernels_on_card.py",
+         "test_b3_kernel_matches_plain_bit_for_bit_on_card"),
+        ("tests/test_torch_kernels_on_card.py",
+         "test_kernel_matches_plain_version_on_card"),
+    ),
+    "int8 histograms quantize on the CPU too": (
+        ("lightgbm_tpu_torch/ops/histogram.py", "quantize_int8"),
+        ("tests/test_torch_int8.py",
+         "test_plain_int8_histogram_bit_equal_to_pallas"),
+        ("tests/test_torch_int8.py", "test_quantize_int8_bit_equal_to_pallas"),
+        ("tests/test_torch_int8.py", "test_train_l2_int8_matches_reference"),
+    ),
+    "Streamed training equals in-memory training": (
+        ("lightgbm_tpu_torch/data/block_store.py", "BlockStore"),
+        ("lightgbm_tpu_torch/data/stream_grow.py", "stream_grow_tree"),
+        ("tests/test_torch_streaming.py",
+         "test_dyadic_streamed_bit_equal_reference_and_in_memory"),
+        ("tests/test_torch_streaming.py",
+         "test_general_streamed_within_regime"),
+        ("tests/test_torch_stream_dp.py", "test_dyadic_bit_identical"),
+    ),
+    "The mesh equals serial on exact sums; the lossy wires": (
+        ("lightgbm_tpu_torch/ops/histogram.py", "histogram_merge"),
+        ("lightgbm_tpu_torch/ops/quantize.py", "wire_transfer"),
+        ("lightgbm_tpu_torch/parallel/mesh.py", "psum"),
+        ("tests/test_torch_parallel_train.py",
+         "test_dyadic_round_one_bit_identical"),
+        ("tests/test_torch_parallel_train.py", "test_learner_matches_serial"),
+        ("tests/test_torch_parallel.py",
+         "test_wire_transfer_matches_reference"),
+        ("tests/test_torch_parallel.py",
+         "test_histogram_merge_matches_reference"),
+    ),
+    "Kill and resume: bit-identical": (
+        ("lightgbm_tpu_torch/training/checkpoint.py", "save_checkpoint"),
+        ("lightgbm_tpu_torch/training/loop.py", "train_resumable"),
+        ("tests/test_torch_checkpoint.py",
+         "test_kill_at_every_round_resumes_bit_identical"),
+        ("tests/test_torch_checkpoint.py",
+         "test_sigterm_drains_checkpoints_and_resumes"),
+        ("tests/test_torch_kernels_on_card.py",
+         "test_kill_and_resume_bit_identical_on_card"),
+    ),
+    "Model files interchange both ways": (
+        ("lightgbm_tpu_torch/utils/serialize.py", "booster_to_string"),
+        ("lightgbm_tpu_torch/serving/packed.py", "PackedForest"),
+        ("tests/test_torch_model_io.py",
+         "test_port_text_model_loads_in_reference"),
+        ("tests/test_torch_model_io.py",
+         "test_reference_text_model_loads_in_port"),
+        ("tests/test_torch_model_io.py", "test_port_packed_npz_interchanges"),
+        ("tests/test_torch_checkpoint.py",
+         "test_port_checkpoint_resumes_in_reference"),
+    ),
+}
+
+
+def _top_level_symbols(path: Path) -> Optional[Set[str]]:
+    """Top-level def/class/assignment names of a module; None when the
+    file is missing or does not parse (the caller reports that as the
+    stale-anchor finding, not a crash)."""
+    try:
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+    except (OSError, SyntaxError):
+        return None
+    out: Set[str] = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+    return out
+
+
+def _parity_sections(text: str) -> Dict[str, Tuple[int, str]]:
+    """``## `` heading -> (1-based heading line, section body)."""
+    sections: Dict[str, Tuple[int, str]] = {}
+    title: Optional[str] = None
+    start = 0
+    body: List[str] = []
+    for i, line in enumerate(text.splitlines(), start=1):
+        if line.startswith("## "):
+            if title is not None:
+                sections[title] = (start, "\n".join(body))
+            title = line[3:].strip()
+            start = i
+            body = []
+        elif title is not None:
+            body.append(line)
+    if title is not None:
+        sections[title] = (start, "\n".join(body))
+    return sections
+
+
+def parity_anchor_findings(
+        repo_root: Path,
+        anchors: Optional[Dict[str, Tuple[Tuple[str, str], ...]]] = None,
+        parity_md: Optional[str] = None) -> List[Finding]:
+    """GL014: the port's PARITY.md contracts <-> live code, both ways.
+
+    1. every claim-bearing section (matches ``bit-identical``/
+       ``bitwise``/``tolerance`` in its heading or prose; table rows are
+       inventories, not claims) has a PARITY_ANCHORS entry;
+    2. every PARITY_ANCHORS key names a section that still exists;
+    3. every pinned (file, symbol) resolves to a live top-level symbol.
+
+    ``anchors``/``parity_md`` are injectable for tests; the default pass
+    reads ``PARITY_ANCHORS`` and ``<repo_root>/lightgbm_tpu_torch/PARITY.md``.
+    """
+    if anchors is None:
+        anchors = PARITY_ANCHORS
+    if parity_md is None:
+        doc = Path(repo_root) / PARITY_DOC
+        if not doc.is_file():
+            if anchors:
+                return [Finding(
+                    "GL014", PARITY_DOC, 1, 0,
+                    f"{len(anchors)} parity contract(s) are anchored but "
+                    f"{PARITY_DOC} is missing — the contract document "
+                    f"moved or was deleted without retiring its anchors")]
+            return []
+        parity_md = doc.read_text(encoding="utf-8")
+
+    findings: List[Finding] = []
+    sections = _parity_sections(parity_md)
+
+    for title, (line, body) in sorted(sections.items(),
+                                      key=lambda kv: kv[1][0]):
+        prose = "\n".join(ln for ln in body.splitlines()
+                          if not ln.lstrip().startswith("|"))
+        if _PARITY_CLAIM_RE.search(title) or _PARITY_CLAIM_RE.search(prose):
+            if title not in anchors:
+                findings.append(Finding(
+                    "GL014", PARITY_DOC, line, 0,
+                    f"section {title!r} makes a bit-identical/tolerance "
+                    f"claim but has no PARITY_ANCHORS entry — pin the "
+                    f"claim to its (file, symbol) pairs in "
+                    f"analysis/program.py so renames fail the lint"))
+
+    symcache: Dict[str, Optional[Set[str]]] = {}
+    for title in sorted(anchors):
+        if title not in sections:
+            findings.append(Finding(
+                "GL014", PARITY_DOC, 1, 0,
+                f"PARITY_ANCHORS pins section {title!r} but {PARITY_DOC} "
+                f"has no such heading — the contract was renamed or "
+                f"removed; update the anchor key (analysis/program.py) "
+                f"in the same change"))
+            continue
+        line = sections[title][0]
+        for rel, sym in anchors[title]:
+            if rel not in symcache:
+                symcache[rel] = _top_level_symbols(Path(repo_root) / rel)
+            syms = symcache[rel]
+            if syms is None:
+                findings.append(Finding(
+                    "GL014", PARITY_DOC, line, 0,
+                    f"contract {title!r} is anchored to {rel} which is "
+                    f"missing or unparseable — the parity-bearing module "
+                    f"moved; re-pin the contract"))
+            elif sym not in syms:
+                findings.append(Finding(
+                    "GL014", PARITY_DOC, line, 0,
+                    f"contract {title!r} is anchored to {rel}:{sym} "
+                    f"which no longer exists at top level — the "
+                    f"parity-bearing symbol was renamed or deleted; "
+                    f"update the contract and its anchor together"))
+    findings.sort(key=lambda f: (f.path, f.line, f.rule, f.message))
     return findings

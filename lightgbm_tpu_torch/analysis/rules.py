@@ -373,7 +373,7 @@ class _ModuleAnalysis:
 
 
 # GL000 (a file that does not parse) and the ported rule ids
-RULE_IDS = ("GL000", "GL008", "GL009", "GL010", "GL011")
+RULE_IDS = ("GL000", "GL008", "GL009", "GL010", "GL011", "GL014")
 
 
 def apply_waivers(findings: List[Finding], src: str) -> List[Finding]:

@@ -25,11 +25,13 @@ and the winner's training)::
     deploy      = canaried - artifact_saved       (ingest + warm + canary)
     flip        = serving - canaried              (atomic swap + health)
 
-The reference bounds the SLO offline with analytic freshness budgets
-(train + warm + canary <= SLO at its shape) whose constants are a TPU's;
-the port has no such model yet (ROADMAP item 17), so this module is the
-measured side alone.  On the card the daemon stamps each boundary after
-the stage's device work is done, so a leg holds its own kernels.
+This module is the measured side; the bound is the analytic freshness
+model, ``analysis.budgets.staleness_model`` and ``FRESHNESS_BUDGETS``
+(train + warm + canary <= SLO at the reference shape), whose constants
+are the card's own figures (``chip_smoke.py`` phase 26 measures them and
+holds the model against this module's legs).  On the card the daemon
+stamps each boundary after the stage's device work is done, so a leg
+holds its own kernels.
 """
 
 from __future__ import annotations

@@ -138,9 +138,10 @@ def test_baseline_unknown_rule_id_names_the_ported_ones():
     bad = '[[suppress]]\nrule = "GL003"\npath = "p"\nreason = "r"\n'
     with pytest.raises(pbase.BaselineError,
                        match=r"unknown rule id 'GL003' \(known: GL000, "
-                             r"GL008, GL009, GL010, GL011\)"):
+                             r"GL008, GL009, GL010, GL011, GL014\)"):
         pbase.parse_baseline(bad)
-    assert RULE_IDS == ("GL000", "GL008", "GL009", "GL010", "GL011")
+    assert RULE_IDS == ("GL000", "GL008", "GL009", "GL010", "GL011",
+                        "GL014")
 
 
 def test_baseline_parse_suppress_and_exhaustion_as_the_reference():
@@ -259,3 +260,181 @@ def test_launch_budget_floor_fails_a_lost_measurement(monkeypatch):
         monkeypatch.setattr(LaunchBudget, "measure",
                             lambda self, m=measured: m)
         assert spec.check()["ok"] is ok, measured
+
+
+# -- the budget anchors and GL014 on the port ----------------------------
+
+
+def test_budget_anchors_all_live():
+    from lightgbm_tpu_torch.analysis.budgets import (BUDGET_ANCHORS,
+                                                     check_budget_anchors)
+    from lightgbm_tpu_torch.analysis.engine import REPO_ROOT
+
+    res = check_budget_anchors()
+    assert res and all(r["ok"] for r in res), [r for r in res if not r["ok"]]
+    # every section the reference anchors has its port counterpart, pinned
+    # to the port's files only
+    from lightgbm_tpu.analysis.budgets import BUDGET_ANCHORS as REF
+
+    assert set(BUDGET_ANCHORS) == set(REF)
+    assert all(rel.startswith("lightgbm_tpu_torch/")
+               for pins in BUDGET_ANCHORS.values() for rel, _ in pins)
+    assert pprog.parity_anchor_findings(REPO_ROOT) == []
+
+
+@pytest.mark.parametrize("pin,why", [
+    (("lightgbm_tpu_torch/data/stream_dp.py", "stream_dp_grow_tree"),
+     "not found at top level"),
+    (("lightgbm_tpu_torch/data/gone.py", "StreamMesh"),
+     "file missing or unparseable"),
+], ids=["renamed_symbol", "dead_file"])
+def test_budget_anchor_detects_renamed_symbol_and_dead_file(pin, why):
+    from lightgbm_tpu_torch.analysis.budgets import check_budget_anchors
+
+    res = check_budget_anchors({"stream_dp": (pin,)})
+    assert len(res) == 1 and not res[0]["ok"] and why in res[0]["why"]
+    assert res[0]["name"] == f"stream_dp:{pin[1]}"
+
+
+def test_gl014_real_tree_anchors_all_live():
+    from lightgbm_tpu_torch.analysis.engine import REPO_ROOT
+
+    assert pprog.parity_anchor_findings(REPO_ROOT) == []
+    assert len(pprog.PARITY_ANCHORS) == 8
+    assert pprog.PARITY_DOC == "lightgbm_tpu_torch/PARITY.md"
+
+
+def test_gl014_dead_symbol_fails_the_contract():
+    from lightgbm_tpu_torch.analysis.engine import REPO_ROOT
+
+    title = "Kill and resume: bit-identical"
+    anchors = {title: (("lightgbm_tpu_torch/training/checkpoint.py",
+                        "save_checkpoint_v2"),)}
+    fs = pprog.parity_anchor_findings(REPO_ROOT, anchors=anchors)
+    dead = [f for f in fs if "no longer exists" in f.message]
+    assert len(dead) == 1 and dead[0].rule == "GL014"
+    assert "save_checkpoint_v2" in dead[0].message
+    assert dead[0].path == "lightgbm_tpu_torch/PARITY.md" and dead[0].line > 1
+
+
+def test_gl014_missing_module_fails_the_contract():
+    from lightgbm_tpu_torch.analysis.engine import REPO_ROOT
+
+    anchors = {"Kill and resume: bit-identical": (
+        ("lightgbm_tpu_torch/training/gone.py", "save_checkpoint"),)}
+    fs = pprog.parity_anchor_findings(REPO_ROOT, anchors=anchors)
+    gone = [f for f in fs if "missing or unparseable" in f.message]
+    assert len(gone) == 1 and "training/gone.py" in gone[0].message
+
+
+def test_gl014_stale_anchor_key_fires():
+    from lightgbm_tpu_torch.analysis.engine import REPO_ROOT
+
+    anchors = {"A contract heading that was renamed away": ()}
+    fs = pprog.parity_anchor_findings(REPO_ROOT, anchors=anchors)
+    stale = [f for f in fs if "no such heading" in f.message]
+    assert len(stale) == 1 and stale[0].line == 1
+
+
+@pytest.mark.parametrize("mod", [rprog, pprog], ids=["reference", "port"])
+def test_gl014_unanchored_claim_fires_at_its_heading(mod):
+    doc = ("# parity\n\n## Some new kernel rule\n\n"
+           "The fused path is bit-identical to the scan path.\n")
+    fs = mod.parity_anchor_findings("/nonexistent", anchors={}, parity_md=doc)
+    assert [(f.line, f.rule) for f in fs] == [(3, "GL014")]
+    assert "no PARITY_ANCHORS entry" in fs[0].message
+
+
+@pytest.mark.parametrize("mod", [rprog, pprog], ids=["reference", "port"])
+def test_gl014_table_rows_are_not_claims(mod):
+    doc = ("# parity\n\n## Feature inventory\n\n"
+           "| knob | behavior |\n|---|---|\n"
+           "| unknown-param tolerance | warn |\n")
+    assert mod.parity_anchor_findings("/x", anchors={}, parity_md=doc) == []
+
+
+def test_gl014_missing_parity_doc_with_live_anchors():
+    fs = pprog.parity_anchor_findings("/nonexistent",
+                                      anchors=pprog.PARITY_ANCHORS)
+    assert len(fs) == 1 and "missing" in fs[0].message
+    assert fs[0].line == 1
+    assert pprog.parity_anchor_findings("/nonexistent", anchors={}) == []
+
+
+def test_gl014_every_port_contract_is_claim_bearing_and_anchored():
+    from lightgbm_tpu_torch.analysis.engine import REPO_ROOT
+
+    with open(os.path.join(REPO_ROOT, pprog.PARITY_DOC),
+              encoding="utf-8") as f:
+        doc = f.read()
+    sections = pprog._parity_sections(doc)
+    assert set(sections) == set(pprog.PARITY_ANCHORS)
+    for title, pins in pprog.PARITY_ANCHORS.items():
+        assert any(rel.startswith("tests/test_torch_") for rel, _ in pins)
+        assert any(rel.startswith("lightgbm_tpu_torch/") for rel, _ in pins)
+    # drop one anchor entry: its section's claim fires at its heading
+    title = "Streamed training equals in-memory training"
+    anchors = {k: v for k, v in pprog.PARITY_ANCHORS.items() if k != title}
+    fs = pprog.parity_anchor_findings(REPO_ROOT, anchors=anchors)
+    assert [f.line for f in fs] == [sections[title][0]]
+
+
+@pytest.fixture(scope="module")
+def tree_report():
+    """The port tree's layer-1 report, linted once for the CLI tests below
+    (``test_port_tree_lints_clean_with_its_baseline`` runs the real one)."""
+    return run_lint()
+
+
+@pytest.fixture
+def cached_lint(monkeypatch, tree_report):
+    import lightgbm_tpu_torch.analysis.cli as cli
+
+    monkeypatch.setattr(cli, "run_lint", lambda *a, **k: tree_report)
+
+
+def test_lint_default_pass_runs_every_section_on_the_port(capsys,
+                                                           cached_lint):
+    """The default pass prints the reference's sections (the VMEM and
+    recompile ones are not ported), each known card miss as [MISS] with its
+    ROADMAP entry, and exits 0; JSON and GitHub formats agree."""
+    import json
+
+    from lightgbm_tpu_torch.analysis.budgets import CARD_MISSES
+
+    assert lint_main(["--format", "json"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    sections = ("comm_budgets", "comm_time", "stream_time", "stream_dp",
+                "serve_slo", "ckpt", "freshness", "sweep", "screen",
+                "budget_anchors")
+    assert rep["ok"] and set(rep) == {"layer1", "ok", *sections}
+    misses = {r["name"]: r["known_miss"] for k in sections for r in rep[k]
+              if not r["ok"]}
+    assert misses == CARD_MISSES
+    assert lint_main([]) == 0
+    out = capsys.readouterr().out
+    for key in sections:
+        assert f"] {key}:" in out, key
+    assert out.count("[MISS]") == len(CARD_MISSES)
+    assert "[FAIL]" not in out
+    assert out.rstrip().endswith("budget models ok")
+    assert lint_main(["--format", "github"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(CARD_MISSES)
+    assert all(ln.startswith("::warning title=graftlint ") for ln in lines)
+
+
+def test_lint_fails_on_a_new_or_stale_card_miss(monkeypatch, capsys,
+                                                cached_lint):
+    import lightgbm_tpu_torch.analysis.budgets as B
+
+    name = next(iter(B.CARD_MISSES))
+    monkeypatch.setattr(B, "CARD_MISSES",
+                        {k: v for k, v in B.CARD_MISSES.items() if k != name})
+    assert lint_main(["-q"]) == 1
+    assert lint_main(["--format", "github"]) == 1
+    assert "::error title=graftlint " in capsys.readouterr().out
+    monkeypatch.setattr(B, "CARD_MISSES", dict(B.CARD_MISSES,
+                                               hist_rs_d8="ROADMAP C.9"))
+    assert lint_main([]) == 1
+    assert "but passes: stale" in capsys.readouterr().out

@@ -2268,3 +2268,42 @@ def test_card_launch_budgets_hold():
                                 if b.where == "card"])
     assert len(res) == 3
     assert all(r["ok"] for r in res), res
+
+
+# ranges a figure of this card must lie in, stated up front (not tuned to a
+# run): a PCIe Gen5 x16 link carries at most 64 GB/s each way; a copy
+# inside HBM cannot beat HBM's 3.35 TB/s; latencies and legs are positive
+# and under a second; ratios are positive
+H2D_MAX_BYTES_PER_S, HBM_BYTES_PER_S = 64e9, 3.35e12
+
+
+@pytest.mark.gpu
+def test_budget_constants_measured_on_card(tmp_path):
+    """Phase 26's own measurements (``chip_smoke.py``) on the card: the
+    virtual-shard link, B1's histogram rate at the reference block, the
+    host->device copies, B4's dispatch and the scores' copy back, a new
+    bucket's first dispatch, the canary's replay, the checkpoint's legs:
+    each finite and within its plausible range."""
+    import chip_smoke as C
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serving import pack_booster
+
+    dev = _card()
+    X, y = _stream_frame()
+    booster = lgb.train({"objective": "binary", "num_leaves": 31,
+                         "verbose": -1},
+                        lgb.Dataset(X, label=y, device=dev), 5)
+    c = {}
+    for got, _ in (C.p26_link(dev), C.p26_hist(dev), C.p26_h2d(dev),
+                   C.p26_ckpt(str(tmp_path))):
+        c.update(got)
+    srv, warm, canary, _ = C.p26_serve(dev, pack_booster(booster))
+    c.update(srv, **warm, **canary)
+    assert all(np.isfinite(v) and v > 0 for v in c.values()), c
+    assert c["H2D_BYTES_PER_S"] <= H2D_MAX_BYTES_PER_S, c
+    assert c["LINK_BYTES_PER_S"] < HBM_BYTES_PER_S, c
+    assert c["HIST_EQUIV_FLOPS"] > 0
+    for name in ("LINK_HOP_LATENCY_S", "H2D_PUT_LATENCY_S",
+                 "SERVE_DISPATCH_FIXED_S", "WARM_S_PER_SHAPE",
+                 "CKPT_FIXED_LATENCY_S", "CANARY_ORACLE_S_PER_ROW_TREE"):
+        assert c[name] < 1.0, (name, c[name])
